@@ -1,0 +1,64 @@
+"""Carry parameters and decode states over from the JAX package.
+
+Both functions take the JAX trees with their leaves as numpy arrays
+(``jax.tree.map(np.asarray, tree)``), so this module needs neither JAX
+nor ``repro``. Dense weights keep their (d_in, d_out) layout and stacked
+groups their leading repeat axis: the port's trees have the same shape
+as the JAX ones, and both sides compute from the same numbers.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.attention import AttnState
+
+
+def _tensor(x, device) -> torch.Tensor:
+    """A tensor that owns a copy of ``x``: the port updates decode states
+    in place, which must never write through to the caller's arrays."""
+    a = np.asarray(x)
+    if a.dtype.name == "bfloat16":        # ml_dtypes: no numpy→torch path
+        return torch.tensor(a.astype(np.float32), device=device,
+                            dtype=torch.bfloat16)
+    return torch.tensor(a, device=device)
+
+
+def _tree(x, device):
+    if isinstance(x, dict):
+        return {k: _tree(v, device) for k, v in x.items()}
+    if isinstance(x, (tuple, list)):
+        return tuple(_tree(v, device) for v in x)
+    return _tensor(x, device)
+
+
+def params_from_jax(np_tree: Any, cfg: ModelConfig, *,
+                    device: Optional[torch.device] = None) -> dict:
+    """Convert the ``repro.models.lm.init_params`` tree: ``embed``,
+    ``stack`` (per pattern position, leaves with a leading repeat axis),
+    ``tail``, ``final_norm`` and ``lm_head`` unless embeddings are tied.
+    The JAX ``shared`` entry must be empty: the port has no
+    ``shared_attn`` blocks."""
+    if np_tree.get("shared"):
+        raise NotImplementedError("shared_attn parameters are not ported")
+    keys = ["embed", "stack", "tail", "final_norm"]
+    if not cfg.tie_embeddings:
+        keys.append("lm_head")
+    return {k: _tree(np_tree[k], device) for k in keys}
+
+
+def _attn_state(st, device) -> AttnState:
+    return AttnState(s=_tensor(st.s, device),
+                     z=None if st.z is None else _tensor(st.z, device))
+
+
+def state_from_jax(np_state: Any, *,
+                   device: Optional[torch.device] = None) -> dict:
+    """Convert a JAX decode state {"stack": (AttnState, ...), "tail":
+    (...)} of the linear backend (k_cache/v_cache None; s, z as numpy)."""
+    return {part: tuple(_attn_state(st, device) for st in np_state[part])
+            for part in ("stack", "tail")}

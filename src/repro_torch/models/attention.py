@@ -1,0 +1,286 @@
+"""GQA attention, linear backend (port of ``repro/models/attention.py``).
+
+The paper's §3 mechanism in untied (q, k, v) form: chunk-parallel causal
+linear attention for prefill, and a fixed-size (Dk×Dv per head) decode
+state advanced by the fused W-step recurrence — the CUDA kernel for CUDA
+tensors (``kernels/fused_recurrent``).
+
+Heads are laid out as in the JAX package: q projects to (G, Hkv, Dh)
+with G = H / Hkv groups, the flat head index is g·Hkv + kv_head, and
+k / v are broadcast over the G groups in that order, so states carried
+over from JAX line up head for head. Sharding has no counterpart here;
+with null rules head padding is the identity.
+
+The decode functions update the state tensors in place and return them.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, NamedTuple, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.linear_attention import causal_linear_attention_chunked
+from repro_torch.kernels.fused_recurrent import ops as FR
+from repro_torch.kernels.fused_recurrent import ref as FRref
+from repro_torch.models import layers as L
+
+Tensor = torch.Tensor
+Params = Dict[str, Tensor]
+
+
+def _require_linear(cfg: ModelConfig) -> None:
+    if cfg.attention_backend != "linear" or cfg.feature_gate:
+        raise NotImplementedError(
+            f"{cfg.name}: the port serves attention_backend='linear' "
+            f"without feature_gate only (got {cfg.attention_backend!r})")
+
+
+# ---------------------------------------------------------------------------
+# feature maps
+# ---------------------------------------------------------------------------
+
+def feature_map(x: Tensor, kind: str) -> Tensor:
+    """φ applied to q/k before the linear-attention inner product."""
+    if kind == "identity":
+        return x
+    if kind == "elu1":
+        return F.elu(x) + 1.0
+    if kind == "relu":
+        return F.relu(x)
+    raise ValueError(f"unknown feature map {kind!r}")
+
+
+# ---------------------------------------------------------------------------
+# params
+# ---------------------------------------------------------------------------
+
+def attention_params(gen: torch.Generator, cfg: ModelConfig, *,
+                     lead: Tuple[int, ...] = (),
+                     dtype=torch.float32) -> Params:
+    _require_linear(cfg)
+    d, h, hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    p = {
+        "wq": L.dense_init(gen, d, h * dh, lead=lead, dtype=dtype),
+        "wk": L.dense_init(gen, d, hkv * dh, lead=lead, dtype=dtype),
+        "wv": L.dense_init(gen, d, hkv * dh, lead=lead, dtype=dtype),
+        "wo": L.dense_init(gen, h * dh, d, lead=lead, dtype=dtype),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = torch.ones((*lead, dh), dtype=dtype, device=gen.device)
+        p["k_norm"] = torch.ones((*lead, dh), dtype=dtype, device=gen.device)
+    return p
+
+
+# ---------------------------------------------------------------------------
+# decode state
+# ---------------------------------------------------------------------------
+
+class AttnState(NamedTuple):
+    """Linear decode state: s (B, H, Dk, Dv) fp32 matrix state and z
+    (B, H, Dk) fp32 key-sum normaliser (None without ``linear_normalize``)
+    — the paper's fixed-size representation; O(1) in context."""
+    s: Tensor
+    z: Optional[Tensor]
+
+
+def init_attn_state(cfg: ModelConfig, batch: int, *,
+                    lead: Tuple[int, ...] = (), device=None) -> AttnState:
+    _require_linear(cfg)
+    h, dh = cfg.n_heads, cfg.head_dim
+    z = (torch.zeros((*lead, batch, h, dh), dtype=torch.float32,
+                     device=device) if cfg.linear_normalize else None)
+    return AttnState(
+        s=torch.zeros((*lead, batch, h, dh, dh), dtype=torch.float32,
+                      device=device), z=z)
+
+
+# ---------------------------------------------------------------------------
+# projection plumbing
+# ---------------------------------------------------------------------------
+
+def _head_rmsnorm(x: Tensor, scale: Tensor, eps: float = 1e-6) -> Tensor:
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+
+
+def _project_qkv(p: Params, x: Tensor, cfg: ModelConfig
+                 ) -> Tuple[Tensor, Tensor, Tensor]:
+    """x: (B, T, D) → q (B, G, Hkv, T, Dh), k/v (B, Hkv, T, Dh)."""
+    b, t, _ = x.shape
+    h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    g = h // hkv
+    q = (x @ p["wq"].to(x.dtype)).reshape(b, t, g, hkv, dh)
+    k = (x @ p["wk"].to(x.dtype)).reshape(b, t, hkv, dh)
+    v = (x @ p["wv"].to(x.dtype)).reshape(b, t, hkv, dh)
+    q = q.permute(0, 2, 3, 1, 4)               # (B, G, Hkv, T, Dh)
+    k = k.permute(0, 2, 1, 3)                  # (B, Hkv, T, Dh)
+    v = v.permute(0, 2, 1, 3)
+    if cfg.qk_norm:                            # qk-norm before RoPE
+        q = _head_rmsnorm(q, p["q_norm"])
+        k = _head_rmsnorm(k, p["k_norm"])
+    return q, k, v
+
+
+def _merge_heads(p: Params, o: Tensor, x_dtype) -> Tensor:
+    """o: (B, G, Hkv, T, Dh) → (B, T, D) through wo."""
+    b, g, hkv, t, dh = o.shape
+    o = o.permute(0, 3, 1, 2, 4).reshape(b, t, g * hkv * dh)
+    return o.to(x_dtype) @ p["wo"].to(x_dtype)
+
+
+def _apply_rot(x: Tensor, c: Tensor, s: Tensor) -> Tensor:
+    """Split-half rotation (not interleaved), in fp32."""
+    xf = x.float()
+    x1, x2 = xf.chunk(2, dim=-1)
+    return torch.cat([x1 * c - x2 * s, x1 * s + x2 * c], dim=-1).to(x.dtype)
+
+
+def _rope(q: Tensor, k: Tensor, positions: Tensor, cfg: ModelConfig
+          ) -> Tuple[Tensor, Tensor]:
+    """positions: (T,) shared, (B,) single-token decode, or (B, T)
+    per-sequence windows; q (B,G,Hkv,T,D), k (B,Hkv,T,D)."""
+    cos, sin = L.rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+    if positions.ndim == 2:                              # (B, T) window
+        c, s = cos[:, None, None], sin[:, None, None]    # (B,1,1,T,D/2)
+    elif positions.ndim == 1 and q.shape[3] == positions.shape[0]:
+        c, s = cos[None, None, None], sin[None, None, None]
+    else:                                                # decode: (B,)
+        c = cos[:, None, None, None]
+        s = sin[:, None, None, None]
+    q = _apply_rot(q, c, s)
+    k = _apply_rot(k, c[:, :, 0] if c.ndim == 5 else c,
+                   s[:, :, 0] if s.ndim == 5 else s)
+    return q, k
+
+
+def _heads(q: Tensor, k: Tensor, v: Tensor, cfg: ModelConfig
+           ) -> Tuple[Tensor, Tensor, Tensor]:
+    """Feature-mapped per-q-head view (B, H, T, Dh): q flattened over
+    (G, Hkv), k and v broadcast over the G groups."""
+    b, g, hkv, t, dh = q.shape
+    h = g * hkv
+    qf = feature_map(q, cfg.feature_map)
+    kf = feature_map(k, cfg.feature_map)
+    qh = qf.reshape(b, h, t, dh)
+    kh = kf[:, None].expand(b, g, hkv, t, dh).reshape(b, h, t, dh)
+    vh = v[:, None].expand(b, g, hkv, t, dh).reshape(b, h, t, dh)
+    return qh, kh, vh
+
+
+# ---------------------------------------------------------------------------
+# full-sequence forward (prefill)
+# ---------------------------------------------------------------------------
+
+def attention_apply(
+    p: Params,
+    x: Tensor,
+    cfg: ModelConfig,
+    *,
+    want_state: bool = False,
+) -> Tuple[Tensor, Optional[AttnState]]:
+    """Full-sequence attention, forward only. x: (B, T, D) → (B, T, D).
+
+    ``want_state=True`` also returns the decode state after the last
+    position: the chunked final state and z = Σ_t k_t, a plain fp32 sum.
+    """
+    _require_linear(cfg)
+    b, t, _ = x.shape
+    h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q, k, v = _project_qkv(p, x, cfg)
+    if cfg.rope:
+        q, k = _rope(q, k, torch.arange(t, device=x.device), cfg)
+    qh, kh, vh = _heads(q, k, v, cfg)
+    o_h, s_f = causal_linear_attention_chunked(
+        qh, kh, vh, chunk_size=cfg.linear_chunk,
+        normalize=cfg.linear_normalize)
+    state = None
+    if want_state:
+        zf = kh.float().sum(dim=2) if cfg.linear_normalize else None
+        state = AttnState(s=s_f, z=zf)
+    o = o_h.reshape(b, h // hkv, hkv, t, dh)
+    return _merge_heads(p, o, x.dtype), state
+
+
+# ---------------------------------------------------------------------------
+# single-token / windowed decode
+# ---------------------------------------------------------------------------
+
+def _recurrent_linear(s, q, k, v, z, cfg: ModelConfig, lens=None):
+    """W-step linear decode recurrence behind ``cfg.decode_kernel``; s and
+    z are updated in place. "auto"/"fused" go through the kernel wrapper
+    (the CUDA kernel for CUDA tensors); "reference" asks for the plain
+    PyTorch version explicitly. Shapes: s (B,H,Dk,Dv); q,k (B,H,W,Dk);
+    v (B,H,W,Dv); z (B,H,Dk)|None; lens (B,)|None."""
+    if cfg.decode_kernel == "reference":
+        o, s_new, z_new = FRref.fused_recurrent_linear_ref(
+            s, q, k, v, z=z, normalize=cfg.linear_normalize, lens=lens)
+        s.copy_(s_new)
+        if z_new is None:
+            return o, s, None
+        z.copy_(z_new)
+        return o, s, z
+    return FR.fused_recurrent_linear(
+        s, q, k, v, z=z, normalize=cfg.linear_normalize, lens=lens)
+
+
+def attention_decode(
+    p: Params,
+    x: Tensor,
+    state: AttnState,
+    pos: Tensor,
+    cfg: ModelConfig,
+) -> Tuple[Tensor, AttnState]:
+    """One decode step. x: (B, D); pos: () shared position or (B,)
+    per-sequence positions. O(k²) per head, independent of pos. The state
+    is updated in place."""
+    _require_linear(cfg)
+    b, _ = x.shape
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
+    q, k, v = _project_qkv(p, x[:, None, :], cfg)
+    if cfg.rope:
+        q, k = _rope(q, k, pos.expand(b), cfg)
+    qh, kh, vh = _heads(q, k, v, cfg)                  # (B, H, 1, Dh)
+    o_w, s_new, z_new = _recurrent_linear(state.s, qh, kh, vh, state.z, cfg)
+    o = o_w.reshape(b, cfg.n_heads // cfg.n_kv_heads, cfg.n_kv_heads, 1,
+                    cfg.head_dim)
+    return _merge_heads(p, o, x.dtype)[:, 0], AttnState(s=s_new, z=z_new)
+
+
+def attention_decode_window(
+    p: Params,
+    x: Tensor,
+    state: AttnState,
+    pos0: Tensor,
+    cfg: ModelConfig,
+    *,
+    lens: Optional[Tensor] = None,
+) -> Tuple[Tensor, AttnState]:
+    """Decode W known tokens in one fused kernel launch.
+
+    x: (B, W, D); pos0: () position of the first token, or (B,)
+    per-sequence window starts. ``lens``: (B,) per-row valid window
+    lengths — row b advances only its first lens[b] tokens (lens=0 rows
+    keep their state bit for bit). The state is updated in place.
+    """
+    _require_linear(cfg)
+    b, w, _ = x.shape
+    q, k, v = _project_qkv(p, x, cfg)
+    if cfg.rope:
+        pos0 = torch.as_tensor(pos0, dtype=torch.int32, device=x.device)
+        steps = torch.arange(w, device=x.device)
+        positions = (pos0[:, None] + steps if pos0.ndim == 1
+                     else pos0 + steps)
+        q, k = _rope(q, k, positions, cfg)
+    qh, kh, vh = _heads(q, k, v, cfg)
+    if lens is not None:
+        lens = torch.as_tensor(lens, device=x.device).to(torch.int32)
+        lens = lens.clamp(0, w)
+    o_w, s_new, z_new = _recurrent_linear(state.s, qh, kh, vh, state.z, cfg,
+                                          lens=lens)
+    o = o_w.reshape(b, cfg.n_heads // cfg.n_kv_heads, cfg.n_kv_heads, w,
+                    cfg.head_dim)
+    return _merge_heads(p, o, x.dtype), AttnState(s=s_new, z=z_new)

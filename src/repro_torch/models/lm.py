@@ -1,0 +1,270 @@
+"""Language model over a stack of ``attn`` blocks (port of
+``repro/models/lm.py``: prefill, decode and generation).
+
+Parameters and states keep the JAX package's tree: ``embed`` (V, D),
+``stack`` — a tuple with one entry per ``layer_pattern`` position whose
+leaves carry a leading repeat axis R — ``tail``, ``final_norm`` and
+``lm_head`` unless embeddings are tied. Layer r of a stacked group is
+the view ``leaf[r]``, so the decode kernels update a layer's state
+inside the stacked tensor in place.
+
+Unlike the JAX functions, which are pure, every decode function here
+updates the decode state it is given in place and returns it: the state
+of the whole model is hundreds of MiB at full width, and a copy per
+token would cost more than the decode itself.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import blocks as B
+from repro_torch.models import layers as L
+from repro_torch.models.attention import AttnState
+
+Tensor = torch.Tensor
+Params = Dict[str, Any]
+State = Dict[str, Tuple[AttnState, ...]]
+
+
+def dtype_of(name: str) -> torch.dtype:
+    return {"bfloat16": torch.bfloat16, "float32": torch.float32,
+            "float16": torch.float16}[name]
+
+
+def _at(tree: Any, r: int) -> Any:
+    """Layer r of a stacked parameter or state tree (views, no copies)."""
+    if isinstance(tree, dict):
+        return {k: _at(v, r) for k, v in tree.items()}
+    if isinstance(tree, AttnState):
+        return AttnState(s=tree.s[r], z=None if tree.z is None else tree.z[r])
+    return tree[r]
+
+
+def _stack_states(states) -> AttnState:
+    return AttnState(
+        s=torch.stack([st.s for st in states]),
+        z=(None if states[0].z is None
+           else torch.stack([st.z for st in states])))
+
+
+# ---------------------------------------------------------------------------
+# parameters and state
+# ---------------------------------------------------------------------------
+
+def init_params(gen: torch.Generator, cfg: ModelConfig) -> Params:
+    """Random parameters drawn from ``gen``, on ``gen.device``, in
+    ``cfg.param_dtype``."""
+    pdt = dtype_of(cfg.param_dtype)
+    pattern, reps, tail = cfg.pattern_and_repeats
+    params: Params = {
+        "embed": L.embed_init(gen, cfg.vocab_size, cfg.d_model, dtype=pdt),
+        "final_norm": L.rmsnorm_params(cfg.d_model, dtype=pdt,
+                                       device=gen.device),
+        "stack": tuple(B.block_params(kind, gen, cfg, lead=(reps,),
+                                      dtype=pdt) for kind in pattern),
+        "tail": tuple(B.block_params(kind, gen, cfg, dtype=pdt)
+                      for kind in tail),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = L.dense_init(gen, cfg.d_model, cfg.vocab_size,
+                                         dtype=pdt)
+    return params
+
+
+def cast_params(params: Params, dtype: torch.dtype) -> Params:
+    """Cast float matrices (ndim ≥ 2) to the compute dtype; norm scales
+    and other vectors stay fp32. Tensors already in ``dtype`` are reused,
+    not copied."""
+    def cast(x):
+        if isinstance(x, dict):
+            return {k: cast(v) for k, v in x.items()}
+        if isinstance(x, tuple):
+            return tuple(cast(v) for v in x)
+        if x.ndim >= 2 and x.is_floating_point():
+            return x.to(dtype)
+        return x
+    return cast(params)
+
+
+def init_decode_state(cfg: ModelConfig, batch: int, *, device=None) -> State:
+    """Zero decode state: fixed-size (Dk×Dv per head) matrices, O(1) in
+    context length."""
+    pattern, reps, tail = cfg.pattern_and_repeats
+    return {
+        "stack": tuple(B.block_state_init(k, cfg, batch, lead=(reps,),
+                                          device=device) for k in pattern),
+        "tail": tuple(B.block_state_init(k, cfg, batch, device=device)
+                      for k in tail),
+    }
+
+
+def pad_decode_state(states: State, cfg: ModelConfig, max_len: int) -> State:
+    """The identity: linear-family states are fixed-size, there is no KV
+    cache to grow to ``max_len``."""
+    return states
+
+
+def state_bytes(states: State) -> int:
+    return sum(t.nbytes for group in states.values() for st in group
+               for t in st if t is not None)
+
+
+# ---------------------------------------------------------------------------
+# forward (prefill)
+# ---------------------------------------------------------------------------
+
+def _head(params: Params, x: Tensor, cfg: ModelConfig) -> Tensor:
+    adt = dtype_of(cfg.dtype)
+    x = L.apply_norm(cfg.norm, params["final_norm"], x)
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return x.to(adt) @ head.to(adt)
+
+
+def _trunk(params: Params, tokens: Tensor, cfg: ModelConfig,
+           want_state: bool) -> Tuple[Tensor, Optional[State]]:
+    """Embed + every block. Returns (hidden (B, T, D), states|None)."""
+    pattern, reps, tail = cfg.pattern_and_repeats
+    x = params["embed"][tokens]
+    stack_states = [[] for _ in pattern]
+    for r in range(reps):
+        for i, kind in enumerate(pattern):
+            x, st = B.block_apply(kind, _at(params["stack"][i], r), x, cfg,
+                                  want_state=want_state)
+            stack_states[i].append(st)
+    tail_states = []
+    for i, kind in enumerate(tail):
+        x, st = B.block_apply(kind, params["tail"][i], x, cfg,
+                              want_state=want_state)
+        tail_states.append(st)
+    if not want_state:
+        return x, None
+    return x, {"stack": tuple(_stack_states(s) for s in stack_states),
+               "tail": tuple(tail_states)}
+
+
+def forward(params: Params, tokens: Tensor, cfg: ModelConfig, *,
+            want_state: bool = False) -> Tuple[Tensor, Optional[State]]:
+    """tokens: (B, T) int → (logits (B, T, V), states|None). Forward
+    only: the training backward is not ported."""
+    params = cast_params(params, dtype_of(cfg.dtype))
+    x, states = _trunk(params, tokens, cfg, want_state)
+    return _head(params, x, cfg), states
+
+
+def prefill(params: Params, tokens: Tensor, cfg: ModelConfig
+            ) -> Tuple[Tensor, State]:
+    """Encode a prompt into the fixed-size per-layer states. Returns
+    (last-position logits (B, V), decode states); the head runs on the
+    last position only."""
+    params = cast_params(params, dtype_of(cfg.dtype))
+    x, states = _trunk(params, tokens, cfg, want_state=True)
+    return _head(params, x[:, -1], cfg), states
+
+
+# ---------------------------------------------------------------------------
+# decode
+# ---------------------------------------------------------------------------
+
+def _decode_blocks(params: Params, state: State, x: Tensor, pos: Tensor,
+                   cfg: ModelConfig, block_fn, **block_kw) -> Tensor:
+    """Run ``block_fn`` (single-token or window decode) through every
+    block, updating each layer's state view in place."""
+    pattern, reps, tail = cfg.pattern_and_repeats
+    for r in range(reps):
+        for i, kind in enumerate(pattern):
+            x, _ = block_fn(kind, _at(params["stack"][i], r), x,
+                            _at(state["stack"][i], r), pos, cfg, **block_kw)
+    for i, kind in enumerate(tail):
+        x, _ = block_fn(kind, params["tail"][i], x, state["tail"][i], pos,
+                        cfg, **block_kw)
+    return x
+
+
+def decode_step(params: Params, state: State, token: Tensor, pos,
+                cfg: ModelConfig) -> Tuple[Tensor, State]:
+    """One autoregressive step. token: (B,) int; pos: () shared position
+    or (B,) per-sequence positions. Returns (logits (B, V), state) with
+    the state updated in place. O(k²) per layer, independent of pos."""
+    params = cast_params(params, dtype_of(cfg.dtype))
+    x = params["embed"][token].to(dtype_of(cfg.dtype))
+    x = _decode_blocks(params, state, x, pos, cfg, B.block_decode)
+    return _head(params, x, cfg), state
+
+
+def sample_token(logits: Tensor, temperature: float,
+                 generator: Optional[torch.Generator] = None) -> Tensor:
+    """logits: (B, V) → (B,) int64. temperature 0.0 = greedy (argmax,
+    first maximum on ties); > 0 = categorical draw from ``generator``."""
+    if temperature and temperature > 0.0:
+        if generator is None:
+            raise ValueError("temperature sampling needs a torch.Generator")
+        probs = torch.softmax(logits.float() / temperature, dim=-1)
+        return torch.multinomial(probs, 1, generator=generator)[:, 0]
+    return torch.argmax(logits, dim=-1)
+
+
+def generate(params: Params, state: State, tok0: Tensor, pos0: int,
+             n_steps: int, cfg: ModelConfig, *, temperature: float = 0.0,
+             generator: Optional[torch.Generator] = None
+             ) -> Tuple[Tensor, State]:
+    """``n_steps`` autoregressive decode steps from token ``tok0`` (B,) at
+    position ``pos0``. Returns (tokens (B, n_steps), state) where
+    tokens[:, i] is the token sampled after consuming the i-th input; the
+    state is updated in place. Each step launches the decode kernel once
+    per layer."""
+    if temperature and temperature > 0.0 and generator is None:
+        raise ValueError("temperature sampling needs a torch.Generator")
+    params = cast_params(params, dtype_of(cfg.dtype))   # once, not per step
+    positions = torch.arange(pos0, pos0 + n_steps, dtype=torch.int32,
+                             device=tok0.device)
+    tok = tok0
+    toks = []
+    for pos in positions:
+        logits, state = decode_step(params, state, tok, pos, cfg)
+        tok = sample_token(logits, temperature, generator)
+        toks.append(tok)
+    if not toks:
+        return tok0.new_zeros((tok0.shape[0], 0)), state
+    return torch.stack(toks, dim=1), state
+
+
+def _window_forward(params: Params, state: State, tokens: Tensor, pos0,
+                    cfg: ModelConfig, **block_kw) -> Tuple[Tensor, State]:
+    params = cast_params(params, dtype_of(cfg.dtype))
+    x = params["embed"][tokens].to(dtype_of(cfg.dtype))
+    x = _decode_blocks(params, state, x, pos0, cfg, B.block_decode_window,
+                       **block_kw)
+    return _head(params, x, cfg), state
+
+
+def decode_window(params: Params, state: State, tokens: Tensor, pos0,
+                  cfg: ModelConfig) -> Tuple[Tensor, State]:
+    """Advance the state over W known tokens, one fused kernel launch per
+    layer. tokens: (B, W); pos0: () or (B,) start positions. Returns
+    (logits (B, W, V), state), logits[:, i] the next-token distribution
+    after tokens[:, i]; the state is updated in place."""
+    pos0 = torch.as_tensor(pos0, dtype=torch.int32, device=tokens.device)
+    return _window_forward(params, state, tokens, pos0, cfg)
+
+
+def decode_window_varlen(params: Params, state: State, tokens: Tensor, pos0,
+                         lens, cfg: ModelConfig, *,
+                         active: Optional[Tensor] = None
+                         ) -> Tuple[Tensor, State]:
+    """Variable-length window: row b consumes tokens[b, :lens[b]] from
+    position pos0[b] (0 ≤ lens ≤ W); ``active`` False rows behave as
+    lens = 0. Masked rows and steps leave the state bit for bit as it was;
+    their logits are garbage. Returns (logits (B, W, V), state)."""
+    b, w = tokens.shape
+    pos0 = torch.as_tensor(pos0, dtype=torch.int32,
+                           device=tokens.device).expand(b)
+    lens = torch.as_tensor(lens, device=tokens.device).to(torch.int32)
+    lens = lens.clamp(0, w)
+    if active is not None:
+        lens = torch.where(torch.as_tensor(active, device=tokens.device),
+                           lens, 0)
+    return _window_forward(params, state, tokens, pos0, cfg, lens=lens)

@@ -1,0 +1,154 @@
+"""The port's CUDA kernels against their plain PyTorch versions on the
+card. Every test here needs a CUDA device and skips without one. This
+file imports neither JAX nor ``repro``, so it also runs where JAX is not
+installed:
+
+    PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+"""
+
+import dataclasses
+
+import pytest
+import torch
+
+from repro_torch.configs import get_smoke_config
+from repro_torch.kernels.fused_recurrent import ops, ref
+from repro_torch.models import lm
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    # the plain versions are references: full fp32 matmuls
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _rows(dev, n, w, d, dtype, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    r = lambda *shape: torch.randn(shape, generator=g, device=dev)
+    return dict(s=r(n, d, d), q=(r(n, w, d).abs() + 0.1).to(dtype),
+                k=(r(n, w, d).abs() + 0.1).to(dtype), v=r(n, w, d).to(dtype),
+                z=r(n, d).abs() + 0.5)
+
+
+@pytest.mark.parametrize("d", [16, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("normalize", [False, True])
+@pytest.mark.parametrize("varlen", [False, True])
+def test_decode_linear_matches_plain_version(dev, d, dtype, normalize,
+                                             varlen):
+    n, w = 24, 5
+    x = _rows(dev, n, w, d, dtype)
+    lens = (torch.arange(n, dtype=torch.int32, device=dev) % (w + 1)
+            if varlen else None)
+    z = x["z"] if normalize else None
+    o_r, s_r, z_r = ref.fused_recurrent_linear_ref(
+        x["s"][:, None], x["q"][:, None], x["k"][:, None], x["v"][:, None],
+        z=None if z is None else z[:, None], normalize=normalize, lens=lens)
+    s = x["s"].clone()
+    zk = None if z is None else z.clone()
+    before = ops.decode_linear.launches
+    o, s_out, z_out = ops.decode_linear(s, x["q"], x["k"], x["v"], z=zk,
+                                        normalize=normalize, lens=lens)
+    torch.cuda.synchronize()
+    assert ops.decode_linear.launches == before + 1
+    assert s_out is s and z_out is zk
+    # the state update is the same multiply and add: same bits
+    torch.testing.assert_close(s, s_r[:, 0], rtol=1e-5, atol=1e-6)
+    if normalize:
+        torch.testing.assert_close(zk, z_r[:, 0], rtol=1e-5, atol=1e-6)
+    # o: fp32 sums in another order, then rounded to o's type
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(o.float(), o_r[:, 0].float(), rtol=tol,
+                               atol=tol)
+    if varlen:
+        idle = lens == 0
+        assert torch.equal(s[idle], x["s"][idle])
+        masked = torch.arange(w, device=dev)[None] >= lens[:, None]
+        assert torch.count_nonzero(o[masked]) == 0
+
+
+@pytest.mark.parametrize("d", [16, 128])
+def test_decode_linear_denominator_clamp_matches_plain_version(dev, d):
+    """Signed q, k, z (the identity feature map): the kernel's
+    sign-preserving clamp of q·z against the plain version's, for
+    q·z = 0 (-> +eps), q·z in (-eps, 0) (-> -eps), q·z of either sign
+    beyond eps, and a NaN normaliser (-> NaN)."""
+    n, w, eps = 24, 2, 1e-6
+    g = torch.Generator(device=dev).manual_seed(3)
+    r = lambda *shape: torch.randn(shape, generator=g, device=dev)
+    s, v, z = r(n, d, d), r(n, w, d), r(n, d)
+    q = r(n, 1, d).expand(n, w, d).contiguous()     # one q per row
+    k = r(n, w, d)
+    kind = torch.arange(n, device=dev) % 4
+    k[kind != 2] = 0.0                  # z stays as given through W
+    z[kind == 0] = 0.0                                  # q·z = 0
+    q0 = q[:, 0]
+    z[kind == 1] = (-1e-8 * q0 / (q0 * q0).sum(-1, keepdim=True))[kind == 1]
+    z[kind == 3, 0] = float("nan")
+    qz = (q0 * z).sum(-1)
+    assert (qz[kind == 0] == 0).all()
+    assert ((qz[kind == 1] < 0) & (qz[kind == 1] > -eps)).all()
+    assert (qz[kind == 2] < -eps).any() and (qz[kind == 2] > eps).any()
+
+    o_r, s_r, z_r = ref.fused_recurrent_linear_ref(
+        s[:, None], q[:, None], k[:, None], v[:, None], z=z[:, None],
+        normalize=True, eps=eps)
+    o_r, s_r, z_r = o_r[:, 0], s_r[:, 0], z_r[:, 0]
+    sk, zk = s.clone(), z.clone()
+    o, _, _ = ops.decode_linear(sk, q, k, v, z=zk, normalize=True, eps=eps)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(sk, s_r, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(zk, z_r, rtol=1e-5, atol=1e-6, equal_nan=True)
+    nan = kind == 3
+    assert o[nan].isnan().all() and o_r[nan].isnan().all()
+    # o = Sᵀq / denom: the numerators are fp32 sums taken in another
+    # order, so hold each row to its own scale (|o| reaches ~1e7 at ±eps)
+    scale = o_r.abs().amax(-1, keepdim=True)
+    assert ((o[~nan] - o_r[~nan]).abs() <= 1e-4 * scale[~nan]).all()
+    # the clamp keeps the sign: the -eps rows give -Sᵀq/eps, the +eps
+    # rows +Sᵀq/eps
+    num = torch.einsum("nkv,nk->nv", s_r, q0)
+    for kd, sign in ((0, 1.0), (1, -1.0)):
+        rows = kind == kd
+        err = (o[rows, 1] - sign * num[rows] / eps).abs()
+        assert (err <= 1e-4 * scale[rows, 1]).all()
+
+
+def test_decode_linear_rejects_unsupported_inputs(dev):
+    x = _rows(dev, 4, 2, 16, torch.float32)
+    with pytest.raises(ValueError):
+        ops.decode_linear(x["s"], x["q"].cpu(), x["k"], x["v"])
+    with pytest.raises(TypeError):
+        ops.decode_linear(x["s"], x["q"].half(), x["k"].half(),
+                          x["v"].half())
+    with pytest.raises(ValueError):
+        ops.decode_linear(x["s"][:, :8, :8].contiguous(), x["q"][..., :8],
+                          x["k"][..., :8], x["v"][..., :8])
+
+
+def test_slice_through_kernel_matches_reference(dev):
+    """Smoke config on the card: prefill, greedy generation and a varlen
+    window through the kernel == the same through the plain recurrence."""
+    cfg = dataclasses.replace(get_smoke_config("qwen3-0.6b"),
+                              attention_backend="linear", dtype="float32")
+    params = lm.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    prompt = torch.randint(0, cfg.vocab_size, (3, 20), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(1))
+    out = {}
+    for kernel in ("auto", "reference"):
+        c = dataclasses.replace(cfg, decode_kernel=kernel)
+        logits, st = lm.prefill(params, prompt, c)
+        toks, st = lm.generate(params, st, torch.argmax(logits, -1), 20, 6, c)
+        lg, st = lm.decode_window_varlen(
+            params, st, prompt[:, :4], torch.tensor([26, 26, 26]),
+            torch.tensor([4, 0, 2]), c)
+        out[kernel] = (toks, lg, st["stack"][0].s, st["stack"][0].z)
+    assert torch.equal(out["auto"][0], out["reference"][0])
+    for a, b in zip(out["auto"][1:], out["reference"][1:]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)

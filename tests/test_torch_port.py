@@ -1,0 +1,100 @@
+"""Package rules of the port: it imports no JAX and nothing of ``repro``,
+its configuration copies match the JAX package field for field, and its
+serving CLI runs on the CPU when asked to."""
+
+import ast
+import dataclasses
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+from repro.configs import get_config as jax_config
+from repro.configs import get_smoke_config as jax_smoke_config
+from repro_torch.configs import get_config, get_smoke_config
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _port_files():
+    return sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+        ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+def test_port_imports_no_jax_and_nothing_of_repro():
+    files = _port_files()
+    assert len(files) > 10
+    bad = [(str(f.relative_to(ROOT)), m) for f in files
+           for m in _imported_roots(f) if m in FORBIDDEN]
+    assert not bad, bad
+
+
+def _env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src")
+    return env
+
+
+def test_importing_the_serving_entry_point_loads_no_jax():
+    code = ("import sys, repro_torch.launch.serve; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')]; print(bad); assert not bad")
+    subprocess.run([sys.executable, "-c", code], env=_env(), check=True,
+                   timeout=120)
+
+
+@pytest.mark.parametrize("getter", ["full", "smoke"])
+def test_qwen3_config_copies_match_jax(getter):
+    jget, tget = ((jax_config, get_config) if getter == "full"
+                  else (jax_smoke_config, get_smoke_config))
+    assert dataclasses.asdict(tget("qwen3-0.6b")) == dataclasses.asdict(
+        jget("qwen3-0.6b"))
+    assert (tget("qwen3-0.6b").with_backend("linear").pattern_and_repeats
+            == jget("qwen3-0.6b").with_backend("linear").pattern_and_repeats)
+
+
+def test_config_validation_copied():
+    cfg = get_smoke_config("qwen3-0.6b")
+    with pytest.raises(ValueError):
+        dataclasses.replace(cfg, decode_kernel="bogus")
+    with pytest.raises(ValueError):
+        dataclasses.replace(cfg, decode_kernel="fused")    # softmax backend
+    with pytest.raises(ValueError):
+        dataclasses.replace(cfg, layer_pattern=("nope",))
+
+
+def test_serve_cli_on_cpu():
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+         "qwen3-0.6b", "--smoke", "--device", "cpu", "--prompt-len", "16",
+         "--gen-len", "6", "--batch", "2"],
+        env=_env(), capture_output=True, text=True, timeout=300, cwd=ROOT)
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.splitlines()
+    assert lines[0].startswith("arch=qwen3-0.6b-smoke backend=linear")
+    assert lines[1].startswith("prefill 16 toks x2:")
+    assert lines[2].startswith("decode  6 toks x2:") and "tok/s" in lines[2]
+    assert lines[3].startswith("decode state:") and "O(1)" in lines[3]
+
+
+def test_entry_point_refuses_to_fall_back_to_cpu(monkeypatch):
+    import torch
+
+    from repro_torch.device import resolve_device
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError):
+        resolve_device()
+    assert resolve_device("cpu").type == "cpu"
