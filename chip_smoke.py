@@ -12,11 +12,21 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 3. The serving slice on the card: a 2-layer model at qwen3-0.6b's full
    widths in fp32, prefill + 16 greedy steps through the kernel against
    the same run through ``decode_kernel="reference"``.
-4. The main path: ``repro_torch.launch.serve --mode generate`` on the
-   full 28-layer qwen3-0.6b linear model in bf16 (random weights from a
-   seed), batch 8, prompt 512, 64 generated tokens; the kernels' launch
-   counts over that run; a profile of a few decode steps; each kernel
-   timed with CUDA events beside its bound and its plain version.
+4. The generate main path: ``repro_torch.launch.serve --mode generate``
+   on the full 28-layer qwen3-0.6b linear model in bf16 (random weights
+   from a seed), batch 8, prompt 512, 64 generated tokens; the decode
+   kernel's launch count over that run; a profile of a few decode steps;
+   the kernel timed with CUDA events beside its bound and its plain
+   version.
+5. The lookup slice at the paper's width (k = 100, 750-token documents,
+   1-4 queries per request): ``LookupEngine`` through the lookup kernel
+   against the same through ``use_kernel=False``, and the softmax
+   baseline's resident bytes beside the linear store's.
+6. The lookup main path: ``repro_torch.launch.serve --mode lookup`` with
+   8,192 resident 750-token documents and two passes of 131,072 queries in
+   waves of 256; the lookup kernel's launch count over that run; sampled
+   answers against the store; a profile of a few waves; the three lookup
+   kernels timed beside their bounds, plain versions and library calls.
 
 The last line is {"ok": true, "device": {...}}; the line before it the
 kernels' JSON record; before that the card's name and power limit.
@@ -37,6 +47,9 @@ sys.path.insert(0, str(ROOT / "src"))
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, fp32 non-tensor flop/s
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
+# the lookup kernels' outputs against their plain versions: fp32 sums in
+# another order (the JAX kernel tests' tolerance)
+LOOKUP_TOL = 1e-4
 
 
 def nvidia_smi() -> str:
@@ -112,6 +125,93 @@ def check_decode_linear(n, d, w, normalize, varlen, gen, dev) -> float:
     return err
 
 
+def bound(n_bytes: float, flops: float) -> dict:
+    """The least time the card could take: bytes over the memory rate or
+    fp32 operations over the fp32 rate, whichever is larger."""
+    bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
+    flops_ms = flops / PEAK_FP32_FLOPS * 1e3
+    return dict(bound_ms=max(bytes_ms, flops_ms),
+                bound_by="bytes" if bytes_ms >= flops_ms else "operations",
+                bytes=n_bytes)
+
+
+def nonsymmetric(gen, dev, *shape):
+    """Random states with C != Cᵀ, so that a transposed read shows."""
+    import torch
+    c = torch.randn(shape, generator=gen, device=dev)
+    if (c - c.mT).abs().max() < 0.1:
+        raise AssertionError("states came out symmetric")
+    return c
+
+
+def check_lookup_indexed(n, b, m, kd, block_m, gen, dev, n_live=None
+                         ) -> float:
+    """B4 against its plain version; returns the largest |o difference|.
+    Rows are drawn from the first ``n_live`` states (all by default)."""
+    import torch
+    from repro_torch.kernels.lookup import ops as LU, ref as LR
+    store = nonsymmetric(gen, dev, n, kd, kd)
+    rows = torch.randint(0, n_live or n, (b,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    q = torch.randn((b, m, kd), generator=gen, device=dev)
+    o = LU.mass_lookup_indexed(store, rows, q, block_m=block_m)
+    torch.cuda.synchronize()
+    o_r = LR.mass_lookup_indexed_ref(store, rows, q)
+    tag = f"N={n} B={b} M={m} K={kd} block_m={block_m}"
+    torch.testing.assert_close(o, o_r, rtol=LOOKUP_TOL, atol=LOOKUP_TOL,
+                               msg=tag)
+    dup = b - torch.unique(rows).numel()
+    err = (o - o_r).abs().max().item()
+    print(f"  mass_lookup_indexed {tag} ({dup} repeated rows): "
+          f"max|Δo|={err:.3e}")
+    return err
+
+
+def check_mass_lookup(n, m, kd, gen, dev) -> float:
+    """B5 against its plain version and against one torch.bmm."""
+    import torch
+    from repro_torch.kernels.lookup import ops as LU, ref as LR
+    c = nonsymmetric(gen, dev, n, kd, kd)
+    q = torch.randn((n, m, kd), generator=gen, device=dev)
+    o = LU.mass_lookup(c, q)
+    torch.cuda.synchronize()
+    tag = f"N={n} M={m} K={kd}"
+    o_r = LR.mass_lookup_ref(c, q)
+    torch.testing.assert_close(o, o_r, rtol=LOOKUP_TOL, atol=LOOKUP_TOL,
+                               msg=tag)
+    torch.testing.assert_close(o, torch.bmm(q, c.mT), rtol=LOOKUP_TOL,
+                               atol=LOOKUP_TOL, msg=tag)
+    err = (o - o_r).abs().max().item()
+    print(f"  mass_lookup {tag}: max|Δo|={err:.3e}")
+    return err
+
+
+def check_fused_decode(n, dk, dv, dtype, gen, dev) -> float:
+    """B6 against its plain version: the state bit for bit, o within
+    LOOKUP_TOL (fp32) or 2e-2 (bf16 output)."""
+    import torch
+    from repro_torch.kernels.lookup import ops as LU, ref as LR
+    s = nonsymmetric(gen, dev, n, dk, dv) if dk == dv else torch.randn(
+        (n, dk, dv), generator=gen, device=dev)
+    q, k = (torch.randn((n, dk), generator=gen, device=dev).to(dtype)
+            for _ in range(2))
+    v = torch.randn((n, dv), generator=gen, device=dev).to(dtype)
+    o_r, s_r = LR.decode_ref(s, q, k, v)
+    s_k = s.clone()
+    o, _ = LU.fused_decode(s_k, q, k, v)
+    torch.cuda.synchronize()
+    tag = f"N={n} Dk={dk} Dv={dv} {str(dtype).split('.')[-1]}"
+    if not torch.equal(s_k, s_r):
+        raise AssertionError(f"fused_decode {tag}: state not bitwise equal "
+                             f"(max |Δ| {(s_k - s_r).abs().max().item()})")
+    tol = LOOKUP_TOL if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(o.float(), o_r.float(), rtol=tol, atol=tol,
+                               msg=tag)
+    err = (o.float() - o_r.float()).abs().max().item()
+    print(f"  fused_decode {tag}: state bitwise equal, max|Δo|={err:.3e}")
+    return err
+
+
 def graph_ms(fn, n_calls: int, replays: int = 20) -> float:
     """Device time of one call of ``fn(i)``, from CUDA events around
     replays of a CUDA graph that holds ``n_calls`` calls (host launch
@@ -172,6 +272,250 @@ def time_decode_linear(n, d, gen, dev) -> dict:
                 bytes=in_bytes + out_bytes)
 
 
+def time_lookup_kernels(store, n_live, gen, dev) -> dict:
+    """B4 at the lookup main path's wave (B = 256 rows of the served
+    store, M = 1), cycling over 16 row sets (64 MiB of distinct states,
+    more than the 50 MB L2) so each launch reads its states from device
+    memory; B5 at the paper's width (N = 256 documents, M = PAPER_M = 4,
+    K = PAPER_K = 100) and B6 at N = 256, Dk = Dv = 100, fp32, each over
+    16 buffers of inputs for the same reason."""
+    import torch
+    from repro_torch.configs.paper_qa import PAPER_K, PAPER_M
+    from repro_torch.kernels.lookup import ops as LU, ref as LR
+    n_bufs, b, kd = 16, 256, store.shape[-1]
+    out = {}
+
+    rows = [torch.randint(0, n_live, (b,), generator=gen, device=dev,
+                          dtype=torch.int32) for _ in range(n_bufs)]
+    rows_long = [r.long() for r in rows]
+    q = torch.randn((b, 1, kd), generator=gen, device=dev)
+    distinct = sum(torch.unique(r).numel() for r in rows) / n_bufs
+    t = dict(
+        ms=graph_ms(lambda i: LU.mass_lookup_indexed(
+            store, rows[i % n_bufs], q, block_m=1), 2 * n_bufs),
+        plain_ms=graph_ms(lambda i: LR.mass_lookup_indexed_ref(
+            store, rows[i % n_bufs], q), 2 * n_bufs),
+        gather_bmm_ms=graph_ms(lambda i: torch.bmm(
+            q, store.index_select(0, rows_long[i % n_bufs]).mT), 2 * n_bufs),
+        library_ms=None, shape=f"N={store.shape[0]} B={b} M=1 K={kd}",
+        **bound(distinct * kd * kd * 4 + b * 4 + 2 * q.nbytes,
+                2 * b * kd * kd))
+    out["mass_lookup_indexed"] = t
+
+    n, m, kp = 256, PAPER_M, PAPER_K
+    cs = [torch.randn((n, kp, kp), generator=gen, device=dev)
+          for _ in range(n_bufs)]
+    q = torch.randn((n, m, kp), generator=gen, device=dev)
+    out["mass_lookup"] = dict(
+        ms=graph_ms(lambda i: LU.mass_lookup(cs[i % n_bufs], q), 2 * n_bufs),
+        plain_ms=graph_ms(lambda i: LR.mass_lookup_ref(cs[i % n_bufs], q),
+                          2 * n_bufs),
+        library_ms=graph_ms(lambda i: torch.bmm(q, cs[i % n_bufs].mT),
+                            2 * n_bufs),
+        shape=f"N={n} M={m} K={kp}",
+        **bound(cs[0].nbytes + 2 * q.nbytes, 2 * n * m * kp * kp))
+    del cs
+
+    ss = [torch.randn((n, kp, kp), generator=gen, device=dev)
+          for _ in range(n_bufs)]
+    qd, kd_, vd = (torch.randn((n, kp), generator=gen, device=dev)
+                   for _ in range(3))
+    out["fused_decode"] = dict(
+        ms=graph_ms(lambda i: LU.fused_decode(ss[i % n_bufs], qd, kd_, vd),
+                    2 * n_bufs),
+        plain_ms=graph_ms(lambda i: LR.decode_ref(ss[i % n_bufs], qd, kd_,
+                                                  vd), 2 * n_bufs),
+        library_ms=None, shape=f"N={n} Dk={kp} Dv={kp} fp32",
+        **bound(2 * ss[0].nbytes + 4 * qd.nbytes, 4 * n * kp * kp))
+    return out
+
+
+def profile_lookup_waves(engine, doc_ids, queries, waves=8):
+    """Device busy share over a few timed waves (torch.profiler): device
+    time by kernel against the wall time of ``engine.run()``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    n = waves * engine.wave_size
+    for i in range(n):
+        engine.submit(doc_ids[(i * 7) % len(doc_ids)], queries[i],
+                      priority=i % 3)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
+                 ) as prof:
+        t0 = time.perf_counter()
+        engine.run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows, host = [], []
+    for e in prof.key_averages():
+        t = (getattr(e, "self_device_time_total", None)
+             or getattr(e, "self_cuda_time_total", 0) or 0)
+        if t > 0:
+            rows.append((t, e.key, e.count))
+        if e.self_cpu_time_total > 0:
+            host.append((e.self_cpu_time_total, e.key, e.count))
+    rows.sort(reverse=True)
+    host.sort(reverse=True)
+    host_total = sum(t for t, _, _ in host)
+    print(f"  profile: {waves} waves in {wall_ms:.3f} ms wall under the "
+          f"profiler ({wall_ms / waves:.3f} ms per wave); host time in "
+          f"operators {host_total / waves / 1e3:.3f} ms per wave")
+    for t, key, count in host[:6]:
+        print(f"    host {100 * t / host_total:5.1f}%  "
+              f"{t / waves / 1e3:8.4f} ms/wave  {count:5d} calls  "
+              f"{key[:80]}")
+    total = sum(t for t, _, _ in rows)
+    if not total:
+        print("  profile: the profiler reported no device time "
+              "(not measured)")
+        return None
+    busy = total / 1e3 / wall_ms
+    print(f"  profile: {total / waves / 1e3:.4f} ms device time per wave; "
+          f"device busy {100 * busy:.1f}% of the wall time")
+    for t, key, count in rows[:8]:
+        print(f"    {100 * t / total:5.1f}%  {t / waves / 1e3:8.4f} ms/wave "
+              f" {count:5d} calls  {key[:90]}")
+    return busy
+
+
+def lookup_slice(dev) -> None:
+    """Phase 5: the paper-width lookup slice through the kernel against
+    the same through ``use_kernel=False``; the softmax baseline's
+    resident bytes beside the linear store's."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.paper_qa import PAPER_M, PAPER_N, QAConfig
+    from repro_torch.kernels.lookup import ops as LU
+    from repro_torch.qa.gru import gru_params
+    from repro_torch.serving import LookupEngine
+
+    cfg = QAConfig()
+    g = torch.Generator(device=dev).manual_seed(5)
+    encoder = {"embed": torch.randn((cfg.vocab_size, cfg.embed_dim),
+                                    generator=g, device=dev) * 0.1,
+               "gru": gru_params(g, cfg.embed_dim, cfg.hidden)}
+    rng = np.random.default_rng(5)
+    docs = {f"doc{i}": rng.integers(0, cfg.vocab_size, size=PAPER_N)
+            for i in range(64)}
+    reqs = [(f"doc{int(rng.integers(0, 64))}",
+             rng.standard_normal((int(rng.integers(1, PAPER_M + 1)),
+                                  cfg.hidden)).astype(np.float32),
+             int(rng.integers(0, 3))) for _ in range(512)]
+
+    def serve_once(**kwargs):
+        eng = LookupEngine(encoder, device=dev, **kwargs)
+        for d, toks in docs.items():
+            eng.ingest(d, toks)
+        eng.flush()
+        for d, q, p in reqs:
+            eng.submit(d, q, priority=p)
+        before = LU.mass_lookup_indexed.launches
+        results = eng.run()
+        torch.cuda.synchronize()
+        return eng, results, LU.mass_lookup_indexed.launches - before
+
+    kern, res_k, launches = serve_once(normalize=True)
+    plain, res_p, plain_launches = serve_once(normalize=True,
+                                              use_kernel=False)
+    for key in kern.store:
+        if not torch.equal(kern.store[key], plain.store[key]):
+            raise AssertionError(f"phase 5: resident store {key!r} differs")
+    st = kern.stats
+    if not (st.lookup_dispatches == st.waves == launches) or plain_launches:
+        raise AssertionError(f"phase 5: {st.waves} waves, "
+                             f"{st.lookup_dispatches} dispatches, "
+                             f"{launches} kernel launches "
+                             f"({plain_launches} on the plain route)")
+    if st.multi_memory_waves == 0:
+        raise AssertionError("phase 5: no mixed-memory wave")
+    err = 0.0
+    for a, b in zip(res_k, res_p):
+        if a.uid != b.uid or a.status != "ok" or b.status != "ok":
+            raise AssertionError(f"phase 5: result {a.uid} vs {b.uid}")
+        ta, tb = torch.from_numpy(a.answers), torch.from_numpy(b.answers)
+        torch.testing.assert_close(ta, tb, rtol=LOOKUP_TOL, atol=LOOKUP_TOL)
+        err = max(err, (ta - tb).abs().max().item())
+    soft, res_s, _ = serve_once(backend="softmax")
+    if not all(np.isfinite(r.answers).all() for r in res_s):
+        raise AssertionError("phase 5: non-finite softmax answers")
+    print(f"phase 5: paper-width slice (k={cfg.hidden}, 64 docs x "
+          f"{PAPER_N} tokens, {len(reqs)} requests of 1-{PAPER_M} queries):"
+          f" {st.waves} waves = {launches} kernel launches, "
+          f"{st.multi_memory_waves} mixed-memory; stores bitwise equal, "
+          f"max|Δanswer|={err:.3e} against use_kernel=False")
+    print(f"  resident bytes: linear {kern.resident_bytes} "
+          f"(N·(k²+k)·4), softmax {soft.resident_bytes} (Σnᵢ·k·4), "
+          f"{soft.resident_bytes / kern.resident_bytes:.2f}x")
+
+
+def lookup_main_path(dev, n_docs=8192, doc_len=750, n_queries=131072,
+                     wave_size=256, n_sample=1024) -> dict:
+    """Phase 6: ``serve --mode lookup`` at 8,192 × 750-token documents and
+    two passes of 131,072 queries; returns the kernels' launches, the
+    result and the busy share."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.lookup import ops as LU
+    from repro_torch.launch import serve
+
+    args = serve.parse_args([
+        "--mode", "lookup", "--n-docs", str(n_docs), "--doc-len",
+        str(doc_len), "--n-queries", str(n_queries), "--wave-size",
+        str(wave_size), "--seed", "0", "--device", dev.type])
+    wrappers = {"mass_lookup_indexed": LU.mass_lookup_indexed,
+                "mass_lookup": LU.mass_lookup,
+                "fused_decode": LU.fused_decode}
+    for fn in wrappers.values():
+        fn.launches = 0
+    result = serve.lookup(args)
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    n_waves = 2 * args.n_queries // args.wave_size
+    if not (launches["mass_lookup_indexed"] == result["waves"] == n_waves
+            == result["lookup_dispatches"]):
+        raise AssertionError(f"phase 6: {launches} launches, "
+                             f"{result['waves']} waves, "
+                             f"{result['lookup_dispatches']} dispatches; "
+                             f"want {n_waves} of each")
+    if result["lookup_launches"] != n_waves // 2 or \
+            result["multi_memory_waves"] == 0:
+        raise AssertionError(f"phase 6: timed pass launched "
+                             f"{result['lookup_launches']} times, "
+                             f"{result['multi_memory_waves']} mixed waves")
+    engine, doc_ids = result["engine"], result["doc_ids"]
+    # the scratch row past the last document doubles the store
+    if engine.store["c"].shape[0] != 1 << n_docs.bit_length():
+        raise AssertionError(f"phase 6: store of {engine.store['c'].shape}")
+    by_uid = {r.uid: r for r in engine.results()}
+    rng = np.random.default_rng(0)
+    sample = rng.choice(args.n_queries, size=n_sample, replace=False)
+    got, want = [], []
+    for i in sample:
+        r = by_uid[result["timed_uid0"] + int(i)]
+        doc = doc_ids[(int(i) * 7) % len(doc_ids)]
+        if r.doc_id != doc or r.status != "ok":
+            raise AssertionError(f"phase 6: request {i}: {r}")
+        got.append(torch.from_numpy(r.answers[0]))
+        q = torch.from_numpy(result["queries"][i]).to(dev)
+        want.append((engine.store["c"][engine.rows()[doc]] @ q).cpu())
+    got, want = torch.stack(got), torch.stack(want)
+    torch.testing.assert_close(got, want, rtol=LOOKUP_TOL, atol=LOOKUP_TOL)
+    if not torch.isfinite(got).all():
+        raise AssertionError("phase 6: non-finite answers")
+    err = (got - want).abs().max().item()
+    print(f"phase 6: lookup main path lookups_per_s="
+          f"{result['lookups_per_s']:.1f} serve_s={result['serve_s']:.4f} "
+          f"ingest_s={result['ingest_s']:.3f} "
+          f"resident_mib={result['resident_mib']:.1f} "
+          f"(store {engine.store['c'].shape[0]} rows, "
+          f"{engine.store['c'].nbytes / 2**20:.1f} MiB allocated); "
+          f"mass_lookup_indexed.launches={launches['mass_lookup_indexed']}"
+          f" = waves {result['waves']} (timed pass "
+          f"{result['lookup_launches']}), "
+          f"{result['multi_memory_waves']} mixed-memory waves; {n_sample} "
+          f"sampled answers max|Δ|={err:.3e} against C q on the card")
+    busy = profile_lookup_waves(engine, doc_ids, result["queries"])
+    return dict(launches=launches, result=result, busy=busy)
+
+
 def profile_decode(params, cfg, states, tok, pos, steps=4):
     """Device time by kernel over a few decode steps (torch.profiler);
     returns device ms per step, or None when the profiler saw none."""
@@ -227,21 +571,30 @@ def main() -> int:
     from repro_torch.configs import get_config
     from repro_torch.kernels import build
     from repro_torch.kernels.fused_recurrent import ops
+    from repro_torch.kernels.lookup import ops as LU
     from repro_torch.launch import serve
     from repro_torch.models import lm
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
+    t_start = time.perf_counter()
+    phase_s = {}
+
+    def done(phase, t0):
+        phase_s[phase] = time.perf_counter() - t0
+        print(f"  [phase {phase}: {phase_s[phase]:.1f} s]")
 
     # -- 1. device and build ---------------------------------------------
+    t0 = time.perf_counter()
     card = nvidia_smi()
     print(card)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} "
           f"count {torch.cuda.device_count()}")
-    t0 = time.perf_counter()
+    build.build([ops.SOURCE, LU.SOURCE])        # one nvcc each, together
     ops.load()
+    LU.load()
     print(f"phase 1: built and loaded the kernels in "
           f"{time.perf_counter() - t0:.1f} s "
           f"(nvcc {build.BUILD_SECONDS})")
@@ -249,8 +602,10 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
+    done(1, t0)
 
     # -- 2. kernels against their plain versions --------------------------
+    t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(0)
     for n, d in ((128, 128), (12, 16)):         # main path, smoke width
         for w in (1, 8):
@@ -262,8 +617,31 @@ def main() -> int:
                         main_err = err          # the main path's variant
     print("phase 2: decode_linear agrees with its plain version "
           "(S, z rtol 1e-5; o within 1 bf16 ulp; masked rows bitwise)")
+    errs = {}
+    # the lookup main path's wave: 256 rows of the 16,384-row store, of
+    # which the first 8,192 hold documents
+    errs["mass_lookup_indexed"] = check_lookup_indexed(
+        16384, 256, 1, 64, 1, gen, dev, n_live=8192)
+    check_lookup_indexed(1024, 256, 4, 100, 4, gen, dev)   # paper width
+    check_lookup_indexed(64, 32, 5, 64, 4, gen, dev)       # M tiles, pad
+    check_lookup_indexed(8, 64, 2, 64, None, gen, dev)     # repeated rows
+    check_lookup_indexed(256, 64, 3, 128, None, gen, dev)  # K = 128
+    for kd in (64, 100, 256):
+        err = check_mass_lookup(64, 4, kd, gen, dev)
+        if kd == 100:
+            errs["mass_lookup"] = err
+    for dk, dv in ((64, 64), (100, 48)):
+        for dtype in (torch.float32, torch.bfloat16):
+            err = check_fused_decode(256, dk, dv, dtype, gen, dev)
+            if (dk, dtype) == (64, torch.float32):
+                errs["fused_decode"] = err
+    print(f"phase 2: mass_lookup_indexed, mass_lookup and fused_decode "
+          f"agree with their plain versions (o rtol/atol {LOOKUP_TOL}, "
+          f"non-symmetric states; fused_decode's state bitwise)")
+    done(2, t0)
 
     # -- 3. the slice, kernel vs plain recurrence, fp32 --------------------
+    t0 = time.perf_counter()
     cfg = dataclasses.replace(
         get_config("qwen3-0.6b").with_backend("linear"), n_layers=2,
         dtype="float32")
@@ -292,8 +670,10 @@ def main() -> int:
     print(f"phase 3: 2-layer full-width fp32 slice, prefill + 16 greedy "
           f"steps: tokens identical, max|Δlogit|={d_logit:.3e}")
     del params, runs
+    done(3, t0)
 
-    # -- 4. the main path -------------------------------------------------
+    # -- 4. the generate main path ----------------------------------------
+    t0 = time.perf_counter()
     args = serve.parse_args(["--arch", "qwen3-0.6b", "--batch", "8",
                              "--prompt-len", "512", "--gen-len", "64",
                              "--seed", "0"])
@@ -345,17 +725,55 @@ def main() -> int:
           f"{t['ms'] * 1e3:.2f} us/launch (plain version "
           f"{t['plain_ms'] * 1e3:.2f} us; bound {t['bound_ms'] * 1e3:.2f} us"
           f" by {t['bound_by']}, {t['bytes'] / 1e6:.2f} MB moved)")
-
-    record = {"kernels": [{
+    records = [{
         "name": "decode_linear", "route": "cuda",
         "source": "src/repro_torch/kernels/fused_recurrent/csrc/"
                   "decode_linear.cu",
         "replaces": "src/repro/kernels/fused_recurrent/kernel.py:239",
         "launches": launches, "max_abs_err": main_err, "ms": t["ms"],
         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-        "bound_by": t["bound_by"], "library_ms": None}]}
+        "bound_by": t["bound_by"], "library_ms": None}]
+    torch.cuda.empty_cache()
+    done(4, t0)
+
+    # -- 5. the lookup slice at the paper's width, kernel vs plain ---------
+    t0 = time.perf_counter()
+    lookup_slice(dev)
+    torch.cuda.empty_cache()
+    done(5, t0)
+
+    # -- 6. the lookup main path ------------------------------------------
+    t0 = time.perf_counter()
+    main6 = lookup_main_path(dev)
+    engine = main6["result"]["engine"]
+    times = time_lookup_kernels(engine.store["c"], len(engine), gen, dev)
+    for name, t in times.items():
+        lib = ("" if t["library_ms"] is None else
+               f"; library call {t['library_ms'] * 1e3:.2f} us")
+        print(f"{name} {t['shape']}: {t['ms'] * 1e3:.2f} us/launch "
+              f"(plain version {t['plain_ms'] * 1e3:.2f} us{lib}; bound "
+              f"{t['bound_ms'] * 1e3:.2f} us by {t['bound_by']}, "
+              f"{t['bytes'] / 1e6:.2f} MB moved)")
+    print(f"  gather + bmm (two calls, for information) at the B4 shape: "
+          f"{times['mass_lookup_indexed']['gather_bmm_ms'] * 1e3:.2f} us")
+    replaces = {"mass_lookup_indexed": 69, "mass_lookup": 41,
+                "fused_decode": 116}
+    for name, line in replaces.items():
+        t = times[name]
+        records.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/lookup/csrc/lookup.cu",
+            "replaces": f"src/repro/kernels/lookup/kernel.py:{line}",
+            "launches": main6["launches"][name], "max_abs_err": errs[name],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"]})
+    done(6, t0)
+
+    print(f"phases (s): {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}"
+          f" total {time.perf_counter() - t_start:.1f} s")
     print(card)
-    print(json.dumps(record))
+    print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,10 +1,11 @@
-"""Carry parameters and decode states over from the JAX package.
+"""Carry parameters and states over from the JAX package.
 
-Both functions take the JAX trees with their leaves as numpy arrays
+Every function takes the JAX trees with their leaves as numpy arrays
 (``jax.tree.map(np.asarray, tree)``), so this module needs neither JAX
-nor ``repro``. Dense weights keep their (d_in, d_out) layout and stacked
-groups their leading repeat axis: the port's trees have the same shape
-as the JAX ones, and both sides compute from the same numbers.
+nor ``repro``, and copies them onto an explicit device. Dense weights
+keep their (d_in, d_out) layout and stacked groups their leading repeat
+axis: the port's trees have the same shape as the JAX ones, and both
+sides compute from the same numbers.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.state import DocumentState
 from repro_torch.models.attention import AttnState
 
 
@@ -62,3 +64,21 @@ def state_from_jax(np_state: Any, *,
     (...)} of the linear backend (k_cache/v_cache None; s, z as numpy)."""
     return {part: tuple(_attn_state(st, device) for st in np_state[part])
             for part in ("stack", "tail")}
+
+
+def encoder_from_jax(np_tree: Any, *,
+                     device: Optional[torch.device] = None) -> dict:
+    """Convert a lookup encoder {"embed": (V, d), "gru": {"w_i", "w_h",
+    "b"}} (``repro.qa.gru.gru_params`` layout, kept as it is)."""
+    return {"embed": _tensor(np_tree["embed"], device),
+            "gru": {k: _tensor(np_tree["gru"][k], device)
+                    for k in ("w_i", "w_h", "b")}}
+
+
+def document_state_from_jax(c, z, n_tokens: int, *,
+                            device: Optional[torch.device] = None
+                            ) -> DocumentState:
+    """Convert the fields of a ``repro.core.state.DocumentState``."""
+    return DocumentState(c=_tensor(c, device),
+                         z=None if z is None else _tensor(z, device),
+                         n_tokens=int(n_tokens))

@@ -5,6 +5,7 @@ point (no PyTorch headers). At first use it is compiled with ``nvcc`` for
 ``sm_90a`` into a shared library under ``build/kernels/`` at the root of
 the checkout, named by a hash of the source and the flags so a changed
 source never loads a stale library, and loaded with ``ctypes``.
+``build`` compiles several sources at once, one ``nvcc`` each.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Iterable
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
@@ -43,33 +44,46 @@ def _nvcc() -> str:
                        "the CUDA toolkit's nvcc (set CUDA_HOME)")
 
 
-def load_library(source: Path) -> ctypes.CDLL:
-    """Compile ``source`` (once per content) and load it."""
-    source = Path(source).resolve()
-    if source in _LOADED:
-        return _LOADED[source]
+def _lib_path(source: Path) -> Path:
     digest = hashlib.sha256(source.read_bytes()
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    lib_path = BUILD_DIR / f"{source.stem}-{digest[:16]}.so"
-    if not lib_path.exists():
+    return BUILD_DIR / f"{source.stem}-{digest[:16]}.so"
+
+
+def build(sources: Iterable[Path]) -> None:
+    """Compile every source whose library is missing, one ``nvcc`` per
+    source, all started together; wait for all of them, then raise if
+    any failed."""
+    jobs = []
+    for source in (Path(s).resolve() for s in sources):
+        lib_path = _lib_path(source)
+        if source in _LOADED or lib_path.exists():
+            continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        t0 = time.perf_counter()
-        try:
-            proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(source)],
-                capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed on {source.name}:\n{proc.stdout}"
-                    f"{proc.stderr}")
-            os.replace(tmp, lib_path)
-        finally:
-            if os.path.exists(tmp):
-                os.unlink(tmp)
+        proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(source)],
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+        jobs.append((source, lib_path, tmp, proc, time.perf_counter()))
+    failed = []
+    for source, lib_path, tmp, proc, t0 in jobs:
+        out, err = proc.communicate()
         BUILD_SECONDS[source.name] = time.perf_counter() - t0
-        BUILD_LOG[source.name] = proc.stdout + proc.stderr
-    lib = ctypes.CDLL(str(lib_path))
-    _LOADED[source] = lib
-    return lib
+        BUILD_LOG[source.name] = out + err
+        if proc.returncode == 0:
+            os.replace(tmp, lib_path)
+        else:
+            os.unlink(tmp)
+            failed.append(f"nvcc failed on {source.name}:\n{out}{err}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
+def load_library(source: Path) -> ctypes.CDLL:
+    """Compile ``source`` (once per content) and load it."""
+    source = Path(source).resolve()
+    if source not in _LOADED:
+        build([source])
+        _LOADED[source] = ctypes.CDLL(str(_lib_path(source)))
+    return _LOADED[source]

@@ -8,12 +8,17 @@ installed:
 
 import dataclasses
 
+import numpy as np
 import pytest
 import torch
 
 from repro_torch.configs import get_smoke_config
 from repro_torch.kernels.fused_recurrent import ops, ref
+from repro_torch.kernels.lookup import ops as lu_ops
+from repro_torch.kernels.lookup import ref as lu_ref
 from repro_torch.models import lm
+from repro_torch.qa.gru import gru_params
+from repro_torch.serving import LookupEngine
 
 pytestmark = pytest.mark.cuda
 
@@ -152,3 +157,123 @@ def test_slice_through_kernel_matches_reference(dev):
     assert torch.equal(out["auto"][0], out["reference"][0])
     for a, b in zip(out["auto"][1:], out["reference"][1:]):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+# -- the lookup kernels B4, B5, B6 ------------------------------------------
+# States are drawn non-symmetric (a transposed read of C would show).
+# Outputs: rtol = atol = 1e-4, fp32 sums in another order (the JAX kernel
+# tests' tolerance); B6's state: bitwise.
+
+def _randn(dev, seed, *shape):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn(shape, generator=g, device=dev)
+
+
+@pytest.mark.parametrize("n,b,m,kd,block_m", [
+    (16384, 256, 1, 64, None),  # the lookup main path's wave
+    (64, 32, 4, 100, None),     # the paper's width, M = PAPER_M
+    (16, 8, 5, 64, 4),          # M tiling with padding
+    (4, 24, 3, 32, None),       # duplicate rows (b > n)
+    (32, 16, 2, 128, None),
+])
+def test_mass_lookup_indexed_matches_plain_version(dev, n, b, m, kd,
+                                                   block_m):
+    store = _randn(dev, 0, n, kd, kd)
+    assert (store - store.mT).abs().max() > 0.1
+    rows = torch.randint(0, n, (b,), device=dev, dtype=torch.int32,
+                         generator=torch.Generator(device=dev).manual_seed(1))
+    rows[-1] = rows[0]                              # at least one repeat
+    q = _randn(dev, 2, b, m, kd)
+    before = lu_ops.mass_lookup_indexed.launches
+    o = lu_ops.mass_lookup_indexed(store, rows, q, block_m=block_m)
+    torch.cuda.synchronize()
+    assert lu_ops.mass_lookup_indexed.launches == before + 1
+    assert o.shape == (b, m, kd)
+    torch.testing.assert_close(o, lu_ref.mass_lookup_indexed_ref(store, rows,
+                                                                 q),
+                               rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("kd", [64, 100, 256])
+def test_mass_lookup_matches_plain_version(dev, kd):
+    c, q = _randn(dev, 3, 6, kd, kd), _randn(dev, 4, 6, 5, kd)
+    before = lu_ops.mass_lookup.launches
+    o = lu_ops.mass_lookup(c, q)
+    torch.cuda.synchronize()
+    assert lu_ops.mass_lookup.launches == before + 1
+    torch.testing.assert_close(o, lu_ref.mass_lookup_ref(c, q), rtol=1e-4,
+                               atol=1e-4)
+
+
+@pytest.mark.parametrize("dk,dv", [(64, 64), (100, 48), (32, 256)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_decode_matches_plain_version(dev, dk, dv, dtype):
+    n = 12
+    s = _randn(dev, 5, n, dk, dv)
+    q, k = (_randn(dev, i, n, dk).to(dtype) for i in (6, 7))
+    v = _randn(dev, 8, n, dv).to(dtype)
+    o_r, s_r = lu_ref.decode_ref(s, q, k, v)
+    s_k = s.clone()
+    o, s_out = lu_ops.fused_decode(s_k, q, k, v)
+    torch.cuda.synchronize()
+    assert s_out is s_k and o.dtype == dtype
+    assert torch.equal(s_k, s_r)                    # bitwise
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(o.float(), o_r.float(), rtol=tol, atol=tol)
+
+
+def test_lookup_wrappers_reject_unsupported_inputs(dev):
+    store, q = _randn(dev, 0, 4, 32, 32), _randn(dev, 1, 6, 2, 32)
+    rows = torch.zeros(6, dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError):
+        lu_ops.mass_lookup_indexed(store.double(), rows, q.double())
+    with pytest.raises(ValueError):                          # int64 rows
+        lu_ops.mass_lookup_indexed(store, rows.long(), q)
+    with pytest.raises(ValueError):                          # K mismatch
+        lu_ops.mass_lookup_indexed(store, rows, q[..., :16].contiguous())
+    with pytest.raises(ValueError):                          # strided
+        lu_ops.mass_lookup_indexed(store.mT, rows, q)
+    with pytest.raises(ValueError):                          # rows on CPU
+        lu_ops.mass_lookup_indexed(store, rows.cpu(), q)
+    with pytest.raises(ValueError):
+        lu_ops.mass_lookup(store, q)                         # B != N
+    s = _randn(dev, 2, 3, 8, 4)
+    with pytest.raises(TypeError):
+        lu_ops.fused_decode(s, *(torch.zeros(3, d, device=dev).half()
+                                 for d in (8, 8, 4)))
+    with pytest.raises(ValueError):
+        lu_ops.fused_decode(s, torch.zeros(3, 8, device=dev),
+                            torch.zeros(8, 3, device=dev).t(),
+                            torch.zeros(3, 4, device=dev))
+
+
+def test_lookup_engine_two_waves_through_kernel_match_plain(dev):
+    """Ingest, then two waves of mixed-memory requests of 1-4 queries
+    through B4 against the same through ``use_kernel=False``."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    encoder = {"embed": torch.randn((100, 16), generator=g, device=dev),
+               "gru": gru_params(g, 16, 64)}
+    rng = np.random.default_rng(0)
+    docs = {f"d{i}": rng.integers(0, 100, size=20 + 9 * i) for i in range(8)}
+    reqs = [(f"d{i % 8}", rng.standard_normal((1 + i % 4, 64)), i % 3)
+            for i in range(32)]
+    out = {}
+    for use_kernel in (None, False):
+        eng = LookupEngine(encoder, normalize=True, wave_size=16,
+                           use_kernel=use_kernel, device=dev)
+        for d, toks in docs.items():
+            eng.ingest(d, toks)
+        for d, q, p in reqs:
+            eng.submit(d, q, priority=p)
+        before = lu_ops.mass_lookup_indexed.launches
+        results = eng.run()
+        launched = lu_ops.mass_lookup_indexed.launches - before
+        assert eng.stats.waves == 2 and eng.stats.multi_memory_waves == 2
+        assert launched == (2 if use_kernel is None else 0)
+        out[use_kernel] = (eng.store, results)
+    for key in out[None][0]:
+        assert torch.equal(out[None][0][key], out[False][0][key])
+    for a, b in zip(out[None][1], out[False][1]):
+        assert a.uid == b.uid and a.wave == b.wave
+        np.testing.assert_allclose(a.answers, b.answers, rtol=1e-4,
+                                   atol=1e-4)

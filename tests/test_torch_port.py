@@ -13,7 +13,8 @@ import pytest
 
 from repro.configs import get_config as jax_config
 from repro.configs import get_smoke_config as jax_smoke_config
-from repro_torch.configs import get_config, get_smoke_config
+from repro.configs import paper_qa as jax_paper_qa
+from repro_torch.configs import get_config, get_smoke_config, paper_qa
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "repro")
@@ -37,6 +38,12 @@ def _imported_roots(path):
 def test_port_imports_no_jax_and_nothing_of_repro():
     files = _port_files()
     assert len(files) > 10
+    port = ROOT / "src" / "repro_torch"
+    for module in ("configs/paper_qa.py", "core/state.py", "qa/gru.py",
+                   "kernels/lookup/ops.py", "kernels/lookup/ref.py",
+                   "serving/lifecycle.py", "serving/lookup_engine.py",
+                   "serving/__init__.py", "convert.py", "launch/serve.py"):
+        assert port / module in files, module
     bad = [(str(f.relative_to(ROOT)), m) for f in files
            for m in _imported_roots(f) if m in FORBIDDEN]
     assert not bad, bad
@@ -49,7 +56,10 @@ def _env():
 
 
 def test_importing_the_serving_entry_point_loads_no_jax():
-    code = ("import sys, repro_torch.launch.serve; "
+    code = ("import sys, repro_torch.launch.serve, repro_torch.serving, "
+            "repro_torch.core.state, repro_torch.qa.gru, "
+            "repro_torch.kernels.lookup.ops, repro_torch.convert, "
+            "repro_torch.configs.paper_qa; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); assert not bad")
     subprocess.run([sys.executable, "-c", code], env=_env(), check=True,
@@ -64,6 +74,15 @@ def test_qwen3_config_copies_match_jax(getter):
         jget("qwen3-0.6b"))
     assert (tget("qwen3-0.6b").with_backend("linear").pattern_and_repeats
             == jget("qwen3-0.6b").with_backend("linear").pattern_and_repeats)
+
+
+def test_paper_qa_copy_matches_jax():
+    assert dataclasses.asdict(paper_qa.QAConfig()) == dataclasses.asdict(
+        jax_paper_qa.QAConfig())
+    assert [f.name for f in dataclasses.fields(paper_qa.QAConfig)] == [
+        f.name for f in dataclasses.fields(jax_paper_qa.QAConfig)]
+    for name in ("PAPER_N", "PAPER_K", "PAPER_M"):
+        assert getattr(paper_qa, name) == getattr(jax_paper_qa, name)
 
 
 def test_config_validation_copied():
@@ -88,6 +107,21 @@ def test_serve_cli_on_cpu():
     assert lines[1].startswith("prefill 16 toks x2:")
     assert lines[2].startswith("decode  6 toks x2:") and "tok/s" in lines[2]
     assert lines[3].startswith("decode state:") and "O(1)" in lines[3]
+
+
+def test_serve_lookup_cli_on_cpu():
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--mode",
+         "lookup", "--device", "cpu", "--n-docs", "10", "--doc-len", "12",
+         "--n-queries", "32", "--wave-size", "8"],
+        env=_env(), capture_output=True, text=True, timeout=300, cwd=ROOT)
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.splitlines()
+    assert lines[0].startswith("lookup backend=linear fixed_size_memory=True")
+    assert lines[1].startswith("memories: 10 resident (1 varlen ingest "
+                               "waves = 1 dispatches, 0 pinned)")
+    assert lines[2].startswith("serve: 32 queries in") and (
+        "8 waves = 8 dispatches" in lines[2])
 
 
 def test_entry_point_refuses_to_fall_back_to_cpu(monkeypatch):
