@@ -27,6 +27,16 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    waves of 256; the lookup kernel's launch count over that run; sampled
    answers against the store; a profile of a few waves; the three lookup
    kernels timed beside their bounds, plain versions and library calls.
+7. The gated slice (paper §4 decay, ``--backend gated_linear``) as phase
+   3: 2 layers at full width in fp32 through the gated decode kernel
+   against ``decode_kernel="reference"``.
+8. The gated generate main path: ``serve --backend gated_linear`` on the
+   full 28-layer qwen3-0.6b in bf16, batch 8, prompt 512, 64 generated
+   tokens; the gated kernel's launch count over that run; a profile of a
+   few decode steps; the kernel timed beside its bound and plain version.
+
+Each main path (phases 4, 6 and 8) is driven with every kernel's launch
+count set to 0 just before it and read just after.
 
 The last line is {"ok": true, "device": {...}}; the line before it the
 kernels' JSON record; before that the card's name and power limit.
@@ -122,6 +132,69 @@ def check_decode_linear(n, d, w, normalize, varlen, gen, dev) -> float:
                                       or torch.equal(z_k, z_r[:, 0]))
     print(f"  decode_linear {tag}: max|Δo|={err:.3e} ({ulps:.2f} bf16 ulp),"
           f" S and z within rtol 1e-5, bitwise equal: {same}")
+    return err
+
+
+def gated_decay(kind, n, w, d, gen, dev):
+    """A log-decay (N, W, D) fp32: mild (the model's regime, in [-1, 0]),
+    strong (≤ -5, far past the prefill clamp: decode does not clamp),
+    zero (a = 1), or scalar (one value per row and step, broadcast over
+    D, as decode broadcasts a per-head decay)."""
+    import torch
+    u = torch.rand((n, w, d), generator=gen, device=dev)
+    if kind == "mild":
+        return -u
+    if kind == "strong":
+        return -5.0 - 3.0 * u
+    if kind == "zero":
+        return torch.zeros_like(u)
+    return (-u[..., :1]).expand(n, w, d).contiguous()
+
+
+def check_decode_gated(n, d, w, dtype, varlen, decay, gen, dev) -> float:
+    """B7 against its plain version; returns the largest |o difference|.
+    S within rtol 1e-6 (positive inputs: no cancellation), o within 1e-5
+    (fp32) or 1 bf16 ulp, lens-0 rows bitwise unchanged, masked o 0."""
+    import torch
+    from repro_torch.kernels.fused_recurrent import ops, ref
+    x = decode_inputs(n, d, w, dtype, gen, dev)
+    g = gated_decay(decay, n, w, d, gen, dev)
+    lens = (torch.arange(n, dtype=torch.int32, device=dev) % (w + 3)
+            if varlen else None)            # 0, 1 .. W and beyond W
+    o_r, s_r = ref.fused_recurrent_gated_ref(
+        x["s"][:, None], x["q"][:, None], x["k"][:, None], x["v"][:, None],
+        g[:, None], lens=lens)
+    s_k = x["s"].clone()
+    o_k, _ = ops.decode_gated(s_k, x["q"], x["k"], x["v"], g, lens=lens)
+    torch.cuda.synchronize()
+    o_r, s_r = o_r[:, 0], s_r[:, 0]
+    tag = (f"n={n} d={d} w={w} {str(dtype).split('.')[-1]} varlen={varlen}"
+           f" decay={decay}")
+    torch.testing.assert_close(s_k, s_r, rtol=1e-6, atol=0.0, msg=tag)
+    if dtype == torch.float32:
+        torch.testing.assert_close(o_k, o_r, rtol=1e-5, atol=1e-5, msg=tag)
+        ulps = float("nan")
+    else:
+        ulps = bf16_ulps(o_k, o_r)
+        if ulps > 1.0:
+            raise AssertionError(f"decode_gated {tag}: o off by {ulps} "
+                                 f"bf16 ulp")
+    if varlen:
+        steps = torch.arange(w, device=dev)[None, :]
+        masked = steps >= lens[:, None]                       # (n, w)
+        if torch.count_nonzero(o_k[masked]) != 0:
+            raise AssertionError(f"decode_gated {tag}: masked o not 0")
+        idle = lens == 0
+        if not torch.equal(s_k[idle], x["s"][idle]):
+            raise AssertionError(f"decode_gated {tag}: lens=0 rows moved")
+    d_o = (o_k.float() - o_r.float()).abs()
+    err = d_o.max().item()
+    rel = (d_o / o_r.float().abs().clamp_min(1e-30)).max().item()
+    d_s = (s_k - s_r).abs().max().item()
+    n_diff = int(torch.count_nonzero(s_k != s_r))
+    print(f"  decode_gated {tag}: max|Δo|={err:.3e} (relative {rel:.2e}; "
+          f"{ulps:.2f} bf16 ulp), max|ΔS|={d_s:.3e}, {n_diff} of "
+          f"{s_k.numel()} state elements not bitwise equal")
     return err
 
 
@@ -270,6 +343,35 @@ def time_decode_linear(n, d, gen, dev) -> dict:
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=max(bytes_ms, flops_ms),
                 bound_by="bytes" if bytes_ms >= flops_ms else "operations",
                 bytes=in_bytes + out_bytes)
+
+
+def time_decode_gated(n, d, gen, dev) -> dict:
+    """B7 at the gated main path's shape (W=1, bf16 q/k/v, fp32 g at the
+    model's operating point, g ≈ -0.002), cycling over 16 state buffers
+    (> 50 MB L2) as the 28-layer decode does."""
+    import torch
+    from repro_torch.kernels.fused_recurrent import ops, ref
+    w, n_bufs = 1, 16
+    x = decode_inputs(n, d, w, torch.bfloat16, gen, dev)
+    g = -0.004 * torch.rand((n, w, d), generator=gen, device=dev)
+    states = [x["s"].clone() for _ in range(n_bufs)]
+
+    def kernel(i):
+        ops.decode_gated(states[i % n_bufs], x["q"], x["k"], x["v"], g)
+
+    def plain(i):
+        ref.fused_recurrent_gated_ref(
+            states[i % n_bufs][:, None], x["q"][:, None], x["k"][:, None],
+            x["v"][:, None], g[:, None])
+
+    ms = graph_ms(kernel, 2 * n_bufs)
+    plain_ms = graph_ms(plain, 2 * n_bufs)
+    in_bytes = sum(t.nbytes for t in (x["s"], x["q"], x["k"], x["v"], g))
+    out_bytes = x["s"].nbytes + x["v"].nbytes                    # s, o
+    # per element: a·S, k·v, their sum, and o's multiply-add; exp per row
+    flops = n * w * (5 * d * d + d)
+    return dict(ms=ms, plain_ms=plain_ms, **bound(in_bytes + out_bytes,
+                                                  flops))
 
 
 def time_lookup_kernels(store, n_live, gen, dev) -> dict:
@@ -454,20 +556,15 @@ def lookup_main_path(dev, n_docs=8192, doc_len=750, n_queries=131072,
     result and the busy share."""
     import numpy as np
     import torch
-    from repro_torch.kernels.lookup import ops as LU
     from repro_torch.launch import serve
 
     args = serve.parse_args([
         "--mode", "lookup", "--n-docs", str(n_docs), "--doc-len",
         str(doc_len), "--n-queries", str(n_queries), "--wave-size",
         str(wave_size), "--seed", "0", "--device", dev.type])
-    wrappers = {"mass_lookup_indexed": LU.mass_lookup_indexed,
-                "mass_lookup": LU.mass_lookup,
-                "fused_decode": LU.fused_decode}
-    for fn in wrappers.values():
-        fn.launches = 0
+    reset_launches()
     result = serve.lookup(args)
-    launches = {name: fn.launches for name, fn in wrappers.items()}
+    launches = read_launches()
     n_waves = 2 * args.n_queries // args.wave_size
     if not (launches["mass_lookup_indexed"] == result["waves"] == n_waves
             == result["lookup_dispatches"]):
@@ -516,8 +613,9 @@ def lookup_main_path(dev, n_docs=8192, doc_len=750, n_queries=131072,
     return dict(launches=launches, result=result, busy=busy)
 
 
-def profile_decode(params, cfg, states, tok, pos, steps=4):
-    """Device time by kernel over a few decode steps (torch.profiler);
+def profile_decode(params, cfg, states, tok, pos, steps=4, kernel=None):
+    """Device time by kernel over a few decode steps (torch.profiler),
+    the ten largest rows and every row whose name holds ``kernel``;
     returns device ms per step, or None when the profiler saw none."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -556,10 +654,175 @@ def profile_decode(params, cfg, states, tok, pos, steps=4):
         return None
     print(f"  profile: {total / steps / 1e3:.3f} ms device time per decode "
           f"step ({steps} steps)")
-    for t, key, count in rows[:10]:
-        print(f"    {100 * t / total:5.1f}%  {t / steps / 1e3:8.4f} ms/step "
-              f" x{count // steps:<4d} {key[:90]}")
+    for i, (t, key, count) in enumerate(rows):
+        if i < 10 or (kernel and kernel in key):
+            print(f"    {100 * t / total:5.1f}%  {t / steps / 1e3:8.4f} "
+                  f"ms/step  x{count // steps:<4d} {key[:90]}")
     return total / steps / 1e3
+
+
+def launch_counters() -> dict:
+    """Every kernel wrapper of the port, by kernel name: each adds one to
+    its ``launches`` where it launches its kernel."""
+    from repro_torch.kernels.fused_recurrent import ops
+    from repro_torch.kernels.lookup import ops as LU
+    return {"decode_linear": ops.decode_linear,
+            "decode_gated": ops.decode_gated,
+            "mass_lookup_indexed": LU.mass_lookup_indexed,
+            "mass_lookup": LU.mass_lookup, "fused_decode": LU.fused_decode}
+
+
+def reset_launches() -> None:
+    for fn in launch_counters().values():
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: fn.launches for name, fn in launch_counters().items()}
+
+
+DECODE_KERNEL = {"linear": "decode_linear", "gated_linear": "decode_gated"}
+
+
+def slice_kernel_vs_reference(backend, dev, phase) -> None:
+    """Phases 3 and 7: a 2-layer model at qwen3-0.6b's full widths in fp32,
+    prefill + 16 greedy steps through the backend's decode kernel against
+    the same through ``decode_kernel="reference"``: greedy tokens
+    identical, logits within 1e-4, the kernel launched once per layer and
+    step on the kernel route and never on the reference route."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    name = DECODE_KERNEL[backend]
+    counter = launch_counters()[name]
+    cfg = dataclasses.replace(
+        get_config("qwen3-0.6b").with_backend(backend), n_layers=2,
+        dtype="float32")
+    params = lm.init_params(torch.Generator(device=dev).manual_seed(1), cfg)
+    prompt = torch.randint(0, cfg.vocab_size, (4, 64), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(2))
+    runs = {}
+    for kernel in ("auto", "reference"):
+        c = dataclasses.replace(cfg, decode_kernel=kernel)
+        before = counter.launches
+        logits, st = lm.prefill(params, prompt, c)
+        tok = lm.sample_token(logits, 0.0)
+        all_logits, toks = [logits], [tok]
+        for i in range(16):
+            logits, st = lm.decode_step(params, st, tok, 64 + i, c)
+            tok = lm.sample_token(logits, 0.0)
+            all_logits.append(logits)
+            toks.append(tok)
+        launched = counter.launches - before
+        want = 16 * cfg.n_layers if kernel == "auto" else 0
+        if launched != want:
+            raise AssertionError(f"phase {phase}: {name} launched {launched}"
+                                 f" times on the {kernel} route, want {want}")
+        runs[kernel] = (torch.stack(all_logits), torch.stack(toks))
+    torch.testing.assert_close(runs["auto"][0], runs["reference"][0],
+                               rtol=1e-4, atol=1e-4)
+    if not torch.equal(runs["auto"][1], runs["reference"][1]):
+        raise AssertionError(f"phase {phase}: greedy tokens differ")
+    if not torch.isfinite(runs["auto"][0]).all():
+        raise AssertionError(f"phase {phase}: non-finite logits")
+    d_logit = (runs["auto"][0] - runs["reference"][0]).abs().max().item()
+    print(f"phase {phase}: {backend} 2-layer full-width fp32 slice, prefill "
+          f"+ 16 greedy steps: tokens identical, max|Δlogit|={d_logit:.3e}, "
+          f"{name} launched {16 * cfg.n_layers} times")
+
+
+def generate_main_path(backend, dev, gen, phase) -> dict:
+    """Phases 4 and 8: ``serve --mode generate --backend <backend>`` on the
+    full 28-layer qwen3-0.6b in bf16 (random weights from seed 0), batch
+    8, prompt 512, 64 generated tokens, with every kernel's launch count
+    set to 0 just before and read just after; then a profile of a few
+    decode steps and the decode kernel timed. Returns the kernel's record
+    for the kernels line (without ``max_abs_err``)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    name = DECODE_KERNEL[backend]
+    args = serve.parse_args(["--arch", "qwen3-0.6b", "--backend", backend,
+                             "--batch", "8", "--prompt-len", "512",
+                             "--gen-len", "64", "--seed", "0"])
+    full = get_config(args.arch).with_backend(backend)
+    reset_launches()
+    result = serve.generate(args)
+    launches = read_launches()
+    # the timed generation launches once per layer and token; the
+    # entry point's untimed warm-up adds two decode steps
+    want = full.n_layers * (args.gen_len - 1)
+    if result["decode_launches"] != want:
+        raise AssertionError(f"phase {phase}: {name} launched "
+                             f"{result['decode_launches']} times in the "
+                             f"timed generation, want {want}")
+    if launches[name] != want + 2 * full.n_layers:
+        raise AssertionError(f"phase {phase}: {name} launched "
+                             f"{launches[name]} times in the run, want "
+                             f"{want + 2 * full.n_layers}")
+    others = {k: n for k, n in launches.items() if k != name and n}
+    if others:
+        raise AssertionError(f"phase {phase}: other kernels launched: "
+                             f"{others}")
+    toks = result["tokens"]
+    if toks.shape != (args.batch, args.gen_len) or not (
+            (toks >= 0) & (toks < full.vocab_size)).all():
+        raise AssertionError(f"phase {phase}: bad generated tokens")
+    # fixed-size state: s per layer, batch row and head, plus z for the
+    # normalised linear backend only
+    z_cols = 1 if backend == "linear" and full.linear_normalize else 0
+    state_bytes = (full.n_layers * args.batch * full.n_heads
+                   * full.head_dim * (full.head_dim + z_cols) * 4)
+    if result["state_mib"] != state_bytes / 2**20:
+        raise AssertionError(f"phase {phase}: decode state "
+                             f"{result['state_mib']} MiB, want "
+                             f"{state_bytes / 2**20}")
+    print(f"phase {phase}: {backend} main path "
+          f"prefill_ms={result['prefill_ms']:.3f} "
+          f"decode_ms_per_token={result['decode_ms_per_token']:.4f} "
+          f"tok_s={result['tokens_per_s']:.1f} "
+          f"state_mib={result['state_mib']:.1f} "
+          f"{name}.launches={launches[name]} (timed generation "
+          f"{result['decode_launches']} = {full.n_layers} x "
+          f"{args.gen_len - 1}, warm-up {full.n_layers} x 2)")
+
+    # where a decode step's device time goes (bf16, full model)
+    params = lm.cast_params(
+        lm.init_params(torch.Generator(device=dev).manual_seed(0), full),
+        torch.bfloat16)
+    prompt = torch.randint(0, full.vocab_size, (args.batch, 64), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(3))
+    logits, st = lm.prefill(params, prompt, full)
+    device_ms = profile_decode(params, full, st, torch.argmax(logits, -1),
+                               64, kernel=f"{name}_kernel")
+    if not torch.isfinite(logits).all() or not all(
+            torch.isfinite(t).all() for group in st.values()
+            for layer in group for t in layer if t is not None):
+        raise AssertionError(f"phase {phase}: non-finite logits or state")
+    if device_ms is not None:
+        busy = device_ms / result["decode_ms_per_token"]
+        print(f"  device busy {100 * busy:.1f}% of a decode step "
+              f"({device_ms:.3f} ms device time per step over "
+              f"{result['decode_ms_per_token']:.3f} ms per token)")
+    del params, st
+
+    timer = {"linear": time_decode_linear,
+             "gated_linear": time_decode_gated}[backend]
+    t = timer(args.batch * full.n_heads, full.head_dim, gen, dev)
+    print(f"{name} N={args.batch * full.n_heads} D={full.head_dim} W=1 "
+          f"bf16: {t['ms'] * 1e3:.2f} us/launch (plain version "
+          f"{t['plain_ms'] * 1e3:.2f} us; bound {t['bound_ms'] * 1e3:.2f} us"
+          f" by {t['bound_by']}, {t['bytes'] / 1e6:.2f} MB moved)")
+    torch.cuda.empty_cache()
+    line = {"linear": 239, "gated_linear": 303}[backend]
+    return {"name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/fused_recurrent/csrc/"
+                      f"{name}.cu",
+            "replaces": f"src/repro/kernels/fused_recurrent/kernel.py:{line}",
+            "launches": launches[name], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": None}
 
 
 def main() -> int:
@@ -568,12 +831,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs on a GPU",
               file=sys.stderr)
         return 1
-    from repro_torch.configs import get_config
     from repro_torch.kernels import build
     from repro_torch.kernels.fused_recurrent import ops
     from repro_torch.kernels.lookup import ops as LU
-    from repro_torch.launch import serve
-    from repro_torch.models import lm
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -592,8 +852,10 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} "
           f"count {torch.cuda.device_count()}")
-    build.build([ops.SOURCE, LU.SOURCE])        # one nvcc each, together
+    # one nvcc each, all started together
+    build.build([ops.SOURCE, ops.GATED_SOURCE, LU.SOURCE])
     ops.load()
+    ops.load_gated()
     LU.load()
     print(f"phase 1: built and loaded the kernels in "
           f"{time.perf_counter() - t0:.1f} s "
@@ -607,6 +869,7 @@ def main() -> int:
     # -- 2. kernels against their plain versions --------------------------
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(0)
+    errs = {}
     for n, d in ((128, 128), (12, 16)):         # main path, smoke width
         for w in (1, 8):
             for normalize in (False, True):
@@ -614,10 +877,26 @@ def main() -> int:
                     err = check_decode_linear(n, d, w, normalize, varlen,
                                               gen, dev)
                     if (d, w, normalize, varlen) == (128, 1, True, False):
-                        main_err = err          # the main path's variant
+                        errs["decode_linear"] = err   # the main path's
     print("phase 2: decode_linear agrees with its plain version "
           "(S, z rtol 1e-5; o within 1 bf16 ulp; masked rows bitwise)")
-    errs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for w in (1, 8):
+            for varlen in (False, True):
+                for decay in ("mild", "scalar", "strong", "zero"):
+                    err = check_decode_gated(128, 128, w, dtype, varlen,
+                                             decay, gen, dev)
+                    if (dtype, w, varlen, decay) == (torch.bfloat16, 1,
+                                                     False, "mild"):
+                        errs["decode_gated"] = err    # the main path's
+    for varlen in (False, True):                      # smoke width
+        check_decode_gated(12, 16, 8, torch.bfloat16, varlen, "mild", gen,
+                           dev)
+        check_decode_gated(12, 16, 8, torch.float32, varlen, "scalar", gen,
+                           dev)
+    print("phase 2: decode_gated agrees with its plain version (S rtol "
+          "1e-6; o within 1e-5 fp32, 1 bf16 ulp bf16; lens-0 rows bitwise, "
+          "masked o 0)")
     # the lookup main path's wave: 256 rows of the 16,384-row store, of
     # which the first 8,192 hold documents
     errs["mass_lookup_indexed"] = check_lookup_indexed(
@@ -640,100 +919,14 @@ def main() -> int:
           f"non-symmetric states; fused_decode's state bitwise)")
     done(2, t0)
 
-    # -- 3. the slice, kernel vs plain recurrence, fp32 --------------------
+    # -- 3. the linear slice, kernel vs plain recurrence, fp32 -------------
     t0 = time.perf_counter()
-    cfg = dataclasses.replace(
-        get_config("qwen3-0.6b").with_backend("linear"), n_layers=2,
-        dtype="float32")
-    params = lm.init_params(torch.Generator(device=dev).manual_seed(1), cfg)
-    prompt = torch.randint(0, cfg.vocab_size, (4, 64), device=dev,
-                           generator=torch.Generator(device=dev).manual_seed(2))
-    runs = {}
-    for kernel in ("auto", "reference"):
-        c = dataclasses.replace(cfg, decode_kernel=kernel)
-        logits, st = lm.prefill(params, prompt, c)
-        tok = lm.sample_token(logits, 0.0)
-        all_logits, toks = [logits], [tok]
-        for i in range(16):
-            logits, st = lm.decode_step(params, st, tok, 64 + i, c)
-            tok = lm.sample_token(logits, 0.0)
-            all_logits.append(logits)
-            toks.append(tok)
-        runs[kernel] = (torch.stack(all_logits), torch.stack(toks))
-    torch.testing.assert_close(runs["auto"][0], runs["reference"][0],
-                               rtol=1e-4, atol=1e-4)
-    if not torch.equal(runs["auto"][1], runs["reference"][1]):
-        raise AssertionError("phase 3: greedy tokens differ")
-    if not torch.isfinite(runs["auto"][0]).all():
-        raise AssertionError("phase 3: non-finite logits")
-    d_logit = (runs["auto"][0] - runs["reference"][0]).abs().max().item()
-    print(f"phase 3: 2-layer full-width fp32 slice, prefill + 16 greedy "
-          f"steps: tokens identical, max|Δlogit|={d_logit:.3e}")
-    del params, runs
+    slice_kernel_vs_reference("linear", dev, 3)
     done(3, t0)
 
-    # -- 4. the generate main path ----------------------------------------
+    # -- 4. the linear generate main path ---------------------------------
     t0 = time.perf_counter()
-    args = serve.parse_args(["--arch", "qwen3-0.6b", "--batch", "8",
-                             "--prompt-len", "512", "--gen-len", "64",
-                             "--seed", "0"])
-    full = get_config(args.arch)
-    ops.decode_linear.launches = 0
-    result = serve.generate(args)
-    launches = ops.decode_linear.launches
-    # the timed generation launches once per layer and token; the
-    # entry point's untimed warm-up adds two decode steps
-    want = full.n_layers * (args.gen_len - 1)
-    if result["decode_launches"] != want:
-        raise AssertionError(f"decode_linear launched "
-                             f"{result['decode_launches']} times in the "
-                             f"timed generation, want {want}")
-    if launches != want + 2 * full.n_layers:
-        raise AssertionError(f"decode_linear launched {launches} times in "
-                             f"the run, want {want + 2 * full.n_layers}")
-    toks = result["tokens"]
-    if toks.shape != (args.batch, args.gen_len) or not (
-            (toks >= 0) & (toks < full.vocab_size)).all():
-        raise AssertionError("phase 4: bad generated tokens")
-    print(f"phase 4: main path prefill_ms={result['prefill_ms']:.3f} "
-          f"decode_ms_per_token={result['decode_ms_per_token']:.4f} "
-          f"tok_s={result['tokens_per_s']:.1f} "
-          f"state_mib={result['state_mib']:.1f} "
-          f"decode_linear.launches={launches} (timed generation "
-          f"{result['decode_launches']} = {full.n_layers} x "
-          f"{args.gen_len - 1}, warm-up {full.n_layers} x 2)")
-
-    # where a decode step's device time goes (bf16, full model)
-    cfg_main = full.with_backend("linear")
-    params = lm.cast_params(
-        lm.init_params(torch.Generator(device=dev).manual_seed(0), cfg_main),
-        torch.bfloat16)
-    prompt = torch.randint(0, full.vocab_size, (args.batch, 64), device=dev,
-                           generator=torch.Generator(device=dev).manual_seed(3))
-    logits, st = lm.prefill(params, prompt, cfg_main)
-    device_ms = profile_decode(params, cfg_main, st,
-                               torch.argmax(logits, -1), 64)
-    if device_ms is not None:
-        busy = device_ms / result["decode_ms_per_token"]
-        print(f"  device busy {100 * busy:.1f}% of a decode step "
-              f"({device_ms:.3f} ms device time per step over "
-              f"{result['decode_ms_per_token']:.3f} ms per token)")
-    del params, st
-
-    t = time_decode_linear(8 * full.n_heads, full.head_dim, gen, dev)
-    print(f"decode_linear N={8 * full.n_heads} D={full.head_dim} W=1 bf16: "
-          f"{t['ms'] * 1e3:.2f} us/launch (plain version "
-          f"{t['plain_ms'] * 1e3:.2f} us; bound {t['bound_ms'] * 1e3:.2f} us"
-          f" by {t['bound_by']}, {t['bytes'] / 1e6:.2f} MB moved)")
-    records = [{
-        "name": "decode_linear", "route": "cuda",
-        "source": "src/repro_torch/kernels/fused_recurrent/csrc/"
-                  "decode_linear.cu",
-        "replaces": "src/repro/kernels/fused_recurrent/kernel.py:239",
-        "launches": launches, "max_abs_err": main_err, "ms": t["ms"],
-        "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-        "bound_by": t["bound_by"], "library_ms": None}]
-    torch.cuda.empty_cache()
+    records = [generate_main_path("linear", dev, gen, 4)]
     done(4, t0)
 
     # -- 5. the lookup slice at the paper's width, kernel vs plain ---------
@@ -764,12 +957,26 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/lookup/csrc/lookup.cu",
             "replaces": f"src/repro/kernels/lookup/kernel.py:{line}",
-            "launches": main6["launches"][name], "max_abs_err": errs[name],
+            "launches": main6["launches"][name],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"]})
+    del main6, engine, times
+    torch.cuda.empty_cache()
     done(6, t0)
 
+    # -- 7. the gated slice, kernel vs plain recurrence, fp32 --------------
+    t0 = time.perf_counter()
+    slice_kernel_vs_reference("gated_linear", dev, 7)
+    done(7, t0)
+
+    # -- 8. the gated generate main path ----------------------------------
+    t0 = time.perf_counter()
+    records.append(generate_main_path("gated_linear", dev, gen, 8))
+    done(8, t0)
+
+    for r in records:
+        r["max_abs_err"] = errs[r["name"]]
     print(f"phases (s): {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}"
           f" total {time.perf_counter() - t_start:.1f} s")
     print(card)

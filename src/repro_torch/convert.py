@@ -43,6 +43,9 @@ def params_from_jax(np_tree: Any, cfg: ModelConfig, *,
     """Convert the ``repro.models.lm.init_params`` tree: ``embed``,
     ``stack`` (per pattern position, leaves with a leading repeat axis),
     ``tail``, ``final_norm`` and ``lm_head`` unless embeddings are tied.
+    Each attention entry carries every leaf it has: wq, wk, wv, wo, the
+    qk-norm scales and, under ``gated_linear``, the decay projection
+    ``w_gate`` / ``b_gate`` and the groupnorm ``gn_scale`` / ``gn_bias``.
     The JAX ``shared`` entry must be empty: the port has no
     ``shared_attn`` blocks."""
     if np_tree.get("shared"):
@@ -61,7 +64,9 @@ def _attn_state(st, device) -> AttnState:
 def state_from_jax(np_state: Any, *,
                    device: Optional[torch.device] = None) -> dict:
     """Convert a JAX decode state {"stack": (AttnState, ...), "tail":
-    (...)} of the linear backend (k_cache/v_cache None; s, z as numpy)."""
+    (...)} of the linear family (k_cache/v_cache None; s, z as numpy; z
+    is None for ``gated_linear`` and for ``linear`` without the
+    normaliser)."""
     return {part: tuple(_attn_state(st, device) for st in np_state[part])
             for part in ("stack", "tail")}
 

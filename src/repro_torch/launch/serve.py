@@ -2,10 +2,12 @@
 ``generate`` and ``lookup``).
 
 ``--mode generate``: one static batch of requests. Prefill the prompts
-once, then decode autoregressively, O(k²) per token under the linear
-backend (no KV cache; the decode state has the same size at any context
-length). Each decode step runs the fused recurrent CUDA kernel once per
-layer.
+once, then decode autoregressively, O(k²) per token (no KV cache; the
+decode state has the same size at any context length). ``--backend``
+picks the mechanism: ``linear`` (paper §3; decode kernel
+``decode_linear``) or ``gated_linear`` (paper §4, data-dependent decay
+with a per-head groupnorm; decode kernel ``decode_gated``). Each decode
+step runs the backend's fused recurrent CUDA kernel once per layer.
 
 ``--mode lookup``: memory serving. Encode ``--n-docs`` documents once
 into fixed-size k×k states resident on the device, then answer two
@@ -14,6 +16,8 @@ passes of ``--n-queries`` single-query requests in waves of
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \\
       --batch 8 --prompt-len 512 --gen-len 64
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \\
+      --backend gated_linear --batch 8 --prompt-len 512 --gen-len 64
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \\
       --smoke --device cpu --prompt-len 16 --gen-len 8 --batch 2
   PYTHONPATH=src python -m repro_torch.launch.serve --mode lookup \\
@@ -49,12 +53,14 @@ def _sync(device: torch.device) -> None:
 def generate(args) -> Dict[str, Any]:
     """Prefill + generation on one static batch. Prints the lines of the
     JAX package's ``generate`` and returns the measured numbers, the
-    generated tokens and the decode kernel's launches in the timed
-    generation (``decode_launches``)."""
+    generated tokens and the backend's decode kernel's launches in the
+    timed generation (``decode_launches``)."""
     device = resolve_device(args.device)
     cfg = (get_smoke_config(args.arch) if args.smoke
            else get_config(args.arch))
     cfg = cfg.with_backend(args.backend)
+    kernel = (FR.decode_gated if cfg.attention_backend == "gated_linear"
+              else FR.decode_linear)
     # independent generator streams: params / prompt / sampling
     gens = [torch.Generator(device=device).manual_seed(args.seed * 4 + i)
             for i in range(3)]
@@ -80,14 +86,14 @@ def generate(args) -> Dict[str, Any]:
     t_prefill = time.perf_counter() - t0
 
     tok0 = lm.sample_token(logits, args.temperature, g_sample)
-    launches0 = FR.decode_linear.launches
+    launches0 = kernel.launches
     t0 = time.perf_counter()
     toks, states = lm.generate(params, states, tok0, t_p, t_g - 1, cfg,
                                temperature=args.temperature,
                                generator=g_sample)
     _sync(device)
     t_decode = time.perf_counter() - t0
-    launches = FR.decode_linear.launches - launches0
+    launches = kernel.launches - launches0
     out = torch.cat([tok0[:, None], toks], dim=1)
     if out.shape != (b, t_g):
         raise RuntimeError(f"generated {tuple(out.shape)}, want {(b, t_g)}")
@@ -97,7 +103,8 @@ def generate(args) -> Dict[str, Any]:
     where = (torch.cuda.get_device_name(device) if device.type == "cuda"
              else "cpu")
     print(f"arch={cfg.name} backend={cfg.attention_backend} "
-          f"decode_kernel={cfg.decode_kernel} device={where}")
+          f"decode_kernel={cfg.decode_kernel} ({kernel.__name__}) "
+          f"device={where}")
     print(f"prefill {t_p} toks x{b}: {t_prefill*1e3:.0f} ms")
     print(f"decode  {t_g} toks x{b}: {t_decode/n_dec*1e3:.2f} ms/tok "
           f"({b*n_dec/t_decode:.0f} tok/s)")
@@ -211,8 +218,10 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                     choices=["generate", "lookup"])
     ap.add_argument("--arch", default="qwen3-0.6b")
     ap.add_argument("--smoke", action="store_true")
-    ap.add_argument("--backend", default="linear", choices=["linear"],
-                    help="the port serves the linear backend")
+    ap.add_argument("--backend", default="linear",
+                    choices=["linear", "gated_linear"],
+                    help="generate mode: linear (paper §3) or gated_linear"
+                         " (paper §4 decay)")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=64)
     ap.add_argument("--gen-len", type=int, default=32)

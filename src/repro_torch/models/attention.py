@@ -1,9 +1,17 @@
-"""GQA attention, linear backend (port of ``repro/models/attention.py``).
+"""GQA attention, linear family (port of ``repro/models/attention.py``).
 
-The paper's §3 mechanism in untied (q, k, v) form: chunk-parallel causal
-linear attention for prefill, and a fixed-size (Dk×Dv per head) decode
-state advanced by the fused W-step recurrence — the CUDA kernel for CUDA
-tensors (``kernels/fused_recurrent``).
+Two backends, both in untied (q, k, v) form with a fixed-size (Dk×Dv per
+head) decode state advanced by a fused W-step recurrence — the CUDA
+kernels for CUDA tensors (``kernels/fused_recurrent``):
+
+- ``linear``: the paper's §3 mechanism; chunk-parallel causal linear
+  attention for prefill, state (s, z) with the key-sum normaliser z
+  under ``linear_normalize``.
+- ``gated_linear``: the paper's §4 decay form, S ← diag(exp g) S + k vᵀ
+  with a data-dependent log-decay g (``_decay``, per channel or per
+  head); ``chunked_gla`` for prefill, the gated decode kernel after it,
+  and a per-head groupnorm on the outputs. Its state has no z, whatever
+  ``linear_normalize`` says.
 
 Heads are laid out as in the JAX package: q projects to (G, Hkv, Dh)
 with G = H / Hkv groups, the flat head index is g·Hkv + kv_head, and
@@ -22,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.gated import chunked_gla
 from repro_torch.core.linear_attention import causal_linear_attention_chunked
 from repro_torch.kernels.fused_recurrent import ops as FR
 from repro_torch.kernels.fused_recurrent import ref as FRref
@@ -32,10 +41,13 @@ Params = Dict[str, Tensor]
 
 
 def _require_linear(cfg: ModelConfig) -> None:
-    if cfg.attention_backend != "linear" or cfg.feature_gate:
+    """The port serves the linear family without the feature gate."""
+    if cfg.attention_backend not in ("linear", "gated_linear") or \
+            cfg.feature_gate:
         raise NotImplementedError(
-            f"{cfg.name}: the port serves attention_backend='linear' "
-            f"without feature_gate only (got {cfg.attention_backend!r})")
+            f"{cfg.name}: the port serves attention_backend 'linear' or "
+            f"'gated_linear' without feature_gate only (got "
+            f"{cfg.attention_backend!r}, feature_gate={cfg.feature_gate})")
 
 
 # ---------------------------------------------------------------------------
@@ -71,6 +83,17 @@ def attention_params(gen: torch.Generator, cfg: ModelConfig, *,
     if cfg.qk_norm:
         p["q_norm"] = torch.ones((*lead, dh), dtype=dtype, device=gen.device)
         p["k_norm"] = torch.ones((*lead, dh), dtype=dtype, device=gen.device)
+    if cfg.attention_backend == "gated_linear":
+        # decay projection (paper §4 α_t as a data-dependent gate)
+        gd = dh if cfg.decay_mode == "vector" else 1
+        p["w_gate"] = L.dense_init(gen, d, h * gd, lead=lead, dtype=dtype,
+                                   scale=0.01)
+        p["b_gate"] = torch.full((*lead, h * gd), 4.0, dtype=dtype,
+                                 device=gen.device)       # init: slow decay
+        p["gn_scale"] = torch.ones((*lead, h, dh), dtype=dtype,
+                                   device=gen.device)
+        p["gn_bias"] = torch.zeros((*lead, h, dh), dtype=dtype,
+                                   device=gen.device)
     return p
 
 
@@ -79,9 +102,10 @@ def attention_params(gen: torch.Generator, cfg: ModelConfig, *,
 # ---------------------------------------------------------------------------
 
 class AttnState(NamedTuple):
-    """Linear decode state: s (B, H, Dk, Dv) fp32 matrix state and z
-    (B, H, Dk) fp32 key-sum normaliser (None without ``linear_normalize``)
-    — the paper's fixed-size representation; O(1) in context."""
+    """Linear-family decode state: s (B, H, Dk, Dv) fp32 matrix state and
+    z (B, H, Dk) fp32 key-sum normaliser (linear backend under
+    ``linear_normalize`` only, else None) — the paper's fixed-size
+    representation; O(1) in context."""
     s: Tensor
     z: Optional[Tensor]
 
@@ -90,8 +114,11 @@ def init_attn_state(cfg: ModelConfig, batch: int, *,
                     lead: Tuple[int, ...] = (), device=None) -> AttnState:
     _require_linear(cfg)
     h, dh = cfg.n_heads, cfg.head_dim
+    # the gated state has no normaliser, even under linear_normalize
     z = (torch.zeros((*lead, batch, h, dh), dtype=torch.float32,
-                     device=device) if cfg.linear_normalize else None)
+                     device=device)
+         if cfg.attention_backend == "linear" and cfg.linear_normalize
+         else None)
     return AttnState(
         s=torch.zeros((*lead, batch, h, dh, dh), dtype=torch.float32,
                       device=device), z=z)
@@ -171,6 +198,23 @@ def _heads(q: Tensor, k: Tensor, v: Tensor, cfg: ModelConfig
     return qh, kh, vh
 
 
+def _decay(p: Params, x: Tensor, cfg: ModelConfig) -> Tensor:
+    """Data-dependent log-decay g ≤ 0 (the paper's α_t = exp(g_t)), fp32:
+    (B, H, T, Dk) in vector mode, (B, H, T, 1) in scalar mode."""
+    b, t, _ = x.shape
+    gd = cfg.head_dim if cfg.decay_mode == "vector" else 1
+    raw = x @ p["w_gate"].to(x.dtype) + p["b_gate"].to(x.dtype)
+    raw = raw.reshape(b, t, cfg.n_heads, gd).permute(0, 2, 1, 3)
+    # log α = −softplus(−raw)/decay_temp: raw → +∞ remembers, −∞ forgets
+    return -F.softplus(-raw.float()) * (1.0 / cfg.decay_temp)
+
+
+def _groupnorm(p: Params, o: Tensor) -> Tensor:
+    """Per-head groupnorm of head outputs o: (B, H, T, Dh)."""
+    return L.groupnorm_heads(o.transpose(1, 2), p["gn_scale"].float(),
+                             p["gn_bias"].float()).transpose(1, 2)
+
+
 # ---------------------------------------------------------------------------
 # full-sequence forward (prefill)
 # ---------------------------------------------------------------------------
@@ -185,7 +229,8 @@ def attention_apply(
     """Full-sequence attention, forward only. x: (B, T, D) → (B, T, D).
 
     ``want_state=True`` also returns the decode state after the last
-    position: the chunked final state and z = Σ_t k_t, a plain fp32 sum.
+    position: the chunked final state and, for the linear backend,
+    z = Σ_t k_t, a plain fp32 sum.
     """
     _require_linear(cfg)
     b, t, _ = x.shape
@@ -194,13 +239,18 @@ def attention_apply(
     if cfg.rope:
         q, k = _rope(q, k, torch.arange(t, device=x.device), cfg)
     qh, kh, vh = _heads(q, k, v, cfg)
-    o_h, s_f = causal_linear_attention_chunked(
-        qh, kh, vh, chunk_size=cfg.linear_chunk,
-        normalize=cfg.linear_normalize)
-    state = None
-    if want_state:
-        zf = kh.float().sum(dim=2) if cfg.linear_normalize else None
-        state = AttnState(s=s_f, z=zf)
+    if cfg.attention_backend == "linear":
+        o_h, s_f = causal_linear_attention_chunked(
+            qh, kh, vh, chunk_size=cfg.linear_chunk,
+            normalize=cfg.linear_normalize)
+        zf = (kh.float().sum(dim=2)
+              if want_state and cfg.linear_normalize else None)
+    else:   # gated_linear: the decay is clamped inside chunked_gla
+        o_h, s_f = chunked_gla(qh, kh, vh, _decay(p, x, cfg),
+                               chunk_size=cfg.linear_chunk)
+        o_h = _groupnorm(p, o_h)
+        zf = None
+    state = AttnState(s=s_f, z=zf) if want_state else None
     o = o_h.reshape(b, h // hkv, hkv, t, dh)
     return _merge_heads(p, o, x.dtype), state
 
@@ -227,6 +277,35 @@ def _recurrent_linear(s, q, k, v, z, cfg: ModelConfig, lens=None):
         s, q, k, v, z=z, normalize=cfg.linear_normalize, lens=lens)
 
 
+def _recurrent_gated(s, q, k, v, g, cfg: ModelConfig, lens=None):
+    """W-step gated decode recurrence behind ``cfg.decode_kernel``; s is
+    updated in place. "auto"/"fused" go through the kernel wrapper (the
+    CUDA kernel for CUDA tensors); "reference" asks for the plain PyTorch
+    version explicitly. Shapes: s (B,H,Dk,Dv); q,k,g (B,H,W,Dk);
+    v (B,H,W,Dv); lens (B,)|None."""
+    if cfg.decode_kernel == "reference":
+        o, s_new = FRref.fused_recurrent_gated_ref(s, q, k, v, g, lens=lens)
+        s.copy_(s_new)
+        return o, s
+    return FR.fused_recurrent_gated(s, q, k, v, g, lens=lens)
+
+
+def _recurrent(p: Params, x: Tensor, state: AttnState, qh, kh, vh,
+               cfg: ModelConfig, lens=None) -> Tuple[Tensor, AttnState]:
+    """The backend's W-step recurrence over head rows (B, H, W, Dh), from
+    the block input x: (B, W, D). Returns head outputs (B, H, W, Dh) and
+    the state, updated in place. The gated decay is broadcast to Dk
+    before the kernel (scalar mode), so the kernel always sees
+    (B, H, W, Dk); the groupnorm runs on its output."""
+    if cfg.attention_backend == "linear":
+        o_w, s_new, z_new = _recurrent_linear(state.s, qh, kh, vh, state.z,
+                                              cfg, lens=lens)
+        return o_w, AttnState(s=s_new, z=z_new)
+    g = _decay(p, x, cfg).expand(qh.shape)
+    o_w, s_new = _recurrent_gated(state.s, qh, kh, vh, g, cfg, lens=lens)
+    return _groupnorm(p, o_w), AttnState(s=s_new, z=None)
+
+
 def attention_decode(
     p: Params,
     x: Tensor,
@@ -244,10 +323,10 @@ def attention_decode(
     if cfg.rope:
         q, k = _rope(q, k, pos.expand(b), cfg)
     qh, kh, vh = _heads(q, k, v, cfg)                  # (B, H, 1, Dh)
-    o_w, s_new, z_new = _recurrent_linear(state.s, qh, kh, vh, state.z, cfg)
+    o_w, new_state = _recurrent(p, x[:, None, :], state, qh, kh, vh, cfg)
     o = o_w.reshape(b, cfg.n_heads // cfg.n_kv_heads, cfg.n_kv_heads, 1,
                     cfg.head_dim)
-    return _merge_heads(p, o, x.dtype)[:, 0], AttnState(s=s_new, z=z_new)
+    return _merge_heads(p, o, x.dtype)[:, 0], new_state
 
 
 def attention_decode_window(
@@ -279,8 +358,7 @@ def attention_decode_window(
     if lens is not None:
         lens = torch.as_tensor(lens, device=x.device).to(torch.int32)
         lens = lens.clamp(0, w)
-    o_w, s_new, z_new = _recurrent_linear(state.s, qh, kh, vh, state.z, cfg,
-                                          lens=lens)
+    o_w, new_state = _recurrent(p, x, state, qh, kh, vh, cfg, lens=lens)
     o = o_w.reshape(b, cfg.n_heads // cfg.n_kv_heads, cfg.n_kv_heads, w,
                     cfg.head_dim)
-    return _merge_heads(p, o, x.dtype), AttnState(s=s_new, z=z_new)
+    return _merge_heads(p, o, x.dtype), new_state

@@ -1,5 +1,6 @@
 """Block dispatch, ``"attn"`` kind (port of ``repro/models/blocks.py``):
-pre-norm self-attention (linear backend) + MLP.
+pre-norm self-attention (the linear family: ``linear`` or
+``gated_linear``) + MLP.
 
 ``shared_attn``, ``cross``, ``mamba`` and ``rwkv`` blocks and MoE MLPs are
 not ported yet and raise.

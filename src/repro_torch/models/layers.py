@@ -11,7 +11,7 @@ leading shape (the repeat axis of a stacked layer group).
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -25,9 +25,11 @@ Params = Dict[str, Tensor]
 # ---------------------------------------------------------------------------
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int, *,
-               lead: Tuple[int, ...] = (), dtype=torch.float32) -> Tensor:
+               lead: Tuple[int, ...] = (), dtype=torch.float32,
+               scale: Optional[float] = None) -> Tensor:
+    """Normal weights over sqrt(d_in), or times ``scale`` if given."""
     w = torch.randn((*lead, d_in, d_out), generator=gen, device=gen.device)
-    return (w / math.sqrt(d_in)).to(dtype)
+    return (w / math.sqrt(d_in) if scale is None else w * scale).to(dtype)
 
 
 def embed_init(gen: torch.Generator, vocab: int, d: int, *,
@@ -57,6 +59,17 @@ def apply_norm(kind: str, params: Params, x: Tensor) -> Tensor:
     if kind != "rmsnorm":
         raise NotImplementedError(f"norm {kind!r}: the port has rmsnorm only")
     return rmsnorm(params, x)
+
+
+def groupnorm_heads(x: Tensor, scale: Tensor, bias: Tensor,
+                    eps: float = 1e-5) -> Tensor:
+    """Per-head groupnorm over (B, T, H, D) head outputs (RWKV style),
+    computed in fp32 over the last dimension, returned in x's type."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, unbiased=False, keepdim=True)
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    return (out * scale + bias).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

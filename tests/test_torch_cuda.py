@@ -159,6 +159,102 @@ def test_slice_through_kernel_matches_reference(dev):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
 
 
+# -- the gated decode kernel B7 ----------------------------------------------
+# The state: the same separately rounded multiply and add as the plain
+# version (bitwise where expf agrees), held within rtol 1e-6; o: fp32
+# sums in another order, then rounded to o's type (B1's tolerances).
+
+def _gated_rows(dev, n, w, d, dtype, decay, seed=0):
+    """Positive q, k (the elu1 regime), signed v; the log-decay per row
+    kind: mild, strong (≤ -5), zero, or scalar (one value per step,
+    broadcast over Dk)."""
+    x = _rows(dev, n, w, d, dtype, seed)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    u = torch.rand((n, w, d), generator=g, device=dev)
+    if decay == "mild":
+        x["g"] = -u
+    elif decay == "strong":
+        x["g"] = -5.0 - 3.0 * u
+    elif decay == "zero":
+        x["g"] = torch.zeros_like(u)
+    else:                                                # scalar
+        x["g"] = (-u[..., :1]).expand(n, w, d).contiguous()
+    return x
+
+
+@pytest.mark.parametrize("d", [16, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("varlen", [False, True])
+@pytest.mark.parametrize("decay", ["mild", "strong", "zero", "scalar"])
+def test_decode_gated_matches_plain_version(dev, d, dtype, varlen, decay):
+    n, w = 24, 5
+    x = _gated_rows(dev, n, w, d, dtype, decay)
+    lens = (torch.arange(n, dtype=torch.int32, device=dev) % (w + 3)
+            if varlen else None)                     # 0 .. W + 2
+    o_r, s_r = ref.fused_recurrent_gated_ref(
+        x["s"][:, None], x["q"][:, None], x["k"][:, None], x["v"][:, None],
+        x["g"][:, None], lens=lens)
+    s = x["s"].clone()
+    before = ops.decode_gated.launches
+    o, s_out = ops.decode_gated(s, x["q"], x["k"], x["v"], x["g"], lens=lens)
+    torch.cuda.synchronize()
+    assert ops.decode_gated.launches == before + 1
+    assert s_out is s and o.dtype == dtype
+    torch.testing.assert_close(s, s_r[:, 0], rtol=1e-6, atol=1e-6)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(o.float(), o_r[:, 0].float(), rtol=tol,
+                               atol=tol)
+    if varlen:
+        idle = lens == 0
+        assert torch.equal(s[idle], x["s"][idle])
+        masked = torch.arange(w, device=dev)[None] >= lens[:, None]
+        assert torch.count_nonzero(o[masked]) == 0
+
+
+def test_decode_gated_rejects_unsupported_inputs(dev):
+    x = _gated_rows(dev, 4, 2, 16, torch.bfloat16, "mild")
+    with pytest.raises(ValueError):                          # g not fp32
+        ops.decode_gated(x["s"], x["q"], x["k"], x["v"], x["g"].bfloat16())
+    with pytest.raises(ValueError):                          # g on the CPU
+        ops.decode_gated(x["s"], x["q"], x["k"], x["v"], x["g"].cpu())
+    with pytest.raises(ValueError):                          # lens shape
+        ops.decode_gated(x["s"], x["q"], x["k"], x["v"], x["g"],
+                         lens=torch.zeros(3, dtype=torch.int32, device=dev))
+    with pytest.raises(ValueError):                          # strided g
+        ops.decode_gated(x["s"], x["q"], x["k"], x["v"],
+                         x["g"].transpose(1, 2).contiguous().transpose(1, 2))
+    with pytest.raises(TypeError):                           # mixed types
+        ops.decode_gated(x["s"], x["q"].float(), x["k"], x["v"], x["g"])
+
+
+def test_gated_slice_through_kernel_matches_reference(dev):
+    """Smoke config, gated_linear, on the card: prefill, greedy generation
+    and a varlen window through B7 == the same through the plain
+    recurrence; the gated state has no z."""
+    cfg = dataclasses.replace(
+        get_smoke_config("qwen3-0.6b").with_backend("gated_linear"),
+        dtype="float32")
+    params = lm.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    prompt = torch.randint(0, cfg.vocab_size, (3, 20), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(1))
+    out = {}
+    for kernel in ("auto", "reference"):
+        c = dataclasses.replace(cfg, decode_kernel=kernel)
+        before = ops.decode_gated.launches
+        logits, st = lm.prefill(params, prompt, c)
+        toks, st = lm.generate(params, st, torch.argmax(logits, -1), 20, 6, c)
+        lg, st = lm.decode_window_varlen(
+            params, st, prompt[:, :4], torch.tensor([26, 26, 26]),
+            torch.tensor([4, 0, 2]), c)
+        launched = ops.decode_gated.launches - before
+        assert launched == (7 * cfg.n_layers if kernel == "auto" else 0)
+        assert st["stack"][0].z is None
+        out[kernel] = (toks, lg, st["stack"][0].s)
+    assert torch.equal(out["auto"][0], out["reference"][0])
+    for a, b in zip(out["auto"][1:], out["reference"][1:]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
 # -- the lookup kernels B4, B5, B6 ------------------------------------------
 # States are drawn non-symmetric (a transposed read of C would show).
 # Outputs: rtol = atol = 1e-4, fp32 sums in another order (the JAX kernel

@@ -42,7 +42,9 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     for module in ("configs/paper_qa.py", "core/state.py", "qa/gru.py",
                    "kernels/lookup/ops.py", "kernels/lookup/ref.py",
                    "serving/lifecycle.py", "serving/lookup_engine.py",
-                   "serving/__init__.py", "convert.py", "launch/serve.py"):
+                   "serving/__init__.py", "convert.py", "launch/serve.py",
+                   "core/gated.py", "kernels/fused_recurrent/ops.py",
+                   "kernels/fused_recurrent/ref.py", "models/attention.py"):
         assert port / module in files, module
     bad = [(str(f.relative_to(ROOT)), m) for f in files
            for m in _imported_roots(f) if m in FORBIDDEN]
@@ -59,7 +61,7 @@ def test_importing_the_serving_entry_point_loads_no_jax():
     code = ("import sys, repro_torch.launch.serve, repro_torch.serving, "
             "repro_torch.core.state, repro_torch.qa.gru, "
             "repro_torch.kernels.lookup.ops, repro_torch.convert, "
-            "repro_torch.configs.paper_qa; "
+            "repro_torch.configs.paper_qa, repro_torch.core.gated; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); assert not bad")
     subprocess.run([sys.executable, "-c", code], env=_env(), check=True,
@@ -107,6 +109,49 @@ def test_serve_cli_on_cpu():
     assert lines[1].startswith("prefill 16 toks x2:")
     assert lines[2].startswith("decode  6 toks x2:") and "tok/s" in lines[2]
     assert lines[3].startswith("decode state:") and "O(1)" in lines[3]
+
+
+def test_serve_gated_cli_on_cpu():
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+         "qwen3-0.6b", "--smoke", "--device", "cpu", "--backend",
+         "gated_linear", "--prompt-len", "16", "--gen-len", "6", "--batch",
+         "2"],
+        env=_env(), capture_output=True, text=True, timeout=300, cwd=ROOT)
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.splitlines()
+    assert lines[0].startswith(
+        "arch=qwen3-0.6b-smoke backend=gated_linear decode_kernel=auto "
+        "(decode_gated)")
+    assert lines[1].startswith("prefill 16 toks x2:")
+    assert lines[2].startswith("decode  6 toks x2:") and "tok/s" in lines[2]
+    assert lines[3].startswith("decode state:") and "O(1)" in lines[3]
+
+
+def test_serve_gated_on_cpu_counts_no_kernel_launch():
+    """The entry point's result: tokens of the asked shape, the gated
+    state's bytes (s only, no z), and no kernel launch on the CPU."""
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    args = serve.parse_args(["--smoke", "--device", "cpu", "--backend",
+                             "gated_linear", "--prompt-len", "8",
+                             "--gen-len", "4", "--batch", "2"])
+    out = serve.generate(args)
+    cfg = get_smoke_config("qwen3-0.6b").with_backend("gated_linear")
+    assert out["tokens"].shape == (2, 4) and out["decode_launches"] == 0
+    assert out["state_mib"] * 2**20 == lm.state_bytes(
+        lm.init_decode_state(cfg, 2)) == (
+        cfg.n_layers * 2 * cfg.n_heads * cfg.head_dim ** 2 * 4)
+
+
+def test_serve_without_cuda_raises(monkeypatch):
+    import torch
+
+    from repro_torch.launch import serve
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError):
+        serve.generate(serve.parse_args(["--smoke", "--backend",
+                                         "gated_linear"]))
 
 
 def test_serve_lookup_cli_on_cpu():
