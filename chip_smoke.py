@@ -34,9 +34,20 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    full 28-layer qwen3-0.6b in bf16, batch 8, prompt 512, 64 generated
    tokens; the gated kernel's launch count over that run; a profile of a
    few decode steps; the kernel timed beside its bound and plain version.
+9. The training slice on the card: 2 layers at qwen3-0.6b's full widths
+   in fp32, batch 2 x 256 tokens, weights from seed 0: the loss, every
+   gradient leaf and the parameters after one AdamW step through B2/B3
+   against the same through their plain versions
+   (``attention_kernel=False``).
+10. The training main path: ``repro_torch.launch.train``'s ``build`` and
+   ``TrainLoop`` on the full 28-layer qwen3-0.6b (linear, bf16 compute,
+   fp32 master weights, remat per layer), batch 8 x seq 1,024, 2 warm-up
+   and 6 timed steps; ms/step, tokens/s, peak memory, the losses, B2/B3
+   launches per step, a profile of one step, and B2, B3-dq and B3-dkv
+   timed beside their bounds and plain versions.
 
-Each main path (phases 4, 6 and 8) is driven with every kernel's launch
-count set to 0 just before it and read just after.
+Each main path (phases 4, 6, 8 and 10) is driven with every kernel's
+launch count set to 0 just before it and read just after.
 
 The last line is {"ok": true, "device": {...}}; the line before it the
 kernels' JSON record; before that the card's name and power limit.
@@ -205,7 +216,7 @@ def bound(n_bytes: float, flops: float) -> dict:
     flops_ms = flops / PEAK_FP32_FLOPS * 1e3
     return dict(bound_ms=max(bytes_ms, flops_ms),
                 bound_by="bytes" if bytes_ms >= flops_ms else "operations",
-                bytes=n_bytes)
+                bytes=n_bytes, flops=flops)
 
 
 def nonsymmetric(gen, dev, *shape):
@@ -432,6 +443,25 @@ def time_lookup_kernels(store, n_live, gen, dev) -> dict:
     return out
 
 
+def profile_rows(prof):
+    """(µs, name, count) rows of a torch.profiler run, largest first: the
+    device rows (kernels, copies and sets that ran on the card) and the
+    host rows (operators' own CPU time). An operator's row also carries
+    the device time of the kernels it launched, so only events that ran
+    on the device count as device time; summing every row would count
+    each such kernel twice."""
+    from torch.autograd import DeviceType
+    rows, host = [], []
+    for e in prof.key_averages():
+        t = (getattr(e, "self_device_time_total", None)
+             or getattr(e, "self_cuda_time_total", 0) or 0)
+        if t > 0 and e.device_type == DeviceType.CUDA:
+            rows.append((t, e.key, e.count))
+        if e.self_cpu_time_total > 0:
+            host.append((e.self_cpu_time_total, e.key, e.count))
+    return sorted(rows, reverse=True), sorted(host, reverse=True)
+
+
 def profile_lookup_waves(engine, doc_ids, queries, waves=8):
     """Device busy share over a few timed waves (torch.profiler): device
     time by kernel against the wall time of ``engine.run()``."""
@@ -447,16 +477,7 @@ def profile_lookup_waves(engine, doc_ids, queries, waves=8):
         engine.run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    rows, host = [], []
-    for e in prof.key_averages():
-        t = (getattr(e, "self_device_time_total", None)
-             or getattr(e, "self_cuda_time_total", 0) or 0)
-        if t > 0:
-            rows.append((t, e.key, e.count))
-        if e.self_cpu_time_total > 0:
-            host.append((e.self_cpu_time_total, e.key, e.count))
-    rows.sort(reverse=True)
-    host.sort(reverse=True)
+    rows, host = profile_rows(prof)
     host_total = sum(t for t, _, _ in host)
     print(f"  profile: {waves} waves in {wall_ms:.3f} ms wall under the "
           f"profiler ({wall_ms / waves:.3f} ms per wave); host time in "
@@ -629,16 +650,7 @@ def profile_decode(params, cfg, states, tok, pos, steps=4, kernel=None):
             tok = torch.argmax(logits, -1)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) / steps * 1e3
-    rows, host = [], []
-    for e in prof.key_averages():
-        t = (getattr(e, "self_device_time_total", None)
-             or getattr(e, "self_cuda_time_total", 0) or 0)
-        if t > 0:
-            rows.append((t, e.key, e.count))
-        if e.self_cpu_time_total > 0:
-            host.append((e.self_cpu_time_total, e.key, e.count))
-    rows.sort(reverse=True)
-    host.sort(reverse=True)
+    rows, host = profile_rows(prof)
     host_total = sum(t for t, _, _ in host)
     print(f"  profile: {wall_ms:.3f} ms wall per decode step under the "
           f"profiler; host time in operators {host_total / steps / 1e3:.3f}"
@@ -661,15 +673,158 @@ def profile_decode(params, cfg, states, tok, pos, steps=4, kernel=None):
     return total / steps / 1e3
 
 
+# B2/B3 against their plain versions, normwise: max|Δ| within the
+# tolerance times max|plain| (fp32 sums of up to T·D terms in another
+# order; bf16: the same fp32 sums rounded to bf16, two ulps of the max)
+LA_TOL = {"float32": 1e-5, "bfloat16": 8e-3}
+
+
+def la_rows(bh, t, d, dtype, gen, dev):
+    """q, k positive (the model's elu1 feature map), v and do signed."""
+    import torch
+    r = lambda: torch.randn((bh, t, d), generator=gen, device=dev)  # noqa
+    return [x.to(dtype) for x in (elu1(r()), elu1(r()), r(), r())]
+
+
+def normwise(x, want, tol, what) -> float:
+    """max|x - want|, checked against tol · max|want|."""
+    err = (x.float() - want.float()).abs().max().item()
+    scale = want.float().abs().max().item()
+    if not err <= tol * scale:
+        raise AssertionError(f"{what}: max|Δ| {err:.3e} > {tol} x "
+                             f"{scale:.3e}")
+    return err
+
+
+def check_linear_attention_rows(bh, t, d, dtype, chunk, gen, dev) -> dict:
+    """B2 and B3 on flat rows against ``chunked_fwd_ref`` /
+    ``chunked_bwd_ref``; returns the largest |Δ| per kernel."""
+    import torch
+    from repro_torch.kernels.linear_attention import ops as LA, ref as LR
+    q, k, v, do = la_rows(bh, t, d, dtype, gen, dev)
+    o, s = LA.fwd(q, k, v, chunk=chunk)
+    dq, dk, dv = LA.bwd(q, k, v, do, chunk=chunk)
+    torch.cuda.synchronize()
+    o_r, s_r = LR.chunked_fwd_ref(q, k, v, chunk=chunk)
+    dq_r, dk_r, dv_r = LR.chunked_bwd_ref(q, k, v, do, chunk=chunk)
+    name = str(dtype).split(".")[-1]
+    tol = LA_TOL[name]
+    tag = f"rows={bh} T={t} D={d} {name} chunk={chunk}"
+    err = {"linear_attention_fwd": normwise(o, o_r, tol, f"o {tag}"),
+           "linear_attention_bwd_dq": normwise(dq, dq_r, tol, f"dq {tag}"),
+           "linear_attention_bwd_dkv": max(
+               normwise(dk, dk_r, tol, f"dk {tag}"),
+               normwise(dv, dv_r, tol, f"dv {tag}"))}
+    s_err = normwise(s, s_r, LA_TOL["float32"], f"state {tag}")
+    print(f"  linear_attention {tag}: max|Δo|="
+          f"{err['linear_attention_fwd']:.3e} max|ΔS|={s_err:.3e} max|Δdq|="
+          f"{err['linear_attention_bwd_dq']:.3e} max|Δdk,dv|="
+          f"{err['linear_attention_bwd_dkv']:.3e} (normwise tol {tol})")
+    return err
+
+
+def check_linear_attention_wrapper(t, d, dtype, chunk, gen, dev) -> None:
+    """(B, H, T, D) through ``ops.linear_attention`` (padding to the
+    chunk, the autograd function) and ``linear_attention_with_state``,
+    kernel route against ``kernel=False``: o, the state and the three
+    gradients."""
+    import torch
+    from repro_torch.kernels.linear_attention import ops as LA
+    q, k, v, do = (x.reshape(2, 3, t, d)
+                   for x in la_rows(6, t, d, dtype, gen, dev))
+    out = {}
+    for kernel in (True, False):
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        o = LA.linear_attention(*leaves, chunk=chunk, kernel=kernel)
+        o.backward(do)
+        _, s = LA.linear_attention_with_state(q, k, v, chunk=chunk,
+                                              kernel=kernel)
+        out[kernel] = [o.detach(), s] + [x.grad for x in leaves]
+    torch.cuda.synchronize()
+    name = str(dtype).split(".")[-1]
+    tag = f"B=2 H=3 T={t} D={d} {name} chunk={chunk}"
+    errs = [normwise(a, b, LA_TOL["float32" if i == 1 else name],
+                     f"wrapper {tag} output {i}")
+            for i, (a, b) in enumerate(zip(out[True], out[False]))]
+    print(f"  linear_attention wrapper {tag} (padded to "
+          f"{-(-t // min(chunk, t)) * min(chunk, t)} when T % chunk): "
+          f"max|Δ| o {errs[0]:.3e}, S {errs[1]:.3e}, dq {errs[2]:.3e}, "
+          f"dk {errs[3]:.3e}, dv {errs[4]:.3e} against kernel=False")
+
+
+def check_linear_attention_autograd(gen, dev) -> None:
+    """The autograd function (B2 forward, B3 backward) against autograd
+    through the quadratic direct form, fp32, T = 37."""
+    from repro_torch.kernels.linear_attention import ops as LA, ref as LR
+    import torch
+    q, k, v, do = (x.reshape(1, 4, 37, 16)
+                   for x in la_rows(4, 37, 16, torch.float32, gen, dev))
+    got, want = [], []
+    for fn, sink in ((lambda a, b, c: LA.linear_attention(a, b, c, chunk=16),
+                      got),
+                     (lambda a, b, c: LR.linear_attention_ref(
+                         a[0], b[0], c[0])[0][None], want)):
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        o = fn(*leaves)
+        o.backward(do)
+        sink.extend([o.detach()] + [x.grad for x in leaves])
+    errs = [normwise(a, b, LA_TOL["float32"], "autograd")
+            for a, b in zip(got, want)]
+    print(f"  linear_attention autograd function vs autograd of the direct "
+          f"form (fp32, T=37): max|Δ| o, dq, dk, dv = "
+          f"{', '.join(f'{e:.3e}' for e in errs)}")
+
+
+def time_linear_attention(bh, t, d, chunk, gen, dev) -> dict:
+    """B2, B3-dq and B3-dkv at the training main path's shape (bf16), with
+    their plain versions, from CUDA-graph replays. The inputs (4 x 33.5
+    MB at the main shape) exceed the 50 MB L2. Bounds: each input read
+    once and each output written once over 3.35 TB/s, or the fp32
+    operations the function needs over 67 TFLOP/s. The least work is the
+    scan form's: each rank-one update of the D x D state and each product
+    with it costs 2D² per token; B2 and dq do two per token (S += k vᵀ,
+    then q S), dk/dv three (R += q doᵀ, then v R and k R). The chunked
+    forms the kernels and the Pallas functions run do more."""
+    import torch
+    from repro_torch.kernels.linear_attention import ops as LA, ref as LR
+    q, k, v, do = la_rows(bh, t, d, torch.bfloat16, gen, dev)
+    x_bytes = q.nbytes
+    state_bytes = bh * d * d * 4
+    per_product = bh * t * 2 * d * d
+    out = {}
+    for name, kern, plain, n_bytes, n_products in (
+            ("linear_attention_fwd",
+             lambda i: LA.fwd(q, k, v, chunk=chunk),
+             lambda i: LR.chunked_fwd_ref(q, k, v, chunk=chunk),
+             4 * x_bytes + state_bytes, 2),
+            ("linear_attention_bwd_dq",
+             lambda i: LA.bwd_dq(k, v, do, chunk=chunk),
+             lambda i: LR.chunked_bwd_dq_ref(k, v, do, chunk=chunk),
+             4 * x_bytes, 2),
+            ("linear_attention_bwd_dkv",
+             lambda i: LA.bwd_dkv(q, k, v, do, chunk=chunk),
+             lambda i: LR.chunked_bwd_dkv_ref(q, k, v, do, chunk=chunk),
+             6 * x_bytes, 3)):
+        out[name] = dict(ms=graph_ms(kern, 4, replays=5),
+                         plain_ms=graph_ms(plain, 2, replays=3),
+                         library_ms=None,
+                         **bound(n_bytes, n_products * per_product))
+    return out
+
+
 def launch_counters() -> dict:
     """Every kernel wrapper of the port, by kernel name: each adds one to
     its ``launches`` where it launches its kernel."""
     from repro_torch.kernels.fused_recurrent import ops
+    from repro_torch.kernels.linear_attention import ops as LA
     from repro_torch.kernels.lookup import ops as LU
     return {"decode_linear": ops.decode_linear,
             "decode_gated": ops.decode_gated,
             "mass_lookup_indexed": LU.mass_lookup_indexed,
-            "mass_lookup": LU.mass_lookup, "fused_decode": LU.fused_decode}
+            "mass_lookup": LU.mass_lookup, "fused_decode": LU.fused_decode,
+            "linear_attention_fwd": LA.fwd,
+            "linear_attention_bwd_dq": LA.bwd_dq,
+            "linear_attention_bwd_dkv": LA.bwd_dkv}
 
 
 def reset_launches() -> None:
@@ -825,6 +980,213 @@ def generate_main_path(backend, dev, gen, phase) -> dict:
             "bound_by": t["bound_by"], "library_ms": None}
 
 
+TRAIN_KERNELS = ("linear_attention_fwd", "linear_attention_bwd_dq",
+                 "linear_attention_bwd_dkv")
+
+
+def training_slice(dev) -> None:
+    """Phase 9: 2 layers at qwen3-0.6b's full widths, fp32, batch 2 x 256
+    tokens, weights from seed 0. Through B2/B3 and through their plain
+    versions: the loss (rtol 1e-5), every gradient leaf (normwise 1e-4:
+    fp32 sums in other orders through two layers and the head), and the
+    parameters after one AdamW step (within 1e-6 wherever the plain
+    gradient is above that tolerance; Adam's first step is ±lr by the
+    gradient's sign, which rounding may flip where it is below)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.optim import GradAccumulator, adamw, cosine_warmup
+    from repro_torch.runtime import make_train_step
+    from repro_torch.tree import leaves, tree_map
+    cfg = dataclasses.replace(get_config("qwen3-0.6b").with_backend("linear"),
+                              n_layers=2, dtype="float32")
+    params0 = lm.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    toks = torch.randint(0, cfg.vocab_size, (2, 257), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(1))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    runs = {}
+    for kernel in (True, False):
+        reset_launches()
+        loss, _, grads = GradAccumulator(1).run(
+            lambda p, b: lm.lm_loss(p, b, cfg, attention_kernel=kernel),
+            params0, batch)
+        params = tree_map(lambda x: x.detach().clone(), params0)
+        opt = adamw(cosine_warmup(3e-4, warmup=20, total=8), weight_decay=0.1)
+        params, _, m = make_train_step(cfg, opt, attention_kernel=kernel)(
+            params, opt.init(params), batch)
+        torch.cuda.synchronize()
+        runs[kernel] = (loss, leaves(grads), leaves(params), m,
+                        read_launches())
+    (loss_k, g_k, p_k, m_k, n_k), (loss_p, g_p, p_p, m_p, n_p) = (
+        runs[True], runs[False])
+    # two backward passes per route (the gradients, then the train
+    # step); B2 twice per layer and pass: forward and remat recompute
+    want = {"linear_attention_fwd": 2 * 2 * cfg.n_layers,
+            "linear_attention_bwd_dq": 2 * cfg.n_layers,
+            "linear_attention_bwd_dkv": 2 * cfg.n_layers}
+    got = {k: n_k[k] for k in TRAIN_KERNELS}
+    if got != want or any(n_p.values()):
+        raise AssertionError(f"phase 9: launches {got} on the kernel route "
+                             f"(want {want}), {n_p} on the plain route")
+    torch.testing.assert_close(loss_k, loss_p, rtol=1e-5, atol=0.0)
+    torch.testing.assert_close(m_k["loss"], m_p["loss"], rtol=1e-5, atol=0.0)
+    g_err = max(normwise(a, b, 1e-4, "phase 9 gradient leaf")
+                for a, b in zip(g_k, g_p))
+    p_err, n_flip, n_small = 0.0, 0, 0
+    for a, b, g in zip(p_k, p_p, g_p):
+        big = g.abs() > 1e-4 * g.abs().max()
+        d = (a - b).abs()
+        p_err = max(p_err, d[big].max().item() if big.any() else 0.0)
+        n_small += int((~big).sum())
+        n_flip += int((d[~big] > 1e-6).sum())
+    if p_err > 1e-6:
+        raise AssertionError(f"phase 9: parameters after one step differ by "
+                             f"{p_err:.3e}")
+    if not all(torch.isfinite(x).all() for x in g_k + p_k):
+        raise AssertionError("phase 9: non-finite gradients or parameters")
+    print(f"phase 9: training slice, 2 layers full width fp32, batch 2 x 256:"
+          f" loss {loss_k.item():.6f} vs plain {loss_p.item():.6f}; "
+          f"{len(g_k)} gradient leaves max normwise |Δg|={g_err:.3e}; params "
+          f"after one AdamW step max|Δ|={p_err:.3e} where |g| > 1e-4 max|g| "
+          f"({n_flip} of {n_small} elements below it moved apart); B2/B3 "
+          f"launches {got} over two passes (B2 twice per layer and pass: "
+          f"forward and remat recompute)")
+
+
+def profile_train_step(loop, batch) -> dict:
+    """Device time by kernel over one training step (torch.profiler) and
+    the device busy share: device time over the step's wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
+                 ) as prof:
+        t0 = time.perf_counter()
+        loop.params, loop.opt_state, m = loop.step_fn(
+            loop.params, loop.opt_state, batch)
+        m["loss"].item()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows, _ = profile_rows(prof)
+    total = sum(t for t, _, _ in rows)
+    print(f"  profile: one training step {wall_ms:.3f} ms wall under the "
+          f"profiler")
+    if not total:
+        print("  profile: the profiler reported no device time "
+              "(not measured)")
+        return {"busy": None, "sweep_ms": None}
+    print(f"  profile: {total / 1e3:.3f} ms device time per step; device "
+          f"busy {100 * total / 1e3 / wall_ms:.1f}% of the step")
+    for i, (t, key, count) in enumerate(rows):
+        if i < 16 or "sweep_kernel" in key:
+            print(f"    {100 * t / total:5.1f}%  {t / 1e3:9.3f} ms  "
+                  f"x{count:<5d} {key[:90]}")
+    kinds = {}
+    for t, key, count in rows:
+        kind = next((k for k, words in TRAIN_KINDS if any(
+            w in key for w in words)), "other")
+        ms, n = kinds.get(kind, (0.0, 0))
+        kinds[kind] = (ms + t / 1e3, n + count)
+    print("  device time by kind: " + "; ".join(
+        f"{k} {ms:.3f} ms ({100 * ms / (total / 1e3):.1f}%, {n} launches)"
+        for k, (ms, n) in sorted(kinds.items(), key=lambda kv: -kv[1][0])))
+    return {"busy": total / 1e3 / wall_ms, "device_ms": total / 1e3,
+            "sweep_share": kinds.get("B2/B3", (0.0, 0))[0] / (total / 1e3)}
+
+
+# kernel names by kind, first match wins
+TRAIN_KINDS = (("B2/B3", ("sweep_kernel",)),
+               ("matmul", ("gemm", "nvjet", "cutlass", "xmma", "cublas")),
+               ("cumsum", ("scan",)),
+               ("reduction", ("reduce_kernel",)),
+               ("copy or cast", ("copy", "Memcpy", "Memset")),
+               ("elementwise", ("elementwise",)))
+
+
+def training_main_path(dev, gen) -> list:
+    """Phase 10: ``launch/train.py``'s ``build`` and ``TrainLoop`` on the
+    full qwen3-0.6b, linear, batch 8 x seq 1,024, 8 steps (2 warm-up, 6
+    timed), lr 3e-4 with warmup 20; every kernel's launch count set to 0
+    just before and read just after. Returns B2/B3's records for the
+    kernels line (without ``max_abs_err``)."""
+    import math
+    import torch
+    from repro_torch.launch import train
+    from repro_torch.models import lm
+    args = train.parse_args(["--arch", "qwen3-0.6b", "--backend", "linear",
+                             "--batch", "8", "--seq-len", "1024", "--steps",
+                             "8", "--lr", "3e-4", "--warmup", "20",
+                             "--seed", "0", "--log-every", "1"])
+    cfg = train.config(args)
+    torch.cuda.reset_peak_memory_stats()
+    loop = train.build(args)
+    n_params = lm.param_count(loop.params)
+    if n_params != 596_049_920:
+        raise AssertionError(f"phase 10: {n_params} parameters")
+    reset_launches()
+    out = loop.run()
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    steps, n_layers = out["step"], cfg.n_layers
+    want = {"linear_attention_fwd": 2 * n_layers * steps,
+            "linear_attention_bwd_dq": n_layers * steps,
+            "linear_attention_bwd_dkv": n_layers * steps}
+    got = {k: launches[k] for k in TRAIN_KERNELS}
+    others = {k: n for k, n in launches.items() if k not in want and n}
+    if steps != 8 or got != want or others:
+        raise AssertionError(f"phase 10: {steps} steps, launches {got} "
+                             f"(want {want}), others {others}")
+    losses = [m["loss"] for m in out["metrics"]]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"phase 10: non-finite losses {losses}")
+    times = [m["step_time"] for m in out["metrics"]]
+    ms = sum(times[2:]) / len(times[2:]) * 1e3
+    tok_s = args.batch * args.seq_len / ms * 1e3
+    print(f"phase 10: training main path qwen3-0.6b linear ({n_params} "
+          f"params, fp32 master, bf16 compute, remat={cfg.remat}), batch "
+          f"{args.batch} x seq {args.seq_len}: ms_per_step={ms:.3f} "
+          f"tokens_per_s={tok_s:.1f} (mean of steps 3-8; step times ms "
+          f"{[round(t * 1e3, 3) for t in times]}), peak memory "
+          f"{peak / 1e9:.3f} GB (torch.cuda.max_memory_allocated)")
+    print(f"  losses {[round(x, 4) for x in losses]}; grad_norm "
+          f"{[round(m['grad_norm'], 4) for m in out['metrics']]}")
+    print(f"  launches per step: B2 {got['linear_attention_fwd'] // steps} "
+          f"(forward + remat recompute), B3-dq "
+          f"{got['linear_attention_bwd_dq'] // steps}, B3-dkv "
+          f"{got['linear_attention_bwd_dkv'] // steps}")
+    batch = loop.put_batch(loop.dataset.batch_at(steps))
+    prof = profile_train_step(loop, batch)
+    if prof["busy"] is not None:
+        print(f"  device busy {100 * prof['busy']:.1f}% of a profiled step; "
+              f"{prof['device_ms']:.3f} ms device time against "
+              f"{ms:.3f} ms per step unprofiled")
+    del loop, out, batch
+    torch.cuda.empty_cache()
+
+    rows = args.batch * cfg.n_heads
+    t = time_linear_attention(rows, args.seq_len, cfg.head_dim,
+                              cfg.linear_chunk, gen, dev)
+    records = []
+    replaces = {"linear_attention_fwd": 71, "linear_attention_bwd_dq": 158,
+                "linear_attention_bwd_dkv": 177}
+    for name, line in replaces.items():
+        r = t[name]
+        print(f"{name} rows={rows} T={args.seq_len} D={cfg.head_dim} bf16: "
+              f"{r['ms'] * 1e3:.2f} us/launch (plain version "
+              f"{r['plain_ms'] * 1e3:.2f} us; library call: none; bound "
+              f"{r['bound_ms'] * 1e3:.2f} us by {r['bound_by']}, "
+              f"{r['flops'] / 1e9:.2f} GFLOP, {r['bytes'] / 1e6:.2f} MB "
+              f"moved)")
+        records.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/linear_attention/csrc/"
+                      "linear_attention.cu",
+            "replaces": f"src/repro/kernels/linear_attention/kernel.py:{line}",
+            "launches": launches[name], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": None})
+    return records
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -833,6 +1195,7 @@ def main() -> int:
         return 1
     from repro_torch.kernels import build
     from repro_torch.kernels.fused_recurrent import ops
+    from repro_torch.kernels.linear_attention import ops as LA
     from repro_torch.kernels.lookup import ops as LU
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -853,10 +1216,11 @@ def main() -> int:
           f"device {torch.cuda.get_device_name(0)} "
           f"count {torch.cuda.device_count()}")
     # one nvcc each, all started together
-    build.build([ops.SOURCE, ops.GATED_SOURCE, LU.SOURCE])
+    build.build([ops.SOURCE, ops.GATED_SOURCE, LU.SOURCE, LA.SOURCE])
     ops.load()
     ops.load_gated()
     LU.load()
+    LA.load()
     print(f"phase 1: built and loaded the kernels in "
           f"{time.perf_counter() - t0:.1f} s "
           f"(nvcc {build.BUILD_SECONDS})")
@@ -917,6 +1281,17 @@ def main() -> int:
     print(f"phase 2: mass_lookup_indexed, mass_lookup and fused_decode "
           f"agree with their plain versions (o rtol/atol {LOOKUP_TOL}, "
           f"non-symmetric states; fused_decode's state bitwise)")
+    # B2/B3: the training main path's shape, then T a multiple of the
+    # chunk but not of the kernels' 32-token tile
+    errs.update(check_linear_attention_rows(128, 1024, 128, torch.bfloat16,
+                                            128, gen, dev))
+    check_linear_attention_rows(6, 272, 128, torch.float32, 16, gen, dev)
+    check_linear_attention_wrapper(40, 16, torch.float32, 16, gen, dev)
+    for dtype in (torch.float32, torch.bfloat16):      # T % 128 != 0
+        check_linear_attention_wrapper(200, 128, dtype, 128, gen, dev)
+    check_linear_attention_autograd(gen, dev)
+    print(f"phase 2: linear_attention_fwd, _bwd_dq and _bwd_dkv agree with "
+          f"their plain versions (normwise {LA_TOL})")
     done(2, t0)
 
     # -- 3. the linear slice, kernel vs plain recurrence, fp32 -------------
@@ -974,6 +1349,17 @@ def main() -> int:
     t0 = time.perf_counter()
     records.append(generate_main_path("gated_linear", dev, gen, 8))
     done(8, t0)
+
+    # -- 9. the training slice, kernel vs plain, fp32 ----------------------
+    t0 = time.perf_counter()
+    training_slice(dev)
+    torch.cuda.empty_cache()
+    done(9, t0)
+
+    # -- 10. the training main path ------------------------------------------
+    t0 = time.perf_counter()
+    records.extend(training_main_path(dev, gen))
+    done(10, t0)
 
     for r in records:
         r["max_abs_err"] = errs[r["name"]]

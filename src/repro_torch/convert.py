@@ -18,6 +18,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.state import DocumentState
 from repro_torch.models.attention import AttnState
+from repro_torch.optim import AdamState
 
 
 def _tensor(x, device) -> torch.Tensor:
@@ -54,6 +55,19 @@ def params_from_jax(np_tree: Any, cfg: ModelConfig, *,
     if not cfg.tie_embeddings:
         keys.append("lm_head")
     return {k: _tree(np_tree[k], device) for k in keys}
+
+
+def opt_state_from_jax(np_state: Any, cfg: ModelConfig, *,
+                       device: Optional[torch.device] = None) -> AdamState:
+    """Convert a ``repro.optim.adamw.AdamState`` (step, mu, nu as numpy;
+    mu and nu shaped like the parameter tree), so the port can continue
+    a JAX run where it stopped."""
+    step, mu, nu = np_state
+    return AdamState(
+        step=torch.tensor(int(np.asarray(step)), dtype=torch.int32,
+                          device=device),
+        mu=params_from_jax(mu, cfg, device=device),
+        nu=params_from_jax(nu, cfg, device=device))
 
 
 def _attn_state(st, device) -> AttnState:

@@ -1,5 +1,6 @@
 """Causal linear attention in PyTorch (port of
-``repro/core/linear_attention.py``, forward only).
+``repro/core/linear_attention.py``: the forward forms, and
+``causal_linear_attention`` with the paper's §3.3 backward).
 
 The recurrence, per head, with untied projections q, k, v:
 
@@ -130,6 +131,37 @@ def causal_linear_attention_chunked(
         outs.append(o_i)
     o = torch.stack(outs, dim=2).reshape(b, h, -1, dv)[:, :, :t]
     return o.to(v.dtype), s
+
+
+def causal_linear_attention(
+    q: Tensor,
+    k: Tensor,
+    v: Tensor,
+    *,
+    chunk_size: int = DEFAULT_CHUNK,
+    normalize: bool = False,
+    eps: float = 1e-6,
+    kernel: bool = True,
+) -> Tensor:
+    """Causal linear attention with the paper's memory-efficient backward
+    (JAX ``causal_linear_attention``): the unnormalised core is an
+    autograd function whose forward is B2 and whose backward is B3's
+    recompute, keeping only (q, k, v); the optional normaliser is an fp32
+    epilogue that autograd differentiates. ``kernel=False`` asks for the
+    plain PyTorch versions on a CUDA tensor (CPU tensors always take
+    them). q, k: (B, H, T, Dk); v: (B, H, T, Dv) → o in v's type."""
+    # imported here: the kernel's plain version is this module's
+    # causal_linear_attention_chunked
+    from repro_torch.kernels.linear_attention import ops
+    o = ops.linear_attention(q, k, v, chunk=chunk_size, kernel=kernel)
+    if normalize:
+        acc = _acc_dtype(q.dtype)
+        k_cum = torch.cumsum(k.to(acc), dim=2)
+        # a row-wise dot product: einsum would run it as a batched matmul
+        # of B·H·T one-by-one products, slower than the attention itself
+        denom = (q.to(acc) * k_cum).sum(dim=-1)
+        o = (o.to(acc) / safe_denom(denom, eps)[..., None]).to(v.dtype)
+    return o
 
 
 def decode_step(

@@ -31,7 +31,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.gated import chunked_gla
-from repro_torch.core.linear_attention import causal_linear_attention_chunked
+from repro_torch.core.linear_attention import (
+    causal_linear_attention, causal_linear_attention_chunked)
 from repro_torch.kernels.fused_recurrent import ops as FR
 from repro_torch.kernels.fused_recurrent import ref as FRref
 from repro_torch.models import layers as L
@@ -225,12 +226,16 @@ def attention_apply(
     cfg: ModelConfig,
     *,
     want_state: bool = False,
+    attention_kernel: bool = True,
 ) -> Tuple[Tensor, Optional[AttnState]]:
-    """Full-sequence attention, forward only. x: (B, T, D) → (B, T, D).
+    """Full-sequence attention. x: (B, T, D) → (B, T, D).
 
-    ``want_state=True`` also returns the decode state after the last
-    position: the chunked final state and, for the linear backend,
-    z = Σ_t k_t, a plain fp32 sum.
+    ``want_state=True`` (prefill) also returns the decode state after the
+    last position: the chunked final state and, for the linear backend,
+    z = Σ_t k_t, a plain fp32 sum. Without it (training), the linear
+    backend runs ``causal_linear_attention``: B2 forward and B3's §3.3
+    recompute backward on CUDA tensors, their plain versions on CPU
+    tensors or under ``attention_kernel=False``.
     """
     _require_linear(cfg)
     b, t, _ = x.shape
@@ -239,12 +244,16 @@ def attention_apply(
     if cfg.rope:
         q, k = _rope(q, k, torch.arange(t, device=x.device), cfg)
     qh, kh, vh = _heads(q, k, v, cfg)
-    if cfg.attention_backend == "linear":
+    if cfg.attention_backend == "linear" and want_state:
         o_h, s_f = causal_linear_attention_chunked(
             qh, kh, vh, chunk_size=cfg.linear_chunk,
             normalize=cfg.linear_normalize)
-        zf = (kh.float().sum(dim=2)
-              if want_state and cfg.linear_normalize else None)
+        zf = kh.float().sum(dim=2) if cfg.linear_normalize else None
+    elif cfg.attention_backend == "linear":   # training: §3.3 backward
+        o_h = causal_linear_attention(
+            qh, kh, vh, chunk_size=cfg.linear_chunk,
+            normalize=cfg.linear_normalize, kernel=attention_kernel)
+        s_f = zf = None
     else:   # gated_linear: the decay is clamped inside chunked_gla
         o_h, s_f = chunked_gla(qh, kh, vh, _decay(p, x, cfg),
                                chunk_size=cfg.linear_chunk)

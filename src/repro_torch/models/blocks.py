@@ -53,12 +53,13 @@ def _mlp_residual(p: Params, x: Tensor, cfg: ModelConfig) -> Tensor:
 
 
 def block_apply(kind: str, p: Params, x: Tensor, cfg: ModelConfig, *,
-                want_state: bool = False
+                want_state: bool = False, attention_kernel: bool = True
                 ) -> Tuple[Tensor, Optional[A.AttnState]]:
     """x: (B, T, D) → (x, state_or_None)."""
     _require_attn(kind, cfg)
     h1 = L.apply_norm(cfg.norm, p["norm1"], x)
-    att, st = A.attention_apply(p["attn"], h1, cfg, want_state=want_state)
+    att, st = A.attention_apply(p["attn"], h1, cfg, want_state=want_state,
+                                attention_kernel=attention_kernel)
     return _mlp_residual(p, x + att, cfg), st
 
 

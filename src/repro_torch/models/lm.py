@@ -1,5 +1,6 @@
 """Language model over a stack of ``attn`` blocks (port of
-``repro/models/lm.py``: prefill, decode and generation).
+``repro/models/lm.py``: training forward and loss, prefill, decode and
+generation).
 
 Parameters and states keep the JAX package's tree: ``embed`` (V, D),
 ``stack`` — a tuple with one entry per ``layer_pattern`` position whose
@@ -12,6 +13,13 @@ Unlike the JAX functions, which are pure, every decode function here
 updates the decode state it is given in place and returns it: the state
 of the whole model is hundreds of MiB at full width, and a copy per
 token would cost more than the decode itself.
+
+Training differentiates ``lm_loss`` with autograd. Under
+``cfg.remat == "unit"`` each repeat of the layer pattern is a
+``torch.utils.checkpoint`` region that keeps only its input and runs its
+forward again in the backward, as ``jax.checkpoint`` with
+``nothing_saveable`` does in JAX; the linear attention's own backward
+(B3) recomputes its states and keeps only (q, k, v).
 """
 
 from __future__ import annotations
@@ -19,11 +27,13 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
 from repro_torch.models.attention import AttnState
+from repro_torch.tree import leaves
 
 Tensor = torch.Tensor
 Params = Dict[str, Any]
@@ -108,13 +118,17 @@ def pad_decode_state(states: State, cfg: ModelConfig, max_len: int) -> State:
     return states
 
 
+def param_count(params: Params) -> int:
+    return sum(x.numel() for x in leaves(params))
+
+
 def state_bytes(states: State) -> int:
     return sum(t.nbytes for group in states.values() for st in group
                for t in st if t is not None)
 
 
 # ---------------------------------------------------------------------------
-# forward (prefill)
+# forward (training and prefill)
 # ---------------------------------------------------------------------------
 
 def _head(params: Params, x: Tensor, cfg: ModelConfig) -> Tensor:
@@ -125,20 +139,40 @@ def _head(params: Params, x: Tensor, cfg: ModelConfig) -> Tensor:
 
 
 def _trunk(params: Params, tokens: Tensor, cfg: ModelConfig,
-           want_state: bool) -> Tuple[Tensor, Optional[State]]:
-    """Embed + every block. Returns (hidden (B, T, D), states|None)."""
+           want_state: bool, attention_kernel: bool = True
+           ) -> Tuple[Tensor, Optional[State]]:
+    """Embed + every block. Returns (hidden (B, T, D), states|None).
+    Without states and with autograd on, ``cfg.remat == "unit"``
+    checkpoints each repeat of the pattern."""
     pattern, reps, tail = cfg.pattern_and_repeats
     x = params["embed"][tokens]
+
+    def unit(x, unit_params):
+        states = []
+        for kind, p in zip(pattern, unit_params):
+            x, st = B.block_apply(kind, p, x, cfg, want_state=want_state,
+                                  attention_kernel=attention_kernel)
+            states.append(st)
+        return x, states
+
+    remat = (cfg.remat == "unit" and not want_state
+             and torch.is_grad_enabled())
     stack_states = [[] for _ in pattern]
     for r in range(reps):
-        for i, kind in enumerate(pattern):
-            x, st = B.block_apply(kind, _at(params["stack"][i], r), x, cfg,
-                                  want_state=want_state)
+        unit_params = [_at(group, r) for group in params["stack"]]
+        if remat:
+            # the model draws no random numbers: no RNG state to replay
+            x = checkpoint(lambda x, up: unit(x, up)[0], x, unit_params,
+                           use_reentrant=False, preserve_rng_state=False)
+            continue
+        x, states = unit(x, unit_params)
+        for i, st in enumerate(states):
             stack_states[i].append(st)
     tail_states = []
     for i, kind in enumerate(tail):
         x, st = B.block_apply(kind, params["tail"][i], x, cfg,
-                              want_state=want_state)
+                              want_state=want_state,
+                              attention_kernel=attention_kernel)
         tail_states.append(st)
     if not want_state:
         return x, None
@@ -147,12 +181,49 @@ def _trunk(params: Params, tokens: Tensor, cfg: ModelConfig,
 
 
 def forward(params: Params, tokens: Tensor, cfg: ModelConfig, *,
-            want_state: bool = False) -> Tuple[Tensor, Optional[State]]:
-    """tokens: (B, T) int → (logits (B, T, V), states|None). Forward
-    only: the training backward is not ported."""
+            want_state: bool = False, attention_kernel: bool = True
+            ) -> Tuple[Tensor, Optional[State]]:
+    """tokens: (B, T) int → (logits (B, T, V), states|None). Float
+    matrices are cast to ``cfg.dtype`` once, outside the blocks, and
+    gradients flow through the cast to the fp32 master parameters.
+    ``attention_kernel=False`` runs the linear attention's plain versions
+    on CUDA tensors (the training slice's reference route)."""
     params = cast_params(params, dtype_of(cfg.dtype))
-    x, states = _trunk(params, tokens, cfg, want_state)
+    x, states = _trunk(params, tokens, cfg, want_state, attention_kernel)
     return _head(params, x, cfg), states
+
+
+# ---------------------------------------------------------------------------
+# loss
+# ---------------------------------------------------------------------------
+
+def cross_entropy(logits: Tensor, labels: Tensor, z_loss: float = 0.0
+                  ) -> Tensor:
+    """Mean token cross-entropy, in fp32, the max taken out of the graph
+    (JAX ``cross_entropy``); the label's logit is gathered, which gives
+    the same value as JAX's masked sum without a (B, T, V) mask."""
+    lf = logits.float()
+    m = lf.max(dim=-1, keepdim=True).values.detach()
+    sum_exp = torch.exp(lf - m).sum(dim=-1)
+    lse = torch.log(sum_exp) + m[..., 0]
+    label_logit = lf.gather(-1, labels[..., None].long())[..., 0]
+    nll = lse - label_logit
+    if z_loss:
+        nll = nll + z_loss * torch.square(torch.log(sum_exp) + m[..., 0])
+    return nll.mean()
+
+
+def lm_loss(params: Params, batch: Dict[str, Tensor], cfg: ModelConfig, *,
+            attention_kernel: bool = True
+            ) -> Tuple[Tensor, Dict[str, Tensor]]:
+    """batch: {"tokens": (B, T), "labels": (B, T)} → (loss, {"xent",
+    "aux"}). The port has no MoE, so aux is 0."""
+    logits, _ = forward(params, batch["tokens"], cfg,
+                        attention_kernel=attention_kernel)
+    xent = cross_entropy(logits, batch["labels"])
+    aux = torch.zeros((), dtype=torch.float32, device=logits.device)
+    aux_w = cfg.moe.router_aux_weight if cfg.moe is not None else 0.0
+    return xent + aux_w * aux, {"xent": xent, "aux": aux}
 
 
 def prefill(params: Params, tokens: Tensor, cfg: ModelConfig

@@ -14,6 +14,8 @@ import torch
 
 from repro_torch.configs import get_smoke_config
 from repro_torch.kernels.fused_recurrent import ops, ref
+from repro_torch.kernels.linear_attention import ops as la_ops
+from repro_torch.kernels.linear_attention import ref as la_ref
 from repro_torch.kernels.lookup import ops as lu_ops
 from repro_torch.kernels.lookup import ref as lu_ref
 from repro_torch.models import lm
@@ -373,3 +375,146 @@ def test_lookup_engine_two_waves_through_kernel_match_plain(dev):
         assert a.uid == b.uid and a.wave == b.wave
         np.testing.assert_allclose(a.answers, b.answers, rtol=1e-4,
                                    atol=1e-4)
+
+
+# -- the chunked linear attention B2 and its backward B3 ----------------------
+# Normwise: max|Δ| within TOL · max|plain| — fp32 sums of up to T·D terms in
+# another order (1e-5), or the same fp32 sums rounded to bf16 (8e-3, two
+# bf16 ulps of the largest element).
+
+LA_TOL = {torch.float32: 1e-5, torch.bfloat16: 8e-3}
+
+
+def _la_rows(dev, bh, t, d, dtype, seed=0):
+    """q, k positive (the model's elu1 feature map), v and do signed."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    r = lambda: torch.randn((bh, t, d), generator=g, device=dev)
+    elu1 = lambda x: torch.nn.functional.elu(x) + 1.0
+    return [x.to(dtype) for x in (elu1(r()), elu1(r()), r(), r())]
+
+
+def _assert_normwise(x, want, tol, what):
+    err = (x.float() - want.float()).abs().max().item()
+    scale = want.float().abs().max().item()
+    assert err <= tol * scale, f"{what}: max|Δ| {err} > {tol} × {scale}"
+
+
+# (rows, T, D, dtype, chunk): the training main path's shape, a T that is
+# a multiple of the chunk but not of the kernels' tile, the smoke width
+@pytest.mark.parametrize("bh,t,d,dtype,chunk", [
+    (128, 1024, 128, torch.bfloat16, 128),
+    (6, 272, 128, torch.float32, 16),
+    (6, 48, 16, torch.float32, 16),
+    (6, 48, 16, torch.bfloat16, 16),
+])
+def test_linear_attention_kernels_match_plain_versions(dev, bh, t, d, dtype,
+                                                       chunk):
+    q, k, v, do = _la_rows(dev, bh, t, d, dtype)
+    before = (la_ops.fwd.launches, la_ops.bwd_dq.launches,
+              la_ops.bwd_dkv.launches)
+    o, s = la_ops.fwd(q, k, v, chunk=chunk)
+    dq, dk, dv = la_ops.bwd(q, k, v, do, chunk=chunk)
+    torch.cuda.synchronize()
+    assert (la_ops.fwd.launches, la_ops.bwd_dq.launches,
+            la_ops.bwd_dkv.launches) == tuple(n + 1 for n in before)
+    o_r, s_r = la_ref.chunked_fwd_ref(q, k, v, chunk=chunk)
+    grads_r = la_ref.chunked_bwd_ref(q, k, v, do, chunk=chunk)
+    assert o.dtype == dtype and s.dtype == torch.float32
+    tol = LA_TOL[dtype]
+    _assert_normwise(o, o_r, tol, "o")
+    _assert_normwise(s, s_r, LA_TOL[torch.float32], "state")
+    for name, x, x_r in zip(("dq", "dk", "dv"), (dq, dk, dv), grads_r):
+        assert x.dtype == dtype
+        _assert_normwise(x, x_r, tol, name)
+
+
+@pytest.mark.parametrize("t,d,dtype", [(40, 16, torch.float32),
+                                       (200, 128, torch.float32),
+                                       (200, 128, torch.bfloat16)])
+def test_linear_attention_wrapper_pads_like_jax(dev, t, d, dtype):
+    """(B, H, T, D) with T not a multiple of the chunk: the wrapper pads,
+    the kernels run, and o, the state and the gradients match the plain
+    route of the same wrapper."""
+    q, k, v, do = (x.reshape(2, 3, t, d) for x in _la_rows(dev, 6, t, d,
+                                                             dtype, seed=1))
+    chunk = 16 if d == 16 else 128
+    out = {}
+    for kernel in (True, False):
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        o = la_ops.linear_attention(*leaves, chunk=chunk, kernel=kernel)
+        o.backward(do)
+        o_s, s = la_ops.linear_attention_with_state(q, k, v, chunk=chunk,
+                                                    kernel=kernel)
+        assert torch.equal(o_s, o.detach()) and s.shape == (2, 3, d, d)
+        out[kernel] = [o.detach(), s] + [x.grad for x in leaves]
+    tol = LA_TOL[dtype]
+    for name, a, b in zip(("o", "s", "dq", "dk", "dv"), out[True],
+                          out[False]):
+        _assert_normwise(a, b, LA_TOL[torch.float32] if name == "s" else tol,
+                         name)
+
+
+def test_linear_attention_function_grads_match_autograd_of_direct_form(dev):
+    """The autograd function (B2 forward, B3 backward) against autograd
+    through the quadratic direct form, fp32, small T."""
+    q, k, v, do = (x.reshape(1, 4, 37, 16) for x in _la_rows(
+        dev, 4, 37, 16, torch.float32, seed=2))
+    got, want = [], []
+    for fn, sink in ((lambda a, b, c: la_ops.linear_attention(
+            a, b, c, chunk=16), got), (lambda a, b, c: la_ref
+            .linear_attention_ref(a[0], b[0], c[0])[0][None], want)):
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        o = fn(*leaves)
+        o.backward(do)
+        sink.extend([o.detach()] + [x.grad for x in leaves])
+    for a, b in zip(got, want):
+        _assert_normwise(a, b, LA_TOL[torch.float32], "grad")
+
+
+def test_linear_attention_rejects_unsupported_inputs(dev):
+    q, k, v, do = _la_rows(dev, 2, 32, 16, torch.float32)
+    with pytest.raises(ValueError):                       # D = 8
+        la_ops.fwd(q[..., :8].contiguous(), k[..., :8].contiguous(),
+                   v[..., :8].contiguous(), chunk=16)
+    with pytest.raises(ValueError):                       # T % chunk
+        la_ops.fwd(q, k, v, chunk=24)
+    with pytest.raises(ValueError):                       # mixed types
+        la_ops.bwd(q, k, v.bfloat16(), do, chunk=16)
+    with pytest.raises(ValueError):                       # strided
+        la_ops.fwd(q, k.transpose(1, 2).contiguous().transpose(1, 2), v,
+                   chunk=16)
+    with pytest.raises(TypeError):
+        la_ops.fwd(q.half(), k.half(), v.half(), chunk=16)
+    with pytest.raises(ValueError):                       # CPU and CUDA
+        la_ops.fwd(q, k.cpu(), v, chunk=16)
+
+
+def test_training_slice_through_kernels_matches_plain_route(dev):
+    """Two layers at qwen3-0.6b's full widths, fp32: the loss and every
+    gradient leaf through B2/B3 against the same through the plain
+    versions (``attention_kernel=False``); B2 twice per layer under
+    remat, B3 once."""
+    from repro_torch.configs import get_config
+    from repro_torch.tree import leaves
+    cfg = dataclasses.replace(get_config("qwen3-0.6b").with_backend("linear"),
+                              n_layers=2, dtype="float32")
+    params = lm.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    g = torch.Generator(device=dev).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (2, 257), device=dev, generator=g)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    flat = leaves(params)
+    for x in flat:
+        x.requires_grad_()
+    out = {}
+    for kernel in (True, False):
+        before = (la_ops.fwd.launches, la_ops.bwd_dq.launches)
+        loss, _ = lm.lm_loss(params, batch, cfg, attention_kernel=kernel)
+        grads = torch.autograd.grad(loss, flat)
+        launched = (la_ops.fwd.launches - before[0],
+                    la_ops.bwd_dq.launches - before[1])
+        assert launched == ((4, 2) if kernel else (0, 0))
+        out[kernel] = (loss.detach(), grads)
+    torch.testing.assert_close(out[True][0], out[False][0], rtol=1e-5,
+                               atol=0.0)
+    for a, b in zip(out[True][1], out[False][1]):
+        _assert_normwise(a, b, 1e-4, "gradient leaf")

@@ -44,7 +44,13 @@ def test_port_imports_no_jax_and_nothing_of_repro():
                    "serving/lifecycle.py", "serving/lookup_engine.py",
                    "serving/__init__.py", "convert.py", "launch/serve.py",
                    "core/gated.py", "kernels/fused_recurrent/ops.py",
-                   "kernels/fused_recurrent/ref.py", "models/attention.py"):
+                   "kernels/fused_recurrent/ref.py", "models/attention.py",
+                   "kernels/linear_attention/ops.py",
+                   "kernels/linear_attention/ref.py", "optim/adamw.py",
+                   "optim/schedule.py", "optim/accumulate.py",
+                   "data/synthetic.py", "runtime/steps.py",
+                   "runtime/straggler.py", "runtime/train_loop.py",
+                   "launch/train.py", "tree.py"):
         assert port / module in files, module
     bad = [(str(f.relative_to(ROOT)), m) for f in files
            for m in _imported_roots(f) if m in FORBIDDEN]
@@ -62,6 +68,16 @@ def test_importing_the_serving_entry_point_loads_no_jax():
             "repro_torch.core.state, repro_torch.qa.gru, "
             "repro_torch.kernels.lookup.ops, repro_torch.convert, "
             "repro_torch.configs.paper_qa, repro_torch.core.gated; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')]; print(bad); assert not bad")
+    subprocess.run([sys.executable, "-c", code], env=_env(), check=True,
+                   timeout=120)
+
+
+def test_importing_the_training_entry_point_loads_no_jax():
+    code = ("import sys, repro_torch.launch.train, repro_torch.optim, "
+            "repro_torch.runtime, repro_torch.data, "
+            "repro_torch.kernels.linear_attention.ops; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); assert not bad")
     subprocess.run([sys.executable, "-c", code], env=_env(), check=True,
