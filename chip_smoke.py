@@ -45,8 +45,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    and 6 timed steps; ms/step, tokens/s, peak memory, the losses, B2/B3
    launches per step, a profile of one step, and B2, B3-dq and B3-dkv
    timed beside their bounds and plain versions.
+11. The gated training slice (paper §4 decay, ``--backend gated_linear``)
+   as phase 9, through B8/B9 against ``attention_kernel=False``.
+12. The gated training main path as phase 10: ``launch/train.py
+   --backend gated_linear`` on the full 28-layer model; B8/B9 launches
+   per step, a profile of one step, and B8, B9-dq and B9-dkv timed
+   beside their bounds and plain versions.
 
-Each main path (phases 4, 6, 8 and 10) is driven with every kernel's
+Each main path (phases 4, 6, 8, 10 and 12) is driven with every kernel's
 launch count set to 0 just before it and read just after.
 
 The last line is {"ok": true, "device": {...}}; the line before it the
@@ -812,10 +818,168 @@ def time_linear_attention(bh, t, d, chunk, gen, dev) -> dict:
     return out
 
 
+def gla_rows(bh, t, d, dtype, decay, gen, dev):
+    """q, k positive (elu1), v and do signed (``la_rows``), and an fp32
+    log-decay g: the model's operating point (b_gate 4, decay_temp 8:
+    g ≈ -0.002; drawn in [-0.004, 0]), mild ([-0.6, 0] with 3% of the
+    entries past the clamp at -1.5) or the clamp itself (-1)."""
+    import torch
+    q, k, v, do = la_rows(bh, t, d, dtype, gen, dev)
+    u = torch.rand((bh, t, d), generator=gen, device=dev)
+    g = {"model": -0.004 * u, "mild": torch.where(u < 0.03, -1.5, -0.6 * u),
+         "clamp": torch.full_like(u, -1.0)}[decay]
+    return q, k, v, do, g
+
+
+def check_gla_rows(bh, t, d, dtype, chunk, decay, gen, dev) -> dict:
+    """B8 (inclusive, and exclusive with the bonus u) and B9 on flat rows
+    against ``chunked_fwd_ref`` / ``chunked_bwd_ref``, normwise; returns
+    the largest |Δ| per kernel."""
+    import torch
+    from repro_torch.kernels.gated_linear_attention import ops as GL
+    from repro_torch.kernels.gated_linear_attention import ref as GR
+    q, k, v, do, g = gla_rows(bh, t, d, dtype, decay, gen, dev)
+    u = torch.linspace(-1.0, 1.0, d, device=dev)
+    o, s = GL.fwd(q, k, v, g, chunk=chunk)
+    o_x, s_x = GL.fwd(q, k, v, g, u=u, chunk=chunk, exclusive=True)
+    dq, dk, dv, dg = GL.bwd(q, k, v, g, do, chunk=chunk)
+    torch.cuda.synchronize()
+    o_r, s_r = GR.chunked_fwd_ref(q, k, v, g, chunk=chunk)
+    o_xr, s_xr = GR.chunked_fwd_ref(q, k, v, g, u=u, chunk=chunk,
+                                    exclusive=True)
+    dq_r, dk_r, dv_r, dg_r = GR.chunked_bwd_ref(q, k, v, g, do, chunk=chunk)
+    name = str(dtype).split(".")[-1]
+    tol, tol32 = LA_TOL[name], LA_TOL["float32"]
+    tag = f"rows={bh} T={t} D={d} {name} chunk={chunk} decay={decay}"
+    err = {"gated_linear_attention_fwd": max(
+               normwise(o, o_r, tol, f"o {tag}"),
+               normwise(o_x, o_xr, tol, f"o exclusive {tag}")),
+           "gated_linear_attention_bwd_dq": normwise(dq, dq_r, tol,
+                                                     f"dq {tag}"),
+           "gated_linear_attention_bwd_dkv": max(
+               normwise(dk, dk_r, tol, f"dk {tag}"),
+               normwise(dv, dv_r, tol, f"dv {tag}"))}
+    s_err = max(normwise(s, s_r, tol32, f"state {tag}"),
+                normwise(s_x, s_xr, tol32, f"state exclusive {tag}"))
+    dg_err = normwise(dg, dg_r, tol, f"dg {tag}")
+    print(f"  gated_linear_attention {tag}: max|Δo| (incl, excl+u)="
+          f"{err['gated_linear_attention_fwd']:.3e} max|ΔS|={s_err:.3e} "
+          f"max|Δdq|={err['gated_linear_attention_bwd_dq']:.3e} "
+          f"max|Δdk,dv|={err['gated_linear_attention_bwd_dkv']:.3e} "
+          f"max|Δdg|={dg_err:.3e} (normwise tol {tol})")
+    return err
+
+
+def check_gla_wrapper(t, d, dtype, chunk, scalar, gen, dev) -> None:
+    """(B, H, T, D) through ``gated_linear_attention`` (g broadcast,
+    padding to the chunk, the autograd function) and ``rwkv6_attention``,
+    kernel route against ``kernel=False``: o, the four gradients, and
+    the exclusive o and state."""
+    import torch
+    from repro_torch.kernels.gated_linear_attention import ops as GL
+    q, k, v, do, g = (x.reshape(2, 3, t, d) for x in gla_rows(
+        6, t, d, dtype, "mild", gen, dev))
+    if scalar:
+        g = g[..., :1].contiguous()
+    u = torch.linspace(-1.0, 1.0, d, device=dev)
+    out = {}
+    for kernel in (True, False):
+        leaves = [x.clone().requires_grad_() for x in (q, k, v, g)]
+        o = GL.gated_linear_attention(*leaves, chunk=chunk, kernel=kernel)
+        o.backward(do)
+        o_x, s_x = GL.rwkv6_attention(q, k, v, g, u, chunk=chunk,
+                                      kernel=kernel)
+        out[kernel] = [o.detach()] + [x.grad for x in leaves] + [o_x, s_x]
+    torch.cuda.synchronize()
+    name = str(dtype).split(".")[-1]
+    tag = (f"B=2 H=3 T={t} D={d} {name} chunk={chunk} "
+           f"{'per-head' if scalar else 'vector'} decay")
+    names = ("o", "dq", "dk", "dv", "dg", "o excl", "S excl")
+    errs = [normwise(a, b, LA_TOL["float32" if n == "S excl" else name],
+                     f"gated wrapper {tag} {n}")
+            for n, a, b in zip(names, out[True], out[False])]
+    print(f"  gated_linear_attention wrapper {tag}: max|Δ| "
+          + ", ".join(f"{n} {e:.3e}" for n, e in zip(names, errs))
+          + " against kernel=False")
+
+
+def check_gla_clamp(gen, dev) -> None:
+    """g ≡ −1 (the clamp), T = 1,024, chunk 128, fp32: B8 and B9 through
+    the autograd function, all finite and within normwise 1e-5 of
+    ``gla_scan`` and its autograd gradients (the chunk-128 plain version
+    is NaN there, as JAX's is)."""
+    import torch
+    from repro_torch.core.gated import gla_scan
+    from repro_torch.kernels.gated_linear_attention import ops as GL
+    q, k, v, do, g = (x.reshape(1, 2, 1024, 128) for x in gla_rows(
+        2, 1024, 128, torch.float32, "clamp", gen, dev))
+    got, want = [], []
+    for fn, sink in ((lambda a, b, c, e: GL.gated_linear_attention(
+            a, b, c, e, chunk=128), got),
+            (lambda a, b, c, e: gla_scan(a, b, c, e)[0], want)):
+        leaves = [x.clone().requires_grad_() for x in (q, k, v, g)]
+        o = fn(*leaves)
+        o.backward(do)
+        sink.extend([o.detach()] + [x.grad for x in leaves])
+    torch.cuda.synchronize()
+    names = ("o", "dq", "dk", "dv", "dg")
+    for n, a in zip(names, got):
+        if not torch.isfinite(a).all():
+            raise AssertionError(f"gated clamp: non-finite {n}")
+    errs = [normwise(a, b, LA_TOL["float32"], f"gated clamp {n}")
+            for n, a, b in zip(names, got, want)]
+    plain = GL.gated_linear_attention(q, k, v, g, chunk=128, kernel=False)
+    nan_share = torch.isnan(plain).float().mean().item()
+    print(f"  gated_linear_attention at the clamp (g = -1, T=1024, chunk "
+          f"128, fp32): all finite; max|Δ| against gla_scan and its "
+          f"autograd " + ", ".join(f"{n} {e:.3e}" for n, e in
+                                   zip(names, errs))
+          + f" (normwise 1e-5); the chunk-128 plain version: "
+          f"{100 * nan_share:.1f}% of o NaN")
+
+
+def time_gated_linear_attention(bh, t, d, chunk, gen, dev) -> dict:
+    """B8, B9-dq and B9-dkv at the gated training main path's shape (bf16
+    q, k, v, do; fp32 g at the model's decay), with their plain versions,
+    from CUDA-graph replays. Bounds as ``time_linear_attention``'s: the
+    scan form's 2·T·D² per row for each state update or product (two for
+    B8 and dq, three for dk/dv) plus one exp per decay element, over
+    67 TFLOP/s, or each input read once and each output written once
+    (the fp32 g, dq and dk at four bytes) over 3.35 TB/s."""
+    import torch
+    from repro_torch.kernels.gated_linear_attention import ops as GL
+    from repro_torch.kernels.gated_linear_attention import ref as GR
+    q, k, v, do, g = gla_rows(bh, t, d, torch.bfloat16, "model", gen, dev)
+    x_bytes, f_bytes = q.nbytes, g.nbytes
+    state_bytes = bh * d * d * 4
+    per_product = bh * t * 2 * d * d
+    n_exp = bh * t * d
+    out = {}
+    for name, kern, plain, n_bytes, n_products in (
+            ("gated_linear_attention_fwd",
+             lambda i: GL.fwd(q, k, v, g, chunk=chunk),
+             lambda i: GR.chunked_fwd_ref(q, k, v, g, chunk=chunk),
+             4 * x_bytes + f_bytes + state_bytes, 2),
+            ("gated_linear_attention_bwd_dq",
+             lambda i: GL.bwd_dq(k, v, g, do, chunk=chunk),
+             lambda i: GR.chunked_bwd_dq_ref(k, v, g, do, chunk=chunk),
+             3 * x_bytes + 2 * f_bytes, 2),
+            ("gated_linear_attention_bwd_dkv",
+             lambda i: GL.bwd_dkv(q, k, v, g, do, chunk=chunk),
+             lambda i: GR.chunked_bwd_dkv_ref(q, k, v, g, do, chunk=chunk),
+             5 * x_bytes + 2 * f_bytes, 3)):
+        out[name] = dict(ms=graph_ms(kern, 4, replays=5),
+                         plain_ms=graph_ms(plain, 2, replays=3),
+                         library_ms=None,
+                         **bound(n_bytes, n_products * per_product + n_exp))
+    return out
+
+
 def launch_counters() -> dict:
     """Every kernel wrapper of the port, by kernel name: each adds one to
     its ``launches`` where it launches its kernel."""
     from repro_torch.kernels.fused_recurrent import ops
+    from repro_torch.kernels.gated_linear_attention import ops as GL
     from repro_torch.kernels.linear_attention import ops as LA
     from repro_torch.kernels.lookup import ops as LU
     return {"decode_linear": ops.decode_linear,
@@ -824,7 +988,10 @@ def launch_counters() -> dict:
             "mass_lookup": LU.mass_lookup, "fused_decode": LU.fused_decode,
             "linear_attention_fwd": LA.fwd,
             "linear_attention_bwd_dq": LA.bwd_dq,
-            "linear_attention_bwd_dkv": LA.bwd_dkv}
+            "linear_attention_bwd_dkv": LA.bwd_dkv,
+            "gated_linear_attention_fwd": GL.fwd,
+            "gated_linear_attention_bwd_dq": GL.bwd_dq,
+            "gated_linear_attention_bwd_dkv": GL.bwd_dkv}
 
 
 def reset_launches() -> None:
@@ -980,25 +1147,38 @@ def generate_main_path(backend, dev, gen, phase) -> dict:
             "bound_by": t["bound_by"], "library_ms": None}
 
 
-TRAIN_KERNELS = ("linear_attention_fwd", "linear_attention_bwd_dq",
-                 "linear_attention_bwd_dkv")
+# each trained backend's attention kernels: forward, dq, dk/dv; their IDs;
+# the Pallas lines they replace; the name of their CUDA kernel
+TRAIN_KERNELS = {
+    "linear": (("linear_attention_fwd", "linear_attention_bwd_dq",
+                "linear_attention_bwd_dkv"), ("B2", "B3-dq", "B3-dkv"),
+               "linear_attention/kernel.py", (71, 158, 177),
+               "sweep_kernel"),
+    "gated_linear": (("gated_linear_attention_fwd",
+                      "gated_linear_attention_bwd_dq",
+                      "gated_linear_attention_bwd_dkv"),
+                     ("B8", "B9-dq", "B9-dkv"),
+                     "gated_linear_attention/kernel.py", (85, 201, 201),
+                     "decay_sweep")}
 
 
-def training_slice(dev) -> None:
-    """Phase 9: 2 layers at qwen3-0.6b's full widths, fp32, batch 2 x 256
-    tokens, weights from seed 0. Through B2/B3 and through their plain
-    versions: the loss (rtol 1e-5), every gradient leaf (normwise 1e-4:
-    fp32 sums in other orders through two layers and the head), and the
-    parameters after one AdamW step (within 1e-6 wherever the plain
-    gradient is above that tolerance; Adam's first step is ±lr by the
-    gradient's sign, which rounding may flip where it is below)."""
+def training_slice(backend, dev, phase) -> None:
+    """Phases 9 and 11: 2 layers at qwen3-0.6b's full widths, fp32, batch
+    2 x 256 tokens, weights from seed 0. Through the backend's attention
+    kernels (B2/B3, B8/B9) and through their plain versions: the loss
+    (rtol 1e-5), every gradient leaf (normwise 1e-4: fp32 sums in other
+    orders through two layers and the head), and the parameters after
+    one AdamW step (within 1e-6 wherever the plain gradient is above that
+    tolerance; Adam's first step is ±lr by the gradient's sign, which
+    rounding may flip where it is below)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import lm
     from repro_torch.optim import GradAccumulator, adamw, cosine_warmup
     from repro_torch.runtime import make_train_step
     from repro_torch.tree import leaves, tree_map
-    cfg = dataclasses.replace(get_config("qwen3-0.6b").with_backend("linear"),
+    names, ids = TRAIN_KERNELS[backend][:2]
+    cfg = dataclasses.replace(get_config("qwen3-0.6b").with_backend(backend),
                               n_layers=2, dtype="float32")
     params0 = lm.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
     toks = torch.randint(0, cfg.vocab_size, (2, 257), device=dev,
@@ -1020,17 +1200,18 @@ def training_slice(dev) -> None:
     (loss_k, g_k, p_k, m_k, n_k), (loss_p, g_p, p_p, m_p, n_p) = (
         runs[True], runs[False])
     # two backward passes per route (the gradients, then the train
-    # step); B2 twice per layer and pass: forward and remat recompute
-    want = {"linear_attention_fwd": 2 * 2 * cfg.n_layers,
-            "linear_attention_bwd_dq": 2 * cfg.n_layers,
-            "linear_attention_bwd_dkv": 2 * cfg.n_layers}
-    got = {k: n_k[k] for k in TRAIN_KERNELS}
+    # step); the forward kernel twice per layer and pass: forward and
+    # remat recompute
+    want = dict(zip(names, (2 * 2 * cfg.n_layers, 2 * cfg.n_layers,
+                            2 * cfg.n_layers)))
+    got = {k: n for k, n in n_k.items() if n}
     if got != want or any(n_p.values()):
-        raise AssertionError(f"phase 9: launches {got} on the kernel route "
-                             f"(want {want}), {n_p} on the plain route")
+        raise AssertionError(f"phase {phase}: launches {got} on the kernel "
+                             f"route (want {want}), {n_p} on the plain "
+                             f"route")
     torch.testing.assert_close(loss_k, loss_p, rtol=1e-5, atol=0.0)
     torch.testing.assert_close(m_k["loss"], m_p["loss"], rtol=1e-5, atol=0.0)
-    g_err = max(normwise(a, b, 1e-4, "phase 9 gradient leaf")
+    g_err = max(normwise(a, b, 1e-4, f"phase {phase} gradient leaf")
                 for a, b in zip(g_k, g_p))
     p_err, n_flip, n_small = 0.0, 0, 0
     for a, b, g in zip(p_k, p_p, g_p):
@@ -1040,22 +1221,25 @@ def training_slice(dev) -> None:
         n_small += int((~big).sum())
         n_flip += int((d[~big] > 1e-6).sum())
     if p_err > 1e-6:
-        raise AssertionError(f"phase 9: parameters after one step differ by "
-                             f"{p_err:.3e}")
+        raise AssertionError(f"phase {phase}: parameters after one step "
+                             f"differ by {p_err:.3e}")
     if not all(torch.isfinite(x).all() for x in g_k + p_k):
-        raise AssertionError("phase 9: non-finite gradients or parameters")
-    print(f"phase 9: training slice, 2 layers full width fp32, batch 2 x 256:"
-          f" loss {loss_k.item():.6f} vs plain {loss_p.item():.6f}; "
-          f"{len(g_k)} gradient leaves max normwise |Δg|={g_err:.3e}; params "
-          f"after one AdamW step max|Δ|={p_err:.3e} where |g| > 1e-4 max|g| "
-          f"({n_flip} of {n_small} elements below it moved apart); B2/B3 "
-          f"launches {got} over two passes (B2 twice per layer and pass: "
-          f"forward and remat recompute)")
+        raise AssertionError(f"phase {phase}: non-finite gradients or "
+                             f"parameters")
+    print(f"phase {phase}: {backend} training slice, 2 layers full width "
+          f"fp32, batch 2 x 256: loss {loss_k.item():.6f} vs plain "
+          f"{loss_p.item():.6f}; {len(g_k)} gradient leaves max normwise "
+          f"|Δg|={g_err:.3e}; params after one AdamW step max|Δ|="
+          f"{p_err:.3e} where |g| > 1e-4 max|g| ({n_flip} of {n_small} "
+          f"elements below it moved apart); {'/'.join(ids)} launches {got} "
+          f"over two passes ({ids[0]} twice per layer and pass: forward and "
+          f"remat recompute)")
 
 
-def profile_train_step(loop, batch) -> dict:
+def profile_train_step(loop, batch, kernel) -> dict:
     """Device time by kernel over one training step (torch.profiler) and
-    the device busy share: device time over the step's wall time."""
+    the device busy share: device time over the step's wall time; the
+    rows of the attention kernels (named ``kernel``) all printed."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
@@ -1077,7 +1261,7 @@ def profile_train_step(loop, batch) -> dict:
     print(f"  profile: {total / 1e3:.3f} ms device time per step; device "
           f"busy {100 * total / 1e3 / wall_ms:.1f}% of the step")
     for i, (t, key, count) in enumerate(rows):
-        if i < 16 or "sweep_kernel" in key:
+        if i < 16 or kernel in key:
             print(f"    {100 * t / total:5.1f}%  {t / 1e3:9.3f} ms  "
                   f"x{count:<5d} {key[:90]}")
     kinds = {}
@@ -1089,12 +1273,12 @@ def profile_train_step(loop, batch) -> dict:
     print("  device time by kind: " + "; ".join(
         f"{k} {ms:.3f} ms ({100 * ms / (total / 1e3):.1f}%, {n} launches)"
         for k, (ms, n) in sorted(kinds.items(), key=lambda kv: -kv[1][0])))
-    return {"busy": total / 1e3 / wall_ms, "device_ms": total / 1e3,
-            "sweep_share": kinds.get("B2/B3", (0.0, 0))[0] / (total / 1e3)}
+    return {"busy": total / 1e3 / wall_ms, "device_ms": total / 1e3}
 
 
 # kernel names by kind, first match wins
 TRAIN_KINDS = (("B2/B3", ("sweep_kernel",)),
+               ("B8/B9", ("decay_sweep",)),
                ("matmul", ("gemm", "nvjet", "cutlass", "xmma", "cublas")),
                ("cumsum", ("scan",)),
                ("reduction", ("reduce_kernel",)),
@@ -1102,17 +1286,19 @@ TRAIN_KINDS = (("B2/B3", ("sweep_kernel",)),
                ("elementwise", ("elementwise",)))
 
 
-def training_main_path(dev, gen) -> list:
-    """Phase 10: ``launch/train.py``'s ``build`` and ``TrainLoop`` on the
-    full qwen3-0.6b, linear, batch 8 x seq 1,024, 8 steps (2 warm-up, 6
-    timed), lr 3e-4 with warmup 20; every kernel's launch count set to 0
-    just before and read just after. Returns B2/B3's records for the
-    kernels line (without ``max_abs_err``)."""
+def training_main_path(backend, dev, gen, phase) -> list:
+    """Phases 10 and 12: ``launch/train.py``'s ``build`` and ``TrainLoop``
+    on the full qwen3-0.6b under ``backend``, batch 8 x seq 1,024, 8 steps
+    (2 warm-up, 6 timed), lr 3e-4 with warmup 20; every kernel's launch
+    count set to 0 just before and read just after. Returns the
+    backend's attention kernels' records for the kernels line (without
+    ``max_abs_err``)."""
     import math
     import torch
     from repro_torch.launch import train
     from repro_torch.models import lm
-    args = train.parse_args(["--arch", "qwen3-0.6b", "--backend", "linear",
+    names, ids, pallas, lines, kernel = TRAIN_KERNELS[backend]
+    args = train.parse_args(["--arch", "qwen3-0.6b", "--backend", backend,
                              "--batch", "8", "--seq-len", "1024", "--steps",
                              "8", "--lr", "3e-4", "--warmup", "20",
                              "--seed", "0", "--log-every", "1"])
@@ -1120,41 +1306,43 @@ def training_main_path(dev, gen) -> list:
     torch.cuda.reset_peak_memory_stats()
     loop = train.build(args)
     n_params = lm.param_count(loop.params)
-    if n_params != 596_049_920:
-        raise AssertionError(f"phase 10: {n_params} parameters")
+    # JAX's eval_shape counts; gated adds the decay projection and the
+    # groupnorm
+    want_params = {"linear": 596_049_920, "gated_linear": 654_942_208}[
+        backend]
+    if n_params != want_params:
+        raise AssertionError(f"phase {phase}: {n_params} parameters, want "
+                             f"{want_params}")
     reset_launches()
     out = loop.run()
     launches = read_launches()
     peak = torch.cuda.max_memory_allocated()
     steps, n_layers = out["step"], cfg.n_layers
-    want = {"linear_attention_fwd": 2 * n_layers * steps,
-            "linear_attention_bwd_dq": n_layers * steps,
-            "linear_attention_bwd_dkv": n_layers * steps}
-    got = {k: launches[k] for k in TRAIN_KERNELS}
-    others = {k: n for k, n in launches.items() if k not in want and n}
-    if steps != 8 or got != want or others:
-        raise AssertionError(f"phase 10: {steps} steps, launches {got} "
-                             f"(want {want}), others {others}")
+    want = dict(zip(names, (2 * n_layers * steps, n_layers * steps,
+                            n_layers * steps)))
+    got = {k: n for k, n in launches.items() if n}
+    if steps != 8 or got != want:
+        raise AssertionError(f"phase {phase}: {steps} steps, launches {got} "
+                             f"(want {want})")
     losses = [m["loss"] for m in out["metrics"]]
     if not all(math.isfinite(x) for x in losses):
-        raise AssertionError(f"phase 10: non-finite losses {losses}")
+        raise AssertionError(f"phase {phase}: non-finite losses {losses}")
     times = [m["step_time"] for m in out["metrics"]]
     ms = sum(times[2:]) / len(times[2:]) * 1e3
     tok_s = args.batch * args.seq_len / ms * 1e3
-    print(f"phase 10: training main path qwen3-0.6b linear ({n_params} "
-          f"params, fp32 master, bf16 compute, remat={cfg.remat}), batch "
-          f"{args.batch} x seq {args.seq_len}: ms_per_step={ms:.3f} "
-          f"tokens_per_s={tok_s:.1f} (mean of steps 3-8; step times ms "
-          f"{[round(t * 1e3, 3) for t in times]}), peak memory "
-          f"{peak / 1e9:.3f} GB (torch.cuda.max_memory_allocated)")
+    print(f"phase {phase}: training main path qwen3-0.6b {backend} "
+          f"({n_params} params, fp32 master, bf16 compute, remat="
+          f"{cfg.remat}), batch {args.batch} x seq {args.seq_len}: "
+          f"ms_per_step={ms:.3f} tokens_per_s={tok_s:.1f} (mean of steps "
+          f"3-8; step times ms {[round(t * 1e3, 3) for t in times]}), peak "
+          f"memory {peak / 1e9:.3f} GB (torch.cuda.max_memory_allocated)")
     print(f"  losses {[round(x, 4) for x in losses]}; grad_norm "
           f"{[round(m['grad_norm'], 4) for m in out['metrics']]}")
-    print(f"  launches per step: B2 {got['linear_attention_fwd'] // steps} "
-          f"(forward + remat recompute), B3-dq "
-          f"{got['linear_attention_bwd_dq'] // steps}, B3-dkv "
-          f"{got['linear_attention_bwd_dkv'] // steps}")
+    print(f"  launches per step: {ids[0]} {got[names[0]] // steps} "
+          f"(forward + remat recompute), {ids[1]} {got[names[1]] // steps}, "
+          f"{ids[2]} {got[names[2]] // steps}")
     batch = loop.put_batch(loop.dataset.batch_at(steps))
-    prof = profile_train_step(loop, batch)
+    prof = profile_train_step(loop, batch, kernel)
     if prof["busy"] is not None:
         print(f"  device busy {100 * prof['busy']:.1f}% of a profiled step; "
               f"{prof['device_ms']:.3f} ms device time against "
@@ -1163,12 +1351,11 @@ def training_main_path(dev, gen) -> list:
     torch.cuda.empty_cache()
 
     rows = args.batch * cfg.n_heads
-    t = time_linear_attention(rows, args.seq_len, cfg.head_dim,
-                              cfg.linear_chunk, gen, dev)
+    timer = {"linear": time_linear_attention,
+             "gated_linear": time_gated_linear_attention}[backend]
+    t = timer(rows, args.seq_len, cfg.head_dim, cfg.linear_chunk, gen, dev)
     records = []
-    replaces = {"linear_attention_fwd": 71, "linear_attention_bwd_dq": 158,
-                "linear_attention_bwd_dkv": 177}
-    for name, line in replaces.items():
+    for name, line in zip(names, lines):
         r = t[name]
         print(f"{name} rows={rows} T={args.seq_len} D={cfg.head_dim} bf16: "
               f"{r['ms'] * 1e3:.2f} us/launch (plain version "
@@ -1176,14 +1363,15 @@ def training_main_path(dev, gen) -> list:
               f"{r['bound_ms'] * 1e3:.2f} us by {r['bound_by']}, "
               f"{r['flops'] / 1e9:.2f} GFLOP, {r['bytes'] / 1e6:.2f} MB "
               f"moved)")
+        stem = pallas.split("/")[0]
         records.append({
             "name": name, "route": "cuda",
-            "source": "src/repro_torch/kernels/linear_attention/csrc/"
-                      "linear_attention.cu",
-            "replaces": f"src/repro/kernels/linear_attention/kernel.py:{line}",
+            "source": f"src/repro_torch/kernels/{stem}/csrc/{stem}.cu",
+            "replaces": f"src/repro/kernels/{pallas}:{line}",
             "launches": launches[name], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None})
+    torch.cuda.empty_cache()
     return records
 
 
@@ -1195,6 +1383,7 @@ def main() -> int:
         return 1
     from repro_torch.kernels import build
     from repro_torch.kernels.fused_recurrent import ops
+    from repro_torch.kernels.gated_linear_attention import ops as GL
     from repro_torch.kernels.linear_attention import ops as LA
     from repro_torch.kernels.lookup import ops as LU
 
@@ -1216,11 +1405,13 @@ def main() -> int:
           f"device {torch.cuda.get_device_name(0)} "
           f"count {torch.cuda.device_count()}")
     # one nvcc each, all started together
-    build.build([ops.SOURCE, ops.GATED_SOURCE, LU.SOURCE, LA.SOURCE])
+    build.build([ops.SOURCE, ops.GATED_SOURCE, LU.SOURCE, LA.SOURCE,
+                 GL.SOURCE])
     ops.load()
     ops.load_gated()
     LU.load()
     LA.load()
+    GL.load()
     print(f"phase 1: built and loaded the kernels in "
           f"{time.perf_counter() - t0:.1f} s "
           f"(nvcc {build.BUILD_SECONDS})")
@@ -1292,6 +1483,22 @@ def main() -> int:
     check_linear_attention_autograd(gen, dev)
     print(f"phase 2: linear_attention_fwd, _bwd_dq and _bwd_dkv agree with "
           f"their plain versions (normwise {LA_TOL})")
+    # B8/B9: the gated training main path's shape at the model's decay;
+    # fp32 at a T that is a multiple of the chunk but not of the 32-token
+    # tile, at a ragged T (the chunk drops to T = 75), at D = 16, through
+    # the wrapper (padding, per-head decay); then at the clamp
+    errs.update(check_gla_rows(128, 1024, 128, torch.bfloat16, 128, "model",
+                               gen, dev))
+    check_gla_rows(6, 272, 128, torch.float32, 16, "mild", gen, dev)
+    check_gla_rows(4, 75, 128, torch.float32, 75, "mild", gen, dev)
+    check_gla_rows(6, 48, 16, torch.float32, 16, "mild", gen, dev)
+    check_gla_wrapper(40, 16, torch.float32, 16, False, gen, dev)
+    check_gla_wrapper(200, 128, torch.float32, 128, True, gen, dev)
+    check_gla_wrapper(200, 128, torch.bfloat16, 128, False, gen, dev)
+    check_gla_clamp(gen, dev)
+    print(f"phase 2: gated_linear_attention_fwd (inclusive, exclusive + u), "
+          f"_bwd_dq and _bwd_dkv agree with their plain versions (normwise "
+          f"{LA_TOL}) and, at the clamp, with gla_scan")
     done(2, t0)
 
     # -- 3. the linear slice, kernel vs plain recurrence, fp32 -------------
@@ -1352,14 +1559,25 @@ def main() -> int:
 
     # -- 9. the training slice, kernel vs plain, fp32 ----------------------
     t0 = time.perf_counter()
-    training_slice(dev)
+    training_slice("linear", dev, 9)
     torch.cuda.empty_cache()
     done(9, t0)
 
     # -- 10. the training main path ------------------------------------------
     t0 = time.perf_counter()
-    records.extend(training_main_path(dev, gen))
+    records.extend(training_main_path("linear", dev, gen, 10))
     done(10, t0)
+
+    # -- 11. the gated training slice, kernel vs plain, fp32 ---------------
+    t0 = time.perf_counter()
+    training_slice("gated_linear", dev, 11)
+    torch.cuda.empty_cache()
+    done(11, t0)
+
+    # -- 12. the gated training main path ------------------------------------
+    t0 = time.perf_counter()
+    records.extend(training_main_path("gated_linear", dev, gen, 12))
+    done(12, t0)
 
     for r in records:
         r["max_abs_err"] = errs[r["name"]]

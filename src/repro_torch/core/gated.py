@@ -1,5 +1,10 @@
-"""Gated (decay) linear attention in PyTorch (port of
-``repro/core/gated.py``, forward only: the decay family of paper §4).
+"""Gated linear attention in PyTorch (port of ``repro/core/gated.py``:
+the paper's §4 family).
+
+The paper's exact instance (α = β = 1, gated features f = σ(Wh+b) ⊙ h)
+is ``paper_gate``; ``invert_update`` and ``reconstruct_states_backward``
+are its §4 backward trick, recovering C_t from C_{t+1} by inverting the
+update instead of storing the states.
 
 Per head, with a_t = exp(g_t) and g_t ≤ 0 the log-decay:
 
@@ -9,20 +14,21 @@ Per head, with a_t = exp(g_t) and g_t ≤ 0 the log-decay:
 
 ``gla_scan`` is the per-token recurrence, ``chunked_gla`` the
 chunk-parallel form used by prefill, ``gated_decode_step`` one decode
-step. Only ``chunked_gla`` clamps the log-decay to
-[``min_log_decay``, 0]; the recurrences use exp(g) as given, as the JAX
-package does.
+step, and ``gated_linear_attention`` the differentiable inclusive form
+that training runs: B8 forward and B9's recompute backward (only q, k,
+v and g are kept; the states are recomputed, never stored). Only the
+chunked forms clamp the log-decay to [``min_log_decay``, 0]; the
+recurrences use exp(g) as given, as the JAX package does.
 
 The chunk form scales keys by exp(-b) with b the within-chunk cumulative
 log-decay. With g at the clamp (-1) b reaches -chunk, and exp(-b)
 overflows fp32 past about 88 tokens: in a 128-token chunk the late keys
 are inf, the masked products 0 × inf are NaN, and every output of the
 chunk is NaN (the carried state stays finite). The JAX reference behaves
-the same way and the port keeps it; at the model's operating point
-(b_gate = 4, g ≈ -0.002) b stays far inside the range.
-
-The training pieces (the custom VJP, ``paper_gate``, the §4 inversion)
-are not ported.
+the same way and the port's plain versions keep it; the CUDA kernels
+behind ``gated_linear_attention`` rescale within 32-token tiles and
+stay finite there. At the model's operating point (b_gate = 4,
+g ≈ -0.002) b stays far inside the range.
 """
 
 from __future__ import annotations
@@ -40,6 +46,39 @@ Tensor = torch.Tensor
 DEFAULT_CHUNK = 128
 MIN_LOG_DECAY = -1.0
 
+
+# ---------------------------------------------------------------------------
+# Paper §4 exact instance (α = β = 1, gated features)
+# ---------------------------------------------------------------------------
+
+def paper_gate(h: Tensor, w: Tensor, b: Tensor) -> Tensor:
+    """f_t = sigmoid(W h_t + b) ⊙ h_t — the paper's gate."""
+    return torch.sigmoid(h @ w.T + b) * h
+
+
+def invert_update(c_next: Tensor, f: Tensor, alpha: float = 1.0,
+                  beta: float = 1.0) -> Tensor:
+    """Paper §4: C_t = (C_{t+1} − β f fᵀ) / α."""
+    return (c_next - beta * torch.einsum("...k,...l->...kl", f, f)) / alpha
+
+
+def reconstruct_states_backward(c_final: Tensor, f_seq: Tensor) -> Tensor:
+    """Recover every intermediate C_t from the final C by inversion.
+
+    f_seq: (..., n, k). Returns (n+1, ..., k, k) with [0] the zero
+    initial state and [n] == c_final: the paper's storage-free backward.
+    """
+    f_rev = torch.movedim(f_seq, -2, 0).flip(0)
+    cs, c = [], c_final
+    for f_t in f_rev:
+        cs.append(c)                        # C after t+1 updates
+        c = invert_update(c, f_t)
+    return torch.stack([torch.zeros_like(c_final)] + cs[::-1])
+
+
+# ---------------------------------------------------------------------------
+# Decay family
+# ---------------------------------------------------------------------------
 
 def gla_scan(
     q: Tensor,
@@ -169,3 +208,27 @@ def gated_decode_step(
         state = a[..., None] * state + kv
         o = torch.einsum("bhkv,bhk->bhv", state, q.to(acc))
     return o.to(v.dtype), state
+
+
+def gated_linear_attention(
+    q: Tensor,
+    k: Tensor,
+    v: Tensor,
+    log_decay: Tensor,
+    *,
+    chunk_size: int = DEFAULT_CHUNK,
+    min_log_decay: float = MIN_LOG_DECAY,
+    kernel: bool = True,
+) -> Tensor:
+    """Inclusive decay-gated linear attention with the memory-efficient
+    backward (JAX ``gated_linear_attention``, custom VJP ``_gla_core``):
+    forward B8, backward B9's recompute, keeping only (q, k, v, g).
+    ``kernel=False`` asks for the plain PyTorch versions on a CUDA tensor
+    (CPU tensors always take them). q, k: (B, H, T, Dk); v: (B, H, T, Dv);
+    log_decay: (B, H, T, Dk) or (B, H, T, 1) → o in v's type."""
+    # imported here: the kernel's plain version is this module's
+    # chunked_gla
+    from repro_torch.kernels.gated_linear_attention import ops
+    return ops.gated_linear_attention(q, k, v, log_decay, chunk=chunk_size,
+                                      min_log_decay=min_log_decay,
+                                      kernel=kernel)

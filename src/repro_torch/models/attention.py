@@ -10,7 +10,8 @@ kernels for CUDA tensors (``kernels/fused_recurrent``):
 - ``gated_linear``: the paper's §4 decay form, S ← diag(exp g) S + k vᵀ
   with a data-dependent log-decay g (``_decay``, per channel or per
   head); ``chunked_gla`` for prefill, the gated decode kernel after it,
-  and a per-head groupnorm on the outputs. Its state has no z, whatever
+  ``gated_linear_attention`` (B8/B9) for training, and a per-head
+  groupnorm on the outputs. Its state has no z, whatever
   ``linear_normalize`` says.
 
 Heads are laid out as in the JAX package: q projects to (G, Hkv, Dh)
@@ -30,7 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.gated import chunked_gla
+from repro_torch.core.gated import chunked_gla, gated_linear_attention
 from repro_torch.core.linear_attention import (
     causal_linear_attention, causal_linear_attention_chunked)
 from repro_torch.kernels.fused_recurrent import ops as FR
@@ -231,11 +232,13 @@ def attention_apply(
     """Full-sequence attention. x: (B, T, D) → (B, T, D).
 
     ``want_state=True`` (prefill) also returns the decode state after the
-    last position: the chunked final state and, for the linear backend,
-    z = Σ_t k_t, a plain fp32 sum. Without it (training), the linear
+    last position: the final state of the plain chunked forms and, for
+    the linear backend, z = Σ_t k_t, a plain fp32 sum. Without it (training), the linear
     backend runs ``causal_linear_attention``: B2 forward and B3's §3.3
-    recompute backward on CUDA tensors, their plain versions on CPU
-    tensors or under ``attention_kernel=False``.
+    recompute backward; the gated backend runs ``gated_linear_attention``:
+    B8 forward and B9's recompute backward. Both take the kernels on
+    CUDA tensors and their plain versions on CPU tensors or under
+    ``attention_kernel=False``.
     """
     _require_linear(cfg)
     b, t, _ = x.shape
@@ -254,11 +257,17 @@ def attention_apply(
             qh, kh, vh, chunk_size=cfg.linear_chunk,
             normalize=cfg.linear_normalize, kernel=attention_kernel)
         s_f = zf = None
-    else:   # gated_linear: the decay is clamped inside chunked_gla
+    elif want_state:   # gated_linear prefill: chunked_gla clamps g
         o_h, s_f = chunked_gla(qh, kh, vh, _decay(p, x, cfg),
                                chunk_size=cfg.linear_chunk)
         o_h = _groupnorm(p, o_h)
         zf = None
+    else:   # gated_linear training: B8 / B9's recompute backward
+        o_h = gated_linear_attention(qh, kh, vh, _decay(p, x, cfg),
+                                     chunk_size=cfg.linear_chunk,
+                                     kernel=attention_kernel)
+        o_h = _groupnorm(p, o_h)
+        s_f = zf = None
     state = AttnState(s=s_f, z=zf) if want_state else None
     o = o_h.reshape(b, h // hkv, hkv, t, dh)
     return _merge_heads(p, o, x.dtype), state

@@ -3,10 +3,10 @@
 PyTorch runs eagerly, so a step is a plain function: no jit and no
 sharding trees. The train step differentiates ``lm.lm_loss`` through the
 gradient accumulator and updates the parameters in place. Training
-covers ``attention_backend="linear"``: its core runs B2 forward and B3
-backward on the card. The gated backward (B8/B9) and the softmax path
-are not ported, so those backends raise rather than train through plain
-code.
+covers ``attention_backend="linear"``, whose core runs B2 forward and B3
+backward on the card, and ``"gated_linear"``, whose core runs B8 forward
+and B9 backward. The softmax path is not ported, so that backend raises
+rather than train through plain code.
 """
 
 from __future__ import annotations
@@ -22,11 +22,11 @@ from repro_torch.tree import tree_map
 
 
 def _require_trainable(cfg: ModelConfig) -> None:
-    if cfg.attention_backend != "linear":
+    if cfg.attention_backend not in ("linear", "gated_linear"):
         raise NotImplementedError(
-            f"{cfg.name}: the port trains attention_backend 'linear' only "
-            f"(got {cfg.attention_backend!r}); gated training needs the "
-            f"B8/B9 kernels and softmax is not ported (ROADMAP queue A)")
+            f"{cfg.name}: the port trains attention_backend 'linear' or "
+            f"'gated_linear' only (got {cfg.attention_backend!r}); softmax "
+            f"is not ported (ROADMAP queue A)")
 
 
 def make_train_step(

@@ -13,7 +13,10 @@ import pytest
 import torch
 
 from repro_torch.configs import get_smoke_config
+from repro_torch.core.gated import gla_scan
 from repro_torch.kernels.fused_recurrent import ops, ref
+from repro_torch.kernels.gated_linear_attention import ops as gla_ops
+from repro_torch.kernels.gated_linear_attention import ref as gla_ref
 from repro_torch.kernels.linear_attention import ops as la_ops
 from repro_torch.kernels.linear_attention import ref as la_ref
 from repro_torch.kernels.lookup import ops as lu_ops
@@ -513,6 +516,170 @@ def test_training_slice_through_kernels_matches_plain_route(dev):
         launched = (la_ops.fwd.launches - before[0],
                     la_ops.bwd_dq.launches - before[1])
         assert launched == ((4, 2) if kernel else (0, 0))
+        out[kernel] = (loss.detach(), grads)
+    torch.testing.assert_close(out[True][0], out[False][0], rtol=1e-5,
+                               atol=0.0)
+    for a, b in zip(out[True][1], out[False][1]):
+        _assert_normwise(a, b, 1e-4, "gradient leaf")
+
+
+def _gla_rows(dev, bh, t, d, dtype, decay, seed=0):
+    """q, k positive (elu1), v and do signed; g fp32: the model's
+    operating point (about -0.002), mild ([-0.6, 0] with entries past the
+    clamp) or the clamp itself (-1 everywhere)."""
+    q, k, v, do = _la_rows(dev, bh, t, d, dtype, seed)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    u = torch.rand((bh, t, d), generator=gen, device=dev)
+    g = {"model": -0.004 * u, "mild": torch.where(u < 0.03, -1.5, -0.6 * u),
+         "clamp": torch.full_like(u, -1.0)}[decay]
+    return q, k, v, do, g
+
+
+def _gla_counts():
+    return (gla_ops.fwd.launches, gla_ops.bwd_dq.launches,
+            gla_ops.bwd_dkv.launches)
+
+
+# (rows, T, D, dtype, chunk, decay): the training main path's shape, a T
+# that is a multiple of the chunk but not of the kernels' tile, the
+# smoke width, a ragged T (the chunk drops to T)
+@pytest.mark.parametrize("bh,t,d,dtype,chunk,decay", [
+    (128, 1024, 128, torch.bfloat16, 128, "model"),
+    (6, 272, 128, torch.float32, 16, "mild"),
+    (6, 48, 16, torch.float32, 16, "mild"),
+    (6, 48, 16, torch.bfloat16, 16, "mild"),
+    (4, 75, 128, torch.float32, 75, "mild"),
+])
+def test_gated_linear_attention_kernels_match_plain_versions(
+        dev, bh, t, d, dtype, chunk, decay):
+    """B8 (inclusive; exclusive with the bonus u) and B9 against their
+    plain versions: normwise 1e-5 in fp32, 8e-3 in bf16."""
+    q, k, v, do, g = _gla_rows(dev, bh, t, d, dtype, decay)
+    u = torch.linspace(-1.0, 1.0, d, device=dev)
+    before = _gla_counts()
+    o, s = gla_ops.fwd(q, k, v, g, chunk=chunk)
+    o_x, s_x = gla_ops.fwd(q, k, v, g, u=u, chunk=chunk, exclusive=True)
+    grads = gla_ops.bwd(q, k, v, g, do, chunk=chunk)
+    torch.cuda.synchronize()
+    assert _gla_counts() == (before[0] + 2, before[1] + 1, before[2] + 1)
+    tol = LA_TOL[dtype]
+    o_r, s_r = gla_ref.chunked_fwd_ref(q, k, v, g, chunk=chunk)
+    o_xr, s_xr = gla_ref.chunked_fwd_ref(q, k, v, g, u=u, chunk=chunk,
+                                         exclusive=True)
+    grads_r = gla_ref.chunked_bwd_ref(q, k, v, g, do, chunk=chunk)
+    assert o.dtype == dtype and s.dtype == torch.float32
+    for name, x, x_r in zip(("o", "s", "o excl", "s excl"),
+                            (o, s, o_x, s_x), (o_r, s_r, o_xr, s_xr)):
+        _assert_normwise(x, x_r, LA_TOL[torch.float32] if "s" in name
+                         else tol, name)
+    for name, x, x_r in zip(("dq", "dk", "dv", "dg"), grads, grads_r):
+        assert x.dtype == x_r.dtype, name
+        _assert_normwise(x, x_r, tol, name)
+
+
+def test_gated_kernels_at_the_clamp_match_the_scan(dev):
+    """g ≡ −1, T = 1,024, chunk 128, fp32: the chunk-wide plain versions
+    overflow (NaN, as JAX's do); B8 and B9 rescale within 32-token tiles,
+    stay finite and match ``gla_scan`` and its autograd gradients."""
+    q, k, v, do, g = (x.reshape(1, 2, 1024, 128) for x in _gla_rows(
+        dev, 2, 1024, 128, torch.float32, "clamp", seed=3))
+    got, want = [], []
+    for fn, sink in ((lambda a, b, c, e: gla_ops.gated_linear_attention(
+            a, b, c, e, chunk=128), got),
+            (lambda a, b, c, e: gla_scan(a, b, c, e)[0], want)):
+        leaves = [x.clone().requires_grad_() for x in (q, k, v, g)]
+        o = fn(*leaves)
+        o.backward(do)
+        sink.extend([o.detach()] + [x.grad for x in leaves])
+    for name, a, b in zip(("o", "dq", "dk", "dv", "dg"), got, want):
+        assert torch.isfinite(a).all(), name
+        _assert_normwise(a, b, LA_TOL[torch.float32], name)
+    o_plain = gla_ops.gated_linear_attention(q, k, v, g, chunk=128,
+                                             kernel=False)
+    assert torch.isnan(o_plain).any()
+
+
+@pytest.mark.parametrize("t,d,dtype,scalar", [(40, 16, torch.float32, False),
+                                              (200, 128, torch.float32, True),
+                                              (200, 128, torch.bfloat16,
+                                               False)])
+def test_gated_linear_attention_wrapper_pads_like_jax(dev, t, d, dtype,
+                                                      scalar):
+    """(B, H, T, D) with T not a multiple of the chunk, vector or per-head
+    decay: the wrapper pads, the kernels run, and o and the four
+    gradients match the plain route of the same wrapper;
+    ``rwkv6_attention``'s o and state too."""
+    q, k, v, do, g = (x.reshape(2, 3, t, d) for x in _gla_rows(
+        dev, 6, t, d, dtype, "mild", seed=1))
+    if scalar:
+        g = g[..., :1].contiguous()
+    chunk = 16 if d == 16 else 128
+    u = torch.linspace(-1.0, 1.0, d, device=dev)
+    out = {}
+    for kernel in (True, False):
+        leaves = [x.clone().requires_grad_() for x in (q, k, v, g)]
+        o = gla_ops.gated_linear_attention(*leaves, chunk=chunk,
+                                           kernel=kernel)
+        o.backward(do)
+        o_x, s_x = gla_ops.rwkv6_attention(q, k, v, g, u, chunk=chunk,
+                                           kernel=kernel)
+        out[kernel] = [o.detach()] + [x.grad for x in leaves] + [o_x, s_x]
+    tol = LA_TOL[dtype]
+    for name, a, b in zip(("o", "dq", "dk", "dv", "dg", "o excl", "s excl"),
+                          out[True], out[False]):
+        _assert_normwise(a, b, LA_TOL[torch.float32] if name == "s excl"
+                         else tol, name)
+
+
+def test_gated_linear_attention_rejects_unsupported_inputs(dev):
+    q, k, v, do, g = _gla_rows(dev, 2, 32, 16, torch.float32, "mild")
+    cut = lambda x: x[..., :8].contiguous()            # noqa: E731
+    with pytest.raises(ValueError):                       # D = 8
+        gla_ops.fwd(cut(q), cut(k), cut(v), cut(g), chunk=16)
+    with pytest.raises(ValueError):                       # D = 8, backward
+        gla_ops.bwd(cut(q), cut(k), cut(v), cut(g), cut(do), chunk=16)
+    with pytest.raises(ValueError):                       # T % chunk
+        gla_ops.fwd(q, k, v, g, chunk=24)
+    with pytest.raises(ValueError):                       # mixed types
+        gla_ops.bwd(q, k, v.bfloat16(), g, do, chunk=16)
+    with pytest.raises(ValueError):                       # g not fp32
+        gla_ops.fwd(q, k, v, g.bfloat16(), chunk=16)
+    with pytest.raises(ValueError):                       # strided
+        gla_ops.fwd(q, k.transpose(1, 2).contiguous().transpose(1, 2), v, g,
+                    chunk=16)
+    with pytest.raises(TypeError):
+        gla_ops.fwd(q.half(), k.half(), v.half(), g, chunk=16)
+    with pytest.raises(ValueError):                       # CPU and CUDA
+        gla_ops.fwd(q, k, v, g.cpu(), chunk=16)
+    with pytest.raises(ValueError):                       # u of another D
+        gla_ops.fwd(q, k, v, g, u=torch.zeros(8, device=dev), chunk=16,
+                    exclusive=True)
+
+
+def test_gated_training_slice_through_kernels_matches_plain_route(dev):
+    """Two layers at qwen3-0.6b's full widths under ``gated_linear``,
+    fp32: the loss and every gradient leaf through B8/B9 against the same
+    through the plain versions (``attention_kernel=False``); B8 twice per
+    layer under remat, B9 once."""
+    from repro_torch.configs import get_config
+    from repro_torch.tree import leaves
+    cfg = dataclasses.replace(
+        get_config("qwen3-0.6b").with_backend("gated_linear"), n_layers=2,
+        dtype="float32")
+    params = lm.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    g = torch.Generator(device=dev).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (2, 257), device=dev, generator=g)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    flat = leaves(params)
+    for x in flat:
+        x.requires_grad_()
+    out = {}
+    for kernel in (True, False):
+        before = _gla_counts()
+        loss, _ = lm.lm_loss(params, batch, cfg, attention_kernel=kernel)
+        grads = torch.autograd.grad(loss, flat)
+        launched = tuple(a - b for a, b in zip(_gla_counts(), before))
+        assert launched == ((4, 2, 2) if kernel else (0, 0, 0))
         out[kernel] = (loss.detach(), grads)
     torch.testing.assert_close(out[True][0], out[False][0], rtol=1e-5,
                                atol=0.0)

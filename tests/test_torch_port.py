@@ -46,7 +46,9 @@ def test_port_imports_no_jax_and_nothing_of_repro():
                    "core/gated.py", "kernels/fused_recurrent/ops.py",
                    "kernels/fused_recurrent/ref.py", "models/attention.py",
                    "kernels/linear_attention/ops.py",
-                   "kernels/linear_attention/ref.py", "optim/adamw.py",
+                   "kernels/linear_attention/ref.py",
+                   "kernels/gated_linear_attention/ops.py",
+                   "kernels/gated_linear_attention/ref.py", "optim/adamw.py",
                    "optim/schedule.py", "optim/accumulate.py",
                    "data/synthetic.py", "runtime/steps.py",
                    "runtime/straggler.py", "runtime/train_loop.py",

@@ -250,7 +250,7 @@ def _args(*extra):
                               "--batch", "2", "--seq-len", "16", *extra])
 
 
-@pytest.mark.parametrize("backend", ["gated_linear", "softmax"])
+@pytest.mark.parametrize("backend", ["softmax"])
 def test_training_other_backends_raises(backend):
     with pytest.raises(NotImplementedError):
         ttrain.build(_args("--backend", backend))
