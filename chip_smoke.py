@@ -8,7 +8,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 1. Device: the card's name and power limit, and the build of every CUDA
    kernel of the port from the sources in this checkout.
 2. Each kernel against its plain PyTorch version on the card, at the
-   main path's shapes and at the smoke width.
+   main path's shapes and at the smoke width (B10 also at D = 64).
 3. The serving slice on the card: a 2-layer model at qwen3-0.6b's full
    widths in fp32, prefill + 16 greedy steps through the kernel against
    the same run through ``decode_kernel="reference"``.
@@ -51,9 +51,20 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    --backend gated_linear`` on the full 28-layer model; B8/B9 launches
    per step, a profile of one step, and B8, B9-dq and B9-dkv timed
    beside their bounds and plain versions.
+13. The softmax slice (paper §2's KV-cache baseline, ``--backend
+   softmax``): 2 layers at full width in fp32, batch 4, prompt 64,
+   prefill through the causal flash-attention kernel (B10) + 16 greedy
+   steps over the KV cache, against prefill through B10's plain version
+   (``attention_kernel=False``).
+14. The softmax generate main path: ``serve --backend softmax`` on the
+   full 28-layer qwen3-0.6b in bf16, batch 8, prompt 512, 64 generated
+   tokens; B10's launch count over that run (once per layer and
+   prefill), the KV cache's size, a profile of a few decode steps, and
+   B10 timed beside its bounds, its plain version and
+   ``scaled_dot_product_attention``.
 
-Each main path (phases 4, 6, 8, 10 and 12) is driven with every kernel's
-launch count set to 0 just before it and read just after.
+Each main path (phases 4, 6, 8, 10, 12 and 14) is driven with every
+kernel's launch count set to 0 just before it and read just after.
 
 The last line is {"ok": true, "device": {...}}; the line before it the
 kernels' JSON record; before that the card's name and power limit.
@@ -975,9 +986,93 @@ def time_gated_linear_attention(bh, t, d, chunk, gen, dev) -> dict:
     return out
 
 
+def check_flash_attention(bh, t, s, d, dtype, gen, dev, t_off=None,
+                          s_real=None) -> float:
+    """B10 on rows against its plain version: fp32 within 1e-5 (the same
+    fp32 sums in another order), bf16 within normwise 8e-3 and JAX's
+    kernel tests' 2e-2 elementwise (one bf16 rounding of the output);
+    returns the largest |Δo|."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as FA
+    q, k, v = (torch.randn((bh, n, d), generator=gen, device=dev).to(dtype)
+               for n in (t, s, s))
+    o = FA.fwd(q, k, v, t_off=t_off, s_real=s_real)
+    torch.cuda.synchronize()
+    o_r = FA.fwd(q, k, v, t_off=t_off, s_real=s_real, kernel=False)
+    name = str(dtype).split(".")[-1]
+    tag = (f"rows={bh} T={t} S={s} D={d} {name} t_off="
+           f"{s - t if t_off is None else t_off} s_real="
+           f"{s if s_real is None else s_real}")
+    if dtype == torch.float32:
+        torch.testing.assert_close(o, o_r, rtol=1e-5, atol=1e-5, msg=tag)
+    else:
+        normwise(o, o_r, LA_TOL[name], f"flash_attention {tag}")
+        torch.testing.assert_close(o.float(), o_r.float(), rtol=2e-2,
+                                   atol=2e-2, msg=tag)
+    err = (o.float() - o_r.float()).abs().max().item()
+    print(f"  flash_attention_fwd {tag}: max|Δo|={err:.3e}")
+    return err
+
+
+def check_flash_wrapper(b, h, t, s, dtype, gen, dev) -> None:
+    """(B, H, T, D = 128) through ``ops.flash_attention`` (padding T and S
+    to the JAX wrapper's tiles), kernel route against ``kernel=False``."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as FA
+    q, k, v = (torch.randn((b, h, n, 128), generator=gen, device=dev).to(
+        dtype) for n in (t, s, s))
+    o = FA.flash_attention(q, k, v)
+    o_r = FA.flash_attention(q, k, v, kernel=False)
+    torch.cuda.synchronize()
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(o.float(), o_r.float(), rtol=tol, atol=tol)
+    print(f"  flash_attention wrapper B={b} H={h} T={t} S={s} D=128 "
+          f"{str(dtype).split('.')[-1]}: max|Δo|="
+          f"{(o.float() - o_r.float()).abs().max().item():.3e} against "
+          f"kernel=False")
+
+
+# bf16 dense tensor-core peak of one H100 SXM (NVIDIA data sheet)
+PEAK_BF16_TC_FLOPS = 989e12
+
+
+def time_flash_attention(b, h, t, d, gen, dev, n_bufs=4) -> dict:
+    """B10 at the prefill main path's shape (B·H rows, T = S, bf16, causal,
+    t_off 0), its plain version, and the library call
+    ``scaled_dot_product_attention(is_causal=True)`` on the same inputs,
+    from CUDA-graph replays over ``n_bufs`` input sets (4 x 50 MB, beyond
+    the 50 MB L2). Bounds: the causal pairs' 4·D operations each (q·k and
+    p·v) over the fp32 rate, or q, k, v and o once over the memory rate;
+    beside them the same operations over the bf16 tensor-core rate."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as FA
+    sets = [[torch.randn((b, h, t, d), generator=gen, device=dev).to(
+        torch.bfloat16) for _ in range(3)] for _ in range(n_bufs)]
+    rows = [[x.reshape(b * h, t, d) for x in xs] for xs in sets]
+    o = FA.fwd(*rows[0])
+    lib = F.scaled_dot_product_attention(*sets[0], is_causal=True)
+    lib_err = (o.float() - lib.reshape(b * h, t, d).float()).abs().max()
+    flops = b * h * (t * (t + 1) // 2) * 4 * d
+    out = dict(
+        ms=graph_ms(lambda i: FA.fwd(*rows[i % n_bufs]), 2 * n_bufs,
+                    replays=5),
+        plain_ms=graph_ms(lambda i: FA.fwd(*rows[i % n_bufs], kernel=False),
+                          2, replays=3),
+        library_ms=graph_ms(lambda i: F.scaled_dot_product_attention(
+            *sets[i % n_bufs], is_causal=True), 2 * n_bufs, replays=5),
+        tensor_core_bound_ms=flops / PEAK_BF16_TC_FLOPS * 1e3,
+        library_max_abs_diff=lib_err.item(),
+        **bound(4 * sets[0][0].nbytes, flops))
+    del sets, rows
+    torch.cuda.empty_cache()
+    return out
+
+
 def launch_counters() -> dict:
     """Every kernel wrapper of the port, by kernel name: each adds one to
     its ``launches`` where it launches its kernel."""
+    from repro_torch.kernels.flash_attention import ops as FA
     from repro_torch.kernels.fused_recurrent import ops
     from repro_torch.kernels.gated_linear_attention import ops as GL
     from repro_torch.kernels.linear_attention import ops as LA
@@ -991,7 +1086,8 @@ def launch_counters() -> dict:
             "linear_attention_bwd_dkv": LA.bwd_dkv,
             "gated_linear_attention_fwd": GL.fwd,
             "gated_linear_attention_bwd_dq": GL.bwd_dq,
-            "gated_linear_attention_bwd_dkv": GL.bwd_dkv}
+            "gated_linear_attention_bwd_dkv": GL.bwd_dkv,
+            "flash_attention_fwd": FA.fwd}
 
 
 def reset_launches() -> None:
@@ -1375,6 +1471,155 @@ def training_main_path(backend, dev, gen, phase) -> list:
     return records
 
 
+def softmax_slice(dev, phase) -> None:
+    """Phase 13: a 2-layer model at qwen3-0.6b's full widths under softmax
+    in fp32, batch 4, prompt 64: prefill through B10, then 16 greedy
+    steps over the KV cache, against the same with prefill through B10's
+    plain version (``attention_kernel=False``): greedy tokens identical,
+    logits within 1e-4, the caches within 1e-5, B10 launched once per
+    layer in the kernel route's prefill and never on the plain route."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    cfg = dataclasses.replace(
+        get_config("qwen3-0.6b").with_backend("softmax"), n_layers=2,
+        dtype="float32")
+    params = lm.init_params(torch.Generator(device=dev).manual_seed(1), cfg)
+    prompt = torch.randint(0, cfg.vocab_size, (4, 64), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(2))
+    runs = {}
+    for kernel in (True, False):
+        reset_launches()
+        logits, st = lm.prefill(params, prompt, cfg, attention_kernel=kernel)
+        launched = {k: n for k, n in read_launches().items() if n}
+        want = {"flash_attention_fwd": cfg.n_layers} if kernel else {}
+        if launched != want:
+            raise AssertionError(f"phase {phase}: prefill launched "
+                                 f"{launched} (attention_kernel={kernel}), "
+                                 f"want {want}")
+        st = lm.pad_decode_state(st, cfg, 64 + 16)
+        tok = lm.sample_token(logits, 0.0)
+        all_logits, toks = [logits], [tok]
+        for i in range(16):
+            logits, st = lm.decode_step(params, st, tok, 64 + i, cfg)
+            tok = lm.sample_token(logits, 0.0)
+            all_logits.append(logits)
+            toks.append(tok)
+        if {k: n for k, n in read_launches().items() if n} != launched:
+            raise AssertionError(f"phase {phase}: decode launched a kernel")
+        runs[kernel] = (torch.stack(all_logits), torch.stack(toks),
+                        [c for group in st["stack"] for c in
+                         (group.k_cache, group.v_cache)])
+    (lg_k, tok_k, c_k), (lg_p, tok_p, c_p) = runs[True], runs[False]
+    if not torch.equal(tok_k, tok_p):
+        raise AssertionError(f"phase {phase}: greedy tokens differ")
+    torch.testing.assert_close(lg_k, lg_p, rtol=1e-4, atol=1e-4)
+    for a, b in zip(c_k, c_p):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+    if not torch.isfinite(lg_k).all():
+        raise AssertionError(f"phase {phase}: non-finite logits")
+    print(f"phase {phase}: softmax 2-layer full-width fp32 slice, batch 4, "
+          f"prefill 64 + 16 greedy steps: tokens identical, max|Δlogit|="
+          f"{(lg_k - lg_p).abs().max().item():.3e}, max|Δcache|="
+          f"{max((a - b).abs().max().item() for a, b in zip(c_k, c_p)):.3e}"
+          f", flash_attention_fwd launched {cfg.n_layers} times in the "
+          f"kernel route's prefill, 0 in the plain route's")
+
+
+def softmax_generate_main_path(dev, gen, phase) -> dict:
+    """Phase 14: ``serve --mode generate --backend softmax`` on the full
+    28-layer qwen3-0.6b in bf16 (random weights from seed 0), batch 8,
+    prompt 512, 64 generated tokens, with every kernel's launch count set
+    to 0 just before and read just after: B10 once per layer in each
+    prefill (the entry point's warm-up and the timed one), no other
+    kernel; KV caches of 576 rows. Then a profile of 4 decode steps over
+    a 576-row cache and B10 timed beside its bounds, its plain version and
+    ``scaled_dot_product_attention``. Returns B10's record for the kernels
+    line (without ``max_abs_err``)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    args = serve.parse_args(["--arch", "qwen3-0.6b", "--backend", "softmax",
+                             "--batch", "8", "--prompt-len", "512",
+                             "--gen-len", "64", "--seed", "0"])
+    full = get_config(args.arch).with_backend("softmax")
+    name = "flash_attention_fwd"
+    reset_launches()
+    result = serve.generate(args)
+    launches = read_launches()
+    got = {k: n for k, n in launches.items() if n}
+    if result["prefill_launches"] != full.n_layers or \
+            got != {name: 2 * full.n_layers} or result["decode_launches"]:
+        raise AssertionError(f"phase {phase}: {result['prefill_launches']} "
+                             f"B10 launches in the timed prefill, "
+                             f"{result['decode_launches']} decode-kernel "
+                             f"launches, {got} in the run; want "
+                             f"{full.n_layers}, 0 and {2 * full.n_layers}")
+    toks = result["tokens"]
+    if toks.shape != (args.batch, args.gen_len) or not (
+            (toks >= 0) & (toks < full.vocab_size)).all():
+        raise AssertionError(f"phase {phase}: bad generated tokens")
+    max_len = args.prompt_len + args.gen_len
+    cache_bytes = (full.n_layers * 2 * args.batch * max_len
+                   * full.n_kv_heads * full.head_dim * 2)     # k, v bf16
+    if result["state_mib"] != cache_bytes / 2**20:
+        raise AssertionError(f"phase {phase}: KV cache {result['state_mib']}"
+                             f" MiB, want {cache_bytes / 2**20}")
+    print(f"phase {phase}: softmax main path "
+          f"prefill_ms={result['prefill_ms']:.3f} "
+          f"decode_ms_per_token={result['decode_ms_per_token']:.4f} "
+          f"tok_s={result['tokens_per_s']:.1f} "
+          f"kv_cache_mib={result['state_mib']:.1f} ({max_len} rows) "
+          f"{name}.launches={launches[name]} (timed prefill "
+          f"{result['prefill_launches']} = {full.n_layers} layers, warm-up "
+          f"prefill {full.n_layers}); decode kernels launched 0 times "
+          f"(plain KV-cache read)")
+
+    # where a decode step's device time goes: the main path's prompt and
+    # cache length, full model, bf16
+    params = lm.cast_params(
+        lm.init_params(torch.Generator(device=dev).manual_seed(0), full),
+        torch.bfloat16)
+    prompt = torch.randint(0, full.vocab_size, (args.batch, args.prompt_len),
+                           device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(3))
+    logits, st = lm.prefill(params, prompt, full)
+    st = lm.pad_decode_state(st, full, max_len)
+    device_ms = profile_decode(params, full, st, torch.argmax(logits, -1),
+                               args.prompt_len)
+    if not torch.isfinite(logits).all() or not all(
+            torch.isfinite(t).all() for group in st.values()
+            for layer in group for t in layer if t is not None):
+        raise AssertionError(f"phase {phase}: non-finite logits or cache")
+    if device_ms is not None:
+        busy = device_ms / result["decode_ms_per_token"]
+        print(f"  device busy {100 * busy:.1f}% of a decode step "
+              f"({device_ms:.3f} ms device time per step over "
+              f"{result['decode_ms_per_token']:.3f} ms per token)")
+    del params, st, logits
+    torch.cuda.empty_cache()
+
+    t = time_flash_attention(args.batch, full.n_heads, args.prompt_len,
+                             full.head_dim, gen, dev)
+    print(f"{name} rows={args.batch * full.n_heads} T=S={args.prompt_len} "
+          f"D={full.head_dim} bf16 causal: {t['ms'] * 1e3:.2f} us/launch "
+          f"(plain version {t['plain_ms'] * 1e3:.2f} us; library call "
+          f"scaled_dot_product_attention(is_causal=True) "
+          f"{t['library_ms'] * 1e3:.2f} us, max|Δ| against the kernel "
+          f"{t['library_max_abs_diff']:.3e}; bound {t['bound_ms'] * 1e3:.2f}"
+          f" us by {t['bound_by']}, {t['flops'] / 1e9:.2f} GFLOP, "
+          f"{t['bytes'] / 1e6:.2f} MB moved; on bf16 tensor cores "
+          f"{t['tensor_core_bound_ms'] * 1e3:.2f} us)")
+    return {"name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                      "flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:61",
+            "launches": launches[name], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1382,6 +1627,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import ops as FA
     from repro_torch.kernels.fused_recurrent import ops
     from repro_torch.kernels.gated_linear_attention import ops as GL
     from repro_torch.kernels.linear_attention import ops as LA
@@ -1406,12 +1652,13 @@ def main() -> int:
           f"count {torch.cuda.device_count()}")
     # one nvcc each, all started together
     build.build([ops.SOURCE, ops.GATED_SOURCE, LU.SOURCE, LA.SOURCE,
-                 GL.SOURCE])
+                 GL.SOURCE, FA.SOURCE])
     ops.load()
     ops.load_gated()
     LU.load()
     LA.load()
     GL.load()
+    FA.load()
     print(f"phase 1: built and loaded the kernels in "
           f"{time.perf_counter() - t0:.1f} s "
           f"(nvcc {build.BUILD_SECONDS})")
@@ -1499,6 +1746,22 @@ def main() -> int:
     print(f"phase 2: gated_linear_attention_fwd (inclusive, exclusive + u), "
           f"_bwd_dq and _bwd_dkv agree with their plain versions (normwise "
           f"{LA_TOL}) and, at the clamp, with gla_scan")
+    # B10: the softmax prefill main path's shape (128 rows, T = S = 512,
+    # bf16), then fp32 at T < S, s_real < S, a ragged T and D = 16, 64, 128,
+    # and the wrapper's padding
+    errs["flash_attention_fwd"] = check_flash_attention(
+        128, 512, 512, 128, torch.bfloat16, gen, dev)
+    check_flash_attention(4, 200, 200, 128, torch.float32, gen, dev)
+    check_flash_attention(3, 128, 256, 64, torch.float32, gen, dev)
+    check_flash_attention(2, 96, 160, 16, torch.float32, gen, dev, t_off=10,
+                          s_real=100)
+    check_flash_attention(3, 77, 300, 128, torch.float32, gen, dev, t_off=5,
+                          s_real=290)
+    check_flash_attention(6, 64, 64, 128, torch.bfloat16, gen, dev)
+    check_flash_wrapper(2, 3, 200, 200, torch.float32, gen, dev)
+    check_flash_wrapper(2, 3, 72, 200, torch.bfloat16, gen, dev)
+    print("phase 2: flash_attention_fwd agrees with its plain version (fp32 "
+          "1e-5; bf16 normwise 8e-3 and 2e-2 elementwise)")
     done(2, t0)
 
     # -- 3. the linear slice, kernel vs plain recurrence, fp32 -------------
@@ -1578,6 +1841,17 @@ def main() -> int:
     t0 = time.perf_counter()
     records.extend(training_main_path("gated_linear", dev, gen, 12))
     done(12, t0)
+
+    # -- 13. the softmax slice, B10 vs its plain version, fp32 -------------
+    t0 = time.perf_counter()
+    softmax_slice(dev, 13)
+    torch.cuda.empty_cache()
+    done(13, t0)
+
+    # -- 14. the softmax generate main path ---------------------------------
+    t0 = time.perf_counter()
+    records.append(softmax_generate_main_path(dev, gen, 14))
+    done(14, t0)
 
     for r in records:
         r["max_abs_err"] = errs[r["name"]]

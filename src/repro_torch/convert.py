@@ -45,7 +45,8 @@ def params_from_jax(np_tree: Any, cfg: ModelConfig, *,
     ``stack`` (per pattern position, leaves with a leading repeat axis),
     ``tail``, ``final_norm`` and ``lm_head`` unless embeddings are tied.
     Each attention entry carries every leaf it has: wq, wk, wv, wo, the
-    qk-norm scales and, under ``gated_linear``, the decay projection
+    qk-norm scales (all softmax has) and, under ``gated_linear``, the
+    decay projection
     ``w_gate`` / ``b_gate`` and the groupnorm ``gn_scale`` / ``gn_bias``.
     The JAX ``shared`` entry must be empty: the port has no
     ``shared_attn`` blocks."""
@@ -71,16 +72,17 @@ def opt_state_from_jax(np_state: Any, cfg: ModelConfig, *,
 
 
 def _attn_state(st, device) -> AttnState:
-    return AttnState(s=_tensor(st.s, device),
-                     z=None if st.z is None else _tensor(st.z, device))
+    return AttnState(*(None if x is None else _tensor(x, device)
+                       for x in st))
 
 
 def state_from_jax(np_state: Any, *,
                    device: Optional[torch.device] = None) -> dict:
     """Convert a JAX decode state {"stack": (AttnState, ...), "tail":
-    (...)} of the linear family (k_cache/v_cache None; s, z as numpy; z
-    is None for ``gated_linear`` and for ``linear`` without the
-    normaliser)."""
+    (...)} with its leaves as numpy, field for field: softmax KV caches
+    (k_cache, v_cache; s and z None), or the linear family's s and z
+    (k_cache and v_cache None; z None for ``gated_linear`` and for
+    ``linear`` without the normaliser). bf16 caches stay bf16."""
     return {part: tuple(_attn_state(st, device) for st in np_state[part])
             for part in ("stack", "tail")}
 

@@ -2,12 +2,16 @@
 ``generate`` and ``lookup``).
 
 ``--mode generate``: one static batch of requests. Prefill the prompts
-once, then decode autoregressively, O(k²) per token (no KV cache; the
-decode state has the same size at any context length). ``--backend``
-picks the mechanism: ``linear`` (paper §3; decode kernel
-``decode_linear``) or ``gated_linear`` (paper §4, data-dependent decay
-with a per-head groupnorm; decode kernel ``decode_gated``). Each decode
-step runs the backend's fused recurrent CUDA kernel once per layer.
+once, then decode autoregressively. ``--backend`` picks the mechanism:
+``linear`` (paper §3; decode kernel ``decode_linear``) or
+``gated_linear`` (paper §4, data-dependent decay with a per-head
+groupnorm; decode kernel ``decode_gated``) decode at O(k²) per token
+with no KV cache (the decode state has the same size at any context
+length), each decode step running the backend's fused recurrent CUDA
+kernel once per layer; ``softmax`` (paper §2, the baseline) prefills
+through the causal flash-attention CUDA kernel (B10) once per layer and
+decodes against a KV cache of prompt + generated length, read in plain
+PyTorch at O(pos) per token.
 
 ``--mode lookup``: memory serving. Encode ``--n-docs`` documents once
 into fixed-size k×k states resident on the device, then answer two
@@ -19,7 +23,11 @@ passes of ``--n-queries`` single-query requests in waves of
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \\
       --backend gated_linear --batch 8 --prompt-len 512 --gen-len 64
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \\
+      --backend softmax --batch 8 --prompt-len 512 --gen-len 64
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \\
       --smoke --device cpu --prompt-len 16 --gen-len 8 --batch 2
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \\
+      --smoke --device cpu --backend softmax --prompt-len 16 --gen-len 8
   PYTHONPATH=src python -m repro_torch.launch.serve --mode lookup \\
       --n-docs 8192 --doc-len 750 --n-queries 131072 --wave-size 256
   PYTHONPATH=src python -m repro_torch.launch.serve --mode lookup \\
@@ -40,6 +48,7 @@ import torch
 
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.device import resolve_device
+from repro_torch.kernels.flash_attention import ops as FA
 from repro_torch.kernels.fused_recurrent import ops as FR
 from repro_torch.kernels.lookup import ops as LU
 from repro_torch.models import lm
@@ -53,14 +62,19 @@ def _sync(device: torch.device) -> None:
 def generate(args) -> Dict[str, Any]:
     """Prefill + generation on one static batch. Prints the lines of the
     JAX package's ``generate`` and returns the measured numbers, the
-    generated tokens and the backend's decode kernel's launches in the
-    timed generation (``decode_launches``)."""
+    generated tokens, and the launches of the backend's kernels:
+    ``prefill_launches`` of B10 in the timed prefill (softmax; 0 for the
+    linear family, whose prefill is plain PyTorch) and
+    ``decode_launches`` of B1 or B7 in the timed generation (0 under
+    softmax, whose cache read is plain PyTorch)."""
     device = resolve_device(args.device)
     cfg = (get_smoke_config(args.arch) if args.smoke
            else get_config(args.arch))
     cfg = cfg.with_backend(args.backend)
-    kernel = (FR.decode_gated if cfg.attention_backend == "gated_linear"
-              else FR.decode_linear)
+    backend = cfg.attention_backend
+    prefill_kernel = FA.fwd if backend == "softmax" else None
+    decode_kernel = {"linear": FR.decode_linear,
+                     "gated_linear": FR.decode_gated}.get(backend)
     # independent generator streams: params / prompt / sampling
     gens = [torch.Generator(device=device).manual_seed(args.seed * 4 + i)
             for i in range(3)]
@@ -72,28 +86,34 @@ def generate(args) -> Dict[str, Any]:
     prompt = torch.randint(0, cfg.vocab_size, (b, t_p), generator=g_prompt,
                            device=device)
 
-    # warm-up, untimed: one prefill and two decode steps, so the kernel
-    # is built and loaded and the library has picked its matmul kernels
+    def count(kernel) -> int:
+        return 0 if kernel is None else kernel.launches
+
+    # warm-up, untimed: one prefill and two decode steps, so the kernels
+    # are built and loaded and the library has picked its matmul kernels
     # before the clock starts
     logits, states = lm.prefill(params, prompt, cfg)
+    states = lm.pad_decode_state(states, cfg, max_len=t_p + 2)
     lm.generate(params, states, torch.argmax(logits, -1), t_p, 2, cfg)
     _sync(device)
 
+    prefill0 = count(prefill_kernel)
     t0 = time.perf_counter()
     logits, states = lm.prefill(params, prompt, cfg)
     states = lm.pad_decode_state(states, cfg, max_len=t_p + t_g)
     _sync(device)
     t_prefill = time.perf_counter() - t0
+    prefill_launches = count(prefill_kernel) - prefill0
 
     tok0 = lm.sample_token(logits, args.temperature, g_sample)
-    launches0 = kernel.launches
+    decode0 = count(decode_kernel)
     t0 = time.perf_counter()
     toks, states = lm.generate(params, states, tok0, t_p, t_g - 1, cfg,
                                temperature=args.temperature,
                                generator=g_sample)
     _sync(device)
     t_decode = time.perf_counter() - t0
-    launches = kernel.launches - launches0
+    decode_launches = count(decode_kernel) - decode0
     out = torch.cat([tok0[:, None], toks], dim=1)
     if out.shape != (b, t_g):
         raise RuntimeError(f"generated {tuple(out.shape)}, want {(b, t_g)}")
@@ -102,9 +122,10 @@ def generate(args) -> Dict[str, Any]:
     state_mib = lm.state_bytes(states) / 2**20
     where = (torch.cuda.get_device_name(device) if device.type == "cuda"
              else "cpu")
-    print(f"arch={cfg.name} backend={cfg.attention_backend} "
-          f"decode_kernel={cfg.decode_kernel} ({kernel.__name__}) "
-          f"device={where}")
+    kernels = (f"({decode_kernel.__name__})" if decode_kernel else
+               "(plain KV-cache read; prefill kernel flash_attention_fwd)")
+    print(f"arch={cfg.name} backend={backend} "
+          f"decode_kernel={cfg.decode_kernel} {kernels} device={where}")
     print(f"prefill {t_p} toks x{b}: {t_prefill*1e3:.0f} ms")
     print(f"decode  {t_g} toks x{b}: {t_decode/n_dec*1e3:.2f} ms/tok "
           f"({b*n_dec/t_decode:.0f} tok/s)")
@@ -114,7 +135,8 @@ def generate(args) -> Dict[str, Any]:
             "decode_ms_per_token": t_decode / n_dec * 1e3,
             "tokens_per_s": b * n_dec / t_decode,
             "state_mib": state_mib, "tokens": out,
-            "decode_launches": launches}
+            "prefill_launches": prefill_launches,
+            "decode_launches": decode_launches}
 
 
 def lookup(args) -> Dict[str, Any]:
@@ -219,9 +241,10 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--arch", default="qwen3-0.6b")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--backend", default="linear",
-                    choices=["linear", "gated_linear"],
-                    help="generate mode: linear (paper §3) or gated_linear"
-                         " (paper §4 decay)")
+                    choices=["linear", "gated_linear", "softmax"],
+                    help="generate mode: linear (paper §3), gated_linear"
+                         " (paper §4 decay) or softmax (the KV-cache "
+                         "baseline)")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=64)
     ap.add_argument("--gen-len", type=int, default=32)

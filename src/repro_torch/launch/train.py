@@ -8,8 +8,10 @@ next step. The flags are the JAX driver's, with ``--device`` on top and
 no ``--mesh`` (one device). It trains ``--backend linear``, whose
 attention core runs the B2 forward and B3 backward kernels on the card,
 and ``--backend gated_linear`` (the paper's §4 decay form), whose core
-runs B8 forward and B9 backward; ``softmax`` raises. Checkpointing is
-not ported, so ``--ckpt-dir`` raises and there is no ``--ckpt-every``.
+runs B8 forward and B9 backward; ``softmax`` raises before any
+parameter is built (the port serves softmax but does not train it).
+Checkpointing is not ported, so ``--ckpt-dir`` raises and there is no
+``--ckpt-every``.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \\
       --backend linear --batch 8 --seq-len 1024 --steps 8

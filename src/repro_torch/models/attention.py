@@ -1,9 +1,11 @@
-"""GQA attention, linear family (port of ``repro/models/attention.py``).
+"""GQA attention (port of ``repro/models/attention.py``), three backends.
 
-Two backends, both in untied (q, k, v) form with a fixed-size (Dk×Dv per
-head) decode state advanced by a fused W-step recurrence — the CUDA
-kernels for CUDA tensors (``kernels/fused_recurrent``):
-
+- ``softmax``: classic attention (paper §2), the baseline. Prefill runs
+  causal flash attention over the flat heads, the B10 kernel for CUDA
+  tensors (``models/xla_attention.py``, ``kernels/flash_attention``);
+  the decode state is the KV cache, (B, S, Hkv, Dh) per layer in
+  ``cfg.dtype``, read in plain PyTorch at O(pos) per token. Forward
+  only: training under softmax raises.
 - ``linear``: the paper's §3 mechanism; chunk-parallel causal linear
   attention for prefill, state (s, z) with the key-sum normaliser z
   under ``linear_normalize``.
@@ -14,13 +16,18 @@ kernels for CUDA tensors (``kernels/fused_recurrent``):
   groupnorm on the outputs. Its state has no z, whatever
   ``linear_normalize`` says.
 
+The linear family's fixed-size (Dk×Dv per head) state advances by a
+fused W-step recurrence, the CUDA kernels for CUDA tensors
+(``kernels/fused_recurrent``).
+
 Heads are laid out as in the JAX package: q projects to (G, Hkv, Dh)
 with G = H / Hkv groups, the flat head index is g·Hkv + kv_head, and
 k / v are broadcast over the G groups in that order, so states carried
 over from JAX line up head for head. Sharding has no counterpart here;
 with null rules head padding is the identity.
 
-The decode functions update the state tensors in place and return them.
+The decode functions update the state tensors in place and return them
+(a softmax step writes its one cache row per sequence).
 """
 
 from __future__ import annotations
@@ -37,19 +44,23 @@ from repro_torch.core.linear_attention import (
 from repro_torch.kernels.fused_recurrent import ops as FR
 from repro_torch.kernels.fused_recurrent import ref as FRref
 from repro_torch.models import layers as L
+from repro_torch.models import xla_attention as XA
 
 Tensor = torch.Tensor
 Params = Dict[str, Tensor]
 
 
-def _require_linear(cfg: ModelConfig) -> None:
-    """The port serves the linear family without the feature gate."""
-    if cfg.attention_backend not in ("linear", "gated_linear") or \
-            cfg.feature_gate:
+def _require_ported(cfg: ModelConfig) -> None:
+    """The port serves softmax and the linear family, the latter without
+    the feature gate (which JAX applies to the linear family only)."""
+    backend = cfg.attention_backend
+    if backend not in ("softmax", "linear", "gated_linear") or (
+            cfg.feature_gate and backend != "softmax"):
         raise NotImplementedError(
-            f"{cfg.name}: the port serves attention_backend 'linear' or "
-            f"'gated_linear' without feature_gate only (got "
-            f"{cfg.attention_backend!r}, feature_gate={cfg.feature_gate})")
+            f"{cfg.name}: the port serves attention_backend 'softmax', "
+            f"'linear' or 'gated_linear', the last two without "
+            f"feature_gate (got {backend!r}, "
+            f"feature_gate={cfg.feature_gate})")
 
 
 # ---------------------------------------------------------------------------
@@ -74,7 +85,7 @@ def feature_map(x: Tensor, kind: str) -> Tensor:
 def attention_params(gen: torch.Generator, cfg: ModelConfig, *,
                      lead: Tuple[int, ...] = (),
                      dtype=torch.float32) -> Params:
-    _require_linear(cfg)
+    _require_ported(cfg)
     d, h, hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     p = {
         "wq": L.dense_init(gen, d, h * dh, lead=lead, dtype=dtype),
@@ -104,18 +115,38 @@ def attention_params(gen: torch.Generator, cfg: ModelConfig, *,
 # ---------------------------------------------------------------------------
 
 class AttnState(NamedTuple):
-    """Linear-family decode state: s (B, H, Dk, Dv) fp32 matrix state and
-    z (B, H, Dk) fp32 key-sum normaliser (linear backend under
-    ``linear_normalize`` only, else None) — the paper's fixed-size
-    representation; O(1) in context."""
-    s: Tensor
-    z: Optional[Tensor]
+    """Tagged decode state, JAX's fields in JAX's order; one family is
+    used, the other fields are None:
+
+    softmax: k_cache, v_cache (B, S, Hkv, Dh) in ``cfg.dtype``, the KV
+             cache, O(S) per sequence;
+    linear:  s (B, H, Dk, Dv) fp32 matrix state and z (B, H, Dk) fp32
+             key-sum normaliser (linear backend under
+             ``linear_normalize`` only, else None) — the paper's
+             fixed-size representation; O(1) in context.
+    """
+    k_cache: Optional[Tensor] = None
+    v_cache: Optional[Tensor] = None
+    s: Optional[Tensor] = None
+    z: Optional[Tensor] = None
 
 
 def init_attn_state(cfg: ModelConfig, batch: int, *,
+                    max_len: Optional[int] = None,
                     lead: Tuple[int, ...] = (), device=None) -> AttnState:
-    _require_linear(cfg)
+    """Zero decode state. ``max_len`` (the KV cache's length) is required
+    under softmax and ignored by the linear family."""
+    _require_ported(cfg)
     h, dh = cfg.n_heads, cfg.head_dim
+    if cfg.attention_backend == "softmax":
+        if max_len is None:
+            raise ValueError(f"{cfg.name}: the softmax KV cache needs "
+                             f"max_len")
+        shape = (*lead, batch, max_len, cfg.n_kv_heads, dh)
+        dtype = getattr(torch, cfg.dtype)    # "bfloat16", "float32", ...
+        return AttnState(
+            k_cache=torch.zeros(shape, dtype=dtype, device=device),
+            v_cache=torch.zeros(shape, dtype=dtype, device=device))
     # the gated state has no normaliser, even under linear_normalize
     z = (torch.zeros((*lead, batch, h, dh), dtype=torch.float32,
                      device=device)
@@ -232,20 +263,38 @@ def attention_apply(
     """Full-sequence attention. x: (B, T, D) → (B, T, D).
 
     ``want_state=True`` (prefill) also returns the decode state after the
-    last position: the final state of the plain chunked forms and, for
-    the linear backend, z = Σ_t k_t, a plain fp32 sum. Without it (training), the linear
+    last position. Under softmax that is the KV cache, k and v as
+    (B, T, Hkv, Dh), and the attention runs ``flash_attention`` over
+    the flat heads (K/V broadcast over the groups, as JAX does): B10 on
+    CUDA tensors. Training under softmax raises NotImplementedError (B10
+    is forward only). For the linear family the state is the final
+    state of the plain chunked forms and, for the linear backend,
+    z = Σ_t k_t, a plain fp32 sum. Without it (training), the linear
     backend runs ``causal_linear_attention``: B2 forward and B3's §3.3
     recompute backward; the gated backend runs ``gated_linear_attention``:
-    B8 forward and B9's recompute backward. Both take the kernels on
+    B8 forward and B9's recompute backward. All take the kernels on
     CUDA tensors and their plain versions on CPU tensors or under
     ``attention_kernel=False``.
     """
-    _require_linear(cfg)
+    _require_ported(cfg)
     b, t, _ = x.shape
     h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q, k, v = _project_qkv(p, x, cfg)
     if cfg.rope:
         q, k = _rope(q, k, torch.arange(t, device=x.device), cfg)
+    if cfg.attention_backend == "softmax":
+        if not want_state:
+            raise NotImplementedError(
+                f"{cfg.name}: softmax training is not ported (B10 is "
+                f"forward only; JAX's backward is _flash_bwd)")
+        g = h // hkv
+        kh = k[:, None].expand(b, g, hkv, t, dh).reshape(b, h, t, dh)
+        vh = v[:, None].expand(b, g, hkv, t, dh).reshape(b, h, t, dh)
+        o_h = XA.flash_attention(q.reshape(b, h, t, dh), kh, vh, None, 0,
+                                 kernel=attention_kernel)
+        state = AttnState(k_cache=k.transpose(1, 2).contiguous(),
+                          v_cache=v.transpose(1, 2).contiguous())
+        return _merge_heads(p, o_h.reshape(b, g, hkv, t, dh), x.dtype), state
     qh, kh, vh = _heads(q, k, v, cfg)
     if cfg.attention_backend == "linear" and want_state:
         o_h, s_f = causal_linear_attention_chunked(
@@ -332,14 +381,26 @@ def attention_decode(
     cfg: ModelConfig,
 ) -> Tuple[Tensor, AttnState]:
     """One decode step. x: (B, D); pos: () shared position or (B,)
-    per-sequence positions. O(k²) per head, independent of pos. The state
-    is updated in place."""
-    _require_linear(cfg)
+    per-sequence positions. The state is updated in place.
+
+    softmax: writes the step's k and v into cache row ``pos`` of each
+    sequence, then attends over rows < pos + 1 (``decode_attention``,
+    plain PyTorch): O(pos) per head. The position stays on the device.
+    Linear family: O(k²) per head, independent of pos."""
+    _require_ported(cfg)
     b, _ = x.shape
     pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
     q, k, v = _project_qkv(p, x[:, None, :], cfg)
     if cfg.rope:
         q, k = _rope(q, k, pos.expand(b), cfg)
+    if cfg.attention_backend == "softmax":
+        rows = torch.arange(b, device=x.device)
+        cols = pos.expand(b).long()
+        state.k_cache[rows, cols] = k[:, :, 0].to(state.k_cache.dtype)
+        state.v_cache[rows, cols] = v[:, :, 0].to(state.v_cache.dtype)
+        o = XA.decode_attention(q[:, :, :, 0], state.k_cache.transpose(1, 2),
+                                state.v_cache.transpose(1, 2), cols + 1)
+        return _merge_heads(p, o[:, :, :, None], x.dtype)[:, 0], state
     qh, kh, vh = _heads(q, k, v, cfg)                  # (B, H, 1, Dh)
     o_w, new_state = _recurrent(p, x[:, None, :], state, qh, kh, vh, cfg)
     o = o_w.reshape(b, cfg.n_heads // cfg.n_kv_heads, cfg.n_kv_heads, 1,
@@ -361,9 +422,14 @@ def attention_decode_window(
     x: (B, W, D); pos0: () position of the first token, or (B,)
     per-sequence window starts. ``lens``: (B,) per-row valid window
     lengths — row b advances only its first lens[b] tokens (lens=0 rows
-    keep their state bit for bit). The state is updated in place.
+    keep their state bit for bit). The state is updated in place. Linear
+    family only: JAX scans single-token decode for softmax there, which
+    is not ported.
     """
-    _require_linear(cfg)
+    _require_ported(cfg)
+    if cfg.attention_backend == "softmax":
+        raise NotImplementedError(
+            f"{cfg.name}: decode_window under softmax is not ported")
     b, w, _ = x.shape
     q, k, v = _project_qkv(p, x, cfg)
     if cfg.rope:

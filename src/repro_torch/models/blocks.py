@@ -1,6 +1,6 @@
 """Block dispatch, ``"attn"`` kind (port of ``repro/models/blocks.py``):
-pre-norm self-attention (the linear family: ``linear`` or
-``gated_linear``) + MLP.
+pre-norm self-attention (``softmax``, ``linear`` or ``gated_linear``) +
+MLP.
 
 ``shared_attn``, ``cross``, ``mamba`` and ``rwkv`` blocks and MoE MLPs are
 not ported yet and raise.
@@ -42,9 +42,11 @@ def block_params(kind: str, gen: torch.Generator, cfg: ModelConfig, *,
 
 
 def block_state_init(kind: str, cfg: ModelConfig, batch: int, *,
+                     max_len: Optional[int] = None,
                      lead: Tuple[int, ...] = (), device=None) -> A.AttnState:
     _require_attn(kind, cfg)
-    return A.init_attn_state(cfg, batch, lead=lead, device=device)
+    return A.init_attn_state(cfg, batch, max_len=max_len, lead=lead,
+                             device=device)
 
 
 def _mlp_residual(p: Params, x: Tensor, cfg: ModelConfig) -> Tensor:

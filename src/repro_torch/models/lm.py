@@ -6,8 +6,8 @@ Parameters and states keep the JAX package's tree: ``embed`` (V, D),
 ``stack`` — a tuple with one entry per ``layer_pattern`` position whose
 leaves carry a leading repeat axis R — ``tail``, ``final_norm`` and
 ``lm_head`` unless embeddings are tied. Layer r of a stacked group is
-the view ``leaf[r]``, so the decode kernels update a layer's state
-inside the stacked tensor in place.
+the view ``leaf[r]``, so the decode kernels and the softmax cache
+writes update a layer's state inside the stacked tensor in place.
 
 Unlike the JAX functions, which are pure, every decode function here
 updates the decode state it is given in place and returns it: the state
@@ -27,6 +27,7 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
@@ -50,15 +51,13 @@ def _at(tree: Any, r: int) -> Any:
     if isinstance(tree, dict):
         return {k: _at(v, r) for k, v in tree.items()}
     if isinstance(tree, AttnState):
-        return AttnState(s=tree.s[r], z=None if tree.z is None else tree.z[r])
+        return AttnState(*(None if x is None else x[r] for x in tree))
     return tree[r]
 
 
 def _stack_states(states) -> AttnState:
-    return AttnState(
-        s=torch.stack([st.s for st in states]),
-        z=(None if states[0].z is None
-           else torch.stack([st.z for st in states])))
+    return AttnState(*(None if xs[0] is None else torch.stack(xs)
+                       for xs in zip(*states)))
 
 
 # ---------------------------------------------------------------------------
@@ -100,22 +99,38 @@ def cast_params(params: Params, dtype: torch.dtype) -> Params:
     return cast(params)
 
 
-def init_decode_state(cfg: ModelConfig, batch: int, *, device=None) -> State:
-    """Zero decode state: fixed-size (Dk×Dv per head) matrices, O(1) in
-    context length."""
+def init_decode_state(cfg: ModelConfig, batch: int, *,
+                      max_len: Optional[int] = None, device=None) -> State:
+    """Zero decode state for the whole stack. softmax: per-layer KV
+    caches of ``max_len`` rows (required), O(max_len) memory. Linear
+    family: fixed-size (Dk×Dv per head) matrices, O(1) in context length
+    (``max_len`` ignored)."""
     pattern, reps, tail = cfg.pattern_and_repeats
     return {
-        "stack": tuple(B.block_state_init(k, cfg, batch, lead=(reps,),
-                                          device=device) for k in pattern),
-        "tail": tuple(B.block_state_init(k, cfg, batch, device=device)
-                      for k in tail),
+        "stack": tuple(B.block_state_init(k, cfg, batch, max_len=max_len,
+                                          lead=(reps,), device=device)
+                       for k in pattern),
+        "tail": tuple(B.block_state_init(k, cfg, batch, max_len=max_len,
+                                         device=device) for k in tail),
     }
 
 
 def pad_decode_state(states: State, cfg: ModelConfig, max_len: int) -> State:
-    """The identity: linear-family states are fixed-size, there is no KV
-    cache to grow to ``max_len``."""
-    return states
+    """Grow prefill KV caches to ``max_len`` rows with zeros, one new
+    allocation per cache (softmax only; the linear family's states are
+    fixed-size and come back as they are). The rows are the S axis of
+    (…, S, Hkv, Dh); stacked groups have a leading repeat axis."""
+    def fix(st: AttnState) -> AttnState:
+        if st.k_cache is None:
+            return st
+        pad = max_len - st.k_cache.shape[st.k_cache.ndim - 3]
+        if pad <= 0:
+            return st
+        grow = (0, 0, 0, 0, 0, pad)              # (Dh, Hkv, S) from the end
+        return st._replace(k_cache=F.pad(st.k_cache, grow),
+                           v_cache=F.pad(st.v_cache, grow))
+    return {part: tuple(fix(st) for st in group)
+            for part, group in states.items()}
 
 
 def param_count(params: Params) -> int:
@@ -226,13 +241,17 @@ def lm_loss(params: Params, batch: Dict[str, Tensor], cfg: ModelConfig, *,
     return xent + aux_w * aux, {"xent": xent, "aux": aux}
 
 
-def prefill(params: Params, tokens: Tensor, cfg: ModelConfig
-            ) -> Tuple[Tensor, State]:
-    """Encode a prompt into the fixed-size per-layer states. Returns
-    (last-position logits (B, V), decode states); the head runs on the
-    last position only."""
+def prefill(params: Params, tokens: Tensor, cfg: ModelConfig, *,
+            attention_kernel: bool = True) -> Tuple[Tensor, State]:
+    """Encode a prompt into the per-layer decode states: the fixed-size
+    states of the linear family, or the softmax KV caches of the prompt's
+    length (``pad_decode_state`` grows them). Returns (last-position
+    logits (B, V), decode states); the head runs on the last position
+    only. ``attention_kernel=False`` runs softmax prefill through B10's
+    plain version on CUDA tensors (the reference route)."""
     params = cast_params(params, dtype_of(cfg.dtype))
-    x, states = _trunk(params, tokens, cfg, want_state=True)
+    x, states = _trunk(params, tokens, cfg, want_state=True,
+                       attention_kernel=attention_kernel)
     return _head(params, x[:, -1], cfg), states
 
 
@@ -259,7 +278,8 @@ def decode_step(params: Params, state: State, token: Tensor, pos,
                 cfg: ModelConfig) -> Tuple[Tensor, State]:
     """One autoregressive step. token: (B,) int; pos: () shared position
     or (B,) per-sequence positions. Returns (logits (B, V), state) with
-    the state updated in place. O(k²) per layer, independent of pos."""
+    the state updated in place. O(k²) per layer for the linear family,
+    independent of pos; O(pos) for the softmax KV cache."""
     params = cast_params(params, dtype_of(cfg.dtype))
     x = params["embed"][token].to(dtype_of(cfg.dtype))
     x = _decode_blocks(params, state, x, pos, cfg, B.block_decode)
@@ -285,8 +305,10 @@ def generate(params: Params, state: State, tok0: Tensor, pos0: int,
     """``n_steps`` autoregressive decode steps from token ``tok0`` (B,) at
     position ``pos0``. Returns (tokens (B, n_steps), state) where
     tokens[:, i] is the token sampled after consuming the i-th input; the
-    state is updated in place. Each step launches the decode kernel once
-    per layer."""
+    state is updated in place. Under the linear family each step launches
+    the decode kernel once per layer; under softmax each step writes one
+    KV-cache row per layer, which must have room for pos0 + n_steps rows
+    (``pad_decode_state``)."""
     if temperature and temperature > 0.0 and generator is None:
         raise ValueError("temperature sampling needs a torch.Generator")
     params = cast_params(params, dtype_of(cfg.dtype))   # once, not per step

@@ -5,8 +5,9 @@ sharding trees. The train step differentiates ``lm.lm_loss`` through the
 gradient accumulator and updates the parameters in place. Training
 covers ``attention_backend="linear"``, whose core runs B2 forward and B3
 backward on the card, and ``"gated_linear"``, whose core runs B8 forward
-and B9 backward. The softmax path is not ported, so that backend raises
-rather than train through plain code.
+and B9 backward. Softmax training is not ported (the port's softmax
+path serves only: B10 is forward only), so that backend raises rather
+than train through plain code.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ def _require_trainable(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: the port trains attention_backend 'linear' or "
             f"'gated_linear' only (got {cfg.attention_backend!r}); softmax "
-            f"is not ported (ROADMAP queue A)")
+            f"training (the backward of B10) is not ported")
 
 
 def make_train_step(

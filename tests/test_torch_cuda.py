@@ -14,6 +14,8 @@ import torch
 
 from repro_torch.configs import get_smoke_config
 from repro_torch.core.gated import gla_scan
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.fused_recurrent import ops, ref
 from repro_torch.kernels.gated_linear_attention import ops as gla_ops
 from repro_torch.kernels.gated_linear_attention import ref as gla_ref
@@ -685,3 +687,113 @@ def test_gated_training_slice_through_kernels_matches_plain_route(dev):
                                atol=0.0)
     for a, b in zip(out[True][1], out[False][1]):
         _assert_normwise(a, b, 1e-4, "gradient leaf")
+
+
+# -- the causal flash-attention forward B10 ----------------------------------
+# fp32: the plain version's one softmax against the kernel's online one
+# over 64-key tiles, the same fp32 sums in another order (1e-5); bf16: the
+# same fp32 values rounded once to bf16 (normwise 8e-3, two ulps of the
+# largest element, and JAX's kernel tests' 2e-2 elementwise).
+
+def _fa_rows(dev, bh, t, s, d, dtype, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn((bh, n, d), generator=g, device=dev).to(dtype)
+            for n in (t, s, s)]
+
+
+def _fa_close(o, o_r, dtype):
+    if dtype == torch.float32:
+        torch.testing.assert_close(o, o_r, rtol=1e-5, atol=1e-5)
+    else:
+        _assert_normwise(o, o_r, 8e-3, "o")
+        torch.testing.assert_close(o.float(), o_r.float(), rtol=2e-2,
+                                   atol=2e-2)
+
+
+# (rows, T, S, D, dtype, t_off, s_real): the prefill main path's shape
+# (128 rows = batch 8 x 16 heads, T = S = 512, bf16), then fp32 with
+# T < S, s_real < S, ragged T and every D the kernel takes
+@pytest.mark.parametrize("bh,t,s,d,dtype,t_off,s_real", [
+    (128, 512, 512, 128, torch.bfloat16, None, None),
+    (4, 200, 200, 128, torch.float32, None, None),
+    (3, 128, 256, 64, torch.float32, None, None),
+    (2, 96, 160, 16, torch.float32, 10, 100),
+    (2, 256, 256, 64, torch.float32, None, 200),
+    (3, 77, 300, 128, torch.float32, 5, 290),
+])
+def test_flash_attention_kernel_matches_plain_version(dev, bh, t, s, d,
+                                                      dtype, t_off, s_real):
+    q, k, v = _fa_rows(dev, bh, t, s, d, dtype)
+    before = fa_ops.fwd.launches
+    o = fa_ops.fwd(q, k, v, t_off=t_off, s_real=s_real)
+    torch.cuda.synchronize()
+    assert fa_ops.fwd.launches == before + 1
+    assert o.dtype == dtype and o.shape == (bh, t, d)
+    o_r = fa_ops.fwd(q, k, v, t_off=t_off, s_real=s_real, kernel=False)
+    assert fa_ops.fwd.launches == before + 1
+    _fa_close(o, o_r, dtype)
+
+
+@pytest.mark.parametrize("t,s,dtype", [(200, 200, torch.float32),
+                                       (72, 200, torch.float32),
+                                       (200, 200, torch.bfloat16)])
+def test_flash_attention_wrapper_pads_like_jax(dev, t, s, dtype):
+    """(B, H, T, D) with ragged T and S: the wrapper pads to the tile and
+    the kernel's output matches the plain route of the same wrapper and
+    JAX's oracle (ported)."""
+    q, k, v = (x.reshape(2, 3, -1, 128)
+               for x in _fa_rows(dev, 6, t, s, 128, dtype, seed=1))
+    o = fa_ops.flash_attention(q, k, v)
+    assert o.shape == (2, 3, t, 128)
+    _fa_close(o, fa_ops.flash_attention(q, k, v, kernel=False), dtype)
+    if dtype == torch.float32:
+        _fa_close(o, fa_ref.flash_attention_ref(
+            q.reshape(6, t, 128), k.reshape(6, s, 128),
+            v.reshape(6, s, 128)).reshape(2, 3, t, 128), dtype)
+
+
+def test_flash_attention_rejects_unsupported_inputs(dev):
+    q, k, v = _fa_rows(dev, 2, 64, 64, 32, torch.float32)
+    with pytest.raises(ValueError):                       # D = 32
+        fa_ops.fwd(q, k, v)
+    q, k, v = _fa_rows(dev, 2, 64, 64, 16, torch.float32)
+    with pytest.raises(ValueError):                       # t_off < 0
+        fa_ops.fwd(q, k, v, t_off=-1)
+    with pytest.raises(ValueError):                       # s_real > S
+        fa_ops.fwd(q, k, v, s_real=65)
+    with pytest.raises(ValueError):                       # mixed types
+        fa_ops.fwd(q, k, v.bfloat16())
+    with pytest.raises(ValueError):                       # strided
+        fa_ops.fwd(q, k.transpose(1, 2).contiguous().transpose(1, 2), v)
+    with pytest.raises(TypeError):
+        fa_ops.fwd(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError):                       # CPU and CUDA
+        fa_ops.fwd(q, k.cpu(), v)
+
+
+def test_softmax_slice_through_kernel_matches_plain_route(dev):
+    """Two layers at qwen3-0.6b's full widths, fp32: prefill through B10
+    (once per layer) and greedy decode over the KV cache against prefill
+    through B10's plain version (``attention_kernel=False``)."""
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(
+        get_config("qwen3-0.6b").with_backend("softmax"), n_layers=2,
+        dtype="float32")
+    params = lm.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    prompt = torch.randint(0, cfg.vocab_size, (2, 40), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(1))
+    out = {}
+    for kernel in (True, False):
+        before = fa_ops.fwd.launches
+        logits, st = lm.prefill(params, prompt, cfg, attention_kernel=kernel)
+        assert fa_ops.fwd.launches - before == (2 if kernel else 0)
+        st = lm.pad_decode_state(st, cfg, 48)
+        toks, st = lm.generate(params, st, torch.argmax(logits, -1), 40, 8,
+                               cfg)
+        out[kernel] = (logits, toks, st["stack"][0].k_cache,
+                       st["stack"][0].v_cache)
+    assert torch.equal(out[True][1], out[False][1])
+    torch.testing.assert_close(out[True][0], out[False][0], rtol=1e-4,
+                               atol=1e-4)
+    for a, b in zip(out[True][2:], out[False][2:]):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)

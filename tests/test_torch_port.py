@@ -52,7 +52,10 @@ def test_port_imports_no_jax_and_nothing_of_repro():
                    "optim/schedule.py", "optim/accumulate.py",
                    "data/synthetic.py", "runtime/steps.py",
                    "runtime/straggler.py", "runtime/train_loop.py",
-                   "launch/train.py", "tree.py"):
+                   "launch/train.py", "tree.py",
+                   "kernels/flash_attention/ops.py",
+                   "kernels/flash_attention/ref.py",
+                   "models/xla_attention.py"):
         assert port / module in files, module
     bad = [(str(f.relative_to(ROOT)), m) for f in files
            for m in _imported_roots(f) if m in FORBIDDEN]
@@ -69,7 +72,9 @@ def test_importing_the_serving_entry_point_loads_no_jax():
     code = ("import sys, repro_torch.launch.serve, repro_torch.serving, "
             "repro_torch.core.state, repro_torch.qa.gru, "
             "repro_torch.kernels.lookup.ops, repro_torch.convert, "
-            "repro_torch.configs.paper_qa, repro_torch.core.gated; "
+            "repro_torch.configs.paper_qa, repro_torch.core.gated, "
+            "repro_torch.kernels.flash_attention.ops, "
+            "repro_torch.models.xla_attention; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); assert not bad")
     subprocess.run([sys.executable, "-c", code], env=_env(), check=True,
