@@ -8,7 +8,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 1. Device: the card's name and power limit, and the build of every CUDA
    kernel of the port from the sources in this checkout.
 2. Each kernel against its plain PyTorch version on the card, at the
-   main path's shapes and at the smoke width (B10 also at D = 64).
+   main path's shapes and at the smoke width (B10 at each D it takes,
+   with K/V of fewer heads than q, and against JAX's oracle).
 3. The serving slice on the card: a 2-layer model at qwen3-0.6b's full
    widths in fp32, prefill + 16 greedy steps through the kernel against
    the same run through ``decode_kernel="reference"``.
@@ -59,9 +60,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 14. The softmax generate main path: ``serve --backend softmax`` on the
    full 28-layer qwen3-0.6b in bf16, batch 8, prompt 512, 64 generated
    tokens; B10's launch count over that run (once per layer and
-   prefill), the KV cache's size, a profile of a few decode steps, and
-   B10 timed beside its bounds, its plain version and
-   ``scaled_dot_product_attention``.
+   prefill), the KV cache's size, a profile of a few decode steps and of
+   one prefill, and B10 timed beside its bounds, its plain version and
+   ``scaled_dot_product_attention`` at the prefill's shape (K/V of 8 kv
+   heads) and with K/V of 16 heads.
 
 Each main path (phases 4, 6, 8, 10, 12 and 14) is driven with every
 kernel's launch count set to 0 just before it and read just after.
@@ -82,9 +84,11 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, fp32 non-tensor flop/s
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, fp32 non-tensor flop/s,
+# bf16 dense tensor-core flop/s
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_TC_FLOPS = 989e12
 # the lookup kernels' outputs against their plain versions: fp32 sums in
 # another order (the JAX kernel tests' tolerance)
 LOOKUP_TOL = 1e-4
@@ -95,6 +99,16 @@ def nvidia_smi() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip()
+
+
+def hgmma_count(build, source) -> int:
+    """HGMMA instructions in the SASS of ``source``'s built library."""
+    cuobjdump = Path(build._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "--dump-sass",
+                           str(build._lib_path(source))],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    return sass.count("HGMMA")
 
 
 def bf16_ulps(x, ref):
@@ -226,11 +240,13 @@ def check_decode_gated(n, d, w, dtype, varlen, decay, gen, dev) -> float:
     return err
 
 
-def bound(n_bytes: float, flops: float) -> dict:
+def bound(n_bytes: float, flops: float, peak: float = PEAK_FP32_FLOPS
+          ) -> dict:
     """The least time the card could take: bytes over the memory rate or
-    fp32 operations over the fp32 rate, whichever is larger."""
+    the operations over ``peak`` (the fp32 rate outside the tensor cores
+    unless given), whichever is larger."""
     bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
-    flops_ms = flops / PEAK_FP32_FLOPS * 1e3
+    flops_ms = flops / peak * 1e3
     return dict(bound_ms=max(bytes_ms, flops_ms),
                 bound_by="bytes" if bytes_ms >= flops_ms else "operations",
                 bytes=n_bytes, flops=flops)
@@ -801,7 +817,9 @@ def time_linear_attention(bh, t, d, chunk, gen, dev) -> dict:
     scan form's: each rank-one update of the D x D state and each product
     with it costs 2D² per token; B2 and dq do two per token (S += k vᵀ,
     then q S), dk/dv three (R += q doᵀ, then v R and k R). The chunked
-    forms the kernels and the Pallas functions run do more."""
+    forms the kernels and the Pallas functions run do more. The inputs are
+    bf16, so ``bound_ms`` takes the operations at the bf16 tensor-core
+    rate; ``fp32_bound_ms`` at the fp32 rate the kernels run at."""
     import torch
     from repro_torch.kernels.linear_attention import ops as LA, ref as LR
     q, k, v, do = la_rows(bh, t, d, torch.bfloat16, gen, dev)
@@ -824,8 +842,10 @@ def time_linear_attention(bh, t, d, chunk, gen, dev) -> dict:
              6 * x_bytes, 3)):
         out[name] = dict(ms=graph_ms(kern, 4, replays=5),
                          plain_ms=graph_ms(plain, 2, replays=3),
-                         library_ms=None,
-                         **bound(n_bytes, n_products * per_product))
+                         library_ms=None, fp32_bound_ms=bound(
+                             n_bytes, n_products * per_product)["bound_ms"],
+                         **bound(n_bytes, n_products * per_product,
+                                 PEAK_BF16_TC_FLOPS))
     return out
 
 
@@ -954,9 +974,10 @@ def time_gated_linear_attention(bh, t, d, chunk, gen, dev) -> dict:
     q, k, v, do; fp32 g at the model's decay), with their plain versions,
     from CUDA-graph replays. Bounds as ``time_linear_attention``'s: the
     scan form's 2·T·D² per row for each state update or product (two for
-    B8 and dq, three for dk/dv) plus one exp per decay element, over
-    67 TFLOP/s, or each input read once and each output written once
-    (the fp32 g, dq and dk at four bytes) over 3.35 TB/s."""
+    B8 and dq, three for dk/dv) plus one exp per decay element, over the
+    bf16 tensor-core rate (``fp32_bound_ms``: over 67 TFLOP/s), or each
+    input read once and each output written once (the fp32 g, dq and dk
+    at four bytes) over 3.35 TB/s."""
     import torch
     from repro_torch.kernels.gated_linear_attention import ops as GL
     from repro_torch.kernels.gated_linear_attention import ref as GR
@@ -979,94 +1000,186 @@ def time_gated_linear_attention(bh, t, d, chunk, gen, dev) -> dict:
              lambda i: GL.bwd_dkv(q, k, v, g, do, chunk=chunk),
              lambda i: GR.chunked_bwd_dkv_ref(q, k, v, g, do, chunk=chunk),
              5 * x_bytes + 2 * f_bytes, 3)):
+        ops = n_products * per_product + n_exp
         out[name] = dict(ms=graph_ms(kern, 4, replays=5),
                          plain_ms=graph_ms(plain, 2, replays=3),
                          library_ms=None,
-                         **bound(n_bytes, n_products * per_product + n_exp))
+                         fp32_bound_ms=bound(n_bytes, ops)["bound_ms"],
+                         **bound(n_bytes, ops, PEAK_BF16_TC_FLOPS))
     return out
 
 
 def check_flash_attention(bh, t, s, d, dtype, gen, dev, t_off=None,
-                          s_real=None) -> float:
+                          s_real=None, kv_heads=None, heads=None) -> float:
     """B10 on rows against its plain version: fp32 within 1e-5 (the same
     fp32 sums in another order), bf16 within normwise 8e-3 and JAX's
-    kernel tests' 2e-2 elementwise (one bf16 rounding of the output);
-    returns the largest |Δo|."""
+    kernel tests' 2e-2 elementwise (P and the output rounded to bf16);
+    with ``kv_heads``, k and v have bh / heads · kv_heads rows, read by kv
+    head. In the oracle's domain (the queries the last T keys) also
+    against ``flash_attention_ref`` on K/V broadcast to the q rows, at the
+    same tolerance, the oracle evaluated in fp32 on the same values: in
+    bf16 it rounds the scores to bf16 before the softmax, which moves a
+    logit by up to 2^-9 of the raw score, as far from the exact function
+    as the tolerance; its own distance from the plain version is printed.
+    Returns the largest |Δo| against the plain version."""
     import torch
     from repro_torch.kernels.flash_attention import ops as FA
-    q, k, v = (torch.randn((bh, n, d), generator=gen, device=dev).to(dtype)
-               for n in (t, s, s))
-    o = FA.fwd(q, k, v, t_off=t_off, s_real=s_real)
+    from repro_torch.kernels.flash_attention import ref as FR
+    kv_rows = bh if kv_heads is None else bh // heads * kv_heads
+    q, k, v = (torch.randn((n_r, n, d), generator=gen, device=dev).to(dtype)
+               for n_r, n in ((bh, t), (kv_rows, s), (kv_rows, s)))
+    o = FA.fwd(q, k, v, t_off=t_off, s_real=s_real, kv_heads=kv_heads)
     torch.cuda.synchronize()
-    o_r = FA.fwd(q, k, v, t_off=t_off, s_real=s_real, kernel=False)
+    o_r = FA.fwd(q, k, v, t_off=t_off, s_real=s_real, kv_heads=kv_heads,
+                 kernel=False)
     name = str(dtype).split(".")[-1]
-    tag = (f"rows={bh} T={t} S={s} D={d} {name} t_off="
+    tag = (f"rows={bh} kv_rows={kv_rows} T={t} S={s} D={d} {name} t_off="
            f"{s - t if t_off is None else t_off} s_real="
            f"{s if s_real is None else s_real}")
-    if dtype == torch.float32:
-        torch.testing.assert_close(o, o_r, rtol=1e-5, atol=1e-5, msg=tag)
-    else:
-        normwise(o, o_r, LA_TOL[name], f"flash_attention {tag}")
-        torch.testing.assert_close(o.float(), o_r.float(), rtol=2e-2,
-                                   atol=2e-2, msg=tag)
-    err = (o.float() - o_r.float()).abs().max().item()
-    print(f"  flash_attention_fwd {tag}: max|Δo|={err:.3e}")
-    return err
+    wants = [("plain version", o_r)]
+    tag_bf16 = ""
+    if t_off is None and s_real is None:
+        hkv = kv_heads or 1
+        kb, vb = (x.reshape(-1, 1, hkv, s, d)
+                  .expand(-1, bh // kv_rows, -1, -1, -1).reshape(bh, s, d)
+                  for x in (k, v))
+        wants.append(("oracle", FR.flash_attention_ref(
+            q.float(), kb.float(), vb.float())))
+        if dtype != torch.float32:
+            in_bf16 = FR.flash_attention_ref(q, kb, vb)
+            tag_bf16 = (f", the oracle evaluated in bf16 "
+                        f"{(in_bf16.float() - o_r.float()).abs().max():.3e}"
+                        f" from the plain version")
+    errs = []
+    for what, want in wants:
+        if dtype == torch.float32:
+            torch.testing.assert_close(o, want, rtol=1e-5, atol=1e-5,
+                                       msg=f"{tag} against the {what}")
+        else:
+            normwise(o, want, LA_TOL[name],
+                     f"flash_attention {tag} against the {what}")
+            torch.testing.assert_close(o.float(), want.float(), rtol=2e-2,
+                                       atol=2e-2,
+                                       msg=f"{tag} against the {what}")
+        errs.append(f"{(o.float() - want.float()).abs().max().item():.3e} "
+                    f"against the {what}")
+    print(f"  flash_attention_fwd {tag}: max|Δo| " + ", ".join(errs)
+          + tag_bf16)
+    return (o.float() - o_r.float()).abs().max().item()
 
 
-def check_flash_wrapper(b, h, t, s, dtype, gen, dev) -> None:
-    """(B, H, T, D = 128) through ``ops.flash_attention`` (padding T and S
-    to the JAX wrapper's tiles), kernel route against ``kernel=False``."""
+def check_flash_wrapper(b, h, hkv, t, s, dtype, gen, dev) -> None:
+    """(B, H, T, D = 128) q and (B, Hkv, S, D) k, v through
+    ``ops.flash_attention`` (padding T and S to the JAX wrapper's tiles),
+    kernel route against ``kernel=False``."""
     import torch
     from repro_torch.kernels.flash_attention import ops as FA
-    q, k, v = (torch.randn((b, h, n, 128), generator=gen, device=dev).to(
-        dtype) for n in (t, s, s))
+    q, k, v = (torch.randn((b, n_h, n, 128), generator=gen, device=dev).to(
+        dtype) for n_h, n in ((h, t), (hkv, s), (hkv, s)))
     o = FA.flash_attention(q, k, v)
     o_r = FA.flash_attention(q, k, v, kernel=False)
     torch.cuda.synchronize()
     tol = 1e-5 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(o.float(), o_r.float(), rtol=tol, atol=tol)
-    print(f"  flash_attention wrapper B={b} H={h} T={t} S={s} D=128 "
-          f"{str(dtype).split('.')[-1]}: max|Δo|="
+    print(f"  flash_attention wrapper B={b} H={h} Hkv={hkv} T={t} S={s} "
+          f"D=128 {str(dtype).split('.')[-1]}: max|Δo|="
           f"{(o.float() - o_r.float()).abs().max().item():.3e} against "
           f"kernel=False")
 
 
-# bf16 dense tensor-core peak of one H100 SXM (NVIDIA data sheet)
-PEAK_BF16_TC_FLOPS = 989e12
-
-
-def time_flash_attention(b, h, t, d, gen, dev, n_bufs=4) -> dict:
-    """B10 at the prefill main path's shape (B·H rows, T = S, bf16, causal,
-    t_off 0), its plain version, and the library call
-    ``scaled_dot_product_attention(is_causal=True)`` on the same inputs,
-    from CUDA-graph replays over ``n_bufs`` input sets (4 x 50 MB, beyond
-    the 50 MB L2). Bounds: the causal pairs' 4·D operations each (q·k and
-    p·v) over the fp32 rate, or q, k, v and o once over the memory rate;
-    beside them the same operations over the bf16 tensor-core rate."""
+def time_flash_attention(b, h, hkv, t, d, gen, dev, n_bufs=4) -> dict:
+    """B10 at the prefill main path's shape (B·H q rows over B·Hkv kv
+    rows, T = S, bf16, causal, t_off 0), its plain version, and the
+    library call ``scaled_dot_product_attention(is_causal=True,
+    enable_gqa=True)`` on the same inputs, from CUDA-graph replays over
+    ``n_bufs`` input sets (beyond the 50 MB L2). SDPA's grouped heads map
+    q head h to kv head h // G where B10's map it to h mod Hkv, so SDPA
+    gets q's heads permuted to (Hkv, G) order and its output is permuted
+    back before the comparison. Bounds: q, o and k, v once over the
+    memory rate, or the causal pairs' 4·D operations each (q·k and p·v)
+    over the bf16 tensor-core rate (``bound_ms``) or the fp32 rate
+    (``fp32_bound_ms``)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops as FA
-    sets = [[torch.randn((b, h, t, d), generator=gen, device=dev).to(
-        torch.bfloat16) for _ in range(3)] for _ in range(n_bufs)]
-    rows = [[x.reshape(b * h, t, d) for x in xs] for xs in sets]
-    o = FA.fwd(*rows[0])
-    lib = F.scaled_dot_product_attention(*sets[0], is_causal=True)
-    lib_err = (o.float() - lib.reshape(b * h, t, d).float()).abs().max()
+    g = h // hkv
+    sets = [[torch.randn((b, n_h, t, d), generator=gen, device=dev).to(
+        torch.bfloat16) for n_h in (h, hkv, hkv)] for _ in range(n_bufs)]
+    rows = [[x.reshape(-1, t, d) for x in xs] for xs in sets]
+    # SDPA's order: its q head j·G + g is the port's head g·Hkv + j
+    lib_q = [xs[0].reshape(b, g, hkv, t, d).transpose(1, 2).reshape(
+        b, h, t, d) for xs in sets]
+    o = FA.fwd(*rows[0], kv_heads=hkv)
+    lib = F.scaled_dot_product_attention(lib_q[0], *sets[0][1:],
+                                         is_causal=True, enable_gqa=True)
+    lib = lib.reshape(b, hkv, g, t, d).transpose(1, 2).reshape(b * h, t, d)
+    lib_err = (o.float() - lib.float()).abs().max()
     flops = b * h * (t * (t + 1) // 2) * 4 * d
+    n_bytes = 2 * sets[0][0].nbytes + 2 * sets[0][1].nbytes   # q, o, k, v
     out = dict(
-        ms=graph_ms(lambda i: FA.fwd(*rows[i % n_bufs]), 2 * n_bufs,
-                    replays=5),
-        plain_ms=graph_ms(lambda i: FA.fwd(*rows[i % n_bufs], kernel=False),
-                          2, replays=3),
+        ms=graph_ms(lambda i: FA.fwd(*rows[i % n_bufs], kv_heads=hkv),
+                    2 * n_bufs, replays=5),
+        plain_ms=graph_ms(lambda i: FA.fwd(*rows[i % n_bufs], kv_heads=hkv,
+                                           kernel=False), 2, replays=3),
         library_ms=graph_ms(lambda i: F.scaled_dot_product_attention(
-            *sets[i % n_bufs], is_causal=True), 2 * n_bufs, replays=5),
-        tensor_core_bound_ms=flops / PEAK_BF16_TC_FLOPS * 1e3,
+            lib_q[i % n_bufs], *sets[i % n_bufs][1:], is_causal=True,
+            enable_gqa=True), 2 * n_bufs, replays=5),
         library_max_abs_diff=lib_err.item(),
-        **bound(4 * sets[0][0].nbytes, flops))
-    del sets, rows
+        fp32_bound_ms=bound(n_bytes, flops)["bound_ms"],
+        **bound(n_bytes, flops, PEAK_BF16_TC_FLOPS))
+    del sets, rows, lib_q
     torch.cuda.empty_cache()
     return out
+
+
+def wrapper_host_us(b, h, hkv, t, d, gen, dev, n=50) -> tuple:
+    """Host time per call of B10's wrapper at the prefill's shape (the
+    calls enqueued back to back, no synchronisation inside), and of one
+    ``Path.resolve()`` of its source, which ``build.load_library`` no
+    longer makes at every launch; both in µs."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as FA
+    q = torch.randn((b * h, t, d), generator=gen, device=dev).bfloat16()
+    k, v = (torch.randn((b * hkv, t, d), generator=gen, device=dev
+                        ).bfloat16() for _ in range(2))
+    FA.fwd(q, k, v, kv_heads=hkv)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        FA.fwd(q, k, v, kv_heads=hkv)
+    host = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        FA.SOURCE.resolve()
+    return host, (time.perf_counter() - t0) / n * 1e6
+
+
+def profile_prefill(params, cfg, prompt, kernel) -> None:
+    """Device time by kernel over one prefill (torch.profiler): the ten
+    largest rows and every row whose name holds ``kernel``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import lm
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
+                 ) as prof:
+        t0 = time.perf_counter()
+        lm.prefill(params, prompt, cfg)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows, _ = profile_rows(prof)
+    total = sum(t for t, _, _ in rows)
+    if not total:
+        print("  prefill profile: the profiler reported no device time "
+              "(not measured)")
+        return
+    print(f"  prefill profile: {total / 1e3:.3f} ms device time in one "
+          f"prefill, {wall_ms:.3f} ms wall under the profiler (busy "
+          f"{100 * total / 1e3 / wall_ms:.1f}%)")
+    for i, (t, key, count) in enumerate(rows):
+        if i < 10 or kernel in key:
+            print(f"    {100 * t / total:5.1f}%  {t / 1e3:8.4f} ms  "
+                  f"x{count:<4d} {key[:90]}")
 
 
 def launch_counters() -> dict:
@@ -1456,9 +1569,10 @@ def training_main_path(backend, dev, gen, phase) -> list:
         print(f"{name} rows={rows} T={args.seq_len} D={cfg.head_dim} bf16: "
               f"{r['ms'] * 1e3:.2f} us/launch (plain version "
               f"{r['plain_ms'] * 1e3:.2f} us; library call: none; bound "
-              f"{r['bound_ms'] * 1e3:.2f} us by {r['bound_by']}, "
-              f"{r['flops'] / 1e9:.2f} GFLOP, {r['bytes'] / 1e6:.2f} MB "
-              f"moved)")
+              f"{r['bound_ms'] * 1e3:.2f} us by {r['bound_by']} on bf16 "
+              f"tensor cores, {r['fp32_bound_ms'] * 1e3:.2f} us at the fp32 "
+              f"rate; {r['flops'] / 1e9:.2f} GFLOP, {r['bytes'] / 1e6:.2f} "
+              f"MB moved)")
         stem = pallas.split("/")[0]
         records.append({
             "name": name, "route": "cuda",
@@ -1534,8 +1648,9 @@ def softmax_generate_main_path(dev, gen, phase) -> dict:
     prefill (the entry point's warm-up and the timed one), no other
     kernel; KV caches of 576 rows. Then a profile of 4 decode steps over
     a 576-row cache and B10 timed beside its bounds, its plain version and
-    ``scaled_dot_product_attention``. Returns B10's record for the kernels
-    line (without ``max_abs_err``)."""
+    ``scaled_dot_product_attention``, with a profile of one prefill.
+    Returns B10's record for the kernels line (without ``max_abs_err``),
+    timed at the prefill's shape."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
@@ -1586,6 +1701,7 @@ def softmax_generate_main_path(dev, gen, phase) -> dict:
                            generator=torch.Generator(device=dev).manual_seed(3))
     logits, st = lm.prefill(params, prompt, full)
     st = lm.pad_decode_state(st, full, max_len)
+    profile_prefill(params, full, prompt, "flash_fwd")
     device_ms = profile_decode(params, full, st, torch.argmax(logits, -1),
                                args.prompt_len)
     if not torch.isfinite(logits).all() or not all(
@@ -1600,17 +1716,32 @@ def softmax_generate_main_path(dev, gen, phase) -> dict:
     del params, st, logits
     torch.cuda.empty_cache()
 
-    t = time_flash_attention(args.batch, full.n_heads, args.prompt_len,
-                             full.head_dim, gen, dev)
-    print(f"{name} rows={args.batch * full.n_heads} T=S={args.prompt_len} "
-          f"D={full.head_dim} bf16 causal: {t['ms'] * 1e3:.2f} us/launch "
-          f"(plain version {t['plain_ms'] * 1e3:.2f} us; library call "
-          f"scaled_dot_product_attention(is_causal=True) "
-          f"{t['library_ms'] * 1e3:.2f} us, max|Δ| against the kernel "
-          f"{t['library_max_abs_diff']:.3e}; bound {t['bound_ms'] * 1e3:.2f}"
-          f" us by {t['bound_by']}, {t['flops'] / 1e9:.2f} GFLOP, "
-          f"{t['bytes'] / 1e6:.2f} MB moved; on bf16 tensor cores "
-          f"{t['tensor_core_bound_ms'] * 1e3:.2f} us)")
+    # B10 at the prefill's shape (q of 16 heads over K/V of 8) and, for
+    # the line of continuity with PR 18's table, with K/V of 16 heads
+    t = {}
+    for hkv in (full.n_kv_heads, full.n_heads):
+        t[hkv] = r = time_flash_attention(args.batch, full.n_heads, hkv,
+                                          args.prompt_len, full.head_dim,
+                                          gen, dev)
+        print(f"{name} rows={args.batch * full.n_heads} kv_rows="
+              f"{args.batch * hkv} T=S={args.prompt_len} D={full.head_dim} "
+              f"bf16 causal: {r['ms'] * 1e3:.2f} us/launch (plain version "
+              f"{r['plain_ms'] * 1e3:.2f} us; library call "
+              f"scaled_dot_product_attention(is_causal=True, enable_gqa="
+              f"True) {r['library_ms'] * 1e3:.2f} us, max|Δ| against the "
+              f"kernel {r['library_max_abs_diff']:.3e}; bound "
+              f"{r['bound_ms'] * 1e3:.2f} us by {r['bound_by']} on bf16 "
+              f"tensor cores, {r['fp32_bound_ms'] * 1e3:.2f} us at the fp32 "
+              f"rate; {r['flops'] / 1e9:.2f} GFLOP, {r['bytes'] / 1e6:.2f} "
+              f"MB moved)")
+    t = t[full.n_kv_heads]
+    host_us, resolve_us = wrapper_host_us(args.batch, full.n_heads,
+                                          full.n_kv_heads, args.prompt_len,
+                                          full.head_dim, gen, dev)
+    print(f"  host time per {name} call (wrapper and launch): "
+          f"{host_us:.1f} us; one Path.resolve() of its source, which "
+          f"build.load_library no longer makes per launch: "
+          f"{resolve_us:.1f} us")
     return {"name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/flash_attention/csrc/"
                       "flash_attention.cu",
@@ -1664,8 +1795,17 @@ def main() -> int:
           f"(nvcc {build.BUILD_SECONDS})")
     for name, log in build.BUILD_LOG.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            # registers, spills and ptxas's "performance loss" notes (a
+            # wgmma that had to be serialized)
+            if "registers" in line or "spill" in line or "C75" in line:
                 print(f"  {name}: {line.strip()}")
+    n_hgmma = hgmma_count(build, FA.SOURCE)
+    if not n_hgmma:
+        raise AssertionError("phase 1: no HGMMA in the flash_attention "
+                             "library: B10's bf16 route is not on the "
+                             "tensor cores")
+    print(f"  flash_attention.cu: {n_hgmma} HGMMA (wgmma) instructions in "
+          f"the built library (cuobjdump --dump-sass)")
     done(1, t0)
 
     # -- 2. kernels against their plain versions --------------------------
@@ -1746,22 +1886,34 @@ def main() -> int:
     print(f"phase 2: gated_linear_attention_fwd (inclusive, exclusive + u), "
           f"_bwd_dq and _bwd_dkv agree with their plain versions (normwise "
           f"{LA_TOL}) and, at the clamp, with gla_scan")
-    # B10: the softmax prefill main path's shape (128 rows, T = S = 512,
-    # bf16), then fp32 at T < S, s_real < S, a ragged T and D = 16, 64, 128,
-    # and the wrapper's padding
+    # B10: the softmax prefill main path's shape (B 8 x H 16 q rows over 8
+    # kv heads, T = S = 512, bf16), the same with K/V of 16 heads, then
+    # each D the kernel takes on both routes with ragged T, t_off < S - T
+    # and s_real < S, grouped (Hkv < H) and one to one, and the wrapper's
+    # padding
     errs["flash_attention_fwd"] = check_flash_attention(
-        128, 512, 512, 128, torch.bfloat16, gen, dev)
+        128, 512, 512, 128, torch.bfloat16, gen, dev, kv_heads=8, heads=16)
+    check_flash_attention(128, 512, 512, 128, torch.bfloat16, gen, dev)
+    for dtype in (torch.bfloat16, torch.float32):
+        check_flash_attention(8, 77, 300, 128, dtype, gen, dev, t_off=5,
+                              s_real=290, kv_heads=2, heads=4)
+        check_flash_attention(12, 96, 160, 16, dtype, gen, dev, t_off=10,
+                              s_real=100, kv_heads=2, heads=6)
+        check_flash_attention(12, 200, 200, 64, dtype, gen, dev,
+                              s_real=150)
+        check_flash_attention(12, 130, 130, 16, dtype, gen, dev,
+                              kv_heads=3, heads=6)
+        check_flash_attention(4, 128, 256, 64, dtype, gen, dev, kv_heads=1,
+                              heads=2)
     check_flash_attention(4, 200, 200, 128, torch.float32, gen, dev)
-    check_flash_attention(3, 128, 256, 64, torch.float32, gen, dev)
-    check_flash_attention(2, 96, 160, 16, torch.float32, gen, dev, t_off=10,
-                          s_real=100)
-    check_flash_attention(3, 77, 300, 128, torch.float32, gen, dev, t_off=5,
-                          s_real=290)
     check_flash_attention(6, 64, 64, 128, torch.bfloat16, gen, dev)
-    check_flash_wrapper(2, 3, 200, 200, torch.float32, gen, dev)
-    check_flash_wrapper(2, 3, 72, 200, torch.bfloat16, gen, dev)
-    print("phase 2: flash_attention_fwd agrees with its plain version (fp32 "
-          "1e-5; bf16 normwise 8e-3 and 2e-2 elementwise)")
+    check_flash_wrapper(2, 3, 3, 200, 200, torch.float32, gen, dev)
+    check_flash_wrapper(2, 3, 3, 72, 200, torch.bfloat16, gen, dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        check_flash_wrapper(2, 16, 8, 72, 200, dtype, gen, dev)
+    print("phase 2: flash_attention_fwd agrees with its plain version and, "
+          "where T = S - t_off, with JAX's oracle (fp32 1e-5; bf16 normwise "
+          "8e-3 and 2e-2 elementwise), K/V read by kv head")
     done(2, t0)
 
     # -- 3. the linear slice, kernel vs plain recurrence, fp32 -------------

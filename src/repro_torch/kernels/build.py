@@ -81,9 +81,15 @@ def build(sources: Iterable[Path]) -> None:
 
 
 def load_library(source: Path) -> ctypes.CDLL:
-    """Compile ``source`` (once per content) and load it."""
-    source = Path(source).resolve()
-    if source not in _LOADED:
-        build([source])
-        _LOADED[source] = ctypes.CDLL(str(_lib_path(source)))
-    return _LOADED[source]
+    """Compile ``source`` (once per content) and load it. The wrappers
+    call this at every launch: a loaded library is found under the path
+    as given, without ``resolve()``, whose file-system calls can cost
+    more than the launch (``chip_smoke.py`` phase 14 prints both)."""
+    lib = _LOADED.get(source)
+    if lib is None:
+        resolved = Path(source).resolve()
+        if resolved not in _LOADED:
+            build([resolved])
+            _LOADED[resolved] = ctypes.CDLL(str(_lib_path(resolved)))
+        lib = _LOADED[source] = _LOADED[resolved]
+    return lib

@@ -265,9 +265,10 @@ def attention_apply(
     ``want_state=True`` (prefill) also returns the decode state after the
     last position. Under softmax that is the KV cache, k and v as
     (B, T, Hkv, Dh), and the attention runs ``flash_attention`` over
-    the flat heads (K/V broadcast over the groups, as JAX does): B10 on
-    CUDA tensors. Training under softmax raises NotImplementedError (B10
-    is forward only). For the linear family the state is the final
+    the flat heads with K/V read by kv head (JAX broadcasts them over
+    the groups first; the numbers are the same): B10 on CUDA tensors.
+    Training under softmax raises NotImplementedError (B10 is forward
+    only). For the linear family the state is the final
     state of the plain chunked forms and, for the linear backend,
     z = Σ_t k_t, a plain fp32 sum. Without it (training), the linear
     backend runs ``causal_linear_attention``: B2 forward and B3's §3.3
@@ -287,14 +288,12 @@ def attention_apply(
             raise NotImplementedError(
                 f"{cfg.name}: softmax training is not ported (B10 is "
                 f"forward only; JAX's backward is _flash_bwd)")
-        g = h // hkv
-        kh = k[:, None].expand(b, g, hkv, t, dh).reshape(b, h, t, dh)
-        vh = v[:, None].expand(b, g, hkv, t, dh).reshape(b, h, t, dh)
-        o_h = XA.flash_attention(q.reshape(b, h, t, dh), kh, vh, None, 0,
+        o_h = XA.flash_attention(q.reshape(b, h, t, dh), k, v, None, 0,
                                  kernel=attention_kernel)
         state = AttnState(k_cache=k.transpose(1, 2).contiguous(),
                           v_cache=v.transpose(1, 2).contiguous())
-        return _merge_heads(p, o_h.reshape(b, g, hkv, t, dh), x.dtype), state
+        return _merge_heads(p, o_h.reshape(b, h // hkv, hkv, t, dh),
+                            x.dtype), state
     qh, kh, vh = _heads(q, k, v, cfg)
     if cfg.attention_backend == "linear" and want_state:
         o_h, s_f = causal_linear_attention_chunked(

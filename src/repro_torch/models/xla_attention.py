@@ -1,8 +1,9 @@
 """Causal softmax attention for the softmax backend (port of
 ``repro/models/xla_attention.py``, the two functions its model calls).
 
-- ``flash_attention``: prefill attention in the flat-head layout,
-  through the B10 kernel (``kernels/flash_attention``) for CUDA tensors.
+- ``flash_attention``: prefill attention in the flat-head layout, K/V
+  read by kv head, through the B10 kernel (``kernels/flash_attention``)
+  for CUDA tensors.
   JAX computes the same function with its jnp pair-list flash forward;
   its custom VJP (``_flash_bwd``) is not ported, so this one is forward
   only.
@@ -31,10 +32,12 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor,
                     scale: Optional[float] = None,
                     q_offset: Optional[int] = None, *,
                     kernel: bool = True) -> Tensor:
-    """Causal attention for prefill. q: (B, H, T, D); k, v: (B, H, S, D)
-    (GQA callers broadcast K/V to the flat head dim first). Query i
-    attends key j iff j ≤ i + q_offset (default S − T: the queries are
-    the last T of the S keys). B10 on CUDA tensors, its plain version on
+    """Causal attention for prefill. q: (B, H, T, D); k, v: (B, Hkv, S, D)
+    with H % Hkv == 0, q head h = g·Hkv + j reading kv head j (the
+    port's (G, Hkv) flattening; no broadcast copy of K/V, where JAX's
+    model broadcasts them to the flat head dim first). Query i attends
+    key j iff j ≤ i + q_offset (default S − T: the queries are the last
+    T of the S keys). B10 on CUDA tensors, its plain version on
     CPU tensors or under ``kernel=False``. Returns (B, H, T, D) in v's
     type. Raises NotImplementedError when autograd would need a gradient
     through it: the softmax backward is not ported."""

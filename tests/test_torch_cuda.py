@@ -752,6 +752,77 @@ def test_flash_attention_wrapper_pads_like_jax(dev, t, s, dtype):
             v.reshape(6, s, 128)).reshape(2, 3, t, 128), dtype)
 
 
+def _fa_by_kv_head(dev, b, h, hkv, t, s, d, dtype, seed=2):
+    """q rows (B·H, T, D), k, v rows (B·Hkv, S, D), and k, v broadcast to
+    the q rows as JAX's model broadcasts them (head h reads h mod Hkv)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v = (torch.randn((b * n_h, n, d), generator=g, device=dev).to(
+        dtype) for n_h, n in ((h, t), (hkv, s), (hkv, s)))
+    kb, vb = (x.reshape(b, 1, hkv, s, d).expand(b, h // hkv, hkv, s, d)
+              .reshape(b * h, s, d) for x in (k, v))
+    return q, k, v, kb, vb
+
+
+# (B, H, Hkv, T, S, D, t_off, s_real): the prefill main path (B 8, H 16
+# over 8 kv heads: 64 kv rows; T = S = 512), the same with Hkv = H, then
+# ragged T, t_off and s_real at every D the kernel takes, G = 1, 2, 3
+@pytest.mark.parametrize("b,h,hkv,t,s,d,t_off,s_real", [
+    (8, 16, 8, 512, 512, 128, None, None),
+    (8, 16, 16, 512, 512, 128, None, None),
+    (2, 4, 2, 77, 300, 128, 5, 290),
+    (3, 4, 4, 200, 200, 64, None, 150),
+    (2, 6, 2, 96, 160, 16, 10, 100),
+    (2, 6, 3, 130, 130, 16, None, None),
+    (1, 2, 1, 1, 64, 64, None, None),
+])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_kernel_reads_kv_by_head(dev, b, h, hkv, t, s, d,
+                                                 t_off, s_real, dtype):
+    """Both routes (bf16 on the tensor cores, fp32 on the CUDA cores) with
+    K/V of Hkv heads against the plain version; in the oracle's domain
+    (the queries the last T keys) also against ``flash_attention_ref`` on
+    the broadcast K/V, at the same tolerance, evaluated in fp32 on the
+    same values (in bf16 the oracle rounds the scores to bf16 before the
+    softmax, as far from the exact function as the tolerance)."""
+    q, k, v, kb, vb = _fa_by_kv_head(dev, b, h, hkv, t, s, d, dtype)
+    before = fa_ops.fwd.launches
+    o = fa_ops.fwd(q, k, v, t_off=t_off, s_real=s_real, kv_heads=hkv)
+    torch.cuda.synchronize()
+    assert fa_ops.fwd.launches == before + 1
+    assert o.dtype == dtype and o.shape == (b * h, t, d)
+    _fa_close(o, fa_ops.fwd(q, k, v, t_off=t_off, s_real=s_real,
+                            kv_heads=hkv, kernel=False), dtype)
+    if t_off is None and s_real is None:
+        _fa_close(o, fa_ref.flash_attention_ref(q.float(), kb.float(),
+                                                vb.float()), dtype)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("scale", [-0.1, 0.0])
+def test_flash_attention_bf16_kernel_takes_any_scale(dev, d, scale):
+    """The bf16 kernel keeps its running max in raw scores and flips Q's
+    signs under a negative scale; a zero scale gives the mean of the
+    visible values. Both against the plain version."""
+    q, k, v, _, _ = _fa_by_kv_head(dev, 2, 4, 2, 130, 130, d,
+                                   torch.bfloat16, seed=4)
+    o = fa_ops.fwd(q, k, v, scale=scale, kv_heads=2)
+    _fa_close(o, fa_ops.fwd(q, k, v, scale=scale, kv_heads=2, kernel=False),
+              torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_wrapper_by_kv_head(dev, dtype):
+    """(B, H, T, D) q with (B, Hkv, S, D) k, v, ragged T < S: the kernel
+    route against the plain route of the same wrapper."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    q = torch.randn((2, 16, 72, 128), generator=g, device=dev).to(dtype)
+    k, v = (torch.randn((2, 8, 200, 128), generator=g, device=dev).to(dtype)
+            for _ in range(2))
+    o = fa_ops.flash_attention(q, k, v)
+    assert o.shape == q.shape
+    _fa_close(o, fa_ops.flash_attention(q, k, v, kernel=False), dtype)
+
+
 def test_flash_attention_rejects_unsupported_inputs(dev):
     q, k, v = _fa_rows(dev, 2, 64, 64, 32, torch.float32)
     with pytest.raises(ValueError):                       # D = 32
@@ -769,6 +840,10 @@ def test_flash_attention_rejects_unsupported_inputs(dev):
         fa_ops.fwd(q.half(), k.half(), v.half())
     with pytest.raises(ValueError):                       # CPU and CUDA
         fa_ops.fwd(q, k.cpu(), v)
+    with pytest.raises(ValueError):                       # rows, kv_heads
+        fa_ops.fwd(q, k[:1], v[:1])
+    with pytest.raises(ValueError):
+        fa_ops.fwd(torch.cat([q, q[:1]]), k, v, kv_heads=2)  # H = 3
 
 
 def test_softmax_slice_through_kernel_matches_plain_route(dev):

@@ -178,3 +178,121 @@ def test_flash_attention_refuses_a_gradient():
         txa.flash_attention(q, k, k)
     with torch.no_grad():                # forward only: fine without autograd
         assert txa.flash_attention(q, k, k).shape == (1, 2, 16, 16)
+
+
+# -- K/V read by kv head (grouped-query attention) ----------------------------
+# q head h = g·Hkv + j reads kv head j (the port's (G, Hkv) flattening);
+# JAX's model broadcasts K/V to the flat heads first, so the JAX side gets
+# them through jnp.broadcast_to(k[:, None], (b, g, hkv, ...)).
+
+def _gqa(seed, b, g, hkv, t, s, d, dtype="float32"):
+    """q (B, G·Hkv, T, D), k, v (B, Hkv, S, D) as torch tensors, and the
+    same q with K/V broadcast to the flat heads as JAX arrays."""
+    qj, qt = _both(_x(seed, b, g * hkv, t, d), dtype)
+    (kj, kt), (vj, vt) = (_both(_x(seed + i, b, hkv, s, d), dtype)
+                          for i in (1, 2))
+    flat = lambda x: jnp.broadcast_to(                      # noqa: E731
+        x[:, None], (b, g, hkv, s, d)).reshape(b, g * hkv, s, d)
+    return (qj, flat(kj), flat(vj)), (qt, kt, vt)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,g,hkv,t,s,d", [
+    (2, 2, 3, 128, 128, 64),         # G = 2
+    (1, 2, 8, 128, 256, 128)])       # qwen3-0.6b's H 16 / Hkv 8, T < S
+def test_plain_fwd_by_kv_head_matches_pallas_on_broadcast_kv(b, g, hkv, t,
+                                                             s, d, dtype):
+    (qj, kj, vj), (qt, kt, vt) = _gqa(80, b, g, hkv, t, s, d, dtype)
+    h = g * hkv
+    o_j = jk.fwd(qj.reshape(b * h, t, d), kj.reshape(b * h, s, d),
+                 vj.reshape(b * h, s, d), cq=128, ckv=128, interpret=True)
+    o_t = ops.fwd(qt.reshape(b * h, t, d), kt.reshape(b * hkv, s, d),
+                  vt.reshape(b * hkv, s, d), kv_heads=hkv)
+    assert o_t.shape == (b * h, t, d) and o_t.dtype == TORCH[dtype]
+    _close(o_t, o_j, TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,g,hkv,t,s,d", [
+    (2, 2, 2, 72, 200, 64),          # G = 2, T < S, both ragged
+    (1, 2, 8, 40, 40, 16)])          # H 16 / Hkv 8 at the smoke width
+def test_wrapper_by_kv_head_matches_jax_wrapper(b, g, hkv, t, s, d, dtype):
+    (qj, kj, vj), (qt, kt, vt) = _gqa(90, b, g, hkv, t, s, d, dtype)
+    o_j = jops.flash_attention(qj, kj, vj, interpret=True)
+    o_t = ops.flash_attention(qt, kt, vt)
+    assert o_t.shape == (b, g * hkv, t, d) and o_t.dtype == TORCH[dtype]
+    _close(o_t, o_j, TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,g,hkv,t,s,q_offset", [
+    (2, 2, 2, 48, 48, 0),
+    (1, 2, 8, 24, 56, None),         # H 16 / Hkv 8
+    (2, 3, 1, 24, 56, 10)])          # every q head on one kv head
+def test_model_flash_attention_by_kv_head_matches_jax(b, g, hkv, t, s,
+                                                      q_offset, dtype):
+    """``models/xla_attention.flash_attention`` with Hkv < H against JAX's
+    jnp flash forward on K/V broadcast as JAX's model broadcasts them."""
+    (qj, kj, vj), (qt, kt, vt) = _gqa(100, b, g, hkv, t, s, 16, dtype)
+    o_j = jxa.flash_attention(qj, kj, vj, None, 16, q_offset)
+    _close(txa.flash_attention(qt, kt, vt, None, q_offset), o_j,
+           TOL[dtype])
+    _close(txa.flash_attention(qt, kt, vt, None, q_offset, kernel=False),
+           o_j, TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kv_by_head_is_bitwise_the_broadcast_call(dtype):
+    """The plain route on K/V of Hkv heads gives bitwise what it gives on
+    the broadcast copy the model used to make (B 2, H 16, Hkv 8)."""
+    b, g, hkv, t, d = 2, 2, 8, 40, 16
+    _, (q, k, v) = _gqa(110, b, g, hkv, t, t, d, dtype)
+    kb, vb = (x[:, None].expand(b, g, hkv, t, d).reshape(b, g * hkv, t, d)
+              for x in (k, v))
+    assert torch.equal(ops.flash_attention(q, k, v),
+                       ops.flash_attention(q, kb, vb))
+    assert torch.equal(txa.flash_attention(q, k, v, None, 0),
+                       txa.flash_attention(q, kb, vb, None, 0))
+    rows = lambda x: x.reshape(-1, t, d)                    # noqa: E731
+    assert torch.equal(
+        ops.fwd(rows(q), rows(k), rows(v), kv_heads=hkv, t_off=3,
+                s_real=30),
+        ops.fwd(rows(q), rows(kb), rows(vb), t_off=3, s_real=30))
+
+
+@pytest.mark.parametrize("kernel", [True, False])
+@pytest.mark.parametrize("rq,rk,kv_heads", [
+    (8, 4, None),       # fewer kv rows, no kv_heads
+    (12, 6, 4),         # kv rows not a multiple of kv_heads
+    (12, 8, 4),         # H = 6 not a multiple of Hkv = 4
+    (10, 4, 2),         # q rows not a multiple of B = 2
+    (12, 6, 0)])        # kv_heads < 1
+def test_fwd_rejects_rows_that_do_not_divide(rq, rk, kv_heads, kernel):
+    q = torch.zeros((rq, 16, 16))
+    k = torch.zeros((rk, 16, 16))
+    with pytest.raises(ValueError):
+        ops.fwd(q, k, k, kv_heads=kv_heads, kernel=kernel)
+
+
+def test_softmax_prefill_passes_kv_heads_not_a_broadcast(monkeypatch):
+    """The softmax layer hands the attention K/V of Hkv heads (the smoke
+    config's GQA 4/2): no K or V tensor of H heads is built."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import lm as tlm
+    cfg = dataclasses.replace(
+        get_smoke_config("qwen3-0.6b").with_backend("softmax"),
+        dtype="float32")
+    assert cfg.n_kv_heads < cfg.n_heads
+    seen = []
+    real = txa.flash_attention
+
+    def spy(q, k, v, *args, **kwargs):
+        seen.append((q.shape[1], k.shape[1], v.shape[1]))
+        return real(q, k, v, *args, **kwargs)
+
+    monkeypatch.setattr(txa, "flash_attention", spy)
+    params = tlm.init_params(torch.Generator().manual_seed(0), cfg)
+    tlm.prefill(params, torch.zeros((2, 12), dtype=torch.long), cfg)
+    assert seen == [(cfg.n_heads, cfg.n_kv_heads, cfg.n_kv_heads)] * \
+        cfg.n_layers

@@ -200,3 +200,27 @@ def test_entry_point_refuses_to_fall_back_to_cpu(monkeypatch):
     with pytest.raises(RuntimeError):
         resolve_device()
     assert resolve_device("cpu").type == "cpu"
+
+
+def test_load_library_finds_a_loaded_library_without_resolving(monkeypatch):
+    """The kernel wrappers call ``build.load_library`` at every launch: a
+    library loaded once is returned for the same path without another
+    ``Path.resolve()`` (file-system calls at every launch) and without a
+    build."""
+    from repro_torch.kernels import build
+    source = Path(build.__file__).parent / "flash_attention" / "csrc" / \
+        "flash_attention.cu"
+    sentinel = object()
+    monkeypatch.setitem(build._LOADED, source.resolve(), sentinel)
+    assert build.load_library(source) is sentinel       # resolves once
+
+    def no_resolve(self, *args, **kwargs):
+        raise AssertionError("resolve() called for a loaded library")
+
+    def no_build(sources):
+        raise AssertionError("build() called for a loaded library")
+
+    monkeypatch.setattr(Path, "resolve", no_resolve)
+    monkeypatch.setattr(build, "build", no_build)
+    assert build.load_library(source) is sentinel
+    monkeypatch.delitem(build._LOADED, source)
