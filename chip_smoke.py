@@ -6,10 +6,15 @@
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
 1. Device: the card's name and power limit, and the build of every CUDA
-   kernel of the port from the sources in this checkout.
+   kernel of the port from the sources in this checkout; each kernel's
+   registers, spills and ptxas's notes on serialized wgmmas; the HGMMA
+   instructions in B10's and B9's libraries (their bf16 routes run on
+   the tensor cores).
 2. Each kernel against its plain PyTorch version on the card, at the
    main path's shapes and at the smoke width (B10 at each D it takes,
-   with K/V of fewer heads than q, and against JAX's oracle).
+   with K/V of fewer heads than q, and against JAX's oracle; B9 in bf16
+   at T not a multiple of its 64-token tile, each of its two launches on
+   its own, and B8/B9 at the decay clamp in fp32 and bf16).
 3. The serving slice on the card: a 2-layer model at qwen3-0.6b's full
    widths in fp32, prefill + 16 greedy steps through the kernel against
    the same run through ``decode_kernel="reference"``.
@@ -50,8 +55,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    as phase 9, through B8/B9 against ``attention_kernel=False``.
 12. The gated training main path as phase 10: ``launch/train.py
    --backend gated_linear`` on the full 28-layer model; B8/B9 launches
-   per step, a profile of one step, and B8, B9-dq and B9-dkv timed
-   beside their bounds and plain versions.
+   per step, a profile of one step (which must hold no flip or cumsum
+   kernel: B9 forms dg in its dk/dv launch), B8, B9-dq and B9-dkv timed
+   beside their bounds and plain versions, B9 as a whole (``ops.bwd``)
+   beside its bound, and alone the eager dg epilogue that B9 ran
+   before its dk/dv launch formed dg.
 13. The softmax slice (paper §2's KV-cache baseline, ``--backend
    softmax``): 2 layers at full width in fp32, batch 4, prompt 64,
    prefill through the causal flash-attention kernel (B10) + 16 greedy
@@ -109,6 +117,38 @@ def hgmma_count(build, source) -> int:
                           capture_output=True, text=True, check=True,
                           timeout=120).stdout
     return sass.count("HGMMA")
+
+
+def ptxas_notes(log: str) -> list:
+    """From ``nvcc -Xptxas=-v`` output: each kernel's registers and
+    spills, and ptxas's C75xx notes (a wgmma serialized, and why), each
+    tagged with the kernel's name, its template arguments shortened."""
+    import re
+
+    def short(mangled):
+        # the first length-prefixed name followed by template arguments
+        for n in re.finditer(r"(?<!\d)\d+", mangled):
+            end = n.end() + int(n.group())
+            ident, rest = mangled[n.end():end], mangled[end:]
+            if re.fullmatch(r"[A-Za-z_]\w*", ident) and rest[:1] == "I":
+                args = re.match(r"I(.*?)E(?:E|v)", rest)
+                return f"{ident}<{args.group(1) if args else ''}>"
+        return mangled
+
+    out, kernel = [], "?"
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            kernel = short(m.group(1))
+            continue
+        note = re.search(r"\((C75\d\d)\) (.*?)(?: in (?:the )?function "
+                         r"'([^']+)')?$", line.strip())
+        if note:
+            where = short(note.group(3)) if note.group(3) else "?"
+            out.append(f"{where}: {note.group(1)} {note.group(2)}")
+        elif "registers" in line or "spill" in line:
+            out.append(f"{kernel}: {line.split(':', 1)[-1].strip()}")
+    return out
 
 
 def bf16_ulps(x, ref):
@@ -864,8 +904,11 @@ def gla_rows(bh, t, d, dtype, decay, gen, dev):
 
 def check_gla_rows(bh, t, d, dtype, chunk, decay, gen, dev) -> dict:
     """B8 (inclusive, and exclusive with the bonus u) and B9 on flat rows
-    against ``chunked_fwd_ref`` / ``chunked_bwd_ref``, normwise; returns
-    the largest |Δ| per kernel."""
+    against ``chunked_fwd_ref`` / ``chunked_bwd_ref``, normwise, and B9's
+    two launches on their own: the dq launch's (dq, q⊙dq) against
+    ``bwd_dq_ref``, the dk/dv launch's (dk, dv; dg in fp32) against
+    ``bwd_dkv_dg_ref`` given the same q⊙dq. Every output in its type.
+    Returns the largest |Δ| per kernel."""
     import torch
     from repro_torch.kernels.gated_linear_attention import ops as GL
     from repro_torch.kernels.gated_linear_attention import ref as GR
@@ -873,31 +916,50 @@ def check_gla_rows(bh, t, d, dtype, chunk, decay, gen, dev) -> dict:
     u = torch.linspace(-1.0, 1.0, d, device=dev)
     o, s = GL.fwd(q, k, v, g, chunk=chunk)
     o_x, s_x = GL.fwd(q, k, v, g, u=u, chunk=chunk, exclusive=True)
-    dq, dk, dv, dg = GL.bwd(q, k, v, g, do, chunk=chunk)
+    grads = GL.bwd(q, k, v, g, do, chunk=chunk)
+    dq, qdq = GL.bwd_dq(q, k, v, g, do, chunk=chunk)
+    dkv = GL.bwd_dkv(q, k, v, g, do, qdq, chunk=chunk)
     torch.cuda.synchronize()
     o_r, s_r = GR.chunked_fwd_ref(q, k, v, g, chunk=chunk)
     o_xr, s_xr = GR.chunked_fwd_ref(q, k, v, g, u=u, chunk=chunk,
                                     exclusive=True)
-    dq_r, dk_r, dv_r, dg_r = GR.chunked_bwd_ref(q, k, v, g, do, chunk=chunk)
+    grads_r = GR.chunked_bwd_ref(q, k, v, g, do, chunk=chunk)
+    dq_r, qdq_r = GR.bwd_dq_ref(q, k, v, g, do, chunk=chunk)
+    dkv_r = GR.bwd_dkv_dg_ref(q, k, v, g, do, qdq, chunk=chunk)
     name = str(dtype).split(".")[-1]
     tol, tol32 = LA_TOL[name], LA_TOL["float32"]
     tag = f"rows={bh} T={t} D={d} {name} chunk={chunk} decay={decay}"
+    for what, x, x_r in zip(("dq", "dk", "dv", "dg", "q⊙dq"),
+                            grads + (qdq,), grads_r + (qdq_r,)):
+        if x.dtype != x_r.dtype:
+            raise AssertionError(f"{what} {tag}: {x.dtype}, want "
+                                 f"{x_r.dtype}")
+    e = {n: normwise(x, x_r, tol, f"{n} {tag}") for n, x, x_r in zip(
+        ("dq", "dk", "dv", "dg"), grads, grads_r)}
+    e1 = {n: normwise(x, x_r, tol, f"dq launch {n} {tag}") for n, x, x_r in
+          zip(("dq", "q⊙dq"), (dq, qdq), (dq_r, qdq_r))}
+    # The dk/dv launch alone, given the dq launch's q⊙dq: dk and dv, and
+    # dg in fp32 only. In bf16 that q⊙dq carries the rounding of Q̂ which
+    # only the same launch pair's k⊙dk cancels, so there dg is held to
+    # its plain version through both launches (bwd, above).
+    n2 = ("dk", "dv", "dg") if dtype == torch.float32 else ("dk", "dv")
+    e2 = {n: normwise(x, x_r, tol, f"dk/dv launch {n} {tag}") for n, x, x_r
+          in zip(n2, dkv, dkv_r)}
     err = {"gated_linear_attention_fwd": max(
                normwise(o, o_r, tol, f"o {tag}"),
                normwise(o_x, o_xr, tol, f"o exclusive {tag}")),
-           "gated_linear_attention_bwd_dq": normwise(dq, dq_r, tol,
-                                                     f"dq {tag}"),
-           "gated_linear_attention_bwd_dkv": max(
-               normwise(dk, dk_r, tol, f"dk {tag}"),
-               normwise(dv, dv_r, tol, f"dv {tag}"))}
+           "gated_linear_attention_bwd_dq": max(e["dq"], *e1.values()),
+           "gated_linear_attention_bwd_dkv": max(e["dk"], e["dv"], e["dg"],
+                                                 *e2.values())}
     s_err = max(normwise(s, s_r, tol32, f"state {tag}"),
                 normwise(s_x, s_xr, tol32, f"state exclusive {tag}"))
-    dg_err = normwise(dg, dg_r, tol, f"dg {tag}")
     print(f"  gated_linear_attention {tag}: max|Δo| (incl, excl+u)="
-          f"{err['gated_linear_attention_fwd']:.3e} max|ΔS|={s_err:.3e} "
-          f"max|Δdq|={err['gated_linear_attention_bwd_dq']:.3e} "
-          f"max|Δdk,dv|={err['gated_linear_attention_bwd_dkv']:.3e} "
-          f"max|Δdg|={dg_err:.3e} (normwise tol {tol})")
+          f"{err['gated_linear_attention_fwd']:.3e} max|ΔS|={s_err:.3e}; "
+          f"bwd max|Δ| " + ", ".join(f"{n} {x:.3e}" for n, x in e.items())
+          + "; dq launch " + ", ".join(f"{n} {x:.3e}" for n, x in e1.items())
+          + "; dk/dv launch " + ", ".join(f"{n} {x:.3e}" for n, x in
+                                         e2.items())
+          + f" (normwise tol {tol})")
     return err
 
 
@@ -934,54 +996,61 @@ def check_gla_wrapper(t, d, dtype, chunk, scalar, gen, dev) -> None:
           + " against kernel=False")
 
 
-def check_gla_clamp(gen, dev) -> None:
-    """g ≡ −1 (the clamp), T = 1,024, chunk 128, fp32: B8 and B9 through
-    the autograd function, all finite and within normwise 1e-5 of
-    ``gla_scan`` and its autograd gradients (the chunk-128 plain version
-    is NaN there, as JAX's is)."""
+def check_gla_clamp(dtype, gen, dev) -> None:
+    """g ≡ −1 (the clamp), T = 1,024, chunk 128: B8 and B9 through the
+    autograd function, all finite and within normwise 1e-5 (fp32) or 8e-3
+    (bf16) of ``gla_scan`` and its autograd gradients, evaluated in fp32
+    on the same values (the chunk-128 plain version is NaN there, as
+    JAX's is)."""
     import torch
     from repro_torch.core.gated import gla_scan
     from repro_torch.kernels.gated_linear_attention import ops as GL
     q, k, v, do, g = (x.reshape(1, 2, 1024, 128) for x in gla_rows(
-        2, 1024, 128, torch.float32, "clamp", gen, dev))
+        2, 1024, 128, dtype, "clamp", gen, dev))
     got, want = [], []
-    for fn, sink in ((lambda a, b, c, e: GL.gated_linear_attention(
-            a, b, c, e, chunk=128), got),
-            (lambda a, b, c, e: gla_scan(a, b, c, e)[0], want)):
-        leaves = [x.clone().requires_grad_() for x in (q, k, v, g)]
+    for fn, sink, cast in ((lambda a, b, c, e: GL.gated_linear_attention(
+            a, b, c, e, chunk=128), got, dtype),
+            (lambda a, b, c, e: gla_scan(a, b, c, e)[0], want,
+             torch.float32)):
+        leaves = [x.to(cast).clone().requires_grad_() for x in (q, k, v, g)]
         o = fn(*leaves)
-        o.backward(do)
+        o.backward(do.to(cast))
         sink.extend([o.detach()] + [x.grad for x in leaves])
     torch.cuda.synchronize()
     names = ("o", "dq", "dk", "dv", "dg")
+    name = str(dtype).split(".")[-1]
     for n, a in zip(names, got):
         if not torch.isfinite(a).all():
-            raise AssertionError(f"gated clamp: non-finite {n}")
-    errs = [normwise(a, b, LA_TOL["float32"], f"gated clamp {n}")
+            raise AssertionError(f"gated clamp {name}: non-finite {n}")
+    errs = [normwise(a, b, LA_TOL[name], f"gated clamp {name} {n}")
             for n, a, b in zip(names, got, want)]
     plain = GL.gated_linear_attention(q, k, v, g, chunk=128, kernel=False)
     nan_share = torch.isnan(plain).float().mean().item()
     print(f"  gated_linear_attention at the clamp (g = -1, T=1024, chunk "
-          f"128, fp32): all finite; max|Δ| against gla_scan and its "
-          f"autograd " + ", ".join(f"{n} {e:.3e}" for n, e in
-                                   zip(names, errs))
-          + f" (normwise 1e-5); the chunk-128 plain version: "
+          f"128, {name}): all finite; max|Δ| against gla_scan and its "
+          f"autograd in fp32 " + ", ".join(f"{n} {e:.3e}" for n, e in
+                                           zip(names, errs))
+          + f" (normwise {LA_TOL[name]}); the chunk-128 plain version: "
           f"{100 * nan_share:.1f}% of o NaN")
 
 
 def time_gated_linear_attention(bh, t, d, chunk, gen, dev) -> dict:
     """B8, B9-dq and B9-dkv at the gated training main path's shape (bf16
     q, k, v, do; fp32 g at the model's decay), with their plain versions,
-    from CUDA-graph replays. Bounds as ``time_linear_attention``'s: the
-    scan form's 2·T·D² per row for each state update or product (two for
-    B8 and dq, three for dk/dv) plus one exp per decay element, over the
-    bf16 tensor-core rate (``fp32_bound_ms``: over 67 TFLOP/s), or each
-    input read once and each output written once (the fp32 g, dq and dk
-    at four bytes) over 3.35 TB/s."""
+    from CUDA-graph replays; B9 as a whole (``ops.bwd``, both launches)
+    and the eager dg epilogue that B9 ran after them before its dk/dv
+    launch formed dg (``ref.dg_epilogue`` and the casts of dq and dk to
+    bf16). Bounds as ``time_linear_attention``'s: the scan form's 2·T·D²
+    per row for each state update or product (two for B8 and dq, three
+    for dk/dv, five for B9) plus one exp per decay element, over the bf16
+    tensor-core rate (``fp32_bound_ms``: over 67 TFLOP/s), or each input
+    read once and each output written once (the fp32 g, q⊙dq and dg at
+    four bytes) over 3.35 TB/s."""
     import torch
     from repro_torch.kernels.gated_linear_attention import ops as GL
     from repro_torch.kernels.gated_linear_attention import ref as GR
     q, k, v, do, g = gla_rows(bh, t, d, torch.bfloat16, "model", gen, dev)
+    _, qdq = GL.bwd_dq(q, k, v, g, do, chunk=chunk)
     x_bytes, f_bytes = q.nbytes, g.nbytes
     state_bytes = bh * d * d * 4
     per_product = bh * t * 2 * d * d
@@ -993,19 +1062,28 @@ def time_gated_linear_attention(bh, t, d, chunk, gen, dev) -> dict:
              lambda i: GR.chunked_fwd_ref(q, k, v, g, chunk=chunk),
              4 * x_bytes + f_bytes + state_bytes, 2),
             ("gated_linear_attention_bwd_dq",
-             lambda i: GL.bwd_dq(k, v, g, do, chunk=chunk),
-             lambda i: GR.chunked_bwd_dq_ref(k, v, g, do, chunk=chunk),
-             3 * x_bytes + 2 * f_bytes, 2),
+             lambda i: GL.bwd_dq(q, k, v, g, do, chunk=chunk),
+             lambda i: GR.bwd_dq_ref(q, k, v, g, do, chunk=chunk),
+             5 * x_bytes + 2 * f_bytes, 2),
             ("gated_linear_attention_bwd_dkv",
-             lambda i: GL.bwd_dkv(q, k, v, g, do, chunk=chunk),
-             lambda i: GR.chunked_bwd_dkv_ref(q, k, v, g, do, chunk=chunk),
-             5 * x_bytes + 2 * f_bytes, 3)):
+             lambda i: GL.bwd_dkv(q, k, v, g, do, qdq, chunk=chunk),
+             lambda i: GR.bwd_dkv_dg_ref(q, k, v, g, do, qdq, chunk=chunk),
+             6 * x_bytes + 3 * f_bytes, 3),
+            ("bwd",
+             lambda i: GL.bwd(q, k, v, g, do, chunk=chunk),
+             lambda i: GR.chunked_bwd_ref(q, k, v, g, do, chunk=chunk),
+             7 * x_bytes + 2 * f_bytes, 5)):
         ops = n_products * per_product + n_exp
         out[name] = dict(ms=graph_ms(kern, 4, replays=5),
                          plain_ms=graph_ms(plain, 2, replays=3),
                          library_ms=None,
                          fp32_bound_ms=bound(n_bytes, ops)["bound_ms"],
                          **bound(n_bytes, ops, PEAK_BF16_TC_FLOPS))
+    dq32 = GR.chunked_bwd_dq_ref(k, v, g, do, chunk=chunk)
+    dk32, _ = GR.chunked_bwd_dkv_ref(q, k, v, g, do, chunk=chunk)
+    out["old_epilogue_ms"] = graph_ms(
+        lambda i: (GR.dg_epilogue(q, k, g, dq32, dk32), dq32.to(q.dtype),
+                   dk32.to(k.dtype)), 4, replays=5)
     return out
 
 
@@ -1367,7 +1445,7 @@ TRAIN_KERNELS = {
                       "gated_linear_attention_bwd_dq",
                       "gated_linear_attention_bwd_dkv"),
                      ("B8", "B9-dq", "B9-dkv"),
-                     "gated_linear_attention/kernel.py", (85, 201, 201),
+                     "gated_linear_attention/kernel.py", (85, 212, 232),
                      "decay_sweep")}
 
 
@@ -1466,7 +1544,7 @@ def profile_train_step(loop, batch, kernel) -> dict:
     if not total:
         print("  profile: the profiler reported no device time "
               "(not measured)")
-        return {"busy": None, "sweep_ms": None}
+        return {"busy": None, "sweep_ms": None, "rows": []}
     print(f"  profile: {total / 1e3:.3f} ms device time per step; device "
           f"busy {100 * total / 1e3 / wall_ms:.1f}% of the step")
     for i, (t, key, count) in enumerate(rows):
@@ -1482,7 +1560,8 @@ def profile_train_step(loop, batch, kernel) -> dict:
     print("  device time by kind: " + "; ".join(
         f"{k} {ms:.3f} ms ({100 * ms / (total / 1e3):.1f}%, {n} launches)"
         for k, (ms, n) in sorted(kinds.items(), key=lambda kv: -kv[1][0])))
-    return {"busy": total / 1e3 / wall_ms, "device_ms": total / 1e3}
+    return {"busy": total / 1e3 / wall_ms, "device_ms": total / 1e3,
+            "rows": rows}
 
 
 # kernel names by kind, first match wins
@@ -1556,6 +1635,17 @@ def training_main_path(backend, dev, gen, phase) -> list:
         print(f"  device busy {100 * prof['busy']:.1f}% of a profiled step; "
               f"{prof['device_ms']:.3f} ms device time against "
               f"{ms:.3f} ms per step unprofiled")
+    if backend == "gated_linear":
+        # B9's bf16 route forms dg inside its dk/dv launch: the step runs
+        # no flip or cumulative-sum kernel (the eager epilogue it
+        # replaced did)
+        epi = [(t, key, n) for t, key, n in prof["rows"]
+               if "flip" in key or "scan" in key or "cumsum" in key]
+        if epi:
+            raise AssertionError(f"phase {phase}: flip or cumsum kernels in "
+                                 f"the gated step: {epi}")
+        print(f"  flip or cumsum kernels in the profiled step: none "
+              f"({len(prof['rows'])} device rows)")
     del loop, out, batch
     torch.cuda.empty_cache()
 
@@ -1563,6 +1653,17 @@ def training_main_path(backend, dev, gen, phase) -> list:
     timer = {"linear": time_linear_attention,
              "gated_linear": time_gated_linear_attention}[backend]
     t = timer(rows, args.seq_len, cfg.head_dim, cfg.linear_chunk, gen, dev)
+    if backend == "gated_linear":
+        r, old = t["bwd"], t["old_epilogue_ms"]
+        print(f"B9 as a whole (ops.bwd: the dq launch, then the dk/dv launch "
+              f"with dg) rows={rows} T={args.seq_len} D={cfg.head_dim} bf16: "
+              f"{r['ms'] * 1e3:.2f} us (dq {t[names[1]]['ms'] * 1e3:.2f} + "
+              f"dk/dv/dg {t[names[2]]['ms'] * 1e3:.2f} us timed alone); "
+              f"bound {r['bound_ms'] * 1e3:.2f} us by {r['bound_by']} "
+              f"({r['bytes'] / 1e6:.2f} MB, {r['flops'] / 1e9:.2f} GFLOP on "
+              f"bf16 tensor cores); plain version {r['plain_ms'] * 1e3:.2f} "
+              f"us; the eager dg epilogue it replaced (ref.dg_epilogue and "
+              f"the casts of dq and dk) alone {old * 1e3:.2f} us")
     records = []
     for name, line in zip(names, lines):
         r = t[name]
@@ -1794,18 +1895,17 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s "
           f"(nvcc {build.BUILD_SECONDS})")
     for name, log in build.BUILD_LOG.items():
-        for line in log.splitlines():
-            # registers, spills and ptxas's "performance loss" notes (a
-            # wgmma that had to be serialized)
-            if "registers" in line or "spill" in line or "C75" in line:
-                print(f"  {name}: {line.strip()}")
-    n_hgmma = hgmma_count(build, FA.SOURCE)
-    if not n_hgmma:
-        raise AssertionError("phase 1: no HGMMA in the flash_attention "
-                             "library: B10's bf16 route is not on the "
-                             "tensor cores")
-    print(f"  flash_attention.cu: {n_hgmma} HGMMA (wgmma) instructions in "
-          f"the built library (cuobjdump --dump-sass)")
+        for line in ptxas_notes(log):
+            print(f"  {name}: {line}")
+    # the bf16 routes of B10 and B9 run on the tensor cores
+    for source, ids in ((FA.SOURCE, "B10"), (GL.SOURCE, "B9")):
+        n_hgmma = hgmma_count(build, source)
+        if not n_hgmma:
+            raise AssertionError(f"phase 1: no HGMMA in {source.name}'s "
+                                 f"library: {ids}'s bf16 route is not on "
+                                 f"the tensor cores")
+        print(f"  {source.name}: {n_hgmma} HGMMA (wgmma) instructions in "
+              f"the built library (cuobjdump --dump-sass)")
     done(1, t0)
 
     # -- 2. kernels against their plain versions --------------------------
@@ -1876,13 +1976,20 @@ def main() -> int:
     # the wrapper (padding, per-head decay); then at the clamp
     errs.update(check_gla_rows(128, 1024, 128, torch.bfloat16, 128, "model",
                                gen, dev))
-    check_gla_rows(6, 272, 128, torch.float32, 16, "mild", gen, dev)
-    check_gla_rows(4, 75, 128, torch.float32, 75, "mild", gen, dev)
-    check_gla_rows(6, 48, 16, torch.float32, 16, "mild", gen, dev)
+    # B9's bf16 route takes 64-token tiles: T = 272, 75, 48 and 200 are
+    # not multiples of it; both routes at D = 16 and 128
+    for dtype in (torch.float32, torch.bfloat16):
+        check_gla_rows(6, 272, 128, dtype, 16, "mild", gen, dev)
+        check_gla_rows(4, 75, 128, dtype, 75, "mild", gen, dev)
+        check_gla_rows(6, 48, 16, dtype, 16, "mild", gen, dev)
+    check_gla_rows(6, 200, 16, torch.bfloat16, 40, "mild", gen, dev)
     check_gla_wrapper(40, 16, torch.float32, 16, False, gen, dev)
     check_gla_wrapper(200, 128, torch.float32, 128, True, gen, dev)
-    check_gla_wrapper(200, 128, torch.bfloat16, 128, False, gen, dev)
-    check_gla_clamp(gen, dev)
+    for scalar in (False, True):                    # per-head decay too
+        check_gla_wrapper(200, 128, torch.bfloat16, 128, scalar, gen, dev)
+    check_gla_wrapper(75, 16, torch.bfloat16, 16, True, gen, dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        check_gla_clamp(dtype, gen, dev)
     print(f"phase 2: gated_linear_attention_fwd (inclusive, exclusive + u), "
           f"_bwd_dq and _bwd_dkv agree with their plain versions (normwise "
           f"{LA_TOL}) and, at the clamp, with gla_scan")

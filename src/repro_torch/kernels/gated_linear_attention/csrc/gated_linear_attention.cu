@@ -2,20 +2,24 @@
 // sm_90a.
 //
 // Replaces repro/kernels/gated_linear_attention/kernel.py:
-//   fwd (B8, _fwd_kernel)            -> gated_linear_attention_fwd
-//   bwd (B9, _dq_kernel)             -> gated_linear_attention_bwd_dq
-//   bwd (B9, _dkv_kernel)            -> gated_linear_attention_bwd_dkv
-// (bwd's dg epilogue, reverse-cumsum(q⊙dq − k⊙dk), stays in PyTorch, as
-// JAX computes it outside the pallas_call.)
+//   fwd (B8, _fwd_kernel; pallas_call at :98) -> gated_linear_attention_fwd
+//   bwd (B9, _dq_kernel at :212, _dkv_kernel at :232, and its jnp dg
+//        epilogue at :255-261)  -> gated_linear_attention_bwd_dq
+//                                  gated_linear_attention_bwd_dkv
 //
 // The paper's §4 decay form, per (batch·head) row: with a_t = exp(g_t),
 // g clamped to [min_log_decay, 0],
 //     S_t = diag(a_t) S_{t-1} + k_t v_tᵀ ;   o_t = S_tᵀ q_t   (inclusive)
 // or o_t = (S_{t-1} + diag(u) k_t v_tᵀ)ᵀ q_t (exclusive + u, RWKV-6).
+// B9 returns dq, dk, dv and dg = reverse-cumsum(q⊙dq − k⊙dk), zero where
+// the clamp held g. Only q, k, v, g and do are read: no state is stored,
+// the paper's memory argument.
 //
-// All four sweeps are one kernel body, B2/B3's sweep with decay factors:
-// a running fp32 state X (D×DS) from zero, for each tile of TC tokens
-// with b the cumulative clamped log-decay FROM THE TILE'S START,
+// Two bodies.
+//
+// 1. fp32 FMAs (B8 in both types, B9 in fp32): B2/B3's sweep with decay
+// factors. A running fp32 state X (D×DS) from zero, for each tile of TC
+// tokens with b the cumulative clamped log-decay FROM THE TILE'S START,
 //     out = ((Â B̂ᵀ ⊙ M) Ĉ + Â X) ⊙ E_out ;  X ← (X + B̂ᵀ Ĉ) ⊙ E_tot
 // where the hats scale an operand by exp(±b) per channel:
 //   o  = sweep(q·e^{b}, k·e^{-b}, v) forward; X = S, rows × e^{btot}
@@ -26,41 +30,92 @@
 // (R = later tiles' Σ q̂ doᵀ; a reverse sweep decays X by its tile's
 // e^{btot} before using it, where the forward sweep decays after the
 // update). A reverse sweep walks the tiles last to first and loads each
-// tile's rows reversed, which turns Mᵀ into M, as in B3. dk and dv share
-// one launch (blockIdx.z). Only q, k, v, g and do are read: no state is
-// stored, the paper's memory argument.
+// tile's rows reversed, which turns Mᵀ into M. dk and dv share one launch
+// (blockIdx.z); dq and dk come out in fp32 and the wrapper forms dg. A
+// block owns one row and one DS-column slice (DS = 64 at D = 128); the
+// state slice stays in shared memory, each tile stages g's cumulative
+// sum, the scaled operands and the C slice in fp32, and the products are
+// register-tiled FMAs. Tiles are TC = 32 tokens: with g at its clamp (−1)
+// |b| <= 32, every factor lies in [e^-32, e^32], and the carried state is
+// only ever multiplied by e^{btot} <= 1, so the sweeps stay finite where
+// the chunk-128 Pallas bodies and plain versions give inf and NaN.
 //
-// Why tiles of at most 32 tokens: with g at its clamp (−1), b over a
-// 128-token chunk reaches −128 and exp(−b) passes fp32's limit (about
-// e^88.7); the Pallas bodies and the chunk-128 plain versions then give
-// inf and NaN. Here |b| ≤ TC ≤ 32, so every factor lies in
-// [e^-32, e^32], and the carried state is only ever multiplied by
-// e^{btot} ≤ 1: the kernels stay finite and agree with the per-token
-// recurrence. The function does not depend on the blocking otherwise.
-// A ragged last tile loads zero rows and log-decay 0 (JAX pads g with 0),
-// which add nothing and decay nothing.
+// 2. bf16 B9 on the tensor cores (decay_sweep_dq_tc, decay_sweep_dkv_tc).
 //
-// Bound: operations. At the training main path's shape (128 rows,
-// T = 1,024, D = 128, bf16 q/k/v, fp32 g) the scan form needs 2·T·D² per
-// row for each state update and product: two for o and dq (8.6 GFLOP,
-// 128 µs at the fp32 CUDA-core rate of 67 TFLOP/s), three for dk/dv
-// (192 µs); the bytes (201–268 MB with the fp32 g) take 60–80 µs at
-// 3.35 TB/s. The tiled form does more: the score products, recomputed
-// by each column slice, and the exps.
+// Bound. At the gated training main path's shape (128 rows, T = 1,024,
+// D = 128; bf16 q, k, v, do; fp32 g) B9 as a function reads q, k, v, do
+// (134.2 MB) and g (67.1 MB) and writes dq, dk, dv (100.7 MB) and dg
+// (67.1 MB): 369.1 MB, 110.2 µs at 3.35 TB/s. Its five products (the
+// scan form's 2·T·D² per row each: S and dq; R, dk and dv) take 21.5
+// GFLOP, 21.7 µs on the bf16 tensor cores. Bytes bound it. A forward and
+// a reverse sweep each have to read the inputs, and q⊙dq has to pass
+// from the first to the second in fp32, so two launches move at least
+// 703.5 MB (210.0 µs): dq reads q, k, v, do, g and writes dq and q⊙dq;
+// dk/dv reads q, k, v, do, g and q⊙dq and writes dk, dv and dg.
 //
-// Design: B2/B3's simple, correct layout on the fp32 CUDA cores (no
-// tensor cores, TMA or pipelining yet). A block owns one row and one
-// DS-column slice (DS = 64 at D = 128: 256 blocks at 128 rows). The
-// state slice (32 KiB) stays in shared memory across the loop; each tile
-// stages g's cumulative sum, the scaled A and B, and the C slice in fp32
-// (96 KiB in all at D = 128, two blocks per SM). Products are
-// register-tiled FMAs over threads with rows and columns interleaved and
-// shared rows padded by one word. Accumulation is fp32; o and dv are
-// written in the input's type, dq and dk in fp32 for the dg epilogue.
-// Launches on the caller's stream, allocates nothing.
+// Design.
+// - Grid: one block of two warpgroups per row, walking the row's 64-token
+//   tiles (wgmma's M) forward (dq) or last to first (dk/dv). With the
+//   default clamp of −1 a 64-token tile keeps |b| <= 64 and every e^{±b}
+//   within [e^-64, e^64], finite in fp32 and in bf16 (the same exponent);
+//   every product pairs an e^{-b} with an e^{+b} or a decayed state, so
+//   no intermediate passes e^64 · |x|. (A min_log_decay below −1.38 can
+//   overflow: 64·1.38 > 88.7.)
+// - Loads: one thread issues TMA loads of a whole tile (q, k, v, do in
+//   64-column bf16 blocks with the 128-byte swizzle; g in 32-column fp32
+//   blocks, swizzled the same way) into a ring of two stages, the next
+//   tile's during this tile's work; rows past T read as zeros (log-decay
+//   0: they add and decay nothing). Two stages of 96 KiB and the state's
+//   copy take 224 KiB of the 227.
+// - The cumulative log-decay of a tile is one scan along tokens per
+//   channel (a thread per channel and half tile), kept in place of g in
+//   log2 units, so each e^{±b} is one ex2. The scaled operands (K̂ = k e^{-b}
+//   in both launches, Q̂ = q e^{b} in dk/dv) are written over the raw tile
+//   in bf16 before the products.
+// - Products: wgmma, bf16 operands, fp32 accumulators. The state (S for
+//   dq, R for dk/dv, D×D fp32, [dk][dv]) lives in the accumulator
+//   registers, its rows split over the two warpgroups (64 registers each
+//   at D = 128); each tile a bf16 copy goes to shared memory as the
+//   operand of the inter-tile products. dq: each warpgroup owns 64 columns
+//   of dq and computes the 64×64 score tile dO Vᵀ itself (1 MFLOP on the
+//   tensor cores: the ring leaves no room for a shared copy), then
+//   P K̂ + dO Sᵀ with the state update K̂ᵀ V beside it. dk/dv: warpgroup 0
+//   computes dk from the score tile V dOᵀ, warpgroup 1 dv from K̂ Q̂ᵀ, each
+//   from one score tile and the one state copy, with the update Q̂ᵀ dO
+//   beside; R is built once for both. Masks are applied to the score
+//   accumulators in registers (M for dq, Mᵀ for the reverse sweep), and
+//   each score tile enters its product as two bf16 parts (hi + lo), so
+//   the scores are not rounded to 8 bits.
+// - Keeping ptxas from serializing the wgmmas (its C7515/C7520 notes):
+//   the score tile is a group of its own, waited for before its masking
+//   writes the next group's register operands; each group is straight-line
+//   code (a branch inside an open group serializes it), and the warpgroup
+//   index comes from a shuffle, so that ptxas sees it uniform. Offsets
+//   derived from the thread index are recomputed in each tile, so that
+//   the compiler does not hold them in registers across the tile loop
+//   (the dk/dv launch spilled when it did).
+// - dg, fused: the dq launch also writes q⊙dq in fp32, as Q̂ ⊙ (dq e^{-b})
+//   with Q̂ rounded to bf16 exactly as the dk/dv launch rounds it; the
+//   dk/dv launch forms K̂ ⊙ (dk e^{b}) from the same bf16 K̂. Each pair of
+//   tokens within a tile then enters q⊙dq and k⊙dk as the same product of
+//   the same rounded numbers, and cancels in the difference as it does in
+//   exact arithmetic (rounded separately, the in-tile pairs would leave
+//   errors that the reverse cumulative sum adds up). Warpgroup 0 keeps
+//   dk's part in shared memory; then a thread per channel and half tile
+//   takes the reverse cumulative sum of the difference over the tile, adds
+//   the later tiles' running sum it carries, applies the clamp's mask
+//   (kept as bits from the decay scan) and writes dg in fp32. dq, dk and
+//   dv are written in bf16 from the accumulators.
+// - A barrier wait that lasts seconds traps, so that a lost phase fails
+//   the launch instead of hanging the card.
+//
+// All launches run on the caller's stream and allocate nothing.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace {
 
@@ -419,15 +474,893 @@ Sweep<T> sweep(const void* a, const void* b, const void* c, void* out,
                   f32_out ? static_cast<float*>(out) : nullptr, mode};
 }
 
+// ---------------------------------------------------------------------------
+// B9 in bf16: tensor cores (see the header, body 2). The TMA, mbarrier and
+// wgmma helpers repeat flash_attention.cu's: each source builds into a
+// library of its own, named by a hash of that source alone, so a header
+// shared between them could change without a rebuild.
+// ---------------------------------------------------------------------------
+namespace tc {
+
+constexpr int kTile = 64;                    // tokens per tile: wgmma's M
+constexpr int kThreads = 256;                // two warpgroups
+constexpr int kRowBytes = 128;               // one swizzle row
+constexpr int kBlock = kTile * kRowBytes;    // a 64-row block: 8 KiB
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Shared memory, from a 1024-byte aligned base (the swizzle's period):
+// two stages of {q, k, v, do: DC blocks of [64 tokens][64 bf16] each;
+// g: GB blocks of [64 tokens][32 fp32]}, every block as TMA writes it
+// with the 128-byte swizzle; the state's bf16 copy, DC blocks of
+// [DP rows][64 bf16], swizzled the same way; e^{btot} (log2 units) per
+// channel; the scans' per-channel totals; two mbarriers.
+template <int D>
+struct L {
+  static constexpr int DC = (D + 63) / 64;     // 64-column bf16 blocks
+  static constexpr int DP = 64 * DC;           // D padded to them
+  static constexpr int GB = (D + 31) / 32;     // 32-column fp32 blocks
+  static constexpr int GW = 32 * GB;           // channels the scans take
+  static constexpr int tile = DC * kBlock;     // one bf16 tensor's tile
+  static constexpr int q = 0, k = tile, v = 2 * tile, o = 3 * tile,
+                       g = 4 * tile;
+  static constexpr int stage = 4 * tile + GB * kBlock;
+  static constexpr int x = 2 * stage;
+  static constexpr int xblock = DP * kRowBytes;
+  static constexpr int btot = x + DC * xblock;
+  static constexpr int tot = btot + 4 * DP;
+  static constexpr int bars = tot + 8 * GW;
+  static constexpr int bytes = bars + 16 + 1024;
+};
+
+// byte offset of bf16 element (r, c) in a swizzled tile whose 64-column
+// blocks lie block_bytes apart
+__device__ __forceinline__ int off16(int block_bytes, int r, int c) {
+  return (c >> 6) * block_bytes + r * kRowBytes +
+         ((((c & 63) >> 3) ^ (r & 7)) << 4) + ((c & 7) << 1);
+}
+// byte offset of fp32 element (r, c) in a swizzled g tile
+__device__ __forceinline__ int off32(int r, int c) {
+  return (c >> 5) * kBlock + r * kRowBytes +
+         ((((c & 31) >> 2) ^ (r & 7)) << 4) + ((c & 3) << 2);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// returns once the phase of parity `parity` has completed; a wait of 2^34
+// clocks (seconds) means a lost phase and traps
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  const long long start = clock64();
+  uint32_t done = 0;
+  while (true) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.b32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (clock64() - start > (1ll << 34)) __trap();
+  }
+}
+
+// one box of a 3-D tensor map (coordinates innermost first) into shared
+// memory, completing its bytes on the barrier
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1,
+                                         int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2)
+      : "memory");
+}
+
+// this thread's generic-proxy shared-memory writes, made visible to the
+// async proxy (wgmma's operand reads, TMA's writes)
+__device__ __forceinline__ void fence_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle: K-major operands step
+// 8-row groups by sbo = 1024 bytes (lbo unused); MN-major ones are one
+// 64-wide swizzle atom each, stepped along K by 8-row groups (1024 bytes)
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
+                                         uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+// k16 step kk of a K-major operand: 64 rows at `base`, 64-column blocks
+// block_bytes apart
+__device__ __forceinline__ uint64_t kdesc(uint32_t base, int block_bytes,
+                                          int kk) {
+  return desc(base + (kk >> 2) * block_bytes + (kk & 3) * 32, 16, 1024);
+}
+// k16 step kk of an MN-major operand: one 64-column block at `base`, K
+// along its rows
+__device__ __forceinline__ uint64_t mdesc(uint32_t base, int kk) {
+  return desc(base + kk * 16 * kRowBytes, 1024, 1024);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
+// keeps the compiler from moving register reads and writes across the
+// asynchronous window between a wgmma's issue and its wait
+__device__ __forceinline__ void fence_regs(float (&r)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N][32]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) fence_regs(r[i]);
+}
+
+// d (64×64 fp32) += A (64×16) · B (16×64), both from shared memory; TA,
+// TB: 0 K-major, 1 MN-major; scale_d = 0: d = A·B
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, %32, %33, p, 1, 1, %35, %36;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// d (64×64 fp32) += A (64×16 bf16, registers) · B (16×64, shared,
+// MN-major)
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                         const uint32_t (&a)[4], uint64_t db,
+                                         int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+__device__ __forceinline__ float lo_f(uint32_t x) {
+  return __uint_as_float(x << 16);
+}
+__device__ __forceinline__ float hi_f(uint32_t x) {
+  return __uint_as_float(x & 0xFFFF0000u);
+}
+
+// 2^x in one MUFU op
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// a bf16 pair scaled by 2^(b0), 2^(b1), rounded to bf16: the one
+// definition of Q̂ and K̂, so that both launches round them alike
+__device__ __forceinline__ uint32_t scale_pair(uint32_t x, float b0,
+                                               float b1) {
+  return pack_bf16(lo_f(x) * ex2(b0), hi_f(x) * ex2(b1));
+}
+
+__device__ __forceinline__ float clamp_decay(float g, float lo) {
+  return g < lo ? lo : (g > 0.f ? 0.f : g);  // jnp.clip's order: NaN stays
+}
+
+// The tile's cumulative clamped log-decay b (inclusive, from the tile's
+// first token, per channel), written over g in log2 units, and
+// btot[c] = b of the last token. Thread (c, h) = (tid % GW, tid / GW)
+// takes tokens 32h..32h+31 of channel c (threads past 2·GW only meet the
+// barriers) and returns the clamp's mask for them: bit i is set where
+// min_log_decay <= g <= 0 at token 32h + i. Ends with the block in step.
+template <int D>
+__device__ __forceinline__ uint32_t decay_scan(uint8_t* gs, float* tot,
+                                               float* btot, float lo,
+                                               int tid) {
+  using S = L<D>;
+  const int c = tid % S::GW, h = tid / S::GW;
+  const bool on = tid < 2 * S::GW;
+  uint32_t mask = 0;
+  float loc[32];
+  if (on) {
+    float acc = 0.f;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const float x = *reinterpret_cast<const float*>(gs + off32(32 * h + i,
+                                                                 c));
+      mask |= static_cast<uint32_t>(x >= lo && x <= 0.f) << i;
+      acc += clamp_decay(x, lo);
+      loc[i] = acc;
+    }
+    if (h == 0) tot[c] = acc;
+  }
+  __syncthreads();
+  if (on) {
+    const float off = h ? tot[c] : 0.f;
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      *reinterpret_cast<float*>(gs + off32(32 * h + i, c)) =
+          (loc[i] + off) * kLog2e;
+    if (h) btot[c] = (loc[31] + off) * kLog2e;
+  }
+  __syncthreads();
+  return mask;
+}
+
+// x ← bf16(x · 2^(sign · b)) in place over a tile slot's real columns
+template <int D>
+__device__ __forceinline__ void scale_slot(uint8_t* slot, const uint8_t* gs,
+                                           float sign, int tid) {
+  using S = L<D>;
+  for (int e = tid; e < S::DC * 64 * 8; e += kThreads) {
+    const int blk = e >> 9, r = (e >> 3) & 63, ch = e & 7;
+    const int c0 = blk * 64 + ch * 8;
+    if (c0 >= D) continue;
+    uint4* p = reinterpret_cast<uint4*>(slot + blk * kBlock + r * kRowBytes +
+                                        ((ch ^ (r & 7)) << 4));
+    const float4 b0 = *reinterpret_cast<const float4*>(gs + off32(r, c0));
+    const float4 b1 =
+        *reinterpret_cast<const float4*>(gs + off32(r, c0 + 4));
+    uint4 x = *p;
+    x.x = scale_pair(x.x, sign * b0.x, sign * b0.y);
+    x.y = scale_pair(x.y, sign * b0.z, sign * b0.w);
+    x.z = scale_pair(x.z, sign * b1.x, sign * b1.y);
+    x.w = scale_pair(x.w, sign * b1.z, sign * b1.w);
+    *p = x;
+  }
+}
+
+// the bf16 copy of this warpgroup's state rows 64·wg + (0..63), all
+// columns, into the copy's swizzled blocks
+template <int D>
+__device__ __forceinline__ void store_state(uint8_t* xs,
+                                            const float (&x)[L<D>::DC][32],
+                                            int wg, int r0, int cl) {
+  using S = L<D>;
+#pragma unroll
+  for (int j = 0; j < S::DC; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int g = 0; g < 8; ++g) {
+        const int r = 64 * wg + r0 + 8 * h;
+        *reinterpret_cast<uint32_t*>(xs + off16(S::xblock, r,
+                                                64 * j + 8 * g + cl)) =
+            pack_bf16(x[j][4 * g + 2 * h], x[j][4 * g + 2 * h + 1]);
+      }
+}
+
+// multiplies this warpgroup's state rows by 2^btot2[row]
+template <int D>
+__device__ __forceinline__ void decay_state(float (&x)[L<D>::DC][32],
+                                            const float* btot, int wg,
+                                            int r0) {
+  const float e0 = ex2(btot[64 * wg + r0]), e1 = ex2(btot[64 * wg + r0 + 8]);
+#pragma unroll
+  for (int j = 0; j < L<D>::DC; ++j)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) x[j][i] *= (i & 2) ? e1 : e0;
+}
+
+// A score tile in the accumulator layout (row r0 + 8h, column 8g + cl + e
+// at register 4g + 2h + e), masked to column <= row (LOWER) or column >=
+// row, as wgmma's A operand in two bf16 parts: hi = bf16(s), lo =
+// bf16(s - hi). k16 step kk holds columns 16kk..16kk+15, registers
+// 8kk..8kk+7.
+template <bool LOWER>
+__device__ __forceinline__ void mask_split(const float (&s)[32],
+                                           uint32_t (&hi)[4][4],
+                                           uint32_t (&lo)[4][4], int r0,
+                                           int cl) {
+#pragma unroll
+  for (int x = 0; x < 32; x += 2) {
+    const int r = r0 + 8 * ((x >> 1) & 1), c = 8 * (x >> 2) + cl;
+    const float a = (LOWER ? c <= r : c >= r) ? s[x] : 0.f;
+    const float b = (LOWER ? c + 1 <= r : c + 1 >= r) ? s[x + 1] : 0.f;
+    const uint32_t h = pack_bf16(a, b);
+    hi[x / 8][(x % 8) / 2] = h;
+    lo[x / 8][(x % 8) / 2] = pack_bf16(a - lo_f(h), b - hi_f(h));
+  }
+}
+
+// The loads of one tile (its first token tok0) into a stage: q, k, v, do
+// in 64-column blocks, g in 32-column blocks; rows past T read as zeros
+template <int D>
+__device__ __forceinline__ void load_tile(
+    uint32_t stage, uint32_t bar, const CUtensorMap* tq,
+    const CUtensorMap* tk, const CUtensorMap* tv, const CUtensorMap* to,
+    const CUtensorMap* tg, int tok0, int row) {
+  using S = L<D>;
+  mbar_expect_tx(bar, S::stage);
+#pragma unroll
+  for (int cb = 0; cb < S::DC; ++cb) {
+    tma_load(stage + S::q + cb * kBlock, tq, bar, 64 * cb, tok0, row);
+    tma_load(stage + S::k + cb * kBlock, tk, bar, 64 * cb, tok0, row);
+    tma_load(stage + S::v + cb * kBlock, tv, bar, 64 * cb, tok0, row);
+    tma_load(stage + S::o + cb * kBlock, to, bar, 64 * cb, tok0, row);
+  }
+#pragma unroll
+  for (int gb = 0; gb < S::GB; ++gb)
+    tma_load(stage + S::g + gb * kBlock, tg, bar, 32 * gb, tok0, row);
+}
+
+// B9's forward sweep: per 64-token tile, with b from the tile's start and
+// S[dk][dv] the state at the tile's start,
+//     acc = (dO Vᵀ ⊙ M) K̂ + dO Sᵀ ;  dq = e^{b} ⊙ acc ;  q⊙dq = Q̂ ⊙ acc
+//     S ← e^{btot} ⊙ (S + K̂ᵀ V)           (rows, per dk)
+// grid (rows); block kThreads; dynamic shared memory L<D>::bytes. Tensor
+// maps (D, T, rows) with boxes (64, 64, 1) for q, k, v, do and (32, 64, 1)
+// for g.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+decay_sweep_dq_tc(const __grid_constant__ CUtensorMap tq,
+                  const __grid_constant__ CUtensorMap tk,
+                  const __grid_constant__ CUtensorMap tv,
+                  const __grid_constant__ CUtensorMap to,
+                  const __grid_constant__ CUtensorMap tg,
+                  __nv_bfloat16* __restrict__ dq, float* __restrict__ qdq,
+                  int t_len, float lo) {
+  using S = L<D>;
+  constexpr int DC = S::DC;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* const sb = smem_raw + (base - raw);
+  float* const btot = reinterpret_cast<float*>(sb + S::btot);
+  float* const tot = reinterpret_cast<float*>(sb + S::tot);
+  const uint32_t bar0 = base + S::bars;
+  // the warpgroup, from lane 0: provably uniform, so that ptxas does not
+  // take the wgmma branches on it for divergent paths
+  const int tid = threadIdx.x,
+            wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  const int row = blockIdx.x;
+  const int n_tiles = (t_len + kTile - 1) / kTile;
+
+  if (tid == 0) {
+    mbar_init(bar0, 1);
+    mbar_init(bar0 + 8, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  for (int c = tid; c < S::DP; c += kThreads) btot[c] = 0.f;
+  __syncthreads();
+  if (tid == 0)
+    load_tile<D>(base, bar0, &tq, &tk, &tv, &to, &tg, 0, row);
+
+  float x[DC][32];   // S rows 64·wg + (0..63) (wg < DC)
+#pragma unroll
+  for (int j = 0; j < DC; ++j)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) x[j][i] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    // Offsets derived from the thread index are recomputed in each tile:
+    // hoisted out of the loop, they would hold dozens of registers.
+    int t = threadIdx.x;
+    asm volatile("" : "+r"(t));
+    const int r0 = (t % 128) / 32 * 16 + (t % 32) / 4, cl = 2 * (t % 4);
+    if (tid == 0 && it + 1 < n_tiles)
+      load_tile<D>(base + ((it + 1) & 1) * S::stage, bar0 + 8 * ((it + 1) & 1),
+                   &tq, &tk, &tv, &to, &tg, (it + 1) * kTile, row);
+    const uint32_t st = base + (it & 1) * S::stage;
+    uint8_t* const ss = sb + (it & 1) * S::stage;
+    const int tok0 = it * kTile;
+    mbar_wait(bar0 + 8 * (it & 1), (it >> 1) & 1);
+
+    decay_scan<D>(ss + S::g, tot, btot, lo, t);
+    if (wg < DC) store_state<D>(sb + S::x, x, wg, r0, cl);
+    scale_slot<D>(ss + S::k, ss + S::g, -1.f, t);        // K̂
+    fence_async();
+    __syncthreads();
+
+    if (wg < DC) {
+      float sc[32], acc[32];
+      uint32_t hi[4][4], lo2[4][4];
+      // the score tile dO Vᵀ, alone: no register of a later product is
+      // written while a wgmma group is open (ptxas would serialize them)
+      fence_regs(sc);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4 * DC; ++kk)
+        wgmma_ss<0, 0>(sc, kdesc(st + S::o, kBlock, kk),
+                       kdesc(st + S::v, kBlock, kk), kk > 0);
+      wg_commit();
+      fence_regs(sc);
+      wg_wait<0>();
+      fence_regs(sc);
+      mask_split<true>(sc, hi, lo2, r0, cl);
+      // acc = P K̂ (this warpgroup's 64 columns) + dO Sᵀ; beside it the
+      // state update S += K̂ᵀ V (S's copy in shared memory is read, the
+      // registers are updated)
+      fence_regs(acc);
+      fence_regs(x);
+      fence_regs(hi);
+      fence_regs(lo2);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs(acc, hi[kk], mdesc(st + S::k + wg * kBlock, kk), kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs(acc, lo2[kk], mdesc(st + S::k + wg * kBlock, kk), 1);
+#pragma unroll
+      for (int kk = 0; kk < 4 * DC; ++kk)
+        wgmma_ss<0, 0>(acc, kdesc(st + S::o, kBlock, kk),
+                       kdesc(base + S::x + 64 * wg * kRowBytes, S::xblock,
+                             kk),
+                       1);
+#pragma unroll
+      for (int j = 0; j < DC; ++j)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss<1, 1>(x[j], mdesc(st + S::k + wg * kBlock, kk),
+                         mdesc(st + S::v + j * kBlock, kk), 1);
+      wg_commit();
+      fence_regs(acc);
+      fence_regs(x);
+      fence_regs(hi);
+      fence_regs(lo2);
+      wg_wait<0>();
+      fence_regs(acc);
+      fence_regs(x);
+
+      // dq = e^{b} acc in bf16; q⊙dq = Q̂ acc in fp32
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = r0 + 8 * h, tok = tok0 + r;
+        if (tok >= t_len) continue;
+        const size_t off = (static_cast<size_t>(row) * t_len + tok) * D;
+#pragma unroll
+        for (int g = 0; g < 8; ++g) {
+          const int c = 64 * wg + 8 * g + cl;
+          if (c >= D) continue;
+          const float2 b =
+              *reinterpret_cast<const float2*>(ss + S::g + off32(r, c));
+          const float a0 = acc[4 * g + 2 * h], a1 = acc[4 * g + 2 * h + 1];
+          *reinterpret_cast<uint32_t*>(dq + off + c) =
+              pack_bf16(a0 * ex2(b.x), a1 * ex2(b.y));
+          const uint32_t qh = scale_pair(
+              *reinterpret_cast<const uint32_t*>(ss + S::q +
+                                                 off16(kBlock, r, c)),
+              b.x, b.y);
+          *reinterpret_cast<float2*>(qdq + off + c) =
+              make_float2(lo_f(qh) * a0, hi_f(qh) * a1);
+        }
+      }
+      decay_state<D>(x, btot, wg, r0);
+    }
+    fence_async();
+    __syncthreads();   // the stage and the state copy are free
+  }
+}
+
+// The dk/dv launch's products for warpgroup WG, straight-line (a branch
+// inside an open wgmma group makes ptxas serialize it): per 64 columns j,
+// acc_k = S1 Q̂ + V Xᵀ (WG 0) or dv = S2 dO + K̂ X (WG 1), S1 or S2 as the
+// hi and lo parts; beside them the update X += Q̂ᵀ dO of its state rows.
+template <int D, int WG>
+__device__ __forceinline__ void dkv_products(float (&acc)[L<D>::DC][32],
+                                             float (&x)[L<D>::DC][32],
+                                             uint32_t (&hi)[4][4],
+                                             uint32_t (&lo)[4][4],
+                                             uint32_t st, uint32_t base) {
+  using S = L<D>;
+  constexpr int DC = S::DC;
+  const uint32_t rb = st + (WG ? S::o : S::q);
+  fence_regs(acc);
+  fence_regs(x);
+  fence_regs(hi);
+  fence_regs(lo);
+  wg_fence();
+#pragma unroll
+  for (int j = 0; j < DC; ++j) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs(acc[j], hi[kk], mdesc(rb + j * kBlock, kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs(acc[j], lo[kk], mdesc(rb + j * kBlock, kk), 1);
+#pragma unroll
+    for (int kk = 0; kk < 4 * DC; ++kk) {
+      if constexpr (WG == 0)
+        wgmma_ss<0, 0>(acc[j], kdesc(st + S::v, kBlock, kk),
+                       kdesc(base + S::x + 64 * j * kRowBytes, S::xblock,
+                             kk),
+                       1);
+      else
+        wgmma_ss<0, 1>(acc[j], kdesc(st + S::k, kBlock, kk),
+                       mdesc(base + S::x + j * S::xblock, kk), 1);
+    }
+  }
+  if constexpr (WG < DC) {
+#pragma unroll
+    for (int j = 0; j < DC; ++j)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss<1, 1>(x[j], mdesc(st + S::q + WG * kBlock, kk),
+                       mdesc(st + S::o + j * kBlock, kk), 1);
+  }
+  wg_commit();
+  fence_regs(acc);
+  fence_regs(x);
+  fence_regs(hi);
+  fence_regs(lo);
+  wg_wait<0>();
+  fence_regs(acc);
+  fence_regs(x);
+}
+
+// B9's reverse sweep, tiles last to first: per tile, with X = R decayed
+// to the tile's start (X ← e^{btot} ⊙ X first, rows per dk),
+//     acc_k = (V dOᵀ ⊙ Mᵀ) Q̂ + V Xᵀ ;  dk = e^{-b} ⊙ acc_k
+//     dv = (K̂ Q̂ᵀ ⊙ Mᵀ) dO + K̂ X ;      X += Q̂ᵀ dO
+//     dg = reverse-cumsum over T of (q⊙dq − K̂ ⊙ acc_k), masked
+// with q⊙dq from the dq launch. Launch as decay_sweep_dq_tc.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+decay_sweep_dkv_tc(const __grid_constant__ CUtensorMap tq,
+                   const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv,
+                   const __grid_constant__ CUtensorMap to,
+                   const __grid_constant__ CUtensorMap tg,
+                   const float* __restrict__ qdq,
+                   __nv_bfloat16* __restrict__ dk,
+                   __nv_bfloat16* __restrict__ dv, float* __restrict__ dg,
+                   int t_len, float lo) {
+  using S = L<D>;
+  constexpr int DC = S::DC;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* const sb = smem_raw + (base - raw);
+  float* const btot = reinterpret_cast<float*>(sb + S::btot);
+  float* const tot = reinterpret_cast<float*>(sb + S::tot);
+  const uint32_t bar0 = base + S::bars;
+  // the warpgroup, from lane 0: provably uniform, so that ptxas does not
+  // take the wgmma branches on it for divergent paths
+  const int tid = threadIdx.x,
+            wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  const int row = blockIdx.x;
+  const int n_tiles = (t_len + kTile - 1) / kTile;
+
+  if (tid == 0) {
+    mbar_init(bar0, 1);
+    mbar_init(bar0 + 8, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  for (int c = tid; c < S::DP; c += kThreads) btot[c] = 0.f;
+  __syncthreads();
+  if (tid == 0)
+    load_tile<D>(base, bar0, &tq, &tk, &tv, &to, &tg,
+                 (n_tiles - 1) * kTile, row);
+
+  float x[DC][32];   // R rows 64·wg + (0..63) (wg < DC)
+#pragma unroll
+  for (int j = 0; j < DC; ++j)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) x[j][i] = 0.f;
+  float carry = 0.f;   // dg: the later tiles' sum, channel sc_c
+
+  for (int it = 0; it < n_tiles; ++it) {
+    // Offsets derived from the thread index are recomputed in each tile:
+    // hoisted out of the loop, they would hold dozens of registers.
+    int t = threadIdx.x;
+    asm volatile("" : "+r"(t));
+    const int r0 = (t % 128) / 32 * 16 + (t % 32) / 4, cl = 2 * (t % 4);
+    // the dg scan's thread: channel c, tokens 32h..32h+31 of the tile
+    const int sc_c = t % S::GW, sc_h = t / S::GW;
+    const bool scans = t < 2 * S::GW && sc_c < D;
+    if (tid == 0 && it + 1 < n_tiles)
+      load_tile<D>(base + ((it + 1) & 1) * S::stage, bar0 + 8 * ((it + 1) & 1),
+                   &tq, &tk, &tv, &to, &tg, (n_tiles - 2 - it) * kTile, row);
+    const uint32_t st = base + (it & 1) * S::stage;
+    uint8_t* const ss = sb + (it & 1) * S::stage;
+    const int tok0 = (n_tiles - 1 - it) * kTile;
+    mbar_wait(bar0 + 8 * (it & 1), (it >> 1) & 1);
+
+    const uint32_t mask = decay_scan<D>(ss + S::g, tot, btot, lo, t);
+    if (wg < DC) {
+      decay_state<D>(x, btot, wg, r0);
+      store_state<D>(sb + S::x, x, wg, r0, cl);
+    }
+    scale_slot<D>(ss + S::q, ss + S::g, 1.f, t);         // Q̂
+    scale_slot<D>(ss + S::k, ss + S::g, -1.f, t);        // K̂
+    fence_async();
+    __syncthreads();
+
+    float acc[DC][32];
+    {
+      float sc[32];
+      uint32_t hi[4][4], lo2[4][4];
+      // this warpgroup's score tile, alone (as in the dq launch): V dOᵀ
+      // for dk, K̂ Q̂ᵀ for dv
+      const uint32_t sa = st + (wg ? S::k : S::v);
+      const uint32_t sb2 = st + (wg ? S::q : S::o);
+      fence_regs(sc);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4 * DC; ++kk)
+        wgmma_ss<0, 0>(sc, kdesc(sa, kBlock, kk), kdesc(sb2, kBlock, kk),
+                       kk > 0);
+      wg_commit();
+      fence_regs(sc);
+      wg_wait<0>();
+      fence_regs(sc);
+      mask_split<false>(sc, hi, lo2, r0, cl);
+
+      if (wg == 0)
+        dkv_products<D, 0>(acc, x, hi, lo2, st, base);
+      else
+        dkv_products<D, 1>(acc, x, hi, lo2, st, base);
+    }
+
+    // this tile's q⊙dq for the dg scan, in flight during the epilogue
+    float pv[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int tok = tok0 + 32 * sc_h + i;
+      pv[i] = scans && tok < t_len
+                  ? __ldg(qdq + (static_cast<size_t>(row) * t_len + tok) * D +
+                          sc_c)
+                  : 0.f;
+    }
+
+    // dk = e^{-b} acc_k and K̂ ⊙ acc_k (over b, in place); dv
+#pragma unroll
+    for (int j = 0; j < DC; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = r0 + 8 * h, tok = tok0 + r;
+        const size_t off = (static_cast<size_t>(row) * t_len + tok) * D;
+#pragma unroll
+        for (int g = 0; g < 8; ++g) {
+          const int c = 64 * j + 8 * g + cl;
+          if (c >= D) continue;
+          const float a0 = acc[j][4 * g + 2 * h];
+          const float a1 = acc[j][4 * g + 2 * h + 1];
+          if (wg == 0) {
+            float2* bp = reinterpret_cast<float2*>(ss + S::g + off32(r, c));
+            const float2 b = *bp;
+            const uint32_t kh = *reinterpret_cast<const uint32_t*>(
+                ss + S::k + off16(kBlock, r, c));
+            if (tok < t_len)
+              *reinterpret_cast<uint32_t*>(dk + off + c) =
+                  pack_bf16(a0 * ex2(-b.x), a1 * ex2(-b.y));
+            *bp = make_float2(lo_f(kh) * a0, hi_f(kh) * a1);
+          } else if (tok < t_len) {
+            *reinterpret_cast<uint32_t*>(dv + off + c) = pack_bf16(a0, a1);
+          }
+        }
+      }
+    __syncthreads();
+
+    // dg: reverse cumulative sum of q⊙dq − K̂ ⊙ acc_k over the tile, plus
+    // the later tiles' sum, masked where the clamp held g
+    if (scans) {
+      float acc_s = 0.f;
+#pragma unroll
+      for (int i = 31; i >= 0; --i) {
+        acc_s += pv[i] - *reinterpret_cast<const float*>(
+                             ss + S::g + off32(32 * sc_h + i, sc_c));
+        pv[i] = acc_s;
+      }
+      tot[sc_h * S::GW + sc_c] = acc_s;
+    }
+    __syncthreads();
+    if (scans) {
+      const float t0 = tot[sc_c], t1 = tot[S::GW + sc_c];
+      const float off = carry + (sc_h == 0 ? t1 : 0.f);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int tok = tok0 + 32 * sc_h + i;
+        if (tok < t_len)
+          dg[(static_cast<size_t>(row) * t_len + tok) * D + sc_c] =
+              (mask >> i) & 1u ? pv[i] + off : 0.f;
+      }
+      carry += t0 + t1;
+    }
+    fence_async();
+    __syncthreads();   // the stage and the state copy are free
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// the driver's cuTensorMapEncodeTiled, through the runtime (the library
+// does not link libcuda)
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// (d, n, rows) of bf16 (fp32 == 0) or fp32, rows of n·d contiguous; box
+// (64 bf16 or 32 fp32 = 128 bytes, 64, 1), 128-byte swizzle, elements out
+// of bounds read as zero
+int tensor_map(CUtensorMap* map, const void* ptr, int fp32, int d, int n,
+               int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (!encode) return static_cast<int>(cudaErrorNotSupported);
+  // The driver call needs the device's context current on this thread. A
+  // thread that has only reused cached allocations (autograd's backward
+  // thread) may have none yet; cudaFree(nullptr) makes the runtime's
+  // current, and frees nothing.
+  static thread_local bool bound = false;
+  if (!bound) {
+    const cudaError_t err = cudaFree(nullptr);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    bound = true;
+  }
+  const cuuint64_t es = fp32 ? 4 : 2;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d),
+                              static_cast<cuuint64_t>(n),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(d) * es,
+                                 static_cast<cuuint64_t>(n) * d * es};
+  const cuuint32_t box[3] = {fp32 ? 32u : 64u, kTile, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult res = encode(
+      map,
+      fp32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+           : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      3, const_cast<void*>(ptr), dims, strides, box, elem,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  // CUDA_ERROR_INVALID_VALUE and the like, kept apart from runtime codes
+  return res == CUDA_SUCCESS ? 0 : 10000 + static_cast<int>(res);
+}
+
+// the maps of q, k, v, do (bf16) and g (fp32)
+int input_maps(CUtensorMap (&m)[5], const void* q, const void* k,
+               const void* v, const void* d_o, const void* g, int d, int t,
+               int rows) {
+  const void* ptrs[5] = {q, k, v, d_o, g};
+  for (int i = 0; i < 5; ++i) {
+    const int err = tensor_map(&m[i], ptrs[i], i == 4, d, t, rows);
+    if (err) return err;
+  }
+  return 0;
+}
+
+template <typename Kernel>
+int configure(Kernel kernel, int smem, bool& configured) {
+  if (configured) return 0;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  configured = true;
+  return 0;
+}
+
+template <int D>
+int launch_dq(const void* q, const void* k, const void* v, const void* g,
+              const void* d_o, void* dq, void* qdq, int rows, int t_len,
+              float lo, cudaStream_t stream) {
+  static bool configured = false;
+  int err = configure(decay_sweep_dq_tc<D>, L<D>::bytes, configured);
+  CUtensorMap m[5];
+  if (!err) err = input_maps(m, q, k, v, d_o, g, D, t_len, rows);
+  if (err) return err;
+  decay_sweep_dq_tc<D><<<rows, kThreads, L<D>::bytes, stream>>>(
+      m[0], m[1], m[2], m[3], m[4], static_cast<__nv_bfloat16*>(dq),
+      static_cast<float*>(qdq), t_len, lo);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_dkv(const void* q, const void* k, const void* v, const void* g,
+               const void* d_o, const void* qdq, void* dk, void* dv,
+               void* dg, int rows, int t_len, float lo, cudaStream_t stream) {
+  static bool configured = false;
+  int err = configure(decay_sweep_dkv_tc<D>, L<D>::bytes, configured);
+  CUtensorMap m[5];
+  if (!err) err = input_maps(m, q, k, v, d_o, g, D, t_len, rows);
+  if (err) return err;
+  decay_sweep_dkv_tc<D><<<rows, kThreads, L<D>::bytes, stream>>>(
+      m[0], m[1], m[2], m[3], m[4], static_cast<const float*>(qdq),
+      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv),
+      static_cast<float*>(dg), t_len, lo);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace tc
+
 bool bad_shape(int rows, int t_len) { return rows <= 0 || t_len <= 0; }
+
+bool misaligned(const void* a, const void* b, const void* c, const void* d,
+                const void* e) {
+  return (reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b) |
+          reinterpret_cast<uintptr_t>(c) | reinterpret_cast<uintptr_t>(d) |
+          reinterpret_cast<uintptr_t>(e)) %
+         16;
+}
 
 }  // namespace
 
 // Every pointer is a contiguous (rows, t, d) tensor on the current
 // device: q, k, v, do and o, dv of one type, fp32 (bf16 == 0) or bf16
-// (bf16 == 1); g, dq and dk fp32; u (d,) fp32; s the (rows, d, d) fp32
-// final state. d in {16, 128}. Each returns cudaGetLastError() after the
-// launch (or cudaErrorInvalidValue).
+// (bf16 == 1); g, q⊙dq and dg fp32; dq and dk in the inputs' type; u (d,)
+// fp32; s the (rows, d, d) fp32 final state. d in {16, 128}. The bf16
+// routes of B9 take 16-byte aligned inputs. Each returns
+// cudaGetLastError() after the launch, cudaErrorInvalidValue for
+// arguments it does not take, or 10000 + the driver's CUresult when a
+// tensor map cannot be made.
 
 // B8: o and the final state; inclusive, or exclusive with the bonus u.
 extern "C" int gated_linear_attention_fwd(const void* q, const void* k,
@@ -449,39 +1382,64 @@ extern "C" int gated_linear_attention_fwd(const void* q, const void* k,
                                       min_log_decay, stream);
 }
 
-// B9, forward sweep: dq = e^{b} ⊙ [(dO Vᵀ ⊙ M) K̂ + dO Sᵀ], fp32.
-extern "C" int gated_linear_attention_bwd_dq(const void* k, const void* v,
-                                             const void* g, const void* d_o,
-                                             void* dq, int rows, int t,
+// B9, forward sweep: dq = e^{b} ⊙ [(dO Vᵀ ⊙ M) K̂ + dO Sᵀ] in the inputs'
+// type. bf16 (tensor cores) also writes q⊙dq (fp32) for the dk/dv launch's
+// dg; fp32 (FMAs) writes dq only, and q and q⊙dq are not read.
+extern "C" int gated_linear_attention_bwd_dq(const void* q, const void* k,
+                                             const void* v, const void* g,
+                                             const void* d_o, void* dq,
+                                             void* qdq, int rows, int t,
                                              int d, int bf16,
                                              float min_log_decay,
                                              void* stream) {
   if (bad_shape(rows, t)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bf16) {
-    const auto sw = sweep<__nv_bfloat16>(d_o, v, k, dq, kDq);
-    return launch_d<__nv_bfloat16, false, false>(
-        sw, sw, 1, g, nullptr, nullptr, rows, t, d, min_log_decay, stream);
+    if (qdq == nullptr || misaligned(q, k, v, g, d_o))
+      return static_cast<int>(cudaErrorInvalidValue);
+    switch (d) {
+      case 16:
+        return tc::launch_dq<16>(q, k, v, g, d_o, dq, qdq, rows, t,
+                                 min_log_decay, st);
+      case 128:
+        return tc::launch_dq<128>(q, k, v, g, d_o, dq, qdq, rows, t,
+                                  min_log_decay, st);
+      default:
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
   }
   const auto sw = sweep<float>(d_o, v, k, dq, kDq);
   return launch_d<float, false, false>(sw, sw, 1, g, nullptr, nullptr, rows,
                                        t, d, min_log_decay, stream);
 }
 
-// B9, reverse sweep: dk (fp32) = e^{-b} ⊙ [(V dOᵀ ⊙ Mᵀ) Q̂ + V R'ᵀ] and
-// dv = (K̂ Q̂ᵀ ⊙ Mᵀ) dO + K̂ R', one launch.
+// B9, reverse sweep: dk = e^{-b} ⊙ [(V dOᵀ ⊙ Mᵀ) Q̂ + V R'ᵀ] and
+// dv = (K̂ Q̂ᵀ ⊙ Mᵀ) dO + K̂ R', one launch, in the inputs' type. bf16
+// (tensor cores) also writes dg from the dq launch's q⊙dq; fp32 (FMAs)
+// writes dk and dv only, and q⊙dq and dg are not touched.
 extern "C" int gated_linear_attention_bwd_dkv(const void* q, const void* k,
                                               const void* v, const void* g,
-                                              const void* d_o, void* dk,
-                                              void* dv, int rows, int t,
-                                              int d, int bf16,
+                                              const void* d_o,
+                                              const void* qdq, void* dk,
+                                              void* dv, void* dg, int rows,
+                                              int t, int d, int bf16,
                                               float min_log_decay,
                                               void* stream) {
   if (bad_shape(rows, t)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bf16) {
-    return launch_d<__nv_bfloat16, true, false>(
-        sweep<__nv_bfloat16>(v, d_o, q, dk, kDk),
-        sweep<__nv_bfloat16>(k, q, d_o, dv, kDv), 2, g, nullptr, nullptr,
-        rows, t, d, min_log_decay, stream);
+    if (qdq == nullptr || dg == nullptr || misaligned(q, k, v, g, d_o))
+      return static_cast<int>(cudaErrorInvalidValue);
+    switch (d) {
+      case 16:
+        return tc::launch_dkv<16>(q, k, v, g, d_o, qdq, dk, dv, dg, rows, t,
+                                  min_log_decay, st);
+      case 128:
+        return tc::launch_dkv<128>(q, k, v, g, d_o, qdq, dk, dv, dg, rows,
+                                   t, min_log_decay, st);
+      default:
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
   }
   return launch_d<float, true, false>(sweep<float>(v, d_o, q, dk, kDk),
                                       sweep<float>(k, q, d_o, dv, kDv), 2, g,

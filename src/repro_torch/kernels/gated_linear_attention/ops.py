@@ -1,19 +1,26 @@
 """Wrappers for the chunked gated linear-attention kernels (port of
 ``repro/kernels/gated_linear_attention/ops.py``).
 
-``fwd`` (B8) and ``bwd`` (B9: ``bwd_dq``, ``bwd_dkv`` and the dg
-epilogue) take flat rows: q, k, g (BH, T, Dk), v (BH, T, Dv), with T a
-multiple of the chunk, as the Pallas functions of ``kernel.py`` do. For
-CUDA tensors they launch the kernels of ``csrc/gated_linear_attention.cu``;
-for CPU tensors they run the plain PyTorch versions (``ref.py``). There
-is no other route: a CUDA tensor the kernel does not take raises.
-``kernel=False`` asks for the plain version explicitly on any device
-(tests and ``chip_smoke.py`` compare the two routes that way).
+``fwd`` (B8) and ``bwd`` (B9: ``bwd_dq``, then ``bwd_dkv``) take flat
+rows: q, k, g (BH, T, Dk), v (BH, T, Dv), with T a multiple of the chunk,
+as the Pallas functions of ``kernel.py`` do. For CUDA tensors they launch
+the kernels of ``csrc/gated_linear_attention.cu``; for CPU tensors they
+run the plain PyTorch versions (``ref.py``). There is no other route: a
+CUDA tensor the kernel does not take raises. ``kernel=False`` asks for
+the plain version explicitly on any device (tests and ``chip_smoke.py``
+compare the two routes that way).
 
-The kernels rescale within tiles of at most 32 tokens whatever the
-chunk, so with g at its clamp over a long chunk they stay finite where
-the chunk-wide plain versions (and JAX) give NaN; elsewhere the two
-agree to rounding.
+B9's two launches split its function as ``ref.bwd_dq_ref`` and
+``ref.bwd_dkv_dg_ref`` do: the dq launch also returns q⊙dq in fp32, and
+the dk/dv launch takes it and returns dg as well. In bf16 both run on the
+tensor cores and write every output in its final type, so ``bwd`` runs
+no PyTorch epilogue or cast; in fp32 the FMA kernels write dq, dk and dv,
+and the wrappers form q⊙dq and dg in PyTorch.
+
+B8 and fp32 B9 rescale within tiles of 32 tokens, bf16 B9 within tiles
+of 64, whatever the chunk; so with g at its clamp (−1) over a long chunk
+they stay finite where the chunk-wide plain versions (and JAX) give NaN;
+elsewhere the two agree to rounding.
 
 ``gated_linear_attention`` adds the broadcast of the log-decay to q's
 shape, the (B, H, T, D) ↔ (BH, T, D) reshapes and the JAX wrapper's
@@ -31,9 +38,9 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.gated_linear_attention import ref
 from repro_torch.kernels.gated_linear_attention.ref import (
-    MIN_LOG_DECAY, chunked_bwd_dkv_ref, chunked_bwd_dq_ref, chunked_bwd_ref,
-    chunked_fwd_ref, dg_epilogue)
+    MIN_LOG_DECAY, chunked_bwd_ref, chunked_fwd_ref)
 from repro_torch.kernels.linear_attention.ops import (
     _DTYPES, _chunk_and_pad, _check, _on_cpu, _raise_on, _rows, _stream)
 
@@ -48,9 +55,9 @@ def load() -> ctypes.CDLL:
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.gated_linear_attention_fwd.argtypes = [ptr] * 7 + [i32] * 5 + [
         f32, ptr]
-    lib.gated_linear_attention_bwd_dq.argtypes = [ptr] * 5 + [i32] * 4 + [
+    lib.gated_linear_attention_bwd_dq.argtypes = [ptr] * 7 + [i32] * 4 + [
         f32, ptr]
-    lib.gated_linear_attention_bwd_dkv.argtypes = [ptr] * 7 + [i32] * 4 + [
+    lib.gated_linear_attention_bwd_dkv.argtypes = [ptr] * 9 + [i32] * 4 + [
         f32, ptr]
     for fn in (lib.gated_linear_attention_fwd,
                lib.gated_linear_attention_bwd_dq,
@@ -113,50 +120,72 @@ def fwd(q: Tensor, k: Tensor, v: Tensor, g: Tensor, *,
 fwd.launches = 0
 
 
-def bwd_dq(k: Tensor, v: Tensor, g: Tensor, do: Tensor, *, chunk: int = 128,
-           min_log_decay: float = MIN_LOG_DECAY) -> Tensor:
-    """B9's forward sweep on CUDA rows: dq = exp(b) ⊙ [(dO Vᵀ ⊙ M) K̂ +
-    dO Sᵀ], fp32."""
-    _check_gated("gated_linear_attention_bwd_dq", chunk, g, k=k, v=v, do=do)
-    bh, t, d = k.shape
-    dq = torch.empty((bh, t, d), dtype=torch.float32, device=k.device)
+def bwd_dq(q: Tensor, k: Tensor, v: Tensor, g: Tensor, do: Tensor, *,
+           chunk: int = 128, min_log_decay: float = MIN_LOG_DECAY
+           ) -> Tuple[Tensor, Tensor]:
+    """B9's forward sweep on CUDA rows: (dq in q's type, q⊙dq fp32), with
+    dq = exp(b) ⊙ [(dO Vᵀ ⊙ M) K̂ + dO Sᵀ] (``ref.bwd_dq_ref``). bf16: one
+    launch writes both (q⊙dq as Q̂ ⊙ dq e^{-b}, Q̂ rounded as the dk/dv
+    launch rounds it); fp32: the launch writes dq and q⊙dq is formed
+    here."""
+    _check_gated("gated_linear_attention_bwd_dq", chunk, g, q=q, k=k, v=v,
+                 do=do)
+    bh, t, d = q.shape
+    bf16 = q.dtype == torch.bfloat16
+    dq = torch.empty_like(q)
+    qdq = torch.empty((bh, t, d), dtype=torch.float32, device=q.device) \
+        if bf16 else None
     if bh == 0 or t == 0:
-        return dq
+        return dq, qdq if bf16 else q * dq
     lib = load()
-    with torch.cuda.device(k.device):
+    with torch.cuda.device(q.device):
         err = lib.gated_linear_attention_bwd_dq(
-            k.data_ptr(), v.data_ptr(), g.data_ptr(), do.data_ptr(),
-            dq.data_ptr(), bh, t, d, _DTYPES[k.dtype], min_log_decay,
-            _stream(k))
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+            do.data_ptr(), dq.data_ptr(), qdq.data_ptr() if bf16 else None,
+            bh, t, d, _DTYPES[q.dtype], min_log_decay, _stream(q))
     _raise_on("gated_linear_attention_bwd_dq", err)
     bwd_dq.launches += 1
-    return dq
+    return dq, qdq if bf16 else q * dq
 
 
 bwd_dq.launches = 0
 
 
-def bwd_dkv(q: Tensor, k: Tensor, v: Tensor, g: Tensor, do: Tensor, *,
-            chunk: int = 128, min_log_decay: float = MIN_LOG_DECAY
-            ) -> Tuple[Tensor, Tensor]:
-    """B9's reverse sweep on CUDA rows, one launch: dk (fp32) and dv (in
-    v's type), from R = Σ_{later} q̂ doᵀ recomputed from the end."""
+def bwd_dkv(q: Tensor, k: Tensor, v: Tensor, g: Tensor, do: Tensor,
+            qdq: Tensor, *, chunk: int = 128,
+            min_log_decay: float = MIN_LOG_DECAY
+            ) -> Tuple[Tensor, Tensor, Tensor]:
+    """B9's reverse sweep on CUDA rows, one launch: (dk in k's type, dv in
+    v's type, dg fp32) from R = Σ_{later} q̂ doᵀ recomputed from the end
+    and the dq launch's q⊙dq (``ref.bwd_dkv_dg_ref``). bf16: the launch
+    writes all three; fp32: it writes dk and dv, and dg is formed here."""
     _check_gated("gated_linear_attention_bwd_dkv", chunk, g, q=q, k=k, v=v,
                  do=do)
+    if qdq.shape != q.shape or qdq.dtype != torch.float32 or \
+            qdq.device != q.device or not qdq.is_contiguous():
+        raise ValueError(f"gated_linear_attention_bwd_dkv: q⊙dq is "
+                         f"{qdq.dtype} {tuple(qdq.shape)} on {qdq.device}, "
+                         f"expected a contiguous float32 {tuple(q.shape)} "
+                         f"on {q.device}")
     bh, t, d = q.shape
-    dk = torch.empty((bh, t, d), dtype=torch.float32, device=q.device)
+    bf16 = q.dtype == torch.bfloat16
+    dk = torch.empty_like(k)
     dv = torch.empty_like(v)
+    dg = torch.empty_like(g)
     if bh == 0 or t == 0:
-        return dk, dv
+        return dk, dv, dg
     lib = load()
     with torch.cuda.device(q.device):
         err = lib.gated_linear_attention_bwd_dkv(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
-            do.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, t, d,
-            _DTYPES[q.dtype], min_log_decay, _stream(q))
+            do.data_ptr(), qdq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            dg.data_ptr() if bf16 else None, bh, t, d, _DTYPES[q.dtype],
+            min_log_decay, _stream(q))
     _raise_on("gated_linear_attention_bwd_dkv", err)
     bwd_dkv.launches += 1
-    return dk, dv
+    if not bf16:
+        dg = ref.dg_from_qdq(qdq, k, g, dk, min_log_decay=min_log_decay)
+    return dk, dv, dg
 
 
 bwd_dkv.launches = 0
@@ -166,17 +195,17 @@ def bwd(q: Tensor, k: Tensor, v: Tensor, g: Tensor, do: Tensor, *,
         chunk: int = 128, min_log_decay: float = MIN_LOG_DECAY,
         kernel: bool = True) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
     """B9, the inclusive form's recompute backward: (dq, dk, dv, dg) from
-    q, k, v, g and do alone, in q's, k's, v's and g's types. The dg
-    epilogue runs in PyTorch on the kernels' fp32 dq and dk, as JAX runs
-    it outside the pallas_call."""
+    q, k, v, g and do alone, in q's, k's, v's and g's types. On CUDA the
+    dq launch, then the dk/dv launch, which also forms dg from the first's
+    q⊙dq (JAX runs that epilogue outside the pallas_call)."""
     if not kernel or _on_cpu(q):
         return chunked_bwd_ref(q, k, v, g, do, chunk=chunk,
                                min_log_decay=min_log_decay)
-    dq = bwd_dq(k, v, g, do, chunk=chunk, min_log_decay=min_log_decay)
-    dk, dv = bwd_dkv(q, k, v, g, do, chunk=chunk,
+    dq, qdq = bwd_dq(q, k, v, g, do, chunk=chunk,
                      min_log_decay=min_log_decay)
-    dg = dg_epilogue(q, k, g, dq, dk, min_log_decay=min_log_decay)
-    return dq.to(q.dtype), dk.to(k.dtype), dv, dg
+    dk, dv, dg = bwd_dkv(q, k, v, g, do, qdq, chunk=chunk,
+                         min_log_decay=min_log_decay)
+    return dq, dk, dv, dg
 
 
 class _GatedLinearAttention(torch.autograd.Function):

@@ -16,14 +16,18 @@ g the log-decay (≤ 0, fp32). They accumulate in float32:
   ``_dq_kernel`` (forward sweep over S) and ``_dkv_kernel`` (reverse
   sweep over R), chunk by chunk, dq and dk in fp32, dv in v's type;
 - ``dg_epilogue``: dg = reverse-cumsum(q⊙dq − k⊙dk), zero where the
-  clamp was active (``kernel.bwd``'s plain epilogue);
-- ``chunked_bwd_ref``: B9's function, the three above together.
+  clamp was active (``kernel.bwd``'s plain epilogue); ``dg_from_qdq``
+  the same from q⊙dq already formed;
+- ``bwd_dq_ref`` / ``bwd_dkv_dg_ref``: B9's function split as its CUDA
+  launches split it: the forward sweep returns dq in q's type and q⊙dq
+  in fp32, the reverse sweep takes q⊙dq and returns dk, dv and dg;
+- ``chunked_bwd_ref``: B9's function, the two above together.
 
 The chunked forms scale by exp(±b) with b the cumulative log-decay from
 the start of the chunk; with g at the clamp (−1) over a 128-token chunk
 exp(−b) passes fp32's range and they give NaN where the Pallas bodies
 do. The CUDA kernels (``csrc/gated_linear_attention.cu``) rescale
-within tiles of at most 32 tokens and stay finite there.
+within tiles of at most 64 tokens and stay finite there.
 """
 
 from __future__ import annotations
@@ -180,27 +184,58 @@ def chunked_bwd_dkv_ref(q: Tensor, k: Tensor, v: Tensor, g: Tensor,
             _unchunk(torch.stack(dvs), v.dtype))
 
 
-def dg_epilogue(q: Tensor, k: Tensor, g: Tensor, dq: Tensor, dk: Tensor, *,
+def dg_from_qdq(qdq: Tensor, k: Tensor, g: Tensor, dk: Tensor, *,
                 min_log_decay: float = MIN_LOG_DECAY) -> Tensor:
-    """dg = reverse-cumsum over T of (q⊙dq − k⊙dk) (the GLA gradient
-    identity), zero where the clamp held g away from its value. fp32 dq
-    and dk; dg in g's type."""
-    diff = q.float() * dq - k.float() * dk
+    """dg = reverse-cumsum over T of (q⊙dq − k⊙dk), zero where the clamp
+    held g away from its value; q⊙dq given in fp32, dk fp32. dg in g's
+    type."""
+    diff = qdq - k.float() * dk
     dg = torch.flip(torch.cumsum(torch.flip(diff, dims=(1,)), dim=1),
                     dims=(1,))
     g32 = g.float()
     return (dg * ((g32 >= min_log_decay) & (g32 <= 0.0))).to(g.dtype)
 
 
+def dg_epilogue(q: Tensor, k: Tensor, g: Tensor, dq: Tensor, dk: Tensor, *,
+                min_log_decay: float = MIN_LOG_DECAY) -> Tensor:
+    """dg = reverse-cumsum over T of (q⊙dq − k⊙dk) (the GLA gradient
+    identity), zero where the clamp held g away from its value. fp32 dq
+    and dk; dg in g's type."""
+    return dg_from_qdq(q.float() * dq, k, g, dk,
+                       min_log_decay=min_log_decay)
+
+
+def bwd_dq_ref(q: Tensor, k: Tensor, v: Tensor, g: Tensor, do: Tensor, *,
+               chunk: int = 128, min_log_decay: float = MIN_LOG_DECAY
+               ) -> Tuple[Tensor, Tensor]:
+    """What B9's dq launch returns: (dq in q's type, q⊙dq in fp32), from
+    ``chunked_bwd_dq_ref``'s fp32 dq."""
+    dq = chunked_bwd_dq_ref(k, v, g, do, chunk=chunk,
+                            min_log_decay=min_log_decay)
+    return dq.to(q.dtype), q.float() * dq
+
+
+def bwd_dkv_dg_ref(q: Tensor, k: Tensor, v: Tensor, g: Tensor, do: Tensor,
+                   qdq: Tensor, *, chunk: int = 128,
+                   min_log_decay: float = MIN_LOG_DECAY
+                   ) -> Tuple[Tensor, Tensor, Tensor]:
+    """What B9's dk/dv launch returns given the dq launch's q⊙dq: (dk in
+    k's type, dv in v's type, dg in g's type), dg = reverse-cumsum(q⊙dq −
+    k⊙dk) masked, from ``chunked_bwd_dkv_ref``'s fp32 dk."""
+    dk, dv = chunked_bwd_dkv_ref(q, k, v, g, do, chunk=chunk,
+                                 min_log_decay=min_log_decay)
+    dg = dg_from_qdq(qdq, k, g, dk, min_log_decay=min_log_decay)
+    return dk.to(k.dtype), dv, dg
+
+
 def chunked_bwd_ref(q: Tensor, k: Tensor, v: Tensor, g: Tensor, do: Tensor,
                     *, chunk: int = 128, min_log_decay: float = MIN_LOG_DECAY
                     ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
     """B9's function (``kernel.bwd``, inclusive form): the forward sweep
-    for dq, the reverse sweep for dk and dv, then the dg epilogue.
+    for dq (and q⊙dq), then the reverse sweep for dk, dv and dg.
     Returns (dq, dk, dv, dg) in q's, k's, v's and g's types."""
-    dq = chunked_bwd_dq_ref(k, v, g, do, chunk=chunk,
-                            min_log_decay=min_log_decay)
-    dk, dv = chunked_bwd_dkv_ref(q, k, v, g, do, chunk=chunk,
-                                 min_log_decay=min_log_decay)
-    dg = dg_epilogue(q, k, g, dq, dk, min_log_decay=min_log_decay)
-    return dq.to(q.dtype), dk.to(k.dtype), dv, dg
+    dq, qdq = bwd_dq_ref(q, k, v, g, do, chunk=chunk,
+                         min_log_decay=min_log_decay)
+    dk, dv, dg = bwd_dkv_dg_ref(q, k, v, g, do, qdq, chunk=chunk,
+                                min_log_decay=min_log_decay)
+    return dq, dk, dv, dg

@@ -533,7 +533,9 @@ def _gla_rows(dev, bh, t, d, dtype, decay, seed=0):
     gen = torch.Generator(device=dev).manual_seed(seed + 1)
     u = torch.rand((bh, t, d), generator=gen, device=dev)
     g = {"model": -0.004 * u, "mild": torch.where(u < 0.03, -1.5, -0.6 * u),
-         "clamp": torch.full_like(u, -1.0)}[decay]
+         "clamp": torch.full_like(u, -1.0)}[decay.split("_")[0]]
+    if decay.endswith("_head"):         # per-head: one value per token
+        g = g[..., :1].expand(bh, t, d).contiguous()
     return q, k, v, do, g
 
 
@@ -543,14 +545,22 @@ def _gla_counts():
 
 
 # (rows, T, D, dtype, chunk, decay): the training main path's shape, a T
-# that is a multiple of the chunk but not of the kernels' tile, the
-# smoke width, a ragged T (the chunk drops to T)
+# that is a multiple of the chunk but not of the kernels' tile (32 tokens
+# in fp32, 64 in bf16), the smoke width, a ragged T (the chunk drops to
+# T), a per-head decay
 @pytest.mark.parametrize("bh,t,d,dtype,chunk,decay", [
     (128, 1024, 128, torch.bfloat16, 128, "model"),
     (6, 272, 128, torch.float32, 16, "mild"),
     (6, 48, 16, torch.float32, 16, "mild"),
     (6, 48, 16, torch.bfloat16, 16, "mild"),
     (4, 75, 128, torch.float32, 75, "mild"),
+    (6, 272, 128, torch.bfloat16, 16, "mild"),
+    (6, 48, 128, torch.bfloat16, 16, "mild"),
+    (4, 75, 128, torch.bfloat16, 75, "mild"),
+    (4, 75, 16, torch.bfloat16, 75, "mild"),
+    (6, 200, 128, torch.bfloat16, 40, "mild_head"),
+    (6, 200, 16, torch.bfloat16, 40, "mild"),
+    (6, 272, 16, torch.bfloat16, 16, "mild_head"),
 ])
 def test_gated_linear_attention_kernels_match_plain_versions(
         dev, bh, t, d, dtype, chunk, decay):
@@ -599,6 +609,83 @@ def test_gated_kernels_at_the_clamp_match_the_scan(dev):
     o_plain = gla_ops.gated_linear_attention(q, k, v, g, chunk=128,
                                              kernel=False)
     assert torch.isnan(o_plain).any()
+
+
+@pytest.mark.parametrize("bh,t,d,dtype,chunk", [
+    (6, 272, 128, torch.bfloat16, 16), (4, 75, 16, torch.bfloat16, 75),
+    (6, 200, 128, torch.float32, 40), (6, 48, 16, torch.float32, 16)])
+def test_gated_bwd_launches_match_their_plain_versions(dev, bh, t, d, dtype,
+                                                       chunk):
+    """B9's two launches on their own: the dq launch's (dq, q⊙dq) against
+    ``bwd_dq_ref``, the dk/dv launch's (dk, dv) against ``bwd_dkv_dg_ref``
+    given the same q⊙dq, and its dg too in fp32; normwise 1e-5 in fp32,
+    8e-3 in bf16. In bf16 the dq launch's q⊙dq carries the rounding of Q̂
+    that only the same pair's k⊙dk cancels, so bf16 dg is held to its
+    plain version through both launches
+    (``test_gated_linear_attention_kernels_match_plain_versions``)."""
+    q, k, v, do, g = _gla_rows(dev, bh, t, d, dtype, "mild", seed=5)
+    before = _gla_counts()
+    dq, qdq = gla_ops.bwd_dq(q, k, v, g, do, chunk=chunk)
+    dk, dv, dg = gla_ops.bwd_dkv(q, k, v, g, do, qdq, chunk=chunk)
+    torch.cuda.synchronize()
+    assert _gla_counts() == (before[0], before[1] + 1, before[2] + 1)
+    tol = LA_TOL[dtype]
+    dq_r, qdq_r = gla_ref.bwd_dq_ref(q, k, v, g, do, chunk=chunk)
+    want = gla_ref.bwd_dkv_dg_ref(q, k, v, g, do, qdq, chunk=chunk)
+    for name, x, x_r in zip(("dq", "q⊙dq", "dk", "dv", "dg"),
+                            (dq, qdq, dk, dv, dg), (dq_r, qdq_r) + want):
+        assert x.dtype == x_r.dtype, name
+        if name != "dg" or dtype == torch.float32:
+            _assert_normwise(x, x_r, tol, name)
+
+
+def test_gated_bf16_kernels_at_the_clamp_match_the_scan(dev):
+    """g ≡ −1, T = 1,024, chunk 128, bf16: B8 and B9 (B9 in 64-token tiles,
+    |b| <= 64) stay finite and match ``gla_scan`` and its autograd,
+    evaluated in fp32 on the same bf16 values, within normwise 8e-3."""
+    q, k, v, do, g = (x.reshape(1, 2, 1024, 128) for x in _gla_rows(
+        dev, 2, 1024, 128, torch.bfloat16, "clamp", seed=3))
+    got, want = [], []
+    for fn, sink, dtype in ((lambda a, b, c, e: gla_ops.gated_linear_attention(
+            a, b, c, e, chunk=128), got, torch.bfloat16),
+            (lambda a, b, c, e: gla_scan(a, b, c, e)[0], want, torch.float32)):
+        leaves = [x.to(dtype).clone().requires_grad_() for x in (q, k, v, g)]
+        o = fn(*leaves)
+        o.backward(do.to(dtype))
+        sink.extend([o.detach()] + [x.grad for x in leaves])
+    for name, a, b in zip(("o", "dq", "dk", "dv", "dg"), got, want):
+        assert torch.isfinite(a).all(), name
+        _assert_normwise(a, b, LA_TOL[torch.bfloat16], name)
+
+
+def test_gated_bf16_backward_runs_no_pytorch_epilogue(dev, monkeypatch):
+    """On the CUDA bf16 route ``ops.bwd`` forms dg inside the dk/dv launch:
+    the eager epilogue, flip and cumsum are never called."""
+    q, k, v, do, g = _gla_rows(dev, 4, 200, 128, torch.bfloat16, "mild")
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("an eager dg epilogue ran")
+    for target, name in ((gla_ref, "dg_epilogue"), (gla_ref, "dg_from_qdq"),
+                         (torch, "flip"), (torch, "cumsum")):
+        monkeypatch.setattr(target, name, refuse)
+    dq, dk, dv, dg = gla_ops.bwd(q, k, v, g, do, chunk=40)
+    monkeypatch.undo()
+    torch.cuda.synchronize()
+    _assert_normwise(dg, gla_ref.chunked_bwd_ref(q, k, v, g, do,
+                                                 chunk=40)[3],
+                     LA_TOL[torch.bfloat16], "dg")
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_gated_bwd_output_types(dev, dtype):
+    """dq, dk, dv in the inputs' type and dg in g's (fp32), on each route;
+    the dq launch's q⊙dq in fp32; shapes those of the inputs."""
+    q, k, v, do, g = _gla_rows(dev, 3, 64, 16, dtype, "mild")
+    grads = gla_ops.bwd(q, k, v, g, do, chunk=16)
+    assert [x.dtype for x in grads] == [dtype, dtype, dtype, torch.float32]
+    assert all(x.shape == q.shape for x in grads)
+    _, qdq = gla_ops.bwd_dq(q, k, v, g, do, chunk=16)
+    assert qdq.dtype == torch.float32 and qdq.shape == q.shape
 
 
 @pytest.mark.parametrize("t,d,dtype,scalar", [(40, 16, torch.float32, False),

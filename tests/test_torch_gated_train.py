@@ -131,6 +131,44 @@ def test_plain_sweeps_are_the_pallas_bodies():
         _close(t, j, TOL["float32"], name)
 
 
+@pytest.mark.parametrize("t", [32, 48])
+def test_plain_dq_launch_matches_pallas_bwd(t):
+    """``bwd_dq_ref``, the function of B9's dq launch, in fp32: dq against
+    the Pallas ``bwd``'s, and q⊙dq against q times it."""
+    q, k, v, do, g = (torch.from_numpy(x) for x in _inputs(20 + t, BH, t, D))
+    dq, qdq = tref.bwd_dq_ref(q, k, v, g, do, chunk=CHUNK)
+    assert dq.dtype == qdq.dtype == torch.float32
+    dq_j = jkernel.bwd(*(x.numpy() for x in (q, k, v, g, do)), chunk=CHUNK,
+                       interpret=True)[0]
+    _close(dq, dq_j, TOL["float32"], "dq")
+    _close(qdq, q.numpy() * np.asarray(dq_j), TOL["float32"], "q⊙dq")
+
+
+@pytest.mark.parametrize("t", [32, 48])
+def test_plain_dkv_launch_from_a_given_qdq_matches_pallas_bwd(t):
+    """``bwd_dkv_dg_ref``, the function of B9's dk/dv launch, in fp32,
+    given q⊙dq formed from the Pallas ``bwd``'s dq: dk, dv and dg against
+    the Pallas ``bwd``'s (dg through its jnp epilogue)."""
+    q, k, v, do, g = (torch.from_numpy(x) for x in _inputs(30 + t, BH, t, D))
+    want = jkernel.bwd(*(x.numpy() for x in (q, k, v, g, do)), chunk=CHUNK,
+                       interpret=True)
+    qdq = q * torch.from_numpy(np.array(want[0]))
+    got = tref.bwd_dkv_dg_ref(q, k, v, g, do, qdq, chunk=CHUNK)
+    for name, x, j in zip(("dk", "dv", "dg"), got, want[1:]):
+        assert x.dtype == torch.float32, name
+        _close(x, j, TOL["float32"], name)
+
+
+def test_dg_from_qdq_is_the_epilogue():
+    """The dk/dv launch's dg from a given q⊙dq is the JAX epilogue's, to
+    the bit, when q⊙dq is q times dq."""
+    q, k, v, do, g = (torch.from_numpy(x) for x in _inputs(40, BH, 48, D))
+    dq = tref.chunked_bwd_dq_ref(k, v, g, do, chunk=CHUNK)
+    dk, _ = tref.chunked_bwd_dkv_ref(q, k, v, g, do, chunk=CHUNK)
+    assert torch.equal(tref.dg_from_qdq(q * dq, k, g, dk),
+                       tref.dg_epilogue(q, k, g, dq, dk))
+
+
 @pytest.mark.parametrize("mode", ["inclusive", "exclusive_u", "exclusive",
                                   "carry"])
 def test_pairwise_oracle_matches_jax_ref(mode):
