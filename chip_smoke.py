@@ -8,13 +8,17 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 1. Device: the card's name and power limit, and the build of every CUDA
    kernel of the port from the sources in this checkout; each kernel's
    registers, spills and ptxas's notes on serialized wgmmas; the HGMMA
-   instructions in B10's and B9's libraries (their bf16 routes run on
-   the tensor cores).
+   instructions in B10's, B8/B9's and B3's libraries (their bf16 routes
+   run on the tensor cores).
 2. Each kernel against its plain PyTorch version on the card, at the
    main path's shapes and at the smoke width (B10 at each D it takes,
-   with K/V of fewer heads than q, and against JAX's oracle; B9 in bf16
-   at T not a multiple of its 64-token tile, each of its two launches on
-   its own, and B8/B9 at the decay clamp in fp32 and bf16).
+   with K/V of fewer heads than q, and against JAX's oracle; B3, B8 and
+   B9 in bf16 at T not a multiple of their 64-token tile, D = 16 and
+   128, B3's and B9's launches each on its own, B8 inclusive and
+   exclusive + u with a non-symmetric state; B8/B9 at the decay clamp
+   and at each route's ``min_log_decay`` limit against ``gla_scan``, a
+   value past the limit refused, and the fp32 route's distance from
+   ``gla_scan`` at decays up to −2.5, which sets its limit).
 3. The serving slice on the card: a 2-layer model at qwen3-0.6b's full
    widths in fp32, prefill + 16 greedy steps through the kernel against
    the same run through ``decode_kernel="reference"``.
@@ -44,15 +48,18 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    in fp32, batch 2 x 256 tokens, weights from seed 0: the loss, every
    gradient leaf and the parameters after one AdamW step through B2/B3
    against the same through their plain versions
-   (``attention_kernel=False``).
+   (``attention_kernel=False``); then the same 2 layers in bf16 compute
+   (B3 on the tensor cores): the loss and every gradient leaf.
 10. The training main path: ``repro_torch.launch.train``'s ``build`` and
    ``TrainLoop`` on the full 28-layer qwen3-0.6b (linear, bf16 compute,
    fp32 master weights, remat per layer), batch 8 x seq 1,024, 2 warm-up
    and 6 timed steps; ms/step, tokens/s, peak memory, the losses, B2/B3
-   launches per step, a profile of one step, and B2, B3-dq and B3-dkv
-   timed beside their bounds and plain versions.
+   launches per step, a profile of one step, and B2, B3-dq, B3-dkv and
+   B3 as a whole (``ops.bwd``) timed beside their bounds and plain
+   versions.
 11. The gated training slice (paper §4 decay, ``--backend gated_linear``)
-   as phase 9, through B8/B9 against ``attention_kernel=False``.
+   as phase 9, through B8/B9 against ``attention_kernel=False``, in fp32
+   and in bf16 compute.
 12. The gated training main path as phase 10: ``launch/train.py
    --backend gated_linear`` on the full 28-layer model; B8/B9 launches
    per step, a profile of one step (which must hold no flip or cumsum
@@ -771,28 +778,41 @@ def normwise(x, want, tol, what) -> float:
 
 def check_linear_attention_rows(bh, t, d, dtype, chunk, gen, dev) -> dict:
     """B2 and B3 on flat rows against ``chunked_fwd_ref`` /
-    ``chunked_bwd_ref``; returns the largest |Δ| per kernel."""
+    ``chunked_bwd_ref``, and B3's two launches each on its own against
+    ``chunked_bwd_dq_ref`` / ``chunked_bwd_dkv_ref``; every output in its
+    input's type. Returns the largest |Δ| per kernel."""
     import torch
     from repro_torch.kernels.linear_attention import ops as LA, ref as LR
     q, k, v, do = la_rows(bh, t, d, dtype, gen, dev)
     o, s = LA.fwd(q, k, v, chunk=chunk)
     dq, dk, dv = LA.bwd(q, k, v, do, chunk=chunk)
+    dq1 = LA.bwd_dq(k, v, do, chunk=chunk)
+    dk1, dv1 = LA.bwd_dkv(q, k, v, do, chunk=chunk)
     torch.cuda.synchronize()
     o_r, s_r = LR.chunked_fwd_ref(q, k, v, chunk=chunk)
     dq_r, dk_r, dv_r = LR.chunked_bwd_ref(q, k, v, do, chunk=chunk)
+    dq1_r = LR.chunked_bwd_dq_ref(k, v, do, chunk=chunk)
+    dk1_r, dv1_r = LR.chunked_bwd_dkv_ref(q, k, v, do, chunk=chunk)
     name = str(dtype).split(".")[-1]
     tol = LA_TOL[name]
     tag = f"rows={bh} T={t} D={d} {name} chunk={chunk}"
+    if any(x.dtype != dtype for x in (o, dq, dk, dv, dq1, dk1, dv1)):
+        raise AssertionError(f"linear_attention {tag}: outputs not {dtype}")
     err = {"linear_attention_fwd": normwise(o, o_r, tol, f"o {tag}"),
-           "linear_attention_bwd_dq": normwise(dq, dq_r, tol, f"dq {tag}"),
+           "linear_attention_bwd_dq": max(
+               normwise(dq, dq_r, tol, f"dq {tag}"),
+               normwise(dq1, dq1_r, tol, f"dq launch {tag}")),
            "linear_attention_bwd_dkv": max(
                normwise(dk, dk_r, tol, f"dk {tag}"),
-               normwise(dv, dv_r, tol, f"dv {tag}"))}
+               normwise(dv, dv_r, tol, f"dv {tag}"),
+               normwise(dk1, dk1_r, tol, f"dk/dv launch dk {tag}"),
+               normwise(dv1, dv1_r, tol, f"dk/dv launch dv {tag}"))}
     s_err = normwise(s, s_r, LA_TOL["float32"], f"state {tag}")
     print(f"  linear_attention {tag}: max|Δo|="
           f"{err['linear_attention_fwd']:.3e} max|ΔS|={s_err:.3e} max|Δdq|="
           f"{err['linear_attention_bwd_dq']:.3e} max|Δdk,dv|="
-          f"{err['linear_attention_bwd_dkv']:.3e} (normwise tol {tol})")
+          f"{err['linear_attention_bwd_dkv']:.3e} (through ops.bwd and each "
+          f"launch alone; normwise tol {tol})")
     return err
 
 
@@ -849,17 +869,17 @@ def check_linear_attention_autograd(gen, dev) -> None:
 
 
 def time_linear_attention(bh, t, d, chunk, gen, dev) -> dict:
-    """B2, B3-dq and B3-dkv at the training main path's shape (bf16), with
-    their plain versions, from CUDA-graph replays. The inputs (4 x 33.5
-    MB at the main shape) exceed the 50 MB L2. Bounds: each input read
-    once and each output written once over 3.35 TB/s, or the fp32
-    operations the function needs over 67 TFLOP/s. The least work is the
-    scan form's: each rank-one update of the D x D state and each product
-    with it costs 2D² per token; B2 and dq do two per token (S += k vᵀ,
-    then q S), dk/dv three (R += q doᵀ, then v R and k R). The chunked
-    forms the kernels and the Pallas functions run do more. The inputs are
-    bf16, so ``bound_ms`` takes the operations at the bf16 tensor-core
-    rate; ``fp32_bound_ms`` at the fp32 rate the kernels run at."""
+    """B2, B3-dq, B3-dkv and B3 as a whole (``ops.bwd``, both launches) at
+    the training main path's shape (bf16), with their plain versions, from
+    CUDA-graph replays. The inputs (4 x 33.5 MB at the main shape) exceed
+    the 50 MB L2. Bounds: each input read once and each output written
+    once over 3.35 TB/s, or the operations the function needs over the
+    bf16 tensor-core rate (``fp32_bound_ms``: over 67 TFLOP/s, the rate
+    of B2's and fp32 B3's FMAs). The least work is the scan form's: each
+    rank-one update of the D x D state and each product with it costs 2D²
+    per token; B2 and dq do two per token (S += k vᵀ, then q S), dk/dv
+    three (R += q doᵀ, then v R and k R), B3 five. The chunked forms the
+    kernels and the Pallas functions run do more."""
     import torch
     from repro_torch.kernels.linear_attention import ops as LA, ref as LR
     q, k, v, do = la_rows(bh, t, d, torch.bfloat16, gen, dev)
@@ -879,13 +899,21 @@ def time_linear_attention(bh, t, d, chunk, gen, dev) -> dict:
             ("linear_attention_bwd_dkv",
              lambda i: LA.bwd_dkv(q, k, v, do, chunk=chunk),
              lambda i: LR.chunked_bwd_dkv_ref(q, k, v, do, chunk=chunk),
-             6 * x_bytes, 3)):
+             6 * x_bytes, 3),
+            ("bwd",
+             lambda i: LA.bwd(q, k, v, do, chunk=chunk),
+             lambda i: LR.chunked_bwd_ref(q, k, v, do, chunk=chunk),
+             7 * x_bytes, 5)):
         out[name] = dict(ms=graph_ms(kern, 4, replays=5),
                          plain_ms=graph_ms(plain, 2, replays=3),
                          library_ms=None, fp32_bound_ms=bound(
                              n_bytes, n_products * per_product)["bound_ms"],
                          **bound(n_bytes, n_products * per_product,
                                  PEAK_BF16_TC_FLOPS))
+    # two sweeps (a forward one for dq, a reverse one for dk and dv) each
+    # read their inputs and write their outputs: 4 + 6 tensors
+    out["bwd"]["two_sweep_bytes"] = 10 * x_bytes
+    out["bwd"]["two_sweep_ms"] = bound(10 * x_bytes, 0.0)["bound_ms"]
     return out
 
 
@@ -951,10 +979,15 @@ def check_gla_rows(bh, t, d, dtype, chunk, decay, gen, dev) -> dict:
            "gated_linear_attention_bwd_dq": max(e["dq"], *e1.values()),
            "gated_linear_attention_bwd_dkv": max(e["dk"], e["dv"], e["dg"],
                                                  *e2.values())}
+    # a transposed state would show: S is far from symmetric
+    asym = ((s_r - s_r.mT).abs().max() / s_r.abs().max()).item()
+    if not asym > 100 * tol32:
+        raise AssertionError(f"state {tag}: too near symmetric ({asym:.3e})")
     s_err = max(normwise(s, s_r, tol32, f"state {tag}"),
                 normwise(s_x, s_xr, tol32, f"state exclusive {tag}"))
     print(f"  gated_linear_attention {tag}: max|Δo| (incl, excl+u)="
-          f"{err['gated_linear_attention_fwd']:.3e} max|ΔS|={s_err:.3e}; "
+          f"{err['gated_linear_attention_fwd']:.3e} max|ΔS|={s_err:.3e} "
+          f"(|S - Sᵀ| {asym:.2f} max|S|); "
           f"bwd max|Δ| " + ", ".join(f"{n} {x:.3e}" for n, x in e.items())
           + "; dq launch " + ", ".join(f"{n} {x:.3e}" for n, x in e1.items())
           + "; dk/dv launch " + ", ".join(f"{n} {x:.3e}" for n, x in
@@ -996,20 +1029,22 @@ def check_gla_wrapper(t, d, dtype, chunk, scalar, gen, dev) -> None:
           + " against kernel=False")
 
 
-def check_gla_clamp(dtype, gen, dev) -> None:
-    """g ≡ −1 (the clamp), T = 1,024, chunk 128: B8 and B9 through the
-    autograd function, all finite and within normwise 1e-5 (fp32) or 8e-3
-    (bf16) of ``gla_scan`` and its autograd gradients, evaluated in fp32
-    on the same values (the chunk-128 plain version is NaN there, as
-    JAX's is)."""
+def check_gla_clamp(dtype, gen, dev, lo=-1.0) -> None:
+    """g ≡ lo = min_log_decay (−1: the default clamp; or the route's
+    ``DECAY_LIMIT``), T = 1,024, chunk 128: B8 and B9 through the autograd
+    function, all finite and within normwise 1e-5 (fp32) or 8e-3 (bf16)
+    of ``gla_scan`` and its autograd gradients, evaluated in fp32 on the
+    same values (the chunk-128 plain version is NaN there, as JAX's
+    is)."""
     import torch
     from repro_torch.core.gated import gla_scan
     from repro_torch.kernels.gated_linear_attention import ops as GL
     q, k, v, do, g = (x.reshape(1, 2, 1024, 128) for x in gla_rows(
         2, 1024, 128, dtype, "clamp", gen, dev))
+    g = g * -lo
     got, want = [], []
     for fn, sink, cast in ((lambda a, b, c, e: GL.gated_linear_attention(
-            a, b, c, e, chunk=128), got, dtype),
+            a, b, c, e, chunk=128, min_log_decay=lo), got, dtype),
             (lambda a, b, c, e: gla_scan(a, b, c, e)[0], want,
              torch.float32)):
         leaves = [x.to(cast).clone().requires_grad_() for x in (q, k, v, g)]
@@ -1024,14 +1059,43 @@ def check_gla_clamp(dtype, gen, dev) -> None:
             raise AssertionError(f"gated clamp {name}: non-finite {n}")
     errs = [normwise(a, b, LA_TOL[name], f"gated clamp {name} {n}")
             for n, a, b in zip(names, got, want)]
-    plain = GL.gated_linear_attention(q, k, v, g, chunk=128, kernel=False)
+    plain = GL.gated_linear_attention(q, k, v, g, chunk=128,
+                                      min_log_decay=lo, kernel=False)
     nan_share = torch.isnan(plain).float().mean().item()
-    print(f"  gated_linear_attention at the clamp (g = -1, T=1024, chunk "
-          f"128, {name}): all finite; max|Δ| against gla_scan and its "
+    print(f"  gated_linear_attention at the clamp (g = min_log_decay = {lo}, "
+          f"T=1024, chunk 128, {name}): all finite; max|Δ| against gla_scan "
+          f"and its "
           f"autograd in fp32 " + ", ".join(f"{n} {e:.3e}" for n, e in
                                            zip(names, errs))
           + f" (normwise {LA_TOL[name]}); the chunk-128 plain version: "
           f"{100 * nan_share:.1f}% of o NaN")
+
+
+def check_decay_limit(gen, dev) -> None:
+    """Each route at its ``DECAY_LIMIT`` (bf16 −1.25, fp32 −1.5) with g
+    held there (``check_gla_clamp``), and a CUDA call of ``fwd``,
+    ``bwd_dq`` and ``bwd_dkv`` just past it refused with ValueError."""
+    import torch
+    from repro_torch.kernels.gated_linear_attention import ops as GL
+    for dtype in (torch.bfloat16, torch.float32):
+        lo = GL.DECAY_LIMIT[dtype]
+        check_gla_clamp(dtype, gen, dev, lo=lo)
+        q, k, v, do, g = gla_rows(2, 64, 16, dtype, "mild", gen, dev)
+        qdq = torch.zeros_like(g)
+        for fn in (lambda m: GL.fwd(q, k, v, g, chunk=16, min_log_decay=m),
+                   lambda m: GL.bwd_dq(q, k, v, g, do, chunk=16,
+                                       min_log_decay=m),
+                   lambda m: GL.bwd_dkv(q, k, v, g, do, qdq, chunk=16,
+                                        min_log_decay=m)):
+            try:
+                fn(lo - 1e-3)
+            except ValueError:
+                continue
+            raise AssertionError(f"min_log_decay {lo - 1e-3} past the "
+                                 f"{dtype} limit {lo} was not refused")
+    print(f"  min_log_decay past the limits ({GL.DECAY_LIMIT[torch.bfloat16]}"
+          f" bf16, {GL.DECAY_LIMIT[torch.float32]} fp32) refused by fwd, "
+          f"bwd_dq and bwd_dkv")
 
 
 def time_gated_linear_attention(bh, t, d, chunk, gen, dev) -> dict:
@@ -1435,18 +1499,39 @@ def generate_main_path(backend, dev, gen, phase) -> dict:
 
 
 # each trained backend's attention kernels: forward, dq, dk/dv; their IDs;
-# the Pallas lines they replace; the name of their CUDA kernel
+# the Pallas lines they replace; what their CUDA kernels' names share; the
+# CUDA kernel each runs in bf16 (its route: tensor cores or FMAs)
 TRAIN_KERNELS = {
     "linear": (("linear_attention_fwd", "linear_attention_bwd_dq",
                 "linear_attention_bwd_dkv"), ("B2", "B3-dq", "B3-dkv"),
-               "linear_attention/kernel.py", (71, 158, 177),
-               "sweep_kernel"),
+               "linear_attention/kernel.py", (71, 158, 177), "sweep",
+               ("sweep_kernel (fp32 FMAs)",
+                "linear_sweep_dq_tc (bf16 tensor cores)",
+                "linear_sweep_dkv_tc (bf16 tensor cores)")),
     "gated_linear": (("gated_linear_attention_fwd",
                       "gated_linear_attention_bwd_dq",
                       "gated_linear_attention_bwd_dkv"),
                      ("B8", "B9-dq", "B9-dkv"),
                      "gated_linear_attention/kernel.py", (85, 212, 232),
-                     "decay_sweep")}
+                     "decay_sweep",
+                     ("decay_sweep_fwd_tc (bf16 tensor cores)",
+                      "decay_sweep_dq_tc (bf16 tensor cores)",
+                      "decay_sweep_dkv_tc (bf16 tensor cores)"))}
+
+
+def slice_model(backend, dtype, dev):
+    """The training slices' model and batch: qwen3-0.6b at full width, 2
+    layers, compute in ``dtype``, fp32 weights from seed 0, batch 2 x 256
+    tokens from seed 1."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    cfg = dataclasses.replace(get_config("qwen3-0.6b").with_backend(backend),
+                              n_layers=2, dtype=dtype)
+    params0 = lm.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    toks = torch.randint(0, cfg.vocab_size, (2, 257), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(1))
+    return cfg, params0, {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
 
 
 def training_slice(backend, dev, phase) -> None:
@@ -1459,18 +1544,12 @@ def training_slice(backend, dev, phase) -> None:
     tolerance; Adam's first step is ±lr by the gradient's sign, which
     rounding may flip where it is below)."""
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.models import lm
     from repro_torch.optim import GradAccumulator, adamw, cosine_warmup
     from repro_torch.runtime import make_train_step
     from repro_torch.tree import leaves, tree_map
     names, ids = TRAIN_KERNELS[backend][:2]
-    cfg = dataclasses.replace(get_config("qwen3-0.6b").with_backend(backend),
-                              n_layers=2, dtype="float32")
-    params0 = lm.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
-    toks = torch.randint(0, cfg.vocab_size, (2, 257), device=dev,
-                         generator=torch.Generator(device=dev).manual_seed(1))
-    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    cfg, params0, batch = slice_model(backend, "float32", dev)
     runs = {}
     for kernel in (True, False):
         reset_launches()
@@ -1523,6 +1602,67 @@ def training_slice(backend, dev, phase) -> None:
           f"remat recompute)")
 
 
+# The bf16 slices (phases 9 and 11): the kernel route against the plain
+# route, both in bf16 compute, which round the attention core's operands in
+# other places (the tensor-core routes feed bf16 score tiles, state copies
+# and scaled operands to their products; the plain versions compute in
+# fp32 from the bf16 inputs); the difference then passes through two bf16
+# layers, the head and the backward. The loss relative, every gradient
+# leaf normwise (max|Δ| over max|plain|); PERF.md §6 gives the measured
+# errors beside these limits (loss 1.2e-5 and leaves 1.5e-2 at most).
+BF16_SLICE_TOL = {"loss": 1e-4, "leaf": 5e-2}
+
+
+def training_slice_bf16(backend, dev, phase) -> None:
+    """Phases 9 and 11, second part: ``training_slice``'s 2-layer model in
+    bf16 compute (fp32 master weights, as the main path trains), so that
+    the attention kernels take their bf16 (tensor-core) routes inside the
+    model: the loss and every gradient leaf through the kernels against
+    the same through ``attention_kernel=False``, at BF16_SLICE_TOL."""
+    import torch
+    from repro_torch.models import lm
+    from repro_torch.optim import GradAccumulator
+    from repro_torch.tree import leaves
+    names, ids = TRAIN_KERNELS[backend][:2]
+    cfg, params0, batch = slice_model(backend, "bfloat16", dev)
+    runs = {}
+    for kernel in (True, False):
+        reset_launches()
+        loss, _, grads = GradAccumulator(1).run(
+            lambda p, b: lm.lm_loss(p, b, cfg, attention_kernel=kernel),
+            params0, batch)
+        torch.cuda.synchronize()
+        runs[kernel] = (loss, leaves(grads), read_launches())
+    (loss_k, g_k, n_k), (loss_p, g_p, n_p) = runs[True], runs[False]
+    # one backward pass; the forward kernel twice per layer (forward and
+    # remat recompute)
+    want = dict(zip(names, (2 * cfg.n_layers, cfg.n_layers, cfg.n_layers)))
+    got = {k: n for k, n in n_k.items() if n}
+    if got != want or any(n_p.values()):
+        raise AssertionError(f"phase {phase}: bf16 launches {got} on the "
+                             f"kernel route (want {want}), {n_p} on the "
+                             f"plain route")
+    if not all(torch.isfinite(x).all() for x in g_k + [loss_k]):
+        raise AssertionError(f"phase {phase}: non-finite bf16 loss or "
+                             f"gradients")
+    loss_err = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+    if not loss_err <= BF16_SLICE_TOL["loss"]:
+        raise AssertionError(f"phase {phase}: bf16 loss {loss_k.item()} vs "
+                             f"plain {loss_p.item()}: relative {loss_err:.3e}"
+                             f" > {BF16_SLICE_TOL['loss']}")
+    g_err = [normwise(a, b, BF16_SLICE_TOL["leaf"],
+                      f"phase {phase} bf16 gradient leaf {i}")
+             / b.float().abs().max().item()
+             for i, (a, b) in enumerate(zip(g_k, g_p))]
+    print(f"phase {phase}: {backend} training slice in bf16 compute, 2 layers"
+          f" full width, batch 2 x 256: loss {loss_k.item():.6f} vs plain "
+          f"{loss_p.item():.6f} (relative {loss_err:.3e}, limit "
+          f"{BF16_SLICE_TOL['loss']}); {len(g_k)} gradient leaves, max|Δg| "
+          f"over max|g|: largest {max(g_err):.3e}, median "
+          f"{sorted(g_err)[len(g_err) // 2]:.3e} (limit "
+          f"{BF16_SLICE_TOL['leaf']}); {'/'.join(ids)} launches {got}")
+
+
 def profile_train_step(loop, batch, kernel) -> dict:
     """Device time by kernel over one training step (torch.profiler) and
     the device busy share: device time over the step's wall time; the
@@ -1565,7 +1705,7 @@ def profile_train_step(loop, batch, kernel) -> dict:
 
 
 # kernel names by kind, first match wins
-TRAIN_KINDS = (("B2/B3", ("sweep_kernel",)),
+TRAIN_KINDS = (("B2/B3", ("sweep_kernel", "linear_sweep")),
                ("B8/B9", ("decay_sweep",)),
                ("matmul", ("gemm", "nvjet", "cutlass", "xmma", "cublas")),
                ("cumsum", ("scan",)),
@@ -1585,7 +1725,7 @@ def training_main_path(backend, dev, gen, phase) -> list:
     import torch
     from repro_torch.launch import train
     from repro_torch.models import lm
-    names, ids, pallas, lines, kernel = TRAIN_KERNELS[backend]
+    names, ids, pallas, lines, kernel, bf16_kernels = TRAIN_KERNELS[backend]
     args = train.parse_args(["--arch", "qwen3-0.6b", "--backend", backend,
                              "--batch", "8", "--seq-len", "1024", "--steps",
                              "8", "--lr", "3e-4", "--warmup", "20",
@@ -1653,6 +1793,17 @@ def training_main_path(backend, dev, gen, phase) -> list:
     timer = {"linear": time_linear_attention,
              "gated_linear": time_gated_linear_attention}[backend]
     t = timer(rows, args.seq_len, cfg.head_dim, cfg.linear_chunk, gen, dev)
+    if backend == "linear":
+        r = t["bwd"]
+        print(f"B3 as a whole (ops.bwd: the dq launch, then the dk/dv launch) "
+              f"rows={rows} T={args.seq_len} D={cfg.head_dim} bf16: "
+              f"{r['ms'] * 1e3:.2f} us (dq {t[names[1]]['ms'] * 1e3:.2f} + "
+              f"dk/dv {t[names[2]]['ms'] * 1e3:.2f} us timed alone); bound "
+              f"{r['bound_ms'] * 1e3:.2f} us by {r['bound_by']} "
+              f"({r['bytes'] / 1e6:.2f} MB, {r['flops'] / 1e9:.2f} GFLOP on "
+              f"bf16 tensor cores), {r['two_sweep_ms'] * 1e3:.2f} us for any "
+              f"two sweeps ({r['two_sweep_bytes'] / 1e6:.2f} MB); plain "
+              f"version {r['plain_ms'] * 1e3:.2f} us")
     if backend == "gated_linear":
         r, old = t["bwd"], t["old_epilogue_ms"]
         print(f"B9 as a whole (ops.bwd: the dq launch, then the dk/dv launch "
@@ -1665,10 +1816,11 @@ def training_main_path(backend, dev, gen, phase) -> list:
               f"us; the eager dg epilogue it replaced (ref.dg_epilogue and "
               f"the casts of dq and dk) alone {old * 1e3:.2f} us")
     records = []
-    for name, line in zip(names, lines):
+    for name, line, cuda_kernel in zip(names, lines, bf16_kernels):
         r = t[name]
-        print(f"{name} rows={rows} T={args.seq_len} D={cfg.head_dim} bf16: "
-              f"{r['ms'] * 1e3:.2f} us/launch (plain version "
+        print(f"{name} [{cuda_kernel}] rows={rows} T={args.seq_len} "
+              f"D={cfg.head_dim} bf16: {r['ms'] * 1e3:.2f} us/launch (plain "
+              f"version "
               f"{r['plain_ms'] * 1e3:.2f} us; library call: none; bound "
               f"{r['bound_ms'] * 1e3:.2f} us by {r['bound_by']} on bf16 "
               f"tensor cores, {r['fp32_bound_ms'] * 1e3:.2f} us at the fp32 "
@@ -1681,7 +1833,8 @@ def training_main_path(backend, dev, gen, phase) -> list:
             "replaces": f"src/repro/kernels/{pallas}:{line}",
             "launches": launches[name], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": None})
+            "bound_by": r["bound_by"], "library_ms": None,
+            "kernel": cuda_kernel})
     torch.cuda.empty_cache()
     return records
 
@@ -1897,8 +2050,9 @@ def main() -> int:
     for name, log in build.BUILD_LOG.items():
         for line in ptxas_notes(log):
             print(f"  {name}: {line}")
-    # the bf16 routes of B10 and B9 run on the tensor cores
-    for source, ids in ((FA.SOURCE, "B10"), (GL.SOURCE, "B9")):
+    # the bf16 routes of B10, B8/B9 and B3 run on the tensor cores
+    for source, ids in ((FA.SOURCE, "B10"), (GL.SOURCE, "B8/B9"),
+                        (LA.SOURCE, "B3")):
         n_hgmma = hgmma_count(build, source)
         if not n_hgmma:
             raise AssertionError(f"phase 1: no HGMMA in {source.name}'s "
@@ -1960,10 +2114,16 @@ def main() -> int:
           f"agree with their plain versions (o rtol/atol {LOOKUP_TOL}, "
           f"non-symmetric states; fused_decode's state bitwise)")
     # B2/B3: the training main path's shape, then T a multiple of the
-    # chunk but not of the kernels' 32-token tile
+    # chunk but not of the kernels' tiles (32 tokens in fp32, B3's 64 in
+    # bf16), at D = 128 and 16
     errs.update(check_linear_attention_rows(128, 1024, 128, torch.bfloat16,
                                             128, gen, dev))
     check_linear_attention_rows(6, 272, 128, torch.float32, 16, gen, dev)
+    for d in (128, 16):
+        for bh, t, chunk in ((6, 272, 16), (4, 75, 75), (6, 48, 16),
+                             (6, 200, 40)):
+            check_linear_attention_rows(bh, t, d, torch.bfloat16, chunk,
+                                        gen, dev)
     check_linear_attention_wrapper(40, 16, torch.float32, 16, gen, dev)
     for dtype in (torch.float32, torch.bfloat16):      # T % 128 != 0
         check_linear_attention_wrapper(200, 128, dtype, 128, gen, dev)
@@ -1976,13 +2136,18 @@ def main() -> int:
     # the wrapper (padding, per-head decay); then at the clamp
     errs.update(check_gla_rows(128, 1024, 128, torch.bfloat16, 128, "model",
                                gen, dev))
-    # B9's bf16 route takes 64-token tiles: T = 272, 75, 48 and 200 are
-    # not multiples of it; both routes at D = 16 and 128
-    for dtype in (torch.float32, torch.bfloat16):
-        check_gla_rows(6, 272, 128, dtype, 16, "mild", gen, dev)
-        check_gla_rows(4, 75, 128, dtype, 75, "mild", gen, dev)
-        check_gla_rows(6, 48, 16, dtype, 16, "mild", gen, dev)
-    check_gla_rows(6, 200, 16, torch.bfloat16, 40, "mild", gen, dev)
+    check_gla_rows(128, 1024, 128, torch.bfloat16, 128, "mild", gen, dev)
+    for bh, t, d, chunk in ((6, 272, 128, 16), (4, 75, 128, 75),
+                            (6, 48, 16, 16)):
+        check_gla_rows(bh, t, d, torch.float32, chunk, "mild", gen, dev)
+    # the bf16 routes take 64-token tiles: T = 272, 75, 48 and 200 are not
+    # multiples of it; D = 16 and 128; the model's decay and the mild one
+    for d in (128, 16):
+        for bh, t, chunk in ((6, 272, 16), (4, 75, 75), (6, 48, 16),
+                             (6, 200, 40)):
+            for decay in ("model", "mild"):
+                check_gla_rows(bh, t, d, torch.bfloat16, chunk, decay, gen,
+                               dev)
     check_gla_wrapper(40, 16, torch.float32, 16, False, gen, dev)
     check_gla_wrapper(200, 128, torch.float32, 128, True, gen, dev)
     for scalar in (False, True):                    # per-head decay too
@@ -1990,9 +2155,11 @@ def main() -> int:
     check_gla_wrapper(75, 16, torch.bfloat16, 16, True, gen, dev)
     for dtype in (torch.float32, torch.bfloat16):
         check_gla_clamp(dtype, gen, dev)
+    check_decay_limit(gen, dev)
     print(f"phase 2: gated_linear_attention_fwd (inclusive, exclusive + u), "
           f"_bwd_dq and _bwd_dkv agree with their plain versions (normwise "
-          f"{LA_TOL}) and, at the clamp, with gla_scan")
+          f"{LA_TOL}; the fp32 state within {LA_TOL['float32']}) and, at the "
+          f"clamp and at each route's min_log_decay limit, with gla_scan")
     # B10: the softmax prefill main path's shape (B 8 x H 16 q rows over 8
     # kv heads, T = S = 512, bf16), the same with K/V of 16 heads, then
     # each D the kernel takes on both routes with ragged T, t_off < S - T
@@ -2079,9 +2246,10 @@ def main() -> int:
     records.append(generate_main_path("gated_linear", dev, gen, 8))
     done(8, t0)
 
-    # -- 9. the training slice, kernel vs plain, fp32 ----------------------
+    # -- 9. the training slice, kernel vs plain, fp32 and bf16 --------------
     t0 = time.perf_counter()
     training_slice("linear", dev, 9)
+    training_slice_bf16("linear", dev, 9)
     torch.cuda.empty_cache()
     done(9, t0)
 
@@ -2090,9 +2258,10 @@ def main() -> int:
     records.extend(training_main_path("linear", dev, gen, 10))
     done(10, t0)
 
-    # -- 11. the gated training slice, kernel vs plain, fp32 ---------------
+    # -- 11. the gated training slice, kernel vs plain, fp32 and bf16 -------
     t0 = time.perf_counter()
     training_slice("gated_linear", dev, 11)
+    training_slice_bf16("gated_linear", dev, 11)
     torch.cuda.empty_cache()
     done(11, t0)
 

@@ -3,8 +3,10 @@
 Each kernel source under ``kernels/<name>/csrc`` exposes a plain C entry
 point (no PyTorch headers). At first use it is compiled with ``nvcc`` for
 ``sm_90a`` into a shared library under ``build/kernels/`` at the root of
-the checkout, named by a hash of the source and the flags so a changed
-source never loads a stale library, and loaded with ``ctypes``.
+the checkout, named by a hash of the source, of every file it includes
+with ``#include "..."`` (``kernels/csrc/hopper.cuh``) and of the flags, so
+a changed source or header never loads a stale library, and loaded with
+``ctypes``.
 ``build`` compiles several sources at once, one ``nvcc`` each.
 """
 
@@ -13,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -44,10 +47,29 @@ def _nvcc() -> str:
                        "the CUDA toolkit's nvcc (set CUDA_HOME)")
 
 
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
+
+
+def sources_of(source: Path) -> list:
+    """``source`` and every file it reaches through ``#include "..."``
+    (resolved against the including file's directory, as nvcc does), each
+    once, in the order met."""
+    seen, todo = [], [Path(source).resolve()]
+    while todo:
+        path = todo.pop(0)
+        if path not in seen:
+            seen.append(path)
+            todo += [(path.parent / name.decode()).resolve()
+                     for name in _INCLUDE.findall(path.read_bytes())]
+    return seen
+
+
 def _lib_path(source: Path) -> Path:
-    digest = hashlib.sha256(source.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{source.stem}-{digest[:16]}.so"
+    digest = hashlib.sha256()
+    for path in sources_of(source):
+        digest.update(path.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{Path(source).stem}-{digest.hexdigest()[:16]}.so"
 
 
 def build(sources: Iterable[Path]) -> None:

@@ -17,7 +17,7 @@
 //
 // Two bodies.
 //
-// 1. fp32 FMAs (B8 in both types, B9 in fp32): B2/B3's sweep with decay
+// 1. fp32 FMAs (B8 and B9 in fp32): B2/B3's sweep with decay
 // factors. A running fp32 state X (D×DS) from zero, for each tile of TC
 // tokens with b the cumulative clamped log-decay FROM THE TILE'S START,
 //     out = ((Â B̂ᵀ ⊙ M) Ĉ + Â X) ⊙ E_out ;  X ← (X + B̂ᵀ Ĉ) ⊙ E_tot
@@ -35,15 +35,31 @@
 // block owns one row and one DS-column slice (DS = 64 at D = 128); the
 // state slice stays in shared memory, each tile stages g's cumulative
 // sum, the scaled operands and the C slice in fp32, and the products are
-// register-tiled FMAs. Tiles are TC = 32 tokens: with g at its clamp (−1)
-// |b| <= 32, every factor lies in [e^-32, e^32], and the carried state is
-// only ever multiplied by e^{btot} <= 1, so the sweeps stay finite where
-// the chunk-128 Pallas bodies and plain versions give inf and NaN.
+// register-tiled FMAs. Tiles are TC = 32 tokens (16 at D = 16): with g at
+// its clamp (−1) |b| <= 32, every factor lies in [e^-32, e^32], and the
+// carried state is only ever multiplied by e^{btot} <= 1, so the sweeps
+// stay finite where the chunk-128 Pallas bodies and plain versions give
+// inf and NaN.
 //
-// 2. bf16 B9 on the tensor cores (decay_sweep_dq_tc, decay_sweep_dkv_tc).
+// 2. bf16 B8 and B9 on the tensor cores (decay_sweep_fwd_tc;
+// decay_sweep_dq_tc, decay_sweep_dkv_tc).
+//
+// The limit on min_log_decay. A tile of n tokens scales an operand by up
+// to e^{n·|min_log_decay|} (K̂ = k e^{-b}) and sums n such products in
+// fp32, whose largest exponent is 88.72. The wrappers (ops.py,
+// DECAY_LIMIT) refuse min_log_decay < −1.25 in bf16: n·|min_log_decay| <=
+// 80 for the 64-token tiles leaves e^8.7 ≈ 6,000 for the operands'
+// magnitudes and the tile's sum. The 32-token fp32 tiles stay finite to
+// −2.5 by the same rule, but fp32 dg, formed from dq and dk by the
+// reverse-cumsum identity, carries their rounding times
+// κ = max|q⊙dq| / max|dg|, which grows as the decay strengthens; fp32
+// stops at −1.5, where dg stays within the route's 1e-5 of gla_scan.
 //
 // Bound. At the gated training main path's shape (128 rows, T = 1,024,
-// D = 128; bf16 q, k, v, do; fp32 g) B9 as a function reads q, k, v, do
+// D = 128; bf16 q, k, v, do; fp32 g) B8 reads q, k, v (100.7 MB) and g
+// (67.1 MB) and writes o (33.6 MB) and the fp32 state (8.4 MB): 209.7 MB,
+// 62.6 µs at 3.35 TB/s; its two products (S and o) take 8.6 GFLOP, 8.7
+// µs on the tensor cores. B9 as a function reads q, k, v, do
 // (134.2 MB) and g (67.1 MB) and writes dq, dk, dv (100.7 MB) and dg
 // (67.1 MB): 369.1 MB, 110.2 µs at 3.35 TB/s. Its five products (the
 // scan form's 2·T·D² per row each: S and dq; R, dk and dv) take 21.5
@@ -55,25 +71,24 @@
 //
 // Design.
 // - Grid: one block of two warpgroups per row, walking the row's 64-token
-//   tiles (wgmma's M) forward (dq) or last to first (dk/dv). With the
+//   tiles (wgmma's M) forward (B8, dq) or last to first (dk/dv). With the
 //   default clamp of −1 a 64-token tile keeps |b| <= 64 and every e^{±b}
 //   within [e^-64, e^64], finite in fp32 and in bf16 (the same exponent);
 //   every product pairs an e^{-b} with an e^{+b} or a decayed state, so
-//   no intermediate passes e^64 · |x|. (A min_log_decay below −1.38 can
-//   overflow: 64·1.38 > 88.7.)
+//   no intermediate passes e^64 · |x| (e^80 · |x| at the limit above).
 // - Loads: one thread issues TMA loads of a whole tile (q, k, v, do in
-//   64-column bf16 blocks with the 128-byte swizzle; g in 32-column fp32
-//   blocks, swizzled the same way) into a ring of two stages, the next
-//   tile's during this tile's work; rows past T read as zeros (log-decay
-//   0: they add and decay nothing). Two stages of 96 KiB and the state's
-//   copy take 224 KiB of the 227.
+//   64-column bf16 blocks with the 128-byte swizzle, B8 without do; g in
+//   32-column fp32 blocks, swizzled the same way) into a ring of two
+//   stages, the next tile's during this tile's work; rows past T read as
+//   zeros (log-decay 0: they add and decay nothing). Two stages of 96 KiB
+//   and the state's copy take 224 KiB of the 227.
 // - The cumulative log-decay of a tile is one scan along tokens per
 //   channel (a thread per channel and half tile), kept in place of g in
 //   log2 units, so each e^{±b} is one ex2. The scaled operands (K̂ = k e^{-b}
-//   in both launches, Q̂ = q e^{b} in dk/dv) are written over the raw tile
-//   in bf16 before the products.
+//   in every launch, Q̂ = q e^{b} in B8 and dk/dv) are written over the raw
+//   tile in bf16 before the products.
 // - Products: wgmma, bf16 operands, fp32 accumulators. The state (S for
-//   dq, R for dk/dv, D×D fp32, [dk][dv]) lives in the accumulator
+//   B8 and dq, R for dk/dv, D×D fp32, [dk][dv]) lives in the accumulator
 //   registers, its rows split over the two warpgroups (64 registers each
 //   at D = 128); each tile a bf16 copy goes to shared memory as the
 //   operand of the inter-tile products. dq: each warpgroup owns 64 columns
@@ -86,6 +101,17 @@
 //   accumulators in registers (M for dq, Mᵀ for the reverse sweep), and
 //   each score tile enters its product as two bf16 parts (hi + lo), so
 //   the scores are not rounded to 8 bits.
+// - B8 has the shape of the dq launch, on (q, k, v): each warpgroup owns
+//   64 columns of o and 64 rows of S, computes the score tile Q̂ K̂ᵀ itself
+//   (masked to M; in the exclusive form to the strict triangle with the
+//   bonus q·(u⊙k), summed from the raw tile before scaling, on its
+//   diagonal), then o = P V + Q̂ S with the update S += K̂ᵀ V beside it, and
+//   decays S's rows by e^{btot}; S is written in fp32 at the end. B8 has no
+//   dg, so its score tile is one bf16 operand; its state update takes K̂ in
+//   two bf16 parts (hi over k, lo in the stage's do slot, which B8 does
+//   not load), so that the emitted state keeps fp32's accuracy (within
+//   1e-5 of the plain version, as the FMA route's) where o reads the
+//   state's bf16 copy.
 // - Keeping ptxas from serializing the wgmmas (its C7515/C7520 notes):
 //   the score tile is a group of its own, waited for before its masking
 //   writes the next group's register operands; each group is straight-line
@@ -117,21 +143,9 @@
 
 #include <cstdint>
 
+#include "../../csrc/hopper.cuh"
+
 namespace {
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 
 // Tiling per head dim D (as B2/B3). Each product is an (M×N) tile over a
 // thread grid MT×NT = kThreads; thread (ti, tj) holds rows ti + r·MT and
@@ -192,13 +206,11 @@ __device__ __forceinline__ void mma(float (&acc)[RM][RN], const float* A,
 // What one sweep computes; see the header.
 enum Mode : int { kFwd = 0, kFwdExclusive = 1, kDq = 2, kDk = 3, kDv = 4 };
 
-template <typename T>
 struct Sweep {
-  const T* a;
-  const T* b;
-  const T* c;
-  T* out;         // o (kFwd, kFwdExclusive) or dv (kDv), in T
-  float* out_f;   // dq (kDq) or dk (kDk), fp32
+  const float* a;
+  const float* b;
+  const float* c;
+  float* out;     // o, dq, dk or dv
   int mode;
 };
 
@@ -213,9 +225,9 @@ __device__ __forceinline__ float clamp_decay(float g, float lo) {
 // With EMIT_STATE (B8 only), state receives the final S (rows, D, D)
 // fp32. The instantiations: <false, true> B8, <false, false> dq,
 // <true, false> dk/dv.
-template <typename T, int D, bool REVERSE, bool EMIT_STATE>
+template <int D, bool REVERSE, bool EMIT_STATE>
 __global__ void __launch_bounds__(Cfg<D>::kThreads)
-decay_sweep(Sweep<T> s0, Sweep<T> s1, const float* __restrict__ g,
+decay_sweep(Sweep s0, Sweep s1, const float* __restrict__ g,
             const float* __restrict__ u, float* __restrict__ state,
             int t_len, float min_log_decay) {
   using C = Cfg<D>;
@@ -244,12 +256,12 @@ decay_sweep(Sweep<T> s0, Sweep<T> s1, const float* __restrict__ g,
   float* Et = Ss + D * LC;     // exp(btot) per channel
   float* Dg = Et + D;          // diagonal bonus q·(u⊙k) per row
 
-  const Sweep<T> sw = blockIdx.z ? s1 : s0;
+  const Sweep sw = blockIdx.z ? s1 : s0;
   const int mode = sw.mode;
   const size_t row_off = static_cast<size_t>(blockIdx.x) * t_len * D;
-  const T* __restrict__ A = sw.a + row_off;
-  const T* __restrict__ B = sw.b + row_off;
-  const T* __restrict__ Cg = sw.c + row_off;
+  const float* __restrict__ A = sw.a + row_off;
+  const float* __restrict__ B = sw.b + row_off;
+  const float* __restrict__ Cg = sw.c + row_off;
   const float* __restrict__ G = g + row_off;
   const int col0 = blockIdx.y * DS;
   const int tid = threadIdx.x;
@@ -298,8 +310,8 @@ decay_sweep(Sweep<T> s0, Sweep<T> s1, const float* __restrict__ g,
       float av = 0.f, bv = 0.f;
       if (tok < t_len) {
         const size_t off = static_cast<size_t>(tok) * D + col;
-        av = to_float(A[off]);
-        bv = to_float(B[off]);
+        av = A[off];
+        bv = B[off];
       }
       const float b = Gs[r * LA + col];
       if (mode == kFwd) {
@@ -326,7 +338,7 @@ decay_sweep(Sweep<T> s0, Sweep<T> s1, const float* __restrict__ g,
       const int r = e / DS, col = e % DS;
       const int tok = tok0 + (REVERSE ? TC - 1 - r : r);
       float cv = tok < t_len
-          ? to_float(Cg[static_cast<size_t>(tok) * D + col0 + col])
+          ? Cg[static_cast<size_t>(tok) * D + col0 + col]
           : 0.f;
       if (mode == kDq) cv *= expf(-Gs[r * LA + col0 + col]);
       if (mode == kDk) cv *= expf(Gs[r * LA + col0 + col]);
@@ -375,13 +387,10 @@ decay_sweep(Sweep<T> s0, Sweep<T> s1, const float* __restrict__ g,
           for (int c = 0; c < RN; ++c) {
             const int col = col0 + tj + c * NT;
             const size_t off = static_cast<size_t>(tok) * D + col;
-            if (mode == kDq) {
-              sw.out_f[row_off + off] = acc[r][c] * expf(Gs[i * LA + col]);
-            } else if (mode == kDk) {
-              sw.out_f[row_off + off] = acc[r][c] * expf(-Gs[i * LA + col]);
-            } else {
-              sw.out[row_off + off] = from_float<T>(acc[r][c]);
-            }
+            const float scale = mode == kDq   ? expf(Gs[i * LA + col])
+                                : mode == kDk ? expf(-Gs[i * LA + col])
+                                              : 1.f;
+            sw.out[row_off + off] = acc[r][c] * scale;
           }
         }
       }
@@ -421,13 +430,13 @@ decay_sweep(Sweep<T> s0, Sweep<T> s1, const float* __restrict__ g,
   }
 }
 
-template <typename T, int D, bool REVERSE, bool EMIT_STATE>
-int launch(Sweep<T> s0, Sweep<T> s1, int n_sweeps, const float* g,
+template <int D, bool REVERSE, bool EMIT_STATE>
+int launch(Sweep s0, Sweep s1, int n_sweeps, const float* g,
            const float* u, float* state, int rows, int t_len,
            float min_log_decay, cudaStream_t stream) {
   using C = Cfg<D>;
   constexpr size_t kSmem = smem_floats<D>() * sizeof(float);
-  auto kernel = decay_sweep<T, D, REVERSE, EMIT_STATE>;
+  auto kernel = decay_sweep<D, REVERSE, EMIT_STATE>;
   static bool configured = false;
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -442,8 +451,8 @@ int launch(Sweep<T> s0, Sweep<T> s1, int n_sweeps, const float* g,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, bool REVERSE, bool EMIT_STATE>
-int launch_d(Sweep<T> s0, Sweep<T> s1, int n_sweeps, const void* g,
+template <bool REVERSE, bool EMIT_STATE>
+int launch_d(Sweep s0, Sweep s1, int n_sweeps, const void* g,
              const void* u, void* state, int rows, int t_len, int d,
              float min_log_decay, void* stream) {
   const float* gf = static_cast<const float*>(g);
@@ -452,40 +461,28 @@ int launch_d(Sweep<T> s0, Sweep<T> s1, int n_sweeps, const void* g,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (d) {
     case 16:
-      return launch<T, 16, REVERSE, EMIT_STATE>(s0, s1, n_sweeps, gf, uf, sf,
-                                                rows, t_len, min_log_decay,
-                                                st);
+      return launch<16, REVERSE, EMIT_STATE>(s0, s1, n_sweeps, gf, uf, sf,
+                                             rows, t_len, min_log_decay, st);
     case 128:
-      return launch<T, 128, REVERSE, EMIT_STATE>(s0, s1, n_sweeps, gf, uf,
-                                                 sf, rows, t_len,
-                                                 min_log_decay, st);
+      return launch<128, REVERSE, EMIT_STATE>(s0, s1, n_sweeps, gf, uf, sf,
+                                              rows, t_len, min_log_decay, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-template <typename T>
-Sweep<T> sweep(const void* a, const void* b, const void* c, void* out,
-               int mode) {
-  const bool f32_out = mode == kDq || mode == kDk;
-  return Sweep<T>{static_cast<const T*>(a), static_cast<const T*>(b),
-                  static_cast<const T*>(c),
-                  f32_out ? nullptr : static_cast<T*>(out),
-                  f32_out ? static_cast<float*>(out) : nullptr, mode};
+Sweep sweep(const void* a, const void* b, const void* c, void* out,
+            int mode) {
+  return Sweep{static_cast<const float*>(a), static_cast<const float*>(b),
+               static_cast<const float*>(c), static_cast<float*>(out), mode};
 }
 
 // ---------------------------------------------------------------------------
-// B9 in bf16: tensor cores (see the header, body 2). The TMA, mbarrier and
-// wgmma helpers repeat flash_attention.cu's: each source builds into a
-// library of its own, named by a hash of that source alone, so a header
-// shared between them could change without a rebuild.
+// B8 and B9 in bf16: tensor cores (see the header, body 2), on the TMA,
+// mbarrier and wgmma helpers of kernels/csrc/hopper.cuh.
 // ---------------------------------------------------------------------------
 namespace tc {
 
-constexpr int kTile = 64;                    // tokens per tile: wgmma's M
-constexpr int kThreads = 256;                // two warpgroups
-constexpr int kRowBytes = 128;               // one swizzle row
-constexpr int kBlock = kTile * kRowBytes;    // a 64-row block: 8 KiB
 constexpr float kLog2e = 1.4426950408889634f;
 
 // Shared memory, from a 1024-byte aligned base (the swizzle's period):
@@ -493,7 +490,8 @@ constexpr float kLog2e = 1.4426950408889634f;
 // g: GB blocks of [64 tokens][32 fp32]}, every block as TMA writes it
 // with the 128-byte swizzle; the state's bf16 copy, DC blocks of
 // [DP rows][64 bf16], swizzled the same way; e^{btot} (log2 units) per
-// channel; the scans' per-channel totals; two mbarriers.
+// channel; the scans' per-channel totals; B8's diagonal bonus per token
+// (exclusive form); two mbarriers.
 template <int D>
 struct L {
   static constexpr int DC = (D + 63) / 64;     // 64-column bf16 blocks
@@ -508,185 +506,15 @@ struct L {
   static constexpr int xblock = DP * kRowBytes;
   static constexpr int btot = x + DC * xblock;
   static constexpr int tot = btot + 4 * DP;
-  static constexpr int bars = tot + 8 * GW;
+  static constexpr int bonus = tot + 8 * GW;
+  static constexpr int bars = bonus + 4 * kTile;
   static constexpr int bytes = bars + 16 + 1024;
 };
 
-// byte offset of bf16 element (r, c) in a swizzled tile whose 64-column
-// blocks lie block_bytes apart
-__device__ __forceinline__ int off16(int block_bytes, int r, int c) {
-  return (c >> 6) * block_bytes + r * kRowBytes +
-         ((((c & 63) >> 3) ^ (r & 7)) << 4) + ((c & 7) << 1);
-}
 // byte offset of fp32 element (r, c) in a swizzled g tile
 __device__ __forceinline__ int off32(int r, int c) {
   return (c >> 5) * kBlock + r * kRowBytes +
          ((((c & 31) >> 2) ^ (r & 7)) << 4) + ((c & 3) << 2);
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   bar),
-               "r"(bytes)
-               : "memory");
-}
-
-// returns once the phase of parity `parity` has completed; a wait of 2^34
-// clocks (seconds) means a lost phase and traps
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  const long long start = clock64();
-  uint32_t done = 0;
-  while (true) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.b32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (clock64() - start > (1ll << 34)) __trap();
-  }
-}
-
-// one box of a 3-D tensor map (coordinates innermost first) into shared
-// memory, completing its bytes on the barrier
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1,
-                                         int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2)
-      : "memory");
-}
-
-// this thread's generic-proxy shared-memory writes, made visible to the
-// async proxy (wgmma's operand reads, TMA's writes)
-__device__ __forceinline__ void fence_async() {
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-}
-
-// wgmma shared-memory descriptor, 128-byte swizzle: K-major operands step
-// 8-row groups by sbo = 1024 bytes (lbo unused); MN-major ones are one
-// 64-wide swizzle atom each, stepped along K by 8-row groups (1024 bytes)
-__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
-                                         uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
-}
-// k16 step kk of a K-major operand: 64 rows at `base`, 64-column blocks
-// block_bytes apart
-__device__ __forceinline__ uint64_t kdesc(uint32_t base, int block_bytes,
-                                          int kk) {
-  return desc(base + (kk >> 2) * block_bytes + (kk & 3) * 32, 16, 1024);
-}
-// k16 step kk of an MN-major operand: one 64-column block at `base`, K
-// along its rows
-__device__ __forceinline__ uint64_t mdesc(uint32_t base, int kk) {
-  return desc(base + kk * 16 * kRowBytes, 1024, 1024);
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
-}
-
-// keeps the compiler from moving register reads and writes across the
-// asynchronous window between a wgmma's issue and its wait
-__device__ __forceinline__ void fence_regs(float (&r)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[4][4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N][32]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) fence_regs(r[i]);
-}
-
-// d (64×64 fp32) += A (64×16) · B (16×64), both from shared memory; TA,
-// TB: 0 K-major, 1 MN-major; scale_d = 0: d = A·B
-template <int TA, int TB>
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
-                                         uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31}, %32, %33, p, 1, 1, %35, %36;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
-}
-
-// d (64×64 fp32) += A (64×16 bf16, registers) · B (16×64, shared,
-// MN-major)
-__device__ __forceinline__ void wgmma_rs(float (&d)[32],
-                                         const uint32_t (&a)[4], uint64_t db,
-                                         int scale_d) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-__device__ __forceinline__ float lo_f(uint32_t x) {
-  return __uint_as_float(x << 16);
-}
-__device__ __forceinline__ float hi_f(uint32_t x) {
-  return __uint_as_float(x & 0xFFFF0000u);
 }
 
 // 2^x in one MUFU op
@@ -747,8 +575,10 @@ __device__ __forceinline__ uint32_t decay_scan(uint8_t* gs, float* tot,
   return mask;
 }
 
-// x ← bf16(x · 2^(sign · b)) in place over a tile slot's real columns
-template <int D>
+// x ← bf16(x · 2^(sign · b)) in place over a tile slot's real columns;
+// PREV takes b of the token before (0 for the tile's first): the exclusive
+// form's e^{b_{t-1}}
+template <int D, bool PREV = false>
 __device__ __forceinline__ void scale_slot(uint8_t* slot, const uint8_t* gs,
                                            float sign, int tid) {
   using S = L<D>;
@@ -758,9 +588,12 @@ __device__ __forceinline__ void scale_slot(uint8_t* slot, const uint8_t* gs,
     if (c0 >= D) continue;
     uint4* p = reinterpret_cast<uint4*>(slot + blk * kBlock + r * kRowBytes +
                                         ((ch ^ (r & 7)) << 4));
-    const float4 b0 = *reinterpret_cast<const float4*>(gs + off32(r, c0));
-    const float4 b1 =
-        *reinterpret_cast<const float4*>(gs + off32(r, c0 + 4));
+    float4 b0 = make_float4(0.f, 0.f, 0.f, 0.f), b1 = b0;
+    if (!PREV || r > 0) {
+      const int rb = PREV ? r - 1 : r;
+      b0 = *reinterpret_cast<const float4*>(gs + off32(rb, c0));
+      b1 = *reinterpret_cast<const float4*>(gs + off32(rb, c0 + 4));
+    }
     uint4 x = *p;
     x.x = scale_pair(x.x, sign * b0.x, sign * b0.y);
     x.y = scale_pair(x.y, sign * b0.z, sign * b0.w);
@@ -770,27 +603,44 @@ __device__ __forceinline__ void scale_slot(uint8_t* slot, const uint8_t* gs,
   }
 }
 
-// the bf16 copy of this warpgroup's state rows 64·wg + (0..63), all
-// columns, into the copy's swizzled blocks
+// B8's K̂ = k · 2^(-b) in two bf16 parts: hi over the k slot, lo = bf16(K̂ −
+// hi) into `lo_slot` (the stage's do slot, which B8 does not load; its
+// columns past D are zeroed), so that the state update K̂ᵀ V carries K̂ to
+// about 16 bits and the emitted fp32 state keeps fp32's accuracy
 template <int D>
-__device__ __forceinline__ void store_state(uint8_t* xs,
-                                            const float (&x)[L<D>::DC][32],
-                                            int wg, int r0, int cl) {
+__device__ __forceinline__ void split_slot(uint8_t* slot, uint8_t* lo_slot,
+                                           const uint8_t* gs, int tid) {
   using S = L<D>;
+  for (int e = tid; e < S::DC * 64 * 8; e += kThreads) {
+    const int blk = e >> 9, r = (e >> 3) & 63, ch = e & 7;
+    const int c0 = blk * 64 + ch * 8;
+    const int at = blk * kBlock + r * kRowBytes + ((ch ^ (r & 7)) << 4);
+    uint4* p = reinterpret_cast<uint4*>(slot + at);
+    uint4* q = reinterpret_cast<uint4*>(lo_slot + at);
+    if (c0 >= D) {
+      *q = make_uint4(0u, 0u, 0u, 0u);
+      continue;
+    }
+    const float4 b0 = *reinterpret_cast<const float4*>(gs + off32(r, c0));
+    const float4 b1 =
+        *reinterpret_cast<const float4*>(gs + off32(r, c0 + 4));
+    const uint4 x = *p;
+    const float y[8] = {lo_f(x.x) * ex2(-b0.x), hi_f(x.x) * ex2(-b0.y),
+                        lo_f(x.y) * ex2(-b0.z), hi_f(x.y) * ex2(-b0.w),
+                        lo_f(x.z) * ex2(-b1.x), hi_f(x.z) * ex2(-b1.y),
+                        lo_f(x.w) * ex2(-b1.z), hi_f(x.w) * ex2(-b1.w)};
+    uint32_t h[4], l[4];
 #pragma unroll
-  for (int j = 0; j < S::DC; ++j)
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-#pragma unroll
-      for (int g = 0; g < 8; ++g) {
-        const int r = 64 * wg + r0 + 8 * h;
-        *reinterpret_cast<uint32_t*>(xs + off16(S::xblock, r,
-                                                64 * j + 8 * g + cl)) =
-            pack_bf16(x[j][4 * g + 2 * h], x[j][4 * g + 2 * h + 1]);
-      }
+    for (int i = 0; i < 4; ++i) {
+      h[i] = pack_bf16(y[2 * i], y[2 * i + 1]);
+      l[i] = pack_bf16(y[2 * i] - lo_f(h[i]), y[2 * i + 1] - hi_f(h[i]));
+    }
+    *p = make_uint4(h[0], h[1], h[2], h[3]);
+    *q = make_uint4(l[0], l[1], l[2], l[3]);
+  }
 }
 
-// multiplies this warpgroup's state rows by 2^btot2[row]
+// multiplies this warpgroup's state rows by 2^btot[row]
 template <int D>
 __device__ __forceinline__ void decay_state(float (&x)[L<D>::DC][32],
                                             const float* btot, int wg,
@@ -802,42 +652,22 @@ __device__ __forceinline__ void decay_state(float (&x)[L<D>::DC][32],
     for (int i = 0; i < 32; ++i) x[j][i] *= (i & 2) ? e1 : e0;
 }
 
-// A score tile in the accumulator layout (row r0 + 8h, column 8g + cl + e
-// at register 4g + 2h + e), masked to column <= row (LOWER) or column >=
-// row, as wgmma's A operand in two bf16 parts: hi = bf16(s), lo =
-// bf16(s - hi). k16 step kk holds columns 16kk..16kk+15, registers
-// 8kk..8kk+7.
-template <bool LOWER>
-__device__ __forceinline__ void mask_split(const float (&s)[32],
-                                           uint32_t (&hi)[4][4],
-                                           uint32_t (&lo)[4][4], int r0,
-                                           int cl) {
-#pragma unroll
-  for (int x = 0; x < 32; x += 2) {
-    const int r = r0 + 8 * ((x >> 1) & 1), c = 8 * (x >> 2) + cl;
-    const float a = (LOWER ? c <= r : c >= r) ? s[x] : 0.f;
-    const float b = (LOWER ? c + 1 <= r : c + 1 >= r) ? s[x + 1] : 0.f;
-    const uint32_t h = pack_bf16(a, b);
-    hi[x / 8][(x % 8) / 2] = h;
-    lo[x / 8][(x % 8) / 2] = pack_bf16(a - lo_f(h), b - hi_f(h));
-  }
-}
-
-// The loads of one tile (its first token tok0) into a stage: q, k, v, do
-// in 64-column blocks, g in 32-column blocks; rows past T read as zeros
-template <int D>
+// The loads of one tile (its first token tok0) into a stage: q, k, v and
+// (DO: B9) do in 64-column blocks, g in 32-column blocks; rows past T read
+// as zeros
+template <int D, bool DO = true>
 __device__ __forceinline__ void load_tile(
     uint32_t stage, uint32_t bar, const CUtensorMap* tq,
     const CUtensorMap* tk, const CUtensorMap* tv, const CUtensorMap* to,
     const CUtensorMap* tg, int tok0, int row) {
   using S = L<D>;
-  mbar_expect_tx(bar, S::stage);
+  mbar_expect_tx(bar, DO ? S::stage : S::stage - S::tile);
 #pragma unroll
   for (int cb = 0; cb < S::DC; ++cb) {
     tma_load(stage + S::q + cb * kBlock, tq, bar, 64 * cb, tok0, row);
     tma_load(stage + S::k + cb * kBlock, tk, bar, 64 * cb, tok0, row);
     tma_load(stage + S::v + cb * kBlock, tv, bar, 64 * cb, tok0, row);
-    tma_load(stage + S::o + cb * kBlock, to, bar, 64 * cb, tok0, row);
+    if (DO) tma_load(stage + S::o + cb * kBlock, to, bar, 64 * cb, tok0, row);
   }
 #pragma unroll
   for (int gb = 0; gb < S::GB; ++gb)
@@ -907,7 +737,7 @@ decay_sweep_dq_tc(const __grid_constant__ CUtensorMap tq,
     mbar_wait(bar0 + 8 * (it & 1), (it >> 1) & 1);
 
     decay_scan<D>(ss + S::g, tot, btot, lo, t);
-    if (wg < DC) store_state<D>(sb + S::x, x, wg, r0, cl);
+    if (wg < DC) store_state(sb + S::x, S::xblock, x, wg, r0, cl);
     scale_slot<D>(ss + S::k, ss + S::g, -1.f, t);        // K̂
     fence_async();
     __syncthreads();
@@ -1120,7 +950,7 @@ decay_sweep_dkv_tc(const __grid_constant__ CUtensorMap tq,
     const uint32_t mask = decay_scan<D>(ss + S::g, tot, btot, lo, t);
     if (wg < DC) {
       decay_state<D>(x, btot, wg, r0);
-      store_state<D>(sb + S::x, x, wg, r0, cl);
+      store_state(sb + S::x, S::xblock, x, wg, r0, cl);
     }
     scale_slot<D>(ss + S::q, ss + S::g, 1.f, t);         // Q̂
     scale_slot<D>(ss + S::k, ss + S::g, -1.f, t);        // K̂
@@ -1223,89 +1053,197 @@ decay_sweep_dkv_tc(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// the driver's cuTensorMapEncodeTiled, through the runtime (the library
-// does not link libcuda)
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(ptr);
+// The exclusive form's score tile: the strict lower triangle, and
+// bonus[row] = q·(u⊙k) on the diagonal, as one bf16 A operand (the layout
+// of hopper.cuh's mask_pack)
+__device__ __forceinline__ void mask_exclusive(const float (&s)[32],
+                                               uint32_t (&p)[4][4], int r0,
+                                               int cl, const float* bonus) {
+#pragma unroll
+  for (int x = 0; x < 32; x += 2) {
+    const int r = r0 + 8 * ((x >> 1) & 1), c = 8 * (x >> 2) + cl;
+    const float d = bonus[r];
+    const float a = c < r ? s[x] : (c == r ? d : 0.f);
+    const float b = c + 1 < r ? s[x + 1] : (c + 1 == r ? d : 0.f);
+    p[x / 8][(x % 8) / 2] = pack_bf16(a, b);
   }
-  return fn;
 }
 
-// (d, n, rows) of bf16 (fp32 == 0) or fp32, rows of n·d contiguous; box
-// (64 bf16 or 32 fp32 = 128 bytes, 64, 1), 128-byte swizzle, elements out
-// of bounds read as zero
-int tensor_map(CUtensorMap* map, const void* ptr, int fp32, int d, int n,
-               int rows) {
-  const EncodeTiled encode = encode_tiled();
-  if (!encode) return static_cast<int>(cudaErrorNotSupported);
-  // The driver call needs the device's context current on this thread. A
-  // thread that has only reused cached allocations (autograd's backward
-  // thread) may have none yet; cudaFree(nullptr) makes the runtime's
-  // current, and frees nothing.
-  static thread_local bool bound = false;
-  if (!bound) {
-    const cudaError_t err = cudaFree(nullptr);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    bound = true;
-  }
-  const cuuint64_t es = fp32 ? 4 : 2;
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d),
-                              static_cast<cuuint64_t>(n),
-                              static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(d) * es,
-                                 static_cast<cuuint64_t>(n) * d * es};
-  const cuuint32_t box[3] = {fp32 ? 32u : 64u, kTile, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  const CUresult res = encode(
-      map,
-      fp32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
-           : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-      3, const_cast<void*>(ptr), dims, strides, box, elem,
-      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  // CUDA_ERROR_INVALID_VALUE and the like, kept apart from runtime codes
-  return res == CUDA_SUCCESS ? 0 : 10000 + static_cast<int>(res);
-}
+// B8's sweep, on the shape of B9's dq launch: per 64-token tile, with b
+// from the tile's start and S[dk][dv] the state at the tile's start,
+//     Q̂ = q e^{b} (exclusive: e^{b_{t-1}}) ;  K̂ = k e^{-b}
+//     o = (Q̂ K̂ᵀ ⊙ M) V + Q̂ S    (exclusive: M strict, q·(u⊙k) on its
+//                                  diagonal)
+//     S ← e^{btot} ⊙ (S + K̂ᵀ V)  (rows, per dk)
+// and at the end S in fp32, (rows, D, D). Warpgroup wg owns o's columns
+// and S's rows 64·wg..64·wg+63 and computes the score tile itself. Launch
+// as decay_sweep_dq_tc, with the maps of q, k, v and g.
+template <int D, bool EXCLUSIVE>
+__global__ void __launch_bounds__(kThreads, 1)
+decay_sweep_fwd_tc(const __grid_constant__ CUtensorMap tq,
+                   const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv,
+                   const __grid_constant__ CUtensorMap tg,
+                   const float* __restrict__ u,
+                   __nv_bfloat16* __restrict__ o, float* __restrict__ state,
+                   int t_len, float lo) {
+  using S = L<D>;
+  constexpr int DC = S::DC;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* const sb = smem_raw + (base - raw);
+  float* const btot = reinterpret_cast<float*>(sb + S::btot);
+  float* const tot = reinterpret_cast<float*>(sb + S::tot);
+  float* const bonus = reinterpret_cast<float*>(sb + S::bonus);
+  const uint32_t bar0 = base + S::bars;
+  // the warpgroup, from lane 0: provably uniform (see decay_sweep_dq_tc)
+  const int tid = threadIdx.x,
+            wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  const int row = blockIdx.x;
+  const int n_tiles = (t_len + kTile - 1) / kTile;
 
-// the maps of q, k, v, do (bf16) and g (fp32)
-int input_maps(CUtensorMap (&m)[5], const void* q, const void* k,
-               const void* v, const void* d_o, const void* g, int d, int t,
-               int rows) {
-  const void* ptrs[5] = {q, k, v, d_o, g};
-  for (int i = 0; i < 5; ++i) {
-    const int err = tensor_map(&m[i], ptrs[i], i == 4, d, t, rows);
-    if (err) return err;
+  if (tid == 0) {
+    mbar_init(bar0, 1);
+    mbar_init(bar0 + 8, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
-  return 0;
-}
+  for (int c = tid; c < S::DP; c += kThreads) btot[c] = 0.f;
+  __syncthreads();
+  if (tid == 0)
+    load_tile<D, false>(base, bar0, &tq, &tk, &tv, nullptr, &tg, 0, row);
 
-template <typename Kernel>
-int configure(Kernel kernel, int smem, bool& configured) {
-  if (configured) return 0;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  configured = true;
-  return 0;
+  float x[DC][32];   // S rows 64·wg + (0..63) (wg < DC)
+#pragma unroll
+  for (int j = 0; j < DC; ++j)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) x[j][i] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    // offsets from the thread index, recomputed in each tile
+    int t = threadIdx.x;
+    asm volatile("" : "+r"(t));
+    const int r0 = (t % 128) / 32 * 16 + (t % 32) / 4, cl = 2 * (t % 4);
+    if (tid == 0 && it + 1 < n_tiles)
+      load_tile<D, false>(base + ((it + 1) & 1) * S::stage,
+                          bar0 + 8 * ((it + 1) & 1), &tq, &tk, &tv, nullptr,
+                          &tg, (it + 1) * kTile, row);
+    const uint32_t st = base + (it & 1) * S::stage;
+    uint8_t* const ss = sb + (it & 1) * S::stage;
+    const int tok0 = it * kTile;
+    mbar_wait(bar0 + 8 * (it & 1), (it >> 1) & 1);
+
+    if constexpr (EXCLUSIVE) {
+      // the bonus q·(u⊙k) of each token from the raw tile, four threads a
+      // token; read after decay_scan's first barrier
+      const int r = t / 4, part = t % 4;
+      float p = 0.f;
+#pragma unroll
+      for (int c = 2 * part; c < D; c += 8) {
+        const uint32_t qa = *reinterpret_cast<const uint32_t*>(
+            ss + S::q + off16(kBlock, r, c));
+        const uint32_t ka = *reinterpret_cast<const uint32_t*>(
+            ss + S::k + off16(kBlock, r, c));
+        p += lo_f(qa) * __ldg(u + c) * lo_f(ka) +
+             hi_f(qa) * __ldg(u + c + 1) * hi_f(ka);
+      }
+      p += __shfl_xor_sync(0xffffffffu, p, 1);
+      p += __shfl_xor_sync(0xffffffffu, p, 2);
+      if (part == 0) bonus[r] = p;
+    }
+    decay_scan<D>(ss + S::g, tot, btot, lo, t);
+    if (wg < DC) store_state(sb + S::x, S::xblock, x, wg, r0, cl);
+    scale_slot<D, EXCLUSIVE>(ss + S::q, ss + S::g, 1.f, t);      // Q̂
+    split_slot<D>(ss + S::k, ss + S::o, ss + S::g, t);           // K̂
+    fence_async();
+    __syncthreads();
+
+    if (wg < DC) {
+      float sc[32], acc[32];
+      uint32_t p[4][4];
+      // the score tile Q̂ K̂ᵀ, alone
+      fence_regs(sc);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4 * DC; ++kk)
+        wgmma_ss<0, 0>(sc, kdesc(st + S::q, kBlock, kk),
+                       kdesc(st + S::k, kBlock, kk), kk > 0);
+      wg_commit();
+      fence_regs(sc);
+      wg_wait<0>();
+      fence_regs(sc);
+      if constexpr (EXCLUSIVE)
+        mask_exclusive(sc, p, r0, cl, bonus);
+      else
+        mask_pack<true>(sc, p, r0, cl);
+      // o = P V + Q̂ S (this warpgroup's 64 columns); beside it the state
+      // update S += K̂ᵀ V with K̂ as hi + lo (the copy is read, the
+      // registers are updated)
+      fence_regs(acc);
+      fence_regs(x);
+      fence_regs(p);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs(acc, p[kk], mdesc(st + S::v + wg * kBlock, kk), kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < 4 * DC; ++kk)
+        wgmma_ss<0, 1>(acc, kdesc(st + S::q, kBlock, kk),
+                       mdesc(base + S::x + wg * S::xblock, kk), 1);
+#pragma unroll
+      for (int j = 0; j < DC; ++j)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          wgmma_ss<1, 1>(x[j], mdesc(st + S::k + wg * kBlock, kk),
+                         mdesc(st + S::v + j * kBlock, kk), 1);
+          wgmma_ss<1, 1>(x[j], mdesc(st + S::o + wg * kBlock, kk),
+                         mdesc(st + S::v + j * kBlock, kk), 1);
+        }
+      wg_commit();
+      fence_regs(acc);
+      fence_regs(x);
+      fence_regs(p);
+      wg_wait<0>();
+      fence_regs(acc);
+      fence_regs(x);
+
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = r0 + 8 * h, tok = tok0 + r;
+        if (tok >= t_len) continue;
+        const size_t off = (static_cast<size_t>(row) * t_len + tok) * D;
+#pragma unroll
+        for (int g = 0; g < 8; ++g) {
+          const int c = 64 * wg + 8 * g + cl;
+          if (c >= D) continue;
+          *reinterpret_cast<uint32_t*>(o + off + c) =
+              pack_bf16(acc[4 * g + 2 * h], acc[4 * g + 2 * h + 1]);
+        }
+      }
+      decay_state<D>(x, btot, wg, r0);
+    }
+    fence_async();
+    __syncthreads();   // the stage and the state copy are free
+  }
+
+  if (wg < DC) {   // the final state, fp32
+    const int r0 = (tid % 128) / 32 * 16 + (tid % 32) / 4, cl = 2 * (tid % 4);
+    float* const s_row = state + static_cast<size_t>(row) * D * D;
+#pragma unroll
+    for (int j = 0; j < DC; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = 64 * wg + r0 + 8 * h;
+        if (r >= D) continue;
+#pragma unroll
+        for (int g = 0; g < 8; ++g) {
+          const int c = 64 * j + 8 * g + cl;
+          if (c >= D) continue;
+          *reinterpret_cast<float2*>(s_row + r * D + c) =
+              make_float2(x[j][4 * g + 2 * h], x[j][4 * g + 2 * h + 1]);
+        }
+      }
+  }
 }
 
 template <int D>
@@ -1315,7 +1253,7 @@ int launch_dq(const void* q, const void* k, const void* v, const void* g,
   static bool configured = false;
   int err = configure(decay_sweep_dq_tc<D>, L<D>::bytes, configured);
   CUtensorMap m[5];
-  if (!err) err = input_maps(m, q, k, v, d_o, g, D, t_len, rows);
+  if (!err) err = tensor_maps(m, {q, k, v, d_o, g}, 4, D, t_len, rows);
   if (err) return err;
   decay_sweep_dq_tc<D><<<rows, kThreads, L<D>::bytes, stream>>>(
       m[0], m[1], m[2], m[3], m[4], static_cast<__nv_bfloat16*>(dq),
@@ -1330,7 +1268,7 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* g,
   static bool configured = false;
   int err = configure(decay_sweep_dkv_tc<D>, L<D>::bytes, configured);
   CUtensorMap m[5];
-  if (!err) err = input_maps(m, q, k, v, d_o, g, D, t_len, rows);
+  if (!err) err = tensor_maps(m, {q, k, v, d_o, g}, 4, D, t_len, rows);
   if (err) return err;
   decay_sweep_dkv_tc<D><<<rows, kThreads, L<D>::bytes, stream>>>(
       m[0], m[1], m[2], m[3], m[4], static_cast<const float*>(qdq),
@@ -1339,17 +1277,25 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* g,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int D, bool EXCLUSIVE>
+int launch_fwd(const void* q, const void* k, const void* v, const void* g,
+               const void* u, void* o, void* s, int rows, int t_len,
+               float lo, cudaStream_t stream) {
+  static bool configured = false;
+  int err = configure(decay_sweep_fwd_tc<D, EXCLUSIVE>, L<D>::bytes,
+                      configured);
+  CUtensorMap m[4];
+  if (!err) err = tensor_maps(m, {q, k, v, g}, 3, D, t_len, rows);
+  if (err) return err;
+  decay_sweep_fwd_tc<D, EXCLUSIVE><<<rows, kThreads, L<D>::bytes, stream>>>(
+      m[0], m[1], m[2], m[3], static_cast<const float*>(u),
+      static_cast<__nv_bfloat16*>(o), static_cast<float*>(s), t_len, lo);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace tc
 
 bool bad_shape(int rows, int t_len) { return rows <= 0 || t_len <= 0; }
-
-bool misaligned(const void* a, const void* b, const void* c, const void* d,
-                const void* e) {
-  return (reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b) |
-          reinterpret_cast<uintptr_t>(c) | reinterpret_cast<uintptr_t>(d) |
-          reinterpret_cast<uintptr_t>(e)) %
-         16;
-}
 
 }  // namespace
 
@@ -1357,12 +1303,13 @@ bool misaligned(const void* a, const void* b, const void* c, const void* d,
 // device: q, k, v, do and o, dv of one type, fp32 (bf16 == 0) or bf16
 // (bf16 == 1); g, q⊙dq and dg fp32; dq and dk in the inputs' type; u (d,)
 // fp32; s the (rows, d, d) fp32 final state. d in {16, 128}. The bf16
-// routes of B9 take 16-byte aligned inputs. Each returns
+// routes (tensor cores) take 16-byte aligned inputs. Each returns
 // cudaGetLastError() after the launch, cudaErrorInvalidValue for
 // arguments it does not take, or 10000 + the driver's CUresult when a
 // tensor map cannot be made.
 
 // B8: o and the final state; inclusive, or exclusive with the bonus u.
+// bf16 on the tensor cores, fp32 on FMAs.
 extern "C" int gated_linear_attention_fwd(const void* q, const void* k,
                                           const void* v, const void* g,
                                           const void* u, void* o, void* s,
@@ -1371,15 +1318,32 @@ extern "C" int gated_linear_attention_fwd(const void* q, const void* k,
                                           void* stream) {
   if (bad_shape(rows, t) || s == nullptr || (exclusive && u == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int mode = exclusive ? kFwdExclusive : kFwd;
   if (bf16) {
-    const auto sw = sweep<__nv_bfloat16>(q, k, v, o, mode);
-    return launch_d<__nv_bfloat16, false, true>(sw, sw, 1, g, u, s, rows, t,
-                                                d, min_log_decay, stream);
+    if (tc::misaligned(q, k, v, g))
+      return static_cast<int>(cudaErrorInvalidValue);
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    switch (d) {
+      case 16:
+        return exclusive ? tc::launch_fwd<16, true>(q, k, v, g, u, o, s, rows,
+                                                    t, min_log_decay, st)
+                         : tc::launch_fwd<16, false>(q, k, v, g, u, o, s,
+                                                     rows, t, min_log_decay,
+                                                     st);
+      case 128:
+        return exclusive ? tc::launch_fwd<128, true>(q, k, v, g, u, o, s,
+                                                     rows, t, min_log_decay,
+                                                     st)
+                         : tc::launch_fwd<128, false>(q, k, v, g, u, o, s,
+                                                      rows, t, min_log_decay,
+                                                      st);
+      default:
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
   }
-  const auto sw = sweep<float>(q, k, v, o, mode);
-  return launch_d<float, false, true>(sw, sw, 1, g, u, s, rows, t, d,
-                                      min_log_decay, stream);
+  const int mode = exclusive ? kFwdExclusive : kFwd;
+  const auto sw = sweep(q, k, v, o, mode);
+  return launch_d<false, true>(sw, sw, 1, g, u, s, rows, t, d, min_log_decay,
+                               stream);
 }
 
 // B9, forward sweep: dq = e^{b} ⊙ [(dO Vᵀ ⊙ M) K̂ + dO Sᵀ] in the inputs'
@@ -1395,7 +1359,7 @@ extern "C" int gated_linear_attention_bwd_dq(const void* q, const void* k,
   if (bad_shape(rows, t)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bf16) {
-    if (qdq == nullptr || misaligned(q, k, v, g, d_o))
+    if (qdq == nullptr || tc::misaligned(q, k, v, g, d_o))
       return static_cast<int>(cudaErrorInvalidValue);
     switch (d) {
       case 16:
@@ -1408,9 +1372,9 @@ extern "C" int gated_linear_attention_bwd_dq(const void* q, const void* k,
         return static_cast<int>(cudaErrorInvalidValue);
     }
   }
-  const auto sw = sweep<float>(d_o, v, k, dq, kDq);
-  return launch_d<float, false, false>(sw, sw, 1, g, nullptr, nullptr, rows,
-                                       t, d, min_log_decay, stream);
+  const auto sw = sweep(d_o, v, k, dq, kDq);
+  return launch_d<false, false>(sw, sw, 1, g, nullptr, nullptr, rows, t, d,
+                                min_log_decay, stream);
 }
 
 // B9, reverse sweep: dk = e^{-b} ⊙ [(V dOᵀ ⊙ Mᵀ) Q̂ + V R'ᵀ] and
@@ -1428,7 +1392,7 @@ extern "C" int gated_linear_attention_bwd_dkv(const void* q, const void* k,
   if (bad_shape(rows, t)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bf16) {
-    if (qdq == nullptr || dg == nullptr || misaligned(q, k, v, g, d_o))
+    if (qdq == nullptr || dg == nullptr || tc::misaligned(q, k, v, g, d_o))
       return static_cast<int>(cudaErrorInvalidValue);
     switch (d) {
       case 16:
@@ -1441,8 +1405,7 @@ extern "C" int gated_linear_attention_bwd_dkv(const void* q, const void* k,
         return static_cast<int>(cudaErrorInvalidValue);
     }
   }
-  return launch_d<float, true, false>(sweep<float>(v, d_o, q, dk, kDk),
-                                      sweep<float>(k, q, d_o, dv, kDv), 2, g,
-                                      nullptr, nullptr, rows, t, d,
-                                      min_log_decay, stream);
+  return launch_d<true, false>(sweep(v, d_o, q, dk, kDk),
+                               sweep(k, q, d_o, dv, kDv), 2, g, nullptr,
+                               nullptr, rows, t, d, min_log_decay, stream);
 }

@@ -10,17 +10,20 @@ CUDA tensor the kernel does not take raises. ``kernel=False`` asks for
 the plain version explicitly on any device (tests and ``chip_smoke.py``
 compare the two routes that way).
 
-B9's two launches split its function as ``ref.bwd_dq_ref`` and
+In bf16, B8 and B9 run on the tensor cores; in fp32, on FMAs. B9's two
+launches split its function as ``ref.bwd_dq_ref`` and
 ``ref.bwd_dkv_dg_ref`` do: the dq launch also returns q⊙dq in fp32, and
-the dk/dv launch takes it and returns dg as well. In bf16 both run on the
-tensor cores and write every output in its final type, so ``bwd`` runs
-no PyTorch epilogue or cast; in fp32 the FMA kernels write dq, dk and dv,
-and the wrappers form q⊙dq and dg in PyTorch.
+the dk/dv launch takes it and returns dg as well. In bf16 both write
+every output in its final type, so ``bwd`` runs no PyTorch epilogue or
+cast; in fp32 the FMA kernels write dq, dk and dv, and the wrappers form
+q⊙dq and dg in PyTorch.
 
-B8 and fp32 B9 rescale within tiles of 32 tokens, bf16 B9 within tiles
-of 64, whatever the chunk; so with g at its clamp (−1) over a long chunk
-they stay finite where the chunk-wide plain versions (and JAX) give NaN;
-elsewhere the two agree to rounding.
+The kernels rescale within tiles (64 tokens in bf16, 32 in fp32),
+whatever the chunk; so with g at its clamp (−1) over a long chunk they
+stay finite where the chunk-wide plain versions (and JAX) give NaN;
+elsewhere the two agree to rounding. A CUDA call refuses a
+``min_log_decay`` below its type's ``DECAY_LIMIT`` (the CPU route, JAX's
+semantics, takes any).
 
 ``gated_linear_attention`` adds the broadcast of the log-decay to q's
 shape, the (B, H, T, D) ↔ (BH, T, D) reshapes and the JAX wrapper's
@@ -48,6 +51,25 @@ Tensor = torch.Tensor
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "gated_linear_attention.cu"
 
+# The lowest ``min_log_decay`` a CUDA call takes, per input type.
+# - bf16: −1.25, set by overflow. A 64-token tile scales an operand by up
+#   to e^{64·1.25} = e^80 (K̂ = k e^{-b}) and sums 64 such products in
+#   fp32, whose largest exponent is 88.72: e^8.7 ≈ 6,000 is left for the
+#   operands' magnitudes and the tile's sum.
+# - fp32: −1.5, set by dg's accuracy; by overflow alone its 32-token tiles
+#   would take −2.5. dg is the reverse cumsum of q⊙dq − k⊙dk, whose terms
+#   stay near max|q⊙dq| while dg shrinks as the decay strengthens, so the
+#   identity amplifies the rounding of dq and dk by κ = max|q⊙dq| /
+#   max|dg| (2.8 at −1.5, 4.7 at −2.0, 7.8 at −2.5 on the inputs of
+#   scripts/gla_fp32_dg_drift.py). JAX's Pallas bwd and the plain version
+#   carry at most 9.2e-7·κ there (tests/test_torch_gated_train.py,
+#   test_fp32_dg_error_is_rounding_amplified_by_the_identity); the FMA
+#   route, whose dq and dk round about twice as much, 1.3-1.8e-6·κ: 5.2e-6
+#   of max|dg| at −1.5, 6.8e-6 at −2.0, 1.04e-5 at −2.5, past the route's
+#   1e-5 of gla_scan (PERF.md §6). −1.5 leaves a margin of about 2 for
+#   inputs of larger κ.
+DECAY_LIMIT = {torch.bfloat16: -1.25, torch.float32: -1.5}
+
 
 def load() -> ctypes.CDLL:
     """Build (at first use) and load the kernel library."""
@@ -66,12 +88,13 @@ def load() -> ctypes.CDLL:
     return lib
 
 
-def _check_gated(kernel: str, chunk: int, g: Tensor, **tensors: Tensor
-                 ) -> None:
+def _check_gated(kernel: str, chunk: int, g: Tensor, min_log_decay: float,
+                 **tensors: Tensor) -> None:
     """What the kernels take: B2/B3's rows (contiguous (BH, T, D) of one
     type, D in their HEAD_DIMS, so Dk = Dv, on one CUDA device, T a
-    multiple of ``chunk``) and a contiguous fp32 log-decay g of the same
-    shape."""
+    multiple of ``chunk``), a contiguous fp32 log-decay g of the same
+    shape, and a ``min_log_decay`` no lower than the type's
+    ``DECAY_LIMIT``."""
     _check(kernel, chunk, **tensors)
     first = next(iter(tensors.values()))
     if g.shape != first.shape or g.dtype != torch.float32 or \
@@ -79,6 +102,10 @@ def _check_gated(kernel: str, chunk: int, g: Tensor, **tensors: Tensor
         raise ValueError(f"{kernel}: g is {g.dtype} {tuple(g.shape)} on "
                          f"{g.device}, expected a contiguous float32 "
                          f"{tuple(first.shape)} on {first.device}")
+    limit = DECAY_LIMIT[first.dtype]
+    if not min_log_decay >= limit:
+        raise ValueError(f"{kernel}: min_log_decay {min_log_decay} is below "
+                         f"the {first.dtype} route's limit {limit}")
 
 
 def fwd(q: Tensor, k: Tensor, v: Tensor, g: Tensor, *,
@@ -92,7 +119,8 @@ def fwd(q: Tensor, k: Tensor, v: Tensor, g: Tensor, *,
         return chunked_fwd_ref(q, k, v, g, u=u, chunk=chunk,
                                exclusive=exclusive,
                                min_log_decay=min_log_decay)
-    _check_gated("gated_linear_attention_fwd", chunk, g, q=q, k=k, v=v)
+    _check_gated("gated_linear_attention_fwd", chunk, g, min_log_decay,
+                 q=q, k=k, v=v)
     bh, t, d = q.shape
     if exclusive:
         u = (torch.zeros(d, dtype=torch.float32, device=q.device)
@@ -128,8 +156,8 @@ def bwd_dq(q: Tensor, k: Tensor, v: Tensor, g: Tensor, do: Tensor, *,
     launch writes both (q⊙dq as Q̂ ⊙ dq e^{-b}, Q̂ rounded as the dk/dv
     launch rounds it); fp32: the launch writes dq and q⊙dq is formed
     here."""
-    _check_gated("gated_linear_attention_bwd_dq", chunk, g, q=q, k=k, v=v,
-                 do=do)
+    _check_gated("gated_linear_attention_bwd_dq", chunk, g, min_log_decay,
+                 q=q, k=k, v=v, do=do)
     bh, t, d = q.shape
     bf16 = q.dtype == torch.bfloat16
     dq = torch.empty_like(q)
@@ -159,8 +187,8 @@ def bwd_dkv(q: Tensor, k: Tensor, v: Tensor, g: Tensor, do: Tensor,
     v's type, dg fp32) from R = Σ_{later} q̂ doᵀ recomputed from the end
     and the dq launch's q⊙dq (``ref.bwd_dkv_dg_ref``). bf16: the launch
     writes all three; fp32: it writes dk and dv, and dg is formed here."""
-    _check_gated("gated_linear_attention_bwd_dkv", chunk, g, q=q, k=k, v=v,
-                 do=do)
+    _check_gated("gated_linear_attention_bwd_dkv", chunk, g, min_log_decay,
+                 q=q, k=k, v=v, do=do)
     if qdq.shape != q.shape or qdq.dtype != torch.float32 or \
             qdq.device != q.device or not qdq.is_contiguous():
         raise ValueError(f"gated_linear_attention_bwd_dkv: q⊙dq is "

@@ -6,9 +6,13 @@
 //   bwd (B3, _dq_kernel)             -> linear_attention_bwd_dq
 //   bwd (B3, _dkv_kernel)            -> linear_attention_bwd_dkv
 //
-// All three are one sweep over the sequence, written once as
-// sweep_kernel: with a running fp32 state S (D×D) that starts at zero,
-// for each tile of TC tokens, in order (or in reverse),
+// Nothing but q, k, v and do is read: no per-step state is stored, the
+// paper's memory argument. Two bodies.
+//
+// 1. fp32 FMAs (B2 in both types, B3 in fp32). All three are one sweep
+// over the sequence, written once as sweep_kernel: with a running fp32
+// state S (D×D) that starts at zero, for each tile of TC tokens, in order
+// (or in reverse),
 //
 //     out_tile = (A Bᵀ ⊙ M) C + A S ;   S += Bᵀ C
 //
@@ -23,37 +27,71 @@
 //        (R = Σ_{later} q doᵀ; reversing the tokens turns Mᵀ into M).
 // A reverse sweep walks the tiles last to first and loads each tile's
 // rows in reverse, so the kernel body is the same; the loop in the block
-// stands in for Pallas's reverse index_map. linear_attention_bwd_dkv
-// runs the dk and dv sweeps as one launch (blockIdx.z), each with its
-// own copy of R: one product more per tile than _dkv_kernel's seven,
-// for one kernel body instead of three. Nothing but q, k, v and do is
-// read: no per-step state is stored, the paper's memory argument.
+// stands in for Pallas's reverse index_map. fp32 B3's dk/dv launch runs
+// the dk and dv sweeps as one launch (blockIdx.z), each with its own copy
+// of R. The tile TC (32 at D = 128) is not the wrapper's chunk: the
+// function does not depend on the blocking, only the rounding does. A
+// ragged last tile loads zero rows, which add nothing to S and are not
+// stored. A block owns one (batch·head) row and one DS-column slice of
+// the output and of S (DS = 64 at D = 128: two blocks per row); it
+// recomputes the TC×TC scores for its slice. The block's S slice stays in
+// shared memory across the loop; each tile of A, B and the C slice is
+// converted to fp32 in shared memory (77 KiB at D = 128, hence the opt-in
+// above 48 KiB). The three products are register-tiled FMAs with every
+// shared row padded by one word, so that the warps' reads do not
+// conflict.
 //
-// The tile TC (32 at D = 128) is not the wrapper's chunk: the function
-// does not depend on the blocking, only the rounding does. A ragged last
-// tile loads zero rows, which add nothing to S and are not stored.
+// 2. bf16 B3 on the tensor cores (linear_sweep_dq_tc, linear_sweep_dkv_tc):
+// B9's design (gated_linear_attention.cu) less the decay and less dg.
+// - Grid: one block of two warpgroups per row, walking the row's 64-token
+//   tiles (wgmma's M) forward (dq) or last to first (dk/dv).
+// - Loads: one thread issues TMA loads of a whole tile (k, v, do; and q
+//   for dk/dv) in 64-column bf16 blocks with the 128-byte swizzle into a
+//   ring of two stages, the next tile's during this tile's work; rows past
+//   T read as zeros, which add nothing (T a multiple of the wrapper's
+//   chunk but not of 64 is covered).
+// - Products: wgmma, bf16 operands, fp32 accumulators. The state (S =
+//   Σ k vᵀ for dq, R = Σ_later q doᵀ for dk/dv, D×D fp32) lives in the
+//   accumulator registers, its rows split over the two warpgroups; each
+//   tile a bf16 copy goes to shared memory as the operand of the
+//   inter-tile products. dq: each warpgroup owns 64 columns of dq and
+//   computes the 64×64 score tile dO Vᵀ itself, then P K + dO Sᵀ with the
+//   state update Kᵀ V beside it. dk/dv: warpgroup 0 computes dk = (V dOᵀ ⊙
+//   Mᵀ) Q + V Rᵀ, warpgroup 1 dv = (K Qᵀ ⊙ Mᵀ) dO + K R, each from its own
+//   score tile and the one state copy, with the update Qᵀ dO beside: R is
+//   built once for both. The mask is applied to the score accumulators in
+//   registers, and the score tile enters its product as one bf16 operand:
+//   B9 splits it into hi + lo because its dg cancels, B3 has no dg, and
+//   one part holds the normwise 8e-3 (two bf16 ulps of the largest
+//   output) at every shape chip_smoke.py checks.
+// - Keeping ptxas from serializing the wgmmas (its C7515/C7520 notes) and
+//   from spilling, as B9 learnt: each wgmma group is straight-line code,
+//   the score tile is a group of its own waited for before its mask writes
+//   the next group's operands, the warpgroup index comes from a shuffle,
+//   and offsets derived from the thread index are recomputed in each tile.
+// - A barrier wait that lasts seconds traps, so that a lost phase fails
+//   the launch instead of hanging the card.
 //
-// Bound: operations. At the training main path's shape (B·H = 128 rows,
-// T = 1,024, D = 128, bf16) B2 needs the scan form's 4·T·D² per row,
-// 8.6 GFLOP, against 143 MB: 128 µs at the fp32 CUDA-core rate
-// (67 TFLOP/s), 43 µs at 3.35 TB/s. This chunked form does more: the
-// tile's score products, recomputed by each column slice.
+// Bound. At the training main path's shape (B·H = 128 rows, T = 1,024,
+// D = 128, bf16; one tensor 33.55 MB) bytes bind every kernel on the
+// tensor cores. B2 reads q, k, v and writes o and S (142.6 MB): 42.6 µs
+// at 3.35 TB/s (its scan-form 8.6 GFLOP take 128 µs at the fp32 FMA rate
+// of body 1). B3 as a function reads q, k, v, do and writes dq, dk, dv
+// (234.9 MB): 70.1 µs; its five scan-form products (21.5 GFLOP) take
+// 21.7 µs on the bf16 tensor cores. Two sweeps each read their inputs:
+// the dq launch moves 134.2 MB (40.1 µs), the dk/dv launch 201.3 MB
+// (60.1 µs), 100.2 µs together.
 //
-// Design: a simple, correct kernel on the fp32 CUDA cores (no tensor
-// cores, TMA or pipelining yet). A block owns one (batch·head) row and
-// one DS-column slice of the output and of S (DS = 64 at D = 128: two
-// blocks per row, so 256 blocks at the main path's 128 rows, two per
-// SM); it recomputes the TC×TC scores for its slice. The block's S slice
-// (D×DS fp32, 32 KiB) stays in shared memory across the loop; each tile
-// of A, B and the C slice is converted to fp32 in shared memory (77 KiB
-// in all at D = 128, hence the opt-in above 48 KiB). The three products
-// are register-tiled FMAs with rows and columns interleaved over the
-// threads and every shared row padded by one word, so that the warps'
-// reads do not conflict. Accumulation is fp32; outputs are written in
-// the input's type. Launches on the caller's stream, allocates nothing.
+// Accumulation is fp32; outputs are written in the input's type. Every
+// launch runs on the caller's stream and allocates nothing.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "../../csrc/hopper.cuh"
 
 namespace {
 
@@ -306,6 +344,348 @@ Sweep<T> sweep(const void* a, const void* b, const void* c, void* out) {
                   static_cast<const T*>(c), static_cast<T*>(out)};
 }
 
+// ---------------------------------------------------------------------------
+// B3 in bf16: tensor cores (see the header, body 2), on the TMA, mbarrier
+// and wgmma helpers of kernels/csrc/hopper.cuh.
+// ---------------------------------------------------------------------------
+namespace tc {
+
+// Shared memory, from a 1024-byte aligned base (the swizzle's period):
+// two stages of {q, k, v, do: DC blocks of [64 tokens][64 bf16] each},
+// every block as TMA writes it with the 128-byte swizzle (the dq launch
+// leaves q's slot empty); the state's bf16 copy, DC blocks of [DP rows]
+// [64 bf16], swizzled the same way; two mbarriers.
+template <int D>
+struct L {
+  static constexpr int DC = (D + 63) / 64;     // 64-column bf16 blocks
+  static constexpr int DP = 64 * DC;           // D padded to them
+  static constexpr int tile = DC * kBlock;     // one tensor's tile
+  static constexpr int q = 0, k = tile, v = 2 * tile, o = 3 * tile;
+  static constexpr int stage = 4 * tile;
+  static constexpr int x = 2 * stage;
+  static constexpr int xblock = DP * kRowBytes;
+  static constexpr int bars = x + DC * xblock;
+  static constexpr int bytes = bars + 16 + 1024;
+};
+
+// The loads of one tile (its first token tok0) into a stage: k, v, do and
+// (Q: the dk/dv launch) q, in 64-column blocks; rows past T read as zeros
+template <int D, bool Q>
+__device__ __forceinline__ void load_tile(
+    uint32_t stage, uint32_t bar, const CUtensorMap* tq,
+    const CUtensorMap* tk, const CUtensorMap* tv, const CUtensorMap* to,
+    int tok0, int row) {
+  using S = L<D>;
+  mbar_expect_tx(bar, Q ? S::stage : S::stage - S::tile);
+#pragma unroll
+  for (int cb = 0; cb < S::DC; ++cb) {
+    if (Q) tma_load(stage + S::q + cb * kBlock, tq, bar, 64 * cb, tok0, row);
+    tma_load(stage + S::k + cb * kBlock, tk, bar, 64 * cb, tok0, row);
+    tma_load(stage + S::v + cb * kBlock, tv, bar, 64 * cb, tok0, row);
+    tma_load(stage + S::o + cb * kBlock, to, bar, 64 * cb, tok0, row);
+  }
+}
+
+// a warpgroup's 64-column slice of an output in the accumulator layout
+// (rows r0 and r0 + 8, columns 8g + cl + e), in bf16, tokens < t_len
+template <int D>
+__device__ __forceinline__ void store_out(__nv_bfloat16* out,
+                                          const float (&a)[32], int row,
+                                          int t_len, int tok0, int col0,
+                                          int r0, int cl) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int tok = tok0 + r0 + 8 * h;
+    if (tok >= t_len) continue;
+    const size_t off = (static_cast<size_t>(row) * t_len + tok) * D;
+#pragma unroll
+    for (int g = 0; g < 8; ++g) {
+      const int c = col0 + 8 * g + cl;
+      if (c >= D) continue;
+      *reinterpret_cast<uint32_t*>(out + off + c) =
+          pack_bf16(a[4 * g + 2 * h], a[4 * g + 2 * h + 1]);
+    }
+  }
+}
+
+// B3's forward sweep: per 64-token tile, with S[dk][dv] = Σ k vᵀ over the
+// earlier tiles,
+//     dq = (dO Vᵀ ⊙ M) K + dO Sᵀ ;  S += Kᵀ V
+// grid (rows); block kThreads; dynamic shared memory L<D>::bytes. Tensor
+// maps (D, T, rows) with boxes (64, 64, 1) for k, v, do.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+linear_sweep_dq_tc(const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv,
+                   const __grid_constant__ CUtensorMap to,
+                   __nv_bfloat16* __restrict__ dq, int t_len) {
+  using S = L<D>;
+  constexpr int DC = S::DC;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* const sb = smem_raw + (base - raw);
+  const uint32_t bar0 = base + S::bars;
+  // the warpgroup, from lane 0: provably uniform, so that ptxas does not
+  // take the wgmma branches on it for divergent paths
+  const int tid = threadIdx.x,
+            wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  const int row = blockIdx.x;
+  const int n_tiles = (t_len + kTile - 1) / kTile;
+
+  if (tid == 0) {
+    mbar_init(bar0, 1);
+    mbar_init(bar0 + 8, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0)
+    load_tile<D, false>(base, bar0, nullptr, &tk, &tv, &to, 0, row);
+
+  float x[DC][32];   // S rows 64·wg + (0..63) (wg < DC)
+#pragma unroll
+  for (int j = 0; j < DC; ++j)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) x[j][i] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    // Offsets derived from the thread index are recomputed in each tile:
+    // hoisted out of the loop, they would hold registers across it.
+    int t = threadIdx.x;
+    asm volatile("" : "+r"(t));
+    const int r0 = (t % 128) / 32 * 16 + (t % 32) / 4, cl = 2 * (t % 4);
+    if (tid == 0 && it + 1 < n_tiles)
+      load_tile<D, false>(base + ((it + 1) & 1) * S::stage,
+                          bar0 + 8 * ((it + 1) & 1), nullptr, &tk, &tv, &to,
+                          (it + 1) * kTile, row);
+    const uint32_t st = base + (it & 1) * S::stage;
+    mbar_wait(bar0 + 8 * (it & 1), (it >> 1) & 1);
+    if (wg < DC) store_state(sb + S::x, S::xblock, x, wg, r0, cl);
+    fence_async();
+    __syncthreads();
+
+    if (wg < DC) {
+      float sc[32], acc[32];
+      uint32_t p[4][4];
+      // the score tile dO Vᵀ, alone: no register of a later product is
+      // written while a wgmma group is open (ptxas would serialize them)
+      fence_regs(sc);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4 * DC; ++kk)
+        wgmma_ss<0, 0>(sc, kdesc(st + S::o, kBlock, kk),
+                       kdesc(st + S::v, kBlock, kk), kk > 0);
+      wg_commit();
+      fence_regs(sc);
+      wg_wait<0>();
+      fence_regs(sc);
+      mask_pack<true>(sc, p, r0, cl);
+      // dq = P K (this warpgroup's 64 columns) + dO Sᵀ; beside it the
+      // state update S += Kᵀ V (S's copy in shared memory is read, the
+      // registers are updated)
+      fence_regs(acc);
+      fence_regs(x);
+      fence_regs(p);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs(acc, p[kk], mdesc(st + S::k + wg * kBlock, kk), kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < 4 * DC; ++kk)
+        wgmma_ss<0, 0>(acc, kdesc(st + S::o, kBlock, kk),
+                       kdesc(base + S::x + 64 * wg * kRowBytes, S::xblock,
+                             kk),
+                       1);
+#pragma unroll
+      for (int j = 0; j < DC; ++j)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss<1, 1>(x[j], mdesc(st + S::k + wg * kBlock, kk),
+                         mdesc(st + S::v + j * kBlock, kk), 1);
+      wg_commit();
+      fence_regs(acc);
+      fence_regs(x);
+      fence_regs(p);
+      wg_wait<0>();
+      fence_regs(acc);
+      fence_regs(x);
+      store_out<D>(dq, acc, row, t_len, it * kTile, 64 * wg, r0, cl);
+    }
+    fence_async();
+    __syncthreads();   // the stage and the state copy are free
+  }
+}
+
+// The dk/dv launch's products for warpgroup WG, straight-line (a branch
+// inside an open wgmma group makes ptxas serialize it): per 64 columns j,
+// dk = P Q + V Xᵀ (WG 0) or dv = P dO + K X (WG 1), with P this
+// warpgroup's masked score tile; beside them the update X += Qᵀ dO of its
+// state rows.
+template <int D, int WG>
+__device__ __forceinline__ void dkv_products(float (&acc)[L<D>::DC][32],
+                                             float (&x)[L<D>::DC][32],
+                                             uint32_t (&p)[4][4],
+                                             uint32_t st, uint32_t base) {
+  using S = L<D>;
+  constexpr int DC = S::DC;
+  const uint32_t rb = st + (WG ? S::o : S::q);
+  fence_regs(acc);
+  fence_regs(x);
+  fence_regs(p);
+  wg_fence();
+#pragma unroll
+  for (int j = 0; j < DC; ++j) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs(acc[j], p[kk], mdesc(rb + j * kBlock, kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < 4 * DC; ++kk) {
+      if constexpr (WG == 0)
+        wgmma_ss<0, 0>(acc[j], kdesc(st + S::v, kBlock, kk),
+                       kdesc(base + S::x + 64 * j * kRowBytes, S::xblock,
+                             kk),
+                       1);
+      else
+        wgmma_ss<0, 1>(acc[j], kdesc(st + S::k, kBlock, kk),
+                       mdesc(base + S::x + j * S::xblock, kk), 1);
+    }
+  }
+  if constexpr (WG < DC) {
+#pragma unroll
+    for (int j = 0; j < DC; ++j)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss<1, 1>(x[j], mdesc(st + S::q + WG * kBlock, kk),
+                       mdesc(st + S::o + j * kBlock, kk), 1);
+  }
+  wg_commit();
+  fence_regs(acc);
+  fence_regs(x);
+  fence_regs(p);
+  wg_wait<0>();
+  fence_regs(acc);
+  fence_regs(x);
+}
+
+// B3's reverse sweep, tiles last to first: per tile, with X = R[dk][dv] =
+// Σ q doᵀ over the later tiles,
+//     dk = (V dOᵀ ⊙ Mᵀ) Q + V Xᵀ   (warpgroup 0)
+//     dv = (K Qᵀ ⊙ Mᵀ) dO + K X    (warpgroup 1) ;  X += Qᵀ dO
+// Launch as linear_sweep_dq_tc, with maps for q, k, v, do.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+linear_sweep_dkv_tc(const __grid_constant__ CUtensorMap tq,
+                    const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv,
+                    const __grid_constant__ CUtensorMap to,
+                    __nv_bfloat16* __restrict__ dk,
+                    __nv_bfloat16* __restrict__ dv, int t_len) {
+  using S = L<D>;
+  constexpr int DC = S::DC;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* const sb = smem_raw + (base - raw);
+  const uint32_t bar0 = base + S::bars;
+  // the warpgroup, from lane 0 (see linear_sweep_dq_tc)
+  const int tid = threadIdx.x,
+            wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  const int row = blockIdx.x;
+  const int n_tiles = (t_len + kTile - 1) / kTile;
+
+  if (tid == 0) {
+    mbar_init(bar0, 1);
+    mbar_init(bar0 + 8, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0)
+    load_tile<D, true>(base, bar0, &tq, &tk, &tv, &to, (n_tiles - 1) * kTile,
+                       row);
+
+  float x[DC][32];   // R rows 64·wg + (0..63) (wg < DC)
+#pragma unroll
+  for (int j = 0; j < DC; ++j)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) x[j][i] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    // offsets from the thread index, recomputed in each tile
+    int t = threadIdx.x;
+    asm volatile("" : "+r"(t));
+    const int r0 = (t % 128) / 32 * 16 + (t % 32) / 4, cl = 2 * (t % 4);
+    if (tid == 0 && it + 1 < n_tiles)
+      load_tile<D, true>(base + ((it + 1) & 1) * S::stage,
+                         bar0 + 8 * ((it + 1) & 1), &tq, &tk, &tv, &to,
+                         (n_tiles - 2 - it) * kTile, row);
+    const uint32_t st = base + (it & 1) * S::stage;
+    const int tok0 = (n_tiles - 1 - it) * kTile;
+    mbar_wait(bar0 + 8 * (it & 1), (it >> 1) & 1);
+    if (wg < DC) store_state(sb + S::x, S::xblock, x, wg, r0, cl);
+    fence_async();
+    __syncthreads();
+
+    float acc[DC][32];
+    {
+      float sc[32];
+      uint32_t p[4][4];
+      // this warpgroup's score tile, alone: V dOᵀ for dk, K Qᵀ for dv
+      const uint32_t sa = st + (wg ? S::k : S::v);
+      const uint32_t sbb = st + (wg ? S::q : S::o);
+      fence_regs(sc);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4 * DC; ++kk)
+        wgmma_ss<0, 0>(sc, kdesc(sa, kBlock, kk), kdesc(sbb, kBlock, kk),
+                       kk > 0);
+      wg_commit();
+      fence_regs(sc);
+      wg_wait<0>();
+      fence_regs(sc);
+      mask_pack<false>(sc, p, r0, cl);
+      if (wg == 0)
+        dkv_products<D, 0>(acc, x, p, st, base);
+      else
+        dkv_products<D, 1>(acc, x, p, st, base);
+    }
+    __nv_bfloat16* const out = wg ? dv : dk;
+#pragma unroll
+    for (int j = 0; j < DC; ++j)
+      store_out<D>(out, acc[j], row, t_len, tok0, 64 * j, r0, cl);
+    fence_async();
+    __syncthreads();   // the stage and the state copy are free
+  }
+}
+
+template <int D>
+int launch_dq(const void* k, const void* v, const void* d_o, void* dq,
+              int rows, int t_len, cudaStream_t stream) {
+  static bool configured = false;
+  int err = configure(linear_sweep_dq_tc<D>, L<D>::bytes, configured);
+  CUtensorMap m[3];
+  if (!err) err = tensor_maps(m, {k, v, d_o}, 3, D, t_len, rows);
+  if (err) return err;
+  linear_sweep_dq_tc<D><<<rows, kThreads, L<D>::bytes, stream>>>(
+      m[0], m[1], m[2], static_cast<__nv_bfloat16*>(dq), t_len);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_dkv(const void* q, const void* k, const void* v, const void* d_o,
+               void* dk, void* dv, int rows, int t_len, cudaStream_t stream) {
+  static bool configured = false;
+  int err = configure(linear_sweep_dkv_tc<D>, L<D>::bytes, configured);
+  CUtensorMap m[4];
+  if (!err) err = tensor_maps(m, {q, k, v, d_o}, 4, D, t_len, rows);
+  if (err) return err;
+  linear_sweep_dkv_tc<D><<<rows, kThreads, L<D>::bytes, stream>>>(
+      m[0], m[1], m[2], m[3], static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), t_len);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace tc
+
 bool bad_shape(int rows, int t_len) { return rows <= 0 || t_len <= 0; }
 
 }  // namespace
@@ -333,7 +713,8 @@ extern "C" int linear_attention_fwd(const void* q, const void* k,
   return launch_d<float, false, true>(sw, sw, 1, sf, rows, t, d, st);
 }
 
-// B3, forward sweep: dq = (dO Vᵀ ⊙ M) K + dO Sᵀ.
+// B3, forward sweep: dq = (dO Vᵀ ⊙ M) K + dO Sᵀ; bf16 on the tensor
+// cores, fp32 on FMAs.
 extern "C" int linear_attention_bwd_dq(const void* k, const void* v,
                                        const void* d_o, void* dq, int rows,
                                        int t, int d, int bf16,
@@ -341,16 +722,24 @@ extern "C" int linear_attention_bwd_dq(const void* k, const void* v,
   if (bad_shape(rows, t)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bf16) {
-    const auto sw = sweep<__nv_bfloat16>(d_o, v, k, dq);
-    return launch_d<__nv_bfloat16, false, false>(sw, sw, 1, nullptr, rows,
-                                                 t, d, st);
+    if (tc::misaligned(k, v, d_o))
+      return static_cast<int>(cudaErrorInvalidValue);
+    switch (d) {
+      case 16:
+        return tc::launch_dq<16>(k, v, d_o, dq, rows, t, st);
+      case 128:
+        return tc::launch_dq<128>(k, v, d_o, dq, rows, t, st);
+      default:
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
   }
   const auto sw = sweep<float>(d_o, v, k, dq);
   return launch_d<float, false, false>(sw, sw, 1, nullptr, rows, t, d, st);
 }
 
 // B3, reverse sweep: dk = (V dOᵀ ⊙ Mᵀ) Q + V Rᵀ and
-// dv = (K Qᵀ ⊙ Mᵀ) dO + K R, one launch.
+// dv = (K Qᵀ ⊙ Mᵀ) dO + K R, one launch; bf16 on the tensor cores, fp32 on
+// FMAs.
 extern "C" int linear_attention_bwd_dkv(const void* q, const void* k,
                                         const void* v, const void* d_o,
                                         void* dk, void* dv, int rows, int t,
@@ -358,9 +747,16 @@ extern "C" int linear_attention_bwd_dkv(const void* q, const void* k,
   if (bad_shape(rows, t)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bf16) {
-    return launch_d<__nv_bfloat16, true, false>(
-        sweep<__nv_bfloat16>(v, d_o, q, dk),
-        sweep<__nv_bfloat16>(k, q, d_o, dv), 2, nullptr, rows, t, d, st);
+    if (tc::misaligned(q, k, v, d_o))
+      return static_cast<int>(cudaErrorInvalidValue);
+    switch (d) {
+      case 16:
+        return tc::launch_dkv<16>(q, k, v, d_o, dk, dv, rows, t, st);
+      case 128:
+        return tc::launch_dkv<128>(q, k, v, d_o, dk, dv, rows, t, st);
+      default:
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
   }
   return launch_d<float, true, false>(sweep<float>(v, d_o, q, dk),
                                sweep<float>(k, q, d_o, dv), 2, nullptr, rows,

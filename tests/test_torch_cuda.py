@@ -405,12 +405,21 @@ def _assert_normwise(x, want, tol, what):
 
 
 # (rows, T, D, dtype, chunk): the training main path's shape, a T that is
-# a multiple of the chunk but not of the kernels' tile, the smoke width
+# a multiple of the chunk but not of the kernels' tile (32 tokens on fp32
+# FMAs, 64 for bf16 B3 on the tensor cores), a ragged T (the chunk drops
+# to T), the smoke width
 @pytest.mark.parametrize("bh,t,d,dtype,chunk", [
     (128, 1024, 128, torch.bfloat16, 128),
     (6, 272, 128, torch.float32, 16),
     (6, 48, 16, torch.float32, 16),
     (6, 48, 16, torch.bfloat16, 16),
+    (6, 272, 128, torch.bfloat16, 16),
+    (4, 75, 128, torch.bfloat16, 75),
+    (6, 48, 128, torch.bfloat16, 16),
+    (6, 200, 128, torch.bfloat16, 40),
+    (6, 272, 16, torch.bfloat16, 16),
+    (4, 75, 16, torch.bfloat16, 75),
+    (6, 200, 16, torch.bfloat16, 40),
 ])
 def test_linear_attention_kernels_match_plain_versions(dev, bh, t, d, dtype,
                                                        chunk):
@@ -431,6 +440,30 @@ def test_linear_attention_kernels_match_plain_versions(dev, bh, t, d, dtype,
     for name, x, x_r in zip(("dq", "dk", "dv"), (dq, dk, dv), grads_r):
         assert x.dtype == dtype
         _assert_normwise(x, x_r, tol, name)
+
+
+@pytest.mark.parametrize("bh,t,d,dtype,chunk", [
+    (6, 272, 128, torch.bfloat16, 16), (4, 75, 16, torch.bfloat16, 75),
+    (6, 200, 128, torch.float32, 40), (6, 48, 16, torch.float32, 16)])
+def test_linear_attention_bwd_launches_match_their_plain_versions(
+        dev, bh, t, d, dtype, chunk):
+    """B3's two launches, each on its own: the dq launch against
+    ``chunked_bwd_dq_ref``, the dk/dv launch against
+    ``chunked_bwd_dkv_ref``; normwise 1e-5 in fp32, 8e-3 in bf16."""
+    q, k, v, do = _la_rows(dev, bh, t, d, dtype, seed=5)
+    before = (la_ops.bwd_dq.launches, la_ops.bwd_dkv.launches)
+    dq = la_ops.bwd_dq(k, v, do, chunk=chunk)
+    assert (la_ops.bwd_dq.launches, la_ops.bwd_dkv.launches) == (
+        before[0] + 1, before[1])
+    dk, dv = la_ops.bwd_dkv(q, k, v, do, chunk=chunk)
+    torch.cuda.synchronize()
+    assert (la_ops.bwd_dq.launches, la_ops.bwd_dkv.launches) == (
+        before[0] + 1, before[1] + 1)
+    want = (la_ref.chunked_bwd_dq_ref(k, v, do, chunk=chunk),
+            *la_ref.chunked_bwd_dkv_ref(q, k, v, do, chunk=chunk))
+    for name, x, x_r in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        assert x.dtype == dtype and x.shape == q.shape, name
+        _assert_normwise(x, x_r, LA_TOL[dtype], name)
 
 
 @pytest.mark.parametrize("t,d,dtype", [(40, 16, torch.float32),
@@ -561,11 +594,17 @@ def _gla_counts():
     (6, 200, 128, torch.bfloat16, 40, "mild_head"),
     (6, 200, 16, torch.bfloat16, 40, "mild"),
     (6, 272, 16, torch.bfloat16, 16, "mild_head"),
+    (6, 272, 128, torch.bfloat16, 16, "model"),
+    (6, 48, 128, torch.bfloat16, 16, "model"),
+    (4, 75, 16, torch.bfloat16, 75, "model"),
+    (6, 200, 16, torch.bfloat16, 40, "model"),
 ])
 def test_gated_linear_attention_kernels_match_plain_versions(
         dev, bh, t, d, dtype, chunk, decay):
     """B8 (inclusive; exclusive with the bonus u) and B9 against their
-    plain versions: normwise 1e-5 in fp32, 8e-3 in bf16."""
+    plain versions: normwise 1e-5 in fp32, 8e-3 in bf16; the final state
+    within 1e-5 on both routes, and far from symmetric, so that a
+    transposed state would show."""
     q, k, v, do, g = _gla_rows(dev, bh, t, d, dtype, decay)
     u = torch.linspace(-1.0, 1.0, d, device=dev)
     before = _gla_counts()
@@ -580,6 +619,8 @@ def test_gated_linear_attention_kernels_match_plain_versions(
                                          exclusive=True)
     grads_r = gla_ref.chunked_bwd_ref(q, k, v, g, do, chunk=chunk)
     assert o.dtype == dtype and s.dtype == torch.float32
+    assert o_x.dtype == dtype and s_x.dtype == torch.float32
+    assert (s_r - s_r.mT).abs().max() > 0.01 * s_r.abs().max()
     for name, x, x_r in zip(("o", "s", "o excl", "s excl"),
                             (o, s, o_x, s_x), (o_r, s_r, o_xr, s_xr)):
         _assert_normwise(x, x_r, LA_TOL[torch.float32] if "s" in name
@@ -640,7 +681,7 @@ def test_gated_bwd_launches_match_their_plain_versions(dev, bh, t, d, dtype,
 
 
 def test_gated_bf16_kernels_at_the_clamp_match_the_scan(dev):
-    """g ≡ −1, T = 1,024, chunk 128, bf16: B8 and B9 (B9 in 64-token tiles,
+    """g ≡ −1, T = 1,024, chunk 128, bf16: B8 and B9 (in 64-token tiles,
     |b| <= 64) stay finite and match ``gla_scan`` and its autograd,
     evaluated in fp32 on the same bf16 values, within normwise 8e-3."""
     q, k, v, do, g = (x.reshape(1, 2, 1024, 128) for x in _gla_rows(
@@ -656,6 +697,48 @@ def test_gated_bf16_kernels_at_the_clamp_match_the_scan(dev):
     for name, a, b in zip(("o", "dq", "dk", "dv", "dg"), got, want):
         assert torch.isfinite(a).all(), name
         _assert_normwise(a, b, LA_TOL[torch.bfloat16], name)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_gated_kernels_at_the_decay_limit_match_the_scan(dev, dtype):
+    """g ≡ min_log_decay = the route's limit (bf16 −1.25 over 64-token
+    tiles, |b| <= 80; fp32 −1.5 over 32), T = 1,024, chunk 128: B8 and B9
+    stay finite and match ``gla_scan`` and its autograd in fp32, within
+    the clamp tests' tolerances (8e-3 bf16, 1e-5 fp32)."""
+    lo = gla_ops.DECAY_LIMIT[dtype]
+    q, k, v, do, g = (x.reshape(1, 2, 1024, 128) for x in _gla_rows(
+        dev, 2, 1024, 128, dtype, "clamp", seed=3))
+    g = g * -lo
+    got, want = [], []
+    for fn, sink, cast in ((lambda a, b, c, e: gla_ops.gated_linear_attention(
+            a, b, c, e, chunk=128, min_log_decay=lo), got, dtype),
+            (lambda a, b, c, e: gla_scan(a, b, c, e)[0], want, torch.float32)):
+        leaves = [x.to(cast).clone().requires_grad_() for x in (q, k, v, g)]
+        o = fn(*leaves)
+        o.backward(do.to(cast))
+        sink.extend([o.detach()] + [x.grad for x in leaves])
+    for name, a, b in zip(("o", "dq", "dk", "dv", "dg"), got, want):
+        assert torch.isfinite(a).all(), name
+        _assert_normwise(a, b, LA_TOL[dtype], name)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_gated_kernels_refuse_a_min_log_decay_past_the_limit(dev, dtype):
+    """A CUDA call of fwd, bwd_dq or bwd_dkv with min_log_decay just past
+    its route's limit raises ValueError; the CPU route (JAX's semantics)
+    takes it."""
+    q, k, v, do, g = _gla_rows(dev, 2, 64, 16, dtype, "mild")
+    past = gla_ops.DECAY_LIMIT[dtype] - 1e-3
+    qdq = torch.zeros_like(g)
+    with pytest.raises(ValueError, match="min_log_decay"):
+        gla_ops.fwd(q, k, v, g, chunk=16, min_log_decay=past)
+    with pytest.raises(ValueError, match="min_log_decay"):
+        gla_ops.bwd_dq(q, k, v, g, do, chunk=16, min_log_decay=past)
+    with pytest.raises(ValueError, match="min_log_decay"):
+        gla_ops.bwd_dkv(q, k, v, g, do, qdq, chunk=16, min_log_decay=past)
+    o, _ = gla_ops.fwd(q.cpu(), k.cpu(), v.cpu(), g.cpu(), chunk=16,
+                       min_log_decay=past)
+    assert torch.isfinite(o).all()
 
 
 def test_gated_bf16_backward_runs_no_pytorch_epilogue(dev, monkeypatch):

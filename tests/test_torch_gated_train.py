@@ -436,6 +436,90 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
             tops.bwd_dkv.launches) == before
 
 
+
+# -- the CUDA routes' limit on min_log_decay -------------------------------
+
+@pytest.mark.parametrize("dtype,limit", [(torch.bfloat16, -1.25),
+                                         (torch.float32, -1.5)])
+def test_decay_limit_check_takes_the_limit_and_refuses_past_it(dtype, limit):
+    """The check every CUDA call of fwd, bwd_dq and bwd_dkv runs:
+    min_log_decay down to its type's limit (bf16 −1.25, by overflow of its
+    64-token tiles; fp32 −1.5, by dg's accuracy, as the test below shows)
+    passes and just past it raises."""
+    x = torch.zeros((2, 64, D), dtype=dtype)
+    g = torch.zeros((2, 64, D))
+    assert tops.DECAY_LIMIT[dtype] == limit
+    for inside in (limit, limit + 1e-4, tcore.MIN_LOG_DECAY):
+        tops._check_gated("gated_linear_attention_fwd", CHUNK, g, inside,
+                          q=x, k=x, v=x)
+    for past in (limit - 1e-4, float("nan"), -float("inf")):
+        with pytest.raises(ValueError, match="min_log_decay"):
+            tops._check_gated("gated_linear_attention_bwd_dq", CHUNK, g,
+                              past, q=x, k=x, v=x, do=x)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cpu_route_takes_a_min_log_decay_past_the_cuda_limit(dtype):
+    """The CPU route keeps JAX's semantics: no tile, so no limit. At
+    min_log_decay = -3 (past both CUDA limits; g down to -3.5) it matches
+    the Pallas fwd and bwd at a 16-token chunk."""
+    q, k, v, do, g = _inputs(18, BH, 48, D, g_low=-3.5)
+    xs = [_as(x, dtype) for x in (q, k, v, do)]
+    o_t, s_t = tops.fwd(*(t for _, t in xs[:3]), torch.from_numpy(g),
+                        chunk=CHUNK, min_log_decay=-3.0)
+    o_j, s_j = jkernel.fwd(*(j for j, _ in xs[:3]), g, chunk=CHUNK,
+                           min_log_decay=-3.0, interpret=True)
+    _close(o_t, o_j, TOL[dtype], "o")
+    _close(s_t, s_j, TOL["float32"], "state")
+    got = tops.bwd(*(t for _, t in xs[:3]), torch.from_numpy(g), xs[3][1],
+                   chunk=CHUNK, min_log_decay=-3.0)
+    want = jkernel.bwd(*(j for j, _ in xs[:3]), g, xs[3][0], chunk=CHUNK,
+                       min_log_decay=-3.0, interpret=True)
+    for name, t, j in zip(("dq", "dk", "dv", "dg"), got, want):
+        _close(t, j, TOL[dtype], name)
+
+
+def _drift_inputs(seed=21, t=1024, d=128):
+    """``scripts/gla_fp32_dg_drift.py``'s inputs, in flat rows (1, t, d):
+    q, k positive (elu1), v and do signed."""
+    rng = np.random.default_rng(seed)
+    x = [rng.standard_normal((1, 1, t, d)) for _ in range(4)]
+    elu1 = lambda a: np.where(a > 0, a + 1.0, np.exp(np.minimum(a, 0.0)))  # noqa
+    return [a.astype(np.float32)[0] for a in (elu1(x[0]), elu1(x[1]), x[2],
+                                             x[3])]
+
+
+@pytest.mark.parametrize("lo", [-1.0, -1.5, -2.0, -2.5])
+def test_fp32_dg_error_is_rounding_amplified_by_the_identity(lo):
+    """Why the fp32 CUDA route stops at −1.5 though its 32-token tiles
+    stay finite to −2.5. With g ≡ lo, dg = reverse-cumsum(q⊙dq − k⊙dk)
+    sums terms near max|q⊙dq| to a dg that shrinks as the decay
+    strengthens, so the identity amplifies dq's and dk's rounding by
+    κ = max|q⊙dq| / max|dg|. JAX's Pallas bwd and the port's plain version
+    (fp32, 32-token chunks: finite) against the scan's autograd in fp64:
+    dq, dk, dv within 1e-6 normwise at every lo, dg within 1.5e-6·κ. The
+    same rows for the CUDA route: ``scripts/gla_fp32_dg_drift.py``."""
+    q, k, v, do = _drift_inputs()
+    g = np.full_like(q, lo)
+    leaves_ = [torch.from_numpy(x).double()[None] for x in (q, k, v, g)]
+    want = _torch_vjp(lambda a, b, c, e: tcore.gla_scan(a, b, c, e)[0],
+                      leaves_, torch.from_numpy(do).double()[None])[1:]
+    want = [x[0].numpy() for x in want]
+    kappa = np.abs(q * want[0]).max() / np.abs(want[3]).max()
+    jax_ = jkernel.bwd(q, k, v, g, do, chunk=32, min_log_decay=lo,
+                       interpret=True)
+    plain = tref.chunked_bwd_ref(*(torch.from_numpy(x)
+                                   for x in (q, k, v, g, do)),
+                                 chunk=32, min_log_decay=lo)
+    for route, got in (("jax", jax_), ("plain", plain)):
+        got = [np.asarray(x, np.float64) for x in got]
+        err = [np.abs(a - b).max() / np.abs(b).max()
+               for a, b in zip(got, want)]
+        print(f"lo {lo} {route}: dq dk dv dg {err}, kappa {kappa:.2f}")
+        assert max(err[:3]) <= 1e-6, (route, err)
+        assert err[3] <= 1.5e-6 * kappa, (route, err[3], kappa)
+
+
 @pytest.mark.parametrize("t", [16, 24])
 def test_training_attention_is_gated_linear_attention(t):
     """``attention_apply`` without the state routes the gated backend

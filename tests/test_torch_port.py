@@ -224,3 +224,43 @@ def test_load_library_finds_a_loaded_library_without_resolving(monkeypatch):
     monkeypatch.setattr(build, "build", no_build)
     assert build.load_library(source) is sentinel
     monkeypatch.delitem(build._LOADED, source)
+
+
+def test_library_path_follows_every_included_file(tmp_path):
+    """A library is named by a hash of its source and of every file the
+    source reaches through ``#include "..."``: editing a header, even one
+    included by a header, names a new library, so a stale one is never
+    loaded; editing a file that is not included names the same one."""
+    from repro_torch.kernels import build
+    (tmp_path / "csrc").mkdir()
+    (tmp_path / "inc").mkdir()
+    source = tmp_path / "csrc" / "k.cu"
+    source.write_text('#include <cuda.h>\n#include "../inc/a.cuh"\n'
+                      'extern "C" int f() { return A; }\n')
+    (tmp_path / "inc" / "a.cuh").write_text('#pragma once\n'
+                                            '  #  include "b.cuh"\n')
+    (tmp_path / "inc" / "b.cuh").write_text("#define A 1\n")
+    (tmp_path / "inc" / "other.cuh").write_text("#define B 1\n")
+    assert [p.name for p in build.sources_of(source)] == ["k.cu", "a.cuh",
+                                                          "b.cuh"]
+    first = build._lib_path(source)
+    assert first.name.startswith("k-") and first.suffix == ".so"
+    (tmp_path / "inc" / "other.cuh").write_text("#define B 2\n")
+    assert build._lib_path(source) == first
+    (tmp_path / "inc" / "b.cuh").write_text("#define A 2\n")
+    second = build._lib_path(source)
+    assert second != first
+    (tmp_path / "inc" / "a.cuh").write_text('#pragma once\n'
+                                            '#include "b.cuh"\n// edit\n')
+    assert build._lib_path(source) not in (first, second)
+
+
+@pytest.mark.parametrize("kernel", ["linear_attention",
+                                    "gated_linear_attention"])
+def test_tensor_core_sources_share_the_hopper_header(kernel):
+    """B3's and B8/B9's sources take their TMA and wgmma helpers from
+    ``kernels/csrc/hopper.cuh``, which their libraries' names hash."""
+    from repro_torch.kernels import build
+    source = Path(build.__file__).parent / kernel / "csrc" / f"{kernel}.cu"
+    header = Path(build.__file__).parent / "csrc" / "hopper.cuh"
+    assert build.sources_of(source) == [source.resolve(), header.resolve()]
