@@ -8,17 +8,16 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 1. Device: the card's name and power limit, and the build of every CUDA
    kernel of the port from the sources in this checkout; each kernel's
    registers, spills and ptxas's notes on serialized wgmmas; the HGMMA
-   instructions in B10's, B8/B9's and B3's libraries (their bf16 routes
-   run on the tensor cores).
+   instructions in B10's, B8/B9's and B2/B3's libraries (their bf16
+   routes run on the tensor cores).
 2. Each kernel against its plain PyTorch version on the card, at the
    main path's shapes and at the smoke width (B10 at each D it takes,
-   with K/V of fewer heads than q, and against JAX's oracle; B3, B8 and
-   B9 in bf16 at T not a multiple of their 64-token tile, D = 16 and
-   128, B3's and B9's launches each on its own, B8 inclusive and
-   exclusive + u with a non-symmetric state; B8/B9 at the decay clamp
-   and at each route's ``min_log_decay`` limit against ``gla_scan``, a
-   value past the limit refused, and the fp32 route's distance from
-   ``gla_scan`` at decays up to −2.5, which sets its limit).
+   with K/V of fewer heads than q, and against JAX's oracle; B2, B3, B8
+   and B9 in bf16 at T not a multiple of their 64-token tile, D = 16 and
+   128, B3's and B9's launches each on its own, B2 and B8 (inclusive and
+   exclusive + u) with a final state far from symmetric; B8/B9 at the
+   decay clamp and at each route's ``min_log_decay`` limit against
+   ``gla_scan``, and a value past the limit refused).
 3. The serving slice on the card: a 2-layer model at qwen3-0.6b's full
    widths in fp32, prefill + 16 greedy steps through the kernel against
    the same run through ``decode_kernel="reference"``.
@@ -49,7 +48,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    gradient leaf and the parameters after one AdamW step through B2/B3
    against the same through their plain versions
    (``attention_kernel=False``); then the same 2 layers in bf16 compute
-   (B3 on the tensor cores): the loss and every gradient leaf.
+   (B2 and B3 on the tensor cores): the loss and every gradient leaf.
 10. The training main path: ``repro_torch.launch.train``'s ``build`` and
    ``TrainLoop`` on the full 28-layer qwen3-0.6b (linear, bf16 compute,
    fp32 master weights, remat per layer), batch 8 x seq 1,024, 2 warm-up
@@ -807,9 +806,16 @@ def check_linear_attention_rows(bh, t, d, dtype, chunk, gen, dev) -> dict:
                normwise(dv, dv_r, tol, f"dv {tag}"),
                normwise(dk1, dk1_r, tol, f"dk/dv launch dk {tag}"),
                normwise(dv1, dv1_r, tol, f"dk/dv launch dv {tag}"))}
+    # a transposed state would show: S is far from symmetric
+    asym = ((s_r - s_r.mT).abs().max() / s_r.abs().max()).item()
+    if not asym > 100 * LA_TOL["float32"]:
+        raise AssertionError(f"state {tag}: too near symmetric ({asym:.3e})")
     s_err = normwise(s, s_r, LA_TOL["float32"], f"state {tag}")
+    o_rel = err["linear_attention_fwd"] / o_r.float().abs().max().item()
     print(f"  linear_attention {tag}: max|Δo|="
-          f"{err['linear_attention_fwd']:.3e} max|ΔS|={s_err:.3e} max|Δdq|="
+          f"{err['linear_attention_fwd']:.3e} ({o_rel:.2e} of max|o|) "
+          f"max|ΔS|={s_err:.3e} ({s_err / s_r.abs().max().item():.2e} of "
+          f"max|S|; |S - Sᵀ| {asym:.2f} max|S|) max|Δdq|="
           f"{err['linear_attention_bwd_dq']:.3e} max|Δdk,dv|="
           f"{err['linear_attention_bwd_dkv']:.3e} (through ops.bwd and each "
           f"launch alone; normwise tol {tol})")
@@ -875,7 +881,7 @@ def time_linear_attention(bh, t, d, chunk, gen, dev) -> dict:
     the 50 MB L2. Bounds: each input read once and each output written
     once over 3.35 TB/s, or the operations the function needs over the
     bf16 tensor-core rate (``fp32_bound_ms``: over 67 TFLOP/s, the rate
-    of B2's and fp32 B3's FMAs). The least work is the scan form's: each
+    of the fp32 routes' FMAs). The least work is the scan form's: each
     rank-one update of the D x D state and each product with it costs 2D²
     per token; B2 and dq do two per token (S += k vᵀ, then q S), dk/dv
     three (R += q doᵀ, then v R and k R), B3 five. The chunked forms the
@@ -1505,7 +1511,7 @@ TRAIN_KERNELS = {
     "linear": (("linear_attention_fwd", "linear_attention_bwd_dq",
                 "linear_attention_bwd_dkv"), ("B2", "B3-dq", "B3-dkv"),
                "linear_attention/kernel.py", (71, 158, 177), "sweep",
-               ("sweep_kernel (fp32 FMAs)",
+               ("linear_sweep_fwd_tc (bf16 tensor cores)",
                 "linear_sweep_dq_tc (bf16 tensor cores)",
                 "linear_sweep_dkv_tc (bf16 tensor cores)")),
     "gated_linear": (("gated_linear_attention_fwd",
@@ -2050,9 +2056,9 @@ def main() -> int:
     for name, log in build.BUILD_LOG.items():
         for line in ptxas_notes(log):
             print(f"  {name}: {line}")
-    # the bf16 routes of B10, B8/B9 and B3 run on the tensor cores
+    # the bf16 routes of B10, B8/B9 and B2/B3 run on the tensor cores
     for source, ids in ((FA.SOURCE, "B10"), (GL.SOURCE, "B8/B9"),
-                        (LA.SOURCE, "B3")):
+                        (LA.SOURCE, "B2/B3")):
         n_hgmma = hgmma_count(build, source)
         if not n_hgmma:
             raise AssertionError(f"phase 1: no HGMMA in {source.name}'s "
@@ -2114,7 +2120,7 @@ def main() -> int:
           f"agree with their plain versions (o rtol/atol {LOOKUP_TOL}, "
           f"non-symmetric states; fused_decode's state bitwise)")
     # B2/B3: the training main path's shape, then T a multiple of the
-    # chunk but not of the kernels' tiles (32 tokens in fp32, B3's 64 in
+    # chunk but not of the kernels' tiles (32 tokens in fp32, 64 in
     # bf16), at D = 128 and 16
     errs.update(check_linear_attention_rows(128, 1024, 128, torch.bfloat16,
                                             128, gen, dev))
@@ -2129,7 +2135,8 @@ def main() -> int:
         check_linear_attention_wrapper(200, 128, dtype, 128, gen, dev)
     check_linear_attention_autograd(gen, dev)
     print(f"phase 2: linear_attention_fwd, _bwd_dq and _bwd_dkv agree with "
-          f"their plain versions (normwise {LA_TOL})")
+          f"their plain versions (normwise {LA_TOL}; B2's states far from "
+          f"symmetric)")
     # B8/B9: the gated training main path's shape at the model's decay;
     # fp32 at a T that is a multiple of the chunk but not of the 32-token
     # tile, at a ragged T (the chunk drops to T = 75), at D = 16, through

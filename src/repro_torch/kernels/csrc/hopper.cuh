@@ -1,5 +1,5 @@
 // Hopper building blocks of the port's tensor-core sweeps, for sm_90a:
-// linear_attention.cu (B3) and gated_linear_attention.cu (B8, B9) include
+// linear_attention.cu (B2, B3) and gated_linear_attention.cu (B8, B9) include
 // this file. kernels/build.py names each library by a hash of its source
 // and of every file the source includes, so an edit here rebuilds both.
 //

@@ -4,12 +4,11 @@
 ``fwd`` (B2) and ``bwd`` (B3: ``bwd_dq`` and ``bwd_dkv``) take flat
 (BH, T, D) rows with T a multiple of the chunk, as the Pallas functions
 of ``kernel.py`` do. For CUDA tensors they launch the kernels of
-``csrc/linear_attention.cu`` (B3 in bf16 on the tensor cores; B2, and B3
-in fp32, on FMAs); for CPU tensors they run the plain
-PyTorch versions (``ref.py``). There is no other route: a CUDA tensor
-the kernel does not take raises. ``kernel=False`` asks for the plain
-version explicitly on any device (tests and ``chip_smoke.py`` compare
-the two routes that way).
+``csrc/linear_attention.cu`` (bf16 on the tensor cores, fp32 on FMAs);
+for CPU tensors they run the plain PyTorch versions (``ref.py``). There
+is no other route: a CUDA tensor the kernel does not take raises.
+``kernel=False`` asks for the plain version explicitly on any device
+(tests and ``chip_smoke.py`` compare the two routes that way).
 
 ``linear_attention`` adds the (B, H, T, D) ↔ (BH, T, D) reshapes and the
 chunk padding rule of the JAX wrapper, around a ``torch.autograd.Function``

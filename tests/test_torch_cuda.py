@@ -406,8 +406,9 @@ def _assert_normwise(x, want, tol, what):
 
 # (rows, T, D, dtype, chunk): the training main path's shape, a T that is
 # a multiple of the chunk but not of the kernels' tile (32 tokens on fp32
-# FMAs, 64 for bf16 B3 on the tensor cores), a ragged T (the chunk drops
-# to T), the smoke width
+# FMAs, 64 for bf16 B2 and B3 on the tensor cores), a ragged T (the chunk
+# drops to T), the smoke width. The reference state is far from
+# symmetric, so that a transposed state would show.
 @pytest.mark.parametrize("bh,t,d,dtype,chunk", [
     (128, 1024, 128, torch.bfloat16, 128),
     (6, 272, 128, torch.float32, 16),
@@ -434,12 +435,49 @@ def test_linear_attention_kernels_match_plain_versions(dev, bh, t, d, dtype,
     o_r, s_r = la_ref.chunked_fwd_ref(q, k, v, chunk=chunk)
     grads_r = la_ref.chunked_bwd_ref(q, k, v, do, chunk=chunk)
     assert o.dtype == dtype and s.dtype == torch.float32
+    assert (s_r - s_r.mT).abs().max() > 0.01 * s_r.abs().max()
     tol = LA_TOL[dtype]
     _assert_normwise(o, o_r, tol, "o")
     _assert_normwise(s, s_r, LA_TOL[torch.float32], "state")
     for name, x, x_r in zip(("dq", "dk", "dv"), (dq, dk, dv), grads_r):
         assert x.dtype == dtype
         _assert_normwise(x, x_r, tol, name)
+
+
+def _cuda_kernel_names(fn):
+    """The names of the CUDA kernels that ``fn`` ran, from torch.profiler
+    (as chip_smoke.py's step profiles read them). The capture window gets
+    20 ms of idle margin on each side: a kernel of a few microseconds at
+    its very edge is sometimes dropped from the trace, which then reads
+    as no launch."""
+    import time
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
+                 ) as prof:
+        torch.cuda.synchronize()
+        time.sleep(0.02)
+        fn()
+        torch.cuda.synchronize()
+        time.sleep(0.02)
+    return [e.key for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+
+
+@pytest.mark.parametrize("d", [16, 128])
+def test_linear_attention_bf16_fwd_runs_on_the_tensor_cores(dev, d):
+    """A bf16 ``ops.fwd`` on CUDA launches B2's tensor-core kernel,
+    ``linear_sweep_fwd_tc``, and never the FMA body ``sweep_kernel``; an
+    fp32 one the FMA body."""
+    q, k, v, _ = _la_rows(dev, 4, 200, d, torch.bfloat16, seed=3)
+    la_ops.fwd(q, k, v, chunk=40)           # the library built and loaded
+    names = _cuda_kernel_names(lambda: la_ops.fwd(q, k, v, chunk=40))
+    assert any("linear_sweep_fwd_tc" in n for n in names), names
+    assert not any("sweep_kernel" in n for n in names), names
+    q, k, v = (x.float() for x in (q, k, v))
+    names = _cuda_kernel_names(lambda: la_ops.fwd(q, k, v, chunk=40))
+    assert any("sweep_kernel" in n for n in names), names
+    assert not any("linear_sweep" in n for n in names), names
 
 
 @pytest.mark.parametrize("bh,t,d,dtype,chunk", [
