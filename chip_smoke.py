@@ -10,8 +10,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    registers, spills and ptxas's notes on serialized wgmmas; the HGMMA
    instructions in B10's, B8/B9's and B2/B3's libraries (their bf16
    routes run on the tensor cores), and the UBLKCP instructions in the
-   lookup library (B4/B5 copy each state by ``cp.async.bulk``), which
-   must not spill.
+   lookup library by opcode (B4/B5 copy each state into shared memory by
+   ``cp.async.bulk``, B6's bulk route in and back out), which must not
+   spill.
 2. Each kernel against its plain PyTorch version on the card, at the
    main path's shapes and at the smoke width (B10 at each D it takes,
    with K/V of fewer heads than q, and against JAX's oracle; B2, B3, B8
@@ -22,7 +23,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ``gla_scan``, and a value past the limit refused; B4 and B5 on both
    routes, even K by bulk copies (K = 256 through the ring, M = 130 in
    tiles of 4, K % 4 == 2) and odd K direct, and rows outside the store
-   NaN).
+   NaN; B6 on both routes, its state bit for bit, at the paper's width,
+   the LM's 128 × 128, 256 × 256 (direct), rows of 200 bytes (bulk) and
+   an odd Dk·Dv (direct)).
 3. The serving slice on the card: a 2-layer model at qwen3-0.6b's full
    widths in fp32, prefill + 16 greedy steps through the kernel against
    the same run through ``decode_kernel="reference"``.
@@ -41,8 +44,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    waves of 256; the lookup kernel's launch count over that run; sampled
    answers against the store; a profile of a few waves; the three lookup
    kernels timed beside their bounds, plain versions and library calls
-   (B4 also L2-warm and at the paper's width, with gather + ``bmm``),
-   and the launch floor of that timing harness.
+   (B4 also L2-warm and at the paper's width, with gather + ``bmm``; B6
+   also at the LM's 128 × 128 in bf16, with ``baddbmm`` + ``bmm``), and
+   the launch floor of that timing harness.
 7. The gated slice (paper §4 decay, ``--backend gated_linear``) as phase
    3: 2 layers at full width in fp32 through the gated decode kernel
    against ``decode_kernel="reference"``.
@@ -122,15 +126,27 @@ def nvidia_smi() -> str:
         check=True, timeout=60).stdout.strip()
 
 
-def sass_count(build, source, opcode) -> int:
-    """Instructions ``opcode`` (HGMMA: wgmma; UBLKCP: cp.async.bulk) in
-    the SASS of ``source``'s built library."""
+def sass_text(build, source) -> str:
+    """The SASS of ``source``'s built library (cuobjdump --dump-sass)."""
     cuobjdump = Path(build._nvcc()).with_name("cuobjdump")
-    sass = subprocess.run([str(cuobjdump), "--dump-sass",
+    return subprocess.run([str(cuobjdump), "--dump-sass",
                            str(build._lib_path(source))],
                           capture_output=True, text=True, check=True,
                           timeout=120).stdout
-    return sass.count(opcode)
+
+
+def sass_count(build, source, opcode) -> int:
+    """Instructions ``opcode`` (HGMMA: wgmma; UBLKCP: cp.async.bulk) in
+    the SASS of ``source``'s built library."""
+    return sass_text(build, source).count(opcode)
+
+
+def sass_opcodes(build, source, opcode) -> dict:
+    """The same instructions by full opcode (``UBLKCP.S.G``, ...)."""
+    import collections
+    import re
+    return dict(collections.Counter(re.findall(
+        rf"\b{opcode}(?:\.\w+)*", sass_text(build, source))))
 
 
 def spills(log: str) -> list:
@@ -388,7 +404,8 @@ def check_mass_lookup(n, m, kd, gen, dev) -> float:
 
 def check_fused_decode(n, dk, dv, dtype, gen, dev) -> float:
     """B6 against its plain version: the state bit for bit, o within
-    LOOKUP_TOL (fp32) or 2e-2 (bf16 output)."""
+    LOOKUP_TOL (fp32) or 2e-2 (bf16 output), on the route that
+    ``ops.decode_route`` names for the shape."""
     import torch
     from repro_torch.kernels.lookup import ops as LU, ref as LR
     s = nonsymmetric(gen, dev, n, dk, dv) if dk == dv else torch.randn(
@@ -400,7 +417,8 @@ def check_fused_decode(n, dk, dv, dtype, gen, dev) -> float:
     s_k = s.clone()
     o, _ = LU.fused_decode(s_k, q, k, v)
     torch.cuda.synchronize()
-    tag = f"N={n} Dk={dk} Dv={dv} {str(dtype).split('.')[-1]}"
+    tag = (f"N={n} Dk={dk} Dv={dv} {str(dtype).split('.')[-1]} "
+           f"({LU.decode_route(dk, dv)} route)")
     if not torch.equal(s_k, s_r):
         raise AssertionError(f"fused_decode {tag}: state not bitwise equal "
                              f"(max |Δ| {(s_k - s_r).abs().max().item()})")
@@ -509,9 +527,11 @@ def time_lookup_kernels(store, n_live, gen, dev) -> dict:
     of states sit in L2; B4 at the paper's width (B = 256 rows of M =
     PAPER_M = 4 queries into N = 1,024 states of K = PAPER_K = 100),
     cycling over 8 such stores (328 MB) and 16 row sets; B5 at the
-    paper's width (N = 256 documents) and B6 at N = 256, Dk = Dv = 100,
-    fp32, each over 16 buffers of inputs for the same reason; and the
-    launch floor, a one-element in-place add timed the same way. Together
+    paper's width (N = 256 documents); B6 at N = 256, Dk = Dv = 100,
+    fp32, and at the LM's decode shape, N = 128, Dk = Dv = 128, bf16 q, k
+    and v, beside ``baddbmm`` + ``bmm`` on fp32 inputs; each over 16
+    buffers of inputs for the same reason; and the launch floor, a
+    one-element in-place add timed the same way. Together
     the floor, the L2-warm time and the cold one split B4's time into
     launch, latency and transfer."""
     import torch
@@ -572,18 +592,31 @@ def time_lookup_kernels(store, n_live, gen, dev) -> dict:
         **bound(cs[0].nbytes + 2 * q.nbytes, 2 * n * m * kp * kp))
     del cs
 
-    ss = [torch.randn((n, kp, kp), generator=gen, device=dev)
-          for _ in range(n_bufs)]
-    qd, kd_, vd = (torch.randn((n, kp), generator=gen, device=dev)
-                   for _ in range(3))
-    out["fused_decode"] = dict(
-        ms=graph_ms(lambda i: LU.fused_decode(ss[i % n_bufs], qd, kd_, vd),
-                    2 * n_bufs),
-        plain_ms=graph_ms(lambda i: LR.decode_ref(ss[i % n_bufs], qd, kd_,
+    def b6(n, d, dtype):
+        """B6 and its yardstick, S += k vᵀ by ``baddbmm_`` then o = Sᵀq by
+        ``bmm`` (on fp32 copies of q, k and v, made outside the timing)."""
+        ss = [torch.randn((n, d, d), generator=gen, device=dev)
+              for _ in range(n_bufs)]
+        qd, kd_, vd = (torch.randn((n, d), generator=gen, device=dev).to(
+            dtype) for _ in range(3))
+        q1, k1, v1 = qd.float()[:, None], kd_.float()[:, :, None], \
+            vd.float()[:, None]
+
+        def library(i):
+            s = ss[i % n_bufs].baddbmm_(k1, v1)
+            return torch.bmm(q1, s)
+
+        return dict(
+            ms=graph_ms(lambda i: LU.fused_decode(ss[i % n_bufs], qd, kd_,
                                                   vd), 2 * n_bufs),
-        library_ms=None, shape=f"N={n} Dk={kp} Dv={kp} fp32",
-        **bound(2 * ss[0].nbytes + 4 * qd.nbytes, 4 * n * kp * kp))
-    del ss
+            plain_ms=graph_ms(lambda i: LR.decode_ref(ss[i % n_bufs], qd,
+                                                      kd_, vd), 2 * n_bufs),
+            baddbmm_bmm_ms=graph_ms(library, 2 * n_bufs), library_ms=None,
+            shape=f"N={n} Dk={d} Dv={d} {str(dtype).split('.')[-1]}",
+            **bound(2 * ss[0].nbytes + 4 * qd.nbytes, 4 * n * d * d))
+
+    out["fused_decode"] = b6(n, kp, torch.float32)        # paper width
+    out["fused_decode LM shape"] = b6(128, 128, torch.bfloat16)
 
     one = torch.zeros(1, device=dev)
     out["launch floor"] = dict(
@@ -603,6 +636,9 @@ def print_lookup_times(times) -> None:
             if "gather_bmm_ms" in t:
                 extra.append(f"gather + bmm (two calls) "
                              f"{t['gather_bmm_ms'] * 1e3:.2f} us")
+            if "baddbmm_bmm_ms" in t:
+                extra.append(f"baddbmm + bmm (two calls) "
+                             f"{t['baddbmm_bmm_ms'] * 1e3:.2f} us")
             extra.append(f"bound {t['bound_ms'] * 1e3:.2f} us by "
                          f"{t['bound_by']}, {t['bytes'] / 1e6:.2f} MB moved")
             line += f" ({'; '.join(extra)})"
@@ -2154,11 +2190,13 @@ def main() -> int:
                                  f"the tensor cores")
         print(f"  {source.name}: {n_hgmma} HGMMA (wgmma) instructions in "
               f"the built library (cuobjdump --dump-sass)")
-    # B4/B5's even-K route copies each state by cp.async.bulk, unspilled
+    # B4/B5's even-K route copies each state by cp.async.bulk, B6's bulk
+    # route in and back out, unspilled
     n_bulk = sass_count(build, LU.SOURCE, "UBLKCP")
+    bulk_ops = sass_opcodes(build, LU.SOURCE, "UBLKCP")
     if not n_bulk:
         raise AssertionError("phase 1: no UBLKCP in lookup.cu's library: "
-                             "B4/B5 copy no state by cp.async.bulk")
+                             "B4-B6 copy no state by cp.async.bulk")
     lookup_log = build.build_log(LU.SOURCE)
     if lookup_log is None:
         raise AssertionError("phase 1: no ptxas report for lookup.cu's "
@@ -2168,8 +2206,11 @@ def main() -> int:
         raise AssertionError(f"phase 1: ptxas spills in lookup.cu: "
                              f"{spills(lookup_log)}")
     print(f"  {LU.SOURCE.name}: {n_bulk} UBLKCP (cp.async.bulk) "
-          f"instructions in the built library, no spill "
-          f"({len(ptxas_notes(lookup_log))} ptxas lines)")
+          f"instructions in the built library ({json.dumps(bulk_ops)}), no "
+          f"spill ({len(ptxas_notes(lookup_log))} ptxas lines)")
+    for line in ptxas_notes(lookup_log):
+        if "decode_" in line:
+            print(f"  B6: {line}")
     done(1, t0)
 
     # -- 2. kernels against their plain versions --------------------------
@@ -2223,11 +2264,15 @@ def main() -> int:
             errs["mass_lookup"] = err
     for kd in (64, 256, 33):
         check_lookup_nan_rows(kd, gen, dev)
-    for dk, dv in ((64, 64), (100, 48)):
+    # B6 on both routes: the paper's width, the LM's decode shape, a state
+    # larger than a block holds (direct), rows of 200 bytes (bulk, copies
+    # of two rows) and an odd Dk·Dv (direct)
+    for dk, dv in ((64, 64), (100, 48), (100, 100), (128, 128), (256, 256),
+                   (36, 50), (33, 17)):
         for dtype in (torch.float32, torch.bfloat16):
             err = check_fused_decode(256, dk, dv, dtype, gen, dev)
-            if (dk, dtype) == (64, torch.float32):
-                errs["fused_decode"] = err
+            if (dk, dv, dtype) == (100, 100, torch.float32):
+                errs["fused_decode"] = err      # the timed shape
     print(f"phase 2: mass_lookup_indexed, mass_lookup and fused_decode "
           f"agree with their plain versions (o rtol/atol {LOOKUP_TOL}, "
           f"non-symmetric states; fused_decode's state bitwise; rows "

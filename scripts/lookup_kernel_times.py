@@ -7,8 +7,10 @@ Imports ``repro_torch`` from DIR (default: this checkout's ``src``) and
 runs ``chip_smoke.time_lookup_kernels`` on a random store of the lookup
 main path's shape (16,384 states of 64 × 64, the first 8,192 drawn from):
 B4 at the main path's wave, cold and L2-warm, and at the paper's width;
-B5; B6; and the launch floor, each beside its bound, plain version and
-library call. To compare two trees on one card, unpack the other one
+B5; B6 at the paper's width and at the LM's 128 × 128 in bf16; and the
+launch floor, each beside its bound, plain version and library call (or
+the two calls that compute the same: gather + ``bmm`` for B4,
+``baddbmm`` + ``bmm`` for B6). To compare two trees on one card, unpack the other one
 (``git archive``) into a directory that ``.gitignore`` lists and run this
 once per tree within one call, in turns (A, B, B, A): each tree builds
 its own kernel library under its own ``build/``. Prints the card's name
@@ -53,7 +55,8 @@ def main(argv=None) -> int:
     print(card)
     print(f"tree {src} ({args.tag})")
     chip_smoke.print_lookup_times(times)
-    keys = ("ms", "plain_ms", "library_ms", "gather_bmm_ms", "bound_ms")
+    keys = ("ms", "plain_ms", "library_ms", "gather_bmm_ms",
+            "baddbmm_bmm_ms", "bound_ms")
     print(json.dumps({"tag": args.tag, "card": card, "times": {
         name: {k: t[k] for k in keys if k in t} for name, t in
         times.items()}}))

@@ -1,13 +1,14 @@
 // Hopper building blocks of the port's tensor-core sweeps and bulk copies,
 // for sm_90a: linear_attention.cu (B2, B3), gated_linear_attention.cu (B8,
-// B9) and lookup.cu (B4, B5) include this file. kernels/build.py names each
+// B9) and lookup.cu (B4-B6) include this file. kernels/build.py names each
 // library by a hash of its source and of every file the source includes,
 // so an edit here rebuilds all three.
 //
 // - TMA: one thread loads a (64-column, 64-row) box of a 3-D tensor map
 //   into shared memory with the 128-byte swizzle, completing its bytes on
 //   an mbarrier; elements out of bounds read as zero. Or a run of
-//   contiguous bytes, with no tensor map (bulk_load).
+//   contiguous bytes, with no tensor map (bulk_load), and back to global
+//   memory in bulk groups (bulk_store, bulk_commit, bulk_wait_read).
 // - wgmma: m64n64k16 products of bf16 operands with fp32 accumulators,
 //   both operands from swizzled shared memory (K-major or MN-major), or A
 //   from registers.
@@ -86,6 +87,30 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
       "[%0], [%1], %2, [%3];" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
       : "memory");
+}
+
+// `bytes` contiguous bytes from shared memory back to global memory, one
+// bulk copy in this thread's open bulk group; both addresses 16-byte
+// aligned, bytes a multiple of 16. The writing threads' generic-proxy
+// stores to the source must be fenced (fence_async) and synchronised
+// before the copy is issued.
+__device__ __forceinline__ void bulk_store(void* dst, uint32_t src,
+                                           uint32_t bytes) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;" ::"l"(
+          reinterpret_cast<uint64_t>(dst)),
+      "r"(src), "r"(bytes)
+      : "memory");
+}
+// closes this thread's open bulk group
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+// returns once all but the newest N of this thread's bulk groups have
+// read their shared-memory sources (which may then be reused or released)
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;" ::"n"(N) : "memory");
 }
 
 // one box of a 3-D tensor map (coordinates innermost first) into shared

@@ -9,8 +9,8 @@
 // B5  the same kernels with INDEXED=false
 //     replace repro/kernels/lookup/kernel.py::mass_lookup
 //     (_mass_lookup_kernel): the same with rows[b] = b.
-// B6  decode_kernel<T>
-//     replaces repro/kernels/lookup/kernel.py::decode (_decode_kernel):
+// B6  decode_bulk<T, KC>, and for other shapes decode_direct<T, KC, R>
+//     replace repro/kernels/lookup/kernel.py::decode (_decode_kernel):
 //         S <- S + k vᵀ (in place) ;  o[v] = Σ_k q[k] · S[k, v].
 //
 // Bound: memory, for all three. B4 and B5 read a K×K fp32 state for every
@@ -19,7 +19,8 @@
 // enough. At the lookup main path (B = 256 rows of a 16,384-row store,
 // M = 1, K = 64) one launch reads 256 × 16 KiB of state, ~4.3 MB with q
 // and o: ~1.3 µs at 3.35 TB/s. B6 reads and writes its state once per step
-// (2·Dk·Dv·4 bytes for 4·Dk·Dv flops).
+// (2·Dk·Dv·4 bytes for 4·Dk·Dv flops): at N = 256, Dk = Dv = 100 one
+// launch moves 20.9 MB, ~6.2 µs.
 //
 // Design, B4/B5, even K (the bulk route, mass_lookup_bulk): one block of 8
 // warps per wave row, looping over the row's tiles of TM queries, so that
@@ -67,12 +68,40 @@
 // On both routes a row index outside the store yields NaN for that row
 // rather than a read outside it.
 //
-// Design, B6: one block per state row, threads (tx, ty) = (32, 8); thread
-// (tx, ty) updates columns tx + 32·c of rows ty, ty + 8, ... in place and
-// keeps their partial sums of o; the 8 partial sums of each column are
-// added in a fixed order through shared memory. The rank-1 update is a
-// separately rounded multiply and add (__fmul_rn, __fadd_rn), as the
-// plain PyTorch version computes it, so the state agrees bit for bit.
+// Design, B6, dk·dv % 4 == 0 and a state of at most 192 KiB (the bulk
+// route, decode_bulk): one block per state, the state held in dynamic
+// shared memory in its global (dk, dv) layout, in eight chunks: warp w
+// owns a contiguous run of rows (warp_rows, in steps of rows that span a
+// multiple of 16 bytes), which its lane 0 copies in by one bulk copy
+// (cp.async.bulk) on the warp's mbarrier, so that the whole state is in
+// flight from the start; meanwhile lane i loads q and k of the warp's row
+// r0 + i (broadcast by shuffles) and every lane v of its columns lane +
+// 32j. The warp waits, updates its rows in shared memory (8 values a lane
+// loaded before any is stored), adds q[a]·S'[a, c] to its partial sums of
+// o, fences the writes to the async proxy, and lane 0 stores the rows back
+// by one bulk copy while other warps' copies still land. Two or four
+// copies a warp, each on its own mbarrier and stored back as soon as it
+// was updated, ran 0.1-0.5 µs slower at the paper's width and the LM's
+// shape on the H100 (PERF.md). No block-wide barrier comes before o's
+// partials, which are summed in a fixed order by two to eight threads a
+// column (sum_partials); lane 0 waits for its stores to have read shared
+// memory (cp.async.bulk.wait_group.read) before the block exits. States
+// above 192 KiB (256 × 256 is 256 KiB, more than a block may hold) take
+// the direct route rather than a ring of stages: no path of the system
+// runs B6, the paper's width (40 KB) and the LM's 128 × 128 (64 KiB) are
+// resident, and the direct body serves the rest.
+//
+// Design, B6, any other shape (the direct route, decode_direct; the bulk
+// copies need a 16-byte aligned source and a multiple of 16 bytes): one
+// block per state, thread (tx, ty) = (32, 8) updating columns tx + 32j of
+// rows ty, ty + 8, ... in place, R rows at a time with all their loads
+// issued before any store (8 rows of up to 4 columns, 4 of 8), its
+// partial sums of o summed as above; at most 128 registers, so that two
+// blocks share an SM.
+//
+// On both routes the rank-1 update is a separately rounded multiply and
+// add (__fmul_rn, __fadd_rn), as the plain PyTorch version computes it, so
+// the state agrees bit for bit.
 //
 // Every kernel launches on the caller's stream and allocates nothing; each
 // C entry point returns cudaGetLastError() after its launch.
@@ -96,6 +125,8 @@ constexpr int kCopies = 2;        // resident: bulk copies per state, each
                                   // of the rows of kWarps / kCopies warps
 constexpr int kRingRows = 4;      // above it, each warp streams its rows in
 constexpr int kRingStages = 2;    // copies of 4 through a ring of 2 stages
+constexpr int kDecodeResident = 48 * 1024;  // B6's bulk route: its largest
+                                            // state, 192 KiB
 
 // The state rows [r0, r1) of warp w: the K rows in steps of rs (the rows
 // one warp answers at once: 4 with 16-byte loads, 2 with 8-byte ones), the
@@ -121,6 +152,18 @@ __host__ __device__ constexpr int bulk_state_floats(int k) {
 }
 constexpr int bulk_smem_bytes(int k) {
   return bulk_state_floats(k) * 4 + kWarps * kRingStages * 8;
+}
+
+// B6's route: the bulk route where a state is a whole number of 16-byte
+// units and fits in a block's shared memory beside o's partial sums
+// (ops.decode_route states the same rule for the wrapper's checks)
+__host__ __device__ constexpr bool decode_bulk_route(int dk, int dv) {
+  return dk * dv % 4 == 0 && dk * dv <= kDecodeResident;
+}
+// the bulk route's dynamic shared memory: the state, o's kWarps partial
+// sums of each column, then the mbarriers (one per warp)
+constexpr int decode_smem_bytes(int floats, int dv) {
+  return (floats + kWarps * dv) * 4 + kWarps * 8;
 }
 
 __device__ __forceinline__ float to_float(float x) { return x; }
@@ -423,15 +466,123 @@ mass_lookup_direct(const float* __restrict__ c, const int* __restrict__ rows,
     o_t[x] = os[x / k][x % k];
 }
 
-// B6. s: (n, dk, dv) fp32, updated in place; q, k: (n, dk); v, o: (n, dv).
+// o[col] = the sum over w < kWarps of part[w·dv + col], in a fixed order:
+// G threads a column (G = 256 / dv rounded down to a power of two, at most
+// kWarps), each summing kWarps / G partials in turn, then a butterfly of
+// G lanes; so 100 columns take 200 threads, not 100 chains of 8.
 template <typename T>
+__device__ __forceinline__ void sum_partials(const float* part, int dv,
+                                             T* o_n) {
+  const int g = dv <= 32 ? 8 : dv <= 64 ? 4 : dv <= 128 ? 2 : 1;
+  const int col = threadIdx.x / g, h = threadIdx.x % g;   // dv·g <= 256
+  float sum = 0.f;
+  if (col < dv)
+    for (int w = h * (kWarps / g); w < (h + 1) * (kWarps / g); ++w)
+      sum += part[w * dv + col];
+  for (int off = 1; off < g; off <<= 1)
+    sum += __shfl_xor_sync(0xffffffffu, sum, off);
+  if (h == 0 && col < dv) o_n[col] = from_float<T>(sum);
+}
+
+// B6 for dk·dv % 4 == 0 and states of at most kDecodeResident floats, the
+// bulk route. s: (n, dk, dv) fp32, 16-byte aligned, updated in place; q,
+// k: (n, dk); v, o: (n, dv). One block per state; KC = 32-column slices
+// of a state row (32·KC >= dv).
+template <typename T, int KC>
 __global__ void __launch_bounds__(kThreads)
-decode_kernel(float* __restrict__ s, const T* __restrict__ q,
+decode_bulk(float* __restrict__ s, const T* __restrict__ q,
+            const T* __restrict__ k, const T* __restrict__ v,
+            T* __restrict__ o, int dk, int dv) {
+  constexpr int U = 8 / KC;                      // rows a lane holds at once
+  extern __shared__ __align__(16) float smem[];  // the state, in place
+  float* const part = smem + dk * dv;            // o's partial sums
+  const int n = blockIdx.x;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const uint32_t bar = tc::smem_u32(part + kWarps * dv) + 8 * warp;
+  float* const s_n = s + static_cast<size_t>(n) * dk * dv;
+
+  // this warp's rows [r0, r1), in steps of rs rows (a multiple of 16
+  // bytes), by one bulk copy
+  const int rs = dv % 4 == 0 ? 1 : dv % 2 == 0 ? 2 : 4;
+  int r0, r1;
+  warp_rows(dk, rs, warp, r0, r1);
+  if (lane == 0) {
+    tc::mbar_init(bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    if (r1 > r0)
+      copy_rows(bar, smem + r0 * dv, s_n + r0 * dv, (r1 - r0) * dv * 4);
+  }
+  // while the copy flies: lane i holds q and k of the warp's row r0 + i
+  // (a warp has at most 32 rows), and v of its columns lane + 32j
+  const bool mine = r0 + lane < r1;
+  const float q_l = mine ? to_float(q[static_cast<size_t>(n) * dk + r0 + lane])
+                         : 0.f;
+  const float k_l = mine ? to_float(k[static_cast<size_t>(n) * dk + r0 + lane])
+                         : 0.f;
+  float vr[KC], acc[KC];
+#pragma unroll
+  for (int j = 0; j < KC; ++j) {
+    const int col = lane + 32 * j;
+    vr[j] = col < dv ? to_float(v[static_cast<size_t>(n) * dv + col]) : 0.f;
+    acc[j] = 0.f;
+  }
+  __syncwarp();         // the barrier, initialised, before the wait
+
+  if (r1 > r0) {
+    tc::mbar_wait(bar, 0);
+    for (int b = r0; b < r1; b += U) {
+      float x[U][KC];   // all U rows' loads before any store
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+#pragma unroll
+        for (int j = 0; j < KC; ++j) {
+          const int col = lane + 32 * j;
+          if (b + u < r1 && col < dv) x[u][j] = smem[(b + u) * dv + col];
+        }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const float ka = __shfl_sync(0xffffffffu, k_l, (b + u - r0) & 31);
+        const float qa = __shfl_sync(0xffffffffu, q_l, (b + u - r0) & 31);
+#pragma unroll
+        for (int j = 0; j < KC; ++j) {
+          const int col = lane + 32 * j;
+          if (b + u < r1 && col < dv) {
+            const float y = __fadd_rn(x[u][j], __fmul_rn(ka, vr[j]));
+            smem[(b + u) * dv + col] = y;
+            acc[j] = fmaf(qa, y, acc[j]);
+          }
+        }
+      }
+    }
+    tc::fence_async();  // this lane's writes, seen by the bulk copy
+    __syncwarp();
+    if (lane == 0) {    // the rows back, while other warps' copies land
+      tc::bulk_store(s_n + r0 * dv, tc::smem_u32(smem + r0 * dv),
+                     (r1 - r0) * dv * 4);
+      tc::bulk_commit();
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < KC; ++j) {
+    const int col = lane + 32 * j;
+    if (col < dv) part[warp * dv + col] = acc[j];
+  }
+  __syncthreads();
+  sum_partials(part, dv, o + static_cast<size_t>(n) * dv);
+  if (lane == 0) tc::bulk_wait_read<0>();  // the stores have read the state
+}
+
+// B6 for any shape, the direct route. s: (n, dk, dv) fp32, updated in
+// place; q, k: (n, dk); v, o: (n, dv). One block per state; thread (tx,
+// ty) updates columns tx + 32j (j < KC) of rows ty, ty + 8, ... R rows at
+// a time, all R rows' loads issued before any store.
+template <typename T, int KC, int R>
+__global__ void __launch_bounds__(kThreads, 2)   // two blocks an SM
+decode_direct(float* __restrict__ s, const T* __restrict__ q,
               const T* __restrict__ k, const T* __restrict__ v,
               T* __restrict__ o, int dk, int dv) {
-  constexpr int kCols = kMaxK / 32;       // columns per thread, at most
   __shared__ float qs[kMaxK], ks[kMaxK];
-  __shared__ float part[kWarps][kMaxK];
+  __shared__ float part[kWarps * kMaxK];
 
   const int n = blockIdx.x;
   const int tx = threadIdx.x & 31;
@@ -440,9 +591,9 @@ decode_kernel(float* __restrict__ s, const T* __restrict__ q,
     qs[a] = to_float(q[static_cast<size_t>(n) * dk + a]);
     ks[a] = to_float(k[static_cast<size_t>(n) * dk + a]);
   }
-  float vr[kCols], acc[kCols];
+  float vr[KC], acc[KC];
 #pragma unroll
-  for (int j = 0; j < kCols; ++j) {
+  for (int j = 0; j < KC; ++j) {
     const int col = tx + 32 * j;
     vr[j] = col < dv ? to_float(v[static_cast<size_t>(n) * dv + col]) : 0.f;
     acc[j] = 0.f;
@@ -450,32 +601,37 @@ decode_kernel(float* __restrict__ s, const T* __restrict__ q,
   __syncthreads();
 
   float* s_n = s + static_cast<size_t>(n) * dk * dv;
-#pragma unroll 4
-  for (int a = ty; a < dk; a += kWarps) {
-    const float ka = ks[a], qa = qs[a];
-    float* s_a = s_n + static_cast<size_t>(a) * dv;
+  for (int a0 = ty; a0 < dk; a0 += kWarps * R) {
+    float x[R][KC];
 #pragma unroll
-    for (int j = 0; j < kCols; ++j) {
-      const int col = tx + 32 * j;
-      if (col < dv) {
-        const float x = __fadd_rn(s_a[col], __fmul_rn(ka, vr[j]));
-        s_a[col] = x;
-        acc[j] = fmaf(qa, x, acc[j]);
+    for (int r = 0; r < R; ++r)
+#pragma unroll
+      for (int j = 0; j < KC; ++j) {
+        const int a = a0 + kWarps * r, col = tx + 32 * j;
+        if (a < dk && col < dv)
+          x[r][j] = s_n[static_cast<size_t>(a) * dv + col];
+      }
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int a = a0 + kWarps * r;
+#pragma unroll
+      for (int j = 0; j < KC; ++j) {
+        const int col = tx + 32 * j;
+        if (a < dk && col < dv) {
+          const float y = __fadd_rn(x[r][j], __fmul_rn(ks[a], vr[j]));
+          s_n[static_cast<size_t>(a) * dv + col] = y;
+          acc[j] = fmaf(qs[a], y, acc[j]);
+        }
       }
     }
   }
 #pragma unroll
-  for (int j = 0; j < kCols; ++j) {
+  for (int j = 0; j < KC; ++j) {
     const int col = tx + 32 * j;
-    if (col < dv) part[ty][col] = acc[j];
+    if (col < dv) part[ty * dv + col] = acc[j];
   }
   __syncthreads();
-  for (int col = threadIdx.x; col < dv; col += kThreads) {
-    float sum = 0.f;
-#pragma unroll
-    for (int g = 0; g < kWarps; ++g) sum += part[g][col];
-    o[static_cast<size_t>(n) * dv + col] = from_float<T>(sum);
-  }
+  sum_partials(part, dv, o + static_cast<size_t>(n) * dv);
 }
 
 template <int TM, int KC>
@@ -538,6 +694,42 @@ int launch_bulk_tile(const float* c, const int* rows, const float* q,
   return launch_bulk<8, TM, 2>(c, rows, q, o, n_states, b, m, k, stream);
 }
 
+template <typename T, int KC>
+int launch_decode(float* s, const void* q, const void* k, const void* v,
+                  void* o, int n, int dk, int dv, bool bulk,
+                  cudaStream_t stream) {
+  const T* qt = static_cast<const T*>(q);
+  const T* kt = static_cast<const T*>(k);
+  const T* vt = static_cast<const T*>(v);
+  T* ot = static_cast<T*>(o);
+  if (!bulk) {
+    constexpr int R = KC > 4 ? 4 : 8;    // at most 32 values a thread
+    decode_direct<T, KC, R><<<n, kThreads, 0, stream>>>(s, qt, kt, vt, ot,
+                                                         dk, dv);
+    return 0;
+  }
+  // the opt-in to the most dynamic shared memory this instantiation takes
+  const auto kernel = decode_bulk<T, KC>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      decode_smem_bytes(kDecodeResident, 32 * KC));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<n, kThreads, decode_smem_bytes(dk * dv, dv), stream>>>(
+      s, qt, kt, vt, ot, dk, dv);
+  return 0;
+}
+
+template <typename T>
+int launch_decode_cols(float* s, const void* q, const void* k, const void* v,
+                       void* o, int n, int dk, int dv, bool bulk,
+                       cudaStream_t stream) {
+  const int kc = (dv + 31) / 32;
+  if (kc <= 1) return launch_decode<T, 1>(s, q, k, v, o, n, dk, dv, bulk, stream);
+  if (kc <= 2) return launch_decode<T, 2>(s, q, k, v, o, n, dk, dv, bulk, stream);
+  if (kc <= 4) return launch_decode<T, 4>(s, q, k, v, o, n, dk, dv, bulk, stream);
+  return launch_decode<T, 8>(s, q, k, v, o, n, dk, dv, bulk, stream);
+}
+
 }  // namespace
 
 // B4 (rows != null) and B5 (rows == null: row b reads state b, and
@@ -575,7 +767,10 @@ extern "C" int mass_lookup(const void* c, const void* rows, const void* q,
 
 // B6. s: (n, dk, dv) fp32, updated in place; q, k: (n, dk) and v: (n, dv)
 // in fp32 (bf16 == 0) or bf16 (bf16 == 1); o: (n, dv) in v's type. All
-// contiguous, on the current device; 1 <= dk, dv <= 256.
+// contiguous, on the current device; 1 <= dk, dv <= 256. A state of
+// dk·dv % 4 == 0 and at most kDecodeResident floats takes the bulk route
+// (s 16-byte aligned: the size of a state, dk·dv·4 bytes, is then a
+// multiple of 16); any other the direct route.
 extern "C" int lookup_decode(void* s, const void* q, const void* k,
                              const void* v, void* o, int n, int dk, int dv,
                              int bf16, void* stream) {
@@ -583,15 +778,12 @@ extern "C" int lookup_decode(void* s, const void* q, const void* k,
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* sf = static_cast<float*>(s);
-  if (bf16) {
-    using T = __nv_bfloat16;
-    decode_kernel<T><<<n, kThreads, 0, st>>>(
-        sf, static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<T*>(o), dk, dv);
-  } else {
-    decode_kernel<float><<<n, kThreads, 0, st>>>(
-        sf, static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(o), dk, dv);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const bool bulk = decode_bulk_route(dk, dv);
+  if (bulk && reinterpret_cast<uintptr_t>(s) % 16)
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  const int err =
+      bf16 ? launch_decode_cols<__nv_bfloat16>(sf, q, k, v, o, n, dk, dv,
+                                               bulk, st)
+           : launch_decode_cols<float>(sf, q, k, v, o, n, dk, dv, bulk, st);
+  return err ? err : static_cast<int>(cudaGetLastError());
 }

@@ -11,7 +11,10 @@ B4 and B5 take two routes inside the one kernel call, by K: even K the
 bulk route (each state copied into shared memory by bulk asynchronous
 copies, which need the store 16-byte aligned, and the queries 16-byte
 aligned for K % 4 == 0 and 8-byte otherwise: ``_check_aligned``), odd K
-the direct-load route.
+the direct-load route. B6 takes two kernels, by shape (``decode_route``):
+a state of Dk·Dv % 4 == 0 and at most ``DECODE_RESIDENT`` floats the bulk
+route (the state copied into shared memory and back by bulk asynchronous
+copies, which need it 16-byte aligned), any other the direct route.
 """
 
 from __future__ import annotations
@@ -33,6 +36,8 @@ Tensor = torch.Tensor
 SOURCE = Path(__file__).resolve().parent / "csrc" / "lookup.cu"
 MAX_K = 256                     # the kernels' largest K, Dk and Dv
 _DECODE_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+DECODE_RESIDENT = 48 * 1024     # B6's largest state on the bulk route
+                                # (kDecodeResident in csrc/lookup.cu)
 
 
 def load() -> ctypes.CDLL:
@@ -122,6 +127,25 @@ def _check_decode(s: Tensor, q: Tensor, k: Tensor, v: Tensor) -> None:
                              f"{tuple(t.shape)}, expected {want}")
 
 
+def decode_route(dk: int, dv: int) -> str:
+    """B6's kernel for (Dk, Dv) states, as ``lookup_decode`` picks it
+    (``decode_bulk_route`` in ``csrc/lookup.cu``):
+    ``"bulk"`` where a state is a whole number of 16-byte units (Dk·Dv %
+    4 == 0) and fits in a block's shared memory, else ``"direct"``."""
+    return ("bulk" if dk * dv % 4 == 0 and dk * dv <= DECODE_RESIDENT
+            else "direct")
+
+
+def _check_decode_aligned(s: Tensor) -> None:
+    """The bulk route's alignment: its copies of each state start on
+    16-byte boundaries. A view at another offset raises; nothing is
+    copied or rerouted."""
+    if decode_route(s.shape[1], s.shape[2]) == "bulk" and s.data_ptr() % 16:
+        raise ValueError(f"fused_decode: the state must start on a 16-byte "
+                         f"boundary for Dk·Dv % 4 == 0, at "
+                         f"{s.data_ptr():#x}")
+
+
 def _need_cuda(name: str, t: Tensor) -> None:
     if t.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for {t.device}")
@@ -196,13 +220,16 @@ def fused_decode(s: Tensor, q: Tensor, k: Tensor, v: Tensor
 
     s: (N, Dk, Dv) fp32; q, k: (N, Dk); v: (N, Dv). Returns (o: (N, Dv)
     in v's type, s) with ``s`` updated in place, where the Pallas kernel
-    aliases its input state to its output."""
+    aliases its input state to its output. On the card, a state of
+    Dk·Dv % 4 == 0 (the bulk route, ``decode_route``) must start on a
+    16-byte boundary: a view at another offset raises ValueError."""
     if s.device.type == "cpu":
         o, s_new = decode_ref(s, q, k, v)
         s.copy_(s_new)
         return o, s
     _need_cuda("fused_decode", s)
     _check_decode(s, q, k, v)
+    _check_decode_aligned(s)
     n, dk, dv = s.shape
     o = torch.empty_like(v)
     if n == 0:

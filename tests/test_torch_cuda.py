@@ -314,7 +314,14 @@ def test_mass_lookup_matches_plain_version(dev, kd):
                                atol=1e-4)
 
 
-@pytest.mark.parametrize("dk,dv", [(64, 64), (100, 48), (32, 256)])
+@pytest.mark.parametrize("dk,dv", [
+    (64, 64), (100, 48), (32, 256),
+    (100, 100),     # the paper's width
+    (128, 128),     # the LM's decode shape (B1's)
+    (256, 256),     # 256 KiB a state: more than a block holds, direct
+    (36, 50),       # bulk, a row of 200 bytes: copies of two rows
+    (33, 17),       # Dk·Dv odd: the direct route
+])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_fused_decode_matches_plain_version(dev, dk, dv, dtype):
     n = 12
@@ -401,6 +408,46 @@ def test_mass_lookup_misaligned_store_raises(dev):
     torch.cuda.synchronize()
     torch.testing.assert_close(o, lu_ref.mass_lookup_indexed_ref(odd, rows, q),
                                rtol=1e-4, atol=1e-4)
+
+
+def test_fused_decode_misaligned_state_raises(dev):
+    """A bulk-route state 4 bytes off a 16-byte boundary cannot be
+    bulk-copied and raises ValueError, launching nothing; a direct-route
+    shape (Dk·Dv odd) is read where it lies."""
+    s = _offset_view(dev, (3, 64, 64), 1)
+    q, k, v = (_randn(dev, i, 3, 64) for i in (1, 2, 3))
+    before = lu_ops.fused_decode.launches
+    with pytest.raises(ValueError):
+        lu_ops.fused_decode(s, q, k, v)
+    assert lu_ops.fused_decode.launches == before
+    odd = _offset_view(dev, (3, 33, 17), 1)
+    odd.copy_(_randn(dev, 4, 3, 33, 17))
+    q, k, v = _randn(dev, 5, 3, 33), _randn(dev, 6, 3, 33), _randn(dev, 7,
+                                                                   3, 17)
+    o_r, s_r = lu_ref.decode_ref(odd, q, k, v)
+    o, _ = lu_ops.fused_decode(odd, q, k, v)
+    torch.cuda.synchronize()
+    assert torch.equal(odd, s_r)
+    torch.testing.assert_close(o, o_r, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dk,dv,kernel,other", [
+    (100, 100, "decode_bulk", "decode_direct"),
+    (36, 50, "decode_bulk", "decode_direct"),
+    (33, 17, "decode_direct", "decode_bulk"),
+    (256, 256, "decode_direct", "decode_bulk"),
+])
+def test_fused_decode_route_by_shape(dev, dk, dv, kernel, other):
+    """``ops.fused_decode`` runs the kernel that ``ops.decode_route``
+    names for the shape, and never the other one."""
+    assert lu_ops.decode_route(dk, dv) == kernel.split("_")[1]
+    s = _randn(dev, 0, 4, dk, dv)
+    q, k, v = _randn(dev, 1, 4, dk), _randn(dev, 2, 4, dk), _randn(dev, 3,
+                                                                  4, dv)
+    lu_ops.fused_decode(s, q, k, v)         # the library built, loaded
+    names = _cuda_kernel_names(lambda: lu_ops.fused_decode(s, q, k, v))
+    assert any(kernel in n for n in names), names
+    assert not any(other in n for n in names), names
 
 
 @pytest.mark.parametrize("kd,kernel,other", [

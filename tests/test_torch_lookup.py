@@ -114,7 +114,11 @@ def test_refs_with_normaliser_match_jax(kd):
                                           interpret=True))
 
 
-@pytest.mark.parametrize("n,dk,dv", [(4, 64, 64), (3, 32, 48), (2, 100, 16)])
+# (100, 100): the paper's width; (128, 128): the LM's decode shape; (36,
+# 50): a bulk-route state whose 200-byte rows are copied two at a time
+@pytest.mark.parametrize("n,dk,dv", [(4, 64, 64), (3, 32, 48), (2, 100, 16),
+                                     (2, 100, 100), (2, 128, 128),
+                                     (3, 36, 50)])
 def test_fused_decode_matches_jax_interpret(n, dk, dv):
     rng = np.random.default_rng(dk + dv)
     s, q, k, v = (_f32(rng, n, dk, dv), _f32(rng, n, dk), _f32(rng, n, dk),
@@ -201,6 +205,37 @@ def test_bulk_route_alignment_check(kd, c_off, q_off, raises):
             ops._check_aligned("mass_lookup", c, q)
     else:
         ops._check_aligned("mass_lookup", c, q)
+
+
+@pytest.mark.parametrize("dk,dv,route", [
+    (100, 100, "bulk"),    # the paper's width
+    (128, 128, "bulk"),    # the LM's decode shape
+    (36, 50, "bulk"),      # Dv·4 not a multiple of 16, Dk·Dv is of 4
+    (64, 17, "bulk"),      # Dv odd, Dk % 4 == 0
+    (33, 17, "direct"),    # Dk·Dv odd
+    (33, 50, "direct"),    # Dk·Dv % 4 == 2
+    (256, 256, "direct"),  # 256 KiB: more than a block's shared memory
+    (192, 256, "bulk"),    # 192 KiB: the largest resident state
+])
+def test_decode_route_by_shape(dk, dv, route):
+    assert ops.decode_route(dk, dv) == route
+
+
+@pytest.mark.parametrize("dk,dv,off,raises", [
+    (64, 64, 0, False),    # aligned
+    (64, 64, 1, True),     # 4 bytes off: no 16-byte bulk copy
+    (36, 50, 2, True),     # 8 bytes off
+    (33, 17, 1, False),    # the direct route reads any address
+    (256, 256, 3, False),  # so does the direct route of a large state
+])
+def test_decode_bulk_route_alignment_check(dk, dv, off, raises):
+    s = _offset_view((2, dk, dv), off)
+    assert s.is_contiguous()
+    if raises:
+        with pytest.raises(ValueError):
+            ops._check_decode_aligned(s)
+    else:
+        ops._check_decode_aligned(s)
 
 
 def test_lookup_wrappers_accept_the_main_path_inputs():
