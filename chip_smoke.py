@@ -14,13 +14,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ``cp.async.bulk``, B6's bulk route in and back out), which must not
    spill.
 2. Each kernel against its plain PyTorch version on the card, at the
-   main path's shapes and at the smoke width (B10 at each D it takes,
-   with K/V of fewer heads than q, and against JAX's oracle; B2, B3, B8
-   and B9 in bf16 at T not a multiple of their 64-token tile, D = 16 and
-   128, B3's and B9's launches each on its own, B2 and B8 (inclusive and
-   exclusive + u) with a final state far from symmetric; B8/B9 at the
-   decay clamp and at each route's ``min_log_decay`` limit against
-   ``gla_scan``, and a value past the limit refused; B4 and B5 on both
+   main path's shapes and at the smoke width (B1 and B7 also 64 tokens
+   wide under per-row lengths, the stream path's ingest; B10 at each D
+   it takes, with K/V of fewer heads than q, and against JAX's oracle;
+   B2, B3, B8 and B9 in bf16 at T not a multiple of their 64-token
+   tile, D = 16 and 128, B3's and B9's launches each on its own, B2
+   and B8 (inclusive and exclusive + u) with a final state far from
+   symmetric; B8/B9 at the decay clamp and at each route's
+   ``min_log_decay`` limit against ``gla_scan``, and a value past the
+   limit refused; B4 and B5 on both
    routes, even K by bulk copies (K = 256 through the ring, M = 130 in
    tiles of 4, K % 4 == 2) and odd K direct, and rows outside the store
    NaN; B6 on both routes, its state bit for bit, at the paper's width,
@@ -90,7 +92,28 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ``scaled_dot_product_attention`` at the prefill's shape (K/V of 8 kv
    heads) and with K/V of 16 heads.
 
-Each main path (phases 4, 6, 8, 10, 12 and 14) is driven with every
+15. The engine slice (continuous batching, ``DecodeEngine``): 2 layers at
+   qwen3-0.6b's full widths in fp32, linear and then gated, 4 slots,
+   segments of 4 steps; ingest chunks of 8 with prompts of 1 to 40
+   tokens and one request of a single token, then chunks of 64 (the
+   stream path's) with prompts of up to 200 tokens, whose continuation
+   chunks run B1/B7 64 tokens wide. The engine through B1/B7 (decode
+   under per-slot masks, chunked ingest with per-row lengths) against
+   the same engine under ``decode_kernel="reference"``: completions
+   token for token and the stats identical; each request run alone
+   (``lm.prefill`` + ``lm.generate``) gives the same tokens; B1/B7
+   launched layers x (segment_len x segments + ingest chunks) times and
+   no other kernel.
+16. The stream main path: ``repro_torch.launch.serve --mode stream`` on
+   the full 28-layer qwen3-0.6b in bf16 (random weights from seed 0),
+   linear and then gated: 8 slots, segments of 8, 32 requests of 512
+   prompt tokens (7 continuation chunks of 64 each) and 8 or 64
+   generated tokens, 0.25 arrivals per decode step; tokens/s, ms per
+   segment, slot utilisation, mean latency, the admission stats, B1/B7
+   launches against the formula above, every request complete, and a
+   profile of two decode steps of a segment (device busy share).
+
+Each main path (phases 4, 6, 8, 10, 12, 14 and 16) is driven with every
 kernel's launch count set to 0 just before it and read just after.
 
 The last line is {"ok": true, "device": {...}}; the line before it the
@@ -2134,6 +2157,240 @@ def softmax_generate_main_path(dev, gen, phase) -> dict:
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
 
 
+# phase 15's workloads: (ingest chunk, max_len, prompt lengths, generation
+# budgets). Chunks of 8: one prompt of a single token, two beyond the
+# chunk, one budget of a single token. Chunks of 64, the stream path's:
+# prompts beyond it, so that continuation chunks run B1/B7 64 tokens wide
+# with rows of 64, of fewer (the prompts' tails) and of 0.
+ENGINE_SLICE_WORKLOADS = (
+    (8, 64, (6, 8, 21, 1, 40, 8, 5), (5, 12, 1, 9, 7, 6, 8)),
+    (64, 256, (130, 200, 1, 64, 192, 70, 9), (5, 4, 6, 1, 7, 3, 8)),
+)
+
+
+def engine_slice(backend, dev, phase, chunk, max_len, prompt_lens, gens
+                 ) -> None:
+    """Phase 15: ``DecodeEngine`` on 2 layers at qwen3-0.6b's full widths
+    in fp32, 4 slots, segments of 4, ingest chunks of ``chunk`` (batched
+    admission, recurrent ingest): through B1/B7 against the same engine
+    under ``decode_kernel="reference"`` (completions and stats
+    identical), against each request run alone (tokens identical), and
+    B1/B7's launches against layers x (segment_len x segments + ingest
+    chunks) with no other kernel launched."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    from repro_torch.serving import DecodeEngine
+    name = DECODE_KERNEL[backend]
+    cfg = dataclasses.replace(
+        get_config("qwen3-0.6b").with_backend(backend), n_layers=2,
+        dtype="float32")
+    params = lm.init_params(torch.Generator(device=dev).manual_seed(1), cfg)
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+               for n in prompt_lens]
+    runs = {}
+    for kernel in ("auto", "reference"):
+        c = dataclasses.replace(cfg, decode_kernel=kernel)
+        eng = DecodeEngine(params, c, n_slots=4, segment_len=4,
+                           max_len=max_len, prefill_chunk=chunk)
+        for prompt, g in zip(prompts, gens):
+            eng.submit(prompt, g)
+        reset_launches()
+        comps = eng.run()
+        torch.cuda.synchronize()
+        launches = read_launches()
+        st = eng.stats.to_dict()
+        want = (serve.stream_launches(c, st, eng.ingest) if kernel == "auto"
+                else 0)
+        if launches[name] != want:
+            raise AssertionError(f"phase {phase}: {name} launched "
+                                 f"{launches[name]} times on the {kernel} "
+                                 f"route, want {want}")
+        others = {k: n for k, n in launches.items() if k != name and n}
+        if others:
+            raise AssertionError(f"phase {phase}: other kernels launched: "
+                                 f"{others}")
+        runs[kernel] = (comps, st, launches[name])
+        runs["widths"] = eng._seen_shapes        # admission program shapes
+    (comps, st, n_launch), (ref_comps, ref_st, _) = (runs["auto"],
+                                                     runs["reference"])
+    if st != ref_st:
+        raise AssertionError(f"phase {phase}: stats differ: {st} vs "
+                             f"{ref_st}")
+    for a, b in zip(comps, ref_comps):
+        if (a.uid, a.tokens.tolist(), a.finish_reason, a.admitted_step,
+                a.finished_step) != (b.uid, b.tokens.tolist(),
+                                     b.finish_reason, b.admitted_step,
+                                     b.finished_step):
+            raise AssertionError(f"phase {phase}: completion {a.uid} "
+                                 f"differs: {a} vs {b}")
+    if st["ingest_chunks"] < 2 or not st["segments"]:
+        raise AssertionError(f"phase {phase}: the workload ran no chunked "
+                             f"ingest or no segment: {st}")
+    widths = sorted(w for kind, w in runs["widths"] if kind == "window_varlen")
+    if max(widths) != chunk:
+        raise AssertionError(f"phase {phase}: no continuation chunk "
+                             f"{chunk} tokens wide (widths {widths})")
+    for c, prompt, g in zip(comps, prompts, gens):
+        logits, state = lm.prefill(
+            params, torch.from_numpy(prompt).long()[None].to(dev), cfg)
+        tok0 = lm.sample_token(logits, 0.0)
+        more, _ = lm.generate(params, state, tok0, len(prompt), g - 1, cfg)
+        alone = [int(tok0[0])] + more[0].tolist()
+        if c.tokens.tolist() != alone:
+            raise AssertionError(f"phase {phase}: request {c.uid} "
+                                 f"({len(prompt)} prompt tokens) gives "
+                                 f"{c.tokens.tolist()} in the engine, "
+                                 f"{alone} alone")
+    print(f"phase {phase}: {backend} engine slice, 2 layers full width fp32,"
+          f" 4 slots, ingest chunks of {chunk}, {len(prompts)} requests "
+          f"(prompts {list(prompt_lens)}): B1/B7 engine = reference engine "
+          f"(completions and stats) = each request alone; {name} launched "
+          f"{n_launch} = {cfg.n_layers} x ({st['segment_len']} x "
+          f"{st['segments']} + {st['ingest_chunks']}), continuation chunks "
+          f"{widths} wide; stats {json.dumps(st)}")
+
+
+def profile_segments(engine, n=2, steps=2) -> dict:
+    """Wall time of ``n`` segments of the engine's model with every slot
+    active, then device time by kernel over ``steps`` decode steps of
+    such a segment (torch.profiler, device activity only; stopping it
+    over a whole segment's ~20,000 kernels took 12-16 s): device ms and
+    wall ms per segment, the device time as ``segment_len`` steps."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    dev, s = engine.device, engine.n_slots
+    tok = torch.zeros((s,), dtype=torch.long, device=dev)
+    pos = torch.full((s,), engine.max_len, dtype=torch.int32, device=dev)
+    active = torch.ones((s,), dtype=torch.bool, device=dev)
+    remaining = torch.full((s,), 1 << 20, dtype=torch.int32, device=dev)
+
+    def segments(n, n_steps=engine.segment_len):
+        t, p = tok, pos
+        for _ in range(n):
+            toks, carry = engine.backend.generate_segment(
+                engine.params, engine.state, t, p, active, remaining,
+                n_steps)
+            toks.cpu()                        # the engine's one host sync
+            t, p = carry["tok"], carry["pos"]
+
+    segments(1)                               # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    segments(n)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) / n * 1e3
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        segments(1, steps)
+        torch.cuda.synchronize()
+    rows, _ = profile_rows(prof)
+    print(f"  profiled {steps} steps of a segment; the profiler took "
+          f"{time.perf_counter() - t0:.1f} s with its sort")
+    total = sum(t for t, _, _ in rows)
+    print(f"  segments alone: {wall_ms:.3f} ms wall per segment of "
+          f"{engine.segment_len} steps x {s} slots")
+    if not total:
+        print("  profile: the profiler reported no device time "
+              "(not measured)")
+        return {"wall_ms": wall_ms, "device_ms": None, "busy": None}
+    step_ms = total / steps / 1e3
+    device_ms = step_ms * engine.segment_len
+    print(f"  profile: {step_ms:.3f} ms device time per step, "
+          f"{device_ms:.3f} ms per segment of {engine.segment_len}; device "
+          f"busy {100 * device_ms / wall_ms:.1f}% of a segment")
+    for i, (t, key, count) in enumerate(rows):
+        if i < 8 or "decode_" in key:
+            print(f"    {100 * t / total:5.1f}%  {t / steps / 1e3:8.4f} "
+                  f"ms/step  x{count // steps:<5d} {key[:90]}")
+    return {"wall_ms": wall_ms, "device_ms": device_ms,
+            "busy": device_ms / wall_ms}
+
+
+def stream_main_path(backend, dev, phase) -> int:
+    """Phase 16: ``serve --mode stream --backend <backend>`` on the full
+    28-layer qwen3-0.6b in bf16, 8 slots, segments of 8, 32 requests of
+    512 prompt tokens and 8 or 64 generated tokens at 0.25 arrivals per
+    decode step, with every kernel's launch count set to 0 just before
+    and read just after; then a profile of two steps of a segment.
+    Returns the backend kernel's launches in the run."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    name = DECODE_KERNEL[backend]
+    args = serve.parse_args([
+        "--mode", "stream", "--arch", "qwen3-0.6b", "--backend", backend,
+        "--slots", "8", "--segment-len", "8", "--n-requests", "32",
+        "--prompt-len", "512", "--gen-len", "64", "--arrival-rate", "0.25",
+        "--seed", "0"])
+    full = get_config(args.arch).with_backend(backend)
+    t0 = time.perf_counter()
+    reset_launches()
+    result = serve.stream(args)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    print(f"  serve --mode stream returned in {time.perf_counter() - t0:.1f}"
+          f" s (weights, warm-up and the timed run)")
+    st, warm = result["stats"], result["warmup_stats"]
+    ingest = result["engine"].ingest
+    want = serve.stream_launches(full, st, ingest)
+    want_warm = serve.stream_launches(full, warm, ingest)
+    if result["decode_launches"] != want:
+        raise AssertionError(f"phase {phase}: {name} launched "
+                             f"{result['decode_launches']} times in the "
+                             f"timed run, want {want}")
+    if launches[name] != want + want_warm:
+        raise AssertionError(f"phase {phase}: {name} launched "
+                             f"{launches[name]} times in the run, want "
+                             f"{want + want_warm}")
+    others = {k: n for k, n in launches.items() if k != name and n}
+    if others:
+        raise AssertionError(f"phase {phase}: other kernels launched: "
+                             f"{others}")
+    mix = serve.make_request_mix(np.random.default_rng(args.seed),
+                                 args.n_requests, args.prompt_len,
+                                 args.gen_len, full.vocab_size,
+                                 args.arrival_rate)
+    comps = result["completions"]
+    if [len(c.tokens) for c in comps] != [g for _, g, _ in mix] or not all(
+            ((c.tokens >= 0) & (c.tokens < full.vocab_size)).all()
+            for c in comps):
+        raise AssertionError(f"phase {phase}: incomplete or bad "
+                             f"completions")
+    chunks_per_request = -(-args.prompt_len // args.prefill_chunk) - 1
+    if st["ingest_chunks"] < chunks_per_request or not st["segments"]:
+        raise AssertionError(f"phase {phase}: no chunked ingest: {st}")
+    print(f"phase {phase}: {backend} stream main path "
+          f"tok_s={result['tokens_per_s']:.1f} "
+          f"ms_per_segment={result['ms_per_segment']:.3f} "
+          f"slot_utilization={result['slot_utilization']:.4f} "
+          f"mean_latency_steps={result['mean_latency_steps']:.2f} "
+          f"seconds={result['seconds']:.3f} tokens={result['tokens']} "
+          f"{name}.launches={launches[name]} (timed run {want} = "
+          f"{full.n_layers} x ({st['segment_len']} x {st['segments']} + "
+          f"{st['ingest_chunks']}), warm-up {want_warm}); all "
+          f"{len(comps)} requests complete")
+    print(f"  stats {json.dumps(st)}")
+    prof = profile_segments(result["engine"])
+    engine = result.pop("engine")
+    state_ok = all(bool(torch.isfinite(t).all())
+                   for group in engine.state.values() for layer in group
+                   for t in layer if t is not None)
+    if not state_ok:
+        raise AssertionError(f"phase {phase}: non-finite engine state")
+    if prof["busy"] is not None:
+        print(f"  device busy {100 * prof['busy']:.1f}% of a segment "
+              f"({prof['device_ms']:.3f} ms device time over "
+              f"{prof['wall_ms']:.3f} ms wall per segment)")
+    del engine, result
+    torch.cuda.empty_cache()
+    return launches[name]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2225,6 +2482,9 @@ def main() -> int:
                                               gen, dev)
                     if (d, w, normalize, varlen) == (128, 1, True, False):
                         errs["decode_linear"] = err   # the main path's
+    # the stream path's recurrent ingest: 64-token chunks, rows of 0 to 64
+    for normalize in (False, True):
+        check_decode_linear(128, 128, 64, normalize, True, gen, dev)
     print("phase 2: decode_linear agrees with its plain version "
           "(S, z rtol 1e-5; o within 1 bf16 ulp; masked rows bitwise)")
     for dtype in (torch.bfloat16, torch.float32):
@@ -2236,6 +2496,8 @@ def main() -> int:
                     if (dtype, w, varlen, decay) == (torch.bfloat16, 1,
                                                      False, "mild"):
                         errs["decode_gated"] = err    # the main path's
+        for decay in ("mild", "scalar", "strong", "zero"):  # stream ingest
+            check_decode_gated(128, 128, 64, dtype, True, decay, gen, dev)
     for varlen in (False, True):                      # smoke width
         check_decode_gated(12, 16, 8, torch.bfloat16, varlen, "mild", gen,
                            dev)
@@ -2438,8 +2700,26 @@ def main() -> int:
     records.append(softmax_generate_main_path(dev, gen, 14))
     done(14, t0)
 
+    # -- 15. the engine slice, B1/B7 engine vs reference engine, fp32 -------
+    t0 = time.perf_counter()
+    for backend in ("linear", "gated_linear"):
+        for workload in ENGINE_SLICE_WORKLOADS:
+            engine_slice(backend, dev, 15, *workload)
+    torch.cuda.empty_cache()
+    done(15, t0)
+
+    # -- 16. the stream main path ------------------------------------------
+    t0 = time.perf_counter()
+    stream = {DECODE_KERNEL[b]: stream_main_path(b, dev, 16)
+              for b in ("linear", "gated_linear")}
+    done(16, t0)
+
     for r in records:
         r["max_abs_err"] = errs[r["name"]]
+        if r["name"] in stream:        # B1/B7: the generate and stream paths
+            r["launches_by_path"] = {"generate": r["launches"],
+                                     "stream": stream[r["name"]]}
+            r["launches"] += stream[r["name"]]
     print(f"phases (s): {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}"
           f" total {time.perf_counter() - t_start:.1f} s")
     print(card)

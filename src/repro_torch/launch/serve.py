@@ -1,5 +1,5 @@
 """Serving entry point (port of ``repro/launch/serve.py``, modes
-``generate`` and ``lookup``).
+``generate``, ``stream`` and ``lookup``).
 
 ``--mode generate``: one static batch of requests. Prefill the prompts
 once, then decode autoregressively. ``--backend`` picks the mechanism:
@@ -12,6 +12,16 @@ kernel once per layer; ``softmax`` (paper §2, the baseline) prefills
 through the causal flash-attention CUDA kernel (B10) once per layer and
 decodes against a KV cache of prompt + generated length, read in plain
 PyTorch at O(pos) per token.
+
+``--mode stream``: continuous batching under a synthetic Poisson request
+stream (``make_request_mix``, the JAX package's workload draw for draw).
+The fixed-slot ``DecodeEngine`` admits requests between segments —
+bucket-padded batched varlen prefill waves, prompts longer than
+``--prefill-chunk`` ingested chunk by chunk between decode segments —
+and decodes ``--segment-len`` slot-masked steps at a time, one launch of
+the backend's recurrent kernel (B1 or B7) per layer and step; under
+``--ingest recurrent`` (the default) every ingest chunk is one more
+launch per layer, with per-row lengths. Linear family only.
 
 ``--mode lookup``: memory serving. Encode ``--n-docs`` documents once
 into fixed-size k×k states resident on the device, then answer two
@@ -28,6 +38,11 @@ passes of ``--n-queries`` single-query requests in waves of
       --smoke --device cpu --prompt-len 16 --gen-len 8 --batch 2
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \\
       --smoke --device cpu --backend softmax --prompt-len 16 --gen-len 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode stream \\
+      --arch qwen3-0.6b --slots 8 --segment-len 8 --n-requests 32 \\
+      --prompt-len 512 --gen-len 64 --arrival-rate 0.25
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode stream \\
+      --smoke --device cpu --slots 4 --n-requests 16 --arrival-rate 0.5
   PYTHONPATH=src python -m repro_torch.launch.serve --mode lookup \\
       --n-docs 8192 --doc-len 750 --n-queries 131072 --wave-size 256
   PYTHONPATH=src python -m repro_torch.launch.serve --mode lookup \\
@@ -47,6 +62,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_attention import ops as FA
 from repro_torch.kernels.fused_recurrent import ops as FR
@@ -137,6 +153,130 @@ def generate(args) -> Dict[str, Any]:
             "state_mib": state_mib, "tokens": out,
             "prefill_launches": prefill_launches,
             "decode_launches": decode_launches}
+
+
+def make_request_mix(rng: np.random.Generator, n_requests: int,
+                     prompt_len: int, gen_len: int, vocab_size: int,
+                     arrival_rate: float):
+    """Synthetic workload (the JAX package's, draw for draw): Poisson
+    arrivals (exponential inter-arrival times, ``arrival_rate`` requests
+    per decode step; 0 = all at once) and a skewed generation-length mix
+    — most requests are short, every 4th runs ``gen_len`` tokens."""
+    t = 0.0
+    out = []
+    for i in range(n_requests):
+        if arrival_rate > 0:
+            t += rng.exponential(1.0 / arrival_rate)
+        prompt = rng.integers(0, vocab_size, size=prompt_len,
+                              dtype=np.int64).astype(np.int32)
+        g = gen_len if i % 4 == 0 else max(1, gen_len // 8)
+        out.append((prompt, g, t))
+    return out
+
+
+def stream_launches(cfg: ModelConfig, stats: Dict[str, Any],
+                    ingest: str) -> int:
+    """Launches of the backend's recurrent kernel that a stream run with
+    these stats makes: one per layer and decode step of every segment
+    (masked steps included), and one per layer and recurrent ingest
+    chunk."""
+    chunks = stats["ingest_chunks"] if ingest == "recurrent" else 0
+    return cfg.n_layers * (stats["segment_len"] * stats["segments"] + chunks)
+
+
+def stream(args) -> Dict[str, Any]:
+    """Continuous batching under a synthetic Poisson request stream.
+    Prints the lines of the JAX package's ``stream`` and returns the
+    measured numbers (tokens/s and ms per segment over the timed run,
+    slot utilisation, mean latency in decode steps), the engine's stats,
+    the completions, the engine itself, and the launches of the
+    backend's recurrent kernel in the timed run (``decode_launches``;
+    ``warmup_stats`` are the untimed warm-up's)."""
+    from repro_torch.serving import DecodeEngine, backend_for_config
+
+    device = resolve_device(args.device)
+    cfg = (get_smoke_config(args.arch) if args.smoke
+           else get_config(args.arch))
+    cfg = cfg.with_backend(args.backend)
+    backend = backend_for_config(cfg)     # softmax raises, before any weight
+    kernel = {"linear": FR.decode_linear,
+              "gated_linear": FR.decode_gated}[cfg.attention_backend]
+    gen = torch.Generator(device=device).manual_seed(args.seed * 4)
+    params = lm.cast_params(lm.init_params(gen, cfg), lm.dtype_of(cfg.dtype))
+    max_len = args.prompt_len + args.gen_len + args.segment_len
+    engine = DecodeEngine(
+        params, cfg, backend=backend, n_slots=args.slots,
+        segment_len=args.segment_len, max_len=max_len,
+        temperature=args.temperature, seed=args.seed,
+        admission=args.admission, prefill_chunk=args.prefill_chunk,
+        ingest=args.ingest)
+    rng = np.random.default_rng(args.seed)
+    requests = make_request_mix(rng, args.n_requests, args.prompt_len,
+                                args.gen_len, cfg.vocab_size,
+                                args.arrival_rate)
+
+    # warm-up, untimed: the first prompt through admission, ingest and
+    # one segment, so the kernels are loaded and the library has picked
+    # its matmul kernels before the clock starts
+    engine.submit(requests[0][0], min(2, requests[0][1]))
+    engine.run()
+    _sync(device)
+    warmup_stats = engine.stats.to_dict()
+    engine.reset()
+
+    for prompt, g, arrival in requests:
+        engine.submit(prompt, g, arrival=arrival)
+    launches0 = kernel.launches
+    t0 = time.perf_counter()
+    while engine.has_work():
+        engine.step("continuous")
+    _sync(device)
+    dt = time.perf_counter() - t0
+    launches = kernel.launches - launches0
+    completions = engine.completions()
+    if len(completions) != args.n_requests:
+        raise RuntimeError(f"{len(completions)} completions for "
+                           f"{args.n_requests} requests")
+
+    st = engine.stats
+    total = sum(len(c.tokens) for c in completions)
+    lat = [c.finished_step - c.admitted_step for c in completions]
+    where = (torch.cuda.get_device_name(device) if device.type == "cuda"
+             else "cpu")
+    print(f"arch={cfg.name} backend={cfg.attention_backend} "
+          f"slots={args.slots} segment={args.segment_len} "
+          f"decode_kernel={cfg.decode_kernel} ({kernel.__name__}) "
+          f"device={where}")
+    print(f"stream: {len(completions)} requests, {total} tokens in "
+          f"{dt:.2f} s ({total / dt:.0f} tok/s, "
+          f"{dt / max(st.segments, 1) * 1e3:.2f} ms per segment)")
+    print(f"slot utilization {st.slot_utilization:.2f} over "
+          f"{st.segments} segments; mean latency "
+          f"{np.mean(lat):.0f} decode steps")
+    print(f"status: ok={len(completions)}")
+    print(f"admission={engine.admission} ingest={engine.ingest} "
+          f"chunk={engine.prefill_chunk}: "
+          f"{st.prefills} prompts in {st.admission_batches} batched "
+          f"waves (mean batch {st.mean_admission_batch:.1f}), "
+          f"{st.ingest_chunks} ingest chunks "
+          f"(interleave {st.interleave_ratio:.2f}), "
+          f"{st.prefill_jit_misses} admission jit misses")
+    print(f"{kernel.__name__}: {launches} launches in the timed run; "
+          f"layers x (segment_len x segments + recurrent ingest chunks) = "
+          f"{stream_launches(cfg, st.to_dict(), engine.ingest)}"
+          + ("" if device.type == "cuda" else
+             " (CPU tensors run the plain versions: no launch)"))
+    if args.stats_json:
+        with open(args.stats_json, "w") as f:
+            f.write(st.to_json())
+        print(f"stats written to {args.stats_json}")
+    return {"tokens_per_s": total / dt, "seconds": dt,
+            "ms_per_segment": dt / max(st.segments, 1) * 1e3,
+            "slot_utilization": st.slot_utilization,
+            "mean_latency_steps": float(np.mean(lat)),
+            "tokens": total, "stats": st.to_dict(),
+            "warmup_stats": warmup_stats, "decode_launches": launches,
+            "completions": completions, "engine": engine}
 
 
 def lookup(args) -> Dict[str, Any]:
@@ -237,14 +377,14 @@ def lookup(args) -> Dict[str, Any]:
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--mode", default="generate",
-                    choices=["generate", "lookup"])
+                    choices=["generate", "stream", "lookup"])
     ap.add_argument("--arch", default="qwen3-0.6b")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--backend", default="linear",
                     choices=["linear", "gated_linear", "softmax"],
-                    help="generate mode: linear (paper §3), gated_linear"
-                         " (paper §4 decay) or softmax (the KV-cache "
-                         "baseline)")
+                    help="linear (paper §3), gated_linear (paper §4 "
+                         "decay) or softmax (the KV-cache baseline; "
+                         "generate mode only)")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=64)
     ap.add_argument("--gen-len", type=int, default=32)
@@ -259,7 +399,28 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--shed-policy", default="reject_new",
                     choices=["reject_new", "evict_lowest"])
     ap.add_argument("--stats-json", default=None, metavar="PATH",
-                    help="write the lookup stats to PATH as JSON")
+                    help="write the stream or lookup stats to PATH as "
+                         "JSON")
+    # stream mode (continuous batching)
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--segment-len", type=int, default=8)
+    ap.add_argument("--n-requests", type=int, default=16)
+    ap.add_argument("--arrival-rate", type=float, default=0.0,
+                    help="requests per decode step (0 = all at t=0)")
+    ap.add_argument("--admission", default="auto",
+                    choices=["auto", "batched", "per_request"],
+                    help="prompt ingestion: bucket-padded batched varlen"
+                         " prefill + chunked ingest (batched) vs prefill"
+                         " of each request alone (per_request)")
+    ap.add_argument("--prefill-chunk", type=int, default=64,
+                    help="max prompt tokens per ingest pass (rounded up to"
+                         " a power of two); longer prompts are chunked and"
+                         " interleaved with decode segments")
+    ap.add_argument("--ingest", default="auto",
+                    choices=["auto", "recurrent", "parallel"],
+                    help="continuation chunks through the recurrent decode"
+                         " kernel with per-row lengths (recurrent; auto) "
+                         "or the plain chunked prefill forms (parallel)")
     # lookup mode (memory serving)
     ap.add_argument("--n-docs", type=int, default=128,
                     help="lookup mode: memories to ingest")
@@ -293,6 +454,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     args = parse_args(argv)
     if args.mode == "lookup":
         lookup(args)
+    elif args.mode == "stream":
+        stream(args)
     else:
         generate(args)
     return 0

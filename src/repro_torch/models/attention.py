@@ -231,6 +231,13 @@ def _heads(q: Tensor, k: Tensor, v: Tensor, cfg: ModelConfig
     return qh, kh, vh
 
 
+def _valid_mask(lens, t: int, device) -> Tensor:
+    """(B, 1, T, 1) bool over the (B, H, T, D) heads: position < lens[b]."""
+    lens = torch.as_tensor(lens, device=device)
+    return (torch.arange(t, device=device)[None, :]
+            < lens[:, None])[:, None, :, None]
+
+
 def _decay(p: Params, x: Tensor, cfg: ModelConfig) -> Tensor:
     """Data-dependent log-decay g ≤ 0 (the paper's α_t = exp(g_t)), fp32:
     (B, H, T, Dk) in vector mode, (B, H, T, 1) in scalar mode."""
@@ -259,8 +266,17 @@ def attention_apply(
     *,
     want_state: bool = False,
     attention_kernel: bool = True,
+    varlen: Optional[Tensor] = None,
 ) -> Tuple[Tensor, Optional[AttnState]]:
     """Full-sequence attention. x: (B, T, D) → (B, T, D).
+
+    ``varlen``: (B,) per-row valid lengths of an END-padded batch
+    (bucket-padded batched prefill). For the linear family the
+    feature-mapped k and v are zeroed at pad positions and the gated
+    log-decay is 0 there, so pad positions add nothing to the state or
+    to z (then the masked key sum); under softmax causality already
+    keeps pad keys from valid queries. Outputs at pad positions are
+    garbage the caller ignores.
 
     ``want_state=True`` (prefill) also returns the decode state after the
     last position. Under softmax that is the KV cache, k and v as
@@ -283,6 +299,7 @@ def attention_apply(
     q, k, v = _project_qkv(p, x, cfg)
     if cfg.rope:
         q, k = _rope(q, k, torch.arange(t, device=x.device), cfg)
+    vmask = None if varlen is None else _valid_mask(varlen, t, x.device)
     if cfg.attention_backend == "softmax":
         if not want_state:
             raise NotImplementedError(
@@ -295,6 +312,9 @@ def attention_apply(
         return _merge_heads(p, o_h.reshape(b, h // hkv, hkv, t, dh),
                             x.dtype), state
     qh, kh, vh = _heads(q, k, v, cfg)
+    if vmask is not None:        # pad positions inert in the state sums
+        kh = torch.where(vmask, kh, 0).to(kh.dtype)
+        vh = torch.where(vmask, vh, 0).to(vh.dtype)
     if cfg.attention_backend == "linear" and want_state:
         o_h, s_f = causal_linear_attention_chunked(
             qh, kh, vh, chunk_size=cfg.linear_chunk,
@@ -306,8 +326,10 @@ def attention_apply(
             normalize=cfg.linear_normalize, kernel=attention_kernel)
         s_f = zf = None
     elif want_state:   # gated_linear prefill: chunked_gla clamps g
-        o_h, s_f = chunked_gla(qh, kh, vh, _decay(p, x, cfg),
-                               chunk_size=cfg.linear_chunk)
+        g = _decay(p, x, cfg)
+        if vmask is not None:    # pad positions must not decay the state
+            g = torch.where(vmask, g, 0.0)
+        o_h, s_f = chunked_gla(qh, kh, vh, g, chunk_size=cfg.linear_chunk)
         o_h = _groupnorm(p, o_h)
         zf = None
     else:   # gated_linear training: B8 / B9's recompute backward
@@ -378,6 +400,8 @@ def attention_decode(
     state: AttnState,
     pos: Tensor,
     cfg: ModelConfig,
+    *,
+    active: Optional[Tensor] = None,
 ) -> Tuple[Tensor, AttnState]:
     """One decode step. x: (B, D); pos: () shared position or (B,)
     per-sequence positions. The state is updated in place.
@@ -385,7 +409,14 @@ def attention_decode(
     softmax: writes the step's k and v into cache row ``pos`` of each
     sequence, then attends over rows < pos + 1 (``decode_attention``,
     plain PyTorch): O(pos) per head. The position stays on the device.
-    Linear family: O(k²) per head, independent of pos."""
+    Linear family: O(k²) per head, independent of pos.
+
+    ``active``: (B,) bool slot mask (continuous batching). An inactive
+    row keeps its state bit for bit. JAX runs the step and then selects
+    s and z; here the mask goes into the recurrence as per-row window
+    lengths ``lens = active`` (W = 1), so B1/B7 (and their plain
+    versions) leave a masked row's state untouched in place. Under
+    softmax the row-masked cache write is not ported (ROADMAP A.3)."""
     _require_ported(cfg)
     b, _ = x.shape
     pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
@@ -393,6 +424,11 @@ def attention_decode(
     if cfg.rope:
         q, k = _rope(q, k, pos.expand(b), cfg)
     if cfg.attention_backend == "softmax":
+        if active is not None:
+            raise NotImplementedError(
+                f"{cfg.name}: the slot-masked softmax decode (JAX gates "
+                f"its one written KV-cache row) is not ported; it comes "
+                f"with the KV-cache serving backend (ROADMAP A.3)")
         rows = torch.arange(b, device=x.device)
         cols = pos.expand(b).long()
         state.k_cache[rows, cols] = k[:, :, 0].to(state.k_cache.dtype)
@@ -401,7 +437,10 @@ def attention_decode(
                                 state.v_cache.transpose(1, 2), cols + 1)
         return _merge_heads(p, o[:, :, :, None], x.dtype)[:, 0], state
     qh, kh, vh = _heads(q, k, v, cfg)                  # (B, H, 1, Dh)
-    o_w, new_state = _recurrent(p, x[:, None, :], state, qh, kh, vh, cfg)
+    lens = (None if active is None else
+            torch.as_tensor(active, device=x.device).to(torch.int32))
+    o_w, new_state = _recurrent(p, x[:, None, :], state, qh, kh, vh, cfg,
+                                lens=lens)
     o = o_w.reshape(b, cfg.n_heads // cfg.n_kv_heads, cfg.n_kv_heads, 1,
                     cfg.head_dim)
     return _merge_heads(p, o, x.dtype)[:, 0], new_state
@@ -445,3 +484,59 @@ def attention_decode_window(
     o = o_w.reshape(b, cfg.n_heads // cfg.n_kv_heads, cfg.n_kv_heads, w,
                     cfg.head_dim)
     return _merge_heads(p, o, x.dtype), new_state
+
+
+def attention_ingest_window(
+    p: Params,
+    x: Tensor,
+    state: AttnState,
+    pos0: Tensor,
+    cfg: ModelConfig,
+    *,
+    lens: Tensor,
+) -> Tuple[Tensor, AttnState]:
+    """Chunk-parallel variable-length window (JAX
+    ``attention_ingest_window``): continue a partially encoded prefix
+    over up to W more known tokens per row, through the plain chunked
+    forms prefill uses (``causal_linear_attention_chunked``,
+    ``chunked_gla``) started from the carried state and key sum.
+
+    x: (B, W, D); pos0: (B,) per-row window starts; lens: (B,) valid
+    counts (0 = inert row). Masked positions add zero key and value
+    terms and log-decay 0, so an inert row's state comes back as it was.
+    The state is updated in place. Linear family only; outputs at
+    masked positions are garbage.
+    """
+    _require_ported(cfg)
+    if cfg.attention_backend == "softmax":
+        raise NotImplementedError(
+            f"{cfg.name}: ingest windows under softmax are not ported "
+            f"(ROADMAP A.3)")
+    b, w, _ = x.shape
+    lens = torch.as_tensor(lens, device=x.device).to(torch.int32).clamp(0, w)
+    q, k, v = _project_qkv(p, x, cfg)
+    if cfg.rope:
+        pos0 = torch.as_tensor(pos0, dtype=torch.int32,
+                               device=x.device).expand(b)
+        positions = pos0[:, None] + torch.arange(w, device=x.device)
+        q, k = _rope(q, k, positions, cfg)
+    qh, kh, vh = _heads(q, k, v, cfg)
+    vmask = _valid_mask(lens, w, x.device)
+    kh = torch.where(vmask, kh, 0).to(kh.dtype)
+    vh = torch.where(vmask, vh, 0).to(vh.dtype)
+    if cfg.attention_backend == "linear":
+        o_w, s_new = causal_linear_attention_chunked(
+            qh, kh, vh, chunk_size=cfg.linear_chunk,
+            initial_state=state.s, initial_z=state.z,
+            normalize=cfg.linear_normalize)
+        if cfg.linear_normalize:
+            state.z.copy_(state.z + kh.float().sum(dim=2))
+    else:
+        g = torch.where(vmask, _decay(p, x, cfg), 0.0)  # inert: exp(0) = 1
+        o_w, s_new = chunked_gla(qh, kh, vh, g, chunk_size=cfg.linear_chunk,
+                                 initial_state=state.s)
+        o_w = _groupnorm(p, o_w)
+    state.s.copy_(s_new)
+    o = o_w.reshape(b, cfg.n_heads // cfg.n_kv_heads, cfg.n_kv_heads, w,
+                    cfg.head_dim)
+    return _merge_heads(p, o, x.dtype), state

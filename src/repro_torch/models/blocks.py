@@ -55,24 +55,30 @@ def _mlp_residual(p: Params, x: Tensor, cfg: ModelConfig) -> Tensor:
 
 
 def block_apply(kind: str, p: Params, x: Tensor, cfg: ModelConfig, *,
-                want_state: bool = False, attention_kernel: bool = True
+                want_state: bool = False, attention_kernel: bool = True,
+                varlen: Optional[Tensor] = None
                 ) -> Tuple[Tensor, Optional[A.AttnState]]:
-    """x: (B, T, D) → (x, state_or_None)."""
+    """x: (B, T, D) → (x, state_or_None). ``varlen``: (B,) per-row valid
+    lengths of an END-padded batch (bucket-padded batched prefill)."""
     _require_attn(kind, cfg)
     h1 = L.apply_norm(cfg.norm, p["norm1"], x)
     att, st = A.attention_apply(p["attn"], h1, cfg, want_state=want_state,
-                                attention_kernel=attention_kernel)
+                                attention_kernel=attention_kernel,
+                                varlen=varlen)
     return _mlp_residual(p, x + att, cfg), st
 
 
 def block_decode(kind: str, p: Params, x: Tensor, state: A.AttnState,
-                 pos: Tensor, cfg: ModelConfig
+                 pos: Tensor, cfg: ModelConfig, *,
+                 active: Optional[Tensor] = None
                  ) -> Tuple[Tensor, A.AttnState]:
-    """x: (B, D) one token per sequence; pos: () or (B,). The state is
-    updated in place."""
+    """x: (B, D) one token per sequence; pos: () or (B,); ``active``:
+    (B,) bool slot mask, inactive rows keep their state bit for bit. The
+    state is updated in place."""
     _require_attn(kind, cfg)
     h1 = L.apply_norm(cfg.norm, p["norm1"], x)
-    att, st = A.attention_decode(p["attn"], h1, state, pos, cfg)
+    att, st = A.attention_decode(p["attn"], h1, state, pos, cfg,
+                                 active=active)
     return _mlp_residual(p, x + att, cfg), st
 
 
@@ -86,5 +92,22 @@ def block_decode_window(kind: str, p: Params, x: Tensor, state: A.AttnState,
     _require_attn(kind, cfg)
     h1 = L.apply_norm(cfg.norm, p["norm1"], x)
     att, st = A.attention_decode_window(p["attn"], h1, state, pos0, cfg,
+                                        lens=lens)
+    return _mlp_residual(p, x + att, cfg), st
+
+
+def block_ingest_window(kind: str, p: Params, x: Tensor, state: A.AttnState,
+                        pos0: Tensor, cfg: ModelConfig, *,
+                        lens: Optional[Tensor] = None
+                        ) -> Tuple[Tensor, A.AttnState]:
+    """Like :func:`block_decode_window`, but with ``lens`` the attention
+    continues its state through the chunk-parallel prefill forms
+    (``attention_ingest_window``) instead of the recurrence. The state
+    is updated in place."""
+    if lens is None:
+        return block_decode_window(kind, p, x, state, pos0, cfg)
+    _require_attn(kind, cfg)
+    h1 = L.apply_norm(cfg.norm, p["norm1"], x)
+    att, st = A.attention_ingest_window(p["attn"], h1, state, pos0, cfg,
                                         lens=lens)
     return _mlp_residual(p, x + att, cfg), st

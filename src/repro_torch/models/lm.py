@@ -1,6 +1,8 @@
 """Language model over a stack of ``attn`` blocks (port of
 ``repro/models/lm.py``: training forward and loss, prefill, decode and
-generation).
+generation, and the continuous-batching surface of the serving engine:
+bucket-padded varlen prefill, slot-masked segments, varlen windows and
+the per-slot state copies).
 
 Parameters and states keep the JAX package's tree: ``embed`` (V, D),
 ``stack`` — a tuple with one entry per ``layer_pattern`` position whose
@@ -154,11 +156,13 @@ def _head(params: Params, x: Tensor, cfg: ModelConfig) -> Tensor:
 
 
 def _trunk(params: Params, tokens: Tensor, cfg: ModelConfig,
-           want_state: bool, attention_kernel: bool = True
+           want_state: bool, attention_kernel: bool = True,
+           varlen: Optional[Tensor] = None
            ) -> Tuple[Tensor, Optional[State]]:
     """Embed + every block. Returns (hidden (B, T, D), states|None).
     Without states and with autograd on, ``cfg.remat == "unit"``
-    checkpoints each repeat of the pattern."""
+    checkpoints each repeat of the pattern. ``varlen``: (B,) per-row
+    valid lengths of an END-padded batch."""
     pattern, reps, tail = cfg.pattern_and_repeats
     x = params["embed"][tokens]
 
@@ -166,7 +170,8 @@ def _trunk(params: Params, tokens: Tensor, cfg: ModelConfig,
         states = []
         for kind, p in zip(pattern, unit_params):
             x, st = B.block_apply(kind, p, x, cfg, want_state=want_state,
-                                  attention_kernel=attention_kernel)
+                                  attention_kernel=attention_kernel,
+                                  varlen=varlen)
             states.append(st)
         return x, states
 
@@ -187,7 +192,8 @@ def _trunk(params: Params, tokens: Tensor, cfg: ModelConfig,
     for i, kind in enumerate(tail):
         x, st = B.block_apply(kind, params["tail"][i], x, cfg,
                               want_state=want_state,
-                              attention_kernel=attention_kernel)
+                              attention_kernel=attention_kernel,
+                              varlen=varlen)
         tail_states.append(st)
     if not want_state:
         return x, None
@@ -196,15 +202,19 @@ def _trunk(params: Params, tokens: Tensor, cfg: ModelConfig,
 
 
 def forward(params: Params, tokens: Tensor, cfg: ModelConfig, *,
-            want_state: bool = False, attention_kernel: bool = True
+            want_state: bool = False, attention_kernel: bool = True,
+            varlen: Optional[Tensor] = None
             ) -> Tuple[Tensor, Optional[State]]:
     """tokens: (B, T) int → (logits (B, T, V), states|None). Float
     matrices are cast to ``cfg.dtype`` once, outside the blocks, and
     gradients flow through the cast to the fp32 master parameters.
     ``attention_kernel=False`` runs the linear attention's plain versions
-    on CUDA tensors (the training slice's reference route)."""
+    on CUDA tensors (the training slice's reference route). ``varlen``:
+    (B,) per-row valid lengths of an END-padded batch; logits at pad
+    positions are garbage."""
     params = cast_params(params, dtype_of(cfg.dtype))
-    x, states = _trunk(params, tokens, cfg, want_state, attention_kernel)
+    x, states = _trunk(params, tokens, cfg, want_state, attention_kernel,
+                       varlen)
     return _head(params, x, cfg), states
 
 
@@ -255,6 +265,37 @@ def prefill(params: Params, tokens: Tensor, cfg: ModelConfig, *,
     return _head(params, x[:, -1], cfg), states
 
 
+def supports_varlen_prefill(cfg: ModelConfig) -> bool:
+    """True when every block kind masks pad positions under per-row
+    varlen prefill (attention blocks only)."""
+    pattern, _, tail = cfg.pattern_and_repeats
+    return set(pattern) | set(tail) <= {"attn", "shared_attn"}
+
+
+def _rows_at(x: Tensor, idx: Tensor) -> Tensor:
+    """x: (B, T, D), idx: (B,) → x[b, idx[b]] as (B, D)."""
+    return x[torch.arange(x.shape[0], device=x.device), idx.long()]
+
+
+def prefill_varlen(params: Params, tokens: Tensor, lens, cfg: ModelConfig,
+                   *, attention_kernel: bool = True) -> Tuple[Tensor, State]:
+    """Batched bucket-padded prefill: B prompts of different lengths in
+    one pass. tokens: (B, W), row b's prompt END-padded to W; lens: (B,)
+    true lengths (lens = 0 rows are dummies with zero linear states).
+    Pad positions add nothing to any state, so each row's state is that
+    of prefilling the row alone. Returns (logits at each row's last
+    valid position (B, V), decode states); the head runs on those rows
+    only, never on the (B, W, V) logits."""
+    if not supports_varlen_prefill(cfg):
+        raise ValueError(f"{cfg.name}: varlen prefill needs an "
+                         f"attention-only layer pattern")
+    lens = torch.as_tensor(lens, device=tokens.device).to(torch.int32)
+    params = cast_params(params, dtype_of(cfg.dtype))
+    x, states = _trunk(params, tokens, cfg, want_state=True,
+                       attention_kernel=attention_kernel, varlen=lens)
+    return _head(params, _rows_at(x, (lens - 1).clamp(min=0)), cfg), states
+
+
 # ---------------------------------------------------------------------------
 # decode
 # ---------------------------------------------------------------------------
@@ -275,14 +316,18 @@ def _decode_blocks(params: Params, state: State, x: Tensor, pos: Tensor,
 
 
 def decode_step(params: Params, state: State, token: Tensor, pos,
-                cfg: ModelConfig) -> Tuple[Tensor, State]:
+                cfg: ModelConfig, *, active: Optional[Tensor] = None
+                ) -> Tuple[Tensor, State]:
     """One autoregressive step. token: (B,) int; pos: () shared position
     or (B,) per-sequence positions. Returns (logits (B, V), state) with
     the state updated in place. O(k²) per layer for the linear family,
-    independent of pos; O(pos) for the softmax KV cache."""
+    independent of pos; O(pos) for the softmax KV cache. ``active``: (B,)
+    bool slot mask; inactive rows keep their state bit for bit (their
+    logits are garbage)."""
     params = cast_params(params, dtype_of(cfg.dtype))
     x = params["embed"][token].to(dtype_of(cfg.dtype))
-    x = _decode_blocks(params, state, x, pos, cfg, B.block_decode)
+    x = _decode_blocks(params, state, x, pos, cfg, B.block_decode,
+                       active=active)
     return _head(params, x, cfg), state
 
 
@@ -325,12 +370,149 @@ def generate(params: Params, state: State, tok0: Tensor, pos0: int,
     return torch.stack(toks, dim=1), state
 
 
+# ---------------------------------------------------------------------------
+# continuous batching: slot-masked segments and per-slot state copies
+# ---------------------------------------------------------------------------
+#
+# A whole-stack decode state is {"stack": …, "tail": …}: "stack" leaves
+# carry (R, S, …) and "tail" leaves (S, …), so the slot (batch) axis is 1
+# and 0 respectively. ``_SLOT_AXES`` is the one place that says so.
+_SLOT_AXES = (("stack", 1), ("tail", 0))
+
+
+def _slot_leaves(state: State):
+    """(leaf, slot axis) of every tensor of a whole-stack state, in a
+    fixed order."""
+    for part, axis in _SLOT_AXES:
+        for st in state[part]:
+            for x in st:
+                if x is not None:
+                    yield x, axis
+
+
+def _map_slots(fn, state: State) -> State:
+    """A new whole-stack state of ``fn(leaf, slot_axis)`` per leaf."""
+    def one(st, axis):
+        return AttnState(*(None if x is None else fn(x, axis) for x in st))
+    return {part: tuple(one(st, axis) for st in state[part])
+            for part, axis in _SLOT_AXES}
+
+
+def snapshot_state(state: State, slot: int) -> State:
+    """A batch-1 copy of slot ``slot`` of a stacked engine state, the
+    inverse of :func:`restore_state`. For the linear family it is the
+    paper's fixed-size representation: O(k²) per layer whatever the
+    slot's context."""
+    return _map_slots(lambda x, axis: x.narrow(axis, int(slot), 1).clone(),
+                      state)
+
+
+def restore_state(engine_state: State, snapshot: State, slot: int) -> State:
+    """Write a batch-1 whole-stack state into slot ``slot`` of the engine
+    state, in place; every other slot's rows stay bit for bit. Returns
+    the engine state."""
+    for (e, axis), (r, _) in zip(_slot_leaves(engine_state),
+                                 _slot_leaves(snapshot)):
+        e.narrow(axis, int(slot), 1).copy_(r)
+    return engine_state
+
+
+def write_slot_state(engine_state: State, request_state: State,
+                     slot: int) -> State:
+    """Admit a batch-1 request state into slot ``slot``: one O(k²) copy
+    per layer for the linear family, independent of how much context the
+    request consumed (alias of :func:`restore_state`)."""
+    return restore_state(engine_state, request_state, slot)
+
+
+def where_state(active, new: State, old: State) -> State:
+    """Per-slot merge, in place: the rows of ``new`` at the slots where
+    ``active`` (S,) is True are copied into ``old``; every other slot of
+    ``old`` stays bit for bit (JAX selects a new state; the port copies
+    only the chosen rows). The chosen slots are found once: a mask on
+    the host costs no device sync. Returns ``old``."""
+    idx = torch.nonzero(torch.as_tensor(active)).flatten()
+    if not idx.numel():
+        return old
+    on = {}                                  # the index on each device
+    for (n, axis), (o, _) in zip(_slot_leaves(new), _slot_leaves(old)):
+        if o.device not in on:
+            on[o.device] = idx.to(o.device)
+        i = on[o.device]
+        o.index_copy_(axis, i, n.index_select(axis, i))
+    return old
+
+
+def slot_state_finite(state: State) -> Tensor:
+    """(S,) bool: True where every float leaf of that slot is finite."""
+    out = None
+    for x, axis in _slot_leaves(state):
+        if not x.is_floating_point():
+            continue
+        m = x.movedim(axis, 0)
+        ok = torch.isfinite(m.reshape(m.shape[0], -1)).all(dim=-1)
+        out = ok if out is None else out & ok
+    return out
+
+
+def generate_segment(params: Params, state: State, tok: Tensor, pos: Tensor,
+                     active: Tensor, remaining: Tensor, n_steps: int,
+                     cfg: ModelConfig, *, eos_id: Optional[int] = None,
+                     temperature: float = 0.0,
+                     generator: Optional[torch.Generator] = None,
+                     pad_id: int = -1) -> Tuple[Tensor, Dict[str, Any]]:
+    """One continuous-batching segment: ``n_steps`` slot-masked decode
+    steps. Each slot carries its own lifecycle: tok (S,) its next input
+    token, pos (S,) its position, active (S,) whether it holds a live
+    request, remaining (S,) how many tokens it may still emit (this
+    step's included). A slot stops inside the segment when its budget
+    reaches zero or it emits ``eos_id``; stopped and empty slots emit
+    ``pad_id`` and keep their state bit for bit, so each slot's tokens
+    are those of its request run alone (greedy).
+
+    JAX runs the segment as one ``lax.scan``; here it is a Python loop
+    whose carry stays on the device, every stop decided by
+    ``torch.where``: nothing in it waits for the host. Every step
+    launches the decode kernel once per layer, the whole segment
+    through, whatever the slots do. Returns (tokens (S, n_steps),
+    carry) with carry = {"tok", "pos", "active", "remaining", "state"};
+    the state is updated in place."""
+    if temperature and temperature > 0.0 and generator is None:
+        raise ValueError("temperature sampling needs a torch.Generator")
+    params = cast_params(params, dtype_of(cfg.dtype))   # once, not per step
+    tok = tok.long()
+    pos = pos.to(torch.int32)
+    act = active.bool()
+    rem = remaining.to(torch.int32)
+    emitted = []
+    for _ in range(n_steps):
+        logits, state = decode_step(params, state, tok, pos, cfg, active=act)
+        nxt = sample_token(logits, temperature, generator)
+        emitted.append(torch.where(act, nxt, pad_id))
+        rem = torch.where(act, rem - 1, rem)
+        done = rem <= 0
+        if eos_id is not None:
+            done = done | (nxt == eos_id)
+        pos = torch.where(act, pos + 1, pos)
+        tok = torch.where(act, nxt, tok)
+        act = act & ~done
+    toks = (torch.stack(emitted, dim=1) if emitted
+            else tok.new_zeros((tok.shape[0], 0)))
+    return toks, {"tok": tok, "pos": pos, "active": act, "remaining": rem,
+                  "state": state}
+
+
 def _window_forward(params: Params, state: State, tokens: Tensor, pos0,
-                    cfg: ModelConfig, **block_kw) -> Tuple[Tensor, State]:
+                    cfg: ModelConfig, block_fn=B.block_decode_window, *,
+                    last: Optional[Tensor] = None, **block_kw
+                    ) -> Tuple[Tensor, State]:
+    """Embed, ``block_fn`` through every block, the head: on every
+    position, or with ``last`` (B,) on position last[b] of each row only."""
     params = cast_params(params, dtype_of(cfg.dtype))
     x = params["embed"][tokens].to(dtype_of(cfg.dtype))
-    x = _decode_blocks(params, state, x, pos0, cfg, B.block_decode_window,
-                       **block_kw)
+    x = _decode_blocks(params, state, x, pos0, cfg, block_fn, **block_kw)
+    if last is not None:
+        x = _rows_at(x, last)
     return _head(params, x, cfg), state
 
 
@@ -344,20 +526,44 @@ def decode_window(params: Params, state: State, tokens: Tensor, pos0,
     return _window_forward(params, state, tokens, pos0, cfg)
 
 
-def decode_window_varlen(params: Params, state: State, tokens: Tensor, pos0,
-                         lens, cfg: ModelConfig, *,
-                         active: Optional[Tensor] = None
-                         ) -> Tuple[Tensor, State]:
-    """Variable-length window: row b consumes tokens[b, :lens[b]] from
-    position pos0[b] (0 ≤ lens ≤ W); ``active`` False rows behave as
-    lens = 0. Masked rows and steps leave the state bit for bit as it was;
-    their logits are garbage. Returns (logits (B, W, V), state)."""
+def _varlen_args(tokens: Tensor, pos0, lens) -> Tuple[Tensor, Tensor]:
     b, w = tokens.shape
     pos0 = torch.as_tensor(pos0, dtype=torch.int32,
                            device=tokens.device).expand(b)
     lens = torch.as_tensor(lens, device=tokens.device).to(torch.int32)
-    lens = lens.clamp(0, w)
+    return pos0, lens.clamp(0, w)
+
+
+def decode_window_varlen(params: Params, state: State, tokens: Tensor, pos0,
+                         lens, cfg: ModelConfig, *,
+                         active: Optional[Tensor] = None,
+                         last_only: bool = False) -> Tuple[Tensor, State]:
+    """Variable-length window: row b consumes tokens[b, :lens[b]] from
+    position pos0[b] (0 ≤ lens ≤ W) through the recurrence (B1/B7 on
+    CUDA tensors, one launch per layer); ``active`` False rows behave as
+    lens = 0. Masked rows and steps leave the state bit for bit as it was;
+    their logits are garbage. Returns (logits (B, W, V), state), or with
+    ``last_only`` each row's logits after its last valid token, (B, V),
+    the head run on those rows only."""
+    pos0, lens = _varlen_args(tokens, pos0, lens)
     if active is not None:
         lens = torch.where(torch.as_tensor(active, device=tokens.device),
                            lens, 0)
-    return _window_forward(params, state, tokens, pos0, cfg, lens=lens)
+    last = (lens - 1).clamp(min=0) if last_only else None
+    return _window_forward(params, state, tokens, pos0, cfg, last=last,
+                           lens=lens)
+
+
+def ingest_window_varlen(params: Params, state: State, tokens: Tensor, pos0,
+                         lens, cfg: ModelConfig, *, last_only: bool = False
+                         ) -> Tuple[Tensor, State]:
+    """Chunk-parallel sibling of :func:`decode_window_varlen` for prompt
+    ingestion (same arguments and row masking): the linear family
+    continues each row's state through the plain chunked prefill forms
+    from the carried state and key sum, at prefill cost rather than W
+    recurrent steps. Returns (logits (B, W, V), state), or (B, V) with
+    ``last_only``; the state is updated in place."""
+    pos0, lens = _varlen_args(tokens, pos0, lens)
+    last = (lens - 1).clamp(min=0) if last_only else None
+    return _window_forward(params, state, tokens, pos0, cfg,
+                           B.block_ingest_window, last=last, lens=lens)

@@ -1,0 +1,18 @@
+"""DecodeBackend registry (port of ``repro/serving/backends/__init__.py``):
+the seam between the engine's scheduling and a family's state layout.
+
+Importing this package registers the ported backends; dispatch goes
+through :func:`backend_for_config`. Only ``FixedStateBackend`` (the
+linear and gated-linear families) is ported; the softmax KV-cache,
+Mamba-2 and RWKV-6 backends are not (ROADMAP A.3, A.4).
+"""
+
+from repro_torch.serving.backends.base import (  # noqa: F401
+    DecodeBackend,
+    backend_for_config,
+    register_backend,
+)
+# concrete backends (import = register)
+from repro_torch.serving.backends.fixed_state import (  # noqa: F401
+    FixedStateBackend,
+)

@@ -1,0 +1,185 @@
+"""The DecodeBackend seam (port of ``repro/serving/backends/base.py``):
+engine scheduling against a family's state layout.
+
+A :class:`DecodeBackend` holds everything the scheduler asks of a
+family:
+
+* **state ops** — ``init_slots``, ``prefill`` / ``prefill_varlen``,
+  ``decode_window_varlen`` / ``ingest_window_varlen``,
+  ``generate_segment``, ``sample_token``, ``restore_state`` /
+  ``write_slot_state`` and ``where_state`` — all of them
+  ``models/lm.py``'s, which update states in place (the engine core's
+  calls; JAX's speculation, lifecycle and softmax ops come with those
+  features);
+* **capability flags** — ``fixed_size_state`` (admission moves O(k²)
+  bytes, never a KV history), ``supports_varlen_prefill`` (bucket-padded
+  batched admission), and ``state_bytes_per_slot(max_len)``, read from
+  the shapes of a state built on the ``meta`` device (nothing is
+  allocated; JAX uses ``eval_shape``).
+
+``resolve_modes`` is the one place the engine's ``admission`` and
+``ingest`` "auto" settings are decided. ``backend_for_config`` walks the
+registry by priority; the first backend whose ``handles(cfg)`` is True
+wins. The softmax KV-cache backend is not ported: a softmax config
+raises NotImplementedError naming ROADMAP A.3.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple, Type
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import lm
+
+ATTN_KINDS = ("attn", "shared_attn", "cross")
+ADMISSIONS = ("auto", "batched", "per_request")
+INGESTS = ("auto", "parallel", "recurrent")
+
+
+def _pattern_kinds(cfg: ModelConfig) -> frozenset:
+    pattern, _, tail = cfg.pattern_and_repeats
+    return frozenset(pattern) | frozenset(tail)
+
+
+class DecodeBackend:
+    """Base backend: every state op goes to ``models/lm.py``. Subclasses
+    pin the family (``name``), claim configs (``handles``) and check
+    family invariants (``_validate``). Capabilities are instance
+    attributes: they depend on the config."""
+
+    name: str = "base"
+    # dispatch priority for backend_for_config (lower = checked first)
+    priority: int = 50
+
+    def __init__(self, cfg: ModelConfig):
+        self.cfg = cfg
+        self.fixed_size_state = cfg.fixed_state_decode
+        self.supports_varlen_prefill = lm.supports_varlen_prefill(cfg)
+        self._validate(cfg)
+
+    # -- registry hooks ------------------------------------------------
+
+    @classmethod
+    def handles(cls, cfg: ModelConfig) -> bool:
+        raise NotImplementedError
+
+    def _validate(self, cfg: ModelConfig) -> None:
+        """Family-specific config invariants (raise early)."""
+
+    # -- mode resolution -----------------------------------------------
+
+    def resolve_modes(self, admission: str, ingest: str) -> Tuple[str, str]:
+        """Resolve the engine's ``admission`` and ``ingest`` settings
+        against this backend's capabilities. ``ingest="auto"`` is
+        ``"recurrent"``: JAX picks the chunk-parallel continuation on a
+        TPU only, and the masked recurrent window (B1/B7 here) on any
+        other backend."""
+        if admission not in ADMISSIONS:
+            raise ValueError(f"admission must be one of {ADMISSIONS}, got "
+                             f"{admission!r}")
+        if ingest not in INGESTS:
+            raise ValueError(f"ingest must be one of {INGESTS}, got "
+                             f"{ingest!r}")
+        if admission == "auto":
+            admission = ("batched" if self.supports_varlen_prefill
+                         else "per_request")
+        if admission == "batched" and not self.supports_varlen_prefill:
+            raise ValueError(
+                f"admission='batched' unsupported by backend {self.name!r}:"
+                f" missing capability supports_varlen_prefill (varlen "
+                f"prefill masking needs an attention-only layer pattern; "
+                f"got {sorted(_pattern_kinds(self.cfg))})")
+        if ingest == "auto":
+            ingest = "recurrent"
+        return admission, ingest
+
+    # -- sizing --------------------------------------------------------
+
+    def state_bytes_per_slot(self, max_len: int) -> int:
+        """Bytes one slot's decode state occupies at ``max_len``: the
+        admission copy's cost. Read from a state built on the ``meta``
+        device, which allocates nothing. Constant in ``max_len`` iff
+        ``fixed_size_state``."""
+        st = lm.init_decode_state(self.cfg, 1, max_len=max_len,
+                                  device="meta")
+        return lm.state_bytes(st)
+
+    # -- state ops -----------------------------------------------------
+
+    def init_slots(self, batch: int, max_len: int,
+                   device: Optional[torch.device] = None) -> Any:
+        return lm.init_decode_state(self.cfg, batch, max_len=max_len,
+                                    device=device)
+
+    def prefill(self, params, tokens):
+        return lm.prefill(params, tokens, self.cfg)
+
+    def prefill_varlen(self, params, tokens, lens):
+        return lm.prefill_varlen(params, tokens, lens, self.cfg)
+
+    def decode_window_varlen(self, params, state, tokens, pos0, lens, *,
+                             active=None, last_only=False):
+        return lm.decode_window_varlen(params, state, tokens, pos0, lens,
+                                       self.cfg, active=active,
+                                       last_only=last_only)
+
+    def ingest_window_varlen(self, params, state, tokens, pos0, lens, *,
+                             last_only=False):
+        return lm.ingest_window_varlen(params, state, tokens, pos0, lens,
+                                       self.cfg, last_only=last_only)
+
+    def generate_segment(self, params, state, tok, pos, active, remaining,
+                         n_steps, *, eos_id=None, temperature=0.0,
+                         generator=None, pad_id=-1):
+        return lm.generate_segment(
+            params, state, tok, pos, active, remaining, n_steps, self.cfg,
+            eos_id=eos_id, temperature=temperature, generator=generator,
+            pad_id=pad_id)
+
+    def sample_token(self, logits, temperature, generator=None):
+        return lm.sample_token(logits, temperature, generator)
+
+    def restore_state(self, engine_state, snapshot, slot):
+        return lm.restore_state(engine_state, snapshot, slot)
+
+    def write_slot_state(self, engine_state, snapshot, slot):
+        return lm.write_slot_state(engine_state, snapshot, slot)
+
+    def where_state(self, active, new, old):
+        return lm.where_state(active, new, old)
+
+
+# ---------------------------------------------------------------------------
+# registry
+# ---------------------------------------------------------------------------
+
+_BACKENDS: Dict[str, Type[DecodeBackend]] = {}
+
+
+def register_backend(cls: Type[DecodeBackend]) -> Type[DecodeBackend]:
+    """Class decorator: add a backend to the registry. Dispatch walks
+    backends by ``priority`` (then name), so import order never decides
+    who claims a config."""
+    if cls.name in _BACKENDS:
+        raise ValueError(f"duplicate backend {cls.name!r}")
+    _BACKENDS[cls.name] = cls
+    return cls
+
+
+def backend_for_config(cfg: ModelConfig) -> DecodeBackend:
+    """The first registered backend, by priority, that claims ``cfg``."""
+    if cfg.attention_backend == "softmax":
+        raise NotImplementedError(
+            f"{cfg.name}: the softmax KV-cache serving backend "
+            f"(serving/backends/softmax_kv.py) is not ported (ROADMAP A.3)")
+    for cls in sorted(_BACKENDS.values(),
+                      key=lambda c: (c.priority, c.name)):
+        if cls.handles(cfg):
+            return cls(cfg)
+    raise ValueError(
+        f"no registered backend handles config {cfg.name!r} "
+        f"(pattern kinds {sorted(_pattern_kinds(cfg))}, "
+        f"attention_backend={cfg.attention_backend!r}); "
+        f"registered: {list(_BACKENDS)}")

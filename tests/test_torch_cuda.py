@@ -1198,3 +1198,57 @@ def test_softmax_slice_through_kernel_matches_plain_route(dev):
                                atol=1e-4)
     for a, b in zip(out[True][2:], out[False][2:]):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+# (ingest chunk, max_len, prompt lengths, budgets): chunks of 8, and the
+# stream path's 64 with prompts beyond it (continuation chunks 64 wide)
+ENGINE_WORKLOADS = {
+    "chunk8": (8, 96, (6, 8, 21, 1, 40, 8, 7, 5), (5, 12, 1, 9, 7, 6, 4, 8)),
+    "chunk64": (64, 256, (130, 200, 1, 64, 192, 70, 9),
+                (5, 4, 6, 1, 7, 3, 8)),
+}
+
+
+@pytest.mark.parametrize("backend", ["linear", "gated_linear"])
+@pytest.mark.parametrize("ingest", ["recurrent", "parallel"])
+@pytest.mark.parametrize("workload", sorted(ENGINE_WORKLOADS))
+def test_engine_through_kernels_matches_reference_engine(dev, backend,
+                                                         ingest, workload):
+    """DecodeEngine at the smoke size, fp32: decode (per-slot masks) and
+    recurrent ingest (per-row lengths, chunks up to 64 wide) through
+    B1/B7 against the same engine under decode_kernel="reference":
+    completions token for token and the stats identical; the kernel
+    launched once per layer and segment step (and recurrent ingest
+    chunk), never on the reference route."""
+    from repro_torch.serving import DecodeEngine
+    kernel = {"linear": ops.decode_linear,
+              "gated_linear": ops.decode_gated}[backend]
+    cfg = dataclasses.replace(
+        get_smoke_config("qwen3-0.6b").with_backend(backend), dtype="float32")
+    params = lm.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    chunk, max_len, prompt_lens, gens = ENGINE_WORKLOADS[workload]
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+               for n in prompt_lens]
+    runs = {}
+    for route in ("auto", "reference"):
+        eng = DecodeEngine(params, dataclasses.replace(cfg,
+                                                       decode_kernel=route),
+                           n_slots=3, segment_len=4, max_len=max_len,
+                           prefill_chunk=chunk, ingest=ingest)
+        for p, g in zip(prompts, gens):
+            eng.submit(p, g)
+        before = kernel.launches
+        comps = eng.run()
+        st = eng.stats.to_dict()
+        runs[route] = (comps, st, kernel.launches - before)
+    (comps, st, n), (ref, ref_st, n_ref) = runs["auto"], runs["reference"]
+    assert st == ref_st
+    assert st["ingest_chunks"] > 0 and st["segments"] > 0
+    chunks = st["ingest_chunks"] if ingest == "recurrent" else 0
+    assert n == cfg.n_layers * (st["segment_len"] * st["segments"] + chunks)
+    assert n_ref == 0
+    for a, b in zip(comps, ref):
+        assert (a.uid, a.finish_reason, a.admitted_step, a.finished_step) \
+            == (b.uid, b.finish_reason, b.admitted_step, b.finished_step)
+        np.testing.assert_array_equal(a.tokens, b.tokens)
