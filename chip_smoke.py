@@ -27,7 +27,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    tiles of 4, K % 4 == 2) and odd K direct, and rows outside the store
    NaN; B6 on both routes, its state bit for bit, at the paper's width,
    the LM's 128 × 128, 256 × 256 (direct), rows of 200 bytes (bulk) and
-   an odd Dk·Dv (direct)).
+   an odd Dk·Dv (direct)); B10's lse route (the softmax training
+   forward) at every check, the training path's T = S = 1024 included,
+   its o bit for bit the null-lse route's and
+   its log-sum-exp against the plain version's (fp32 1e-5, bf16 1e-4,
+   relative to max(1, |lse|)), also through the wrapper's padding.
 3. The serving slice on the card: a 2-layer model at qwen3-0.6b's full
    widths in fp32, prefill + 16 greedy steps through the kernel against
    the same run through ``decode_kernel="reference"``.
@@ -90,10 +94,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    prefill), the KV cache's size, a profile of a few decode steps and of
    one prefill, and B10 timed beside its bounds, its plain version and
    ``scaled_dot_product_attention`` at the prefill's shape (K/V of 8 kv
-   heads) and with K/V of 16 heads.
+   heads) and with K/V of 16 heads, and with its lse.
 
 15. The engine slice (continuous batching, ``DecodeEngine``): 2 layers at
-   qwen3-0.6b's full widths in fp32, linear and then gated, 4 slots,
+   qwen3-0.6b's full widths in fp32, linear, gated and softmax, 4 slots,
    segments of 4 steps; ingest chunks of 8 with prompts of 1 to 40
    tokens and one request of a single token, then chunks of 64 (the
    stream path's) with prompts of up to 200 tokens, whose continuation
@@ -103,18 +107,35 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    token for token and the stats identical; each request run alone
    (``lm.prefill`` + ``lm.generate``) gives the same tokens; B1/B7
    launched layers x (segment_len x segments + ingest chunks) times and
-   no other kernel.
+   no other kernel. Softmax: admission waves through B10 against the
+   engine with B10's plain version in every prefill, B10 launched
+   layers x (waves + 1-token prefills) times, per-step ingest and gated
+   cache rows in plain PyTorch.
 16. The stream main path: ``repro_torch.launch.serve --mode stream`` on
    the full 28-layer qwen3-0.6b in bf16 (random weights from seed 0),
-   linear and then gated: 8 slots, segments of 8, 32 requests of 512
-   prompt tokens (7 continuation chunks of 64 each) and 8 or 64
+   linear, gated and softmax: 8 slots, segments of 8, 32 requests of 512
+   prompt tokens (7 continuation chunks of 64 each; softmax admits each
+   prompt whole, ``--prefill-chunk 512``, through B10) and 8 or 64
    generated tokens, 0.25 arrivals per decode step; tokens/s, ms per
-   segment, slot utilisation, mean latency, the admission stats, B1/B7
-   launches against the formula above, every request complete, and a
-   profile of two decode steps of a segment (device busy share).
+   segment, slot utilisation, mean latency, the admission stats, the
+   launches against the formula above, the decode state's MiB beside the
+   linear state's, every request complete, and a profile of two decode
+   steps of a segment (device busy share).
+17. The softmax training slice as phase 9: 2 layers at full width, B10
+   (with its lse) forward and the plain blockwise flash backward against
+   ``attention_kernel=False``, in fp32 (loss, every gradient leaf, one
+   AdamW step) and in bf16 compute (loss and every leaf).
+18. The softmax training main path as phase 10: ``launch/train.py
+   --backend softmax``, batch 8 x seq 1,024, 8 steps; B10 launches per
+   step (forward and remat recompute: 56), a profile of one step by
+   kind, and the plain flash backward timed alone (its share of the
+   step).
+19. The retrieve main path: ``serve --mode retrieve --batch 4096`` at the
+   paper's width (k = 100, n = 750): queries/s, the store's MiB against
+   the raw hidden states', 256 sampled answers against Hᵀ(Hq) in fp64.
 
-Each main path (phases 4, 6, 8, 10, 12, 14 and 16) is driven with every
-kernel's launch count set to 0 just before it and read just after.
+Each main path (phases 4, 6, 8, 10, 12, 14, 16, 18 and 19) is driven with
+every kernel's launch count set to 0 just before it and read just after.
 
 The last line is {"ok": true, "device": {...}}; the line before it the
 kernels' JSON record; before that the card's name and power limit.
@@ -1315,7 +1336,10 @@ def check_flash_attention(bh, t, s, d, dtype, gen, dev, t_off=None,
     bf16 it rounds the scores to bf16 before the softmax, which moves a
     logit by up to 2^-9 of the raw score, as far from the exact function
     as the tolerance; its own distance from the plain version is printed.
-    Returns the largest |Δo| against the plain version."""
+    The lse route (``want_lse``, the softmax training forward): its o
+    bit for bit the null-lse route's, its lse against the plain
+    version's at LSE_TOL. Returns the largest |Δo| against the plain
+    version."""
     import torch
     from repro_torch.kernels.flash_attention import ops as FA
     from repro_torch.kernels.flash_attention import ref as FR
@@ -1323,9 +1347,19 @@ def check_flash_attention(bh, t, s, d, dtype, gen, dev, t_off=None,
     q, k, v = (torch.randn((n_r, n, d), generator=gen, device=dev).to(dtype)
                for n_r, n in ((bh, t), (kv_rows, s), (kv_rows, s)))
     o = FA.fwd(q, k, v, t_off=t_off, s_real=s_real, kv_heads=kv_heads)
+    o_l, lse = FA.fwd(q, k, v, t_off=t_off, s_real=s_real,
+                      kv_heads=kv_heads, want_lse=True)
     torch.cuda.synchronize()
-    o_r = FA.fwd(q, k, v, t_off=t_off, s_real=s_real, kv_heads=kv_heads,
-                 kernel=False)
+    o_r, lse_r = FA.fwd(q, k, v, t_off=t_off, s_real=s_real,
+                        kv_heads=kv_heads, kernel=False, want_lse=True)
+    if not torch.equal(o, o_l):
+        raise AssertionError(f"flash_attention_fwd: the lse route's o "
+                             f"differs from the null-lse route's")
+    lse_tol = LSE_TOL[str(dtype).split(".")[-1]]
+    lse_err = ((lse - lse_r).abs() / lse_r.abs().clamp(min=1.0)).max().item()
+    if not lse_err <= lse_tol:
+        raise AssertionError(f"flash_attention_fwd: lse {lse_err:.3e} from "
+                             f"the plain version's, limit {lse_tol}")
     name = str(dtype).split(".")[-1]
     tag = (f"rows={bh} kv_rows={kv_rows} T={t} S={s} D={d} {name} t_off="
            f"{s - t if t_off is None else t_off} s_real="
@@ -1358,8 +1392,15 @@ def check_flash_attention(bh, t, s, d, dtype, gen, dev, t_off=None,
         errs.append(f"{(o.float() - want.float()).abs().max().item():.3e} "
                     f"against the {what}")
     print(f"  flash_attention_fwd {tag}: max|Δo| " + ", ".join(errs)
-          + tag_bf16)
+          + tag_bf16 + f"; lse route: o bitwise, lse within {lse_err:.3e}"
+          f" (relative, limit {lse_tol})")
     return (o.float() - o_r.float()).abs().max().item()
+
+
+# B10's log-sum-exp against its plain version's, relative to max(1, |lse|):
+# fp32, the same fp32 sums in another order; bf16, the same scores from
+# bf16 inputs through ex2.approx
+LSE_TOL = {"float32": 1e-5, "bfloat16": 1e-4}
 
 
 def check_flash_wrapper(b, h, hkv, t, s, dtype, gen, dev) -> None:
@@ -1371,22 +1412,32 @@ def check_flash_wrapper(b, h, hkv, t, s, dtype, gen, dev) -> None:
     q, k, v = (torch.randn((b, n_h, n, 128), generator=gen, device=dev).to(
         dtype) for n_h, n in ((h, t), (hkv, s), (hkv, s)))
     o = FA.flash_attention(q, k, v)
-    o_r = FA.flash_attention(q, k, v, kernel=False)
+    o_l, lse = FA.flash_attention(q, k, v, want_lse=True)
+    o_r, lse_r = FA.flash_attention(q, k, v, kernel=False, want_lse=True)
     torch.cuda.synchronize()
+    name = str(dtype).split('.')[-1]
     tol = 1e-5 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(o.float(), o_r.float(), rtol=tol, atol=tol)
+    if not torch.equal(o, o_l) or lse.shape != (b, h, t):
+        raise AssertionError(f"flash_attention wrapper: lse route o or lse "
+                             f"{tuple(lse.shape)} wrong")
+    torch.testing.assert_close(lse, lse_r, rtol=LSE_TOL[name],
+                               atol=LSE_TOL[name])
     print(f"  flash_attention wrapper B={b} H={h} Hkv={hkv} T={t} S={s} "
-          f"D=128 {str(dtype).split('.')[-1]}: max|Δo|="
+          f"D=128 {name}: max|Δo|="
           f"{(o.float() - o_r.float()).abs().max().item():.3e} against "
-          f"kernel=False")
+          f"kernel=False; lse (sliced from the padded rows) max|Δ|="
+          f"{(lse - lse_r).abs().max().item():.3e}")
 
 
 def time_flash_attention(b, h, hkv, t, d, gen, dev, n_bufs=4) -> dict:
     """B10 at the prefill main path's shape (B·H q rows over B·Hkv kv
-    rows, T = S, bf16, causal, t_off 0), its plain version, and the
-    library call ``scaled_dot_product_attention(is_causal=True,
-    enable_gqa=True)`` on the same inputs, from CUDA-graph replays over
-    ``n_bufs`` input sets (beyond the 50 MB L2). SDPA's grouped heads map
+    rows, T = S, bf16, causal, t_off 0), with the lse (the training
+    forward's route, ``lse_ms``, bound with the lse's bytes
+    ``lse_bound_ms``), its plain version, and the library call
+    ``scaled_dot_product_attention(is_causal=True, enable_gqa=True)`` on
+    the same inputs, from CUDA-graph replays over ``n_bufs`` input sets
+    (beyond the 50 MB L2). SDPA's grouped heads map
     q head h to kv head h // G where B10's map it to h mod Hkv, so SDPA
     gets q's heads permuted to (Hkv, G) order and its output is permuted
     back before the comparison. Bounds: q, o and k, v once over the
@@ -1410,9 +1461,15 @@ def time_flash_attention(b, h, hkv, t, d, gen, dev, n_bufs=4) -> dict:
     lib_err = (o.float() - lib.float()).abs().max()
     flops = b * h * (t * (t + 1) // 2) * 4 * d
     n_bytes = 2 * sets[0][0].nbytes + 2 * sets[0][1].nbytes   # q, o, k, v
+    lse_bytes = b * h * t * 4                     # the fp32 lse written too
     out = dict(
         ms=graph_ms(lambda i: FA.fwd(*rows[i % n_bufs], kv_heads=hkv),
                     2 * n_bufs, replays=5),
+        lse_ms=graph_ms(lambda i: FA.fwd(*rows[i % n_bufs], kv_heads=hkv,
+                                         want_lse=True),
+                        2 * n_bufs, replays=5),
+        lse_bound_ms=bound(n_bytes + lse_bytes, flops,
+                           PEAK_BF16_TC_FLOPS)["bound_ms"],
         plain_ms=graph_ms(lambda i: FA.fwd(*rows[i % n_bufs], kv_heads=hkv,
                                            kernel=False), 2, replays=3),
         library_ms=graph_ms(lambda i: F.scaled_dot_product_attention(
@@ -1668,7 +1725,11 @@ TRAIN_KERNELS = {
                      "decay_sweep",
                      ("decay_sweep_fwd_tc (bf16 tensor cores)",
                       "decay_sweep_dq_tc (bf16 tensor cores)",
-                      "decay_sweep_dkv_tc (bf16 tensor cores)"))}
+                      "decay_sweep_dkv_tc (bf16 tensor cores)")),
+    # one kernel: B10's forward with the lse; the backward is plain
+    "softmax": (("flash_attention_fwd",), ("B10",),
+                "flash_attention/kernel.py", (61,), "flash_fwd",
+                ("flash_fwd_tc (bf16 tensor cores)",))}
 
 
 def slice_model(backend, dtype, dev):
@@ -1859,6 +1920,7 @@ def profile_train_step(loop, batch, kernel) -> dict:
 # kernel names by kind, first match wins
 TRAIN_KINDS = (("B2/B3", ("sweep_kernel", "linear_sweep")),
                ("B8/B9", ("decay_sweep",)),
+               ("B10", ("flash_fwd",)),
                ("matmul", ("gemm", "nvjet", "cutlass", "xmma", "cublas")),
                ("cumsum", ("scan",)),
                ("reduction", ("reduce_kernel",)),
@@ -1866,13 +1928,48 @@ TRAIN_KINDS = (("B2/B3", ("sweep_kernel", "linear_sweep")),
                ("elementwise", ("elementwise",)))
 
 
+def time_flash_backward(b, cfg, t, gen, dev, calls=5) -> float:
+    """Device ms of one call of the softmax training's plain backward
+    (``xla_attention._flash_bwd``) at (B, H, T, D) q over Hkv kv heads,
+    bf16, the model's block: CUDA events around ``calls`` calls after a
+    warm-up (the calls are large enough that the host keeps ahead)."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as FA
+    from repro_torch.models import xla_attention as XA
+    h, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q, do = (torch.randn((b, h, t, d), generator=gen, device=dev).bfloat16()
+             for _ in range(2))
+    k, v = (torch.randn((b, hkv, t, d), generator=gen, device=dev)
+            .bfloat16() for _ in range(2))
+    o, lse = FA.flash_attention(q, k, v, t_off=0, want_lse=True)
+
+    def call():
+        return XA._flash_bwd(q, k, v, o, lse, do, scale=d ** -0.5,
+                             block=cfg.attn_block_q, off=0)
+    call()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        call()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / calls
+    del q, do, k, v, o, lse
+    torch.cuda.empty_cache()
+    return ms
+
+
 def training_main_path(backend, dev, gen, phase) -> list:
-    """Phases 10 and 12: ``launch/train.py``'s ``build`` and ``TrainLoop``
-    on the full qwen3-0.6b under ``backend``, batch 8 x seq 1,024, 8 steps
-    (2 warm-up, 6 timed), lr 3e-4 with warmup 20; every kernel's launch
-    count set to 0 just before and read just after. Returns the
-    backend's attention kernels' records for the kernels line (without
-    ``max_abs_err``)."""
+    """Phases 10, 12 and 18: ``launch/train.py``'s ``build`` and
+    ``TrainLoop`` on the full qwen3-0.6b under ``backend``, batch 8 x seq
+    1,024, 8 steps (2 warm-up, 6 timed), lr 3e-4 with warmup 20; every
+    kernel's launch count set to 0 just before and read just after.
+    Returns the backend's attention kernels' records for the kernels
+    line (without ``max_abs_err``). Softmax (phase 18) returns B10's
+    launches instead (its record is phase 14's) and times the plain
+    flash backward alone at the step's shape."""
     import math
     import torch
     from repro_torch.launch import train
@@ -1888,8 +1985,8 @@ def training_main_path(backend, dev, gen, phase) -> list:
     n_params = lm.param_count(loop.params)
     # JAX's eval_shape counts; gated adds the decay projection and the
     # groupnorm
-    want_params = {"linear": 596_049_920, "gated_linear": 654_942_208}[
-        backend]
+    want_params = {"linear": 596_049_920, "gated_linear": 654_942_208,
+                   "softmax": 596_049_920}[backend]
     if n_params != want_params:
         raise AssertionError(f"phase {phase}: {n_params} parameters, want "
                              f"{want_params}")
@@ -1919,14 +2016,29 @@ def training_main_path(backend, dev, gen, phase) -> list:
     print(f"  losses {[round(x, 4) for x in losses]}; grad_norm "
           f"{[round(m['grad_norm'], 4) for m in out['metrics']]}")
     print(f"  launches per step: {ids[0]} {got[names[0]] // steps} "
-          f"(forward + remat recompute), {ids[1]} {got[names[1]] // steps}, "
-          f"{ids[2]} {got[names[2]] // steps}")
+          f"(forward + remat recompute)" + "".join(
+              f", {i} {got[n] // steps}" for i, n in zip(ids[1:], names[1:])))
     batch = loop.put_batch(loop.dataset.batch_at(steps))
     prof = profile_train_step(loop, batch, kernel)
     if prof["busy"] is not None:
         print(f"  device busy {100 * prof['busy']:.1f}% of a profiled step; "
               f"{prof['device_ms']:.3f} ms device time against "
               f"{ms:.3f} ms per step unprofiled")
+    if backend == "softmax":
+        del loop, out, batch
+        torch.cuda.empty_cache()
+        bwd_ms = time_flash_backward(args.batch, cfg, args.seq_len, gen, dev)
+        per_step = cfg.n_layers * bwd_ms
+        share = (f"{100 * per_step / prof['device_ms']:.1f}% of the "
+                 f"profiled step's {prof['device_ms']:.3f} ms device time"
+                 if prof["busy"] is not None else "not measured")
+        print(f"  the plain flash backward (JAX's _flash_bwd in PyTorch: "
+              f"blocks of {cfg.attn_block_q}, 3 causal pairs) alone at "
+              f"B={args.batch} H={cfg.n_heads} Hkv={cfg.n_kv_heads} "
+              f"T={args.seq_len} D={cfg.head_dim} bf16: {bwd_ms:.3f} ms a "
+              f"layer (CUDA events, 5 calls), {per_step:.3f} ms a step for "
+              f"{cfg.n_layers} layers: {share}")
+        return launches[names[0]]
     if backend == "gated_linear":
         # B9's bf16 route forms dg inside its dk/dv launch: the step runs
         # no flip or cumulative-sum kernel (the eager epilogue it
@@ -2131,7 +2243,9 @@ def softmax_generate_main_path(dev, gen, phase) -> dict:
                                           gen, dev)
         print(f"{name} rows={args.batch * full.n_heads} kv_rows="
               f"{args.batch * hkv} T=S={args.prompt_len} D={full.head_dim} "
-              f"bf16 causal: {r['ms'] * 1e3:.2f} us/launch (plain version "
+              f"bf16 causal: {r['ms'] * 1e3:.2f} us/launch, with the lse "
+              f"{r['lse_ms'] * 1e3:.2f} us (bound {r['lse_bound_ms'] * 1e3:.2f}"
+              f" us with its bytes) (plain version "
               f"{r['plain_ms'] * 1e3:.2f} us; library call "
               f"scaled_dot_product_attention(is_causal=True, enable_gqa="
               f"True) {r['library_ms'] * 1e3:.2f} us, max|Δ| against the "
@@ -2154,7 +2268,8 @@ def softmax_generate_main_path(dev, gen, phase) -> dict:
             "replaces": "src/repro/kernels/flash_attention/kernel.py:61",
             "launches": launches[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "lse_ms": t["lse_ms"], "lse_bound_ms": t["lse_bound_ms"]}
 
 
 # phase 15's workloads: (ingest chunk, max_len, prompt lengths, generation
@@ -2172,18 +2287,22 @@ def engine_slice(backend, dev, phase, chunk, max_len, prompt_lens, gens
                  ) -> None:
     """Phase 15: ``DecodeEngine`` on 2 layers at qwen3-0.6b's full widths
     in fp32, 4 slots, segments of 4, ingest chunks of ``chunk`` (batched
-    admission, recurrent ingest): through B1/B7 against the same engine
-    under ``decode_kernel="reference"`` (completions and stats
-    identical), against each request run alone (tokens identical), and
-    B1/B7's launches against layers x (segment_len x segments + ingest
-    chunks) with no other kernel launched."""
+    admission, recurrent ingest). Linear family: through B1/B7 against
+    the same engine under ``decode_kernel="reference"``, B1/B7 launched
+    layers x (segment_len x segments + ingest chunks) times. Softmax:
+    admission waves through B10 against the same engine under
+    ``decode_kernel="reference"``, B10's plain version in every prefill,
+    B10 launched layers x (waves + 1-token prefills) times. Both: completions and
+    stats identical, each request run alone gives the same tokens, and
+    no other kernel launched."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
     from repro_torch.models import lm
     from repro_torch.serving import DecodeEngine
-    name = DECODE_KERNEL[backend]
+    name = serve.STREAM_KERNELS[backend][0]
+    softmax = backend == "softmax"
     cfg = dataclasses.replace(
         get_config("qwen3-0.6b").with_backend(backend), n_layers=2,
         dtype="float32")
@@ -2191,6 +2310,7 @@ def engine_slice(backend, dev, phase, chunk, max_len, prompt_lens, gens
     rng = np.random.default_rng(4)
     prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
                for n in prompt_lens]
+    ones = sum(n == 1 for n in prompt_lens)
     runs = {}
     for kernel in ("auto", "reference"):
         c = dataclasses.replace(cfg, decode_kernel=kernel)
@@ -2203,8 +2323,8 @@ def engine_slice(backend, dev, phase, chunk, max_len, prompt_lens, gens
         torch.cuda.synchronize()
         launches = read_launches()
         st = eng.stats.to_dict()
-        want = (serve.stream_launches(c, st, eng.ingest) if kernel == "auto"
-                else 0)
+        want = (serve.stream_launches(c, st, eng.ingest, eng.admission, ones)
+                if kernel == "auto" else 0)
         if launches[name] != want:
             raise AssertionError(f"phase {phase}: {name} launched "
                                  f"{launches[name]} times on the {kernel} "
@@ -2237,6 +2357,7 @@ def engine_slice(backend, dev, phase, chunk, max_len, prompt_lens, gens
     for c, prompt, g in zip(comps, prompts, gens):
         logits, state = lm.prefill(
             params, torch.from_numpy(prompt).long()[None].to(dev), cfg)
+        state = lm.pad_decode_state(state, cfg, len(prompt) + g)
         tok0 = lm.sample_token(logits, 0.0)
         more, _ = lm.generate(params, state, tok0, len(prompt), g - 1, cfg)
         alone = [int(tok0[0])] + more[0].tolist()
@@ -2245,13 +2366,17 @@ def engine_slice(backend, dev, phase, chunk, max_len, prompt_lens, gens
                                  f"({len(prompt)} prompt tokens) gives "
                                  f"{c.tokens.tolist()} in the engine, "
                                  f"{alone} alone")
+    formula = (f"{cfg.n_layers} x ({st['prefill_dispatches']} waves + "
+               f"{ones} 1-token prefills)" if softmax else
+               f"{cfg.n_layers} x ({st['segment_len']} x {st['segments']} + "
+               f"{st['ingest_chunks']})")
+    ref = ("B10 engine = reference (plain-prefill) engine" if softmax
+           else "B1/B7 engine = reference engine")
     print(f"phase {phase}: {backend} engine slice, 2 layers full width fp32,"
           f" 4 slots, ingest chunks of {chunk}, {len(prompts)} requests "
-          f"(prompts {list(prompt_lens)}): B1/B7 engine = reference engine "
-          f"(completions and stats) = each request alone; {name} launched "
-          f"{n_launch} = {cfg.n_layers} x ({st['segment_len']} x "
-          f"{st['segments']} + {st['ingest_chunks']}), continuation chunks "
-          f"{widths} wide; stats {json.dumps(st)}")
+          f"(prompts {list(prompt_lens)}): {ref} (completions and stats) = "
+          f"each request alone; {name} launched {n_launch} = {formula}, "
+          f"continuation chunks {widths} wide; stats {json.dumps(st)}")
 
 
 def profile_segments(engine, n=2, steps=2) -> dict:
@@ -2316,17 +2441,22 @@ def stream_main_path(backend, dev, phase) -> int:
     512 prompt tokens and 8 or 64 generated tokens at 0.25 arrivals per
     decode step, with every kernel's launch count set to 0 just before
     and read just after; then a profile of two steps of a segment.
-    Returns the backend kernel's launches in the run."""
+    Softmax admits each prompt whole (``--prefill-chunk 512``: B10 in
+    every wave; its per-step ingest, 64 eager decode steps a chunk, is
+    held on the card by phase 15) and prints its KV cache's MiB beside
+    the linear state's. Returns the backend kernel's launches in the
+    run."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
-    name = DECODE_KERNEL[backend]
+    name = serve.STREAM_KERNELS[backend][0]
+    softmax = backend == "softmax"
     args = serve.parse_args([
         "--mode", "stream", "--arch", "qwen3-0.6b", "--backend", backend,
         "--slots", "8", "--segment-len", "8", "--n-requests", "32",
         "--prompt-len", "512", "--gen-len", "64", "--arrival-rate", "0.25",
-        "--seed", "0"])
+        "--seed", "0"] + (["--prefill-chunk", "512"] if softmax else []))
     full = get_config(args.arch).with_backend(backend)
     t0 = time.perf_counter()
     reset_launches()
@@ -2335,10 +2465,8 @@ def stream_main_path(backend, dev, phase) -> int:
     launches = read_launches()
     print(f"  serve --mode stream returned in {time.perf_counter() - t0:.1f}"
           f" s (weights, warm-up and the timed run)")
-    st, warm = result["stats"], result["warmup_stats"]
-    ingest = result["engine"].ingest
-    want = serve.stream_launches(full, st, ingest)
-    want_warm = serve.stream_launches(full, warm, ingest)
+    st = result["stats"]
+    want, want_warm = result["want_launches"], result["warmup_launches"]
     if result["decode_launches"] != want:
         raise AssertionError(f"phase {phase}: {name} launched "
                              f"{result['decode_launches']} times in the "
@@ -2364,6 +2492,18 @@ def stream_main_path(backend, dev, phase) -> int:
     chunks_per_request = -(-args.prompt_len // args.prefill_chunk) - 1
     if st["ingest_chunks"] < chunks_per_request or not st["segments"]:
         raise AssertionError(f"phase {phase}: no chunked ingest: {st}")
+    if softmax:
+        cache_mib = (full.n_layers * 2 * args.slots * result["engine"].max_len
+                     * full.n_kv_heads * full.head_dim * 2) / 2**20
+        if result["state_mib"] != cache_mib or st["ingest_chunks"]:
+            raise AssertionError(f"phase {phase}: KV cache "
+                                 f"{result['state_mib']} MiB (want "
+                                 f"{cache_mib}), {st['ingest_chunks']} "
+                                 f"ingest chunks (want 0)")
+    formula = (f"{full.n_layers} x {st['prefill_dispatches']} waves"
+               if softmax else
+               f"{full.n_layers} x ({st['segment_len']} x {st['segments']} "
+               f"+ {st['ingest_chunks']})")
     print(f"phase {phase}: {backend} stream main path "
           f"tok_s={result['tokens_per_s']:.1f} "
           f"ms_per_segment={result['ms_per_segment']:.3f} "
@@ -2371,8 +2511,9 @@ def stream_main_path(backend, dev, phase) -> int:
           f"mean_latency_steps={result['mean_latency_steps']:.2f} "
           f"seconds={result['seconds']:.3f} tokens={result['tokens']} "
           f"{name}.launches={launches[name]} (timed run {want} = "
-          f"{full.n_layers} x ({st['segment_len']} x {st['segments']} + "
-          f"{st['ingest_chunks']}), warm-up {want_warm}); all "
+          f"{formula}, warm-up {want_warm}); decode state "
+          f"{result['state_mib']:.1f} MiB against "
+          f"{result['linear_state_mib']:.1f} MiB of linear state; all "
           f"{len(comps)} requests complete")
     print(f"  stats {json.dumps(st)}")
     prof = profile_segments(result["engine"])
@@ -2389,6 +2530,49 @@ def stream_main_path(backend, dev, phase) -> int:
     del engine, result
     torch.cuda.empty_cache()
     return launches[name]
+
+
+def retrieve_main_path(dev, phase) -> None:
+    """Phase 19: ``serve --mode retrieve --batch 4096`` at the paper's
+    width (k = 100, n = 750), every kernel's launch count set to 0 just
+    before and read just after (the path is gather + ``einsum``, as
+    JAX's is jnp: none may launch); 256 sampled answers of the last wave
+    against Hᵀ(Hq) computed in fp64 from the hidden states, within 1e-4
+    of each answer's largest magnitude; the store's and the raw hidden
+    states' MiB."""
+    import torch
+    from repro_torch.launch import serve
+    args = serve.parse_args(["--mode", "retrieve", "--batch", "4096",
+                             "--seed", "0"])
+    reset_launches()
+    r = serve.retrieve(args)
+    torch.cuda.synchronize()
+    launched = {k: n for k, n in read_launches().items() if n}
+    if launched:
+        raise AssertionError(f"phase {phase}: kernels launched {launched}")
+    docs, k_dim, n = args.batch, 100, 750
+    if r["store_mib"] != docs * k_dim * k_dim * 4 / 2**20 or \
+            r["raw_mib"] != docs * n * k_dim * 4 / 2**20:
+        raise AssertionError(f"phase {phase}: store {r['store_mib']} MiB, "
+                             f"raw {r['raw_mib']} MiB")
+    idx = torch.randperm(docs, generator=torch.Generator().manual_seed(7)
+                         )[:256].to(dev)
+    h, q = r["h"][idx].double(), r["queries"][idx].double()
+    want = torch.einsum("bnk,bn->bk", h, torch.einsum("bnk,bk->bn", h, q))
+    got = r["answers"][idx].double()
+    err = ((got - want).abs().amax(-1) / want.abs().amax(-1)).max().item()
+    if not err <= 1e-4 or not torch.isfinite(r["answers"]).all():
+        raise AssertionError(f"phase {phase}: answers {err:.3e} from "
+                             f"Hᵀ(Hq), limit 1e-4")
+    print(f"phase {phase}: retrieve main path queries_per_s="
+          f"{r['queries_per_s']:.1f} ({docs} documents, one query each, "
+          f"mean of {r['iters']} batched_lookup waves) store_mib="
+          f"{r['store_mib']:.2f} raw_mib={r['raw_mib']:.2f} "
+          f"({r['raw_mib'] / r['store_mib']:.1f}x); 256 sampled answers "
+          f"within {err:.3e} of Hᵀ(Hq) in fp64 (relative to each answer's "
+          f"largest, limit 1e-4); no kernel launched (gather + einsum)")
+    del r
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -2588,12 +2772,15 @@ def main() -> int:
           f"{LA_TOL}; the fp32 state within {LA_TOL['float32']}) and, at the "
           f"clamp and at each route's min_log_decay limit, with gla_scan")
     # B10: the softmax prefill main path's shape (B 8 x H 16 q rows over 8
-    # kv heads, T = S = 512, bf16), the same with K/V of 16 heads, then
-    # each D the kernel takes on both routes with ragged T, t_off < S - T
-    # and s_real < S, grouped (Hkv < H) and one to one, and the wrapper's
-    # padding
+    # kv heads, T = S = 512, bf16), the training path's (the same rows at
+    # T = S = 1024, phase 18's lse forward), the prefill shape with K/V of
+    # 16 heads, then each D the kernel takes on both routes with ragged T,
+    # t_off < S - T and s_real < S, grouped (Hkv < H) and one to one, and
+    # the wrapper's padding
     errs["flash_attention_fwd"] = check_flash_attention(
         128, 512, 512, 128, torch.bfloat16, gen, dev, kv_heads=8, heads=16)
+    check_flash_attention(128, 1024, 1024, 128, torch.bfloat16, gen, dev,
+                          kv_heads=8, heads=16)
     check_flash_attention(128, 512, 512, 128, torch.bfloat16, gen, dev)
     for dtype in (torch.bfloat16, torch.float32):
         check_flash_attention(8, 77, 300, 128, dtype, gen, dev, t_off=5,
@@ -2700,9 +2887,9 @@ def main() -> int:
     records.append(softmax_generate_main_path(dev, gen, 14))
     done(14, t0)
 
-    # -- 15. the engine slice, B1/B7 engine vs reference engine, fp32 -------
+    # -- 15. the engine slice, kernel engine vs reference engine, fp32 -----
     t0 = time.perf_counter()
-    for backend in ("linear", "gated_linear"):
+    for backend in ("linear", "gated_linear", "softmax"):
         for workload in ENGINE_SLICE_WORKLOADS:
             engine_slice(backend, dev, 15, *workload)
     torch.cuda.empty_cache()
@@ -2710,16 +2897,37 @@ def main() -> int:
 
     # -- 16. the stream main path ------------------------------------------
     t0 = time.perf_counter()
-    stream = {DECODE_KERNEL[b]: stream_main_path(b, dev, 16)
-              for b in ("linear", "gated_linear")}
+    from repro_torch.launch import serve
+    stream = {serve.STREAM_KERNELS[b][0]: stream_main_path(b, dev, 16)
+              for b in ("linear", "gated_linear", "softmax")}
     done(16, t0)
+
+    # -- 17. the softmax training slice, B10 vs plain, fp32 and bf16 -------
+    t0 = time.perf_counter()
+    training_slice("softmax", dev, 17)
+    training_slice_bf16("softmax", dev, 17)
+    torch.cuda.empty_cache()
+    done(17, t0)
+
+    # -- 18. the softmax training main path ----------------------------------
+    t0 = time.perf_counter()
+    train = {"flash_attention_fwd": training_main_path("softmax", dev, gen,
+                                                       18)}
+    done(18, t0)
+
+    # -- 19. the retrieve main path -------------------------------------------
+    t0 = time.perf_counter()
+    retrieve_main_path(dev, 19)
+    done(19, t0)
 
     for r in records:
         r["max_abs_err"] = errs[r["name"]]
-        if r["name"] in stream:        # B1/B7: the generate and stream paths
+        if r["name"] in stream:   # B1/B7: generate, stream; B10: and train
             r["launches_by_path"] = {"generate": r["launches"],
                                      "stream": stream[r["name"]]}
-            r["launches"] += stream[r["name"]]
+            if r["name"] in train:
+                r["launches_by_path"]["train"] = train[r["name"]]
+            r["launches"] = sum(r["launches_by_path"].values())
     print(f"phases (s): {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}"
           f" total {time.perf_counter() - t_start:.1f} s")
     print(card)

@@ -1,6 +1,12 @@
 """Causal linear attention in PyTorch (port of
-``repro/core/linear_attention.py``: the forward forms, and
-``causal_linear_attention`` with the paper's §3.3 backward).
+``repro/core/linear_attention.py``: the paper's document/query form,
+the forward forms, and ``causal_linear_attention`` with the paper's
+§3.3 backward).
+
+The document/query form (paper §3.1, §3.2): ``encode_document`` C = HᵀH
+in one shot, ``encode_document_streaming`` the O(k²)-memory recurrence
+C_{t+1} = C_t + h_{t+1} h_{t+1}ᵀ, ``lookup`` R(D, Q) = C q at O(k²) per
+query, and ``softmax_lookup`` the O(nk) baseline Hᵀ softmax(Hq).
 
 The recurrence, per head, with untied projections q, k, v:
 
@@ -33,6 +39,50 @@ def safe_denom(d: Tensor, eps: float = 1e-6) -> Tensor:
     """Sign-preserving clamp for the normaliser denominator:
     sign(d)·max(|d|, eps), with d == 0 mapped to +eps."""
     return torch.where(d >= 0, d.clamp(min=eps), d.clamp(max=-eps))
+
+
+# ---------------------------------------------------------------------------
+# document / query form (paper §3.1, §3.2)
+# ---------------------------------------------------------------------------
+
+def encode_document(h: Tensor) -> Tensor:
+    """C = HᵀH for a document of hidden states: h (..., n, k) → C
+    (..., k, k), the fixed-size representation."""
+    return torch.einsum("...nk,...nl->...kl", h, h)
+
+
+def encode_document_streaming(h: Tensor) -> Tensor:
+    """Paper §3.2: C_{t+1} = C_t + h_{t+1} h_{t+1}ᵀ with O(k²) memory, one
+    token at a time (the form of documents that arrive token by token).
+    The same C as ``encode_document`` up to the order of its sums."""
+    k = h.shape[-1]
+    c = torch.zeros((*h.shape[:-2], k, k), dtype=h.dtype, device=h.device)
+    for t in range(h.shape[-2]):
+        h_t = h[..., t, :]
+        c = c + h_t[..., :, None] * h_t[..., None, :]
+    return c
+
+
+def lookup(c: Tensor, q: Tensor) -> Tensor:
+    """R(D, Q) = C q, the O(k²) attention lookup (paper §3.1). c: (..., k,
+    k); q: (..., k) or (..., m, k) for m batched queries."""
+    if q.ndim == c.ndim - 1:
+        return torch.einsum("...kl,...l->...k", c, q)
+    return torch.einsum("...kl,...ml->...mk", c, q)
+
+
+def softmax_lookup(h: Tensor, q: Tensor) -> Tensor:
+    """The baseline R(D,Q) = Hᵀ softmax(Hq) (paper §2.1), which needs the
+    whole n×k hidden-state matrix: O(nk) per query. h: (..., n, k); q:
+    (..., k) or (..., m, k). Computed in h's type (the softmax of
+    ``core.softmax_attention.softmax_lookup`` is fp32)."""
+    single = q.ndim == h.ndim - 1
+    if single:
+        q = q[..., None, :]
+    scores = torch.einsum("...nk,...mk->...mn", h, q)
+    out = torch.einsum("...mn,...nk->...mk", torch.softmax(scores, dim=-1),
+                       h)
+    return out[..., 0, :] if single else out
 
 
 def causal_linear_attention_scan(

@@ -10,7 +10,11 @@
 // scores s folded in as
 //     m' = max(m, max_j s_j);  p_j = exp(s_j - m');  a = exp(m - m');
 //     l' = a·l + Σ_j p_j;      acc' = a·acc + Σ_j p_j v_j,
-// and o = acc / l (l = 0 taken as 1) written in the input's type.
+// and o = acc / l (l = 0 taken as 1) written in the input's type. Given
+// an lse pointer, each query's log-sum-exp m + log l (in the units of
+// the scaled scores, l = 0 taken as 1) is written beside o in fp32, from
+// the same registers that normalise o: JAX's _flash_fwd_impl returns it
+// for the softmax backward. A null pointer leaves the launch as it was.
 //
 // K and V are read by kv head. q holds rows·T rows of D, k and v
 // (rows / heads · kv_heads)·S, with the flat heads of the (G, Hkv)
@@ -118,6 +122,7 @@ constexpr int kRowBytes = 128;                 // 64 bf16: one swizzle row
 constexpr int kQBlock = kBM * kRowBytes;       // Q, one 64-column block
 constexpr int kKVBlock = kBN * kRowBytes;      // K or V, one 64-column block
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // Shared memory, from a 1024-byte aligned base (the swizzle's period):
 // Q [2 buffers][DC][128 rows][64], then K and V [kStages][DC][64 rows][64],
@@ -389,9 +394,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_tc(const __grid_constant__ CUtensorMap tq,
              const __grid_constant__ CUtensorMap tk,
              const __grid_constant__ CUtensorMap tv,
-             const __grid_constant__ CUtensorMap to, int rows, int t_len,
-             int heads, int kv_heads, int t_off, int s_real,
-             float scale_log2) {
+             const __grid_constant__ CUtensorMap to,
+             float* __restrict__ lse, int rows, int t_len, int heads,
+             int kv_heads, int t_off, int s_real, float scale_log2) {
   constexpr int DC = (D + 63) / 64;         // 64-column blocks of D
   constexpr int QK_STEPS = (D + 15) / 16;   // k16 steps of Q Kᵀ
   using L = Smem<DC>;
@@ -630,6 +635,16 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap tq,
       l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
       l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
     }
+    // lse = ln Σ_j exp(scale·s_j) = (c·m + log2 l)·ln 2 with m the raw
+    // max: one lane of each quad writes its two rows
+    if (lse != nullptr && n_own > 0 && cl == 0)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int qi = qw0 + r0 + 8 * h;
+        if (qi < t_len)
+          lse[static_cast<size_t>(t.row) * t_len + qi] =
+              (m[h] * c + log2f(l[h] == 0.f ? 1.f : l[h])) * kLn2;
+      }
     const int lead = 128 * wg;                 // the warpgroup's first thread
     if (n_own > 0) {
 #pragma unroll
@@ -713,9 +728,9 @@ int tensor_map(CUtensorMap* map, const void* ptr, int d, int n, int rows,
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, int rows,
-           int heads, int kv_heads, int t_len, int s_len, int t_off,
-           int s_real, float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int rows, int heads, int kv_heads, int t_len, int s_len,
+           int t_off, int s_real, float scale, cudaStream_t stream) {
   constexpr int kSmem = Smem<(D + 63) / 64>::bytes;
   auto kernel = flash_fwd_tc<D>;
   static bool configured = false;
@@ -745,8 +760,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int rows,
       static_cast<long long>(rows) * ((t_len + kBM - 1) / kBM);
   const dim3 grid(static_cast<unsigned>(n_work < sms ? n_work : sms)),
       block(kThreads);
-  kernel<<<grid, block, kSmem, stream>>>(tq, tk, tv, to, rows, t_len, heads,
-                                         kv_heads, t_off, s_real,
+  kernel<<<grid, block, kSmem, stream>>>(tq, tk, tv, to, lse, rows, t_len,
+                                         heads, kv_heads, t_off, s_real,
                                          scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
 }
@@ -790,9 +805,9 @@ __device__ __forceinline__ float half_warp_sum(float x) {
 template <int D>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_fwd_fp32(const float* __restrict__ q, const float* __restrict__ k,
-               const float* __restrict__ v, float* __restrict__ o, int t_len,
-               int s_len, int heads, int kv_heads, int t_off, int s_real,
-               float scale) {
+               const float* __restrict__ v, float* __restrict__ o,
+               float* __restrict__ lse, int t_len, int s_len, int heads,
+               int kv_heads, int t_off, int s_real, float scale) {
   static_assert(D % kGrid == 0, "D must be a multiple of 16");
   constexpr int LQ = D + 1, LP = kTk + 1, RD = D / kGrid;
 
@@ -919,13 +934,15 @@ flash_fwd_fp32(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < RD; ++c)
       O[static_cast<size_t>(i) * D + tj + c * kGrid] = acc[r][c] / denom;
+    // m is in the units of the scaled scores here
+    if (lse != nullptr && tj == 0) lse[row * t_len + i] = m[r] + logf(denom);
   }
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, int rows,
-           int heads, int kv_heads, int t_len, int s_len, int t_off,
-           int s_real, float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int rows, int heads, int kv_heads, int t_len, int s_len,
+           int t_off, int s_real, float scale, cudaStream_t stream) {
   constexpr size_t kSmem = smem_floats<D>() * sizeof(float);
   auto kernel = flash_fwd_fp32<D>;
   static bool configured = false;
@@ -943,21 +960,21 @@ int launch(const void* q, const void* k, const void* v, void* o, int rows,
   const dim3 grid(rows, (t_len + kTq - 1) / kTq), block(kThreads);
   kernel<<<grid, block, kSmem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), t_len, s_len,
-      heads, kv_heads, t_off, s_real, scale);
+      static_cast<const float*>(v), static_cast<float*>(o), lse, t_len,
+      s_len, heads, kv_heads, t_off, s_real, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace fp32
 
 int launch_d(int bf16, const void* q, const void* k, const void* v, void* o,
-             int rows, int heads, int kv_heads, int t, int s, int d,
-             int t_off, int s_real, float scale, cudaStream_t st) {
+             float* lse, int rows, int heads, int kv_heads, int t, int s,
+             int d, int t_off, int s_real, float scale, cudaStream_t st) {
 #define FA_LAUNCH(D)                                                        \
-  return bf16 ? tc::launch<D>(q, k, v, o, rows, heads, kv_heads, t, s,      \
+  return bf16 ? tc::launch<D>(q, k, v, o, lse, rows, heads, kv_heads, t, s, \
                               t_off, s_real, scale, st)                     \
-              : fp32::launch<D>(q, k, v, o, rows, heads, kv_heads, t, s,    \
-                                t_off, s_real, scale, st)
+              : fp32::launch<D>(q, k, v, o, lse, rows, heads, kv_heads, t,  \
+                                s, t_off, s_real, scale, st)
   switch (d) {
     case 16:
       FA_LAUNCH(16);
@@ -976,16 +993,17 @@ int launch_d(int bf16, const void* q, const void* k, const void* v, void* o,
 // B10. q, o: contiguous (rows, t, d); k, v: contiguous (rows / heads ·
 // kv_heads, s, d), q row b·heads + h reading kv row b·kv_heads + h mod
 // kv_heads; all of one type, fp32 (bf16 == 0) or bf16 (bf16 == 1), on the
-// current device, 16-byte aligned; d in {16, 64, 128}. Query i attends key
-// j iff j <= i + t_off and j < s_real; requires t_off >= 0 and
-// 1 <= s_real <= s (see the header). Returns cudaGetLastError() after the
+// current device, 16-byte aligned; d in {16, 64, 128}. lse: null, or a
+// contiguous fp32 (rows, t) that receives each query's log-sum-exp. Query
+// i attends key j iff j <= i + t_off and j < s_real; requires t_off >= 0
+// and 1 <= s_real <= s (see the header). Returns cudaGetLastError() after the
 // launch, cudaErrorInvalidValue for arguments it does not take, or
 // 10000 + the driver's CUresult when a tensor map cannot be made.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* o, int rows,
                                    int heads, int kv_heads, int t, int s,
                                    int d, int t_off, int s_real, float scale,
-                                   int bf16, void* stream) {
+                                   int bf16, void* lse, void* stream) {
   if (rows <= 0 || t <= 0 || s <= 0 || heads <= 0 || kv_heads <= 0 ||
       heads % kv_heads || rows % heads || t_off < 0 || s_real < 1 ||
       s_real > s || (t + fp32::kTq - 1) / fp32::kTq > 65535 ||
@@ -994,6 +1012,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
       (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o)) % 16)
     return static_cast<int>(cudaErrorInvalidValue);
-  return launch_d(bf16, q, k, v, o, rows, heads, kv_heads, t, s, d, t_off,
-                  s_real, scale, static_cast<cudaStream_t>(stream));
+  return launch_d(bf16, q, k, v, o, static_cast<float*>(lse), rows, heads,
+                  kv_heads, t, s, d, t_off, s_real, scale,
+                  static_cast<cudaStream_t>(stream));
 }

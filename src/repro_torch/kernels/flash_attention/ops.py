@@ -13,9 +13,17 @@ the kernel does not take raises. ``kernel=False`` asks for the plain
 version explicitly on any device (tests and ``chip_smoke.py`` compare the
 two routes that way).
 
+``want_lse=True`` also returns each query's log-sum-exp m + log l in
+fp32, (B·H, T), written by the kernel from the registers that normalise
+o (the plain version computes it from the masked scores): it is what
+JAX's ``_flash_fwd_impl`` saves for the softmax backward
+(``models/xla_attention.py``). Without it the kernel gets a null
+pointer and runs as it always did.
+
 ``flash_attention`` adds the (B, H, T, D) ↔ (B·H, T, D) reshapes and the
-tile padding of the JAX wrapper, with k, v of H or Hkv heads. Forward
-only, as in JAX: the Pallas kernel has no backward.
+tile padding of the JAX wrapper, with k, v of H or Hkv heads, and slices
+the lse back from the padded rows. Forward only, as in JAX: the Pallas
+kernel has no backward.
 """
 
 from __future__ import annotations
@@ -42,7 +50,8 @@ def load() -> ctypes.CDLL:
     """Build (at first use) and load the kernel library."""
     lib = build.load_library(SOURCE)
     lib.flash_attention_fwd.argtypes = [ctypes.c_void_p] * 4 + [
-        ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+                             ctypes.c_void_p]
     lib.flash_attention_fwd.restype = ctypes.c_int
     return lib
 
@@ -103,14 +112,17 @@ def _on_cpu(x: Tensor) -> bool:
 
 def fwd(q: Tensor, k: Tensor, v: Tensor, *, scale: Optional[float] = None,
         t_off: Optional[int] = None, s_real: Optional[int] = None,
-        kv_heads: Optional[int] = None, kernel: bool = True) -> Tensor:
+        kv_heads: Optional[int] = None, kernel: bool = True,
+        want_lse: bool = False):
     """B10. q: (B·H, T, D); k, v: (B·Hkv, S, D), q row b·H + h reading kv
     row b·Hkv + h mod Hkv (``kv_heads`` = Hkv; without it the rows are one
     to one). Query i attends key j iff j ≤ i + t_off and j < s_real
     (defaults S − T and S: the queries are the last T of the S keys).
     Scores times ``scale`` (default D^-½); returns (B·H, T, D) in v's
-    type. The plain version and the fp32 kernel compute in fp32; the bf16
-    kernel rounds P to bf16 before P·V, as JAX's oracle does.
+    type, and with ``want_lse`` the pair (o, lse), lse (B·H, T) fp32 the
+    log-sum-exp of each query's scaled scores. The plain version and the
+    fp32 kernel compute in fp32; the bf16 kernel rounds P to bf16 before
+    P·V, as JAX's oracle does.
 
     Requires t_off ≥ 0 and 1 ≤ s_real ≤ S, so that key 0 is visible to
     every query. The kernel stops at the last key tile a query can see,
@@ -132,22 +144,27 @@ def fwd(q: Tensor, k: Tensor, v: Tensor, *, scale: Optional[float] = None,
     heads, kv = _heads(q, k, kv_heads)
     if not kernel or _on_cpu(q):
         return flash_attention_fwd_ref(q, k, v, scale=scale, t_off=t_off,
-                                       s_real=s_real, kv_heads=kv_heads)
+                                       s_real=s_real, kv_heads=kv_heads,
+                                       want_lse=want_lse)
     _check(q, k, v)
     o = torch.empty_like(q)
+    lse = (torch.empty((bh, t), dtype=torch.float32, device=q.device)
+           if want_lse else None)
+    out = (o, lse) if want_lse else o
     if bh == 0 or t == 0:
-        return o
+        return out
     lib = load()
     with torch.cuda.device(q.device):
         err = lib.flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), bh,
             heads, kv, t, s, d, t_off, s_real, scale, _DTYPES[q.dtype],
+            None if lse is None else lse.data_ptr(),
             torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"flash_attention_fwd: kernel launch failed with "
                            f"CUDA error {err}")
     fwd.launches += 1
-    return o
+    return out
 
 
 fwd.launches = 0
@@ -172,17 +189,21 @@ def _padded(n: int) -> int:
 def flash_attention(q: Tensor, k: Tensor, v: Tensor, *,
                     scale: Optional[float] = None,
                     t_off: Optional[int] = None,
-                    kernel: bool = True) -> Tensor:
+                    kernel: bool = True, want_lse: bool = False):
     """Causal softmax attention. q: (B, H, T, D); k, v: (B, Hkv, S, D)
     with H % Hkv == 0, q head h reading kv head h mod Hkv (Hkv = H: one
     to one). T and S are padded as the JAX wrapper pads them (its default
     tiles of 128) and the real lengths passed on (t_off = S − T unless
     given, s_real = S), so padded keys stay masked and padded queries are
-    sliced off. Returns (B, H, T, D) in v's type."""
+    sliced off. Returns (B, H, T, D) in v's type, and with ``want_lse``
+    the pair (o, lse), lse (B, H, T) fp32."""
     b, h, t, d = q.shape
     s = k.shape[2]
     t_pad, s_pad = _padded(t), _padded(s)
-    o = fwd(_rows(q, t_pad), _rows(k, s_pad), _rows(v, s_pad), scale=scale,
-            t_off=s - t if t_off is None else t_off, s_real=s,
-            kv_heads=k.shape[1], kernel=kernel)
-    return o[:, :t].reshape(b, h, t, d)
+    out = fwd(_rows(q, t_pad), _rows(k, s_pad), _rows(v, s_pad),
+              scale=scale, t_off=s - t if t_off is None else t_off, s_real=s,
+              kv_heads=k.shape[1], kernel=kernel, want_lse=want_lse)
+    if not want_lse:
+        return out[:, :t].reshape(b, h, t, d)
+    o, lse = out
+    return o[:, :t].reshape(b, h, t, d), lse[:, :t].reshape(b, h, t)

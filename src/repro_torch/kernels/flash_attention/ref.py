@@ -25,13 +25,16 @@ NEG_INF = -1e30          # the Pallas body's mask value (kernel.py:19)
 
 def flash_attention_fwd_ref(q: Tensor, k: Tensor, v: Tensor, *,
                             scale: float, t_off: int, s_real: int,
-                            kv_heads: Optional[int] = None) -> Tensor:
+                            kv_heads: Optional[int] = None,
+                            want_lse: bool = False):
     """q: (B·H, T, D); k, v: (B·Hkv, S, D), q row b·H + h reading kv row
     b·Hkv + h mod Hkv (``kv_heads`` = Hkv; without it the rows are one to
     one). K and V are broadcast to the q rows here, as JAX's model
     broadcasts them before its flash. Query i attends key j iff
     j ≤ i + t_off and j < s_real. Scores q·k·scale, softmax and the
-    product in fp32; the output in v's type.
+    product in fp32; the output in v's type. With ``want_lse`` returns
+    (o, lse), lse (B·H, T) the fp32 log-sum-exp of each row's masked
+    scores.
 
     Masked scores are NEG_INF, not −inf, as in the Pallas body. A row
     that sees some key gives exactly the masked softmax. A row that sees
@@ -50,7 +53,8 @@ def flash_attention_fwd_ref(q: Tensor, k: Tensor, v: Tensor, *,
     cols = torch.arange(s, device=q.device)[None, :]
     scores = torch.where((cols <= rows) & (cols < s_real), scores, NEG_INF)
     p = torch.softmax(scores, dim=-1)
-    return torch.einsum("bts,bsd->btd", p, v.float()).to(v.dtype)
+    o = torch.einsum("bts,bsd->btd", p, v.float()).to(v.dtype)
+    return (o, torch.logsumexp(scores, dim=-1)) if want_lse else o
 
 
 def flash_attention_ref(q: Tensor, k: Tensor, v: Tensor, *,

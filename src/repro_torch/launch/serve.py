@@ -1,5 +1,5 @@
 """Serving entry point (port of ``repro/launch/serve.py``, modes
-``generate``, ``stream`` and ``lookup``).
+``generate``, ``stream``, ``retrieve`` and ``lookup``).
 
 ``--mode generate``: one static batch of requests. Prefill the prompts
 once, then decode autoregressively. ``--backend`` picks the mechanism:
@@ -18,10 +18,20 @@ stream (``make_request_mix``, the JAX package's workload draw for draw).
 The fixed-slot ``DecodeEngine`` admits requests between segments —
 bucket-padded batched varlen prefill waves, prompts longer than
 ``--prefill-chunk`` ingested chunk by chunk between decode segments —
-and decodes ``--segment-len`` slot-masked steps at a time, one launch of
-the backend's recurrent kernel (B1 or B7) per layer and step; under
-``--ingest recurrent`` (the default) every ingest chunk is one more
-launch per layer, with per-row lengths. Linear family only.
+and decodes ``--segment-len`` slot-masked steps at a time. The linear
+family launches its recurrent kernel (B1 or B7) once per layer and step;
+under ``--ingest recurrent`` (the default) every ingest chunk is one more
+launch per layer, with per-row lengths. ``--backend softmax`` serves the
+KV-cache baseline through the same engine: every admission wave's varlen
+prefill launches the causal flash-attention kernel (B10) once per
+layer, decode and ingest chunks read and write the caches in plain
+PyTorch (a chunk as single-token steps).
+
+``--mode retrieve``: the paper's encode-once / query-many with the
+``DocumentStore``: ``--batch`` documents of 750 hidden states of width
+100 each compressed to C = HᵀH, then 100 timed ``batched_lookup`` waves
+of one query per document; the store's size against the raw hidden
+states', and queries per second.
 
 ``--mode lookup``: memory serving. Encode ``--n-docs`` documents once
 into fixed-size k×k states resident on the device, then answer two
@@ -43,6 +53,16 @@ passes of ``--n-queries`` single-query requests in waves of
       --prompt-len 512 --gen-len 64 --arrival-rate 0.25
   PYTHONPATH=src python -m repro_torch.launch.serve --mode stream \\
       --smoke --device cpu --slots 4 --n-requests 16 --arrival-rate 0.5
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode stream \\
+      --backend softmax --arch qwen3-0.6b --slots 8 --segment-len 8 \\
+      --n-requests 32 --prompt-len 512 --gen-len 64 --arrival-rate 0.25 \\
+      --prefill-chunk 512
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode stream \\
+      --backend softmax --smoke --device cpu --slots 4 --n-requests 16
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode retrieve \\
+      --batch 4096
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode retrieve \\
+      --device cpu --batch 16
   PYTHONPATH=src python -m repro_torch.launch.serve --mode lookup \\
       --n-docs 8192 --doc-len 750 --n-queries 131072 --wave-size 256
   PYTHONPATH=src python -m repro_torch.launch.serve --mode lookup \\
@@ -174,14 +194,27 @@ def make_request_mix(rng: np.random.Generator, n_requests: int,
     return out
 
 
-def stream_launches(cfg: ModelConfig, stats: Dict[str, Any],
-                    ingest: str) -> int:
-    """Launches of the backend's recurrent kernel that a stream run with
-    these stats makes: one per layer and decode step of every segment
-    (masked steps included), and one per layer and recurrent ingest
-    chunk."""
+def stream_launches(cfg: ModelConfig, stats: Dict[str, Any], ingest: str,
+                    admission: str = "batched",
+                    one_token_prompts: int = 0) -> int:
+    """Launches of the backend's kernel that a stream run with these
+    stats makes. Linear family, its recurrent kernel: one per layer and
+    decode step of every segment (masked steps included), and one per
+    layer and recurrent ingest chunk. Softmax, B10: one per layer and
+    prefill pass, i.e. each batched-admission wave and each of the
+    ``one_token_prompts`` that batched admission encodes alone, or under
+    per-request admission each prefill."""
+    if cfg.attention_backend == "softmax":
+        passes = (stats["prefills"] if admission == "per_request"
+                  else stats["prefill_dispatches"] + one_token_prompts)
+        return cfg.n_layers * passes
     chunks = stats["ingest_chunks"] if ingest == "recurrent" else 0
     return cfg.n_layers * (stats["segment_len"] * stats["segments"] + chunks)
+
+
+STREAM_KERNELS = {"linear": ("decode_linear", FR.decode_linear),
+                  "gated_linear": ("decode_gated", FR.decode_gated),
+                  "softmax": ("flash_attention_fwd", FA.fwd)}
 
 
 def stream(args) -> Dict[str, Any]:
@@ -198,9 +231,8 @@ def stream(args) -> Dict[str, Any]:
     cfg = (get_smoke_config(args.arch) if args.smoke
            else get_config(args.arch))
     cfg = cfg.with_backend(args.backend)
-    backend = backend_for_config(cfg)     # softmax raises, before any weight
-    kernel = {"linear": FR.decode_linear,
-              "gated_linear": FR.decode_gated}[cfg.attention_backend]
+    backend = backend_for_config(cfg)
+    name, kernel = STREAM_KERNELS[cfg.attention_backend]
     gen = torch.Generator(device=device).manual_seed(args.seed * 4)
     params = lm.cast_params(lm.init_params(gen, cfg), lm.dtype_of(cfg.dtype))
     max_len = args.prompt_len + args.gen_len + args.segment_len
@@ -222,6 +254,7 @@ def stream(args) -> Dict[str, Any]:
     engine.run()
     _sync(device)
     warmup_stats = engine.stats.to_dict()
+    warmup_ones = int(len(requests[0][0]) == 1)
     engine.reset()
 
     for prompt, g, arrival in requests:
@@ -241,11 +274,20 @@ def stream(args) -> Dict[str, Any]:
     st = engine.stats
     total = sum(len(c.tokens) for c in completions)
     lat = [c.finished_step - c.admitted_step for c in completions]
+    ones = sum(len(p) == 1 for p, _, _ in requests)
+    want = stream_launches(cfg, st.to_dict(), engine.ingest,
+                           engine.admission, ones)
+    state_mib = lm.state_bytes(engine.state) / 2**20
+    linear_mib = (backend_for_config(cfg.with_backend("linear"))
+                  .state_bytes_per_slot(max_len) * args.slots / 2**20)
     where = (torch.cuda.get_device_name(device) if device.type == "cuda"
              else "cpu")
+    softmax = cfg.attention_backend == "softmax"
+    kernels = ("plain KV-cache read; prefill kernel flash_attention_fwd"
+               if softmax else name)
     print(f"arch={cfg.name} backend={cfg.attention_backend} "
           f"slots={args.slots} segment={args.segment_len} "
-          f"decode_kernel={cfg.decode_kernel} ({kernel.__name__}) "
+          f"decode_kernel={cfg.decode_kernel} ({kernels}) "
           f"device={where}")
     print(f"stream: {len(completions)} requests, {total} tokens in "
           f"{dt:.2f} s ({total / dt:.0f} tok/s, "
@@ -261,11 +303,16 @@ def stream(args) -> Dict[str, Any]:
           f"{st.ingest_chunks} ingest chunks "
           f"(interleave {st.interleave_ratio:.2f}), "
           f"{st.prefill_jit_misses} admission jit misses")
-    print(f"{kernel.__name__}: {launches} launches in the timed run; "
-          f"layers x (segment_len x segments + recurrent ingest chunks) = "
-          f"{stream_launches(cfg, st.to_dict(), engine.ingest)}"
-          + ("" if device.type == "cuda" else
-             " (CPU tensors run the plain versions: no launch)"))
+    formula = ("layers x (admission waves + 1-token prefills)" if softmax
+               else "layers x (segment_len x segments + recurrent ingest "
+                    "chunks)")
+    print(f"{name}: {launches} launches in the timed run; {formula} = "
+          f"{want}" + ("" if device.type == "cuda" else
+                       " (CPU tensors run the plain versions: no launch)"))
+    kind = f"KV cache of {max_len} rows" if softmax else "O(1) in context"
+    print(f"decode state: {state_mib:.2f} MiB for {args.slots} slots "
+          f"({kind}; the linear state at these slots: {linear_mib:.2f} "
+          f"MiB)")
     if args.stats_json:
         with open(args.stats_json, "w") as f:
             f.write(st.to_json())
@@ -276,7 +323,52 @@ def stream(args) -> Dict[str, Any]:
             "mean_latency_steps": float(np.mean(lat)),
             "tokens": total, "stats": st.to_dict(),
             "warmup_stats": warmup_stats, "decode_launches": launches,
+            "want_launches": want,
+            "warmup_launches": stream_launches(
+                cfg, warmup_stats, engine.ingest, engine.admission,
+                warmup_ones),
+            "state_mib": state_mib, "linear_state_mib": linear_mib,
             "completions": completions, "engine": engine}
+
+
+def retrieve(args) -> Dict[str, Any]:
+    """Encode once, query many, with the ``DocumentStore`` (the JAX
+    package's ``retrieve``): ``--batch`` documents of n = 750 hidden
+    states of width k = 100 (the paper's), each compressed once to
+    C = HᵀH (O(k²) whatever n), then one untimed and 100 timed
+    ``batched_lookup`` waves answering one query per document. Prints
+    the store's MiB against the raw hidden states' and queries/s, and
+    returns them with the hidden states, the queries, the store and the
+    last wave's answers (for a caller's check against Hᵀ(Hq))."""
+    from repro_torch.core import DocumentState, DocumentStore
+    device = resolve_device(args.device)
+    k_dim, n, docs = 100, 750, args.batch
+    g_h, g_q = (torch.Generator(device=device).manual_seed(args.seed * 4 + i)
+                for i in range(2))
+    h = torch.randn((docs, n, k_dim), generator=g_h, device=device)
+    store = DocumentStore()
+    for i in range(docs):
+        store.add(f"doc{i}", DocumentState.from_hidden_states(h[i]))
+    q = torch.randn((docs, k_dim), generator=g_q, device=device)
+    ids = [f"doc{i}" for i in range(docs)]
+    store.batched_lookup(ids, q)
+    _sync(device)
+    iters = 100
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        out = store.batched_lookup(ids, q)
+    _sync(device)
+    dt = (time.perf_counter() - t0) / iters
+    where = (torch.cuda.get_device_name(device) if device.type == "cuda"
+             else "cpu")
+    store_mib, raw_mib = store.nbytes / 2**20, h.nbytes / 2**20
+    print(f"retrieve: k={k_dim} n={n} docs={docs} device={where}")
+    print(f"store: {len(store)} docs, {store_mib:.1f} MiB (raw hidden "
+          f"states would be {raw_mib:.1f} MiB)")
+    print(f"lookup: {docs / dt:.0f} queries/s, O(k²) each")
+    return {"queries_per_s": docs / dt, "store_mib": store_mib,
+            "raw_mib": raw_mib, "h": h, "queries": q, "answers": out,
+            "store": store, "iters": iters}
 
 
 def lookup(args) -> Dict[str, Any]:
@@ -377,14 +469,13 @@ def lookup(args) -> Dict[str, Any]:
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--mode", default="generate",
-                    choices=["generate", "stream", "lookup"])
+                    choices=["generate", "stream", "retrieve", "lookup"])
     ap.add_argument("--arch", default="qwen3-0.6b")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--backend", default="linear",
                     choices=["linear", "gated_linear", "softmax"],
                     help="linear (paper §3), gated_linear (paper §4 "
-                         "decay) or softmax (the KV-cache baseline; "
-                         "generate mode only)")
+                         "decay) or softmax (the KV-cache baseline)")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=64)
     ap.add_argument("--gen-len", type=int, default=32)
@@ -456,6 +547,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         lookup(args)
     elif args.mode == "stream":
         stream(args)
+    elif args.mode == "retrieve":
+        retrieve(args)
     else:
         generate(args)
     return 0

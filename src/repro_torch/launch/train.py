@@ -7,11 +7,11 @@ training loop with straggler telemetry; SIGTERM stops the loop at the
 next step. The flags are the JAX driver's, with ``--device`` on top and
 no ``--mesh`` (one device). It trains ``--backend linear``, whose
 attention core runs the B2 forward and B3 backward kernels on the card,
-and ``--backend gated_linear`` (the paper's §4 decay form), whose core
-runs B8 forward and B9 backward; ``softmax`` raises before any
-parameter is built (the port serves softmax but does not train it).
-Checkpointing is not ported, so ``--ckpt-dir`` raises and there is no
-``--ckpt-every``.
+``--backend gated_linear`` (the paper's §4 decay form), whose core runs
+B8 forward and B9 backward, and ``--backend softmax`` (the paper's §2
+baseline), whose attention runs B10 forward with its log-sum-exp and
+JAX's blockwise flash backward in plain PyTorch. Checkpointing is not
+ported, so ``--ckpt-dir`` raises and there is no ``--ckpt-every``.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \\
       --backend linear --batch 8 --seq-len 1024 --steps 8
@@ -21,6 +21,10 @@ Checkpointing is not ported, so ``--ckpt-dir`` raises and there is no
       --smoke --device cpu --backend linear --steps 30
   PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
       --backend gated_linear --steps 5
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \\
+      --backend softmax --batch 8 --seq-len 1024 --steps 8
+  PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
+      --backend softmax --steps 5
 
 Runs on CUDA unless ``--device cpu`` is given.
 """

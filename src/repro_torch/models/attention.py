@@ -1,11 +1,13 @@
 """GQA attention (port of ``repro/models/attention.py``), three backends.
 
-- ``softmax``: classic attention (paper §2), the baseline. Prefill runs
-  causal flash attention over the flat heads, the B10 kernel for CUDA
-  tensors (``models/xla_attention.py``, ``kernels/flash_attention``);
-  the decode state is the KV cache, (B, S, Hkv, Dh) per layer in
-  ``cfg.dtype``, read in plain PyTorch at O(pos) per token. Forward
-  only: training under softmax raises.
+- ``softmax``: classic attention (paper §2), the baseline. Prefill and
+  training run causal flash attention over the flat heads, the B10
+  kernel for CUDA tensors (``models/xla_attention.py``,
+  ``kernels/flash_attention``), training with JAX's blockwise backward
+  in plain PyTorch; the decode state is the KV cache, (B, S, Hkv, Dh)
+  per layer in ``cfg.dtype``, read in plain PyTorch at O(pos) per
+  token. Windows (engine ingest, varlen decode) step single-token decode
+  over their tokens, as JAX scans it.
 - ``linear``: the paper's §3 mechanism; chunk-parallel causal linear
   attention for prefill, state (s, z) with the key-sum normaliser z
   under ``linear_normalize``.
@@ -283,8 +285,9 @@ def attention_apply(
     (B, T, Hkv, Dh), and the attention runs ``flash_attention`` over
     the flat heads with K/V read by kv head (JAX broadcasts them over
     the groups first; the numbers are the same): B10 on CUDA tensors.
-    Training under softmax raises NotImplementedError (B10 is forward
-    only). For the linear family the state is the final
+    Training under softmax runs the same call under autograd: B10 with
+    its log-sum-exp forward, JAX's blockwise backward over blocks of
+    ``cfg.attn_block_q``. For the linear family the state is the final
     state of the plain chunked forms and, for the linear backend,
     z = Σ_t k_t, a plain fp32 sum. Without it (training), the linear
     backend runs ``causal_linear_attention``: B2 forward and B3's §3.3
@@ -301,16 +304,14 @@ def attention_apply(
         q, k = _rope(q, k, torch.arange(t, device=x.device), cfg)
     vmask = None if varlen is None else _valid_mask(varlen, t, x.device)
     if cfg.attention_backend == "softmax":
-        if not want_state:
-            raise NotImplementedError(
-                f"{cfg.name}: softmax training is not ported (B10 is "
-                f"forward only; JAX's backward is _flash_bwd)")
         o_h = XA.flash_attention(q.reshape(b, h, t, dh), k, v, None, 0,
+                                 block=cfg.attn_block_q,
                                  kernel=attention_kernel)
-        state = AttnState(k_cache=k.transpose(1, 2).contiguous(),
-                          v_cache=v.transpose(1, 2).contiguous())
-        return _merge_heads(p, o_h.reshape(b, h // hkv, hkv, t, dh),
-                            x.dtype), state
+        y = _merge_heads(p, o_h.reshape(b, h // hkv, hkv, t, dh), x.dtype)
+        if not want_state:
+            return y, None
+        return y, AttnState(k_cache=k.transpose(1, 2).contiguous(),
+                            v_cache=v.transpose(1, 2).contiguous())
     qh, kh, vh = _heads(q, k, v, cfg)
     if vmask is not None:        # pad positions inert in the state sums
         kh = torch.where(vmask, kh, 0).to(kh.dtype)
@@ -394,6 +395,52 @@ def _recurrent(p: Params, x: Tensor, state: AttnState, qh, kh, vh,
     return _groupnorm(p, o_w), AttnState(s=s_new, z=None)
 
 
+def _softmax_step(state: AttnState, q: Tensor, k: Tensor, v: Tensor,
+                  pos: Tensor, active: Optional[Tensor]) -> Tensor:
+    """One softmax decode step over the KV cache, in place. q: (B, G,
+    Hkv, Dh); k, v: (B, Hkv, Dh); pos: (B,) the row each sequence writes
+    (clamped to the cache, as JAX's dynamic update clamps it); active:
+    (B,) bool or None. Writes k and v into row pos of each sequence (an
+    inactive sequence gets its current row back, bit for bit), then
+    attends over rows ≤ pos. Returns o (B, G, Hkv, Dh)."""
+    b = q.shape[0]
+    rows = torch.arange(b, device=q.device)
+    cols = pos.long().clamp(0, state.k_cache.shape[1] - 1)
+    k_new = k.to(state.k_cache.dtype)
+    v_new = v.to(state.v_cache.dtype)
+    if active is not None:
+        act = torch.as_tensor(active, device=q.device).bool()[:, None, None]
+        k_new = torch.where(act, k_new, state.k_cache[rows, cols])
+        v_new = torch.where(act, v_new, state.v_cache[rows, cols])
+    state.k_cache[rows, cols] = k_new
+    state.v_cache[rows, cols] = v_new
+    return XA.decode_attention(q, state.k_cache.transpose(1, 2),
+                               state.v_cache.transpose(1, 2), pos + 1)
+
+
+def _softmax_window(p: Params, x: Tensor, state: AttnState, pos0,
+                    cfg: ModelConfig, lens: Optional[Tensor]
+                    ) -> Tuple[Tensor, AttnState]:
+    """W known tokens under softmax: JAX scans single-token decode over
+    the window (``block_decode_window``), step w at position pos0 + w
+    and, with ``lens``, active where w < lens[b]. Here the window is
+    projected once and the steps run over its tokens, each writing its
+    cache row (gated) before it reads. The state is updated in place;
+    outputs at masked steps are garbage."""
+    b, w, _ = x.shape
+    pos0 = torch.as_tensor(pos0, dtype=torch.int32, device=x.device)
+    positions = pos0.expand(b)[:, None] + torch.arange(w, device=x.device)
+    q, k, v = _project_qkv(p, x, cfg)
+    if cfg.rope:
+        q, k = _rope(q, k, positions, cfg)
+    if lens is not None:
+        lens = torch.as_tensor(lens, device=x.device).to(torch.int32)
+    outs = [_softmax_step(state, q[:, :, :, i], k[:, :, i], v[:, :, i],
+                          positions[:, i], None if lens is None else i < lens)
+            for i in range(w)]
+    return _merge_heads(p, torch.stack(outs, dim=3), x.dtype), state
+
+
 def attention_decode(
     p: Params,
     x: Tensor,
@@ -416,7 +463,9 @@ def attention_decode(
     s and z; here the mask goes into the recurrence as per-row window
     lengths ``lens = active`` (W = 1), so B1/B7 (and their plain
     versions) leave a masked row's state untouched in place. Under
-    softmax the row-masked cache write is not ported (ROADMAP A.3)."""
+    softmax the one written cache row is gated as JAX gates it: the row
+    is read back and where(active, new, current) written, with no host
+    sync."""
     _require_ported(cfg)
     b, _ = x.shape
     pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
@@ -424,17 +473,8 @@ def attention_decode(
     if cfg.rope:
         q, k = _rope(q, k, pos.expand(b), cfg)
     if cfg.attention_backend == "softmax":
-        if active is not None:
-            raise NotImplementedError(
-                f"{cfg.name}: the slot-masked softmax decode (JAX gates "
-                f"its one written KV-cache row) is not ported; it comes "
-                f"with the KV-cache serving backend (ROADMAP A.3)")
-        rows = torch.arange(b, device=x.device)
-        cols = pos.expand(b).long()
-        state.k_cache[rows, cols] = k[:, :, 0].to(state.k_cache.dtype)
-        state.v_cache[rows, cols] = v[:, :, 0].to(state.v_cache.dtype)
-        o = XA.decode_attention(q[:, :, :, 0], state.k_cache.transpose(1, 2),
-                                state.v_cache.transpose(1, 2), cols + 1)
+        o = _softmax_step(state, q[:, :, :, 0], k[:, :, 0], v[:, :, 0],
+                          pos.expand(b), active)
         return _merge_heads(p, o[:, :, :, None], x.dtype)[:, 0], state
     qh, kh, vh = _heads(q, k, v, cfg)                  # (B, H, 1, Dh)
     lens = (None if active is None else
@@ -460,14 +500,13 @@ def attention_decode_window(
     x: (B, W, D); pos0: () position of the first token, or (B,)
     per-sequence window starts. ``lens``: (B,) per-row valid window
     lengths — row b advances only its first lens[b] tokens (lens=0 rows
-    keep their state bit for bit). The state is updated in place. Linear
-    family only: JAX scans single-token decode for softmax there, which
-    is not ported.
+    keep their state bit for bit). The state is updated in place. Under
+    softmax the window steps single-token decode (``_softmax_window``),
+    as JAX scans it; the linear family runs one fused launch.
     """
     _require_ported(cfg)
     if cfg.attention_backend == "softmax":
-        raise NotImplementedError(
-            f"{cfg.name}: decode_window under softmax is not ported")
+        return _softmax_window(p, x, state, pos0, cfg, lens)
     b, w, _ = x.shape
     q, k, v = _project_qkv(p, x, cfg)
     if cfg.rope:
@@ -504,14 +543,15 @@ def attention_ingest_window(
     x: (B, W, D); pos0: (B,) per-row window starts; lens: (B,) valid
     counts (0 = inert row). Masked positions add zero key and value
     terms and log-decay 0, so an inert row's state comes back as it was.
-    The state is updated in place. Linear family only; outputs at
-    masked positions are garbage.
+    The state is updated in place; outputs at masked positions are
+    garbage. Under softmax, whose cache has no cheap parallel
+    continuation, the window steps single-token decode as
+    ``attention_decode_window`` does (JAX's ``block_ingest_window``
+    falls back to its per-step scan).
     """
     _require_ported(cfg)
     if cfg.attention_backend == "softmax":
-        raise NotImplementedError(
-            f"{cfg.name}: ingest windows under softmax are not ported "
-            f"(ROADMAP A.3)")
+        return _softmax_window(p, x, state, pos0, cfg, lens)
     b, w, _ = x.shape
     lens = torch.as_tensor(lens, device=x.device).to(torch.int32).clamp(0, w)
     q, k, v = _project_qkv(p, x, cfg)

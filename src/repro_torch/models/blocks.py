@@ -87,7 +87,10 @@ def block_decode_window(kind: str, p: Params, x: Tensor, state: A.AttnState,
                         lens: Optional[Tensor] = None
                         ) -> Tuple[Tensor, A.AttnState]:
     """x: (B, W, D) — W known tokens per sequence, one fused kernel launch
-    per block; ``lens``: (B,) per-row valid window lengths. The state is
+    per block for the linear family; under softmax the attention steps
+    single-token decode over the window (JAX scans ``block_decode``; the
+    MLP is per token, so running it once over the window is the same
+    function). ``lens``: (B,) per-row valid window lengths. The state is
     updated in place."""
     _require_attn(kind, cfg)
     h1 = L.apply_norm(cfg.norm, p["norm1"], x)
@@ -100,10 +103,11 @@ def block_ingest_window(kind: str, p: Params, x: Tensor, state: A.AttnState,
                         pos0: Tensor, cfg: ModelConfig, *,
                         lens: Optional[Tensor] = None
                         ) -> Tuple[Tensor, A.AttnState]:
-    """Like :func:`block_decode_window`, but with ``lens`` the attention
-    continues its state through the chunk-parallel prefill forms
-    (``attention_ingest_window``) instead of the recurrence. The state
-    is updated in place."""
+    """Like :func:`block_decode_window`, but with ``lens`` the linear
+    family's attention continues its state through the chunk-parallel
+    prefill forms (``attention_ingest_window``) instead of the
+    recurrence; softmax keeps the per-step path. The state is updated
+    in place."""
     if lens is None:
         return block_decode_window(kind, p, x, state, pos0, cfg)
     _require_attn(kind, cfg)

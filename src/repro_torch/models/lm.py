@@ -21,7 +21,8 @@ Training differentiates ``lm_loss`` with autograd. Under
 ``torch.utils.checkpoint`` region that keeps only its input and runs its
 forward again in the backward, as ``jax.checkpoint`` with
 ``nothing_saveable`` does in JAX; the linear attention's own backward
-(B3) recomputes its states and keeps only (q, k, v).
+(B3) recomputes its states and keeps only (q, k, v), and the softmax
+attention's (JAX's blockwise ``_flash_bwd``) keeps (q, k, v, o, lse).
 """
 
 from __future__ import annotations
@@ -407,13 +408,36 @@ def snapshot_state(state: State, slot: int) -> State:
                       state)
 
 
+def _cache_rows(dst: Tensor, src: Tensor) -> int:
+    """The rows of ``src`` along a KV cache's S axis (…, S, Hkv, Dh) when
+    it is shorter there than ``dst`` (a prefill cache landing in the
+    engine's ``max_len`` cache), else 0: the leaves match."""
+    if dst.shape == src.shape:
+        return 0
+    axis = dst.ndim - 3
+    if dst.shape[:axis] + dst.shape[axis + 1:] != \
+            src.shape[:axis] + src.shape[axis + 1:] or \
+            src.shape[axis] > dst.shape[axis]:
+        raise ValueError(f"state leaf {tuple(src.shape)} does not land in "
+                         f"{tuple(dst.shape)}")
+    return src.shape[axis]
+
+
 def restore_state(engine_state: State, snapshot: State, slot: int) -> State:
     """Write a batch-1 whole-stack state into slot ``slot`` of the engine
-    state, in place; every other slot's rows stay bit for bit. Returns
-    the engine state."""
+    state, in place; every other slot's rows stay bit for bit. A softmax
+    KV cache of fewer rows than the engine's (a prefill's) fills the
+    slot's first rows and the rest become zeros, as JAX's
+    ``pad_decode_state`` + restore leave them. Returns the engine
+    state."""
     for (e, axis), (r, _) in zip(_slot_leaves(engine_state),
                                  _slot_leaves(snapshot)):
-        e.narrow(axis, int(slot), 1).copy_(r)
+        dst = e.narrow(axis, int(slot), 1)
+        n = _cache_rows(dst, r)
+        if n:
+            dst.zero_()
+            dst = dst.narrow(dst.ndim - 3, 0, n)
+        dst.copy_(r)
     return engine_state
 
 
@@ -430,7 +454,11 @@ def where_state(active, new: State, old: State) -> State:
     ``active`` (S,) is True are copied into ``old``; every other slot of
     ``old`` stays bit for bit (JAX selects a new state; the port copies
     only the chosen rows). The chosen slots are found once: a mask on
-    the host costs no device sync. Returns ``old``."""
+    the host costs no device sync. A softmax KV cache of ``new`` with
+    fewer rows than ``old``'s (a bucket-width prefill landing in the
+    engine's ``max_len`` caches) fills the chosen slots' first rows and
+    zeros the rest, as JAX's ``pad_decode_state`` + select leave them.
+    Returns ``old``."""
     idx = torch.nonzero(torch.as_tensor(active)).flatten()
     if not idx.numel():
         return old
@@ -439,6 +467,10 @@ def where_state(active, new: State, old: State) -> State:
         if o.device not in on:
             on[o.device] = idx.to(o.device)
         i = on[o.device]
+        rows = _cache_rows(o, n)
+        if rows:
+            o.index_fill_(axis, i, 0)
+            o = o.narrow(o.ndim - 3, 0, rows)
         o.index_copy_(axis, i, n.index_select(axis, i))
     return old
 
@@ -467,14 +499,16 @@ def generate_segment(params: Params, state: State, tok: Tensor, pos: Tensor,
     request, remaining (S,) how many tokens it may still emit (this
     step's included). A slot stops inside the segment when its budget
     reaches zero or it emits ``eos_id``; stopped and empty slots emit
-    ``pad_id`` and keep their state bit for bit, so each slot's tokens
-    are those of its request run alone (greedy).
+    ``pad_id`` and keep their state bit for bit (under softmax their
+    one written cache row is gated), so each slot's tokens are those of
+    its request run alone (greedy).
 
     JAX runs the segment as one ``lax.scan``; here it is a Python loop
     whose carry stays on the device, every stop decided by
     ``torch.where``: nothing in it waits for the host. Every step
     launches the decode kernel once per layer, the whole segment
-    through, whatever the slots do. Returns (tokens (S, n_steps),
+    through, whatever the slots do (softmax: no kernel, the cache read
+    is plain PyTorch). Returns (tokens (S, n_steps),
     carry) with carry = {"tok", "pos", "active", "remaining", "state"};
     the state is updated in place."""
     if temperature and temperature > 0.0 and generator is None:
@@ -540,8 +574,9 @@ def decode_window_varlen(params: Params, state: State, tokens: Tensor, pos0,
                          last_only: bool = False) -> Tuple[Tensor, State]:
     """Variable-length window: row b consumes tokens[b, :lens[b]] from
     position pos0[b] (0 ≤ lens ≤ W) through the recurrence (B1/B7 on
-    CUDA tensors, one launch per layer); ``active`` False rows behave as
-    lens = 0. Masked rows and steps leave the state bit for bit as it was;
+    CUDA tensors, one launch per layer; under softmax W single-token
+    steps, the cache row of step w gated on w < lens[b], as JAX scans
+    it); ``active`` False rows behave as lens = 0. Masked rows and steps leave the state bit for bit as it was;
     their logits are garbage. Returns (logits (B, W, V), state), or with
     ``last_only`` each row's logits after its last valid token, (B, V),
     the head run on those rows only."""
@@ -561,8 +596,10 @@ def ingest_window_varlen(params: Params, state: State, tokens: Tensor, pos0,
     ingestion (same arguments and row masking): the linear family
     continues each row's state through the plain chunked prefill forms
     from the carried state and key sum, at prefill cost rather than W
-    recurrent steps. Returns (logits (B, W, V), state), or (B, V) with
-    ``last_only``; the state is updated in place."""
+    recurrent steps; softmax, whose cache has no parallel continuation,
+    takes the per-step path of :func:`decode_window_varlen`. Returns
+    (logits (B, W, V), state), or (B, V) with ``last_only``; the state
+    is updated in place."""
     pos0, lens = _varlen_args(tokens, pos0, lens)
     last = (lens - 1).clamp(min=0) if last_only else None
     return _window_forward(params, state, tokens, pos0, cfg,

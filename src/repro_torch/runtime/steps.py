@@ -3,11 +3,11 @@
 PyTorch runs eagerly, so a step is a plain function: no jit and no
 sharding trees. The train step differentiates ``lm.lm_loss`` through the
 gradient accumulator and updates the parameters in place. Training
-covers ``attention_backend="linear"``, whose core runs B2 forward and B3
-backward on the card, and ``"gated_linear"``, whose core runs B8 forward
-and B9 backward. Softmax training is not ported (the port's softmax
-path serves only: B10 is forward only), so that backend raises rather
-than train through plain code.
+covers every attention backend of the port: ``"linear"``, whose core
+runs B2 forward and B3 backward on the card; ``"gated_linear"``, B8
+forward and B9 backward; and ``"softmax"``, the paper's baseline, B10
+forward (with its log-sum-exp) and JAX's blockwise flash backward in
+plain PyTorch.
 """
 
 from __future__ import annotations
@@ -20,14 +20,6 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import lm
 from repro_torch.optim import GradAccumulator, Optimizer, global_norm
 from repro_torch.tree import tree_map
-
-
-def _require_trainable(cfg: ModelConfig) -> None:
-    if cfg.attention_backend not in ("linear", "gated_linear"):
-        raise NotImplementedError(
-            f"{cfg.name}: the port trains attention_backend 'linear' or "
-            f"'gated_linear' only (got {cfg.attention_backend!r}); softmax "
-            f"training (the backward of B10) is not ported")
 
 
 def make_train_step(
@@ -47,7 +39,6 @@ def make_train_step(
     ``attention_kernel=False`` runs the attention core's plain versions
     on the card (the reference route of the tests and chip_smoke.py).
     """
-    _require_trainable(cfg)
     accum = GradAccumulator(n_micro)
 
     def loss_fn(params, batch):

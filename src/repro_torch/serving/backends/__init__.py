@@ -2,9 +2,10 @@
 the seam between the engine's scheduling and a family's state layout.
 
 Importing this package registers the ported backends; dispatch goes
-through :func:`backend_for_config`. Only ``FixedStateBackend`` (the
-linear and gated-linear families) is ported; the softmax KV-cache,
-Mamba-2 and RWKV-6 backends are not (ROADMAP A.3, A.4).
+through :func:`backend_for_config` (by priority, so import order never
+decides). Ported: ``FixedStateBackend`` (the linear and gated-linear
+families) and ``SoftmaxKVBackend`` (the softmax baseline's KV cache);
+the Mamba-2 and RWKV-6 backends are not (ROADMAP A.4).
 """
 
 from repro_torch.serving.backends.base import (  # noqa: F401
@@ -15,4 +16,7 @@ from repro_torch.serving.backends.base import (  # noqa: F401
 # concrete backends (import = register)
 from repro_torch.serving.backends.fixed_state import (  # noqa: F401
     FixedStateBackend,
+)
+from repro_torch.serving.backends.softmax_kv import (  # noqa: F401
+    SoftmaxKVBackend,
 )

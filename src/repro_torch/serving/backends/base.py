@@ -9,7 +9,7 @@ family:
   ``generate_segment``, ``sample_token``, ``restore_state`` /
   ``write_slot_state`` and ``where_state`` — all of them
   ``models/lm.py``'s, which update states in place (the engine core's
-  calls; JAX's speculation, lifecycle and softmax ops come with those
+  calls; JAX's speculation and lifecycle ops come with those
   features);
 * **capability flags** — ``fixed_size_state`` (admission moves O(k²)
   bytes, never a KV history), ``supports_varlen_prefill`` (bucket-padded
@@ -20,8 +20,7 @@ family:
 ``resolve_modes`` is the one place the engine's ``admission`` and
 ``ingest`` "auto" settings are decided. ``backend_for_config`` walks the
 registry by priority; the first backend whose ``handles(cfg)`` is True
-wins. The softmax KV-cache backend is not ported: a softmax config
-raises NotImplementedError naming ROADMAP A.3.
+wins.
 """
 
 from __future__ import annotations
@@ -75,7 +74,8 @@ class DecodeBackend:
         against this backend's capabilities. ``ingest="auto"`` is
         ``"recurrent"``: JAX picks the chunk-parallel continuation on a
         TPU only, and the masked recurrent window (B1/B7 here) on any
-        other backend."""
+        other backend. Under softmax both settings take the per-step
+        path (``lm.ingest_window_varlen`` falls back to it)."""
         if admission not in ADMISSIONS:
             raise ValueError(f"admission must be one of {ADMISSIONS}, got "
                              f"{admission!r}")
@@ -170,10 +170,6 @@ def register_backend(cls: Type[DecodeBackend]) -> Type[DecodeBackend]:
 
 def backend_for_config(cfg: ModelConfig) -> DecodeBackend:
     """The first registered backend, by priority, that claims ``cfg``."""
-    if cfg.attention_backend == "softmax":
-        raise NotImplementedError(
-            f"{cfg.name}: the softmax KV-cache serving backend "
-            f"(serving/backends/softmax_kv.py) is not ported (ROADMAP A.3)")
     for cls in sorted(_BACKENDS.values(),
                       key=lambda c: (c.priority, c.name)):
         if cls.handles(cfg):

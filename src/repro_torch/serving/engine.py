@@ -35,6 +35,15 @@ so this module is a scheduler and the backend owns the state layout.
   greedy decoding each request's tokens are those it would produce
   running alone.
 
+* **Softmax.** Under the KV-cache baseline (``SoftmaxKVBackend``) the
+  slots hold ``max_len``-row caches. A wave's varlen prefill runs B10
+  (the causal flash-attention kernel) on CUDA tensors, and landing it
+  copies its bucket-width rows into the wave's slots and zeros the rest
+  of each, as JAX pads; decode writes one gated cache row per slot and
+  step, and both ingest settings step single-token decode over a chunk.
+  ``submit`` keeps prompt + budget within ``max_len`` + 1, so every
+  written row fits the cache.
+
 Time is logical: the clock advances ``segment_len`` decode steps per
 segment, and request ``arrival`` times are in decode steps.
 

@@ -1123,6 +1123,54 @@ def test_flash_attention_kernel_reads_kv_by_head(dev, b, h, hkv, t, s, d,
                                                 vb.float()), dtype)
 
 
+# the log-sum-exp beside o: fp32 sums in another order (1e-5); bf16 the
+# same scores from bf16 inputs through ex2.approx (1e-4)
+LSE_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-4}
+
+
+@pytest.mark.parametrize("b,h,hkv,t,s,d,t_off,s_real", [
+    (8, 16, 8, 512, 512, 128, None, None),
+    (8, 16, 8, 1024, 1024, 128, None, None),
+    (2, 4, 2, 77, 300, 128, 5, 290),
+    (3, 4, 4, 200, 200, 64, None, 150),
+    (2, 6, 2, 96, 160, 16, 10, 100),
+    (1, 2, 1, 1, 64, 64, None, None),
+])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_kernel_emits_lse(dev, b, h, hkv, t, s, d, t_off,
+                                          s_real, dtype):
+    """``want_lse``: one launch writes o, bit for bit the o of the
+    null-lse launch, and the fp32 log-sum-exp of each query, against the
+    plain version's at LSE_TOL."""
+    q, k, v, _, _ = _fa_by_kv_head(dev, b, h, hkv, t, s, d, dtype)
+    kw = dict(t_off=t_off, s_real=s_real, kv_heads=hkv)
+    before = fa_ops.fwd.launches
+    o, lse = fa_ops.fwd(q, k, v, want_lse=True, **kw)
+    torch.cuda.synchronize()
+    assert fa_ops.fwd.launches == before + 1
+    assert lse.dtype == torch.float32 and lse.shape == (b * h, t)
+    assert torch.equal(o, fa_ops.fwd(q, k, v, **kw))
+    o_r, lse_r = fa_ops.fwd(q, k, v, want_lse=True, kernel=False, **kw)
+    _fa_close(o, o_r, dtype)
+    torch.testing.assert_close(lse, lse_r, rtol=LSE_TOL[dtype],
+                               atol=LSE_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_wrapper_slices_lse_from_padded_rows(dev, dtype):
+    """Ragged T < S through the wrapper's tile padding: lse (B, H, T)."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    q = torch.randn((2, 16, 72, 128), generator=g, device=dev).to(dtype)
+    k, v = (torch.randn((2, 8, 200, 128), generator=g, device=dev).to(dtype)
+            for _ in range(2))
+    o, lse = fa_ops.flash_attention(q, k, v, want_lse=True)
+    o_r, lse_r = fa_ops.flash_attention(q, k, v, want_lse=True, kernel=False)
+    assert lse.shape == (2, 16, 72)
+    _fa_close(o, o_r, dtype)
+    torch.testing.assert_close(lse, lse_r, rtol=LSE_TOL[dtype],
+                               atol=LSE_TOL[dtype])
+
+
 @pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("scale", [-0.1, 0.0])
 def test_flash_attention_bf16_kernel_takes_any_scale(dev, d, scale):
@@ -1131,9 +1179,11 @@ def test_flash_attention_bf16_kernel_takes_any_scale(dev, d, scale):
     visible values. Both against the plain version."""
     q, k, v, _, _ = _fa_by_kv_head(dev, 2, 4, 2, 130, 130, d,
                                    torch.bfloat16, seed=4)
-    o = fa_ops.fwd(q, k, v, scale=scale, kv_heads=2)
-    _fa_close(o, fa_ops.fwd(q, k, v, scale=scale, kv_heads=2, kernel=False),
-              torch.bfloat16)
+    o, lse = fa_ops.fwd(q, k, v, scale=scale, kv_heads=2, want_lse=True)
+    o_r, lse_r = fa_ops.fwd(q, k, v, scale=scale, kv_heads=2, kernel=False,
+                            want_lse=True)
+    _fa_close(o, o_r, torch.bfloat16)
+    torch.testing.assert_close(lse, lse_r, rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1248,6 +1298,82 @@ def test_engine_through_kernels_matches_reference_engine(dev, backend,
     chunks = st["ingest_chunks"] if ingest == "recurrent" else 0
     assert n == cfg.n_layers * (st["segment_len"] * st["segments"] + chunks)
     assert n_ref == 0
+    for a, b in zip(comps, ref):
+        assert (a.uid, a.finish_reason, a.admitted_step, a.finished_step) \
+            == (b.uid, b.finish_reason, b.admitted_step, b.finished_step)
+        np.testing.assert_array_equal(a.tokens, b.tokens)
+
+
+@pytest.mark.parametrize("dtype,loss_tol,leaf_tol", [
+    ("float32", 1e-5, 1e-4), ("bfloat16", 1e-4, 5e-2)])
+def test_softmax_training_slice_through_b10_matches_plain_route(
+        dev, dtype, loss_tol, leaf_tol):
+    """Two layers at qwen3-0.6b's full widths: the loss and every
+    gradient leaf with B10 (and its lse) in the forward against the same
+    with B10's plain version (``attention_kernel=False``); the backward
+    is the plain blockwise flash backward on both routes. B10 twice per
+    layer under remat (forward and recompute). The loss relative, each
+    leaf normwise (max|Δ| over the plain leaf's largest magnitude)."""
+    from repro_torch.configs import get_config
+    from repro_torch.tree import leaves
+    cfg = dataclasses.replace(get_config("qwen3-0.6b").with_backend("softmax"),
+                              n_layers=2, dtype=dtype)
+    params = lm.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    g = torch.Generator(device=dev).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (2, 257), device=dev, generator=g)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    flat = leaves(params)
+    for x in flat:
+        x.requires_grad_()
+    out = {}
+    for kernel in (True, False):
+        before = fa_ops.fwd.launches
+        loss, _ = lm.lm_loss(params, batch, cfg, attention_kernel=kernel)
+        grads = torch.autograd.grad(loss, flat)
+        assert fa_ops.fwd.launches - before == (4 if kernel else 0)
+        out[kernel] = (loss.detach(), grads)
+    torch.testing.assert_close(out[True][0], out[False][0], rtol=loss_tol,
+                               atol=0.0)
+    for a, b in zip(out[True][1], out[False][1]):
+        assert torch.isfinite(a).all()
+        _assert_normwise(a, b, leaf_tol, "gradient leaf")
+
+
+@pytest.mark.parametrize("workload", sorted(ENGINE_WORKLOADS))
+def test_softmax_engine_through_b10_matches_plain_prefill_engine(dev,
+                                                                 workload):
+    """DecodeEngine under softmax at the smoke size, fp32: admission waves
+    through B10 against the same engine under decode_kernel="reference"
+    (B10's plain version in every prefill): completions token for token
+    and the stats identical; B10 launched once per layer and prefill pass
+    (each wave and each 1-token prompt), never on the plain route."""
+    from repro_torch.launch import serve
+    from repro_torch.serving import DecodeEngine
+
+    cfg = dataclasses.replace(
+        get_smoke_config("qwen3-0.6b").with_backend("softmax"),
+        dtype="float32")
+    params = lm.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    chunk, max_len, prompt_lens, gens = ENGINE_WORKLOADS[workload]
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+               for n in prompt_lens]
+    runs = {}
+    for kernel in ("auto", "reference"):
+        eng = DecodeEngine(params,
+                           dataclasses.replace(cfg, decode_kernel=kernel),
+                           n_slots=3, segment_len=4, max_len=max_len,
+                           prefill_chunk=chunk)
+        for p, g in zip(prompts, gens):
+            eng.submit(p, g)
+        before = fa_ops.fwd.launches
+        comps = eng.run()
+        runs[kernel == "auto"] = (comps, eng.stats.to_dict(),
+                                  fa_ops.fwd.launches - before)
+    (comps, st, n), (ref, ref_st, n_ref) = runs[True], runs[False]
+    assert st == ref_st and st["ingest_chunks"] > 0 and n_ref == 0
+    ones = sum(n == 1 for n in prompt_lens)
+    assert n == serve.stream_launches(cfg, st, "recurrent", "batched", ones)
     for a, b in zip(comps, ref):
         assert (a.uid, a.finish_reason, a.admitted_step, a.finished_step) \
             == (b.uid, b.finish_reason, b.admitted_step, b.finished_step)

@@ -1,19 +1,22 @@
 """The port's continuous-batching slice against the JAX package on
-converted weights, qwen3-0.6b's smoke config in fp32, for ``linear`` and
-``gated_linear``:
+converted weights, qwen3-0.6b's smoke config in fp32, for ``linear``,
+``gated_linear`` and ``softmax`` (the KV-cache baseline,
+``SoftmaxKVBackend``):
 
 * the model surface of the engine — ``prefill_varlen``,
   ``decode_step(active=)``, ``generate_segment``,
   ``ingest_window_varlen`` and the per-slot state copies — against
   JAX's: states within 1e-5, logits within 1e-4 (the two frameworks sum
   in different orders), greedy tokens identical; masked rows bit for bit
-  within torch;
+  within torch (under softmax the KV caches, grown to 24 rows, the gated
+  row of a masked slot included);
 * the port's ``DecodeEngine`` against JAX's on a mixed workload (prompts
   of 1 to 40 tokens, two beyond the ingest chunk) under both admissions
   and both ingest programs: completions token for token, finish
   reasons, admitted and finished steps and the core's stats equal;
 * the JAX engine tests (run-alone identity, batched admission, the
-  segment) ported within torch, and ``serve --mode stream`` on the CPU.
+  segment) ported within torch, and ``serve --mode stream`` and
+  ``--mode retrieve`` on the CPU.
 
 JAX runs its engine on the CPU through its jnp reference recurrence
 (``decode_kernel="auto"`` off a TPU); the JAX runs are module fixtures.
@@ -43,7 +46,9 @@ from repro_torch.serving.engine import PAD_ID
 
 STATE_TOL, LOGIT_TOL = 1e-5, 1e-4
 RULES = Rules.null()
-BACKENDS = ["linear", "gated_linear"]
+BACKENDS = ["linear", "gated_linear", "softmax"]
+LINEAR = ["linear", "gated_linear"]
+CACHE_ROWS = 24       # the softmax caches' rows in the model-surface tests
 # EngineStats fields the port keeps (JAX's core counters), and the
 # derived ratios
 CORE_STATS = ("segments", "emitted_tokens", "prefills", "n_slots",
@@ -91,7 +96,7 @@ def _leaves(state):
     """(name, torch leaf) of a port state, in the JAX tree's order."""
     return [(f"{part}[{i}].{f}", getattr(st, f))
             for part in ("stack", "tail") for i, st in enumerate(state[part])
-            for f in ("s", "z") if getattr(st, f) is not None]
+            for f in A.AttnState._fields if getattr(st, f) is not None]
 
 
 def _assert_state_close(t_state, j_state, tol=STATE_TOL):
@@ -125,7 +130,8 @@ def _assert_rows_unchanged(new, old, rows):
 
 def _prefilled(models, backend, lens=(8, 5, 3)):
     """A (3, 8) prompt batch prefilled by both packages (varlen), from
-    which the window and step tests continue."""
+    which the window and step tests continue; softmax caches grown to
+    CACHE_ROWS rows (zeros) by each package's ``pad_decode_state``."""
     jcfg, tcfg, pj, pt = models[backend]
     rng = np.random.default_rng(1)
     tokens = rng.integers(0, jcfg.vocab_size, (3, 8)).astype(np.int32)
@@ -133,7 +139,9 @@ def _prefilled(models, backend, lens=(8, 5, 3)):
     j_last, j_st = jlm.prefill_varlen(pj, jnp.asarray(tokens),
                                       jnp.asarray(lens), jcfg, RULES)
     t_last, t_st = lm.prefill_varlen(pt, _t(tokens).long(), _t(lens), tcfg)
-    return tokens, lens, (j_last, j_st), (t_last, t_st)
+    return tokens, lens, (j_last, jlm.pad_decode_state(j_st, jcfg,
+                                                       CACHE_ROWS)), (
+        t_last, lm.pad_decode_state(t_st, tcfg, CACHE_ROWS))
 
 
 # ---------------------------------------------------------------------------
@@ -148,7 +156,7 @@ def test_prefill_varlen_matches_jax(models, backend):
     _assert_state_close(t_st, j_st)
 
 
-@pytest.mark.parametrize("backend", BACKENDS)
+@pytest.mark.parametrize("backend", LINEAR)
 def test_prefill_varlen_rows_match_unpadded_prefill(models, backend):
     """Each padded row's state and last logits are those of its prompt
     prefilled alone (within fp32 rounding: the chunking differs), and a
@@ -165,6 +173,25 @@ def test_prefill_varlen_rows_match_unpadded_prefill(models, backend):
             assert err <= STATE_TOL * max(1.0, y.abs().max().item()), name
     for name, x in _leaves(t_st):
         assert not x[:, 2].any(), name
+
+
+def test_prefill_varlen_cache_rows_match_unpadded_prefill(models):
+    """Softmax: each padded row's cache rows below its length and its
+    last logits are those of its prompt prefilled alone (causality keeps
+    the pad keys from valid queries); the rows past the bucket are the
+    zeros ``pad_decode_state`` adds."""
+    _, tcfg, _, pt = models["softmax"]
+    tokens, lens, _, (t_last, t_st) = _prefilled(models, "softmax")
+    for b in range(3):
+        last, st = lm.prefill(pt, _t(tokens[b:b + 1, :lens[b]]).long(), tcfg)
+        np.testing.assert_allclose(t_last[b:b + 1].numpy(), last.numpy(),
+                                   rtol=LOGIT_TOL, atol=LOGIT_TOL)
+        for (name, x), (_, y) in zip(_leaves(t_st), _leaves(st)):
+            np.testing.assert_allclose(x[:, b:b + 1, :lens[b]].numpy(),
+                                       y.numpy(), rtol=STATE_TOL,
+                                       atol=STATE_TOL, err_msg=name)
+    for name, x in _leaves(t_st):
+        assert not x[:, :, 8:].any(), name
 
 
 @pytest.mark.parametrize("backend", BACKENDS)
@@ -296,9 +323,10 @@ def test_slot_state_functions_match_jax(models, backend):
                                              j_eng), tol=0)
     _assert_rows_unchanged(out, before, [0, 2])
 
-    t_eng["stack"][0].s[1, 2, 0, 0, 0] = float("nan")
+    field = "k_cache" if backend == "softmax" else "s"
+    getattr(t_eng["stack"][0], field)[1, 2, 0, 0, 0] = float("nan")
     j_bad = jax.tree.map(np.array, j_eng)        # writable copies
-    j_bad["stack"][0].s[1, 2, 0, 0, 0] = np.nan
+    getattr(j_bad["stack"][0], field)[1, 2, 0, 0, 0] = np.nan
     np.testing.assert_array_equal(
         lm.slot_state_finite(t_eng).numpy(),
         np.asarray(jlm.slot_state_finite(j_bad)))
@@ -309,30 +337,50 @@ def test_slot_state_functions_match_jax(models, backend):
 def test_backend_matches_jax(models, backend):
     """The registry's choice, the capability flags, the resolved modes
     (ingest 'auto' is 'recurrent', as JAX resolves it off a TPU) and the
-    bytes of one slot (from a state on the meta device)."""
+    bytes of one slot (from a state on the meta device): constant in
+    max_len for the fixed-size state, growing with it for the KV
+    cache."""
     jcfg, tcfg, _, _ = models[backend]
     be, jbe = backend_for_config(tcfg), jax_backend_for(jcfg)
-    assert be.name == jbe.name == "fixed_state"
-    assert be.fixed_size_state == jbe.fixed_size_state is True
+    softmax = backend == "softmax"
+    assert be.name == jbe.name == ("softmax_kv" if softmax
+                                   else "fixed_state")
+    assert be.fixed_size_state == jbe.fixed_size_state is not softmax
     assert be.supports_varlen_prefill == jbe.supports_varlen_prefill is True
     assert be.resolve_modes("auto", "auto") == ("batched", "recurrent")
     assert jbe.resolve_modes("auto", "auto") == ("batched", "recurrent")
-    for max_len in (16, 4096):
-        assert be.state_bytes_per_slot(max_len) == \
-            jbe.state_bytes_per_slot(max_len)
+    sizes = [be.state_bytes_per_slot(n) for n in (16, 4096)]
+    assert sizes == [jbe.state_bytes_per_slot(n) for n in (16, 4096)]
+    assert (sizes[1] == 256 * sizes[0]) if softmax else sizes[0] == sizes[1]
 
 
-def test_softmax_is_refused_naming_the_roadmap_item():
+def test_softmax_backend_validates_its_config():
+    from repro_torch.serving.backends import SoftmaxKVBackend
+    _, tcfg = _configs("linear")
+    with pytest.raises(ValueError, match="softmax"):
+        SoftmaxKVBackend(tcfg)
+    assert not SoftmaxKVBackend.handles(tcfg)
+
+
+@pytest.mark.parametrize("decode_kernel,kernel", [("auto", True),
+                                                  ("reference", False)])
+def test_softmax_backend_prefills_by_decode_kernel(monkeypatch,
+                                                   decode_kernel, kernel):
+    """decode_kernel="reference" selects the softmax engine's reference
+    route as it does the linear family's: both prefills ask for B10's
+    plain version (attention_kernel=False); "auto" asks for B10."""
+    from repro_torch.serving.backends import softmax_kv
     _, tcfg = _configs("softmax")
-    with pytest.raises(NotImplementedError, match="A.3"):
-        backend_for_config(tcfg)
-    params = lm.init_params(torch.Generator().manual_seed(0), tcfg)
-    with pytest.raises(NotImplementedError, match="A.3"):
-        DecodeEngine(params, tcfg)
-    state = lm.init_decode_state(tcfg, 2, max_len=8)
-    with pytest.raises(NotImplementedError, match="A.3"):
-        lm.decode_step(params, state, torch.tensor([1, 2]), 0, tcfg,
-                       active=torch.tensor([True, False]))
+    seen = []
+    monkeypatch.setattr(softmax_kv.lm, "prefill",
+                        lambda *a, **kw: seen.append(kw))
+    monkeypatch.setattr(softmax_kv.lm, "prefill_varlen",
+                        lambda *a, **kw: seen.append(kw))
+    be = softmax_kv.SoftmaxKVBackend(
+        dataclasses.replace(tcfg, decode_kernel=decode_kernel))
+    be.prefill(None, None)
+    be.prefill_varlen(None, None, None)
+    assert seen == [{"attention_kernel": kernel}] * 2
 
 
 def test_modes_follow_the_capability():
@@ -444,6 +492,7 @@ def _standalone(params, cfg, prompt, gen_len, eos_id=None):
     """The request running alone (prefill, greedy generate), truncated at
     the first EOS as the engine truncates."""
     logits, st = lm.prefill(params, _t(prompt).long()[None], cfg)
+    st = lm.pad_decode_state(st, cfg, len(prompt) + gen_len)
     tok0 = int(torch.argmax(logits, -1)[0])
     toks = [tok0]
     if gen_len > 1 and not (eos_id is not None and tok0 == eos_id):
@@ -732,10 +781,12 @@ class TestBatchedAdmission:
         assert len(comps) == 4
         assert comps[3].admitted_step == 0
 
-    def test_wave_lands_only_its_rows(self, models):
+    @pytest.mark.parametrize("backend", ["gated_linear", "softmax"])
+    def test_wave_lands_only_its_rows(self, models, backend):
         """Landing a wave copies its rows into the engine state; a live
-        slot's state stays bit for bit."""
-        _, tcfg, _, pt = models["gated_linear"]
+        slot's state (under softmax its whole max_len cache) stays bit
+        for bit."""
+        _, tcfg, _, pt = models[backend]
         eng = DecodeEngine(pt, tcfg, n_slots=3, segment_len=4, max_len=96,
                            prefill_chunk=8)
         prompts, _ = _mixed_workload(tcfg.vocab_size)
@@ -777,3 +828,68 @@ def test_request_mix_matches_jax():
     for (pa, ga, ta), (pb, gb, tb) in zip(a, b):
         np.testing.assert_array_equal(pa, pb)
         assert (ga, ta) == (gb, tb)
+
+
+def test_landing_short_caches_matches_jax_padding(models):
+    """A softmax prefill's caches (8 rows) land in the engine's 16-row
+    caches as JAX lands them: ``pad_decode_state`` (zeros) then
+    ``where_state`` for a wave, ``restore_state`` for one slot; bitwise,
+    every other slot untouched, the landed slots' old rows past 8
+    zeroed."""
+    jcfg, tcfg, pj, pt = models["softmax"]
+    rng = np.random.default_rng(8)
+    j_eng = jax.tree.map(
+        lambda x: jnp.asarray(rng.standard_normal(x.shape), x.dtype),
+        jlm.init_decode_state(jcfg, 3, 16))
+    t_eng = convert.state_from_jax(_np_tree(j_eng))
+    tokens = rng.integers(0, jcfg.vocab_size, (3, 8)).astype(np.int32)
+    lens = np.asarray([8, 3, 6], np.int32)
+    _, j_new = jlm.prefill_varlen(pj, jnp.asarray(tokens), jnp.asarray(lens),
+                                  jcfg, RULES)
+    t_new = convert.state_from_jax(_np_tree(j_new))    # the same numbers
+    mask = np.asarray([True, False, True])
+    before = _clone(t_eng)
+    lm.where_state(_t(mask), t_new, t_eng)
+    j_eng = jlm.where_state(jnp.asarray(mask),
+                            jlm.pad_decode_state(j_new, jcfg, 16), j_eng)
+    _assert_state_close(t_eng, j_eng, tol=0)
+    _assert_rows_unchanged(t_eng, before, [1])
+    one = lm.snapshot_state(t_new, 1)
+    lm.restore_state(t_eng, {p: tuple(A.AttnState(
+        *(None if x is None else x[:, :, :5] for x in st)) for st in g)
+        for p, g in one.items()}, 1)
+    j_one = jlm.pad_decode_state(jax.tree.map(
+        lambda x: x[:, :, :5], jlm.snapshot_state(j_new, 1)), jcfg, 16)
+    _assert_state_close(t_eng, jlm.restore_state(j_eng, j_one, 1), tol=0)
+
+
+@pytest.mark.parametrize("admission,ones,want", [("batched", 0, 2 * 3),
+                                                 ("batched", 2, 2 * 5),
+                                                 ("per_request", 0, 2 * 7)])
+def test_stream_launch_formula_under_softmax(admission, ones, want):
+    """B10 runs once per layer and prefill pass: each batched wave and
+    each 1-token prompt that batched admission encodes alone, or each
+    per-request prefill."""
+    _, tcfg = _configs("softmax")
+    stats = {"prefill_dispatches": 3, "prefills": 7, "segments": 9,
+             "segment_len": 4, "ingest_chunks": 5}
+    assert tcfg.n_layers == 2
+    assert serve.stream_launches(tcfg, stats, "recurrent", admission,
+                                 ones) == want
+
+
+def test_serve_retrieve_smoke():
+    """``serve --mode retrieve --device cpu``: the store holds one k×k
+    state per document (JAX's sizes), and the last wave's answers are
+    Hᵀ(Hq) of each document's hidden states."""
+    args = serve.parse_args(["--mode", "retrieve", "--device", "cpu",
+                             "--batch", "6"])
+    out = serve.retrieve(args)
+    assert len(out["store"]) == 6 and out["iters"] == 100
+    assert out["store_mib"] * 2**20 == 6 * 100 * 100 * 4
+    assert out["raw_mib"] * 2**20 == 6 * 750 * 100 * 4
+    h, q = out["h"].double(), out["queries"].double()
+    want = torch.einsum("bnk,bn->bk", h, torch.einsum("bnk,bk->bn", h, q))
+    torch.testing.assert_close(out["answers"].double(), want, rtol=1e-5,
+                               atol=1e-3)
+    assert out["queries_per_s"] > 0

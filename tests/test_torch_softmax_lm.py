@@ -136,12 +136,29 @@ def test_attention_decode(pos):
 
 
 def test_decode_window_and_feature_gate_under_softmax():
+    """``attention_decode_window`` under softmax against JAX's scan of
+    single-token ``attention_decode`` over the window (what JAX's
+    ``block_decode_window`` does for the KV cache): outputs and caches."""
     jcfg, tcfg = _cfgs()
-    _, pt = _params(jcfg)
-    st = TA.init_attn_state(tcfg, 2, max_len=8)
-    with pytest.raises(NotImplementedError):
-        TA.attention_decode_window(pt, torch.zeros(2, 3, tcfg.d_model), st,
-                                   torch.tensor(0), tcfg)
+    pj, pt = _params(jcfg)
+    b, w, s = 2, 3, 8
+    x = _x(5, b, w, jcfg.d_model)
+    kc = 0.5 * _x(6, b, s, jcfg.n_kv_heads, jcfg.head_dim)
+    vc = _x(7, b, s, jcfg.n_kv_heads, jcfg.head_dim)
+    pos0 = np.array([1, 4], np.int32)
+    j_st, ys = JA.AttnState(kc, vc, None, None), []
+    for i in range(w):
+        y, j_st = JA.attention_decode(pj, x[:, i], j_st, pos0 + i, jcfg,
+                                      RULES)
+        ys.append(np.asarray(y))
+    st = TA.AttnState(k_cache=torch.from_numpy(kc.copy()),
+                      v_cache=torch.from_numpy(vc.copy()))
+    y_t, st_t = TA.attention_decode_window(pt, torch.from_numpy(x), st,
+                                           torch.from_numpy(pos0), tcfg)
+    assert st_t.k_cache is st.k_cache            # written in place
+    _close(y_t, np.stack(ys, axis=1))
+    _close(st_t.k_cache, j_st.k_cache)
+    _close(st_t.v_cache, j_st.v_cache)
     with pytest.raises(ValueError):              # the cache needs a length
         TA.init_attn_state(tcfg, 2)
     # JAX applies the feature gate to the linear family only
@@ -149,23 +166,6 @@ def test_decode_window_and_feature_gate_under_softmax():
     assert TA.init_attn_state(gated, 1, max_len=4).k_cache.shape[1] == 4
     with pytest.raises(NotImplementedError):
         TA.init_attn_state(gated.with_backend("linear"), 1)
-
-
-def test_softmax_training_still_raises():
-    """Without want_state (training) the softmax branch raises, and so do
-    the loss and the train step; nothing falls back to a plain route."""
-    from repro_torch.optim import adamw, cosine_warmup
-    from repro_torch.runtime import make_train_step
-    jcfg, tcfg = _cfgs()
-    _, pt = _params(jcfg)
-    with pytest.raises(NotImplementedError):
-        TA.attention_apply(pt, torch.zeros(1, 4, tcfg.d_model), tcfg)
-    params = tlm.init_params(torch.Generator().manual_seed(0), tcfg)
-    toks = torch.zeros((1, 8), dtype=torch.long)
-    with pytest.raises(NotImplementedError):
-        tlm.lm_loss(params, {"tokens": toks, "labels": toks}, tcfg)
-    with pytest.raises(NotImplementedError):
-        make_train_step(tcfg, adamw(cosine_warmup(1e-3, warmup=1, total=2)))
 
 
 # -- the slice ---------------------------------------------------------------

@@ -250,12 +250,6 @@ def _args(*extra):
                               "--batch", "2", "--seq-len", "16", *extra])
 
 
-@pytest.mark.parametrize("backend", ["softmax"])
-def test_training_other_backends_raises(backend):
-    with pytest.raises(NotImplementedError):
-        ttrain.build(_args("--backend", backend))
-
-
 def test_checkpoint_dir_raises(tmp_path):
     with pytest.raises(NotImplementedError):
         ttrain.build(_args("--backend", "linear", "--ckpt-dir",
