@@ -31,7 +31,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    forward) at every check, the training path's T = S = 1024 included,
    its o bit for bit the null-lse route's and
    its log-sum-exp against the plain version's (fp32 1e-5, bf16 1e-4,
-   relative to max(1, |lse|)), also through the wrapper's padding.
+   relative to max(1, |lse|)), also through the wrapper's padding. The
+   MoE and vision paths' new shapes: B1 at N = 256 and 512 rows (fp32
+   and bf16), B10 at 64 q heads over 8 and over 4 kv heads.
 3. The serving slice on the card: a 2-layer model at qwen3-0.6b's full
    widths in fp32, prefill + 16 greedy steps through the kernel against
    the same run through ``decode_kernel="reference"``.
@@ -133,9 +135,42 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 19. The retrieve main path: ``serve --mode retrieve --batch 4096`` at the
    paper's width (k = 100, n = 750): queries/s, the store's MiB against
    the raw hidden states', 256 sampled answers against Hᵀ(Hq) in fp64.
+20. The MoE slice: one MoE layer of deepseek-moe-16b and of
+   qwen3-moe-235b-a22b at full width in fp32, ``moe_apply`` against
+   ``moe_dense_oracle`` where nothing drops, the routing of phase 21's
+   prefill tokens against the CPU's, and the dispatch's kept set (at
+   the prefill's capacity, and at a factor of 0.5 where pairs drop)
+   equal to the CPU's on the same expert ids; then deepseek-moe-16b (2
+   layers) and qwen3-moe-235b-a22b (1 layer; 94 do not fit one card) at
+   full width in fp32 under linear, gated_linear and softmax: prefill +
+   16 greedy steps through B1/B7 and B10 against
+   ``decode_kernel="reference"`` (tokens identical, logits within 1e-4).
+21. The MoE generate main path: ``serve --arch deepseek-moe-16b`` at full
+   width and depth (28 layers, parameters built in bf16), linear, batch
+   8, prompt 512, 64 tokens: prefill ms, ms/token against the step's
+   bound by bytes, the state's MiB, B1 launched 28 x 63 times in the
+   timed generation (+ 28 x 2 in the warm-up), a profile of 4 decode
+   steps (device busy share, the largest device operations).
+22. MoE training: deepseek-moe-16b at full width, 2 layers, batch 2 x
+   512, through B2/B3 against ``attention_kernel=False`` in fp32 (loss,
+   aux, every gradient leaf, one AdamW step) and in bf16 compute (loss,
+   every leaf) at phase 9's tolerances; then ``launch/train.py --arch
+   deepseek-moe-16b --n-layers 2``, batch 8 x 1,024, 4 steps: ms/step,
+   peak memory, finite losses and aux, B2/B3 launches.
+23. The cross slice: llama-3.2-vision-90b at full width, one unit of its
+   pattern (4 attn + 1 cross), fp32, batch 2, 6,404 image tokens, xgate
+   0.5: kernels against the reference route under linear and softmax
+   (tokens identical, logits within 1e-4), and one cross layer's linear
+   lookup against the paper's identity in fp64 (normwise 1e-4).
+24. The vision generate main path: ``serve --arch llama-3.2-vision-90b
+   --n-layers 10`` (bf16), batch 4, prompt 512, 64 tokens, linear then
+   softmax: prefill ms with the memory's encode, ms/token, B1 / B10
+   launches, the cross memory per layer and sequence (linear C and z
+   against softmax K and V).
 
-Each main path (phases 4, 6, 8, 10, 12, 14, 16, 18 and 19) is driven with
-every kernel's launch count set to 0 just before it and read just after.
+Each main path (phases 4, 6, 8, 10, 12, 14, 16, 18, 19, 21, 22's
+``launch/train.py`` run and 24) is driven with every kernel's launch
+count set to 0 just before it and read just after.
 
 The last line is {"ok": true, "device": {...}}; the line before it the
 kernels' JSON record; before that the card's name and power limit.
@@ -143,6 +178,7 @@ kernels' JSON record; before that the card's name and power limit.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -256,11 +292,15 @@ def decode_inputs(n, d, w, dtype, gen, dev):
                 v=elu1(r(n, w, d)).to(dtype))
 
 
-def check_decode_linear(n, d, w, normalize, varlen, gen, dev) -> float:
-    """Kernel vs plain version; returns the largest |o difference|."""
+def check_decode_linear(n, d, w, normalize, varlen, gen, dev,
+                        dtype=None) -> float:
+    """Kernel vs plain version, q/k/v in ``dtype`` (bf16 by default; o
+    within one bf16 ulp, fp32 o within rtol 1e-5); returns the largest
+    |o difference|."""
     import torch
     from repro_torch.kernels.fused_recurrent import ops, ref
-    x = decode_inputs(n, d, w, torch.bfloat16, gen, dev)
+    dtype = dtype or torch.bfloat16
+    x = decode_inputs(n, d, w, dtype, gen, dev)
     lens = (torch.arange(n, dtype=torch.int32, device=dev) % (w + 1)
             if varlen else None)            # includes 0 and W
     z = x["z"] if normalize else None
@@ -273,8 +313,11 @@ def check_decode_linear(n, d, w, normalize, varlen, gen, dev) -> float:
                                   normalize=normalize, lens=lens)
     torch.cuda.synchronize()
     o_r, s_r = o_r[:, 0], s_r[:, 0]
-    tag = f"n={n} d={d} w={w} normalize={normalize} varlen={varlen}"
+    tag = (f"n={n} d={d} w={w} normalize={normalize} varlen={varlen} "
+           f"{str(dtype).split('.')[-1]}")
     torch.testing.assert_close(s_k, s_r, rtol=1e-5, atol=1e-6, msg=tag)
+    if dtype == torch.float32:
+        torch.testing.assert_close(o_k, o_r, rtol=1e-5, atol=1e-6, msg=tag)
     if normalize:
         torch.testing.assert_close(z_k, z_r[:, 0], rtol=1e-5, atol=1e-6,
                                    msg=tag)
@@ -1566,53 +1609,6 @@ def read_launches() -> dict:
 DECODE_KERNEL = {"linear": "decode_linear", "gated_linear": "decode_gated"}
 
 
-def slice_kernel_vs_reference(backend, dev, phase) -> None:
-    """Phases 3 and 7: a 2-layer model at qwen3-0.6b's full widths in fp32,
-    prefill + 16 greedy steps through the backend's decode kernel against
-    the same through ``decode_kernel="reference"``: greedy tokens
-    identical, logits within 1e-4, the kernel launched once per layer and
-    step on the kernel route and never on the reference route."""
-    import torch
-    from repro_torch.configs import get_config
-    from repro_torch.models import lm
-    name = DECODE_KERNEL[backend]
-    counter = launch_counters()[name]
-    cfg = dataclasses.replace(
-        get_config("qwen3-0.6b").with_backend(backend), n_layers=2,
-        dtype="float32")
-    params = lm.init_params(torch.Generator(device=dev).manual_seed(1), cfg)
-    prompt = torch.randint(0, cfg.vocab_size, (4, 64), device=dev,
-                           generator=torch.Generator(device=dev).manual_seed(2))
-    runs = {}
-    for kernel in ("auto", "reference"):
-        c = dataclasses.replace(cfg, decode_kernel=kernel)
-        before = counter.launches
-        logits, st = lm.prefill(params, prompt, c)
-        tok = lm.sample_token(logits, 0.0)
-        all_logits, toks = [logits], [tok]
-        for i in range(16):
-            logits, st = lm.decode_step(params, st, tok, 64 + i, c)
-            tok = lm.sample_token(logits, 0.0)
-            all_logits.append(logits)
-            toks.append(tok)
-        launched = counter.launches - before
-        want = 16 * cfg.n_layers if kernel == "auto" else 0
-        if launched != want:
-            raise AssertionError(f"phase {phase}: {name} launched {launched}"
-                                 f" times on the {kernel} route, want {want}")
-        runs[kernel] = (torch.stack(all_logits), torch.stack(toks))
-    torch.testing.assert_close(runs["auto"][0], runs["reference"][0],
-                               rtol=1e-4, atol=1e-4)
-    if not torch.equal(runs["auto"][1], runs["reference"][1]):
-        raise AssertionError(f"phase {phase}: greedy tokens differ")
-    if not torch.isfinite(runs["auto"][0]).all():
-        raise AssertionError(f"phase {phase}: non-finite logits")
-    d_logit = (runs["auto"][0] - runs["reference"][0]).abs().max().item()
-    print(f"phase {phase}: {backend} 2-layer full-width fp32 slice, prefill "
-          f"+ 16 greedy steps: tokens identical, max|Δlogit|={d_logit:.3e}, "
-          f"{name} launched {16 * cfg.n_layers} times")
-
-
 def generate_main_path(backend, dev, gen, phase) -> dict:
     """Phases 4 and 8: ``serve --mode generate --backend <backend>`` on the
     full 28-layer qwen3-0.6b in bf16 (random weights from seed 0), batch
@@ -1732,41 +1728,43 @@ TRAIN_KERNELS = {
                 ("flash_fwd_tc (bf16 tensor cores)",))}
 
 
-def slice_model(backend, dtype, dev):
-    """The training slices' model and batch: qwen3-0.6b at full width, 2
-    layers, compute in ``dtype``, fp32 weights from seed 0, batch 2 x 256
-    tokens from seed 1."""
+def slice_model(backend, dtype, dev, arch="qwen3-0.6b", seq=256):
+    """The training slices' model and batch: ``arch`` at full width, 2
+    layers, compute in ``dtype``, fp32 weights from seed 0, batch 2 x
+    ``seq`` tokens from seed 1."""
     import torch
     from repro_torch.configs import get_config
+    from repro_torch.configs.base import with_depth
     from repro_torch.models import lm
-    cfg = dataclasses.replace(get_config("qwen3-0.6b").with_backend(backend),
-                              n_layers=2, dtype=dtype)
+    cfg = dataclasses.replace(
+        with_depth(get_config(arch), 2).with_backend(backend), dtype=dtype)
     params0 = lm.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
-    toks = torch.randint(0, cfg.vocab_size, (2, 257), device=dev,
+    toks = torch.randint(0, cfg.vocab_size, (2, seq + 1), device=dev,
                          generator=torch.Generator(device=dev).manual_seed(1))
     return cfg, params0, {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
 
 
-def training_slice(backend, dev, phase) -> None:
-    """Phases 9 and 11: 2 layers at qwen3-0.6b's full widths, fp32, batch
-    2 x 256 tokens, weights from seed 0. Through the backend's attention
-    kernels (B2/B3, B8/B9) and through their plain versions: the loss
-    (rtol 1e-5), every gradient leaf (normwise 1e-4: fp32 sums in other
-    orders through two layers and the head), and the parameters after
-    one AdamW step (within 1e-6 wherever the plain gradient is above that
-    tolerance; Adam's first step is ±lr by the gradient's sign, which
-    rounding may flip where it is below)."""
+def training_slice(backend, dev, phase, arch="qwen3-0.6b", seq=256) -> None:
+    """Phases 9, 11, 17 and 22: 2 layers at ``arch``'s full widths, fp32,
+    batch 2 x ``seq`` tokens, weights from seed 0. Through the backend's
+    attention kernels (B2/B3, B8/B9, B10) and through their plain
+    versions: the loss and the MoE router's aux (rtol 1e-5), every
+    gradient leaf (normwise 1e-4: fp32 sums in other orders through two
+    layers and the head), and the parameters after one AdamW step
+    (within 1e-6 wherever the plain gradient is above that tolerance;
+    Adam's first step is ±lr by the gradient's sign, which rounding may
+    flip where it is below)."""
     import torch
     from repro_torch.models import lm
     from repro_torch.optim import GradAccumulator, adamw, cosine_warmup
     from repro_torch.runtime import make_train_step
     from repro_torch.tree import leaves, tree_map
     names, ids = TRAIN_KERNELS[backend][:2]
-    cfg, params0, batch = slice_model(backend, "float32", dev)
+    cfg, params0, batch = slice_model(backend, "float32", dev, arch, seq)
     runs = {}
     for kernel in (True, False):
         reset_launches()
-        loss, _, grads = GradAccumulator(1).run(
+        loss, metrics, grads = GradAccumulator(1).run(
             lambda p, b: lm.lm_loss(p, b, cfg, attention_kernel=kernel),
             params0, batch)
         params = tree_map(lambda x: x.detach().clone(), params0)
@@ -1775,9 +1773,9 @@ def training_slice(backend, dev, phase) -> None:
             params, opt.init(params), batch)
         torch.cuda.synchronize()
         runs[kernel] = (loss, leaves(grads), leaves(params), m,
-                        read_launches())
-    (loss_k, g_k, p_k, m_k, n_k), (loss_p, g_p, p_p, m_p, n_p) = (
-        runs[True], runs[False])
+                        read_launches(), metrics["aux"])
+    (loss_k, g_k, p_k, m_k, n_k, aux_k), (loss_p, g_p, p_p, m_p, n_p,
+                                          aux_p) = runs[True], runs[False]
     # two backward passes per route (the gradients, then the train
     # step); the forward kernel twice per layer and pass: forward and
     # remat recompute
@@ -1789,6 +1787,7 @@ def training_slice(backend, dev, phase) -> None:
                              f"route (want {want}), {n_p} on the plain "
                              f"route")
     torch.testing.assert_close(loss_k, loss_p, rtol=1e-5, atol=0.0)
+    torch.testing.assert_close(aux_k, aux_p, rtol=1e-5, atol=0.0)
     torch.testing.assert_close(m_k["loss"], m_p["loss"], rtol=1e-5, atol=0.0)
     g_err = max(normwise(a, b, 1e-4, f"phase {phase} gradient leaf")
                 for a, b in zip(g_k, g_p))
@@ -1805,9 +1804,10 @@ def training_slice(backend, dev, phase) -> None:
     if not all(torch.isfinite(x).all() for x in g_k + p_k):
         raise AssertionError(f"phase {phase}: non-finite gradients or "
                              f"parameters")
-    print(f"phase {phase}: {backend} training slice, 2 layers full width "
-          f"fp32, batch 2 x 256: loss {loss_k.item():.6f} vs plain "
-          f"{loss_p.item():.6f}; {len(g_k)} gradient leaves max normwise "
+    print(f"phase {phase}: {arch} {backend} training slice, 2 layers full "
+          f"width fp32, batch 2 x {seq}: loss {loss_k.item():.6f} vs plain "
+          f"{loss_p.item():.6f}, aux {aux_k.item():.6f} vs "
+          f"{aux_p.item():.6f}; {len(g_k)} gradient leaves max normwise "
           f"|Δg|={g_err:.3e}; params after one AdamW step max|Δ|="
           f"{p_err:.3e} where |g| > 1e-4 max|g| ({n_flip} of {n_small} "
           f"elements below it moved apart); {'/'.join(ids)} launches {got} "
@@ -1826,27 +1826,81 @@ def training_slice(backend, dev, phase) -> None:
 BF16_SLICE_TOL = {"loss": 1e-4, "leaf": 5e-2}
 
 
-def training_slice_bf16(backend, dev, phase) -> None:
-    """Phases 9 and 11, second part: ``training_slice``'s 2-layer model in
-    bf16 compute (fp32 master weights, as the main path trains), so that
-    the attention kernels take their bf16 (tensor-core) routes inside the
-    model: the loss and every gradient leaf through the kernels against
-    the same through ``attention_kernel=False``, at BF16_SLICE_TOL."""
+@contextlib.contextmanager
+def moe_routing(calls, replay=None):
+    """``models.moe.route`` under a harness: each call's expert ids are
+    appended to ``calls``; with ``replay`` (the ``calls`` of an earlier
+    run through the same model) call i takes replay[i]'s ids instead of
+    its own top-k, its weights and aux computed from its own
+    probabilities at those ids as ``route`` does, and ``calls`` gets how
+    many of its tokens chose another set of experts."""
+    import torch
+    from repro_torch.models import moe as MOE
+    route = MOE.route
+
+    def pinned(router_w, x_flat, top_k):
+        weights, experts, aux = route(router_w, x_flat, top_k)
+        if replay is None:
+            calls.append(experts)
+            return weights, experts, aux
+        experts_r = replay[len(calls)]
+        calls.append(int((experts.sort(-1).values
+                          != experts_r.sort(-1).values).any(-1).sum()))
+        probs = torch.softmax(x_flat.float() @ router_w.float(), dim=-1)
+        w = probs.gather(-1, experts_r)
+        n, e = probs.shape
+        counts = torch.zeros(e, dtype=torch.float32, device=probs.device)
+        counts.scatter_add_(0, experts_r.reshape(-1),
+                            torch.ones(experts_r.numel(),
+                                       device=probs.device))
+        return (w / (w.sum(dim=-1, keepdim=True) + 1e-9), experts_r,
+                e * torch.sum(counts / n * probs.mean(dim=0)) / top_k)
+
+    MOE.route = pinned
+    try:
+        yield calls
+    finally:
+        MOE.route = route
+
+
+def training_slice_bf16(backend, dev, phase, arch="qwen3-0.6b",
+                        seq=256) -> None:
+    """Phases 9, 11, 17 and 22, second part: ``training_slice``'s 2-layer
+    model in bf16 compute (fp32 master weights, as the main path trains),
+    so that the attention kernels take their bf16 (tensor-core) routes
+    inside the model: the loss and every gradient leaf through the
+    kernels against the same through ``attention_kernel=False``, at
+    BF16_SLICE_TOL; the MoE router's aux beside the loss.
+
+    With MoE the plain route takes the kernel route's expert ids
+    (``moe_routing``): the two routes' bf16 attention outputs differ by
+    an ulp here and there, and where a token's 6th and 7th router
+    probabilities lie that close, its top-k set flips, which moves its
+    hidden state by a whole expert's share: unpinned, the head's
+    gradient column of such a token's label moves past the 5e-2 limit
+    (PERF.md §6 gives the reading). Pinned, the routes
+    differ by the kernels' rounding alone, as in the dense slices; the
+    flips the plain route would have made are printed."""
     import torch
     from repro_torch.models import lm
     from repro_torch.optim import GradAccumulator
     from repro_torch.tree import leaves
     names, ids = TRAIN_KERNELS[backend][:2]
-    cfg, params0, batch = slice_model(backend, "bfloat16", dev)
-    runs = {}
+    cfg, params0, batch = slice_model(backend, "bfloat16", dev, arch, seq)
+    runs, routing = {}, {True: [], False: []}
     for kernel in (True, False):
         reset_launches()
-        loss, _, grads = GradAccumulator(1).run(
-            lambda p, b: lm.lm_loss(p, b, cfg, attention_kernel=kernel),
-            params0, batch)
+        pin = (moe_routing(routing[kernel], None if kernel else routing[True])
+               if cfg.moe is not None else contextlib.nullcontext())
+        with pin:
+            loss, metrics, grads = GradAccumulator(1).run(
+                lambda p, b: lm.lm_loss(p, b, cfg, attention_kernel=kernel),
+                params0, batch)
         torch.cuda.synchronize()
-        runs[kernel] = (loss, leaves(grads), read_launches())
-    (loss_k, g_k, n_k), (loss_p, g_p, n_p) = runs[True], runs[False]
+        runs[kernel] = (loss, leaves(grads), read_launches(),
+                        metrics["aux"].item())
+    (loss_k, g_k, n_k, aux_k), (loss_p, g_p, n_p, aux_p) = (runs[True],
+                                                          runs[False])
     # one backward pass; the forward kernel twice per layer (forward and
     # remat recompute)
     want = dict(zip(names, (2 * cfg.n_layers, cfg.n_layers, cfg.n_layers)))
@@ -1867,13 +1921,17 @@ def training_slice_bf16(backend, dev, phase) -> None:
                       f"phase {phase} bf16 gradient leaf {i}")
              / b.float().abs().max().item()
              for i, (a, b) in enumerate(zip(g_k, g_p))]
-    print(f"phase {phase}: {backend} training slice in bf16 compute, 2 layers"
-          f" full width, batch 2 x 256: loss {loss_k.item():.6f} vs plain "
-          f"{loss_p.item():.6f} (relative {loss_err:.3e}, limit "
-          f"{BF16_SLICE_TOL['loss']}); {len(g_k)} gradient leaves, max|Δg| "
-          f"over max|g|: largest {max(g_err):.3e}, median "
-          f"{sorted(g_err)[len(g_err) // 2]:.3e} (limit "
-          f"{BF16_SLICE_TOL['leaf']}); {'/'.join(ids)} launches {got}")
+    print(f"phase {phase}: {arch} {backend} training slice in bf16 compute, "
+          f"2 layers full width, batch 2 x {seq}: loss {loss_k.item():.6f} "
+          f"vs plain {loss_p.item():.6f} (relative {loss_err:.3e}, limit "
+          f"{BF16_SLICE_TOL['loss']}); aux {aux_k:.6f} vs {aux_p:.6f}; "
+          f"{len(g_k)} gradient leaves, max|Δg| over max|g|: largest "
+          f"{max(g_err):.3e}, median {sorted(g_err)[len(g_err) // 2]:.3e} "
+          f"(limit {BF16_SLICE_TOL['leaf']}); {'/'.join(ids)} launches {got}"
+          + (f"; routing pinned to the kernel route's, where the plain "
+             f"route's own top-k sets differ for {routing[False]} tokens "
+             f"of {batch['tokens'].numel()} per router call (forward, "
+             f"remat recompute)" if cfg.moe is not None else ""))
 
 
 def profile_train_step(loop, batch, kernel) -> dict:
@@ -2575,6 +2633,425 @@ def retrieve_main_path(dev, phase) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phases 20-24: the MoE configs and the vision config's cross blocks
+# ---------------------------------------------------------------------------
+
+def full_width(arch, backend, n_layers, dtype="float32"):
+    """``arch`` at its full widths, cut to ``n_layers`` layers, under
+    ``backend``, computing in ``dtype``."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import with_depth
+    return dataclasses.replace(
+        with_depth(get_config(arch), n_layers).with_backend(backend),
+        dtype=dtype)
+
+
+def attn_layers(cfg) -> int:
+    pattern, reps, tail = cfg.pattern_and_repeats
+    return pattern.count("attn") * reps + tail.count("attn")
+
+
+def set_xgate(params, cfg, value) -> None:
+    """Every cross block's tanh gate to ``value``, in place (0 at init,
+    where a cross block adds nothing and a comparison proves nothing)."""
+    pattern, _, _ = cfg.pattern_and_repeats
+    for kind, group in zip(pattern, params["stack"]):
+        if kind == "cross":
+            group["xgate"].fill_(value)
+
+
+def generate_kernel_vs_reference(cfg, dev, phase, batch=4, prompt_len=64,
+                                 steps=16, memory=None, xgate=None) -> None:
+    """Phases 3, 7, 20 and 23: prefill + ``steps`` greedy steps through
+    the kernels (B1 or B7 in every decode step of each attention layer, B10
+    in the softmax prefill) against the reference route
+    (``decode_kernel="reference"``, and softmax prefill through B10's
+    plain version): greedy tokens identical, logits within 1e-4, each
+    kernel launched exactly as many times as the path has layers and
+    steps, none on the reference route. The MoE runs the same
+    deterministic ops on both routes (its scatter writes each kept slot
+    once and its k-sum is a reduction, no ``index_add_``), so the routes
+    differ only by the kernels' fp32 sums, far inside 1e-4; a top-k
+    flip in the router would show as a token or logit beyond it."""
+    import torch
+    from repro_torch.models import lm
+    backend = cfg.attention_backend
+    params = lm.init_params(torch.Generator(device=dev).manual_seed(1), cfg)
+    if xgate is not None:
+        set_xgate(params, cfg, xgate)
+    prompt = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
+                           device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(2))
+    n_attn = attn_layers(cfg)
+    runs = {}
+    for kernel in (True, False):
+        c = cfg if kernel else dataclasses.replace(cfg,
+                                                   decode_kernel="reference")
+        reset_launches()
+        logits, st = lm.prefill(params, prompt, c, memory=memory,
+                                attention_kernel=kernel)
+        st = lm.pad_decode_state(st, c, prompt_len + steps)
+        tok = lm.sample_token(logits, 0.0)
+        all_logits, toks = [logits], [tok]
+        for i in range(steps):
+            logits, st = lm.decode_step(params, st, tok, prompt_len + i, c)
+            tok = lm.sample_token(logits, 0.0)
+            all_logits.append(logits)
+            toks.append(tok)
+        torch.cuda.synchronize()
+        got = {k: n for k, n in read_launches().items() if n}
+        want = ({} if not kernel else
+                {"flash_attention_fwd": n_attn} if backend == "softmax" else
+                {DECODE_KERNEL[backend]: n_attn * steps})
+        if got != want:
+            raise AssertionError(f"phase {phase}: {cfg.name} {backend} "
+                                 f"launched {got} (kernels={kernel}), want "
+                                 f"{want}")
+        runs[kernel] = (torch.stack(all_logits), torch.stack(toks), got)
+    (lg_k, tok_k, n_k), (lg_p, tok_p, _) = runs[True], runs[False]
+    if not torch.isfinite(lg_k).all():
+        raise AssertionError(f"phase {phase}: non-finite logits")
+    if not torch.equal(tok_k, tok_p):
+        raise AssertionError(f"phase {phase}: {cfg.name} {backend}: greedy "
+                             f"tokens differ")
+    torch.testing.assert_close(lg_k, lg_p, rtol=1e-4, atol=1e-4)
+    print(f"phase {phase}: {cfg.name} {backend}, {cfg.n_layers} layers at "
+          f"full width in fp32, batch {batch}, prefill {prompt_len} + "
+          f"{steps} greedy steps: tokens identical, max|Δlogit|="
+          f"{(lg_k - lg_p).abs().max().item():.3e}; launches {n_k}")
+    del params
+    torch.cuda.empty_cache()
+
+
+def moe_layer_checks(arch, dev, phase, batch=8, seq=512) -> None:
+    """Phase 20: one MoE layer of ``arch`` at full width in fp32.
+    ``moe_apply`` against ``moe_dense_oracle`` on 2 x 512 tokens at a
+    capacity where nothing drops (factor E / k: capacity N), normwise
+    1e-5. Then the routing of ``batch`` x ``seq`` tokens (phase 21's
+    prefill) on the card against the same on the CPU (the expert ids
+    from the same inputs and weights: fp32 logits summed in other
+    orders, so a choice whose probability ties another's to ~1e-7 may
+    differ; more than 1 in 10,000 is a fault), and the dispatch's kept
+    set on the card, at the prefill's capacity and at factor 0.5 (where
+    pairs drop), equal to the CPU's on the same expert ids."""
+    import torch
+    from repro_torch.models import lm
+    from repro_torch.models import moe as MOE
+    from repro_torch.tree import tree_map
+    cfg = full_width(arch, "linear", 1)
+    m = cfg.moe
+    p = tree_map(lambda x: x[0], lm.init_params(
+        torch.Generator(device=dev).manual_seed(4), cfg)["stack"][0]["moe"])
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn((2, 512, cfg.d_model), generator=gen, device=dev)
+    no_drop = dataclasses.replace(cfg, moe=dataclasses.replace(
+        m, capacity_factor=m.n_experts / m.top_k))
+    out, aux = MOE.moe_apply(p, x, no_drop)
+    ref = MOE.moe_dense_oracle(p, x, cfg)
+    err = normwise(out, ref, 1e-5, f"phase {phase} {arch} moe_apply")
+    n = batch * seq
+    xf = torch.randn((n, cfg.d_model), generator=gen, device=dev)
+    _, experts, _ = MOE.route(p["router"], xf, m.top_k)
+    _, experts_cpu, _ = MOE.route(p["router"].cpu(), xf.cpu(), m.top_k)
+    differ = int((experts.cpu() != experts_cpu).sum())
+    if differ > experts.numel() // 10000:
+        raise AssertionError(f"phase {phase}: {differ} of "
+                             f"{experts.numel()} routed experts differ "
+                             f"from the CPU's")
+    kept = {}
+    for factor in (m.capacity_factor, 0.5):
+        cap = MOE.capacity(n, m.top_k, m.n_experts, factor)
+        slot, keep = MOE.dispatch_slots(experts, m.n_experts, cap)
+        slot_c, keep_c = MOE.dispatch_slots(experts.cpu(), m.n_experts, cap)
+        if not (torch.equal(keep.cpu(), keep_c)
+                and torch.equal(slot.cpu(), slot_c)):
+            raise AssertionError(f"phase {phase}: {arch} kept set at "
+                                 f"capacity {cap} differs from the CPU's")
+        kept[factor] = (cap, int((~keep).sum()))
+    if not kept[0.5][1]:
+        raise AssertionError(f"phase {phase}: no pair dropped at factor 0.5")
+    loads = torch.bincount(experts.flatten(), minlength=m.n_experts)
+    print(f"phase {phase}: {arch} MoE layer at full width fp32 "
+          f"(E={m.n_experts}, top-{m.top_k}, F={m.d_ff_expert}, "
+          f"{m.n_shared} shared): "
+          f"moe_apply vs moe_dense_oracle normwise {err:.3e} (limit 1e-5, "
+          f"1,024 tokens, nothing dropped), aux {aux.item():.6f}; routing of"
+          f" {n} tokens: {differ} of {experts.numel()} choices differ from "
+          f"the CPU's; kept set equal to the CPU's at capacity "
+          f"{kept[m.capacity_factor][0]} (factor {m.capacity_factor}: "
+          f"{kept[m.capacity_factor][1]} pairs dropped, expert loads "
+          f"{int(loads.min())}-{int(loads.max())}) and at capacity "
+          f"{kept[0.5][0]} (factor 0.5: {kept[0.5][1]} dropped)")
+    del p
+    torch.cuda.empty_cache()
+
+
+def decode_bound_ms(params, states, cfg, batch) -> tuple:
+    """The least time of one decode step by bytes: every parameter read
+    once (the embedding only at the batch's rows) and the decode state
+    read and written once, over the card's memory rate. Returns (ms,
+    bytes)."""
+    from repro_torch.tree import leaves
+    embed = params["embed"]
+    n_bytes = (sum(t.nbytes for t in leaves(params)) - embed.nbytes
+               + batch * embed.shape[1] * embed.element_size()
+               + 2 * sum(t.nbytes for group in states.values()
+                         for st in group for t in st if t is not None))
+    return n_bytes / PEAK_BYTES_PER_S * 1e3, n_bytes
+
+
+def moe_generate_main_path(dev, phase) -> int:
+    """Phase 21: ``serve --mode generate --arch deepseek-moe-16b`` at full
+    width and depth (28 layers, parameters built in bf16), linear,
+    batch 8, prompt 512, 64 generated tokens, every kernel's launch
+    count set to 0 just before and read just after: B1 exactly 28 x 63
+    times in the timed generation and 28 x 2 in the warm-up, no other
+    kernel. Then ms/token against the step's bound by bytes, a profile
+    of 4 decode steps (device busy share, the largest device
+    operations). Returns B1's launches."""
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    args = serve.parse_args(["--arch", "deepseek-moe-16b", "--batch", "8",
+                             "--prompt-len", "512", "--gen-len", "64",
+                             "--seed", "0"])
+    cfg = serve.serving_config(args)
+    name = DECODE_KERNEL[cfg.attention_backend]
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    result = serve.generate(args)
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    want = cfg.n_layers * (args.gen_len - 1)
+    got = {k: n for k, n in launches.items() if n}
+    if result["decode_launches"] != want or \
+            got != {name: want + 2 * cfg.n_layers}:
+        raise AssertionError(f"phase {phase}: {name} launched "
+                             f"{result['decode_launches']} times in the "
+                             f"timed generation (want {want}), {got} in the "
+                             f"run (want {want + 2 * cfg.n_layers})")
+    toks = result["tokens"]
+    if toks.shape != (args.batch, args.gen_len) or not (
+            (toks >= 0) & (toks < cfg.vocab_size)).all():
+        raise AssertionError(f"phase {phase}: bad generated tokens")
+    state_bytes = (cfg.n_layers * args.batch * cfg.n_heads * cfg.head_dim
+                   * (cfg.head_dim + 1) * 4)
+    if result["state_mib"] != state_bytes / 2**20:
+        raise AssertionError(f"phase {phase}: decode state "
+                             f"{result['state_mib']} MiB, want "
+                             f"{state_bytes / 2**20}")
+
+    params = lm.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    n_params = lm.param_count(params)
+    prompt = torch.randint(0, cfg.vocab_size, (args.batch, 64), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(3))
+    logits, st = lm.prefill(params, prompt, cfg)
+    bound_ms, n_bytes = decode_bound_ms(params, st, cfg, args.batch)
+    ms = result["decode_ms_per_token"]
+    print(f"phase {phase}: deepseek-moe-16b main path ({cfg.n_layers} "
+          f"layers, {n_params} parameters in bf16, linear) batch "
+          f"{args.batch}, prompt {args.prompt_len}, {args.gen_len} tokens: "
+          f"prefill_ms={result['prefill_ms']:.3f} "
+          f"decode_ms_per_token={ms:.4f} tok_s={result['tokens_per_s']:.1f}"
+          f" (bound {bound_ms:.3f} ms a step by bytes: "
+          f"{n_bytes / 1e9:.3f} GB of weights and state at "
+          f"{PEAK_BYTES_PER_S / 1e12:.2f} TB/s; {100 * bound_ms / ms:.1f}% "
+          f"of it) state_mib={result['state_mib']:.2f} peak "
+          f"{peak / 1e9:.3f} GB; {name}.launches={launches[name]} (timed "
+          f"{result['decode_launches']} = {cfg.n_layers} x "
+          f"{args.gen_len - 1}, warm-up {cfg.n_layers} x 2)")
+    device_ms = profile_decode(params, cfg, st, torch.argmax(logits, -1),
+                               64, kernel=f"{name}_kernel")
+    if not torch.isfinite(logits).all():
+        raise AssertionError(f"phase {phase}: non-finite logits")
+    if device_ms is not None:
+        print(f"  device busy {100 * device_ms / ms:.1f}% of a decode step "
+              f"({device_ms:.3f} ms device time per step over {ms:.3f} ms "
+              f"per token; the bound is {100 * bound_ms / device_ms:.1f}% "
+              f"of the device time)")
+    del params, st, logits
+    torch.cuda.empty_cache()
+    return launches[name]
+
+
+def moe_training_main_path(dev, phase) -> dict:
+    """Phase 22, second part: ``launch/train.py --arch deepseek-moe-16b
+    --n-layers 2`` (2 layers at full width: the 28-layer model's fp32
+    master and AdamW moments do not fit one card), batch 8 x seq 1,024,
+    4 steps, every kernel's launch count set to 0 just before and read
+    just after: B2 twice per layer and step (forward, remat recompute),
+    B3's two launches once each. Prints ms/step (steps 2-4), peak
+    memory, the losses and the router's aux. Returns B2/B3's launches."""
+    import math
+    import torch
+    from repro_torch.launch import train
+    from repro_torch.models import lm
+    names = TRAIN_KERNELS["linear"][0]
+    args = train.parse_args(["--arch", "deepseek-moe-16b", "--n-layers", "2",
+                             "--backend", "linear", "--batch", "8",
+                             "--seq-len", "1024", "--steps", "4", "--lr",
+                             "3e-4", "--warmup", "20", "--seed", "0",
+                             "--log-every", "1"])
+    cfg = train.config(args)
+    torch.cuda.reset_peak_memory_stats()
+    loop = train.build(args)
+    n_params = lm.param_count(loop.params)
+    reset_launches()
+    out = loop.run()
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    steps, n_layers = out["step"], cfg.n_layers
+    want = dict(zip(names, (2 * n_layers * steps, n_layers * steps,
+                            n_layers * steps)))
+    got = {k: n for k, n in launches.items() if n}
+    if steps != 4 or got != want:
+        raise AssertionError(f"phase {phase}: {steps} steps, launches {got} "
+                             f"(want {want})")
+    losses = [m["loss"] for m in out["metrics"]]
+    auxes = [m["aux"] for m in out["metrics"]]
+    if not all(math.isfinite(x) for x in losses + auxes):
+        raise AssertionError(f"phase {phase}: non-finite losses {losses}")
+    times = [m["step_time"] for m in out["metrics"]]
+    ms = sum(times[1:]) / len(times[1:]) * 1e3
+    print(f"phase {phase}: training main path deepseek-moe-16b, "
+          f"{n_layers} layers at full width ({n_params} params, fp32 master,"
+          f" bf16 compute), batch {args.batch} x seq {args.seq_len}: "
+          f"ms_per_step={ms:.3f} tokens_per_s="
+          f"{args.batch * args.seq_len / ms * 1e3:.1f} (mean of steps 2-4; "
+          f"step times ms {[round(t * 1e3, 3) for t in times]}), peak memory"
+          f" {peak / 1e9:.3f} GB; losses {[round(x, 4) for x in losses]}, "
+          f"aux {[round(x, 4) for x in auxes]}; launches {got}")
+    del loop, out
+    torch.cuda.empty_cache()
+    return {n: launches[n] for n in names}
+
+
+def paper_identity_check(params, cfg, memory, dev, phase) -> float:
+    """Phase 23: one cross layer's linear output against the paper's
+    identity in fp64 over the raw keys and values,
+    o = Σₙ (φ(q)·φ(kₙ)) vₙ / Σₙ φ(q)·φ(kₙ), through wo; normwise 1e-4
+    (the layer sums 6,404 rows in fp32)."""
+    import torch
+    from repro_torch.models import attention as A
+    from repro_torch.tree import tree_map
+    pattern, _, _ = cfg.pattern_and_repeats
+    p = tree_map(lambda x: x[0],
+                 params["stack"][pattern.index("cross")]["cross"])
+    b, n, _ = memory.shape
+    h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    x = torch.randn((b, 16, cfg.d_model), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(7))
+    got = A.cross_attention_apply(p, x, A.encode_cross_memory(p, memory, cfg),
+                                  cfg)
+    p64 = {k: v.double() for k, v in p.items()}
+    m64 = memory.double()
+    k = elu1((m64 @ p64["wk"]).reshape(b, n, hkv, dh))
+    v = (m64 @ p64["wv"]).reshape(b, n, hkv, dh)
+    q = elu1((x.double() @ p64["wq"]).reshape(b, 16, h // hkv, hkv, dh))
+    scores = torch.einsum("btghd,bnhd->btghn", q, k)
+    o = (torch.einsum("btghn,bnhd->btghd", scores, v)
+         / scores.sum(-1)[..., None])
+    want = o.reshape(b, 16, h * dh) @ p64["wo"]
+    return normwise(got, want, 1e-4, f"phase {phase} cross layer")
+
+
+def cross_slice(dev, phase) -> None:
+    """Phase 23: llama-3.2-vision-90b at full width, one unit of its
+    pattern (4 attn + 1 cross: 5 layers; 100 layers do not fit one card),
+    fp32, batch 2, a memory of 6,404 image tokens, every xgate 0.5:
+    ``generate_kernel_vs_reference`` under linear and softmax, then one
+    cross layer against the paper's identity in fp64."""
+    import torch
+    from repro_torch.models import lm
+    for backend in ("linear", "softmax"):
+        cfg = full_width("llama-3.2-vision-90b", backend, 5)
+        memory = torch.randn(
+            (2, cfg.n_img_tokens, cfg.d_model), device=dev,
+            generator=torch.Generator(device=dev).manual_seed(6))
+        generate_kernel_vs_reference(cfg, dev, phase, batch=2,
+                                     memory=memory, xgate=0.5)
+    cfg = full_width("llama-3.2-vision-90b", "linear", 5)
+    params = lm.init_params(torch.Generator(device=dev).manual_seed(1), cfg)
+    err = paper_identity_check(params, cfg, memory, dev, phase)
+    print(f"phase {phase}: a cross layer's linear lookup (C = φ(K)ᵀV, z = "
+          f"Σφ(K) over {cfg.n_img_tokens} image tokens, fp32) against the "
+          f"paper's identity Σₙ φ(q)·φ(kₙ) vₙ / Σₙ φ(q)·φ(kₙ) in fp64: "
+          f"normwise {err:.3e} (limit 1e-4)")
+    del params, memory
+    torch.cuda.empty_cache()
+
+
+def vision_generate_main_path(dev, phase) -> dict:
+    """Phase 24: ``serve --arch llama-3.2-vision-90b --n-layers 10`` (two
+    units of its pattern: 8 attn + 2 cross layers at full width,
+    parameters built in bf16; 100 layers do not fit one card), batch 4,
+    prompt 512, 64 tokens, a memory of 6,404 image tokens, linear then
+    softmax, every kernel's launch count set to 0 just before each and
+    read just after: linear, B1 once per attn layer and decode step
+    (cross layers look their memory up in plain PyTorch); softmax, B10
+    once per attn layer and prefill. Prints prefill ms (the memory's
+    encode included), ms/token and the cross memory per layer and
+    sequence, C and z against K and V. Returns {kernel: launches}."""
+    import torch
+    from repro_torch.launch import serve
+    runs, out = {}, {}
+    for backend in ("linear", "softmax"):
+        args = serve.parse_args(
+            ["--arch", "llama-3.2-vision-90b", "--n-layers", "10",
+             "--backend", backend, "--batch", "4", "--prompt-len", "512",
+             "--gen-len", "64", "--seed", "0"])
+        cfg = serve.serving_config(args)
+        n_attn = attn_layers(cfg)
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        result = serve.generate(args)
+        launches = read_launches()
+        peak = torch.cuda.max_memory_allocated()
+        got = {k: n for k, n in launches.items() if n}
+        if backend == "softmax":
+            name, want = "flash_attention_fwd", 2 * n_attn
+            timed = result["prefill_launches"] == n_attn
+        else:
+            name = DECODE_KERNEL[backend]
+            want = n_attn * (args.gen_len - 1 + 2)
+            timed = result["decode_launches"] == n_attn * (args.gen_len - 1)
+        if got != {name: want} or not timed:
+            raise AssertionError(f"phase {phase}: {backend} launched {got} "
+                                 f"(want {name} {want}), timed prefill "
+                                 f"{result['prefill_launches']}, decode "
+                                 f"{result['decode_launches']}")
+        toks = result["tokens"]
+        if toks.shape != (args.batch, args.gen_len) or not (
+                (toks >= 0) & (toks < cfg.vocab_size)).all():
+            raise AssertionError(f"phase {phase}: bad generated tokens")
+        runs[backend] = result
+        out[name] = launches[name]
+        print(f"phase {phase}: llama-3.2-vision-90b {backend} main path "
+              f"({cfg.n_layers} layers: {n_attn} attn + "
+              f"{cfg.n_layers - n_attn} cross, bf16) batch {args.batch}, "
+              f"prompt {args.prompt_len}, {cfg.n_img_tokens} image tokens, "
+              f"{args.gen_len} tokens: prefill_ms={result['prefill_ms']:.3f}"
+              f" (the memory's encode included) decode_ms_per_token="
+              f"{result['decode_ms_per_token']:.4f} tok_s="
+              f"{result['tokens_per_s']:.1f} state_mib="
+              f"{result['state_mib']:.2f} peak {peak / 1e9:.3f} GB; "
+              f"{name}.launches={launches[name]}")
+        torch.cuda.empty_cache()
+    cfg = serve.serving_config(args)
+    hkv, dh, n = cfg.n_kv_heads, cfg.head_dim, cfg.n_img_tokens
+    lin, soft = (runs[b]["cross_memory_bytes"] for b in ("linear",
+                                                          "softmax"))
+    if (lin, soft) != (hkv * (dh * dh + dh) * 4, 2 * hkv * n * dh * 2):
+        raise AssertionError(f"phase {phase}: cross memory {lin} and {soft}"
+                             f" bytes per layer and sequence")
+    print(f"phase {phase}: cross memory per layer and sequence: linear C "
+          f"and z {lin / 2**10:.1f} KiB (fp32, whatever the image's "
+          f"length) against softmax K and V {soft / 2**20:.2f} MiB (bf16, "
+          f"{n} rows): {soft / lin:.1f}x")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2669,6 +3146,13 @@ def main() -> int:
     # the stream path's recurrent ingest: 64-token chunks, rows of 0 to 64
     for normalize in (False, True):
         check_decode_linear(128, 128, 64, normalize, True, gen, dev)
+    # phase 24's rows (batch 4 x 64 heads) and qwen3-moe-235b-a22b's at
+    # batch 8 (8 x 64), in both input types
+    for n in (256, 512):
+        for dtype in (torch.float32, torch.bfloat16):
+            for normalize in (False, True):
+                check_decode_linear(n, 128, 1, normalize, False, gen, dev,
+                                    dtype=dtype)
     print("phase 2: decode_linear agrees with its plain version "
           "(S, z rtol 1e-5; o within 1 bf16 ulp; masked rows bitwise)")
     for dtype in (torch.bfloat16, torch.float32):
@@ -2782,6 +3266,13 @@ def main() -> int:
     check_flash_attention(128, 1024, 1024, 128, torch.bfloat16, gen, dev,
                           kv_heads=8, heads=16)
     check_flash_attention(128, 512, 512, 128, torch.bfloat16, gen, dev)
+    # 64 q heads over 8 kv heads (llama-3.2-vision-90b, phase 24's
+    # prefill at batch 4) and over 4 (qwen3-moe-235b-a22b): GQA groups of
+    # 8 and 16; deepseek-moe-16b's 16 over 16 is the one-to-one check
+    # above
+    for hkv in (8, 4):
+        check_flash_attention(256, 512, 512, 128, torch.bfloat16, gen, dev,
+                              kv_heads=hkv, heads=64)
     for dtype in (torch.bfloat16, torch.float32):
         check_flash_attention(8, 77, 300, 128, dtype, gen, dev, t_off=5,
                               s_real=290, kv_heads=2, heads=4)
@@ -2806,7 +3297,8 @@ def main() -> int:
 
     # -- 3. the linear slice, kernel vs plain recurrence, fp32 -------------
     t0 = time.perf_counter()
-    slice_kernel_vs_reference("linear", dev, 3)
+    generate_kernel_vs_reference(full_width("qwen3-0.6b", "linear", 2), dev,
+                                 3)
     done(3, t0)
 
     # -- 4. the linear generate main path ---------------------------------
@@ -2844,7 +3336,8 @@ def main() -> int:
 
     # -- 7. the gated slice, kernel vs plain recurrence, fp32 --------------
     t0 = time.perf_counter()
-    slice_kernel_vs_reference("gated_linear", dev, 7)
+    generate_kernel_vs_reference(
+        full_width("qwen3-0.6b", "gated_linear", 2), dev, 7)
     done(7, t0)
 
     # -- 8. the gated generate main path ----------------------------------
@@ -2920,6 +3413,39 @@ def main() -> int:
     retrieve_main_path(dev, 19)
     done(19, t0)
 
+    # -- 20. the MoE slice: one layer vs its oracle, kernels vs reference --
+    t0 = time.perf_counter()
+    for arch, n_layers in (("deepseek-moe-16b", 2),
+                           ("qwen3-moe-235b-a22b", 1)):
+        moe_layer_checks(arch, dev, 20)
+        for backend in ("linear", "gated_linear", "softmax"):
+            generate_kernel_vs_reference(full_width(arch, backend, n_layers),
+                                         dev, 20)
+    done(20, t0)
+
+    # -- 21. the MoE generate main path ------------------------------------
+    t0 = time.perf_counter()
+    moe_decode = moe_generate_main_path(dev, 21)
+    done(21, t0)
+
+    # -- 22. MoE training: the slice, kernels vs plain, then the loop ------
+    t0 = time.perf_counter()
+    training_slice("linear", dev, 22, arch="deepseek-moe-16b", seq=512)
+    training_slice_bf16("linear", dev, 22, arch="deepseek-moe-16b", seq=512)
+    torch.cuda.empty_cache()
+    train_moe = moe_training_main_path(dev, 22)
+    done(22, t0)
+
+    # -- 23. the cross slice: kernels vs reference, the paper's identity ---
+    t0 = time.perf_counter()
+    cross_slice(dev, 23)
+    done(23, t0)
+
+    # -- 24. the vision generate main path ---------------------------------
+    t0 = time.perf_counter()
+    vision = vision_generate_main_path(dev, 24)
+    done(24, t0)
+
     for r in records:
         r["max_abs_err"] = errs[r["name"]]
         if r["name"] in stream:   # B1/B7: generate, stream; B10: and train
@@ -2927,6 +3453,17 @@ def main() -> int:
                                      "stream": stream[r["name"]]}
             if r["name"] in train:
                 r["launches_by_path"]["train"] = train[r["name"]]
+            r["launches"] = sum(r["launches_by_path"].values())
+    # the paths of phases 21, 22 and 24 (B2/B3's first path: phase 10's)
+    more = {"decode_linear": {"generate_moe": moe_decode,
+                              "generate_vision": vision["decode_linear"]},
+            "flash_attention_fwd": {
+                "generate_vision": vision["flash_attention_fwd"]}}
+    more.update({name: {"train_moe": n} for name, n in train_moe.items()})
+    for r in records:
+        if r["name"] in more:
+            r.setdefault("launches_by_path", {"train": r["launches"]})
+            r["launches_by_path"].update(more[r["name"]])
             r["launches"] = sum(r["launches_by_path"].values())
     print(f"phases (s): {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}"
           f" total {time.perf_counter() - t_start:.1f} s")

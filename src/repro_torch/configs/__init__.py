@@ -3,7 +3,11 @@ every architecture it serves; ``get_config("<id>")`` / ``--arch <id>``
 selects one."""
 
 from repro_torch.configs.base import (  # noqa: F401
-    ModelConfig, get_config, get_smoke_config,
+    ModelConfig, MoEConfig, get_config, get_smoke_config,
 )
 
-from repro_torch.configs import qwen3_0_6b  # noqa: F401
+# one module per architecture (registration side effects)
+from repro_torch.configs import deepseek_moe_16b    # noqa: F401
+from repro_torch.configs import qwen3_moe_235b_a22b  # noqa: F401
+from repro_torch.configs import qwen3_0_6b           # noqa: F401
+from repro_torch.configs import llama3_2_vision_90b  # noqa: F401

@@ -1,10 +1,11 @@
 """Model configuration schema + registry (the port's own copy).
 
-Field for field the same ``ModelConfig`` as ``repro.configs.base``, so a
-configuration means the same model in both packages; the tests compare
-the two copies with ``dataclasses.asdict``. The port serves the
-``attn`` block kind under ``attention_backend="linear"``; the other
-kinds and backends stay in the schema so that the copy does not drift.
+Field for field the same ``ModelConfig`` and ``MoEConfig`` as
+``repro.configs.base``, so a configuration means the same model in both
+packages; the tests compare the two copies with ``dataclasses.asdict``.
+The port serves the ``attn`` block kind (dense or MoE) and the ``cross``
+kind under every attention backend; the other kinds stay in the schema
+so that the copy does not drift.
 """
 
 from __future__ import annotations
@@ -17,6 +18,19 @@ VALID_ATTENTION_BACKENDS = ("softmax", "linear", "gated_linear")
 # auto and fused: the hand-written CUDA kernel for CUDA tensors, its plain
 # PyTorch version for CPU tensors; reference: always the plain version
 VALID_DECODE_KERNELS = ("auto", "fused", "reference")
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    d_ff_expert: int
+    n_shared: int = 0
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.01
+    # "shard_map" (JAX's all-to-all expert parallelism) or "einsum"; on
+    # one device both take the einsum path, the only one the port has
+    dispatch: str = "shard_map"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,9 +62,9 @@ class ModelConfig:
     attn_block_kv: int = 1024
     act: str = "swiglu"              # swiglu|gelu
     norm: str = "rmsnorm"            # rmsnorm|layernorm
-    # sub-configs of the MoE / Mamba-2 / RWKV-6 families, which the port
-    # does not serve yet; None for every configuration it registers
-    moe: Optional[Any] = None
+    moe: Optional[MoEConfig] = None
+    # sub-configs of the Mamba-2 / RWKV-6 families, which the port does
+    # not serve yet; None for every configuration it registers
     ssm: Optional[Any] = None
     rwkv: Optional[Any] = None
     n_img_tokens: int = 0            # VLM cross-attention memory length
@@ -112,6 +126,20 @@ class ModelConfig:
         if not kinds & {"attn", "shared_attn", "cross"}:
             return True
         return self.attention_backend in ("linear", "gated_linear")
+
+
+def with_depth(cfg: ModelConfig, n_layers: int) -> ModelConfig:
+    """``cfg`` at ``n_layers`` layers, whole repeats of its layer pattern
+    (no tail): the depth cut of a model too large for one card, its
+    widths unchanged."""
+    pattern, _, tail = cfg.pattern_and_repeats
+    reps, rest = divmod(n_layers, len(pattern))
+    if tail or rest or reps < 1:
+        raise ValueError(
+            f"{cfg.name}: {n_layers} layers are not whole repeats of the "
+            f"pattern {pattern}" + (f" with tail {tail}" if tail else ""))
+    return dataclasses.replace(cfg, n_layers=n_layers,
+                               n_repeats=reps if cfg.n_repeats else 0)
 
 
 _REGISTRY: Dict[str, Callable[[], ModelConfig]] = {}

@@ -17,7 +17,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.state import DocumentState
-from repro_torch.models.attention import AttnState
+from repro_torch.models.attention import AttnState, CrossMemory
 from repro_torch.optim import AdamState
 
 
@@ -47,9 +47,11 @@ def params_from_jax(np_tree: Any, cfg: ModelConfig, *,
     Each attention entry carries every leaf it has: wq, wk, wv, wo, the
     qk-norm scales (all softmax has) and, under ``gated_linear``, the
     decay projection
-    ``w_gate`` / ``b_gate`` and the groupnorm ``gn_scale`` / ``gn_bias``.
-    The JAX ``shared`` entry must be empty: the port has no
-    ``shared_attn`` blocks."""
+    ``w_gate`` / ``b_gate`` and the groupnorm ``gn_scale`` / ``gn_bias``;
+    an MoE block its ``moe`` entry (router, w_gate, w_up, w_down and the
+    ``shared`` experts' SwiGLU), a cross block its ``cross`` projections
+    and its ``xgate``. The JAX ``shared`` entry must be empty: the port
+    has no ``shared_attn`` blocks."""
     if np_tree.get("shared"):
         raise NotImplementedError("shared_attn parameters are not ported")
     keys = ["embed", "stack", "tail", "final_norm"]
@@ -71,18 +73,20 @@ def opt_state_from_jax(np_state: Any, cfg: ModelConfig, *,
         nu=params_from_jax(nu, cfg, device=device))
 
 
-def _attn_state(st, device) -> AttnState:
-    return AttnState(*(None if x is None else _tensor(x, device)
-                       for x in st))
+def _attn_state(st, device):
+    kind = CrossMemory if st._fields == CrossMemory._fields else AttnState
+    return kind(*(None if x is None else _tensor(x, device) for x in st))
 
 
 def state_from_jax(np_state: Any, *,
                    device: Optional[torch.device] = None) -> dict:
-    """Convert a JAX decode state {"stack": (AttnState, ...), "tail":
-    (...)} with its leaves as numpy, field for field: softmax KV caches
-    (k_cache, v_cache; s and z None), or the linear family's s and z
-    (k_cache and v_cache None; z None for ``gated_linear`` and for
-    ``linear`` without the normaliser). bf16 caches stay bf16."""
+    """Convert a JAX decode state {"stack": (AttnState | CrossMemory,
+    ...), "tail": (...)} with its leaves as numpy, field for field:
+    softmax KV caches (k_cache, v_cache; s and z None), or the linear
+    family's s and z (k_cache and v_cache None; z None for
+    ``gated_linear`` and for ``linear`` without the normaliser); a cross
+    block's memory (k, v under softmax, else c, z). bf16 caches stay
+    bf16."""
     return {part: tuple(_attn_state(st, device) for st in np_state[part])
             for part in ("stack", "tail")}
 

@@ -11,7 +11,13 @@ length), each decode step running the backend's fused recurrent CUDA
 kernel once per layer; ``softmax`` (paper §2, the baseline) prefills
 through the causal flash-attention CUDA kernel (B10) once per layer and
 decodes against a KV cache of prompt + generated length, read in plain
-PyTorch at O(pos) per token.
+PyTorch at O(pos) per token. ``--arch`` takes the dense qwen3-0.6b, the
+MoE configs deepseek-moe-16b and qwen3-moe-235b-a22b (the experts in
+plain batched products, as in JAX) and llama-3.2-vision-90b, whose
+cross blocks attend to a memory of ``n_img_tokens`` patch embeddings
+drawn from a generator of its own (the vision frontend is a stub) and
+encoded once in prefill: C = φ(K)ᵀV per layer under the linear family,
+K and V under softmax. Parameters are built in the compute type.
 
 ``--mode stream``: continuous batching under a synthetic Poisson request
 stream (``make_request_mix``, the JAX package's workload draw for draw).
@@ -25,7 +31,9 @@ launch per layer, with per-row lengths. ``--backend softmax`` serves the
 KV-cache baseline through the same engine: every admission wave's varlen
 prefill launches the causal flash-attention kernel (B10) once per
 layer, decode and ingest chunks read and write the caches in plain
-PyTorch (a chunk as single-token steps).
+PyTorch (a chunk as single-token steps). It serves the dense and MoE
+configs; a config with cross blocks is refused (ValueError), since the
+engine has no path for a memory, as JAX's has none.
 
 ``--mode retrieve``: the paper's encode-once / query-many with the
 ``DocumentStore``: ``--batch`` documents of 750 hidden states of width
@@ -46,6 +54,10 @@ passes of ``--n-queries`` single-query requests in waves of
       --backend softmax --batch 8 --prompt-len 512 --gen-len 64
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \\
       --smoke --device cpu --prompt-len 16 --gen-len 8 --batch 2
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch deepseek-moe-16b --batch 8 --prompt-len 512 --gen-len 64
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch llama-3.2-vision-90b --smoke --device cpu --prompt-len 16
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \\
       --smoke --device cpu --backend softmax --prompt-len 16 --gen-len 8
   PYTHONPATH=src python -m repro_torch.launch.serve --mode stream \\
@@ -75,6 +87,7 @@ documents and queries are random, drawn from ``--seed``.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 from typing import Any, Dict, Optional, Sequence
 
@@ -82,12 +95,13 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config, get_smoke_config
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, with_depth
 from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_attention import ops as FA
 from repro_torch.kernels.fused_recurrent import ops as FR
 from repro_torch.kernels.lookup import ops as LU
 from repro_torch.models import lm
+from repro_torch.models.attention import CrossMemory
 
 
 def _sync(device: torch.device) -> None:
@@ -98,29 +112,34 @@ def _sync(device: torch.device) -> None:
 def generate(args) -> Dict[str, Any]:
     """Prefill + generation on one static batch. Prints the lines of the
     JAX package's ``generate`` and returns the measured numbers, the
-    generated tokens, and the launches of the backend's kernels:
+    generated tokens, the cross memory's bytes per cross layer and
+    sequence (0 without cross blocks), and the launches of the backend's
+    kernels:
     ``prefill_launches`` of B10 in the timed prefill (softmax; 0 for the
     linear family, whose prefill is plain PyTorch) and
     ``decode_launches`` of B1 or B7 in the timed generation (0 under
     softmax, whose cache read is plain PyTorch)."""
     device = resolve_device(args.device)
-    cfg = (get_smoke_config(args.arch) if args.smoke
-           else get_config(args.arch))
-    cfg = cfg.with_backend(args.backend)
+    cfg = serving_config(args)
     backend = cfg.attention_backend
     prefill_kernel = FA.fwd if backend == "softmax" else None
     decode_kernel = {"linear": FR.decode_linear,
                      "gated_linear": FR.decode_gated}.get(backend)
-    # independent generator streams: params / prompt / sampling
+    # independent generator streams: params / prompt / sampling / memory
     gens = [torch.Generator(device=device).manual_seed(args.seed * 4 + i)
-            for i in range(3)]
-    g_params, g_prompt, g_sample = gens
-    params = lm.cast_params(lm.init_params(g_params, cfg),
-                            lm.dtype_of(cfg.dtype))
+            for i in range(4)]
+    g_params, g_prompt, g_sample, g_memory = gens
+    params = lm.init_params(g_params, cfg)
 
     b, t_p, t_g = args.batch, args.prompt_len, args.gen_len
     prompt = torch.randint(0, cfg.vocab_size, (b, t_p), generator=g_prompt,
                            device=device)
+    # the cross blocks' memory: precomputed patch embeddings (the vision
+    # frontend is a stub), as JAX draws them
+    memory = (torch.randn((b, cfg.n_img_tokens, cfg.d_model),
+                          generator=g_memory, device=device,
+                          dtype=torch.bfloat16)
+              if cfg.n_img_tokens else None)
 
     def count(kernel) -> int:
         return 0 if kernel is None else kernel.launches
@@ -128,14 +147,14 @@ def generate(args) -> Dict[str, Any]:
     # warm-up, untimed: one prefill and two decode steps, so the kernels
     # are built and loaded and the library has picked its matmul kernels
     # before the clock starts
-    logits, states = lm.prefill(params, prompt, cfg)
+    logits, states = lm.prefill(params, prompt, cfg, memory=memory)
     states = lm.pad_decode_state(states, cfg, max_len=t_p + 2)
     lm.generate(params, states, torch.argmax(logits, -1), t_p, 2, cfg)
     _sync(device)
 
     prefill0 = count(prefill_kernel)
     t0 = time.perf_counter()
-    logits, states = lm.prefill(params, prompt, cfg)
+    logits, states = lm.prefill(params, prompt, cfg, memory=memory)
     states = lm.pad_decode_state(states, cfg, max_len=t_p + t_g)
     _sync(device)
     t_prefill = time.perf_counter() - t0
@@ -156,6 +175,11 @@ def generate(args) -> Dict[str, Any]:
 
     n_dec = max(t_g - 1, 1)
     state_mib = lm.state_bytes(states) / 2**20
+    pattern, reps, tail = cfg.pattern_and_repeats
+    n_cross = pattern.count("cross") * reps + tail.count("cross")
+    cross_bytes = sum(t.nbytes for group in states.values() for st in group
+                      if isinstance(st, CrossMemory) for t in st
+                      if t is not None) // max(n_cross * b, 1)
     where = (torch.cuda.get_device_name(device) if device.type == "cuda"
              else "cpu")
     kernels = (f"({decode_kernel.__name__})" if decode_kernel else
@@ -167,12 +191,34 @@ def generate(args) -> Dict[str, Any]:
           f"({b*n_dec/t_decode:.0f} tok/s)")
     print(f"decode state: {state_mib:.1f} MiB "
           f"({'O(1) in context' if cfg.fixed_state_decode else 'KV cache'})")
+    if n_cross:
+        kept = ("K and V of its rows" if backend == "softmax"
+                else "C and z, fp32")
+        size = (f"{cross_bytes / 2**20:.2f} MiB" if cross_bytes >= 2**20
+                else f"{cross_bytes / 2**10:.1f} KiB")
+        print(f"cross memory: {cfg.n_img_tokens} image tokens encoded once, "
+              f"{size} per cross layer and sequence ({kept}), {n_cross} "
+              f"cross layers")
     return {"prefill_ms": t_prefill * 1e3,
             "decode_ms_per_token": t_decode / n_dec * 1e3,
             "tokens_per_s": b * n_dec / t_decode,
             "state_mib": state_mib, "tokens": out,
+            "cross_memory_bytes": cross_bytes,
             "prefill_launches": prefill_launches,
             "decode_launches": decode_launches}
+
+
+def serving_config(args) -> ModelConfig:
+    """The config of ``--arch`` (``--smoke``: its reduced copy) under
+    ``--backend``, cut to ``--n-layers``, its parameters built in the
+    compute type: serving never needs the fp32 master copy, whose build
+    and cast would peak at three times the served bytes."""
+    cfg = (get_smoke_config(args.arch) if args.smoke
+           else get_config(args.arch))
+    if args.n_layers:
+        cfg = with_depth(cfg, args.n_layers)
+    return dataclasses.replace(cfg.with_backend(args.backend),
+                               param_dtype=cfg.dtype)
 
 
 def make_request_mix(rng: np.random.Generator, n_requests: int,
@@ -228,13 +274,11 @@ def stream(args) -> Dict[str, Any]:
     from repro_torch.serving import DecodeEngine, backend_for_config
 
     device = resolve_device(args.device)
-    cfg = (get_smoke_config(args.arch) if args.smoke
-           else get_config(args.arch))
-    cfg = cfg.with_backend(args.backend)
+    cfg = serving_config(args)
     backend = backend_for_config(cfg)
     name, kernel = STREAM_KERNELS[cfg.attention_backend]
     gen = torch.Generator(device=device).manual_seed(args.seed * 4)
-    params = lm.cast_params(lm.init_params(gen, cfg), lm.dtype_of(cfg.dtype))
+    params = lm.init_params(gen, cfg)
     max_len = args.prompt_len + args.gen_len + args.segment_len
     engine = DecodeEngine(
         params, cfg, backend=backend, n_slots=args.slots,
@@ -472,6 +516,10 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                     choices=["generate", "stream", "retrieve", "lookup"])
     ap.add_argument("--arch", default="qwen3-0.6b")
     ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--n-layers", type=int, default=None,
+                    help="cut the model to this many layers, whole repeats"
+                         " of its layer pattern (a model too large for one"
+                         " card; widths unchanged)")
     ap.add_argument("--backend", default="linear",
                     choices=["linear", "gated_linear", "softmax"],
                     help="linear (paper §3), gated_linear (paper §4 "

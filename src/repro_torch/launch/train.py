@@ -26,6 +26,15 @@ ported, so ``--ckpt-dir`` raises and there is no ``--ckpt-every``.
   PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
       --backend softmax --steps 5
 
+``--arch`` takes qwen3-0.6b and the MoE configs (the router's
+load-balance loss in the loss); ``--n-layers`` cuts a model too large for
+one card to whole repeats of its layer pattern. The vision config's cross
+blocks need a memory that the synthetic stream does not draw.
+
+  PYTHONPATH=src python -m repro_torch.launch.train \\
+      --arch deepseek-moe-16b --n-layers 2 --batch 8 --seq-len 1024 \\
+      --steps 4
+
 Runs on CUDA unless ``--device cpu`` is given.
 """
 
@@ -39,6 +48,7 @@ from typing import Optional, Sequence
 import torch
 
 from repro_torch.configs import ModelConfig, get_config, get_smoke_config
+from repro_torch.configs.base import with_depth
 from repro_torch.data import SyntheticLMDataset
 from repro_torch.device import resolve_device
 from repro_torch.models import lm
@@ -49,6 +59,8 @@ from repro_torch.runtime import TrainLoop, TrainLoopConfig, make_train_step
 def config(args) -> ModelConfig:
     cfg = (get_smoke_config(args.arch) if args.smoke
            else get_config(args.arch))
+    if args.n_layers:
+        cfg = with_depth(cfg, args.n_layers)
     return cfg.with_backend(args.backend) if args.backend else cfg
 
 
@@ -87,6 +99,9 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--arch", default="qwen3-0.6b")
     ap.add_argument("--smoke", action="store_true",
                     help="reduced config (CPU-runnable)")
+    ap.add_argument("--n-layers", type=int, default=None,
+                    help="cut the model to this many layers, whole repeats"
+                         " of its layer pattern (widths unchanged)")
     ap.add_argument("--backend", default=None,
                     choices=[None, "softmax", "linear", "gated_linear"])
     ap.add_argument("--device", default=None,

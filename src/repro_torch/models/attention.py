@@ -30,6 +30,13 @@ with null rules head padding is the identity.
 
 The decode functions update the state tensors in place and return them
 (a softmax step writes its one cache row per sequence).
+
+Cross-attention (the ``cross`` block kind, JAX ``:823-899``) attends from
+the text positions to a pre-encoded memory, the paper's document/query
+setting verbatim: under the linear family the memory's N key/value rows
+collapse once into C = φ(K)ᵀV and z = Σφ(K) per kv head, and each query
+is an O(k²) lookup; under softmax K and V are kept and every query
+scores all N rows in fp32. No kernel, as in JAX (jnp einsums).
 """
 
 from __future__ import annotations
@@ -42,7 +49,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.gated import chunked_gla, gated_linear_attention
 from repro_torch.core.linear_attention import (
-    causal_linear_attention, causal_linear_attention_chunked)
+    causal_linear_attention, causal_linear_attention_chunked, safe_denom)
 from repro_torch.kernels.fused_recurrent import ops as FR
 from repro_torch.kernels.fused_recurrent import ref as FRref
 from repro_torch.models import layers as L
@@ -580,3 +587,91 @@ def attention_ingest_window(
     o = o_w.reshape(b, cfg.n_heads // cfg.n_kv_heads, cfg.n_kv_heads, w,
                     cfg.head_dim)
     return _merge_heads(p, o, x.dtype), state
+
+
+# ---------------------------------------------------------------------------
+# cross attention (VLM): the paper's document/query setting verbatim
+# ---------------------------------------------------------------------------
+
+def cross_attention_params(gen: torch.Generator, cfg: ModelConfig, *,
+                           lead: Tuple[int, ...] = (),
+                           dtype=torch.float32) -> Params:
+    d, h, hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    return {
+        "wq": L.dense_init(gen, d, h * dh, lead=lead, dtype=dtype),
+        "wk": L.dense_init(gen, d, hkv * dh, lead=lead, dtype=dtype),
+        "wv": L.dense_init(gen, d, hkv * dh, lead=lead, dtype=dtype),
+        "wo": L.dense_init(gen, h * dh, d, lead=lead, dtype=dtype),
+    }
+
+
+class CrossMemory(NamedTuple):
+    """Pre-encoded modality memory, JAX's fields in JAX's order. softmax
+    keeps k, v (B, Hkv, N, Dh) in the compute type, O(N·k) per layer;
+    the linear family keeps the paper's C = φ(K)ᵀV (B, Hkv, Dk, Dv) and
+    z = Σφ(K) (B, Hkv, Dk), both fp32, O(k²) per layer whatever N. It
+    does not change during decode."""
+    k: Optional[Tensor] = None
+    v: Optional[Tensor] = None
+    c: Optional[Tensor] = None
+    z: Optional[Tensor] = None
+
+
+def init_cross_memory(cfg: ModelConfig, batch: int, *,
+                      lead: Tuple[int, ...] = (), device=None
+                      ) -> CrossMemory:
+    """Zero cross memory of ``cfg.n_img_tokens`` rows (softmax, in
+    ``cfg.dtype``) or zero C and z (linear family)."""
+    hkv, dh = cfg.n_kv_heads, cfg.head_dim
+    if cfg.attention_backend == "softmax":
+        shape = (*lead, batch, hkv, cfg.n_img_tokens, dh)
+        dtype = getattr(torch, cfg.dtype)
+        return CrossMemory(k=torch.zeros(shape, dtype=dtype, device=device),
+                           v=torch.zeros(shape, dtype=dtype, device=device))
+    return CrossMemory(
+        c=torch.zeros((*lead, batch, hkv, dh, dh), dtype=torch.float32,
+                      device=device),
+        z=torch.zeros((*lead, batch, hkv, dh), dtype=torch.float32,
+                      device=device))
+
+
+def encode_cross_memory(p: Params, memory: Tensor, cfg: ModelConfig
+                        ) -> CrossMemory:
+    """memory: (B, N, D) precomputed patch embeddings (the frontend is a
+    stub) → the layer's memory: the paper's encode-once compression,
+    C = φ(K)ᵀV and z = Σφ(K) accumulated in fp32, for the linear
+    family; K and V as they are for softmax."""
+    b, n, _ = memory.shape
+    hkv, dh = cfg.n_kv_heads, cfg.head_dim
+    k = (memory @ p["wk"].to(memory.dtype)).reshape(b, n, hkv, dh)
+    v = (memory @ p["wv"].to(memory.dtype)).reshape(b, n, hkv, dh)
+    k, v = k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)    # (B, Hkv, N, Dh)
+    if cfg.attention_backend == "softmax":
+        return CrossMemory(k=k, v=v)
+    kf = feature_map(k, cfg.feature_map).float()
+    return CrossMemory(c=torch.einsum("bhnk,bhnv->bhkv", kf, v.float()),
+                       z=kf.sum(dim=2))
+
+
+def cross_attention_apply(p: Params, x: Tensor, mem: CrossMemory,
+                          cfg: ModelConfig) -> Tensor:
+    """x: (B, T, D) queries against the encoded memory → (B, T, D).
+    softmax: fp32 scores over all N rows, no kernel (as in JAX). Linear
+    family: φ(q)·C, over φ(q)·z through ``safe_denom`` under
+    ``linear_normalize``, in fp32."""
+    b, t, _ = x.shape
+    h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = (x @ p["wq"].to(x.dtype)).reshape(b, t, h // hkv, hkv, dh)
+    q = q.permute(0, 2, 3, 1, 4)                        # (B, G, Hkv, T, Dh)
+    if cfg.attention_backend == "softmax":
+        scores = torch.einsum("bghtd,bhnd->bghtn", q.float() * dh ** -0.5,
+                              mem.k.float())
+        o = torch.einsum("bghtn,bhnd->bghtd", torch.softmax(scores, dim=-1),
+                         mem.v.float())
+    else:
+        qf = feature_map(q, cfg.feature_map).float()
+        o = torch.einsum("bghtk,bhkv->bghtv", qf, mem.c)
+        if cfg.linear_normalize:
+            denom = torch.einsum("bghtk,bhk->bght", qf, mem.z)
+            o = o / safe_denom(denom)[..., None]
+    return _merge_heads(p, o.to(x.dtype), x.dtype)

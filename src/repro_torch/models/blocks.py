@@ -1,9 +1,14 @@
-"""Block dispatch, ``"attn"`` kind (port of ``repro/models/blocks.py``):
-pre-norm self-attention (``softmax``, ``linear`` or ``gated_linear``) +
-MLP.
+"""Block dispatch (port of ``repro/models/blocks.py``), two kinds:
 
-``shared_attn``, ``cross``, ``mamba`` and ``rwkv`` blocks and MoE MLPs are
-not ported yet and raise.
+  "attn"   pre-norm self-attention (``softmax``, ``linear`` or
+           ``gated_linear``) + MLP, or + MoE FFN when ``cfg.moe`` is set
+  "cross"  pre-norm cross-attention to a pre-encoded modality memory,
+           gated by tanh(xgate) (zero at init: the block adds nothing
+           until trained), + MLP
+
+``shared_attn``, ``mamba`` and ``rwkv`` blocks are not ported yet and
+raise. A cross block's decode state is its encoded memory
+(``CrossMemory``), static during decode.
 """
 
 from __future__ import annotations
@@ -15,103 +20,157 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 
 Tensor = torch.Tensor
 Params = Dict[str, Any]
+State = Any                        # A.AttnState or A.CrossMemory
 
 
-def _require_attn(kind: str, cfg: ModelConfig) -> None:
-    if kind != "attn" or cfg.moe is not None:
+def _require_ported(kind: str, cfg: ModelConfig) -> None:
+    if kind not in ("attn", "cross"):
         raise NotImplementedError(
-            f"{cfg.name}: the port has dense 'attn' blocks only (got "
-            f"kind {kind!r}{', MoE' if cfg.moe is not None else ''})")
+            f"{cfg.name}: the port has 'attn' and 'cross' blocks only (got "
+            f"kind {kind!r})")
+
+
+def _uses_moe(kind: str, cfg: ModelConfig) -> bool:
+    return cfg.moe is not None and kind == "attn"
 
 
 def block_params(kind: str, gen: torch.Generator, cfg: ModelConfig, *,
                  lead: Tuple[int, ...] = (), dtype=torch.float32) -> Params:
-    _require_attn(kind, cfg)
-    return {
-        "norm1": L.rmsnorm_params(cfg.d_model, lead=lead, dtype=dtype,
-                                  device=gen.device),
-        "norm2": L.rmsnorm_params(cfg.d_model, lead=lead, dtype=dtype,
-                                  device=gen.device),
-        "attn": A.attention_params(gen, cfg, lead=lead, dtype=dtype),
-        "mlp": L.mlp_params(gen, cfg.d_model, cfg.d_ff, cfg.act, lead=lead,
-                            dtype=dtype),
-    }
+    _require_ported(kind, cfg)
+    p = {"norm1": L.rmsnorm_params(cfg.d_model, lead=lead, dtype=dtype,
+                                   device=gen.device),
+         "norm2": L.rmsnorm_params(cfg.d_model, lead=lead, dtype=dtype,
+                                   device=gen.device)}
+    if kind == "cross":
+        p["cross"] = A.cross_attention_params(gen, cfg, lead=lead,
+                                              dtype=dtype)
+        p["xgate"] = torch.zeros((*lead, 1), dtype=dtype, device=gen.device)
+    else:
+        p["attn"] = A.attention_params(gen, cfg, lead=lead, dtype=dtype)
+    if _uses_moe(kind, cfg):
+        p["moe"] = MOE.moe_params(gen, cfg, lead=lead, dtype=dtype)
+    else:
+        p["mlp"] = L.mlp_params(gen, cfg.d_model, cfg.d_ff, cfg.act,
+                                lead=lead, dtype=dtype)
+    return p
 
 
 def block_state_init(kind: str, cfg: ModelConfig, batch: int, *,
                      max_len: Optional[int] = None,
-                     lead: Tuple[int, ...] = (), device=None) -> A.AttnState:
-    _require_attn(kind, cfg)
+                     lead: Tuple[int, ...] = (), device=None) -> State:
+    _require_ported(kind, cfg)
+    if kind == "cross":
+        return A.init_cross_memory(cfg, batch, lead=lead, device=device)
     return A.init_attn_state(cfg, batch, max_len=max_len, lead=lead,
                              device=device)
 
 
-def _mlp_residual(p: Params, x: Tensor, cfg: ModelConfig) -> Tensor:
-    return x + L.mlp(p["mlp"], L.apply_norm(cfg.norm, p["norm2"], x),
-                     cfg.act)
+def _ffn(p: Params, x: Tensor, kind: str, cfg: ModelConfig
+         ) -> Tuple[Tensor, Optional[Tensor]]:
+    """The second residual: x + MLP or MoE of norm2(x). Returns (x, the
+    router's aux loss, None without MoE: JAX's zero, with no tensor made
+    for it on every block and step)."""
+    h2 = L.apply_norm(cfg.norm, p["norm2"], x)
+    if _uses_moe(kind, cfg):
+        ff, aux = MOE.moe_apply(p["moe"], h2, cfg)
+        return x + ff, aux
+    return x + L.mlp(p["mlp"], h2, cfg.act), None
+
+
+def _cross(p: Params, h1: Tensor, mem: A.CrossMemory, cfg: ModelConfig
+           ) -> Tensor:
+    att = A.cross_attention_apply(p["cross"], h1, mem, cfg)
+    return torch.tanh(p["xgate"]).to(att.dtype) * att
 
 
 def block_apply(kind: str, p: Params, x: Tensor, cfg: ModelConfig, *,
-                want_state: bool = False, attention_kernel: bool = True,
+                memory: Optional[Tensor] = None, want_state: bool = False,
+                attention_kernel: bool = True,
                 varlen: Optional[Tensor] = None
-                ) -> Tuple[Tensor, Optional[A.AttnState]]:
-    """x: (B, T, D) → (x, state_or_None). ``varlen``: (B,) per-row valid
-    lengths of an END-padded batch (bucket-padded batched prefill)."""
-    _require_attn(kind, cfg)
+                ) -> Tuple[Tensor, Optional[State], Optional[Tensor]]:
+    """x: (B, T, D) → (x, state_or_None, aux: the router's load-balance
+    loss, None for a block without MoE). ``memory``: (B, N, D) in
+    the compute type, which a cross block encodes (its state). ``varlen``:
+    (B,) per-row valid lengths of an END-padded batch (attention blocks;
+    the MoE routes every position, pads included, as JAX does)."""
+    _require_ported(kind, cfg)
     h1 = L.apply_norm(cfg.norm, p["norm1"], x)
-    att, st = A.attention_apply(p["attn"], h1, cfg, want_state=want_state,
-                                attention_kernel=attention_kernel,
-                                varlen=varlen)
-    return _mlp_residual(p, x + att, cfg), st
+    if kind == "cross":
+        if varlen is not None:
+            raise ValueError(f"{cfg.name}: varlen prefill of a cross block")
+        if memory is None:
+            raise ValueError(f"{cfg.name}: a cross block needs the memory "
+                             f"(B, n_img_tokens, d_model) to attend to")
+        mem = A.encode_cross_memory(p["cross"], memory, cfg)
+        att, st = _cross(p, h1, mem, cfg), (mem if want_state else None)
+    else:
+        att, st = A.attention_apply(p["attn"], h1, cfg,
+                                    want_state=want_state,
+                                    attention_kernel=attention_kernel,
+                                    varlen=varlen)
+    x, aux = _ffn(p, x + att, kind, cfg)
+    return x, st, aux
 
 
-def block_decode(kind: str, p: Params, x: Tensor, state: A.AttnState,
+def block_decode(kind: str, p: Params, x: Tensor, state: State,
                  pos: Tensor, cfg: ModelConfig, *,
-                 active: Optional[Tensor] = None
-                 ) -> Tuple[Tensor, A.AttnState]:
+                 active: Optional[Tensor] = None) -> Tuple[Tensor, State]:
     """x: (B, D) one token per sequence; pos: () or (B,); ``active``:
     (B,) bool slot mask, inactive rows keep their state bit for bit. The
-    state is updated in place."""
-    _require_attn(kind, cfg)
+    state is updated in place (a cross block's memory is static)."""
+    _require_ported(kind, cfg)
     h1 = L.apply_norm(cfg.norm, p["norm1"], x)
-    att, st = A.attention_decode(p["attn"], h1, state, pos, cfg,
-                                 active=active)
-    return _mlp_residual(p, x + att, cfg), st
+    if kind == "cross":
+        att, st = _cross(p, h1[:, None], state, cfg)[:, 0], state
+    else:
+        att, st = A.attention_decode(p["attn"], h1, state, pos, cfg,
+                                     active=active)
+    return _ffn(p, x + att, kind, cfg)[0], st
 
 
-def block_decode_window(kind: str, p: Params, x: Tensor, state: A.AttnState,
+def block_decode_window(kind: str, p: Params, x: Tensor, state: State,
                         pos0: Tensor, cfg: ModelConfig, *,
                         lens: Optional[Tensor] = None
-                        ) -> Tuple[Tensor, A.AttnState]:
+                        ) -> Tuple[Tensor, State]:
     """x: (B, W, D) — W known tokens per sequence, one fused kernel launch
-    per block for the linear family; under softmax the attention steps
-    single-token decode over the window (JAX scans ``block_decode``; the
-    MLP is per token, so running it once over the window is the same
-    function). ``lens``: (B,) per-row valid window lengths. The state is
-    updated in place."""
-    _require_attn(kind, cfg)
+    per attention block for the linear family; a cross block looks each
+    position up in its static memory. Under softmax the attention steps
+    single-token decode over the window, as JAX scans ``block_decode``:
+    a dense MLP is per token, so running it once over the window is the
+    same function, but an MoE FFN's capacity follows the tokens of the
+    call, so it runs once per step, on B tokens, as in JAX's scan.
+    ``lens``: (B,) per-row valid window lengths. The state is updated in
+    place."""
+    _require_ported(kind, cfg)
     h1 = L.apply_norm(cfg.norm, p["norm1"], x)
-    att, st = A.attention_decode_window(p["attn"], h1, state, pos0, cfg,
-                                        lens=lens)
-    return _mlp_residual(p, x + att, cfg), st
+    if kind == "cross":
+        att, st = _cross(p, h1, state, cfg), state
+    else:
+        att, st = A.attention_decode_window(p["attn"], h1, state, pos0,
+                                            cfg, lens=lens)
+    x = x + att
+    if _uses_moe(kind, cfg) and cfg.attention_backend == "softmax":
+        return torch.stack([_ffn(p, x[:, i], kind, cfg)[0]
+                            for i in range(x.shape[1])], dim=1), st
+    return _ffn(p, x, kind, cfg)[0], st
 
 
-def block_ingest_window(kind: str, p: Params, x: Tensor, state: A.AttnState,
+def block_ingest_window(kind: str, p: Params, x: Tensor, state: State,
                         pos0: Tensor, cfg: ModelConfig, *,
                         lens: Optional[Tensor] = None
-                        ) -> Tuple[Tensor, A.AttnState]:
+                        ) -> Tuple[Tensor, State]:
     """Like :func:`block_decode_window`, but with ``lens`` the linear
     family's attention continues its state through the chunk-parallel
     prefill forms (``attention_ingest_window``) instead of the
-    recurrence; softmax keeps the per-step path. The state is updated
-    in place."""
-    if lens is None:
-        return block_decode_window(kind, p, x, state, pos0, cfg)
-    _require_attn(kind, cfg)
+    recurrence; softmax and cross blocks keep the window path. The state
+    is updated in place."""
+    if lens is None or kind != "attn" or cfg.attention_backend == "softmax":
+        return block_decode_window(kind, p, x, state, pos0, cfg, lens=lens)
     h1 = L.apply_norm(cfg.norm, p["norm1"], x)
     att, st = A.attention_ingest_window(p["attn"], h1, state, pos0, cfg,
                                         lens=lens)
-    return _mlp_residual(p, x + att, cfg), st
+    return _ffn(p, x + att, kind, cfg)[0], st

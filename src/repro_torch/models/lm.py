@@ -1,4 +1,4 @@
-"""Language model over a stack of ``attn`` blocks (port of
+"""Language model over a stack of ``attn`` and ``cross`` blocks (port of
 ``repro/models/lm.py``: training forward and loss, prefill, decode and
 generation, and the continuous-batching surface of the serving engine:
 bucket-padded varlen prefill, slot-masked segments, varlen windows and
@@ -15,6 +15,11 @@ Unlike the JAX functions, which are pure, every decode function here
 updates the decode state it is given in place and returns it: the state
 of the whole model is hundreds of MiB at full width, and a copy per
 token would cost more than the decode itself.
+
+``memory`` (B, N, D), the modality memory of ``cross`` blocks, is cast to
+the compute type once; each cross block encodes it into its state
+(``CrossMemory``), which decode reads and never changes. The MoE blocks'
+router aux losses are summed over the stack into ``lm_loss``.
 
 Training differentiates ``lm_loss`` with autograd. Under
 ``cfg.remat == "unit"`` each repeat of the layer pattern is a
@@ -36,12 +41,14 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
-from repro_torch.models.attention import AttnState
+from repro_torch.models.attention import AttnState, CrossMemory
 from repro_torch.tree import leaves
 
 Tensor = torch.Tensor
 Params = Dict[str, Any]
-State = Dict[str, Tuple[AttnState, ...]]
+# per block: AttnState, or CrossMemory for a cross block
+State = Dict[str, Tuple[Any, ...]]
+_STATES = (AttnState, CrossMemory)
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -53,14 +60,14 @@ def _at(tree: Any, r: int) -> Any:
     """Layer r of a stacked parameter or state tree (views, no copies)."""
     if isinstance(tree, dict):
         return {k: _at(v, r) for k, v in tree.items()}
-    if isinstance(tree, AttnState):
-        return AttnState(*(None if x is None else x[r] for x in tree))
+    if isinstance(tree, _STATES):
+        return type(tree)(*(None if x is None else x[r] for x in tree))
     return tree[r]
 
 
-def _stack_states(states) -> AttnState:
-    return AttnState(*(None if xs[0] is None else torch.stack(xs)
-                       for xs in zip(*states)))
+def _stack_states(states):
+    return type(states[0])(*(None if xs[0] is None else torch.stack(xs)
+                             for xs in zip(*states)))
 
 
 # ---------------------------------------------------------------------------
@@ -107,7 +114,8 @@ def init_decode_state(cfg: ModelConfig, batch: int, *,
     """Zero decode state for the whole stack. softmax: per-layer KV
     caches of ``max_len`` rows (required), O(max_len) memory. Linear
     family: fixed-size (Dk×Dv per head) matrices, O(1) in context length
-    (``max_len`` ignored)."""
+    (``max_len`` ignored). A cross block: its zero memory (K and V of
+    ``n_img_tokens`` rows, or C and z)."""
     pattern, reps, tail = cfg.pattern_and_repeats
     return {
         "stack": tuple(B.block_state_init(k, cfg, batch, max_len=max_len,
@@ -121,10 +129,11 @@ def init_decode_state(cfg: ModelConfig, batch: int, *,
 def pad_decode_state(states: State, cfg: ModelConfig, max_len: int) -> State:
     """Grow prefill KV caches to ``max_len`` rows with zeros, one new
     allocation per cache (softmax only; the linear family's states are
-    fixed-size and come back as they are). The rows are the S axis of
-    (…, S, Hkv, Dh); stacked groups have a leading repeat axis."""
-    def fix(st: AttnState) -> AttnState:
-        if st.k_cache is None:
+    fixed-size and come back as they are, as do cross memories). The rows
+    are the S axis of (…, S, Hkv, Dh); stacked groups have a leading
+    repeat axis."""
+    def fix(st):
+        if not isinstance(st, AttnState) or st.k_cache is None:
             return st
         pad = max_len - st.k_cache.shape[st.k_cache.ndim - 3]
         if pad <= 0:
@@ -156,66 +165,83 @@ def _head(params: Params, x: Tensor, cfg: ModelConfig) -> Tensor:
     return x.to(adt) @ head.to(adt)
 
 
+def _add(aux: Optional[Tensor], a: Optional[Tensor]) -> Optional[Tensor]:
+    return aux if a is None else a if aux is None else aux + a
+
+
 def _trunk(params: Params, tokens: Tensor, cfg: ModelConfig,
            want_state: bool, attention_kernel: bool = True,
-           varlen: Optional[Tensor] = None
-           ) -> Tuple[Tensor, Optional[State]]:
-    """Embed + every block. Returns (hidden (B, T, D), states|None).
+           varlen: Optional[Tensor] = None, memory: Optional[Tensor] = None
+           ) -> Tuple[Tensor, Tensor, Optional[State]]:
+    """Embed + every block. Returns (hidden (B, T, D), aux (), states|None)
+    with aux the sum of the MoE blocks' router losses (0 without MoE).
     Without states and with autograd on, ``cfg.remat == "unit"``
-    checkpoints each repeat of the pattern. ``varlen``: (B,) per-row
-    valid lengths of an END-padded batch."""
+    checkpoints each repeat of the pattern, its aux an output of the
+    region. ``varlen``: (B,) per-row valid lengths of an END-padded
+    batch. ``memory``: (B, N, D) for cross blocks, in the compute
+    type."""
     pattern, reps, tail = cfg.pattern_and_repeats
     x = params["embed"][tokens]
+    kw = dict(memory=memory, want_state=want_state,
+              attention_kernel=attention_kernel, varlen=varlen)
 
     def unit(x, unit_params):
-        states = []
+        states, aux = [], None
         for kind, p in zip(pattern, unit_params):
-            x, st = B.block_apply(kind, p, x, cfg, want_state=want_state,
-                                  attention_kernel=attention_kernel,
-                                  varlen=varlen)
+            x, st, a = B.block_apply(kind, p, x, cfg, **kw)
             states.append(st)
-        return x, states
+            aux = _add(aux, a)
+        return x, aux, states
 
     remat = (cfg.remat == "unit" and not want_state
              and torch.is_grad_enabled())
     stack_states = [[] for _ in pattern]
+    aux = None
     for r in range(reps):
         unit_params = [_at(group, r) for group in params["stack"]]
         if remat:
             # the model draws no random numbers: no RNG state to replay
-            x = checkpoint(lambda x, up: unit(x, up)[0], x, unit_params,
-                           use_reentrant=False, preserve_rng_state=False)
+            x, a = checkpoint(lambda x, up: unit(x, up)[:2], x, unit_params,
+                              use_reentrant=False, preserve_rng_state=False)
+            aux = _add(aux, a)
             continue
-        x, states = unit(x, unit_params)
+        x, a, states = unit(x, unit_params)
+        aux = _add(aux, a)
         for i, st in enumerate(states):
             stack_states[i].append(st)
     tail_states = []
     for i, kind in enumerate(tail):
-        x, st = B.block_apply(kind, params["tail"][i], x, cfg,
-                              want_state=want_state,
-                              attention_kernel=attention_kernel,
-                              varlen=varlen)
+        x, st, a = B.block_apply(kind, params["tail"][i], x, cfg, **kw)
+        aux = _add(aux, a)
         tail_states.append(st)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if not want_state:
-        return x, None
-    return x, {"stack": tuple(_stack_states(s) for s in stack_states),
-               "tail": tuple(tail_states)}
+        return x, aux, None
+    return x, aux, {"stack": tuple(_stack_states(s) for s in stack_states),
+                    "tail": tuple(tail_states)}
+
+
+def _memory(memory: Optional[Tensor], cfg: ModelConfig) -> Optional[Tensor]:
+    return None if memory is None else memory.to(dtype_of(cfg.dtype))
 
 
 def forward(params: Params, tokens: Tensor, cfg: ModelConfig, *,
-            want_state: bool = False, attention_kernel: bool = True,
-            varlen: Optional[Tensor] = None
+            memory: Optional[Tensor] = None, want_state: bool = False,
+            attention_kernel: bool = True, varlen: Optional[Tensor] = None
             ) -> Tuple[Tensor, Optional[State]]:
-    """tokens: (B, T) int → (logits (B, T, V), states|None). Float
+    """tokens: (B, T) int → (logits (B, T, V), states|None); ``lm_loss``
+    reads the router aux loss JAX's ``forward`` also returns. Float
     matrices are cast to ``cfg.dtype`` once, outside the blocks, and
-    gradients flow through the cast to the fp32 master parameters.
+    gradients flow through the cast to the fp32 master parameters; so is
+    ``memory`` (B, N, D), the cross blocks' modality memory.
     ``attention_kernel=False`` runs the linear attention's plain versions
     on CUDA tensors (the training slice's reference route). ``varlen``:
     (B,) per-row valid lengths of an END-padded batch; logits at pad
     positions are garbage."""
     params = cast_params(params, dtype_of(cfg.dtype))
-    x, states = _trunk(params, tokens, cfg, want_state, attention_kernel,
-                       varlen)
+    x, _, states = _trunk(params, tokens, cfg, want_state, attention_kernel,
+                          varlen, _memory(memory, cfg))
     return _head(params, x, cfg), states
 
 
@@ -242,27 +268,32 @@ def cross_entropy(logits: Tensor, labels: Tensor, z_loss: float = 0.0
 def lm_loss(params: Params, batch: Dict[str, Tensor], cfg: ModelConfig, *,
             attention_kernel: bool = True
             ) -> Tuple[Tensor, Dict[str, Tensor]]:
-    """batch: {"tokens": (B, T), "labels": (B, T)} → (loss, {"xent",
-    "aux"}). The port has no MoE, so aux is 0."""
-    logits, _ = forward(params, batch["tokens"], cfg,
-                        attention_kernel=attention_kernel)
-    xent = cross_entropy(logits, batch["labels"])
-    aux = torch.zeros((), dtype=torch.float32, device=logits.device)
+    """batch: {"tokens": (B, T), "labels": (B, T) [, "memory": (B, N, D)]}
+    → (loss, {"xent", "aux"}): the token cross-entropy plus
+    ``router_aux_weight`` times the MoE blocks' summed load-balance loss
+    (aux 0 without MoE)."""
+    params = cast_params(params, dtype_of(cfg.dtype))
+    x, aux, _ = _trunk(params, batch["tokens"], cfg, False, attention_kernel,
+                       memory=_memory(batch.get("memory"), cfg))
+    xent = cross_entropy(_head(params, x, cfg), batch["labels"])
     aux_w = cfg.moe.router_aux_weight if cfg.moe is not None else 0.0
     return xent + aux_w * aux, {"xent": xent, "aux": aux}
 
 
 def prefill(params: Params, tokens: Tensor, cfg: ModelConfig, *,
-            attention_kernel: bool = True) -> Tuple[Tensor, State]:
+            memory: Optional[Tensor] = None, attention_kernel: bool = True
+            ) -> Tuple[Tensor, State]:
     """Encode a prompt into the per-layer decode states: the fixed-size
     states of the linear family, or the softmax KV caches of the prompt's
-    length (``pad_decode_state`` grows them). Returns (last-position
-    logits (B, V), decode states); the head runs on the last position
-    only. ``attention_kernel=False`` runs softmax prefill through B10's
-    plain version on CUDA tensors (the reference route)."""
+    length (``pad_decode_state`` grows them); a cross block's state is
+    ``memory`` (B, N, D) encoded once. Returns (last-position logits
+    (B, V), decode states); the head runs on the last position only.
+    ``attention_kernel=False`` runs softmax prefill through B10's plain
+    version on CUDA tensors (the reference route)."""
     params = cast_params(params, dtype_of(cfg.dtype))
-    x, states = _trunk(params, tokens, cfg, want_state=True,
-                       attention_kernel=attention_kernel)
+    x, _, states = _trunk(params, tokens, cfg, want_state=True,
+                          attention_kernel=attention_kernel,
+                          memory=_memory(memory, cfg))
     return _head(params, x[:, -1], cfg), states
 
 
@@ -292,8 +323,8 @@ def prefill_varlen(params: Params, tokens: Tensor, lens, cfg: ModelConfig,
                          f"attention-only layer pattern")
     lens = torch.as_tensor(lens, device=tokens.device).to(torch.int32)
     params = cast_params(params, dtype_of(cfg.dtype))
-    x, states = _trunk(params, tokens, cfg, want_state=True,
-                       attention_kernel=attention_kernel, varlen=lens)
+    x, _, states = _trunk(params, tokens, cfg, want_state=True,
+                          attention_kernel=attention_kernel, varlen=lens)
     return _head(params, _rows_at(x, (lens - 1).clamp(min=0)), cfg), states
 
 
@@ -394,7 +425,7 @@ def _slot_leaves(state: State):
 def _map_slots(fn, state: State) -> State:
     """A new whole-stack state of ``fn(leaf, slot_axis)`` per leaf."""
     def one(st, axis):
-        return AttnState(*(None if x is None else fn(x, axis) for x in st))
+        return type(st)(*(None if x is None else fn(x, axis) for x in st))
     return {part: tuple(one(st, axis) for st in state[part])
             for part, axis in _SLOT_AXES}
 

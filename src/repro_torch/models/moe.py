@@ -1,0 +1,198 @@
+"""Mixture-of-Experts FFN, DeepSeekMoE / Qwen3-MoE style (port of
+``repro/models/moe.py``, its single-device einsum path).
+
+Shared experts (always-on dense MLPs) are one dense SwiGLU of width
+``n_shared · d_ff_expert``. Routed experts use top-k softmax routing with
+a sort-based capacity dispatch:
+
+  1. every (token, choice) pair is ranked within its expert in token
+     order (a stable argsort over expert ids, then ``searchsorted``);
+  2. pairs whose rank reaches the capacity
+     ``C = max(8, ceil8(capacity_factor · N · k / E))`` are dropped
+     (weight 0), GShard style;
+  3. kept pairs are scattered into an (E·C + 1, D) buffer whose last row
+     takes the dropped pairs and is sliced off, the experts run as one
+     batched (E, C, D) × (E, D, F) product, and the outputs are gathered
+     back, weighted by the router and summed over the k choices.
+
+No kernel: JAX computes the expert products outside any Pallas kernel
+(XLA's einsum), and here they are ``torch.bmm``. Every step is
+deterministic on CUDA as on the CPU: the scatter writes each kept slot
+once (only the discarded last row takes several writes), and the sum
+over the k choices is a reduction over a (N, k, D) view, not an
+``index_add_``, so a run repeats bit for bit.
+
+JAX's ``shard_map`` all-to-all dispatch (expert parallelism over a mesh)
+belongs to the port's multi-device work; on one device JAX takes the
+einsum path too.
+
+The router aux loss is the load-balance loss ``E · Σ_e f_e · p_e / k``
+(fraction of routed choices × mean probability).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers as L
+
+Tensor = torch.Tensor
+Params = Dict[str, Tensor]
+
+
+# ---------------------------------------------------------------------------
+# params
+# ---------------------------------------------------------------------------
+
+def _normal(gen: torch.Generator, shape: Tuple[int, ...], scale: float,
+            dtype) -> Tensor:
+    """Normal weights times ``scale``, in ``dtype``, drawn one (rows, cols)
+    matrix at a time: an fp32 draw of a whole stacked expert tensor would
+    need twice its bf16 size again as transient memory."""
+    out = torch.empty(shape, dtype=dtype, device=gen.device)
+    for w in out.view(-1, *shape[-2:]):
+        w.copy_(torch.randn(shape[-2:], generator=gen, device=gen.device)
+                * scale)
+    return out
+
+
+def moe_params(gen: torch.Generator, cfg: ModelConfig, *,
+               lead: Tuple[int, ...] = (), dtype=torch.float32) -> Params:
+    """Router (D, E) in fp32 whatever ``dtype``; experts (E, D, F),
+    (E, D, F) and (E, F, D), ``w_down`` scaled by 1/√(2·n_layers); the
+    shared experts as one SwiGLU of width ``n_shared · d_ff_expert``."""
+    m = cfg.moe
+    d, e, f = cfg.d_model, m.n_experts, m.d_ff_expert
+    scale = 1.0 / math.sqrt(d)
+    p = {
+        "router": L.dense_init(gen, d, e, lead=lead, dtype=torch.float32,
+                               scale=0.02),
+        "w_gate": _normal(gen, (*lead, e, d, f), scale, dtype),
+        "w_up": _normal(gen, (*lead, e, d, f), scale, dtype),
+        "w_down": _normal(gen, (*lead, e, f, d),
+                          scale / math.sqrt(2 * cfg.n_layers), dtype),
+    }
+    if m.n_shared > 0:
+        p["shared"] = L.mlp_params(gen, d, m.n_shared * f, "swiglu",
+                                   lead=lead, dtype=dtype)
+    return p
+
+
+# ---------------------------------------------------------------------------
+# routing + dispatch
+# ---------------------------------------------------------------------------
+
+def route(router_w: Tensor, x_flat: Tensor, top_k: int
+          ) -> Tuple[Tensor, Tensor, Tensor]:
+    """x_flat: (N, D) → (weights (N, K) fp32, experts (N, K) int64,
+    aux ()). Softmax, then top-k, the weights renormalised (+1e-9), all
+    in fp32 whatever the router's and x's types."""
+    logits = x_flat.float() @ router_w.float()
+    probs = torch.softmax(logits, dim=-1)                      # (N, E)
+    weights, experts = torch.topk(probs, top_k, dim=-1)        # (N, K)
+    weights = weights / (weights.sum(dim=-1, keepdim=True) + 1e-9)
+    n, e = probs.shape
+    # load balance: E · Σ_e (choices routed to e / N) · (mean prob of e)
+    # / k; the counts by a scatter of ones (exact, with no host sync)
+    counts = torch.zeros(e, dtype=torch.float32, device=probs.device)
+    counts.scatter_add_(0, experts.reshape(-1),
+                        torch.ones(experts.numel(), device=probs.device))
+    aux = e * torch.sum(counts / n * probs.mean(dim=0)) / top_k
+    return weights, experts, aux
+
+
+def capacity(n_tokens: int, top_k: int, n_experts: int, factor: float
+             ) -> int:
+    c = int(factor * n_tokens * top_k / n_experts)
+    return max(8, -(-c // 8) * 8)  # round up to 8 for clean tiling
+
+
+def dispatch_slots(experts: Tensor, n_experts: int, cap: int
+                   ) -> Tuple[Tensor, Tensor]:
+    """experts: (N, K) → (slot (N·K,), keep (N·K,) bool). Each pair's
+    rank within its expert comes from a stable argsort over the flat
+    expert ids (token order, then choice order) and ``searchsorted`` of
+    each expert's first position; a kept pair (rank < cap) lands in row
+    expert·cap + rank of the expert buffer, a dropped one in the trash
+    row E·cap."""
+    flat = experts.reshape(-1)
+    nk = flat.numel()
+    order = torch.argsort(flat, stable=True)
+    sorted_e = flat[order]
+    seg_start = torch.searchsorted(
+        sorted_e, torch.arange(n_experts, device=flat.device), side="left")
+    rank_sorted = torch.arange(nk, device=flat.device) - seg_start[sorted_e]
+    rank = torch.empty_like(rank_sorted).scatter_(0, order, rank_sorted)
+    keep = rank < cap
+    slot = torch.where(keep, flat * cap + rank, n_experts * cap)
+    return slot, keep
+
+
+def moe_apply(p: Params, x: Tensor, cfg: ModelConfig
+              ) -> Tuple[Tensor, Tensor]:
+    """x: (B, T, D) → (out (B, T, D), aux () fp32); also takes (B, D), a
+    decode step. The capacity is set by the B·T tokens of the call."""
+    m = cfg.moe
+    squeeze = x.ndim == 2
+    if squeeze:
+        x = x[:, None, :]
+    b, t, d = x.shape
+    n, k, e = b * t, m.top_k, m.n_experts
+    x_flat = x.reshape(n, d)
+
+    weights, experts, aux = route(p["router"], x_flat, k)
+    cap = capacity(n, k, e, m.capacity_factor)
+    slot, keep = dispatch_slots(experts, e, cap)
+
+    # dispatch: each pair's token into its expert row (trash row last)
+    token_idx = torch.arange(n, device=x.device).repeat_interleave(k)
+    buf = x.new_zeros((e * cap + 1, d))
+    buf[slot] = x_flat[token_idx]
+    expert_in = buf[:-1].reshape(e, cap, d)
+
+    # the experts: batched SwiGLU over the expert axis
+    gate = torch.bmm(expert_in, p["w_gate"].to(x.dtype))
+    up = torch.bmm(expert_in, p["w_up"].to(x.dtype))
+    expert_out = torch.bmm(F.silu(gate) * up, p["w_down"].to(x.dtype))
+
+    # combine: gather each pair's row (the trash row reads zeros), weight
+    # it, and sum over the k choices of each token, in x's type
+    out_flat = torch.cat([expert_out.reshape(e * cap, d),
+                          x.new_zeros((1, d))], dim=0)
+    w = (weights.reshape(-1) * keep).to(x.dtype)
+    combined = (out_flat[slot] * w[:, None]).reshape(n, k, d).sum(dim=1)
+
+    if m.n_shared > 0:
+        combined = combined + L.mlp(p["shared"], x_flat, "swiglu")
+    out = combined.reshape(b, t, d)
+    if squeeze:
+        out = out[:, 0]
+    return out, aux
+
+
+# ---------------------------------------------------------------------------
+# dense oracle (tests): every expert on every token
+# ---------------------------------------------------------------------------
+
+def moe_dense_oracle(p: Params, x: Tensor, cfg: ModelConfig) -> Tensor:
+    """O(N·E) reference without dispatch or capacity: equals
+    ``moe_apply`` when nothing drops (capacity ≥ every expert's load)."""
+    m = cfg.moe
+    b, t, d = x.shape
+    x_flat = x.reshape(-1, d)
+    weights, experts, _ = route(p["router"], x_flat, m.top_k)
+    gate = torch.einsum("nd,edf->enf", x_flat, p["w_gate"].to(x.dtype))
+    up = torch.einsum("nd,edf->enf", x_flat, p["w_up"].to(x.dtype))
+    all_out = torch.einsum("enf,efd->end", F.silu(gate) * up,
+                           p["w_down"].to(x.dtype))
+    onehot = F.one_hot(experts, m.n_experts).to(x.dtype)      # (N, K, E)
+    w = torch.einsum("nk,nke->ne", weights.to(x.dtype), onehot)
+    out = torch.einsum("ne,end->nd", w, all_out)
+    if m.n_shared > 0:
+        out = out + L.mlp(p["shared"], x_flat, "swiglu")
+    return out.reshape(b, t, d)

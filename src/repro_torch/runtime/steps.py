@@ -1,4 +1,5 @@
-"""Train and eval step builders (port of ``repro/runtime/steps.py``).
+"""Train, eval and prefill step builders (port of
+``repro/runtime/steps.py``).
 
 PyTorch runs eagerly, so a step is a plain function: no jit and no
 sharding trees. The train step differentiates ``lm.lm_loss`` through the
@@ -57,6 +58,18 @@ def make_train_step(
         metrics["grad_norm"] = gnorm
         return params, opt_state, metrics
 
+    return step
+
+
+def make_prefill_step(cfg: ModelConfig, *,
+                      attention_kernel: bool = True) -> Callable:
+    """(params, tokens, memory=None) → (last-position logits, decode
+    states), ``lm.prefill`` without gradients; ``memory`` (B, N, D) for
+    the cross blocks."""
+    @torch.no_grad()
+    def step(params, tokens, memory=None):
+        return lm.prefill(params, tokens, cfg, memory=memory,
+                          attention_kernel=attention_kernel)
     return step
 
 

@@ -17,6 +17,11 @@ family:
   the shapes of a state built on the ``meta`` device (nothing is
   allocated; JAX uses ``eval_shape``).
 
+No backend takes a config with ``cross`` blocks: they attend to an
+encoded memory that the engine has no path to pass (JAX's admission
+prefills without one, so its engine cannot serve them either), and
+construction raises a ValueError that names it.
+
 ``resolve_modes`` is the one place the engine's ``admission`` and
 ``ingest`` "auto" settings are decided. ``backend_for_config`` walks the
 registry by priority; the first backend whose ``handles(cfg)`` is True
@@ -53,6 +58,14 @@ class DecodeBackend:
     priority: int = 50
 
     def __init__(self, cfg: ModelConfig):
+        if "cross" in _pattern_kinds(cfg):
+            # JAX's engine has no memory path either: its admission
+            # prefills without one
+            raise ValueError(
+                f"{cfg.name}: its 'cross' blocks attend to an encoded "
+                f"memory (B, n_img_tokens={cfg.n_img_tokens}, d_model), and "
+                f"the engine has no path to pass one; serve it with "
+                f"--mode generate, which draws the memory")
         self.cfg = cfg
         self.fixed_size_state = cfg.fixed_state_decode
         self.supports_varlen_prefill = lm.supports_varlen_prefill(cfg)

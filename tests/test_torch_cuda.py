@@ -85,6 +85,31 @@ def test_decode_linear_matches_plain_version(dev, d, dtype, normalize,
         assert torch.count_nonzero(o[masked]) == 0
 
 
+@pytest.mark.parametrize("n", [256, 512])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("normalize", [False, True])
+def test_decode_linear_at_the_moe_and_vision_rows(dev, n, dtype, normalize):
+    """B1 at the rows of llama-3.2-vision-90b's decode (batch 4 x 64
+    heads) and qwen3-moe-235b-a22b's at batch 8 (8 x 64), D = 128, one
+    step, against its plain version."""
+    x = _rows(dev, n, 1, 128, dtype, seed=n)
+    z = x["z"] if normalize else None
+    o_r, s_r, z_r = ref.fused_recurrent_linear_ref(
+        x["s"][:, None], x["q"][:, None], x["k"][:, None], x["v"][:, None],
+        z=None if z is None else z[:, None], normalize=normalize)
+    s = x["s"].clone()
+    zk = None if z is None else z.clone()
+    o, _, _ = ops.decode_linear(s, x["q"], x["k"], x["v"], z=zk,
+                                normalize=normalize)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(s, s_r[:, 0], rtol=1e-5, atol=1e-6)
+    if normalize:
+        torch.testing.assert_close(zk, z_r[:, 0], rtol=1e-5, atol=1e-6)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(o.float(), o_r[:, 0].float(), rtol=tol,
+                               atol=tol)
+
+
 @pytest.mark.parametrize("d", [16, 128])
 def test_decode_linear_denominator_clamp_matches_plain_version(dev, d):
     """Signed q, k, z (the identity feature map): the kernel's
@@ -1095,6 +1120,8 @@ def _fa_by_kv_head(dev, b, h, hkv, t, s, d, dtype, seed=2):
 @pytest.mark.parametrize("b,h,hkv,t,s,d,t_off,s_real", [
     (8, 16, 8, 512, 512, 128, None, None),
     (8, 16, 16, 512, 512, 128, None, None),
+    (4, 64, 8, 512, 512, 128, None, None),      # llama-3.2-vision-90b
+    (4, 64, 4, 512, 512, 128, None, None),      # qwen3-moe-235b-a22b
     (2, 4, 2, 77, 300, 128, 5, 290),
     (3, 4, 4, 200, 200, 64, None, 150),
     (2, 6, 2, 96, 160, 16, 10, 100),
@@ -1131,6 +1158,8 @@ LSE_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-4}
 @pytest.mark.parametrize("b,h,hkv,t,s,d,t_off,s_real", [
     (8, 16, 8, 512, 512, 128, None, None),
     (8, 16, 8, 1024, 1024, 128, None, None),
+    (4, 64, 8, 512, 512, 128, None, None),
+    (4, 64, 4, 512, 512, 128, None, None),
     (2, 4, 2, 77, 300, 128, 5, 290),
     (3, 4, 4, 200, 200, 64, None, 150),
     (2, 6, 2, 96, 160, 16, 10, 100),
@@ -1248,6 +1277,40 @@ def test_softmax_slice_through_kernel_matches_plain_route(dev):
                                atol=1e-4)
     for a, b in zip(out[True][2:], out[False][2:]):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "qwen3-moe-235b-a22b",
+                                  "llama-3.2-vision-90b"])
+@pytest.mark.parametrize("backend", ["linear", "gated_linear", "softmax"])
+def test_moe_and_cross_slices_through_kernels_match_reference(dev, arch,
+                                                              backend):
+    """The MoE and vision smoke configs in fp32 (cross blocks' xgate 0.5,
+    a memory of their image tokens): prefill and 8 greedy steps through
+    B1/B7 and B10 against ``decode_kernel="reference"`` with B10's plain
+    version: tokens identical, logits within 1e-4."""
+    cfg = dataclasses.replace(get_smoke_config(arch).with_backend(backend),
+                              dtype="float32")
+    params = lm.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    for kind, group in zip(cfg.layer_pattern, params["stack"]):
+        if kind == "cross":
+            group["xgate"].fill_(0.5)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab_size, (2, 24), device=dev,
+                           generator=gen)
+    memory = (torch.randn((2, cfg.n_img_tokens, cfg.d_model), device=dev,
+                          generator=gen) if cfg.n_img_tokens else None)
+    out = {}
+    for kernel in (True, False):
+        c = cfg if kernel else dataclasses.replace(cfg,
+                                                   decode_kernel="reference")
+        logits, st = lm.prefill(params, prompt, c, memory=memory,
+                                attention_kernel=kernel)
+        st = lm.pad_decode_state(st, c, 32)
+        toks, _ = lm.generate(params, st, torch.argmax(logits, -1), 24, 8, c)
+        out[kernel] = (logits, toks)
+    assert torch.equal(out[True][1], out[False][1])
+    torch.testing.assert_close(out[True][0], out[False][0], rtol=1e-4,
+                               atol=1e-4)
 
 
 # (ingest chunk, max_len, prompt lengths, budgets): chunks of 8, and the

@@ -893,3 +893,64 @@ def test_serve_retrieve_smoke():
     torch.testing.assert_close(out["answers"].double(), want, rtol=1e-5,
                                atol=1e-3)
     assert out["queries_per_s"] > 0
+
+
+# ---------------------------------------------------------------------------
+# the MoE config through the engine; the cross config refused
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("backend", BACKENDS)
+@pytest.mark.parametrize("admission", ["batched", "per_request"])
+def test_moe_engine_matches_jax_engine(backend, admission):
+    """deepseek-moe-16b's smoke config (fp32) through both engines on the
+    mixed workload: completions token for token and the core stats equal.
+    Every slot, empty or not, routes through the experts and shares
+    their capacity, in both packages alike."""
+    kw = dict(attention_backend=backend, dtype="float32")
+    jcfg = dataclasses.replace(jax_smoke_config("deepseek-moe-16b"), **kw)
+    tcfg = dataclasses.replace(get_smoke_config("deepseek-moe-16b"), **kw)
+    pj = jlm.init_params(jax.random.PRNGKey(0), jcfg)
+    pt = convert.params_from_jax(_np_tree(pj), tcfg)
+    prompts, gens = _mixed_workload(jcfg.vocab_size)
+    j_comps, j_stats = _run(JaxEngine(pj, jcfg, admission=admission,
+                                      **ENGINE_KW), prompts, gens)
+    t_comps, t_stats = _run(DecodeEngine(pt, tcfg, admission=admission,
+                                         **ENGINE_KW), prompts, gens)
+    assert len(t_comps) == len(j_comps) == len(prompts)
+    for a, b in zip(t_comps, j_comps):
+        assert (a.uid, a.finish_reason, a.admitted_step, a.finished_step) \
+            == (b.uid, b.finish_reason, b.admitted_step, b.finished_step)
+        np.testing.assert_array_equal(a.tokens, b.tokens)
+    for k in CORE_STATS:
+        assert t_stats[k] == j_stats[k], k
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_cross_config_refused_by_the_engine(backend):
+    """A config with cross blocks needs a memory, which the engine has no
+    path to pass (JAX's admission passes none either): the backend
+    registry and ``serve --mode stream`` refuse it, naming the memory."""
+    cfg = get_smoke_config("llama-3.2-vision-90b").with_backend(backend)
+    with pytest.raises(ValueError, match="memory"):
+        backend_for_config(cfg)
+    args = serve.parse_args(["--mode", "stream", "--smoke", "--device",
+                             "cpu", "--arch", "llama-3.2-vision-90b",
+                             "--backend", backend])
+    with pytest.raises(ValueError, match="memory"):
+        serve.stream(args)
+
+
+def test_serve_stream_moe_smoke():
+    """``serve --mode stream --arch deepseek-moe-16b --smoke``: every
+    request completes with its budget of tokens."""
+    args = serve.parse_args([
+        "--mode", "stream", "--smoke", "--device", "cpu", "--arch",
+        "deepseek-moe-16b", "--slots", "3", "--segment-len", "4",
+        "--n-requests", "5", "--prompt-len", "20", "--gen-len", "8",
+        "--prefill-chunk", "8"])
+    out = serve.stream(args)
+    mix = serve.make_request_mix(np.random.default_rng(0), 5, 20, 8, 256,
+                                 0.0)
+    assert [len(c.tokens) for c in out["completions"]] == \
+        [g for _, g, _ in mix]
+    assert out["stats"]["ingest_chunks"] > 0

@@ -200,3 +200,94 @@ def test_decode_window_equals_decode_steps(setup):
         torch.testing.assert_close(lg_w[:, i], lg, rtol=1e-5, atol=1e-5)
     for a, b in zip(st_a["stack"], st_b["stack"]):
         torch.testing.assert_close(a.s, b.s, rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the MoE configs and the vision config's cross blocks, every backend
+# ---------------------------------------------------------------------------
+
+NEW_ARCHS = ["deepseek-moe-16b", "qwen3-moe-235b-a22b",
+             "llama-3.2-vision-90b"]
+
+
+def _with_xgate(pj, jcfg, value=0.5):
+    """JAX's tree with every cross block's tanh gate set to ``value`` (0
+    at init, where the block adds nothing and a comparison proves
+    nothing about cross-attention)."""
+    pattern, _, _ = jcfg.pattern_and_repeats
+    stack = tuple(dict(g, xgate=jnp.full_like(g["xgate"], value))
+                  if kind == "cross" else g
+                  for kind, g in zip(pattern, pj["stack"]))
+    return dict(pj, stack=stack)
+
+
+@pytest.mark.parametrize("backend", ["linear", "gated_linear", "softmax"])
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_new_configs_prefill_and_generate_match_jax(arch, backend):
+    """Prefill (with the memory for the vision config), every layer's
+    state, 4 teacher-forced decode steps and 6 greedy tokens against
+    JAX's: logits within 1e-4, tokens identical."""
+    kw = dict(attention_backend=backend, dtype="float32")
+    jcfg = dataclasses.replace(jax_smoke_config(arch), **kw)
+    tcfg = dataclasses.replace(get_smoke_config(arch), **kw)
+    pj = _with_xgate(jlm.init_params(jax.random.PRNGKey(3), jcfg), jcfg)
+    pt = convert.params_from_jax(_np_tree(pj), tcfg)
+    rng = np.random.default_rng(4)
+    prompt = rng.integers(0, jcfg.vocab_size, (B, T)).astype(np.int32)
+    forced = rng.integers(0, jcfg.vocab_size, (B, 4)).astype(np.int32)
+    mem = (rng.standard_normal((B, jcfg.n_img_tokens, jcfg.d_model))
+           .astype(np.float32) if jcfg.n_img_tokens else None)
+    jmem = None if mem is None else jnp.asarray(mem)
+    tmem = None if mem is None else torch.from_numpy(mem)
+    steps = T + 4 + STEPS
+    j_logits, j_st = jlm.prefill(pj, jnp.asarray(prompt), jcfg, RULES,
+                                 memory=jmem)
+    j_st = jlm.pad_decode_state(j_st, jcfg, steps)
+    t_logits, t_st = tlm.prefill(pt, torch.from_numpy(prompt).long(), tcfg,
+                                 memory=tmem)
+    t_st = tlm.pad_decode_state(t_st, tcfg, steps)
+    np.testing.assert_allclose(t_logits.numpy(), np.asarray(j_logits),
+                               rtol=TOL, atol=TOL)
+    j_leaves = jax.tree.leaves(_np_tree(j_st))
+    t_leaves = [x for part in ("stack", "tail") for st in t_st[part]
+                for x in st if x is not None]
+    assert len(t_leaves) == len(j_leaves)
+    for t, j in zip(t_leaves, j_leaves):
+        assert t.shape == j.shape
+        np.testing.assert_allclose(t.numpy(), j, rtol=TOL,
+                                   atol=TOL * max(1.0, np.abs(j).max()))
+    for i in range(4):
+        j_lg, j_st = jlm.decode_step(pj, j_st, jnp.asarray(forced[:, i]),
+                                     T + i, jcfg, RULES)
+        t_lg, t_st = tlm.decode_step(pt, t_st,
+                                     torch.from_numpy(forced[:, i]).long(),
+                                     T + i, tcfg)
+        np.testing.assert_allclose(t_lg.numpy(), np.asarray(j_lg),
+                                   rtol=TOL, atol=TOL, err_msg=f"step {i}")
+    tok0 = jnp.argmax(j_lg, -1).astype(jnp.int32)
+    j_toks, _ = jlm.generate(pj, j_st, tok0, T + 4, STEPS - 2, jcfg, RULES)
+    t_toks, _ = tlm.generate(pt, t_st, torch.argmax(t_lg, -1), T + 4,
+                             STEPS - 2, tcfg)
+    np.testing.assert_array_equal(t_toks.numpy(), np.asarray(j_toks))
+
+
+def test_vision_state_holds_the_encoded_memory():
+    """A cross block's prefill state is its memory, C and z of
+    (B, Hkv, Dh, Dh) and (B, Hkv, Dh) under the linear family whatever
+    the memory's length; a second decode leaves it bit for bit."""
+    tcfg = dataclasses.replace(get_smoke_config("llama-3.2-vision-90b"),
+                               attention_backend="linear", dtype="float32")
+    pt = tlm.init_params(torch.Generator().manual_seed(0), tcfg)
+    mem = torch.randn(2, tcfg.n_img_tokens, tcfg.d_model)
+    _, st = tlm.prefill(pt, torch.zeros((2, 5), dtype=torch.long), tcfg,
+                        memory=mem)
+    cross = st["stack"][1]
+    assert type(cross).__name__ == "CrossMemory" and cross.k is None
+    assert cross.c.shape == (tcfg.n_repeats, 2, tcfg.n_kv_heads,
+                             tcfg.head_dim, tcfg.head_dim)
+    before = cross.c.clone()
+    tlm.decode_step(pt, st, torch.zeros(2, dtype=torch.long), 5, tcfg)
+    assert torch.equal(st["stack"][1].c, before)
+    assert tlm.pad_decode_state(st, tcfg, 64)["stack"][1] is st["stack"][1]
+    with pytest.raises(ValueError, match="memory"):
+        tlm.prefill(pt, torch.zeros((2, 5), dtype=torch.long), tcfg)

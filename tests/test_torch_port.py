@@ -55,7 +55,10 @@ def test_port_imports_no_jax_and_nothing_of_repro():
                    "launch/train.py", "tree.py",
                    "kernels/flash_attention/ops.py",
                    "kernels/flash_attention/ref.py",
-                   "models/xla_attention.py"):
+                   "models/xla_attention.py", "models/moe.py",
+                   "models/blocks.py", "configs/deepseek_moe_16b.py",
+                   "configs/qwen3_moe_235b_a22b.py",
+                   "configs/llama3_2_vision_90b.py"):
         assert port / module in files, module
     bad = [(str(f.relative_to(ROOT)), m) for f in files
            for m in _imported_roots(f) if m in FORBIDDEN]
@@ -99,6 +102,24 @@ def test_qwen3_config_copies_match_jax(getter):
         jget("qwen3-0.6b"))
     assert (tget("qwen3-0.6b").with_backend("linear").pattern_and_repeats
             == jget("qwen3-0.6b").with_backend("linear").pattern_and_repeats)
+
+
+@pytest.mark.parametrize("getter", ["full", "smoke"])
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "qwen3-moe-235b-a22b",
+                                  "llama-3.2-vision-90b"])
+def test_moe_and_vision_config_copies_match_jax(getter, arch):
+    """Field for field, the MoE sub-config included."""
+    jget, tget = ((jax_config, get_config) if getter == "full"
+                  else (jax_smoke_config, get_smoke_config))
+    t, j = tget(arch), jget(arch)
+    assert dataclasses.asdict(t) == dataclasses.asdict(j)
+    assert [f.name for f in dataclasses.fields(t)] == [
+        f.name for f in dataclasses.fields(j)]
+    assert (t.moe is None) == (j.moe is None)
+    if t.moe is not None:
+        assert [f.name for f in dataclasses.fields(t.moe)] == [
+            f.name for f in dataclasses.fields(j.moe)]
+    assert t.pattern_and_repeats == j.pattern_and_repeats
 
 
 def test_paper_qa_copy_matches_jax():
@@ -149,6 +170,41 @@ def test_serve_gated_cli_on_cpu():
     assert lines[1].startswith("prefill 16 toks x2:")
     assert lines[2].startswith("decode  6 toks x2:") and "tok/s" in lines[2]
     assert lines[3].startswith("decode state:") and "O(1)" in lines[3]
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "qwen3-moe-235b-a22b",
+                                  "llama-3.2-vision-90b"])
+def test_serve_new_archs_cli_on_cpu(arch):
+    """``serve --arch <arch> --smoke --device cpu``: the MoE configs, and
+    the vision config with its memory drawn and encoded in prefill."""
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", arch,
+         "--smoke", "--device", "cpu", "--prompt-len", "16", "--gen-len",
+         "6", "--batch", "2"],
+        env=_env(), capture_output=True, text=True, timeout=300, cwd=ROOT)
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.splitlines()
+    assert lines[0].startswith(f"arch={arch}-smoke backend=linear")
+    assert lines[1].startswith("prefill 16 toks x2:")
+    assert lines[2].startswith("decode  6 toks x2:") and "tok/s" in lines[2]
+    assert lines[3].startswith("decode state:") and "O(1)" in lines[3]
+
+
+def test_serve_builds_parameters_in_the_compute_type():
+    """Serving draws its parameters in ``cfg.dtype`` (no fp32 master);
+    the vision config's memory is bf16, as JAX draws it, and its state
+    holds C and z per cross layer."""
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    args = serve.parse_args(["--arch", "llama-3.2-vision-90b", "--smoke",
+                             "--device", "cpu", "--prompt-len", "8",
+                             "--gen-len", "3", "--batch", "2"])
+    cfg = serve.serving_config(args)
+    assert cfg.param_dtype == cfg.dtype == "bfloat16"
+    out = serve.generate(args)
+    assert out["tokens"].shape == (2, 3)
+    want = lm.state_bytes(lm.init_decode_state(cfg, 2))
+    assert out["state_mib"] * 2**20 == want
 
 
 def test_serve_gated_on_cpu_counts_no_kernel_launch():

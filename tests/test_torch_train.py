@@ -286,3 +286,69 @@ def test_loop_failure_injection_and_preemption():
     assert out["step"] == 1 and np.isfinite(out["metrics"][0]["loss"])
     assert set(out["metrics"][0]) == {"loss", "xent", "aux", "grad_norm",
                                       "step_time"}
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "llama-3.2-vision-90b"])
+@pytest.mark.parametrize("remat", ["unit", "none"])
+def test_moe_and_cross_loss_and_gradients_match_jax(arch, remat):
+    """``lm_loss`` with the router aux in the loss (deepseek-moe-16b) and
+    with a memory for the cross
+    blocks (the vision config, xgate = 0.5) against
+    ``jax.value_and_grad``: loss and xent within 1e-5, aux within 1e-5,
+    every gradient leaf within 1e-4 normwise; the aux is an output of
+    each remat region."""
+    kw = dict(attention_backend="linear", dtype="float32", remat=remat)
+    jcfg = dataclasses.replace(jax_smoke_config(arch), **kw)
+    tcfg = dataclasses.replace(get_smoke_config(arch), **kw)
+    pj = jlm.init_params(jax.random.PRNGKey(5), jcfg)
+    pattern, _, _ = jcfg.pattern_and_repeats
+    pj["stack"] = tuple(dict(g, xgate=jnp.full_like(g["xgate"], 0.5))
+                        if kind == "cross" else g
+                        for kind, g in zip(pattern, pj["stack"]))
+    batch = dict(_batches()[0])
+    if jcfg.n_img_tokens:
+        batch["memory"] = np.random.default_rng(6).standard_normal(
+            (B, jcfg.n_img_tokens, jcfg.d_model)).astype(np.float32)
+    (loss, metrics), grads = jax.value_and_grad(
+        lambda p: jlm.lm_loss(p, batch, jcfg, RULES), has_aux=True)(pj)
+    t_loss, t_metrics, t_grads = _port_grads(
+        _port_params(_np(pj), tcfg), batch, tcfg)
+    np.testing.assert_allclose(t_loss.item(), float(loss), rtol=1e-5)
+    np.testing.assert_allclose(t_metrics["xent"].item(),
+                               float(metrics["xent"]), rtol=1e-5)
+    np.testing.assert_allclose(t_metrics["aux"].item(),
+                               float(metrics["aux"]), rtol=1e-5)
+    assert (t_metrics["aux"].item() > 0) == (jcfg.moe is not None)
+    t_leaves, j_leaves = leaves(t_grads), jax.tree.leaves(_np(grads))
+    assert len(t_leaves) == len(j_leaves)
+    for t, j in zip(t_leaves, j_leaves):
+        assert t.shape == j.shape and t.dtype == torch.float32
+        err = np.abs(t.numpy() - j).max()
+        assert err <= 1e-4 * np.abs(j).max(), err
+
+
+def test_train_cli_moe_on_cpu():
+    """``launch/train.py --arch deepseek-moe-16b --smoke``: the loss
+    (xent plus the router aux) stays finite over the steps."""
+    loop = ttrain.build(ttrain.parse_args(
+        ["--arch", "deepseek-moe-16b", "--smoke", "--device", "cpu",
+         "--steps", "3", "--seq-len", "16", "--batch", "2"]))
+    out = loop.run()
+    assert out["step"] == 3
+    for m in out["metrics"]:
+        assert np.isfinite(m["loss"]) and m["aux"] > 0
+
+
+def test_prefill_step_takes_the_memory():
+    """``make_prefill_step`` (JAX's ``(params, tokens, memory=None)``) is
+    ``lm.prefill`` without gradients, the memory passed through."""
+    from repro_torch.runtime import make_prefill_step
+    cfg = dataclasses.replace(get_smoke_config("llama-3.2-vision-90b"),
+                              attention_backend="linear", dtype="float32")
+    params = tlm.init_params(torch.Generator().manual_seed(0), cfg)
+    tokens = torch.zeros((2, 6), dtype=torch.long)
+    mem = torch.randn(2, cfg.n_img_tokens, cfg.d_model)
+    logits, st = make_prefill_step(cfg)(params, tokens, mem)
+    want, _ = tlm.prefill(params, tokens, cfg, memory=mem)
+    assert not logits.requires_grad and torch.equal(logits, want)
+    assert st["stack"][1].c is not None
