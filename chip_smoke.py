@@ -12,7 +12,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    routes run on the tensor cores), and the UBLKCP instructions in the
    lookup library by opcode (B4/B5 copy each state into shared memory by
    ``cp.async.bulk``, B6's bulk route in and back out), which must not
-   spill.
+   spill, nor may B1's and B7's (their state in registers at every D).
 2. Each kernel against its plain PyTorch version on the card, at the
    main path's shapes and at the smoke width (B1 and B7 also 64 tokens
    wide under per-row lengths, the stream path's ingest; B10 at each D
@@ -33,7 +33,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    its log-sum-exp against the plain version's (fp32 1e-5, bf16 1e-4,
    relative to max(1, |lse|)), also through the wrapper's padding. The
    MoE and vision paths' new shapes: B1 at N = 256 and 512 rows (fp32
-   and bf16), B10 at 64 q heads over 8 and over 4 kv heads.
+   and bf16), B10 at 64 q heads over 8 and over 4 kv heads. The dense
+   family's: B1 (normalised and not, varlen, W = 1, 8 and 64) and B7 at
+   D = 64 and 96 and B1 at yi-34b's 448 rows, fp32 and bf16, the state
+   bit for bit; B10 at D = 96 on both routes (T = S = 512, ragged T and
+   S, groups of 6 and 7, through the wrapper) and at 32 over 32, 48 over
+   8 and 56 over 8 heads.
 3. The serving slice on the card: a 2-layer model at qwen3-0.6b's full
    widths in fp32, prefill + 16 greedy steps through the kernel against
    the same run through ``decode_kernel="reference"``.
@@ -168,9 +173,30 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    launches, the cross memory per layer and sequence (linear C and z
    against softmax K and V).
 
+25. The dense slice: yi-34b, internlm2-20b, phi3-mini-3.8b and
+   musicgen-large (layernorm, GELU) at full width, 2 layers, fp32,
+   under linear, gated_linear and softmax: prefill + 16 greedy steps
+   through B1/B7 and B10 against ``decode_kernel="reference"`` (tokens
+   identical, logits within 1e-4).
+26. The dense generate main path: ``serve --arch <id>`` at full width
+   and depth in bf16, batch 8, prompt 512, 64 tokens: phi3-mini-3.8b
+   and musicgen-large under all three backends, yi-34b under linear and
+   softmax (the memory the earlier phases hold printed first; the depth
+   cut to what fits, and printed, if the card cannot hold it whole):
+   prefill ms, ms/token beside the step's bound by bytes, B1/B7 or B10
+   launches exactly layers x steps, a profile of 4 decode steps (busy
+   share), both backends' decode-state MiB, peak memory; yi-34b's linear
+   state against its KV cache and their crossover; B1, B7 and B10 timed
+   at each config's shapes beside their bounds, plain versions and
+   (B10) ``scaled_dot_product_attention``.
+27. The dense stream path: ``serve --mode stream --arch musicgen-large
+   --backend linear`` at phase 16's traffic: layernorm and B1 at D = 64
+   under per-slot masks and per-row ingest lengths, its launches
+   exactly as phase 16's formula.
+
 Each main path (phases 4, 6, 8, 10, 12, 14, 16, 18, 19, 21, 22's
-``launch/train.py`` run and 24) is driven with every kernel's launch
-count set to 0 just before it and read just after.
+``launch/train.py`` run, 24, 26 and 27) is driven with every kernel's
+launch count set to 0 just before it and read just after.
 
 The last line is {"ok": true, "device": {...}}; the line before it the
 kernels' JSON record; before that the card's name and power limit.
@@ -293,10 +319,11 @@ def decode_inputs(n, d, w, dtype, gen, dev):
 
 
 def check_decode_linear(n, d, w, normalize, varlen, gen, dev,
-                        dtype=None) -> float:
+                        dtype=None, bitwise=False) -> float:
     """Kernel vs plain version, q/k/v in ``dtype`` (bf16 by default; o
-    within one bf16 ulp, fp32 o within rtol 1e-5); returns the largest
-    |o difference|."""
+    within one bf16 ulp, fp32 o within rtol 1e-5); with ``bitwise``, S
+    and z must equal the plain version's bit for bit. Returns the
+    largest |o difference|."""
     import torch
     from repro_torch.kernels.fused_recurrent import ops, ref
     dtype = dtype or torch.bfloat16
@@ -336,6 +363,9 @@ def check_decode_linear(n, d, w, normalize, varlen, gen, dev,
     err = (o_k.float() - o_r.float()).abs().max().item()
     same = torch.equal(s_k, s_r) and (not normalize
                                       or torch.equal(z_k, z_r[:, 0]))
+    if bitwise and not same:
+        raise AssertionError(f"decode_linear {tag}: S or z not bitwise the "
+                             f"plain version's")
     print(f"  decode_linear {tag}: max|Δo|={err:.3e} ({ulps:.2f} bf16 ulp),"
           f" S and z within rtol 1e-5, bitwise equal: {same}")
     return err
@@ -357,10 +387,12 @@ def gated_decay(kind, n, w, d, gen, dev):
     return (-u[..., :1]).expand(n, w, d).contiguous()
 
 
-def check_decode_gated(n, d, w, dtype, varlen, decay, gen, dev) -> float:
+def check_decode_gated(n, d, w, dtype, varlen, decay, gen, dev,
+                       bitwise=False) -> float:
     """B7 against its plain version; returns the largest |o difference|.
-    S within rtol 1e-6 (positive inputs: no cancellation), o within 1e-5
-    (fp32) or 1 bf16 ulp, lens-0 rows bitwise unchanged, masked o 0."""
+    S within rtol 1e-6 (positive inputs: no cancellation; with
+    ``bitwise``, bit for bit), o within 1e-5 (fp32) or 1 bf16 ulp, lens-0
+    rows bitwise unchanged, masked o 0."""
     import torch
     from repro_torch.kernels.fused_recurrent import ops, ref
     x = decode_inputs(n, d, w, dtype, gen, dev)
@@ -398,6 +430,9 @@ def check_decode_gated(n, d, w, dtype, varlen, decay, gen, dev) -> float:
     rel = (d_o / o_r.float().abs().clamp_min(1e-30)).max().item()
     d_s = (s_k - s_r).abs().max().item()
     n_diff = int(torch.count_nonzero(s_k != s_r))
+    if bitwise and n_diff:
+        raise AssertionError(f"decode_gated {tag}: {n_diff} state elements "
+                             f"not bitwise the plain version's")
     print(f"  decode_gated {tag}: max|Δo|={err:.3e} (relative {rel:.2e}; "
           f"{ulps:.2f} bf16 ulp), max|ΔS|={d_s:.3e}, {n_diff} of "
           f"{s_k.numel()} state elements not bitwise equal")
@@ -926,16 +961,21 @@ def lookup_main_path(dev, n_docs=8192, doc_len=750, n_queries=131072,
 def profile_decode(params, cfg, states, tok, pos, steps=4, kernel=None):
     """Device time by kernel over a few decode steps (torch.profiler),
     the ten largest rows and every row whose name holds ``kernel``;
-    returns device ms per step, or None when the profiler saw none."""
+    returns device ms per step, or None when the profiler saw none. The
+    positions are on the device, as ``lm.generate`` passes them: a
+    Python int would be copied to the card, and the stream synchronised,
+    in every layer."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.models import lm
+    positions = torch.arange(pos, pos + steps, dtype=torch.int32,
+                             device=tok.device)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
                  ) as prof:
         t0 = time.perf_counter()
         for i in range(steps):
-            logits, states = lm.decode_step(params, states, tok, pos + i,
-                                            cfg)
+            logits, states = lm.decode_step(params, states, tok,
+                                            positions[i], cfg)
             tok = torch.argmax(logits, -1)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) / steps * 1e3
@@ -1446,13 +1486,13 @@ def check_flash_attention(bh, t, s, d, dtype, gen, dev, t_off=None,
 LSE_TOL = {"float32": 1e-5, "bfloat16": 1e-4}
 
 
-def check_flash_wrapper(b, h, hkv, t, s, dtype, gen, dev) -> None:
-    """(B, H, T, D = 128) q and (B, Hkv, S, D) k, v through
+def check_flash_wrapper(b, h, hkv, t, s, dtype, gen, dev, d=128) -> None:
+    """(B, H, T, D) q and (B, Hkv, S, D) k, v through
     ``ops.flash_attention`` (padding T and S to the JAX wrapper's tiles),
     kernel route against ``kernel=False``."""
     import torch
     from repro_torch.kernels.flash_attention import ops as FA
-    q, k, v = (torch.randn((b, n_h, n, 128), generator=gen, device=dev).to(
+    q, k, v = (torch.randn((b, n_h, n, d), generator=gen, device=dev).to(
         dtype) for n_h, n in ((h, t), (hkv, s), (hkv, s)))
     o = FA.flash_attention(q, k, v)
     o_l, lse = FA.flash_attention(q, k, v, want_lse=True)
@@ -1467,7 +1507,7 @@ def check_flash_wrapper(b, h, hkv, t, s, dtype, gen, dev) -> None:
     torch.testing.assert_close(lse, lse_r, rtol=LSE_TOL[name],
                                atol=LSE_TOL[name])
     print(f"  flash_attention wrapper B={b} H={h} Hkv={hkv} T={t} S={s} "
-          f"D=128 {name}: max|Δo|="
+          f"D={d} {name}: max|Δo|="
           f"{(o.float() - o_r.float()).abs().max().item():.3e} against "
           f"kernel=False; lse (sliced from the padded rows) max|Δ|="
           f"{(lse - lse_r).abs().max().item():.3e}")
@@ -2019,6 +2059,16 @@ def time_flash_backward(b, cfg, t, gen, dev, calls=5) -> float:
     return ms
 
 
+def release_train_loop() -> None:
+    """``launch/train.py``'s ``build`` points SIGTERM at its loop (a
+    preemption request), and the handler keeps the loop, its parameters
+    and its optimizer state alive after the phase that built it: the
+    default handler again, so that the later phases find the card free
+    (phase 22's loop held 20 GB through phase 26)."""
+    import signal
+    signal.signal(signal.SIGTERM, signal.SIG_DFL)
+
+
 def training_main_path(backend, dev, gen, phase) -> list:
     """Phases 10, 12 and 18: ``launch/train.py``'s ``build`` and
     ``TrainLoop`` on the full qwen3-0.6b under ``backend``, batch 8 x seq
@@ -2083,6 +2133,7 @@ def training_main_path(backend, dev, gen, phase) -> list:
               f"{prof['device_ms']:.3f} ms device time against "
               f"{ms:.3f} ms per step unprofiled")
     if backend == "softmax":
+        release_train_loop()
         del loop, out, batch
         torch.cuda.empty_cache()
         bwd_ms = time_flash_backward(args.batch, cfg, args.seq_len, gen, dev)
@@ -2108,6 +2159,7 @@ def training_main_path(backend, dev, gen, phase) -> list:
                                  f"the gated step: {epi}")
         print(f"  flip or cumsum kernels in the profiled step: none "
               f"({len(prof['rows'])} device rows)")
+    release_train_loop()
     del loop, out, batch
     torch.cuda.empty_cache()
 
@@ -2493,9 +2545,10 @@ def profile_segments(engine, n=2, steps=2) -> dict:
             "busy": device_ms / wall_ms}
 
 
-def stream_main_path(backend, dev, phase) -> int:
-    """Phase 16: ``serve --mode stream --backend <backend>`` on the full
-    28-layer qwen3-0.6b in bf16, 8 slots, segments of 8, 32 requests of
+def stream_main_path(backend, dev, phase, arch="qwen3-0.6b") -> int:
+    """Phases 16 and 27: ``serve --mode stream --backend <backend>`` on
+    the full ``arch`` (28-layer qwen3-0.6b; phase 27 the 48-layer
+    musicgen-large) in bf16, 8 slots, segments of 8, 32 requests of
     512 prompt tokens and 8 or 64 generated tokens at 0.25 arrivals per
     decode step, with every kernel's launch count set to 0 just before
     and read just after; then a profile of two steps of a segment.
@@ -2511,7 +2564,7 @@ def stream_main_path(backend, dev, phase) -> int:
     name = serve.STREAM_KERNELS[backend][0]
     softmax = backend == "softmax"
     args = serve.parse_args([
-        "--mode", "stream", "--arch", "qwen3-0.6b", "--backend", backend,
+        "--mode", "stream", "--arch", arch, "--backend", backend,
         "--slots", "8", "--segment-len", "8", "--n-requests", "32",
         "--prompt-len", "512", "--gen-len", "64", "--arrival-rate", "0.25",
         "--seed", "0"] + (["--prefill-chunk", "512"] if softmax else []))
@@ -2562,7 +2615,7 @@ def stream_main_path(backend, dev, phase) -> int:
                if softmax else
                f"{full.n_layers} x ({st['segment_len']} x {st['segments']} "
                f"+ {st['ingest_chunks']})")
-    print(f"phase {phase}: {backend} stream main path "
+    print(f"phase {phase}: {arch} {backend} stream main path "
           f"tok_s={result['tokens_per_s']:.1f} "
           f"ms_per_segment={result['ms_per_segment']:.3f} "
           f"slot_utilization={result['slot_utilization']:.4f} "
@@ -2787,17 +2840,19 @@ def moe_layer_checks(arch, dev, phase, batch=8, seq=512) -> None:
     torch.cuda.empty_cache()
 
 
-def decode_bound_ms(params, states, cfg, batch) -> tuple:
+def decode_bound_ms(params, states, cfg, batch, state_passes=2) -> tuple:
     """The least time of one decode step by bytes: every parameter read
     once (the embedding only at the batch's rows) and the decode state
-    read and written once, over the card's memory rate. Returns (ms,
-    bytes)."""
+    read and written once (``state_passes`` = 2; a KV cache is read once,
+    1, its one new row left out), over the card's memory rate. Returns
+    (ms, bytes)."""
     from repro_torch.tree import leaves
     embed = params["embed"]
     n_bytes = (sum(t.nbytes for t in leaves(params)) - embed.nbytes
                + batch * embed.shape[1] * embed.element_size()
-               + 2 * sum(t.nbytes for group in states.values()
-                         for st in group for t in st if t is not None))
+               + state_passes * sum(t.nbytes for group in states.values()
+                                    for st in group for t in st
+                                    if t is not None))
     return n_bytes / PEAK_BYTES_PER_S * 1e3, n_bytes
 
 
@@ -2922,6 +2977,7 @@ def moe_training_main_path(dev, phase) -> dict:
           f"step times ms {[round(t * 1e3, 3) for t in times]}), peak memory"
           f" {peak / 1e9:.3f} GB; losses {[round(x, 4) for x in losses]}, "
           f"aux {[round(x, 4) for x in auxes]}; launches {got}")
+    release_train_loop()
     del loop, out
     torch.cuda.empty_cache()
     return {n: launches[n] for n in names}
@@ -3052,6 +3108,282 @@ def vision_generate_main_path(dev, phase) -> dict:
     return out
 
 
+
+# ---------------------------------------------------------------------------
+# phases 25-27: the dense family
+# ---------------------------------------------------------------------------
+
+DENSE_ARCHS = ("yi-34b", "internlm2-20b", "phi3-mini-3.8b", "musicgen-large")
+# phase 26: each config and the backends it serves at full width and depth
+DENSE_RUNS = (("phi3-mini-3.8b", ("linear", "gated_linear", "softmax")),
+              ("musicgen-large", ("linear", "gated_linear", "softmax")),
+              ("yi-34b", ("linear", "softmax")))
+# what the card keeps free beside yi-34b's weights and state: the prefill's
+# activations, the head's logits and the caching allocator's slack
+DENSE_HEADROOM = 8 * 2**30
+
+
+def dense_kernel_checks(gen, dev) -> None:
+    """Phase 2's checks at the dense family's shapes: B1 and B7 against
+    their plain versions with the state bit for bit, B10 against its
+    plain version and JAX's oracle."""
+    import torch
+    # the dense family: phi3-mini-3.8b's D = 96 (288 threads) and
+    # musicgen-large's 64 at their serving rows (batch 8 x 32 heads) and
+    # at the smoke rows, yi-34b's rows (batch 8 x 56 heads) at D = 128,
+    # and musicgen-large's stream ingest (64-token chunks, rows of 0-64):
+    # S and z bit for bit
+    for n, d in ((256, 96), (256, 64), (448, 128)):
+        for dtype in (torch.float32, torch.bfloat16):
+            for normalize in (False, True):
+                for w, varlen in ((1, False), (8, True)):
+                    check_decode_linear(n, d, w, normalize, varlen, gen, dev,
+                                        dtype=dtype, bitwise=True)
+    for d in (96, 64):
+        for normalize in (False, True):
+            check_decode_linear(12, d, 8, normalize, True, gen, dev,
+                                bitwise=True)
+            check_decode_linear(256, d, 64, normalize, True, gen, dev,
+                                bitwise=True)
+    print("phase 2: decode_linear at D = 64 and 96 and yi-34b's rows: S "
+          "and z bit for bit, o within 1e-5 fp32 and 1 bf16 ulp")
+    # the dense family's head dims at their serving rows and the smoke
+    # rows: S bit for bit
+    for n, d in ((256, 96), (256, 64)):
+        for dtype in (torch.bfloat16, torch.float32):
+            for w, varlen in ((1, False), (8, True)):
+                for decay in ("mild", "strong", "scalar"):
+                    check_decode_gated(n, d, w, dtype, varlen, decay, gen,
+                                       dev, bitwise=True)
+    for d in (96, 64):
+        check_decode_gated(12, d, 8, torch.bfloat16, True, "mild", gen, dev,
+                           bitwise=True)
+    print("phase 2: decode_gated at D = 64 and 96: S bit for bit, o "
+          "within 1e-5 fp32 and 1 bf16 ulp")
+    # the dense family at batch 8, T = S = 512, bf16: phi3-mini-3.8b (32
+    # over 32 heads, D = 96) and musicgen-large (32 over 32, D = 64),
+    # internlm2-20b (48 over 8) and yi-34b (56 over 8) at D = 128; then
+    # D = 96 on both routes, one to one and in groups of 6 and 7, with
+    # ragged T and S, t_off and s_real, and through the wrapper
+    check_flash_attention(256, 512, 512, 96, torch.bfloat16, gen, dev,
+                          kv_heads=32, heads=32)
+    check_flash_attention(256, 512, 512, 64, torch.bfloat16, gen, dev,
+                          kv_heads=32, heads=32)
+    for h in (48, 56):
+        check_flash_attention(8 * h, 512, 512, 128, torch.bfloat16, gen, dev,
+                              kv_heads=8, heads=h)
+    check_flash_attention(256, 512, 512, 96, torch.float32, gen, dev,
+                          kv_heads=32, heads=32)
+    for dtype in (torch.bfloat16, torch.float32):
+        check_flash_attention(14, 77, 300, 96, dtype, gen, dev, t_off=5,
+                              s_real=290, kv_heads=1, heads=7)
+        check_flash_attention(12, 200, 200, 96, dtype, gen, dev,
+                              s_real=150, kv_heads=1, heads=6)
+        check_flash_attention(8, 130, 130, 96, dtype, gen, dev)
+        check_flash_wrapper(2, 14, 2, 72, 200, dtype, gen, dev, d=96)
+    print("phase 2: flash_attention_fwd at the dense family's shapes "
+          "agrees with its plain version and JAX's oracle")
+
+
+def dense_param_bytes(cfg) -> int:
+    """Bytes of a dense config's parameters in ``cfg.param_dtype``: the
+    embedding, the head unless tied, and per layer the projections, the
+    MLP and the two norms (layernorm: scale and bias), then the final
+    norm (the gated backend's decay projection left out)."""
+    import torch
+    from repro_torch.models.lm import dtype_of
+    d, h, hkv, dh, f = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                        cfg.head_dim, cfg.d_ff)
+    norm = (2 if cfg.norm == "layernorm" else 1) * d
+    layer = (2 * d * h * dh + 2 * d * hkv * dh
+             + (3 if cfg.act == "swiglu" else 2) * d * f + 2 * norm)
+    n = (cfg.vocab_size * d * (1 if cfg.tie_embeddings else 2)
+         + cfg.n_layers * layer + norm)
+    return n * torch.tensor([], dtype=dtype_of(cfg.param_dtype)).element_size()
+
+
+def dense_state_sizes(cfg, batch, rows) -> dict:
+    """MiB of the decode state at ``batch``: the linear backend's s and z
+    per layer and head (fp32), the gated backend's s, and the softmax
+    backend's K and V caches of ``rows`` rows per kv head (bf16); and the
+    rows at which the KV cache reaches the linear state."""
+    per_head = cfg.n_layers * batch * cfg.n_heads * cfg.head_dim * 4
+    per_row = cfg.n_layers * batch * 2 * cfg.n_kv_heads * cfg.head_dim * 2
+    linear = per_head * (cfg.head_dim + 1)
+    return {"linear": linear / 2**20,
+            "gated_linear": per_head * cfg.head_dim / 2**20,
+            "softmax": rows * per_row / 2**20,
+            "crossover_rows": linear / per_row,
+            "crossover_rows_s_only": per_head * cfg.head_dim / per_row}
+
+
+def dense_generate_main_path(arch, backend, dev, phase) -> dict:
+    """Phase 26: ``serve --mode generate --arch <arch> --backend
+    <backend>`` at full width and depth (parameters built in bf16),
+    batch 8, prompt 512, 64 tokens, every kernel's launch count set to 0
+    just before and read just after: B1 or B7 exactly layers x 63 times
+    in the timed generation and layers x 2 in the warm-up, or B10 layers
+    times in each of the two prefills, no other kernel. The memory the
+    earlier phases still hold is printed first, and the depth is cut to
+    the whole layers that fit beside it (printed; yi-34b's 68.8 GB of
+    bf16 weights are the largest). Then the decode state's MiB against
+    the other backend's, peak memory, ms/token against the step's bound
+    by bytes, and a profile of 4 decode steps at the run's cache length
+    (device busy share). Returns the launches and the numbers."""
+    import gc
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    free, total = torch.cuda.mem_get_info()
+    argv = ["--arch", arch, "--backend", backend, "--batch", "8",
+            "--prompt-len", "512", "--gen-len", "64", "--seed", "0"]
+    cfg = serve.serving_config(serve.parse_args(argv))
+    whole = dense_param_bytes(cfg)
+    fixed = dense_param_bytes(dataclasses.replace(cfg, n_layers=0))
+    cut = ""
+    if whole + DENSE_HEADROOM > free:
+        n_layers = int((free - DENSE_HEADROOM - fixed)
+                       // ((whole - fixed) / cfg.n_layers))
+        argv += ["--n-layers", str(n_layers)]
+        cut = (f" (cut from {cfg.n_layers}: {whole / 1e9:.3f} GB of "
+               f"weights and {DENSE_HEADROOM / 2**30:.0f} GiB of headroom, "
+               f"{free / 1e9:.3f} GB free)")
+    args = serve.parse_args(argv)
+    cfg = serve.serving_config(args)
+    n_layers = cfg.n_layers
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    result = serve.generate(args)
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    got = {k: n for k, n in launches.items() if n}
+    softmax = backend == "softmax"
+    if softmax:
+        name, want = "flash_attention_fwd", 2 * n_layers
+        timed = (result["prefill_launches"] == n_layers
+                 and not result["decode_launches"])
+    else:
+        name = DECODE_KERNEL[backend]
+        want = n_layers * (args.gen_len - 1 + 2)
+        timed = (result["decode_launches"] == n_layers * (args.gen_len - 1)
+                 and not result["prefill_launches"])
+    if got != {name: want} or not timed:
+        raise AssertionError(f"phase {phase}: {arch} {backend} launched "
+                             f"{got} (want {name} {want}), timed prefill "
+                             f"{result['prefill_launches']}, decode "
+                             f"{result['decode_launches']}")
+    toks = result["tokens"]
+    if toks.shape != (args.batch, args.gen_len) or not (
+            (toks >= 0) & (toks < cfg.vocab_size)).all():
+        raise AssertionError(f"phase {phase}: bad generated tokens")
+    max_len = args.prompt_len + args.gen_len
+    sizes = dense_state_sizes(cfg, args.batch, max_len)
+    if result["state_mib"] != sizes[backend]:
+        raise AssertionError(f"phase {phase}: decode state "
+                             f"{result['state_mib']} MiB, want "
+                             f"{sizes[backend]}")
+    other = "linear" if softmax else "softmax"
+    ms = result["decode_ms_per_token"]
+    print(f"phase {phase}: {arch} {backend} main path ({n_layers} layers"
+          f"{cut}, {cfg.n_heads} heads over {cfg.n_kv_heads}, head dim "
+          f"{cfg.head_dim}, {cfg.norm}, {cfg.act}; bf16) batch "
+          f"{args.batch}, prompt {args.prompt_len}, {args.gen_len} tokens: "
+          f"prefill_ms={result['prefill_ms']:.3f} "
+          f"decode_ms_per_token={ms:.4f} tok_s={result['tokens_per_s']:.1f}"
+          f" state_mib={result['state_mib']:.2f} (the {other} backend's"
+          f" at these rows: {sizes[other]:.2f} MiB); "
+          f"{name}.launches={launches[name]} ("
+          + (f"timed prefill {result['prefill_launches']} = {n_layers} "
+             f"layers, warm-up {n_layers}" if softmax else
+             f"timed {result['decode_launches']} = {n_layers} x "
+             f"{args.gen_len - 1}, warm-up {n_layers} x 2")
+          + f"); held before {held / 1e9:.3f} GB, peak {peak / 1e9:.3f} GB")
+
+    params = lm.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    prompt = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
+                           device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(3))
+    logits, st = lm.prefill(params, prompt, cfg)
+    st = lm.pad_decode_state(st, cfg, max_len)
+    bound_ms, n_bytes = decode_bound_ms(params, st, cfg, args.batch,
+                                        state_passes=1 if softmax else 2)
+    print(f"  bound {bound_ms:.3f} ms a decode step by bytes ("
+          f"{n_bytes / 1e9:.3f} GB of weights and "
+          f"{'the KV cache read' if softmax else 'state read and written'}"
+          f" at {PEAK_BYTES_PER_S / 1e12:.2f} TB/s): {100 * bound_ms / ms:.1f}"
+          f"% of the measured ms/token")
+    device_ms = profile_decode(params, cfg, st, torch.argmax(logits, -1),
+                               args.prompt_len,
+                               kernel=None if softmax else f"{name}_kernel")
+    if not torch.isfinite(logits).all():
+        raise AssertionError(f"phase {phase}: non-finite logits")
+    busy = None
+    if device_ms is not None:
+        busy = device_ms / ms
+        print(f"  device busy {100 * busy:.1f}% of a decode step "
+              f"({device_ms:.3f} ms device time per step over {ms:.3f} ms "
+              f"per token; the bound is {100 * bound_ms / device_ms:.1f}% "
+              f"of the device time)")
+    del params, st, logits, prompt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"name": name, "launches": launches[name], "layers": n_layers,
+            "full_layers": get_config(arch).n_layers,
+            "prefill_ms": result["prefill_ms"], "ms_per_token": ms,
+            "bound_ms": bound_ms, "busy": busy, "peak": peak,
+            "state_mib": result["state_mib"], "sizes": sizes}
+
+
+def dense_kernel_times(arch, backends, gen, dev) -> dict:
+    """B1, B7 and B10 at ``arch``'s serving shapes (batch 8): B1/B7 one
+    step over 8·H rows at D, B10 over T = S = 512 with K/V of its kv
+    heads, each beside its bound, its plain version and, for B10,
+    ``scaled_dot_product_attention``. Returns {kernel: record}."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    b, n, d = 8, 8 * cfg.n_heads, cfg.head_dim
+    out = {}
+    for backend, name, timer in (("linear", "decode_linear",
+                                  time_decode_linear),
+                                 ("gated_linear", "decode_gated",
+                                  time_decode_gated)):
+        if backend in backends:
+            t = timer(n, d, gen, dev)
+            print(f"{name} {arch} N={n} D={d} W=1 bf16: "
+                  f"{t['ms'] * 1e3:.2f} us/launch (plain version "
+                  f"{t['plain_ms'] * 1e3:.2f} us; bound "
+                  f"{t['bound_ms'] * 1e3:.2f} us by {t['bound_by']}, "
+                  f"{t['bytes'] / 1e6:.2f} MB moved)")
+            out[name] = {"shape": f"{arch}: N={n} D={d} W=1 bf16",
+                         "ms": t["ms"], "plain_ms": t["plain_ms"],
+                         "bound_ms": t["bound_ms"],
+                         "bound_by": t["bound_by"], "library_ms": None}
+    if "softmax" in backends:
+        r = time_flash_attention(b, cfg.n_heads, cfg.n_kv_heads, 512, d,
+                                 gen, dev)
+        print(f"flash_attention_fwd {arch} rows={n} kv_rows="
+              f"{b * cfg.n_kv_heads} T=S=512 D={d} bf16 causal: "
+              f"{r['ms'] * 1e3:.2f} us/launch, with the lse "
+              f"{r['lse_ms'] * 1e3:.2f} us (plain version "
+              f"{r['plain_ms'] * 1e3:.2f} us; scaled_dot_product_attention("
+              f"is_causal=True, enable_gqa=True) {r['library_ms'] * 1e3:.2f}"
+              f" us, max|Δ| against the kernel "
+              f"{r['library_max_abs_diff']:.3e}; bound "
+              f"{r['bound_ms'] * 1e3:.2f} us by {r['bound_by']}, "
+              f"{r['flops'] / 1e9:.2f} GFLOP, {r['bytes'] / 1e6:.2f} MB)")
+        out["flash_attention_fwd"] = {
+            "shape": f"{arch}: rows={n} kv_rows={b * cfg.n_kv_heads} "
+                     f"T=S=512 D={d} bf16",
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"]}
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3129,6 +3461,14 @@ def main() -> int:
     for line in ptxas_notes(lookup_log):
         if "decode_" in line:
             print(f"  B6: {line}")
+    # B1/B7 keep D²/threads floats of the state in registers per thread
+    # (64 at D = 128, 32 at D = 96, 16 at D = 64): none may spill
+    for source in (ops.SOURCE, ops.GATED_SOURCE):
+        log = build.build_log(source)
+        if log is None or spills(log):
+            why = "no ptxas report" if log is None else spills(log)
+            raise AssertionError(f"phase 1: {source.name}: {why}")
+    print("  decode_linear.cu, decode_gated.cu: no spill at any D")
     done(1, t0)
 
     # -- 2. kernels against their plain versions --------------------------
@@ -3293,6 +3633,7 @@ def main() -> int:
     print("phase 2: flash_attention_fwd agrees with its plain version and, "
           "where T = S - t_off, with JAX's oracle (fp32 1e-5; bf16 normwise "
           "8e-3 and 2e-2 elementwise), K/V read by kv head")
+    dense_kernel_checks(gen, dev)
     done(2, t0)
 
     # -- 3. the linear slice, kernel vs plain recurrence, fp32 -------------
@@ -3446,6 +3787,39 @@ def main() -> int:
     vision = vision_generate_main_path(dev, 24)
     done(24, t0)
 
+    # -- 25. the dense slice: kernels vs reference, every backend ----------
+    t0 = time.perf_counter()
+    for arch in DENSE_ARCHS:
+        for backend in ("linear", "gated_linear", "softmax"):
+            generate_kernel_vs_reference(full_width(arch, backend, 2), dev,
+                                         25)
+    done(25, t0)
+
+    # -- 26. the dense generate main path ----------------------------------
+    t0 = time.perf_counter()
+    dense, dense_times = {}, {}
+    for arch, backends in DENSE_RUNS:
+        for backend in backends:
+            dense[arch, backend] = dense_generate_main_path(arch, backend,
+                                                            dev, 26)
+        for name, rec in dense_kernel_times(arch, backends, gen,
+                                            dev).items():
+            dense_times.setdefault(name, []).append(rec)
+    sizes = dense[("yi-34b", "linear")]["sizes"]
+    print(f"phase 26: yi-34b at batch 8: linear state "
+          f"{sizes['linear']:.2f} MiB (s and z; s alone "
+          f"{sizes['gated_linear']:.2f}) against a KV cache of 576 rows "
+          f"{sizes['softmax']:.2f} MiB; under 56 heads over 8 the "
+          f"fixed-size state is the larger until the cache holds "
+          f"{sizes['crossover_rows']:.1f} rows "
+          f"({sizes['crossover_rows_s_only']:.1f} without z)")
+    done(26, t0)
+
+    # -- 27. the dense stream path ------------------------------------------
+    t0 = time.perf_counter()
+    stream_dense = stream_main_path("linear", dev, 27, arch="musicgen-large")
+    done(27, t0)
+
     for r in records:
         r["max_abs_err"] = errs[r["name"]]
         if r["name"] in stream:   # B1/B7: generate, stream; B10: and train
@@ -3460,11 +3834,19 @@ def main() -> int:
             "flash_attention_fwd": {
                 "generate_vision": vision["flash_attention_fwd"]}}
     more.update({name: {"train_moe": n} for name, n in train_moe.items()})
+    # phases 26 and 27
+    for (arch, backend), run in dense.items():
+        path = more.setdefault(run["name"], {})
+        path["generate_dense"] = path.get("generate_dense", 0) + \
+            run["launches"]
+    more["decode_linear"]["stream_dense"] = stream_dense
     for r in records:
         if r["name"] in more:
             r.setdefault("launches_by_path", {"train": r["launches"]})
             r["launches_by_path"].update(more[r["name"]])
             r["launches"] = sum(r["launches_by_path"].values())
+        if r["name"] in dense_times:    # the dense family's shapes
+            r["dense_shapes"] = dense_times[r["name"]]
     print(f"phases (s): {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}"
           f" total {time.perf_counter() - t_start:.1f} s")
     print(card)

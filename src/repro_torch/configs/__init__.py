@@ -11,3 +11,7 @@ from repro_torch.configs import deepseek_moe_16b    # noqa: F401
 from repro_torch.configs import qwen3_moe_235b_a22b  # noqa: F401
 from repro_torch.configs import qwen3_0_6b           # noqa: F401
 from repro_torch.configs import llama3_2_vision_90b  # noqa: F401
+from repro_torch.configs import musicgen_large       # noqa: F401
+from repro_torch.configs import yi_34b               # noqa: F401
+from repro_torch.configs import internlm2_20b        # noqa: F401
+from repro_torch.configs import phi3_mini_3_8b       # noqa: F401

@@ -44,16 +44,25 @@ def params_from_jax(np_tree: Any, cfg: ModelConfig, *,
     """Convert the ``repro.models.lm.init_params`` tree: ``embed``,
     ``stack`` (per pattern position, leaves with a leading repeat axis),
     ``tail``, ``final_norm`` and ``lm_head`` unless embeddings are tied.
-    Each attention entry carries every leaf it has: wq, wk, wv, wo, the
+    Each norm carries its ``scale``, and under ``norm="layernorm"`` its
+    ``bias`` too (``norm1``/``norm2`` of the stack, with the repeat axis,
+    of the tail, and ``final_norm``): a tree whose ``final_norm`` holds
+    other leaves than ``cfg.norm`` builds raises ValueError. Each
+    attention entry carries every leaf it has: wq, wk, wv, wo, the
     qk-norm scales (all softmax has) and, under ``gated_linear``, the
-    decay projection
-    ``w_gate`` / ``b_gate`` and the groupnorm ``gn_scale`` / ``gn_bias``;
-    an MoE block its ``moe`` entry (router, w_gate, w_up, w_down and the
-    ``shared`` experts' SwiGLU), a cross block its ``cross`` projections
-    and its ``xgate``. The JAX ``shared`` entry must be empty: the port
-    has no ``shared_attn`` blocks."""
+    decay projection ``w_gate`` / ``b_gate`` and the groupnorm
+    ``gn_scale`` / ``gn_bias``; an MoE block its ``moe`` entry (router,
+    w_gate, w_up, w_down and the ``shared`` experts' SwiGLU), a cross
+    block its ``cross`` projections and its ``xgate``. The JAX
+    ``shared`` entry must be empty: the port has no ``shared_attn``
+    blocks."""
     if np_tree.get("shared"):
         raise NotImplementedError("shared_attn parameters are not ported")
+    norm = {"scale", "bias"} if cfg.norm == "layernorm" else {"scale"}
+    if set(np_tree["final_norm"]) != norm:
+        raise ValueError(f"{cfg.name}: final_norm holds "
+                         f"{sorted(np_tree['final_norm'])}, a {cfg.norm} "
+                         f"holds {sorted(norm)}")
     keys = ["embed", "stack", "tail", "final_norm"]
     if not cfg.tie_embeddings:
         keys.append("lm_head")

@@ -79,7 +79,10 @@
 //   does (repro/kernels/flash_attention/ref.py casts the probabilities to
 //   v's type; the port's copy is ref.flash_attention_ref); m, l and O
 //   stay in fp32. D = 16 and 64 use one 64-column block (the columns past
-//   D are zeros), D = 128 two.
+//   D are zeros), D = 96 and 128 two. At D = 96 the second block's
+//   columns 96-127 are zero-filled on load, so Q Kᵀ runs 6 k16 steps
+//   and its P V block holds zeros there, which the TMA store leaves out
+//   (the row stride of 192 bytes is a multiple of 16, as TMA needs).
 // - A barrier wait that lasts seconds traps, so that a lost phase fails
 //   the launch instead of hanging the card.
 //
@@ -980,6 +983,8 @@ int launch_d(int bf16, const void* q, const void* k, const void* v, void* o,
       FA_LAUNCH(16);
     case 64:
       FA_LAUNCH(64);
+    case 96:
+      FA_LAUNCH(96);
     case 128:
       FA_LAUNCH(128);
     default:
@@ -993,7 +998,7 @@ int launch_d(int bf16, const void* q, const void* k, const void* v, void* o,
 // B10. q, o: contiguous (rows, t, d); k, v: contiguous (rows / heads ·
 // kv_heads, s, d), q row b·heads + h reading kv row b·kv_heads + h mod
 // kv_heads; all of one type, fp32 (bf16 == 0) or bf16 (bf16 == 1), on the
-// current device, 16-byte aligned; d in {16, 64, 128}. lse: null, or a
+// current device, 16-byte aligned; d in {16, 64, 96, 128}. lse: null, or a
 // contiguous fp32 (rows, t) that receives each query's log-sum-exp. Query
 // i attends key j iff j <= i + t_off and j < s_real; requires t_off >= 0
 // and 1 <= s_real <= s (see the header). Returns cudaGetLastError() after the

@@ -41,7 +41,9 @@ from repro_torch.kernels.flash_attention.ref import flash_attention_fwd_ref
 Tensor = torch.Tensor
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
-HEAD_DIMS = (16, 64, 128)   # qwen3-0.6b smoke and full widths, JAX's tests
+# qwen3-0.6b's smoke and full widths, musicgen-large's (and JAX's tests'),
+# phi3-mini-3.8b's
+HEAD_DIMS = (16, 64, 96, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 TILE = 128                  # the JAX wrapper's cq = ckv, for its padding
 

@@ -19,11 +19,12 @@
 // of o ≈ 16.97 MB: about 5.07 µs at 3.35 TB/s. Decode runs 28 launches
 // per token, one per layer.
 //
-// Design: B1's layout (decode_linear.cu). One block of 256 threads owns
-// one state row: thread (grp, j) keeps column j of rows grp, grp+G, ...
-// (G = 256/Dv) in registers, loaded once and written back once. Each step
-// stages the q, k, v rows and a = expf(g) (computed once per row i) in
-// shared memory. The update is S[i][j] = a[i]·S[i][j] + k[i]·v[j] with
+// Design: B1's layout and head dims (decode_linear.cu). One block owns
+// one state row, 256 threads where D divides 256, else 3·D (288 at
+// D = 96): thread (grp, j) keeps column j of rows grp, grp+G, ...
+// (G = threads/D) in registers, loaded once and written back once. Each
+// step stages the q, k, v rows and a = expf(g) (computed once per row i)
+// in shared memory. The update is S[i][j] = a[i]·S[i][j] + k[i]·v[j] with
 // each product and the sum rounded separately (no FMA contraction, no
 // fast math), as the plain PyTorch version computes it, so the state can
 // agree bit for bit; o is reduced in a fixed order. The kernel launches on
@@ -34,7 +35,13 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+// Threads of the block that owns one state row of head dim D: 256 where
+// D divides it (D = 16, 64, 128: 256 / D row groups), else three row
+// groups of D threads (D = 96: 288 threads, 32 rows of S each).
+template <int D>
+__host__ __device__ constexpr int block_threads() {
+  return 256 % D == 0 ? 256 : 3 * D;
+}
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
@@ -51,14 +58,16 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
 }
 
 template <typename T, int D, bool VARLEN>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(block_threads<D>())
 decode_gated_kernel(float* __restrict__ s, const T* __restrict__ q,
                     const T* __restrict__ k, const T* __restrict__ v,
                     const float* __restrict__ g, T* __restrict__ o,
                     const int* __restrict__ lens, int w_steps) {
+  constexpr int kThreads = block_threads<D>();
   constexpr int kGroups = kThreads / D;  // row groups
   constexpr int kRows = D / kGroups;     // rows of S held by each thread
-  static_assert(kThreads % D == 0 && D % kGroups == 0, "unsupported D");
+  static_assert(kThreads % D == 0 && D % kGroups == 0 && kThreads % 32 == 0
+                && kThreads <= 1024, "unsupported D");
 
   __shared__ float qs[D], ks[D], vs[D], decay[D];
   __shared__ float part[kGroups][D];
@@ -124,7 +133,7 @@ void launch(float* s, const void* q, const void* k, const void* v,
   const T* kt = static_cast<const T*>(k);
   const T* vt = static_cast<const T*>(v);
   T* ot = static_cast<T*>(o);
-  const dim3 grid(n), block(kThreads);
+  const dim3 grid(n), block(block_threads<D>());
   if (lens)
     decode_gated_kernel<T, D, true>
         <<<grid, block, 0, stream>>>(s, qt, kt, vt, g, ot, lens, w);
@@ -139,6 +148,8 @@ int launch_dtype(float* s, const void* q, const void* k, const void* v,
                  int d, cudaStream_t stream) {
   switch (d) {
     case 16: launch<T, 16>(s, q, k, v, g, o, lens, n, w, stream); break;
+    case 64: launch<T, 64>(s, q, k, v, g, o, lens, n, w, stream); break;
+    case 96: launch<T, 96>(s, q, k, v, g, o, lens, n, w, stream); break;
     case 128: launch<T, 128>(s, q, k, v, g, o, lens, n, w, stream); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -17,21 +17,33 @@
 // ≈ 17 MB: about 5 µs at 3.35 TB/s. Decode runs 28 launches per token,
 // one per layer.
 //
-// Design: one block of 256 threads owns one state row. It loads S (held
-// in registers: thread (g, j) keeps column j of rows g, g+G, g+2G, ...
-// with G = 256/Dv, i.e. Dk·Dv/256 floats) and z (shared memory) once,
-// loops over the W steps with q, k, v rows read from device memory, and
-// writes S and z back once. The rank-1 update is a separate multiply and
-// add (no FMA contraction), as the plain PyTorch version computes it, so
-// the state agrees bit for bit; o and q·z are reduced in a fixed order.
-// The kernel launches on the caller's stream and allocates nothing.
+// Head dims: D = Dk = Dv in {16, 64, 96, 128} (qwen3-0.6b's smoke and
+// full widths, musicgen-large's 64, phi3-mini-3.8b's 96).
+//
+// Design: one block owns one state row: 256 threads where D divides 256,
+// else 3·D (288 at D = 96). It loads S (held in registers: thread (g, j)
+// keeps column j of rows g, g+G, g+2G, ... with G = threads/D row
+// groups, i.e. D²/threads floats: 64 at D = 128, 32 at D = 96, 16 at
+// D = 64) and z (shared memory) once, loops over the W steps with q, k,
+// v rows read from device memory, and writes S and z back once. The
+// rank-1 update is a separate multiply and add (no FMA contraction), as
+// the plain PyTorch version computes it, so the state agrees bit for bit;
+// o and q·z are reduced in a fixed order (q·z by the first warp, D/32
+// strided terms a lane). The kernel launches on the caller's stream and
+// allocates nothing.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 256;
+// Threads of the block that owns one state row of head dim D: 256 where
+// D divides it (D = 16, 64, 128: 256 / D row groups), else three row
+// groups of D threads (D = 96: 288 threads, 32 rows of S each).
+template <int D>
+__host__ __device__ constexpr int block_threads() {
+  return 256 % D == 0 ? 256 : 3 * D;
+}
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
@@ -54,14 +66,16 @@ __device__ __forceinline__ float safe_denom(float d, float eps) {
 }
 
 template <typename T, int D, bool NORMALIZE, bool VARLEN>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(block_threads<D>())
 decode_linear_kernel(float* __restrict__ s, float* __restrict__ z,
                      const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ o,
                      const int* __restrict__ lens, int w_steps, float eps) {
+  constexpr int kThreads = block_threads<D>();
   constexpr int kGroups = kThreads / D;  // row groups
   constexpr int kRows = D / kGroups;     // rows of S held by each thread
-  static_assert(kThreads % D == 0 && D % kGroups == 0, "unsupported D");
+  static_assert(kThreads % D == 0 && D % kGroups == 0 && kThreads % 32 == 0
+                && kThreads <= 1024, "unsupported D");
 
   __shared__ float qs[D], ks[D], vs[D], zs[D];
   __shared__ float part[kGroups][D];
@@ -139,7 +153,7 @@ void launch(float* s, float* z, const void* q, const void* k, const void* v,
   const T* kt = static_cast<const T*>(k);
   const T* vt = static_cast<const T*>(v);
   T* ot = static_cast<T*>(o);
-  const dim3 grid(n), block(kThreads);
+  const dim3 grid(n), block(block_threads<D>());
   if (normalize) {
     if (lens)
       decode_linear_kernel<T, D, true, true>
@@ -163,6 +177,8 @@ int launch_dtype(float* s, float* z, const void* q, const void* k,
                  float eps, bool normalize, cudaStream_t stream) {
   switch (d) {
     case 16: launch<T, 16>(s, z, q, k, v, o, lens, n, w, eps, normalize, stream); break;
+    case 64: launch<T, 64>(s, z, q, k, v, o, lens, n, w, eps, normalize, stream); break;
+    case 96: launch<T, 96>(s, z, q, k, v, o, lens, n, w, eps, normalize, stream); break;
     case 128: launch<T, 128>(s, z, q, k, v, o, lens, n, w, eps, normalize, stream); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -29,7 +29,8 @@ Tensor = torch.Tensor
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "decode_linear.cu"
 GATED_SOURCE = SOURCE.with_name("decode_gated.cu")
-HEAD_DIMS = (16, 128)            # qwen3-0.6b smoke and full widths
+# qwen3-0.6b's smoke and full widths, musicgen-large's, phi3-mini-3.8b's
+HEAD_DIMS = (16, 64, 96, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 

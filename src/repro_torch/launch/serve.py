@@ -11,9 +11,12 @@ length), each decode step running the backend's fused recurrent CUDA
 kernel once per layer; ``softmax`` (paper §2, the baseline) prefills
 through the causal flash-attention CUDA kernel (B10) once per layer and
 decodes against a KV cache of prompt + generated length, read in plain
-PyTorch at O(pos) per token. ``--arch`` takes the dense qwen3-0.6b, the
-MoE configs deepseek-moe-16b and qwen3-moe-235b-a22b (the experts in
-plain batched products, as in JAX) and llama-3.2-vision-90b, whose
+PyTorch at O(pos) per token. ``--arch`` takes the dense qwen3-0.6b,
+yi-34b, internlm2-20b, phi3-mini-3.8b (head dim 96) and musicgen-large
+(head dim 64, layernorm, GELU), under every backend in ``--mode
+generate`` and ``--mode stream``; the MoE configs deepseek-moe-16b and
+qwen3-moe-235b-a22b (the experts in plain batched products, as in JAX)
+and llama-3.2-vision-90b, whose
 cross blocks attend to a memory of ``n_img_tokens`` patch embeddings
 drawn from a generator of its own (the vision frontend is a stub) and
 encoded once in prefill: C = φ(K)ᵀV per layer under the linear family,
@@ -56,6 +59,10 @@ passes of ``--n-queries`` single-query requests in waves of
       --smoke --device cpu --prompt-len 16 --gen-len 8 --batch 2
   PYTHONPATH=src python -m repro_torch.launch.serve \\
       --arch deepseek-moe-16b --batch 8 --prompt-len 512 --gen-len 64
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-34b \\
+      --backend softmax --batch 8 --prompt-len 512 --gen-len 64
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch musicgen-large --smoke --device cpu --prompt-len 16
   PYTHONPATH=src python -m repro_torch.launch.serve \\
       --arch llama-3.2-vision-90b --smoke --device cpu --prompt-len 16
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \\

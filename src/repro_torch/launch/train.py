@@ -26,10 +26,15 @@ ported, so ``--ckpt-dir`` raises and there is no ``--ckpt-every``.
   PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
       --backend softmax --steps 5
 
-``--arch`` takes qwen3-0.6b and the MoE configs (the router's
+``--arch`` takes qwen3-0.6b, the dense configs yi-34b, internlm2-20b,
+phi3-mini-3.8b and musicgen-large, and the MoE configs (the router's
 load-balance loss in the loss); ``--n-layers`` cuts a model too large for
-one card to whole repeats of its layer pattern. The vision config's cross
-blocks need a memory that the synthetic stream does not draw.
+one card to whole repeats of its layer pattern. On the card, the linear
+and gated backends' training kernels (B2/B3, B8/B9) take head dims 16
+and 128: phi3-mini-3.8b (96) and musicgen-large (64) under them raise
+the kernels' ValueError; on the CPU every config trains. The vision
+config's cross blocks need a memory that the synthetic stream does not
+draw.
 
   PYTHONPATH=src python -m repro_torch.launch.train \\
       --arch deepseek-moe-16b --n-layers 2 --batch 8 --seq-len 1024 \\

@@ -1,4 +1,6 @@
-"""Block dispatch (port of ``repro/models/blocks.py``), two kinds:
+"""Block dispatch (port of ``repro/models/blocks.py``), two kinds, each
+with its norms by ``cfg.norm`` (rmsnorm: a scale; layernorm: a scale and
+a bias):
 
   "attn"   pre-norm self-attention (``softmax``, ``linear`` or
            ``gated_linear``) + MLP, or + MoE FFN when ``cfg.moe`` is set
@@ -41,10 +43,10 @@ def _uses_moe(kind: str, cfg: ModelConfig) -> bool:
 def block_params(kind: str, gen: torch.Generator, cfg: ModelConfig, *,
                  lead: Tuple[int, ...] = (), dtype=torch.float32) -> Params:
     _require_ported(kind, cfg)
-    p = {"norm1": L.rmsnorm_params(cfg.d_model, lead=lead, dtype=dtype,
-                                   device=gen.device),
-         "norm2": L.rmsnorm_params(cfg.d_model, lead=lead, dtype=dtype,
-                                   device=gen.device)}
+    p = {"norm1": L.norm_params(cfg.norm, cfg.d_model, lead=lead,
+                                dtype=dtype, device=gen.device),
+         "norm2": L.norm_params(cfg.norm, cfg.d_model, lead=lead,
+                                dtype=dtype, device=gen.device)}
     if kind == "cross":
         p["cross"] = A.cross_attention_params(gen, cfg, lead=lead,
                                               dtype=dtype)

@@ -24,12 +24,31 @@ Params = Dict[str, Tensor]
 # init helpers
 # ---------------------------------------------------------------------------
 
+def normal_matrices(gen: torch.Generator, shape: Tuple[int, ...],
+                    scale: float, dtype) -> Tensor:
+    """Normal weights times ``scale``, in ``dtype``, drawn one (rows, cols)
+    matrix at a time: an fp32 draw of a whole stacked tensor (an MoE
+    layer's experts, yi-34b's 60 × 7,168 × 20,480 w_up) would need twice
+    its bf16 size again as transient memory."""
+    out = torch.empty(shape, dtype=dtype, device=gen.device)
+    for w in out.view(-1, *shape[-2:]):
+        w.copy_(torch.randn(shape[-2:], generator=gen, device=gen.device)
+                * scale)
+    return out
+
+
 def dense_init(gen: torch.Generator, d_in: int, d_out: int, *,
                lead: Tuple[int, ...] = (), dtype=torch.float32,
                scale: Optional[float] = None) -> Tensor:
-    """Normal weights over sqrt(d_in), or times ``scale`` if given."""
+    """Normal weights over sqrt(d_in), or times ``scale`` if given: fp32
+    weights drawn in one go, weights of another type by
+    ``normal_matrices``."""
+    if dtype != torch.float32:
+        return normal_matrices(gen, (*lead, d_in, d_out),
+                               1.0 / math.sqrt(d_in) if scale is None
+                               else scale, dtype)
     w = torch.randn((*lead, d_in, d_out), generator=gen, device=gen.device)
-    return (w / math.sqrt(d_in) if scale is None else w * scale).to(dtype)
+    return w / math.sqrt(d_in) if scale is None else w * scale
 
 
 def embed_init(gen: torch.Generator, vocab: int, d: int, *,
@@ -55,10 +74,31 @@ def rmsnorm(params: Params, x: Tensor, eps: float = 1e-6) -> Tensor:
     return (out * params["scale"].float()).to(x.dtype)
 
 
+def layernorm_params(d: int, *, lead: Tuple[int, ...] = (),
+                     dtype=torch.float32, device=None) -> Params:
+    return {"scale": torch.ones((*lead, d), dtype=dtype, device=device),
+            "bias": torch.zeros((*lead, d), dtype=dtype, device=device)}
+
+
+def layernorm(params: Params, x: Tensor, eps: float = 1e-5) -> Tensor:
+    """Layer norm (population variance) with scale and bias, computed in
+    fp32, returned in x's type."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, unbiased=False, keepdim=True)
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    out = out * params["scale"].float() + params["bias"].float()
+    return out.to(x.dtype)
+
+
+def norm_params(kind: str, d: int, *, lead: Tuple[int, ...] = (),
+                dtype=torch.float32, device=None) -> Params:
+    make = rmsnorm_params if kind == "rmsnorm" else layernorm_params
+    return make(d, lead=lead, dtype=dtype, device=device)
+
+
 def apply_norm(kind: str, params: Params, x: Tensor) -> Tensor:
-    if kind != "rmsnorm":
-        raise NotImplementedError(f"norm {kind!r}: the port has rmsnorm only")
-    return rmsnorm(params, x)
+    return rmsnorm(params, x) if kind == "rmsnorm" else layernorm(params, x)
 
 
 def groupnorm_heads(x: Tensor, scale: Tensor, bias: Tensor,

@@ -81,8 +81,8 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> Params:
     pattern, reps, tail = cfg.pattern_and_repeats
     params: Params = {
         "embed": L.embed_init(gen, cfg.vocab_size, cfg.d_model, dtype=pdt),
-        "final_norm": L.rmsnorm_params(cfg.d_model, dtype=pdt,
-                                       device=gen.device),
+        "final_norm": L.norm_params(cfg.norm, cfg.d_model, dtype=pdt,
+                                    device=gen.device),
         "stack": tuple(B.block_params(kind, gen, cfg, lead=(reps,),
                                       dtype=pdt) for kind in pattern),
         "tail": tuple(B.block_params(kind, gen, cfg, dtype=pdt)

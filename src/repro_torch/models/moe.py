@@ -49,18 +49,6 @@ Params = Dict[str, Tensor]
 # params
 # ---------------------------------------------------------------------------
 
-def _normal(gen: torch.Generator, shape: Tuple[int, ...], scale: float,
-            dtype) -> Tensor:
-    """Normal weights times ``scale``, in ``dtype``, drawn one (rows, cols)
-    matrix at a time: an fp32 draw of a whole stacked expert tensor would
-    need twice its bf16 size again as transient memory."""
-    out = torch.empty(shape, dtype=dtype, device=gen.device)
-    for w in out.view(-1, *shape[-2:]):
-        w.copy_(torch.randn(shape[-2:], generator=gen, device=gen.device)
-                * scale)
-    return out
-
-
 def moe_params(gen: torch.Generator, cfg: ModelConfig, *,
                lead: Tuple[int, ...] = (), dtype=torch.float32) -> Params:
     """Router (D, E) in fp32 whatever ``dtype``; experts (E, D, F),
@@ -72,9 +60,9 @@ def moe_params(gen: torch.Generator, cfg: ModelConfig, *,
     p = {
         "router": L.dense_init(gen, d, e, lead=lead, dtype=torch.float32,
                                scale=0.02),
-        "w_gate": _normal(gen, (*lead, e, d, f), scale, dtype),
-        "w_up": _normal(gen, (*lead, e, d, f), scale, dtype),
-        "w_down": _normal(gen, (*lead, e, f, d),
+        "w_gate": L.normal_matrices(gen, (*lead, e, d, f), scale, dtype),
+        "w_up": L.normal_matrices(gen, (*lead, e, d, f), scale, dtype),
+        "w_down": L.normal_matrices(gen, (*lead, e, f, d),
                           scale / math.sqrt(2 * cfg.n_layers), dtype),
     }
     if m.n_shared > 0:

@@ -157,6 +157,92 @@ def test_decode_linear_denominator_clamp_matches_plain_version(dev, d):
         assert (err <= 1e-4 * scale[rows, 1]).all()
 
 
+def _positive_rows(dev, n, w, d, dtype, seed=0):
+    """S, z, q, k and v all positive: no sum cancels, so o's fp32 sums in
+    two orders agree to ~D·2^-24 relative, far inside 1e-5."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    r = lambda *shape: torch.randn(shape, generator=g, device=dev).abs()
+    return dict(s=r(n, d, d), z=r(n, d) + 0.5,
+                q=(r(n, w, d) + 0.1).to(dtype),
+                k=(r(n, w, d) + 0.1).to(dtype), v=(r(n, w, d) + 0.1).to(dtype))
+
+
+def _assert_o_close(o, o_r, dtype):
+    """fp32 within 1e-5; bf16 within one ulp of the plain version's."""
+    if dtype == torch.float32:
+        torch.testing.assert_close(o, o_r, rtol=1e-5, atol=1e-5)
+        return
+    _, e = torch.frexp(o_r.float())
+    ulp = torch.ldexp(torch.ones_like(o_r, dtype=torch.float32), e - 8)
+    assert ((o.float() - o_r.float()).abs() <= ulp).all()
+
+
+# musicgen-large's head dim (64: four row groups of 16 rows) and
+# phi3-mini-3.8b's (96: 288 threads, three row groups of 32 rows), at
+# the smoke rows and at the serving path's (batch 8 x 32 heads)
+@pytest.mark.parametrize("d", [64, 96])
+@pytest.mark.parametrize("n,w", [(24, 5), (256, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("normalize", [False, True])
+@pytest.mark.parametrize("varlen", [False, True])
+def test_decode_linear_at_dense_head_dims(dev, d, n, w, dtype, normalize,
+                                          varlen):
+    """B1 against its plain version: S and z bit for bit (the same
+    multiply and add), o within 1e-5 (fp32) or one bf16 ulp; a masked
+    step writes 0 and leaves its row's state as it was."""
+    x = _positive_rows(dev, n, w, d, dtype, seed=d + w)
+    lens = (torch.arange(n, dtype=torch.int32, device=dev) % (w + 1)
+            if varlen else None)
+    z = x["z"] if normalize else None
+    o_r, s_r, z_r = ref.fused_recurrent_linear_ref(
+        x["s"][:, None], x["q"][:, None], x["k"][:, None], x["v"][:, None],
+        z=None if z is None else z[:, None], normalize=normalize, lens=lens)
+    s = x["s"].clone()
+    zk = None if z is None else z.clone()
+    before = ops.decode_linear.launches
+    o, _, _ = ops.decode_linear(s, x["q"], x["k"], x["v"], z=zk,
+                                normalize=normalize, lens=lens)
+    torch.cuda.synchronize()
+    assert ops.decode_linear.launches == before + 1
+    assert torch.equal(s, s_r[:, 0])
+    if normalize:
+        assert torch.equal(zk, z_r[:, 0])
+    _assert_o_close(o, o_r[:, 0], dtype)
+    if varlen:
+        masked = torch.arange(w, device=dev)[None] >= lens[:, None]
+        assert torch.count_nonzero(o[masked]) == 0
+
+
+@pytest.mark.parametrize("d", [64, 96])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("varlen", [False, True])
+@pytest.mark.parametrize("decay", ["mild", "strong", "scalar"])
+def test_decode_gated_at_dense_head_dims(dev, d, dtype, varlen, decay):
+    """B7 at D = 64 and 96 against its plain version: S bit for bit, o
+    within 1e-5 (fp32) or one bf16 ulp; lens-0 rows unchanged, masked o
+    0."""
+    n, w = 40, 5
+    x = _positive_rows(dev, n, w, d, dtype, seed=d)
+    x["g"] = _gated_rows(dev, n, w, d, dtype, decay)["g"]
+    lens = (torch.arange(n, dtype=torch.int32, device=dev) % (w + 3)
+            if varlen else None)
+    o_r, s_r = ref.fused_recurrent_gated_ref(
+        x["s"][:, None], x["q"][:, None], x["k"][:, None], x["v"][:, None],
+        x["g"][:, None], lens=lens)
+    s = x["s"].clone()
+    before = ops.decode_gated.launches
+    o, _ = ops.decode_gated(s, x["q"], x["k"], x["v"], x["g"], lens=lens)
+    torch.cuda.synchronize()
+    assert ops.decode_gated.launches == before + 1
+    assert torch.equal(s, s_r[:, 0])
+    _assert_o_close(o, o_r[:, 0], dtype)
+    if varlen:
+        idle = lens == 0
+        assert torch.equal(s[idle], x["s"][idle])
+        masked = torch.arange(w, device=dev)[None] >= lens[:, None]
+        assert torch.count_nonzero(o[masked]) == 0
+
+
 def test_decode_linear_rejects_unsupported_inputs(dev):
     x = _rows(dev, 4, 2, 16, torch.float32)
     with pytest.raises(ValueError):
@@ -1127,6 +1213,11 @@ def _fa_by_kv_head(dev, b, h, hkv, t, s, d, dtype, seed=2):
     (2, 6, 2, 96, 160, 16, 10, 100),
     (2, 6, 3, 130, 130, 16, None, None),
     (1, 2, 1, 1, 64, 64, None, None),
+    (8, 32, 32, 512, 512, 96, None, None),      # phi3-mini-3.8b: G = 1
+    (8, 48, 8, 512, 512, 128, None, None),      # internlm2-20b: G = 6
+    (8, 56, 8, 512, 512, 128, None, None),      # yi-34b: G = 7
+    (2, 12, 2, 200, 200, 96, None, 150),        # D = 96, G = 6
+    (2, 14, 2, 77, 300, 96, 5, 290),            # D = 96, G = 7
 ])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_flash_attention_kernel_reads_kv_by_head(dev, b, h, hkv, t, s, d,
@@ -1164,6 +1255,9 @@ LSE_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-4}
     (3, 4, 4, 200, 200, 64, None, 150),
     (2, 6, 2, 96, 160, 16, 10, 100),
     (1, 2, 1, 1, 64, 64, None, None),
+    (8, 32, 32, 512, 512, 96, None, None),
+    (2, 12, 2, 200, 200, 96, None, 150),
+    (2, 14, 2, 77, 300, 96, 5, 290),
 ])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_flash_attention_kernel_emits_lse(dev, b, h, hkv, t, s, d, t_off,

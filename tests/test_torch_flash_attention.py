@@ -58,7 +58,7 @@ def _close(t, j, tol):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("bh,t,d", [(2, 256, 64), (4, 128, 64),
-                                    (1, 512, 128)])
+                                    (1, 512, 128), (2, 256, 96)])
 def test_plain_fwd_matches_pallas(bh, t, d, dtype):
     (qj, qt), (kj, kt), (vj, vt) = (_both(_x(i, bh, t, d), dtype)
                                     for i in range(3))
@@ -115,7 +115,8 @@ def test_flash_attention_ref_matches_jax_oracle(dtype):
 @pytest.mark.parametrize("b,h,t,s,d", [
     (2, 3, 200, 200, 64),        # ragged: T and S padded to 256
     (1, 4, 72, 200, 128),        # T < S, both ragged
-    (2, 2, 40, 40, 16)])         # the smoke width; tile drops to 40
+    (2, 2, 40, 40, 16),          # the smoke width; tile drops to 40
+    (1, 2, 72, 200, 96)])        # phi3-mini-3.8b's head dim, ragged
 def test_wrapper_matches_jax_wrapper(b, h, t, s, d, dtype):
     (qj, qt), (kj, kt), (vj, vt) = (_both(_x(40 + i, b, h, n, d), dtype)
                                     for i, n in enumerate((t, s, s)))
@@ -190,7 +191,9 @@ def _gqa(seed, b, g, hkv, t, s, d, dtype="float32"):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("b,g,hkv,t,s,d", [
     (2, 2, 3, 128, 128, 64),         # G = 2
-    (1, 2, 8, 128, 256, 128)])       # qwen3-0.6b's H 16 / Hkv 8, T < S
+    (1, 2, 8, 128, 256, 128),        # qwen3-0.6b's H 16 / Hkv 8, T < S
+    (1, 7, 1, 128, 128, 96),         # yi-34b's G = 7 at D = 96
+    (1, 6, 1, 128, 256, 96)])        # internlm2-20b's G = 6, T < S
 def test_plain_fwd_by_kv_head_matches_pallas_on_broadcast_kv(b, g, hkv, t,
                                                              s, d, dtype):
     (qj, kj, vj), (qt, kt, vt) = _gqa(80, b, g, hkv, t, s, d, dtype)

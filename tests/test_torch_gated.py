@@ -200,6 +200,23 @@ def test_fused_recurrent_gated_matches_jax(w, lens_kind):
         _close(s_t, s_j)
 
 
+@pytest.mark.parametrize("lens_kind", [None, "mixed"])
+@pytest.mark.parametrize("d", [64, 96])
+def test_fused_recurrent_gated_dense_head_dims_match_jax(d, lens_kind):
+    """B7's plain version at the head dims of musicgen-large (64) and
+    phi3-mini-3.8b (96) against the Pallas kernel, W = 3."""
+    b, h, w = 3, 1, 3
+    s, q, k, v, g = _decode_inputs(13 + d, b, h, w, d)
+    lens = _lens(lens_kind, b, w)
+    o_p, s_p = jax_ops.fused_recurrent_gated(s, q, k, v, g, lens=lens,
+                                             interpret=True)
+    s_t = _t(s)
+    o_t, _ = ops.fused_recurrent_gated(s_t, _t(q), _t(k), _t(v), _t(g),
+                                       lens=_t(lens))
+    _close(o_t, o_p)
+    _close(s_t, s_p)
+
+
 def test_lens_zero_rows_bitwise_unchanged():
     b, h, w, d = 3, 2, 4, 16
     s, q, k, v, g = _decode_inputs(3, b, h, w, d)

@@ -80,6 +80,32 @@ def test_matches_jax_pallas_interpret(normalize, w, lens_kind):
         assert z_out is None and z_j is None
 
 
+@pytest.mark.parametrize("lens_kind", [None, "mixed"])
+@pytest.mark.parametrize("normalize", [False, True])
+@pytest.mark.parametrize("d", [64, 96])
+def test_dense_head_dims_match_jax_pallas_interpret(d, normalize, lens_kind):
+    """The head dims of musicgen-large (64) and phi3-mini-3.8b (96), W = 3
+    steps: the plain version against the Pallas kernel."""
+    b, h, w = 3, 1, 3
+    x = _inputs(11 + d, b, h, w, d)
+    lens = _lens(lens_kind, b, w)
+    z = x["z"] if normalize else None
+    o_j, s_j, z_j = jax_ops.fused_recurrent_linear(
+        x["s"], x["q"], x["k"], x["v"], z=z, normalize=normalize,
+        lens=lens, interpret=True)
+    s_t, z_t = _t(x["s"]), _t(x["z"]) if normalize else None
+    o_t, _, _ = ops.fused_recurrent_linear(
+        s_t, _t(x["q"]), _t(x["k"]), _t(x["v"]), z=z_t,
+        normalize=normalize, lens=None if lens is None else _t(lens))
+    np.testing.assert_allclose(o_t.numpy(), np.asarray(o_j), rtol=TOL,
+                               atol=TOL)
+    np.testing.assert_allclose(s_t.numpy(), np.asarray(s_j), rtol=TOL,
+                               atol=TOL)
+    if normalize:
+        np.testing.assert_allclose(z_t.numpy(), np.asarray(z_j), rtol=TOL,
+                                   atol=TOL)
+
+
 @pytest.mark.parametrize("normalize", [False, True])
 def test_lens_zero_rows_bitwise_unchanged(normalize):
     b, h, w, d = 3, 2, 4, 16

@@ -58,7 +58,10 @@ def test_port_imports_no_jax_and_nothing_of_repro():
                    "models/xla_attention.py", "models/moe.py",
                    "models/blocks.py", "configs/deepseek_moe_16b.py",
                    "configs/qwen3_moe_235b_a22b.py",
-                   "configs/llama3_2_vision_90b.py"):
+                   "configs/llama3_2_vision_90b.py",
+                   "configs/yi_34b.py", "configs/internlm2_20b.py",
+                   "configs/phi3_mini_3_8b.py", "configs/musicgen_large.py",
+                   "models/layers.py"):
         assert port / module in files, module
     bad = [(str(f.relative_to(ROOT)), m) for f in files
            for m in _imported_roots(f) if m in FORBIDDEN]
@@ -120,6 +123,23 @@ def test_moe_and_vision_config_copies_match_jax(getter, arch):
         assert [f.name for f in dataclasses.fields(t.moe)] == [
             f.name for f in dataclasses.fields(j.moe)]
     assert t.pattern_and_repeats == j.pattern_and_repeats
+
+
+@pytest.mark.parametrize("getter", ["full", "smoke"])
+@pytest.mark.parametrize("arch", ["yi-34b", "internlm2-20b",
+                                  "phi3-mini-3.8b", "musicgen-large"])
+def test_dense_config_copies_match_jax(getter, arch):
+    """Field for field, with the same layer pattern and repeats."""
+    jget, tget = ((jax_config, get_config) if getter == "full"
+                  else (jax_smoke_config, get_smoke_config))
+    t, j = tget(arch), jget(arch)
+    assert dataclasses.asdict(t) == dataclasses.asdict(j)
+    assert [f.name for f in dataclasses.fields(t)] == [
+        f.name for f in dataclasses.fields(j)]
+    assert t.pattern_and_repeats == j.pattern_and_repeats
+    for backend in ("linear", "gated_linear", "softmax"):
+        assert (t.with_backend(backend).fixed_state_decode
+                == j.with_backend(backend).fixed_state_decode)
 
 
 def test_paper_qa_copy_matches_jax():
