@@ -38,7 +38,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    D = 64 and 96 and B1 at yi-34b's 448 rows, fp32 and bf16, the state
    bit for bit; B10 at D = 96 on both routes (T = S = 512, ragged T and
    S, groups of 6 and 7, through the wrapper) and at 32 over 32, 48 over
-   8 and 56 over 8 heads.
+   8 and 56 over 8 heads. The training kernels at the head dims 96 and
+   64 (phi3-mini-3.8b; musicgen-large and RWKV-6): B2, B3, B8 (inclusive,
+   and exclusive + u) and B9 in fp32 and bf16 at T not a multiple of
+   their tiles and at the training rows (batch 8 x 32 heads, T =
+   1,024), B3's and B9's launches each on its own, the final states far
+   from symmetric, through the wrappers, B8/B9 at the clamp and at each
+   route's limit; B8's exclusive route with a bonus u per head at
+   rwkv6-1.6b's prefill shape (batch 8 x 32 heads, T = 512, D = 64) and
+   at the clamp against ``gla_scan``.
 3. The serving slice on the card: a 2-layer model at qwen3-0.6b's full
    widths in fp32, prefill + 16 greedy steps through the kernel against
    the same run through ``decode_kernel="reference"``.
@@ -194,9 +202,37 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    under per-slot masks and per-row ingest lengths, its launches
    exactly as phase 16's formula.
 
+28. The dense training slices: phi3-mini-3.8b (head dim 96) and
+   musicgen-large (64) at full width, 2 layers, under linear and
+   gated_linear, as phases 9 and 11: B2/B3 or B8/B9 against
+   ``attention_kernel=False`` in fp32 (loss, every gradient leaf, one
+   AdamW step) and in bf16 compute (loss, every leaf).
+29. The dense training main path: ``launch/train.py --arch <id>`` for
+   phi3-mini-3.8b and musicgen-large under linear and gated_linear,
+   bf16 compute, fp32 master, remat per layer, batch 8 x 1,024, 6 steps,
+   the depth cut in whole layers to what fits beside the memory the
+   earlier phases hold (printed): ms/step, tokens/s, peak memory against
+   the reckoning, finite losses, launches exactly layers x steps (the
+   forward kernel twice), a profile of one step by kind; the kernels
+   timed at each config's shape beside their bounds and plain versions.
+30. The rwkv6 slice: rwkv6-1.6b at full width, 2 layers, fp32, a bonus u
+   drawn per head: prefill through B8's exclusive route + 16 greedy
+   steps against the prefill's plain version (tokens identical, logits
+   within 1e-4); its loss under autograd on the card refused
+   (NotImplementedError: the route is forward-only).
+31. The rwkv6 generate main path: ``serve --arch rwkv6-1.6b`` at full
+   width and depth (24 layers) in bf16, batch 8, prompt 512, 64 tokens:
+   exactly 24 B8 launches per prefill and no other kernel, prefill ms,
+   ms/token beside the step's bound by bytes, the state's MiB, a profile
+   of 4 decode steps, and B8's exclusive route timed at the prefill's
+   shape beside its bounds and plain version.
+32. The rwkv6 stream path: ``serve --mode stream --arch rwkv6-1.6b`` at
+   phase 16's traffic: per-request admission, B8 once per layer and
+   prefill, every request its budget.
+
 Each main path (phases 4, 6, 8, 10, 12, 14, 16, 18, 19, 21, 22's
-``launch/train.py`` run, 24, 26 and 27) is driven with every kernel's
-launch count set to 0 just before it and read just after.
+``launch/train.py`` run, 24, 26, 27, 29, 31 and 32) is driven with every
+kernel's launch count set to 0 just before it and read just after.
 
 The last line is {"ok": true, "device": {...}}; the line before it the
 kernels' JSON record; before that the card's name and power limit.
@@ -1285,18 +1321,18 @@ def check_gla_wrapper(t, d, dtype, chunk, scalar, gen, dev) -> None:
           + " against kernel=False")
 
 
-def check_gla_clamp(dtype, gen, dev, lo=-1.0) -> None:
+def check_gla_clamp(dtype, gen, dev, lo=-1.0, d=128) -> None:
     """g ≡ lo = min_log_decay (−1: the default clamp; or the route's
-    ``DECAY_LIMIT``), T = 1,024, chunk 128: B8 and B9 through the autograd
-    function, all finite and within normwise 1e-5 (fp32) or 8e-3 (bf16)
-    of ``gla_scan`` and its autograd gradients, evaluated in fp32 on the
-    same values (the chunk-128 plain version is NaN there, as JAX's
-    is)."""
+    ``DECAY_LIMIT``), T = 1,024, D = ``d``, chunk 128: B8 and B9 through
+    the autograd function, all finite and within normwise 1e-5 (fp32) or
+    8e-3 (bf16) of ``gla_scan`` and its autograd gradients, evaluated in
+    fp32 on the same values (the chunk-128 plain version is NaN there,
+    as JAX's is)."""
     import torch
     from repro_torch.core.gated import gla_scan
     from repro_torch.kernels.gated_linear_attention import ops as GL
-    q, k, v, do, g = (x.reshape(1, 2, 1024, 128) for x in gla_rows(
-        2, 1024, 128, dtype, "clamp", gen, dev))
+    q, k, v, do, g = (x.reshape(1, 2, 1024, d) for x in gla_rows(
+        2, 1024, d, dtype, "clamp", gen, dev))
     g = g * -lo
     got, want = [], []
     for fn, sink, cast in ((lambda a, b, c, e: GL.gated_linear_attention(
@@ -1319,24 +1355,24 @@ def check_gla_clamp(dtype, gen, dev, lo=-1.0) -> None:
                                       min_log_decay=lo, kernel=False)
     nan_share = torch.isnan(plain).float().mean().item()
     print(f"  gated_linear_attention at the clamp (g = min_log_decay = {lo}, "
-          f"T=1024, chunk 128, {name}): all finite; max|Δ| against gla_scan "
-          f"and its "
-          f"autograd in fp32 " + ", ".join(f"{n} {e:.3e}" for n, e in
-                                           zip(names, errs))
+          f"T=1024, D={d}, chunk 128, {name}): all finite; max|Δ| against "
+          f"gla_scan and its autograd in fp32 "
+          + ", ".join(f"{n} {e:.3e}" for n, e in zip(names, errs))
           + f" (normwise {LA_TOL[name]}); the chunk-128 plain version: "
           f"{100 * nan_share:.1f}% of o NaN")
 
 
-def check_decay_limit(gen, dev) -> None:
+def check_decay_limit(gen, dev, d=128) -> None:
     """Each route at its ``DECAY_LIMIT`` (bf16 −1.25, fp32 −1.5) with g
-    held there (``check_gla_clamp``), and a CUDA call of ``fwd``,
-    ``bwd_dq`` and ``bwd_dkv`` just past it refused with ValueError."""
+    held there (``check_gla_clamp``) at D = ``d``, and a CUDA call of
+    ``fwd``, ``bwd_dq`` and ``bwd_dkv`` just past it refused with
+    ValueError."""
     import torch
     from repro_torch.kernels.gated_linear_attention import ops as GL
     for dtype in (torch.bfloat16, torch.float32):
         lo = GL.DECAY_LIMIT[dtype]
-        check_gla_clamp(dtype, gen, dev, lo=lo)
-        q, k, v, do, g = gla_rows(2, 64, 16, dtype, "mild", gen, dev)
+        check_gla_clamp(dtype, gen, dev, lo=lo, d=d)
+        q, k, v, do, g = gla_rows(2, 64, d, dtype, "mild", gen, dev)
         qdq = torch.zeros_like(g)
         for fn in (lambda m: GL.fwd(q, k, v, g, chunk=16, min_log_decay=m),
                    lambda m: GL.bwd_dq(q, k, v, g, do, chunk=16,
@@ -1785,9 +1821,9 @@ def slice_model(backend, dtype, dev, arch="qwen3-0.6b", seq=256):
 
 
 def training_slice(backend, dev, phase, arch="qwen3-0.6b", seq=256) -> None:
-    """Phases 9, 11, 17 and 22: 2 layers at ``arch``'s full widths, fp32,
-    batch 2 x ``seq`` tokens, weights from seed 0. Through the backend's
-    attention kernels (B2/B3, B8/B9, B10) and through their plain
+    """Phases 9, 11, 17, 22 and 28: 2 layers at ``arch``'s full widths,
+    fp32, batch 2 x ``seq`` tokens, weights from seed 0. Through the
+    backend's attention kernels (B2/B3, B8/B9, B10) and through their plain
     versions: the loss and the MoE router's aux (rtol 1e-5), every
     gradient leaf (normwise 1e-4: fp32 sums in other orders through two
     layers and the head), and the parameters after one AdamW step
@@ -1905,9 +1941,9 @@ def moe_routing(calls, replay=None):
 
 def training_slice_bf16(backend, dev, phase, arch="qwen3-0.6b",
                         seq=256) -> None:
-    """Phases 9, 11, 17 and 22, second part: ``training_slice``'s 2-layer
-    model in bf16 compute (fp32 master weights, as the main path trains),
-    so that the attention kernels take their bf16 (tensor-core) routes
+    """Phases 9, 11, 17, 22 and 28, second part: ``training_slice``'s
+    2-layer model in bf16 compute (fp32 master weights, as the main path
+    trains), so that the attention kernels take their bf16 (tensor-core) routes
     inside the model: the loss and every gradient leaf through the
     kernels against the same through ``attention_kernel=False``, at
     BF16_SLICE_TOL; the MoE router's aux beside the loss.
@@ -2546,29 +2582,35 @@ def profile_segments(engine, n=2, steps=2) -> dict:
 
 
 def stream_main_path(backend, dev, phase, arch="qwen3-0.6b") -> int:
-    """Phases 16 and 27: ``serve --mode stream --backend <backend>`` on
-    the full ``arch`` (28-layer qwen3-0.6b; phase 27 the 48-layer
-    musicgen-large) in bf16, 8 slots, segments of 8, 32 requests of
-    512 prompt tokens and 8 or 64 generated tokens at 0.25 arrivals per
-    decode step, with every kernel's launch count set to 0 just before
-    and read just after; then a profile of two steps of a segment.
-    Softmax admits each prompt whole (``--prefill-chunk 512``: B10 in
-    every wave; its per-step ingest, 64 eager decode steps a chunk, is
-    held on the card by phase 15) and prints its KV cache's MiB beside
-    the linear state's. Returns the backend kernel's launches in the
-    run."""
+    """Phases 16, 27 and 32: ``serve --mode stream --backend <backend>``
+    on the full ``arch`` (28-layer qwen3-0.6b; phase 27 the 48-layer
+    musicgen-large; phase 32 rwkv6-1.6b, ``backend`` None: no attention
+    layer) in bf16, 8 slots, segments of 8, 32 requests of 512 prompt
+    tokens and 8 or 64 generated tokens at 0.25 arrivals per decode
+    step, with every kernel's launch count set to 0 just before and read
+    just after; then a profile of two steps of a segment. Softmax admits
+    each prompt whole (``--prefill-chunk 512``: B10 in every wave; its
+    per-step ingest, 64 eager decode steps a chunk, is held on the card
+    by phase 15) and prints its KV cache's MiB beside the linear
+    state's. RWKV-6 admits each request alone (per-request admission:
+    B8's exclusive route once per layer and prefill, no ingest chunk)
+    and decodes in plain PyTorch. Returns the backend kernel's launches
+    in the run."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
-    name = serve.STREAM_KERNELS[backend][0]
+    rwkv = backend is None
+    name = serve.STREAM_KERNELS["rwkv6" if rwkv else backend][0]
     softmax = backend == "softmax"
     args = serve.parse_args([
-        "--mode", "stream", "--arch", arch, "--backend", backend,
+        "--mode", "stream", "--arch", arch,
         "--slots", "8", "--segment-len", "8", "--n-requests", "32",
         "--prompt-len", "512", "--gen-len", "64", "--arrival-rate", "0.25",
-        "--seed", "0"] + (["--prefill-chunk", "512"] if softmax else []))
-    full = get_config(args.arch).with_backend(backend)
+        "--seed", "0"] + (["--prefill-chunk", "512"] if softmax else [])
+        + ([] if rwkv else ["--backend", backend]))
+    full = get_config(args.arch)
+    full = full if rwkv else full.with_backend(backend)
     t0 = time.perf_counter()
     reset_launches()
     result = serve.stream(args)
@@ -2601,7 +2643,13 @@ def stream_main_path(backend, dev, phase, arch="qwen3-0.6b") -> int:
         raise AssertionError(f"phase {phase}: incomplete or bad "
                              f"completions")
     chunks_per_request = -(-args.prompt_len // args.prefill_chunk) - 1
-    if st["ingest_chunks"] < chunks_per_request or not st["segments"]:
+    if rwkv:
+        if result["engine"].admission != "per_request" or \
+                st["ingest_chunks"] or st["prefills"] != args.n_requests \
+                or not st["segments"]:
+            raise AssertionError(f"phase {phase}: per-request admission of "
+                                 f"every prompt whole, no ingest: {st}")
+    elif st["ingest_chunks"] < chunks_per_request or not st["segments"]:
         raise AssertionError(f"phase {phase}: no chunked ingest: {st}")
     if softmax:
         cache_mib = (full.n_layers * 2 * args.slots * result["engine"].max_len
@@ -2613,9 +2661,10 @@ def stream_main_path(backend, dev, phase, arch="qwen3-0.6b") -> int:
                                  f"ingest chunks (want 0)")
     formula = (f"{full.n_layers} x {st['prefill_dispatches']} waves"
                if softmax else
+               f"{full.n_layers} x {st['prefills']} prefills" if rwkv else
                f"{full.n_layers} x ({st['segment_len']} x {st['segments']} "
                f"+ {st['ingest_chunks']})")
-    print(f"phase {phase}: {arch} {backend} stream main path "
+    print(f"phase {phase}: {arch} {backend or 'rwkv6'} stream main path "
           f"tok_s={result['tokens_per_s']:.1f} "
           f"ms_per_segment={result['ms_per_segment']:.3f} "
           f"slot_utilization={result['slot_utilization']:.4f} "
@@ -2623,8 +2672,10 @@ def stream_main_path(backend, dev, phase, arch="qwen3-0.6b") -> int:
           f"seconds={result['seconds']:.3f} tokens={result['tokens']} "
           f"{name}.launches={launches[name]} (timed run {want} = "
           f"{formula}, warm-up {want_warm}); decode state "
-          f"{result['state_mib']:.1f} MiB against "
-          f"{result['linear_state_mib']:.1f} MiB of linear state; all "
+          f"{result['state_mib']:.1f} MiB"
+          + ("" if rwkv else f" against {result['linear_state_mib']:.1f} "
+                             f"MiB of linear state")
+          + "; all "
           f"{len(comps)} requests complete")
     print(f"  stats {json.dumps(st)}")
     prof = profile_segments(result["engine"])
@@ -3384,6 +3435,468 @@ def dense_kernel_times(arch, backends, gen, dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 28-32: the dense family's training through B2/B3 and B8/B9 at head
+# dims 96 and 64, and rwkv6-1.6b served with its prefill through B8's
+# exclusive route
+# ---------------------------------------------------------------------------
+
+# phase 29: the configs the card trains, at full width
+DENSE_TRAIN_ARCHS = ("phi3-mini-3.8b", "musicgen-large")
+# training bytes per parameter: the fp32 master and its gradient, AdamW's
+# two fp32 moments, and the bf16 copy the step computes with
+TRAIN_BYTES_PER_PARAM = 4 + 4 + 8 + 2
+# what the card keeps free beside them: the remat units' saved inputs, one
+# layer's recomputed activations and their gradients, the head's logits
+# in fp32 with their softmax temporaries, and the caching allocator's slack
+TRAIN_HEADROOM = 16 * 2**30
+
+
+def training_kernel_checks(gen, dev) -> None:
+    """Phase 2's checks of B2/B3 and B8/B9 at the head dims 64 and 96
+    (musicgen-large and RWKV-6; phi3-mini-3.8b): each against its plain
+    version in fp32 and bf16 at T a multiple of the chunk but not of the
+    kernels' tiles (32 tokens on FMAs, 64 on the tensor cores) and at a
+    ragged T, at the training main path's rows (batch 8 x 32 heads, T =
+    1,024) in bf16, B3's and B9's launches each on its own, the final
+    states far from symmetric, through the wrappers (padding, per-head
+    decay); B8/B9 at the decay clamp and at each route's limit against
+    ``gla_scan``; then B8's exclusive route with RWKV-6's per-head bonus
+    at rwkv6-1.6b's prefill shape (batch 8 x 32 heads, T = 512, D = 64)
+    and at the clamp."""
+    import torch
+    for d in (96, 64):
+        check_linear_attention_rows(256, 1024, d, torch.bfloat16, 128, gen,
+                                    dev)
+        for bh, t, chunk in ((6, 272, 16), (4, 75, 75)):
+            check_linear_attention_rows(bh, t, d, torch.float32, chunk, gen,
+                                        dev)
+        for bh, t, chunk in ((6, 272, 16), (4, 75, 75), (6, 48, 16),
+                             (6, 200, 40)):
+            check_linear_attention_rows(bh, t, d, torch.bfloat16, chunk,
+                                        gen, dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            check_linear_attention_wrapper(200, d, dtype, 128, gen, dev)
+        check_gla_rows(256, 1024, d, torch.bfloat16, 128, "model", gen, dev)
+        for bh, t, chunk in ((6, 272, 16), (4, 75, 75)):
+            check_gla_rows(bh, t, d, torch.float32, chunk, "mild", gen, dev)
+        for bh, t, chunk in ((6, 272, 16), (4, 75, 75), (6, 48, 16),
+                             (6, 200, 40)):
+            for decay in ("model", "mild"):
+                check_gla_rows(bh, t, d, torch.bfloat16, chunk, decay, gen,
+                               dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            check_gla_wrapper(200, d, dtype, 128, dtype == torch.bfloat16,
+                              gen, dev)
+            check_gla_clamp(dtype, gen, dev, d=d)
+        check_decay_limit(gen, dev, d=d)
+    print(f"phase 2: linear_attention_fwd, _bwd_dq, _bwd_dkv and "
+          f"gated_linear_attention_fwd (inclusive, exclusive + u), _bwd_dq, "
+          f"_bwd_dkv at D = 96 and 64 agree with their plain versions "
+          f"(normwise {LA_TOL}; the fp32 states within "
+          f"{LA_TOL['float32']}) and, at the clamp and at each route's "
+          f"limit, with gla_scan")
+    check_rwkv6_prefill(8, 32, 512, 64, torch.bfloat16, gen, dev)
+    check_rwkv6_prefill(2, 3, 200, 64, torch.float32, gen, dev)
+    check_rwkv6_prefill(2, 3, 75, 96, torch.bfloat16, gen, dev)
+    for dtype in (torch.bfloat16, torch.float32):
+        check_rwkv6_clamp(dtype, gen, dev)
+
+
+def rwkv_rows(b, h, t, d, dtype, gen, dev):
+    """(B, H, T, D) q, k, v in ``dtype`` and an fp32 log-decay of RWKV-6's
+    range (its init's -exp(w̃), -0.3 to -0.9 a token: a 64-token tile
+    reaches b = -57.6), and a bonus u of one row per head, (H, D)."""
+    import torch
+    r = lambda *s: torch.randn(s, generator=gen, device=dev)  # noqa: E731
+    q, k, v = (r(b, h, t, d).to(dtype) for _ in range(3))
+    g = -(0.3 + 0.6 * torch.rand((b, h, t, d), generator=gen, device=dev))
+    return q, k, v, g, r(h, d)
+
+
+def check_rwkv6_prefill(b, h, t, d, dtype, gen, dev) -> float:
+    """B8's exclusive route through ``rwkv6_attention`` (one launch for
+    every head, each row reading its head's u) against its plain version
+    in 64-token chunks (``models.rwkv6.PREFILL_CHUNK``): o normwise
+    1e-5 / 8e-3, the fp32 state within 1e-5 and far from symmetric; and
+    a u shared by every head is further off than the tolerance, so a
+    kernel that read one u for all rows would fail. Returns max|Δo|."""
+    import torch
+    from repro_torch.kernels.gated_linear_attention import ops as GL
+    q, k, v, g, u = rwkv_rows(b, h, t, d, dtype, gen, dev)
+    n0 = GL.fwd.launches
+    o, s = GL.rwkv6_attention(q, k, v, g, u, chunk=64)
+    torch.cuda.synchronize()
+    if GL.fwd.launches != n0 + 1:
+        raise AssertionError("rwkv6_attention: not one launch")
+    o_r, s_r = GL.rwkv6_attention(q, k, v, g, u, chunk=64, kernel=False)
+    o_1, _ = GL.rwkv6_attention(q, k, v, g, u[0], chunk=64, kernel=False)
+    name = str(dtype).split(".")[-1]
+    tag = f"B={b} H={h} T={t} D={d} {name}"
+    err = normwise(o, o_r, LA_TOL[name], f"rwkv6_attention o {tag}")
+    s_err = normwise(s, s_r, LA_TOL["float32"], f"rwkv6_attention S {tag}")
+    asym = ((s_r - s_r.mT).abs().max() / s_r.abs().max()).item()
+    shared = ((o_1.float() - o_r.float()).abs().max()
+              / o_r.float().abs().max()).item()
+    if not (asym > 100 * LA_TOL["float32"] and shared > 2 * LA_TOL[name]):
+        raise AssertionError(f"rwkv6_attention {tag}: state asymmetry "
+                             f"{asym:.3e}, shared-u distance {shared:.3e}")
+    print(f"  rwkv6_attention (B8 exclusive, u per head) {tag}: max|Δo|="
+          f"{err:.3e} ({err / o_r.float().abs().max().item():.2e} of "
+          f"max|o|), max|ΔS|={s_err:.3e} (|S - Sᵀ| {asym:.2f} max|S|); one "
+          f"u for every head moves o by {shared:.2e} of max|o|")
+    return err
+
+
+def check_rwkv6_clamp(dtype, gen, dev) -> None:
+    """RWKV-6's prefill at the clamp (g ≡ -1, T = 512, D = 64, u per
+    head): B8's exclusive route, finite, against ``gla_scan(exclusive,
+    u)`` evaluated in fp32 on the same values, normwise 1e-5 / 8e-3."""
+    import torch
+    from repro_torch.core.gated import gla_scan
+    from repro_torch.kernels.gated_linear_attention import ops as GL
+    q, k, v, _, u = rwkv_rows(1, 2, 512, 64, dtype, gen, dev)
+    g = torch.full(q.shape, -1.0, device=dev)
+    o, s = GL.rwkv6_attention(q, k, v, g, u, chunk=64)
+    o_r, s_r = gla_scan(q.float(), k.float(), v.float(), g, exclusive=True,
+                        u=u)
+    torch.cuda.synchronize()
+    name = str(dtype).split(".")[-1]
+    if not (torch.isfinite(o).all() and torch.isfinite(s).all()):
+        raise AssertionError(f"rwkv6_attention at the clamp {name}: "
+                             f"non-finite")
+    err = normwise(o, o_r, LA_TOL[name], f"rwkv6 clamp {name} o")
+    s_err = normwise(s, s_r, LA_TOL["float32"], f"rwkv6 clamp {name} S")
+    print(f"  rwkv6_attention at the clamp (g = -1, T=512, D=64, {name}): "
+          f"max|Δo| {err:.3e}, max|ΔS| {s_err:.3e} against gla_scan "
+          f"(exclusive, u per head) in fp32")
+
+
+def train_param_counts(cfg) -> tuple:
+    """(parameters outside the layers, parameters a layer) of a dense
+    config: ``dense_param_bytes``' count, and under ``gated_linear`` the
+    decay projection (D x H·Dh and its bias) and groupnorm a layer."""
+    fixed = dense_param_bytes(dataclasses.replace(cfg, n_layers=0)) // 4
+    layer = (dense_param_bytes(dataclasses.replace(cfg, n_layers=1)) // 4
+             - fixed)
+    if cfg.attention_backend == "gated_linear":
+        hd = cfg.n_heads * cfg.head_dim
+        layer += cfg.d_model * hd + 3 * hd
+    return fixed, layer
+
+
+def dense_training_main_path(arch, backend, dev, gen, phase) -> dict:
+    """Phase 29: ``launch/train.py --arch <arch> --backend <backend>``
+    (fp32 master, bf16 compute, remat per layer), batch 8 x seq 1,024, 6
+    steps (2 warm-up, 4 timed), every kernel's launch count set to 0
+    just before and read just after: B2/B3 or B8/B9 at the config's head
+    dim, the forward kernel twice per layer and step (forward, remat
+    recompute), each backward launch once. The depth is cut, in whole
+    layers, to what fits the card beside the memory the earlier phases
+    hold (``TRAIN_BYTES_PER_PARAM`` a parameter and ``TRAIN_HEADROOM``),
+    and printed. Prints ms/step, tokens/s, peak memory against that
+    reckoning, the losses (finite), launches per step and a profile of
+    one step by kind; then the kernels timed at the config's shape
+    (rows 8 x 32 heads, T = 1,024, D) beside their bounds and plain
+    versions. Returns the launches and the kernels' records at the
+    shape."""
+    import gc
+    import math
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.models import lm
+    names, ids, pallas, lines, kernel, bf16_kernels = TRAIN_KERNELS[backend]
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    free, _ = torch.cuda.mem_get_info()
+    full = get_config(arch).with_backend(backend)
+    fixed, layer = train_param_counts(full)
+    fit = int((free - TRAIN_HEADROOM) / TRAIN_BYTES_PER_PARAM - fixed) \
+        // layer
+    n_layers = min(full.n_layers, fit)
+    cut = (f"whole, {full.n_layers} layers" if n_layers == full.n_layers
+           else f"cut from {full.n_layers} to {n_layers} layers: "
+                f"{(fixed + full.n_layers * layer) / 1e9:.3f} B parameters "
+                f"x {TRAIN_BYTES_PER_PARAM} bytes and "
+                f"{TRAIN_HEADROOM / 2**30:.0f} GiB of headroom against "
+                f"{free / 1e9:.3f} GB free")
+    args = train.parse_args(["--arch", arch, "--backend", backend,
+                             "--n-layers", str(n_layers), "--batch", "8",
+                             "--seq-len", "1024", "--steps", "6", "--lr",
+                             "3e-4", "--warmup", "20", "--seed", "0",
+                             "--log-every", "1"])
+    cfg = train.config(args)
+    torch.cuda.reset_peak_memory_stats()
+    loop = train.build(args)
+    n_params = lm.param_count(loop.params)
+    if n_params != fixed + n_layers * layer:
+        raise AssertionError(f"phase {phase}: {n_params} parameters, "
+                             f"reckoned {fixed + n_layers * layer}")
+    reset_launches()
+    out = loop.run()
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    steps = out["step"]
+    want = dict(zip(names, (2 * n_layers * steps, n_layers * steps,
+                            n_layers * steps)))
+    got = {k: n for k, n in launches.items() if n}
+    if steps != 6 or got != want:
+        raise AssertionError(f"phase {phase}: {steps} steps, launches {got} "
+                             f"(want {want})")
+    losses = [m["loss"] for m in out["metrics"]]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"phase {phase}: non-finite losses {losses}")
+    times = [m["step_time"] for m in out["metrics"]]
+    ms = sum(times[2:]) / len(times[2:]) * 1e3
+    reckoned = n_params * TRAIN_BYTES_PER_PARAM
+    print(f"phase {phase}: training main path {arch} {backend} ({cut}; "
+          f"{n_params} params, head dim {cfg.head_dim}, fp32 master, bf16 "
+          f"compute, remat={cfg.remat}), batch {args.batch} x seq "
+          f"{args.seq_len}: ms_per_step={ms:.3f} tokens_per_s="
+          f"{args.batch * args.seq_len / ms * 1e3:.1f} (mean of steps 3-6; "
+          f"step times ms {[round(t * 1e3, 3) for t in times]}); peak "
+          f"memory {peak / 1e9:.3f} GB against {reckoned / 1e9:.3f} GB of "
+          f"parameters, gradients, moments and bf16 copy (the rest "
+          f"{(peak - reckoned) / 1e9:.3f} GB: activations and temporaries); "
+          f"held before {held / 1e9:.3f} GB")
+    print(f"  losses {[round(x, 4) for x in losses]}; launches per step: "
+          f"{ids[0]} {got[names[0]] // steps} (forward + remat recompute)"
+          + "".join(f", {i} {got[n] // steps}"
+                    for i, n in zip(ids[1:], names[1:])))
+    batch = loop.put_batch(loop.dataset.batch_at(steps))
+    prof = profile_train_step(loop, batch, kernel)
+    if prof["busy"] is not None:
+        print(f"  device busy {100 * prof['busy']:.1f}% of a profiled step; "
+              f"{prof['device_ms']:.3f} ms device time against {ms:.3f} ms "
+              f"per step unprofiled")
+    release_train_loop()
+    del loop, out, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows = args.batch * cfg.n_heads
+    timer = {"linear": time_linear_attention,
+             "gated_linear": time_gated_linear_attention}[backend]
+    t = timer(rows, args.seq_len, cfg.head_dim, cfg.linear_chunk, gen, dev)
+    shapes = {}
+    for name, cuda_kernel in zip(names, bf16_kernels):
+        r = t[name]
+        shape = (f"{arch}: rows={rows} T={args.seq_len} D={cfg.head_dim} "
+                 f"bf16")
+        print(f"{name} [{cuda_kernel}] {shape}: {r['ms'] * 1e3:.2f} "
+              f"us/launch (plain version {r['plain_ms'] * 1e3:.2f} us; "
+              f"library call: none; bound {r['bound_ms'] * 1e3:.2f} us by "
+              f"{r['bound_by']} on bf16 tensor cores, "
+              f"{r['fp32_bound_ms'] * 1e3:.2f} us at the fp32 rate; "
+              f"{r['flops'] / 1e9:.2f} GFLOP, {r['bytes'] / 1e6:.2f} MB)")
+        shapes[name] = {"shape": shape, "ms": r["ms"],
+                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                        "bound_by": r["bound_by"], "library_ms": None}
+    r = t["bwd"]
+    print(f"{ids[1][:2]} as a whole (ops.bwd, both launches) {arch}: "
+          f"{r['ms'] * 1e3:.2f} us against {r['bound_ms'] * 1e3:.2f} us by "
+          f"{r['bound_by']}; plain version {r['plain_ms'] * 1e3:.2f} us")
+    torch.cuda.empty_cache()
+    return {"launches": {n: launches[n] for n in names}, "shapes": shapes,
+            "layers": n_layers}
+
+
+RWKV_ARCH = "rwkv6-1.6b"
+
+
+def rwkv6_slice(dev, phase, batch=4, prompt_len=200, steps=16) -> None:
+    """Phase 30: rwkv6-1.6b at full width, 2 layers, fp32: prefill of
+    ``prompt_len`` tokens through B8's exclusive route (one launch per
+    layer) + ``steps`` greedy decode steps (plain PyTorch on both
+    routes), against the same with the prefill's plain version
+    (``attention_kernel=False``): tokens identical, logits within 1e-4,
+    B8 launched 2 times on the kernel route and no kernel on the other;
+    then the 2-layer model's loss on the card under autograd raises
+    NotImplementedError (B8's exclusive route is forward-only) and
+    returns under ``torch.no_grad``."""
+    import torch
+    from repro_torch.models import lm
+    cfg = full_width(RWKV_ARCH, "gated_linear", 2)
+    params = lm.init_params(torch.Generator(device=dev).manual_seed(1), cfg)
+    for group in params["stack"]:       # the bonus off its zero init
+        group["u_bonus"].normal_(
+            0.0, 0.5, generator=torch.Generator(device=dev).manual_seed(3))
+    prompt = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
+                           device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(2))
+    runs = {}
+    for kernel in (True, False):
+        reset_launches()
+        logits, st = lm.prefill(params, prompt, cfg, attention_kernel=kernel)
+        tok = lm.sample_token(logits, 0.0)
+        all_logits, toks = [logits], [tok]
+        for i in range(steps):
+            logits, st = lm.decode_step(params, st, tok, prompt_len + i, cfg)
+            tok = lm.sample_token(logits, 0.0)
+            all_logits.append(logits)
+            toks.append(tok)
+        torch.cuda.synchronize()
+        got = {k: n for k, n in read_launches().items() if n}
+        want = {"gated_linear_attention_fwd": cfg.n_layers} if kernel else {}
+        if got != want:
+            raise AssertionError(f"phase {phase}: {cfg.name} launched {got} "
+                                 f"(kernels={kernel}), want {want}")
+        runs[kernel] = (torch.stack(all_logits), torch.stack(toks), st)
+    (lg_k, tok_k, st_k), (lg_p, tok_p, st_p) = runs[True], runs[False]
+    if not torch.isfinite(lg_k).all():
+        raise AssertionError(f"phase {phase}: non-finite logits")
+    if not torch.equal(tok_k, tok_p):
+        raise AssertionError(f"phase {phase}: {cfg.name}: greedy tokens "
+                             f"differ")
+    torch.testing.assert_close(lg_k, lg_p, rtol=1e-4, atol=1e-4)
+    wkv_err = max((a.wkv - b.wkv).abs().max().item()
+                  for a, b in zip(st_k["stack"], st_p["stack"]))
+    batch_ = {"tokens": prompt[:, :-1], "labels": prompt[:, 1:]}
+    for x in params["stack"][0].values():
+        if torch.is_tensor(x):
+            x.requires_grad_()
+    try:
+        lm.lm_loss(params, batch_, cfg)
+    except NotImplementedError as e:
+        refused = str(e)
+    else:
+        raise AssertionError(f"phase {phase}: the RWKV-6 prefill ran under "
+                             f"autograd on the card")
+    with torch.no_grad():
+        loss, _ = lm.lm_loss(params, batch_, cfg)
+    print(f"phase {phase}: {cfg.name}, 2 layers at full width in fp32 "
+          f"(d_model {cfg.d_model}, {cfg.d_model // cfg.rwkv.head_dim} "
+          f"heads of {cfg.rwkv.head_dim}, u drawn), batch {batch}, prefill "
+          f"{prompt_len} through B8's exclusive route + {steps} greedy "
+          f"steps: tokens identical, max|Δlogit|="
+          f"{(lg_k - lg_p).abs().max().item():.3e}, the final wkv states "
+          f"within {wkv_err:.3e}; under autograd the prefill refuses "
+          f"(\"{refused[:60]}...\"), under no_grad the loss is "
+          f"{loss.item():.4f}")
+    del params, runs
+    torch.cuda.empty_cache()
+
+
+def time_rwkv6_prefill(b, h, t, d, gen, dev) -> dict:
+    """B8's exclusive route at RWKV-6's prefill shape (bf16 q, k, v; fp32
+    g and u of one row per head), with its plain version in 64-token
+    chunks, from CUDA-graph replays. Bounds as
+    ``time_gated_linear_attention``'s: q, k, v read and o written in
+    bf16, g read and the state written in fp32 (u's H·D floats beside),
+    over 3.35 TB/s; or the scan form's two products (the state update,
+    q against the state) plus the bonus and one exp per decay element,
+    over the bf16 tensor-core rate."""
+    import torch
+    from repro_torch.kernels.gated_linear_attention import ops as GL
+    q, k, v, g, u = rwkv_rows(b, h, t, d, torch.bfloat16, gen, dev)
+    n_bytes = 4 * q.nbytes + g.nbytes + b * h * d * d * 4 + u.nbytes
+    ops = 2 * (b * h * t * 2 * d * d) + 3 * b * h * t * d
+    return dict(ms=graph_ms(lambda i: GL.rwkv6_attention(q, k, v, g, u,
+                                                         chunk=64), 4,
+                            replays=5),
+                plain_ms=graph_ms(lambda i: GL.rwkv6_attention(
+                    q, k, v, g, u, chunk=64, kernel=False), 2, replays=3),
+                library_ms=None, fp32_bound_ms=bound(n_bytes, ops)[
+                    "bound_ms"],
+                **bound(n_bytes, ops, PEAK_BF16_TC_FLOPS))
+
+
+def rwkv6_generate_main_path(dev, gen, phase) -> dict:
+    """Phase 31: ``serve --mode generate --arch rwkv6-1.6b`` at full width
+    and depth (24 layers, d_model 2,048, 32 heads of 64, vocab 65,536;
+    parameters built in bf16), batch 8, prompt 512, 64 tokens, every
+    kernel's launch count set to 0 just before and read just after: B8's
+    exclusive route exactly 24 times in each of the two prefills (the
+    warm-up's and the timed one), no other kernel (decode is plain
+    PyTorch). Prints prefill ms, ms/token beside the step's bound by
+    bytes, the decode state's MiB, peak memory, a profile of 4 decode
+    steps (device busy share), and B8's exclusive route timed at the
+    prefill's shape beside its bounds and plain version. Returns the
+    launches, the numbers and the kernel's record at the shape."""
+    import gc
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    gc.collect()
+    torch.cuda.empty_cache()
+    args = serve.parse_args(["--arch", RWKV_ARCH, "--batch", "8",
+                             "--prompt-len", "512", "--gen-len", "64",
+                             "--seed", "0"])
+    cfg = serve.serving_config(args)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    result = serve.generate(args)
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    got = {k: n for k, n in launches.items() if n}
+    name = "gated_linear_attention_fwd"
+    if got != {name: 2 * cfg.n_layers} or \
+            result["prefill_launches"] != cfg.n_layers or \
+            result["decode_launches"]:
+        raise AssertionError(f"phase {phase}: launched {got}, timed prefill "
+                             f"{result['prefill_launches']} (want "
+                             f"{cfg.n_layers} of {name} per prefill)")
+    toks = result["tokens"]
+    if toks.shape != (args.batch, args.gen_len) or not (
+            (toks >= 0) & (toks < cfg.vocab_size)).all():
+        raise AssertionError(f"phase {phase}: bad generated tokens")
+    h, n = cfg.d_model // cfg.rwkv.head_dim, cfg.rwkv.head_dim
+    state_mib = cfg.n_layers * args.batch * (2 * cfg.d_model * 2
+                                             + h * n * n * 4) / 2**20
+    if result["state_mib"] != state_mib:
+        raise AssertionError(f"phase {phase}: decode state "
+                             f"{result['state_mib']} MiB, want {state_mib}")
+    ms = result["decode_ms_per_token"]
+    print(f"phase {phase}: {RWKV_ARCH} main path ({cfg.n_layers} layers, "
+          f"d_model {cfg.d_model}, {h} heads of {n}, vocab "
+          f"{cfg.vocab_size}; bf16) batch {args.batch}, prompt "
+          f"{args.prompt_len}, {args.gen_len} tokens: prefill_ms="
+          f"{result['prefill_ms']:.3f} decode_ms_per_token={ms:.4f} "
+          f"tok_s={result['tokens_per_s']:.1f} state_mib="
+          f"{result['state_mib']:.2f} (two shift rows bf16 and the wkv "
+          f"matrices fp32 a layer); {name}.launches={launches[name]} "
+          f"(timed prefill {result['prefill_launches']} = {cfg.n_layers} "
+          f"layers, warm-up {cfg.n_layers}); peak {peak / 1e9:.3f} GB")
+    params = lm.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    prompt = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
+                           device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(3))
+    logits, st = lm.prefill(params, prompt, cfg)
+    bound_ms, n_bytes = decode_bound_ms(params, st, cfg, args.batch)
+    print(f"  bound {bound_ms:.3f} ms a decode step by bytes "
+          f"({n_bytes / 1e9:.3f} GB of weights and state read and written "
+          f"at {PEAK_BYTES_PER_S / 1e12:.2f} TB/s): "
+          f"{100 * bound_ms / ms:.1f}% of the measured ms/token")
+    device_ms = profile_decode(params, cfg, st, torch.argmax(logits, -1),
+                               args.prompt_len)
+    if not torch.isfinite(logits).all():
+        raise AssertionError(f"phase {phase}: non-finite logits")
+    busy = None
+    if device_ms is not None:
+        busy = device_ms / ms
+        print(f"  device busy {100 * busy:.1f}% of a decode step "
+              f"({device_ms:.3f} ms device time per step over {ms:.3f} ms "
+              f"per token)")
+    del params, st, logits, prompt
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time_rwkv6_prefill(args.batch, h, args.prompt_len, n, gen, dev)
+    shape = (f"{RWKV_ARCH} prefill: exclusive + u per head, rows="
+             f"{args.batch * h} T={args.prompt_len} D={n} bf16")
+    print(f"{name} [decay_sweep_fwd_tc<64, true>] {shape}: "
+          f"{t['ms'] * 1e3:.2f} us/launch (plain version "
+          f"{t['plain_ms'] * 1e3:.2f} us; library call: none; bound "
+          f"{t['bound_ms'] * 1e3:.2f} us by {t['bound_by']} on bf16 tensor "
+          f"cores, {t['fp32_bound_ms'] * 1e3:.2f} us at the fp32 rate; "
+          f"{t['flops'] / 1e9:.2f} GFLOP, {t['bytes'] / 1e6:.2f} MB)")
+    return {"launches": launches[name], "prefill_ms": result["prefill_ms"],
+            "ms_per_token": ms, "busy": busy, "bound_ms": bound_ms,
+            "shape": {"shape": shape, "ms": t["ms"],
+                      "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                      "bound_by": t["bound_by"], "library_ms": None}}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3634,6 +4147,7 @@ def main() -> int:
           "where T = S - t_off, with JAX's oracle (fp32 1e-5; bf16 normwise "
           "8e-3 and 2e-2 elementwise), K/V read by kv head")
     dense_kernel_checks(gen, dev)
+    training_kernel_checks(gen, dev)
     done(2, t0)
 
     # -- 3. the linear slice, kernel vs plain recurrence, fp32 -------------
@@ -3820,6 +4334,37 @@ def main() -> int:
     stream_dense = stream_main_path("linear", dev, 27, arch="musicgen-large")
     done(27, t0)
 
+    # -- 28. the dense training slices, kernels vs plain, fp32 and bf16 -----
+    t0 = time.perf_counter()
+    for arch in DENSE_TRAIN_ARCHS:
+        for backend in ("linear", "gated_linear"):
+            training_slice(backend, dev, 28, arch=arch)
+            training_slice_bf16(backend, dev, 28, arch=arch)
+    torch.cuda.empty_cache()
+    done(28, t0)
+
+    # -- 29. the dense training main path -----------------------------------
+    t0 = time.perf_counter()
+    train_dense = [dense_training_main_path(arch, backend, dev, gen, 29)
+                   for arch in DENSE_TRAIN_ARCHS
+                   for backend in ("linear", "gated_linear")]
+    done(29, t0)
+
+    # -- 30. the rwkv6 slice, B8's exclusive route vs plain, fp32 -----------
+    t0 = time.perf_counter()
+    rwkv6_slice(dev, 30)
+    done(30, t0)
+
+    # -- 31. the rwkv6 generate main path -----------------------------------
+    t0 = time.perf_counter()
+    rwkv_gen = rwkv6_generate_main_path(dev, gen, 31)
+    done(31, t0)
+
+    # -- 32. the rwkv6 stream path ------------------------------------------
+    t0 = time.perf_counter()
+    rwkv_stream = stream_main_path(None, dev, 32, arch=RWKV_ARCH)
+    done(32, t0)
+
     for r in records:
         r["max_abs_err"] = errs[r["name"]]
         if r["name"] in stream:   # B1/B7: generate, stream; B10: and train
@@ -3840,6 +4385,17 @@ def main() -> int:
         path["generate_dense"] = path.get("generate_dense", 0) + \
             run["launches"]
     more["decode_linear"]["stream_dense"] = stream_dense
+    # phases 29, 31 and 32
+    for run in train_dense:
+        for name, n in run["launches"].items():
+            path = more.setdefault(name, {})
+            path["train_dense"] = path.get("train_dense", 0) + n
+        for name, rec in run["shapes"].items():
+            dense_times.setdefault(name, []).append(rec)
+    more.setdefault("gated_linear_attention_fwd", {}).update(
+        generate_rwkv6=rwkv_gen["launches"], stream_rwkv6=rwkv_stream)
+    dense_times.setdefault("gated_linear_attention_fwd", []).append(
+        rwkv_gen["shape"])
     for r in records:
         if r["name"] in more:
             r.setdefault("launches_by_path", {"train": r["launches"]})

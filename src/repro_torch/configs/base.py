@@ -1,11 +1,12 @@
 """Model configuration schema + registry (the port's own copy).
 
-Field for field the same ``ModelConfig`` and ``MoEConfig`` as
-``repro.configs.base``, so a configuration means the same model in both
-packages; the tests compare the two copies with ``dataclasses.asdict``.
-The port serves the ``attn`` block kind (dense or MoE) and the ``cross``
-kind under every attention backend; the other kinds stay in the schema
-so that the copy does not drift.
+Field for field the same ``ModelConfig``, ``MoEConfig`` and
+``RWKVConfig`` as ``repro.configs.base``, so a configuration means the
+same model in both packages; the tests compare the two copies with
+``dataclasses.asdict``. The port serves the ``attn`` block kind (dense
+or MoE) and the ``cross`` kind under every attention backend, and the
+``rwkv`` kind; the other kinds stay in the schema so that the copy does
+not drift.
 """
 
 from __future__ import annotations
@@ -31,6 +32,11 @@ class MoEConfig:
     # "shard_map" (JAX's all-to-all expert parallelism) or "einsum"; on
     # one device both take the einsum path, the only one the port has
     dispatch: str = "shard_map"
+
+
+@dataclasses.dataclass(frozen=True)
+class RWKVConfig:
+    head_dim: int = 64
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,10 +69,9 @@ class ModelConfig:
     act: str = "swiglu"              # swiglu|gelu
     norm: str = "rmsnorm"            # rmsnorm|layernorm
     moe: Optional[MoEConfig] = None
-    # sub-configs of the Mamba-2 / RWKV-6 families, which the port does
-    # not serve yet; None for every configuration it registers
+    # the Mamba-2 family's sub-config, which the port does not serve yet
     ssm: Optional[Any] = None
-    rwkv: Optional[Any] = None
+    rwkv: Optional[RWKVConfig] = None
     n_img_tokens: int = 0            # VLM cross-attention memory length
     tie_embeddings: bool = False
     dtype: str = "bfloat16"          # activation/compute dtype

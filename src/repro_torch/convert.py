@@ -18,6 +18,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.state import DocumentState
 from repro_torch.models.attention import AttnState, CrossMemory
+from repro_torch.models.rwkv6 import RWKVState
 from repro_torch.optim import AdamState
 
 
@@ -53,9 +54,11 @@ def params_from_jax(np_tree: Any, cfg: ModelConfig, *,
     decay projection ``w_gate`` / ``b_gate`` and the groupnorm
     ``gn_scale`` / ``gn_bias``; an MoE block its ``moe`` entry (router,
     w_gate, w_up, w_down and the ``shared`` experts' SwiGLU), a cross
-    block its ``cross`` projections and its ``xgate``. The JAX
-    ``shared`` entry must be empty: the port has no ``shared_attn``
-    blocks."""
+    block its ``cross`` projections and its ``xgate``; an rwkv block its
+    RWKV-6 tree as it is (token-shift mixes, the r/k/v/g/o projections,
+    the decay's w_decay0/1/2, the per-head ``u_bonus`` and groupnorm, the
+    channel-mix and its ``ln1``/``ln2``). The JAX ``shared`` entry must be
+    empty: the port has no ``shared_attn`` blocks."""
     if np_tree.get("shared"):
         raise NotImplementedError("shared_attn parameters are not ported")
     norm = {"scale", "bias"} if cfg.norm == "layernorm" else {"scale"}
@@ -82,21 +85,22 @@ def opt_state_from_jax(np_state: Any, cfg: ModelConfig, *,
         nu=params_from_jax(nu, cfg, device=device))
 
 
-def _attn_state(st, device):
-    kind = CrossMemory if st._fields == CrossMemory._fields else AttnState
+def _block_state(st, device):
+    kind = next(k for k in (AttnState, CrossMemory, RWKVState)
+                if st._fields == k._fields)
     return kind(*(None if x is None else _tensor(x, device) for x in st))
 
 
 def state_from_jax(np_state: Any, *,
                    device: Optional[torch.device] = None) -> dict:
-    """Convert a JAX decode state {"stack": (AttnState | CrossMemory,
-    ...), "tail": (...)} with its leaves as numpy, field for field:
-    softmax KV caches (k_cache, v_cache; s and z None), or the linear
-    family's s and z (k_cache and v_cache None; z None for
+    """Convert a JAX decode state {"stack": (AttnState | CrossMemory |
+    RWKVState, ...), "tail": (...)} with its leaves as numpy, field for
+    field: softmax KV caches (k_cache, v_cache; s and z None), or the
+    linear family's s and z (k_cache and v_cache None; z None for
     ``gated_linear`` and for ``linear`` without the normaliser); a cross
-    block's memory (k, v under softmax, else c, z). bf16 caches stay
-    bf16."""
-    return {part: tuple(_attn_state(st, device) for st in np_state[part])
+    block's memory (k, v under softmax, else c, z); an rwkv block's
+    shift rows and wkv matrices. bf16 caches stay bf16."""
+    return {part: tuple(_block_state(st, device) for st in np_state[part])
             for part in ("stack", "tail")}
 
 

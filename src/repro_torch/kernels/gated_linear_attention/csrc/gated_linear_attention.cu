@@ -82,6 +82,15 @@
 //   stages, the next tile's during this tile's work; rows past T read as
 //   zeros (log-decay 0: they add and decay nothing). Two stages of 96 KiB
 //   and the state's copy take 224 KiB of the 227.
+// - Head dims: D = 16, 64, 96, 128. q, k, v and do are padded to DC
+//   64-column blocks (one at D = 16 and 64, two at 96 and 128), the
+//   columns past D read as zeros (the tensor map is D wide); g comes in
+//   GB = ⌈D/32⌉ blocks, so the decay scans cover D channels (32 at
+//   D = 16, the padded 16 read as g = 0). Past D nothing is scaled
+//   (scale_slot and split_slot skip those columns, which stay zero), the
+//   decay total stays 0 (a state row decays by 1), u is not read, dg is
+//   not scanned and no output or state element is stored. At D = 96 the
+//   padded block does a third more tensor-core work than D needs.
 // - The cumulative log-decay of a tile is one scan along tokens per
 //   channel (a thread per channel and half tile), kept in place of g in
 //   log2 units, so each e^{±b} is one ex2. The scaled operands (K̂ = k e^{-b}
@@ -163,6 +172,28 @@ struct Cfg<128> {
   static constexpr int kSm = 32, kSn = 8;   // state   D×DS
 };
 
+// D = 96 and 64 (phi3-mini-3.8b; musicgen-large and RWKV-6): 32-column
+// slices, three and two blocks per row
+template <>
+struct Cfg<96> {
+  static constexpr int kThreads = 256;
+  static constexpr int kTile = 32;   // |b| <= 32
+  static constexpr int kSlice = 32;
+  static constexpr int kPm = 16, kPn = 16;
+  static constexpr int kOm = 16, kOn = 16;
+  static constexpr int kSm = 32, kSn = 8;
+};
+
+template <>
+struct Cfg<64> {
+  static constexpr int kThreads = 256;
+  static constexpr int kTile = 32;   // |b| <= 32
+  static constexpr int kSlice = 32;
+  static constexpr int kPm = 16, kPn = 16;
+  static constexpr int kOm = 16, kOn = 16;
+  static constexpr int kSm = 32, kSn = 8;
+};
+
 template <>
 struct Cfg<16> {
   static constexpr int kThreads = 64;
@@ -221,15 +252,16 @@ __device__ __forceinline__ float clamp_decay(float g, float lo) {
 
 // grid (rows, D / DS, sweeps); block Cfg<D>::kThreads; dynamic shared
 // memory smem_floats<D>() floats. blockIdx.z picks s0 or s1. g is the
-// (rows, t, D) fp32 log-decay; u the (D,) bonus (kFwdExclusive only).
+// (rows, t, D) fp32 log-decay; u the (u_heads, D) bonus, row r reading
+// u[r % u_heads] (kFwdExclusive only; rows are batch-major, heads minor).
 // With EMIT_STATE (B8 only), state receives the final S (rows, D, D)
 // fp32. The instantiations: <false, true> B8, <false, false> dq,
 // <true, false> dk/dv.
 template <int D, bool REVERSE, bool EMIT_STATE>
 __global__ void __launch_bounds__(Cfg<D>::kThreads)
 decay_sweep(Sweep s0, Sweep s1, const float* __restrict__ g,
-            const float* __restrict__ u, float* __restrict__ state,
-            int t_len, float min_log_decay) {
+            const float* __restrict__ u, int u_heads,
+            float* __restrict__ state, int t_len, float min_log_decay) {
   using C = Cfg<D>;
   constexpr int kThreads = C::kThreads;
   constexpr int TC = C::kTile, DS = C::kSlice;
@@ -320,7 +352,7 @@ decay_sweep(Sweep s0, Sweep s1, const float* __restrict__ g,
       } else if (mode == kFwdExclusive) {
         // the bonus q_t·(u⊙k_t) from the unscaled row, reduced over the
         // lanes that share the row (uniform branch: every lane is here)
-        float p = av * u[col] * bv;
+        float p = av * u[(blockIdx.x % u_heads) * D + col] * bv;
 #pragma unroll
         for (int off = kLanes / 2; off > 0; off >>= 1)
           p += __shfl_xor_sync(0xffffffffu, p, off);
@@ -432,7 +464,7 @@ decay_sweep(Sweep s0, Sweep s1, const float* __restrict__ g,
 
 template <int D, bool REVERSE, bool EMIT_STATE>
 int launch(Sweep s0, Sweep s1, int n_sweeps, const float* g,
-           const float* u, float* state, int rows, int t_len,
+           const float* u, int u_heads, float* state, int rows, int t_len,
            float min_log_decay, cudaStream_t stream) {
   using C = Cfg<D>;
   constexpr size_t kSmem = smem_floats<D>() * sizeof(float);
@@ -446,26 +478,36 @@ int launch(Sweep s0, Sweep s1, int n_sweeps, const float* g,
     configured = true;
   }
   const dim3 grid(rows, D / C::kSlice, n_sweeps), block(C::kThreads);
-  kernel<<<grid, block, kSmem, stream>>>(s0, s1, g, u, state, t_len,
-                                         min_log_decay);
+  kernel<<<grid, block, kSmem, stream>>>(s0, s1, g, u, u_heads, state,
+                                         t_len, min_log_decay);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <bool REVERSE, bool EMIT_STATE>
 int launch_d(Sweep s0, Sweep s1, int n_sweeps, const void* g,
-             const void* u, void* state, int rows, int t_len, int d,
-             float min_log_decay, void* stream) {
+             const void* u, int u_heads, void* state, int rows, int t_len,
+             int d, float min_log_decay, void* stream) {
   const float* gf = static_cast<const float*>(g);
   const float* uf = static_cast<const float*>(u);
   float* sf = static_cast<float*>(state);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (d) {
     case 16:
-      return launch<16, REVERSE, EMIT_STATE>(s0, s1, n_sweeps, gf, uf, sf,
-                                             rows, t_len, min_log_decay, st);
+      return launch<16, REVERSE, EMIT_STATE>(
+          s0, s1, n_sweeps, gf, uf, u_heads, sf, rows, t_len,
+          min_log_decay, st);
+    case 64:
+      return launch<64, REVERSE, EMIT_STATE>(
+          s0, s1, n_sweeps, gf, uf, u_heads, sf, rows, t_len,
+          min_log_decay, st);
+    case 96:
+      return launch<96, REVERSE, EMIT_STATE>(
+          s0, s1, n_sweeps, gf, uf, u_heads, sf, rows, t_len,
+          min_log_decay, st);
     case 128:
-      return launch<128, REVERSE, EMIT_STATE>(s0, s1, n_sweeps, gf, uf, sf,
-                                              rows, t_len, min_log_decay, st);
+      return launch<128, REVERSE, EMIT_STATE>(
+          s0, s1, n_sweeps, gf, uf, u_heads, sf, rows, t_len,
+          min_log_decay, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1084,7 +1126,7 @@ decay_sweep_fwd_tc(const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv,
                    const __grid_constant__ CUtensorMap tg,
-                   const float* __restrict__ u,
+                   const float* __restrict__ u, int u_heads,
                    __nv_bfloat16* __restrict__ o, float* __restrict__ state,
                    int t_len, float lo) {
   using S = L<D>;
@@ -1135,7 +1177,8 @@ decay_sweep_fwd_tc(const __grid_constant__ CUtensorMap tq,
 
     if constexpr (EXCLUSIVE) {
       // the bonus q·(u⊙k) of each token from the raw tile, four threads a
-      // token; read after decay_scan's first barrier
+      // token, u of this row's head; read after decay_scan's first barrier
+      const float* const ur = u + static_cast<size_t>(row % u_heads) * D;
       const int r = t / 4, part = t % 4;
       float p = 0.f;
 #pragma unroll
@@ -1144,8 +1187,8 @@ decay_sweep_fwd_tc(const __grid_constant__ CUtensorMap tq,
             ss + S::q + off16(kBlock, r, c));
         const uint32_t ka = *reinterpret_cast<const uint32_t*>(
             ss + S::k + off16(kBlock, r, c));
-        p += lo_f(qa) * __ldg(u + c) * lo_f(ka) +
-             hi_f(qa) * __ldg(u + c + 1) * hi_f(ka);
+        p += lo_f(qa) * __ldg(ur + c) * lo_f(ka) +
+             hi_f(qa) * __ldg(ur + c + 1) * hi_f(ka);
       }
       p += __shfl_xor_sync(0xffffffffu, p, 1);
       p += __shfl_xor_sync(0xffffffffu, p, 2);
@@ -1279,8 +1322,8 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* g,
 
 template <int D, bool EXCLUSIVE>
 int launch_fwd(const void* q, const void* k, const void* v, const void* g,
-               const void* u, void* o, void* s, int rows, int t_len,
-               float lo, cudaStream_t stream) {
+               const void* u, int u_heads, void* o, void* s, int rows,
+               int t_len, float lo, cudaStream_t stream) {
   static bool configured = false;
   int err = configure(decay_sweep_fwd_tc<D, EXCLUSIVE>, L<D>::bytes,
                       configured);
@@ -1288,7 +1331,7 @@ int launch_fwd(const void* q, const void* k, const void* v, const void* g,
   if (!err) err = tensor_maps(m, {q, k, v, g}, 3, D, t_len, rows);
   if (err) return err;
   decay_sweep_fwd_tc<D, EXCLUSIVE><<<rows, kThreads, L<D>::bytes, stream>>>(
-      m[0], m[1], m[2], m[3], static_cast<const float*>(u),
+      m[0], m[1], m[2], m[3], static_cast<const float*>(u), u_heads,
       static_cast<__nv_bfloat16*>(o), static_cast<float*>(s), t_len, lo);
   return static_cast<int>(cudaGetLastError());
 }
@@ -1301,49 +1344,66 @@ bool bad_shape(int rows, int t_len) { return rows <= 0 || t_len <= 0; }
 
 // Every pointer is a contiguous (rows, t, d) tensor on the current
 // device: q, k, v, do and o, dv of one type, fp32 (bf16 == 0) or bf16
-// (bf16 == 1); g, q⊙dq and dg fp32; dq and dk in the inputs' type; u (d,)
-// fp32; s the (rows, d, d) fp32 final state. d in {16, 128}. The bf16
-// routes (tensor cores) take 16-byte aligned inputs. Each returns
+// (bf16 == 1); g, q⊙dq and dg fp32; dq and dk in the inputs' type; u
+// (u_heads, d) fp32, row r reading u[r % u_heads] (rows batch-major, heads
+// minor; u_heads divides rows); s the (rows, d, d) fp32 final state. d in
+// {16, 64, 96, 128}. The bf16 routes (tensor cores) take 16-byte aligned
+// inputs. Each returns
 // cudaGetLastError() after the launch, cudaErrorInvalidValue for
 // arguments it does not take, or 10000 + the driver's CUresult when a
 // tensor map cannot be made.
 
-// B8: o and the final state; inclusive, or exclusive with the bonus u.
-// bf16 on the tensor cores, fp32 on FMAs.
+// B8: o and the final state; inclusive, or exclusive with the bonus u of
+// each row's head (RWKV-6's per-head u). bf16 on the tensor cores, fp32 on
+// FMAs.
 extern "C" int gated_linear_attention_fwd(const void* q, const void* k,
                                           const void* v, const void* g,
                                           const void* u, void* o, void* s,
                                           int rows, int t, int d, int bf16,
-                                          int exclusive, float min_log_decay,
-                                          void* stream) {
-  if (bad_shape(rows, t) || s == nullptr || (exclusive && u == nullptr))
+                                          int exclusive, int u_heads,
+                                          float min_log_decay, void* stream) {
+  if (bad_shape(rows, t) || s == nullptr ||
+      (exclusive && (u == nullptr || u_heads < 1 || rows % u_heads)))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (!exclusive) u_heads = 1;
   if (bf16) {
     if (tc::misaligned(q, k, v, g))
       return static_cast<int>(cudaErrorInvalidValue);
     cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const float lo = min_log_decay;
     switch (d) {
       case 16:
-        return exclusive ? tc::launch_fwd<16, true>(q, k, v, g, u, o, s, rows,
-                                                    t, min_log_decay, st)
-                         : tc::launch_fwd<16, false>(q, k, v, g, u, o, s,
-                                                     rows, t, min_log_decay,
-                                                     st);
+        return exclusive
+                   ? tc::launch_fwd<16, true>(q, k, v, g, u, u_heads, o, s,
+                                              rows, t, lo, st)
+                   : tc::launch_fwd<16, false>(q, k, v, g, u, 1, o, s, rows,
+                                               t, lo, st);
+      case 64:
+        return exclusive
+                   ? tc::launch_fwd<64, true>(q, k, v, g, u, u_heads, o, s,
+                                              rows, t, lo, st)
+                   : tc::launch_fwd<64, false>(q, k, v, g, u, 1, o, s, rows,
+                                               t, lo, st);
+      case 96:
+        return exclusive
+                   ? tc::launch_fwd<96, true>(q, k, v, g, u, u_heads, o, s,
+                                              rows, t, lo, st)
+                   : tc::launch_fwd<96, false>(q, k, v, g, u, 1, o, s, rows,
+                                               t, lo, st);
       case 128:
-        return exclusive ? tc::launch_fwd<128, true>(q, k, v, g, u, o, s,
-                                                     rows, t, min_log_decay,
-                                                     st)
-                         : tc::launch_fwd<128, false>(q, k, v, g, u, o, s,
-                                                      rows, t, min_log_decay,
-                                                      st);
+        return exclusive
+                   ? tc::launch_fwd<128, true>(q, k, v, g, u, u_heads, o, s,
+                                               rows, t, lo, st)
+                   : tc::launch_fwd<128, false>(q, k, v, g, u, 1, o, s, rows,
+                                                t, lo, st);
       default:
         return static_cast<int>(cudaErrorInvalidValue);
     }
   }
   const int mode = exclusive ? kFwdExclusive : kFwd;
   const auto sw = sweep(q, k, v, o, mode);
-  return launch_d<false, true>(sw, sw, 1, g, u, s, rows, t, d, min_log_decay,
-                               stream);
+  return launch_d<false, true>(sw, sw, 1, g, u, u_heads, s, rows, t, d,
+                               min_log_decay, stream);
 }
 
 // B9, forward sweep: dq = e^{b} ⊙ [(dO Vᵀ ⊙ M) K̂ + dO Sᵀ] in the inputs'
@@ -1365,6 +1425,12 @@ extern "C" int gated_linear_attention_bwd_dq(const void* q, const void* k,
       case 16:
         return tc::launch_dq<16>(q, k, v, g, d_o, dq, qdq, rows, t,
                                  min_log_decay, st);
+      case 64:
+        return tc::launch_dq<64>(q, k, v, g, d_o, dq, qdq, rows, t,
+                                 min_log_decay, st);
+      case 96:
+        return tc::launch_dq<96>(q, k, v, g, d_o, dq, qdq, rows, t,
+                                 min_log_decay, st);
       case 128:
         return tc::launch_dq<128>(q, k, v, g, d_o, dq, qdq, rows, t,
                                   min_log_decay, st);
@@ -1373,8 +1439,8 @@ extern "C" int gated_linear_attention_bwd_dq(const void* q, const void* k,
     }
   }
   const auto sw = sweep(d_o, v, k, dq, kDq);
-  return launch_d<false, false>(sw, sw, 1, g, nullptr, nullptr, rows, t, d,
-                                min_log_decay, stream);
+  return launch_d<false, false>(sw, sw, 1, g, nullptr, 1, nullptr, rows, t,
+                                d, min_log_decay, stream);
 }
 
 // B9, reverse sweep: dk = e^{-b} ⊙ [(V dOᵀ ⊙ Mᵀ) Q̂ + V R'ᵀ] and
@@ -1398,6 +1464,12 @@ extern "C" int gated_linear_attention_bwd_dkv(const void* q, const void* k,
       case 16:
         return tc::launch_dkv<16>(q, k, v, g, d_o, qdq, dk, dv, dg, rows, t,
                                   min_log_decay, st);
+      case 64:
+        return tc::launch_dkv<64>(q, k, v, g, d_o, qdq, dk, dv, dg, rows, t,
+                                  min_log_decay, st);
+      case 96:
+        return tc::launch_dkv<96>(q, k, v, g, d_o, qdq, dk, dv, dg, rows, t,
+                                  min_log_decay, st);
       case 128:
         return tc::launch_dkv<128>(q, k, v, g, d_o, qdq, dk, dv, dg, rows,
                                    t, min_log_decay, st);
@@ -1406,6 +1478,6 @@ extern "C" int gated_linear_attention_bwd_dkv(const void* q, const void* k,
     }
   }
   return launch_d<true, false>(sweep(v, d_o, q, dk, kDk),
-                               sweep(k, q, d_o, dv, kDv), 2, g, nullptr,
+                               sweep(k, q, d_o, dv, kDv), 2, g, nullptr, 1,
                                nullptr, rows, t, d, min_log_decay, stream);
 }

@@ -44,8 +44,9 @@ from repro_torch.kernels import build
 from repro_torch.kernels.gated_linear_attention import ref
 from repro_torch.kernels.gated_linear_attention.ref import (
     MIN_LOG_DECAY, chunked_bwd_ref, chunked_fwd_ref)
-from repro_torch.kernels.linear_attention.ops import (
-    _DTYPES, _chunk_and_pad, _check, _on_cpu, _raise_on, _rows, _stream)
+from repro_torch.kernels.linear_attention.ops import (  # noqa: F401
+    _DTYPES, HEAD_DIMS, _chunk_and_pad, _check, _on_cpu, _raise_on, _rows,
+    _stream)
 
 Tensor = torch.Tensor
 
@@ -75,7 +76,7 @@ def load() -> ctypes.CDLL:
     """Build (at first use) and load the kernel library."""
     lib = build.load_library(SOURCE)
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.gated_linear_attention_fwd.argtypes = [ptr] * 7 + [i32] * 5 + [
+    lib.gated_linear_attention_fwd.argtypes = [ptr] * 7 + [i32] * 6 + [
         f32, ptr]
     lib.gated_linear_attention_bwd_dq.argtypes = [ptr] * 7 + [i32] * 4 + [
         f32, ptr]
@@ -112,9 +113,11 @@ def fwd(q: Tensor, k: Tensor, v: Tensor, g: Tensor, *,
         u: Optional[Tensor] = None, chunk: int = 128,
         exclusive: bool = False, min_log_decay: float = MIN_LOG_DECAY,
         kernel: bool = True) -> Tuple[Tensor, Tensor]:
-    """B8. q, k, g: (BH, T, Dk); v: (BH, T, Dv); g fp32; u: (Dk,) fp32 or
-    None (exclusive form only). Returns (o: (BH, T, Dv) in v's type,
-    s: (BH, Dk, Dv) fp32 final state)."""
+    """B8. q, k, g: (BH, T, Dk); v: (BH, T, Dv); g fp32; u: the exclusive
+    form's bonus, (Dk,) for every row or (H, Dk) per head with H dividing
+    BH (row r reads u[r % H]: rows batch-major, heads minor, as
+    ``_rows`` flattens (B, H)), fp32, or None. Returns (o: (BH, T, Dv) in
+    v's type, s: (BH, Dk, Dv) fp32 final state)."""
     if not kernel or _on_cpu(q):
         return chunked_fwd_ref(q, k, v, g, u=u, chunk=chunk,
                                exclusive=exclusive,
@@ -122,13 +125,20 @@ def fwd(q: Tensor, k: Tensor, v: Tensor, g: Tensor, *,
     _check_gated("gated_linear_attention_fwd", chunk, g, min_log_decay,
                  q=q, k=k, v=v)
     bh, t, d = q.shape
+    u_heads = 1
     if exclusive:
         u = (torch.zeros(d, dtype=torch.float32, device=q.device)
              if u is None else u)
-        if u.shape != (d,) or u.dtype != torch.float32 or \
-                u.device != q.device or not u.is_contiguous():
+        u_heads = u.shape[0] if u.ndim == 2 else 1
+        if u.shape[-1:] != (d,) or u.ndim > 2 or u_heads < 1 or \
+                bh % u_heads or \
+                u.dtype != torch.float32 or u.device != q.device or \
+                not u.is_contiguous():
             raise ValueError(f"gated_linear_attention_fwd: u must be a "
-                             f"contiguous fp32 ({d},) tensor on {q.device}")
+                             f"contiguous fp32 ({d},) or (H, {d}) tensor "
+                             f"with H dividing {bh} rows, on {q.device}; "
+                             f"got {u.dtype} {tuple(u.shape)} on "
+                             f"{u.device}")
     o = torch.empty_like(v)
     s = torch.empty((bh, d, d), dtype=torch.float32, device=q.device)
     if bh == 0 or t == 0:
@@ -138,8 +148,8 @@ def fwd(q: Tensor, k: Tensor, v: Tensor, g: Tensor, *,
         err = lib.gated_linear_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
             u.data_ptr() if exclusive else None, o.data_ptr(), s.data_ptr(),
-            bh, t, d, _DTYPES[q.dtype], int(exclusive), min_log_decay,
-            _stream(q))
+            bh, t, d, _DTYPES[q.dtype], int(exclusive), u_heads,
+            min_log_decay, _stream(q))
     _raise_on("gated_linear_attention_fwd", err)
     fwd.launches += 1
     return o, s
@@ -289,9 +299,10 @@ def rwkv6_attention(q: Tensor, k: Tensor, v: Tensor, log_decay: Tensor,
                     u: Tensor, *, chunk: int = 128,
                     min_log_decay: float = MIN_LOG_DECAY,
                     kernel: bool = True) -> Tuple[Tensor, Tensor]:
-    """RWKV-6 convention (exclusive + bonus u: (Dk,)), forward only, as
-    JAX's: returns (o: (B, H, T, Dv) in v's type, final state
-    (B, H, Dk, Dv) fp32)."""
+    """RWKV-6 convention (exclusive + bonus u: (Dk,), or (H, Dk) per head
+    as the RWKV-6 model keeps it), forward only, as JAX's: returns
+    (o: (B, H, T, Dv) in v's type, final state (B, H, Dk, Dv) fp32). On a
+    CUDA tensor one B8 launch covers every head."""
     b, h, t, dk = q.shape
     dv = v.shape[-1]
     c, rows = _flat_inputs(q, k, v, log_decay, chunk)

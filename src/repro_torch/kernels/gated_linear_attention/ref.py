@@ -115,13 +115,16 @@ def chunked_fwd_ref(q: Tensor, k: Tensor, v: Tensor, g: Tensor, *,
     """B8's function (``_fwd_kernel``): per chunk, with b the clamped
     cumulative log-decay from the chunk start, o = (Q̂ K̂ᵀ ⊙ M) V + Q̂ S
     (+ the diagonal u bonus, exclusive), S ← exp(btot) ⊙ S + K_tailᵀ V.
-    Returns (o in v's type, final state (BH, Dk, Dv) fp32)."""
+    u: (Dk,), or (H, Dk) with row r reading u[r % H]. Returns (o in v's
+    type, final state (BH, Dk, Dv) fp32)."""
     if exclusive and u is None:
         u = torch.zeros(q.shape[-1], dtype=torch.float32, device=q.device)
-    o, s = chunked_gla(q[:, None], k[:, None], v[:, None], g[:, None],
+    heads = u.shape[0] if exclusive and u.ndim == 2 else 1
+    split = lambda x: x.reshape(-1, heads, *x.shape[1:])   # noqa: E731
+    o, s = chunked_gla(split(q), split(k), split(v), split(g),
                        chunk_size=chunk, exclusive=exclusive, u=u,
                        min_log_decay=min_log_decay)
-    return o[:, 0], s[:, 0]
+    return o.flatten(0, 1), s.flatten(0, 1)
 
 
 def chunked_bwd_dq_ref(k: Tensor, v: Tensor, g: Tensor, do: Tensor, *,

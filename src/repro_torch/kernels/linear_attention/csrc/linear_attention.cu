@@ -52,6 +52,12 @@
 //   next tile's during this tile's work; rows past T read as zeros,
 //   which add nothing (T a multiple of the wrapper's chunk but not of 64
 //   is covered).
+// - Head dims: D is padded to DC 64-column blocks. D = 16 and 64 take one
+//   block, 96 and 128 two; columns past D read as zeros (the tensor map
+//   is D wide), so they add nothing to a score, an output or the state,
+//   and every store (o, dq, dk, dv and the final state's rows and
+//   columns) skips them. At D = 96 the padded block does a third more
+//   tensor-core work than D needs.
 // - Products: wgmma, bf16 operands, fp32 accumulators. The state (S =
 //   Σ k vᵀ for B2 and dq, R = Σ_later q doᵀ for dk/dv, D×D fp32) lives in
 //   the accumulator registers, its rows split over the two warpgroups;
@@ -122,6 +128,28 @@ struct Cfg<128> {
   static constexpr int kPm = 16, kPn = 16;  // scores  TC×TC
   static constexpr int kOm = 16, kOn = 16;  // output  TC×DS
   static constexpr int kSm = 32, kSn = 8;   // state   D×DS
+};
+
+// D = 96 and 64 (phi3-mini-3.8b, musicgen-large): 32-column slices, so
+// three and two blocks per row
+template <>
+struct Cfg<96> {
+  static constexpr int kThreads = 256;
+  static constexpr int kTile = 32;
+  static constexpr int kSlice = 32;
+  static constexpr int kPm = 16, kPn = 16;
+  static constexpr int kOm = 16, kOn = 16;
+  static constexpr int kSm = 32, kSn = 8;
+};
+
+template <>
+struct Cfg<64> {
+  static constexpr int kThreads = 256;
+  static constexpr int kTile = 32;
+  static constexpr int kSlice = 32;
+  static constexpr int kPm = 16, kPn = 16;
+  static constexpr int kOm = 16, kOn = 16;
+  static constexpr int kSm = 32, kSn = 8;
 };
 
 template <>
@@ -325,6 +353,12 @@ int launch_d(Sweep s0, Sweep s1, int n_sweeps, float* state, int rows,
   switch (d) {
     case 16:
       return launch<16, REVERSE, EMIT_STATE>(s0, s1, n_sweeps, state, rows,
+                                             t_len, stream);
+    case 64:
+      return launch<64, REVERSE, EMIT_STATE>(s0, s1, n_sweeps, state, rows,
+                                             t_len, stream);
+    case 96:
+      return launch<96, REVERSE, EMIT_STATE>(s0, s1, n_sweeps, state, rows,
                                              t_len, stream);
     case 128:
       return launch<128, REVERSE, EMIT_STATE>(s0, s1, n_sweeps, state, rows,
@@ -771,7 +805,7 @@ bool bad_shape(int rows, int t_len) { return rows <= 0 || t_len <= 0; }
 
 // Every pointer is a contiguous (rows, t, d) tensor of one type, fp32
 // (bf16 == 0) or bf16 (bf16 == 1), on the current device, except s: the
-// (rows, d, d) fp32 final state. d in {16, 128}. Each returns
+// (rows, d, d) fp32 final state. d in {16, 64, 96, 128}. Each returns
 // cudaGetLastError() after the launch (or cudaErrorInvalidValue).
 
 // B2: o = chunked causal linear attention of (q, k, v); s = Σ k vᵀ; bf16
@@ -790,6 +824,10 @@ extern "C" int linear_attention_fwd(const void* q, const void* k,
     switch (d) {
       case 16:
         return tc::launch_fwd<16>(q, k, v, o, sf, rows, t, st);
+      case 64:
+        return tc::launch_fwd<64>(q, k, v, o, sf, rows, t, st);
+      case 96:
+        return tc::launch_fwd<96>(q, k, v, o, sf, rows, t, st);
       case 128:
         return tc::launch_fwd<128>(q, k, v, o, sf, rows, t, st);
       default:
@@ -814,6 +852,10 @@ extern "C" int linear_attention_bwd_dq(const void* k, const void* v,
     switch (d) {
       case 16:
         return tc::launch_dq<16>(k, v, d_o, dq, rows, t, st);
+      case 64:
+        return tc::launch_dq<64>(k, v, d_o, dq, rows, t, st);
+      case 96:
+        return tc::launch_dq<96>(k, v, d_o, dq, rows, t, st);
       case 128:
         return tc::launch_dq<128>(k, v, d_o, dq, rows, t, st);
       default:
@@ -839,6 +881,10 @@ extern "C" int linear_attention_bwd_dkv(const void* q, const void* k,
     switch (d) {
       case 16:
         return tc::launch_dkv<16>(q, k, v, d_o, dk, dv, rows, t, st);
+      case 64:
+        return tc::launch_dkv<64>(q, k, v, d_o, dk, dv, rows, t, st);
+      case 96:
+        return tc::launch_dkv<96>(q, k, v, d_o, dk, dv, rows, t, st);
       case 128:
         return tc::launch_dkv<128>(q, k, v, d_o, dk, dv, rows, t, st);
       default:

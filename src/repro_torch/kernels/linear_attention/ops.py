@@ -33,7 +33,9 @@ from repro_torch.kernels.linear_attention.ref import (
 Tensor = torch.Tensor
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "linear_attention.cu"
-HEAD_DIMS = (16, 128)            # qwen3-0.6b smoke and full widths
+# qwen3-0.6b's smoke and full widths, musicgen-large's and RWKV-6's 64,
+# phi3-mini-3.8b's 96
+HEAD_DIMS = (16, 64, 96, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 

@@ -14,7 +14,11 @@ decodes against a KV cache of prompt + generated length, read in plain
 PyTorch at O(pos) per token. ``--arch`` takes the dense qwen3-0.6b,
 yi-34b, internlm2-20b, phi3-mini-3.8b (head dim 96) and musicgen-large
 (head dim 64, layernorm, GELU), under every backend in ``--mode
-generate`` and ``--mode stream``; the MoE configs deepseek-moe-16b and
+generate`` and ``--mode stream``; rwkv6-1.6b, whose RWKV-6 blocks have
+no attention (``--backend`` does not apply to it): its prefill runs the
+exclusive route of the gated chunked kernel (B8, with the per-head bonus
+u) once per layer, its decode RWKV-6's recurrence in plain PyTorch; the
+MoE configs deepseek-moe-16b and
 qwen3-moe-235b-a22b (the experts in plain batched products, as in JAX)
 and llama-3.2-vision-90b, whose
 cross blocks attend to a memory of ``n_img_tokens`` patch embeddings
@@ -65,6 +69,10 @@ passes of ``--n-queries`` single-query requests in waves of
       --arch musicgen-large --smoke --device cpu --prompt-len 16
   PYTHONPATH=src python -m repro_torch.launch.serve \\
       --arch llama-3.2-vision-90b --smoke --device cpu --prompt-len 16
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b \\
+      --batch 8 --prompt-len 512 --gen-len 64
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b \\
+      --smoke --device cpu --prompt-len 16 --gen-len 8 --batch 2
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \\
       --smoke --device cpu --backend softmax --prompt-len 16 --gen-len 8
   PYTHONPATH=src python -m repro_torch.launch.serve --mode stream \\
@@ -78,6 +86,11 @@ passes of ``--n-queries`` single-query requests in waves of
       --prefill-chunk 512
   PYTHONPATH=src python -m repro_torch.launch.serve --mode stream \\
       --backend softmax --smoke --device cpu --slots 4 --n-requests 16
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode stream \\
+      --arch rwkv6-1.6b --slots 8 --segment-len 8 --n-requests 32 \\
+      --prompt-len 512 --gen-len 64 --arrival-rate 0.25
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode stream \\
+      --arch rwkv6-1.6b --smoke --device cpu --slots 4 --n-requests 16
   PYTHONPATH=src python -m repro_torch.launch.serve --mode retrieve \\
       --batch 4096
   PYTHONPATH=src python -m repro_torch.launch.serve --mode retrieve \\
@@ -106,6 +119,7 @@ from repro_torch.configs.base import ModelConfig, with_depth
 from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_attention import ops as FA
 from repro_torch.kernels.fused_recurrent import ops as FR
+from repro_torch.kernels.gated_linear_attention import ops as GL
 from repro_torch.kernels.lookup import ops as LU
 from repro_torch.models import lm
 from repro_torch.models.attention import CrossMemory
@@ -123,15 +137,19 @@ def generate(args) -> Dict[str, Any]:
     sequence (0 without cross blocks), and the launches of the backend's
     kernels:
     ``prefill_launches`` of B10 in the timed prefill (softmax; 0 for the
-    linear family, whose prefill is plain PyTorch) and
-    ``decode_launches`` of B1 or B7 in the timed generation (0 under
-    softmax, whose cache read is plain PyTorch)."""
+    linear family, whose prefill is plain PyTorch), or of B8's exclusive
+    route (rwkv6-1.6b), and ``decode_launches`` of B1 or B7 in the timed
+    generation (0 under softmax, whose cache read is plain PyTorch, and
+    for RWKV-6, whose decode is)."""
     device = resolve_device(args.device)
     cfg = serving_config(args)
     backend = cfg.attention_backend
-    prefill_kernel = FA.fwd if backend == "softmax" else None
-    decode_kernel = {"linear": FR.decode_linear,
-                     "gated_linear": FR.decode_gated}.get(backend)
+    rwkv = is_rwkv(cfg)
+    prefill_kernel = (GL.fwd if rwkv else
+                      FA.fwd if backend == "softmax" else None)
+    decode_kernel = None if rwkv else {
+        "linear": FR.decode_linear,
+        "gated_linear": FR.decode_gated}.get(backend)
     # independent generator streams: params / prompt / sampling / memory
     gens = [torch.Generator(device=device).manual_seed(args.seed * 4 + i)
             for i in range(4)]
@@ -190,8 +208,10 @@ def generate(args) -> Dict[str, Any]:
     where = (torch.cuda.get_device_name(device) if device.type == "cuda"
              else "cpu")
     kernels = (f"({decode_kernel.__name__})" if decode_kernel else
+               "(plain RWKV-6 recurrence; prefill kernel "
+               "gated_linear_attention_fwd, exclusive + u)" if rwkv else
                "(plain KV-cache read; prefill kernel flash_attention_fwd)")
-    print(f"arch={cfg.name} backend={backend} "
+    print(f"arch={cfg.name} backend={'rwkv6' if rwkv else backend} "
           f"decode_kernel={cfg.decode_kernel} {kernels} device={where}")
     print(f"prefill {t_p} toks x{b}: {t_prefill*1e3:.0f} ms")
     print(f"decode  {t_g} toks x{b}: {t_decode/n_dec*1e3:.2f} ms/tok "
@@ -215,17 +235,31 @@ def generate(args) -> Dict[str, Any]:
             "decode_launches": decode_launches}
 
 
+def is_rwkv(cfg: ModelConfig) -> bool:
+    """True for a pure RWKV-6 stack (no attention layer)."""
+    pattern, _, tail = cfg.pattern_and_repeats
+    return set(pattern) | set(tail) == {"rwkv"}
+
+
 def serving_config(args) -> ModelConfig:
     """The config of ``--arch`` (``--smoke``: its reduced copy) under
-    ``--backend``, cut to ``--n-layers``, its parameters built in the
-    compute type: serving never needs the fp32 master copy, whose build
-    and cast would peak at three times the served bytes."""
+    ``--backend`` (``linear`` unless given), cut to ``--n-layers``, its
+    parameters built in the compute type: serving never needs the fp32
+    master copy, whose build and cast would peak at three times the
+    served bytes. A pure RWKV-6 stack has no attention layer: it keeps
+    its config's ``attention_backend``, and ``--backend`` raises
+    ValueError."""
     cfg = (get_smoke_config(args.arch) if args.smoke
            else get_config(args.arch))
     if args.n_layers:
         cfg = with_depth(cfg, args.n_layers)
-    return dataclasses.replace(cfg.with_backend(args.backend),
-                               param_dtype=cfg.dtype)
+    if is_rwkv(cfg):
+        if args.backend is not None:
+            raise ValueError(f"{cfg.name} has no attention layer: "
+                             f"--backend {args.backend} does not apply")
+    else:
+        cfg = cfg.with_backend(args.backend or "linear")
+    return dataclasses.replace(cfg, param_dtype=cfg.dtype)
 
 
 def make_request_mix(rng: np.random.Generator, n_requests: int,
@@ -256,8 +290,9 @@ def stream_launches(cfg: ModelConfig, stats: Dict[str, Any], ingest: str,
     layer and recurrent ingest chunk. Softmax, B10: one per layer and
     prefill pass, i.e. each batched-admission wave and each of the
     ``one_token_prompts`` that batched admission encodes alone, or under
-    per-request admission each prefill."""
-    if cfg.attention_backend == "softmax":
+    per-request admission each prefill. RWKV-6 (per-request admission),
+    B8's exclusive route: one per layer and prefill."""
+    if cfg.attention_backend == "softmax" or is_rwkv(cfg):
         passes = (stats["prefills"] if admission == "per_request"
                   else stats["prefill_dispatches"] + one_token_prompts)
         return cfg.n_layers * passes
@@ -267,7 +302,8 @@ def stream_launches(cfg: ModelConfig, stats: Dict[str, Any], ingest: str,
 
 STREAM_KERNELS = {"linear": ("decode_linear", FR.decode_linear),
                   "gated_linear": ("decode_gated", FR.decode_gated),
-                  "softmax": ("flash_attention_fwd", FA.fwd)}
+                  "softmax": ("flash_attention_fwd", FA.fwd),
+                  "rwkv6": ("gated_linear_attention_fwd", GL.fwd)}
 
 
 def stream(args) -> Dict[str, Any]:
@@ -283,7 +319,9 @@ def stream(args) -> Dict[str, Any]:
     device = resolve_device(args.device)
     cfg = serving_config(args)
     backend = backend_for_config(cfg)
-    name, kernel = STREAM_KERNELS[cfg.attention_backend]
+    rwkv = is_rwkv(cfg)
+    name, kernel = STREAM_KERNELS["rwkv6" if rwkv else
+                                  cfg.attention_backend]
     gen = torch.Generator(device=device).manual_seed(args.seed * 4)
     params = lm.init_params(gen, cfg)
     max_len = args.prompt_len + args.gen_len + args.segment_len
@@ -333,10 +371,13 @@ def stream(args) -> Dict[str, Any]:
                   .state_bytes_per_slot(max_len) * args.slots / 2**20)
     where = (torch.cuda.get_device_name(device) if device.type == "cuda"
              else "cpu")
-    softmax = cfg.attention_backend == "softmax"
+    softmax = cfg.attention_backend == "softmax" and not rwkv
     kernels = ("plain KV-cache read; prefill kernel flash_attention_fwd"
-               if softmax else name)
-    print(f"arch={cfg.name} backend={cfg.attention_backend} "
+               if softmax else
+               f"plain RWKV-6 recurrence; prefill kernel {name}, exclusive "
+               f"+ u" if rwkv else name)
+    print(f"arch={cfg.name} "
+          f"backend={'rwkv6' if rwkv else cfg.attention_backend} "
           f"slots={args.slots} segment={args.segment_len} "
           f"decode_kernel={cfg.decode_kernel} ({kernels}) "
           f"device={where}")
@@ -355,6 +396,7 @@ def stream(args) -> Dict[str, Any]:
           f"(interleave {st.interleave_ratio:.2f}), "
           f"{st.prefill_jit_misses} admission jit misses")
     formula = ("layers x (admission waves + 1-token prefills)" if softmax
+               else "layers x prefills" if rwkv
                else "layers x (segment_len x segments + recurrent ingest "
                     "chunks)")
     print(f"{name}: {launches} launches in the timed run; {formula} = "
@@ -362,8 +404,9 @@ def stream(args) -> Dict[str, Any]:
                        " (CPU tensors run the plain versions: no launch)"))
     kind = f"KV cache of {max_len} rows" if softmax else "O(1) in context"
     print(f"decode state: {state_mib:.2f} MiB for {args.slots} slots "
-          f"({kind}; the linear state at these slots: {linear_mib:.2f} "
-          f"MiB)")
+          f"({kind}" + (")" if rwkv else
+                       f"; the linear state at these slots: "
+                       f"{linear_mib:.2f} MiB)"))
     if args.stats_json:
         with open(args.stats_json, "w") as f:
             f.write(st.to_json())
@@ -527,10 +570,12 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                     help="cut the model to this many layers, whole repeats"
                          " of its layer pattern (a model too large for one"
                          " card; widths unchanged)")
-    ap.add_argument("--backend", default="linear",
+    ap.add_argument("--backend", default=None,
                     choices=["linear", "gated_linear", "softmax"],
-                    help="linear (paper §3), gated_linear (paper §4 "
-                         "decay) or softmax (the KV-cache baseline)")
+                    help="linear (paper §3; the default), gated_linear "
+                         "(paper §4 decay) or softmax (the KV-cache "
+                         "baseline); not for rwkv6-1.6b, which has no "
+                         "attention layer")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=64)
     ap.add_argument("--gen-len", type=int, default=32)

@@ -30,15 +30,22 @@ ported, so ``--ckpt-dir`` raises and there is no ``--ckpt-every``.
 phi3-mini-3.8b and musicgen-large, and the MoE configs (the router's
 load-balance loss in the loss); ``--n-layers`` cuts a model too large for
 one card to whole repeats of its layer pattern. On the card, the linear
-and gated backends' training kernels (B2/B3, B8/B9) take head dims 16
-and 128: phi3-mini-3.8b (96) and musicgen-large (64) under them raise
-the kernels' ValueError; on the CPU every config trains. The vision
-config's cross blocks need a memory that the synthetic stream does not
-draw.
+and gated backends' training kernels (B2/B3, B8/B9) take head dims 16,
+64, 96 and 128, so phi3-mini-3.8b (96; its fp32 master, gradients and
+two moments of 3.8 B parameters leave no room for the activations at
+32 layers: cut it) and musicgen-large (64, whole) train there. rwkv6-1.6b
+trains on the CPU only (autograd of its plain prefill): on the card its
+prefill runs B8's exclusive route, which is forward-only, and raises
+NotImplementedError under autograd. The vision config's cross blocks
+need a memory that the synthetic stream does not draw.
 
   PYTHONPATH=src python -m repro_torch.launch.train \\
       --arch deepseek-moe-16b --n-layers 2 --batch 8 --seq-len 1024 \\
       --steps 4
+  PYTHONPATH=src python -m repro_torch.launch.train --arch musicgen-large \\
+      --backend gated_linear --batch 8 --seq-len 1024 --steps 6
+  PYTHONPATH=src python -m repro_torch.launch.train --arch phi3-mini-3.8b \\
+      --n-layers 24 --backend linear --batch 8 --seq-len 1024 --steps 6
 
 Runs on CUDA unless ``--device cpu`` is given.
 """

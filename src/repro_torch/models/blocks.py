@@ -1,16 +1,19 @@
-"""Block dispatch (port of ``repro/models/blocks.py``), two kinds, each
-with its norms by ``cfg.norm`` (rmsnorm: a scale; layernorm: a scale and
-a bias):
+"""Block dispatch (port of ``repro/models/blocks.py``), three kinds, the
+first two with their norms by ``cfg.norm`` (rmsnorm: a scale; layernorm:
+a scale and a bias):
 
   "attn"   pre-norm self-attention (``softmax``, ``linear`` or
            ``gated_linear``) + MLP, or + MoE FFN when ``cfg.moe`` is set
   "cross"  pre-norm cross-attention to a pre-encoded modality memory,
            gated by tanh(xgate) (zero at init: the block adds nothing
            until trained), + MLP
+  "rwkv"   RWKV-6 block (time-mix + channel-mix, its own layernorms;
+           ``models/rwkv6.py``)
 
-``shared_attn``, ``mamba`` and ``rwkv`` blocks are not ported yet and
-raise. A cross block's decode state is its encoded memory
-(``CrossMemory``), static during decode.
+``shared_attn`` and ``mamba`` blocks are not ported yet and raise. A
+cross block's decode state is its encoded memory (``CrossMemory``),
+static during decode; an rwkv block's is its ``RWKVState``, and a window
+of tokens steps its single-token decode, as JAX scans it.
 """
 
 from __future__ import annotations
@@ -23,17 +26,18 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
+from repro_torch.models import rwkv6 as R
 
 Tensor = torch.Tensor
 Params = Dict[str, Any]
-State = Any                        # A.AttnState or A.CrossMemory
+State = Any                        # A.AttnState, A.CrossMemory, R.RWKVState
 
 
 def _require_ported(kind: str, cfg: ModelConfig) -> None:
-    if kind not in ("attn", "cross"):
+    if kind not in ("attn", "cross", "rwkv"):
         raise NotImplementedError(
-            f"{cfg.name}: the port has 'attn' and 'cross' blocks only (got "
-            f"kind {kind!r})")
+            f"{cfg.name}: the port has 'attn', 'cross' and 'rwkv' blocks "
+            f"only (got kind {kind!r})")
 
 
 def _uses_moe(kind: str, cfg: ModelConfig) -> bool:
@@ -43,6 +47,8 @@ def _uses_moe(kind: str, cfg: ModelConfig) -> bool:
 def block_params(kind: str, gen: torch.Generator, cfg: ModelConfig, *,
                  lead: Tuple[int, ...] = (), dtype=torch.float32) -> Params:
     _require_ported(kind, cfg)
+    if kind == "rwkv":
+        return R.rwkv6_params(gen, cfg, lead=lead, dtype=dtype)
     p = {"norm1": L.norm_params(cfg.norm, cfg.d_model, lead=lead,
                                 dtype=dtype, device=gen.device),
          "norm2": L.norm_params(cfg.norm, cfg.d_model, lead=lead,
@@ -65,6 +71,8 @@ def block_state_init(kind: str, cfg: ModelConfig, batch: int, *,
                      max_len: Optional[int] = None,
                      lead: Tuple[int, ...] = (), device=None) -> State:
     _require_ported(kind, cfg)
+    if kind == "rwkv":
+        return R.init_rwkv_state(cfg, batch, lead=lead, device=device)
     if kind == "cross":
         return A.init_cross_memory(cfg, batch, lead=lead, device=device)
     return A.init_attn_state(cfg, batch, max_len=max_len, lead=lead,
@@ -98,8 +106,15 @@ def block_apply(kind: str, p: Params, x: Tensor, cfg: ModelConfig, *,
     loss, None for a block without MoE). ``memory``: (B, N, D) in
     the compute type, which a cross block encodes (its state). ``varlen``:
     (B,) per-row valid lengths of an END-padded batch (attention blocks;
-    the MoE routes every position, pads included, as JAX does)."""
+    the MoE routes every position, pads included, as JAX does). An rwkv
+    block prefills through B8's exclusive route (``attention_kernel``)."""
     _require_ported(kind, cfg)
+    if kind == "rwkv":
+        if varlen is not None:
+            raise ValueError(f"{cfg.name}: varlen prefill of an rwkv block")
+        x, st = R.rwkv6_apply(p, x, cfg, want_state=want_state,
+                              attention_kernel=attention_kernel)
+        return x, st, None
     h1 = L.apply_norm(cfg.norm, p["norm1"], x)
     if kind == "cross":
         if varlen is not None:
@@ -125,6 +140,8 @@ def block_decode(kind: str, p: Params, x: Tensor, state: State,
     (B,) bool slot mask, inactive rows keep their state bit for bit. The
     state is updated in place (a cross block's memory is static)."""
     _require_ported(kind, cfg)
+    if kind == "rwkv":
+        return R.rwkv6_decode(p, x, state, cfg, active=active)
     h1 = L.apply_norm(cfg.norm, p["norm1"], x)
     if kind == "cross":
         att, st = _cross(p, h1[:, None], state, cfg)[:, 0], state
@@ -145,9 +162,15 @@ def block_decode_window(kind: str, p: Params, x: Tensor, state: State,
     a dense MLP is per token, so running it once over the window is the
     same function, but an MoE FFN's capacity follows the tokens of the
     call, so it runs once per step, on B tokens, as in JAX's scan.
-    ``lens``: (B,) per-row valid window lengths. The state is updated in
-    place."""
+    ``lens``: (B,) per-row valid window lengths. An rwkv block steps its
+    single-token decode over the window, step w active where w < lens
+    (JAX's scan). The state is updated in place."""
     _require_ported(kind, cfg)
+    if kind == "rwkv":
+        ys = [R.rwkv6_decode(p, x[:, w], state, cfg,
+                             active=None if lens is None else w < lens)[0]
+              for w in range(x.shape[1])]
+        return torch.stack(ys, dim=1), state
     h1 = L.apply_norm(cfg.norm, p["norm1"], x)
     if kind == "cross":
         att, st = _cross(p, h1, state, cfg), state

@@ -1,8 +1,8 @@
-"""Language model over a stack of ``attn`` and ``cross`` blocks (port of
-``repro/models/lm.py``: training forward and loss, prefill, decode and
-generation, and the continuous-batching surface of the serving engine:
-bucket-padded varlen prefill, slot-masked segments, varlen windows and
-the per-slot state copies).
+"""Language model over a stack of ``attn``, ``cross`` and ``rwkv`` blocks
+(port of ``repro/models/lm.py``: training forward and loss, prefill,
+decode and generation, and the continuous-batching surface of the
+serving engine: bucket-padded varlen prefill, slot-masked segments,
+varlen windows and the per-slot state copies).
 
 Parameters and states keep the JAX package's tree: ``embed`` (V, D),
 ``stack`` — a tuple with one entry per ``layer_pattern`` position whose
@@ -42,13 +42,14 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
 from repro_torch.models.attention import AttnState, CrossMemory
+from repro_torch.models.rwkv6 import RWKVState
 from repro_torch.tree import leaves
 
 Tensor = torch.Tensor
 Params = Dict[str, Any]
-# per block: AttnState, or CrossMemory for a cross block
+# per block: AttnState, CrossMemory for a cross block, RWKVState for rwkv
 State = Dict[str, Tuple[Any, ...]]
-_STATES = (AttnState, CrossMemory)
+_STATES = (AttnState, CrossMemory, RWKVState)
 
 
 def dtype_of(name: str) -> torch.dtype:

@@ -4,8 +4,9 @@ the seam between the engine's scheduling and a family's state layout.
 Importing this package registers the ported backends; dispatch goes
 through :func:`backend_for_config` (by priority, so import order never
 decides). Ported: ``FixedStateBackend`` (the linear and gated-linear
-families) and ``SoftmaxKVBackend`` (the softmax baseline's KV cache);
-the Mamba-2 and RWKV-6 backends are not (ROADMAP A.4).
+families), ``SoftmaxKVBackend`` (the softmax baseline's KV cache) and
+``RWKV6Backend`` (pure RWKV-6 stacks); the Mamba-2 backend is not
+(ROADMAP A.4).
 """
 
 from repro_torch.serving.backends.base import (  # noqa: F401
@@ -16,6 +17,9 @@ from repro_torch.serving.backends.base import (  # noqa: F401
 # concrete backends (import = register)
 from repro_torch.serving.backends.fixed_state import (  # noqa: F401
     FixedStateBackend,
+)
+from repro_torch.serving.backends.rwkv6 import (  # noqa: F401
+    RWKV6Backend,
 )
 from repro_torch.serving.backends.softmax_kv import (  # noqa: F401
     SoftmaxKVBackend,

@@ -1,7 +1,8 @@
-"""Parameter trees: nested dicts and tuples of tensors, the shape of the
-JAX package's pytrees. ``leaves`` flattens in JAX's order (dict keys
-sorted, sequences in order, ``None`` holds no leaf), so a flat list here
-lines up with ``jax.tree.leaves`` of the same tree."""
+"""Parameter and state trees: nested dicts, tuples and NamedTuples of
+tensors, the shape of the JAX package's pytrees. ``leaves`` flattens in
+JAX's order (dict keys sorted, sequences in order, ``None`` holds no
+leaf), so a flat list here lines up with ``jax.tree.leaves`` of the same
+tree."""
 
 from __future__ import annotations
 
@@ -29,6 +30,10 @@ def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
         return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
                 for k in sorted(tree)}
     if isinstance(tree, (tuple, list)):
-        return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
-                          for i, v in enumerate(tree))
+        mapped = (tree_map(fn, v, *(r[i] for r in rest))
+                  for i, v in enumerate(tree))
+        # a NamedTuple (a decode state: AttnState, RWKVState) takes its
+        # fields as arguments
+        return (type(tree)(*mapped) if hasattr(tree, "_fields")
+                else type(tree)(mapped))
     return fn(tree, *rest)

@@ -1126,6 +1126,134 @@ def test_gated_training_slice_through_kernels_matches_plain_route(dev):
         _assert_normwise(a, b, 1e-4, "gradient leaf")
 
 
+# -- B2/B3 and B8/B9 at the head dims 64 and 96 ------------------------------
+# musicgen-large's and RWKV-6's 64 (one 64-column block on the tensor cores)
+# and phi3-mini-3.8b's 96 (two blocks, the second half zero), at T a
+# multiple of the chunk but not of the tiles, a ragged T, and the models'
+# training and prefill shapes, on both routes, at the tolerances above.
+
+DENSE_DIMS = [64, 96]
+
+
+@pytest.mark.parametrize("d", DENSE_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bh,t,chunk", [(6, 272, 16), (4, 75, 75),
+                                        (6, 200, 40)])
+def test_linear_attention_kernels_at_dense_head_dims(dev, d, dtype, bh, t,
+                                                     chunk):
+    """B2 and B3 (through ``ops.bwd`` and each launch alone) against
+    their plain versions at D = 64 and 96; the state far from
+    symmetric."""
+    test_linear_attention_kernels_match_plain_versions(dev, bh, t, d, dtype,
+                                                       chunk)
+    test_linear_attention_bwd_launches_match_their_plain_versions(
+        dev, bh, t, d, dtype, chunk)
+
+
+@pytest.mark.parametrize("d", DENSE_DIMS)
+def test_linear_attention_kernels_at_the_training_shape(dev, d):
+    """B2/B3 in bf16 at the dense training main path's rows (batch 8 x 32
+    heads, T = 1,024): phi3-mini-3.8b's D = 96, musicgen-large's 64."""
+    test_linear_attention_kernels_match_plain_versions(
+        dev, 256, 1024, d, torch.bfloat16, 128)
+
+
+@pytest.mark.parametrize("d", DENSE_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bh,t,chunk,decay", [
+    (6, 272, 16, "mild"), (4, 75, 75, "mild"), (6, 200, 40, "mild_head"),
+    (6, 272, 16, "model")])
+def test_gated_kernels_at_dense_head_dims(dev, d, dtype, bh, t, chunk,
+                                          decay):
+    """B8 (inclusive; exclusive with u) and B9 (through ``ops.bwd`` and
+    each launch alone) against their plain versions at D = 64 and 96."""
+    test_gated_linear_attention_kernels_match_plain_versions(
+        dev, bh, t, d, dtype, chunk, decay)
+    if decay == "mild":
+        test_gated_bwd_launches_match_their_plain_versions(dev, bh, t, d,
+                                                           dtype, chunk)
+
+
+@pytest.mark.parametrize("d", DENSE_DIMS)
+def test_gated_kernels_at_the_training_shape(dev, d):
+    """B8/B9 in bf16 at the dense training main path's rows (batch 8 x 32
+    heads, T = 1,024) at the model's decay."""
+    test_gated_linear_attention_kernels_match_plain_versions(
+        dev, 256, 1024, d, torch.bfloat16, 128, "model")
+
+
+@pytest.mark.parametrize("d", DENSE_DIMS)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("at", ["clamp", "limit"])
+def test_gated_kernels_at_dense_head_dims_at_the_clamp(dev, d, dtype, at):
+    """g ≡ −1 (the default clamp) or ≡ the route's ``DECAY_LIMIT``, T =
+    1,024, chunk 128, at D = 64 and 96: B8 and B9 finite and within the
+    route's tolerance of ``gla_scan`` and its autograd in fp32."""
+    lo = -1.0 if at == "clamp" else gla_ops.DECAY_LIMIT[dtype]
+    q, k, v, do, g = (x.reshape(1, 2, 1024, d) for x in _gla_rows(
+        dev, 2, 1024, d, dtype, "clamp", seed=3))
+    g = g * -lo
+    got, want = [], []
+    for fn, sink, cast in ((lambda a, b, c, e: gla_ops.gated_linear_attention(
+            a, b, c, e, chunk=128, min_log_decay=lo), got, dtype),
+            (lambda a, b, c, e: gla_scan(a, b, c, e)[0], want, torch.float32)):
+        leaves = [x.to(cast).clone().requires_grad_() for x in (q, k, v, g)]
+        o = fn(*leaves)
+        o.backward(do.to(cast))
+        sink.extend([o.detach()] + [x.grad for x in leaves])
+    for name, a, b in zip(("o", "dq", "dk", "dv", "dg"), got, want):
+        assert torch.isfinite(a).all(), name
+        _assert_normwise(a, b, LA_TOL[dtype], name)
+
+
+@pytest.mark.parametrize("d,dtype", [
+    (64, torch.bfloat16), (64, torch.float32), (96, torch.bfloat16),
+    (16, torch.float32)])
+def test_rwkv6_attention_takes_a_bonus_per_head(dev, d, dtype):
+    """B8's exclusive route with u of one row per head (RWKV-6's (H, D)
+    ``u_bonus``): one launch for every head, each row reading its head's
+    u, against the plain version; at rwkv6-1.6b's prefill shape (batch 8
+    x 32 heads, T = 512) for D = 64 in bf16."""
+    b, h, t = (8, 32, 512) if (d, dtype) == (64, torch.bfloat16) else \
+        (2, 3, 200)
+    q, k, v, _, g = (x.reshape(b, h, t, d) for x in _gla_rows(
+        dev, b * h, t, d, dtype, "mild", seed=7))
+    u = torch.randn((h, d), generator=torch.Generator(device=dev)
+                    .manual_seed(8), device=dev)
+    before = gla_ops.fwd.launches
+    o, s = gla_ops.rwkv6_attention(q, k, v, g, u, chunk=64)
+    torch.cuda.synchronize()
+    assert gla_ops.fwd.launches == before + 1
+    o_r, s_r = gla_ops.rwkv6_attention(q, k, v, g, u, chunk=64, kernel=False)
+    _assert_normwise(o, o_r, LA_TOL[dtype], "o")
+    _assert_normwise(s, s_r, LA_TOL[torch.float32], "state")
+    # one u for every head is another function, further off than the
+    # tolerance: a kernel that read u[0] for every row would fail above
+    o_1, _ = gla_ops.rwkv6_attention(q, k, v, g, u[0], chunk=64,
+                                     kernel=False)
+    assert (o_1.float() - o_r.float()).abs().max() > \
+        2 * LA_TOL[dtype] * o_r.float().abs().max()
+
+
+def test_rwkv6_prefill_refuses_autograd_on_the_card(dev):
+    """B8's exclusive route is forward-only: an RWKV-6 prefill on CUDA
+    tensors that need a gradient raises NotImplementedError naming the
+    ROADMAP item, and never returns an output without one; under
+    ``torch.no_grad`` it runs the kernel."""
+    from repro_torch.models import rwkv6 as R
+    cfg = dataclasses.replace(get_smoke_config("rwkv6-1.6b"),
+                              dtype="float32")
+    p = R.rwkv6_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    x = torch.randn((2, 20, cfg.d_model), device=dev)
+    p["w_r"].requires_grad_()
+    with pytest.raises(NotImplementedError, match="ROADMAP A.4"):
+        R.rwkv6_apply(p, x, cfg)
+    before = gla_ops.fwd.launches
+    with torch.no_grad():
+        y, _ = R.rwkv6_apply(p, x, cfg)
+    assert gla_ops.fwd.launches == before + 1 and torch.isfinite(y).all()
+
+
 # -- the causal flash-attention forward B10 ----------------------------------
 # fp32: the plain version's one softmax against the kernel's online one
 # over 64-key tiles, the same fp32 sums in another order (1e-5); bf16: the

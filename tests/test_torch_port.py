@@ -61,7 +61,8 @@ def test_port_imports_no_jax_and_nothing_of_repro():
                    "configs/llama3_2_vision_90b.py",
                    "configs/yi_34b.py", "configs/internlm2_20b.py",
                    "configs/phi3_mini_3_8b.py", "configs/musicgen_large.py",
-                   "models/layers.py"):
+                   "models/layers.py", "models/rwkv6.py",
+                   "configs/rwkv6_1_6b.py", "serving/backends/rwkv6.py"):
         assert port / module in files, module
     bad = [(str(f.relative_to(ROOT)), m) for f in files
            for m in _imported_roots(f) if m in FORBIDDEN]
