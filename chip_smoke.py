@@ -12,7 +12,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    routes run on the tensor cores), and the UBLKCP instructions in the
    lookup library by opcode (B4/B5 copy each state into shared memory by
    ``cp.async.bulk``, B6's bulk route in and back out), which must not
-   spill, nor may B1's and B7's (their state in registers at every D).
+   spill, nor may B1's and B7's (their state in registers at every D),
+   nor B10's (at every D, 112 included).
 2. Each kernel against its plain PyTorch version on the card, at the
    main path's shapes and at the smoke width (B1 and B7 also 64 tokens
    wide under per-row lengths, the stream path's ingest; B10 at each D
@@ -46,7 +47,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    from symmetric, through the wrappers, B8/B9 at the clamp and at each
    route's limit; B8's exclusive route with a bonus u per head at
    rwkv6-1.6b's prefill shape (batch 8 x 32 heads, T = 512, D = 64) and
-   at the clamp against ``gla_scan``.
+   at the clamp against ``gla_scan``. zamba2-7b's: B1 and B7 at D = 112
+   (448 threads; the serving rows, batch 8 x 32 heads, and the smoke
+   rows) with the state bit for bit, B10 at D = 112 on both routes (32
+   over 32 heads, ragged T and S, groups of 6 and 7, the wrapper), and
+   B8's inclusive route with its state at the SSD prefill's shape
+   (batch 8 x 112 heads, T = 512, N = 64, zamba2's decays) in fp32 and
+   bf16, o's error printed as a share of its limit.
 3. The serving slice on the card: a 2-layer model at qwen3-0.6b's full
    widths in fp32, prefill + 16 greedy steps through the kernel against
    the same run through ``decode_kernel="reference"``.
@@ -230,9 +237,32 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    phase 16's traffic: per-request admission, B8 once per layer and
    prefill, every request its budget.
 
+33. The zamba2 and feature-gate slices: zamba2-7b at full width cut to
+   one pattern unit (5 Mamba-2 blocks + 1 shared attention), fp32, under
+   linear, gated_linear and softmax, and qwen3-0.6b at full width, 2
+   layers, with the paper's feature gate under linear and gated_linear:
+   prefill + 16 greedy steps through the kernels (B8 in each Mamba-2
+   prefill, B1/B7 or B10 in the attention) against the reference route
+   (tokens identical, logits within 1e-4); and the unit's loss under
+   autograd on the card refused under linear and gated_linear
+   (ValueError naming ROADMAP queue B item 1: B2/B8 do not take D = 112).
+34. The zamba2 generate main path: ``serve --arch zamba2-7b`` at full
+   width and depth (81 layers, bf16), batch 8, prompt 512, 64 tokens,
+   under linear, gated_linear and softmax: B8 exactly 68 launches a
+   prefill, B1/B7 13 a decode step or B10 13 a prefill, and no other
+   kernel; prefill ms, ms/token beside the step's bound by bytes, the
+   state (Mamba-2 and attention) against the KV cache, peak memory, a
+   profile of 4 decode steps; then B1, B7 and B10 at D = 112 and B8 at
+   the SSD prefill's shape timed beside their bounds, plain versions and
+   (B10) ``scaled_dot_product_attention``.
+35. The zamba2 stream path: ``serve --mode stream --arch zamba2-7b``
+   under linear at phase 16's traffic: per-request admission, B8 once per
+   Mamba-2 layer and prefill, B1 once per attention site and decode
+   step, every request its budget.
+
 Each main path (phases 4, 6, 8, 10, 12, 14, 16, 18, 19, 21, 22's
-``launch/train.py`` run, 24, 26, 27, 29, 31 and 32) is driven with every
-kernel's launch count set to 0 just before it and read just after.
+``launch/train.py`` run, 24, 26, 27, 29, 31, 32, 34 and 35) is driven with
+every kernel's launch count set to 0 just before it and read just after.
 
 The last line is {"ok": true, "device": {...}}; the line before it the
 kernels' JSON record; before that the card's name and power limit.
@@ -243,6 +273,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -2752,8 +2783,9 @@ def full_width(arch, backend, n_layers, dtype="float32"):
 
 
 def attn_layers(cfg) -> int:
-    pattern, reps, tail = cfg.pattern_and_repeats
-    return pattern.count("attn") * reps + tail.count("attn")
+    """Self-attention layers: attn and shared_attn sites."""
+    from repro_torch.launch import serve
+    return serve.layer_counts(cfg)["attn"]
 
 
 def set_xgate(params, cfg, value) -> None:
@@ -2767,11 +2799,12 @@ def set_xgate(params, cfg, value) -> None:
 
 def generate_kernel_vs_reference(cfg, dev, phase, batch=4, prompt_len=64,
                                  steps=16, memory=None, xgate=None) -> None:
-    """Phases 3, 7, 20 and 23: prefill + ``steps`` greedy steps through
-    the kernels (B1 or B7 in every decode step of each attention layer, B10
-    in the softmax prefill) against the reference route
-    (``decode_kernel="reference"``, and softmax prefill through B10's
-    plain version): greedy tokens identical, logits within 1e-4, each
+    """Phases 3, 7, 20, 23, 25 and 33: prefill + ``steps`` greedy steps
+    through the kernels (B1 or B7 in every decode step of each attention
+    layer, B10 in the softmax prefill, B8 in each Mamba-2 layer's
+    prefill) against the reference route (``decode_kernel="reference"``,
+    and the prefills through B10's and B8's plain versions): greedy
+    tokens identical, logits within 1e-4, each
     kernel launched exactly as many times as the path has layers and
     steps, none on the reference route. The MoE runs the same
     deterministic ops on both routes (its scatter writes each kept slot
@@ -2787,7 +2820,9 @@ def generate_kernel_vs_reference(cfg, dev, phase, batch=4, prompt_len=64,
     prompt = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
                            device=dev,
                            generator=torch.Generator(device=dev).manual_seed(2))
+    from repro_torch.launch import serve
     n_attn = attn_layers(cfg)
+    n_ssd = serve.layer_counts(cfg)["mamba"]
     runs = {}
     for kernel in (True, False):
         c = cfg if kernel else dataclasses.replace(cfg,
@@ -2808,6 +2843,8 @@ def generate_kernel_vs_reference(cfg, dev, phase, batch=4, prompt_len=64,
         want = ({} if not kernel else
                 {"flash_attention_fwd": n_attn} if backend == "softmax" else
                 {DECODE_KERNEL[backend]: n_attn * steps})
+        if kernel and n_ssd:
+            want["gated_linear_attention_fwd"] = n_ssd
         if got != want:
             raise AssertionError(f"phase {phase}: {cfg.name} {backend} "
                                  f"launched {got} (kernels={kernel}), want "
@@ -3897,6 +3934,403 @@ def rwkv6_generate_main_path(dev, gen, phase) -> dict:
                       "bound_by": t["bound_by"], "library_ms": None}}
 
 
+# ---------------------------------------------------------------------------
+# phases 33-35: zamba2-7b (68 Mamba-2 blocks prefilled through B8's
+# inclusive route, one shared attention block at 13 sites, head dim 112
+# through B1/B7/B10) and the paper's feature gate
+# ---------------------------------------------------------------------------
+
+ZAMBA_ARCH = "zamba2-7b"
+
+
+def zamba2_unit(backend, dtype="float32"):
+    """zamba2-7b at full width cut to one pattern unit (5 mamba + 1
+    shared_attn, no tail), under ``backend``, computing in ``dtype``."""
+    from repro_torch.configs import get_config
+    cfg = get_config(ZAMBA_ARCH).with_backend(backend)
+    return dataclasses.replace(cfg, n_layers=len(cfg.layer_pattern),
+                               n_repeats=1, tail=(), dtype=dtype)
+
+
+def ssd_rows(b, h, t, n, dtype, gen, dev):
+    """The Mamba-2 prefill's B8 rows at zamba2-7b's widths: C and B one
+    (T, N) row a sequence broadcast over the H heads (materialised as
+    the wrapper materialises them), v = Δ·x, and the per-head log-decay
+    g = −softplus(Δ)·linspace(1, 16, H) of its init broadcast to (T, N):
+    most heads past the clamp at −1. Flat (B·H, T, N) rows."""
+    import torch
+    import torch.nn.functional as F
+    r = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    cq, bk = (r(b, 1, t, n).expand(b, h, t, n).to(dtype) for _ in range(2))
+    dt = F.softplus(r(b, h, t, 1))
+    v = (r(b, h, t, n) * dt).to(dtype)
+    g = (-dt * torch.linspace(1.0, 16.0, h, device=dev)[:, None, None]
+         ).expand(b, h, t, n)
+    return [x.reshape(b * h, t, n).contiguous() for x in (cq, bk, v, g)]
+
+
+def zamba2_training_refused(dev, phase) -> None:
+    """Phase 33: zamba2-7b's unit at full width under linear and
+    gated_linear, its loss under autograd on the card: B2/B8 do not take
+    the shared attention's D = 112 yet, and the step raises ValueError
+    naming ROADMAP queue B item 1 (no plain route runs instead)."""
+    import torch
+    from repro_torch.models import lm
+    for backend in ("linear", "gated_linear"):
+        cfg = zamba2_unit(backend)
+        params = lm.init_params(torch.Generator(device=dev).manual_seed(1),
+                                cfg)
+        toks = torch.randint(0, cfg.vocab_size, (1, 64), device=dev,
+                             generator=torch.Generator(device=dev).manual_seed(2))
+        try:
+            lm.lm_loss(params, {"tokens": toks, "labels": toks}, cfg)
+        except ValueError as e:
+            if "ROADMAP queue B item 1" not in str(e):
+                raise
+            print(f"phase {phase}: {cfg.name} {backend} training on the card "
+                  f"refused: {str(e)[:110]}...")
+        else:
+            raise AssertionError(f"phase {phase}: {cfg.name} {backend} "
+                                 f"trained at D = 112 on the card")
+        del params
+        torch.cuda.empty_cache()
+
+
+def check_ssd(b, h, t, dtype, gen, dev, n=64) -> float:
+    """B8's inclusive route with its final state at the SSD prefill's
+    shape, through ``ssd_attention`` (one launch for every head, q and k
+    broadcast views) against the plain version at chunk 64: o normwise
+    1e-5 (fp32) or 8e-3 (bf16), the fp32 state 1e-5. Prints o's error as
+    a share of its limit. Returns max|Δo|."""
+    import torch
+    from repro_torch.kernels.gated_linear_attention import ops as GL
+    q, k, v, g = (x.reshape(b, h, t, n) for x in ssd_rows(b, h, t, n, dtype,
+                                                          gen, dev))
+    q, k = q[:, :1].expand(b, h, t, n), k[:, :1].expand(b, h, t, n)
+    g = g[..., :1]
+    before = GL.fwd.launches
+    o, s = GL.ssd_attention(q, k, v, g, chunk=64)
+    torch.cuda.synchronize()
+    if GL.fwd.launches != before + 1:
+        raise AssertionError("ssd_attention: not one B8 launch")
+    o_r, s_r = GL.ssd_attention(q, k, v, g, chunk=64, kernel=False)
+    name = str(dtype).split(".")[-1]
+    tag = f"SSD rows={b * h} T={t} N={n} {name}"
+    if not (torch.isfinite(o).all() and torch.isfinite(s).all()):
+        raise AssertionError(f"{tag}: non-finite output")
+    clamped = (g < -1.0).float().mean().item()
+    err = normwise(o, o_r, LA_TOL[name], f"o {tag}")
+    s_err = normwise(s, s_r, LA_TOL["float32"], f"state {tag}")
+    share = err / (LA_TOL[name] * o_r.float().abs().max().item())
+    print(f"  ssd_attention {tag} ({100 * clamped:.1f}% of the decays past "
+          f"the clamp): max|Δo|={err:.3e}, {100 * share:.1f}% of the "
+          f"{LA_TOL[name]} limit; max|ΔS|={s_err:.3e}")
+    return err
+
+
+def zamba2_kernel_checks(gen, dev) -> None:
+    """Phase 2's checks at zamba2-7b's shapes: B1 and B7 at D = 112
+    (448 threads) at the serving rows (batch 8 x 32 heads) and the smoke
+    rows with the state bit for bit; B10 at D = 112 on both routes (32
+    over 32 heads at T = S = 512, ragged T and S, groups of 6 and 7,
+    through the wrapper); B8's inclusive route at the SSD prefill's shape
+    (batch 8 x 112 heads, T = 512, N = 64) in fp32 and bf16."""
+    import torch
+    for dtype in (torch.float32, torch.bfloat16):
+        for normalize in (False, True):
+            for w, varlen in ((1, False), (8, True)):
+                check_decode_linear(256, 112, w, normalize, varlen, gen, dev,
+                                    dtype=dtype, bitwise=True)
+        for w, varlen in ((1, False), (8, True)):
+            for decay in ("mild", "strong", "scalar"):
+                check_decode_gated(256, 112, w, dtype, varlen, decay, gen,
+                                   dev, bitwise=True)
+    for normalize in (False, True):
+        check_decode_linear(12, 112, 8, normalize, True, gen, dev,
+                            bitwise=True)
+    check_decode_gated(12, 112, 8, torch.bfloat16, True, "mild", gen, dev,
+                       bitwise=True)
+    print("phase 2: decode_linear and decode_gated at D = 112: S and z bit "
+          "for bit, o within 1e-5 fp32 and 1 bf16 ulp")
+    for dtype in (torch.bfloat16, torch.float32):
+        check_flash_attention(256, 512, 512, 112, dtype, gen, dev,
+                              kv_heads=32, heads=32)
+        check_flash_attention(14, 77, 300, 112, dtype, gen, dev, t_off=5,
+                              s_real=290, kv_heads=1, heads=7)
+        check_flash_attention(12, 200, 200, 112, dtype, gen, dev,
+                              s_real=150, kv_heads=1, heads=6)
+        check_flash_wrapper(2, 14, 2, 72, 200, dtype, gen, dev, d=112)
+    print("phase 2: flash_attention_fwd at D = 112 agrees with its plain "
+          "version and JAX's oracle")
+    for dtype in (torch.float32, torch.bfloat16):
+        check_ssd(8, 112, 512, dtype, gen, dev)
+    check_ssd(2, 7, 200, torch.bfloat16, gen, dev)
+    print("phase 2: gated_linear_attention_fwd (inclusive, with its state) "
+          "at the SSD prefill's shape agrees with its plain version")
+
+
+def time_ssd_prefill(b, h, t, n, gen, dev) -> dict:
+    """B8's inclusive route at the SSD prefill's shape on its flat rows
+    (bf16 q, k, v; fp32 g at zamba2-7b's decays), with its plain version
+    at chunk 64, from CUDA-graph replays. Bounds as
+    ``time_gated_linear_attention``'s: q, k, v read and o written in
+    bf16, g read and the state written in fp32, over 3.35 TB/s; or the
+    scan form's two products and one exp per decay element over the bf16
+    tensor-core rate (``fp32_bound_ms``: over 67 TFLOP/s)."""
+    from repro_torch.kernels.gated_linear_attention import ops as GL
+    from repro_torch.kernels.gated_linear_attention import ref as GR
+    import torch
+    q, k, v, g = ssd_rows(b, h, t, n, torch.bfloat16, gen, dev)
+    n_bytes = 4 * q.nbytes + g.nbytes + b * h * n * n * 4
+    ops = 2 * (b * h * t * 2 * n * n) + b * h * t * n
+    return dict(ms=graph_ms(lambda i: GL.fwd(q, k, v, g, chunk=64), 4,
+                            replays=5),
+                plain_ms=graph_ms(lambda i: GR.chunked_fwd_ref(
+                    q, k, v, g, chunk=64), 2, replays=3),
+                library_ms=None,
+                fp32_bound_ms=bound(n_bytes, ops)["bound_ms"],
+                **bound(n_bytes, ops, PEAK_BF16_TC_FLOPS))
+
+
+def zamba2_state_sizes(cfg, batch, rows) -> dict:
+    """Bytes of zamba2-7b's decode state at ``batch``: each Mamba-2
+    layer's conv window (K−1 rows of x | B | C in bf16) and SSD matrices
+    (fp32), and each shared-attention site's linear s and z (fp32), its
+    gated s, or its softmax K and V caches of ``rows`` rows (bf16)."""
+    from repro_torch.launch import serve
+    s = cfg.ssm
+    counts = serve.layer_counts(cfg)
+    d_inner = s.expand * cfg.d_model
+    mamba = counts["mamba"] * batch * (
+        (s.conv_kernel - 1) * (d_inner + 2 * s.d_state) * 2
+        + d_inner // s.head_dim * s.d_state * s.head_dim * 4)
+    head = counts["attn"] * batch * cfg.n_heads * cfg.head_dim * 4
+    kv = counts["attn"] * batch * rows * 2 * cfg.n_kv_heads * cfg.head_dim * 2
+    return {"mamba": mamba, "linear": head * (cfg.head_dim + 1),
+            "gated_linear": head * cfg.head_dim, "softmax": kv}
+
+
+def zamba2_generate_main_path(backend, dev, phase) -> dict:
+    """Phase 34: ``serve --mode generate --arch zamba2-7b --backend
+    <backend>`` at full width and depth (81 layers: 68 Mamba-2, 13 sites
+    of the shared attention; parameters built in bf16), batch 8, prompt
+    512, 64 tokens, every kernel's launch count set to 0 just before and
+    read just after: B8 exactly 68 times a prefill (two prefills: the
+    warm-up's and the timed one), and B1 or B7 exactly 13 x (2 + 63)
+    times or B10 13 times a prefill, no other kernel. Prints prefill ms,
+    ms/token beside the step's bound by bytes, the decode state's MiB
+    (the Mamba-2 states and the attention's, against the KV cache of the
+    other route), peak memory and a profile of 4 decode steps (device
+    busy share). Returns the launches and the numbers."""
+    import gc
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    from repro_torch.tree import leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    args = serve.parse_args(["--arch", ZAMBA_ARCH, "--backend", backend,
+                             "--batch", "8", "--prompt-len", "512",
+                             "--gen-len", "64", "--seed", "0"])
+    cfg = serve.serving_config(args)
+    counts = serve.layer_counts(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    result = serve.generate(args)
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    got = {k: n for k, n in launches.items() if n}
+    softmax = backend == "softmax"
+    ssd = "gated_linear_attention_fwd"
+    want = {ssd: 2 * counts["mamba"]}
+    if softmax:
+        want["flash_attention_fwd"] = 2 * counts["attn"]
+        timed = (result["prefill_launches_by"] ==
+                 {ssd: counts["mamba"], "flash_attention_fwd": counts["attn"]}
+                 and not result["decode_launches"])
+        name = "flash_attention_fwd"
+    else:
+        name = DECODE_KERNEL[backend]
+        want[name] = counts["attn"] * (args.gen_len - 1 + 2)
+        timed = (result["prefill_launches_by"] == {ssd: counts["mamba"]} and
+                 result["decode_launches"] ==
+                 counts["attn"] * (args.gen_len - 1))
+    if got != want or not timed:
+        raise AssertionError(f"phase {phase}: {ZAMBA_ARCH} {backend} "
+                             f"launched {got} (want {want}), timed prefill "
+                             f"{result['prefill_launches_by']}, decode "
+                             f"{result['decode_launches']}")
+    toks = result["tokens"]
+    if toks.shape != (args.batch, args.gen_len) or not (
+            (toks >= 0) & (toks < cfg.vocab_size)).all():
+        raise AssertionError(f"phase {phase}: bad generated tokens")
+    max_len = args.prompt_len + args.gen_len
+    sizes = zamba2_state_sizes(cfg, args.batch, max_len)
+    want_mib = (sizes["mamba"] + sizes[backend]) / 2**20
+    if result["state_mib"] != want_mib:
+        raise AssertionError(f"phase {phase}: decode state "
+                             f"{result['state_mib']} MiB, want {want_mib}")
+    ms = result["decode_ms_per_token"]
+    print(f"phase {phase}: {ZAMBA_ARCH} {backend} main path ({cfg.n_layers} "
+          f"layers: {counts['mamba']} Mamba-2, {counts['attn']} shared "
+          f"attention sites of {cfg.n_heads} heads of {cfg.head_dim}; "
+          f"bf16) batch {args.batch}, prompt {args.prompt_len}, "
+          f"{args.gen_len} tokens: prefill_ms={result['prefill_ms']:.3f} "
+          f"decode_ms_per_token={ms:.4f} tok_s={result['tokens_per_s']:.1f}"
+          f" state_mib={result['state_mib']:.2f} (Mamba-2 "
+          f"{sizes['mamba'] / 2**20:.2f}, attention "
+          f"{sizes[backend] / 2**20:.2f}; the linear attention state "
+          f"{sizes['linear'] / 2**20:.2f} MiB against a KV cache of "
+          f"{max_len} rows {sizes['softmax'] / 2**20:.2f} MiB, "
+          f"{sizes['softmax'] / args.batch / 2**20:.2f} a sequence); "
+          f"launches {got} (timed prefill {result['prefill_launches_by']}"
+          + ("" if softmax else f", timed decode "
+             f"{result['decode_launches']} = {counts['attn']} x "
+             f"{args.gen_len - 1}") + f"); held before {held / 1e9:.3f} GB, "
+          f"peak {peak / 1e9:.3f} GB")
+    params = lm.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    n_params = sum(t.numel() for t in leaves(params))
+    prompt = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
+                           device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(3))
+    logits, st = lm.prefill(params, prompt, cfg)
+    st = lm.pad_decode_state(st, cfg, max_len)
+    # weights (the embedding at the batch's rows), the fixed-size states
+    # read and written, a KV cache read once
+    embed = params["embed"]
+    n_bytes = (sum(t.nbytes for t in leaves(params)) - embed.nbytes
+               + args.batch * embed.shape[1] * embed.element_size()
+               + 2 * sizes["mamba"] + (sizes["softmax"] if softmax else
+                                       2 * sizes[backend]))
+    bound_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
+    print(f"  {n_params / 1e9:.3f} B parameters, "
+          f"{sum(t.nbytes for t in leaves(params)) / 1e9:.3f} GB in bf16; "
+          f"bound {bound_ms:.3f} ms a decode step by bytes ("
+          f"{n_bytes / 1e9:.3f} GB of weights and state at "
+          f"{PEAK_BYTES_PER_S / 1e12:.2f} TB/s): {100 * bound_ms / ms:.1f}% "
+          f"of the measured ms/token")
+    device_ms = profile_decode(params, cfg, st, torch.argmax(logits, -1),
+                               args.prompt_len,
+                               kernel=None if softmax else f"{name}_kernel")
+    if not torch.isfinite(logits).all():
+        raise AssertionError(f"phase {phase}: non-finite logits")
+    busy = None
+    if device_ms is not None:
+        busy = device_ms / ms
+        print(f"  device busy {100 * busy:.1f}% of a decode step "
+              f"({device_ms:.3f} ms device time per step over {ms:.3f} ms "
+              f"per token)")
+    del params, st, logits, prompt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": got, "prefill_ms": result["prefill_ms"],
+            "ms_per_token": ms, "bound_ms": bound_ms, "busy": busy,
+            "peak": peak, "state_mib": result["state_mib"]}
+
+
+def zamba2_kernel_times(gen, dev) -> dict:
+    """B1, B7 and B10 at zamba2-7b's shared attention (batch 8 x 32 heads,
+    D = 112; B10 over T = S = 512 beside
+    ``scaled_dot_product_attention``), and B8's inclusive route at its
+    SSD prefill (batch 8 x 112 heads, T = 512, N = 64), each beside its
+    bound and plain version. Returns {kernel: record}."""
+    out = dense_kernel_times(ZAMBA_ARCH, ("linear", "gated_linear",
+                                          "softmax"), gen, dev)
+    t = time_ssd_prefill(8, 112, 512, 64, gen, dev)
+    shape = f"{ZAMBA_ARCH} SSD prefill: rows=896 T=512 N=64 bf16, chunk 64"
+    print(f"gated_linear_attention_fwd [decay_sweep_fwd_tc<64, false>] "
+          f"{shape}: {t['ms'] * 1e3:.2f} us/launch (plain version "
+          f"{t['plain_ms'] * 1e3:.2f} us; library call: none; bound "
+          f"{t['bound_ms'] * 1e3:.2f} us by {t['bound_by']} on bf16 tensor "
+          f"cores, {t['fp32_bound_ms'] * 1e3:.2f} us at the fp32 rate; "
+          f"{t['flops'] / 1e9:.2f} GFLOP, {t['bytes'] / 1e6:.2f} MB)")
+    out["gated_linear_attention_fwd"] = {
+        "shape": shape, "ms": t["ms"], "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+        "library_ms": None}
+    return out
+
+
+def zamba2_stream_main_path(dev, phase) -> dict:
+    """Phase 35: ``serve --mode stream --arch zamba2-7b --backend linear``
+    at phase 16's traffic (8 slots, segments of 8, 32 requests of 512
+    prompt tokens and 8 or 64 generated tokens, 0.25 arrivals a step),
+    every kernel's launch count set to 0 just before and read just after:
+    per-request admission (each prompt whole: B8 once per Mamba-2 layer
+    and prefill, no ingest chunk), B1 once per attention site and decode
+    step of every segment, no other kernel; every request its budget;
+    then a profile of two steps of a segment. Returns the launches."""
+    import numpy as np
+    import torch
+    from repro_torch.launch import serve
+    args = serve.parse_args([
+        "--mode", "stream", "--arch", ZAMBA_ARCH, "--backend", "linear",
+        "--slots", "8", "--segment-len", "8", "--n-requests", "32",
+        "--prompt-len", "512", "--gen-len", "64", "--arrival-rate", "0.25",
+        "--seed", "0"])
+    t0 = time.perf_counter()
+    reset_launches()
+    result = serve.stream(args)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    print(f"  serve --mode stream returned in {time.perf_counter() - t0:.1f}"
+          f" s (weights, warm-up and the timed run)")
+    st = result["stats"]
+    ssd = "gated_linear_attention_fwd"
+    want = {"decode_linear": result["want_launches"]
+            + result["warmup_launches"],
+            ssd: result["want_ssd_launches"] + result["warmup_ssd_launches"]}
+    got = {k: n for k, n in launches.items() if n}
+    if got != want or result["decode_launches"] != result["want_launches"] \
+            or result["ssd_launches"] != result["want_ssd_launches"]:
+        raise AssertionError(f"phase {phase}: launched {got} (want {want}), "
+                             f"timed B1 {result['decode_launches']} / "
+                             f"{result['want_launches']}, B8 "
+                             f"{result['ssd_launches']} / "
+                             f"{result['want_ssd_launches']}")
+    if result["engine"].admission != "per_request" or st["ingest_chunks"] \
+            or st["prefills"] != args.n_requests or not st["segments"]:
+        raise AssertionError(f"phase {phase}: per-request admission of every "
+                             f"prompt whole, no ingest: {st}")
+    cfg = serve.serving_config(args)
+    mix = serve.make_request_mix(np.random.default_rng(args.seed),
+                                 args.n_requests, args.prompt_len,
+                                 args.gen_len, cfg.vocab_size,
+                                 args.arrival_rate)
+    comps = result["completions"]
+    if [len(c.tokens) for c in comps] != [g for _, g, _ in mix] or not all(
+            ((c.tokens >= 0) & (c.tokens < cfg.vocab_size)).all()
+            for c in comps):
+        raise AssertionError(f"phase {phase}: incomplete or bad completions")
+    counts = serve.layer_counts(cfg)
+    print(f"phase {phase}: {ZAMBA_ARCH} linear stream main path "
+          f"tok_s={result['tokens_per_s']:.1f} "
+          f"ms_per_segment={result['ms_per_segment']:.3f} "
+          f"slot_utilization={result['slot_utilization']:.4f} "
+          f"mean_latency_steps={result['mean_latency_steps']:.2f} "
+          f"seconds={result['seconds']:.3f} tokens={result['tokens']} "
+          f"launches {got} (timed decode_linear {result['decode_launches']} "
+          f"= {counts['attn']} x {st['segment_len']} x {st['segments']}, "
+          f"{ssd} {result['ssd_launches']} = {counts['mamba']} x "
+          f"{st['prefills']} prefills); decode state "
+          f"{result['state_mib']:.1f} MiB; all {len(comps)} requests "
+          f"complete")
+    print(f"  stats {json.dumps(st)}")
+    prof = profile_segments(result["engine"])
+    engine = result.pop("engine")
+    if not all(bool(torch.isfinite(t).all()) for group in engine.state.values()
+               for layer in group for t in layer if t is not None):
+        raise AssertionError(f"phase {phase}: non-finite engine state")
+    if prof["busy"] is not None:
+        print(f"  device busy {100 * prof['busy']:.1f}% of a segment "
+              f"({prof['device_ms']:.3f} ms device time over "
+              f"{prof['wall_ms']:.3f} ms wall per segment)")
+    del engine, result
+    torch.cuda.empty_cache()
+    return got
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3982,6 +4416,21 @@ def main() -> int:
             why = "no ptxas report" if log is None else spills(log)
             raise AssertionError(f"phase 1: {source.name}: {why}")
     print("  decode_linear.cu, decode_gated.cu: no spill at any D")
+    # the D = 112 instantiations (zamba2-7b's shared attention): B1 and B7
+    # on 448 threads, B10's two routes; no B10 instantiation may spill
+    fa_log = build.build_log(FA.SOURCE)
+    if spills(fa_log):
+        raise AssertionError(f"phase 1: flash_attention.cu spills: "
+                             f"{spills(fa_log)}")
+    for source in (ops.SOURCE, ops.GATED_SOURCE, FA.SOURCE):
+        notes = [line for line in ptxas_notes(build.build_log(source))
+                 if re.search(r"Li112[E>]", line.split(":")[0])]
+        if not notes:
+            raise AssertionError(f"phase 1: {source.name}: no D = 112 "
+                                 f"instantiation in the ptxas report")
+        for line in notes:
+            print(f"  D = 112: {line}")
+    print("  flash_attention.cu: no spill at any D")
     done(1, t0)
 
     # -- 2. kernels against their plain versions --------------------------
@@ -4148,6 +4597,7 @@ def main() -> int:
           "8e-3 and 2e-2 elementwise), K/V read by kv head")
     dense_kernel_checks(gen, dev)
     training_kernel_checks(gen, dev)
+    zamba2_kernel_checks(gen, dev)
     done(2, t0)
 
     # -- 3. the linear slice, kernel vs plain recurrence, fp32 -------------
@@ -4365,6 +4815,28 @@ def main() -> int:
     rwkv_stream = stream_main_path(None, dev, 32, arch=RWKV_ARCH)
     done(32, t0)
 
+    # -- 33. the zamba2 and feature-gate slices: kernels vs reference ------
+    t0 = time.perf_counter()
+    for backend in ("linear", "gated_linear", "softmax"):
+        generate_kernel_vs_reference(zamba2_unit(backend), dev, 33)
+    zamba2_training_refused(dev, 33)
+    for backend in ("linear", "gated_linear"):
+        generate_kernel_vs_reference(dataclasses.replace(
+            full_width("qwen3-0.6b", backend, 2), feature_gate=True), dev, 33)
+    done(33, t0)
+
+    # -- 34. the zamba2 generate main path ---------------------------------
+    t0 = time.perf_counter()
+    zamba_gen = {b: zamba2_generate_main_path(b, dev, 34)
+                 for b in ("linear", "gated_linear", "softmax")}
+    zamba_times = zamba2_kernel_times(gen, dev)
+    done(34, t0)
+
+    # -- 35. the zamba2 stream path ------------------------------------------
+    t0 = time.perf_counter()
+    zamba_stream = zamba2_stream_main_path(dev, 35)
+    done(35, t0)
+
     for r in records:
         r["max_abs_err"] = errs[r["name"]]
         if r["name"] in stream:   # B1/B7: generate, stream; B10: and train
@@ -4396,6 +4868,15 @@ def main() -> int:
         generate_rwkv6=rwkv_gen["launches"], stream_rwkv6=rwkv_stream)
     dense_times.setdefault("gated_linear_attention_fwd", []).append(
         rwkv_gen["shape"])
+    # phases 34 and 35
+    for run in zamba_gen.values():
+        for name, n in run["launches"].items():
+            path = more.setdefault(name, {})
+            path["generate_zamba2"] = path.get("generate_zamba2", 0) + n
+    for name, n in zamba_stream.items():
+        more.setdefault(name, {})["stream_zamba2"] = n
+    for name, rec in zamba_times.items():
+        dense_times.setdefault(name, []).append(rec)
     for r in records:
         if r["name"] in more:
             r.setdefault("launches_by_path", {"train": r["launches"]})

@@ -1,18 +1,17 @@
 """Model configuration schema + registry (the port's own copy).
 
-Field for field the same ``ModelConfig``, ``MoEConfig`` and
-``RWKVConfig`` as ``repro.configs.base``, so a configuration means the
-same model in both packages; the tests compare the two copies with
-``dataclasses.asdict``. The port serves the ``attn`` block kind (dense
-or MoE) and the ``cross`` kind under every attention backend, and the
-``rwkv`` kind; the other kinds stay in the schema so that the copy does
-not drift.
+Field for field the same ``ModelConfig``, ``MoEConfig``, ``SSMConfig``
+and ``RWKVConfig`` as ``repro.configs.base``, so a configuration means
+the same model in both packages; the tests compare the two copies with
+``dataclasses.asdict``. The port serves every block kind: ``attn``
+(dense or MoE), ``shared_attn`` and ``cross`` under every attention
+backend, ``mamba`` and ``rwkv``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 VALID_KINDS = ("attn", "shared_attn", "cross", "mamba", "rwkv")
 VALID_ATTENTION_BACKENDS = ("softmax", "linear", "gated_linear")
@@ -32,6 +31,14 @@ class MoEConfig:
     # "shard_map" (JAX's all-to-all expert parallelism) or "einsum"; on
     # one device both take the einsum path, the only one the port has
     dispatch: str = "shard_map"
+
+
+@dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    d_state: int = 64
+    head_dim: int = 64
+    expand: int = 2
+    conv_kernel: int = 4
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,8 +76,7 @@ class ModelConfig:
     act: str = "swiglu"              # swiglu|gelu
     norm: str = "rmsnorm"            # rmsnorm|layernorm
     moe: Optional[MoEConfig] = None
-    # the Mamba-2 family's sub-config, which the port does not serve yet
-    ssm: Optional[Any] = None
+    ssm: Optional[SSMConfig] = None
     rwkv: Optional[RWKVConfig] = None
     n_img_tokens: int = 0            # VLM cross-attention memory length
     tie_embeddings: bool = False

@@ -18,6 +18,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.state import DocumentState
 from repro_torch.models.attention import AttnState, CrossMemory
+from repro_torch.models.mamba2 import MambaState
 from repro_torch.models.rwkv6 import RWKVState
 from repro_torch.optim import AdamState
 
@@ -44,8 +45,10 @@ def params_from_jax(np_tree: Any, cfg: ModelConfig, *,
                     device: Optional[torch.device] = None) -> dict:
     """Convert the ``repro.models.lm.init_params`` tree: ``embed``,
     ``stack`` (per pattern position, leaves with a leading repeat axis),
-    ``tail``, ``final_norm`` and ``lm_head`` unless embeddings are tied.
-    Each norm carries its ``scale``, and under ``norm="layernorm"`` its
+    ``tail``, ``final_norm``, ``lm_head`` unless embeddings are tied, and
+    ``shared`` (the one attention block every ``shared_attn`` site
+    applies; its sites hold empty entries in ``stack`` and ``tail``) when
+    it is not empty. Each norm carries its ``scale``, and under ``norm="layernorm"`` its
     ``bias`` too (``norm1``/``norm2`` of the stack, with the repeat axis,
     of the tail, and ``final_norm``): a tree whose ``final_norm`` holds
     other leaves than ``cfg.norm`` builds raises ValueError. Each
@@ -57,10 +60,11 @@ def params_from_jax(np_tree: Any, cfg: ModelConfig, *,
     block its ``cross`` projections and its ``xgate``; an rwkv block its
     RWKV-6 tree as it is (token-shift mixes, the r/k/v/g/o projections,
     the decay's w_decay0/1/2, the per-head ``u_bonus`` and groupnorm, the
-    channel-mix and its ``ln1``/``ln2``). The JAX ``shared`` entry must be
-    empty: the port has no ``shared_attn`` blocks."""
-    if np_tree.get("shared"):
-        raise NotImplementedError("shared_attn parameters are not ported")
+    channel-mix and its ``ln1``/``ln2``); a mamba block its ``norm1`` and
+    its ``mamba`` tree (``in_proj``, ``conv_w``, ``dt_bias``, ``a_log``,
+    ``d_skip``, ``norm_scale``, ``out_proj``); under ``feature_gate``
+    (linear family) an attention entry its gate's ``w_fgate`` and
+    ``b_fgate``."""
     norm = {"scale", "bias"} if cfg.norm == "layernorm" else {"scale"}
     if set(np_tree["final_norm"]) != norm:
         raise ValueError(f"{cfg.name}: final_norm holds "
@@ -69,6 +73,8 @@ def params_from_jax(np_tree: Any, cfg: ModelConfig, *,
     keys = ["embed", "stack", "tail", "final_norm"]
     if not cfg.tie_embeddings:
         keys.append("lm_head")
+    if np_tree.get("shared"):
+        keys.append("shared")
     return {k: _tree(np_tree[k], device) for k in keys}
 
 
@@ -86,7 +92,7 @@ def opt_state_from_jax(np_state: Any, cfg: ModelConfig, *,
 
 
 def _block_state(st, device):
-    kind = next(k for k in (AttnState, CrossMemory, RWKVState)
+    kind = next(k for k in (AttnState, CrossMemory, MambaState, RWKVState)
                 if st._fields == k._fields)
     return kind(*(None if x is None else _tensor(x, device) for x in st))
 
@@ -94,12 +100,13 @@ def _block_state(st, device):
 def state_from_jax(np_state: Any, *,
                    device: Optional[torch.device] = None) -> dict:
     """Convert a JAX decode state {"stack": (AttnState | CrossMemory |
-    RWKVState, ...), "tail": (...)} with its leaves as numpy, field for
-    field: softmax KV caches (k_cache, v_cache; s and z None), or the
+    MambaState | RWKVState, ...), "tail": (...)} with its leaves as numpy,
+    field for field: softmax KV caches (k_cache, v_cache; s and z None), or the
     linear family's s and z (k_cache and v_cache None; z None for
     ``gated_linear`` and for ``linear`` without the normaliser); a cross
-    block's memory (k, v under softmax, else c, z); an rwkv block's
-    shift rows and wkv matrices. bf16 caches stay bf16."""
+    block's memory (k, v under softmax, else c, z); a mamba block's conv
+    window and SSD matrices; an rwkv block's shift rows and wkv
+    matrices. bf16 caches stay bf16."""
     return {part: tuple(_block_state(st, device) for st in np_state[part])
             for part in ("stack", "tail")}
 

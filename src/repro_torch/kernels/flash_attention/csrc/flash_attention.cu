@@ -79,10 +79,11 @@
 //   does (repro/kernels/flash_attention/ref.py casts the probabilities to
 //   v's type; the port's copy is ref.flash_attention_ref); m, l and O
 //   stay in fp32. D = 16 and 64 use one 64-column block (the columns past
-//   D are zeros), D = 96 and 128 two. At D = 96 the second block's
-//   columns 96-127 are zero-filled on load, so Q Kᵀ runs 6 k16 steps
-//   and its P V block holds zeros there, which the TMA store leaves out
-//   (the row stride of 192 bytes is a multiple of 16, as TMA needs).
+//   D are zeros), D = 96, 112 and 128 two. At D = 96 (112) the second
+//   block's columns 96-127 (112-127) are zero-filled on load, so Q Kᵀ
+//   runs 6 (7) k16 steps and its P V block holds zeros there, which the
+//   TMA store leaves out (the row strides of 192 and 224 bytes are
+//   multiples of 16, as TMA needs).
 // - A barrier wait that lasts seconds traps, so that a lost phase fails
 //   the launch instead of hanging the card.
 //
@@ -519,14 +520,19 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap tq,
     // stage s; each issue is fenced and committed as a group of its own,
     // and its register operands fenced after the commit
     auto issue_qk = [&](int s) {
+      // Q's descriptors from one base made opaque at each issue: as loop
+      // invariants the QK_STEPS of them (two registers each) would stay
+      // live across the key loop, past the 168 registers a thread has at
+      // D = 112 and 128, and ptxas would spill. A descriptor's address
+      // field is addr >> 4 (below 2^14 in shared memory), so adding an
+      // offset's >> 4 gives the descriptor of addr + offset
+      uint64_t dq = desc(sq_b + 64 * wg * kRowBytes, 16, 1024);
+      asm volatile("" : "+l"(dq));
       fence_regs(sc);
       wg_fence();
 #pragma unroll
       for (int kk = 0; kk < QK_STEPS; ++kk)
-        wgmma_ss(sc,
-                 desc(sq_b + (kk / 4) * kQBlock + 64 * wg * kRowBytes +
-                          (kk % 4) * 32,
-                      16, 1024),
+        wgmma_ss(sc, dq + (((kk / 4) * kQBlock + (kk % 4) * 32) >> 4),
                  desc(sk + (s * DC + kk / 4) * kKVBlock + (kk % 4) * 32, 16,
                       1024),
                  kk > 0);
@@ -985,6 +991,8 @@ int launch_d(int bf16, const void* q, const void* k, const void* v, void* o,
       FA_LAUNCH(64);
     case 96:
       FA_LAUNCH(96);
+    case 112:
+      FA_LAUNCH(112);
     case 128:
       FA_LAUNCH(128);
     default:
@@ -998,8 +1006,8 @@ int launch_d(int bf16, const void* q, const void* k, const void* v, void* o,
 // B10. q, o: contiguous (rows, t, d); k, v: contiguous (rows / heads ·
 // kv_heads, s, d), q row b·heads + h reading kv row b·kv_heads + h mod
 // kv_heads; all of one type, fp32 (bf16 == 0) or bf16 (bf16 == 1), on the
-// current device, 16-byte aligned; d in {16, 64, 96, 128}. lse: null, or a
-// contiguous fp32 (rows, t) that receives each query's log-sum-exp. Query
+// current device, 16-byte aligned; d in {16, 64, 96, 112, 128}. lse: null,
+// or a contiguous fp32 (rows, t) that receives each query's log-sum-exp. Query
 // i attends key j iff j <= i + t_off and j < s_real; requires t_off >= 0
 // and 1 <= s_real <= s (see the header). Returns cudaGetLastError() after the
 // launch, cudaErrorInvalidValue for arguments it does not take, or

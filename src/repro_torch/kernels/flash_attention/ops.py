@@ -42,8 +42,8 @@ Tensor = torch.Tensor
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 # qwen3-0.6b's smoke and full widths, musicgen-large's (and JAX's tests'),
-# phi3-mini-3.8b's
-HEAD_DIMS = (16, 64, 96, 128)
+# phi3-mini-3.8b's, zamba2-7b's shared attention
+HEAD_DIMS = (16, 64, 96, 112, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 TILE = 128                  # the JAX wrapper's cq = ckv, for its padding
 

@@ -21,8 +21,8 @@
 //
 // Design: B1's layout and head dims (decode_linear.cu). One block owns
 // one state row, 256 threads where D divides 256, else 3·D (288 at
-// D = 96): thread (grp, j) keeps column j of rows grp, grp+G, ...
-// (G = threads/D) in registers, loaded once and written back once. Each
+// D = 96) or 4·D (448 at D = 112): thread (grp, j) keeps column j of
+// rows grp, grp+G, ... (G = threads/D) in registers, loaded once and written back once. Each
 // step stages the q, k, v rows and a = expf(g) (computed once per row i)
 // in shared memory. The update is S[i][j] = a[i]·S[i][j] + k[i]·v[j] with
 // each product and the sum rounded separately (no FMA contraction, no
@@ -36,11 +36,13 @@
 namespace {
 
 // Threads of the block that owns one state row of head dim D: 256 where
-// D divides it (D = 16, 64, 128: 256 / D row groups), else three row
-// groups of D threads (D = 96: 288 threads, 32 rows of S each).
+// D divides it (D = 16, 64, 128: 256 / D row groups), else row groups of
+// D threads that divide D's rows and fill whole warps: three at D = 96
+// (288 threads, 32 rows of S each), four at D = 112 (448 threads, 28
+// rows each; three would leave 112 rows uneven).
 template <int D>
 __host__ __device__ constexpr int block_threads() {
-  return 256 % D == 0 ? 256 : 3 * D;
+  return 256 % D == 0 ? 256 : D == 112 ? 4 * D : 3 * D;
 }
 
 __device__ __forceinline__ float to_float(float x) { return x; }
@@ -150,6 +152,7 @@ int launch_dtype(float* s, const void* q, const void* k, const void* v,
     case 16: launch<T, 16>(s, q, k, v, g, o, lens, n, w, stream); break;
     case 64: launch<T, 64>(s, q, k, v, g, o, lens, n, w, stream); break;
     case 96: launch<T, 96>(s, q, k, v, g, o, lens, n, w, stream); break;
+    case 112: launch<T, 112>(s, q, k, v, g, o, lens, n, w, stream); break;
     case 128: launch<T, 128>(s, q, k, v, g, o, lens, n, w, stream); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

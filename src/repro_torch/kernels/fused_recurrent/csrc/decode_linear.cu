@@ -17,15 +17,17 @@
 // ≈ 17 MB: about 5 µs at 3.35 TB/s. Decode runs 28 launches per token,
 // one per layer.
 //
-// Head dims: D = Dk = Dv in {16, 64, 96, 128} (qwen3-0.6b's smoke and
-// full widths, musicgen-large's 64, phi3-mini-3.8b's 96).
+// Head dims: D = Dk = Dv in {16, 64, 96, 112, 128} (qwen3-0.6b's smoke
+// and full widths, musicgen-large's 64, phi3-mini-3.8b's 96,
+// zamba2-7b's 112).
 //
 // Design: one block owns one state row: 256 threads where D divides 256,
-// else 3·D (288 at D = 96). It loads S (held in registers: thread (g, j)
-// keeps column j of rows g, g+G, g+2G, ... with G = threads/D row
-// groups, i.e. D²/threads floats: 64 at D = 128, 32 at D = 96, 16 at
-// D = 64) and z (shared memory) once, loops over the W steps with q, k,
-// v rows read from device memory, and writes S and z back once. The
+// else 3·D (288 at D = 96) or 4·D (448 at D = 112). It loads S (held in
+// registers: thread (g, j) keeps column j of rows g, g+G, g+2G, ... with
+// G = threads/D row groups, i.e. D²/threads floats: 64 at D = 128, 32
+// at D = 96, 28 at D = 112, 16 at D = 64) and z (shared memory) once,
+// loops over the W steps with q, k, v rows read from device memory, and
+// writes S and z back once. The
 // rank-1 update is a separate multiply and add (no FMA contraction), as
 // the plain PyTorch version computes it, so the state agrees bit for bit;
 // o and q·z are reduced in a fixed order (q·z by the first warp, D/32
@@ -38,11 +40,13 @@
 namespace {
 
 // Threads of the block that owns one state row of head dim D: 256 where
-// D divides it (D = 16, 64, 128: 256 / D row groups), else three row
-// groups of D threads (D = 96: 288 threads, 32 rows of S each).
+// D divides it (D = 16, 64, 128: 256 / D row groups), else row groups of
+// D threads that divide D's rows and fill whole warps: three at D = 96
+// (288 threads, 32 rows of S each), four at D = 112 (448 threads, 28
+// rows each; three would leave 112 rows uneven).
 template <int D>
 __host__ __device__ constexpr int block_threads() {
-  return 256 % D == 0 ? 256 : 3 * D;
+  return 256 % D == 0 ? 256 : D == 112 ? 4 * D : 3 * D;
 }
 
 __device__ __forceinline__ float to_float(float x) { return x; }
@@ -179,6 +183,7 @@ int launch_dtype(float* s, float* z, const void* q, const void* k,
     case 16: launch<T, 16>(s, z, q, k, v, o, lens, n, w, eps, normalize, stream); break;
     case 64: launch<T, 64>(s, z, q, k, v, o, lens, n, w, eps, normalize, stream); break;
     case 96: launch<T, 96>(s, z, q, k, v, o, lens, n, w, eps, normalize, stream); break;
+    case 112: launch<T, 112>(s, z, q, k, v, o, lens, n, w, eps, normalize, stream); break;
     case 128: launch<T, 128>(s, z, q, k, v, o, lens, n, w, eps, normalize, stream); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -29,8 +29,9 @@ Tensor = torch.Tensor
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "decode_linear.cu"
 GATED_SOURCE = SOURCE.with_name("decode_gated.cu")
-# qwen3-0.6b's smoke and full widths, musicgen-large's, phi3-mini-3.8b's
-HEAD_DIMS = (16, 64, 96, 128)
+# qwen3-0.6b's smoke and full widths, musicgen-large's, phi3-mini-3.8b's,
+# zamba2-7b's shared attention
+HEAD_DIMS = (16, 64, 96, 112, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 

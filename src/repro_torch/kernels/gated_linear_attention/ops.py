@@ -29,7 +29,9 @@ semantics, takes any).
 shape, the (B, H, T, D) ↔ (BH, T, D) reshapes and the JAX wrapper's
 chunk padding rule around a ``torch.autograd.Function`` that stands in
 for its custom VJP: forward B8, backward B9, and only (q, k, v, g) saved.
-``rwkv6_attention`` is the forward-only exclusive form with the bonus u.
+``rwkv6_attention`` is the forward-only exclusive form with the bonus u,
+``ssd_attention`` the forward-only inclusive form with its final state
+(the Mamba-2 SSD prefill).
 """
 
 from __future__ import annotations
@@ -308,4 +310,21 @@ def rwkv6_attention(q: Tensor, k: Tensor, v: Tensor, log_decay: Tensor,
     c, rows = _flat_inputs(q, k, v, log_decay, chunk)
     o, s = fwd(*rows, u=u.to(torch.float32).contiguous(), chunk=c,
                exclusive=True, min_log_decay=min_log_decay, kernel=kernel)
+    return o[:, :t].reshape(b, h, t, dv), s.reshape(b, h, dk, dv)
+
+
+def ssd_attention(q: Tensor, k: Tensor, v: Tensor, log_decay: Tensor, *,
+                  chunk: int = 128, min_log_decay: float = MIN_LOG_DECAY,
+                  kernel: bool = True) -> Tuple[Tensor, Tensor]:
+    """The inclusive form with its final state, forward only (the Mamba-2
+    SSD prefill, JAX's ``chunked_gla``): q, k (B, H, T, Dk), which may be
+    views broadcast over H (Mamba-2's C and B); v (B, H, T, Dv);
+    log_decay broadcastable to q, (B, H, T, 1) for one decay a head,
+    expanded to (B·H, T, Dk) in fp32. Returns (o: (B, H, T, Dv) in v's
+    type, final state (B, H, Dk, Dv) fp32). On a CUDA tensor one B8
+    launch covers every head."""
+    b, h, t, dk = q.shape
+    dv = v.shape[-1]
+    c, rows = _flat_inputs(q, k, v, log_decay, chunk)
+    o, s = fwd(*rows, chunk=c, min_log_decay=min_log_decay, kernel=kernel)
     return o[:, :t].reshape(b, h, t, dv), s.reshape(b, h, dk, dv)

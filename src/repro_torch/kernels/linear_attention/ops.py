@@ -62,7 +62,9 @@ def _check(kernel: str, chunk: int, **tensors: Tensor) -> None:
     bh, t, d = first.shape if first.ndim == 3 else (None,) * 3
     if d not in HEAD_DIMS:
         raise ValueError(f"{kernel}: (BH, T, D) rows with D in {HEAD_DIMS} "
-                         f"only, got {tuple(first.shape)}")
+                         f"only, got {tuple(first.shape)} (other head dims, "
+                         f"zamba2-7b's 112 among them: ROADMAP queue B "
+                         f"item 1)")
     if first.dtype not in _DTYPES:
         raise TypeError(f"{kernel}: inputs must be one of {list(_DTYPES)}, "
                         f"got {first.dtype}")

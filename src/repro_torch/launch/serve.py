@@ -17,8 +17,13 @@ yi-34b, internlm2-20b, phi3-mini-3.8b (head dim 96) and musicgen-large
 generate`` and ``--mode stream``; rwkv6-1.6b, whose RWKV-6 blocks have
 no attention (``--backend`` does not apply to it): its prefill runs the
 exclusive route of the gated chunked kernel (B8, with the per-head bonus
-u) once per layer, its decode RWKV-6's recurrence in plain PyTorch; the
-MoE configs deepseek-moe-16b and
+u) once per layer, its decode RWKV-6's recurrence in plain PyTorch;
+zamba2-7b, the hybrid of 68 Mamba-2 blocks and one shared attention
+block applied at 13 sites (head dim 112), under every backend: each
+Mamba-2 block prefills through the inclusive route of the same kernel
+(B8, with its final state) once per layer and decodes in plain PyTorch,
+the shared attention as the backend's attention does; the MoE configs
+deepseek-moe-16b and
 qwen3-moe-235b-a22b (the experts in plain batched products, as in JAX)
 and llama-3.2-vision-90b, whose
 cross blocks attend to a memory of ``n_img_tokens`` patch embeddings
@@ -73,6 +78,10 @@ passes of ``--n-queries`` single-query requests in waves of
       --batch 8 --prompt-len 512 --gen-len 64
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b \\
       --smoke --device cpu --prompt-len 16 --gen-len 8 --batch 2
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \\
+      --backend gated_linear --batch 8 --prompt-len 512 --gen-len 64
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \\
+      --smoke --device cpu --backend softmax --prompt-len 16 --gen-len 8
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \\
       --smoke --device cpu --backend softmax --prompt-len 16 --gen-len 8
   PYTHONPATH=src python -m repro_torch.launch.serve --mode stream \\
@@ -91,6 +100,8 @@ passes of ``--n-queries`` single-query requests in waves of
       --prompt-len 512 --gen-len 64 --arrival-rate 0.25
   PYTHONPATH=src python -m repro_torch.launch.serve --mode stream \\
       --arch rwkv6-1.6b --smoke --device cpu --slots 4 --n-requests 16
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode stream \\
+      --arch zamba2-7b --smoke --device cpu --slots 4 --n-requests 16
   PYTHONPATH=src python -m repro_torch.launch.serve --mode retrieve \\
       --batch 4096
   PYTHONPATH=src python -m repro_torch.launch.serve --mode retrieve \\
@@ -135,21 +146,26 @@ def generate(args) -> Dict[str, Any]:
     JAX package's ``generate`` and returns the measured numbers, the
     generated tokens, the cross memory's bytes per cross layer and
     sequence (0 without cross blocks), and the launches of the backend's
-    kernels:
-    ``prefill_launches`` of B10 in the timed prefill (softmax; 0 for the
-    linear family, whose prefill is plain PyTorch), or of B8's exclusive
-    route (rwkv6-1.6b), and ``decode_launches`` of B1 or B7 in the timed
-    generation (0 under softmax, whose cache read is plain PyTorch, and
-    for RWKV-6, whose decode is)."""
+    kernels: ``prefill_launches`` in the timed prefill, of B10 (softmax
+    attention; the linear family's attention prefills in plain PyTorch)
+    and of B8 (rwkv6-1.6b's exclusive route, the Mamba-2 blocks'
+    inclusive one), each kernel's in ``prefill_launches_by``; and
+    ``decode_launches`` of B1 or B7 in the timed generation (0 under
+    softmax, whose cache read is plain PyTorch, and for RWKV-6, whose
+    decode is)."""
     device = resolve_device(args.device)
     cfg = serving_config(args)
     backend = cfg.attention_backend
+    counts = layer_counts(cfg)
     rwkv = is_rwkv(cfg)
-    prefill_kernel = (GL.fwd if rwkv else
-                      FA.fwd if backend == "softmax" else None)
-    decode_kernel = None if rwkv else {
-        "linear": FR.decode_linear,
-        "gated_linear": FR.decode_gated}.get(backend)
+    prefill_kernels = {name: k for name, k, on in (
+        ("gated_linear_attention_fwd", GL.fwd,
+         counts["rwkv"] or counts["mamba"]),
+        ("flash_attention_fwd", FA.fwd,
+         counts["attn"] and backend == "softmax")) if on}
+    decode_kernel = {"linear": FR.decode_linear,
+                     "gated_linear": FR.decode_gated}.get(
+                         backend if counts["attn"] else None)
     # independent generator streams: params / prompt / sampling / memory
     gens = [torch.Generator(device=device).manual_seed(args.seed * 4 + i)
             for i in range(4)]
@@ -169,6 +185,9 @@ def generate(args) -> Dict[str, Any]:
     def count(kernel) -> int:
         return 0 if kernel is None else kernel.launches
 
+    def by_prefill_kernel() -> Dict[str, int]:
+        return {name: k.launches for name, k in prefill_kernels.items()}
+
     # warm-up, untimed: one prefill and two decode steps, so the kernels
     # are built and loaded and the library has picked its matmul kernels
     # before the clock starts
@@ -177,13 +196,13 @@ def generate(args) -> Dict[str, Any]:
     lm.generate(params, states, torch.argmax(logits, -1), t_p, 2, cfg)
     _sync(device)
 
-    prefill0 = count(prefill_kernel)
+    prefill0 = by_prefill_kernel()
     t0 = time.perf_counter()
     logits, states = lm.prefill(params, prompt, cfg, memory=memory)
     states = lm.pad_decode_state(states, cfg, max_len=t_p + t_g)
     _sync(device)
     t_prefill = time.perf_counter() - t0
-    prefill_launches = count(prefill_kernel) - prefill0
+    prefill_by = {k: n - prefill0[k] for k, n in by_prefill_kernel().items()}
 
     tok0 = lm.sample_token(logits, args.temperature, g_sample)
     decode0 = count(decode_kernel)
@@ -207,10 +226,14 @@ def generate(args) -> Dict[str, Any]:
                       if t is not None) // max(n_cross * b, 1)
     where = (torch.cuda.get_device_name(device) if device.type == "cuda"
              else "cpu")
-    kernels = (f"({decode_kernel.__name__})" if decode_kernel else
-               "(plain RWKV-6 recurrence; prefill kernel "
-               "gated_linear_attention_fwd, exclusive + u)" if rwkv else
-               "(plain KV-cache read; prefill kernel flash_attention_fwd)")
+    kernels = [decode_kernel.__name__ if decode_kernel else
+               "plain KV-cache read; prefill kernel flash_attention_fwd"
+               if counts["attn"] else None,
+               "plain RWKV-6 recurrence; prefill kernel "
+               "gated_linear_attention_fwd, exclusive + u" if rwkv else None,
+               "Mamba-2: prefill kernel gated_linear_attention_fwd, plain "
+               "decode" if counts["mamba"] else None]
+    kernels = "(" + "; ".join(k for k in kernels if k) + ")"
     print(f"arch={cfg.name} backend={'rwkv6' if rwkv else backend} "
           f"decode_kernel={cfg.decode_kernel} {kernels} device={where}")
     print(f"prefill {t_p} toks x{b}: {t_prefill*1e3:.0f} ms")
@@ -231,7 +254,8 @@ def generate(args) -> Dict[str, Any]:
             "tokens_per_s": b * n_dec / t_decode,
             "state_mib": state_mib, "tokens": out,
             "cross_memory_bytes": cross_bytes,
-            "prefill_launches": prefill_launches,
+            "prefill_launches": sum(prefill_by.values()),
+            "prefill_launches_by": prefill_by,
             "decode_launches": decode_launches}
 
 
@@ -241,9 +265,19 @@ def is_rwkv(cfg: ModelConfig) -> bool:
     return set(pattern) | set(tail) == {"rwkv"}
 
 
+def layer_counts(cfg: ModelConfig) -> Dict[str, int]:
+    """Layers of each family: ``attn`` (self-attention: attn and
+    shared_attn sites), ``cross``, ``mamba`` and ``rwkv``."""
+    pattern, reps, tail = cfg.pattern_and_repeats
+    kinds = list(pattern) * reps + list(tail)
+    return {"attn": kinds.count("attn") + kinds.count("shared_attn"),
+            **{k: kinds.count(k) for k in ("cross", "mamba", "rwkv")}}
+
+
 def serving_config(args) -> ModelConfig:
     """The config of ``--arch`` (``--smoke``: its reduced copy) under
-    ``--backend`` (``linear`` unless given), cut to ``--n-layers``, its
+    ``--backend`` (``linear`` unless given; in zamba2-7b it applies to
+    the shared attention), cut to ``--n-layers``, its
     parameters built in the compute type: serving never needs the fp32
     master copy, whose build and cast would peak at three times the
     served bytes. A pure RWKV-6 stack has no attention layer: it keeps
@@ -285,19 +319,31 @@ def stream_launches(cfg: ModelConfig, stats: Dict[str, Any], ingest: str,
                     admission: str = "batched",
                     one_token_prompts: int = 0) -> int:
     """Launches of the backend's kernel that a stream run with these
-    stats makes. Linear family, its recurrent kernel: one per layer and
-    decode step of every segment (masked steps included), and one per
-    layer and recurrent ingest chunk. Softmax, B10: one per layer and
-    prefill pass, i.e. each batched-admission wave and each of the
-    ``one_token_prompts`` that batched admission encodes alone, or under
-    per-request admission each prefill. RWKV-6 (per-request admission),
-    B8's exclusive route: one per layer and prefill."""
-    if cfg.attention_backend == "softmax" or is_rwkv(cfg):
+    stats makes. Linear family, its recurrent kernel: one per attention
+    layer and decode step of every segment (masked steps included), and
+    one per attention layer and recurrent ingest chunk. Softmax, B10: one
+    per attention layer and prefill pass, i.e. each batched-admission
+    wave and each of the ``one_token_prompts`` that batched admission
+    encodes alone, or under per-request admission each prefill. RWKV-6
+    (per-request admission), B8's exclusive route: one per layer and
+    prefill. Mamba-2 blocks' B8 launches: ``ssd_stream_launches``."""
+    counts = layer_counts(cfg)
+    if is_rwkv(cfg):
+        return counts["rwkv"] * stats["prefills"]
+    if cfg.attention_backend == "softmax":
         passes = (stats["prefills"] if admission == "per_request"
                   else stats["prefill_dispatches"] + one_token_prompts)
-        return cfg.n_layers * passes
+        return counts["attn"] * passes
     chunks = stats["ingest_chunks"] if ingest == "recurrent" else 0
-    return cfg.n_layers * (stats["segment_len"] * stats["segments"] + chunks)
+    return counts["attn"] * (stats["segment_len"] * stats["segments"]
+                             + chunks)
+
+
+def ssd_stream_launches(cfg: ModelConfig, stats: Dict[str, Any]) -> int:
+    """B8 launches of the Mamba-2 blocks in a stream run: one per mamba
+    layer and prefill (admission is per request; ingest chunks and
+    decode step the plain recurrence)."""
+    return layer_counts(cfg)["mamba"] * stats["prefills"]
 
 
 STREAM_KERNELS = {"linear": ("decode_linear", FR.decode_linear),
@@ -313,13 +359,16 @@ def stream(args) -> Dict[str, Any]:
     slot utilisation, mean latency in decode steps), the engine's stats,
     the completions, the engine itself, and the launches of the
     backend's recurrent kernel in the timed run (``decode_launches``;
-    ``warmup_stats`` are the untimed warm-up's)."""
+    ``warmup_stats`` are the untimed warm-up's), and with Mamba-2 blocks
+    their B8 launches (``ssd_launches``, against ``ssd_stream_launches``
+    as ``want_ssd_launches``)."""
     from repro_torch.serving import DecodeEngine, backend_for_config
 
     device = resolve_device(args.device)
     cfg = serving_config(args)
     backend = backend_for_config(cfg)
     rwkv = is_rwkv(cfg)
+    mamba = layer_counts(cfg)["mamba"]
     name, kernel = STREAM_KERNELS["rwkv6" if rwkv else
                                   cfg.attention_backend]
     gen = torch.Generator(device=device).manual_seed(args.seed * 4)
@@ -348,13 +397,14 @@ def stream(args) -> Dict[str, Any]:
 
     for prompt, g, arrival in requests:
         engine.submit(prompt, g, arrival=arrival)
-    launches0 = kernel.launches
+    launches0, ssd0 = kernel.launches, GL.fwd.launches
     t0 = time.perf_counter()
     while engine.has_work():
         engine.step("continuous")
     _sync(device)
     dt = time.perf_counter() - t0
     launches = kernel.launches - launches0
+    ssd_launches = GL.fwd.launches - ssd0
     completions = engine.completions()
     if len(completions) != args.n_requests:
         raise RuntimeError(f"{len(completions)} completions for "
@@ -376,6 +426,9 @@ def stream(args) -> Dict[str, Any]:
                if softmax else
                f"plain RWKV-6 recurrence; prefill kernel {name}, exclusive "
                f"+ u" if rwkv else name)
+    if mamba:
+        kernels += ("; Mamba-2: prefill kernel gated_linear_attention_fwd, "
+                    "plain decode")
     print(f"arch={cfg.name} "
           f"backend={'rwkv6' if rwkv else cfg.attention_backend} "
           f"slots={args.slots} segment={args.segment_len} "
@@ -395,13 +448,22 @@ def stream(args) -> Dict[str, Any]:
           f"{st.ingest_chunks} ingest chunks "
           f"(interleave {st.interleave_ratio:.2f}), "
           f"{st.prefill_jit_misses} admission jit misses")
-    formula = ("layers x (admission waves + 1-token prefills)" if softmax
-               else "layers x prefills" if rwkv
+    formula = ("layers x prefills" if rwkv or (
+                   softmax and engine.admission == "per_request")
+               else "layers x (admission waves + 1-token prefills)"
+               if softmax
                else "layers x (segment_len x segments + recurrent ingest "
                     "chunks)")
+    on_cpu = ("" if device.type == "cuda" else
+              " (CPU tensors run the plain versions: no launch)")
+    if mamba:
+        formula = "attention " + formula
     print(f"{name}: {launches} launches in the timed run; {formula} = "
-          f"{want}" + ("" if device.type == "cuda" else
-                       " (CPU tensors run the plain versions: no launch)"))
+          f"{want}{on_cpu}")
+    want_ssd = ssd_stream_launches(cfg, st.to_dict())
+    if mamba:
+        print(f"gated_linear_attention_fwd: {ssd_launches} launches in the "
+              f"timed run; mamba layers x prefills = {want_ssd}{on_cpu}")
     kind = f"KV cache of {max_len} rows" if softmax else "O(1) in context"
     print(f"decode state: {state_mib:.2f} MiB for {args.slots} slots "
           f"({kind}" + (")" if rwkv else
@@ -421,6 +483,8 @@ def stream(args) -> Dict[str, Any]:
             "warmup_launches": stream_launches(
                 cfg, warmup_stats, engine.ingest, engine.admission,
                 warmup_ones),
+            "ssd_launches": ssd_launches, "want_ssd_launches": want_ssd,
+            "warmup_ssd_launches": ssd_stream_launches(cfg, warmup_stats),
             "state_mib": state_mib, "linear_state_mib": linear_mib,
             "completions": completions, "engine": engine}
 
@@ -574,7 +638,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                     choices=["linear", "gated_linear", "softmax"],
                     help="linear (paper §3; the default), gated_linear "
                          "(paper §4 decay) or softmax (the KV-cache "
-                         "baseline); not for rwkv6-1.6b, which has no "
+                         "baseline), zamba2-7b's shared attention "
+                         "included; not for rwkv6-1.6b, which has no "
                          "attention layer")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=64)

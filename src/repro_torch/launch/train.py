@@ -36,8 +36,12 @@ two moments of 3.8 B parameters leave no room for the activations at
 32 layers: cut it) and musicgen-large (64, whole) train there. rwkv6-1.6b
 trains on the CPU only (autograd of its plain prefill): on the card its
 prefill runs B8's exclusive route, which is forward-only, and raises
-NotImplementedError under autograd. The vision config's cross blocks
-need a memory that the synthetic stream does not draw.
+NotImplementedError under autograd. zamba2-7b trains on the CPU
+(``--smoke --device cpu``; its SSD through the plain versions of B8/B9);
+on the card the linear and gated training kernels do not take its
+shared attention's head dim of 112 yet and raise ValueError (ROADMAP
+queue B item 1). The vision config's cross blocks need a memory that the
+synthetic stream does not draw.
 
   PYTHONPATH=src python -m repro_torch.launch.train \\
       --arch deepseek-moe-16b --n-layers 2 --batch 8 --seq-len 1024 \\
@@ -46,6 +50,8 @@ need a memory that the synthetic stream does not draw.
       --backend gated_linear --batch 8 --seq-len 1024 --steps 6
   PYTHONPATH=src python -m repro_torch.launch.train --arch phi3-mini-3.8b \\
       --n-layers 24 --backend linear --batch 8 --seq-len 1024 --steps 6
+  PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-7b \\
+      --smoke --device cpu --backend linear --steps 5
 
 Runs on CUDA unless ``--device cpu`` is given.
 """

@@ -20,7 +20,11 @@
 
 The linear family's fixed-size (Dk×Dv per head) state advances by a
 fused W-step recurrence, the CUDA kernels for CUDA tensors
-(``kernels/fused_recurrent``).
+(``kernels/fused_recurrent``). Under ``cfg.feature_gate`` (the paper's
+§4 gate f = σ(W h + b) ⊙ h, which JAX applies to the linear family only)
+the mapped keys and the values are gated before they reach the state,
+in prefill, training, decode and the windows alike; the kernels take
+the gated rows as they take any others.
 
 Heads are laid out as in the JAX package: q projects to (G, Hkv, Dh)
 with G = H / Hkv groups, the flat head index is g·Hkv + kv_head, and
@@ -59,19 +63,6 @@ Tensor = torch.Tensor
 Params = Dict[str, Tensor]
 
 
-def _require_ported(cfg: ModelConfig) -> None:
-    """The port serves softmax and the linear family, the latter without
-    the feature gate (which JAX applies to the linear family only)."""
-    backend = cfg.attention_backend
-    if backend not in ("softmax", "linear", "gated_linear") or (
-            cfg.feature_gate and backend != "softmax"):
-        raise NotImplementedError(
-            f"{cfg.name}: the port serves attention_backend 'softmax', "
-            f"'linear' or 'gated_linear', the last two without "
-            f"feature_gate (got {backend!r}, "
-            f"feature_gate={cfg.feature_gate})")
-
-
 # ---------------------------------------------------------------------------
 # feature maps
 # ---------------------------------------------------------------------------
@@ -94,7 +85,6 @@ def feature_map(x: Tensor, kind: str) -> Tensor:
 def attention_params(gen: torch.Generator, cfg: ModelConfig, *,
                      lead: Tuple[int, ...] = (),
                      dtype=torch.float32) -> Params:
-    _require_ported(cfg)
     d, h, hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     p = {
         "wq": L.dense_init(gen, d, h * dh, lead=lead, dtype=dtype),
@@ -115,6 +105,12 @@ def attention_params(gen: torch.Generator, cfg: ModelConfig, *,
         p["gn_scale"] = torch.ones((*lead, h, dh), dtype=dtype,
                                    device=gen.device)
         p["gn_bias"] = torch.zeros((*lead, h, dh), dtype=dtype,
+                                   device=gen.device)
+    if cfg.attention_backend in ("linear", "gated_linear") and \
+            cfg.feature_gate:
+        # the paper's exact gate f = σ(W h + b) ⊙ h applied to keys/values
+        p["w_fgate"] = L.dense_init(gen, d, hkv * dh, lead=lead, dtype=dtype)
+        p["b_fgate"] = torch.zeros((*lead, hkv * dh), dtype=dtype,
                                    device=gen.device)
     return p
 
@@ -145,7 +141,6 @@ def init_attn_state(cfg: ModelConfig, batch: int, *,
                     lead: Tuple[int, ...] = (), device=None) -> AttnState:
     """Zero decode state. ``max_len`` (the KV cache's length) is required
     under softmax and ignored by the linear family."""
-    _require_ported(cfg)
     h, dh = cfg.n_heads, cfg.head_dim
     if cfg.attention_backend == "softmax":
         if max_len is None:
@@ -226,14 +221,31 @@ def _rope(q: Tensor, k: Tensor, positions: Tensor, cfg: ModelConfig
     return q, k
 
 
-def _heads(q: Tensor, k: Tensor, v: Tensor, cfg: ModelConfig
-           ) -> Tuple[Tensor, Tensor, Tensor]:
+def _gate_kv(p: Params, x: Tensor, k: Tensor, v: Tensor, cfg: ModelConfig
+             ) -> Tuple[Tensor, Tensor]:
+    """Paper §4 sigmoid feature gate: f = σ(W h + b) ⊙ h, applied to the
+    key and value features that enter the state update C ← C + f fᵀ.
+    x: (B, T, D) the block input; k, v: (B, Hkv, T, Dh)."""
+    b, t, _ = x.shape
+    gate = torch.sigmoid(x @ p["w_fgate"].to(x.dtype)
+                         + p["b_fgate"].to(x.dtype))
+    gate = gate.reshape(b, t, cfg.n_kv_heads, cfg.head_dim).transpose(1, 2)
+    return k * gate, v * gate
+
+
+def _heads(p: Params, x: Tensor, q: Tensor, k: Tensor, v: Tensor,
+           cfg: ModelConfig) -> Tuple[Tensor, Tensor, Tensor]:
     """Feature-mapped per-q-head view (B, H, T, Dh): q flattened over
-    (G, Hkv), k and v broadcast over the G groups."""
+    (G, Hkv), k and v broadcast over the G groups; with
+    ``cfg.feature_gate`` the mapped keys and the values gated first by
+    ``_gate_kv`` of the block input x (B, T, D), as JAX does at each of
+    its four call sites (prefill, decode, window, ingest)."""
     b, g, hkv, t, dh = q.shape
     h = g * hkv
     qf = feature_map(q, cfg.feature_map)
     kf = feature_map(k, cfg.feature_map)
+    if cfg.feature_gate:
+        kf, v = _gate_kv(p, x, kf, v, cfg)
     qh = qf.reshape(b, h, t, dh)
     kh = kf[:, None].expand(b, g, hkv, t, dh).reshape(b, h, t, dh)
     vh = v[:, None].expand(b, g, hkv, t, dh).reshape(b, h, t, dh)
@@ -303,7 +315,6 @@ def attention_apply(
     CUDA tensors and their plain versions on CPU tensors or under
     ``attention_kernel=False``.
     """
-    _require_ported(cfg)
     b, t, _ = x.shape
     h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q, k, v = _project_qkv(p, x, cfg)
@@ -319,7 +330,7 @@ def attention_apply(
             return y, None
         return y, AttnState(k_cache=k.transpose(1, 2).contiguous(),
                             v_cache=v.transpose(1, 2).contiguous())
-    qh, kh, vh = _heads(q, k, v, cfg)
+    qh, kh, vh = _heads(p, x, q, k, v, cfg)
     if vmask is not None:        # pad positions inert in the state sums
         kh = torch.where(vmask, kh, 0).to(kh.dtype)
         vh = torch.where(vmask, vh, 0).to(vh.dtype)
@@ -473,7 +484,6 @@ def attention_decode(
     softmax the one written cache row is gated as JAX gates it: the row
     is read back and where(active, new, current) written, with no host
     sync."""
-    _require_ported(cfg)
     b, _ = x.shape
     pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
     q, k, v = _project_qkv(p, x[:, None, :], cfg)
@@ -483,7 +493,7 @@ def attention_decode(
         o = _softmax_step(state, q[:, :, :, 0], k[:, :, 0], v[:, :, 0],
                           pos.expand(b), active)
         return _merge_heads(p, o[:, :, :, None], x.dtype)[:, 0], state
-    qh, kh, vh = _heads(q, k, v, cfg)                  # (B, H, 1, Dh)
+    qh, kh, vh = _heads(p, x[:, None, :], q, k, v, cfg)   # (B, H, 1, Dh)
     lens = (None if active is None else
             torch.as_tensor(active, device=x.device).to(torch.int32))
     o_w, new_state = _recurrent(p, x[:, None, :], state, qh, kh, vh, cfg,
@@ -511,7 +521,6 @@ def attention_decode_window(
     softmax the window steps single-token decode (``_softmax_window``),
     as JAX scans it; the linear family runs one fused launch.
     """
-    _require_ported(cfg)
     if cfg.attention_backend == "softmax":
         return _softmax_window(p, x, state, pos0, cfg, lens)
     b, w, _ = x.shape
@@ -522,7 +531,7 @@ def attention_decode_window(
         positions = (pos0[:, None] + steps if pos0.ndim == 1
                      else pos0 + steps)
         q, k = _rope(q, k, positions, cfg)
-    qh, kh, vh = _heads(q, k, v, cfg)
+    qh, kh, vh = _heads(p, x, q, k, v, cfg)
     if lens is not None:
         lens = torch.as_tensor(lens, device=x.device).to(torch.int32)
         lens = lens.clamp(0, w)
@@ -556,7 +565,6 @@ def attention_ingest_window(
     ``attention_decode_window`` does (JAX's ``block_ingest_window``
     falls back to its per-step scan).
     """
-    _require_ported(cfg)
     if cfg.attention_backend == "softmax":
         return _softmax_window(p, x, state, pos0, cfg, lens)
     b, w, _ = x.shape
@@ -567,7 +575,7 @@ def attention_ingest_window(
                                device=x.device).expand(b)
         positions = pos0[:, None] + torch.arange(w, device=x.device)
         q, k = _rope(q, k, positions, cfg)
-    qh, kh, vh = _heads(q, k, v, cfg)
+    qh, kh, vh = _heads(p, x, q, k, v, cfg)
     vmask = _valid_mask(lens, w, x.device)
     kh = torch.where(vmask, kh, 0).to(kh.dtype)
     vh = torch.where(vmask, vh, 0).to(vh.dtype)

@@ -1,19 +1,26 @@
-"""Block dispatch (port of ``repro/models/blocks.py``), three kinds, the
-first two with their norms by ``cfg.norm`` (rmsnorm: a scale; layernorm:
+"""Block dispatch (port of ``repro/models/blocks.py``), five kinds, the
+attention family's norms by ``cfg.norm`` (rmsnorm: a scale; layernorm:
 a scale and a bias):
 
-  "attn"   pre-norm self-attention (``softmax``, ``linear`` or
-           ``gated_linear``) + MLP, or + MoE FFN when ``cfg.moe`` is set
-  "cross"  pre-norm cross-attention to a pre-encoded modality memory,
-           gated by tanh(xgate) (zero at init: the block adds nothing
-           until trained), + MLP
-  "rwkv"   RWKV-6 block (time-mix + channel-mix, its own layernorms;
-           ``models/rwkv6.py``)
+  "attn"         pre-norm self-attention (``softmax``, ``linear`` or
+                 ``gated_linear``) + MLP, or + MoE FFN when ``cfg.moe``
+                 is set
+  "shared_attn"  the same block with an MLP, but ONE parameter set
+                 (``params["shared"]``, passed as ``shared``) for all its
+                 sites (Zamba-style); each site keeps its own decode state
+                 and takes the fused window route of B1/B7, as "attn" does
+  "cross"        pre-norm cross-attention to a pre-encoded modality
+                 memory, gated by tanh(xgate) (zero at init: the block
+                 adds nothing until trained), + MLP
+  "mamba"        pre-norm Mamba-2 SSD block, no separate FFN
+                 (``models/mamba2.py``)
+  "rwkv"         RWKV-6 block (time-mix + channel-mix, its own
+                 layernorms; ``models/rwkv6.py``)
 
-``shared_attn`` and ``mamba`` blocks are not ported yet and raise. A
-cross block's decode state is its encoded memory (``CrossMemory``),
-static during decode; an rwkv block's is its ``RWKVState``, and a window
-of tokens steps its single-token decode, as JAX scans it.
+A cross block's decode state is its encoded memory (``CrossMemory``),
+static during decode; a mamba block's its ``MambaState`` and an rwkv
+block's its ``RWKVState``: a window of tokens steps their single-token
+decode under per-row masks, as JAX scans it.
 """
 
 from __future__ import annotations
@@ -25,19 +32,14 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import mamba2 as M
 from repro_torch.models import moe as MOE
 from repro_torch.models import rwkv6 as R
 
 Tensor = torch.Tensor
 Params = Dict[str, Any]
-State = Any                        # A.AttnState, A.CrossMemory, R.RWKVState
-
-
-def _require_ported(kind: str, cfg: ModelConfig) -> None:
-    if kind not in ("attn", "cross", "rwkv"):
-        raise NotImplementedError(
-            f"{cfg.name}: the port has 'attn', 'cross' and 'rwkv' blocks "
-            f"only (got kind {kind!r})")
+# A.AttnState, A.CrossMemory, M.MambaState or R.RWKVState
+State = Any
 
 
 def _uses_moe(kind: str, cfg: ModelConfig) -> bool:
@@ -46,7 +48,12 @@ def _uses_moe(kind: str, cfg: ModelConfig) -> bool:
 
 def block_params(kind: str, gen: torch.Generator, cfg: ModelConfig, *,
                  lead: Tuple[int, ...] = (), dtype=torch.float32) -> Params:
-    _require_ported(kind, cfg)
+    """A block's parameters; ``shared_attn`` draws an attention block's
+    (the LM draws it once, for ``params["shared"]``)."""
+    if kind == "mamba":
+        return {"norm1": L.norm_params(cfg.norm, cfg.d_model, lead=lead,
+                                       dtype=dtype, device=gen.device),
+                "mamba": M.mamba2_params(gen, cfg, lead=lead, dtype=dtype)}
     if kind == "rwkv":
         return R.rwkv6_params(gen, cfg, lead=lead, dtype=dtype)
     p = {"norm1": L.norm_params(cfg.norm, cfg.d_model, lead=lead,
@@ -70,7 +77,8 @@ def block_params(kind: str, gen: torch.Generator, cfg: ModelConfig, *,
 def block_state_init(kind: str, cfg: ModelConfig, batch: int, *,
                      max_len: Optional[int] = None,
                      lead: Tuple[int, ...] = (), device=None) -> State:
-    _require_ported(kind, cfg)
+    if kind == "mamba":
+        return M.init_mamba_state(cfg, batch, lead=lead, device=device)
     if kind == "rwkv":
         return R.init_rwkv_state(cfg, batch, lead=lead, device=device)
     if kind == "cross":
@@ -98,17 +106,30 @@ def _cross(p: Params, h1: Tensor, mem: A.CrossMemory, cfg: ModelConfig
 
 
 def block_apply(kind: str, p: Params, x: Tensor, cfg: ModelConfig, *,
+                shared: Optional[Params] = None,
                 memory: Optional[Tensor] = None, want_state: bool = False,
                 attention_kernel: bool = True,
                 varlen: Optional[Tensor] = None
                 ) -> Tuple[Tensor, Optional[State], Optional[Tensor]]:
     """x: (B, T, D) → (x, state_or_None, aux: the router's load-balance
-    loss, None for a block without MoE). ``memory``: (B, N, D) in
-    the compute type, which a cross block encodes (its state). ``varlen``:
-    (B,) per-row valid lengths of an END-padded batch (attention blocks;
-    the MoE routes every position, pads included, as JAX does). An rwkv
-    block prefills through B8's exclusive route (``attention_kernel``)."""
-    _require_ported(kind, cfg)
+    loss, None for a block without MoE). ``shared``: the shared attention
+    parameters, which a ``shared_attn`` block applies (``p`` unused).
+    ``memory``: (B, N, D) in the compute type, which a cross block
+    encodes (its state). ``varlen``: (B,) per-row valid lengths of an
+    END-padded batch (attention blocks; the MoE routes every position,
+    pads included, as JAX does). A mamba block prefills through B8's
+    inclusive route and trains through B8/B9, an rwkv block prefills
+    through B8's exclusive route (``attention_kernel``)."""
+    if kind == "shared_attn":
+        p = shared
+    if kind == "mamba":
+        if varlen is not None:
+            raise ValueError(f"{cfg.name}: varlen prefill of a mamba block")
+        h, st = M.mamba2_apply(p["mamba"],
+                               L.apply_norm(cfg.norm, p["norm1"], x), cfg,
+                               want_state=want_state,
+                               kernel=attention_kernel)
+        return x + h, st, None
     if kind == "rwkv":
         if varlen is not None:
             raise ValueError(f"{cfg.name}: varlen prefill of an rwkv block")
@@ -135,11 +156,18 @@ def block_apply(kind: str, p: Params, x: Tensor, cfg: ModelConfig, *,
 
 def block_decode(kind: str, p: Params, x: Tensor, state: State,
                  pos: Tensor, cfg: ModelConfig, *,
+                 shared: Optional[Params] = None,
                  active: Optional[Tensor] = None) -> Tuple[Tensor, State]:
     """x: (B, D) one token per sequence; pos: () or (B,); ``active``:
     (B,) bool slot mask, inactive rows keep their state bit for bit. The
     state is updated in place (a cross block's memory is static)."""
-    _require_ported(kind, cfg)
+    if kind == "shared_attn":
+        p = shared
+    if kind == "mamba":
+        h, st = M.mamba2_decode(p["mamba"],
+                                L.apply_norm(cfg.norm, p["norm1"], x),
+                                state, cfg, active=active)
+        return x + h, st
     if kind == "rwkv":
         return R.rwkv6_decode(p, x, state, cfg, active=active)
     h1 = L.apply_norm(cfg.norm, p["norm1"], x)
@@ -153,6 +181,7 @@ def block_decode(kind: str, p: Params, x: Tensor, state: State,
 
 def block_decode_window(kind: str, p: Params, x: Tensor, state: State,
                         pos0: Tensor, cfg: ModelConfig, *,
+                        shared: Optional[Params] = None,
                         lens: Optional[Tensor] = None
                         ) -> Tuple[Tensor, State]:
     """x: (B, W, D) — W known tokens per sequence, one fused kernel launch
@@ -162,13 +191,15 @@ def block_decode_window(kind: str, p: Params, x: Tensor, state: State,
     a dense MLP is per token, so running it once over the window is the
     same function, but an MoE FFN's capacity follows the tokens of the
     call, so it runs once per step, on B tokens, as in JAX's scan.
-    ``lens``: (B,) per-row valid window lengths. An rwkv block steps its
-    single-token decode over the window, step w active where w < lens
-    (JAX's scan). The state is updated in place."""
-    _require_ported(kind, cfg)
-    if kind == "rwkv":
-        ys = [R.rwkv6_decode(p, x[:, w], state, cfg,
-                             active=None if lens is None else w < lens)[0]
+    ``lens``: (B,) per-row valid window lengths. A mamba or rwkv block
+    steps its single-token decode over the window, step w active where
+    w < lens (JAX's scan). A ``shared_attn`` block applies ``shared``.
+    The state is updated in place."""
+    if kind == "shared_attn":
+        p = shared
+    if kind in ("mamba", "rwkv"):
+        ys = [block_decode(kind, p, x[:, w], state, pos0, cfg,
+                           active=None if lens is None else w < lens)[0]
               for w in range(x.shape[1])]
         return torch.stack(ys, dim=1), state
     h1 = L.apply_norm(cfg.norm, p["norm1"], x)
@@ -186,15 +217,20 @@ def block_decode_window(kind: str, p: Params, x: Tensor, state: State,
 
 def block_ingest_window(kind: str, p: Params, x: Tensor, state: State,
                         pos0: Tensor, cfg: ModelConfig, *,
+                        shared: Optional[Params] = None,
                         lens: Optional[Tensor] = None
                         ) -> Tuple[Tensor, State]:
     """Like :func:`block_decode_window`, but with ``lens`` the linear
-    family's attention continues its state through the chunk-parallel
-    prefill forms (``attention_ingest_window``) instead of the
-    recurrence; softmax and cross blocks keep the window path. The state
-    is updated in place."""
-    if lens is None or kind != "attn" or cfg.attention_backend == "softmax":
-        return block_decode_window(kind, p, x, state, pos0, cfg, lens=lens)
+    family's attention (``attn`` and ``shared_attn``) continues its state
+    through the chunk-parallel prefill forms (``attention_ingest_window``)
+    instead of the recurrence; softmax, cross, mamba and rwkv blocks keep
+    the window path. The state is updated in place."""
+    if lens is None or kind not in ("attn", "shared_attn") or \
+            cfg.attention_backend == "softmax":
+        return block_decode_window(kind, p, x, state, pos0, cfg,
+                                   shared=shared, lens=lens)
+    if kind == "shared_attn":
+        p = shared
     h1 = L.apply_norm(cfg.norm, p["norm1"], x)
     att, st = A.attention_ingest_window(p["attn"], h1, state, pos0, cfg,
                                         lens=lens)

@@ -151,3 +151,26 @@ def mlp(params: Params, x: Tensor, act: str) -> Tensor:
     else:
         h = F.gelu(up, approximate="tanh")   # jax.nn.gelu's default
     return h @ params["w_down"].to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# depthwise causal conv (Mamba)
+# ---------------------------------------------------------------------------
+
+def causal_conv1d(x: Tensor, w: Tensor, cache: Optional[Tensor] = None
+                  ) -> Tuple[Tensor, Tensor]:
+    """Depthwise causal conv. x: (B, T, C); w: (K, C); cache: the K−1
+    inputs before x, (B, K−1, C), zeros if None. Returns (y, new_cache)
+    with y_t = Σ_j w[j] ⊙ xx[t + j] over xx = [cache | x], and new_cache
+    the last K−1 inputs of xx, (B, K−1, C)."""
+    k = w.shape[0]
+    if cache is None:
+        cache = torch.zeros((x.shape[0], k - 1, x.shape[-1]), dtype=x.dtype,
+                            device=x.device)
+    xx = torch.cat([cache.to(x.dtype), x], dim=1)
+    new_cache = xx[:, -(k - 1):] if k > 1 else cache
+    t = x.shape[1]
+    y = torch.zeros_like(x)
+    for j in range(k):
+        y = y + xx[:, j:j + t] * w[j].to(x.dtype)
+    return y, new_cache

@@ -1,13 +1,17 @@
-"""Language model over a stack of ``attn``, ``cross`` and ``rwkv`` blocks
-(port of ``repro/models/lm.py``: training forward and loss, prefill,
-decode and generation, and the continuous-batching surface of the
-serving engine: bucket-padded varlen prefill, slot-masked segments,
-varlen windows and the per-slot state copies).
+"""Language model over a stack of ``attn``, ``shared_attn``, ``cross``,
+``mamba`` and ``rwkv`` blocks (port of ``repro/models/lm.py``: training
+forward and loss, prefill, decode and generation, and the
+continuous-batching surface of the serving engine: bucket-padded varlen
+prefill, slot-masked segments, varlen windows and the per-slot state
+copies).
 
 Parameters and states keep the JAX package's tree: ``embed`` (V, D),
 ``stack`` — a tuple with one entry per ``layer_pattern`` position whose
-leaves carry a leading repeat axis R — ``tail``, ``final_norm`` and
-``lm_head`` unless embeddings are tied. Layer r of a stacked group is
+leaves carry a leading repeat axis R — ``tail``, ``final_norm``,
+``lm_head`` unless embeddings are tied, and ``shared``: one attention
+block's parameters that every ``shared_attn`` site applies (Zamba-style;
+its entries in ``stack`` and ``tail`` are empty), present only when the
+pattern has such a site. Layer r of a stacked group is
 the view ``leaf[r]``, so the decode kernels and the softmax cache
 writes update a layer's state inside the stacked tensor in place.
 
@@ -42,14 +46,16 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
 from repro_torch.models.attention import AttnState, CrossMemory
+from repro_torch.models.mamba2 import MambaState
 from repro_torch.models.rwkv6 import RWKVState
 from repro_torch.tree import leaves
 
 Tensor = torch.Tensor
 Params = Dict[str, Any]
-# per block: AttnState, CrossMemory for a cross block, RWKVState for rwkv
+# per block: AttnState (attn, shared_attn), CrossMemory for a cross block,
+# MambaState for mamba, RWKVState for rwkv
 State = Dict[str, Tuple[Any, ...]]
-_STATES = (AttnState, CrossMemory, RWKVState)
+_STATES = (AttnState, CrossMemory, MambaState, RWKVState)
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -77,18 +83,23 @@ def _stack_states(states):
 
 def init_params(gen: torch.Generator, cfg: ModelConfig) -> Params:
     """Random parameters drawn from ``gen``, on ``gen.device``, in
-    ``cfg.param_dtype``."""
+    ``cfg.param_dtype``. A ``shared_attn`` site holds ``{}``; the
+    attention block it applies is ``params["shared"]``."""
     pdt = dtype_of(cfg.param_dtype)
     pattern, reps, tail = cfg.pattern_and_repeats
+
+    def block(kind, lead=()):
+        return ({} if kind == "shared_attn" else
+                B.block_params(kind, gen, cfg, lead=lead, dtype=pdt))
     params: Params = {
         "embed": L.embed_init(gen, cfg.vocab_size, cfg.d_model, dtype=pdt),
         "final_norm": L.norm_params(cfg.norm, cfg.d_model, dtype=pdt,
                                     device=gen.device),
-        "stack": tuple(B.block_params(kind, gen, cfg, lead=(reps,),
-                                      dtype=pdt) for kind in pattern),
-        "tail": tuple(B.block_params(kind, gen, cfg, dtype=pdt)
-                      for kind in tail),
+        "stack": tuple(block(kind, (reps,)) for kind in pattern),
+        "tail": tuple(block(kind) for kind in tail),
     }
+    if "shared_attn" in pattern + tail:
+        params["shared"] = B.block_params("attn", gen, cfg, dtype=pdt)
     if not cfg.tie_embeddings:
         params["lm_head"] = L.dense_init(gen, cfg.d_model, cfg.vocab_size,
                                          dtype=pdt)
@@ -183,8 +194,9 @@ def _trunk(params: Params, tokens: Tensor, cfg: ModelConfig,
     type."""
     pattern, reps, tail = cfg.pattern_and_repeats
     x = params["embed"][tokens]
-    kw = dict(memory=memory, want_state=want_state,
-              attention_kernel=attention_kernel, varlen=varlen)
+    kw = dict(shared=params.get("shared"), memory=memory,
+              want_state=want_state, attention_kernel=attention_kernel,
+              varlen=varlen)
 
     def unit(x, unit_params):
         states, aux = [], None
@@ -338,6 +350,7 @@ def _decode_blocks(params: Params, state: State, x: Tensor, pos: Tensor,
     """Run ``block_fn`` (single-token or window decode) through every
     block, updating each layer's state view in place."""
     pattern, reps, tail = cfg.pattern_and_repeats
+    block_kw["shared"] = params.get("shared")
     for r in range(reps):
         for i, kind in enumerate(pattern):
             x, _ = block_fn(kind, _at(params["stack"][i], r), x,

@@ -3,10 +3,10 @@ the seam between the engine's scheduling and a family's state layout.
 
 Importing this package registers the ported backends; dispatch goes
 through :func:`backend_for_config` (by priority, so import order never
-decides). Ported: ``FixedStateBackend`` (the linear and gated-linear
-families), ``SoftmaxKVBackend`` (the softmax baseline's KV cache) and
-``RWKV6Backend`` (pure RWKV-6 stacks); the Mamba-2 backend is not
-(ROADMAP A.4).
+decides): ``FixedStateBackend`` (the linear and gated-linear families,
+hybrids with Mamba-2 blocks among them), ``SoftmaxKVBackend`` (the
+softmax baseline's KV cache), ``Mamba2Backend`` (pure Mamba-2 stacks)
+and ``RWKV6Backend`` (pure RWKV-6 stacks).
 """
 
 from repro_torch.serving.backends.base import (  # noqa: F401
@@ -17,6 +17,9 @@ from repro_torch.serving.backends.base import (  # noqa: F401
 # concrete backends (import = register)
 from repro_torch.serving.backends.fixed_state import (  # noqa: F401
     FixedStateBackend,
+)
+from repro_torch.serving.backends.mamba2 import (  # noqa: F401
+    Mamba2Backend,
 )
 from repro_torch.serving.backends.rwkv6 import (  # noqa: F401
     RWKV6Backend,

@@ -177,10 +177,11 @@ def _assert_o_close(o, o_r, dtype):
     assert ((o.float() - o_r.float()).abs() <= ulp).all()
 
 
-# musicgen-large's head dim (64: four row groups of 16 rows) and
-# phi3-mini-3.8b's (96: 288 threads, three row groups of 32 rows), at
-# the smoke rows and at the serving path's (batch 8 x 32 heads)
-@pytest.mark.parametrize("d", [64, 96])
+# musicgen-large's head dim (64: four row groups of 16 rows),
+# phi3-mini-3.8b's (96: 288 threads, three row groups of 32 rows) and
+# zamba2-7b's (112: 448 threads, four row groups of 28 rows), at the
+# smoke rows and at the serving path's (batch 8 x 32 heads)
+@pytest.mark.parametrize("d", [64, 96, 112])
 @pytest.mark.parametrize("n,w", [(24, 5), (256, 1)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("normalize", [False, True])
@@ -213,12 +214,12 @@ def test_decode_linear_at_dense_head_dims(dev, d, n, w, dtype, normalize,
         assert torch.count_nonzero(o[masked]) == 0
 
 
-@pytest.mark.parametrize("d", [64, 96])
+@pytest.mark.parametrize("d", [64, 96, 112])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("varlen", [False, True])
 @pytest.mark.parametrize("decay", ["mild", "strong", "scalar"])
 def test_decode_gated_at_dense_head_dims(dev, d, dtype, varlen, decay):
-    """B7 at D = 64 and 96 against its plain version: S bit for bit, o
+    """B7 at D = 64, 96 and 112 against its plain version: S bit for bit, o
     within 1e-5 (fp32) or one bf16 ulp; lens-0 rows unchanged, masked o
     0."""
     n, w = 40, 5
@@ -1254,6 +1255,82 @@ def test_rwkv6_prefill_refuses_autograd_on_the_card(dev):
     assert gla_ops.fwd.launches == before + 1 and torch.isfinite(y).all()
 
 
+def _ssd_rows(dev, b, h, t, n, dtype, seed=0):
+    """Mamba-2's SSD inputs: C and B of one (B, T, N) row each, broadcast
+    over the heads (views, as the model passes them), v = Δ·x, and the
+    per-head decay g = −softplus(Δ)·linspace(1, 16, H) (B, H, T, 1) of
+    zamba2-7b's init, most heads past the clamp at −1."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    r = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    cq, bk = (r(b, 1, t, n).expand(b, h, t, n).to(dtype) for _ in range(2))
+    dt = torch.nn.functional.softplus(r(b, h, t, 1))
+    v = (r(b, h, t, n) * dt).to(dtype)
+    g = -dt * torch.linspace(1.0, 16.0, h, device=dev)[:, None, None]
+    return cq, bk, v, g
+
+
+@pytest.mark.parametrize("b,h,t,dtype", [
+    (8, 112, 512, torch.bfloat16), (8, 112, 512, torch.float32),
+    (2, 7, 200, torch.bfloat16), (2, 7, 75, torch.float32)])
+def test_ssd_attention_matches_plain_version(dev, b, h, t, dtype):
+    """B8's inclusive route with its final state, as the Mamba-2 prefill
+    calls it (``ssd_attention``, chunk 64): zamba2-7b's SSD shape (batch 8
+    x 112 heads, T = 512, d_state = head dim = 64) with its decays, and
+    ragged T, one launch for every head, against the plain version: o
+    normwise 1e-5 (fp32) or 8e-3 (bf16), the fp32 state 1e-5."""
+    q, k, v, g = _ssd_rows(dev, b, h, t, 64, dtype)
+    before = gla_ops.fwd.launches
+    o, s = gla_ops.ssd_attention(q, k, v, g, chunk=64)
+    torch.cuda.synchronize()
+    assert gla_ops.fwd.launches == before + 1
+    assert o.dtype == dtype and s.shape == (b, h, 64, 64)
+    o_r, s_r = gla_ops.ssd_attention(q, k, v, g, chunk=64, kernel=False)
+    assert gla_ops.fwd.launches == before + 1
+    assert torch.isfinite(o).all() and torch.isfinite(s).all()
+    _assert_normwise(o, o_r, LA_TOL[dtype], "o")
+    _assert_normwise(s, s_r, LA_TOL[torch.float32], "state")
+
+
+def test_mamba2_prefill_refuses_autograd_on_the_card(dev):
+    """``ssd_attention`` is forward-only: a Mamba-2 prefill on CUDA
+    tensors that need a gradient raises NotImplementedError, and under
+    ``torch.no_grad`` it runs B8 once; the training form (no state) runs
+    B8 forward and B9 backward."""
+    from repro_torch.models import mamba2 as M
+    cfg = dataclasses.replace(get_smoke_config("zamba2-7b"), dtype="float32")
+    p = M.mamba2_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    x = torch.randn((2, 20, cfg.d_model), device=dev)
+    p["in_proj"].requires_grad_()
+    with pytest.raises(NotImplementedError, match="forward-only"):
+        M.mamba2_apply(p, x, cfg, want_state=True)
+    before = _gla_counts()
+    with torch.no_grad():
+        y, st = M.mamba2_apply(p, x, cfg, want_state=True)
+    assert _gla_counts() == (before[0] + 1, before[1], before[2])
+    assert torch.isfinite(y).all() and torch.isfinite(st.ssd).all()
+    y, _ = M.mamba2_apply(p, x, cfg)
+    y.sum().backward()
+    assert _gla_counts() == (before[0] + 2, before[1] + 1, before[2] + 1)
+    assert torch.isfinite(p["in_proj"].grad).all()
+
+
+@pytest.mark.parametrize("backend", ["linear", "gated_linear"])
+def test_training_at_head_dim_112_raises_naming_the_roadmap_item(dev,
+                                                                 backend):
+    """B2/B3 and B8/B9 do not take D = 112 yet: a zamba2-7b-shaped model
+    (its smoke config with one attention head of 112) raises from the
+    training kernels' head-dim check under linear and gated_linear, the
+    message naming ROADMAP queue B item 1; no plain route runs instead."""
+    cfg = dataclasses.replace(
+        get_smoke_config("zamba2-7b").with_backend(backend), dtype="float32",
+        d_model=112, n_heads=1, n_kv_heads=1, head_dim=112)
+    params = lm.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    toks = torch.randint(0, cfg.vocab_size, (2, 16), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(1))
+    with pytest.raises(ValueError, match="ROADMAP queue B item 1"):
+        lm.lm_loss(params, {"tokens": toks, "labels": toks}, cfg)
+
+
 # -- the causal flash-attention forward B10 ----------------------------------
 # fp32: the plain version's one softmax against the kernel's online one
 # over 64-key tiles, the same fp32 sums in another order (1e-5); bf16: the
@@ -1346,6 +1423,9 @@ def _fa_by_kv_head(dev, b, h, hkv, t, s, d, dtype, seed=2):
     (8, 56, 8, 512, 512, 128, None, None),      # yi-34b: G = 7
     (2, 12, 2, 200, 200, 96, None, 150),        # D = 96, G = 6
     (2, 14, 2, 77, 300, 96, 5, 290),            # D = 96, G = 7
+    (8, 32, 32, 512, 512, 112, None, None),     # zamba2-7b: G = 1
+    (2, 12, 2, 200, 200, 112, None, 150),       # D = 112, G = 6
+    (2, 14, 2, 77, 300, 112, 5, 290),           # D = 112, G = 7
 ])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_flash_attention_kernel_reads_kv_by_head(dev, b, h, hkv, t, s, d,
@@ -1386,6 +1466,8 @@ LSE_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-4}
     (8, 32, 32, 512, 512, 96, None, None),
     (2, 12, 2, 200, 200, 96, None, 150),
     (2, 14, 2, 77, 300, 96, 5, 290),
+    (8, 32, 32, 512, 512, 112, None, None),
+    (2, 14, 2, 77, 300, 112, 5, 290),
 ])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_flash_attention_kernel_emits_lse(dev, b, h, hkv, t, s, d, t_off,
@@ -1533,6 +1615,39 @@ def test_moe_and_cross_slices_through_kernels_match_reference(dev, arch,
     assert torch.equal(out[True][1], out[False][1])
     torch.testing.assert_close(out[True][0], out[False][0], rtol=1e-4,
                                atol=1e-4)
+
+
+@pytest.mark.parametrize("arch,backend,gate", [
+    ("zamba2-7b", "linear", False), ("zamba2-7b", "gated_linear", False),
+    ("zamba2-7b", "softmax", False), ("qwen3-0.6b", "linear", True),
+    ("qwen3-0.6b", "gated_linear", True)])
+def test_zamba2_and_feature_gate_slices_through_kernels_match_reference(
+        dev, arch, backend, gate):
+    """zamba2-7b's smoke config (Mamba-2 prefill through B8, the shared
+    attention through B1/B7 or B10) and qwen3-0.6b's with the paper's
+    feature gate, in fp32: prefill, 8 greedy steps and a varlen window
+    against ``decode_kernel="reference"`` with the prefill's plain
+    versions: tokens identical, logits within 1e-4."""
+    cfg = dataclasses.replace(get_smoke_config(arch).with_backend(backend),
+                              dtype="float32", feature_gate=gate)
+    params = lm.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    prompt = torch.randint(0, cfg.vocab_size, (2, 24), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(1))
+    out = {}
+    for kernel in (True, False):
+        c = cfg if kernel else dataclasses.replace(cfg,
+                                                   decode_kernel="reference")
+        logits, st = lm.prefill(params, prompt, c, attention_kernel=kernel)
+        st = lm.pad_decode_state(st, c, 40)
+        toks, st = lm.generate(params, st, torch.argmax(logits, -1), 24, 8,
+                               c)
+        lg, _ = lm.decode_window_varlen(params, st, prompt[:, :4],
+                                        torch.tensor([32, 32]),
+                                        torch.tensor([4, 2]), c)
+        out[kernel] = (toks, logits, lg)
+    assert torch.equal(out[True][0], out[False][0])
+    for a, b in zip(out[True][1:], out[False][1:]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
 
 
 # (ingest chunk, max_len, prompt lengths, budgets): chunks of 8, and the

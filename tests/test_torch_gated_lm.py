@@ -220,9 +220,17 @@ def test_decode_reference_kernel_choice_agrees():
 
 
 def test_feature_gate_is_still_refused():
+    """The feature gate is ported (``tests/test_torch_feature_gate.py``
+    holds it against JAX): nothing refuses it any more, the gated
+    backend's state is the same with and without it, and its parameters
+    are the gate's two leaves beside the others."""
     _, tcfg = _cfgs()
-    with pytest.raises(NotImplementedError):
-        TA.init_attn_state(dataclasses.replace(tcfg, feature_gate=True), 1)
+    gated = dataclasses.replace(tcfg, feature_gate=True)
+    assert TA.init_attn_state(gated, 1).s.shape == \
+        TA.init_attn_state(tcfg, 1).s.shape
+    p = TA.attention_params(torch.Generator().manual_seed(0), gated)
+    assert set(p) - set(TA.attention_params(
+        torch.Generator().manual_seed(0), tcfg)) == {"w_fgate", "b_fgate"}
 
 
 # -- the slice ---------------------------------------------------------------

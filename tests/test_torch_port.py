@@ -62,7 +62,9 @@ def test_port_imports_no_jax_and_nothing_of_repro():
                    "configs/yi_34b.py", "configs/internlm2_20b.py",
                    "configs/phi3_mini_3_8b.py", "configs/musicgen_large.py",
                    "models/layers.py", "models/rwkv6.py",
-                   "configs/rwkv6_1_6b.py", "serving/backends/rwkv6.py"):
+                   "configs/rwkv6_1_6b.py", "serving/backends/rwkv6.py",
+                   "models/mamba2.py", "configs/zamba2_7b.py",
+                   "serving/backends/mamba2.py"):
         assert port / module in files, module
     bad = [(str(f.relative_to(ROOT)), m) for f in files
            for m in _imported_roots(f) if m in FORBIDDEN]
@@ -72,6 +74,10 @@ def test_port_imports_no_jax_and_nothing_of_repro():
 def _env():
     env = dict(os.environ)
     env["PYTHONPATH"] = str(ROOT / "src")
+    # two intra-op threads, as the test process has: torch's default of
+    # one per core, beside the other test workers, oversubscribes the
+    # CPU and slows each step by two orders of magnitude
+    env.update(OMP_NUM_THREADS="2", MKL_NUM_THREADS="2")
     return env
 
 
@@ -81,7 +87,8 @@ def test_importing_the_serving_entry_point_loads_no_jax():
             "repro_torch.kernels.lookup.ops, repro_torch.convert, "
             "repro_torch.configs.paper_qa, repro_torch.core.gated, "
             "repro_torch.kernels.flash_attention.ops, "
-            "repro_torch.models.xla_attention; "
+            "repro_torch.models.xla_attention, repro_torch.models.mamba2, "
+            "repro_torch.serving.backends.mamba2; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); assert not bad")
     subprocess.run([sys.executable, "-c", code], env=_env(), check=True,
@@ -143,6 +150,30 @@ def test_dense_config_copies_match_jax(getter, arch):
                 == j.with_backend(backend).fixed_state_decode)
 
 
+@pytest.mark.parametrize("getter", ["full", "smoke"])
+def test_zamba2_config_copies_match_jax(getter):
+    """zamba2-7b field for field, its ``SSMConfig`` included (the schema's
+    fields in JAX's order), with the same pattern, repeats and tail, and
+    the same fixed-state flag under every backend."""
+    from repro.configs.base import SSMConfig as JaxSSMConfig
+    from repro_torch.configs import SSMConfig
+    jget, tget = ((jax_config, get_config) if getter == "full"
+                  else (jax_smoke_config, get_smoke_config))
+    t, j = tget("zamba2-7b"), jget("zamba2-7b")
+    assert dataclasses.asdict(t) == dataclasses.asdict(j)
+    assert [f.name for f in dataclasses.fields(t)] == [
+        f.name for f in dataclasses.fields(j)]
+    assert isinstance(t.ssm, SSMConfig)
+    assert dataclasses.asdict(SSMConfig()) == dataclasses.asdict(
+        JaxSSMConfig())
+    assert [f.name for f in dataclasses.fields(SSMConfig)] == [
+        f.name for f in dataclasses.fields(JaxSSMConfig)]
+    assert t.pattern_and_repeats == j.pattern_and_repeats
+    for backend in ("linear", "gated_linear", "softmax"):
+        assert (t.with_backend(backend).fixed_state_decode
+                == j.with_backend(backend).fixed_state_decode)
+
+
 def test_paper_qa_copy_matches_jax():
     assert dataclasses.asdict(paper_qa.QAConfig()) == dataclasses.asdict(
         jax_paper_qa.QAConfig())
@@ -194,10 +225,11 @@ def test_serve_gated_cli_on_cpu():
 
 
 @pytest.mark.parametrize("arch", ["deepseek-moe-16b", "qwen3-moe-235b-a22b",
-                                  "llama-3.2-vision-90b"])
+                                  "llama-3.2-vision-90b", "zamba2-7b"])
 def test_serve_new_archs_cli_on_cpu(arch):
-    """``serve --arch <arch> --smoke --device cpu``: the MoE configs, and
-    the vision config with its memory drawn and encoded in prefill."""
+    """``serve --arch <arch> --smoke --device cpu``: the MoE configs, the
+    vision config with its memory drawn and encoded in prefill, and the
+    Mamba-2 hybrid."""
     out = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--arch", arch,
          "--smoke", "--device", "cpu", "--prompt-len", "16", "--gen-len",

@@ -315,8 +315,10 @@ def test_long_prompt_prefill_stays_finite_where_jax_chunk_128_does_not():
 
 @pytest.mark.parametrize("kind", ["mamba", "shared_attn"])
 def test_blocks_take_rwkv_and_still_refuse_the_unported_kinds(kind):
-    """``_require_ported`` lets ``rwkv`` through (its params and state
-    build) and still refuses ``mamba`` and ``shared_attn``."""
+    """The blocks take ``rwkv`` (its params and state build) and, since
+    Mamba-2 and the shared attention were ported, no kind is refused:
+    ``mamba`` builds its norm and SSD tree, ``shared_attn`` an attention
+    block's (``tests/test_torch_mamba2.py`` holds both against JAX)."""
     cfg = get_smoke_config(ARCH)
     p = tblocks.block_params("rwkv", torch.Generator().manual_seed(0), cfg)
     assert set(p) >= {"u_bonus", "w_decay0", "ln1", "ln2"}
@@ -324,8 +326,10 @@ def test_blocks_take_rwkv_and_still_refuse_the_unported_kinds(kind):
     assert isinstance(st, trwkv.RWKVState)
     assert st.wkv.shape == (3, 4, 16, 16) and st.wkv.dtype == torch.float32
     assert st.shift_att.dtype == getattr(torch, cfg.dtype)
-    with pytest.raises(NotImplementedError, match=kind):
-        tblocks.block_params(kind, torch.Generator().manual_seed(0), cfg)
+    zcfg = get_smoke_config("zamba2-7b")
+    p = tblocks.block_params(kind, torch.Generator().manual_seed(0), zcfg)
+    assert set(p) == ({"norm1", "mamba"} if kind == "mamba" else
+                      {"norm1", "norm2", "attn", "mlp"})
 
 
 def test_rwkv6_attention_shared_bonus_is_the_per_head_bonus_repeated():

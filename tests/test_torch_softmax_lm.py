@@ -161,11 +161,13 @@ def test_decode_window_and_feature_gate_under_softmax():
     _close(st_t.v_cache, j_st.v_cache)
     with pytest.raises(ValueError):              # the cache needs a length
         TA.init_attn_state(tcfg, 2)
-    # JAX applies the feature gate to the linear family only
+    # JAX applies the feature gate to the linear family only: softmax
+    # keeps its cache and draws no gate, the linear family both
     gated = dataclasses.replace(tcfg, feature_gate=True)
     assert TA.init_attn_state(gated, 1, max_len=4).k_cache.shape[1] == 4
-    with pytest.raises(NotImplementedError):
-        TA.init_attn_state(gated.with_backend("linear"), 1)
+    gen = torch.Generator().manual_seed(0)
+    assert "w_fgate" not in TA.attention_params(gen, gated)
+    assert "w_fgate" in TA.attention_params(gen, gated.with_backend("linear"))
 
 
 # -- the slice ---------------------------------------------------------------
@@ -325,6 +327,10 @@ def _env():
     import os
     env = dict(os.environ)
     env["PYTHONPATH"] = str(ROOT / "src")
+    # two intra-op threads, as the test process has: torch's default of
+    # one per core, beside the other test workers, oversubscribes the
+    # CPU and slows each step by two orders of magnitude
+    env.update(OMP_NUM_THREADS="2", MKL_NUM_THREADS="2")
     return env
 
 

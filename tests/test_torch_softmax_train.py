@@ -200,6 +200,10 @@ def test_train_build_two_steps_at_smoke_size():
 def test_train_cli_softmax_on_cpu_loss_falls():
     env = dict(os.environ)
     env["PYTHONPATH"] = str(ROOT / "src")
+    # two intra-op threads, as the test process has: torch's default of
+    # one per core, beside the other test workers, oversubscribes the
+    # CPU and slows each step by two orders of magnitude
+    env.update(OMP_NUM_THREADS="2", MKL_NUM_THREADS="2")
     out = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.train", "--smoke",
          "--device", "cpu", "--backend", "softmax", "--steps", "30"],

@@ -227,6 +227,10 @@ def test_param_count_matches_jax():
 def _env():
     env = dict(os.environ)
     env["PYTHONPATH"] = str(ROOT / "src")
+    # two intra-op threads, as the test process has: torch's default of
+    # one per core, beside the other test workers, oversubscribes the
+    # CPU and slows each step by two orders of magnitude
+    env.update(OMP_NUM_THREADS="2", MKL_NUM_THREADS="2")
     return env
 
 
