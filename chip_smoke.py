@@ -13,7 +13,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    lookup library by opcode (B4/B5 copy each state into shared memory by
    ``cp.async.bulk``, B6's bulk route in and back out), which must not
    spill, nor may B1's and B7's (their state in registers at every D),
-   nor B10's (at every D, 112 included).
+   nor B10's (at every D, 112 included); the registers and spills of
+   every D = 112 instantiation (B1, B7, B10, B2/B3, B8/B9) and of the
+   exclusive backward's at every D, printed.
 2. Each kernel against its plain PyTorch version on the card, at the
    main path's shapes and at the smoke width (B1 and B7 also 64 tokens
    wide under per-row lengths, the stream path's ingest; B10 at each D
@@ -53,7 +55,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    over 32 heads, ragged T and S, groups of 6 and 7, the wrapper), and
    B8's inclusive route with its state at the SSD prefill's shape
    (batch 8 x 112 heads, T = 512, N = 64, zamba2's decays) in fp32 and
-   bf16, o's error printed as a share of its limit.
+   bf16, o's error printed as a share of its limit. This slice's: B2,
+   B3, B8 and B9 at D = 112 as at 96 and 64; the exclusive backward
+   (``bwd_exclusive``: its dq launch with du per row, its dk/dv launch
+   with dg) at rwkv6-1.6b's training shape (batch 8 x 32 heads, T =
+   1,024, D = 64, u per head drawn at random) in fp32 and bf16 against
+   its plain version, each launch alone, and under autograd against
+   autograd of the plain exclusive forward, du included; at ragged T
+   and D = 16, 96, 112, 128; and B8's exclusive bf16 o at T = 1,024 with
+   the decays at and near the clamp, as a share of its limit.
 3. The serving slice on the card: a 2-layer model at qwen3-0.6b's full
    widths in fp32, prefill + 16 greedy steps through the kernel against
    the same run through ``decode_kernel="reference"``.
@@ -196,8 +206,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 26. The dense generate main path: ``serve --arch <id>`` at full width
    and depth in bf16, batch 8, prompt 512, 64 tokens: phi3-mini-3.8b
    and musicgen-large under all three backends, yi-34b under linear and
-   softmax (the memory the earlier phases hold printed first; the depth
-   cut to what fits, and printed, if the card cannot hold it whole):
+   softmax cut to 10 of its 60 layers (``DENSE_CUTS``: the run's time;
+   the memory the earlier phases hold printed first; any depth cut to
+   what fits, and printed, if the card cannot hold a config whole):
    prefill ms, ms/token beside the step's bound by bytes, B1/B7 or B10
    launches exactly layers x steps, a profile of 4 decode steps (busy
    share), both backends' decode-state MiB, peak memory; yi-34b's linear
@@ -225,8 +236,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 30. The rwkv6 slice: rwkv6-1.6b at full width, 2 layers, fp32, a bonus u
    drawn per head: prefill through B8's exclusive route + 16 greedy
    steps against the prefill's plain version (tokens identical, logits
-   within 1e-4); its loss under autograd on the card refused
-   (NotImplementedError: the route is forward-only).
+   within 1e-4) (its training: phase 36).
 31. The rwkv6 generate main path: ``serve --arch rwkv6-1.6b`` at full
    width and depth (24 layers) in bf16, batch 8, prompt 512, 64 tokens:
    exactly 24 B8 launches per prefill and no other kernel, prefill ms,
@@ -243,14 +253,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    layers, with the paper's feature gate under linear and gated_linear:
    prefill + 16 greedy steps through the kernels (B8 in each Mamba-2
    prefill, B1/B7 or B10 in the attention) against the reference route
-   (tokens identical, logits within 1e-4); and the unit's loss under
-   autograd on the card refused under linear and gated_linear
-   (ValueError naming ROADMAP queue B item 1: B2/B8 do not take D = 112).
-34. The zamba2 generate main path: ``serve --arch zamba2-7b`` at full
-   width and depth (81 layers, bf16), batch 8, prompt 512, 64 tokens,
-   under linear, gated_linear and softmax: B8 exactly 68 launches a
-   prefill, B1/B7 13 a decode step or B10 13 a prefill, and no other
-   kernel; prefill ms, ms/token beside the step's bound by bytes, the
+   (tokens identical, logits within 1e-4) (its training: phase 36).
+34. The zamba2 generate main path: ``serve --arch zamba2-7b --n-layers
+   42`` at full width (7 of its 13 units, the tail dropped, to keep the
+   whole run short; bf16), batch 8, prompt 512, 64 tokens, under linear,
+   gated_linear and softmax: B8 exactly 35 launches a prefill, B1/B7 7 a
+   decode step or B10 7 a prefill, and no other kernel; prefill ms, ms/token beside the step's bound by bytes, the
    state (Mamba-2 and attention) against the KV cache, peak memory, a
    profile of 4 decode steps; then B1, B7 and B10 at D = 112 and B8 at
    the SSD prefill's shape timed beside their bounds, plain versions and
@@ -260,8 +268,32 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    Mamba-2 layer and prefill, B1 once per attention site and decode
    step, every request its budget.
 
+36. The zamba2 and rwkv6 training slices: zamba2-7b at full width, one
+   unit (5 Mamba-2 + the shared attention at D = 112), under linear,
+   gated_linear and softmax, and rwkv6-1.6b at full width, 2 layers, u
+   drawn at random (its init is 0), in fp32 and in bf16 compute, through
+   the kernels (B2/B3, B8/B9 or B10 in the attention, B8/B9 in each
+   Mamba-2 block, B8's exclusive route and the exclusive backward in each
+   RWKV-6 block) against ``attention_kernel=False``: the loss (phase 9's
+   limits), and every gradient leaf of one step with the plain route
+   taking the kernel route's attention outputs, as phase 22 pins the MoE
+   routing (``pinned_training_slice``), launches exact.
+37. The zamba2 training main path: ``launch/train.py --arch zamba2-7b
+   --n-layers N`` under linear, gated_linear and softmax, fp32 master,
+   bf16 compute, remat per unit, batch 8 x 1,024, 6 steps, the depth cut
+   by phase 29's rule to whole units (the tail dropped; printed): ms/step,
+   tokens/s, peak memory against the parameters, gradients and moments,
+   launches exactly per step and kind of layer, a profile of one step
+   (the kernels' share of device time).
+38. The rwkv6 training main path: ``launch/train.py --arch rwkv6-1.6b``
+   whole, as phase 37; then B2, B3, B8 and B9 at zamba2's shared
+   attention (batch 8 x 32 heads, T = 1,024, D = 112) and B8's exclusive
+   route and the exclusive backward at rwkv6's (D = 64) timed beside
+   their bounds and plain versions.
+
 Each main path (phases 4, 6, 8, 10, 12, 14, 16, 18, 19, 21, 22's
-``launch/train.py`` run, 24, 26, 27, 29, 31, 32, 34 and 35) is driven with
+``launch/train.py`` run, 24, 26, 27, 29, 31, 32, 34, 35, 37 and 38) is
+driven with
 every kernel's launch count set to 0 just before it and read just after.
 
 The last line is {"ok": true, "device": {...}}; the line before it the
@@ -1701,6 +1733,8 @@ def launch_counters() -> dict:
             "gated_linear_attention_fwd": GL.fwd,
             "gated_linear_attention_bwd_dq": GL.bwd_dq,
             "gated_linear_attention_bwd_dkv": GL.bwd_dkv,
+            "gated_linear_attention_bwd_exclusive_dq": GL.bwd_exclusive_dq,
+            "gated_linear_attention_bwd_exclusive_dkv": GL.bwd_exclusive_dkv,
             "flash_attention_fwd": FA.fwd}
 
 
@@ -1835,17 +1869,53 @@ TRAIN_KERNELS = {
                 ("flash_fwd_tc (bf16 tensor cores)",))}
 
 
-def slice_model(backend, dtype, dev, arch="qwen3-0.6b", seq=256):
-    """The training slices' model and batch: ``arch`` at full width, 2
-    layers, compute in ``dtype``, fp32 weights from seed 0, batch 2 x
-    ``seq`` tokens from seed 1."""
+# RWKV-6's time-mix in training: B8's exclusive route forward, and the
+# exclusive backward's two launches
+EXCLUSIVE_KERNELS = ("gated_linear_attention_fwd",
+                     "gated_linear_attention_bwd_exclusive_dq",
+                     "gated_linear_attention_bwd_exclusive_dkv")
+
+
+def train_launches(cfg) -> dict:
+    """Kernel launches of one training step (the forward, its remat
+    recompute and the backward) by kernel, from the config's layer kinds:
+    an attention site runs its backend's kernels (``TRAIN_KERNELS``;
+    softmax B10 alone, its backward plain), a Mamba-2 block B8/B9, an
+    RWKV-6 block ``EXCLUSIVE_KERNELS``. Under remat per unit a repeat's
+    forward kernel runs twice (forward, recompute); a tail's once."""
+    pattern, reps, tail = cfg.pattern_and_repeats
+    out = {}
+    for kinds, times, remat in ((pattern, reps, cfg.remat == "unit"),
+                                (tail, 1, False)):
+        for kind in kinds:
+            names = (TRAIN_KERNELS["gated_linear"][0] if kind == "mamba"
+                     else EXCLUSIVE_KERNELS if kind == "rwkv"
+                     else TRAIN_KERNELS[cfg.attention_backend][0])
+            for i, name in enumerate(names):
+                out[name] = out.get(name, 0) + times * (
+                    2 if i == 0 and remat else 1)
+    return out
+
+
+def slice_model(backend, dtype, dev, arch="qwen3-0.6b", seq=256,
+                n_layers=2):
+    """The training slices' model and batch: ``arch`` at full width,
+    ``n_layers`` layers (whole repeats of its pattern, no tail), compute
+    in ``dtype``, fp32 weights from seed 0, batch 2 x ``seq`` tokens from
+    seed 1; RWKV-6's bonus u drawn at random (its init is zero, where the
+    bonus adds nothing)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.configs.base import with_depth
     from repro_torch.models import lm
     cfg = dataclasses.replace(
-        with_depth(get_config(arch), 2).with_backend(backend), dtype=dtype)
+        with_depth(get_config(arch), n_layers).with_backend(backend),
+        dtype=dtype)
     params0 = lm.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    for group in params0["stack"]:      # RWKV-6's bonus off its zero init
+        if "u_bonus" in group:
+            group["u_bonus"].normal_(0.0, 0.5, generator=torch.Generator(
+                device=dev).manual_seed(3))
     toks = torch.randint(0, cfg.vocab_size, (2, seq + 1), device=dev,
                          generator=torch.Generator(device=dev).manual_seed(1))
     return cfg, params0, {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
@@ -1866,7 +1936,6 @@ def training_slice(backend, dev, phase, arch="qwen3-0.6b", seq=256) -> None:
     from repro_torch.optim import GradAccumulator, adamw, cosine_warmup
     from repro_torch.runtime import make_train_step
     from repro_torch.tree import leaves, tree_map
-    names, ids = TRAIN_KERNELS[backend][:2]
     cfg, params0, batch = slice_model(backend, "float32", dev, arch, seq)
     runs = {}
     for kernel in (True, False):
@@ -1886,8 +1955,7 @@ def training_slice(backend, dev, phase, arch="qwen3-0.6b", seq=256) -> None:
     # two backward passes per route (the gradients, then the train
     # step); the forward kernel twice per layer and pass: forward and
     # remat recompute
-    want = dict(zip(names, (2 * 2 * cfg.n_layers, 2 * cfg.n_layers,
-                            2 * cfg.n_layers)))
+    want = {k: 2 * n for k, n in train_launches(cfg).items()}
     got = {k: n for k, n in n_k.items() if n}
     if got != want or any(n_p.values()):
         raise AssertionError(f"phase {phase}: launches {got} on the kernel "
@@ -1911,15 +1979,16 @@ def training_slice(backend, dev, phase, arch="qwen3-0.6b", seq=256) -> None:
     if not all(torch.isfinite(x).all() for x in g_k + p_k):
         raise AssertionError(f"phase {phase}: non-finite gradients or "
                              f"parameters")
-    print(f"phase {phase}: {arch} {backend} training slice, 2 layers full "
-          f"width fp32, batch 2 x {seq}: loss {loss_k.item():.6f} vs plain "
+    print(f"phase {phase}: {arch} {backend} training slice, {cfg.n_layers} "
+          f"layers full width fp32, batch 2 x {seq}: loss "
+          f"{loss_k.item():.6f} vs plain "
           f"{loss_p.item():.6f}, aux {aux_k.item():.6f} vs "
           f"{aux_p.item():.6f}; {len(g_k)} gradient leaves max normwise "
           f"|Δg|={g_err:.3e}; params after one AdamW step max|Δ|="
           f"{p_err:.3e} where |g| > 1e-4 max|g| ({n_flip} of {n_small} "
-          f"elements below it moved apart); {'/'.join(ids)} launches {got} "
-          f"over two passes ({ids[0]} twice per layer and pass: forward and "
-          f"remat recompute)")
+          f"elements below it moved apart); launches {got} over two passes "
+          f"(each forward kernel twice a layer and pass: forward and remat "
+          f"recompute)")
 
 
 # The bf16 slices (phases 9 and 11): the kernel route against the plain
@@ -1992,7 +2061,6 @@ def training_slice_bf16(backend, dev, phase, arch="qwen3-0.6b",
     from repro_torch.models import lm
     from repro_torch.optim import GradAccumulator
     from repro_torch.tree import leaves
-    names, ids = TRAIN_KERNELS[backend][:2]
     cfg, params0, batch = slice_model(backend, "bfloat16", dev, arch, seq)
     runs, routing = {}, {True: [], False: []}
     for kernel in (True, False):
@@ -2010,7 +2078,7 @@ def training_slice_bf16(backend, dev, phase, arch="qwen3-0.6b",
                                                           runs[False])
     # one backward pass; the forward kernel twice per layer (forward and
     # remat recompute)
-    want = dict(zip(names, (2 * cfg.n_layers, cfg.n_layers, cfg.n_layers)))
+    want = train_launches(cfg)
     got = {k: n for k, n in n_k.items() if n}
     if got != want or any(n_p.values()):
         raise AssertionError(f"phase {phase}: bf16 launches {got} on the "
@@ -2029,22 +2097,131 @@ def training_slice_bf16(backend, dev, phase, arch="qwen3-0.6b",
              / b.float().abs().max().item()
              for i, (a, b) in enumerate(zip(g_k, g_p))]
     print(f"phase {phase}: {arch} {backend} training slice in bf16 compute, "
-          f"2 layers full width, batch 2 x {seq}: loss {loss_k.item():.6f} "
+          f"{cfg.n_layers} layers full width, batch 2 x {seq}: loss "
+          f"{loss_k.item():.6f} "
           f"vs plain {loss_p.item():.6f} (relative {loss_err:.3e}, limit "
           f"{BF16_SLICE_TOL['loss']}); aux {aux_k:.6f} vs {aux_p:.6f}; "
           f"{len(g_k)} gradient leaves, max|Δg| over max|g|: largest "
           f"{max(g_err):.3e}, median {sorted(g_err)[len(g_err) // 2]:.3e} "
-          f"(limit {BF16_SLICE_TOL['leaf']}); {'/'.join(ids)} launches {got}"
+          f"(limit {BF16_SLICE_TOL['leaf']}); launches {got}"
           + (f"; routing pinned to the kernel route's, where the plain "
              f"route's own top-k sets differ for {routing[False]} tokens "
              f"of {batch['tokens'].numel()} per router call (forward, "
              f"remat recompute)" if cfg.moe is not None else ""))
 
 
+@contextlib.contextmanager
+def attention_forward_pinned(outputs, replay=None):
+    """The training kernels' forwards (``fwd`` of B2's, B8's and B10's ops
+    modules, kernel or plain route) under a harness: each call's output is
+    appended to ``outputs``; with ``replay`` (the ``outputs`` of an earlier
+    run through the same model) call i returns replay[i] instead of its
+    own, which must have the same shapes and types. The wrappers keep the
+    modules' launch counts."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as FA
+    from repro_torch.kernels.gated_linear_attention import ops as GL
+    from repro_torch.kernels.linear_attention import ops as LA
+    saved = []
+    for mod in (LA, GL, FA):
+        def pinned(*args, _orig=mod.fwd, **kwargs):
+            out = _orig(*args, **kwargs)
+            parts = out if isinstance(out, tuple) else (out,)
+            if replay is None:
+                outputs.append(tuple(None if x is None else x.detach().clone()
+                                     for x in parts))
+                return out
+            want = replay[len(outputs)]
+            outputs.append(None)
+            if [None if x is None else (x.shape, x.dtype) for x in parts] != \
+                    [None if x is None else (x.shape, x.dtype) for x in want]:
+                raise AssertionError("pinned attention forward: call "
+                                     f"{len(outputs) - 1} differs in shape")
+            return want if isinstance(out, tuple) else want[0]
+        pinned.launches = mod.fwd.launches
+        saved.append((mod, mod.fwd))
+        mod.fwd = pinned
+    try:
+        yield outputs
+    finally:
+        for mod, orig in saved:
+            orig.launches = mod.fwd.launches
+            mod.fwd = orig
+        torch.cuda.synchronize()
+
+
+def pinned_training_slice(backend, dev, phase, arch, n_layers, dtype) -> dict:
+    """Phase 36: ``arch`` at full width, ``n_layers`` layers, compute in
+    ``dtype``, batch 2 x 256, weights from seed 0 (RWKV-6's u drawn). The
+    loss through the kernels (their forwards) against the loss through
+    the plain versions (fp32 rtol 1e-5, bf16 1e-4); then one step's every
+    gradient leaf through the kernels (launched exactly
+    ``train_launches`` times) against the plain versions' with the plain
+    route taking the kernel route's attention outputs
+    (``attention_forward_pinned``), as phase 22 pins the MoE routing: the
+    leaves hold the backward kernels inside the model (fp32 normwise
+    1e-4, bf16 ``BF16_SLICE_TOL``). These models' gradients amplify a
+    last-bit difference of the forward past those limits: on the plain
+    route itself RWKV-6's bf16 gradient leaves lie up to 58% from an fp64
+    step's and Mamba-2's decay leaves (a_log) up to 27%, and in fp32 the
+    a_log leaves lie 5e-5 (plain) and 7e-5 (kernels) from fp64, so two
+    correct routes differ past the pairwise limits (PERF.md §6)."""
+    import torch
+    from repro_torch.models import lm
+    from repro_torch.optim import GradAccumulator
+    from repro_torch.tree import leaves
+    cfg, params0, batch = slice_model(backend, dtype, dev, arch, 256,
+                                      n_layers)
+    loss_tol, leaf_tol = ((1e-5, 1e-4) if dtype == "float32" else
+                          (BF16_SLICE_TOL["loss"], BF16_SLICE_TOL["leaf"]))
+    runs, outputs = {}, {True: [], False: []}
+    for kernel in (True, False):
+        reset_launches()
+        with attention_forward_pinned(
+                outputs[kernel], None if kernel else outputs[True]):
+            loss, _, grads = GradAccumulator(1).run(
+                lambda p, b: lm.lm_loss(p, b, cfg, attention_kernel=kernel),
+                params0, batch)
+        runs[kernel] = (loss, leaves(grads),
+                        {k: n for k, n in read_launches().items() if n})
+    with torch.no_grad():
+        loss_p, _ = lm.lm_loss(params0, batch, cfg, attention_kernel=False)
+    (loss_k, g_k, n_k), (_, g_p, n_p) = runs[True], runs[False]
+    want = train_launches(cfg)
+    if n_k != want or n_p:
+        raise AssertionError(f"phase {phase}: launches {n_k} on the kernel "
+                             f"route (want {want}), {n_p} on the plain route")
+    if not all(torch.isfinite(x).all() for x in g_k + [loss_k]):
+        raise AssertionError(f"phase {phase}: non-finite loss or gradients")
+    loss_err = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+    if not loss_err <= loss_tol:
+        raise AssertionError(f"phase {phase}: {arch} {backend} {dtype} loss "
+                             f"{loss_k.item()} against plain "
+                             f"{loss_p.item()}: {loss_err:.3e} > {loss_tol}")
+    g_err = [normwise(a, b, leaf_tol, f"phase {phase} {arch} {backend} "
+                      f"{dtype} gradient leaf {i}")
+             / b.float().abs().max().item()
+             for i, (a, b) in enumerate(zip(g_k, g_p))]
+    print(f"phase {phase}: {arch} {backend} training slice, {cfg.n_layers} "
+          f"layers full width, {dtype}, batch 2 x 256: loss "
+          f"{loss_k.item():.6f} against plain {loss_p.item():.6f} "
+          f"(relative {loss_err:.3e}, limit {loss_tol}); {len(g_k)} "
+          f"gradient leaves, the plain route on the kernel route's "
+          f"{len(outputs[True])} attention outputs: max|Δg| over max|g| "
+          f"largest {max(g_err):.3e}, median "
+          f"{sorted(g_err)[len(g_err) // 2]:.3e} (limit {leaf_tol}); "
+          f"launches {n_k}")
+    del runs, outputs, params0
+    torch.cuda.empty_cache()
+    return {"loss": loss_err, "leaf": max(g_err)}
+
+
 def profile_train_step(loop, batch, kernel) -> dict:
     """Device time by kernel over one training step (torch.profiler) and
     the device busy share: device time over the step's wall time; the
-    rows of the attention kernels (named ``kernel``) all printed."""
+    rows of the attention kernels (whose names hold ``kernel``, or one of
+    a tuple of names) all printed. Returns the busy share, the device
+    time, the rows and the device ms and launches by kind."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
@@ -2062,11 +2239,12 @@ def profile_train_step(loop, batch, kernel) -> dict:
     if not total:
         print("  profile: the profiler reported no device time "
               "(not measured)")
-        return {"busy": None, "sweep_ms": None, "rows": []}
+        return {"busy": None, "sweep_ms": None, "rows": [], "kinds": {}}
     print(f"  profile: {total / 1e3:.3f} ms device time per step; device "
           f"busy {100 * total / 1e3 / wall_ms:.1f}% of the step")
+    names = (kernel,) if isinstance(kernel, str) else kernel
     for i, (t, key, count) in enumerate(rows):
-        if i < 16 or kernel in key:
+        if i < 16 or any(name in key for name in names):
             print(f"    {100 * t / total:5.1f}%  {t / 1e3:9.3f} ms  "
                   f"x{count:<5d} {key[:90]}")
     kinds = {}
@@ -2079,7 +2257,7 @@ def profile_train_step(loop, batch, kernel) -> dict:
         f"{k} {ms:.3f} ms ({100 * ms / (total / 1e3):.1f}%, {n} launches)"
         for k, (ms, n) in sorted(kinds.items(), key=lambda kv: -kv[1][0])))
     return {"busy": total / 1e3 / wall_ms, "device_ms": total / 1e3,
-            "rows": rows}
+            "rows": rows, "kinds": kinds}
 
 
 # kernel names by kind, first match wins
@@ -3209,6 +3387,9 @@ DENSE_RUNS = (("phi3-mini-3.8b", ("linear", "gated_linear", "softmax")),
 # what the card keeps free beside yi-34b's weights and state: the prefill's
 # activations, the head's logits and the caching allocator's slack
 DENSE_HEADROOM = 8 * 2**30
+# depth cuts of phase 26 that keep the whole run inside its time: yi-34b
+# at 10 of its 60 layers (phase 26 once served it whole; PERF.md §4)
+DENSE_CUTS = {"yi-34b": 10}
 
 
 def dense_kernel_checks(gen, dev) -> None:
@@ -3307,8 +3488,9 @@ def dense_state_sizes(cfg, batch, rows) -> dict:
 
 def dense_generate_main_path(arch, backend, dev, phase) -> dict:
     """Phase 26: ``serve --mode generate --arch <arch> --backend
-    <backend>`` at full width and depth (parameters built in bf16),
-    batch 8, prompt 512, 64 tokens, every kernel's launch count set to 0
+    <backend>`` at full width and depth (yi-34b cut to ``DENSE_CUTS``;
+    parameters built in bf16), batch 8, prompt 512, 64 tokens, every
+    kernel's launch count set to 0
     just before and read just after: B1 or B7 exactly layers x 63 times
     in the timed generation and layers x 2 in the warm-up, or B10 layers
     times in each of the two prefills, no other kernel. The memory the
@@ -3333,7 +3515,11 @@ def dense_generate_main_path(arch, backend, dev, phase) -> dict:
     whole = dense_param_bytes(cfg)
     fixed = dense_param_bytes(dataclasses.replace(cfg, n_layers=0))
     cut = ""
-    if whole + DENSE_HEADROOM > free:
+    if arch in DENSE_CUTS:
+        argv += ["--n-layers", str(DENSE_CUTS[arch])]
+        cut = (f" (cut from {cfg.n_layers}: DENSE_CUTS, the run's time; "
+               f"{whole / 1e9:.3f} GB of weights whole)")
+    elif whole + DENSE_HEADROOM > free:
         n_layers = int((free - DENSE_HEADROOM - fixed)
                        // ((whole - fixed) / cfg.n_layers))
         argv += ["--n-layers", str(n_layers)]
@@ -3503,30 +3689,7 @@ def training_kernel_checks(gen, dev) -> None:
     and at the clamp."""
     import torch
     for d in (96, 64):
-        check_linear_attention_rows(256, 1024, d, torch.bfloat16, 128, gen,
-                                    dev)
-        for bh, t, chunk in ((6, 272, 16), (4, 75, 75)):
-            check_linear_attention_rows(bh, t, d, torch.float32, chunk, gen,
-                                        dev)
-        for bh, t, chunk in ((6, 272, 16), (4, 75, 75), (6, 48, 16),
-                             (6, 200, 40)):
-            check_linear_attention_rows(bh, t, d, torch.bfloat16, chunk,
-                                        gen, dev)
-        for dtype in (torch.float32, torch.bfloat16):
-            check_linear_attention_wrapper(200, d, dtype, 128, gen, dev)
-        check_gla_rows(256, 1024, d, torch.bfloat16, 128, "model", gen, dev)
-        for bh, t, chunk in ((6, 272, 16), (4, 75, 75)):
-            check_gla_rows(bh, t, d, torch.float32, chunk, "mild", gen, dev)
-        for bh, t, chunk in ((6, 272, 16), (4, 75, 75), (6, 48, 16),
-                             (6, 200, 40)):
-            for decay in ("model", "mild"):
-                check_gla_rows(bh, t, d, torch.bfloat16, chunk, decay, gen,
-                               dev)
-        for dtype in (torch.float32, torch.bfloat16):
-            check_gla_wrapper(200, d, dtype, 128, dtype == torch.bfloat16,
-                              gen, dev)
-            check_gla_clamp(dtype, gen, dev, d=d)
-        check_decay_limit(gen, dev, d=d)
+        training_kernel_checks_at(d, gen, dev)
     print(f"phase 2: linear_attention_fwd, _bwd_dq, _bwd_dkv and "
           f"gated_linear_attention_fwd (inclusive, exclusive + u), _bwd_dq, "
           f"_bwd_dkv at D = 96 and 64 agree with their plain versions "
@@ -3538,6 +3701,39 @@ def training_kernel_checks(gen, dev) -> None:
     check_rwkv6_prefill(2, 3, 75, 96, torch.bfloat16, gen, dev)
     for dtype in (torch.bfloat16, torch.float32):
         check_rwkv6_clamp(dtype, gen, dev)
+
+
+def training_kernel_checks_at(d, gen, dev) -> None:
+    """``training_kernel_checks`` at one head dim ``d``: B2/B3 and B8/B9
+    at the training rows (batch 8 x 32 heads, T = 1,024) in bf16, at T a
+    multiple of the chunk but not of the tiles and at a ragged T in fp32
+    and bf16, through the wrappers, and B8/B9 at the clamp and at each
+    route's limit."""
+    import torch
+    check_linear_attention_rows(256, 1024, d, torch.bfloat16, 128, gen,
+                                dev)
+    for bh, t, chunk in ((6, 272, 16), (4, 75, 75)):
+        check_linear_attention_rows(bh, t, d, torch.float32, chunk, gen,
+                                    dev)
+    for bh, t, chunk in ((6, 272, 16), (4, 75, 75), (6, 48, 16),
+                         (6, 200, 40)):
+        check_linear_attention_rows(bh, t, d, torch.bfloat16, chunk,
+                                    gen, dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        check_linear_attention_wrapper(200, d, dtype, 128, gen, dev)
+    check_gla_rows(256, 1024, d, torch.bfloat16, 128, "model", gen, dev)
+    for bh, t, chunk in ((6, 272, 16), (4, 75, 75)):
+        check_gla_rows(bh, t, d, torch.float32, chunk, "mild", gen, dev)
+    for bh, t, chunk in ((6, 272, 16), (4, 75, 75), (6, 48, 16),
+                         (6, 200, 40)):
+        for decay in ("model", "mild"):
+            check_gla_rows(bh, t, d, torch.bfloat16, chunk, decay, gen,
+                           dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        check_gla_wrapper(200, d, dtype, 128, dtype == torch.bfloat16,
+                          gen, dev)
+        check_gla_clamp(dtype, gen, dev, d=d)
+    check_decay_limit(gen, dev, d=d)
 
 
 def rwkv_rows(b, h, t, d, dtype, gen, dev):
@@ -3609,75 +3805,82 @@ def check_rwkv6_clamp(dtype, gen, dev) -> None:
           f"(exclusive, u per head) in fp32")
 
 
-def train_param_counts(cfg) -> tuple:
-    """(parameters outside the layers, parameters a layer) of a dense
-    config: ``dense_param_bytes``' count, and under ``gated_linear`` the
-    decay projection (D x H·Dh and its bias) and groupnorm a layer."""
-    fixed = dense_param_bytes(dataclasses.replace(cfg, n_layers=0)) // 4
-    layer = (dense_param_bytes(dataclasses.replace(cfg, n_layers=1)) // 4
-             - fixed)
-    if cfg.attention_backend == "gated_linear":
-        hd = cfg.n_heads * cfg.head_dim
-        layer += cfg.d_model * hd + 3 * hd
-    return fixed, layer
+def train_param_split(cfg, dev) -> tuple:
+    """(parameters outside the repeats, parameters a repeat of the
+    pattern) of ``cfg``: one repeat drawn on the card in bf16 and
+    counted. The shared attention's one parameter set counts outside."""
+    import torch
+    from repro_torch.configs.base import with_depth
+    from repro_torch.models import lm
+    from repro_torch.tree import leaves
+    unit = dataclasses.replace(with_depth(cfg, len(cfg.layer_pattern)),
+                               param_dtype="bfloat16")
+    params = lm.init_params(torch.Generator(device=dev).manual_seed(0), unit)
+    per_unit = sum(x.numel() for x in leaves(params["stack"]))
+    fixed = lm.param_count(params) - per_unit
+    del params
+    torch.cuda.empty_cache()
+    return fixed, per_unit
 
 
-def dense_training_main_path(arch, backend, dev, gen, phase) -> dict:
-    """Phase 29: ``launch/train.py --arch <arch> --backend <backend>``
-    (fp32 master, bf16 compute, remat per layer), batch 8 x seq 1,024, 6
-    steps (2 warm-up, 4 timed), every kernel's launch count set to 0
-    just before and read just after: B2/B3 or B8/B9 at the config's head
-    dim, the forward kernel twice per layer and step (forward, remat
-    recompute), each backward launch once. The depth is cut, in whole
-    layers, to what fits the card beside the memory the earlier phases
-    hold (``TRAIN_BYTES_PER_PARAM`` a parameter and ``TRAIN_HEADROOM``),
-    and printed. Prints ms/step, tokens/s, peak memory against that
-    reckoning, the losses (finite), launches per step and a profile of
-    one step by kind; then the kernels timed at the config's shape
-    (rows 8 x 32 heads, T = 1,024, D) beside their bounds and plain
-    versions. Returns the launches and the kernels' records at the
-    shape."""
+def cut_training_main_path(arch, backend, dev, phase) -> dict:
+    """Phases 29, 37 and 38: ``launch/train.py --arch <arch> [--backend
+    <backend>]`` (rwkv6-1.6b has no attention layer), fp32 master, bf16
+    compute, remat per unit, batch 8 x 1,024, 6 steps (2 warm-up, 4
+    timed), every kernel's launch count set to 0 just before and read
+    just after: exactly ``train_launches`` a step. The depth is cut, in
+    whole repeats of the layer pattern (the tail dropped), to what fits
+    beside the memory the earlier phases hold (``TRAIN_BYTES_PER_PARAM``
+    a parameter and ``TRAIN_HEADROOM``), and printed. Prints ms/step,
+    tokens/s, peak memory against the parameters, gradients and moments,
+    the launches per kernel and step, and a profile of one step with the
+    kernels' share of device time. Returns the launches and the
+    measurements."""
     import gc
     import math
     import torch
     from repro_torch.configs import get_config
+    from repro_torch.configs.base import depth_cut
     from repro_torch.launch import train
     from repro_torch.models import lm
-    names, ids, pallas, lines, kernel, bf16_kernels = TRAIN_KERNELS[backend]
     gc.collect()
     torch.cuda.empty_cache()
     held = torch.cuda.memory_allocated()
     free, _ = torch.cuda.mem_get_info()
-    full = get_config(arch).with_backend(backend)
-    fixed, layer = train_param_counts(full)
+    full = get_config(arch)
+    full = full.with_backend(backend) if backend else full
+    pattern, reps, tail = full.pattern_and_repeats
+    fixed, unit = train_param_split(full, dev)
     fit = int((free - TRAIN_HEADROOM) / TRAIN_BYTES_PER_PARAM - fixed) \
-        // layer
-    n_layers = min(full.n_layers, fit)
-    cut = (f"whole, {full.n_layers} layers" if n_layers == full.n_layers
-           else f"cut from {full.n_layers} to {n_layers} layers: "
-                f"{(fixed + full.n_layers * layer) / 1e9:.3f} B parameters "
-                f"x {TRAIN_BYTES_PER_PARAM} bytes and "
-                f"{TRAIN_HEADROOM / 2**30:.0f} GiB of headroom against "
-                f"{free / 1e9:.3f} GB free")
-    args = train.parse_args(["--arch", arch, "--backend", backend,
-                             "--n-layers", str(n_layers), "--batch", "8",
-                             "--seq-len", "1024", "--steps", "6", "--lr",
-                             "3e-4", "--warmup", "20", "--seed", "0",
-                             "--log-every", "1"])
+        // unit
+    units = min(reps, fit)
+    cut = units < reps or bool(tail)
+    argv = ["--arch", arch, "--batch", "8", "--seq-len", "1024", "--steps",
+            "6", "--lr", "3e-4", "--warmup", "20", "--seed", "0",
+            "--log-every", "1"]
+    argv += ["--backend", backend] if backend else []
+    argv += ["--n-layers", str(units * len(pattern))] if cut else []
+    args = train.parse_args(argv)
     cfg = train.config(args)
+    what = (f"{depth_cut(full, cfg)}: {fixed / 1e9:.3f} B parameters "
+            f"outside the repeats and {unit / 1e9:.4f} B a repeat x "
+            f"{TRAIN_BYTES_PER_PARAM} bytes and "
+            f"{TRAIN_HEADROOM / 2**30:.0f} GiB of headroom against "
+            f"{free / 1e9:.3f} GB free" if cut
+            else f"whole, {full.n_layers} layers")
     torch.cuda.reset_peak_memory_stats()
     loop = train.build(args)
     n_params = lm.param_count(loop.params)
-    if n_params != fixed + n_layers * layer:
+    if n_params != fixed + units * unit:
         raise AssertionError(f"phase {phase}: {n_params} parameters, "
-                             f"reckoned {fixed + n_layers * layer}")
+                             f"reckoned {fixed + units * unit}")
     reset_launches()
     out = loop.run()
     launches = read_launches()
     peak = torch.cuda.max_memory_allocated()
     steps = out["step"]
-    want = dict(zip(names, (2 * n_layers * steps, n_layers * steps,
-                            n_layers * steps)))
+    per_step = train_launches(cfg)
+    want = {k: n * steps for k, n in per_step.items()}
     got = {k: n for k, n in launches.items() if n}
     if steps != 6 or got != want:
         raise AssertionError(f"phase {phase}: {steps} steps, launches {got} "
@@ -3687,39 +3890,60 @@ def dense_training_main_path(arch, backend, dev, gen, phase) -> dict:
         raise AssertionError(f"phase {phase}: non-finite losses {losses}")
     times = [m["step_time"] for m in out["metrics"]]
     ms = sum(times[2:]) / len(times[2:]) * 1e3
+    tok_s = args.batch * args.seq_len / ms * 1e3
     reckoned = n_params * TRAIN_BYTES_PER_PARAM
-    print(f"phase {phase}: training main path {arch} {backend} ({cut}; "
-          f"{n_params} params, head dim {cfg.head_dim}, fp32 master, bf16 "
-          f"compute, remat={cfg.remat}), batch {args.batch} x seq "
-          f"{args.seq_len}: ms_per_step={ms:.3f} tokens_per_s="
-          f"{args.batch * args.seq_len / ms * 1e3:.1f} (mean of steps 3-6; "
-          f"step times ms {[round(t * 1e3, 3) for t in times]}); peak "
-          f"memory {peak / 1e9:.3f} GB against {reckoned / 1e9:.3f} GB of "
+    print(f"phase {phase}: training main path {arch} "
+          f"{backend or '(time-mix: B8 exclusive)'} ({what}; {n_params} "
+          f"params, head dim {cfg.head_dim}, fp32 master, bf16 compute, "
+          f"remat={cfg.remat}), batch "
+          f"{args.batch} x seq {args.seq_len}: ms_per_step={ms:.3f} "
+          f"tokens_per_s={tok_s:.1f} (mean of steps 3-6; step times ms "
+          f"{[round(t * 1e3, 3) for t in times]}); peak memory "
+          f"{peak / 1e9:.3f} GB against {reckoned / 1e9:.3f} GB of "
           f"parameters, gradients, moments and bf16 copy (the rest "
           f"{(peak - reckoned) / 1e9:.3f} GB: activations and temporaries); "
           f"held before {held / 1e9:.3f} GB")
-    print(f"  losses {[round(x, 4) for x in losses]}; launches per step: "
-          f"{ids[0]} {got[names[0]] // steps} (forward + remat recompute)"
-          + "".join(f", {i} {got[n] // steps}"
-                    for i, n in zip(ids[1:], names[1:])))
+    print(f"  losses {[round(x, 4) for x in losses]}; launches per step "
+          f"(exactly {cfg.n_layers} layers' kinds, the forward kernel twice "
+          f"a repeat: forward, remat recompute): {per_step}")
     batch = loop.put_batch(loop.dataset.batch_at(steps))
-    prof = profile_train_step(loop, batch, kernel)
+    prof = profile_train_step(loop, batch, ("sweep", "flash_fwd"))
+    share = None
     if prof["busy"] is not None:
+        kernel_ms = sum(prof["kinds"].get(k, (0.0, 0))[0]
+                        for k in ("B2/B3", "B8/B9", "B10"))
+        share = kernel_ms / prof["device_ms"]
         print(f"  device busy {100 * prof['busy']:.1f}% of a profiled step; "
               f"{prof['device_ms']:.3f} ms device time against {ms:.3f} ms "
-              f"per step unprofiled")
+              f"per step unprofiled; the hand-written kernels "
+              f"{kernel_ms:.3f} ms, {100 * share:.1f}% of the device time")
     release_train_loop()
     del loop, out, batch
     gc.collect()
     torch.cuda.empty_cache()
-    rows = args.batch * cfg.n_heads
-    timer = {"linear": time_linear_attention,
-             "gated_linear": time_gated_linear_attention}[backend]
-    t = timer(rows, args.seq_len, cfg.head_dim, cfg.linear_chunk, gen, dev)
+    return {"launches": {k: launches[k] for k in want}, "ms": ms,
+            "tok_s": tok_s, "layers": cfg.n_layers, "peak": peak,
+            "busy": prof["busy"], "kernel_share": share}
+
+
+def dense_training_main_path(arch, backend, dev, gen, phase) -> dict:
+    """Phase 29: ``cut_training_main_path`` for a dense config under
+    ``backend`` (B2/B3 or B8/B9 at its head dim), then the kernels timed
+    at the config's shape (rows 8 x 32 heads, T = 1,024, D) beside their
+    bounds and plain versions. Returns the launches and the kernels'
+    records at the shape."""
+    import torch
+    from repro_torch.configs import get_config
+    names, ids, _, _, _, bf16_kernels = TRAIN_KERNELS[backend]
+    run = cut_training_main_path(arch, backend, dev, phase)
+    cfg = get_config(arch)
+    t = {"linear": time_linear_attention,
+         "gated_linear": time_gated_linear_attention}[backend](
+        8 * cfg.n_heads, 1024, cfg.head_dim, cfg.linear_chunk, gen, dev)
     shapes = {}
     for name, cuda_kernel in zip(names, bf16_kernels):
         r = t[name]
-        shape = (f"{arch}: rows={rows} T={args.seq_len} D={cfg.head_dim} "
+        shape = (f"{arch}: rows={8 * cfg.n_heads} T=1024 D={cfg.head_dim} "
                  f"bf16")
         print(f"{name} [{cuda_kernel}] {shape}: {r['ms'] * 1e3:.2f} "
               f"us/launch (plain version {r['plain_ms'] * 1e3:.2f} us; "
@@ -3735,8 +3959,8 @@ def dense_training_main_path(arch, backend, dev, gen, phase) -> dict:
           f"{r['ms'] * 1e3:.2f} us against {r['bound_ms'] * 1e3:.2f} us by "
           f"{r['bound_by']}; plain version {r['plain_ms'] * 1e3:.2f} us")
     torch.cuda.empty_cache()
-    return {"launches": {n: launches[n] for n in names}, "shapes": shapes,
-            "layers": n_layers}
+    return {"launches": run["launches"], "shapes": shapes,
+            "layers": run["layers"]}
 
 
 RWKV_ARCH = "rwkv6-1.6b"
@@ -3748,10 +3972,9 @@ def rwkv6_slice(dev, phase, batch=4, prompt_len=200, steps=16) -> None:
     layer) + ``steps`` greedy decode steps (plain PyTorch on both
     routes), against the same with the prefill's plain version
     (``attention_kernel=False``): tokens identical, logits within 1e-4,
-    B8 launched 2 times on the kernel route and no kernel on the other;
-    then the 2-layer model's loss on the card under autograd raises
-    NotImplementedError (B8's exclusive route is forward-only) and
-    returns under ``torch.no_grad``."""
+    B8 launched 2 times on the kernel route and no kernel on the other.
+    (Its training, through B8's exclusive route and the exclusive
+    backward, is phase 36's.)"""
     import torch
     from repro_torch.models import lm
     cfg = full_width(RWKV_ARCH, "gated_linear", 2)
@@ -3789,28 +4012,13 @@ def rwkv6_slice(dev, phase, batch=4, prompt_len=200, steps=16) -> None:
     torch.testing.assert_close(lg_k, lg_p, rtol=1e-4, atol=1e-4)
     wkv_err = max((a.wkv - b.wkv).abs().max().item()
                   for a, b in zip(st_k["stack"], st_p["stack"]))
-    batch_ = {"tokens": prompt[:, :-1], "labels": prompt[:, 1:]}
-    for x in params["stack"][0].values():
-        if torch.is_tensor(x):
-            x.requires_grad_()
-    try:
-        lm.lm_loss(params, batch_, cfg)
-    except NotImplementedError as e:
-        refused = str(e)
-    else:
-        raise AssertionError(f"phase {phase}: the RWKV-6 prefill ran under "
-                             f"autograd on the card")
-    with torch.no_grad():
-        loss, _ = lm.lm_loss(params, batch_, cfg)
     print(f"phase {phase}: {cfg.name}, 2 layers at full width in fp32 "
           f"(d_model {cfg.d_model}, {cfg.d_model // cfg.rwkv.head_dim} "
           f"heads of {cfg.rwkv.head_dim}, u drawn), batch {batch}, prefill "
           f"{prompt_len} through B8's exclusive route + {steps} greedy "
           f"steps: tokens identical, max|Δlogit|="
           f"{(lg_k - lg_p).abs().max().item():.3e}, the final wkv states "
-          f"within {wkv_err:.3e}; under autograd the prefill refuses "
-          f"(\"{refused[:60]}...\"), under no_grad the loss is "
-          f"{loss.item():.4f}")
+          f"within {wkv_err:.3e}")
     del params, runs
     torch.cuda.empty_cache()
 
@@ -3941,15 +4149,19 @@ def rwkv6_generate_main_path(dev, gen, phase) -> dict:
 # ---------------------------------------------------------------------------
 
 ZAMBA_ARCH = "zamba2-7b"
+# phase 34's depth: 7 of zamba2-7b's 13 units (PERF.md §4)
+ZAMBA_SERVE_LAYERS = 42
 
 
 def zamba2_unit(backend, dtype="float32"):
     """zamba2-7b at full width cut to one pattern unit (5 mamba + 1
-    shared_attn, no tail), under ``backend``, computing in ``dtype``."""
+    shared_attn, no tail: ``with_depth``), under ``backend``, computing
+    in ``dtype``."""
     from repro_torch.configs import get_config
+    from repro_torch.configs.base import with_depth
     cfg = get_config(ZAMBA_ARCH).with_backend(backend)
-    return dataclasses.replace(cfg, n_layers=len(cfg.layer_pattern),
-                               n_repeats=1, tail=(), dtype=dtype)
+    return dataclasses.replace(with_depth(cfg, len(cfg.layer_pattern)),
+                               dtype=dtype)
 
 
 def ssd_rows(b, h, t, n, dtype, gen, dev):
@@ -3967,33 +4179,6 @@ def ssd_rows(b, h, t, n, dtype, gen, dev):
     g = (-dt * torch.linspace(1.0, 16.0, h, device=dev)[:, None, None]
          ).expand(b, h, t, n)
     return [x.reshape(b * h, t, n).contiguous() for x in (cq, bk, v, g)]
-
-
-def zamba2_training_refused(dev, phase) -> None:
-    """Phase 33: zamba2-7b's unit at full width under linear and
-    gated_linear, its loss under autograd on the card: B2/B8 do not take
-    the shared attention's D = 112 yet, and the step raises ValueError
-    naming ROADMAP queue B item 1 (no plain route runs instead)."""
-    import torch
-    from repro_torch.models import lm
-    for backend in ("linear", "gated_linear"):
-        cfg = zamba2_unit(backend)
-        params = lm.init_params(torch.Generator(device=dev).manual_seed(1),
-                                cfg)
-        toks = torch.randint(0, cfg.vocab_size, (1, 64), device=dev,
-                             generator=torch.Generator(device=dev).manual_seed(2))
-        try:
-            lm.lm_loss(params, {"tokens": toks, "labels": toks}, cfg)
-        except ValueError as e:
-            if "ROADMAP queue B item 1" not in str(e):
-                raise
-            print(f"phase {phase}: {cfg.name} {backend} training on the card "
-                  f"refused: {str(e)[:110]}...")
-        else:
-            raise AssertionError(f"phase {phase}: {cfg.name} {backend} "
-                                 f"trained at D = 112 on the card")
-        del params
-        torch.cuda.empty_cache()
 
 
 def check_ssd(b, h, t, dtype, gen, dev, n=64) -> float:
@@ -4112,12 +4297,14 @@ def zamba2_state_sizes(cfg, batch, rows) -> dict:
 
 def zamba2_generate_main_path(backend, dev, phase) -> dict:
     """Phase 34: ``serve --mode generate --arch zamba2-7b --backend
-    <backend>`` at full width and depth (81 layers: 68 Mamba-2, 13 sites
-    of the shared attention; parameters built in bf16), batch 8, prompt
-    512, 64 tokens, every kernel's launch count set to 0 just before and
-    read just after: B8 exactly 68 times a prefill (two prefills: the
-    warm-up's and the timed one), and B1 or B7 exactly 13 x (2 + 63)
-    times or B10 13 times a prefill, no other kernel. Prints prefill ms,
+    <backend> --n-layers 42`` at full width (``ZAMBA_SERVE_LAYERS``: 7 of
+    its 13 units, 35 Mamba-2 blocks and 7 sites of the shared attention,
+    the tail dropped, to keep the whole run short, where the phase once
+    ran all 81 layers; parameters built in bf16), batch 8, prompt 512, 64 tokens,
+    every kernel's launch count set to 0 just before and read just after:
+    B8 exactly once a Mamba-2 block and prefill (two prefills: the
+    warm-up's and the timed one), and B1 or B7 exactly sites x (2 + 63)
+    times or B10 sites times a prefill, no other kernel. Prints prefill ms,
     ms/token beside the step's bound by bytes, the decode state's MiB
     (the Mamba-2 states and the attention's, against the KV cache of the
     other route), peak memory and a profile of 4 decode steps (device
@@ -4131,6 +4318,7 @@ def zamba2_generate_main_path(backend, dev, phase) -> dict:
     torch.cuda.empty_cache()
     held = torch.cuda.memory_allocated()
     args = serve.parse_args(["--arch", ZAMBA_ARCH, "--backend", backend,
+                             "--n-layers", str(ZAMBA_SERVE_LAYERS),
                              "--batch", "8", "--prompt-len", "512",
                              "--gen-len", "64", "--seed", "0"])
     cfg = serve.serving_config(args)
@@ -4331,6 +4519,252 @@ def zamba2_stream_main_path(dev, phase) -> dict:
     return got
 
 
+# ---------------------------------------------------------------------------
+# phases 36-38: zamba2-7b (its shared attention through B2/B3, B8/B9 at
+# head dim 112 or B10, its Mamba-2 blocks through B8/B9) and rwkv6-1.6b
+# (B8's exclusive route and the exclusive backward) trained on the card
+# ---------------------------------------------------------------------------
+
+def check_exclusive_backward(b, h, t, d, dtype, gen, dev, chunk=64,
+                             autograd=False) -> dict:
+    """The exclusive form's backward (RWKV-6's training; no Pallas
+    original) on flat rows, u drawn at random one row per head and the
+    log-decay in RWKV-6's range: ``ops.bwd_exclusive`` (its two launches)
+    against ``ref.chunked_bwd_exclusive_ref`` (dq, dk, dv, dg, du), each
+    launch alone against ``ref.bwd_exclusive_dq_ref`` (dq, q⊙dq, du per
+    row) and ``ref.bwd_exclusive_dkv_ref`` given the same q⊙dq (dk, dv;
+    dg in fp32 only: in bf16 that q⊙dq carries the rounding of Q̂ which
+    only the same launch pair's k⊙dk cancels, as ``check_gla_rows``
+    says), normwise 1e-5 (fp32) or 8e-3 (bf16). With ``autograd``, also
+    ``rwkv6_attention`` under autograd (B8's exclusive route, then the
+    backward) against torch autograd of the plain exclusive forward on
+    (B, H, T, D), du included. Returns max|Δ| per launch."""
+    import torch
+    from repro_torch.kernels.gated_linear_attention import ops as GL
+    from repro_torch.kernels.gated_linear_attention import ref as GR
+    q, k, v, g, u = rwkv_rows(b, h, t, d, dtype, gen, dev)
+    do = torch.randn(q.shape, generator=gen, device=dev).to(dtype)
+    rows = [x.reshape(b * h, t, d).contiguous() for x in (q, k, v, g, do)]
+    n0 = (GL.bwd_exclusive_dq.launches, GL.bwd_exclusive_dkv.launches)
+    got = GL.bwd_exclusive(*rows, u, chunk=chunk)
+    dq1, qdq1, du1 = GL.bwd_exclusive_dq(*rows, u, chunk=chunk)
+    dkv1 = GL.bwd_exclusive_dkv(*rows, u, qdq1, chunk=chunk)
+    torch.cuda.synchronize()
+    n1 = (GL.bwd_exclusive_dq.launches, GL.bwd_exclusive_dkv.launches)
+    if (n1[0] - n0[0], n1[1] - n0[1]) != (2, 2):
+        raise AssertionError(f"bwd_exclusive: launches {n0} -> {n1}")
+    want = GR.chunked_bwd_exclusive_ref(*rows, u, chunk=chunk)
+    want1 = GR.bwd_exclusive_dq_ref(*rows, u, chunk=chunk)
+    want2 = GR.bwd_exclusive_dkv_ref(*rows, u, qdq1, chunk=chunk)
+    name = str(dtype).split(".")[-1]
+    tol = LA_TOL[name]
+    tag = f"B={b} H={h} T={t} D={d} {name} chunk={chunk}"
+    names = ("dq", "dk", "dv", "dg", "du")
+    for n, x, x_r in zip(names, got, want):
+        if x.dtype != x_r.dtype or x.shape != x_r.shape or \
+                not torch.isfinite(x).all():
+            raise AssertionError(f"exclusive bwd {n} {tag}: {x.dtype} "
+                                 f"{tuple(x.shape)}, want {x_r.dtype} "
+                                 f"{tuple(x_r.shape)}, finite")
+    e = {n: normwise(x, x_r, tol, f"exclusive bwd {n} {tag}")
+         for n, x, x_r in zip(names, got, want)}
+    e1 = {n: normwise(x, x_r, tol, f"exclusive dq launch {n} {tag}")
+          for n, x, x_r in zip(("dq", "q⊙dq", "du_rows"), (dq1, qdq1, du1),
+                               want1)}
+    n2 = ("dk", "dv", "dg") if dtype == torch.float32 else ("dk", "dv")
+    e2 = {n: normwise(x, x_r, tol, f"exclusive dk/dv launch {n} {tag}")
+          for n, x, x_r in zip(n2, dkv1, want2)}
+    line = (f"  exclusive backward {tag}: max|Δ| " + ", ".join(
+        f"{n} {x:.3e}" for n, x in e.items()) + "; dq launch " + ", ".join(
+        f"{n} {x:.3e}" for n, x in e1.items()) + "; dk/dv launch "
+        + ", ".join(f"{n} {x:.3e}" for n, x in e2.items())
+        + f" (normwise {tol})")
+    if autograd:
+        grads = {}
+        for kernel in (True, False):
+            leaves = [x.clone().requires_grad_() for x in (q, k, v, g, u)]
+            if kernel:
+                o, _ = GL.rwkv6_attention(*leaves, chunk=chunk)
+            else:
+                c, rws = GL._flat_inputs(*leaves[:4], chunk)
+                o, _ = GR.chunked_fwd_ref(*rws, u=leaves[4], chunk=c,
+                                          exclusive=True)
+                o = o[:, :t].reshape(q.shape)
+            o.backward(do)
+            grads[kernel] = [x.grad for x in leaves]
+        torch.cuda.synchronize()
+        ea = [normwise(a, b_, tol, f"exclusive autograd {n} {tag}")
+              for n, a, b_ in zip(names, grads[True], grads[False])]
+        line += ("; rwkv6_attention under autograd against autograd of the "
+                 "plain exclusive forward: " + ", ".join(
+                     f"{n} {x:.3e}" for n, x in zip(names, ea)))
+    print(line)
+    return {"gated_linear_attention_bwd_exclusive_dq": max(
+                e["dq"], e["du"], *e1.values()),
+            "gated_linear_attention_bwd_exclusive_dkv": max(
+                e["dk"], e["dv"], e["dg"], *e2.values())}
+
+
+def check_exclusive_margin(gen, dev) -> None:
+    """B8's exclusive bf16 o (ROADMAP §C item 12's margin) at rwkv6-1.6b's
+    training length, batch 8 x 32 heads, T = 1,024, D = 64, u per head,
+    with every decay at the clamp (g = −1) and near it (−0.9 to −1.1,
+    half past the clamp), against its plain version at chunk 64: o's
+    error printed as a share of the 8e-3 normwise limit, which fails the
+    phase if crossed."""
+    import torch
+    from repro_torch.kernels.gated_linear_attention import ops as GL
+    for kind in ("clamp", "near"):
+        q, k, v, g, u = rwkv_rows(8, 32, 1024, 64, torch.bfloat16, gen, dev)
+        g = (torch.full_like(g, -1.0) if kind == "clamp" else
+             -(0.9 + 0.2 * torch.rand(g.shape, generator=gen, device=dev)))
+        o, _ = GL.rwkv6_attention(q, k, v, g, u, chunk=64)
+        o_r, _ = GL.rwkv6_attention(q, k, v, g, u, chunk=64, kernel=False)
+        torch.cuda.synchronize()
+        tol = LA_TOL["bfloat16"]
+        err = normwise(o, o_r, tol, f"exclusive o margin {kind}")
+        share = err / (tol * o_r.float().abs().max().item())
+        print(f"  B8 exclusive bf16 o at T=1024 (8 x 32 heads, D=64, u per "
+              f"head), decays {'at the clamp' if kind == 'clamp' else 'near the clamp (-0.9 to -1.1)'}: "
+              f"max|Δo| {err:.3e}, {100 * share:.1f}% of the {tol} limit")
+
+
+def training_kernel_checks_112_and_exclusive(gen, dev) -> dict:
+    """Phase 2's checks of this slice's training kernels: B2/B3 and B8/B9
+    at zamba2-7b's head dim 112 (``training_kernel_checks_at``: the
+    training rows, ragged T, the wrappers, the clamp and each route's
+    limit); the exclusive backward at rwkv6-1.6b's training shape (batch
+    8 x 32 heads, T = 1,024, D = 64) in fp32 and bf16 with the autograd
+    function against autograd of the plain forward, and at ragged T and
+    every head dim it takes; B8's exclusive o near the clamp at
+    T = 1,024. Returns the exclusive backward's max|Δ| at the training
+    shape in bf16 (the main path's)."""
+    import torch
+    training_kernel_checks_at(112, gen, dev)
+    print(f"phase 2: linear_attention_fwd, _bwd_dq, _bwd_dkv and "
+          f"gated_linear_attention_fwd (inclusive, exclusive + u), _bwd_dq, "
+          f"_bwd_dkv at D = 112 agree with their plain versions (normwise "
+          f"{LA_TOL}) and, at the clamp and at each route's limit, with "
+          f"gla_scan")
+    errs = check_exclusive_backward(8, 32, 1024, 64, torch.bfloat16, gen,
+                                    dev, autograd=True)
+    check_exclusive_backward(8, 32, 1024, 64, torch.float32, gen, dev,
+                             autograd=True)
+    for b, h, t, d, chunk in ((2, 3, 200, 64, 40), (2, 3, 48, 16, 16),
+                              (2, 3, 75, 96, 75), (2, 2, 130, 112, 65),
+                              (1, 4, 128, 128, 64)):
+        for dtype in (torch.float32, torch.bfloat16):
+            check_exclusive_backward(b, h, t, d, dtype, gen, dev,
+                                     chunk=chunk)
+    check_exclusive_margin(gen, dev)
+    print("phase 2: the exclusive backward (gated_linear_attention_bwd_"
+          "exclusive_dq, _dkv) agrees with its plain version, each launch "
+          "alone and under autograd with autograd of the plain exclusive "
+          "forward, du included")
+    return errs
+
+
+def time_exclusive_backward(b, h, t, d, gen, dev) -> dict:
+    """The exclusive backward at RWKV-6's training shape (bf16 q, k, v,
+    do; fp32 g and u of one row per head), chunk 64: each launch, the
+    whole (``ops.bwd_exclusive``: both launches and the sum of du over
+    each head's rows), and their plain versions, from CUDA-graph replays.
+    Bounds as ``time_gated_linear_attention``'s B9: each input read once
+    and each output written once (q, k, v, do read and dq, dk, dv written
+    in bf16; g read and dg written in fp32; u and du beside), over 3.35
+    TB/s; or the scan form's five products (2·T·D² per row each) and one
+    exp per decay element over the bf16 tensor-core rate."""
+    import torch
+    from repro_torch.kernels.gated_linear_attention import ops as GL
+    from repro_torch.kernels.gated_linear_attention import ref as GR
+    q, k, v, g, u = rwkv_rows(b, h, t, d, torch.bfloat16, gen, dev)
+    do = torch.randn(q.shape, generator=gen, device=dev).bfloat16()
+    q, k, v, g, do = (x.reshape(b * h, t, d).contiguous()
+                      for x in (q, k, v, g, do))
+    _, qdq, _ = GL.bwd_exclusive_dq(q, k, v, g, do, u, chunk=64)
+    x_bytes, f_bytes, u_bytes = q.nbytes, g.nbytes, u.nbytes
+    per_product = b * h * t * 2 * d * d
+    n_exp = b * h * t * d
+    out = {}
+    for name, kern, plain, n_bytes, n_products in (
+            ("gated_linear_attention_bwd_exclusive_dq",
+             lambda i: GL.bwd_exclusive_dq(q, k, v, g, do, u, chunk=64),
+             lambda i: GR.bwd_exclusive_dq_ref(q, k, v, g, do, u, chunk=64),
+             5 * x_bytes + 2 * f_bytes + u_bytes + b * h * d * 4, 2),
+            ("gated_linear_attention_bwd_exclusive_dkv",
+             lambda i: GL.bwd_exclusive_dkv(q, k, v, g, do, u, qdq,
+                                            chunk=64),
+             lambda i: GR.bwd_exclusive_dkv_ref(q, k, v, g, do, u, qdq,
+                                                chunk=64),
+             6 * x_bytes + 3 * f_bytes + u_bytes, 3),
+            ("bwd_exclusive",
+             lambda i: GL.bwd_exclusive(q, k, v, g, do, u, chunk=64),
+             lambda i: GR.chunked_bwd_exclusive_ref(q, k, v, g, do, u,
+                                                    chunk=64),
+             7 * x_bytes + 2 * f_bytes + 2 * u_bytes, 5)):
+        ops = n_products * per_product + n_exp
+        out[name] = dict(ms=graph_ms(kern, 4, replays=5),
+                         plain_ms=graph_ms(plain, 2, replays=3),
+                         library_ms=None,
+                         fp32_bound_ms=bound(n_bytes, ops)["bound_ms"],
+                         **bound(n_bytes, ops, PEAK_BF16_TC_FLOPS))
+    return out
+
+
+def zamba2_rwkv6_training_kernel_times(gen, dev) -> tuple:
+    """Phases 37 and 38's kernels at the training shapes, each beside its
+    bound and plain version: B2, B3 and B8, B9 at zamba2-7b's shared
+    attention (batch 8 x 32 heads, T = 1,024, D = 112, chunk 128), the
+    exclusive backward and B8's exclusive route at rwkv6-1.6b's (batch 8
+    x 32 heads, T = 1,024, D = 64, chunk 64). Returns ({kernel: shape
+    record} for the earlier kernels, {kernel: timing} for the exclusive
+    backward's two launches)."""
+    shapes = {}
+    for timer, names in ((time_linear_attention, TRAIN_KERNELS["linear"][0]),
+                         (time_gated_linear_attention,
+                          TRAIN_KERNELS["gated_linear"][0])):
+        t = timer(256, 1024, 112, 128, gen, dev)
+        for name in names:
+            r = t[name]
+            shape = f"{ZAMBA_ARCH} training: rows=256 T=1024 D=112 bf16"
+            print(f"{name} {shape}: {r['ms'] * 1e3:.2f} us/launch (plain "
+                  f"version {r['plain_ms'] * 1e3:.2f} us; library call: "
+                  f"none; bound {r['bound_ms'] * 1e3:.2f} us by "
+                  f"{r['bound_by']} on bf16 tensor cores, "
+                  f"{r['fp32_bound_ms'] * 1e3:.2f} us at the fp32 rate; "
+                  f"{r['flops'] / 1e9:.2f} GFLOP, {r['bytes'] / 1e6:.2f} MB; "
+                  f"{r['ms'] / r['bound_ms']:.2f}x its bound)")
+            shapes[name] = {"shape": shape, "ms": r["ms"],
+                            "plain_ms": r["plain_ms"],
+                            "bound_ms": r["bound_ms"],
+                            "bound_by": r["bound_by"], "library_ms": None}
+        r = t["bwd"]
+        print(f"  {'B3' if names[0].startswith('linear') else 'B9'} as a "
+              f"whole (ops.bwd) at D=112: {r['ms'] * 1e3:.2f} us against "
+              f"{r['bound_ms'] * 1e3:.2f} us by {r['bound_by']} "
+              f"({r['bytes'] / 1e6:.2f} MB); plain version "
+              f"{r['plain_ms'] * 1e3:.2f} us")
+    t = time_rwkv6_prefill(8, 32, 1024, 64, gen, dev)
+    shape = f"{RWKV_ARCH} training: exclusive + u per head, rows=256 T=1024 D=64 bf16"
+    print(f"gated_linear_attention_fwd [decay_sweep_fwd_tc<64, true>] "
+          f"{shape}: {t['ms'] * 1e3:.2f} us/launch (plain version "
+          f"{t['plain_ms'] * 1e3:.2f} us; bound {t['bound_ms'] * 1e3:.2f} "
+          f"us by {t['bound_by']}; {t['bytes'] / 1e6:.2f} MB)")
+    fwd_shape = {"shape": shape, "ms": t["ms"], "plain_ms": t["plain_ms"],
+                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                 "library_ms": None}
+    t = time_exclusive_backward(8, 32, 1024, 64, gen, dev)
+    for name, r in t.items():
+        print(f"{name} {RWKV_ARCH} training: rows=256 T=1024 D=64 bf16, "
+              f"chunk 64: {r['ms'] * 1e3:.2f} us (plain version "
+              f"{r['plain_ms'] * 1e3:.2f} us; library call: none; bound "
+              f"{r['bound_ms'] * 1e3:.2f} us by {r['bound_by']} on bf16 "
+              f"tensor cores, {r['fp32_bound_ms'] * 1e3:.2f} us at the fp32 "
+              f"rate; {r['flops'] / 1e9:.2f} GFLOP, {r['bytes'] / 1e6:.2f} "
+              f"MB; {r['ms'] / r['bound_ms']:.2f}x its bound)")
+    return shapes, fwd_shape, t
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4422,7 +4856,8 @@ def main() -> int:
     if spills(fa_log):
         raise AssertionError(f"phase 1: flash_attention.cu spills: "
                              f"{spills(fa_log)}")
-    for source in (ops.SOURCE, ops.GATED_SOURCE, FA.SOURCE):
+    for source in (ops.SOURCE, ops.GATED_SOURCE, FA.SOURCE, LA.SOURCE,
+                   GL.SOURCE):
         notes = [line for line in ptxas_notes(build.build_log(source))
                  if re.search(r"Li112[E>]", line.split(":")[0])]
         if not notes:
@@ -4431,6 +4866,19 @@ def main() -> int:
         for line in notes:
             print(f"  D = 112: {line}")
     print("  flash_attention.cu: no spill at any D")
+    # the exclusive backward (RWKV-6's training): its bf16 launches at
+    # every D, registers and spills
+    notes = [line for line in ptxas_notes(build.build_log(GL.SOURCE))
+             if re.search(r"decay_sweep_d(q|kv)_tc<Li\d+ELb1>",
+                          line.split(":")[0])]
+    if not notes:
+        raise AssertionError("phase 1: gated_linear_attention.cu: no "
+                             "exclusive backward in the ptxas report")
+    for line in notes:
+        print(f"  exclusive backward: {line}")
+    for source in (LA.SOURCE, GL.SOURCE):
+        print(f"  {source.name}: spills "
+              f"{spills(build.build_log(source)) or 'none'}")
     done(1, t0)
 
     # -- 2. kernels against their plain versions --------------------------
@@ -4598,6 +5046,7 @@ def main() -> int:
     dense_kernel_checks(gen, dev)
     training_kernel_checks(gen, dev)
     zamba2_kernel_checks(gen, dev)
+    errs.update(training_kernel_checks_112_and_exclusive(gen, dev))
     done(2, t0)
 
     # -- 3. the linear slice, kernel vs plain recurrence, fp32 -------------
@@ -4819,7 +5268,6 @@ def main() -> int:
     t0 = time.perf_counter()
     for backend in ("linear", "gated_linear", "softmax"):
         generate_kernel_vs_reference(zamba2_unit(backend), dev, 33)
-    zamba2_training_refused(dev, 33)
     for backend in ("linear", "gated_linear"):
         generate_kernel_vs_reference(dataclasses.replace(
             full_width("qwen3-0.6b", backend, 2), feature_gate=True), dev, 33)
@@ -4836,6 +5284,46 @@ def main() -> int:
     t0 = time.perf_counter()
     zamba_stream = zamba2_stream_main_path(dev, 35)
     done(35, t0)
+
+    # -- 36. the zamba2 and rwkv6 training slices, kernels vs plain ---------
+    t0 = time.perf_counter()
+    for arch, backends, n_layers in (
+            (ZAMBA_ARCH, ("linear", "gated_linear", "softmax"), 6),
+            (RWKV_ARCH, ("gated_linear",), 2)):
+        for backend in backends:
+            for dtype in ("float32", "bfloat16"):
+                pinned_training_slice(backend, dev, 36, arch, n_layers,
+                                      dtype)
+    done(36, t0)
+
+    # -- 37. the zamba2 training main path -----------------------------------
+    t0 = time.perf_counter()
+    train_zamba = {b: cut_training_main_path(ZAMBA_ARCH, b, dev, 37)
+                   for b in ("linear", "gated_linear", "softmax")}
+    done(37, t0)
+
+    # -- 38. the rwkv6 training main path; the kernels at the training shapes
+    t0 = time.perf_counter()
+    train_rwkv = cut_training_main_path(RWKV_ARCH, None, dev, 38)
+    train_shapes, rwkv_fwd_shape, excl_times = \
+        zamba2_rwkv6_training_kernel_times(gen, dev)
+    for name in EXCLUSIVE_KERNELS[1:]:
+        t = excl_times[name]
+        records.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/gated_linear_attention/csrc/"
+                      "gated_linear_attention.cu",
+            "replaces": "src/repro/core/gated.py:156",
+            "note": "no Pallas original: JAX trains RWKV-6 through jnp "
+                    "autodiff of chunked_gla(exclusive=True, u)",
+            "launches": train_rwkv["launches"][name],
+            "launches_by_path": {"train_rwkv6": train_rwkv["launches"][name]},
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": None,
+            "kernel": "decay_sweep_d" + ("q" if name.endswith("dq") else "kv")
+                      + "_tc<64, true> (bf16 tensor cores)"})
+    done(38, t0)
 
     for r in records:
         r["max_abs_err"] = errs[r["name"]]
@@ -4877,6 +5365,16 @@ def main() -> int:
         more.setdefault(name, {})["stream_zamba2"] = n
     for name, rec in zamba_times.items():
         dense_times.setdefault(name, []).append(rec)
+    # phases 37 and 38
+    for run in train_zamba.values():
+        for name, n in run["launches"].items():
+            path = more.setdefault(name, {})
+            path["train_zamba2"] = path.get("train_zamba2", 0) + n
+    more.setdefault("gated_linear_attention_fwd", {})["train_rwkv6"] = \
+        train_rwkv["launches"]["gated_linear_attention_fwd"]
+    for name, rec in train_shapes.items():
+        dense_times.setdefault(name, []).append(rec)
+    dense_times["gated_linear_attention_fwd"].append(rwkv_fwd_shape)
     for r in records:
         if r["name"] in more:
             r.setdefault("launches_by_path", {"train": r["launches"]})

@@ -140,17 +140,30 @@ class ModelConfig:
 
 
 def with_depth(cfg: ModelConfig, n_layers: int) -> ModelConfig:
-    """``cfg`` at ``n_layers`` layers, whole repeats of its layer pattern
-    (no tail): the depth cut of a model too large for one card, its
-    widths unchanged."""
-    pattern, _, tail = cfg.pattern_and_repeats
+    """``cfg`` at ``n_layers`` layers, whole repeats of its layer pattern:
+    the depth cut of a model too large for one card, its widths
+    unchanged. A config with a tail after its repeats (zamba2-7b's three
+    Mamba-2 blocks after 13 units of 5 Mamba-2 + 1 shared attention)
+    drops the tail: the cut model is whole units only. ``depth_cut``
+    says what was cut."""
+    pattern, _, _ = cfg.pattern_and_repeats
     reps, rest = divmod(n_layers, len(pattern))
-    if tail or rest or reps < 1:
+    if rest or reps < 1:
         raise ValueError(
             f"{cfg.name}: {n_layers} layers are not whole repeats of the "
-            f"pattern {pattern}" + (f" with tail {tail}" if tail else ""))
+            f"pattern {pattern}")
     return dataclasses.replace(cfg, n_layers=n_layers,
-                               n_repeats=reps if cfg.n_repeats else 0)
+                               n_repeats=reps if cfg.n_repeats else 0,
+                               tail=())
+
+
+def depth_cut(full: ModelConfig, cut: ModelConfig) -> str:
+    """One line on ``with_depth``'s cut of ``full`` to ``cut``."""
+    pattern, reps, tail = full.pattern_and_repeats
+    _, cut_reps, _ = cut.pattern_and_repeats
+    return (f"{cut.n_layers} of {full.n_layers} layers: {cut_reps} of "
+            f"{reps} repeats of {'+'.join(pattern)}"
+            + (f", the tail {'+'.join(tail)} dropped" if tail else ""))
 
 
 _REGISTRY: Dict[str, Callable[[], ModelConfig]] = {}

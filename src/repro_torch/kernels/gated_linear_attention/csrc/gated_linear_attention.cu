@@ -6,6 +6,11 @@
 //   bwd (B9, _dq_kernel at :212, _dkv_kernel at :232, and its jnp dg
 //        epilogue at :255-261)  -> gated_linear_attention_bwd_dq
 //                                  gated_linear_attention_bwd_dkv
+// and the backward of B8's exclusive form, which has no Pallas original
+// (JAX trains RWKV-6 through jnp autodiff of chunked_gla(exclusive=True,
+// u), repro/core/gated.py:156-215)
+//                               -> gated_linear_attention_bwd_exclusive_dq
+//                                  gated_linear_attention_bwd_exclusive_dkv
 //
 // The paper's §4 decay form, per (batch·head) row: with a_t = exp(g_t),
 // g clamped to [min_log_decay, 0],
@@ -14,6 +19,17 @@
 // B9 returns dq, dk, dv and dg = reverse-cumsum(q⊙dq − k⊙dk), zero where
 // the clamp held g. Only q, k, v, g and do are read: no state is stored,
 // the paper's memory argument.
+//
+// The exclusive form's backward is B9's two sweeps with the strict mask
+// and Q̂ = q e^{b_{t-1}}, plus the bonus: dq += (do·v) u⊙k, dk += (do·v)
+// u⊙q, dv += (q·(u⊙k)) do, du[h] = Σ over the head's rows and t of (do·v)
+// q⊙k. Its dg is not B9's: the query at t decays by b_{t-1}, so
+//     dg_t = Σ_{s>t} q⊙dq_s − Σ_{s≥t} k⊙dk_s
+// over the decay's shares of dq and dk alone (the bonus does not depend
+// on g): B9's reverse sum less the token's own q⊙dq. The bf16 dq launch
+// writes du per row (du_rows, fp32) and the caller sums each head's rows;
+// the fp32 route forms dg and du in the wrapper, as B9's fp32 route forms
+// dg.
 //
 // Two bodies.
 //
@@ -82,11 +98,12 @@
 //   stages, the next tile's during this tile's work; rows past T read as
 //   zeros (log-decay 0: they add and decay nothing). Two stages of 96 KiB
 //   and the state's copy take 224 KiB of the 227.
-// - Head dims: D = 16, 64, 96, 128. q, k, v and do are padded to DC
-//   64-column blocks (one at D = 16 and 64, two at 96 and 128), the
-//   columns past D read as zeros (the tensor map is D wide); g comes in
-//   GB = ⌈D/32⌉ blocks, so the decay scans cover D channels (32 at
-//   D = 16, the padded 16 read as g = 0). Past D nothing is scaled
+// - Head dims: D = 16, 64, 96, 112, 128. q, k, v and do are padded to DC
+//   64-column blocks (one at D = 16 and 64, two at 96, 112 and 128), the
+//   columns past D read as zeros (the tensor map is D wide: 224 bytes a
+//   bf16 row at D = 112); g comes in GB = ⌈D/32⌉ blocks, so the decay
+//   scans cover D channels (32 at D = 16, 128 at 112: the padded columns
+//   read as g = 0). Past D nothing is scaled
 //   (scale_slot and split_slot skip those columns, which stay zero), the
 //   decay total stays 0 (a state row decays by 1), u is not read, dg is
 //   not scanned and no output or state element is stored. At D = 96 the
@@ -129,6 +146,19 @@
 //   derived from the thread index are recomputed in each tile, so that
 //   the compiler does not hold them in registers across the tile loop
 //   (the dk/dv launch spilled when it did).
+// - Split operands (L<D>::kSplit, D <= 64: the SSD's and RWKV-6's head
+//   dims): Q̂, K̂, the score tiles and the state copies enter every
+//   product as hi + lo bf16 parts (about 16 bits; see L). With one part
+//   these heads' strong decays left RWKV-6's groupnormed outputs and
+//   Mamba-2's decay gradients a few percent off the fp32 plain version
+//   in a bf16 training step (PERF.md §6).
+// - The exclusive backward (EXCLUSIVE): the strict masks of its score
+//   tiles in two parts (mask_split_strict), dv's with q·(u⊙k) on its
+//   diagonal; do·v and q·(u⊙k) of each token summed in fp32 from the raw
+//   tile by four threads a token (B8's bonus); du from the raw q and k
+//   before K̂ is written over k (one barrier more a tile); the raw k (dq)
+//   and q (dk) of the bonus read back from global memory in the
+//   epilogue, where L2 still holds the tile just loaded.
 // - dg, fused: the dq launch also writes q⊙dq in fp32, as Q̂ ⊙ (dq e^{-b})
 //   with Q̂ rounded to bf16 exactly as the dk/dv launch rounds it; the
 //   dk/dv launch forms K̂ ⊙ (dk e^{b}) from the same bf16 K̂. Each pair of
@@ -194,6 +224,18 @@ struct Cfg<64> {
   static constexpr int kSm = 32, kSn = 8;
 };
 
+// D = 112 (zamba2-7b's shared attention): 16-column slices, seven blocks
+// per row (112 is no multiple of 32)
+template <>
+struct Cfg<112> {
+  static constexpr int kThreads = 256;
+  static constexpr int kTile = 32;   // |b| <= 32
+  static constexpr int kSlice = 16;
+  static constexpr int kPm = 16, kPn = 16;
+  static constexpr int kOm = 16, kOn = 16;
+  static constexpr int kSm = 16, kSn = 16;
+};
+
 template <>
 struct Cfg<16> {
   static constexpr int kThreads = 64;
@@ -234,8 +276,19 @@ __device__ __forceinline__ void mma(float (&acc)[RM][RN], const float* A,
   }
 }
 
-// What one sweep computes; see the header.
-enum Mode : int { kFwd = 0, kFwdExclusive = 1, kDq = 2, kDk = 3, kDv = 4 };
+// What one sweep computes; see the header. The last three are the
+// exclusive form's backward sweeps (strict mask, q scaled by e^{b_{t-1}},
+// the bonus terms).
+enum Mode : int {
+  kFwd = 0,
+  kFwdExclusive = 1,
+  kDq = 2,
+  kDk = 3,
+  kDv = 4,
+  kDqExclusive = 5,
+  kDkExclusive = 6,
+  kDvExclusive = 7
+};
 
 struct Sweep {
   const float* a;
@@ -250,10 +303,20 @@ __device__ __forceinline__ float clamp_decay(float g, float lo) {
   return g < lo ? lo : (g > 0.f ? 0.f : g);
 }
 
+// b of the token before row r's (0 for the tile's first token), from the
+// tile's cumulative log-decay Gs (rows reversed in a reverse sweep): the
+// exclusive form's e^{b_{t-1}}
+template <int TC, int LA, bool REVERSE>
+__device__ __forceinline__ float prev_b_at(const float* Gs, int r, int col) {
+  const int rp = REVERSE ? r + 1 : r - 1;
+  return (REVERSE ? rp < TC : rp >= 0) ? Gs[rp * LA + col] : 0.f;
+}
+
 // grid (rows, D / DS, sweeps); block Cfg<D>::kThreads; dynamic shared
 // memory smem_floats<D>() floats. blockIdx.z picks s0 or s1. g is the
 // (rows, t, D) fp32 log-decay; u the (u_heads, D) bonus, row r reading
-// u[r % u_heads] (kFwdExclusive only; rows are batch-major, heads minor).
+// u[r % u_heads] (exclusive modes only; rows are batch-major, heads
+// minor).
 // With EMIT_STATE (B8 only), state receives the final S (rows, D, D)
 // fp32. The instantiations: <false, true> B8, <false, false> dq,
 // <true, false> dk/dv.
@@ -266,7 +329,7 @@ decay_sweep(Sweep s0, Sweep s1, const float* __restrict__ g,
   constexpr int kThreads = C::kThreads;
   constexpr int TC = C::kTile, DS = C::kSlice;
   constexpr int LA = D + 1, LC = DS + 1, LP = TC + 1;
-  constexpr int kLanes = D < 32 ? D : 32;   // lanes that share a row
+  constexpr int kLanes = D % 32 ? 16 : 32;   // lanes that share a row
   static_assert(D % DS == 0 && TC % C::kPm == 0 && TC % C::kPn == 0 &&
                     TC % C::kOm == 0 && DS % C::kOn == 0 &&
                     D % C::kSm == 0 && DS % C::kSn == 0,
@@ -275,7 +338,7 @@ decay_sweep(Sweep s0, Sweep s1, const float* __restrict__ g,
                     C::kSm * C::kSn == kThreads,
                 "thread grids must cover the block");
   static_assert(kThreads >= D && (TC * D) % kThreads == 0 &&
-                    kThreads % 32 == 0 && 32 % kLanes == 0,
+                    kThreads % 32 == 0 && D % kLanes == 0,
                 "the cumulative sum and the bonus reduction need these");
 
   extern __shared__ float smem[];
@@ -286,7 +349,8 @@ decay_sweep(Sweep s0, Sweep s1, const float* __restrict__ g,
   float* Ps = Cs + TC * LC;
   float* Ss = Ps + TC * LP;
   float* Et = Ss + D * LC;     // exp(btot) per channel
-  float* Dg = Et + D;          // diagonal bonus q·(u⊙k) per row
+  float* Dg = Et + D;          // the diagonal per row: the bonus q·(u⊙k),
+                               // or (dq, dk sweeps) do·v
 
   const Sweep sw = blockIdx.z ? s1 : s0;
   const int mode = sw.mode;
@@ -299,7 +363,19 @@ decay_sweep(Sweep s0, Sweep s1, const float* __restrict__ g,
   const int tid = threadIdx.x;
   // the decay index is the state's column (Dk-slice) for dq and dk, its
   // row (the full Dk) for o and dv
-  const bool decay_cols = mode == kDq || mode == kDk;
+  const bool decay_cols = mode == kDq || mode == kDk ||
+                          mode == kDqExclusive || mode == kDkExclusive;
+  const bool strict = mode == kFwdExclusive || mode >= kDqExclusive;
+  // the bonus sits on the scores' diagonal (o, dv), or the diagonal do·v
+  // is kept for the bonus added to the output (dq, dk)
+  const bool bonus_diag = mode == kFwdExclusive || mode == kDvExclusive;
+  const bool keep_diag = mode == kDqExclusive || mode == kDkExclusive;
+  const float* __restrict__ ur =
+      strict ? u + static_cast<size_t>(blockIdx.x % u_heads) * D : nullptr;
+
+  auto prev_b = [](const float* G, int r, int col) {
+    return prev_b_at<TC, LA, REVERSE>(G, r, col);
+  };
 
   for (int e = tid; e < D * LC; e += kThreads) Ss[e] = 0.f;
 
@@ -346,22 +422,27 @@ decay_sweep(Sweep s0, Sweep s1, const float* __restrict__ g,
         bv = B[off];
       }
       const float b = Gs[r * LA + col];
-      if (mode == kFwd) {
-        av *= expf(b);
-        bv *= expf(-b);
-      } else if (mode == kFwdExclusive) {
+      if (bonus_diag) {
         // the bonus q_t·(u⊙k_t) from the unscaled row, reduced over the
         // lanes that share the row (uniform branch: every lane is here)
-        float p = av * u[(blockIdx.x % u_heads) * D + col] * bv;
+        float p = av * ur[col] * bv;
 #pragma unroll
         for (int off = kLanes / 2; off > 0; off >>= 1)
           p += __shfl_xor_sync(0xffffffffu, p, off);
         if ((tid % kLanes) == 0) atomicAdd(&Dg[r], p);
-        av *= r > 0 ? expf(Gs[(r - 1) * LA + col]) : 1.f;   // e^{b_{t-1}}
+      }
+      if (mode == kFwd) {
+        av *= expf(b);
+        bv *= expf(-b);
+      } else if (mode == kFwdExclusive) {
+        av *= expf(prev_b(Gs, r, col));                     // e^{b_{t-1}}
         bv *= expf(-b);
       } else if (mode == kDv) {
         av *= expf(-b);
         bv *= expf(b);
+      } else if (mode == kDvExclusive) {
+        av *= expf(-b);
+        bv *= expf(prev_b(Gs, r, col));
       }
       As[r * LA + col] = av;
       Bs[r * LA + col] = bv;
@@ -372,8 +453,10 @@ decay_sweep(Sweep s0, Sweep s1, const float* __restrict__ g,
       float cv = tok < t_len
           ? Cg[static_cast<size_t>(tok) * D + col0 + col]
           : 0.f;
-      if (mode == kDq) cv *= expf(-Gs[r * LA + col0 + col]);
+      if (mode == kDq || mode == kDqExclusive)
+        cv *= expf(-Gs[r * LA + col0 + col]);
       if (mode == kDk) cv *= expf(Gs[r * LA + col0 + col]);
+      if (mode == kDkExclusive) cv *= expf(prev_b(Gs, r, col0 + col));
       Cs[r * LC + col] = cv;
     }
     if (REVERSE) {   // R, decayed to the end of this tile -> to its start
@@ -384,11 +467,11 @@ decay_sweep(Sweep s0, Sweep s1, const float* __restrict__ g,
     }
     __syncthreads();
 
-    // -- scores P = (A Bᵀ) ⊙ M (strict, plus the bonus, when exclusive) ---
+    // -- scores P = (A Bᵀ) ⊙ M (strict when exclusive: the bonus on the
+    //    diagonal, or the diagonal kept aside) ------------------------------
     {
       constexpr int MT = C::kPm, NT = C::kPn, RM = TC / MT, RN = TC / NT;
       const int ti = tid / NT, tj = tid % NT;
-      const bool strict = mode == kFwdExclusive;
       float acc[RM][RN] = {};
       mma<RM, RN, MT, NT, D>(acc, As, LA, 1, Bs, 1, LA, ti, tj);
 #pragma unroll
@@ -397,7 +480,8 @@ decay_sweep(Sweep s0, Sweep s1, const float* __restrict__ g,
         for (int c = 0; c < RN; ++c) {
           const int i = ti + r * MT, j = tj + c * NT;
           float p = (j < i || (j == i && !strict)) ? acc[r][c] : 0.f;
-          if (strict && j == i) p = Dg[i];
+          if (bonus_diag && j == i) p = Dg[i];
+          if (keep_diag && j == i) Dg[i] = acc[r][c];
           Ps[i * LP + j] = p;
         }
     }
@@ -419,10 +503,17 @@ decay_sweep(Sweep s0, Sweep s1, const float* __restrict__ g,
           for (int c = 0; c < RN; ++c) {
             const int col = col0 + tj + c * NT;
             const size_t off = static_cast<size_t>(tok) * D + col;
-            const float scale = mode == kDq   ? expf(Gs[i * LA + col])
-                                : mode == kDk ? expf(-Gs[i * LA + col])
-                                              : 1.f;
-            sw.out[row_off + off] = acc[r][c] * scale;
+            const float scale =
+                mode == kDq ? expf(Gs[i * LA + col])
+                : mode == kDqExclusive ? expf(prev_b(Gs, i, col))
+                : (mode == kDk || mode == kDkExclusive)
+                    ? expf(-Gs[i * LA + col])
+                    : 1.f;
+            float y = acc[r][c] * scale;
+            // the bonus: dq += (do·v) u⊙k, dk += (do·v) u⊙q, from the raw
+            // k or q
+            if (keep_diag) y += Dg[i] * ur[col] * Cg[off];
+            sw.out[row_off + off] = y;
           }
         }
       }
@@ -504,6 +595,10 @@ int launch_d(Sweep s0, Sweep s1, int n_sweeps, const void* g,
       return launch<96, REVERSE, EMIT_STATE>(
           s0, s1, n_sweeps, gf, uf, u_heads, sf, rows, t_len,
           min_log_decay, st);
+    case 112:
+      return launch<112, REVERSE, EMIT_STATE>(
+          s0, s1, n_sweeps, gf, uf, u_heads, sf, rows, t_len,
+          min_log_decay, st);
     case 128:
       return launch<128, REVERSE, EMIT_STATE>(
           s0, s1, n_sweeps, gf, uf, u_heads, sf, rows, t_len,
@@ -529,24 +624,42 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 // Shared memory, from a 1024-byte aligned base (the swizzle's period):
 // two stages of {q, k, v, do: DC blocks of [64 tokens][64 bf16] each;
-// g: GB blocks of [64 tokens][32 fp32]}, every block as TMA writes it
-// with the 128-byte swizzle; the state's bf16 copy, DC blocks of
+// g: GB blocks of [64 tokens][32 fp32]; with kSplit the low parts of Q̂
+// and K̂}, every block as TMA writes it with the 128-byte swizzle; the
+// state's bf16 copy (and with kSplit its low part), DC blocks of
 // [DP rows][64 bf16], swizzled the same way; e^{btot} (log2 units) per
-// channel; the scans' per-channel totals; B8's diagonal bonus per token
-// (exclusive form); two mbarriers.
+// channel; the scans' per-channel totals; the diagonal per token (B8's
+// bonus, the exclusive backward's do·v and q·(u⊙k)); two mbarriers.
+//
+// kSplit (one 64-column block: D <= 64, the SSD's and RWKV-6's heads):
+// every bf16 operand that carries a decay factor, Q̂ = q e^{b} and
+// K̂ = k e^{-b}, and every score tile and state copy enters its products
+// as two bf16 parts, hi = bf16(x) and lo = bf16(x − hi), so that the
+// products carry about 16 bits where one part carries 8. The strong
+// decays of those heads cancel: an output or a gradient of a token can
+// be small beside the terms it sums, and a per-token normalisation
+// after it (RWKV-6's groupnorm, Mamba-2's gated RMSNorm) or a reduction
+// over tokens (a decay parameter's gradient) reads that token's
+// relative error. The products cost two to four times the tensor-core
+// work of one part, which the tile's bytes hide at these widths; the
+// low parts' slots fit beside one block (D = 96 and up have no room).
 template <int D>
 struct L {
   static constexpr int DC = (D + 63) / 64;     // 64-column bf16 blocks
+  static constexpr bool kSplit = DC == 1;
   static constexpr int DP = 64 * DC;           // D padded to them
   static constexpr int GB = (D + 31) / 32;     // 32-column fp32 blocks
   static constexpr int GW = 32 * GB;           // channels the scans take
   static constexpr int tile = DC * kBlock;     // one bf16 tensor's tile
   static constexpr int q = 0, k = tile, v = 2 * tile, o = 3 * tile,
                        g = 4 * tile;
-  static constexpr int stage = 4 * tile + GB * kBlock;
+  static constexpr int loaded = 4 * tile + GB * kBlock;   // TMA's bytes
+  static constexpr int qlo = loaded, klo = loaded + tile;  // kSplit
+  static constexpr int stage = loaded + (kSplit ? 2 * tile : 0);
   static constexpr int x = 2 * stage;
   static constexpr int xblock = DP * kRowBytes;
-  static constexpr int btot = x + DC * xblock;
+  static constexpr int xlo = x + DC * xblock;              // kSplit
+  static constexpr int btot = xlo + (kSplit ? DC * xblock : 0);
   static constexpr int tot = btot + 4 * DP;
   static constexpr int bonus = tot + 8 * GW;
   static constexpr int bars = bonus + 4 * kTile;
@@ -645,13 +758,17 @@ __device__ __forceinline__ void scale_slot(uint8_t* slot, const uint8_t* gs,
   }
 }
 
-// B8's K̂ = k · 2^(-b) in two bf16 parts: hi over the k slot, lo = bf16(K̂ −
-// hi) into `lo_slot` (the stage's do slot, which B8 does not load; its
-// columns past D are zeroed), so that the state update K̂ᵀ V carries K̂ to
-// about 16 bits and the emitted fp32 state keeps fp32's accuracy
-template <int D>
+// x ← x · 2^(sign · b) over a tile slot's real columns in two bf16
+// parts: hi = bf16(x · 2^(sign·b)) over the slot, lo = bf16(that − hi)
+// into `lo_slot` (its columns past D zeroed); PREV takes b of the token
+// before (0 for the tile's first). The products that read hi and lo
+// carry the scaled operand to about 16 bits (B8's state update, and
+// every product of a kSplit tile). Both launches of B9 split Q̂ and K̂
+// with these same operations.
+template <int D, bool PREV = false>
 __device__ __forceinline__ void split_slot(uint8_t* slot, uint8_t* lo_slot,
-                                           const uint8_t* gs, int tid) {
+                                           const uint8_t* gs, float sign,
+                                           int tid) {
   using S = L<D>;
   for (int e = tid; e < S::DC * 64 * 8; e += kThreads) {
     const int blk = e >> 9, r = (e >> 3) & 63, ch = e & 7;
@@ -663,14 +780,21 @@ __device__ __forceinline__ void split_slot(uint8_t* slot, uint8_t* lo_slot,
       *q = make_uint4(0u, 0u, 0u, 0u);
       continue;
     }
-    const float4 b0 = *reinterpret_cast<const float4*>(gs + off32(r, c0));
-    const float4 b1 =
-        *reinterpret_cast<const float4*>(gs + off32(r, c0 + 4));
+    float4 b0 = make_float4(0.f, 0.f, 0.f, 0.f), b1 = b0;
+    if (!PREV || r > 0) {
+      const int rb = PREV ? r - 1 : r;
+      b0 = *reinterpret_cast<const float4*>(gs + off32(rb, c0));
+      b1 = *reinterpret_cast<const float4*>(gs + off32(rb, c0 + 4));
+    }
     const uint4 x = *p;
-    const float y[8] = {lo_f(x.x) * ex2(-b0.x), hi_f(x.x) * ex2(-b0.y),
-                        lo_f(x.y) * ex2(-b0.z), hi_f(x.y) * ex2(-b0.w),
-                        lo_f(x.z) * ex2(-b1.x), hi_f(x.z) * ex2(-b1.y),
-                        lo_f(x.w) * ex2(-b1.z), hi_f(x.w) * ex2(-b1.w)};
+    const float y[8] = {lo_f(x.x) * ex2(sign * b0.x),
+                        hi_f(x.x) * ex2(sign * b0.y),
+                        lo_f(x.y) * ex2(sign * b0.z),
+                        hi_f(x.y) * ex2(sign * b0.w),
+                        lo_f(x.z) * ex2(sign * b1.x),
+                        hi_f(x.z) * ex2(sign * b1.y),
+                        lo_f(x.w) * ex2(sign * b1.z),
+                        hi_f(x.w) * ex2(sign * b1.w)};
     uint32_t h[4], l[4];
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -680,6 +804,35 @@ __device__ __forceinline__ void split_slot(uint8_t* slot, uint8_t* lo_slot,
     *p = make_uint4(h[0], h[1], h[2], h[3]);
     *q = make_uint4(l[0], l[1], l[2], l[3]);
   }
+}
+
+// The bf16 copy of a warpgroup's state rows, as hopper.cuh's store_state,
+// and with kSplit its low part into the copy's second region
+template <int D>
+__device__ __forceinline__ void store_state_parts(
+    uint8_t* sb, const float (&x)[L<D>::DC][32], int wg, int r0, int cl) {
+  using S = L<D>;
+  if constexpr (!S::kSplit) {
+    store_state(sb + S::x, S::xblock, x, wg, r0, cl);
+  } else {
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int g = 0; g < 8; ++g) {
+        const int r = 64 * wg + r0 + 8 * h, at = off16(S::xblock, r,
+                                                        8 * g + cl);
+        const float a = x[0][4 * g + 2 * h], b = x[0][4 * g + 2 * h + 1];
+        const uint32_t hi = pack_bf16(a, b);
+        *reinterpret_cast<uint32_t*>(sb + S::x + at) = hi;
+        *reinterpret_cast<uint32_t*>(sb + S::xlo + at) =
+            pack_bf16(a - lo_f(hi), b - hi_f(hi));
+      }
+  }
+}
+
+// the fp32 value of a split pair, hi + lo, as the products see it
+__device__ __forceinline__ float2 split_value(uint32_t hi, uint32_t lo) {
+  return make_float2(lo_f(hi) + lo_f(lo), hi_f(hi) + hi_f(lo));
 }
 
 // multiplies this warpgroup's state rows by 2^btot[row]
@@ -703,7 +856,7 @@ __device__ __forceinline__ void load_tile(
     const CUtensorMap* tk, const CUtensorMap* tv, const CUtensorMap* to,
     const CUtensorMap* tg, int tok0, int row) {
   using S = L<D>;
-  mbar_expect_tx(bar, DO ? S::stage : S::stage - S::tile);
+  mbar_expect_tx(bar, DO ? S::loaded : S::loaded - S::tile);
 #pragma unroll
   for (int cb = 0; cb < S::DC; ++cb) {
     tma_load(stage + S::q + cb * kBlock, tq, bar, 64 * cb, tok0, row);
@@ -716,14 +869,65 @@ __device__ __forceinline__ void load_tile(
     tma_load(stage + S::g + gb * kBlock, tg, bar, 32 * gb, tok0, row);
 }
 
+// Σ_c a(r, c)·w_c·b(r, c) of each of the tile's 64 tokens from two raw
+// bf16 slots (w_c = 1 without w), four threads a token: the exclusive
+// form's q·(u⊙k) and do·v. Token r = t / 4 is returned to all four.
+template <int D>
+__device__ __forceinline__ float token_dot(const uint8_t* a,
+                                           const uint8_t* b, const float* w,
+                                           int t) {
+  const int r = t / 4, part = t % 4;
+  float p = 0.f;
+#pragma unroll
+  for (int c = 2 * part; c < D; c += 8) {
+    const uint32_t x = *reinterpret_cast<const uint32_t*>(
+        a + off16(kBlock, r, c));
+    const uint32_t y = *reinterpret_cast<const uint32_t*>(
+        b + off16(kBlock, r, c));
+    const float w0 = w ? __ldg(w + c) : 1.f, w1 = w ? __ldg(w + c + 1) : 1.f;
+    p += lo_f(x) * w0 * lo_f(y) + hi_f(x) * w1 * hi_f(y);
+  }
+  p += __shfl_xor_sync(0xffffffffu, p, 1);
+  p += __shfl_xor_sync(0xffffffffu, p, 2);
+  return p;
+}
+
+// The exclusive backward's score tiles: mask_split's two bf16 parts over
+// the strict triangle (column < row, LOWER; or column > row), with diag[r]
+// on the diagonal, or 0 where diag is null
+template <bool LOWER>
+__device__ __forceinline__ void mask_split_strict(const float (&s)[32],
+                                                  uint32_t (&hi)[4][4],
+                                                  uint32_t (&lo)[4][4],
+                                                  int r0, int cl,
+                                                  const float* diag) {
+#pragma unroll
+  for (int x = 0; x < 32; x += 2) {
+    const int r = r0 + 8 * ((x >> 1) & 1), c = 8 * (x >> 2) + cl;
+    const float d = diag ? diag[r] : 0.f;
+    const float a = (LOWER ? c < r : c > r) ? s[x] : (c == r ? d : 0.f);
+    const float b =
+        (LOWER ? c + 1 < r : c + 1 > r) ? s[x + 1] : (c + 1 == r ? d : 0.f);
+    const uint32_t h = pack_bf16(a, b);
+    hi[x / 8][(x % 8) / 2] = h;
+    lo[x / 8][(x % 8) / 2] = pack_bf16(a - lo_f(h), b - hi_f(h));
+  }
+}
+
 // B9's forward sweep: per 64-token tile, with b from the tile's start and
 // S[dk][dv] the state at the tile's start,
 //     acc = (dO Vᵀ ⊙ M) K̂ + dO Sᵀ ;  dq = e^{b} ⊙ acc ;  q⊙dq = Q̂ ⊙ acc
 //     S ← e^{btot} ⊙ (S + K̂ᵀ V)           (rows, per dk)
+// EXCLUSIVE (the exclusive form with the bonus u, RWKV-6): M strict and
+// Q̂ = q e^{b_{t-1}}, so dq = e^{b_{t-1}} ⊙ acc + (do·v) u⊙k and q⊙dq =
+// Q̂ ⊙ acc, the decay's share alone (the bonus's does not enter dg); and
+// du_rows[row] = Σ_t (do_t·v_t) q_t⊙k_t in fp32, from the raw tile (k
+// before it is scaled: one more barrier a tile), k_raw read back for the
+// bonus from global memory (the tile's k, just loaded, in L2).
 // grid (rows); block kThreads; dynamic shared memory L<D>::bytes. Tensor
 // maps (D, T, rows) with boxes (64, 64, 1) for q, k, v, do and (32, 64, 1)
 // for g.
-template <int D>
+template <int D, bool EXCLUSIVE>
 __global__ void __launch_bounds__(kThreads, 1)
 decay_sweep_dq_tc(const __grid_constant__ CUtensorMap tq,
                   const __grid_constant__ CUtensorMap tk,
@@ -731,7 +935,9 @@ decay_sweep_dq_tc(const __grid_constant__ CUtensorMap tq,
                   const __grid_constant__ CUtensorMap to,
                   const __grid_constant__ CUtensorMap tg,
                   __nv_bfloat16* __restrict__ dq, float* __restrict__ qdq,
-                  int t_len, float lo) {
+                  const __nv_bfloat16* __restrict__ k_raw,
+                  const float* __restrict__ u, int u_heads,
+                  float* __restrict__ du, int t_len, float lo) {
   using S = L<D>;
   constexpr int DC = S::DC;
   extern __shared__ uint8_t smem_raw[];
@@ -740,6 +946,7 @@ decay_sweep_dq_tc(const __grid_constant__ CUtensorMap tq,
   uint8_t* const sb = smem_raw + (base - raw);
   float* const btot = reinterpret_cast<float*>(sb + S::btot);
   float* const tot = reinterpret_cast<float*>(sb + S::tot);
+  float* const dov = reinterpret_cast<float*>(sb + S::bonus);
   const uint32_t bar0 = base + S::bars;
   // the warpgroup, from lane 0: provably uniform, so that ptxas does not
   // take the wgmma branches on it for divergent paths
@@ -763,6 +970,7 @@ decay_sweep_dq_tc(const __grid_constant__ CUtensorMap tq,
   for (int j = 0; j < DC; ++j)
 #pragma unroll
     for (int i = 0; i < 32; ++i) x[j][i] = 0.f;
+  float du_acc = 0.f;   // EXCLUSIVE: du of channel tid % GW, half tid / GW
 
   for (int it = 0; it < n_tiles; ++it) {
     // Offsets derived from the thread index are recomputed in each tile:
@@ -778,9 +986,33 @@ decay_sweep_dq_tc(const __grid_constant__ CUtensorMap tq,
     const int tok0 = it * kTile;
     mbar_wait(bar0 + 8 * (it & 1), (it >> 1) & 1);
 
+    if constexpr (EXCLUSIVE) {   // do·v, read after decay_scan's barrier
+      const float p = token_dot<D>(ss + S::o, ss + S::v, nullptr, t);
+      if (t % 4 == 0) dov[t / 4] = p;
+    }
     decay_scan<D>(ss + S::g, tot, btot, lo, t);
-    if (wg < DC) store_state(sb + S::x, S::xblock, x, wg, r0, cl);
-    scale_slot<D>(ss + S::k, ss + S::g, -1.f, t);        // K̂
+    if constexpr (EXCLUSIVE) {
+      // du: Σ (do·v) q⊙k over this thread's 32 tokens of its channel, from
+      // the raw q and k, before K̂ is written over k
+      const int c = t % S::GW, h = t / S::GW;
+      if (t < 2 * S::GW && c < D) {
+#pragma unroll 8
+        for (int i = 0; i < 32; ++i) {
+          const int r = 32 * h + i;
+          du_acc += dov[r] *
+                    __bfloat162float(*reinterpret_cast<const __nv_bfloat16*>(
+                        ss + S::q + off16(kBlock, r, c))) *
+                    __bfloat162float(*reinterpret_cast<const __nv_bfloat16*>(
+                        ss + S::k + off16(kBlock, r, c)));
+        }
+      }
+      __syncthreads();
+    }
+    if (wg < DC) store_state_parts<D>(sb, x, wg, r0, cl);
+    if constexpr (S::kSplit)                                      // K̂
+      split_slot<D>(ss + S::k, ss + S::klo, ss + S::g, -1.f, t);
+    else
+      scale_slot<D>(ss + S::k, ss + S::g, -1.f, t);
     fence_async();
     __syncthreads();
 
@@ -799,7 +1031,10 @@ decay_sweep_dq_tc(const __grid_constant__ CUtensorMap tq,
       fence_regs(sc);
       wg_wait<0>();
       fence_regs(sc);
-      mask_split<true>(sc, hi, lo2, r0, cl);
+      if constexpr (EXCLUSIVE)
+        mask_split_strict<true>(sc, hi, lo2, r0, cl, nullptr);
+      else
+        mask_split<true>(sc, hi, lo2, r0, cl);
       // acc = P K̂ (this warpgroup's 64 columns) + dO Sᵀ; beside it the
       // state update S += K̂ᵀ V (S's copy in shared memory is read, the
       // registers are updated)
@@ -814,6 +1049,22 @@ decay_sweep_dq_tc(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
         wgmma_rs(acc, lo2[kk], mdesc(st + S::k + wg * kBlock, kk), 1);
+      if constexpr (S::kSplit) {   // P K̂lo, dO S_loᵀ, S += K̂loᵀ V
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_rs(acc, hi[kk], mdesc(st + S::klo, kk), 1);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_rs(acc, lo2[kk], mdesc(st + S::klo, kk), 1);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss<0, 0>(acc, kdesc(st + S::o, kBlock, kk),
+                         kdesc(base + S::xlo, S::xblock, kk), 1);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss<1, 1>(x[0], mdesc(st + S::klo, kk),
+                         mdesc(st + S::v, kk), 1);
+      }
 #pragma unroll
       for (int kk = 0; kk < 4 * DC; ++kk)
         wgmma_ss<0, 0>(acc, kdesc(st + S::o, kBlock, kk),
@@ -835,7 +1086,8 @@ decay_sweep_dq_tc(const __grid_constant__ CUtensorMap tq,
       fence_regs(acc);
       fence_regs(x);
 
-      // dq = e^{b} acc in bf16; q⊙dq = Q̂ acc in fp32
+      // dq = e^{b} acc in bf16; q⊙dq = Q̂ acc in fp32 (EXCLUSIVE: b of
+      // the token before, and dq's bonus (do·v) u⊙k)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int r = r0 + 8 * h, tok = tok0 + r;
@@ -845,17 +1097,36 @@ decay_sweep_dq_tc(const __grid_constant__ CUtensorMap tq,
         for (int g = 0; g < 8; ++g) {
           const int c = 64 * wg + 8 * g + cl;
           if (c >= D) continue;
-          const float2 b =
-              *reinterpret_cast<const float2*>(ss + S::g + off32(r, c));
+          float2 b = make_float2(0.f, 0.f);
+          if (!EXCLUSIVE || r > 0)
+            b = *reinterpret_cast<const float2*>(
+                ss + S::g + off32(EXCLUSIVE ? r - 1 : r, c));
           const float a0 = acc[4 * g + 2 * h], a1 = acc[4 * g + 2 * h + 1];
-          *reinterpret_cast<uint32_t*>(dq + off + c) =
-              pack_bf16(a0 * ex2(b.x), a1 * ex2(b.y));
-          const uint32_t qh = scale_pair(
-              *reinterpret_cast<const uint32_t*>(ss + S::q +
-                                                 off16(kBlock, r, c)),
-              b.x, b.y);
+          float y0 = a0 * ex2(b.x), y1 = a1 * ex2(b.y);
+          if constexpr (EXCLUSIVE) {
+            const float d = dov[r];
+            const uint32_t kr = __ldg(
+                reinterpret_cast<const unsigned int*>(k_raw + off + c));
+            const float2 uu = __ldg(reinterpret_cast<const float2*>(
+                u + static_cast<size_t>(row % u_heads) * D + c));
+            y0 += d * uu.x * lo_f(kr);
+            y1 += d * uu.y * hi_f(kr);
+          }
+          *reinterpret_cast<uint32_t*>(dq + off + c) = pack_bf16(y0, y1);
+          // Q̂ as the dk/dv launch rounds it (kSplit: its hi + lo)
+          const uint32_t qr = *reinterpret_cast<const uint32_t*>(
+              ss + S::q + off16(kBlock, r, c));
+          float2 qm;
+          if constexpr (S::kSplit) {
+            const float q0 = lo_f(qr) * ex2(b.x), q1 = hi_f(qr) * ex2(b.y);
+            const uint32_t qh = pack_bf16(q0, q1);
+            qm = split_value(qh, pack_bf16(q0 - lo_f(qh), q1 - hi_f(qh)));
+          } else {
+            const uint32_t qh = scale_pair(qr, b.x, b.y);
+            qm = make_float2(lo_f(qh), hi_f(qh));
+          }
           *reinterpret_cast<float2*>(qdq + off + c) =
-              make_float2(lo_f(qh) * a0, hi_f(qh) * a1);
+              make_float2(qm.x * a0, qm.y * a1);
         }
       }
       decay_state<D>(x, btot, wg, r0);
@@ -863,12 +1134,47 @@ decay_sweep_dq_tc(const __grid_constant__ CUtensorMap tq,
     fence_async();
     __syncthreads();   // the stage and the state copy are free
   }
+
+  if constexpr (EXCLUSIVE) {   // du_rows: the two halves' sums, in order
+    const int c = tid % S::GW, h = tid / S::GW;
+    const bool on = tid < 2 * S::GW && c < D;
+    if (on && h == 1) tot[c] = du_acc;
+    __syncthreads();
+    if (on && h == 0) du[static_cast<size_t>(row) * D + c] = du_acc + tot[c];
+  }
+}
+
+// sc = A Bᵀ of two K-major tiles at a and b, and with EXTRA the low
+// parts' A B_loᵀ + A_lo Bᵀ: one wgmma group, alone, waited for (no
+// register of a later product is written while it is open)
+template <int D, bool EXTRA>
+__device__ __forceinline__ void score_tile(float (&sc)[32], uint32_t a,
+                                           uint32_t b, uint32_t a_lo,
+                                           uint32_t b_lo) {
+  fence_regs(sc);
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4 * L<D>::DC; ++kk)
+    wgmma_ss<0, 0>(sc, kdesc(a, kBlock, kk), kdesc(b, kBlock, kk), kk > 0);
+  if constexpr (EXTRA) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss<0, 0>(sc, kdesc(a, kBlock, kk), kdesc(b_lo, kBlock, kk), 1);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss<0, 0>(sc, kdesc(a_lo, kBlock, kk), kdesc(b, kBlock, kk), 1);
+  }
+  wg_commit();
+  fence_regs(sc);
+  wg_wait<0>();
+  fence_regs(sc);
 }
 
 // The dk/dv launch's products for warpgroup WG, straight-line (a branch
 // inside an open wgmma group makes ptxas serialize it): per 64 columns j,
 // acc_k = S1 Q̂ + V Xᵀ (WG 0) or dv = S2 dO + K̂ X (WG 1), S1 or S2 as the
 // hi and lo parts; beside them the update X += Q̂ᵀ dO of its state rows.
+// kSplit: Q̂, K̂ and X's copy in two parts as well.
 template <int D, int WG>
 __device__ __forceinline__ void dkv_products(float (&acc)[L<D>::DC][32],
                                              float (&x)[L<D>::DC][32],
@@ -891,6 +1197,28 @@ __device__ __forceinline__ void dkv_products(float (&acc)[L<D>::DC][32],
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
       wgmma_rs(acc[j], lo[kk], mdesc(rb + j * kBlock, kk), 1);
+    if constexpr (S::kSplit && WG == 0) {   // S1 Q̂lo, V X_loᵀ
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs(acc[0], hi[kk], mdesc(st + S::qlo, kk), 1);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs(acc[0], lo[kk], mdesc(st + S::qlo, kk), 1);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss<0, 0>(acc[0], kdesc(st + S::v, kBlock, kk),
+                       kdesc(base + S::xlo, S::xblock, kk), 1);
+    }
+    if constexpr (S::kSplit && WG == 1) {   // K̂ X_lo, K̂lo X
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss<0, 1>(acc[0], kdesc(st + S::k, kBlock, kk),
+                       mdesc(base + S::xlo, kk), 1);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss<0, 1>(acc[0], kdesc(st + S::klo, kBlock, kk),
+                       mdesc(base + S::x, kk), 1);
+    }
 #pragma unroll
     for (int kk = 0; kk < 4 * DC; ++kk) {
       if constexpr (WG == 0)
@@ -910,6 +1238,12 @@ __device__ __forceinline__ void dkv_products(float (&acc)[L<D>::DC][32],
       for (int kk = 0; kk < 4; ++kk)
         wgmma_ss<1, 1>(x[j], mdesc(st + S::q + WG * kBlock, kk),
                        mdesc(st + S::o + j * kBlock, kk), 1);
+    if constexpr (S::kSplit) {   // X += Q̂loᵀ dO
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss<1, 1>(x[0], mdesc(st + S::qlo, kk), mdesc(st + S::o, kk),
+                       1);
+    }
   }
   wg_commit();
   fence_regs(acc);
@@ -926,8 +1260,13 @@ __device__ __forceinline__ void dkv_products(float (&acc)[L<D>::DC][32],
 //     acc_k = (V dOᵀ ⊙ Mᵀ) Q̂ + V Xᵀ ;  dk = e^{-b} ⊙ acc_k
 //     dv = (K̂ Q̂ᵀ ⊙ Mᵀ) dO + K̂ X ;      X += Q̂ᵀ dO
 //     dg = reverse-cumsum over T of (q⊙dq − K̂ ⊙ acc_k), masked
-// with q⊙dq from the dq launch. Launch as decay_sweep_dq_tc.
-template <int D>
+// with q⊙dq from the dq launch. EXCLUSIVE (the exclusive form with u):
+// Mᵀ strict, Q̂ = q e^{b_{t-1}} in the scores and in X's update, dv's
+// score tile with q·(u⊙k) on its diagonal, dk += (do·v) u⊙q (q_raw read
+// back from global memory), and dg_t = Σ_{s>t} q⊙dq − Σ_{s≥t} k⊙dk: the
+// query at s decays by b_{s−1}, so its reverse sum starts a token later.
+// Launch as decay_sweep_dq_tc.
+template <int D, bool EXCLUSIVE>
 __global__ void __launch_bounds__(kThreads, 1)
 decay_sweep_dkv_tc(const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap tk,
@@ -937,7 +1276,9 @@ decay_sweep_dkv_tc(const __grid_constant__ CUtensorMap tq,
                    const float* __restrict__ qdq,
                    __nv_bfloat16* __restrict__ dk,
                    __nv_bfloat16* __restrict__ dv, float* __restrict__ dg,
-                   int t_len, float lo) {
+                   const __nv_bfloat16* __restrict__ q_raw,
+                   const float* __restrict__ u, int u_heads, int t_len,
+                   float lo) {
   using S = L<D>;
   constexpr int DC = S::DC;
   extern __shared__ uint8_t smem_raw[];
@@ -946,6 +1287,10 @@ decay_sweep_dkv_tc(const __grid_constant__ CUtensorMap tq,
   uint8_t* const sb = smem_raw + (base - raw);
   float* const btot = reinterpret_cast<float*>(sb + S::btot);
   float* const tot = reinterpret_cast<float*>(sb + S::tot);
+  float* const bonus = reinterpret_cast<float*>(sb + S::bonus);
+  const float* const ur =
+      EXCLUSIVE ? u + static_cast<size_t>(blockIdx.x % u_heads) * D
+                : nullptr;
   const uint32_t bar0 = base + S::bars;
   // the warpgroup, from lane 0: provably uniform, so that ptxas does not
   // take the wgmma branches on it for divergent paths
@@ -989,13 +1334,26 @@ decay_sweep_dkv_tc(const __grid_constant__ CUtensorMap tq,
     const int tok0 = (n_tiles - 1 - it) * kTile;
     mbar_wait(bar0 + 8 * (it & 1), (it >> 1) & 1);
 
+    if constexpr (EXCLUSIVE) {   // q·(u⊙k) from the raw tile, as B8's
+      const float p = token_dot<D>(ss + S::q, ss + S::k, ur, t);
+      if (t % 4 == 0) bonus[t / 4] = p;
+    }
     const uint32_t mask = decay_scan<D>(ss + S::g, tot, btot, lo, t);
+    if constexpr (EXCLUSIVE) {   // do·v, into tot (free until the dg scan)
+      const float p = token_dot<D>(ss + S::o, ss + S::v, nullptr, t);
+      if (t % 4 == 0) tot[t / 4] = p;
+    }
     if (wg < DC) {
       decay_state<D>(x, btot, wg, r0);
-      store_state(sb + S::x, S::xblock, x, wg, r0, cl);
+      store_state_parts<D>(sb, x, wg, r0, cl);
     }
-    scale_slot<D>(ss + S::q, ss + S::g, 1.f, t);         // Q̂
-    scale_slot<D>(ss + S::k, ss + S::g, -1.f, t);        // K̂
+    if constexpr (S::kSplit) {                                     // Q̂, K̂
+      split_slot<D, EXCLUSIVE>(ss + S::q, ss + S::qlo, ss + S::g, 1.f, t);
+      split_slot<D>(ss + S::k, ss + S::klo, ss + S::g, -1.f, t);
+    } else {
+      scale_slot<D, EXCLUSIVE>(ss + S::q, ss + S::g, 1.f, t);
+      scale_slot<D>(ss + S::k, ss + S::g, -1.f, t);
+    }
     fence_async();
     __syncthreads();
 
@@ -1004,20 +1362,16 @@ decay_sweep_dkv_tc(const __grid_constant__ CUtensorMap tq,
       float sc[32];
       uint32_t hi[4][4], lo2[4][4];
       // this warpgroup's score tile, alone (as in the dq launch): V dOᵀ
-      // for dk, K̂ Q̂ᵀ for dv
-      const uint32_t sa = st + (wg ? S::k : S::v);
-      const uint32_t sb2 = st + (wg ? S::q : S::o);
-      fence_regs(sc);
-      wg_fence();
-#pragma unroll
-      for (int kk = 0; kk < 4 * DC; ++kk)
-        wgmma_ss<0, 0>(sc, kdesc(sa, kBlock, kk), kdesc(sb2, kBlock, kk),
-                       kk > 0);
-      wg_commit();
-      fence_regs(sc);
-      wg_wait<0>();
-      fence_regs(sc);
-      mask_split<false>(sc, hi, lo2, r0, cl);
+      // for dk, K̂ Q̂ᵀ for dv (kSplit: its two parts' three products)
+      if (wg == 0)
+        score_tile<D, false>(sc, st + S::v, st + S::o, 0, 0);
+      else
+        score_tile<D, S::kSplit>(sc, st + S::k, st + S::q, st + S::klo,
+                                 st + S::qlo);
+      if constexpr (EXCLUSIVE)
+        mask_split_strict<false>(sc, hi, lo2, r0, cl, wg ? bonus : nullptr);
+      else
+        mask_split<false>(sc, hi, lo2, r0, cl);
 
       if (wg == 0)
         dkv_products<D, 0>(acc, x, hi, lo2, st, base);
@@ -1054,10 +1408,26 @@ decay_sweep_dkv_tc(const __grid_constant__ CUtensorMap tq,
             const float2 b = *bp;
             const uint32_t kh = *reinterpret_cast<const uint32_t*>(
                 ss + S::k + off16(kBlock, r, c));
-            if (tok < t_len)
-              *reinterpret_cast<uint32_t*>(dk + off + c) =
-                  pack_bf16(a0 * ex2(-b.x), a1 * ex2(-b.y));
-            *bp = make_float2(lo_f(kh) * a0, hi_f(kh) * a1);
+            // K̂ as the products read it (kSplit: hi + lo)
+            const float2 km =
+                S::kSplit ? split_value(kh, *reinterpret_cast<const uint32_t*>(
+                                                ss + S::klo +
+                                                off16(kBlock, r, c)))
+                          : make_float2(lo_f(kh), hi_f(kh));
+            if (tok < t_len) {
+              float y0 = a0 * ex2(-b.x), y1 = a1 * ex2(-b.y);
+              if constexpr (EXCLUSIVE) {   // dk's bonus (do·v) u⊙q
+                const float d = tot[r];
+                const uint32_t qr = __ldg(
+                    reinterpret_cast<const unsigned int*>(q_raw + off + c));
+                const float2 uu =
+                    __ldg(reinterpret_cast<const float2*>(ur + c));
+                y0 += d * uu.x * lo_f(qr);
+                y1 += d * uu.y * hi_f(qr);
+              }
+              *reinterpret_cast<uint32_t*>(dk + off + c) = pack_bf16(y0, y1);
+            }
+            *bp = make_float2(km.x * a0, km.y * a1);
           } else if (tok < t_len) {
             *reinterpret_cast<uint32_t*>(dv + off + c) = pack_bf16(a0, a1);
           }
@@ -1066,14 +1436,16 @@ decay_sweep_dkv_tc(const __grid_constant__ CUtensorMap tq,
     __syncthreads();
 
     // dg: reverse cumulative sum of q⊙dq − K̂ ⊙ acc_k over the tile, plus
-    // the later tiles' sum, masked where the clamp held g
+    // the later tiles' sum, masked where the clamp held g (EXCLUSIVE:
+    // less the token's own q⊙dq)
     if (scans) {
       float acc_s = 0.f;
 #pragma unroll
       for (int i = 31; i >= 0; --i) {
-        acc_s += pv[i] - *reinterpret_cast<const float*>(
-                             ss + S::g + off32(32 * sc_h + i, sc_c));
-        pv[i] = acc_s;
+        const float qd = pv[i];
+        acc_s += qd - *reinterpret_cast<const float*>(
+                          ss + S::g + off32(32 * sc_h + i, sc_c));
+        pv[i] = EXCLUSIVE ? acc_s - qd : acc_s;
       }
       tot[sc_h * S::GW + sc_c] = acc_s;
     }
@@ -1176,63 +1548,86 @@ decay_sweep_fwd_tc(const __grid_constant__ CUtensorMap tq,
     mbar_wait(bar0 + 8 * (it & 1), (it >> 1) & 1);
 
     if constexpr (EXCLUSIVE) {
-      // the bonus q·(u⊙k) of each token from the raw tile, four threads a
-      // token, u of this row's head; read after decay_scan's first barrier
-      const float* const ur = u + static_cast<size_t>(row % u_heads) * D;
-      const int r = t / 4, part = t % 4;
-      float p = 0.f;
-#pragma unroll
-      for (int c = 2 * part; c < D; c += 8) {
-        const uint32_t qa = *reinterpret_cast<const uint32_t*>(
-            ss + S::q + off16(kBlock, r, c));
-        const uint32_t ka = *reinterpret_cast<const uint32_t*>(
-            ss + S::k + off16(kBlock, r, c));
-        p += lo_f(qa) * __ldg(ur + c) * lo_f(ka) +
-             hi_f(qa) * __ldg(ur + c + 1) * hi_f(ka);
-      }
-      p += __shfl_xor_sync(0xffffffffu, p, 1);
-      p += __shfl_xor_sync(0xffffffffu, p, 2);
-      if (part == 0) bonus[r] = p;
+      // the bonus q·(u⊙k) of each token from the raw tile, u of this row's
+      // head; read after decay_scan's first barrier
+      const float p = token_dot<D>(
+          ss + S::q, ss + S::k,
+          u + static_cast<size_t>(row % u_heads) * D, t);
+      if (t % 4 == 0) bonus[t / 4] = p;
     }
     decay_scan<D>(ss + S::g, tot, btot, lo, t);
-    if (wg < DC) store_state(sb + S::x, S::xblock, x, wg, r0, cl);
-    scale_slot<D, EXCLUSIVE>(ss + S::q, ss + S::g, 1.f, t);      // Q̂
-    split_slot<D>(ss + S::k, ss + S::o, ss + S::g, t);           // K̂
+    if (wg < DC) store_state_parts<D>(sb, x, wg, r0, cl);
+    if constexpr (S::kSplit)                                      // Q̂
+      split_slot<D, EXCLUSIVE>(ss + S::q, ss + S::qlo, ss + S::g, 1.f, t);
+    else
+      scale_slot<D, EXCLUSIVE>(ss + S::q, ss + S::g, 1.f, t);
+    split_slot<D>(ss + S::k, ss + S::o, ss + S::g, -1.f, t);     // K̂
     fence_async();
     __syncthreads();
 
     if (wg < DC) {
       float sc[32], acc[32];
-      uint32_t p[4][4];
-      // the score tile Q̂ K̂ᵀ, alone
+      uint32_t p[4][4], plo[4][4];
+      // the score tile Q̂ K̂ᵀ, alone (kSplit: Q̂hi K̂hiᵀ + Q̂hi K̂loᵀ +
+      // Q̂lo K̂hiᵀ)
       fence_regs(sc);
       wg_fence();
 #pragma unroll
       for (int kk = 0; kk < 4 * DC; ++kk)
         wgmma_ss<0, 0>(sc, kdesc(st + S::q, kBlock, kk),
                        kdesc(st + S::k, kBlock, kk), kk > 0);
+      if constexpr (S::kSplit) {
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss<0, 0>(sc, kdesc(st + S::q, kBlock, kk),
+                         kdesc(st + S::o, kBlock, kk), 1);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss<0, 0>(sc, kdesc(st + S::qlo, kBlock, kk),
+                         kdesc(st + S::k, kBlock, kk), 1);
+      }
       wg_commit();
       fence_regs(sc);
       wg_wait<0>();
       fence_regs(sc);
-      if constexpr (EXCLUSIVE)
+      if constexpr (S::kSplit && EXCLUSIVE)
+        mask_split_strict<true>(sc, p, plo, r0, cl, bonus);
+      else if constexpr (S::kSplit)
+        mask_split<true>(sc, p, plo, r0, cl);
+      else if constexpr (EXCLUSIVE)
         mask_exclusive(sc, p, r0, cl, bonus);
       else
         mask_pack<true>(sc, p, r0, cl);
-      // o = P V + Q̂ S (this warpgroup's 64 columns); beside it the state
-      // update S += K̂ᵀ V with K̂ as hi + lo (the copy is read, the
-      // registers are updated)
+      // o = P V + Q̂ S (this warpgroup's 64 columns; kSplit: P and Q̂ and
+      // S's copy in two parts each); beside it the state update S += K̂ᵀ V
+      // with K̂ as hi + lo (the copy is read, the registers are updated)
       fence_regs(acc);
       fence_regs(x);
       fence_regs(p);
+      if constexpr (S::kSplit) fence_regs(plo);
       wg_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
         wgmma_rs(acc, p[kk], mdesc(st + S::v + wg * kBlock, kk), kk > 0);
+      if constexpr (S::kSplit) {
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_rs(acc, plo[kk], mdesc(st + S::v, kk), 1);
+      }
 #pragma unroll
       for (int kk = 0; kk < 4 * DC; ++kk)
         wgmma_ss<0, 1>(acc, kdesc(st + S::q, kBlock, kk),
                        mdesc(base + S::x + wg * S::xblock, kk), 1);
+      if constexpr (S::kSplit) {
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss<0, 1>(acc, kdesc(st + S::q, kBlock, kk),
+                         mdesc(base + S::xlo, kk), 1);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss<0, 1>(acc, kdesc(st + S::qlo, kBlock, kk),
+                         mdesc(base + S::x, kk), 1);
+      }
 #pragma unroll
       for (int j = 0; j < DC; ++j)
 #pragma unroll
@@ -1246,6 +1641,7 @@ decay_sweep_fwd_tc(const __grid_constant__ CUtensorMap tq,
       fence_regs(acc);
       fence_regs(x);
       fence_regs(p);
+      if constexpr (S::kSplit) fence_regs(plo);
       wg_wait<0>();
       fence_regs(acc);
       fence_regs(x);
@@ -1289,34 +1685,43 @@ decay_sweep_fwd_tc(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-template <int D>
+// The launches of B9's two sweeps, inclusive or EXCLUSIVE (the exclusive
+// form's backward: u, u_heads, the raw k or q for the bonus, du_rows)
+template <int D, bool EXCLUSIVE>
 int launch_dq(const void* q, const void* k, const void* v, const void* g,
-              const void* d_o, void* dq, void* qdq, int rows, int t_len,
-              float lo, cudaStream_t stream) {
+              const void* d_o, const void* u, int u_heads, void* dq,
+              void* qdq, void* du, int rows, int t_len, float lo,
+              cudaStream_t stream) {
   static bool configured = false;
-  int err = configure(decay_sweep_dq_tc<D>, L<D>::bytes, configured);
+  int err = configure(decay_sweep_dq_tc<D, EXCLUSIVE>, L<D>::bytes,
+                      configured);
   CUtensorMap m[5];
   if (!err) err = tensor_maps(m, {q, k, v, d_o, g}, 4, D, t_len, rows);
   if (err) return err;
-  decay_sweep_dq_tc<D><<<rows, kThreads, L<D>::bytes, stream>>>(
+  decay_sweep_dq_tc<D, EXCLUSIVE><<<rows, kThreads, L<D>::bytes, stream>>>(
       m[0], m[1], m[2], m[3], m[4], static_cast<__nv_bfloat16*>(dq),
-      static_cast<float*>(qdq), t_len, lo);
+      static_cast<float*>(qdq), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const float*>(u), u_heads, static_cast<float*>(du), t_len,
+      lo);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
+template <int D, bool EXCLUSIVE>
 int launch_dkv(const void* q, const void* k, const void* v, const void* g,
-               const void* d_o, const void* qdq, void* dk, void* dv,
-               void* dg, int rows, int t_len, float lo, cudaStream_t stream) {
+               const void* d_o, const void* u, int u_heads, const void* qdq,
+               void* dk, void* dv, void* dg, int rows, int t_len, float lo,
+               cudaStream_t stream) {
   static bool configured = false;
-  int err = configure(decay_sweep_dkv_tc<D>, L<D>::bytes, configured);
+  int err = configure(decay_sweep_dkv_tc<D, EXCLUSIVE>, L<D>::bytes,
+                      configured);
   CUtensorMap m[5];
   if (!err) err = tensor_maps(m, {q, k, v, d_o, g}, 4, D, t_len, rows);
   if (err) return err;
-  decay_sweep_dkv_tc<D><<<rows, kThreads, L<D>::bytes, stream>>>(
+  decay_sweep_dkv_tc<D, EXCLUSIVE><<<rows, kThreads, L<D>::bytes, stream>>>(
       m[0], m[1], m[2], m[3], m[4], static_cast<const float*>(qdq),
       static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv),
-      static_cast<float*>(dg), t_len, lo);
+      static_cast<float*>(dg), static_cast<const __nv_bfloat16*>(q),
+      static_cast<const float*>(u), u_heads, t_len, lo);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1336,6 +1741,30 @@ int launch_fwd(const void* q, const void* k, const void* v, const void* g,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int D>
+struct Dim {
+  static constexpr int value = D;
+};
+
+// fn(Dim<D>{}) for the head dims the tensor-core routes take
+template <typename F>
+int by_head_dim(int d, F fn) {
+  switch (d) {
+    case 16:
+      return fn(Dim<16>{});
+    case 64:
+      return fn(Dim<64>{});
+    case 96:
+      return fn(Dim<96>{});
+    case 112:
+      return fn(Dim<112>{});
+    case 128:
+      return fn(Dim<128>{});
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace tc
 
 bool bad_shape(int rows, int t_len) { return rows <= 0 || t_len <= 0; }
@@ -1346,9 +1775,9 @@ bool bad_shape(int rows, int t_len) { return rows <= 0 || t_len <= 0; }
 // device: q, k, v, do and o, dv of one type, fp32 (bf16 == 0) or bf16
 // (bf16 == 1); g, q⊙dq and dg fp32; dq and dk in the inputs' type; u
 // (u_heads, d) fp32, row r reading u[r % u_heads] (rows batch-major, heads
-// minor; u_heads divides rows); s the (rows, d, d) fp32 final state. d in
-// {16, 64, 96, 128}. The bf16 routes (tensor cores) take 16-byte aligned
-// inputs. Each returns
+// minor; u_heads divides rows); s the (rows, d, d) fp32 final state; du
+// the (rows, d) fp32 du_rows. d in {16, 64, 96, 112, 128}. The bf16 routes
+// (tensor cores) take 16-byte aligned inputs. Each returns
 // cudaGetLastError() after the launch, cudaErrorInvalidValue for
 // arguments it does not take, or 10000 + the driver's CUresult when a
 // tensor map cannot be made.
@@ -1370,35 +1799,14 @@ extern "C" int gated_linear_attention_fwd(const void* q, const void* k,
     if (tc::misaligned(q, k, v, g))
       return static_cast<int>(cudaErrorInvalidValue);
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    const float lo = min_log_decay;
-    switch (d) {
-      case 16:
-        return exclusive
-                   ? tc::launch_fwd<16, true>(q, k, v, g, u, u_heads, o, s,
-                                              rows, t, lo, st)
-                   : tc::launch_fwd<16, false>(q, k, v, g, u, 1, o, s, rows,
-                                               t, lo, st);
-      case 64:
-        return exclusive
-                   ? tc::launch_fwd<64, true>(q, k, v, g, u, u_heads, o, s,
-                                              rows, t, lo, st)
-                   : tc::launch_fwd<64, false>(q, k, v, g, u, 1, o, s, rows,
-                                               t, lo, st);
-      case 96:
-        return exclusive
-                   ? tc::launch_fwd<96, true>(q, k, v, g, u, u_heads, o, s,
-                                              rows, t, lo, st)
-                   : tc::launch_fwd<96, false>(q, k, v, g, u, 1, o, s, rows,
-                                               t, lo, st);
-      case 128:
-        return exclusive
-                   ? tc::launch_fwd<128, true>(q, k, v, g, u, u_heads, o, s,
-                                               rows, t, lo, st)
-                   : tc::launch_fwd<128, false>(q, k, v, g, u, 1, o, s, rows,
-                                                t, lo, st);
-      default:
-        return static_cast<int>(cudaErrorInvalidValue);
-    }
+    return tc::by_head_dim(d, [&](auto dim) {
+      constexpr int D = decltype(dim)::value;
+      return exclusive ? tc::launch_fwd<D, true>(q, k, v, g, u, u_heads, o,
+                                                 s, rows, t, min_log_decay,
+                                                 st)
+                       : tc::launch_fwd<D, false>(q, k, v, g, u, 1, o, s,
+                                                  rows, t, min_log_decay, st);
+    });
   }
   const int mode = exclusive ? kFwdExclusive : kFwd;
   const auto sw = sweep(q, k, v, o, mode);
@@ -1421,22 +1829,11 @@ extern "C" int gated_linear_attention_bwd_dq(const void* q, const void* k,
   if (bf16) {
     if (qdq == nullptr || tc::misaligned(q, k, v, g, d_o))
       return static_cast<int>(cudaErrorInvalidValue);
-    switch (d) {
-      case 16:
-        return tc::launch_dq<16>(q, k, v, g, d_o, dq, qdq, rows, t,
-                                 min_log_decay, st);
-      case 64:
-        return tc::launch_dq<64>(q, k, v, g, d_o, dq, qdq, rows, t,
-                                 min_log_decay, st);
-      case 96:
-        return tc::launch_dq<96>(q, k, v, g, d_o, dq, qdq, rows, t,
-                                 min_log_decay, st);
-      case 128:
-        return tc::launch_dq<128>(q, k, v, g, d_o, dq, qdq, rows, t,
-                                  min_log_decay, st);
-      default:
-        return static_cast<int>(cudaErrorInvalidValue);
-    }
+    return tc::by_head_dim(d, [&](auto dim) {
+      return tc::launch_dq<decltype(dim)::value, false>(
+          q, k, v, g, d_o, nullptr, 1, dq, qdq, nullptr, rows, t,
+          min_log_decay, st);
+    });
   }
   const auto sw = sweep(d_o, v, k, dq, kDq);
   return launch_d<false, false>(sw, sw, 1, g, nullptr, 1, nullptr, rows, t,
@@ -1460,24 +1857,73 @@ extern "C" int gated_linear_attention_bwd_dkv(const void* q, const void* k,
   if (bf16) {
     if (qdq == nullptr || dg == nullptr || tc::misaligned(q, k, v, g, d_o))
       return static_cast<int>(cudaErrorInvalidValue);
-    switch (d) {
-      case 16:
-        return tc::launch_dkv<16>(q, k, v, g, d_o, qdq, dk, dv, dg, rows, t,
-                                  min_log_decay, st);
-      case 64:
-        return tc::launch_dkv<64>(q, k, v, g, d_o, qdq, dk, dv, dg, rows, t,
-                                  min_log_decay, st);
-      case 96:
-        return tc::launch_dkv<96>(q, k, v, g, d_o, qdq, dk, dv, dg, rows, t,
-                                  min_log_decay, st);
-      case 128:
-        return tc::launch_dkv<128>(q, k, v, g, d_o, qdq, dk, dv, dg, rows,
-                                   t, min_log_decay, st);
-      default:
-        return static_cast<int>(cudaErrorInvalidValue);
-    }
+    return tc::by_head_dim(d, [&](auto dim) {
+      return tc::launch_dkv<decltype(dim)::value, false>(
+          q, k, v, g, d_o, nullptr, 1, qdq, dk, dv, dg, rows, t,
+          min_log_decay, st);
+    });
   }
   return launch_d<true, false>(sweep(v, d_o, q, dk, kDk),
                                sweep(k, q, d_o, dv, kDv), 2, g, nullptr, 1,
                                nullptr, rows, t, d, min_log_decay, stream);
+}
+
+// The exclusive form's backward (B8's exclusive route with the bonus u;
+// no Pallas original: JAX differentiates chunked_gla(exclusive=True, u)
+// with jnp autodiff), B9's two sweeps with the strict mask, q scaled by
+// e^{b_{t-1}} and the bonus terms.
+// Forward sweep: dq = e^{b_{t-1}} ⊙ [(dO Vᵀ ⊙ M_strict) K̂ + dO Sᵀ] +
+// (do·v) u⊙k in the inputs' type. bf16 (tensor cores) also writes the
+// decay's share of q⊙dq (fp32, for the dk/dv launch's dg) and du_rows =
+// Σ_t (do·v) q⊙k per row (fp32; the caller sums each head's rows); fp32
+// (FMAs) writes dq only.
+extern "C" int gated_linear_attention_bwd_exclusive_dq(
+    const void* q, const void* k, const void* v, const void* g,
+    const void* d_o, const void* u, void* dq, void* qdq, void* du, int rows,
+    int t, int d, int bf16, int u_heads, float min_log_decay, void* stream) {
+  if (bad_shape(rows, t) || u == nullptr || u_heads < 1 || rows % u_heads)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bf16) {
+    if (qdq == nullptr || du == nullptr ||
+        tc::misaligned(q, k, v, g, d_o) || tc::misaligned(u, du, u))
+      return static_cast<int>(cudaErrorInvalidValue);
+    return tc::by_head_dim(d, [&](auto dim) {
+      return tc::launch_dq<decltype(dim)::value, true>(
+          q, k, v, g, d_o, u, u_heads, dq, qdq, du, rows, t, min_log_decay,
+          st);
+    });
+  }
+  const auto sw = sweep(d_o, v, k, dq, kDqExclusive);
+  return launch_d<false, false>(sw, sw, 1, g, u, u_heads, nullptr, rows, t,
+                                d, min_log_decay, stream);
+}
+
+// Reverse sweep: dk = e^{-b} ⊙ [(V dOᵀ ⊙ Mᵀ_strict) Q̂ + V R'ᵀ] + (do·v)
+// u⊙q and dv = (K̂ Q̂ᵀ ⊙ Mᵀ_strict + diag(q·(u⊙k))) dO + K̂ R', Q̂ = q
+// e^{b_{t-1}}, one launch, in the inputs' type. bf16 (tensor cores) also
+// writes dg_t = Σ_{s>t} q⊙dq − Σ_{s≥t} k⊙dk (masked) from the dq launch's
+// q⊙dq; fp32 (FMAs) writes dk and dv only.
+extern "C" int gated_linear_attention_bwd_exclusive_dkv(
+    const void* q, const void* k, const void* v, const void* g,
+    const void* d_o, const void* u, const void* qdq, void* dk, void* dv,
+    void* dg, int rows, int t, int d, int bf16, int u_heads,
+    float min_log_decay, void* stream) {
+  if (bad_shape(rows, t) || u == nullptr || u_heads < 1 || rows % u_heads)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bf16) {
+    if (qdq == nullptr || dg == nullptr || tc::misaligned(q, k, v, g, d_o) ||
+        tc::misaligned(u, qdq, u))
+      return static_cast<int>(cudaErrorInvalidValue);
+    return tc::by_head_dim(d, [&](auto dim) {
+      return tc::launch_dkv<decltype(dim)::value, true>(
+          q, k, v, g, d_o, u, u_heads, qdq, dk, dv, dg, rows, t,
+          min_log_decay, st);
+    });
+  }
+  return launch_d<true, false>(sweep(v, d_o, q, dk, kDkExclusive),
+                               sweep(k, q, d_o, dv, kDvExclusive), 2, g, u,
+                               u_heads, nullptr, rows, t, d, min_log_decay,
+                               stream);
 }

@@ -29,9 +29,14 @@ semantics, takes any).
 shape, the (B, H, T, D) ↔ (BH, T, D) reshapes and the JAX wrapper's
 chunk padding rule around a ``torch.autograd.Function`` that stands in
 for its custom VJP: forward B8, backward B9, and only (q, k, v, g) saved.
-``rwkv6_attention`` is the forward-only exclusive form with the bonus u,
-``ssd_attention`` the forward-only inclusive form with its final state
-(the Mamba-2 SSD prefill).
+``rwkv6_attention`` is the exclusive form with the bonus u, around
+``_RWKV6Attention``: forward B8's exclusive route (one launch, the
+RWKV-6 prefill when no gradient is wanted) and backward
+``bwd_exclusive`` (``bwd_exclusive_dq``, then ``bwd_exclusive_dkv``: B9's
+design with the strict mask, q scaled by e^{b_{t-1}}, the bonus terms,
+the exclusive dg and du; no Pallas original, JAX differentiates
+``chunked_gla`` by autodiff). ``ssd_attention`` is the forward-only
+inclusive form with its final state (the Mamba-2 SSD prefill).
 """
 
 from __future__ import annotations
@@ -45,7 +50,8 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.gated_linear_attention import ref
 from repro_torch.kernels.gated_linear_attention.ref import (
-    MIN_LOG_DECAY, chunked_bwd_ref, chunked_fwd_ref)
+    MIN_LOG_DECAY, chunked_bwd_exclusive_ref, chunked_bwd_ref,
+    chunked_fwd_ref)
 from repro_torch.kernels.linear_attention.ops import (  # noqa: F401
     _DTYPES, HEAD_DIMS, _chunk_and_pad, _check, _on_cpu, _raise_on, _rows,
     _stream)
@@ -84,9 +90,15 @@ def load() -> ctypes.CDLL:
         f32, ptr]
     lib.gated_linear_attention_bwd_dkv.argtypes = [ptr] * 9 + [i32] * 4 + [
         f32, ptr]
+    lib.gated_linear_attention_bwd_exclusive_dq.argtypes = [ptr] * 9 + [
+        i32] * 5 + [f32, ptr]
+    lib.gated_linear_attention_bwd_exclusive_dkv.argtypes = [ptr] * 10 + [
+        i32] * 5 + [f32, ptr]
     for fn in (lib.gated_linear_attention_fwd,
                lib.gated_linear_attention_bwd_dq,
-               lib.gated_linear_attention_bwd_dkv):
+               lib.gated_linear_attention_bwd_dkv,
+               lib.gated_linear_attention_bwd_exclusive_dq,
+               lib.gated_linear_attention_bwd_exclusive_dkv):
         fn.restype = ctypes.c_int
     return lib
 
@@ -111,6 +123,33 @@ def _check_gated(kernel: str, chunk: int, g: Tensor, min_log_decay: float,
                          f"the {first.dtype} route's limit {limit}")
 
 
+def _check_qdq(kernel: str, qdq: Tensor, q: Tensor) -> None:
+    """The dk/dv launches' q⊙dq: contiguous fp32 of q's shape and
+    device."""
+    if qdq.shape != q.shape or qdq.dtype != torch.float32 or \
+            qdq.device != q.device or not qdq.is_contiguous():
+        raise ValueError(f"{kernel}: q⊙dq is {qdq.dtype} "
+                         f"{tuple(qdq.shape)} on {qdq.device}, expected a "
+                         f"contiguous float32 {tuple(q.shape)} on {q.device}")
+
+
+def _u_heads(kernel: str, u: Tensor, bh: int, d: int,
+             device: torch.device) -> int:
+    """The exclusive form's bonus as the kernels take it: a contiguous
+    fp32 (Dk,) tensor for every row, or (H, Dk) per head with H dividing
+    the BH rows (row r reads u[r % H]), on the rows' device. Returns H (1
+    for (Dk,))."""
+    heads = u.shape[0] if u.ndim == 2 else 1
+    if u.shape[-1:] != (d,) or u.ndim > 2 or heads < 1 or bh % heads or \
+            u.dtype != torch.float32 or u.device != device or \
+            not u.is_contiguous():
+        raise ValueError(f"{kernel}: u must be a contiguous fp32 ({d},) or "
+                         f"(H, {d}) tensor with H dividing {bh} rows, on "
+                         f"{device}; got {u.dtype} {tuple(u.shape)} on "
+                         f"{u.device}")
+    return heads
+
+
 def fwd(q: Tensor, k: Tensor, v: Tensor, g: Tensor, *,
         u: Optional[Tensor] = None, chunk: int = 128,
         exclusive: bool = False, min_log_decay: float = MIN_LOG_DECAY,
@@ -131,16 +170,7 @@ def fwd(q: Tensor, k: Tensor, v: Tensor, g: Tensor, *,
     if exclusive:
         u = (torch.zeros(d, dtype=torch.float32, device=q.device)
              if u is None else u)
-        u_heads = u.shape[0] if u.ndim == 2 else 1
-        if u.shape[-1:] != (d,) or u.ndim > 2 or u_heads < 1 or \
-                bh % u_heads or \
-                u.dtype != torch.float32 or u.device != q.device or \
-                not u.is_contiguous():
-            raise ValueError(f"gated_linear_attention_fwd: u must be a "
-                             f"contiguous fp32 ({d},) or (H, {d}) tensor "
-                             f"with H dividing {bh} rows, on {q.device}; "
-                             f"got {u.dtype} {tuple(u.shape)} on "
-                             f"{u.device}")
+        u_heads = _u_heads("gated_linear_attention_fwd", u, bh, d, q.device)
     o = torch.empty_like(v)
     s = torch.empty((bh, d, d), dtype=torch.float32, device=q.device)
     if bh == 0 or t == 0:
@@ -201,12 +231,7 @@ def bwd_dkv(q: Tensor, k: Tensor, v: Tensor, g: Tensor, do: Tensor,
     writes all three; fp32: it writes dk and dv, and dg is formed here."""
     _check_gated("gated_linear_attention_bwd_dkv", chunk, g, min_log_decay,
                  q=q, k=k, v=v, do=do)
-    if qdq.shape != q.shape or qdq.dtype != torch.float32 or \
-            qdq.device != q.device or not qdq.is_contiguous():
-        raise ValueError(f"gated_linear_attention_bwd_dkv: q⊙dq is "
-                         f"{qdq.dtype} {tuple(qdq.shape)} on {qdq.device}, "
-                         f"expected a contiguous float32 {tuple(q.shape)} "
-                         f"on {q.device}")
+    _check_qdq("gated_linear_attention_bwd_dkv", qdq, q)
     bh, t, d = q.shape
     bf16 = q.dtype == torch.bfloat16
     dk = torch.empty_like(k)
@@ -246,6 +271,105 @@ def bwd(q: Tensor, k: Tensor, v: Tensor, g: Tensor, do: Tensor, *,
     dk, dv, dg = bwd_dkv(q, k, v, g, do, qdq, chunk=chunk,
                          min_log_decay=min_log_decay)
     return dq, dk, dv, dg
+
+
+def bwd_exclusive_dq(q: Tensor, k: Tensor, v: Tensor, g: Tensor,
+                     do: Tensor, u: Tensor, *, chunk: int = 128,
+                     min_log_decay: float = MIN_LOG_DECAY
+                     ) -> Tuple[Tensor, Tensor, Tensor]:
+    """The exclusive backward's forward sweep on CUDA rows:
+    (dq in q's type, the decay's share of q⊙dq fp32, du_rows (BH, Dk)
+    fp32), as ``ref.bwd_exclusive_dq_ref``. bf16: one launch writes all
+    three; fp32: the launch writes dq (its bonus included) and q⊙dq and
+    du_rows are formed here."""
+    _check_gated("gated_linear_attention_bwd_exclusive_dq", chunk, g,
+                 min_log_decay, q=q, k=k, v=v, do=do)
+    bh, t, d = q.shape
+    u_heads = _u_heads("gated_linear_attention_bwd_exclusive_dq", u, bh, d,
+                       q.device)
+    bf16 = q.dtype == torch.bfloat16
+    dq = torch.empty_like(q)
+    qdq = torch.empty((bh, t, d), dtype=torch.float32, device=q.device)
+    du_rows = torch.zeros((bh, d), dtype=torch.float32, device=q.device)
+    if bh == 0 or t == 0:
+        return dq, qdq, du_rows
+    lib = load()
+    with torch.cuda.device(q.device):
+        err = lib.gated_linear_attention_bwd_exclusive_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+            do.data_ptr(), u.data_ptr(), dq.data_ptr(),
+            qdq.data_ptr() if bf16 else None,
+            du_rows.data_ptr() if bf16 else None, bh, t, d,
+            _DTYPES[q.dtype], u_heads, min_log_decay, _stream(q))
+    _raise_on("gated_linear_attention_bwd_exclusive_dq", err)
+    bwd_exclusive_dq.launches += 1
+    if not bf16:
+        dov = (do * v).sum(-1, keepdim=True)
+        qdq = q * dq - dov * q * ref._u_rows(u, bh) * k
+        du_rows = (dov * q * k).sum(1)
+    return dq, qdq, du_rows
+
+
+bwd_exclusive_dq.launches = 0
+
+
+def bwd_exclusive_dkv(q: Tensor, k: Tensor, v: Tensor, g: Tensor,
+                      do: Tensor, u: Tensor, qdq: Tensor, *,
+                      chunk: int = 128, min_log_decay: float = MIN_LOG_DECAY
+                      ) -> Tuple[Tensor, Tensor, Tensor]:
+    """The exclusive backward's reverse sweep on CUDA rows, one launch:
+    (dk in k's type, dv in v's type, dg fp32) from the dq launch's q⊙dq,
+    as ``ref.bwd_exclusive_dkv_ref``. bf16: the launch writes all three;
+    fp32: it writes dk and dv (their bonuses included), and dg is formed
+    here from the decay's share of k⊙dk."""
+    _check_gated("gated_linear_attention_bwd_exclusive_dkv", chunk, g,
+                 min_log_decay, q=q, k=k, v=v, do=do)
+    _check_qdq("gated_linear_attention_bwd_exclusive_dkv", qdq, q)
+    bh, t, d = q.shape
+    u_heads = _u_heads("gated_linear_attention_bwd_exclusive_dkv", u, bh, d,
+                       q.device)
+    bf16 = q.dtype == torch.bfloat16
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    dg = torch.empty_like(g)
+    if bh == 0 or t == 0:
+        return dk, dv, dg
+    lib = load()
+    with torch.cuda.device(q.device):
+        err = lib.gated_linear_attention_bwd_exclusive_dkv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+            do.data_ptr(), u.data_ptr(), qdq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), dg.data_ptr() if bf16 else None, bh, t, d,
+            _DTYPES[q.dtype], u_heads, min_log_decay, _stream(q))
+    _raise_on("gated_linear_attention_bwd_exclusive_dkv", err)
+    bwd_exclusive_dkv.launches += 1
+    if not bf16:
+        dov = (do * v).sum(-1, keepdim=True)
+        kdk = k * dk - dov * q * ref._u_rows(u, bh) * k
+        dg = ref.dg_exclusive(qdq, kdk, g, min_log_decay=min_log_decay)
+    return dk, dv, dg
+
+
+bwd_exclusive_dkv.launches = 0
+
+
+def bwd_exclusive(q: Tensor, k: Tensor, v: Tensor, g: Tensor, do: Tensor,
+                  u: Tensor, *, chunk: int = 128,
+                  min_log_decay: float = MIN_LOG_DECAY, kernel: bool = True
+                  ) -> Tuple[Tensor, Tensor, Tensor, Tensor, Tensor]:
+    """The backward of B8's exclusive form with the bonus u ((Dk,), or
+    (H, Dk) per head): (dq, dk, dv, dg, du) in q's, k's, v's and g's
+    types and du fp32 in u's shape, from q, k, v, g, u and do alone. On
+    CUDA the dq launch (with du per row, summed here over each head's
+    rows), then the dk/dv launch, which forms dg."""
+    if not kernel or _on_cpu(q):
+        return chunked_bwd_exclusive_ref(q, k, v, g, do, u, chunk=chunk,
+                                         min_log_decay=min_log_decay)
+    dq, qdq, du_rows = bwd_exclusive_dq(q, k, v, g, do, u, chunk=chunk,
+                                        min_log_decay=min_log_decay)
+    dk, dv, dg = bwd_exclusive_dkv(q, k, v, g, do, u, qdq, chunk=chunk,
+                                   min_log_decay=min_log_decay)
+    return dq, dk, dv, dg, ref._head_sum(du_rows, u)
 
 
 class _GatedLinearAttention(torch.autograd.Function):
@@ -297,19 +421,46 @@ def gated_linear_attention(q: Tensor, k: Tensor, v: Tensor,
     return o[:, :t].reshape(b, h, t, dv)
 
 
+class _RWKV6Attention(torch.autograd.Function):
+    """The exclusive form with the bonus u under autograd: forward B8's
+    exclusive route, backward ``bwd_exclusive``, only (q, k, v, g, u)
+    kept. The final state is an output without a gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, g, u, chunk, min_log_decay, kernel):
+        o, s = fwd(q, k, v, g, u=u, chunk=chunk, exclusive=True,
+                   min_log_decay=min_log_decay, kernel=kernel)
+        ctx.save_for_backward(q, k, v, g, u)
+        ctx.chunk, ctx.min_log_decay, ctx.kernel = chunk, min_log_decay, \
+            kernel
+        ctx.mark_non_differentiable(s)
+        return o, s
+
+    @staticmethod
+    def backward(ctx, do, _ds):
+        q, k, v, g, u = ctx.saved_tensors
+        grads = bwd_exclusive(q, k, v, g, do.contiguous(), u,
+                              chunk=ctx.chunk,
+                              min_log_decay=ctx.min_log_decay,
+                              kernel=ctx.kernel)
+        return (*grads, None, None, None)
+
+
 def rwkv6_attention(q: Tensor, k: Tensor, v: Tensor, log_decay: Tensor,
                     u: Tensor, *, chunk: int = 128,
                     min_log_decay: float = MIN_LOG_DECAY,
                     kernel: bool = True) -> Tuple[Tensor, Tensor]:
     """RWKV-6 convention (exclusive + bonus u: (Dk,), or (H, Dk) per head
-    as the RWKV-6 model keeps it), forward only, as JAX's: returns
-    (o: (B, H, T, Dv) in v's type, final state (B, H, Dk, Dv) fp32). On a
-    CUDA tensor one B8 launch covers every head."""
+    as the RWKV-6 model keeps it): returns (o: (B, H, T, Dv) in v's type,
+    final state (B, H, Dk, Dv) fp32, which carries no gradient). On a
+    CUDA tensor one B8 launch covers every head; where a gradient is
+    wanted the exclusive backward (two launches) follows in the backward
+    pass."""
     b, h, t, dk = q.shape
     dv = v.shape[-1]
     c, rows = _flat_inputs(q, k, v, log_decay, chunk)
-    o, s = fwd(*rows, u=u.to(torch.float32).contiguous(), chunk=c,
-               exclusive=True, min_log_decay=min_log_decay, kernel=kernel)
+    o, s = _RWKV6Attention.apply(*rows, u.to(torch.float32).contiguous(),
+                                 c, min_log_decay, kernel)
     return o[:, :t].reshape(b, h, t, dv), s.reshape(b, h, dk, dv)
 
 

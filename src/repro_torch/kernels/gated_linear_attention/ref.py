@@ -21,7 +21,14 @@ g the log-decay (≤ 0, fp32). They accumulate in float32:
 - ``bwd_dq_ref`` / ``bwd_dkv_dg_ref``: B9's function split as its CUDA
   launches split it: the forward sweep returns dq in q's type and q⊙dq
   in fp32, the reverse sweep takes q⊙dq and returns dk, dv and dg;
-- ``chunked_bwd_ref``: B9's function, the two above together.
+- ``chunked_bwd_ref``: B9's function, the two above together;
+- ``chunked_bwd_exclusive_ref``: the backward of the exclusive form with
+  the bonus u (RWKV-6), which JAX takes by autodiff of ``chunked_gla``:
+  B9's two sweeps with the strict mask and q scaled by e^{b_{t-1}}
+  (``chunked_bwd_exclusive_dq_ref`` / ``chunked_bwd_exclusive_dkv_ref``),
+  the bonus terms, dg by ``dg_exclusive`` and du; split as its CUDA
+  launches split it by ``bwd_exclusive_dq_ref`` /
+  ``bwd_exclusive_dkv_ref``.
 
 The chunked forms scale by exp(±b) with b the cumulative log-decay from
 the start of the chunk; with g at the clamp (−1) over a 128-token chunk
@@ -242,3 +249,164 @@ def chunked_bwd_ref(q: Tensor, k: Tensor, v: Tensor, g: Tensor, do: Tensor,
     dk, dv, dg = bwd_dkv_dg_ref(q, k, v, g, do, qdq, chunk=chunk,
                                 min_log_decay=min_log_decay)
     return dq, dk, dv, dg
+
+
+# ---------------------------------------------------------------------------
+# The exclusive form's backward (RWKV-6: o_t = (S_{t-1} + diag(u) k_t v_tᵀ)ᵀ
+# q_t). With G the cumulative clamped log-decay, o_t's decay part is
+# Σ_{s<t} (q_t ⊙ e^{G_{t-1} − G_s} · k_s) v_s, so
+#   dq_t = Σ_{s<t} (do_t·v_s) e^{G_{t-1}−G_s} ⊙ k_s + (do_t·v_t) u⊙k_t
+#   dk_s = Σ_{t>s} (do_t·v_s) e^{G_{t-1}−G_s} ⊙ q_t + (do_s·v_s) u⊙q_s
+#   dv_s = Σ_{t>s} (q_t·(e^{G_{t-1}−G_s} ⊙ k_s)) do_t + (q_s·(u⊙k_s)) do_s
+#   du   = Σ_t (do_t·v_t) q_t⊙k_t, summed over each head's rows
+# and the clamped g_r enters the pairs s < r < t: with q⊙dq and k⊙dk the
+# decay's shares alone,
+#   dg_r = Σ_{t>r} q⊙dq_t − Σ_{s≥r} k⊙dk_s
+#        = reverse-cumsum(q⊙dq − k⊙dk)_r − q⊙dq_r
+# (B9's identity less the token's own q⊙dq), zero where the clamp held g.
+# ---------------------------------------------------------------------------
+
+def _u_rows(u: Tensor, bh: int) -> Tensor:
+    """The bonus of each row, (BH, 1, Dk) fp32: u (Dk,) for every row, or
+    (H, Dk) with row r reading u[r % H]."""
+    u = u.float()
+    if u.ndim == 1:
+        return u.expand(bh, -1)[:, None]
+    return u[torch.arange(bh, device=u.device) % u.shape[0]][:, None]
+
+
+def _head_sum(du_rows: Tensor, u: Tensor) -> Tensor:
+    """du_rows (BH, Dk) summed over the rows of each head into u's shape."""
+    if u.ndim == 1:
+        return du_rows.sum(0)
+    return du_rows.reshape(-1, *u.shape).sum(0)
+
+
+def _exclusive_decay(g: Tensor, chunk: int, min_log_decay: float):
+    """The clamped within-chunk cumulative log-decay b, b_{t-1} (0 at a
+    chunk's first token: the exclusive query's scale, JAX's bcum − g) and
+    the chunk totals, in chunks (N, BH, C, Dk)."""
+    gc = _chunks(g, chunk).clamp(min_log_decay, 0.0)
+    bcum = torch.cumsum(gc, dim=2)
+    return bcum, bcum - gc, bcum[:, :, -1:, :]
+
+
+def chunked_bwd_exclusive_dq_ref(k: Tensor, v: Tensor, g: Tensor,
+                                 do: Tensor, *, chunk: int = 128,
+                                 min_log_decay: float = MIN_LOG_DECAY
+                                 ) -> Tensor:
+    """The decay's share of dq, chunk by chunk: e^{b_{t-1}} ⊙
+    [(dO Vᵀ ⊙ M_strict) K̂ + dO Sᵀ], S recomputed. fp32 (BH, T, Dk)."""
+    kc, vc, doc = (_chunks(x, chunk) for x in (k, v, do))
+    bcum, bprev, btot = _exclusive_decay(g, chunk, min_log_decay)
+    mask = torch.tril(torch.ones((chunk, chunk), dtype=torch.float32,
+                                 device=k.device), diagonal=-1)
+    s = torch.zeros((kc.shape[1], kc.shape[-1], vc.shape[-1]),
+                    dtype=torch.float32, device=k.device)
+    dqs = []
+    for k_i, v_i, do_i, b_i, bp_i, bt_i in zip(kc, vc, doc, bcum, bprev,
+                                               btot):
+        k_hat = k_i * torch.exp(-b_i)
+        vdo = torch.einsum("btv,bsv->bts", do_i, v_i) * mask
+        dq = torch.einsum("bts,bsk->btk", vdo, k_hat)
+        dq = dq + torch.einsum("btv,bkv->btk", do_i, s)
+        dqs.append(dq * torch.exp(bp_i))
+        s = (torch.exp(bt_i).transpose(1, 2) * s
+             + torch.einsum("bck,bcv->bkv", k_i * torch.exp(bt_i - b_i), v_i))
+    return _unchunk(torch.stack(dqs), torch.float32)
+
+
+def chunked_bwd_exclusive_dkv_ref(q: Tensor, k: Tensor, v: Tensor, g: Tensor,
+                                  do: Tensor, *, chunk: int = 128,
+                                  min_log_decay: float = MIN_LOG_DECAY
+                                  ) -> Tuple[Tensor, Tensor]:
+    """The decay's shares of dk and dv, the reverse sweep over R (later
+    chunks' Q̂ doᵀ with Q̂ = q e^{b_{t-1}}, decayed to the chunk's end):
+    dk = e^{−b} ⊙ (V dOᵀ ⊙ Mᵀ_strict) Q̂ + e^{btot − b} ⊙ (V Rᵀ),
+    dv = (K̂ Q̂ᵀ ⊙ Mᵀ_strict) dO + K_tail R. Both fp32."""
+    qc, kc, vc, doc = (_chunks(x, chunk) for x in (q, k, v, do))
+    bcum, bprev, btot = _exclusive_decay(g, chunk, min_log_decay)
+    n = qc.shape[0]
+    mask_rev = torch.triu(torch.ones((chunk, chunk), dtype=torch.float32,
+                                     device=q.device), diagonal=1)
+    r = torch.zeros((qc.shape[1], qc.shape[-1], vc.shape[-1]),
+                    dtype=torch.float32, device=q.device)
+    dks, dvs = [None] * n, [None] * n
+    for i in reversed(range(n)):
+        q_i, k_i, v_i, do_i = qc[i], kc[i], vc[i], doc[i]
+        b_i, bt_i = bcum[i], btot[i]
+        q_hat = q_i * torch.exp(bprev[i])
+        k_hat = k_i * torch.exp(-b_i)
+        k_tail = k_i * torch.exp(bt_i - b_i)
+        dov = torch.einsum("btv,bsv->bts", v_i, do_i) * mask_rev
+        dks[i] = (torch.einsum("bts,bsk->btk", dov, q_hat) * torch.exp(-b_i)
+                  + torch.einsum("btv,bkv->btk", v_i, r)
+                  * torch.exp(bt_i - b_i))
+        scores = torch.einsum("btk,bsk->bts", k_hat, q_hat) * mask_rev
+        dvs[i] = (torch.einsum("bts,bsv->btv", scores, do_i)
+                  + torch.einsum("btk,bkv->btv", k_tail, r))
+        r = (torch.exp(bt_i).transpose(1, 2) * r
+             + torch.einsum("bck,bcv->bkv", q_hat, do_i))
+    return (_unchunk(torch.stack(dks), torch.float32),
+            _unchunk(torch.stack(dvs), torch.float32))
+
+
+def dg_exclusive(qdq: Tensor, kdk: Tensor, g: Tensor, *,
+                 min_log_decay: float = MIN_LOG_DECAY) -> Tensor:
+    """dg_r = Σ_{t>r} q⊙dq_t − Σ_{s≥r} k⊙dk_s from the decay's shares
+    q⊙dq and k⊙dk (fp32), zero where the clamp held g; in g's type."""
+    diff = qdq - kdk
+    dg = torch.flip(torch.cumsum(torch.flip(diff, dims=(1,)), dim=1),
+                    dims=(1,)) - qdq
+    g32 = g.float()
+    return (dg * ((g32 >= min_log_decay) & (g32 <= 0.0))).to(g.dtype)
+
+
+def bwd_exclusive_dq_ref(q: Tensor, k: Tensor, v: Tensor, g: Tensor,
+                         do: Tensor, u: Tensor, *, chunk: int = 128,
+                         min_log_decay: float = MIN_LOG_DECAY
+                         ) -> Tuple[Tensor, Tensor, Tensor]:
+    """What the exclusive backward's dq launch returns: (dq with its
+    bonus (do·v) u⊙k, in q's type; the decay's share of q⊙dq, fp32;
+    du_rows = Σ_t (do·v) q⊙k per row, (BH, Dk) fp32)."""
+    dq = chunked_bwd_exclusive_dq_ref(k, v, g, do, chunk=chunk,
+                                      min_log_decay=min_log_decay)
+    qf, kf = q.float(), k.float()
+    dov = (do.float() * v.float()).sum(-1, keepdim=True)
+    u_rows = _u_rows(u, q.shape[0])
+    return ((dq + dov * u_rows * kf).to(q.dtype), qf * dq,
+            (dov * qf * kf).sum(1))
+
+
+def bwd_exclusive_dkv_ref(q: Tensor, k: Tensor, v: Tensor, g: Tensor,
+                          do: Tensor, u: Tensor, qdq: Tensor, *,
+                          chunk: int = 128,
+                          min_log_decay: float = MIN_LOG_DECAY
+                          ) -> Tuple[Tensor, Tensor, Tensor]:
+    """What the exclusive backward's dk/dv launch returns given the dq
+    launch's q⊙dq: (dk with its bonus (do·v) u⊙q, in k's type; dv with
+    (q·(u⊙k)) do, in v's type; dg by ``dg_exclusive``, in g's type)."""
+    dk, dv = chunked_bwd_exclusive_dkv_ref(q, k, v, g, do, chunk=chunk,
+                                           min_log_decay=min_log_decay)
+    qf, kf, dof = q.float(), k.float(), do.float()
+    u_rows = _u_rows(u, q.shape[0])
+    dov = (dof * v.float()).sum(-1, keepdim=True)
+    quk = (qf * u_rows * kf).sum(-1, keepdim=True)
+    dg = dg_exclusive(qdq, kf * dk, g, min_log_decay=min_log_decay)
+    return ((dk + dov * u_rows * qf).to(k.dtype),
+            (dv + quk * dof).to(v.dtype), dg)
+
+
+def chunked_bwd_exclusive_ref(q: Tensor, k: Tensor, v: Tensor, g: Tensor,
+                              do: Tensor, u: Tensor, *, chunk: int = 128,
+                              min_log_decay: float = MIN_LOG_DECAY
+                              ) -> Tuple[Tensor, Tensor, Tensor, Tensor,
+                                         Tensor]:
+    """The exclusive form's backward with the bonus u ((Dk,), or (H, Dk)
+    with row r reading u[r % H]): (dq, dk, dv, dg, du) in q's, k's, v's
+    and g's types, du fp32 in u's shape."""
+    dq, qdq, du_rows = bwd_exclusive_dq_ref(q, k, v, g, do, u, chunk=chunk,
+                                            min_log_decay=min_log_decay)
+    dk, dv, dg = bwd_exclusive_dkv_ref(q, k, v, g, do, u, qdq, chunk=chunk,
+                                       min_log_decay=min_log_decay)
+    return dq, dk, dv, dg, _head_sum(du_rows, u)

@@ -53,11 +53,12 @@
 //   which add nothing (T a multiple of the wrapper's chunk but not of 64
 //   is covered).
 // - Head dims: D is padded to DC 64-column blocks. D = 16 and 64 take one
-//   block, 96 and 128 two; columns past D read as zeros (the tensor map
-//   is D wide), so they add nothing to a score, an output or the state,
-//   and every store (o, dq, dk, dv and the final state's rows and
-//   columns) skips them. At D = 96 the padded block does a third more
-//   tensor-core work than D needs.
+//   block, 96, 112 and 128 two; columns past D read as zeros (the tensor
+//   map is D wide: 224 bytes a row at D = 112, a multiple of TMA's 16),
+//   so they add nothing to a score, an output or the state, and every
+//   store (o, dq, dk, dv and the final state's rows and columns) skips
+//   them. At D = 96 the padded block does a third more tensor-core work
+//   than D needs, at D = 112 a seventh more.
 // - Products: wgmma, bf16 operands, fp32 accumulators. The state (S =
 //   Σ k vᵀ for B2 and dq, R = Σ_later q doᵀ for dk/dv, D×D fp32) lives in
 //   the accumulator registers, its rows split over the two warpgroups;
@@ -150,6 +151,18 @@ struct Cfg<64> {
   static constexpr int kPm = 16, kPn = 16;
   static constexpr int kOm = 16, kOn = 16;
   static constexpr int kSm = 32, kSn = 8;
+};
+
+// D = 112 (zamba2-7b's shared attention): 16-column slices, seven blocks
+// per row (112 is no multiple of 32)
+template <>
+struct Cfg<112> {
+  static constexpr int kThreads = 256;
+  static constexpr int kTile = 32;
+  static constexpr int kSlice = 16;
+  static constexpr int kPm = 16, kPn = 16;
+  static constexpr int kOm = 16, kOn = 16;
+  static constexpr int kSm = 16, kSn = 16;
 };
 
 template <>
@@ -360,6 +373,9 @@ int launch_d(Sweep s0, Sweep s1, int n_sweeps, float* state, int rows,
     case 96:
       return launch<96, REVERSE, EMIT_STATE>(s0, s1, n_sweeps, state, rows,
                                              t_len, stream);
+    case 112:
+      return launch<112, REVERSE, EMIT_STATE>(s0, s1, n_sweeps, state, rows,
+                                              t_len, stream);
     case 128:
       return launch<128, REVERSE, EMIT_STATE>(s0, s1, n_sweeps, state, rows,
                                               t_len, stream);
@@ -805,7 +821,7 @@ bool bad_shape(int rows, int t_len) { return rows <= 0 || t_len <= 0; }
 
 // Every pointer is a contiguous (rows, t, d) tensor of one type, fp32
 // (bf16 == 0) or bf16 (bf16 == 1), on the current device, except s: the
-// (rows, d, d) fp32 final state. d in {16, 64, 96, 128}. Each returns
+// (rows, d, d) fp32 final state. d in {16, 64, 96, 112, 128}. Each returns
 // cudaGetLastError() after the launch (or cudaErrorInvalidValue).
 
 // B2: o = chunked causal linear attention of (q, k, v); s = Σ k vᵀ; bf16
@@ -828,6 +844,8 @@ extern "C" int linear_attention_fwd(const void* q, const void* k,
         return tc::launch_fwd<64>(q, k, v, o, sf, rows, t, st);
       case 96:
         return tc::launch_fwd<96>(q, k, v, o, sf, rows, t, st);
+      case 112:
+        return tc::launch_fwd<112>(q, k, v, o, sf, rows, t, st);
       case 128:
         return tc::launch_fwd<128>(q, k, v, o, sf, rows, t, st);
       default:
@@ -856,6 +874,8 @@ extern "C" int linear_attention_bwd_dq(const void* k, const void* v,
         return tc::launch_dq<64>(k, v, d_o, dq, rows, t, st);
       case 96:
         return tc::launch_dq<96>(k, v, d_o, dq, rows, t, st);
+      case 112:
+        return tc::launch_dq<112>(k, v, d_o, dq, rows, t, st);
       case 128:
         return tc::launch_dq<128>(k, v, d_o, dq, rows, t, st);
       default:
@@ -885,6 +905,8 @@ extern "C" int linear_attention_bwd_dkv(const void* q, const void* k,
         return tc::launch_dkv<64>(q, k, v, d_o, dk, dv, rows, t, st);
       case 96:
         return tc::launch_dkv<96>(q, k, v, d_o, dk, dv, rows, t, st);
+      case 112:
+        return tc::launch_dkv<112>(q, k, v, d_o, dk, dv, rows, t, st);
       case 128:
         return tc::launch_dkv<128>(q, k, v, d_o, dk, dv, rows, t, st);
       default:

@@ -34,8 +34,8 @@ Tensor = torch.Tensor
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "linear_attention.cu"
 # qwen3-0.6b's smoke and full widths, musicgen-large's and RWKV-6's 64,
-# phi3-mini-3.8b's 96
-HEAD_DIMS = (16, 64, 96, 128)
+# phi3-mini-3.8b's 96, zamba2-7b's 112
+HEAD_DIMS = (16, 64, 96, 112, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -62,9 +62,7 @@ def _check(kernel: str, chunk: int, **tensors: Tensor) -> None:
     bh, t, d = first.shape if first.ndim == 3 else (None,) * 3
     if d not in HEAD_DIMS:
         raise ValueError(f"{kernel}: (BH, T, D) rows with D in {HEAD_DIMS} "
-                         f"only, got {tuple(first.shape)} (other head dims, "
-                         f"zamba2-7b's 112 among them: ROADMAP queue B "
-                         f"item 1)")
+                         f"only, got {tuple(first.shape)}")
     if first.dtype not in _DTYPES:
         raise TypeError(f"{kernel}: inputs must be one of {list(_DTYPES)}, "
                         f"got {first.dtype}")

@@ -27,21 +27,22 @@ ported, so ``--ckpt-dir`` raises and there is no ``--ckpt-every``.
       --backend softmax --steps 5
 
 ``--arch`` takes qwen3-0.6b, the dense configs yi-34b, internlm2-20b,
-phi3-mini-3.8b and musicgen-large, and the MoE configs (the router's
-load-balance loss in the loss); ``--n-layers`` cuts a model too large for
-one card to whole repeats of its layer pattern. On the card, the linear
-and gated backends' training kernels (B2/B3, B8/B9) take head dims 16,
-64, 96 and 128, so phi3-mini-3.8b (96; its fp32 master, gradients and
-two moments of 3.8 B parameters leave no room for the activations at
-32 layers: cut it) and musicgen-large (64, whole) train there. rwkv6-1.6b
-trains on the CPU only (autograd of its plain prefill): on the card its
-prefill runs B8's exclusive route, which is forward-only, and raises
-NotImplementedError under autograd. zamba2-7b trains on the CPU
-(``--smoke --device cpu``; its SSD through the plain versions of B8/B9);
-on the card the linear and gated training kernels do not take its
-shared attention's head dim of 112 yet and raise ValueError (ROADMAP
-queue B item 1). The vision config's cross blocks need a memory that the
-synthetic stream does not draw.
+phi3-mini-3.8b and musicgen-large, the MoE configs (the router's
+load-balance loss in the loss), rwkv6-1.6b and zamba2-7b; ``--n-layers``
+cuts a model too large for one card to whole repeats of its layer
+pattern (a tail after the repeats is dropped: zamba2-7b's units are 5
+Mamba-2 blocks and one shared-attention site, ``--n-layers 48`` keeps 8
+of its 13 units and none of its 3 tail blocks) and prints the cut. On
+the card, the linear and gated backends' training kernels (B2/B3,
+B8/B9) take head dims 16, 64, 96, 112 and 128, so phi3-mini-3.8b (96;
+its fp32 master, gradients and two moments of 3.8 B parameters leave no
+room for the activations at 32 layers: cut it), musicgen-large (64,
+whole) and zamba2-7b (the shared attention's 112 under every backend,
+its Mamba-2 blocks through B8/B9; 5.74 B parameters: cut it) train
+there. rwkv6-1.6b (no attention layer: ``--backend`` does not apply)
+trains whole: its time-mix runs B8's exclusive route forward and its
+hand-written backward. The vision config's cross blocks need a memory
+that the synthetic stream does not draw.
 
   PYTHONPATH=src python -m repro_torch.launch.train \\
       --arch deepseek-moe-16b --n-layers 2 --batch 8 --seq-len 1024 \\
@@ -52,6 +53,11 @@ synthetic stream does not draw.
       --n-layers 24 --backend linear --batch 8 --seq-len 1024 --steps 6
   PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-7b \\
       --smoke --device cpu --backend linear --steps 5
+  PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-7b \\
+      --n-layers 48 --backend gated_linear --batch 8 --seq-len 1024 \\
+      --steps 6
+  PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-1.6b \\
+      --batch 8 --seq-len 1024 --steps 6
 
 Runs on CUDA unless ``--device cpu`` is given.
 """
@@ -66,7 +72,7 @@ from typing import Optional, Sequence
 import torch
 
 from repro_torch.configs import ModelConfig, get_config, get_smoke_config
-from repro_torch.configs.base import with_depth
+from repro_torch.configs.base import depth_cut, with_depth
 from repro_torch.data import SyntheticLMDataset
 from repro_torch.device import resolve_device
 from repro_torch.models import lm
@@ -74,9 +80,14 @@ from repro_torch.optim import adamw, cosine_warmup
 from repro_torch.runtime import TrainLoop, TrainLoopConfig, make_train_step
 
 
+def base_config(args) -> ModelConfig:
+    """The named config (or its smoke config) before any depth cut."""
+    return get_smoke_config(args.arch) if args.smoke \
+        else get_config(args.arch)
+
+
 def config(args) -> ModelConfig:
-    cfg = (get_smoke_config(args.arch) if args.smoke
-           else get_config(args.arch))
+    cfg = base_config(args)
     if args.n_layers:
         cfg = with_depth(cfg, args.n_layers)
     return cfg.with_backend(args.backend) if args.backend else cfg
@@ -142,6 +153,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(message)s")
     args = parse_args(argv)
+    if args.n_layers:
+        print(f"depth cut: {depth_cut(base_config(args), config(args))}")
     loop = build(args)
     out = loop.run()
     losses = [m["loss"] for m in out["metrics"]]

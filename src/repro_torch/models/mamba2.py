@@ -27,8 +27,10 @@ tensor that needs a gradient the prefill raises rather than return an
 output with no gradient.
 
 Training (no state) runs ``gated_linear_attention``: B8 forward and B9's
-recompute backward on the card, the plain versions on the CPU, at JAX's
-chunk. Decode is ``gated_decode_step`` in plain PyTorch, as JAX's jnp
+recompute backward on the card, the plain versions on the CPU, at the
+prefill's chunk, min(``linear_chunk``, ``PREFILL_CHUNK``): JAX's chunk of
+128 is non-finite in training as in prefill at the full config's
+decays, and the smoke config's 16 is JAX's. Decode is ``gated_decode_step`` in plain PyTorch, as JAX's jnp
 decode, with g unclamped (JAX's asymmetry, kept). The decode state
 (``MambaState``: the conv window of the last K−1 inputs and the
 (H, d_state, head_dim) SSD matrices) is updated in place, inactive slots
@@ -162,8 +164,9 @@ def mamba2_apply(p: Params, x: Tensor, cfg: ModelConfig, *,
                                chunk=min(cfg.linear_chunk, PREFILL_CHUNK),
                                kernel=kernel)
     else:
-        y = gated_linear_attention(q, k, v, g, chunk_size=cfg.linear_chunk,
-                                   kernel=kernel)
+        y = gated_linear_attention(
+            q, k, v, g, chunk_size=min(cfg.linear_chunk, PREFILL_CHUNK),
+            kernel=kernel)
     out = _gated_out(p, y, xh, z)
     if not want_state:
         return out, None

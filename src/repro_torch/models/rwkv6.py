@@ -22,11 +22,12 @@ full config's decays reach −0.9 a token); 64 keeps it finite, and
 shorter prompts take the same chunk as JAX's. The kernel rescales
 within its own 64-token tiles whatever the chunk.
 
-B8's exclusive route is forward-only, as JAX's Pallas function is:
-training RWKV-6 on the card waits for its backward (ROADMAP A.4). On a
-CUDA tensor that needs a gradient the prefill raises rather than return
-an output with no gradient; on the CPU, and with ``kernel=False``,
-autograd differentiates the plain version.
+Training runs the same call at the same chunk: where a gradient is
+wanted, ``rwkv6_attention`` goes through B8's exclusive route forward
+and its hand-written backward (B9's design with the strict mask, the
+bonus terms, the exclusive dg and du; JAX differentiates
+``chunked_gla`` by autodiff), or on the CPU and with ``kernel=False``
+through their plain versions.
 
 Decode is one ``gated_decode_step(exclusive=True, u=...)`` per layer and
 token, plain PyTorch, as JAX's jnp decode: B7 has no bonus term. The
@@ -167,12 +168,6 @@ def _time_mix(p: Params, x: Tensor, cfg: ModelConfig,
                                        exclusive=True, u=p["u_bonus"])
         o = o[:, None]                              # (B, 1, H, N)
     else:
-        if kernel and x.is_cuda and torch.is_grad_enabled() and any(
-                a.requires_grad for a in (r, k, v, lw, p["u_bonus"])):
-            raise NotImplementedError(
-                f"{cfg.name}: B8's exclusive route (the RWKV-6 prefill) is "
-                f"forward-only; training RWKV-6 on the card waits for its "
-                f"backward (ROADMAP A.4, rwkv6 training)")
         o, wkv_new = rwkv6_attention(
             r, k, v, lw, p["u_bonus"],
             chunk=min(cfg.linear_chunk, PREFILL_CHUNK),

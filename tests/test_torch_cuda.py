@@ -1237,22 +1237,46 @@ def test_rwkv6_attention_takes_a_bonus_per_head(dev, d, dtype):
 
 
 def test_rwkv6_prefill_refuses_autograd_on_the_card(dev):
-    """B8's exclusive route is forward-only: an RWKV-6 prefill on CUDA
-    tensors that need a gradient raises NotImplementedError naming the
-    ROADMAP item, and never returns an output without one; under
-    ``torch.no_grad`` it runs the kernel."""
+    """(The name is this test's history: B8's exclusive route was
+    forward-only and the prefill refused autograd on the card.) An
+    RWKV-6 block on CUDA tensors that need a gradient now runs B8's
+    exclusive route forward and the exclusive backward's two launches,
+    u off its zero init: the output and every parameter's gradient
+    against the same block through the plain versions
+    (``attention_kernel=False``), normwise 1e-5 and 1e-4; under
+    ``torch.no_grad`` one B8 launch and no backward."""
     from repro_torch.models import rwkv6 as R
     cfg = dataclasses.replace(get_smoke_config("rwkv6-1.6b"),
                               dtype="float32")
     p = R.rwkv6_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    p["u_bonus"].normal_(0.0, 0.5, generator=torch.Generator(
+        device=dev).manual_seed(1))
     x = torch.randn((2, 20, cfg.d_model), device=dev)
-    p["w_r"].requires_grad_()
-    with pytest.raises(NotImplementedError, match="ROADMAP A.4"):
-        R.rwkv6_apply(p, x, cfg)
-    before = gla_ops.fwd.launches
+    runs = {}
+    for kernel in (True, False):
+        leaves = {k: t.detach().clone().requires_grad_()
+                  for k, t in p.items() if torch.is_tensor(t)}
+        before = _exclusive_counts()
+        y, _ = R.rwkv6_apply(dict(p, **leaves), x, cfg,
+                             attention_kernel=kernel)
+        y.square().sum().backward()
+        torch.cuda.synchronize()
+        counts = tuple(a - b for a, b in zip(_exclusive_counts(), before))
+        assert counts == ((1, 1, 1) if kernel else (0, 0, 0))
+        runs[kernel] = (y.detach(), {k: t.grad for k, t in leaves.items()})
+    _assert_normwise(runs[True][0], runs[False][0], 1e-5, "y")
+    for k, grad in runs[False][1].items():
+        _assert_normwise(runs[True][1][k], grad, 1e-4, f"grad {k}")
+    before = _exclusive_counts()
     with torch.no_grad():
         y, _ = R.rwkv6_apply(p, x, cfg)
-    assert gla_ops.fwd.launches == before + 1 and torch.isfinite(y).all()
+    assert _exclusive_counts() == (before[0] + 1, before[1], before[2])
+    assert torch.isfinite(y).all()
+
+
+def _exclusive_counts():
+    return (gla_ops.fwd.launches, gla_ops.bwd_exclusive_dq.launches,
+            gla_ops.bwd_exclusive_dkv.launches)
 
 
 def _ssd_rows(dev, b, h, t, n, dtype, seed=0):
@@ -1317,18 +1341,56 @@ def test_mamba2_prefill_refuses_autograd_on_the_card(dev):
 @pytest.mark.parametrize("backend", ["linear", "gated_linear"])
 def test_training_at_head_dim_112_raises_naming_the_roadmap_item(dev,
                                                                  backend):
-    """B2/B3 and B8/B9 do not take D = 112 yet: a zamba2-7b-shaped model
-    (its smoke config with one attention head of 112) raises from the
-    training kernels' head-dim check under linear and gated_linear, the
-    message naming ROADMAP queue B item 1; no plain route runs instead."""
+    """(The name is this test's history: B2/B3 and B8/B9 did not take
+    D = 112 and the step raised, naming ROADMAP queue B item 1.) A
+    zamba2-7b-shaped model (its smoke config with one attention head of
+    112) now trains through B2/B3 or B8/B9 at D = 112 under linear and
+    gated_linear: the loss within 1e-5 relative and every gradient leaf
+    within 1e-4 normwise of the same step through the plain versions
+    (``attention_kernel=False``), the attention kernels launched."""
     cfg = dataclasses.replace(
         get_smoke_config("zamba2-7b").with_backend(backend), dtype="float32",
         d_model=112, n_heads=1, n_kv_heads=1, head_dim=112)
     params = lm.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
     toks = torch.randint(0, cfg.vocab_size, (2, 16), device=dev,
                          generator=torch.Generator(device=dev).manual_seed(1))
-    with pytest.raises(ValueError, match="ROADMAP queue B item 1"):
-        lm.lm_loss(params, {"tokens": toks, "labels": toks}, cfg)
+    ops_ = la_ops if backend == "linear" else gla_ops
+    runs = {}
+    for kernel in (True, False):
+        leaves = [t.detach().clone().requires_grad_()
+                  for t in _tensor_leaves(params)]
+        before = (ops_.fwd.launches, ops_.bwd_dq.launches)
+        loss, _ = lm.lm_loss(_with_leaves(params, iter(leaves)),
+                             {"tokens": toks, "labels": toks}, cfg,
+                             attention_kernel=kernel)
+        loss.backward()
+        torch.cuda.synchronize()
+        launched = (ops_.fwd.launches - before[0],
+                    ops_.bwd_dq.launches - before[1])
+        assert (min(launched) > 0) == kernel, launched
+        runs[kernel] = (loss.detach(), [t.grad for t in leaves])
+    torch.testing.assert_close(runs[True][0], runs[False][0], rtol=1e-5,
+                               atol=0.0)
+    for i, (a, b) in enumerate(zip(runs[True][1], runs[False][1])):
+        _assert_normwise(a, b, 1e-4, f"gradient leaf {i}")
+
+
+def _tensor_leaves(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _tensor_leaves(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [x for v in tree for x in _tensor_leaves(v)]
+    return [tree] if torch.is_tensor(tree) else []
+
+
+def _with_leaves(tree, it):
+    if isinstance(tree, dict):
+        return {k: _with_leaves(tree[k], it) for k in sorted(tree)}
+    if isinstance(tree, tuple):
+        return tuple(_with_leaves(v, it) for v in tree)
+    if isinstance(tree, list):
+        return [_with_leaves(v, it) for v in tree]
+    return next(it) if torch.is_tensor(tree) else tree
 
 
 # -- the causal flash-attention forward B10 ----------------------------------

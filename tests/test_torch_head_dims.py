@@ -165,16 +165,16 @@ def test_b9_plain_version_and_launches_match_pallas(d, dtype):
         _close(b, j, tol, f"{name} launch")
 
 
-@pytest.mark.parametrize("d", [8, 16, 32, 64, 96, 128])
+@pytest.mark.parametrize("d", [8, 16, 32, 64, 96, 128, 112])
 def test_training_kernel_wrappers_take_the_head_dims(d):
     """What B2/B3's and B8/B9's wrappers hand to their kernels: D = 16,
-    64, 96 and 128; 8 and 32 raise ValueError (a CUDA tensor there gets
-    no plain route)."""
+    64, 96, 112 and 128; 8 and 32 raise ValueError (a CUDA tensor there
+    gets no plain route)."""
     x = torch.ones(2, 16, d)
     g = torch.zeros(2, 16, d)
     checks = (lambda: lops._check("fwd", 16, q=x, k=x, v=x),
               lambda: gops._check_gated("fwd", 16, g, -1.0, q=x, k=x, v=x))
-    assert lops.HEAD_DIMS == gops.HEAD_DIMS == (16, 64, 96, 128)
+    assert lops.HEAD_DIMS == gops.HEAD_DIMS == (16, 64, 96, 112, 128)
     for check in checks:
         if d in (8, 32):
             with pytest.raises(ValueError):
