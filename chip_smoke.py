@@ -15,7 +15,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    spill, nor may B1's and B7's (their state in registers at every D),
    nor B10's (at every D, 112 included); the registers and spills of
    every D = 112 instantiation (B1, B7, B10, B2/B3, B8/B9) and of the
-   exclusive backward's at every D, printed.
+   exclusive backward's at every D, printed (at D = 16 and 64 its two
+   launches take two rows a block, ``exclusive_dq_tc`` and
+   ``exclusive_dkv_tc``, which must not spill).
 2. Each kernel against its plain PyTorch version on the card, at the
    main path's shapes and at the smoke width (B1 and B7 also 64 tokens
    wide under per-row lengths, the stream path's ingest; B10 at each D
@@ -62,8 +64,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    1,024, D = 64, u per head drawn at random) in fp32 and bf16 against
    its plain version, each launch alone, and under autograd against
    autograd of the plain exclusive forward, du included; at ragged T
-   and D = 16, 96, 112, 128; and B8's exclusive bf16 o at T = 1,024 with
-   the decays at and near the clamp, as a share of its limit.
+   and D = 16, 96, 112, 128; at 1, 3 and 255 rows (the last block of
+   two rows holding one) with u per head and with one u for every row;
+   and B8's exclusive bf16 o at T = 1,024 with the decays at and near the
+   clamp, as a share of its limit.
 3. The serving slice on the card: a 2-layer model at qwen3-0.6b's full
    widths in fp32, prefill + 16 greedy steps through the kernel against
    the same run through ``decode_kernel="reference"``.
@@ -289,7 +293,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    whole, as phase 37; then B2, B3, B8 and B9 at zamba2's shared
    attention (batch 8 x 32 heads, T = 1,024, D = 112) and B8's exclusive
    route and the exclusive backward at rwkv6's (D = 64) timed beside
-   their bounds and plain versions.
+   their bounds and plain versions; B8 and B9 (inclusive) at the same
+   rows, T and D (musicgen-large's training shape), the exclusive
+   backward's dq, dk/dv and whole each printed beside B9's.
 
 Each main path (phases 4, 6, 8, 10, 12, 14, 16, 18, 19, 21, 22's
 ``launch/train.py`` run, 24, 26, 27, 29, 31, 32, 34, 35, 37 and 38) is
@@ -2262,7 +2268,8 @@ def profile_train_step(loop, batch, kernel) -> dict:
 
 # kernel names by kind, first match wins
 TRAIN_KINDS = (("B2/B3", ("sweep_kernel", "linear_sweep")),
-               ("B8/B9", ("decay_sweep",)),
+               ("B8/B9", ("decay_sweep", "exclusive_dq_tc",
+                          "exclusive_dkv_tc")),
                ("B10", ("flash_fwd",)),
                ("matmul", ("gemm", "nvjet", "cutlass", "xmma", "cublas")),
                ("cumsum", ("scan",)),
@@ -3907,7 +3914,8 @@ def cut_training_main_path(arch, backend, dev, phase) -> dict:
           f"(exactly {cfg.n_layers} layers' kinds, the forward kernel twice "
           f"a repeat: forward, remat recompute): {per_step}")
     batch = loop.put_batch(loop.dataset.batch_at(steps))
-    prof = profile_train_step(loop, batch, ("sweep", "flash_fwd"))
+    prof = profile_train_step(loop, batch, ("sweep", "flash_fwd",
+                                            "exclusive_d"))
     share = None
     if prof["busy"] is not None:
         kernel_ms = sum(prof["kinds"].get(k, (0.0, 0))[0]
@@ -4526,7 +4534,7 @@ def zamba2_stream_main_path(dev, phase) -> dict:
 # ---------------------------------------------------------------------------
 
 def check_exclusive_backward(b, h, t, d, dtype, gen, dev, chunk=64,
-                             autograd=False) -> dict:
+                             autograd=False, shared_u=False) -> dict:
     """The exclusive form's backward (RWKV-6's training; no Pallas
     original) on flat rows, u drawn at random one row per head and the
     log-decay in RWKV-6's range: ``ops.bwd_exclusive`` (its two launches)
@@ -4538,11 +4546,14 @@ def check_exclusive_backward(b, h, t, d, dtype, gen, dev, chunk=64,
     says), normwise 1e-5 (fp32) or 8e-3 (bf16). With ``autograd``, also
     ``rwkv6_attention`` under autograd (B8's exclusive route, then the
     backward) against torch autograd of the plain exclusive forward on
-    (B, H, T, D), du included. Returns max|Δ| per launch."""
+    (B, H, T, D), du included. ``shared_u``: one u, (D,), for every row.
+    Returns max|Δ| per launch."""
     import torch
     from repro_torch.kernels.gated_linear_attention import ops as GL
     from repro_torch.kernels.gated_linear_attention import ref as GR
     q, k, v, g, u = rwkv_rows(b, h, t, d, dtype, gen, dev)
+    if shared_u:
+        u = u[0].contiguous()
     do = torch.randn(q.shape, generator=gen, device=dev).to(dtype)
     rows = [x.reshape(b * h, t, d).contiguous() for x in (q, k, v, g, do)]
     n0 = (GL.bwd_exclusive_dq.launches, GL.bwd_exclusive_dkv.launches)
@@ -4558,7 +4569,8 @@ def check_exclusive_backward(b, h, t, d, dtype, gen, dev, chunk=64,
     want2 = GR.bwd_exclusive_dkv_ref(*rows, u, qdq1, chunk=chunk)
     name = str(dtype).split(".")[-1]
     tol = LA_TOL[name]
-    tag = f"B={b} H={h} T={t} D={d} {name} chunk={chunk}"
+    tag = (f"B={b} H={h} T={t} D={d} {name} chunk={chunk}"
+           + (" u shared" if shared_u else ""))
     names = ("dq", "dk", "dv", "dg", "du")
     for n, x, x_r in zip(names, got, want):
         if x.dtype != x_r.dtype or x.shape != x_r.shape or \
@@ -4656,6 +4668,15 @@ def training_kernel_checks_112_and_exclusive(gen, dev) -> dict:
         for dtype in (torch.float32, torch.bfloat16):
             check_exclusive_backward(b, h, t, d, dtype, gen, dev,
                                      chunk=chunk)
+    # at D <= 64 a block takes two rows: 1, 3 and 255 rows leave the last
+    # block one; u per head and one u for every row
+    for b, h, shared_u in ((1, 1, False), (1, 3, False), (15, 17, False),
+                           (1, 3, True), (15, 17, True)):
+        check_exclusive_backward(b, h, 1024, 64, torch.bfloat16, gen, dev,
+                                 shared_u=shared_u)
+    for b, h, t, d, chunk in ((1, 3, 200, 64, 40), (3, 1, 75, 16, 75)):
+        check_exclusive_backward(b, h, t, d, torch.bfloat16, gen, dev,
+                                 chunk=chunk)
     check_exclusive_margin(gen, dev)
     print("phase 2: the exclusive backward (gated_linear_attention_bwd_"
           "exclusive_dq, _dkv) agrees with its plain version, each launch "
@@ -4753,15 +4774,29 @@ def zamba2_rwkv6_training_kernel_times(gen, dev) -> tuple:
     fwd_shape = {"shape": shape, "ms": t["ms"], "plain_ms": t["plain_ms"],
                  "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                  "library_ms": None}
+    # B8 and B9 (inclusive) at the same rows, T and D: musicgen-large's
+    # training shape (chunk 128), and the exclusive backward's yardstick
+    b9 = time_gated_linear_attention(256, 1024, 64, 128, gen, dev)
+    for name in ("gated_linear_attention_fwd", "gated_linear_attention_bwd_dq",
+                 "gated_linear_attention_bwd_dkv", "bwd"):
+        r = b9[name]
+        print(f"{name} musicgen-large training: rows=256 T=1024 D=64 bf16: "
+              f"{r['ms'] * 1e3:.2f} us (bound {r['bound_ms'] * 1e3:.2f} us "
+              f"by {r['bound_by']}; plain version {r['plain_ms'] * 1e3:.2f} "
+              f"us)")
     t = time_exclusive_backward(8, 32, 1024, 64, gen, dev)
+    same = dict(zip(t, ("gated_linear_attention_bwd_dq",
+                        "gated_linear_attention_bwd_dkv", "bwd")))
     for name, r in t.items():
         print(f"{name} {RWKV_ARCH} training: rows=256 T=1024 D=64 bf16, "
-              f"chunk 64: {r['ms'] * 1e3:.2f} us (plain version "
-              f"{r['plain_ms'] * 1e3:.2f} us; library call: none; bound "
-              f"{r['bound_ms'] * 1e3:.2f} us by {r['bound_by']} on bf16 "
-              f"tensor cores, {r['fp32_bound_ms'] * 1e3:.2f} us at the fp32 "
-              f"rate; {r['flops'] / 1e9:.2f} GFLOP, {r['bytes'] / 1e6:.2f} "
-              f"MB; {r['ms'] / r['bound_ms']:.2f}x its bound)")
+              f"chunk 64: {r['ms'] * 1e3:.2f} us (B9's {same[name]} at the "
+              f"same shape {b9[same[name]]['ms'] * 1e3:.2f} us; plain "
+              f"version {r['plain_ms'] * 1e3:.2f} us; library call: none; "
+              f"bound {r['bound_ms'] * 1e3:.2f} us by {r['bound_by']} on "
+              f"bf16 tensor cores, {r['fp32_bound_ms'] * 1e3:.2f} us at the "
+              f"fp32 rate; {r['flops'] / 1e9:.2f} GFLOP, "
+              f"{r['bytes'] / 1e6:.2f} MB; {r['ms'] / r['bound_ms']:.2f}x "
+              f"its bound)")
     return shapes, fwd_shape, t
 
 
@@ -4867,15 +4902,23 @@ def main() -> int:
             print(f"  D = 112: {line}")
     print("  flash_attention.cu: no spill at any D")
     # the exclusive backward (RWKV-6's training): its bf16 launches at
-    # every D, registers and spills
+    # every D (at D <= 64 two rows a block, exclusive_d*_tc), registers,
+    # spills and serialized wgmmas; none may spill at D <= 64
     notes = [line for line in ptxas_notes(build.build_log(GL.SOURCE))
-             if re.search(r"decay_sweep_d(q|kv)_tc<Li\d+ELb1>",
+             if re.search(r"decay_sweep_d(q|kv)_tc<Li\d+ELb1>|"
+                          r"exclusive_d(q|kv)_tc<Li\d+>",
                           line.split(":")[0])]
-    if not notes:
-        raise AssertionError("phase 1: gated_linear_attention.cu: no "
-                             "exclusive backward in the ptxas report")
+    pair = [line for line in notes if line.startswith("exclusive_d")]
+    if not notes or len({line.split(":")[0] for line in pair}) != 4:
+        raise AssertionError("phase 1: gated_linear_attention.cu: the "
+                             "exclusive backward's launches at D = 16 and "
+                             f"64 are not all in the ptxas report: {notes}")
     for line in notes:
         print(f"  exclusive backward: {line}")
+    bad = spills("\n".join(pair))
+    if bad:
+        raise AssertionError(f"phase 1: the exclusive backward spills at "
+                             f"D <= 64: {bad}")
     for source in (LA.SOURCE, GL.SOURCE):
         print(f"  {source.name}: spills "
               f"{spills(build.build_log(source)) or 'none'}")
@@ -5321,8 +5364,8 @@ def main() -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": None,
-            "kernel": "decay_sweep_d" + ("q" if name.endswith("dq") else "kv")
-                      + "_tc<64, true> (bf16 tensor cores)"})
+            "kernel": "exclusive_d" + ("q" if name.endswith("dq") else "kv")
+                      + "_tc<64> (two rows a block, bf16 tensor cores)"})
     done(38, t0)
 
     for r in records:

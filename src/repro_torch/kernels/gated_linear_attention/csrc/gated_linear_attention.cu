@@ -152,13 +152,18 @@
 //   these heads' strong decays left RWKV-6's groupnormed outputs and
 //   Mamba-2's decay gradients a few percent off the fp32 plain version
 //   in a bf16 training step (PERF.md §6).
-// - The exclusive backward (EXCLUSIVE): the strict masks of its score
-//   tiles in two parts (mask_split_strict), dv's with q·(u⊙k) on its
-//   diagonal; do·v and q·(u⊙k) of each token summed in fp32 from the raw
-//   tile by four threads a token (B8's bonus); du from the raw q and k
-//   before K̂ is written over k (one barrier more a tile); the raw k (dq)
-//   and q (dk) of the bonus read back from global memory in the
-//   epilogue, where L2 still holds the tile just loaded.
+// - The exclusive backward (EXCLUSIVE) at D = 96, 112 and 128: the strict
+//   masks of its score tiles in two parts (mask_split_strict), dv's with
+//   q·(u⊙k) on its diagonal; do·v and q·(u⊙k) of each token summed in
+//   fp32 from the raw tile by four threads a token (B8's bonus); du from
+//   the raw q and k before K̂ is written over k (one barrier more a tile);
+//   the raw k (dq) and q (dk) of the bonus read back from global memory
+//   in the epilogue, where L2 still holds the tile just loaded.
+// - The exclusive backward at D <= 64 (RWKV-6's head dim; exclusive_dq_tc,
+//   exclusive_dkv_tc): two rows a block, one a consumer warpgroup, each
+//   on named barriers of its own, each row's loads issued by its own
+//   thread 0 into a ring of three stages that both rows share; see the
+//   comment above exclusive_dq_tc.
 // - dg, fused: the dq launch also writes q⊙dq in fp32, as Q̂ ⊙ (dq e^{-b})
 //   with Q̂ rounded to bf16 exactly as the dk/dv launch rounds it; the
 //   dk/dv launch forms K̂ ⊙ (dk e^{b}) from the same bf16 K̂. Each pair of
@@ -690,16 +695,33 @@ __device__ __forceinline__ float clamp_decay(float g, float lo) {
   return g < lo ? lo : (g > 0.f ? 0.f : g);  // jnp.clip's order: NaN stays
 }
 
+// A barrier over the block (WG false) or over one warpgroup's 128 threads
+// (WG: the named barrier `id`, which no other warpgroup uses)
+template <bool WG>
+__device__ __forceinline__ void sync_threads(int id) {
+  if constexpr (WG)
+    asm volatile("bar.sync %0, 128;" ::"r"(id) : "memory");
+  else
+    __syncthreads();
+}
+
+// one arrival on an mbarrier (the release of a stage)
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
+               : "memory");
+}
+
 // The tile's cumulative clamped log-decay b (inclusive, from the tile's
 // first token, per channel), written over g in log2 units, and
 // btot[c] = b of the last token. Thread (c, h) = (tid % GW, tid / GW)
 // takes tokens 32h..32h+31 of channel c (threads past 2·GW only meet the
 // barriers) and returns the clamp's mask for them: bit i is set where
-// min_log_decay <= g <= 0 at token 32h + i. Ends with the block in step.
-template <int D>
+// min_log_decay <= g <= 0 at token 32h + i. Ends with the block (WG: the
+// warpgroup, tid its index in it, on named barrier bar) in step.
+template <int D, bool WG = false>
 __device__ __forceinline__ uint32_t decay_scan(uint8_t* gs, float* tot,
                                                float* btot, float lo,
-                                               int tid) {
+                                               int tid, int bar = 0) {
   using S = L<D>;
   const int c = tid % S::GW, h = tid / S::GW;
   const bool on = tid < 2 * S::GW;
@@ -717,7 +739,7 @@ __device__ __forceinline__ uint32_t decay_scan(uint8_t* gs, float* tot,
     }
     if (h == 0) tot[c] = acc;
   }
-  __syncthreads();
+  sync_threads<WG>(bar);
   if (on) {
     const float off = h ? tot[c] : 0.f;
 #pragma unroll
@@ -726,7 +748,7 @@ __device__ __forceinline__ uint32_t decay_scan(uint8_t* gs, float* tot,
           (loc[i] + off) * kLog2e;
     if (h) btot[c] = (loc[31] + off) * kLog2e;
   }
-  __syncthreads();
+  sync_threads<WG>(bar);
   return mask;
 }
 
@@ -764,13 +786,13 @@ __device__ __forceinline__ void scale_slot(uint8_t* slot, const uint8_t* gs,
 // before (0 for the tile's first). The products that read hi and lo
 // carry the scaled operand to about 16 bits (B8's state update, and
 // every product of a kSplit tile). Both launches of B9 split Q̂ and K̂
-// with these same operations.
-template <int D, bool PREV = false>
+// with these same operations. NT threads share the work.
+template <int D, bool PREV = false, int NT = kThreads>
 __device__ __forceinline__ void split_slot(uint8_t* slot, uint8_t* lo_slot,
                                            const uint8_t* gs, float sign,
                                            int tid) {
   using S = L<D>;
-  for (int e = tid; e < S::DC * 64 * 8; e += kThreads) {
+  for (int e = tid; e < S::DC * 64 * 8; e += NT) {
     const int blk = e >> 9, r = (e >> 3) & 63, ch = e & 7;
     const int c0 = blk * 64 + ch * 8;
     const int at = blk * kBlock + r * kRowBytes + ((ch ^ (r & 7)) << 4);
@@ -806,28 +828,35 @@ __device__ __forceinline__ void split_slot(uint8_t* slot, uint8_t* lo_slot,
   }
 }
 
+// The bf16 copy of a 64-column state in two parts, hi into xs and lo into
+// xlo (one 64-row block each), from its rows r0 and r0 + 8 in the
+// accumulator layout
+__device__ __forceinline__ void store_state_split(uint8_t* xs, uint8_t* xlo,
+                                                  const float (&x)[32],
+                                                  int r0, int cl) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int g = 0; g < 8; ++g) {
+      const int at = off16(kBlock, r0 + 8 * h, 8 * g + cl);
+      const float a = x[4 * g + 2 * h], b = x[4 * g + 2 * h + 1];
+      const uint32_t hi = pack_bf16(a, b);
+      *reinterpret_cast<uint32_t*>(xs + at) = hi;
+      *reinterpret_cast<uint32_t*>(xlo + at) =
+          pack_bf16(a - lo_f(hi), b - hi_f(hi));
+    }
+}
+
 // The bf16 copy of a warpgroup's state rows, as hopper.cuh's store_state,
 // and with kSplit its low part into the copy's second region
 template <int D>
 __device__ __forceinline__ void store_state_parts(
     uint8_t* sb, const float (&x)[L<D>::DC][32], int wg, int r0, int cl) {
   using S = L<D>;
-  if constexpr (!S::kSplit) {
+  if constexpr (!S::kSplit)
     store_state(sb + S::x, S::xblock, x, wg, r0, cl);
-  } else {
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-#pragma unroll
-      for (int g = 0; g < 8; ++g) {
-        const int r = 64 * wg + r0 + 8 * h, at = off16(S::xblock, r,
-                                                        8 * g + cl);
-        const float a = x[0][4 * g + 2 * h], b = x[0][4 * g + 2 * h + 1];
-        const uint32_t hi = pack_bf16(a, b);
-        *reinterpret_cast<uint32_t*>(sb + S::x + at) = hi;
-        *reinterpret_cast<uint32_t*>(sb + S::xlo + at) =
-            pack_bf16(a - lo_f(hi), b - hi_f(hi));
-      }
-  }
+  else   // one block: wg is 0
+    store_state_split(sb + S::x, sb + S::xlo, x[0], 64 * wg + r0, cl);
 }
 
 // the fp32 value of a split pair, hi + lo, as the products see it
@@ -893,18 +922,18 @@ __device__ __forceinline__ float token_dot(const uint8_t* a,
 }
 
 // The exclusive backward's score tiles: mask_split's two bf16 parts over
-// the strict triangle (column < row, LOWER; or column > row), with diag[r]
-// on the diagonal, or 0 where diag is null
-template <bool LOWER>
-__device__ __forceinline__ void mask_split_strict(const float (&s)[32],
-                                                  uint32_t (&hi)[4][4],
-                                                  uint32_t (&lo)[4][4],
-                                                  int r0, int cl,
-                                                  const float* diag) {
+// the strict triangle (column < row, LOWER; or column > row), with
+// diag(r, h) on the diagonal of row r = r0 + 8h
+template <bool LOWER, typename Diag>
+__device__ __forceinline__ void mask_split_strict_by(const float (&s)[32],
+                                                     uint32_t (&hi)[4][4],
+                                                     uint32_t (&lo)[4][4],
+                                                     int r0, int cl,
+                                                     Diag diag) {
 #pragma unroll
   for (int x = 0; x < 32; x += 2) {
     const int r = r0 + 8 * ((x >> 1) & 1), c = 8 * (x >> 2) + cl;
-    const float d = diag ? diag[r] : 0.f;
+    const float d = diag(r, (x >> 1) & 1);
     const float a = (LOWER ? c < r : c > r) ? s[x] : (c == r ? d : 0.f);
     const float b =
         (LOWER ? c + 1 < r : c + 1 > r) ? s[x + 1] : (c + 1 == r ? d : 0.f);
@@ -912,6 +941,19 @@ __device__ __forceinline__ void mask_split_strict(const float (&s)[32],
     hi[x / 8][(x % 8) / 2] = h;
     lo[x / 8][(x % 8) / 2] = pack_bf16(a - lo_f(h), b - hi_f(h));
   }
+}
+
+// mask_split_strict_by with diag[r] on the diagonal, or 0 where diag is
+// null
+template <bool LOWER>
+__device__ __forceinline__ void mask_split_strict(const float (&s)[32],
+                                                  uint32_t (&hi)[4][4],
+                                                  uint32_t (&lo)[4][4],
+                                                  int r0, int cl,
+                                                  const float* diag) {
+  mask_split_strict_by<LOWER>(s, hi, lo, r0, cl, [diag](int r, int) {
+    return diag ? diag[r] : 0.f;
+  });
 }
 
 // B9's forward sweep: per 64-token tile, with b from the tile's start and
@@ -1379,16 +1421,22 @@ decay_sweep_dkv_tc(const __grid_constant__ CUtensorMap tq,
         dkv_products<D, 1>(acc, x, hi, lo2, st, base);
     }
 
-    // this tile's q⊙dq for the dg scan, in flight during the epilogue
+    // this tile's q⊙dq for the dg scan, in flight during the epilogue;
+    // EXCLUSIVE (D = 96 to 128 here) loads it after the epilogue, whose
+    // bonus reads beside these 32 registers spilled
     float pv[32];
+    const auto load_pv = [&] {
 #pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      const int tok = tok0 + 32 * sc_h + i;
-      pv[i] = scans && tok < t_len
-                  ? __ldg(qdq + (static_cast<size_t>(row) * t_len + tok) * D +
-                          sc_c)
-                  : 0.f;
-    }
+      for (int i = 0; i < 32; ++i) {
+        const int tok = tok0 + 32 * sc_h + i;
+        pv[i] = scans && tok < t_len
+                    ? __ldg(qdq +
+                            (static_cast<size_t>(row) * t_len + tok) * D +
+                            sc_c)
+                    : 0.f;
+      }
+    };
+    if constexpr (!EXCLUSIVE) load_pv();
 
     // dk = e^{-b} acc_k and K̂ ⊙ acc_k (over b, in place); dv
 #pragma unroll
@@ -1433,6 +1481,7 @@ decay_sweep_dkv_tc(const __grid_constant__ CUtensorMap tq,
           }
         }
       }
+    if constexpr (EXCLUSIVE) load_pv();
     __syncthreads();
 
     // dg: reverse cumulative sum of q⊙dq − K̂ ⊙ acc_k over the tile, plus
@@ -1464,6 +1513,712 @@ decay_sweep_dkv_tc(const __grid_constant__ CUtensorMap tq,
     }
     fence_async();
     __syncthreads();   // the stage and the state copy are free
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The exclusive backward at D <= 64 (kSplit: RWKV-6's head dim 64), the
+// redesign of decay_sweep_dq_tc / decay_sweep_dkv_tc<D, true> there.
+//
+// Each tile of a row is a chain of dependent steps (the TMA wait, the
+// decay scan and its barriers, the score group, the product group, the
+// epilogue), and the row's state carries from tile to tile, so one row
+// cannot keep an SM busy: a block of one row (decay_sweep_d*_tc) leaves
+// the SM idle through every wait, and at D <= 64 its dq launch leaves a
+// warpgroup out of every product. Here a block holds two rows, one per
+// warpgroup (warpgroup w takes row 2·blockIdx + w; an odd row count
+// leaves the last block's second warpgroup without one), so that one
+// row's wgmma groups run while the other waits. Each warpgroup
+// synchronises on a named barrier of its own (bar.sync 1 + w, 128) and
+// owns its row's state in its accumulator registers, its state copy
+// (hi + lo), the low parts of Q̂ and K̂ and its scan totals in a region of
+// its own. One ring of three stages (q, k, v, do and g of one tile,
+// 48 KiB at D = 64) feeds both rows, their tiles in turn: a stage is full
+// when its bytes land (the row's mbarrier full[s]) and free once the 128
+// threads of the warpgroup that read it have arrived on empty[s], so
+// either row can run up to a tile and a half ahead of the other. Thread 0
+// of each warpgroup issues its row's loads (Feeder): at each tile's start,
+// while it waits for the tile, and after each product group, it loads the
+// row's next tile if its stage has come free. (A producer warpgroup would
+// cap the block's 384 threads at 168 registers, and the consumers spilled
+// there even with setmaxnreg; two warpgroups keep 255.) Every row of the
+// grid is in flight at once: 256 rows take 128 of the 132 SMs. The dk/dv
+// launch writes dk, dv and dg into stage slots that its products no longer
+// read and stores them by TMA; the row's feeding thread releases the stage
+// once the stores have read it, after its next tile has arrived.
+//
+// What decay_sweep_d*_tc<D, true> read back or summed serially in each
+// tile, these take from what the warpgroup already holds:
+// - do·v of each token is the diagonal of the score tile dO Vᵀ (dq) or
+//   V dOᵀ (dk), read from the accumulators of the quad that holds the
+//   token's row (diag_pair), with no pass over the tile and no barrier;
+// - the raw k (dq's bonus and du) and q (dk's bonus) of each thread's
+//   epilogue elements are read from the tile into registers before K̂ and
+//   Q̂ are written over them, and q·(u⊙k) of dv's diagonal is summed from
+//   the same registers across the quad; u is read once a row;
+// - du is summed in the epilogue's own layout and reduced across the
+//   warpgroup once, at the row's end, in a fixed order (du_rows).
+// The products, masks, split operands, the 64-token tiles and the strict
+// masks are decay_sweep_dq_tc's and decay_sweep_dkv_tc's at DC = 1; the
+// dk/dv launch runs dk's and dv's products in turn in one warpgroup.
+constexpr int kStagesX = 3;
+
+template <int D>
+struct LX {
+  using S = L<D>;
+  static_assert(S::kSplit, "two rows a block at D <= 64 only");
+  static constexpr int stage = S::loaded;              // q, k, v, do, g
+  static constexpr int regions = kStagesX * stage;     // two rows' own
+  // in a row's region: the low parts of K̂ and Q̂ and the state's copy
+  // (hi, lo), one 64-row block each; then the small arrays
+  static constexpr int klo = 0, qlo = kBlock, x = 2 * kBlock,
+                       xlo = 3 * kBlock;
+  static constexpr int btot = 4 * kBlock;              // DP floats
+  static constexpr int tot = btot + 4 * S::DP;         // the scan's, GW
+  static constexpr int dgtot = tot + 4 * S::GW;        // dg's halves, 2·GW
+  static constexpr int u = dgtot + 8 * S::GW;          // the row's u, DP
+  static constexpr int red = u + 4 * S::DP;            // du: 4 warps × DP
+  static constexpr int row = (red + 16 * S::DP + 1023) / 1024 * 1024;
+  // empty[3], then each row's full[3]
+  static constexpr int bars = regions + 2 * row;
+  static constexpr int bytes = bars + 24 * kStagesX + 1024;
+};
+
+// The diagonal of a 64×64 tile in the accumulator layout at this thread's
+// rows r0 and r0 + 8: register 4g + 2h + e holds (r0 + 8h, 8g + cl + e),
+// so one lane of the quad holds each row's diagonal element, and the
+// quad's sum of the elements on the diagonal is it (the others add zero)
+__device__ __forceinline__ float2 diag_pair(const float (&s)[32], int r0,
+                                            int cl) {
+  float d[2] = {0.f, 0.f};
+#pragma unroll
+  for (int x = 0; x < 32; ++x) {
+    const int h = (x >> 1) & 1, c = 8 * (x >> 2) + cl + (x & 1);
+    d[h] += c == r0 + 8 * h ? s[x] : 0.f;
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    d[h] += __shfl_xor_sync(0xffffffffu, d[h], 1);
+    d[h] += __shfl_xor_sync(0xffffffffu, d[h], 2);
+  }
+  return make_float2(d[0], d[1]);
+}
+
+// this thread's epilogue elements of a raw bf16 slot: rows r0 + 8h,
+// columns 8g + cl and 8g + cl + 1, as pairs
+__device__ __forceinline__ void read_pairs(const uint8_t* slot,
+                                           uint32_t (&p)[2][8], int r0,
+                                           int cl) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int g = 0; g < 8; ++g)
+      p[h][g] = *reinterpret_cast<const uint32_t*>(
+          slot + off16(kBlock, r0 + 8 * h, 8 * g + cl));
+}
+
+// true once the phase of parity `parity` has completed; does not wait
+__device__ __forceinline__ bool mbar_test(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "mbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.b32 %0, 1, 0, p;\n"
+      "}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done;
+}
+
+// one box of smem (the 128-byte swizzle's layout) into a 3-D tensor map,
+// in this thread's open bulk group; out-of-bounds elements are not written
+__device__ __forceinline__ void tma_store(const CUtensorMap* map,
+                                          uint32_t src, int c0, int c1,
+                                          int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, "
+      "%4}], [%1];" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// One row's loads into the ring, issued by thread 0 of the row's
+// warpgroup as stages come free: the block's nr rows take the ring's
+// loads in turn (load n is tile n / nr of row n % nr; REVERSE: each row's
+// tiles last to first), and load n goes to stage n % 3 once the
+// warpgroup that read the stage's previous tile (load n - 3, of either
+// row) has released it on empty[s]. Each row issues its own loads, so that
+// neither waits on the other's thread, and completes them on full
+// barriers of its own (row w's use j of stage s, tile 3j + ..., is phase
+// j of its full[s]). A row loads at most one tile past the one it is
+// working on: then the stage's previous release that a load tests is at
+// most one phase behind, and a parity cannot alias.
+template <int D, bool REVERSE>
+struct Feeder {
+  const CUtensorMap *tq, *tk, *tv, *to, *tg;
+  uint32_t base;
+  int row0, nr, w, n_tiles, next;   // next: the row's next tile to load
+
+  // issues the row's loads of tiles up to `upto` whose stages are free, in
+  // order; returns at the first whose stage is still read
+  __device__ __forceinline__ void pump(int upto) {
+    using X = LX<D>;
+    const uint32_t empty0 = base + X::bars,
+                   full0 = empty0 + 8 * kStagesX * (1 + w);
+    for (; next < n_tiles && next <= upto; ++next) {
+      const int n = next * nr + w, s = n % kStagesX;
+      if (n >= kStagesX &&
+          !mbar_test(empty0 + 8 * s, (n / kStagesX - 1) & 1))
+        return;
+      load_tile<D>(base + s * X::stage, full0 + 8 * s, tq, tk, tv, to, tg,
+                   (REVERSE ? n_tiles - 1 - next : next) * kTile, row0 + w);
+    }
+  }
+
+  // the wait for tile `it` of the row on its full barrier; the feeding
+  // thread issues the row's loads while it waits (a wait of 2^34 clocks
+  // traps, as mbar_wait's)
+  __device__ __forceinline__ void wait(int it, bool feeds) {
+    const uint32_t bar = base + LX<D>::bars + 8 * kStagesX * (1 + w) +
+                         8 * ((it * nr + w) % kStagesX),
+                   parity = (it / kStagesX) & 1;
+    if (!feeds) {
+      mbar_wait(bar, parity);
+      return;
+    }
+    const long long start = clock64();
+    while (!mbar_test(bar, parity)) {
+      pump(it + 1);
+      if (clock64() - start > (1ll << 34)) __trap();
+    }
+  }
+};
+
+// The block's set-up, shared by both launches: the ring's barriers, each
+// row's e^{btot} zeroed and its u copied (zero past D), and each row's
+// first loads. Returns true in the threads of a warpgroup that owns a row
+// (warpgroup 1 owns none when rows is odd, in the last block).
+template <int D, bool REVERSE>
+__device__ __forceinline__ bool ring_setup(uint8_t* sb, int w,
+                                           const float* u, int u_heads,
+                                           Feeder<D, REVERSE>& feed) {
+  using X = LX<D>;
+  const int tid = threadIdx.x;
+  const uint32_t empty0 = feed.base + X::bars;
+  if (tid == 0) {
+    for (int s = 0; s < kStagesX; ++s) {
+      mbar_init(empty0 + 8 * s, 128);
+      mbar_init(empty0 + 8 * (kStagesX + s), 1);
+      mbar_init(empty0 + 8 * (2 * kStagesX + s), 1);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  if (w < feed.nr) {
+    uint8_t* const rs = sb + X::regions + w * X::row;
+    float* const btot = reinterpret_cast<float*>(rs + X::btot);
+    float* const us = reinterpret_cast<float*>(rs + X::u);
+    const float* const ur =
+        u + static_cast<size_t>((feed.row0 + w) % u_heads) * D;
+    for (int c = tid % 128; c < L<D>::DP; c += 128) {
+      btot[c] = 0.f;
+      us[c] = c < D ? ur[c] : 0.f;
+    }
+  }
+  __syncthreads();
+  if (tid % 128 == 0 && w < feed.nr) {
+    const CUtensorMap* maps[5] = {feed.tq, feed.tk, feed.tv, feed.to,
+                                  feed.tg};
+#pragma unroll
+    for (int i = 0; i < 5; ++i)
+      asm volatile("prefetch.tensormap [%0];" ::"l"(
+                       reinterpret_cast<uint64_t>(maps[i]))
+                   : "memory");
+    feed.pump(1);
+  }
+  return w < feed.nr;
+}
+
+// The exclusive backward's forward sweep at D <= 64, two rows a block (see
+// above): per 64-token tile, as decay_sweep_dq_tc<D, true>,
+//     acc = (dO Vᵀ ⊙ M_strict) K̂ + dO Sᵀ ;  S ← e^{btot} ⊙ (S + K̂ᵀ V)
+//     dq = e^{b_{t-1}} ⊙ acc + (do·v) u⊙k ;  q⊙dq = Q̂ ⊙ acc
+//     du_rows[row] = Σ_t (do_t·v_t) q_t⊙k_t
+// grid ⌈rows / 2⌉; block kThreads; dynamic shared memory LX<D>::bytes.
+// Tensor maps as decay_sweep_dq_tc's.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+exclusive_dq_tc(const __grid_constant__ CUtensorMap tq,
+                const __grid_constant__ CUtensorMap tk,
+                const __grid_constant__ CUtensorMap tv,
+                const __grid_constant__ CUtensorMap to,
+                const __grid_constant__ CUtensorMap tg,
+                __nv_bfloat16* __restrict__ dq, float* __restrict__ qdq,
+                const float* __restrict__ u, int u_heads,
+                float* __restrict__ du, int rows, int t_len, float lo) {
+  using S = L<D>;
+  using X = LX<D>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* const sb = smem_raw + (base - raw);
+  // the warpgroup, from lane 0: provably uniform
+  const int w = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  const int row0 = 2 * blockIdx.x, n_tiles = (t_len + kTile - 1) / kTile;
+  const bool feeds = threadIdx.x % 128 == 0;
+  Feeder<D, false> feed{&tq, &tk, &tv, &to, &tg, base, row0,
+                        min(2, rows - row0), w, n_tiles, 0};
+  if (!ring_setup(sb, w, u, u_heads, feed)) return;
+  const int nr = feed.nr, row = row0 + w, bar = 1 + w;
+  const uint32_t empty0 = base + X::bars;
+  uint8_t* const rs = sb + X::regions + w * X::row;
+  const uint32_t rb = base + X::regions + w * X::row;
+  float* const btot = reinterpret_cast<float*>(rs + X::btot);
+  float* const tot = reinterpret_cast<float*>(rs + X::tot);
+  const float* const us = reinterpret_cast<const float*>(rs + X::u);
+
+  float x[1][32];   // S, 64 × 64
+#pragma unroll
+  for (int i = 0; i < 32; ++i) x[0][i] = 0.f;
+  float du_acc[16];   // du of columns 8g + cl + e, at 2g + e
+#pragma unroll
+  for (int i = 0; i < 16; ++i) du_acc[i] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    // offsets from the thread index, recomputed in each tile
+    int t = threadIdx.x % 128;
+    asm volatile("" : "+r"(t));
+    const int r0 = t / 32 * 16 + (t % 32) / 4, cl = 2 * (t % 4);
+    const int n = it * nr + w, s = n % kStagesX;
+    const uint32_t st = base + s * X::stage;
+    uint8_t* const ss = sb + s * X::stage;
+    const int tok0 = it * kTile;
+    if (feeds) feed.pump(it + 1);
+    feed.wait(it, feeds);
+
+    uint32_t kr[2][8];   // the raw k of the epilogue's elements
+    read_pairs(ss + S::k, kr, r0, cl);
+    decay_scan<D, true>(ss + S::g, tot, btot, lo, t, bar);
+    store_state_split(rs + X::x, rs + X::xlo, x[0], r0, cl);
+    split_slot<D, false, 128>(ss + S::k, rs + X::klo, ss + S::g, -1.f, t);
+    fence_async();
+    sync_threads<true>(bar);
+
+    float sc[32], acc[32];
+    uint32_t hi[4][4], lo2[4][4];
+    // the score tile dO Vᵀ, alone (its diagonal: do·v)
+    fence_regs(sc);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss<0, 0>(sc, kdesc(st + S::o, kBlock, kk),
+                     kdesc(st + S::v, kBlock, kk), kk > 0);
+    wg_commit();
+    fence_regs(sc);
+    wg_wait<0>();
+    fence_regs(sc);
+    const float2 dov = diag_pair(sc, r0, cl);
+    mask_split_strict<true>(sc, hi, lo2, r0, cl, nullptr);
+    // acc = P K̂ + dO Sᵀ (P, K̂ and S's copy in two parts each); beside it
+    // S += K̂ᵀ V with K̂ in two parts
+    fence_regs(acc);
+    fence_regs(x);
+    fence_regs(hi);
+    fence_regs(lo2);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs(acc, hi[kk], mdesc(st + S::k, kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs(acc, lo2[kk], mdesc(st + S::k, kk), 1);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs(acc, hi[kk], mdesc(rb + X::klo, kk), 1);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs(acc, lo2[kk], mdesc(rb + X::klo, kk), 1);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss<0, 0>(acc, kdesc(st + S::o, kBlock, kk),
+                     kdesc(rb + X::xlo, kBlock, kk), 1);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss<1, 1>(x[0], mdesc(rb + X::klo, kk), mdesc(st + S::v, kk), 1);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss<0, 0>(acc, kdesc(st + S::o, kBlock, kk),
+                     kdesc(rb + X::x, kBlock, kk), 1);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss<1, 1>(x[0], mdesc(st + S::k, kk), mdesc(st + S::v, kk), 1);
+    wg_commit();
+    fence_regs(acc);
+    fence_regs(x);
+    fence_regs(hi);
+    fence_regs(lo2);
+    wg_wait<0>();
+    fence_regs(acc);
+    fence_regs(x);
+    if (feeds) feed.pump(it + 1);
+
+    // dq = e^{b_{t-1}} acc + (do·v) u⊙k in bf16; q⊙dq = Q̂ acc in fp32,
+    // Q̂ = q e^{b_{t-1}} as the dk/dv launch splits it; du += (do·v) q⊙k
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + 8 * h, tok = tok0 + r;
+      if (tok >= t_len) continue;
+      const float d = h ? dov.y : dov.x;
+      const size_t off = (static_cast<size_t>(row) * t_len + tok) * D;
+#pragma unroll
+      for (int g = 0; g < 8; ++g) {
+        const int c = 8 * g + cl;
+        if (c >= D) continue;
+        float2 b = make_float2(0.f, 0.f);
+        if (r > 0)
+          b = *reinterpret_cast<const float2*>(ss + S::g + off32(r - 1, c));
+        const float a0 = acc[4 * g + 2 * h], a1 = acc[4 * g + 2 * h + 1];
+        const float2 uu = *reinterpret_cast<const float2*>(us + c);
+        const float k0 = lo_f(kr[h][g]), k1 = hi_f(kr[h][g]);
+        float y0 = a0 * ex2(b.x), y1 = a1 * ex2(b.y);
+        y0 += d * uu.x * k0;
+        y1 += d * uu.y * k1;
+        *reinterpret_cast<uint32_t*>(dq + off + c) = pack_bf16(y0, y1);
+        const uint32_t qr = *reinterpret_cast<const uint32_t*>(
+            ss + S::q + off16(kBlock, r, c));
+        const float q0 = lo_f(qr) * ex2(b.x), q1 = hi_f(qr) * ex2(b.y);
+        const uint32_t qh = pack_bf16(q0, q1);
+        const float2 qm =
+            split_value(qh, pack_bf16(q0 - lo_f(qh), q1 - hi_f(qh)));
+        *reinterpret_cast<float2*>(qdq + off + c) =
+            make_float2(qm.x * a0, qm.y * a1);
+        du_acc[2 * g] += d * lo_f(qr) * k0;
+        du_acc[2 * g + 1] += d * hi_f(qr) * k1;
+      }
+    }
+    decay_state<D>(x, btot, 0, r0);
+    fence_async();
+    mbar_arrive(empty0 + 8 * s);   // the stage is free
+  }
+
+  // du_rows: each column's sums over the lanes that hold it (t % 4), then
+  // over the four warps, in a fixed order
+  const int t = threadIdx.x % 128, lane = t % 32;
+  float* const red = reinterpret_cast<float*>(rs + X::red);
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    float v = du_acc[i];
+    v += __shfl_xor_sync(0xffffffffu, v, 4);
+    v += __shfl_xor_sync(0xffffffffu, v, 8);
+    v += __shfl_xor_sync(0xffffffffu, v, 16);
+    du_acc[i] = v;
+  }
+  if (lane < 4) {
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+      red[(t / 32) * S::DP + 8 * (i / 2) + 2 * lane + i % 2] = du_acc[i];
+  }
+  sync_threads<true>(bar);
+  if (t < D)
+    du[static_cast<size_t>(row) * D + t] =
+        red[t] + red[S::DP + t] + red[2 * S::DP + t] + red[3 * S::DP + t];
+}
+
+// The exclusive backward's reverse sweep at D <= 64, two rows a block:
+// per tile, last to first, as decay_sweep_dkv_tc<D, true>,
+//     acc_k = (V dOᵀ ⊙ Mᵀ_strict) Q̂ + V Xᵀ
+//     dk = e^{-b} ⊙ acc_k + (do·v) u⊙q
+//     dv = (K̂ Q̂ᵀ ⊙ Mᵀ_strict + diag(q·(u⊙k))) dO + K̂ X ;  X += Q̂ᵀ dO
+//     dg_t = Σ_{s>t} q⊙dq − Σ_{s≥t} K̂ ⊙ acc_k, masked
+// with X = R decayed to the tile's start first and Q̂ = q e^{b_{t-1}}.
+// One warpgroup computes dk, then dv, of its row. Launch as
+// exclusive_dq_tc, with the dq launch's q⊙dq.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+exclusive_dkv_tc(const __grid_constant__ CUtensorMap tq,
+                 const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv,
+                 const __grid_constant__ CUtensorMap to,
+                 const __grid_constant__ CUtensorMap tg,
+                 const __grid_constant__ CUtensorMap t_dk,
+                 const __grid_constant__ CUtensorMap t_dv,
+                 const __grid_constant__ CUtensorMap t_dg,
+                 const float* __restrict__ qdq,
+                 const float* __restrict__ u, int u_heads, int rows,
+                 int t_len, float lo) {
+  using S = L<D>;
+  using X = LX<D>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* const sb = smem_raw + (base - raw);
+  const int w = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  const int row0 = 2 * blockIdx.x, n_tiles = (t_len + kTile - 1) / kTile;
+  const bool feeds = threadIdx.x % 128 == 0;
+  Feeder<D, true> feed{&tq, &tk, &tv, &to, &tg, base, row0,
+                       min(2, rows - row0), w, n_tiles, 0};
+  if (!ring_setup(sb, w, u, u_heads, feed)) return;
+  const int nr = feed.nr, row = row0 + w, bar = 1 + w;
+  const uint32_t empty0 = base + X::bars;
+  uint8_t* const rs = sb + X::regions + w * X::row;
+  const uint32_t rb = base + X::regions + w * X::row;
+  float* const btot = reinterpret_cast<float*>(rs + X::btot);
+  float* const tot = reinterpret_cast<float*>(rs + X::tot);
+  float* const dgtot = reinterpret_cast<float*>(rs + X::dgtot);
+  const float* const us = reinterpret_cast<const float*>(rs + X::u);
+
+  float x[1][32];   // R, 64 × 64
+#pragma unroll
+  for (int i = 0; i < 32; ++i) x[0][i] = 0.f;
+  float carry = 0.f;   // dg: the later tiles' sum, channel sc_c
+
+  for (int it = 0; it < n_tiles; ++it) {
+    int t = threadIdx.x % 128;
+    asm volatile("" : "+r"(t));
+    const int r0 = t / 32 * 16 + (t % 32) / 4, cl = 2 * (t % 4);
+    // the dg scan's thread: channel sc_c, tokens 32·sc_h.. of the tile
+    const int sc_c = t % S::GW, sc_h = t / S::GW;
+    const bool scans = t < 2 * S::GW && sc_c < D;
+    const int n = it * nr + w, s = n % kStagesX;
+    const uint32_t st = base + s * X::stage;
+    uint8_t* const ss = sb + s * X::stage;
+    const int tok0 = (n_tiles - 1 - it) * kTile;
+    if (feeds) feed.pump(it + 1);
+    feed.wait(it, feeds);
+    if (feeds && it > 0) {   // the previous tile's stores have read it
+      bulk_wait_read<0>();
+      mbar_arrive(empty0 + 8 * (((it - 1) * nr + w) % kStagesX));
+    }
+
+    // the raw q of the epilogue's elements (dk's bonus), and q·(u⊙k) of
+    // rows r0 and r0 + 8 (dv's diagonal), summed over the quad
+    uint32_t qr[2][8];
+    float2 quk;
+    {
+      uint32_t kr[2][8];
+      read_pairs(ss + S::q, qr, r0, cl);
+      read_pairs(ss + S::k, kr, r0, cl);
+      float p[2] = {0.f, 0.f};
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int g = 0; g < 8; ++g) {
+          const float2 uu =
+              *reinterpret_cast<const float2*>(us + 8 * g + cl);
+          p[h] += lo_f(qr[h][g]) * uu.x * lo_f(kr[h][g]) +
+                  hi_f(qr[h][g]) * uu.y * hi_f(kr[h][g]);
+        }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        p[h] += __shfl_xor_sync(0xffffffffu, p[h], 1);
+        p[h] += __shfl_xor_sync(0xffffffffu, p[h], 2);
+      }
+      quk = make_float2(p[0], p[1]);
+    }
+    const uint32_t mask = decay_scan<D, true>(ss + S::g, tot, btot, lo, t,
+                                              bar);
+    decay_state<D>(x, btot, 0, r0);
+    store_state_split(rs + X::x, rs + X::xlo, x[0], r0, cl);
+    split_slot<D, true, 128>(ss + S::q, rs + X::qlo, ss + S::g, 1.f, t);
+    split_slot<D, false, 128>(ss + S::k, rs + X::klo, ss + S::g, -1.f, t);
+    fence_async();
+    sync_threads<true>(bar);
+
+    float acc[32], sc[32];
+    uint32_t hi[4][4], lo2[4][4];
+    // dk's score tile V dOᵀ, alone (its diagonal: do·v)
+    score_tile<D, false>(sc, st + S::v, st + S::o, 0, 0);
+    const float2 dov = diag_pair(sc, r0, cl);
+    mask_split_strict<false>(sc, hi, lo2, r0, cl, nullptr);
+    // acc = S1 Q̂ + V Xᵀ (S1, Q̂ and X's copy in two parts each); beside
+    // it X += Q̂ᵀ dO with Q̂ in two parts
+    fence_regs(acc);
+    fence_regs(x);
+    fence_regs(hi);
+    fence_regs(lo2);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs(acc, hi[kk], mdesc(st + S::q, kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs(acc, lo2[kk], mdesc(st + S::q, kk), 1);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs(acc, hi[kk], mdesc(rb + X::qlo, kk), 1);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs(acc, lo2[kk], mdesc(rb + X::qlo, kk), 1);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss<0, 0>(acc, kdesc(st + S::v, kBlock, kk),
+                     kdesc(rb + X::xlo, kBlock, kk), 1);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss<0, 0>(acc, kdesc(st + S::v, kBlock, kk),
+                     kdesc(rb + X::x, kBlock, kk), 1);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss<1, 1>(x[0], mdesc(st + S::q, kk), mdesc(st + S::o, kk), 1);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss<1, 1>(x[0], mdesc(rb + X::qlo, kk), mdesc(st + S::o, kk), 1);
+    wg_commit();
+    fence_regs(acc);
+    fence_regs(x);
+    fence_regs(hi);
+    fence_regs(lo2);
+    wg_wait<0>();
+    fence_regs(acc);
+    fence_regs(x);
+    if (feeds) feed.pump(it + 1);
+
+    // dk = e^{-b} acc_k + (do·v) u⊙q in bf16 over the v slot (free once
+    // dk's products are done); K̂ ⊙ acc_k over b, in place
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + 8 * h, tok = tok0 + r;
+      const float d = h ? dov.y : dov.x;
+#pragma unroll
+      for (int g = 0; g < 8; ++g) {
+        const int c = 8 * g + cl;
+        if (c >= D) continue;
+        const float a0 = acc[4 * g + 2 * h], a1 = acc[4 * g + 2 * h + 1];
+        float2* bp = reinterpret_cast<float2*>(ss + S::g + off32(r, c));
+        const float2 b = *bp;
+        const int at = off16(kBlock, r, c);
+        // K̂ as the products read it: hi + lo
+        const float2 km = split_value(
+            *reinterpret_cast<const uint32_t*>(ss + S::k + at),
+            *reinterpret_cast<const uint32_t*>(rs + X::klo + at));
+        if (tok < t_len) {
+          const float2 uu = *reinterpret_cast<const float2*>(us + c);
+          float y0 = a0 * ex2(-b.x), y1 = a1 * ex2(-b.y);
+          y0 += d * uu.x * lo_f(qr[h][g]);
+          y1 += d * uu.y * hi_f(qr[h][g]);
+          *reinterpret_cast<uint32_t*>(ss + S::v + at) = pack_bf16(y0, y1);
+        }
+        *bp = make_float2(km.x * a0, km.y * a1);
+      }
+    }
+
+    // dv's score tile K̂ Q̂ᵀ (three products of the parts), alone
+    fence_regs(sc);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss<0, 0>(sc, kdesc(st + S::k, kBlock, kk),
+                     kdesc(st + S::q, kBlock, kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss<0, 0>(sc, kdesc(st + S::k, kBlock, kk),
+                     kdesc(rb + X::qlo, kBlock, kk), 1);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss<0, 0>(sc, kdesc(rb + X::klo, kBlock, kk),
+                     kdesc(st + S::q, kBlock, kk), 1);
+    wg_commit();
+    fence_regs(sc);
+    // this tile's q⊙dq for the dg scan, in flight during dv's products
+    float pv[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int tok = tok0 + 32 * sc_h + i;
+      pv[i] = scans && tok < t_len
+                  ? __ldg(qdq + (static_cast<size_t>(row) * t_len + tok) * D +
+                          sc_c)
+                  : 0.f;
+    }
+    wg_wait<0>();
+    fence_regs(sc);
+    mask_split_strict_by<false>(sc, hi, lo2, r0, cl, [quk](int, int h) {
+      return h ? quk.y : quk.x;
+    });
+    // dv = S2 dO + K̂ X (S2, K̂ and X's copy in two parts each)
+    fence_regs(acc);
+    fence_regs(hi);
+    fence_regs(lo2);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs(acc, hi[kk], mdesc(st + S::o, kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs(acc, lo2[kk], mdesc(st + S::o, kk), 1);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss<0, 1>(acc, kdesc(st + S::k, kBlock, kk),
+                     mdesc(rb + X::xlo, kk), 1);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss<0, 1>(acc, kdesc(rb + X::klo, kBlock, kk),
+                     mdesc(rb + X::x, kk), 1);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss<0, 1>(acc, kdesc(st + S::k, kBlock, kk), mdesc(rb + X::x, kk),
+                     1);
+    wg_commit();
+    fence_regs(acc);
+    fence_regs(hi);
+    fence_regs(lo2);
+    wg_wait<0>();
+    fence_regs(acc);
+    if (feeds) feed.pump(it + 1);
+    // dv in bf16 over the q slot (Q̂'s last reader was dk's group)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int g = 0; g < 8; ++g)
+        *reinterpret_cast<uint32_t*>(ss + S::q +
+                                     off16(kBlock, r0 + 8 * h, 8 * g + cl)) =
+            pack_bf16(acc[4 * g + 2 * h], acc[4 * g + 2 * h + 1]);
+    sync_threads<true>(bar);   // every K̂ ⊙ acc_k is in the g slot
+
+    // dg: reverse cumulative sum of q⊙dq − K̂ ⊙ acc_k over the tile, less
+    // the token's own q⊙dq, plus the later tiles' sum, masked where the
+    // clamp held g
+    if (scans) {
+      float acc_s = 0.f;
+#pragma unroll
+      for (int i = 31; i >= 0; --i) {
+        const float qd = pv[i];
+        acc_s += qd - *reinterpret_cast<const float*>(
+                          ss + S::g + off32(32 * sc_h + i, sc_c));
+        pv[i] = acc_s - qd;
+      }
+      dgtot[sc_h * S::GW + sc_c] = acc_s;
+    }
+    sync_threads<true>(bar);
+    if (scans) {   // dg in place of K̂ ⊙ acc_k
+      const float t0 = dgtot[sc_c], t1 = dgtot[S::GW + sc_c];
+      const float off = carry + (sc_h == 0 ? t1 : 0.f);
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        *reinterpret_cast<float*>(ss + S::g + off32(32 * sc_h + i, sc_c)) =
+            (mask >> i) & 1u ? pv[i] + off : 0.f;
+      carry += t0 + t1;
+    }
+    // the tile's dk, dv and dg out by TMA (rows past T are not written).
+    // The stage is free once the stores have read it: the feeding thread
+    // releases it after its next tile's scan (or at the end), so that the
+    // stores' read does not hold up its own next tile
+    fence_async();
+    sync_threads<true>(bar);
+    if (feeds) {
+      tma_store(&t_dk, st + S::v, 0, tok0, row);
+      tma_store(&t_dv, st + S::q, 0, tok0, row);
+#pragma unroll
+      for (int gb = 0; gb < S::GB; ++gb)
+        tma_store(&t_dg, st + S::g + gb * kBlock, 32 * gb, tok0, row);
+      bulk_commit();
+    } else {
+      mbar_arrive(empty0 + 8 * s);
+    }
+  }
+  if (feeds) {
+    bulk_wait_read<0>();
+    mbar_arrive(empty0 + 8 * (((n_tiles - 1) * nr + w) % kStagesX));
   }
 }
 
@@ -1687,22 +2442,34 @@ decay_sweep_fwd_tc(const __grid_constant__ CUtensorMap tq,
 
 // The launches of B9's two sweeps, inclusive or EXCLUSIVE (the exclusive
 // form's backward: u, u_heads, the raw k or q for the bonus, du_rows)
+// (the exclusive form at D <= 64: exclusive_dq_tc, two rows a block)
 template <int D, bool EXCLUSIVE>
 int launch_dq(const void* q, const void* k, const void* v, const void* g,
               const void* d_o, const void* u, int u_heads, void* dq,
               void* qdq, void* du, int rows, int t_len, float lo,
               cudaStream_t stream) {
   static bool configured = false;
-  int err = configure(decay_sweep_dq_tc<D, EXCLUSIVE>, L<D>::bytes,
-                      configured);
+  constexpr bool kPair = EXCLUSIVE && L<D>::kSplit;
+  int err = 0;
+  if constexpr (kPair)
+    err = configure(exclusive_dq_tc<D>, LX<D>::bytes, configured);
+  else
+    err = configure(decay_sweep_dq_tc<D, EXCLUSIVE>, L<D>::bytes,
+                    configured);
   CUtensorMap m[5];
   if (!err) err = tensor_maps(m, {q, k, v, d_o, g}, 4, D, t_len, rows);
   if (err) return err;
-  decay_sweep_dq_tc<D, EXCLUSIVE><<<rows, kThreads, L<D>::bytes, stream>>>(
-      m[0], m[1], m[2], m[3], m[4], static_cast<__nv_bfloat16*>(dq),
-      static_cast<float*>(qdq), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const float*>(u), u_heads, static_cast<float*>(du), t_len,
-      lo);
+  if constexpr (kPair)
+    exclusive_dq_tc<D><<<(rows + 1) / 2, kThreads, LX<D>::bytes, stream>>>(
+        m[0], m[1], m[2], m[3], m[4], static_cast<__nv_bfloat16*>(dq),
+        static_cast<float*>(qdq), static_cast<const float*>(u), u_heads,
+        static_cast<float*>(du), rows, t_len, lo);
+  else
+    decay_sweep_dq_tc<D, EXCLUSIVE><<<rows, kThreads, L<D>::bytes, stream>>>(
+        m[0], m[1], m[2], m[3], m[4], static_cast<__nv_bfloat16*>(dq),
+        static_cast<float*>(qdq), static_cast<const __nv_bfloat16*>(k),
+        static_cast<const float*>(u), u_heads, static_cast<float*>(du),
+        t_len, lo);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1712,16 +2479,32 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* g,
                void* dk, void* dv, void* dg, int rows, int t_len, float lo,
                cudaStream_t stream) {
   static bool configured = false;
-  int err = configure(decay_sweep_dkv_tc<D, EXCLUSIVE>, L<D>::bytes,
-                      configured);
+  constexpr bool kPair = EXCLUSIVE && L<D>::kSplit;
+  int err = 0;
+  if constexpr (kPair)
+    err = configure(exclusive_dkv_tc<D>, LX<D>::bytes, configured);
+  else
+    err = configure(decay_sweep_dkv_tc<D, EXCLUSIVE>, L<D>::bytes,
+                    configured);
   CUtensorMap m[5];
   if (!err) err = tensor_maps(m, {q, k, v, d_o, g}, 4, D, t_len, rows);
   if (err) return err;
-  decay_sweep_dkv_tc<D, EXCLUSIVE><<<rows, kThreads, L<D>::bytes, stream>>>(
-      m[0], m[1], m[2], m[3], m[4], static_cast<const float*>(qdq),
-      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv),
-      static_cast<float*>(dg), static_cast<const __nv_bfloat16*>(q),
-      static_cast<const float*>(u), u_heads, t_len, lo);
+  CUtensorMap out[3];
+  if constexpr (kPair) {
+    err = tensor_maps(out, {dk, dv, dg}, 2, D, t_len, rows);
+    if (err) return err;
+    exclusive_dkv_tc<D><<<(rows + 1) / 2, kThreads, LX<D>::bytes,
+                          stream>>>(
+        m[0], m[1], m[2], m[3], m[4], out[0], out[1], out[2],
+        static_cast<const float*>(qdq), static_cast<const float*>(u),
+        u_heads, rows, t_len, lo);
+  } else
+    decay_sweep_dkv_tc<D, EXCLUSIVE><<<rows, kThreads, L<D>::bytes,
+                                       stream>>>(
+        m[0], m[1], m[2], m[3], m[4], static_cast<const float*>(qdq),
+        static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv),
+        static_cast<float*>(dg), static_cast<const __nv_bfloat16*>(q),
+        static_cast<const float*>(u), u_heads, t_len, lo);
   return static_cast<int>(cudaGetLastError());
 }
 

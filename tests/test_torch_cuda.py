@@ -7,6 +7,10 @@ installed:
 """
 
 import dataclasses
+import json
+import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -549,15 +553,14 @@ def test_fused_decode_misaligned_state_raises(dev):
     (33, 17, "decode_direct", "decode_bulk"),
     (256, 256, "decode_direct", "decode_bulk"),
 ])
-def test_fused_decode_route_by_shape(dev, dk, dv, kernel, other):
+def test_fused_decode_route_by_shape(dev, dk, dv, kernel, other, tmp_path):
     """``ops.fused_decode`` runs the kernel that ``ops.decode_route``
     names for the shape, and never the other one."""
     assert lu_ops.decode_route(dk, dv) == kernel.split("_")[1]
     s = _randn(dev, 0, 4, dk, dv)
     q, k, v = _randn(dev, 1, 4, dk), _randn(dev, 2, 4, dk), _randn(dev, 3,
                                                                   4, dv)
-    lu_ops.fused_decode(s, q, k, v)         # the library built, loaded
-    names = _cuda_kernel_names(lambda: lu_ops.fused_decode(s, q, k, v))
+    names = _cuda_kernel_names(tmp_path, lu_ops.fused_decode, s, q, k, v)
     assert any(kernel in n for n in names), names
     assert not any(other in n for n in names), names
 
@@ -567,15 +570,14 @@ def test_fused_decode_route_by_shape(dev, dk, dv, kernel, other):
     (256, "mass_lookup_bulk", "mass_lookup_direct"),
     (33, "mass_lookup_direct", "mass_lookup_bulk"),
 ])
-def test_mass_lookup_indexed_route_by_k(dev, kd, kernel, other):
+def test_mass_lookup_indexed_route_by_k(dev, kd, kernel, other, tmp_path):
     """An even-K ``ops.mass_lookup_indexed`` runs the bulk-copy kernel,
     ``mass_lookup_bulk``, and never the direct-load body; odd K the
     direct-load body ``mass_lookup_direct``."""
     store, q = _randn(dev, 0, 16, kd, kd), _randn(dev, 1, 8, 1, kd)
     rows = torch.arange(8, dtype=torch.int32, device=dev)
-    lu_ops.mass_lookup_indexed(store, rows, q)  # the library built, loaded
-    names = _cuda_kernel_names(
-        lambda: lu_ops.mass_lookup_indexed(store, rows, q))
+    names = _cuda_kernel_names(tmp_path, lu_ops.mass_lookup_indexed, store,
+                               rows, q)
     assert any(kernel in n for n in names), names
     assert not any(other in n for n in names), names
 
@@ -674,38 +676,62 @@ def test_linear_attention_kernels_match_plain_versions(dev, bh, t, d, dtype,
         _assert_normwise(x, x_r, tol, name)
 
 
-def _cuda_kernel_names(fn):
-    """The names of the CUDA kernels that ``fn`` ran, from torch.profiler
-    (as chip_smoke.py's step profiles read them). The capture window gets
-    20 ms of idle margin on each side: a kernel of a few microseconds at
-    its very edge is sometimes dropped from the trace, which then reads
-    as no launch."""
-    import time
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
-                 ) as prof:
-        torch.cuda.synchronize()
-        time.sleep(0.02)
-        fn()
-        torch.cuda.synchronize()
-        time.sleep(0.02)
-    return [e.key for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
+# One capture in a fresh process: the inputs from a file, one call that
+# builds and loads the library, then the profiled call; prints the names
+_CAPTURE = """
+import importlib, json, sys, time
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+module, name = sys.argv[1].split(":")
+fn = getattr(importlib.import_module(module), name)
+args, kwargs = torch.load(sys.argv[2])
+args = [a.cuda() if torch.is_tensor(a) else a for a in args]
+fn(*args, **kwargs)
+with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    torch.cuda.synchronize()
+    time.sleep(0.02)
+    fn(*args, **kwargs)
+    torch.cuda.synchronize()
+    time.sleep(0.02)
+print(json.dumps([e.key for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA]))
+"""
+
+
+def _cuda_kernel_names(tmp_path, fn, *args, **kwargs):
+    """The names of the CUDA kernels that ``fn(*args, **kwargs)`` runs,
+    from torch.profiler (as chip_smoke.py's step profiles read them), in
+    a fresh process: in one process, captures made a minute or more
+    after its first one can report no device events at all (seen with
+    the process idle, busy on the card or waiting on a child), so a
+    whole-file run, whose builds take minutes, failed where the test
+    alone passed. The capture window gets 20 ms of idle margin on each
+    side: a kernel of a few microseconds at its very edge is sometimes
+    dropped from the trace, which then reads as no launch."""
+    inputs = tmp_path / "inputs.pt"
+    torch.save(([a.cpu() if torch.is_tensor(a) else a for a in args],
+                kwargs), inputs)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(sys.path))
+    out = subprocess.run(
+        [sys.executable, "-c", _CAPTURE, f"{fn.__module__}:{fn.__name__}",
+         str(inputs)], capture_output=True, text=True, env=env, timeout=900)
+    assert out.returncode == 0, out.stderr
+    return json.loads(out.stdout.strip().splitlines()[-1])
 
 
 @pytest.mark.parametrize("d", [16, 128])
-def test_linear_attention_bf16_fwd_runs_on_the_tensor_cores(dev, d):
+def test_linear_attention_bf16_fwd_runs_on_the_tensor_cores(dev, d,
+                                                            tmp_path):
     """A bf16 ``ops.fwd`` on CUDA launches B2's tensor-core kernel,
     ``linear_sweep_fwd_tc``, and never the FMA body ``sweep_kernel``; an
     fp32 one the FMA body."""
     q, k, v, _ = _la_rows(dev, 4, 200, d, torch.bfloat16, seed=3)
-    la_ops.fwd(q, k, v, chunk=40)           # the library built and loaded
-    names = _cuda_kernel_names(lambda: la_ops.fwd(q, k, v, chunk=40))
+    names = _cuda_kernel_names(tmp_path, la_ops.fwd, q, k, v, chunk=40)
     assert any("linear_sweep_fwd_tc" in n for n in names), names
     assert not any("sweep_kernel" in n for n in names), names
     q, k, v = (x.float() for x in (q, k, v))
-    names = _cuda_kernel_names(lambda: la_ops.fwd(q, k, v, chunk=40))
+    names = _cuda_kernel_names(tmp_path, la_ops.fwd, q, k, v, chunk=40)
     assert any("sweep_kernel" in n for n in names), names
     assert not any("linear_sweep" in n for n in names), names
 
@@ -1277,6 +1303,63 @@ def test_rwkv6_prefill_refuses_autograd_on_the_card(dev):
 def _exclusive_counts():
     return (gla_ops.fwd.launches, gla_ops.bwd_exclusive_dq.launches,
             gla_ops.bwd_exclusive_dkv.launches)
+
+
+# (B, H, T, D, dtype, shared_u, chunk): a single row and odd row counts
+# (at D <= 64 a bf16 block takes two rows, so the last block holds one), a
+# ragged T, D = 16 and 64, the fp32 route; u per head, or one u for every
+# row. The chunk stays at most 75 tokens: at RWKV-6's decays the plain
+# version's chunk-wide factors overflow past about 98 (ROADMAP §C item 9)
+@pytest.mark.parametrize("b,h,t,d,dtype,shared_u,chunk", [
+    (1, 1, 128, 64, torch.bfloat16, False, 64),
+    (1, 3, 200, 64, torch.bfloat16, False, 40),
+    (1, 3, 200, 64, torch.bfloat16, True, 40),
+    (3, 5, 75, 16, torch.bfloat16, False, 75),
+    (3, 5, 75, 16, torch.bfloat16, True, 75),
+    (1, 3, 200, 64, torch.float32, False, 40),
+    (1, 1, 48, 16, torch.float32, True, 48),
+])
+def test_exclusive_backward_launches_match_their_plain_versions(
+        dev, b, h, t, d, dtype, shared_u, chunk):
+    """The exclusive backward's two launches, each alone, against
+    ``ref.bwd_exclusive_dq_ref`` (dq, q⊙dq, du per row) and
+    ``ref.bwd_exclusive_dkv_ref`` given the same q⊙dq (dk, dv; dg in fp32
+    only: in bf16 that q⊙dq carries the rounding of Q̂, which only the
+    same launch pair's k⊙dk cancels), and ``ops.bwd_exclusive`` whole
+    against ``ref.chunked_bwd_exclusive_ref``, du included; normwise 1e-5
+    (fp32) or 8e-3 (bf16). With u per head, dq also lies far from the
+    plain version given u[0] for every row, so a launch that read one u
+    would fail."""
+    gen = torch.Generator(device=dev).manual_seed(11)
+    r = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    q, k, v, do = (r(b * h, t, d).to(dtype) for _ in range(4))
+    g = -(0.3 + 0.6 * torch.rand((b * h, t, d), generator=gen, device=dev))
+    u = r(d) if shared_u else r(h, d)
+    before = _exclusive_counts()
+    dq, qdq, du_rows = gla_ops.bwd_exclusive_dq(q, k, v, g, do, u, chunk=chunk)
+    dk, dv, dg = gla_ops.bwd_exclusive_dkv(q, k, v, g, do, u, qdq, chunk=chunk)
+    whole = gla_ops.bwd_exclusive(q, k, v, g, do, u, chunk=chunk)
+    torch.cuda.synchronize()
+    assert _exclusive_counts() == (before[0], before[1] + 2, before[2] + 2)
+    tol = LA_TOL[dtype]
+    want = gla_ref.bwd_exclusive_dq_ref(q, k, v, g, do, u, chunk=chunk)
+    for name, x, x_r in zip(("dq", "q⊙dq", "du_rows"), (dq, qdq, du_rows),
+                            want):
+        assert x.shape == x_r.shape and torch.isfinite(x).all(), name
+        _assert_normwise(x, x_r, tol, name)
+    want = gla_ref.bwd_exclusive_dkv_ref(q, k, v, g, do, u, qdq, chunk=chunk)
+    names = ("dk", "dv", "dg") if dtype == torch.float32 else ("dk", "dv")
+    for name, x, x_r in zip(names, (dk, dv, dg), want):
+        _assert_normwise(x, x_r, tol, name)
+    want = gla_ref.chunked_bwd_exclusive_ref(q, k, v, g, do, u, chunk=chunk)
+    for name, x, x_r in zip(("dq", "dk", "dv", "dg", "du"), whole, want):
+        assert x.dtype == x_r.dtype and x.shape == x_r.shape, name
+        _assert_normwise(x, x_r, tol, name)
+    if not shared_u and h > 1:
+        dq_1, _, _ = gla_ref.bwd_exclusive_dq_ref(q, k, v, g, do, u[0],
+                                                  chunk=chunk)
+        assert (dq_1.float() - dq.float()).abs().max() > \
+            2 * tol * dq.float().abs().max()
 
 
 def _ssd_rows(dev, b, h, t, n, dtype, seed=0):
