@@ -297,9 +297,32 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    rows, T and D (musicgen-large's training shape), the exclusive
    backward's dq, dk/dv and whole each printed beside B9's.
 
+39. The paper's QA experiment (§5) at its published widths (k = 100,
+   embeddings 100, batch 64, fp32): (a) one Adam step of each variant
+   (none, linear, gated_linear, softmax and the §6 second_order) on the
+   card against the same step on the CPU from the same parameters and
+   batch: the loss within rtol 1e-5, every gradient leaf and every
+   parameter after the step within normwise 1e-4; (b) ``run_figure1``
+   and ``train_qa("second_order")`` at their defaults, cut from 400 to
+   ``QA_STEPS`` steps (printed): each variant's validation curve, best
+   accuracy and ms a step, finite losses and the last validation loss
+   below the first; (c) the paper's document length, 748 tokens, under
+   linear and softmax: ms a training step, encode ms, lookup µs for a
+   wave of 64 x 4 queries, and the bytes a document holds (C 40,000
+   against H 299,200). No kernel: JAX's QA is jnp.
+40. Checkpointed training: ``launch/train.py``'s ``build`` and
+   ``TrainLoop`` on qwen3-0.6b under linear (B2/B3) at full width cut to
+   4 layers, batch 8 x 1,024, async saves every 4 steps into a directory
+   under ``build/`` (removed at the end): run A 12 steps; run B crashed
+   at step 8 by ``--fail-at-step`` and resumed by a fresh loop at 8, its
+   parameters, AdamState and losses bit for bit run A's; a preemption
+   request at step 3 (a blocking save, a resume at 3 bit for bit); the
+   bytes on disk, the host ms inside ``save``, the writer's GB/s, the
+   restores' seconds and ms a step with a save and without.
+
 Each main path (phases 4, 6, 8, 10, 12, 14, 16, 18, 19, 21, 22's
-``launch/train.py`` run, 24, 26, 27, 29, 31, 32, 34, 35, 37 and 38) is
-driven with
+``launch/train.py`` run, 24, 26, 27, 29, 31, 32, 34, 35, 37, 38 and 40)
+is driven with
 every kernel's launch count set to 0 just before it and read just after.
 
 The last line is {"ok": true, "device": {...}}; the line before it the
@@ -4800,6 +4823,489 @@ def zamba2_rwkv6_training_kernel_times(gen, dev) -> tuple:
     return shapes, fwd_shape, t
 
 
+# -- phases 39 and 40: the paper's QA, checkpointed training --------------
+
+QA_VARIANTS = ("none", "linear", "gated_linear", "softmax", "second_order")
+# Figure 1's sweep cut from 400 steps to keep phase 39 near 90 s (the
+# four variants and second_order take 0.57 s a step together on an H100;
+# the curves are the same bits run after run)
+QA_STEPS = 120
+# the paper's document length (§5: n ≈ 750): 187 facts of 4 tokens
+QA_PAPER_FACTS = 187
+QA_LOSS_RTOL = 1e-5
+QA_LEAF_TOL = 1e-4
+
+
+def leaf_err(x, want) -> float:
+    """max|x − want| / max|want| of two tensors (``normwise``'s measure),
+    on the CPU."""
+    x, want = x.detach().cpu().float(), want.detach().cpu().float()
+    return ((x - want).abs().max() / want.abs().max().clamp_min(1e-30)
+            ).item()
+
+
+def event_ms(fn, reps=50) -> float:
+    """Device ms of one call of ``fn`` (CUDA events around ``reps`` calls
+    after a warm-up)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def qa_parity(dev, phase) -> None:
+    """Phase 39 (a): one Adam step of each variant at the paper's widths
+    (k = 100, embeddings 100, batch 64, 120-token documents, fp32) on the
+    card and on the CPU from the same parameters (drawn on the CPU from
+    seed 0, copied to the card) and batch: the loss within rtol 1e-5,
+    every gradient leaf and every parameter after the step within
+    normwise 1e-4 (max|Δ| ≤ 1e-4 · max|CPU's|), the parameters where the
+    gradient is above 1e-4 of its leaf's largest: Adam's first step
+    moves an element by ±lr whatever its gradient's size, except near
+    eps, where a rounding difference moves it anywhere between."""
+    import torch
+    from repro_torch.configs.paper_qa import QAConfig
+    from repro_torch.data import ClozeTask
+    from repro_torch.optim import adam
+    from repro_torch.qa import QAModel
+    from repro_torch.qa.train import make_step, put_batch
+    from repro_torch.tree import leaves, tree_map
+    cpu = torch.device("cpu")
+    batch = ClozeTask(seed=1).batch(QAConfig().batch_size, step=0)
+    for att in QA_VARIANTS:
+        cfg = QAConfig(attention=att)
+        model = QAModel(cfg)
+        p_cpu = model.init(torch.Generator().manual_seed(0))
+        p_dev = tree_map(lambda x: x.to(dev, copy=True), p_cpu)
+        out = {}
+        for name, params, where in (("cpu", p_cpu, cpu), ("card", p_dev,
+                                                           dev)):
+            opt = adam(cfg.lr)
+            t0 = time.perf_counter()
+            out[name] = make_step(model, opt)(params, opt.init(params),
+                                              put_batch(batch, where))
+            out[name][2].item()
+            out[name + "_s"] = time.perf_counter() - t0
+        loss, want = out["card"][2].item(), out["cpu"][2].item()
+        loss_err = abs(loss - want) / abs(want)
+        errs, n_small, n_moved = {"grad": 0.0, "param": 0.0}, 0, 0
+        for p_k, p_c, g_k, g_c in zip(*(leaves(out[w][i]) for i in (0, 3)
+                                        for w in ("card", "cpu"))):
+            errs["grad"] = max(errs["grad"], leaf_err(g_k, g_c))
+            # Adam's first step is lr·g/(|g| + eps): ±lr wherever |g| is
+            # well above eps, anywhere between where it is not, so the
+            # parameters are held where |g| > 1e-4·max|g| (phase 9's rule)
+            g_c, p_k, p_c = (x.detach().cpu() for x in (g_c, p_k, p_c))
+            big = g_c.abs() > 1e-4 * g_c.abs().max()
+            if big.any():
+                errs["param"] = max(errs["param"], leaf_err(p_k[big],
+                                                            p_c[big]))
+            n_small += int((~big).sum())
+            n_moved += int(((p_k - p_c).abs()[~big] > 1e-6).sum())
+        print(f"phase {phase}: QA {att} (k={cfg.hidden}, embed "
+              f"{cfg.embed_dim}, batch {cfg.batch_size} x 120 tokens, fp32) "
+              f"one Adam step card vs CPU: loss {loss:.6f} vs {want:.6f} "
+              f"(rel {loss_err:.2e}, limit {QA_LOSS_RTOL:g}); worst leaf "
+              f"normwise: gradients {errs['grad']:.2e}, parameters after "
+              f"the step {errs['param']:.2e} where |g| > 1e-4 max|g| (limit "
+              f"{QA_LEAF_TOL:g}; {len(leaves(p_cpu))} leaves; {n_moved} of "
+              f"{n_small} elements below it moved apart by more than 1e-6)"
+              f"; first step {out['card_s']:.3f} s on the card, "
+              f"{out['cpu_s']:.3f} s on the CPU")
+        if not loss_err <= QA_LOSS_RTOL or not max(errs.values()) <= \
+                QA_LEAF_TOL:
+            raise AssertionError(f"phase {phase}: QA {att} card vs CPU: loss "
+                                 f"{loss_err:.2e}, leaves {errs}")
+    torch.cuda.empty_cache()
+
+
+def qa_figure1(dev, phase) -> dict:
+    """Phase 39 (b): ``run_figure1`` and ``train_qa("second_order")`` at
+    their defaults (``ClozeTask(seed=1)``, 120-token documents, seed 0)
+    cut to ``QA_STEPS`` steps: each variant's validation curve, best
+    accuracy and ms a step (the host clock around ``train_qa`` over its
+    steps, its evaluations on the 256 held-out documents included).
+    Fails on a non-finite validation loss, or a last one not below the
+    first."""
+    import math
+    import torch
+    from repro_torch.qa import train as QT
+    print(f"phase {phase}: Figure 1 sweep cut from 400 to {QA_STEPS} steps "
+          f"(the run's time), evaluations every 40 steps and after the "
+          f"first")
+    seconds, train_qa = {}, QT.train_qa
+
+    def timed(att, **kw):         # run_figure1 calls the module's train_qa
+        t0 = time.perf_counter()
+        r = train_qa(att, **kw)   # ends in .item(): the card has finished
+        seconds[att] = time.perf_counter() - t0
+        return r
+
+    QT.train_qa = timed
+    try:
+        res = QT.run_figure1(steps=QA_STEPS, device=dev)
+        res["second_order"] = QT.train_qa("second_order", steps=QA_STEPS,
+                                          device=dev)
+    finally:
+        QT.train_qa = train_qa
+    out = {}
+    for att, r in res.items():
+        ms = seconds[att] / QA_STEPS * 1e3
+        out[att] = {"steps": r.steps, "val_acc": r.val_acc,
+                    "val_loss": r.val_loss, "best_acc": r.best_acc,
+                    "ms_per_step": ms}
+        print(f"  {att}: val_acc {[round(a, 4) for a in r.val_acc]} "
+              f"val_loss {[round(x, 4) for x in r.val_loss]} at steps "
+              f"{r.steps}; best {r.best_acc:.4f}; {ms:.2f} ms/step "
+              f"({seconds[att]:.1f} s, the {len(r.steps)} evaluations "
+              f"included)")
+    bad = {att: r.val_loss for att, r in res.items()
+           if not all(math.isfinite(x) for x in r.val_loss)
+           or not r.val_loss[-1] < r.val_loss[0]}
+    if bad:
+        raise AssertionError(f"phase {phase}: validation losses not finite "
+                             f"or the last not below the first: {bad}")
+    torch.cuda.empty_cache()
+    return out
+
+
+def qa_paper_length(dev, phase) -> dict:
+    """Phase 39 (c): the paper's document length, n = 748 (187 facts), k =
+    100, batch 64, fp32, linear and softmax: ms a training step (host
+    clock, synchronised, mean of 3 after a warm-up), encode ms for the
+    batch's 64 documents (``encode_doc`` without gradients), lookup ms
+    for a wave of 64 documents x 4 queries (CUDA events over 50 calls:
+    ``lookup`` C q against ``softmax_lookup`` Hᵀ softmax(Hq)), and the
+    bytes a document's representation holds: k²·4 against n·k·4."""
+    import torch
+    from repro_torch.configs.paper_qa import PAPER_M, QAConfig
+    from repro_torch.core.linear_attention import lookup
+    from repro_torch.core.softmax_attention import softmax_lookup
+    from repro_torch.data import ClozeTask
+    from repro_torch.optim import adam
+    from repro_torch.qa import QAModel
+    from repro_torch.qa.train import make_step, put_batch
+    task = ClozeTask(n_facts=QA_PAPER_FACTS, seed=1)
+    n = task.doc_len
+    out = {}
+    for att in ("linear", "softmax"):
+        cfg = QAConfig(attention=att)
+        b, k = cfg.batch_size, cfg.hidden
+        model = QAModel(cfg)
+        params = model.init(torch.Generator(device=dev).manual_seed(0))
+        opt = adam(cfg.lr)
+        state, step = opt.init(params), make_step(model, opt)
+        times = []
+        for i in range(4):
+            batch = put_batch(task.batch(b, step=i), dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, state, loss, _ = step(params, state, batch)
+            loss.item()
+            times.append(time.perf_counter() - t0)
+        step_ms = sum(times[1:]) / 3 * 1e3
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rep, _ = model.encode_doc(params, batch.doc)
+            torch.cuda.synchronize()
+            encode_ms = (time.perf_counter() - t0) * 1e3
+            q = torch.randn((b, PAPER_M, k), device=dev,
+                            generator=torch.Generator(device=dev)
+                            .manual_seed(2))
+            fn = (lambda: lookup(rep, q)) if att == "linear" else (
+                lambda: softmax_lookup(rep, q))
+            lookup_ms = event_ms(fn)
+        per_doc = rep[0].numel() * rep.element_size()
+        want = k * k * 4 if att == "linear" else n * k * 4
+        if per_doc != want or not torch.isfinite(loss):
+            raise AssertionError(f"phase {phase}: {att} at n={n}: "
+                                 f"{per_doc} bytes a document (want {want})"
+                                 f", loss {loss.item()}")
+        out[att] = {"step_ms": step_ms, "encode_ms": encode_ms,
+                    "lookup_ms": lookup_ms, "bytes": per_doc}
+        print(f"phase {phase}: QA {att} at the paper's n={n} (k={k}, batch "
+              f"{b}, fp32): {step_ms:.2f} ms a training step (step times "
+              f"ms {[round(t * 1e3, 2) for t in times]}); encode "
+              f"{encode_ms:.2f} ms for {b} documents; lookup "
+              f"{lookup_ms * 1e3:.2f} us for a wave of {b} x {PAPER_M} "
+              f"queries (CUDA events, 50 calls); {per_doc:,} bytes a "
+              f"document ({'C: k*k*4' if att == 'linear' else 'H: n*k*4'})"
+              f"; loss {loss.item():.4f}")
+        del params, state, rep
+        torch.cuda.empty_cache()
+    return out
+
+
+# phase 40: qwen3-0.6b under linear at full width, cut in depth
+CKPT_LAYERS = 4
+CKPT_STEPS, CKPT_EVERY, CKPT_FAIL, CKPT_PREEMPT = 12, 4, 8, 3
+
+
+def ckpt_args(directory, *extra):
+    from repro_torch.launch import train
+    return train.parse_args([
+        "--arch", "qwen3-0.6b", "--backend", "linear", "--n-layers",
+        str(CKPT_LAYERS), "--batch", "8", "--seq-len", "1024", "--steps",
+        str(CKPT_STEPS), "--lr", "3e-4", "--warmup", "20", "--seed", "0",
+        "--log-every", "100", "--ckpt-every", str(CKPT_EVERY),
+        "--ckpt-dir", str(directory), *extra])
+
+
+def host_state(loop) -> list:
+    """(path, owned host copy) of each of the loop's parameter and
+    AdamState leaves."""
+    from repro_torch.tree import leaves_with_paths
+    return [(path, x.detach().to("cpu", copy=True)) for path, x in
+            leaves_with_paths({"params": loop.params,
+                               "opt": loop.opt_state})]
+
+
+def dir_bytes(path) -> int:
+    return sum(f.stat().st_size for f in Path(path).rglob("*")
+               if f.is_file())
+
+
+class CkptClock:
+    """Phase 40's instruments, put on a loop's manager and step: the host
+    seconds inside ``save`` (joining the previous writer, then the host
+    copy, or the whole write when blocking), the writer's seconds and
+    bytes (``manager.save_pytree``), ``restore``'s seconds, and the host
+    clock at each step's start."""
+
+    def __init__(self):
+        from repro_torch.checkpoint import manager as M
+        self.M, self.saves, self.writes, self.restores = M, [], [], []
+        self.starts = []
+        self._save_pytree, self._restore = M.save_pytree, \
+            M.CheckpointManager.restore
+        clock = self
+
+        def save_pytree(path, tree, extra=None):
+            t0 = time.perf_counter()
+            clock._save_pytree(path, tree, extra)
+            clock.writes.append((time.perf_counter() - t0,
+                                 Path(path, "arrays.npz").stat().st_size))
+
+        def restore(mgr, like, step=None):
+            t0 = time.perf_counter()
+            out = clock._restore(mgr, like, step)
+            clock.restores.append(time.perf_counter() - t0)
+            return out
+
+        M.save_pytree, M.CheckpointManager.restore = save_pytree, restore
+
+    def attach(self, loop) -> None:
+        mgr, save, step_fn, clock = loop.ckpt, loop.ckpt.save, \
+            loop.step_fn, self
+
+        def timed_save(step, tree, extra=None, blocking=True):
+            t0 = time.perf_counter()
+            mgr.wait()
+            t1 = time.perf_counter()
+            save(step, tree, extra, blocking)
+            clock.saves.append({"step": step, "blocking": blocking,
+                                "join_ms": (t1 - t0) * 1e3,
+                                "ms": (time.perf_counter() - t0) * 1e3})
+
+        def timed_step(params, opt_state, batch):
+            clock.starts.append(time.perf_counter())
+            return step_fn(params, opt_state, batch)
+
+        loop.ckpt.save, loop.step_fn = timed_save, timed_step
+
+    def close(self) -> None:
+        self.M.save_pytree = self._save_pytree
+        self.M.CheckpointManager.restore = self._restore
+
+
+def checkpoint_main_path(dev, phase) -> dict:
+    """Phase 40: checkpointed training of qwen3-0.6b under linear (B2/B3)
+    at full width, cut to ``CKPT_LAYERS`` layers, through
+    ``launch/train.py``'s ``build`` and ``TrainLoop``: batch 8 x 1,024,
+    fp32 master, bf16 compute, async saves every 4 steps into a directory
+    under ``build/`` (removed at the end). Run A: 12 steps uninterrupted.
+    Run B: ``--fail-at-step 8`` (its step-8 writer joined, as a process
+    that finished its save before dying), then a fresh loop in the same
+    directory, which must resume at step 8 and finish: its parameters
+    and AdamState bit for bit run A's, and the losses of steps 9-12 run
+    A's. Then a preemption request at step 3: a blocking save, the loop
+    stopped, and a new loop resumed at 3 with the preempted loop's state
+    bit for bit. Every kernel's launch count set to 0 before run A and
+    read after the preemption's resume: B2/B3 exactly 27 steps' worth.
+    Prints the bytes on disk, the host ms inside ``save``, the writer's
+    seconds and GB/s, the restores' seconds and ms a step with a save and
+    without."""
+    import gc
+    import math
+    import shutil
+    import torch
+    from repro_torch.launch import train
+    from repro_torch.models import lm
+    from repro_torch.runtime import InjectedFailure
+    base = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(base, ignore_errors=True)
+    base.mkdir(parents=True)
+    disk = shutil.disk_usage(base)
+    print(f"phase {phase}: checkpoint directory {base.relative_to(ROOT)}: "
+          f"{disk.free / 1e9:.1f} GB free of {disk.total / 1e9:.1f} GB")
+    clock = CkptClock()
+    names = TRAIN_KERNELS["linear"][0]
+    try:
+        # run A
+        gc.collect()
+        torch.cuda.empty_cache()
+        loop = train.build(ckpt_args(base / "a"))
+        cfg = train.config(ckpt_args(base / "a"))
+        n_params = lm.param_count(loop.params)
+        clock.attach(loop)
+        reset_launches()
+        t0 = time.perf_counter()
+        out_a = loop.run()
+        t_end = time.perf_counter()
+        ref = host_state(loop)
+        losses_a = [m["loss"] for m in out_a["metrics"]]
+        a_saves, a_starts = list(clock.saves), clock.starts + [t_end]
+        on_disk = dir_bytes(base / "a" / f"step_{CKPT_STEPS}")
+        kept = sorted(p.name for p in (base / "a").iterdir())
+        release_train_loop()
+        del loop, out_a
+        shutil.rmtree(base / "a")
+        if kept != [f"step_{s}" for s in (12, 4, 8)] or not all(
+                math.isfinite(x) for x in losses_a):
+            raise AssertionError(f"phase {phase}: run A kept {kept}, losses "
+                                 f"{losses_a}")
+        # run B: the crash, then the resume
+        gc.collect()
+        torch.cuda.empty_cache()
+        crashing = train.build(ckpt_args(base / "b", "--fail-at-step",
+                                         str(CKPT_FAIL)))
+        try:
+            crashing.run()
+            raise AssertionError(f"phase {phase}: no injected failure")
+        except InjectedFailure:
+            pass
+        crashing.ckpt.wait()
+        losses_b0 = [m["loss"] for m in crashing.metrics_history]
+        release_train_loop()
+        del crashing
+        gc.collect()
+        torch.cuda.empty_cache()
+        t_r = time.perf_counter()
+        resumed = train.build(ckpt_args(base / "b"))
+        build_s = time.perf_counter() - t_r
+        if resumed.step != CKPT_FAIL:
+            raise AssertionError(f"phase {phase}: resumed at step "
+                                 f"{resumed.step}, want {CKPT_FAIL}")
+        out_b = resumed.run()
+        got = host_state(resumed)
+        losses_b = [m["loss"] for m in out_b["metrics"]]
+        release_train_loop()
+        del resumed, out_b
+        shutil.rmtree(base / "b")
+        diff = [(path, (a.float() - b.float()).abs().max().item())
+                for (path, a), (_, b) in zip(ref, got)
+                if not torch.equal(a, b)]
+        print(f"phase {phase}: run B crashed at step {CKPT_FAIL} (losses "
+              f"{[round(x, 6) for x in losses_b0]}), resumed at step "
+              f"{CKPT_FAIL} (build with restore {build_s:.3f} s), finished "
+              f"at {CKPT_STEPS}: {len(ref) - len(diff)} of {len(ref)} "
+              f"parameter and AdamState leaves bit for bit run A's; losses "
+              f"of steps {CKPT_FAIL + 1}-{CKPT_STEPS} {losses_b} against "
+              f"run A's (steps 1-{CKPT_STEPS}) {losses_a}")
+        if diff or losses_b != losses_a[CKPT_FAIL:] or \
+                losses_b0 != losses_a[:CKPT_FAIL]:
+            raise AssertionError(f"phase {phase}: run B is not run A: "
+                                 f"leaves (path, max |diff|) {diff[:8]}")
+        del ref, got
+        # the preemption
+        gc.collect()
+        torch.cuda.empty_cache()
+        loop = train.build(ckpt_args(base / "p"))
+        clock.attach(loop)
+        orig = loop.step_fn
+
+        def spy(params, opt_state, batch):
+            if loop.step == CKPT_PREEMPT - 1:
+                loop.request_preemption()
+            return orig(params, opt_state, batch)
+
+        loop.step_fn = spy
+        out_p = loop.run()
+        kept = loop.ckpt.steps()
+        pre = host_state(loop)
+        release_train_loop()
+        del loop, out_p
+        gc.collect()
+        torch.cuda.empty_cache()
+        again = train.build(ckpt_args(base / "p"))
+        post = host_state(again)
+        launches = read_launches()
+        step_p = again.step
+        release_train_loop()
+        del again
+        same = all(torch.equal(a, b) for (_, a), (_, b) in zip(pre, post))
+        print(f"phase {phase}: preemption requested during step "
+              f"{CKPT_PREEMPT}: stopped at step {CKPT_PREEMPT} with a "
+              f"blocking save ({clock.saves[-1]['ms']:.1f} ms), steps kept "
+              f"{kept}; a new loop resumed at step {step_p}, its state bit "
+              f"for bit the preempted loop's: {same}")
+        if kept != [CKPT_PREEMPT] or step_p != CKPT_PREEMPT or not same:
+            raise AssertionError(f"phase {phase}: preemption kept {kept}, "
+                                 f"resumed at {step_p}, state equal {same}")
+        del pre, post
+    finally:
+        clock.close()
+        shutil.rmtree(base, ignore_errors=True)
+    steps = CKPT_STEPS + CKPT_FAIL + (CKPT_STEPS - CKPT_FAIL) + CKPT_PREEMPT
+    want = dict(zip(names, (2 * cfg.n_layers * steps, cfg.n_layers * steps,
+                            cfg.n_layers * steps)))
+    got_l = {k: n for k, n in launches.items() if n}
+    if got_l != want:
+        raise AssertionError(f"phase {phase}: launches {got_l} (want {want} "
+                             f"over {steps} steps)")
+    # run A's numbers
+    iters = [b - a for a, b in zip(a_starts, a_starts[1:])]
+    with_save = [t for i, t in enumerate(iters, 1) if i % CKPT_EVERY == 0]
+    without = [t for i, t in enumerate(iters, 1)
+               if i % CKPT_EVERY and i > 1]
+    writes = [(s, n) for s, n in clock.writes]
+    gbs = [n / s / 1e9 for s, n in writes]
+    rec = {
+        "params": n_params, "bytes_on_disk": on_disk,
+        "stall_ms": [round(s["ms"], 3) for s in a_saves],
+        "join_ms": [round(s["join_ms"], 3) for s in a_saves],
+        "write_s": [round(s, 3) for s, _ in writes],
+        "write_gb_s": [round(g, 3) for g in gbs],
+        "restore_s": [round(s, 3) for s in clock.restores],
+        "ms_step_with_save": [round(t * 1e3, 3) for t in with_save],
+        "ms_step_without": [round(t * 1e3, 3) for t in without],
+        "launches": {k: launches[k] for k in names}}
+    print(f"phase {phase}: checkpointed training qwen3-0.6b linear cut to "
+          f"{cfg.n_layers} of 28 layers ({n_params} params; fp32 master and "
+          f"two fp32 moments), batch 8 x 1,024, async saves every "
+          f"{CKPT_EVERY} steps, blocking at step {CKPT_STEPS}: "
+          f"{on_disk:,} bytes on disk a checkpoint; host ms inside save "
+          f"(run A, steps 4, 8, 12) {rec['stall_ms']} of which joining the "
+          f"previous writer {rec['join_ms']}; the writer's seconds "
+          f"{rec['write_s']} ({rec['write_gb_s']} GB/s; every save of the "
+          f"phase); restores {rec['restore_s']} s; run A ms a step with a "
+          f"save {rec['ms_step_with_save']}, without "
+          f"{rec['ms_step_without']} (host clock from a step's start to the "
+          f"next's; the first step left out); launches {rec['launches']} "
+          f"over {steps} steps")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5368,6 +5874,18 @@ def main() -> int:
                       + "_tc<64> (two rows a block, bf16 tensor cores)"})
     done(38, t0)
 
+    # -- 39. the paper's QA: card vs CPU, the Figure-1 sweep, n = 748 -------
+    t0 = time.perf_counter()
+    qa_parity(dev, 39)
+    qa_figure1(dev, 39)
+    qa_paper_length(dev, 39)
+    done(39, t0)
+
+    # -- 40. checkpointed, resumable training through launch/train.py -------
+    t0 = time.perf_counter()
+    train_ckpt = checkpoint_main_path(dev, 40)
+    done(40, t0)
+
     for r in records:
         r["max_abs_err"] = errs[r["name"]]
         if r["name"] in stream:   # B1/B7: generate, stream; B10: and train
@@ -5417,6 +5935,9 @@ def main() -> int:
         train_rwkv["launches"]["gated_linear_attention_fwd"]
     for name, rec in train_shapes.items():
         dense_times.setdefault(name, []).append(rec)
+    # phase 40
+    for name, n in train_ckpt["launches"].items():
+        more.setdefault(name, {})["train_ckpt"] = n
     dense_times["gated_linear_attention_fwd"].append(rwkv_fwd_shape)
     for r in records:
         if r["name"] in more:

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.paper_qa import QAConfig
 from repro_torch.core.state import DocumentState
 from repro_torch.models.attention import AttnState, CrossMemory
 from repro_torch.models.mamba2 import MambaState
@@ -127,3 +128,21 @@ def document_state_from_jax(c, z, n_tokens: int, *,
     return DocumentState(c=_tensor(c, device),
                          z=None if z is None else _tensor(z, device),
                          n_tokens=int(n_tokens))
+
+
+def qa_params_from_jax(np_tree: Any, cfg: QAConfig, *,
+                       device: Optional[torch.device] = None) -> dict:
+    """Convert a ``repro.qa.model.QAModel.init`` tree under
+    ``cfg.attention``: ``embed``, ``query_gru``, ``w_out``, ``b_out``,
+    ``ans_embed``; ``doc_gru`` unless second_order, which has ``so``
+    (``gru``, ``w_probe`` and the 0-d ``alpha_logit``) instead; gated_linear
+    adds ``w_gate`` and ``b_gate``. A tree of another variant raises
+    ValueError."""
+    want = {"embed", "query_gru", "w_out", "b_out", "ans_embed",
+            "so" if cfg.attention == "second_order" else "doc_gru"}
+    if cfg.attention == "gated_linear":
+        want |= {"w_gate", "b_gate"}
+    if set(np_tree) != want:
+        raise ValueError(f"a {cfg.attention} QAModel holds {sorted(want)}, "
+                         f"the tree {sorted(np_tree)}")
+    return _tree(np_tree, device)

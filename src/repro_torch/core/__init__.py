@@ -1,6 +1,6 @@
 """Core of the port: the paper's linear attention family, its softmax
-baseline and the document state (the exports of ``repro.core`` that the
-port has; ``second_order`` is not ported)."""
+baseline, the document state and the §6 second-order unit (the exports
+of ``repro.core``)."""
 
 from repro_torch.core.linear_attention import (  # noqa: F401
     causal_linear_attention,
@@ -26,3 +26,6 @@ from repro_torch.core.softmax_attention import (  # noqa: F401
     softmax_lookup,
 )
 from repro_torch.core.state import DocumentState, DocumentStore  # noqa: F401
+from repro_torch.core.second_order import (  # noqa: F401
+    second_order_params, second_order_scan,
+)

@@ -3,15 +3,19 @@
 Builds the config, the AdamW optimizer (cosine warmup, weight decay 0.1,
 global-norm clipping at 1.0), the train step, random parameters from
 ``--seed`` and the synthetic bigram stream, and runs them through the
-training loop with straggler telemetry; SIGTERM stops the loop at the
-next step. The flags are the JAX driver's, with ``--device`` on top and
-no ``--mesh`` (one device). It trains ``--backend linear``, whose
+fault-tolerant training loop: with ``--ckpt-dir`` it resumes from the
+newest checkpoint there, saves asynchronously every ``--ckpt-every``
+steps and blocking at the last, and SIGTERM makes it save at the next
+step and stop. The flags are the JAX driver's, with ``--device`` and
+``--n-layers`` on top and no ``--mesh`` (one device). It trains
+``--backend linear``, whose
 attention core runs the B2 forward and B3 backward kernels on the card,
 ``--backend gated_linear`` (the paper's §4 decay form), whose core runs
 B8 forward and B9 backward, and ``--backend softmax`` (the paper's §2
 baseline), whose attention runs B10 forward with its log-sum-exp and
-JAX's blockwise flash backward in plain PyTorch. Checkpointing is not
-ported, so ``--ckpt-dir`` raises and there is no ``--ckpt-every``.
+JAX's blockwise flash backward in plain PyTorch. The checkpoints are in
+the JAX package's format (``checkpoint/manager.py``): either driver
+resumes the other's.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \\
       --backend linear --batch 8 --seq-len 1024 --steps 8
@@ -25,6 +29,10 @@ ported, so ``--ckpt-dir`` raises and there is no ``--ckpt-every``.
       --backend softmax --batch 8 --seq-len 1024 --steps 8
   PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
       --backend softmax --steps 5
+  PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
+      --steps 12 --ckpt-every 4 --ckpt-dir build/ck --fail-at-step 8
+  PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
+      --steps 12 --ckpt-every 4 --ckpt-dir build/ck    # resumes at 8
 
 ``--arch`` takes qwen3-0.6b, the dense configs yi-34b, internlm2-20b,
 phi3-mini-3.8b and musicgen-large, the MoE configs (the router's
@@ -115,7 +123,8 @@ def build(args) -> TrainLoop:
 
     loop = TrainLoop(
         step, params, opt_state, dataset,
-        TrainLoopConfig(total_steps=args.steps, ckpt_dir=args.ckpt_dir,
+        TrainLoopConfig(total_steps=args.steps, ckpt_every=args.ckpt_every,
+                        ckpt_dir=args.ckpt_dir,
                         fail_at_step=args.fail_at_step,
                         log_every=args.log_every),
         put_batch=put)
@@ -143,6 +152,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--warmup", type=int, default=20)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--grad-compress", action="store_true")
     ap.add_argument("--fail-at-step", type=int, default=None)
@@ -156,7 +166,12 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     if args.n_layers:
         print(f"depth cut: {depth_cut(base_config(args), config(args))}")
     loop = build(args)
+    if loop.step:
+        print(f"resumed from step {loop.step} ({args.ckpt_dir})")
     out = loop.run()
+    if not out["metrics"]:
+        print(f"final step {out['step']}: nothing left to run")
+        return 0
     losses = [m["loss"] for m in out["metrics"]]
     print(f"final step {out['step']}  loss {losses[0]:.4f} -> "
           f"{losses[-1]:.4f}  stragglers={len(out['straggler_events'])}")

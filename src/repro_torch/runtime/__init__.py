@@ -1,5 +1,6 @@
 """Training runtime of the port (``repro/runtime``): step builders and
-the training loop with straggler telemetry. No checkpointing yet."""
+the fault-tolerant training loop (auto-resume, async and preemption
+checkpoints, failure injection, straggler telemetry)."""
 
 from repro_torch.runtime.steps import (  # noqa: F401
     make_eval_step, make_prefill_step, make_train_step,

@@ -1923,3 +1923,79 @@ def test_softmax_engine_through_b10_matches_plain_prefill_engine(dev,
         assert (a.uid, a.finish_reason, a.admitted_step, a.finished_step) \
             == (b.uid, b.finish_reason, b.admitted_step, b.finished_step)
         np.testing.assert_array_equal(a.tokens, b.tokens)
+
+
+def test_checkpoint_of_a_cuda_tree_isolated_from_in_place_update(dev,
+                                                                 tmp_path):
+    """An async save of a tree on the card keeps the values of the call
+    although the device tensors are updated in place before the writer
+    runs (as AdamW does), and restores onto the card bit for bit, bf16
+    and the 0-d step included."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.optim import AdamState
+    from repro_torch.tree import leaves, tree_map
+    g = torch.Generator(device=dev).manual_seed(0)
+    tree = {"params": {"w": torch.randn((1024, 1024), generator=g,
+                                        device=dev),
+                       "h": torch.randn((4096,), generator=g,
+                                        device=dev).bfloat16()},
+            "opt": AdamState(step=torch.tensor(7, dtype=torch.int32,
+                                               device=dev),
+                             mu={"w": torch.randn((1024, 1024), generator=g,
+                                                  device=dev)},
+                             nu={"w": torch.rand((1024, 1024), generator=g,
+                                                 device=dev)})}
+    want = tree_map(lambda x: x.clone(), tree)
+    mgr = CheckpointManager(str(tmp_path / "ck"))
+    mgr.save(1, tree, extra={"step": 1}, blocking=False)
+    with torch.no_grad():
+        for x in leaves(tree):
+            x.add_(1)
+    mgr.wait()
+    got, extra, step = mgr.restore(tree_map(torch.zeros_like, tree))
+    assert step == 1 and extra == {"step": 1}
+    for a, b in zip(leaves(got), leaves(want)):
+        assert a.device.type == "cuda" and a.dtype == b.dtype
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("att", ["none", "linear", "gated_linear", "softmax",
+                                 "second_order"])
+def test_qa_step_on_the_card_matches_the_cpu(dev, att):
+    """One Adam step of the paper's QA model at its published widths (k
+    = 100, embeddings 100) on a batch of 8 documents of 120 tokens, on
+    the card and on the CPU from the same parameters: the loss within
+    1e-5 relative, every gradient leaf and every parameter after the
+    step within normwise 1e-4, max|Δ| ≤ 1e-4 · max|CPU's| (fp32 sums in
+    other orders through 124 GRU steps); the parameters where the
+    gradient is above 1e-4 of its leaf's largest, since Adam's first
+    step is lr·g/(|g| + eps), ±lr except near eps (chip_smoke's phase 9
+    rule)."""
+    from repro_torch.configs.paper_qa import QAConfig
+    from repro_torch.data import ClozeTask
+    from repro_torch.optim import adam
+    from repro_torch.qa import QAModel
+    from repro_torch.qa.train import make_step, put_batch
+    from repro_torch.tree import leaves, tree_map
+    cfg = QAConfig(attention=att)
+    model = QAModel(cfg)
+    cpu = torch.device("cpu")
+    p_cpu = model.init(torch.Generator().manual_seed(0))
+    p_dev = tree_map(lambda x: x.to(dev, copy=True), p_cpu)
+    batch = ClozeTask(seed=1).batch(8, step=0)
+    out = {}
+    for name, params, where in (("cpu", p_cpu, cpu), ("card", p_dev, dev)):
+        opt = adam(cfg.lr)
+        out[name] = make_step(model, opt)(params, opt.init(params),
+                                          put_batch(batch, where))
+    torch.testing.assert_close(out["card"][2].cpu(), out["cpu"][2],
+                               rtol=1e-5, atol=0)
+    for p_k, p_c, g_k, g_c in zip(*(leaves(out[w][i]) for i in (0, 3)
+                                    for w in ("card", "cpu"))):
+        g_k, p_k = g_k.cpu(), p_k.detach().cpu()
+        assert (g_k - g_c).abs().max() <= 1e-4 * g_c.abs().max()
+        big = g_c.abs() > 1e-4 * g_c.abs().max()
+        p_c = p_c.detach()
+        if big.any():
+            assert (p_k - p_c)[big].abs().max() <= \
+                1e-4 * p_c[big].abs().max()

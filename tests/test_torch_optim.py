@@ -156,3 +156,38 @@ def test_synthetic_batches_are_jax_s_bit_for_bit(structured, seed, shard,
     first = next(ours.iter_from(5))
     np.testing.assert_array_equal(first["tokens"],
                                   theirs.batch_at(5)["tokens"])
+
+
+def _bits(x):
+    """The raw bits of a bf16 or fp32 leaf, JAX's or the port's."""
+    if isinstance(x, torch.Tensor):
+        width = torch.int16 if x.dtype == torch.bfloat16 else torch.int32
+        return x.view(width).numpy()
+    x = np.asarray(x)
+    return x.view(np.int16 if x.dtype.itemsize == 2 else np.int32)
+
+
+@pytest.mark.parametrize("scale", [1e-4, 1.0, 3e3])
+def test_error_feedback_is_jax_s_bit_for_bit(scale):
+    """Five rounds of bf16 compression with the residual carried: every
+    compressed gradient and every residual equal to JAX's bit for bit
+    (f32 adds and subtracts and round-to-nearest-even casts, the same
+    operations in the same order)."""
+    grads = [_tree(10 + i, scale) for i in range(5)]
+    ef_j, ef_t = (jopt.ErrorFeedback.init(grads[0]),
+                  topt.ErrorFeedback.init(_to_torch(grads[0])))
+    for g in grads:
+        c_j, ef_j = ef_j.compress(g)
+        c_t, ef_t = ef_t.compress(_to_torch(g))
+        for a, b in zip(leaves(c_t), jax.tree.leaves(c_j)):
+            assert a.dtype == torch.bfloat16
+            np.testing.assert_array_equal(_bits(a), _bits(b))
+        for a, b in zip(leaves(ef_t.residual), jax.tree.leaves(ef_j.residual)):
+            assert a.dtype == torch.float32
+            np.testing.assert_array_equal(_bits(a), _bits(b))
+    assert any(np.abs(_bits(r)).max() > 0 for r in leaves(ef_t.residual))
+    back = topt.decompress_bf16(topt.compress_bf16(_to_torch(grads[0])))
+    for a, b in zip(leaves(back), jax.tree.leaves(jopt.decompress_bf16(
+            jopt.compress_bf16(grads[0])))):
+        assert a.dtype == torch.float32
+        np.testing.assert_array_equal(_bits(a), _bits(b))

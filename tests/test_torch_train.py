@@ -36,8 +36,8 @@ from repro_torch import optim as topt
 from repro_torch.configs import get_smoke_config
 from repro_torch.launch import train as ttrain
 from repro_torch.models import lm as tlm
-from repro_torch.runtime import (InjectedFailure, TrainLoop, TrainLoopConfig,
-                                 make_eval_step, make_train_step)
+from repro_torch.runtime import (InjectedFailure, make_eval_step,
+                                 make_train_step)
 from repro_torch.tree import leaves
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -254,20 +254,10 @@ def _args(*extra):
                               "--batch", "2", "--seq-len", "16", *extra])
 
 
-def test_checkpoint_dir_raises(tmp_path):
-    with pytest.raises(NotImplementedError):
-        ttrain.build(_args("--backend", "linear", "--ckpt-dir",
-                           str(tmp_path / "ck")))
-    with pytest.raises(NotImplementedError):
-        TrainLoop(None, {}, None, None,
-                  TrainLoopConfig(total_steps=1, ckpt_dir=str(tmp_path)))
-    assert not (tmp_path / "ck").exists()
-
-
-@pytest.mark.parametrize("flag", [["--mesh", "1x1"], ["--ckpt-every", "5"]])
+@pytest.mark.parametrize("flag", [["--mesh", "1x1"]])
 def test_unported_flags_refused(flag):
-    """The driver has no mesh (one device) and no checkpointing, so their
-    flags are not accepted at all."""
+    """The driver has no mesh (one device), so the flag is not accepted
+    at all."""
     with pytest.raises(SystemExit):
         _args("--backend", "linear", *flag)
 
