@@ -208,9 +208,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    through B1/B7 and B10 against ``decode_kernel="reference"`` (tokens
    identical, logits within 1e-4).
 26. The dense generate main path: ``serve --arch <id>`` at full width
-   and depth in bf16, batch 8, prompt 512, 64 tokens: phi3-mini-3.8b
-   and musicgen-large under all three backends, yi-34b under linear and
-   softmax cut to 10 of its 60 layers (``DENSE_CUTS``: the run's time;
+   in bf16, batch 8, prompt 512, 64 tokens: phi3-mini-3.8b and
+   musicgen-large under all three backends, yi-34b under linear and
+   softmax, cut to 8, 12 and 4 layers (``DENSE_CUTS``: the run's time;
    the memory the earlier phases hold printed first; any depth cut to
    what fits, and printed, if the card cannot hold a config whole):
    prefill ms, ms/token beside the step's bound by bytes, B1/B7 or B10
@@ -220,7 +220,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    at each config's shapes beside their bounds, plain versions and
    (B10) ``scaled_dot_product_attention``.
 27. The dense stream path: ``serve --mode stream --arch musicgen-large
-   --backend linear`` at phase 16's traffic: layernorm and B1 at D = 64
+   --backend linear --n-layers 12`` at phase 16's traffic: layernorm and B1 at D = 64
    under per-slot masks and per-row ingest lengths, its launches
    exactly as phase 16's formula.
 
@@ -233,7 +233,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    phi3-mini-3.8b and musicgen-large under linear and gated_linear,
    bf16 compute, fp32 master, remat per layer, batch 8 x 1,024, 6 steps,
    the depth cut in whole layers to what fits beside the memory the
-   earlier phases hold (printed): ms/step, tokens/s, peak memory against
+   earlier phases hold and to ``TRAIN_TIME_LAYERS`` (8 and 12 layers:
+   the run's time; printed): ms/step, tokens/s, peak memory against
    the reckoning, finite losses, launches exactly layers x steps (the
    forward kernel twice), a profile of one step by kind; the kernels
    timed at each config's shape beside their bounds and plain versions.
@@ -259,16 +260,16 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    prefill, B1/B7 or B10 in the attention) against the reference route
    (tokens identical, logits within 1e-4) (its training: phase 36).
 34. The zamba2 generate main path: ``serve --arch zamba2-7b --n-layers
-   42`` at full width (7 of its 13 units, the tail dropped, to keep the
-   whole run short; bf16), batch 8, prompt 512, 64 tokens, under linear,
-   gated_linear and softmax: B8 exactly 35 launches a prefill, B1/B7 7 a
-   decode step or B10 7 a prefill, and no other kernel; prefill ms, ms/token beside the step's bound by bytes, the
+   12`` at full width (``ZAMBA_SERVE_LAYERS``: 2 of its 13 units, the
+   tail dropped, to keep the whole run short; bf16), batch 8, prompt
+   512, 64 tokens, under linear, gated_linear and softmax: B8 exactly 10
+   launches a prefill, B1/B7 2 a decode step or B10 2 a prefill, and no other kernel; prefill ms, ms/token beside the step's bound by bytes, the
    state (Mamba-2 and attention) against the KV cache, peak memory, a
    profile of 4 decode steps; then B1, B7 and B10 at D = 112 and B8 at
    the SSD prefill's shape timed beside their bounds, plain versions and
    (B10) ``scaled_dot_product_attention``.
-35. The zamba2 stream path: ``serve --mode stream --arch zamba2-7b``
-   under linear at phase 16's traffic: per-request admission, B8 once per
+35. The zamba2 stream path: ``serve --mode stream --arch zamba2-7b
+   --n-layers 12`` under linear at phase 16's traffic: per-request admission, B8 once per
    Mamba-2 layer and prefill, B1 once per attention site and decode
    step, every request its budget.
 
@@ -285,7 +286,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 37. The zamba2 training main path: ``launch/train.py --arch zamba2-7b
    --n-layers N`` under linear, gated_linear and softmax, fp32 master,
    bf16 compute, remat per unit, batch 8 x 1,024, 6 steps, the depth cut
-   by phase 29's rule to whole units (the tail dropped; printed): ms/step,
+   by phase 29's rule to whole units (2 of 13, the tail dropped;
+   printed): ms/step,
    tokens/s, peak memory against the parameters, gradients and moments,
    launches exactly per step and kind of layer, a profile of one step
    (the kernels' share of device time).
@@ -320,9 +322,38 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    bytes on disk, the host ms inside ``save``, the writer's GB/s, the
    restores' seconds and ms a step with a save and without.
 
+41. The spec slice: qwen3-0.6b at full width, 2 layers, fp32, under
+   linear, gated_linear and softmax: the ``DecodeEngine`` with plain,
+   speculative (K = 6) and K = 3 requests and a draft of the plain run's
+   tokens with every ninth changed (windows accepted whole or cut at
+   every point), one speculative request preempted and resumed, through
+   the kernels (the K+1-token verify and the batched varlen rewind
+   through B1/B7, B10 in admission) in lock step with the same engine
+   under ``decode_kernel="reference"``: the engine state within 1e-5
+   after every step, completions and stats identical, every token plain
+   greedy's; the slots not speculating bit for bit through every round,
+   the speculative ones through every segment; launches exact.
+42. The spec main path: ``serve --mode spec`` on the full 28-layer
+   qwen3-0.6b in fp32, 8 slots, 16 requests of 128 prompt tokens, 64
+   tokens each, K = 6: the ``ngram`` draft under all three backends,
+   ``replay`` (the plain run's tokens) and ``model`` (a second
+   qwen3-0.6b from seed 1) under linear; spec tokens equal plain greedy
+   for every request, launches exactly layers x (segment steps + ingest
+   chunks + verify rounds + rewind passes) plus the model draft's own;
+   acceptance, rounds, rewinds, tokens per round, spec against plain
+   tokens/s.
+43. The lifecycle main path: the engine on the full 28-layer qwen3-0.6b
+   in fp32, linear and softmax, 8 slots, 32 requests (JAX's mix, 128
+   prompt tokens): an explicit preempt and resume, a NaN poisoned into
+   a busy slot (found by the finite probe, the slot quarantined, the
+   request retried from its checkpoint), a sabotaged speculative round
+   (rewinds, no token moves), cancels, a deadline, both shed policies
+   and a degradation flip: every request's tokens the clean run's, the
+   counts exact, launches exactly ``stream_launches`` a run.
+
 Each main path (phases 4, 6, 8, 10, 12, 14, 16, 18, 19, 21, 22's
-``launch/train.py`` run, 24, 26, 27, 29, 31, 32, 34, 35, 37, 38 and 40)
-is driven with
+``launch/train.py`` run, 24, 26, 27, 29, 31, 32, 34, 35, 37, 38, 40, 42
+and 43) is driven with
 every kernel's launch count set to 0 just before it and read just after.
 
 The last line is {"ok": true, "device": {...}}; the line before it the
@@ -2820,7 +2851,8 @@ def profile_segments(engine, n=2, steps=2) -> dict:
             "busy": device_ms / wall_ms}
 
 
-def stream_main_path(backend, dev, phase, arch="qwen3-0.6b") -> int:
+def stream_main_path(backend, dev, phase, arch="qwen3-0.6b",
+                     n_layers=None) -> int:
     """Phases 16, 27 and 32: ``serve --mode stream --backend <backend>``
     on the full ``arch`` (28-layer qwen3-0.6b; phase 27 the 48-layer
     musicgen-large; phase 32 rwkv6-1.6b, ``backend`` None: no attention
@@ -2847,9 +2879,13 @@ def stream_main_path(backend, dev, phase, arch="qwen3-0.6b") -> int:
         "--slots", "8", "--segment-len", "8", "--n-requests", "32",
         "--prompt-len", "512", "--gen-len", "64", "--arrival-rate", "0.25",
         "--seed", "0"] + (["--prefill-chunk", "512"] if softmax else [])
-        + ([] if rwkv else ["--backend", backend]))
+        + ([] if rwkv else ["--backend", backend])
+        + (["--n-layers", str(n_layers)] if n_layers else []))
     full = get_config(args.arch)
     full = full if rwkv else full.with_backend(backend)
+    if n_layers:
+        from repro_torch.configs.base import with_depth
+        full = with_depth(full, n_layers)
     t0 = time.perf_counter()
     reset_launches()
     result = serve.stream(args)
@@ -3417,9 +3453,13 @@ DENSE_RUNS = (("phi3-mini-3.8b", ("linear", "gated_linear", "softmax")),
 # what the card keeps free beside yi-34b's weights and state: the prefill's
 # activations, the head's logits and the caching allocator's slack
 DENSE_HEADROOM = 8 * 2**30
-# depth cuts of phase 26 that keep the whole run inside its time: yi-34b
-# at 10 of its 60 layers (phase 26 once served it whole; PERF.md §4)
-DENSE_CUTS = {"yi-34b": 10}
+# depth cuts of phase 26 that keep the whole run inside its time (PERF.md
+# §4): yi-34b at 4 of its 60 layers (phase 26 once served it whole, PRs
+# 32-34 at 10), phi3-mini-3.8b at 8 of 32 and musicgen-large at 12 of 48
+# (whole until PR 35, which added phases 41-43)
+DENSE_CUTS = {"yi-34b": 4, "phi3-mini-3.8b": 8, "musicgen-large": 12}
+# phase 27's depth: musicgen-large's stream at 12 of its 48 layers
+DENSE_STREAM_LAYERS = 12
 
 
 def dense_kernel_checks(gen, dev) -> None:
@@ -3703,6 +3743,10 @@ TRAIN_BYTES_PER_PARAM = 4 + 4 + 8 + 2
 # layer's recomputed activations and their gradients, the head's logits
 # in fp32 with their softmax temporaries, and the caching allocator's slack
 TRAIN_HEADROOM = 16 * 2**30
+# phases 29 and 37: the most layers trained, for the run's time (PERF.md
+# §4; until PR 35 the depth was cut only to what fits)
+TRAIN_TIME_LAYERS = {"phi3-mini-3.8b": 8, "musicgen-large": 12,
+                     "zamba2-7b": 12}
 
 
 def training_kernel_checks(gen, dev) -> None:
@@ -3883,7 +3927,8 @@ def cut_training_main_path(arch, backend, dev, phase) -> dict:
     fixed, unit = train_param_split(full, dev)
     fit = int((free - TRAIN_HEADROOM) / TRAIN_BYTES_PER_PARAM - fixed) \
         // unit
-    units = min(reps, fit)
+    units = min(reps, fit, TRAIN_TIME_LAYERS.get(arch, full.n_layers)
+                // len(pattern))
     cut = units < reps or bool(tail)
     argv = ["--arch", arch, "--batch", "8", "--seq-len", "1024", "--steps",
             "6", "--lr", "3e-4", "--warmup", "20", "--seed", "0",
@@ -3896,7 +3941,9 @@ def cut_training_main_path(arch, backend, dev, phase) -> dict:
             f"outside the repeats and {unit / 1e9:.4f} B a repeat x "
             f"{TRAIN_BYTES_PER_PARAM} bytes and "
             f"{TRAIN_HEADROOM / 2**30:.0f} GiB of headroom against "
-            f"{free / 1e9:.3f} GB free" if cut
+            f"{free / 1e9:.3f} GB free fit {fit} repeats, and "
+            f"TRAIN_TIME_LAYERS (the run's time) allows "
+            f"{TRAIN_TIME_LAYERS.get(arch, full.n_layers)} layers" if cut
             else f"whole, {full.n_layers} layers")
     torch.cuda.reset_peak_memory_stats()
     loop = train.build(args)
@@ -4180,8 +4227,9 @@ def rwkv6_generate_main_path(dev, gen, phase) -> dict:
 # ---------------------------------------------------------------------------
 
 ZAMBA_ARCH = "zamba2-7b"
-# phase 34's depth: 7 of zamba2-7b's 13 units (PERF.md §4)
-ZAMBA_SERVE_LAYERS = 42
+# phases 34 and 35's depth: 2 of zamba2-7b's 13 units (PERF.md §4; PRs
+# 32-34 served 7 units in phase 34 and the whole model in phase 35)
+ZAMBA_SERVE_LAYERS = 12
 
 
 def zamba2_unit(backend, dtype="float32"):
@@ -4328,10 +4376,11 @@ def zamba2_state_sizes(cfg, batch, rows) -> dict:
 
 def zamba2_generate_main_path(backend, dev, phase) -> dict:
     """Phase 34: ``serve --mode generate --arch zamba2-7b --backend
-    <backend> --n-layers 42`` at full width (``ZAMBA_SERVE_LAYERS``: 7 of
-    its 13 units, 35 Mamba-2 blocks and 7 sites of the shared attention,
+    <backend> --n-layers 12`` at full width (``ZAMBA_SERVE_LAYERS``: 2 of
+    its 13 units, 10 Mamba-2 blocks and 2 sites of the shared attention,
     the tail dropped, to keep the whole run short, where the phase once
-    ran all 81 layers; parameters built in bf16), batch 8, prompt 512, 64 tokens,
+    ran all 81 layers and then 42; parameters built in bf16), batch 8,
+    prompt 512, 64 tokens,
     every kernel's launch count set to 0 just before and read just after:
     B8 exactly once a Mamba-2 block and prefill (two prefills: the
     warm-up's and the timed one), and B1 or B7 exactly sites x (2 + 63)
@@ -4485,6 +4534,7 @@ def zamba2_stream_main_path(dev, phase) -> dict:
     from repro_torch.launch import serve
     args = serve.parse_args([
         "--mode", "stream", "--arch", ZAMBA_ARCH, "--backend", "linear",
+        "--n-layers", str(ZAMBA_SERVE_LAYERS),
         "--slots", "8", "--segment-len", "8", "--n-requests", "32",
         "--prompt-len", "512", "--gen-len", "64", "--arrival-rate", "0.25",
         "--seed", "0"])
@@ -4826,10 +4876,11 @@ def zamba2_rwkv6_training_kernel_times(gen, dev) -> tuple:
 # -- phases 39 and 40: the paper's QA, checkpointed training --------------
 
 QA_VARIANTS = ("none", "linear", "gated_linear", "softmax", "second_order")
-# Figure 1's sweep cut from 400 steps to keep phase 39 near 90 s (the
-# four variants and second_order take 0.57 s a step together on an H100;
-# the curves are the same bits run after run)
-QA_STEPS = 120
+# Figure 1's sweep cut from 400 steps for the run's time (the four
+# variants and second_order take 0.57 s a step together on an H100; the
+# curves are the same bits run after run, and at step 80 every variant's
+# validation loss is below its first: PR 34's run at 120 steps)
+QA_STEPS = 80
 # the paper's document length (§5: n ≈ 750): 187 facts of 4 tokens
 QA_PAPER_FACTS = 187
 QA_LOSS_RTOL = 1e-5
@@ -5306,6 +5357,428 @@ def checkpoint_main_path(dev, phase) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phases 41-43: speculative decoding and the engine's request lifecycle
+# ---------------------------------------------------------------------------
+
+SPEC_K = 6
+# phase 41's workload: prompt lengths (one of a single token, one past the
+# ingest chunk), budgets, and each request's speculate_k (0: plain, riding
+# along masked in the verify; 3 < K: always rewinds)
+SPEC_SLICE_PROMPTS = (5, 40, 17, 1, 90, 23)
+SPEC_SLICE_GENS = (30, 24, 30, 12, 26, 30)
+SPEC_SLICE_K = (SPEC_K, 0, SPEC_K, 3, SPEC_K, 0)
+# phase 42's drafts: (backend, draft)
+SPEC_RUNS = (("linear", "ngram"), ("gated_linear", "ngram"),
+             ("softmax", "ngram"), ("linear", "replay"), ("linear", "model"))
+
+
+def state_leaves(state) -> list:
+    return [t for group in state.values() for st in group for t in st
+            if t is not None]
+
+
+def clone_state(state):
+    return {part: tuple(type(st)(*(None if t is None else t.clone()
+                                   for t in st)) for st in group)
+            for part, group in state.items()}
+
+
+def slots_unchanged(new, old, slots) -> bool:
+    """Every leaf of ``new`` bit for bit ``old``'s at ``slots`` (slot axis
+    1 in the stacked groups, 0 in the tail)."""
+    import torch
+    for part, axis in (("stack", 1), ("tail", 0)):
+        for st_n, st_o in zip(new[part], old[part]):
+            for n, o in zip(st_n, st_o):
+                if n is None:
+                    continue
+                for s in slots:
+                    if not torch.equal(n.select(axis, s), o.select(axis, s)):
+                        return False
+    return True
+
+
+def noisy_replay(prompts, comps, vocab, every=9):
+    """A ReplayDraft of the plain run's tokens with every ``every``-th one
+    changed: windows of K = 6 are then accepted whole or cut at varying
+    points (the cursor stays in step: it advances by the emitted
+    tokens)."""
+    import numpy as np
+    from repro_torch.serving import ReplayDraft
+    conts = {}
+    for p, c in zip(prompts, comps):
+        t = c.tokens.astype(np.int64).copy()
+        t[every - 1::every] = (t[every - 1::every] + 1) % vocab
+        conts[ReplayDraft.key(p)] = t
+    return ReplayDraft(conts)
+
+
+def spec_slice(backend, dev, phase) -> None:
+    """Phase 41: speculative rounds on 2 layers at qwen3-0.6b's full
+    widths in fp32 (4 slots, segments of 4, K = 6; requests plain,
+    speculative and at K = 3, a draft of the plain run's tokens with
+    every ninth changed, so windows are accepted whole or cut at every
+    point; one speculative request preempted and resumed: under softmax
+    a row-ranged snapshot and restore). The engine through B1/B7 (the
+    K+1-token verify window under per-slot positions and masks, the
+    batched varlen rewind, decode, ingest) or B10 (admission) in lock
+    step with the same engine under ``decode_kernel="reference"``: the
+    whole engine state within 1e-5 after every step, completions and
+    stats identical, every token the plain greedy run's; in every round
+    the slots not speculating (plain, empty or finished) and in every
+    segment the speculative slots bit for bit; launches exactly
+    ``stream_launches`` (layers x (segment steps + ingest chunks +
+    verify rounds + rewind passes); softmax B10 layers x (waves +
+    1-token prefills)) and no other kernel."""
+    import numpy as np
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    from repro_torch.serving import DecodeEngine
+    name = serve.STREAM_KERNELS[backend][0]
+    cfg = full_width("qwen3-0.6b", backend, 2)
+    params = lm.init_params(torch.Generator(device=dev).manual_seed(1), cfg)
+    rng = np.random.default_rng(41)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+               for n in SPEC_SLICE_PROMPTS]
+    kw = dict(n_slots=4, segment_len=4, max_len=160, prefill_chunk=64)
+    plain_eng = DecodeEngine(params, cfg, **kw)
+    for p, g in zip(prompts, SPEC_SLICE_GENS):
+        plain_eng.submit(p, g)
+    plain = plain_eng.run()
+    engines, checked = {}, {"rounds": 0, "segments": 0}
+    for kernel in ("auto", "reference"):
+        eng = DecodeEngine(params, dataclasses.replace(cfg,
+                                                       decode_kernel=kernel),
+                           draft=noisy_replay(prompts, plain, cfg.vocab_size),
+                           **kw)
+        for p, g, k in zip(prompts, SPEC_SLICE_GENS, SPEC_SLICE_K):
+            eng.submit(p, g, speculate_k=k)
+        engines[kernel] = eng
+    a, b = engines["auto"], engines["reference"]
+
+    def guarded(method, key, moving):
+        def run():
+            keep = [s for s in range(a.n_slots) if not moving()[s]]
+            before = clone_state(a.state)
+            method()
+            if not slots_unchanged(a.state, before, keep):
+                raise AssertionError(f"phase {phase}: a {key[:-1]} changed "
+                                     f"the state of slots {keep}")
+            checked[key] += 1
+        return run
+    a.step_spec_round = guarded(a.step_spec_round, "rounds",
+                                lambda: a._active & (a._spec_k > 0))
+    a.step_segment = guarded(a.step_segment, "segments",
+                             lambda: a._active & (a._spec_k == 0))
+    reset_launches()
+    worst, steps, preempted = 0.0, 0, False
+    while True:
+        more = a.step()
+        more_b = b.step()
+        steps += 1
+        if (more, a._clock, a._pos.tolist()) != (more_b, b._clock,
+                                                 b._pos.tolist()):
+            raise AssertionError(f"phase {phase}: the engines part at step "
+                                 f"{steps}")
+        for x, y in zip(state_leaves(a.state), state_leaves(b.state)):
+            err = (x - y).abs().max().item() / max(1.0,
+                                                   y.abs().max().item())
+            worst = max(worst, err)
+        if worst > 1e-5:
+            raise AssertionError(f"phase {phase}: engine state {worst:.3e} "
+                                 f"from the reference engine at step "
+                                 f"{steps}")
+        spec_slots = np.nonzero(a._active & (a._spec_k > 0))[0]
+        if not preempted and steps >= 3 and len(spec_slots):
+            for eng in (a, b):
+                eng.preempt(int(spec_slots[0]))
+            preempted = True
+        if not more:
+            break
+    torch.cuda.synchronize()
+    launches = read_launches()
+    st, ref_st = a.stats.to_dict(), b.stats.to_dict()
+    if st != ref_st:
+        raise AssertionError(f"phase {phase}: stats differ: {st} vs "
+                             f"{ref_st}")
+    for x, y, p in zip(a.completions(), b.completions(), plain):
+        if (x.tokens.tolist(), x.status, x.admitted_step, x.finished_step
+            ) != (y.tokens.tolist(), y.status, y.admitted_step,
+                  y.finished_step) or x.tokens.tolist() != p.tokens.tolist():
+            raise AssertionError(f"phase {phase}: request {x.uid}: "
+                                 f"{x.tokens.tolist()} through the kernels, "
+                                 f"{y.tokens.tolist()} reference, "
+                                 f"{p.tokens.tolist()} plain greedy")
+    ones = sum(n == 1 for n in SPEC_SLICE_PROMPTS)
+    want = serve.stream_launches(cfg, st, a.ingest, a.admission, ones)
+    others = {k: n for k, n in launches.items() if k != name and n}
+    if launches[name] != want or others:
+        raise AssertionError(f"phase {phase}: {name} launched "
+                             f"{launches[name]} times, want {want}; others "
+                             f"{others}")
+    if not (0 < st["acceptance_rate"] < 1 and st["spec_rewinds"]
+            and st["spec_rewind_dispatches"] == st["spec_rewind_rounds"]
+            and st["preemptions"] == st["resumes"] == 1
+            and checked["rounds"] and checked["segments"]):
+        raise AssertionError(f"phase {phase}: the workload missed a path: "
+                             f"{st}, {checked}")
+    print(f"phase {phase}: {backend} spec slice, 2 layers full width fp32, "
+          f"K={SPEC_K}: kernel engine = reference engine in lock step "
+          f"(state within {worst:.2e} after each of {steps} steps; "
+          f"completions and stats identical) = plain greedy; "
+          f"{checked['rounds']} rounds and {checked['segments']} segments "
+          f"left the other slots bit for bit; acceptance "
+          f"{st['acceptance_rate']:.3f}, {st['spec_rounds']} rounds, "
+          f"{st['spec_rewinds']} rewinds in {st['spec_rewind_dispatches']} "
+          f"passes, a preempt/resume; {name} launched {launches[name]} = "
+          f"{want}")
+
+
+def spec_main_path(backend, draft, dev, phase) -> dict:
+    """Phase 42: ``serve --mode spec`` on the full 28-layer qwen3-0.6b in
+    fp32 (random weights from seed 0; a model draft: a second qwen3-0.6b
+    from generator seed 1), 8 slots, 16 requests of 128 random prompt
+    tokens (JAX's draw, seed 0), 64 tokens each, K = 6 (softmax admits
+    each prompt whole, ``--prefill-chunk 128``), every kernel's launch
+    count set to 0 just before and read just after. The mode itself
+    asserts the speculative tokens equal plain greedy's for every
+    request; here the launches in each timed run equal
+    ``stream_launches`` (plus ``draft_launches``) and the whole run's
+    theirs and the two short warm-ups', no other kernel launched, one
+    rewind pass a rewinding round. Returns the backend kernel's launches
+    and the numbers."""
+    import torch
+    from repro_torch.launch import serve
+    name = serve.STREAM_KERNELS[backend][0]
+    args = serve.parse_args(
+        ["--mode", "spec", "--arch", "qwen3-0.6b", "--backend", backend,
+         "--slots", "8", "--segment-len", "8", "--n-requests", "16",
+         "--prompt-len", "128", "--gen-len", "64", "--speculate-k",
+         str(SPEC_K), "--draft", draft, "--seed", "0"]
+        + (["--prefill-chunk", "128"] if backend == "softmax" else []))
+    t0 = time.perf_counter()
+    reset_launches()
+    res = serve.spec(args)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    wall = time.perf_counter() - t0
+    st = res["stats"]
+    want = (res["want_spec_launches"] + res["want_plain_launches"]
+            + res["want_warmup_launches"])
+    if res["spec_launches"] != res["want_spec_launches"] or \
+            res["plain_launches"] != res["want_plain_launches"] or \
+            launches[name] != want:
+        raise AssertionError(
+            f"phase {phase}: {name} launched {res['spec_launches']} / "
+            f"{res['plain_launches']} in the timed spec / plain runs (want "
+            f"{res['want_spec_launches']} / {res['want_plain_launches']}), "
+            f"{launches[name]} in all (want {want})")
+    others = {k: n for k, n in launches.items() if k != name and n}
+    if others:
+        raise AssertionError(f"phase {phase}: other kernels launched: "
+                             f"{others}")
+    if st["spec_rewind_dispatches"] != st["spec_rewind_rounds"] or \
+            not st["spec_rounds"] or st["segments"]:
+        raise AssertionError(f"phase {phase}: rounds or rewinds off: {st}")
+    if draft == "replay" and st["acceptance_rate"] < 0.9:
+        raise AssertionError(f"phase {phase}: the replay draft's acceptance "
+                             f"{st['acceptance_rate']}")
+    rec = {"backend": backend, "draft": draft,
+           "spec_tok_s": res["spec_tokens_per_s"],
+           "plain_tok_s": res["plain_tokens_per_s"],
+           "speedup": res["spec_tokens_per_s"] / res["plain_tokens_per_s"],
+           "acceptance": st["acceptance_rate"],
+           "rounds": st["spec_rounds"], "rewinds": st["spec_rewinds"],
+           "rewind_passes": st["spec_rewind_dispatches"],
+           "tokens_per_round": st["tokens_per_round"],
+           "launches": launches[name], "draft_launches":
+               res["draft_launches"]}
+    print(f"phase {phase}: qwen3-0.6b {backend} spec main path, draft "
+          f"{draft}: {json.dumps(rec)}; spec tokens = plain greedy for all "
+          f"{len(res['completions'])} requests; {name} {launches[name]} = "
+          f"{res['want_spec_launches']} + {res['want_plain_launches']} + "
+          f"{res['want_warmup_launches']} (warm-ups); {wall:.1f} s with "
+          f"weights and warm-ups")
+    del res
+    torch.cuda.empty_cache()
+    return {"name": name, "launches": launches[name], "rec": rec}
+
+
+def lifecycle_main_path(backend, dev, phase) -> dict:
+    """Phase 43: the engine's lifecycle on the full 28-layer qwen3-0.6b
+    in fp32 (random weights from seed 0), 8 slots, segments of 8, 32
+    requests of 128 prompt tokens and 32 or 4 generated (JAX's
+    ``make_request_mix``, seed 0, all at step 0; softmax admits each
+    prompt whole). Runs: clean; an explicit preempt and resume; a NaN
+    poisoned into slot 0 after the second segment, mid-request (the probe
+    finds it, the slot is quarantined, the request retried from its
+    activation checkpoint on another slot); speculation (an n-gram draft, K = 6, every other
+    request) with the second round sabotaged (every continuing slot
+    rewinds); a queue of 12 shedding the rest (``reject_new``) with a
+    cancel of a queued and of an active request, a deadline inside a
+    request's run and degradation at 0.5 waiting requests a slot; a
+    queue of 4 under ``evict_lowest``. Every request's tokens equal the
+    clean run's (cut short where cancelled or past its deadline), the
+    counters exact, and each run's launches ``stream_launches``; every
+    kernel's count set to 0 before each run and read after. Returns the
+    backend kernel's launches over the runs and the counters."""
+    import numpy as np
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    from repro_torch.serving import DecodeEngine, FaultInjector, NgramDraft
+    name = serve.STREAM_KERNELS[backend][0]
+    cfg = full_width("qwen3-0.6b", backend, 28)
+    params = lm.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    mix = serve.make_request_mix(np.random.default_rng(0), 32, 128, 32,
+                                 cfg.vocab_size, 0.0)
+    eng = DecodeEngine(params, cfg, n_slots=8, segment_len=8,
+                       max_len=128 + 32 + SPEC_K + 8,
+                       prefill_chunk=128 if backend == "softmax" else 64)
+    total = {"launches": 0}
+
+    def run(label, submit=None, drive=None, **attrs):
+        for k, v in dict(dict(injector=None, draft=None, max_queue=None,
+                              shed_policy="reject_new",
+                              degrade_threshold=None), **attrs).items():
+            setattr(eng, k, v)
+        eng.reset()
+        for i, (p, g, _) in enumerate(mix):
+            (submit or (lambda i, p, g: eng.submit(p, g)))(i, p, g)
+        reset_launches()
+        t0 = time.perf_counter()
+        if drive is not None:
+            drive()
+        comps = eng.run()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = read_launches()
+        st = eng.stats.to_dict()
+        want = serve.stream_launches(cfg, st, eng.ingest, eng.admission)
+        others = {k: n for k, n in launches.items() if k != name and n}
+        if launches[name] != want or others:
+            raise AssertionError(f"phase {phase}: {label}: {name} launched "
+                                 f"{launches[name]} times, want {want}; "
+                                 f"others {others}")
+        total["launches"] += launches[name]
+        total[label] = {k: st[k] for k in (
+            "preemptions", "resumes", "quarantined", "retries", "failed",
+            "checkpoints", "finite_checks", "shed", "cancelled",
+            "deadline_evictions", "degrade_transitions", "spec_disables",
+            "spec_rounds", "spec_rewinds", "spec_rewind_rounds")}
+        total[label]["seconds"] = round(dt, 3)
+        return comps, st
+
+    def same(label, comps, ref, allow_short=()):
+        for c in comps:
+            want = ref[c.uid].tokens.tolist()
+            got = c.tokens.tolist()
+            if c.uid in allow_short:
+                want = want[:len(got)]
+            if got != want:
+                raise AssertionError(f"phase {phase}: {label}: request "
+                                     f"{c.uid} gives {got}, the clean run "
+                                     f"{want}")
+
+    clean, st0 = run("clean")
+    if any(c.status != "ok" for c in clean) or st0["quarantined"]:
+        raise AssertionError(f"phase {phase}: clean run: {st0}")
+
+    def preempt_one():
+        for _ in range(2):
+            eng.step()
+        slot = int(np.nonzero(eng._active)[0][0])
+        eng.preempt(slot)
+    comps, st = run("preempt", drive=preempt_one)
+    same("preempt", comps, clean)
+    if (st["preemptions"], st["resumes"]) != (1, 1):
+        raise AssertionError(f"phase {phase}: preempt: {st}")
+
+    comps, st = run("nan", injector=FaultInjector(nan=((1, 0),)))
+    same("nan", comps, clean)
+    retried = [c.uid for c in comps if c.retries]
+    if (st["quarantined"], st["retries"], st["failed"], retried) != \
+            (1, 1, 0, [0]) or not eng._quarantined[0] or st["resumes"] != 1:
+        raise AssertionError(f"phase {phase}: nan: {st}, retried "
+                             f"{retried}")
+
+    rewound = {}
+    orig = eng.step_spec_round
+
+    def spec_round():
+        before, r = eng.stats.spec_rewinds, eng.stats.spec_rounds
+        orig()
+        rewound[r] = (eng.stats.spec_rewinds - before, int(
+            (eng._active & (eng._spec_k > 0)).sum()))
+    eng.step_spec_round = spec_round
+    comps, st = run("spec", submit=lambda i, p, g: eng.submit(
+        p, g, speculate_k=SPEC_K if i % 2 == 0 else 0),
+        draft=NgramDraft(), injector=FaultInjector(spec_mismatch=(1,)))
+    del eng.step_spec_round
+    same("spec", comps, clean)
+    if rewound[1][0] != rewound[1][1] or not rewound[1][0] or \
+            st["spec_rewind_rounds"] != st["spec_rewind_dispatches"]:
+        raise AssertionError(f"phase {phase}: sabotaged round rewound "
+                             f"{rewound[1]}: {st}")
+
+    def cancel_and_deadline(i, p, g):
+        eng.submit(p, g, deadline_s=12.0 if i == 4 else None)
+    uids = {}
+
+    def drive_cancel():
+        uids["queued"] = 10
+        if not eng.cancel(uids["queued"]):
+            raise AssertionError(f"phase {phase}: cancel of a queued "
+                                 f"request")
+        live = []
+        while not live:               # degraded: 4 ingest chunks of 32
+            eng.step()
+            live = [eng._slot_req[s].uid for s in np.nonzero(eng._active)[0]
+                    if eng._slot_req[s].uid != 4 and
+                    eng._slot_req[s].max_new_tokens > 8]
+        uids["active"] = int(live[0])
+        eng.cancel(uids["active"])
+    comps, st = run("shed", submit=cancel_and_deadline,
+                    drive=drive_cancel, max_queue=12,
+                    degrade_threshold=0.5)
+    by = {c.uid: c for c in comps}
+    same("shed", [c for c in comps if c.status != "shed"], clean,
+         allow_short=(4, uids["active"], uids["queued"]))
+    statuses = [c.status for c in comps]
+    if (statuses.count("shed"), st["shed"]) != (20, 20) or \
+            by[uids["queued"]].status != "cancelled" or \
+            by[uids["active"]].status != "cancelled" or \
+            not by[uids["active"]].tokens.size or \
+            by[4].status != "deadline" or \
+            not 0 < by[4].tokens.size < clean[4].tokens.size or \
+            st["cancelled"] != 2 or st["deadline_evictions"] != 1 or \
+            st["degrade_transitions"] != 2:
+        raise AssertionError(f"phase {phase}: shed/cancel/deadline/degrade: "
+                             f"{statuses}, {st}")
+
+    comps, st = run("evict_lowest", submit=lambda i, p, g: eng.submit(
+        p, min(g, 4), priority=i % 3), max_queue=4,
+        shed_policy="evict_lowest")
+    kept = [c.uid for c in comps if c.status == "ok"]
+    if st["shed"] != 28 or len(kept) != 4 or \
+            any(c.uid % 3 != 2 for c in comps if c.status == "ok"):
+        raise AssertionError(f"phase {phase}: evict_lowest kept {kept}: "
+                             f"{st}")
+    same("evict_lowest", [c for c in comps if c.status == "ok"], clean,
+         allow_short=tuple(kept))
+    print(f"phase {phase}: qwen3-0.6b {backend} lifecycle, 28 layers fp32, "
+          f"8 slots, 32 requests: preempt/resume, NaN quarantine and retry "
+          f"(request {retried[0]}), a sabotaged round, cancels, a deadline, "
+          f"both shed policies and degradation all equal the clean run's "
+          f"tokens; {name} {total['launches']} launches, each run's "
+          f"exactly stream_launches; {json.dumps(total)}")
+    del eng, params
+    torch.cuda.empty_cache()
+    return {"name": name, "launches": total["launches"], "runs": total}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5779,7 +6252,8 @@ def main() -> int:
 
     # -- 27. the dense stream path ------------------------------------------
     t0 = time.perf_counter()
-    stream_dense = stream_main_path("linear", dev, 27, arch="musicgen-large")
+    stream_dense = stream_main_path("linear", dev, 27, arch="musicgen-large",
+                                    n_layers=DENSE_STREAM_LAYERS)
     done(27, t0)
 
     # -- 28. the dense training slices, kernels vs plain, fp32 and bf16 -----
@@ -5886,6 +6360,25 @@ def main() -> int:
     train_ckpt = checkpoint_main_path(dev, 40)
     done(40, t0)
 
+    # -- 41. the spec slice: kernel engine vs reference engine, fp32 --------
+    t0 = time.perf_counter()
+    for backend in ("linear", "gated_linear", "softmax"):
+        spec_slice(backend, dev, 41)
+    torch.cuda.empty_cache()
+    done(41, t0)
+
+    # -- 42. serve --mode spec at full depth, fp32, every draft -------------
+    t0 = time.perf_counter()
+    spec_runs = [spec_main_path(backend, draft, dev, 42)
+                 for backend, draft in SPEC_RUNS]
+    done(42, t0)
+
+    # -- 43. the engine's lifecycle at full depth, fp32 ---------------------
+    t0 = time.perf_counter()
+    life_runs = [lifecycle_main_path(backend, dev, 43)
+                 for backend in ("linear", "softmax")]
+    done(43, t0)
+
     for r in records:
         r["max_abs_err"] = errs[r["name"]]
         if r["name"] in stream:   # B1/B7: generate, stream; B10: and train
@@ -5938,6 +6431,12 @@ def main() -> int:
     # phase 40
     for name, n in train_ckpt["launches"].items():
         more.setdefault(name, {})["train_ckpt"] = n
+    # phases 42 and 43
+    for run in spec_runs:
+        path = more.setdefault(run["name"], {})
+        path["spec"] = path.get("spec", 0) + run["launches"]
+    for run in life_runs:
+        more.setdefault(run["name"], {})["lifecycle"] = run["launches"]
     dense_times["gated_linear_attention_fwd"].append(rwkv_fwd_shape)
     for r in records:
         if r["name"] in more:

@@ -1,5 +1,5 @@
 """Serving entry point (port of ``repro/launch/serve.py``, modes
-``generate``, ``stream``, ``retrieve`` and ``lookup``).
+``generate``, ``stream``, ``spec``, ``retrieve`` and ``lookup``).
 
 ``--mode generate``: one static batch of requests. Prefill the prompts
 once, then decode autoregressively. ``--backend`` picks the mechanism:
@@ -46,6 +46,15 @@ layer, decode and ingest chunks read and write the caches in plain
 PyTorch (a chunk as single-token steps). It serves the dense and MoE
 configs; a config with cross blocks is refused (ValueError), since the
 engine has no path for a memory, as JAX's has none.
+
+``--mode spec``: speculative decoding against plain continuous
+batching on one workload, in fp32 (JAX's ``spec``): every request
+drafts ``--speculate-k`` tokens a round (``--draft ngram``, ``model`` or
+``replay``), one masked window of K+1 tokens verifies every
+speculative slot (B1/B7 once per layer) and one more rewinds the slots
+that rejected part of it; the mode asserts the tokens equal plain
+greedy's and prints acceptance, rounds, rewinds, tokens per round and
+both runs' tokens/s.
 
 ``--mode retrieve``: the paper's encode-once / query-many with the
 ``DocumentStore``: ``--batch`` documents of 750 hidden states of width
@@ -102,6 +111,11 @@ passes of ``--n-queries`` single-query requests in waves of
       --arch rwkv6-1.6b --smoke --device cpu --slots 4 --n-requests 16
   PYTHONPATH=src python -m repro_torch.launch.serve --mode stream \\
       --arch zamba2-7b --smoke --device cpu --slots 4 --n-requests 16
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode spec \\
+      --arch qwen3-0.6b --slots 8 --n-requests 16 --prompt-len 128 \\
+      --gen-len 64 --speculate-k 6 --draft ngram
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode spec --smoke \\
+      --device cpu --slots 3 --n-requests 5 --prompt-len 12 --gen-len 16
   PYTHONPATH=src python -m repro_torch.launch.serve --mode retrieve \\
       --batch 4096
   PYTHONPATH=src python -m repro_torch.launch.serve --mode retrieve \\
@@ -320,8 +334,10 @@ def stream_launches(cfg: ModelConfig, stats: Dict[str, Any], ingest: str,
                     one_token_prompts: int = 0) -> int:
     """Launches of the backend's kernel that a stream run with these
     stats makes. Linear family, its recurrent kernel: one per attention
-    layer and decode step of every segment (masked steps included), and
-    one per attention layer and recurrent ingest chunk. Softmax, B10: one
+    layer and decode step of every segment (masked steps included), one
+    per attention layer and recurrent ingest chunk, and one per
+    attention layer and speculative verify and rewind pass (ModelDraft's
+    own: ``draft_launches``). Softmax, B10: one
     per attention layer and prefill pass, i.e. each batched-admission
     wave and each of the ``one_token_prompts`` that batched admission
     encodes alone, or under per-request admission each prefill. RWKV-6
@@ -336,7 +352,19 @@ def stream_launches(cfg: ModelConfig, stats: Dict[str, Any], ingest: str,
         return counts["attn"] * passes
     chunks = stats["ingest_chunks"] if ingest == "recurrent" else 0
     return counts["attn"] * (stats["segment_len"] * stats["segments"]
-                             + chunks)
+                             + chunks + stats.get("spec_rounds", 0)
+                             + stats.get("spec_rewind_dispatches", 0))
+
+
+def draft_launches(cfg: ModelConfig, dispatches: Dict[str, int]) -> int:
+    """Launches of the draft model's kernel by a ``ModelDraft`` with
+    these ``dispatches``: linear family, B1/B7 once per attention layer
+    and drafting step and once per flush of buffered commits; softmax,
+    B10 once per attention layer and admission prefill."""
+    counts = layer_counts(cfg)
+    if cfg.attention_backend == "softmax":
+        return counts["attn"] * dispatches["prefills"]
+    return counts["attn"] * (dispatches["steps"] + dispatches["flushes"])
 
 
 def ssd_stream_launches(cfg: ModelConfig, stats: Dict[str, Any]) -> int:
@@ -379,7 +407,9 @@ def stream(args) -> Dict[str, Any]:
         segment_len=args.segment_len, max_len=max_len,
         temperature=args.temperature, seed=args.seed,
         admission=args.admission, prefill_chunk=args.prefill_chunk,
-        ingest=args.ingest)
+        ingest=args.ingest, max_queue=args.max_queue,
+        shed_policy=args.shed_policy,
+        degrade_threshold=args.degrade_threshold)
     rng = np.random.default_rng(args.seed)
     requests = make_request_mix(rng, args.n_requests, args.prompt_len,
                                 args.gen_len, cfg.vocab_size,
@@ -412,7 +442,11 @@ def stream(args) -> Dict[str, Any]:
 
     st = engine.stats
     total = sum(len(c.tokens) for c in completions)
-    lat = [c.finished_step - c.admitted_step for c in completions]
+    lat = [c.finished_step - c.admitted_step for c in completions
+           if c.admitted_step >= 0]
+    statuses: Dict[str, int] = {}
+    for c in completions:
+        statuses[c.status] = statuses.get(c.status, 0) + 1
     ones = sum(len(p) == 1 for p, _, _ in requests)
     want = stream_launches(cfg, st.to_dict(), engine.ingest,
                            engine.admission, ones)
@@ -439,8 +473,15 @@ def stream(args) -> Dict[str, Any]:
           f"{dt / max(st.segments, 1) * 1e3:.2f} ms per segment)")
     print(f"slot utilization {st.slot_utilization:.2f} over "
           f"{st.segments} segments; mean latency "
-          f"{np.mean(lat):.0f} decode steps")
-    print(f"status: ok={len(completions)}")
+          f"{np.mean(lat):.0f} decode steps" if lat else
+          "no request was served")
+    print("status: " + " ".join(
+        f"{k}={v}" for k, v in sorted(statuses.items())))
+    if st.shed or st.preemptions or st.quarantined or st.degrade_transitions:
+        print(f"lifecycle: shed={st.shed} preempt={st.preemptions} "
+              f"resume={st.resumes} quarantine={st.quarantined} "
+              f"retries={st.retries} failed={st.failed} "
+              f"degrade_flips={st.degrade_transitions}")
     print(f"admission={engine.admission} ingest={engine.ingest} "
           f"chunk={engine.prefill_chunk}: "
           f"{st.prefills} prompts in {st.admission_batches} batched "
@@ -476,7 +517,8 @@ def stream(args) -> Dict[str, Any]:
     return {"tokens_per_s": total / dt, "seconds": dt,
             "ms_per_segment": dt / max(st.segments, 1) * 1e3,
             "slot_utilization": st.slot_utilization,
-            "mean_latency_steps": float(np.mean(lat)),
+            "mean_latency_steps": float(np.mean(lat)) if lat else 0.0,
+            "statuses": statuses,
             "tokens": total, "stats": st.to_dict(),
             "warmup_stats": warmup_stats, "decode_launches": launches,
             "want_launches": want,
@@ -487,6 +529,154 @@ def stream(args) -> Dict[str, Any]:
             "warmup_ssd_launches": ssd_stream_launches(cfg, warmup_stats),
             "state_mib": state_mib, "linear_state_mib": linear_mib,
             "completions": completions, "engine": engine}
+
+
+def _top2_margin(params, cfg: ModelConfig, prompt: np.ndarray,
+                 tokens: np.ndarray, i: int) -> float:
+    """The top-2 logit margin of the plain greedy choice of ``tokens[i]``
+    (the prompt and ``tokens[:i]`` prefilled): how near a tie the token
+    where speculation and plain greedy part was."""
+    seq = np.concatenate([prompt, tokens[:i]]).astype(np.int64)
+    logits, _ = lm.prefill(params, torch.from_numpy(seq)[None].to(
+        params["embed"].device), cfg)
+    top = torch.topk(logits[0].float(), 2).values
+    return float(top[0] - top[1])
+
+
+def spec(args) -> Dict[str, Any]:
+    """Speculative decoding against plain continuous batching on one
+    workload (the JAX package's ``spec``): ``--n-requests`` prompts of
+    ``--prompt-len`` random tokens (JAX's draw from ``--seed``), each
+    ``--gen-len`` tokens, every request submitted with ``speculate_k =
+    --speculate-k``, in fp32 activations (the verify window sums in
+    another order than the sequential step, and the mode asserts that
+    the speculative tokens equal plain greedy's token for token; fp32
+    keeps the argmax margins above that). ``--draft ngram`` (prompt
+    lookup), ``model`` (a second model of the config, weights from
+    generator seed 4·seed + 1) or ``replay`` (the timed plain run's own
+    tokens: acceptance near 1). A short warm-up of each kind (the first
+    two requests, 8 tokens each), then a timed plain run and a timed
+    speculative run. Prints JAX's lines and the launches of
+    the backend's kernel in each timed run against ``stream_launches``
+    (plus ``draft_launches``); returns them with the tokens/s, the
+    stats of the speculative run, both runs' completions and the
+    engine. Raises AssertionError, with the top-2 logit margin where the
+    first token differs, if speculation changes a token."""
+    from repro_torch.serving import (DecodeEngine, ModelDraft, NgramDraft,
+                                     ReplayDraft, backend_for_config)
+
+    device = resolve_device(args.device)
+    cfg = dataclasses.replace(serving_config(args), dtype="float32",
+                              param_dtype="float32")
+    rwkv = is_rwkv(cfg)
+    name, kernel = STREAM_KERNELS["rwkv6" if rwkv else
+                                  cfg.attention_backend]
+    params = lm.init_params(
+        torch.Generator(device=device).manual_seed(args.seed * 4), cfg)
+    k = args.speculate_k
+    max_len = args.prompt_len + args.gen_len + max(args.segment_len, k) + 1
+    draft = None
+    if args.draft == "ngram":
+        draft = NgramDraft()
+    elif args.draft == "model":
+        dparams = lm.init_params(
+            torch.Generator(device=device).manual_seed(args.seed * 4 + 1),
+            cfg)
+        draft = ModelDraft(dparams, cfg, n_slots=args.slots,
+                           max_len=max_len)
+    engine = DecodeEngine(
+        params, cfg, backend=backend_for_config(cfg), n_slots=args.slots,
+        segment_len=args.segment_len, max_len=max_len, seed=args.seed,
+        draft=draft, admission=args.admission,
+        prefill_chunk=args.prefill_chunk, ingest=args.ingest)
+    rng = np.random.default_rng(args.seed)
+    requests = [(rng.integers(0, cfg.vocab_size, size=args.prompt_len,
+                              dtype=np.int64).astype(np.int32),
+                 args.gen_len) for _ in range(args.n_requests)]
+
+    def run_once(speculate_k, reqs):
+        engine.reset()
+        for prompt, g in reqs:
+            engine.submit(prompt, g, speculate_k=speculate_k)
+        launches0 = kernel.launches
+        drafted0 = dict(draft.dispatches) if args.draft == "model" else {}
+        t0 = time.perf_counter()
+        comps = engine.run("continuous")
+        _sync(device)
+        dt = time.perf_counter() - t0
+        own = {key: n - drafted0[key] for key, n in draft.dispatches.items()
+               } if args.draft == "model" else None
+        return (comps, dt, kernel.launches - launches0, own,
+                engine.stats.to_dict())
+
+    def want_launches(stats, own):
+        return (stream_launches(cfg, stats, engine.ingest, engine.admission)
+                + (draft_launches(cfg, own) if own is not None else 0))
+
+    # untimed warm-ups of each kind (the first two requests, 8 tokens
+    # each) build and load the kernels before the clock starts; the
+    # replay draft replays the timed plain run
+    warm = [(p, min(g, 8)) for p, g in requests[:2]]
+    *_, w_own, w_stats = run_once(0, warm)
+    want_warm = want_launches(w_stats, w_own)
+    comps_plain, t_plain, plain_launches, _, plain_stats = run_once(
+        0, requests)
+    if args.draft == "replay":
+        engine.draft = ReplayDraft({ReplayDraft.key(p): c.tokens for (p, _), c
+                                    in zip(requests, comps_plain)})
+    *_, w_own, w_stats = run_once(k, warm)
+    want_warm += want_launches(w_stats, w_own)
+    comps_spec, t_spec, spec_launches, own, _ = run_once(k, requests)
+    st = engine.stats
+    for (prompt, _), a, b in zip(requests, comps_plain, comps_spec):
+        if not np.array_equal(a.tokens, b.tokens):
+            n = min(len(a.tokens), len(b.tokens))
+            i = next((j for j in range(n) if a.tokens[j] != b.tokens[j]), n)
+            margin = _top2_margin(params, cfg, prompt, a.tokens, i)
+            raise AssertionError(
+                f"speculative decode diverged from plain greedy on request "
+                f"{a.uid} at token {i} ({b.tokens[i:i + 1]} against "
+                f"{a.tokens[i:i + 1]}); top-2 logit margin there {margin}")
+
+    total = sum(len(c.tokens) for c in comps_spec)
+    want = stream_launches(cfg, st.to_dict(), engine.ingest,
+                           engine.admission)
+    want_plain = want_launches(plain_stats, None)
+    want_draft = draft_launches(cfg, own) if own is not None else 0
+    where = (torch.cuda.get_device_name(device) if device.type == "cuda"
+             else "cpu")
+    print(f"arch={cfg.name} backend={'rwkv6' if rwkv else cfg.attention_backend}"
+          f" slots={args.slots} speculate_k={k} draft={args.draft} "
+          f"dtype=float32 device={where}")
+    print(f"spec:  {total} tokens in {t_spec:.2f} s "
+          f"({total / t_spec:.0f} tok/s) — acceptance "
+          f"{st.acceptance_rate:.2f}, {st.spec_rounds} rounds, "
+          f"{st.spec_rewinds} rewinds in "
+          f"{st.spec_rewind_dispatches} varlen dispatches, "
+          f"{st.tokens_per_round:.2f} tokens per round")
+    print(f"plain: {total} tokens in {t_plain:.2f} s "
+          f"({total / t_plain:.0f} tok/s) — speculative speedup "
+          f"{t_plain / t_spec:.2f}x, outputs bit-identical")
+    on_cpu = ("" if device.type == "cuda" else
+              " (CPU tensors run the plain versions: no launch)")
+    print(f"{name}: {spec_launches} launches in the timed spec run (want "
+          f"{want} + the draft's {want_draft}), {plain_launches} in the "
+          f"plain run (want {want_plain}){on_cpu}")
+    if args.stats_json:
+        with open(args.stats_json, "w") as f:
+            f.write(st.to_json())
+        print(f"stats written to {args.stats_json}")
+    return {"spec_tokens_per_s": total / t_spec,
+            "plain_tokens_per_s": total / t_plain,
+            "spec_seconds": t_spec, "plain_seconds": t_plain,
+            "tokens": total, "stats": st.to_dict(),
+            "plain_stats": plain_stats, "spec_launches": spec_launches,
+            "want_spec_launches": want + want_draft,
+            "draft_launches": want_draft, "plain_launches": plain_launches,
+            "want_plain_launches": want_plain,
+            "want_warmup_launches": want_warm, "draft_dispatches": own,
+            "completions": comps_spec, "plain_completions": comps_plain,
+            "requests": requests, "engine": engine}
 
 
 def retrieve(args) -> Dict[str, Any]:
@@ -627,7 +817,8 @@ def lookup(args) -> Dict[str, Any]:
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--mode", default="generate",
-                    choices=["generate", "stream", "retrieve", "lookup"])
+                    choices=["generate", "stream", "spec", "retrieve",
+                             "lookup"])
     ap.add_argument("--arch", default="qwen3-0.6b")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--n-layers", type=int, default=None,
@@ -655,8 +846,9 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--shed-policy", default="reject_new",
                     choices=["reject_new", "evict_lowest"])
     ap.add_argument("--stats-json", default=None, metavar="PATH",
-                    help="write the stream or lookup stats to PATH as "
-                         "JSON")
+                    help="write the stream, spec or lookup stats (the "
+                         "lifecycle and speculative counters included) to "
+                         "PATH as JSON")
     # stream mode (continuous batching)
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--segment-len", type=int, default=8)
@@ -677,6 +869,18 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                     help="continuation chunks through the recurrent decode"
                          " kernel with per-row lengths (recurrent; auto) "
                          "or the plain chunked prefill forms (parallel)")
+    ap.add_argument("--degrade-threshold", type=float, default=None,
+                    help="stream mode: waiting requests per slot beyond "
+                         "which the engine degrades (speculation off, "
+                         "half ingest chunks); None disables")
+    # spec mode (speculative decoding)
+    ap.add_argument("--speculate-k", type=int, default=6,
+                    help="draft tokens per verify round")
+    ap.add_argument("--draft", default="ngram",
+                    choices=["ngram", "model", "replay"],
+                    help="draft provider: prompt-lookup n-grams (free), a "
+                         "second model with its own slot states, or the "
+                         "plain run's own tokens (acceptance near 1)")
     # lookup mode (memory serving)
     ap.add_argument("--n-docs", type=int, default=128,
                     help="lookup mode: memories to ingest")
@@ -712,6 +916,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         lookup(args)
     elif args.mode == "stream":
         stream(args)
+    elif args.mode == "spec":
+        spec(args)
     elif args.mode == "retrieve":
         retrieve(args)
     else:

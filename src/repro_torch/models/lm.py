@@ -520,6 +520,102 @@ def where_state(active, new: State, old: State) -> State:
     return old
 
 
+# ---------------------------------------------------------------------------
+# row-ranged forms: O(W·k) copies of the softmax KV caches
+# ---------------------------------------------------------------------------
+#
+# The linear family's states are fixed-size, so a snapshot costs O(k²)
+# whatever the context; a softmax KV cache (…, max_len, Hkv, Dh) copied
+# whole moves O(max_len·k) bytes however few rows were written. The three
+# forms below copy only the rows that matter. They rest on a read-masking
+# invariant of ``attention_decode``: a slot at position pos reads cache
+# rows [0, pos] and writes row pos before it reads it, so rows at index
+# ≥ pos are never read before they are rewritten, and a restore that
+# leaves them stale gives the same tokens as one that overwrites them.
+
+def _map_slots_kv(fn, state: State) -> State:
+    """A new whole-stack state of ``fn(leaf, slot_axis, is_kv_cache)``."""
+    def one(st, axis):
+        kv = isinstance(st, AttnState)
+        return type(st)(*(None if x is None else
+                          fn(x, axis, kv and f in ("k_cache", "v_cache"))
+                          for f, x in zip(st._fields, st)))
+    return {part: tuple(one(st, axis) for st in state[part])
+            for part, axis in _SLOT_AXES}
+
+
+def _kv_flags(state: State):
+    """Whether each leaf of ``_slot_leaves(state)`` is a KV cache."""
+    for part, _ in _SLOT_AXES:
+        for st in state[part]:
+            kv = isinstance(st, AttnState)
+            for f, x in zip(st._fields, st):
+                if x is not None:
+                    yield kv and f in ("k_cache", "v_cache")
+
+
+def snapshot_state_rows(state: State, slot: int, n_rows: int) -> State:
+    """:func:`snapshot_state`, but each softmax KV cache keeps only its
+    first ``n_rows`` rows (0 allowed), an O(n_rows·k) copy per layer;
+    ``n_rows`` must be at least the slot's position for a snapshot that
+    resumes. Every other leaf (the fixed-size states) is copied whole:
+    for them this is :func:`snapshot_state`."""
+    def read(x, axis, kv):
+        x = x.narrow(axis, int(slot), 1)
+        t = x.ndim - 3
+        if kv and n_rows < x.shape[t]:
+            x = x.narrow(t, 0, int(n_rows))
+        return x.clone()
+    return _map_slots_kv(read, state)
+
+
+def restore_state_rows(engine_state: State, snapshot: State,
+                       slot: int) -> State:
+    """Write a batch-1, possibly row-ranged snapshot into slot ``slot``,
+    in place: a KV cache cut to W rows writes rows [0, W) and leaves the
+    slot's rows ≥ W as they were (never read; JAX's
+    ``dynamic_update_slice`` writes only its update's extent), an
+    O(W·k) copy per layer. A full-width snapshot makes this
+    :func:`restore_state`. Returns the engine state."""
+    for (e, axis), (r, _) in zip(_slot_leaves(engine_state),
+                                 _slot_leaves(snapshot)):
+        dst = e.narrow(axis, int(slot), 1)
+        if dst.shape != r.shape:
+            dst = dst.narrow(dst.ndim - 3, 0, _cache_rows(dst, r))
+        dst.copy_(r)
+    return engine_state
+
+
+def where_state_rows(active, new: State, old: State, start,
+                     width: int) -> State:
+    """Row-ranged per-slot merge, in place: like :func:`where_state`,
+    but each softmax KV cache is merged only over rows
+    [start_s, start_s + width) of each chosen slot, an O(W·k) copy,
+    where rows outside the range are either equal in ``new`` and ``old``
+    (below) or unread (above). ``start`` (S,) per-slot row offsets, on
+    the host, are clamped to ``max_len - width`` as JAX clamps them.
+    Every other leaf takes the whole-slot merge of :func:`where_state`.
+    Returns ``old``."""
+    mask = torch.as_tensor(active).cpu().numpy().astype(bool)
+    slots = [int(s) for s in mask.nonzero()[0]]
+    if not slots:
+        return old
+    start = torch.as_tensor(start).cpu().tolist()
+    idx = torch.as_tensor(slots)
+    for ((n, axis), (o, _)), kv in zip(
+            zip(_slot_leaves(new), _slot_leaves(old)), _kv_flags(old)):
+        if not kv:
+            i = idx.to(o.device)
+            o.index_copy_(axis, i, n.index_select(axis, i))
+            continue
+        t = o.ndim - 3
+        for s in slots:
+            lo = min(max(int(start[s]), 0), o.shape[t] - width)
+            o.narrow(axis, s, 1).narrow(t, lo, width).copy_(
+                n.narrow(axis, s, 1).narrow(t, lo, width))
+    return old
+
+
 def slot_state_finite(state: State) -> Tensor:
     """(S,) bool: True where every float leaf of that slot is finite."""
     out = None

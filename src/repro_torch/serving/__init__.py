@@ -1,14 +1,50 @@
 """Serving engines of the port: ``DecodeEngine``, continuous batching
-over fixed decode-state slots (``engine.py``, through the backends of
-``backends/``), and ``LookupEngine``, the paper's encode-once /
-look-up-many memory serving (``lookup_engine.py``)."""
+over fixed decode-state slots with its request lifecycle and speculative
+rounds (``engine.py``, ``lifecycle.py``, ``speculative.py``, through the
+backends of ``backends/``), and ``LookupEngine``, the paper's
+encode-once / look-up-many memory serving (``lookup_engine.py``)."""
 
 from repro_torch.serving.backends import (  # noqa: F401
-    DecodeBackend, FixedStateBackend, backend_for_config, register_backend,
+    DecodeBackend,
+    FixedStateBackend,
+    Mamba2Backend,
+    RWKV6Backend,
+    SoftmaxKVBackend,
+    backend_for_config,
+    register_backend,
 )
 from repro_torch.serving.engine import (  # noqa: F401
-    Completion, DecodeEngine, EngineStats, Request,
+    Completion,
+    DecodeEngine,
+    EngineStats,
+    Request,
+)
+from repro_torch.serving.lifecycle import (  # noqa: F401
+    SHED_POLICIES,
+    STATUS_CANCELLED,
+    STATUS_DEADLINE,
+    STATUS_FAILED,
+    STATUS_OK,
+    STATUS_SHED,
+    Checkpoint,
+    FaultInjector,
+    InjectedCrash,
+    SuspendedRequest,
 )
 from repro_torch.serving.lookup_engine import (  # noqa: F401
-    LookupEngine, get_lookup_backend, register_lookup_backend,
+    LinearLookupBackend,
+    LookupBackend,
+    LookupEngine,
+    LookupRequest,
+    LookupResult,
+    LookupStats,
+    SoftmaxLookupBackend,
+    get_lookup_backend,
+    register_lookup_backend,
+)
+from repro_torch.serving.speculative import (  # noqa: F401
+    DraftProvider,
+    ModelDraft,
+    NgramDraft,
+    ReplayDraft,
 )

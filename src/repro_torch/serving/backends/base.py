@@ -5,17 +5,20 @@ A :class:`DecodeBackend` holds everything the scheduler asks of a
 family:
 
 * **state ops** — ``init_slots``, ``prefill`` / ``prefill_varlen``,
-  ``decode_window_varlen`` / ``ingest_window_varlen``,
-  ``generate_segment``, ``sample_token``, ``restore_state`` /
-  ``write_slot_state`` and ``where_state`` — all of them
-  ``models/lm.py``'s, which update states in place (the engine core's
-  calls; JAX's speculation and lifecycle ops come with those
-  features);
-* **capability flags** — ``fixed_size_state`` (admission moves O(k²)
-  bytes, never a KV history), ``supports_varlen_prefill`` (bucket-padded
-  batched admission), and ``state_bytes_per_slot(max_len)``, read from
-  the shapes of a state built on the ``meta`` device (nothing is
-  allocated; JAX uses ``eval_shape``).
+  ``decode_window`` / ``decode_window_varlen`` / ``ingest_window_varlen``,
+  ``generate_segment``, ``sample_token``, ``snapshot_state`` /
+  ``restore_state`` / ``write_slot_state``, ``where_state``, the
+  row-ranged ``snapshot_state_rows`` / ``restore_state_rows`` /
+  ``where_state_rows`` and ``slot_state_finite`` — all of them
+  ``models/lm.py``'s, which update states in place (the surface of the
+  engine, its lifecycle and ``serving/speculative.py``);
+* **capability flags** — ``fixed_size_state`` (admission, preemption
+  and a speculative rewind move O(k²) bytes, never a KV history),
+  ``supports_varlen_prefill`` (bucket-padded batched admission),
+  ``supports_spec`` (draft/verify windows and rewind; every family, as
+  in JAX), and ``state_bytes_per_slot(max_len)``, read from the shapes
+  of a state built on the ``meta`` device (nothing is allocated; JAX
+  uses ``eval_shape``).
 
 No backend takes a config with ``cross`` blocks: they attend to an
 encoded memory that the engine has no path to pass (JAX's admission
@@ -69,6 +72,7 @@ class DecodeBackend:
         self.cfg = cfg
         self.fixed_size_state = cfg.fixed_state_decode
         self.supports_varlen_prefill = lm.supports_varlen_prefill(cfg)
+        self.supports_spec = True
         self._validate(cfg)
 
     # -- registry hooks ------------------------------------------------
@@ -132,6 +136,9 @@ class DecodeBackend:
     def prefill_varlen(self, params, tokens, lens):
         return lm.prefill_varlen(params, tokens, lens, self.cfg)
 
+    def decode_window(self, params, state, tokens, pos0):
+        return lm.decode_window(params, state, tokens, pos0, self.cfg)
+
     def decode_window_varlen(self, params, state, tokens, pos0, lens, *,
                              active=None, last_only=False):
         return lm.decode_window_varlen(params, state, tokens, pos0, lens,
@@ -154,6 +161,9 @@ class DecodeBackend:
     def sample_token(self, logits, temperature, generator=None):
         return lm.sample_token(logits, temperature, generator)
 
+    def snapshot_state(self, state, slot):
+        return lm.snapshot_state(state, slot)
+
     def restore_state(self, engine_state, snapshot, slot):
         return lm.restore_state(engine_state, snapshot, slot)
 
@@ -162,6 +172,18 @@ class DecodeBackend:
 
     def where_state(self, active, new, old):
         return lm.where_state(active, new, old)
+
+    def snapshot_state_rows(self, state, slot, n_rows: int):
+        return lm.snapshot_state_rows(state, slot, n_rows)
+
+    def restore_state_rows(self, engine_state, snapshot, slot):
+        return lm.restore_state_rows(engine_state, snapshot, slot)
+
+    def where_state_rows(self, active, new, old, start, width: int):
+        return lm.where_state_rows(active, new, old, start, width)
+
+    def slot_state_finite(self, state):
+        return lm.slot_state_finite(state)
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,6 @@
-"""Fixed-slot continuous-batching decode engine (port of the core of
-``repro/serving/engine.py``).
+"""Fixed-slot continuous-batching decode engine (port of
+``repro/serving/engine.py``: the scheduler, its lifecycle and speculative
+rounds).
 
 The paper's serving claim — a fixed-size O(k²) state with constant-time
 lookups — pays off when many requests share the device. Every state
@@ -16,20 +17,22 @@ so this module is a scheduler and the backend owns the state layout.
   syncs with the host once, when its tokens come back.
 
 * **Scheduler.** Between segments the host drains finished slots and
-  admits queued requests into the freed ones. ``admission="batched"``
-  admits every admissible request at once: prompts are END-padded to a
-  power-of-two bucket width and encoded by one ``lm.prefill_varlen``
-  pass whose per-row masking makes each row's state that of the row
-  alone; the wave's rows are copied into their slots and no other row
-  is touched. A wave of one is encoded at batch 1 and written into its
-  slot; a length-1 prompt is encoded unpadded at batch 1 (JAX's carve-
-  out). Prompts longer than ``prefill_chunk`` are ingested chunk by
-  chunk through ``lm.decode_window_varlen`` (``ingest="recurrent"``,
-  B1/B7 with per-row ``lens`` up to the chunk width) or
-  ``lm.ingest_window_varlen`` (``"parallel"``, the plain chunked forms),
-  one chunk per scheduling step before the segment, so a long prompt
-  never stalls the live slots. ``admission="per_request"`` prefills
-  each request alone and writes it into its slot.
+  admits waiting requests into the freed ones, best first by
+  (-priority, arrival, uid), a suspended request before a queued one of
+  the same key. ``admission="batched"`` admits every admissible request
+  at once: prompts are END-padded to a power-of-two bucket width and
+  encoded by one ``lm.prefill_varlen`` pass whose per-row masking makes
+  each row's state that of the row alone; the wave's rows are copied
+  into their slots and no other row is touched. A wave of one is
+  encoded at batch 1 and written into its slot; a length-1 prompt is
+  encoded unpadded at batch 1 (JAX's carve-out). Prompts longer than
+  ``prefill_chunk`` are ingested chunk by chunk through
+  ``lm.decode_window_varlen`` (``ingest="recurrent"``, B1/B7 with
+  per-row ``lens`` up to the chunk width) or ``lm.ingest_window_varlen``
+  (``"parallel"``, the plain chunked forms), one chunk per scheduling
+  step before the segment, so a long prompt never stalls the live
+  slots. ``admission="per_request"`` prefills each request alone and
+  writes it into its slot.
 
 * **Isolation.** Inactive slots keep their state bit for bit, so under
   greedy decoding each request's tokens are those it would produce
@@ -41,22 +44,67 @@ so this module is a scheduler and the backend owns the state layout.
   copies its bucket-width rows into the wave's slots and zeros the rest
   of each, as JAX pads; decode writes one gated cache row per slot and
   step, and both ingest settings step single-token decode over a chunk.
-  ``submit`` keeps prompt + budget within ``max_len`` + 1, so every
-  written row fits the cache.
+  ``submit`` keeps prompt + budget + lookahead within ``max_len`` + 1,
+  so every written row fits the cache.
+
+* **Lifecycle.** A request is portable: an active slot is suspended
+  into a host-side :class:`~repro_torch.serving.lifecycle.SuspendedRequest`
+  (one ``snapshot_state_rows`` copy: O(k²) per layer for the fixed-size
+  states, the written rows of a KV cache) and re-admitted later with
+  bit-identical greedy continuation. Requests carry ``priority`` (a
+  higher-priority arrival preempts the lowest-(priority, progress) slot
+  when every slot is taken) and ``deadline_s`` (logical steps; a request
+  past it leaves the queue, the suspended pool or its slot with its
+  partial tokens), can be ``cancel``-ed, and ``max_queue`` bounds the
+  queue under ``shed_policy``. Past ``degrade_threshold`` waiting
+  requests per slot the engine degrades: speculation turns off and the
+  ingest chunk halves, with hysteresis, every flip in
+  :class:`EngineStats`. After every segment and round one fused finite
+  probe (``lm.slot_state_finite``: a reduction per leaf and one (S,)
+  bool copy) finds a non-finite slot; the slot is quarantined (its NaNs
+  stay put, masked like any inactive row) and its request retried once
+  from its last good checkpoint on a fresh slot, or completed
+  ``status="failed"``. A :class:`~repro_torch.serving.lifecycle.FaultInjector`
+  drives the chaos cases deterministically.
+
+* **Speculation** (``speculate_k`` on submit, a ``draft`` provider on
+  the engine). A speculative slot advances in draft/verify rounds
+  batched over every speculative slot: the draft proposes K tokens, ONE
+  masked ``lm.decode_window_varlen`` (B1/B7 once per layer) runs the
+  K+1-token window at each slot's own position, with ``lens = K + 1`` on
+  speculative rows and 0 on every other row, which keeps their state
+  bit for bit; only the (S, K+1) argmax tokens come to the host. The
+  longest draft prefix equal to the target's greedy tokens is accepted
+  and the target's own next token appended: 1 to K+1 tokens of the
+  exact greedy sequence a round. The port's windows update the state in
+  place where JAX's return a new one beside the old, so a slot that
+  accepted the whole window already holds its state (JAX's masked
+  select is not needed), and a slot that rejected part of it is rewound
+  from a copy taken before the verify: the fixed-size states of every
+  speculative slot are copied (``snapshot_state_rows`` with no KV rows),
+  the rewinding slots get theirs back, and ONE more masked
+  ``decode_window_varlen`` re-advances each of them by its own accepted
+  count, however many rewind. A softmax KV cache needs no copy: the
+  verify writes rows [pos, pos+K+1), the re-advance rewrites rows
+  [pos, pos+a+1) with the same keys and values, and rows past a slot's
+  position are never read before they are rewritten (the invariant of
+  ``lm``'s row-ranged forms, which is JAX's argument for its row-ranged
+  merges). Plain and speculative requests share the slot batch, each
+  kind masked while the other runs.
 
 Time is logical: the clock advances ``segment_len`` decode steps per
-segment, and request ``arrival`` times are in decode steps.
+segment (the round's most tokens per slot for a speculative round), and
+``arrival`` and ``deadline_s`` are in decode steps.
 
-Policies: ``continuous`` admits into any freed slot between segments;
-``static`` admits only when every slot is free (the batch-synchronous
-baseline).
+Policies: ``continuous`` admits into any freed slot between segments
+(and preempts for priority); ``static`` admits only when every slot is
+free (the batch-synchronous baseline).
 
-Not ported here (they come with their ROADMAP items): the lifecycle
-(priorities, preemption, deadlines, cancellation, bounded queues,
-overload degradation, the finite probe and quarantine), speculative
-rounds, the journal and engine checkpoints, the prefix cache and fork.
-Admission order is JAX's (-priority, arrival, uid) with every priority
-0, i.e. (arrival, uid).
+Not ported here (they come with their ROADMAP A.6 slices): the prefix
+cache and fork (``submit(fork > 1)`` raises ValueError;
+``_release_hold`` is a no-op), the write-ahead journal, engine
+checkpoints and ``recover`` (``InjectedCrash`` propagates to the
+caller; the places the journal writes its records are marked).
 """
 
 from __future__ import annotations
@@ -64,13 +112,26 @@ from __future__ import annotations
 import bisect
 import dataclasses
 import json
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.serving.backends import DecodeBackend, backend_for_config
+from repro_torch.serving.lifecycle import (
+    SHED_POLICIES,
+    STATUS_CANCELLED,
+    STATUS_DEADLINE,
+    STATUS_FAILED,
+    STATUS_OK,
+    STATUS_SHED,
+    Checkpoint,
+    FaultInjector,
+    InjectedCrash,
+    SuspendedRequest,
+    poison_snapshot,
+)
 
 PAD_ID = -1  # emitted by masked slots; never a vocabulary id
 POLICIES = ("continuous", "static")
@@ -81,13 +142,25 @@ def _pow2_ceil(n: int) -> int:
     return 1 << (int(n) - 1).bit_length()
 
 
+def _queue_key(r) -> Tuple[float, int]:
+    return (r.arrival, r.uid)
+
+
 @dataclasses.dataclass
 class Request:
-    """One generation request; ``arrival`` is in logical decode steps."""
+    """One generation request. ``arrival`` and ``deadline_s`` (an
+    absolute completion deadline) are in logical decode steps;
+    ``priority`` orders admission (higher first) and arms preemption;
+    ``speculate_k`` > 0 decodes through draft/verify rounds (greedy
+    only). ``fork`` is JAX's n-best field; the port admits 1 only."""
     uid: int
     prompt: np.ndarray            # (P,) int32
     max_new_tokens: int
     arrival: float = 0.0
+    speculate_k: int = 0
+    priority: int = 0
+    deadline_s: Optional[float] = None
+    fork: int = 1
 
 
 @dataclasses.dataclass
@@ -95,14 +168,17 @@ class Completion:
     uid: int
     prompt_len: int
     tokens: np.ndarray            # generated tokens (incl. EOS if hit)
-    finish_reason: str            # "eos" | "length"
-    admitted_step: int
+    finish_reason: str            # "eos" | "length" | lifecycle status
+    admitted_step: int            # -1 if never admitted (shed/deadline)
     finished_step: int
+    status: str = STATUS_OK       # ok|cancelled|deadline|shed|failed
+    retries: int = 0              # numeric-fault retries consumed
 
 
 @dataclasses.dataclass
 class EngineStats:
-    """The core's counters, under JAX's names."""
+    """The engine's counters, under JAX's names (its prefix-cache and
+    fork counters come with ROADMAP A.6's prefix cache)."""
     segments: int = 0
     emitted_tokens: int = 0       # segment-emitted (excludes prefill-sampled)
     prefills: int = 0             # admitted (prompt-encoded) requests
@@ -115,11 +191,34 @@ class EngineStats:
     ingest_interleaved: int = 0   # ...issued while decode slots were live
     admission_dispatches: int = 0  # admission-path device calls
     prefill_jit_misses: int = 0   # distinct admission program shapes
+    # speculative rounds
+    spec_rounds: int = 0          # batched draft/verify rounds
+    spec_drafted: int = 0         # draft tokens proposed to the verifier
+    spec_accepted: int = 0        # draft tokens the target agreed with
+    spec_emitted: int = 0         # tokens emitted by rounds (incl. bonus)
+    spec_rewinds: int = 0         # partial-acceptance slot re-advances
+    spec_rewind_rounds: int = 0   # rounds that had >= 1 partial acceptor
+    spec_rewind_dispatches: int = 0  # varlen rewind passes (1 per round)
+    # lifecycle & fault tolerance
+    preemptions: int = 0          # active slots suspended mid-generation
+    resumes: int = 0              # suspended requests re-admitted
+    cancelled: int = 0            # cancel() completions
+    deadline_evictions: int = 0   # requests past deadline (queued/active)
+    shed: int = 0                 # bounded-queue rejections
+    quarantined: int = 0          # slots poisoned by a numeric fault
+    retries: int = 0              # snapshot-retries after a fault
+    failed: int = 0               # requests with retries exhausted
+    checkpoints: int = 0          # last-good snapshots taken
+    finite_checks: int = 0        # fused isfinite probes run
+    degrade_transitions: int = 0  # overload degradation flips (both ways)
+    spec_disables: int = 0        # spec requests forced plain (degraded)
+    degrade_events: List[Dict] = dataclasses.field(default_factory=list)
 
     def to_dict(self) -> Dict:
         """Counters and derived ratios as one JSON-able dict."""
         d = dataclasses.asdict(self)
-        for name in ("slot_utilization", "mean_admission_batch",
+        for name in ("slot_utilization", "acceptance_rate",
+                     "tokens_per_round", "mean_admission_batch",
                      "interleave_ratio"):
             d[name] = getattr(self, name)
         return d
@@ -132,6 +231,19 @@ class EngineStats:
         """Fraction of segment slot-steps that emitted a real token."""
         total = self.segments * self.n_slots * self.segment_len
         return self.emitted_tokens / total if total else 0.0
+
+    @property
+    def acceptance_rate(self) -> float:
+        """Fraction of drafted tokens the verifier accepted."""
+        return (self.spec_accepted / self.spec_drafted
+                if self.spec_drafted else 0.0)
+
+    @property
+    def tokens_per_round(self) -> float:
+        """Mean tokens emitted per batched speculative round, summed over
+        its speculative slots (a plain segment step emits one a slot)."""
+        return (self.spec_emitted / self.spec_rounds
+                if self.spec_rounds else 0.0)
 
     @property
     def mean_admission_batch(self) -> float:
@@ -152,14 +264,31 @@ class DecodeEngine:
 
     ``params`` live on the device the engine runs on (its state, its
     sampling generator and every admission pass go there). ``max_len``
-    bounds prompt + generated tokens per request. ``admission``:
-    "batched", "per_request" or "auto" (batched where the layer pattern
-    takes varlen prefill). ``prefill_chunk`` (rounded up to a power of
-    two) bounds the ingest chunk and the bucket widths. ``ingest``:
-    "recurrent" (B1/B7 through ``decode_window_varlen``), "parallel"
-    (the plain chunked forms through ``ingest_window_varlen``) or "auto"
-    (recurrent). ``temperature`` 0 is greedy; above 0 tokens are drawn
-    from a ``torch.Generator`` seeded by ``seed``.
+    bounds prompt + generated + draft lookahead tokens per request.
+    ``admission``: "batched", "per_request" or "auto" (batched where the
+    layer pattern takes varlen prefill). ``prefill_chunk`` (rounded up
+    to a power of two) bounds the ingest chunk and the bucket widths.
+    ``ingest``: "recurrent" (B1/B7 through ``decode_window_varlen``),
+    "parallel" (the plain chunked forms through
+    ``ingest_window_varlen``) or "auto" (recurrent). ``temperature`` 0
+    is greedy; above 0 tokens are drawn from a ``torch.Generator``
+    seeded by ``seed``. ``draft``: a
+    :class:`~repro_torch.serving.speculative.DraftProvider` for requests
+    submitted with ``speculate_k`` > 0.
+
+    Robustness: ``max_queue`` bounds the admission queue; when it is
+    full ``shed_policy`` "reject_new" sheds the arrival and
+    "evict_lowest" the lowest-priority queued request if strictly below
+    the arrival (else the arrival). ``degrade_threshold`` (waiting
+    requests per slot; None disables) turns speculation off and halves
+    the ingest chunk while the pressure stays above it, back below half
+    of it. ``finite_check`` runs the finite probe at every segment and
+    round; a non-finite slot is quarantined for the rest of the run and
+    its request retried up to ``max_retries`` times from its last good
+    checkpoint (taken at activation, and every ``checkpoint_interval``
+    events when > 0), else completed ``status="failed"``. ``injector``:
+    a :class:`~repro_torch.serving.lifecycle.FaultInjector` (chaos
+    tests).
     """
 
     def __init__(
@@ -174,10 +303,26 @@ class DecodeEngine:
         eos_id: Optional[int] = None,
         temperature: float = 0.0,
         seed: int = 0,
+        draft: Optional[Any] = None,
         admission: str = "auto",
         prefill_chunk: int = 64,
         ingest: str = "auto",
+        max_queue: Optional[int] = None,
+        shed_policy: str = "reject_new",
+        degrade_threshold: Optional[float] = None,
+        finite_check: bool = True,
+        max_retries: int = 1,
+        checkpoint_interval: int = 0,
+        injector: Optional[FaultInjector] = None,
     ):
+        if shed_policy not in SHED_POLICIES:
+            raise ValueError(f"shed_policy must be one of {SHED_POLICIES}, "
+                             f"got {shed_policy!r}")
+        if max_queue is not None and max_queue < 1:
+            raise ValueError(f"max_queue must be >= 1, got {max_queue}")
+        if max_retries < 0 or checkpoint_interval < 0:
+            raise ValueError("max_retries and checkpoint_interval must be "
+                             ">= 0")
         self.params = params
         self.cfg = cfg
         self.backend = (backend if backend is not None
@@ -189,6 +334,16 @@ class DecodeEngine:
         self.eos_id = eos_id
         self.temperature = temperature
         self._seed = seed
+        self.draft = draft
+        self.max_queue = max_queue
+        self.shed_policy = shed_policy
+        self.degrade_threshold = degrade_threshold
+        self.finite_check = finite_check
+        self.max_retries = max_retries
+        self.checkpoint_interval = checkpoint_interval
+        self.injector = injector
+        # the write-ahead journal and engine checkpoints come with ROADMAP
+        # A.6's durability slice
         self.admission, self.ingest = self.backend.resolve_modes(
             admission, ingest)
         # a power-of-two chunk, so every bucket width is one too
@@ -204,7 +359,8 @@ class DecodeEngine:
     # ------------------------------------------------------------------
 
     def reset(self) -> None:
-        """Clear every request, slot and counter."""
+        """Clear every request, slot, suspended request, checkpoint,
+        quarantine and counter."""
         self.state = self.backend.init_slots(self.n_slots, self.max_len,
                                              device=self.device)
         s = self.n_slots
@@ -212,6 +368,7 @@ class DecodeEngine:
         self._pos = np.zeros((s,), np.int32)
         self._active = np.zeros((s,), bool)
         self._remaining = np.zeros((s,), np.int32)
+        self._spec_k = np.zeros((s,), np.int32)
         self._slot_req: List[Optional[Request]] = [None] * s
         self._slot_toks: List[List[int]] = [[] for _ in range(s)]
         self._slot_admitted: List[int] = [0] * s
@@ -225,16 +382,45 @@ class DecodeEngine:
         self._next_uid = 0
         self._gen = torch.Generator(device=self.device).manual_seed(
             self._seed)
+        # lifecycle & fault-tolerance bookkeeping
+        self._suspended: List[SuspendedRequest] = []
+        self._quarantined = np.zeros((s,), bool)
+        self._retry_count: Dict[int, int] = {}   # uid → retries consumed
+        self._ckpt: Dict[int, Checkpoint] = {}
+        self._last_ckpt_event = np.zeros((s,), np.int64)
+        self._cancel_uids: set = set()
+        self._degraded = False
+        self._events = 0          # segment/round boundaries elapsed
+        self._admit_passes = 0    # admission passes attempted
+        if self.draft is not None:
+            self.draft.reset()
         self.stats = EngineStats(n_slots=self.n_slots,
                                  segment_len=self.segment_len)
 
     def submit(self, prompt, max_new_tokens: int, arrival: float = 0.0,
-               uid: Optional[int] = None) -> int:
+               speculate_k: int = 0, priority: int = 0,
+               deadline_s: Optional[float] = None,
+               uid: Optional[int] = None, fork: int = 1) -> int:
         """Queue a request; returns its uid. ``arrival`` is in logical
-        decode steps (0 = at once); ``uid`` must not be below the
+        decode steps (0 = at once); ``deadline_s`` an absolute logical
+        completion deadline; ``priority`` orders admission (higher
+        first, FIFO within a priority) and arms preemption of
+        lower-priority slots; ``speculate_k`` > 0 decodes through
+        draft/verify rounds of that many proposals (needs the engine's
+        ``draft`` and greedy decoding); ``uid`` must not be below the
         engine's next uid. Every check runs before any engine state
-        changes."""
+        changes, so a raising submit leaves the queue, the uid counter
+        and the stats as they were. A full bounded queue resolves its
+        shed policy at once: the shed request completes
+        ``status="shed"``."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
+        if fork < 1:
+            raise ValueError(f"fork must be >= 1, got {fork}")
+        if fork > 1:
+            raise ValueError(
+                f"fork={fork}: n-best continuations off one prefill come "
+                f"with the prefix cache (ROADMAP A.6); submit the prompt "
+                f"{fork} times")
         if uid is not None and uid < self._next_uid:
             raise ValueError(
                 f"uid {uid} is not monotone (engine next uid is "
@@ -244,24 +430,90 @@ class DecodeEngine:
                 f"max_new_tokens must be >= 1, got {max_new_tokens}")
         if len(prompt) == 0:
             raise ValueError("the prompt must hold at least one token")
-        if len(prompt) + max_new_tokens > self.max_len + 1:
+        if speculate_k < 0:
+            raise ValueError(f"speculate_k must be >= 0, got {speculate_k}")
+        if speculate_k > 0 and self.draft is None:
+            raise ValueError(
+                "speculate_k > 0 needs a draft provider on the engine")
+        if speculate_k > 0 and self.temperature > 0.0:
+            raise ValueError(
+                "speculative decoding is greedy-only (temperature=0)")
+        if deadline_s is not None and deadline_s <= arrival:
+            raise ValueError(
+                f"deadline_s ({deadline_s}) must be after arrival "
+                f"({arrival})")
+        # the verify writes up to speculate_k positions past the last
+        # emitted token: the softmax caches must have room for them
+        if len(prompt) + max_new_tokens + speculate_k > self.max_len + 1:
             raise ValueError(
                 f"prompt ({len(prompt)}) + max_new_tokens "
-                f"({max_new_tokens}) exceeds engine max_len "
-                f"{self.max_len} + 1")
+                f"({max_new_tokens}) + speculate_k ({speculate_k}) "
+                f"exceeds engine max_len {self.max_len} + 1")
+        # ---- validation complete; engine state changes start here -----
         if uid is None:
             uid = self._next_uid
+        # the journal's write-ahead submit record goes here (ROADMAP A.6)
         self._next_uid = uid + 1
         req = Request(uid=uid, prompt=prompt, max_new_tokens=max_new_tokens,
-                      arrival=arrival)
+                      arrival=arrival, speculate_k=speculate_k,
+                      priority=priority, deadline_s=deadline_s)
+        if self.max_queue is not None and len(self._queue) >= self.max_queue:
+            victim = self._pick_shed_victim(req)
+            self._shed(victim)
+            if victim is req:
+                return uid
         # an early-arriving request submitted late is not blocked behind
         # a far-future one
-        bisect.insort(self._queue, req, key=lambda r: (r.arrival, r.uid))
+        bisect.insort(self._queue, req, key=_queue_key)
         return uid
 
+    def _pick_shed_victim(self, incoming: Request) -> Request:
+        """Full queue: "reject_new" sheds the arrival; "evict_lowest" the
+        lowest-priority queued request (the newest of that tier) if it is
+        strictly below the arrival, else the arrival."""
+        if self.shed_policy == "reject_new":
+            return incoming
+        victim = min(self._queue,
+                     key=lambda r: (r.priority, -r.arrival, -r.uid))
+        if victim.priority < incoming.priority:
+            self._queue.remove(victim)
+            return victim
+        return incoming
+
+    def _shed(self, req: Request) -> None:
+        self.stats.shed += 1
+        self._complete(req, [], admitted_step=-1, status=STATUS_SHED)
+
+    def cancel(self, uid: int) -> bool:
+        """Cancel a request by uid. A queued or suspended one completes at
+        once ``status="cancelled"`` (a suspended one with its partial
+        tokens); an active or ingesting one is evicted at the next
+        scheduling boundary. False if the uid is unknown or complete."""
+        # the journal's write-ahead cancel record goes here (ROADMAP A.6)
+        for i, r in enumerate(self._queue):
+            if r.uid == uid:
+                self._queue.pop(i)
+                self.stats.cancelled += 1
+                self._complete(r, [], admitted_step=-1,
+                               status=STATUS_CANCELLED)
+                return True
+        for i, s in enumerate(self._suspended):
+            if s.req.uid == uid:
+                self._suspended.pop(i)
+                self.stats.cancelled += 1
+                self._complete(s.req, s.toks, admitted_step=s.admitted_step,
+                               status=STATUS_CANCELLED, retries=s.retries)
+                return True
+        for slot in range(self.n_slots):
+            req = self._slot_req[slot] or self._ingest_req[slot]
+            if req is not None and req.uid == uid:
+                self._cancel_uids.add(uid)
+                return True
+        return False
+
     def has_work(self) -> bool:
-        """Anything queued, ingesting or decode-active?"""
-        return bool(self._queue or self._active.any()
+        """Anything queued, suspended, ingesting or decode-active?"""
+        return bool(self._queue or self._suspended or self._active.any()
                     or self._any_ingesting())
 
     def queue_depth(self) -> int:
@@ -277,14 +529,26 @@ class DecodeEngine:
     # ------------------------------------------------------------------
 
     def _complete(self, req: Request, tokens: List[int],
-                  admitted_step: int) -> None:
+                  admitted_step: int, status: str = STATUS_OK,
+                  retries: int = 0) -> None:
         last = tokens[-1] if tokens else None
-        reason = ("eos" if self.eos_id is not None and last == self.eos_id
-                  else "length")
+        if status == STATUS_OK:
+            reason = ("eos" if self.eos_id is not None
+                      and last == self.eos_id else "length")
+        else:
+            reason = status
+        # the journal's ack record goes here, before the completion is
+        # observable (ROADMAP A.6)
         self._completions[req.uid] = Completion(
             uid=req.uid, prompt_len=len(req.prompt),
             tokens=np.asarray(tokens, np.int32), finish_reason=reason,
-            admitted_step=admitted_step, finished_step=self._clock)
+            admitted_step=admitted_step, finished_step=self._clock,
+            status=status, retries=retries)
+
+    def _release_hold(self, slot: int) -> None:
+        """Drop the prefix-cache entries the slot was admitted from: a
+        no-op until the prefix cache (ROADMAP A.6); called wherever JAX
+        tears a slot down."""
 
     def _miss(self, kind: str, width: int) -> None:
         """Count an admission program shape not seen before."""
@@ -301,11 +565,15 @@ class DecodeEngine:
     def _admissible(self) -> bool:
         return bool(self._queue) and self._queue[0].arrival <= self._clock
 
+    def _work_waiting(self) -> bool:
+        return bool(self._suspended) or self._admissible()
+
     def _any_ingesting(self) -> bool:
         return any(r is not None for r in self._ingest_req)
 
     def _slot_free(self, slot: int) -> bool:
-        return not self._active[slot] and self._ingest_req[slot] is None
+        return (not self._active[slot] and self._ingest_req[slot] is None
+                and not self._quarantined[slot])
 
     def _prompt(self, req: Request) -> torch.Tensor:
         return torch.from_numpy(req.prompt).long()[None].to(self.device)
@@ -322,54 +590,234 @@ class DecodeEngine:
         tok0 = int(self._sample(logits)[0])
         if req.max_new_tokens <= 1 or (self.eos_id is not None
                                        and tok0 == self.eos_id):
-            self._complete(req, [tok0], admitted_step=self._clock)
+            self._complete(req, [tok0], admitted_step=self._clock,
+                           retries=self._retry_count.pop(req.uid, 0))
             return
         self.backend.write_slot_state(self.state, st_req, slot)
         self.stats.admission_dispatches += 1
         self._activate_slot(slot, req, tok0)
 
     def _activate_slot(self, slot: int, req: Request, tok0: int) -> None:
-        """Flip a slot whose prompt is encoded to decode-active."""
+        """Flip a slot whose prompt is encoded to decode-active (plain
+        under degradation), and take its activation checkpoint."""
+        spec_k = req.speculate_k
+        if spec_k > 0 and self._degraded:
+            spec_k = 0               # overload: lookahead off; the greedy
+            self.stats.spec_disables += 1   # tokens are the same
         self._tok[slot] = tok0
         self._pos[slot] = len(req.prompt)
         self._active[slot] = True
         self._remaining[slot] = req.max_new_tokens - 1
+        self._spec_k[slot] = spec_k
         self._slot_req[slot] = req
         self._slot_toks[slot] = [tok0]
         self._slot_admitted[slot] = self._clock
+        if spec_k > 0:
+            self.draft.admit(
+                slot, np.concatenate([req.prompt, [tok0]]).astype(np.int32))
+        if self.finite_check and self.max_retries > 0:
+            # the last known-good restore point a later fault retries from
+            self._checkpoint_slot(slot)
+
+    def _slot_snapshot(self, slot: int, rows: int):
+        """A batch-1 copy of ``slot``, row-ranged under a KV cache (its
+        first ``rows`` rows: O(W·k) instead of O(max_len·k)); whole for
+        the fixed-size states."""
+        w = (self.max_len if self.backend.fixed_size_state
+             else min(int(rows), self.max_len))
+        return self.backend.snapshot_state_rows(self.state, slot, w)
+
+    def _checkpoint_slot(self, slot: int) -> None:
+        self._ckpt[slot] = Checkpoint(
+            state=self._slot_snapshot(slot,
+                                      self._bucket(int(self._pos[slot]))),
+            tok=int(self._tok[slot]), pos=int(self._pos[slot]),
+            remaining=int(self._remaining[slot]),
+            toks=list(self._slot_toks[slot]))
+        self._last_ckpt_event[slot] = self._events
+        self.stats.checkpoints += 1
+
+    # -- admission order: priority first, FIFO within a priority --------
+
+    def _best_queued_idx(self) -> Optional[int]:
+        """Index of the best admissible queued request by
+        (-priority, arrival, uid); the queue is arrival-sorted, so the
+        admissible requests are a prefix of it."""
+        best, best_key = None, None
+        for i, r in enumerate(self._queue):
+            if r.arrival > self._clock:
+                break
+            key = (-r.priority, r.arrival, r.uid)
+            if best_key is None or key < best_key:
+                best, best_key = i, key
+        return best
+
+    def _pop_admission(self) -> Tuple[str, Any]:
+        """The next item to admit: the best of the admissible queue and
+        the suspended pool (a suspended request wins a tie: it has paid
+        its prefill). ("resume", SuspendedRequest) or ("new", Request)."""
+        qi = self._best_queued_idx()
+        si, si_key = None, None
+        for i, s in enumerate(self._suspended):
+            key = (-s.req.priority, s.req.arrival, s.req.uid)
+            if si_key is None or key < si_key:
+                si, si_key = i, key
+        if si is not None and (qi is None or si_key <= (
+                -self._queue[qi].priority, self._queue[qi].arrival,
+                self._queue[qi].uid)):
+            return "resume", self._suspended.pop(si)
+        if qi is None:
+            raise RuntimeError("_pop_admission with nothing waiting")
+        return "new", self._queue.pop(qi)
+
+    def _resume_into(self, slot: int, susp: SuspendedRequest) -> None:
+        """Re-admit a suspended request: one ``restore_state_rows`` copy
+        of its snapshot plus the scalars. Greedy decode depends only on
+        (state, tok, pos), so it continues as if never suspended."""
+        req = susp.req
+        self.backend.restore_state_rows(self.state, susp.state, slot)
+        spec_k = req.speculate_k
+        if spec_k > 0 and self._degraded:
+            spec_k = 0
+            self.stats.spec_disables += 1
+        self._tok[slot] = susp.tok
+        self._pos[slot] = susp.pos
+        self._active[slot] = True
+        self._remaining[slot] = susp.remaining
+        self._spec_k[slot] = spec_k
+        self._slot_req[slot] = req
+        self._slot_toks[slot] = list(susp.toks)
+        self._slot_admitted[slot] = susp.admitted_step
+        self._retry_count[req.uid] = susp.retries
+        if spec_k > 0:
+            self.draft.admit(slot, np.concatenate(
+                [req.prompt, susp.toks]).astype(np.int32))
+        if self.finite_check and self.max_retries > 0:
+            # the incoming snapshot is the slot's last known-good state
+            self._ckpt[slot] = Checkpoint(
+                state=susp.state, tok=susp.tok, pos=susp.pos,
+                remaining=susp.remaining, toks=list(susp.toks))
+            self._last_ckpt_event[slot] = self._events
+        self.stats.resumes += 1
+
+    def _vacate(self, slot: int) -> None:
+        """Tear a slot down: release the draft and the prefix-cache hold
+        and forget the request. Its state row is abandoned; inactive rows
+        are masked in every pass, so nothing needs resetting."""
+        if self._slot_req[slot] is not None and self._spec_k[slot] > 0:
+            self.draft.release(slot)
+        self._slot_req[slot] = None
+        self._slot_toks[slot] = []
+        self._spec_k[slot] = 0
+        self._active[slot] = False
+        self._ingest_req[slot] = None
+        self._ingest_cursor[slot] = 0
+        self._release_hold(slot)
+
+    def preempt(self, slot: int) -> SuspendedRequest:
+        """Swap the active request out of ``slot`` into a host-side
+        :class:`SuspendedRequest` (one snapshot copy and the scalars).
+        The slot frees at once; the request rejoins the admission pool
+        and continues bit for bit."""
+        req = self._slot_req[slot]
+        if not self._active[slot] or req is None:
+            raise ValueError(f"slot {slot} holds no active request")
+        susp = SuspendedRequest(
+            req=req,
+            state=self._slot_snapshot(slot,
+                                      self._bucket(int(self._pos[slot]))),
+            tok=int(self._tok[slot]), pos=int(self._pos[slot]),
+            remaining=int(self._remaining[slot]),
+            toks=list(self._slot_toks[slot]),
+            admitted_step=self._slot_admitted[slot],
+            retries=self._retry_count.get(req.uid, 0))
+        self._ckpt.pop(slot, None)
+        self._vacate(slot)
+        self._suspended.append(susp)
+        self.stats.preemptions += 1
+        return susp
+
+    def _preempt_pass(self) -> None:
+        """Priority preemption: while every slot is taken and a waiting
+        item outranks a running one, suspend victims, the lowest
+        (priority, progress) decode-active slots first, until each
+        strictly higher-priority waiting item has a slot."""
+        waiting = sorted(
+            [r.priority for r in self._queue if r.arrival <= self._clock]
+            + [s.req.priority for s in self._suspended], reverse=True)
+        idx = sum(self._slot_free(s) for s in range(self.n_slots))
+        while idx < len(waiting):
+            victims = [s for s in range(self.n_slots)
+                       if self._active[s] and self._slot_req[s] is not None]
+            if not victims:
+                return
+            victim = min(victims, key=lambda s: (
+                self._slot_req[s].priority, len(self._slot_toks[s]), s))
+            if self._slot_req[victim].priority >= waiting[idx]:
+                return
+            self.preempt(victim)
+            idx += 1
 
     def _admit_pass(self, policy: str) -> None:
         if policy == "static" and (self._active.any()
                                    or self._any_ingesting()):
             return             # batch-synchronous: wait for the whole batch
+        if not self._work_waiting():
+            return
+        pass_idx = self._admit_passes
+        self._admit_passes += 1
+        if (self.injector is not None
+                and self.injector.drops_admission(pass_idx)):
+            return                    # chaos: this wave never happens
+        if policy == "continuous":
+            self._preempt_pass()
         if self.admission == "per_request":
             for slot in range(self.n_slots):
                 # keep feeding the slot while requests complete at
                 # admission (a budget of one never occupies it)
-                while self._slot_free(slot) and self._admissible():
-                    self._admit_one(slot, self._queue.pop(0))
+                while self._slot_free(slot) and self._work_waiting():
+                    kind, item = self._pop_admission()
+                    if kind == "resume":
+                        self._resume_into(slot, item)
+                    else:
+                        self._admit_one(slot, item)
             return
-        # batched: fill every free slot, then encode the wave's first
+        # batched: fill every free slot from the pool (resumes land at
+        # once, new requests join the wave), then encode the wave's first
         # chunks in one bucket-padded varlen prefill. Loop, because
         # requests that complete at admission free their slots at the
         # same logical clock.
-        while self._admissible():
-            newly = []
+        while self._work_waiting():
+            newly, resumed = [], 0
             for slot in range(self.n_slots):
-                if not self._slot_free(slot) or not self._admissible():
+                if not self._slot_free(slot) or not self._work_waiting():
                     continue
-                self._ingest_req[slot] = self._queue.pop(0)
+                kind, item = self._pop_admission()
+                if kind == "resume":
+                    self._resume_into(slot, item)
+                    resumed += 1
+                    continue
+                self._ingest_req[slot] = item
                 self._ingest_cursor[slot] = 0
                 newly.append(slot)
-            if not newly:
+            if newly:
+                self._ingest_chunk(newly, first=True)
+            elif not resumed:
                 break
-            self._ingest_chunk(newly, first=True)
 
     def _bucket(self, n: int) -> int:
         return min(_pow2_ceil(max(1, n)), self.max_len)
 
+    def _live_chunk(self) -> int:
+        """The ingest chunk: halved while degraded (still a power of two,
+        at least min(8, prefill_chunk)), so ingest yields to decode
+        sooner under load."""
+        if not self._degraded:
+            return self.prefill_chunk
+        return max(min(8, self.prefill_chunk), self.prefill_chunk // 2)
+
     def _ingest_chunk(self, slots: List[int], *, first: bool) -> None:
-        """Consume the next <= ``prefill_chunk`` prompt tokens of every
+        """Consume the next <= ``_live_chunk()`` prompt tokens of every
         ingesting slot in ``slots`` in one pass.
 
         ``first`` rows start from nothing: the wave is encoded by
@@ -400,7 +848,7 @@ class DecodeEngine:
         for slot in slots:
             req = self._ingest_req[slot]
             cur = int(self._ingest_cursor[slot])
-            counts[slot] = min(len(req.prompt) - cur, self.prefill_chunk)
+            counts[slot] = min(len(req.prompt) - cur, self._live_chunk())
         width = self._bucket(max(counts.values()))
         tokens = np.zeros((self.n_slots, width), np.int64)
         lens = np.zeros((self.n_slots,), np.int32)
@@ -440,7 +888,8 @@ class DecodeEngine:
             self.stats.admission_dispatches += 1
         else:
             # miss keys name JAX's jit programs: the recurrent ingest is
-            # its varlen window program
+            # its varlen window program, shared with the speculative
+            # rewind
             parallel = self.ingest == "parallel"
             self._miss("ingest_varlen" if parallel else "window_varlen",
                        width)
@@ -483,17 +932,20 @@ class DecodeEngine:
             self._ingest_cursor[slot] = 0
             if req.max_new_tokens <= 1 or (self.eos_id is not None
                                            and tok0 == self.eos_id):
-                self._complete(req, [tok0], admitted_step=self._clock)
+                self._complete(req, [tok0], admitted_step=self._clock,
+                               retries=self._retry_count.pop(req.uid, 0))
+                self._release_hold(slot)
                 continue
             self._activate_slot(slot, req, tok0)
 
     def step_segment(self) -> None:
-        """One ``segment_len``-step segment over the active slots, then
-        drain the finished ones. One host sync: the segment's tokens and
-        the carried tok, pos, active and remaining come back as one
-        tensor."""
+        """One ``segment_len``-step segment over the plain (not
+        speculative) active slots, then drain the finished ones;
+        speculative slots ride along masked, bit for bit. One host sync:
+        the segment's tokens and the carried tok, pos, active and
+        remaining come back as one tensor."""
         dev = self.device
-        run_active = self._active.copy()
+        run_active = self._active & (self._spec_k == 0)
         toks, carry = self.backend.generate_segment(
             self.params, self.state,
             torch.from_numpy(self._tok).to(dev),
@@ -508,9 +960,12 @@ class DecodeEngine:
             [carry["tok"], carry["pos"].long(), carry["active"].long(),
              carry["remaining"].long()], dim=1)], dim=1).cpu().numpy()
         emitted = host[:, :self.segment_len]
+        # masked rows come back with tok, pos and remaining untouched and
+        # active False: keep the speculative slots' own flag
         self._tok = host[:, -4].copy()
         self._pos = host[:, -3].astype(np.int32)
-        self._active = host[:, -2].astype(bool)
+        self._active = np.where(run_active, host[:, -2].astype(bool),
+                                self._active)
         self._remaining = host[:, -1].astype(np.int32)
         self._clock += self.segment_len
         self.stats.segments += 1
@@ -526,37 +981,321 @@ class DecodeEngine:
     def _free_slot(self, slot: int) -> None:
         req = self._slot_req[slot]
         self._complete(req, self._slot_toks[slot],
-                       admitted_step=self._slot_admitted[slot])
-        self._slot_req[slot] = None
-        self._slot_toks[slot] = []
-        self._active[slot] = False
+                       admitted_step=self._slot_admitted[slot],
+                       retries=self._retry_count.pop(req.uid, 0))
+        self._ckpt.pop(slot, None)
+        self._vacate(slot)
+
+    # ------------------------------------------------------------------
+    # lifecycle & fault tolerance
+    # ------------------------------------------------------------------
+
+    def _evict(self, slot: int, status: str) -> None:
+        """Complete a slot's request now, with its partial tokens, and
+        free the slot."""
+        active = self._slot_req[slot] is not None
+        req = self._slot_req[slot] or self._ingest_req[slot]
+        self._complete(req, list(self._slot_toks[slot]) if active else [],
+                       admitted_step=(self._slot_admitted[slot] if active
+                                      else -1),
+                       status=status,
+                       retries=self._retry_count.pop(req.uid, 0))
+        self._ckpt.pop(slot, None)
+        self._vacate(slot)
+
+    def _set_degraded(self, on: bool, pressure: float) -> None:
+        self._degraded = on
+        self.stats.degrade_transitions += 1
+        self.stats.degrade_events.append({
+            "clock": self._clock, "degraded": on,
+            "pressure": round(pressure, 3)})
+        if on:
+            # live speculative slots turn plain: speculation emits the
+            # greedy sequence, so dropping it sheds lookahead, no token
+            for slot in range(self.n_slots):
+                if self._active[slot] and self._spec_k[slot] > 0:
+                    self.draft.release(slot)
+                    self._spec_k[slot] = 0
+                    self.stats.spec_disables += 1
+
+    def _lifecycle_pass(self) -> None:
+        """Boundary housekeeping: drain cancellations, enforce deadlines
+        wherever a request waits or runs, flip degradation (with
+        hysteresis)."""
+        if self._cancel_uids:
+            for slot in range(self.n_slots):
+                req = self._slot_req[slot] or self._ingest_req[slot]
+                if req is not None and req.uid in self._cancel_uids:
+                    self._cancel_uids.discard(req.uid)
+                    self.stats.cancelled += 1
+                    self._evict(slot, STATUS_CANCELLED)
+        for r in [r for r in self._queue if r.deadline_s is not None
+                  and r.deadline_s <= self._clock]:
+            self._queue.remove(r)
+            self.stats.deadline_evictions += 1
+            self._complete(r, [], admitted_step=-1, status=STATUS_DEADLINE)
+        for s in [s for s in self._suspended
+                  if s.req.deadline_s is not None
+                  and s.req.deadline_s <= self._clock]:
+            self._suspended.remove(s)
+            self.stats.deadline_evictions += 1
+            self._complete(s.req, s.toks, admitted_step=s.admitted_step,
+                           status=STATUS_DEADLINE, retries=s.retries)
+        for slot in range(self.n_slots):
+            req = self._slot_req[slot] or self._ingest_req[slot]
+            if (req is not None and req.deadline_s is not None
+                    and req.deadline_s <= self._clock):
+                self.stats.deadline_evictions += 1
+                self._evict(slot, STATUS_DEADLINE)
+        if self.degrade_threshold is not None:
+            waiting = len(self._suspended) + sum(
+                1 for r in self._queue if r.arrival <= self._clock)
+            pressure = waiting / self.n_slots
+            if not self._degraded and pressure >= self.degrade_threshold:
+                self._set_degraded(True, pressure)
+            elif self._degraded and pressure <= self.degrade_threshold / 2:
+                self._set_degraded(False, pressure)
+
+    def _quarantine(self, slot: int) -> None:
+        """A non-finite state in ``slot``: quarantine the slot for the
+        rest of the run (its NaNs stay put, masked like any inactive
+        row, so its neighbours are bit for bit a fault-free run's) and
+        retry its request from the last good checkpoint on a fresh slot,
+        up to ``max_retries`` times, else complete it
+        ``status="failed"``."""
+        self.stats.quarantined += 1
+        self._quarantined[slot] = True
+        req = self._slot_req[slot] or self._ingest_req[slot]
+        ckpt = self._ckpt.pop(slot, None)
+        if req is not None:
+            used = self._retry_count.get(req.uid, 0)
+            if used < self.max_retries:
+                self._retry_count[req.uid] = used + 1
+                self.stats.retries += 1
+                if ckpt is not None:
+                    self._suspended.append(SuspendedRequest(
+                        req=req, state=ckpt.state, tok=ckpt.tok,
+                        pos=ckpt.pos, remaining=ckpt.remaining,
+                        toks=list(ckpt.toks),
+                        admitted_step=self._slot_admitted[slot],
+                        retries=used + 1))
+                else:
+                    # poisoned mid-ingest: nothing emitted, so the last
+                    # good state is the empty start
+                    bisect.insort(self._queue, req, key=_queue_key)
+            else:
+                self.stats.failed += 1
+                self._retry_count.pop(req.uid, None)
+                self._complete(
+                    req, list(ckpt.toks) if ckpt is not None else [],
+                    status=STATUS_FAILED, retries=used,
+                    admitted_step=(self._slot_admitted[slot]
+                                   if self._slot_req[slot] is not None
+                                   else -1))
+        self._vacate(slot)
+
+    def _post_event(self) -> None:
+        """Segment/round boundary: chaos injection, the finite probe and
+        quarantine, periodic checkpoints of healthy active slots."""
+        ev = self._events
+        if self.injector is not None and self.injector.crashes(ev):
+            # a process death at a boundary: nothing after this runs
+            raise InjectedCrash(ev)
+        self._events += 1
+        if self.injector is not None:
+            be = self.backend
+            for slot in self.injector.nan_slots(ev):
+                be.restore_state(self.state, poison_snapshot(
+                    be.snapshot_state(self.state, slot)), slot)
+            self._clock += self.injector.extra_delay(ev)
+        if self.finite_check:
+            occupied = self._active | np.asarray(
+                [r is not None for r in self._ingest_req])
+            if occupied.any():
+                finite = self.backend.slot_state_finite(
+                    self.state).cpu().numpy()
+                self.stats.finite_checks += 1
+                for slot in np.nonzero(occupied & ~finite
+                                       & ~self._quarantined)[0]:
+                    self._quarantine(int(slot))
+        if (self.checkpoint_interval > 0 and self.finite_check
+                and self.max_retries > 0):
+            for slot in range(self.n_slots):
+                if (self._active[slot] and not self._quarantined[slot]
+                        and self._events - self._last_ckpt_event[slot]
+                        >= self.checkpoint_interval):
+                    self._checkpoint_slot(slot)
+        # the durability slice's periodic engine checkpoint goes here
+        # (ROADMAP A.6)
+
+    def _fail_all_pending(self) -> None:
+        """Every slot is quarantined: nothing can run again, so fail the
+        remaining work instead of spinning."""
+        for s in self._suspended:
+            self.stats.failed += 1
+            self._complete(s.req, s.toks, admitted_step=s.admitted_step,
+                           status=STATUS_FAILED, retries=s.retries)
+        self._suspended = []
+        for r in self._queue:
+            self.stats.failed += 1
+            self._complete(r, [], admitted_step=-1, status=STATUS_FAILED)
+        self._queue = []
+
+    # ------------------------------------------------------------------
+    # speculative rounds
+    # ------------------------------------------------------------------
+
+    def step_spec_round(self) -> None:
+        """One draft/verify round, batched over every speculative slot.
+
+        1. The draft proposes w = max K tokens per speculative slot.
+        2. ONE masked ``decode_window_varlen`` runs the (w+1)-token
+           windows [input, d₁..d_w] at each slot's own position (lens =
+           w+1 on speculative rows, 0 elsewhere) and the target's greedy
+           token after each window prefix comes to the host, (S, w+1)
+           ints only.
+        3. Per slot the longest draft prefix matching those tokens is
+           accepted and the target's own next token appended: 1 to K+1
+           tokens of the plain greedy sequence, under the segment's
+           stop rules (budget, EOS inclusive).
+        4. Full acceptors keep the verify's state; partial acceptors get
+           their round-start copy back and ONE more masked
+           ``decode_window_varlen`` re-advances each by its accepted
+           count (``spec_rewind_dispatches`` equals
+           ``spec_rewind_rounds``).
+        """
+        be, dev = self.backend, self.device
+        spec = self._active & (self._spec_k > 0)
+        slots = [int(s) for s in np.nonzero(spec)[0]]
+        if not slots:
+            raise RuntimeError("step_spec_round with no speculative slot")
+        w = int(self._spec_k[slots].max())
+
+        drafts = np.asarray(
+            self.draft.propose(self._tok, self._pos, spec, w), np.int64)
+        window = np.zeros((self.n_slots, w + 1), np.int64)
+        window[:, 0] = self._tok
+        window[:, 1:] = drafts
+        pos_pre = self._pos.copy()
+        # the verify advances the state in place: keep each speculative
+        # slot's fixed-size state (no KV rows) for a rewind
+        pre = {s: be.snapshot_state_rows(self.state, s, 0) for s in slots}
+        logits, _ = be.decode_window_varlen(
+            self.params, self.state, torch.from_numpy(window).to(dev),
+            torch.from_numpy(pos_pre).to(dev),
+            torch.from_numpy(np.where(spec, w + 1, 0).astype(np.int32)
+                             ).to(dev))
+        greedy = logits.argmax(-1).cpu().numpy()         # (S, w+1)
+        # chaos hook: a sabotaged round accepts no draft token, so every
+        # continuing slot rewinds; the emitted token is still the
+        # target's own next token, so the output does not move
+        sabotaged = (self.injector is not None
+                     and self.injector.sabotages_round(
+                         self.stats.spec_rounds))
+        self.stats.spec_rounds += 1
+
+        rewinds = []                   # (slot, tokens consumed)
+        max_emitted = 1
+        for slot in slots:
+            ks = int(self._spec_k[slot])
+            g = greedy[slot]
+            a = 0
+            while not sabotaged and a < ks and drafts[slot, a] == g[a]:
+                a += 1
+            self.stats.spec_drafted += ks
+            self.stats.spec_accepted += a
+            # emit g[0..a] one at a time under the segment's stop rules
+            emitted = []
+            finished = False
+            for t in g[:a + 1]:
+                emitted.append(int(t))
+                self._remaining[slot] -= 1
+                if ((self.eos_id is not None and int(t) == self.eos_id)
+                        or self._remaining[slot] <= 0):
+                    finished = True
+                    break
+            self._slot_toks[slot].extend(emitted)
+            self.stats.spec_emitted += len(emitted)
+            max_emitted = max(max_emitted, len(emitted))
+            if finished:
+                self._free_slot(slot)
+                continue
+            # the slot consumed window[:a+1]; its next input is the last
+            # emitted token, the target's own
+            n_cons = a + 1
+            self.draft.commit(slot, np.asarray(emitted, np.int32))
+            self._tok[slot] = emitted[-1]
+            if a < w:
+                rewinds.append((slot, n_cons))
+            self._pos[slot] += n_cons
+
+        if rewinds:
+            wr = max(n for _, n in rewinds)
+            tokens = np.zeros((self.n_slots, wr), np.int64)
+            lens = np.zeros((self.n_slots,), np.int32)
+            for slot, n_cons in rewinds:
+                be.restore_state_rows(self.state, pre[slot], slot)
+                tokens[slot, :n_cons] = window[slot, :n_cons]
+                lens[slot] = n_cons
+            self._miss("window_varlen", wr)
+            be.decode_window_varlen(
+                self.params, self.state, torch.from_numpy(tokens).to(dev),
+                torch.from_numpy(pos_pre).to(dev),
+                torch.from_numpy(lens).to(dev), last_only=True)
+            self.stats.spec_rewinds += len(rewinds)
+            self.stats.spec_rewind_rounds += 1
+            self.stats.spec_rewind_dispatches += 1
+
+        self._clock += max_emitted
+
+    # ------------------------------------------------------------------
+    # driving
+    # ------------------------------------------------------------------
 
     def step(self, policy: str = "continuous") -> bool:
-        """One scheduling iteration: an admission pass, one continuation
-        chunk (if a slot is mid-prompt), one segment over the active
-        slots. Returns whether work remains; False at once when idle."""
+        """One scheduling iteration: the lifecycle pass (cancels,
+        deadlines, degradation), the admission pass (preempt, resume,
+        admit), one continuation chunk (if a slot is mid-prompt), one
+        segment over the plain slots and one round over the speculative
+        ones, each followed by the boundary's probe. Returns whether
+        work remains; False at once when idle."""
         if policy not in POLICIES:
             raise ValueError(f"policy must be one of {POLICIES}, got "
                              f"{policy!r}")
         if not self.has_work():
             return False
+        self._lifecycle_pass()
         self._admit_pass(policy)
         if self._any_ingesting():
             self._ingest_step()
         if not self._active.any():
-            if not self._any_ingesting() and self._queue:
+            if self._any_ingesting():
+                return self.has_work()
+            if self._quarantined.all() and (self._queue or self._suspended):
+                self._fail_all_pending()
+                return self.has_work()
+            if self._work_waiting():
+                # work waits but nothing was admitted (a dropped wave, or
+                # every free slot quarantined): stall a segment
+                self._clock += self.segment_len
+                return self.has_work()
+            if self._queue:
                 # the queue head is in the future: move the clock to it,
                 # in whole segments
                 ahead = self._queue[0].arrival - self._clock
                 skip = max(1, -int(-ahead // self.segment_len))
                 self._clock += skip * self.segment_len
             return self.has_work()
-        self.step_segment()
+        if (self._active & (self._spec_k == 0)).any():
+            self.step_segment()
+            self._post_event()
+        if (self._active & (self._spec_k > 0)).any():
+            self.step_spec_round()
+            self._post_event()
         return self.has_work()
 
     def run(self, policy: str = "continuous") -> List[Completion]:
-        """Drive every queued request to completion; completions in uid
-        order."""
+        """Drive every request to completion; completions in uid order."""
         while self.step(policy):
             pass
         return self.completions()

@@ -1999,3 +1999,93 @@ def test_qa_step_on_the_card_matches_the_cpu(dev, att):
         if big.any():
             assert (p_k - p_c)[big].abs().max() <= \
                 1e-4 * p_c[big].abs().max()
+
+
+# -- speculative decoding: the masked verify window and the rewind ----------
+
+@pytest.mark.parametrize("backend", ["linear", "gated_linear"])
+def test_spec_verify_window_masks_rows_and_rewind_matches_steps(dev,
+                                                                backend):
+    """Smoke config in fp32 on the card: the verify's masked window (lens
+    = K+1 on the speculating row, 0 on the others) launches B1/B7 once per
+    layer and leaves the other rows' state bit for bit; the row's
+    pre-round copy (``snapshot_state_rows``, no KV rows) restored and a
+    varlen window of its first 3 tokens equals 3 single-token steps from
+    the same start."""
+    kernel = {"linear": ops.decode_linear,
+              "gated_linear": ops.decode_gated}[backend]
+    cfg = dataclasses.replace(
+        get_smoke_config("qwen3-0.6b").with_backend(backend), dtype="float32")
+    params = lm.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    g = torch.Generator(device=dev).manual_seed(2)
+    prompt = torch.randint(0, cfg.vocab_size, (3, 9), device=dev, generator=g)
+    window = torch.randint(0, cfg.vocab_size, (3, 7), device=dev, generator=g)
+    _, state = lm.prefill(params, prompt, cfg)
+    others = [lm.snapshot_state(state, s) for s in (0, 2)]
+    pre = lm.snapshot_state_rows(state, 1, 0)
+    seq = lm.snapshot_state(state, 1)
+    pos = torch.full((3,), 9, dtype=torch.int32, device=dev)
+    before = kernel.launches
+    lm.decode_window_varlen(params, state, window, pos,
+                            torch.tensor([0, 7, 0], device=dev), cfg)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + cfg.n_layers
+    for slot, snap in zip((0, 2), others):
+        for a, b in zip(lm._slot_leaves(lm.snapshot_state(state, slot)),
+                        lm._slot_leaves(snap)):
+            assert torch.equal(a[0], b[0]), slot
+    lm.restore_state_rows(state, pre, 1)
+    lm.decode_window_varlen(params, state, window, pos,
+                            torch.tensor([0, 3, 0], device=dev), cfg,
+                            last_only=True)
+    for i in range(3):
+        lm.decode_step(params, seq, window[1:2, i], pos[:1] + i, cfg)
+    for a, b in zip(lm._slot_leaves(lm.snapshot_state(state, 1)),
+                    lm._slot_leaves(seq)):
+        torch.testing.assert_close(a[0], b[0], rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("backend", ["linear", "gated_linear", "softmax"])
+def test_spec_engine_through_kernels_matches_reference_engine(dev, backend):
+    """DecodeEngine with speculative (K = 4, an n-gram draft) and plain
+    requests at the smoke size, fp32: through B1/B7 (the verify and the
+    batched rewind; B10 in admission under softmax) against the same
+    engine under decode_kernel="reference": completions and stats
+    identical and equal to plain greedy's, one rewind pass a rewinding
+    round, the kernel launched as ``stream_launches`` counts."""
+    from repro_torch.launch import serve
+    from repro_torch.serving import DecodeEngine, NgramDraft
+    name, kernel = serve.STREAM_KERNELS[backend]
+    cfg = dataclasses.replace(
+        get_smoke_config("qwen3-0.6b").with_backend(backend), dtype="float32")
+    params = lm.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+               for n in (6, 20, 9, 1, 33)]
+    gens = (20, 13, 16, 9, 18)
+    runs = {}
+    for route in ("auto", "reference"):
+        eng = DecodeEngine(params, dataclasses.replace(cfg,
+                                                       decode_kernel=route),
+                           n_slots=3, segment_len=4, max_len=64,
+                           prefill_chunk=16, draft=NgramDraft())
+        out = []
+        for k in (0, 4):
+            eng.reset()
+            for i, (p, g) in enumerate(zip(prompts, gens)):
+                eng.submit(p, g, speculate_k=k if i % 4 else 0)
+            before = kernel.launches
+            comps = eng.run()
+            out.append((comps, eng.stats.to_dict(), kernel.launches - before))
+        runs[route] = out
+    (plain, _, _), (spec, st, n) = runs["auto"]
+    _, (ref, ref_st, n_ref) = runs["reference"]
+    assert st == ref_st and n_ref == 0
+    assert st["spec_rounds"] and st["spec_rewind_dispatches"] == \
+        st["spec_rewind_rounds"]
+    assert n == serve.stream_launches(cfg, st, "recurrent", "batched", 1)
+    for a, b, p in zip(spec, ref, plain):
+        assert (a.uid, a.admitted_step, a.finished_step) == (
+            b.uid, b.admitted_step, b.finished_step)
+        np.testing.assert_array_equal(a.tokens, b.tokens)
+        np.testing.assert_array_equal(a.tokens, p.tokens)
