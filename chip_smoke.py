@@ -350,10 +350,27 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    (rewinds, no token moves), cancels, a deadline, both shed policies
    and a degradation flip: every request's tokens the clean run's, the
    counts exact, launches exactly ``stream_launches`` a run.
+44. The prefix cache main path: the engine on the full 28-layer
+   qwen3-0.6b in fp32, linear and softmax, 8 slots, segments of 8,
+   chunks of 64, 16 requests at step 0 of one seeded 192-token prefix
+   and a 64-token suffix each, 16 tokens each: off (no cache), cold (an
+   empty 1 GiB cache), warm (``reset``: the cache survives) and, under
+   linear, reloaded (``save_cache``, a fresh engine, ``load_cache``):
+   every request's tokens the same in every run, the counts exactly the
+   CPU dry run's (cold 8 misses and 8 hits of 192 tokens, warm 16 hits,
+   no insert, no eviction, no B10 launch and no varlen prefill; softmax
+   copies 24 and 48 blocks), launches exactly ``stream_launches`` a run,
+   every paged block's refcount 0 and every entry bit for bit after each
+   run; the cache's bytes for the prefix flat under linear (one entry)
+   and one block per 64 tokens under softmax; each run's seconds and
+   tokens/s. Then ``serve --mode stream --prefix-cache on --fork 3
+   --slots 8 --n-requests 8 --prompt-len 256 --gen-len 16``: 24
+   completions off 8 prefills and 16 forks, each member's tokens its
+   primary's.
 
 Each main path (phases 4, 6, 8, 10, 12, 14, 16, 18, 19, 21, 22's
-``launch/train.py`` run, 24, 26, 27, 29, 31, 32, 34, 35, 37, 38, 40, 42
-and 43) is driven with
+``launch/train.py`` run, 24, 26, 27, 29, 31, 32, 34, 35, 37, 38, 40, 42,
+43 and 44) is driven with
 every kernel's launch count set to 0 just before it and read just after.
 
 The last line is {"ok": true, "device": {...}}; the line before it the
@@ -5779,6 +5796,263 @@ def lifecycle_main_path(backend, dev, phase) -> dict:
     return {"name": name, "launches": total["launches"], "runs": total}
 
 
+# phase 44: 16 requests of a 192-token shared prefix and a 64-token suffix
+# each, 16 tokens each, 8 slots, segments of 8, chunks of 64
+PREFIX_SHARED, PREFIX_SUFFIX, PREFIX_REQUESTS, PREFIX_GEN = 192, 64, 16, 16
+PREFIX_CHUNK = 64
+# the counts of each run, the CPU dry run's (``prefix_cache_runs`` on the
+# smoke widths: the scheduler's counts do not depend on the widths), and
+# the cache's counter deltas over the run
+PREFIX_EXPECT = {
+    "off": dict(cache_hits=0, cache_misses=0, cached_prefix_tokens=0,
+                prefills=16, prefill_dispatches=2, ingest_chunks=6,
+                segments=4),
+    "cold": dict(cache_hits=8, cache_misses=8, cached_prefix_tokens=1536,
+                 prefills=8, prefill_dispatches=1, ingest_chunks=4,
+                 segments=4, inserts=19, evictions=0),
+    "warm": dict(cache_hits=16, cache_misses=0, cached_prefix_tokens=3072,
+                 prefills=0, prefill_dispatches=0, ingest_chunks=2,
+                 segments=4, inserts=0, evictions=0),
+}
+PREFIX_COW = {"cold": 24, "warm": 48}
+# the cache's bytes for the shared prefix at qwen3-0.6b's full widths,
+# fp32: one linear entry (28 layers of 16 heads' 128 x 128 s and 128 z),
+# one softmax block (28 layers of 64 rows of K and V, 8 kv heads of 128)
+PREFIX_LINEAR_BYTES = 28 * 16 * (128 * 128 + 128) * 4
+PREFIX_BLOCK_BYTES = 28 * 2 * 64 * 8 * 128 * 4
+
+
+def prefix_cache_prompts(vocab, seed=0):
+    """One seeded shared prefix and a unique suffix per request."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    shared = rng.integers(0, vocab, size=PREFIX_SHARED)
+    return [np.concatenate([shared, rng.integers(
+        0, vocab, size=PREFIX_SUFFIX)]).astype(np.int32)
+        for _ in range(PREFIX_REQUESTS)]
+
+
+def cache_tensors(cache) -> dict:
+    """Every tensor the cache holds, by entry or block digest."""
+    from repro_torch.tree import leaves
+    if hasattr(cache, "_entries"):
+        return {k: leaves(e["state"]) for k, e in cache._entries.items()}
+    return {k: leaves(b.payload) for k, b in cache._blocks.items()}
+
+
+def same_tensors(a: dict, b: dict) -> bool:
+    """Every entry of ``a`` in ``b``, bit for bit."""
+    import torch
+    return all(k in b and len(a[k]) == len(b[k]) and all(
+        torch.equal(x, y) for x, y in zip(a[k], b[k])) for k in a)
+
+
+def prefix_cache_runs(cfg, params, dev, save_dir=None) -> dict:
+    """Phase 44's runs on one engine config: ``off`` (no cache), ``cold``
+    (an empty cache, 1 GiB), ``warm`` (``reset``: the cache survives) and,
+    given ``save_dir``, ``reloaded`` (``save_cache``, a fresh engine,
+    ``load_cache``, the warm run). Each run: completions, stats, the
+    cache's counter deltas, launches, seconds and tokens/s; after each,
+    every paged block's refcount must be 0 and the entries held before
+    the run bit for bit unchanged. Also the cache's bytes for the shared
+    prefix at 64, 128 and 192 tokens."""
+    import torch
+    from repro_torch.serving import DecodeEngine
+    prompts = prefix_cache_prompts(cfg.vocab_size)
+    kw = dict(n_slots=8, segment_len=8, prefill_chunk=PREFIX_CHUNK,
+              max_len=PREFIX_SHARED + PREFIX_SUFFIX + PREFIX_GEN + 8)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    out = {}
+
+    def run(label, eng):
+        before = ({} if eng.cache is None else
+                  {k: [t.clone() for t in ts]
+                   for k, ts in cache_tensors(eng.cache).items()})
+        c0 = eng.cache.counters() if eng.cache is not None else None
+        eng.reset()
+        for p in prompts:
+            eng.submit(p, PREFIX_GEN)
+        reset_launches()
+        t0 = time.perf_counter()
+        comps = eng.run()
+        sync()
+        dt = time.perf_counter() - t0
+        rec = {"completions": comps, "stats": eng.stats.to_dict(),
+               "launches": read_launches(), "seconds": dt,
+               "tok_s": sum(len(c.tokens) for c in comps) / dt}
+        if eng.cache is not None:
+            c1 = eng.cache.counters()
+            rec["cache"] = {k: c1[k] - c0[k] for k in c1}
+            rec["cache"]["bytes_used"] = c1["bytes_used"]
+            if not same_tensors(before, cache_tensors(eng.cache)):
+                raise AssertionError(f"{label}: a cache entry changed")
+            if any(b.refcount for b in getattr(eng.cache, "_blocks",
+                                               {}).values()):
+                raise AssertionError(f"{label}: a paged block still pinned")
+            if any(h is not None for h in eng._cache_hold):
+                raise AssertionError(f"{label}: a slot still holds a pin")
+        out[label] = rec
+        return eng
+
+    off = DecodeEngine(params, cfg, **kw)
+    # untimed: a wave, a continuation chunk and a segment, so no first
+    # use lands in the timed runs
+    off.submit(prompts[0][:PREFIX_CHUNK + 1], 2)
+    off.run()
+    run("off", off)
+    eng = run("cold", DecodeEngine(params, cfg, prefix_cache=True,
+                                   cache_bytes=1 << 30, **kw))
+    run("warm", eng)
+    out["prefix_nbytes"] = {n: eng.cache.prefix_nbytes(prompts[0], n)
+                            for n in (64, 128, 192)}
+    out["entries"] = len(eng.cache)
+    if save_dir is not None:
+        eng.save_cache(str(save_dir))
+        fresh = DecodeEngine(params, cfg, prefix_cache=True,
+                             cache_bytes=1 << 30, **kw)
+        if not fresh.load_cache(str(save_dir)):
+            raise AssertionError("load_cache found nothing")
+        saved, loaded = cache_tensors(eng.cache), cache_tensors(fresh.cache)
+        if len(saved) != len(loaded) or not same_tensors(saved, loaded):
+            raise AssertionError("the reloaded cache differs from the saved")
+        del eng
+        run("reloaded", fresh)
+    out["prompts"] = prompts
+    return out
+
+
+def prefix_cache_main_path(backend, dev, phase) -> dict:
+    """Phase 44: the engine's prefix cache on the full 28-layer qwen3-0.6b
+    in fp32 (random weights from seed 0), 8 slots, segments of 8, chunks
+    of 64, 16 requests at step 0 of one seeded 192-token prefix and a
+    64-token suffix each, 16 tokens each: ``prefix_cache_runs`` (off,
+    cold, warm and, under linear, reloaded through a directory under
+    ``build/``, removed at the end). Every request's tokens equal across
+    the runs (else the top-2 margin where they part), the counts exactly
+    ``PREFIX_EXPECT``'s, the launches ``stream_launches`` a run and no
+    B10 launch or varlen prefill in a warm run; the cache's bytes for
+    the shared prefix flat under linear and growing with it under
+    softmax. Every kernel's count set to 0 before each run and read
+    after. Returns the backend kernel's launches and the numbers."""
+    import shutil
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    name = serve.STREAM_KERNELS[backend][0]
+    cfg = full_width("qwen3-0.6b", backend, 28)
+    params = lm.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    save_dir = ROOT / "build" / "chip_smoke_prefix_cache"
+    shutil.rmtree(save_dir, ignore_errors=True)
+    try:
+        out = prefix_cache_runs(cfg, params, dev,
+                                save_dir if backend == "linear" else None)
+    finally:
+        shutil.rmtree(save_dir, ignore_errors=True)
+    labels = [k for k in ("off", "cold", "warm", "reloaded") if k in out]
+    ref = out["off"]["completions"]
+    total, rec = 0, {}
+    for label in labels:
+        r = out[label]
+        st = r["stats"]
+        for c, c_ref in zip(r["completions"], ref):
+            got, want = c.tokens.tolist(), c_ref.tokens.tolist()
+            if got != want:
+                i = next((j for j, (a, b) in enumerate(zip(got, want))
+                          if a != b), min(len(got), len(want)))
+                margin = serve._top2_margin(params, cfg,
+                                            out["prompts"][c.uid],
+                                            c_ref.tokens, i)
+                raise AssertionError(
+                    f"phase {phase}: {backend} {label}: request {c.uid} "
+                    f"parts from the uncached run at token {i} (top-2 "
+                    f"margin {margin:.3g}): {got} against {want}")
+        expect = PREFIX_EXPECT["warm" if label == "reloaded" else label]
+        got = {k: (r["cache"][k] if k in ("inserts", "evictions")
+                   else st[k]) for k in expect}
+        if got != expect:
+            raise AssertionError(f"phase {phase}: {backend} {label}: counts "
+                                 f"{got}, want {expect}")
+        if backend == "softmax" and label in PREFIX_COW and \
+                r["cache"]["cow_copies"] != PREFIX_COW[label]:
+            raise AssertionError(f"phase {phase}: {label}: cow_copies "
+                                 f"{r['cache']['cow_copies']}")
+        want = serve.stream_launches(cfg, st, "recurrent", "batched")
+        launches = r["launches"]
+        others = {k: n for k, n in launches.items() if k != name and n}
+        if launches[name] != want or others:
+            raise AssertionError(f"phase {phase}: {backend} {label}: {name} "
+                                 f"launched {launches[name]} times, want "
+                                 f"{want}; others {others}")
+        if label in ("warm", "reloaded") and (
+                launches["flash_attention_fwd"] or st["prefill_dispatches"]):
+            raise AssertionError(f"phase {phase}: {label}: a prefill ran")
+        total += launches[name]
+        rec[label] = {"seconds": round(r["seconds"], 3),
+                      "tok_s": round(r["tok_s"], 1),
+                      "launches": launches[name],
+                      "cache_hits": st["cache_hits"],
+                      "cached_prefix_tokens": st["cached_prefix_tokens"]}
+        if "cache" in r:
+            rec[label]["cache"] = r["cache"]
+    nb = out["prefix_nbytes"]
+    if backend == "linear":
+        ok = nb[64] == nb[128] == nb[192] == PREFIX_LINEAR_BYTES
+    else:
+        ok = (nb[64], nb[128], nb[192]) == tuple(
+            k * PREFIX_BLOCK_BYTES for k in (1, 2, 3))
+    if not ok:
+        raise AssertionError(f"phase {phase}: {backend} prefix_nbytes {nb}")
+    rec["prefix_nbytes"] = nb
+    rec["entries"] = out["entries"]
+    print(f"phase {phase}: qwen3-0.6b {backend} prefix cache, 28 layers "
+          f"fp32, 8 slots, 16 requests of 192 shared + 64 own tokens: "
+          f"{', '.join(labels)} give every request the same tokens; counts "
+          f"as the CPU dry run's; {name} {total} launches, each run's "
+          f"exactly stream_launches; refcounts 0, entries unchanged; "
+          f"{json.dumps(rec)}")
+    del out, params
+    torch.cuda.empty_cache()
+    return {"name": name, "launches": total, "runs": rec}
+
+
+def prefix_fork_cli(dev, phase) -> dict:
+    """Phase 44's CLI run: ``serve --mode stream --prefix-cache on --fork 3
+    --slots 8 --n-requests 8 --prompt-len 256 --gen-len 16`` (linear,
+    bf16): 24 completions, 8 prefills and 16 forks, each member's tokens
+    its primary's, the launches ``stream_launches``."""
+    import torch
+    from repro_torch.launch import serve
+    args = serve.parse_args(
+        ["--mode", "stream", "--prefix-cache", "on", "--fork", "3",
+         "--slots", "8", "--n-requests", "8", "--prompt-len", "256",
+         "--gen-len", "16"])
+    reset_launches()
+    res = serve.stream(args)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    st, comps = res["stats"], res["completions"]
+    by = {c.uid: c.tokens.tolist() for c in comps}
+    same = all(by[u] == by[u - u % 3] for u in by)
+    want = res["want_launches"] + res["warmup_launches"]
+    if len(comps) != 24 or (st["prefills"], st["forks"]) != (8, 16) or \
+            not same or res["decode_launches"] != res["want_launches"] or \
+            launches["decode_linear"] != want:
+        raise AssertionError(
+            f"phase {phase}: fork CLI: {len(comps)} completions, prefills "
+            f"{st['prefills']}, forks {st['forks']}, members equal {same}, "
+            f"decode_linear {launches['decode_linear']} (want {want})")
+    rec = {"tok_s": round(res["tokens_per_s"], 1),
+           "seconds": round(res["seconds"], 3),
+           "launches": launches["decode_linear"]}
+    print(f"phase {phase}: serve --mode stream --prefix-cache on --fork 3: "
+          f"24 completions off 8 prefills, 16 forks, every member's tokens "
+          f"its primary's; {json.dumps(rec)}")
+    del res
+    torch.cuda.empty_cache()
+    return {"name": "decode_linear", "launches": launches["decode_linear"],
+            "rec": rec}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6379,6 +6653,13 @@ def main() -> int:
                  for backend in ("linear", "softmax")]
     done(43, t0)
 
+    # -- 44. the prefix cache and fork at full depth, fp32; the fork CLI ----
+    t0 = time.perf_counter()
+    prefix_runs = [prefix_cache_main_path(backend, dev, 44)
+                   for backend in ("linear", "softmax")]
+    prefix_runs.append(prefix_fork_cli(dev, 44))
+    done(44, t0)
+
     for r in records:
         r["max_abs_err"] = errs[r["name"]]
         if r["name"] in stream:   # B1/B7: generate, stream; B10: and train
@@ -6437,6 +6718,10 @@ def main() -> int:
         path["spec"] = path.get("spec", 0) + run["launches"]
     for run in life_runs:
         more.setdefault(run["name"], {})["lifecycle"] = run["launches"]
+    # phase 44
+    for run in prefix_runs:
+        path = more.setdefault(run["name"], {})
+        path["prefix_cache"] = path.get("prefix_cache", 0) + run["launches"]
     dense_times["gated_linear_attention_fwd"].append(rwkv_fwd_shape)
     for r in records:
         if r["name"] in more:

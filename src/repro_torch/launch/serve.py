@@ -45,7 +45,14 @@ prefill launches the causal flash-attention kernel (B10) once per
 layer, decode and ingest chunks read and write the caches in plain
 PyTorch (a chunk as single-token steps). It serves the dense and MoE
 configs; a config with cross blocks is refused (ValueError), since the
-engine has no path for a memory, as JAX's has none.
+engine has no path for a memory, as JAX's has none. ``--prefix-cache
+auto|on`` (JAX's flags, with ``--cache-bytes``) turns on the engine's
+prefix cache: a prompt whose chunk-aligned prefix is cached admits as
+one state copy plus its suffix's continuation chunks (the linear family
+keeps one fixed-size state a prefix, softmax refcounted KV blocks);
+``on`` raises where the backend cannot cache (per-request admission:
+rwkv6-1.6b, zamba2-7b). ``--fork N`` submits each prompt for N
+continuations encoded once (N completions a request).
 
 ``--mode spec``: speculative decoding against plain continuous
 batching on one workload, in fp32 (JAX's ``spec``): every request
@@ -111,6 +118,12 @@ passes of ``--n-queries`` single-query requests in waves of
       --arch rwkv6-1.6b --smoke --device cpu --slots 4 --n-requests 16
   PYTHONPATH=src python -m repro_torch.launch.serve --mode stream \\
       --arch zamba2-7b --smoke --device cpu --slots 4 --n-requests 16
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode stream \\
+      --prefix-cache on --fork 3 --slots 8 --n-requests 8 \\
+      --prompt-len 256 --gen-len 16
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode stream \\
+      --smoke --device cpu --prefix-cache on --fork 3 --slots 4 \\
+      --n-requests 4 --prompt-len 40 --gen-len 8 --prefill-chunk 16
   PYTHONPATH=src python -m repro_torch.launch.serve --mode spec \\
       --arch qwen3-0.6b --slots 8 --n-requests 16 --prompt-len 128 \\
       --gen-len 64 --speculate-k 6 --draft ngram
@@ -374,6 +387,7 @@ def ssd_stream_launches(cfg: ModelConfig, stats: Dict[str, Any]) -> int:
     return layer_counts(cfg)["mamba"] * stats["prefills"]
 
 
+PREFIX_CACHE = {"off": None, "auto": "auto", "on": True}
 STREAM_KERNELS = {"linear": ("decode_linear", FR.decode_linear),
                   "gated_linear": ("decode_gated", FR.decode_gated),
                   "softmax": ("flash_attention_fwd", FA.fwd),
@@ -409,7 +423,9 @@ def stream(args) -> Dict[str, Any]:
         admission=args.admission, prefill_chunk=args.prefill_chunk,
         ingest=args.ingest, max_queue=args.max_queue,
         shed_policy=args.shed_policy,
-        degrade_threshold=args.degrade_threshold)
+        degrade_threshold=args.degrade_threshold,
+        prefix_cache=PREFIX_CACHE[args.prefix_cache],
+        cache_bytes=args.cache_bytes)
     rng = np.random.default_rng(args.seed)
     requests = make_request_mix(rng, args.n_requests, args.prompt_len,
                                 args.gen_len, cfg.vocab_size,
@@ -423,10 +439,14 @@ def stream(args) -> Dict[str, Any]:
     _sync(device)
     warmup_stats = engine.stats.to_dict()
     warmup_ones = int(len(requests[0][0]) == 1)
+    if engine.cache is not None:
+        # the warm-up's entries would make the timed run's first
+        # admission a hit: the timed run starts cold, as JAX's does
+        engine.cache.clear()
     engine.reset()
 
     for prompt, g, arrival in requests:
-        engine.submit(prompt, g, arrival=arrival)
+        engine.submit(prompt, g, arrival=arrival, fork=args.fork)
     launches0, ssd0 = kernel.launches, GL.fwd.launches
     t0 = time.perf_counter()
     while engine.has_work():
@@ -436,9 +456,9 @@ def stream(args) -> Dict[str, Any]:
     launches = kernel.launches - launches0
     ssd_launches = GL.fwd.launches - ssd0
     completions = engine.completions()
-    if len(completions) != args.n_requests:
+    if len(completions) != args.n_requests * args.fork:
         raise RuntimeError(f"{len(completions)} completions for "
-                           f"{args.n_requests} requests")
+                           f"{args.n_requests} requests x fork {args.fork}")
 
     st = engine.stats
     total = sum(len(c.tokens) for c in completions)
@@ -489,6 +509,13 @@ def stream(args) -> Dict[str, Any]:
           f"{st.ingest_chunks} ingest chunks "
           f"(interleave {st.interleave_ratio:.2f}), "
           f"{st.prefill_jit_misses} admission jit misses")
+    if engine.cache is not None:
+        c = engine.cache.counters()
+        print(f"prefix cache ({engine.cache.name}): "
+              f"hits={st.cache_hits} misses={st.cache_misses} "
+              f"cached_prefix_tokens={st.cached_prefix_tokens} "
+              f"forks={st.forks} evictions={st.cache_evictions} "
+              f"bytes={c['bytes_used']}/{engine.cache.max_bytes}")
     formula = ("layers x prefills" if rwkv or (
                    softmax and engine.admission == "per_request")
                else "layers x (admission waves + 1-token prefills)"
@@ -869,6 +896,21 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                     help="continuation chunks through the recurrent decode"
                          " kernel with per-row lengths (recurrent; auto) "
                          "or the plain chunked prefill forms (parallel)")
+    ap.add_argument("--prefix-cache", default="off",
+                    choices=list(PREFIX_CACHE),
+                    help="stream mode: the content-hash prefix cache; a "
+                         "cached prompt prefix admits as one state copy "
+                         "plus its suffix's ingest (fixed-size states) or "
+                         "reuses refcounted KV blocks (softmax); 'on' "
+                         "raises where the backend cannot cache, 'auto' "
+                         "turns it off there")
+    ap.add_argument("--cache-bytes", type=int, default=64 << 20,
+                    help="stream mode: the prefix cache's byte budget (LRU "
+                         "eviction)")
+    ap.add_argument("--fork", type=int, default=1, metavar="N",
+                    help="stream mode: n-best, each prompt encoded once "
+                         "and forked into N continuations (uids "
+                         "uid..uid+N-1)")
     ap.add_argument("--degrade-threshold", type=float, default=None,
                     help="stream mode: waiting requests per slot beyond "
                          "which the engine degrades (speculation off, "

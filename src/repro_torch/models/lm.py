@@ -554,19 +554,28 @@ def _kv_flags(state: State):
                     yield kv and f in ("k_cache", "v_cache")
 
 
+def state_rows_view(state: State, slot: int, n_rows: int) -> State:
+    """The batch-1 view of slot ``slot`` that :func:`snapshot_state_rows`
+    copies: each softmax KV cache cut to its first ``n_rows`` rows, every
+    other leaf whole. Nothing is copied (the shapes, dtypes and devices of
+    a snapshot, e.g. a template to load snapshots onto)."""
+    def read(x, axis, kv):
+        x = x.narrow(axis, int(slot), 1)
+        t = x.ndim - 3
+        if kv and n_rows < x.shape[t]:
+            x = x.narrow(t, 0, int(n_rows))
+        return x
+    return _map_slots_kv(read, state)
+
+
 def snapshot_state_rows(state: State, slot: int, n_rows: int) -> State:
     """:func:`snapshot_state`, but each softmax KV cache keeps only its
     first ``n_rows`` rows (0 allowed), an O(n_rows·k) copy per layer;
     ``n_rows`` must be at least the slot's position for a snapshot that
     resumes. Every other leaf (the fixed-size states) is copied whole:
     for them this is :func:`snapshot_state`."""
-    def read(x, axis, kv):
-        x = x.narrow(axis, int(slot), 1)
-        t = x.ndim - 3
-        if kv and n_rows < x.shape[t]:
-            x = x.narrow(t, 0, int(n_rows))
-        return x.clone()
-    return _map_slots_kv(read, state)
+    return _map_slots(lambda x, axis: x.clone(),
+                      state_rows_view(state, slot, n_rows))
 
 
 def restore_state_rows(engine_state: State, snapshot: State,

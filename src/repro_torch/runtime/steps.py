@@ -1,4 +1,4 @@
-"""Train, eval and prefill step builders (port of
+"""Train, eval, prefill and decode step builders (port of
 ``repro/runtime/steps.py``).
 
 PyTorch runs eagerly, so a step is a plain function: no jit and no
@@ -83,4 +83,16 @@ def make_eval_step(cfg: ModelConfig, *,
         metrics = dict(metrics)
         metrics["loss"] = loss
         return metrics
+    return step
+
+
+def make_decode_step(cfg: ModelConfig) -> Callable:
+    """(params, state, token, pos) → (logits (B, V), state): one
+    autoregressive step without gradients, the state updated in place
+    (``lm.decode_step``, the call behind ``DecodeBackend.decode_step``:
+    the decode kernel, B1 or B7, once per attention layer on CUDA
+    tensors under the linear family)."""
+    @torch.no_grad()
+    def step(params, state, token, pos):
+        return lm.decode_step(params, state, token, pos, cfg)
     return step

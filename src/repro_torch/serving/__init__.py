@@ -1,7 +1,8 @@
 """Serving engines of the port: ``DecodeEngine``, continuous batching
-over fixed decode-state slots with its request lifecycle and speculative
-rounds (``engine.py``, ``lifecycle.py``, ``speculative.py``, through the
-backends of ``backends/``), and ``LookupEngine``, the paper's
+over fixed decode-state slots with its request lifecycle, speculative
+rounds, prefix cache and fork (``engine.py``, ``lifecycle.py``,
+``speculative.py``, ``prefix_cache.py``, through the backends of
+``backends/``), and ``LookupEngine``, the paper's
 encode-once / look-up-many memory serving (``lookup_engine.py``)."""
 
 from repro_torch.serving.backends import (  # noqa: F401
@@ -11,6 +12,8 @@ from repro_torch.serving.backends import (  # noqa: F401
     RWKV6Backend,
     SoftmaxKVBackend,
     backend_for_config,
+    get_backend_cls,
+    list_backends,
     register_backend,
 )
 from repro_torch.serving.engine import (  # noqa: F401

@@ -9,16 +9,22 @@ family:
   ``generate_segment``, ``sample_token``, ``snapshot_state`` /
   ``restore_state`` / ``write_slot_state``, ``where_state``, the
   row-ranged ``snapshot_state_rows`` / ``restore_state_rows`` /
-  ``where_state_rows`` and ``slot_state_finite`` — all of them
+  ``where_state_rows``, ``state_rows_view``, ``slot_state_finite``,
+  ``decode_step`` and ``pad_decode_state`` — all of them
   ``models/lm.py``'s, which update states in place (the surface of the
-  engine, its lifecycle and ``serving/speculative.py``);
+  engine, its lifecycle, its prefix cache and ``serving/speculative.py``);
 * **capability flags** — ``fixed_size_state`` (admission, preemption
   and a speculative rewind move O(k²) bytes, never a KV history),
   ``supports_varlen_prefill`` (bucket-padded batched admission),
   ``supports_spec`` (draft/verify windows and rewind; every family, as
-  in JAX), and ``state_bytes_per_slot(max_len)``, read from the shapes
-  of a state built on the ``meta`` device (nothing is allocated; JAX
-  uses ``eval_shape``).
+  in JAX), ``supports_prefix_cache`` (equal to
+  ``supports_varlen_prefill``: a hit must leave the suffix on the chunk
+  grid of batched admission), and ``state_bytes_per_slot(max_len)``,
+  read from the shapes of a state built on the ``meta`` device (nothing
+  is allocated; JAX uses ``eval_shape``);
+* **the prefix cache** — ``make_prefix_cache``: the paper's
+  hash → fixed-size-state table here, paged refcounted KV blocks for the
+  softmax baseline (``softmax_kv.py``).
 
 No backend takes a config with ``cross`` blocks: they attend to an
 encoded memory that the engine has no path to pass (JAX's admission
@@ -28,12 +34,12 @@ construction raises a ValueError that names it.
 ``resolve_modes`` is the one place the engine's ``admission`` and
 ``ingest`` "auto" settings are decided. ``backend_for_config`` walks the
 registry by priority; the first backend whose ``handles(cfg)`` is True
-wins.
+wins; ``list_backends`` and ``get_backend_cls`` read the registry.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple, Type
+from typing import Any, Dict, List, Optional, Tuple, Type
 
 import torch
 
@@ -73,6 +79,9 @@ class DecodeBackend:
         self.fixed_size_state = cfg.fixed_state_decode
         self.supports_varlen_prefill = lm.supports_varlen_prefill(cfg)
         self.supports_spec = True
+        # a cache hit must leave the suffix on the chunk grid a cold
+        # batched admission uses, so the capability follows varlen prefill
+        self.supports_prefix_cache = self.supports_varlen_prefill
         self._validate(cfg)
 
     # -- registry hooks ------------------------------------------------
@@ -136,6 +145,10 @@ class DecodeBackend:
     def prefill_varlen(self, params, tokens, lens):
         return lm.prefill_varlen(params, tokens, lens, self.cfg)
 
+    def decode_step(self, params, state, token, pos, *, active=None):
+        return lm.decode_step(params, state, token, pos, self.cfg,
+                              active=active)
+
     def decode_window(self, params, state, tokens, pos0):
         return lm.decode_window(params, state, tokens, pos0, self.cfg)
 
@@ -161,6 +174,9 @@ class DecodeBackend:
     def sample_token(self, logits, temperature, generator=None):
         return lm.sample_token(logits, temperature, generator)
 
+    def pad_decode_state(self, state, *, max_len: int):
+        return lm.pad_decode_state(state, self.cfg, max_len)
+
     def snapshot_state(self, state, slot):
         return lm.snapshot_state(state, slot)
 
@@ -182,8 +198,27 @@ class DecodeBackend:
     def where_state_rows(self, active, new, old, start, width: int):
         return lm.where_state_rows(active, new, old, start, width)
 
+    def state_rows_view(self, state, slot, n_rows: int):
+        return lm.state_rows_view(state, slot, n_rows)
+
     def slot_state_finite(self, state):
         return lm.slot_state_finite(state)
+
+    # -- prefix caching ------------------------------------------------
+
+    def _check_prefix_cache(self) -> None:
+        if not self.supports_prefix_cache:
+            raise ValueError(
+                f"backend {self.name!r} does not support prefix caching "
+                f"(missing capability supports_prefix_cache)")
+
+    def make_prefix_cache(self, max_bytes: int, chunk: int):
+        """This family's prefix cache: a hash → fixed-size-state table
+        (the softmax baseline overrides it with paged KV blocks). Raises
+        ValueError when the backend lacks the capability."""
+        from repro_torch.serving.prefix_cache import FixedStatePrefixCache
+        self._check_prefix_cache()
+        return FixedStatePrefixCache(max_bytes=max_bytes, chunk=chunk)
 
 
 # ---------------------------------------------------------------------------
@@ -201,6 +236,17 @@ def register_backend(cls: Type[DecodeBackend]) -> Type[DecodeBackend]:
         raise ValueError(f"duplicate backend {cls.name!r}")
     _BACKENDS[cls.name] = cls
     return cls
+
+
+def list_backends() -> List[str]:
+    return list(_BACKENDS)
+
+
+def get_backend_cls(name: str) -> Type[DecodeBackend]:
+    if name not in _BACKENDS:
+        raise KeyError(
+            f"unknown backend {name!r}; registered: {list(_BACKENDS)}")
+    return _BACKENDS[name]
 
 
 def backend_for_config(cfg: ModelConfig) -> DecodeBackend:

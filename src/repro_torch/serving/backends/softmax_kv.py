@@ -12,10 +12,9 @@ cache row per slot and step. ``decode_kernel="reference"`` selects the
 reference route as it does for the linear family: every prefill through
 B10's plain version (``attention_kernel=False``). The capability flags say so:
 ``fixed_size_state=False`` and ``state_bytes_per_slot`` grows as
-O(max_len·k), since admission moves a whole cache.
-
-``make_prefix_cache`` (JAX's paged KV cache) waits for
-``serving/prefix_cache.py`` (ROADMAP A.6).
+O(max_len·k), since admission moves a whole cache. Its prefix cache is
+the paged, refcounted KV-block cache (``make_prefix_cache``), where the
+linear family keeps one fixed-size state per prefix.
 """
 
 from __future__ import annotations
@@ -54,6 +53,15 @@ class SoftmaxKVBackend(DecodeBackend):
     @property
     def _kernel(self) -> bool:
         return self.cfg.decode_kernel != "reference"
+
+    def make_prefix_cache(self, max_bytes: int, chunk: int):
+        """The growing representation forces block machinery: a paged,
+        refcounted, content-hashed KV cache instead of the linear
+        family's flat hash → O(k²) state table. A cached prefix of n
+        tokens occupies n/chunk blocks: bytes ∝ n."""
+        from repro_torch.serving.prefix_cache import PagedKVCache
+        self._check_prefix_cache()
+        return PagedKVCache(max_bytes=max_bytes, chunk=chunk)
 
     def _validate(self, cfg: ModelConfig) -> None:
         if cfg.attention_backend != "softmax":

@@ -92,6 +92,25 @@ so this module is a scheduler and the backend owns the state layout.
   merges). Plain and speculative requests share the slot batch, each
   kind masked while the other runs.
 
+* **Prefix cache and fork** (``prefix_cache`` on the engine; batched
+  admission only). A prompt longer than the cache's chunk is matched
+  against the cache (``serving/prefix_cache.py``) at admission: a hit is
+  ONE ``restore_state_rows`` copy of the cached state into the slot
+  (the paper's fixed-size state: O(k²) per layer however long the
+  prefix; softmax: the matched KV blocks' rows), the cursor jumps to the
+  matched chunk boundary and only the suffix is ingested, through the
+  continuation chunks (B1/B7 once per layer and chunk), on the chunk
+  grid a cold admission uses, so the tokens are the cold ones. Every
+  chunk boundary an ingest chunk crosses inserts a row-ranged snapshot
+  (an owned copy) when the cache wants it. The entries a slot was
+  admitted from stay pinned (``_cache_hold``) until the slot is torn
+  down, wherever that happens. The cache survives ``reset``; its
+  counters in :class:`EngineStats` are deltas since the reset.
+  ``submit(fork=N)`` encodes the prompt once: at activation the N − 1
+  other continuations become suspended requests sharing one snapshot
+  (each resume copies it into its own slot), uids uid..uid+N−1; a
+  primary that ends before activation completes its members with it.
+
 Time is logical: the clock advances ``segment_len`` decode steps per
 segment (the round's most tokens per slot for a speculative round), and
 ``arrival`` and ``deadline_s`` are in decode steps.
@@ -100,11 +119,10 @@ Policies: ``continuous`` admits into any freed slot between segments
 (and preempts for priority); ``static`` admits only when every slot is
 free (the batch-synchronous baseline).
 
-Not ported here (they come with their ROADMAP A.6 slices): the prefix
-cache and fork (``submit(fork > 1)`` raises ValueError;
-``_release_hold`` is a no-op), the write-ahead journal, engine
-checkpoints and ``recover`` (``InjectedCrash`` propagates to the
-caller; the places the journal writes its records are marked).
+Not ported here (they come with ROADMAP A.6's durability slice): the
+write-ahead journal, engine checkpoints and ``recover``
+(``InjectedCrash`` propagates to the caller; the places the journal
+writes its records are marked).
 """
 
 from __future__ import annotations
@@ -117,6 +135,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs.base import ModelConfig
 from repro_torch.serving.backends import DecodeBackend, backend_for_config
 from repro_torch.serving.lifecycle import (
@@ -152,7 +171,8 @@ class Request:
     absolute completion deadline) are in logical decode steps;
     ``priority`` orders admission (higher first) and arms preemption;
     ``speculate_k`` > 0 decodes through draft/verify rounds (greedy
-    only). ``fork`` is JAX's n-best field; the port admits 1 only."""
+    only). ``fork`` > 1 asks for N continuations of one prompt encoded
+    once (uids uid..uid+fork-1)."""
     uid: int
     prompt: np.ndarray            # (P,) int32
     max_new_tokens: int
@@ -177,8 +197,7 @@ class Completion:
 
 @dataclasses.dataclass
 class EngineStats:
-    """The engine's counters, under JAX's names (its prefix-cache and
-    fork counters come with ROADMAP A.6's prefix cache)."""
+    """The engine's counters, under JAX's names."""
     segments: int = 0
     emitted_tokens: int = 0       # segment-emitted (excludes prefill-sampled)
     prefills: int = 0             # admitted (prompt-encoded) requests
@@ -212,6 +231,12 @@ class EngineStats:
     finite_checks: int = 0        # fused isfinite probes run
     degrade_transitions: int = 0  # overload degradation flips (both ways)
     spec_disables: int = 0        # spec requests forced plain (degraded)
+    # prefix cache & fork/n-best
+    cache_hits: int = 0           # admissions served from the cache
+    cache_misses: int = 0         # cacheable prompts with no entry
+    cache_evictions: int = 0      # entries/blocks dropped (byte budget)
+    cached_prefix_tokens: int = 0  # prompt tokens not encoded on hits
+    forks: int = 0                # extra continuations spawned (fork-1)
     degrade_events: List[Dict] = dataclasses.field(default_factory=list)
 
     def to_dict(self) -> Dict:
@@ -289,6 +314,13 @@ class DecodeEngine:
     events when > 0), else completed ``status="failed"``. ``injector``:
     a :class:`~repro_torch.serving.lifecycle.FaultInjector` (chaos
     tests).
+
+    ``prefix_cache``: None or False (off), "auto" (on where the backend
+    supports it and admission resolved to batched), True (on; raises
+    ValueError where it cannot be) or a
+    :class:`~repro_torch.serving.prefix_cache.PrefixCache` to use as it
+    is (its chunk a multiple of ``prefill_chunk``); ``cache_bytes`` the
+    byte budget of a cache the engine builds.
     """
 
     def __init__(
@@ -314,6 +346,8 @@ class DecodeEngine:
         max_retries: int = 1,
         checkpoint_interval: int = 0,
         injector: Optional[FaultInjector] = None,
+        prefix_cache: Any = None,
+        cache_bytes: int = 64 << 20,
     ):
         if shed_policy not in SHED_POLICIES:
             raise ValueError(f"shed_policy must be one of {SHED_POLICIES}, "
@@ -349,6 +383,32 @@ class DecodeEngine:
         # a power-of-two chunk, so every bucket width is one too
         self.prefill_chunk = min(_pow2_ceil(max(1, prefill_chunk)),
                                  max_len)
+        self.cache = None
+        if prefix_cache is True:
+            if self.admission != "batched":
+                raise ValueError(
+                    f"prefix caching requires batched admission; backend "
+                    f"{self.backend.name!r} resolved admission="
+                    f"{self.admission!r}")
+            self.cache = self.backend.make_prefix_cache(cache_bytes,
+                                                        self.prefill_chunk)
+        elif isinstance(prefix_cache, str):
+            if prefix_cache != "auto":
+                raise ValueError(f"prefix_cache must be None, False, 'auto', "
+                                 f"True or a PrefixCache, got "
+                                 f"{prefix_cache!r}")
+            if (self.backend.supports_prefix_cache
+                    and self.admission == "batched"):
+                self.cache = self.backend.make_prefix_cache(
+                    cache_bytes, self.prefill_chunk)
+        elif prefix_cache is not None and prefix_cache is not False:
+            if prefix_cache.chunk % self.prefill_chunk != 0:
+                raise ValueError(
+                    f"prefix cache chunk {prefix_cache.chunk} is not a "
+                    f"multiple of the engine's prefill_chunk "
+                    f"{self.prefill_chunk}: hit suffixes would leave the "
+                    f"cold-admission chunk grid")
+            self.cache = prefix_cache
         # admission program shapes seen: JAX's host mirror of its jit
         # cache, kept so that the stats compare field for field
         self._seen_shapes: set = set()
@@ -360,7 +420,12 @@ class DecodeEngine:
 
     def reset(self) -> None:
         """Clear every request, slot, suspended request, checkpoint,
-        quarantine and counter."""
+        quarantine and counter. The prefix cache survives (a learned
+        artifact, not a request); the pins of slots still holding cache
+        entries are released."""
+        for slot, hold in enumerate(getattr(self, "_cache_hold", ())):
+            if hold is not None:
+                self._release_hold(slot)
         self.state = self.backend.init_slots(self.n_slots, self.max_len,
                                              device=self.device)
         s = self.n_slots
@@ -392,6 +457,12 @@ class DecodeEngine:
         self._degraded = False
         self._events = 0          # segment/round boundaries elapsed
         self._admit_passes = 0    # admission passes attempted
+        # the cache entries (paged blocks) each slot was admitted from,
+        # pinned until the slot is torn down; stats report the cache's
+        # counters as deltas since this reset
+        self._cache_hold: List[Optional[Any]] = [None] * s
+        self._cache_base = (self.cache.counters()
+                            if self.cache is not None else None)
         if self.draft is not None:
             self.draft.reset()
         self.stats = EngineStats(n_slots=self.n_slots,
@@ -412,15 +483,14 @@ class DecodeEngine:
         changes, so a raising submit leaves the queue, the uid counter
         and the stats as they were. A full bounded queue resolves its
         shed policy at once: the shed request completes
-        ``status="shed"``."""
+        ``status="shed"``. ``fork`` > 1 asks for N continuations of the
+        one prompt: uids uid..uid+fork-1, the prompt encoded once, and
+        at activation the N − 1 others spawn as suspended requests
+        sharing the encoded state, each under greedy decoding the tokens
+        of an independent submit. Returns the first uid."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if fork < 1:
             raise ValueError(f"fork must be >= 1, got {fork}")
-        if fork > 1:
-            raise ValueError(
-                f"fork={fork}: n-best continuations off one prefill come "
-                f"with the prefix cache (ROADMAP A.6); submit the prompt "
-                f"{fork} times")
         if uid is not None and uid < self._next_uid:
             raise ValueError(
                 f"uid {uid} is not monotone (engine next uid is "
@@ -453,10 +523,10 @@ class DecodeEngine:
         if uid is None:
             uid = self._next_uid
         # the journal's write-ahead submit record goes here (ROADMAP A.6)
-        self._next_uid = uid + 1
+        self._next_uid = uid + fork
         req = Request(uid=uid, prompt=prompt, max_new_tokens=max_new_tokens,
                       arrival=arrival, speculate_k=speculate_k,
-                      priority=priority, deadline_s=deadline_s)
+                      priority=priority, deadline_s=deadline_s, fork=fork)
         if self.max_queue is not None and len(self._queue) >= self.max_queue:
             victim = self._pick_shed_victim(req)
             self._shed(victim)
@@ -531,6 +601,17 @@ class DecodeEngine:
     def _complete(self, req: Request, tokens: List[int],
                   admitted_step: int, status: str = STATUS_OK,
                   retries: int = 0) -> None:
+        # a fork primary that ends before activation (shed, deadline,
+        # cancel, a budget of one, an instant EOS) never spawned its
+        # members: they complete here with its outcome, as independent
+        # submits would. After activation the primary carries fork=1.
+        if req.fork > 1:
+            for i in range(1, req.fork):
+                self._complete(dataclasses.replace(req, uid=req.uid + i,
+                                                   fork=1),
+                               list(tokens), admitted_step, status=status,
+                               retries=retries)
+            req = dataclasses.replace(req, fork=1)
         last = tokens[-1] if tokens else None
         if status == STATUS_OK:
             reason = ("eos" if self.eos_id is not None
@@ -546,9 +627,22 @@ class DecodeEngine:
             status=status, retries=retries)
 
     def _release_hold(self, slot: int) -> None:
-        """Drop the prefix-cache entries the slot was admitted from: a
-        no-op until the prefix cache (ROADMAP A.6); called wherever JAX
-        tears a slot down."""
+        """Drop the cache pins (paged-KV refcounts) the slot's request
+        took at hit admission: called on every slot teardown."""
+        hold = self._cache_hold[slot]
+        if hold is not None:
+            self._cache_hold[slot] = None
+            self.cache.release(hold)
+
+    def _sync_cache_stats(self) -> None:
+        """The cache's counters in the stats, as deltas since the last
+        reset (the cache survives reset)."""
+        if self.cache is None:
+            return
+        c, b = self.cache.counters(), self._cache_base
+        self.stats.cache_hits = c["hits"] - b["hits"]
+        self.stats.cache_misses = c["misses"] - b["misses"]
+        self.stats.cache_evictions = c["evictions"] - b["evictions"]
 
     def _miss(self, kind: str, width: int) -> None:
         """Count an admission program shape not seen before."""
@@ -599,7 +693,18 @@ class DecodeEngine:
 
     def _activate_slot(self, slot: int, req: Request, tok0: int) -> None:
         """Flip a slot whose prompt is encoded to decode-active (plain
-        under degradation), and take its activation checkpoint."""
+        under degradation), and take its activation checkpoint.
+
+        A fork spawns here: the N − 1 other continuations become
+        suspended requests sharing one snapshot of the slot (an owned
+        copy, which each resume copies into its own slot and nothing
+        writes), and the slot's request drops to fork=1, so a requeue
+        (a quarantine retry) never spawns them again."""
+        members: List[Request] = []
+        if req.fork > 1:
+            members = [dataclasses.replace(req, uid=req.uid + i, fork=1)
+                       for i in range(1, req.fork)]
+            req = dataclasses.replace(req, fork=1)
         spec_k = req.speculate_k
         if spec_k > 0 and self._degraded:
             spec_k = 0               # overload: lookahead off; the greedy
@@ -615,6 +720,15 @@ class DecodeEngine:
         if spec_k > 0:
             self.draft.admit(
                 slot, np.concatenate([req.prompt, [tok0]]).astype(np.int32))
+        if members:
+            snap = self._slot_snapshot(slot,
+                                       self._bucket(int(self._pos[slot])))
+            for m in members:
+                self._suspended.append(SuspendedRequest(
+                    req=m, state=snap, tok=tok0, pos=len(req.prompt),
+                    remaining=req.max_new_tokens - 1, toks=[tok0],
+                    admitted_step=self._clock, retries=0))
+                self.stats.forks += 1
         if self.finite_check and self.max_retries > 0:
             # the last known-good restore point a later fault retries from
             self._checkpoint_slot(slot)
@@ -788,7 +902,7 @@ class DecodeEngine:
         # requests that complete at admission free their slots at the
         # same logical clock.
         while self._work_waiting():
-            newly, resumed = [], 0
+            newly, resumed, cache_hits = [], 0, 0
             for slot in range(self.n_slots):
                 if not self._slot_free(slot) or not self._work_waiting():
                     continue
@@ -799,11 +913,27 @@ class DecodeEngine:
                     continue
                 self._ingest_req[slot] = item
                 self._ingest_cursor[slot] = 0
-                newly.append(slot)
+                hit = None
+                if (self.cache is not None
+                        and len(item.prompt) > self.cache.chunk):
+                    hit = self.cache.match(item.prompt)
+                if hit is None:
+                    newly.append(slot)
+                    continue
+                # a hit: ONE copy lands the cached prefix in the slot and
+                # the cursor jumps to its boundary; the suffix is left to
+                # the continuation chunks, on the cold chunk grid
+                self.backend.restore_state_rows(self.state, hit.state, slot)
+                self._ingest_cursor[slot] = hit.n_tokens
+                self._cache_hold[slot] = hit
+                self.stats.admission_dispatches += 1
+                self.stats.cached_prefix_tokens += hit.n_tokens
+                cache_hits += 1
             if newly:
                 self._ingest_chunk(newly, first=True)
-            elif not resumed:
+            elif not (resumed or cache_hits):
                 break
+        self._sync_cache_stats()
 
     def _bucket(self, n: int) -> int:
         return min(_pow2_ceil(max(1, n)), self.max_len)
@@ -840,7 +970,7 @@ class DecodeEngine:
                 self.stats.prefills += 1
                 self.stats.admission_dispatches += 2
                 self._ingest_cursor[slot] = 1
-                self._finish_ingest({slot: int(self._sample(logits)[0])})
+                self._finish_ingest(slot, int(self._sample(logits)[0]))
             slots = [s for s in slots if s not in ones]
             if not slots:
                 return
@@ -904,15 +1034,28 @@ class DecodeEngine:
             if self._active.any():
                 self.stats.ingest_interleaved += 1
 
-        finished = []
-        for i, slot in enumerate(slots):
-            self._ingest_cursor[slot] += int(lens[slot])
-            if self._ingest_cursor[slot] >= len(self._ingest_req[slot].prompt):
-                finished.append(i)
+        finished = [i for i, slot in enumerate(slots)
+                    if self._ingest_cursor[slot] + int(lens[slot])
+                    >= len(self._ingest_req[slot].prompt)]
+        toks0 = {}
         if finished:
-            toks0 = self._sample(last[finished])
-            self._finish_ingest({slots[i]: int(t)
-                                 for i, t in zip(finished, toks0)})
+            toks0 = {slots[i]: int(t) for i, t in
+                     zip(finished, self._sample(last[finished]))}
+        for slot in slots:
+            self._ingest_cursor[slot] += int(lens[slot])
+            req = self._ingest_req[slot]
+            cur = int(self._ingest_cursor[slot])
+            # insert at every chunk boundary the ingest crosses (degraded
+            # half-chunks land on them too), before the slot finishes:
+            # a row-ranged copy of exactly `cur` rows, which the paged
+            # cache splits into blocks; `wants` gates the copy on novelty
+            if (self.cache is not None and cur % self.cache.chunk == 0
+                    and self.cache.wants(req.prompt, cur)):
+                self.cache.insert(req.prompt, cur,
+                                  self._slot_snapshot(slot, cur))
+            if slot in toks0:
+                self._finish_ingest(slot, toks0[slot])
+        self._sync_cache_stats()
 
     def _ingest_step(self) -> None:
         """One continuation-chunk pass over every mid-prompt slot, run
@@ -922,21 +1065,20 @@ class DecodeEngine:
         if rows:
             self._ingest_chunk(rows, first=False)
 
-    def _finish_ingest(self, first_tokens: Dict[int, int]) -> None:
-        """Each slot's whole prompt is consumed and its first token
+    def _finish_ingest(self, slot: int, tok0: int) -> None:
+        """The slot's whole prompt is consumed and its first token
         sampled: activate it, or complete at once on a budget of one or
         an EOS."""
-        for slot, tok0 in first_tokens.items():
-            req = self._ingest_req[slot]
-            self._ingest_req[slot] = None
-            self._ingest_cursor[slot] = 0
-            if req.max_new_tokens <= 1 or (self.eos_id is not None
-                                           and tok0 == self.eos_id):
-                self._complete(req, [tok0], admitted_step=self._clock,
-                               retries=self._retry_count.pop(req.uid, 0))
-                self._release_hold(slot)
-                continue
-            self._activate_slot(slot, req, tok0)
+        req = self._ingest_req[slot]
+        self._ingest_req[slot] = None
+        self._ingest_cursor[slot] = 0
+        if req.max_new_tokens <= 1 or (self.eos_id is not None
+                                       and tok0 == self.eos_id):
+            self._complete(req, [tok0], admitted_step=self._clock,
+                           retries=self._retry_count.pop(req.uid, 0))
+            self._release_hold(slot)
+            return
+        self._activate_slot(slot, req, tok0)
 
     def step_segment(self) -> None:
         """One ``segment_len``-step segment over the plain (not
@@ -1299,3 +1441,38 @@ class DecodeEngine:
         while self.step(policy):
             pass
         return self.completions()
+
+    # ------------------------------------------------------------------
+    # prefix-cache persistence
+    # ------------------------------------------------------------------
+
+    def cache_template(self, n_tokens: int):
+        """The tree of an ``n_tokens``-row slot snapshot, as views of the
+        engine's state (nothing copied): the ``template_fn`` a
+        :class:`~repro_torch.serving.prefix_cache.PrefixCache` loads
+        arrays onto (the device and dtype of each leaf)."""
+        w = max(1, min(int(n_tokens), self.max_len))
+        return self.backend.state_rows_view(self.state, 0, w)
+
+    def _cache_manager(self, directory) -> CheckpointManager:
+        if self.cache is None:
+            raise ValueError("engine has no prefix cache configured")
+        return (directory if isinstance(directory, CheckpointManager)
+                else CheckpointManager(directory, keep=1))
+
+    def save_cache(self, directory, step: Optional[int] = None) -> int:
+        """Persist the prefix cache through the atomic checkpoint writer
+        into ``directory`` (a path or a CheckpointManager; not the
+        directory of engine checkpoints), in JAX's format. Returns the
+        step written."""
+        mgr = self._cache_manager(directory)
+        step = self._events if step is None else int(step)
+        self.cache.save(mgr, step)
+        return step
+
+    def load_cache(self, directory) -> bool:
+        """Restore a prefix cache saved by :meth:`save_cache` (by either
+        package). A missing or corrupt file leaves the cache empty and
+        returns False: a cold start, never wrong answers."""
+        return self.cache.load(self._cache_manager(directory),
+                               self.cache_template)

@@ -2089,3 +2089,57 @@ def test_spec_engine_through_kernels_matches_reference_engine(dev, backend):
             b.uid, b.admitted_step, b.finished_step)
         np.testing.assert_array_equal(a.tokens, b.tokens)
         np.testing.assert_array_equal(a.tokens, p.tokens)
+
+
+@pytest.mark.parametrize("backend", ["linear", "gated_linear", "softmax"])
+def test_prefix_cache_hits_through_kernels_match_reference_engine(dev,
+                                                                  backend):
+    """DecodeEngine with the prefix cache at the smoke size, fp32: cold
+    and warm runs of prompts sharing a 48-token prefix through B1/B7 (the
+    hit's suffix chunks and decode) and B10 (cold waves under softmax)
+    against the same engine under decode_kernel="reference": completions,
+    stats and cache counters identical, warm equal to cold with no
+    prefill, the kernel launched as ``stream_launches`` counts and every
+    paged block's refcount 0."""
+    from repro_torch.launch import serve
+    from repro_torch.serving import DecodeEngine
+    name, kernel = serve.STREAM_KERNELS[backend]
+    cfg = dataclasses.replace(
+        get_smoke_config("qwen3-0.6b").with_backend(backend), dtype="float32")
+    params = lm.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    rng = np.random.default_rng(4)
+    shared = rng.integers(0, cfg.vocab_size, size=48)
+    prompts = [np.concatenate([shared, rng.integers(0, cfg.vocab_size,
+                                                    size=n)]).astype(np.int32)
+               for n in (16, 5, 16, 9, 16)]
+    runs = {}
+    for route in ("auto", "reference"):
+        eng = DecodeEngine(params, dataclasses.replace(cfg,
+                                                       decode_kernel=route),
+                           n_slots=3, segment_len=4, max_len=96,
+                           prefill_chunk=16, prefix_cache=True)
+        out = []
+        for _ in ("cold", "warm"):
+            eng.reset()
+            for p in prompts:
+                eng.submit(p, 12)
+            before = kernel.launches
+            comps = eng.run()
+            out.append((comps, eng.stats.to_dict(), eng.cache.counters(),
+                        kernel.launches - before))
+            if backend == "softmax":
+                assert all(b.refcount == 0
+                           for b in eng.cache._blocks.values())
+        runs[route] = out
+    for (comps, st, c, n), (r_comps, r_st, r_c, n_ref) in zip(
+            runs["auto"], runs["reference"]):
+        assert st == r_st and c == r_c and n_ref == 0
+        assert n == serve.stream_launches(cfg, st, "recurrent", "batched")
+        for a, b in zip(comps, r_comps):
+            np.testing.assert_array_equal(a.tokens, b.tokens)
+    (cold, cold_st, _, _), (warm, warm_st, _, _) = runs["auto"]
+    assert cold_st["cache_hits"] >= 1
+    assert (warm_st["cache_hits"], warm_st["prefills"],
+            warm_st["prefill_dispatches"]) == (len(prompts), 0, 0)
+    for a, b in zip(cold, warm):
+        np.testing.assert_array_equal(a.tokens, b.tokens)

@@ -55,7 +55,9 @@ CORE_STATS = ("segments", "emitted_tokens", "prefills", "n_slots",
               "segment_len", "admission_batches", "prefill_dispatches",
               "ingest_chunks", "ingest_interleaved", "admission_dispatches",
               "prefill_jit_misses", "slot_utilization",
-              "mean_admission_batch", "interleave_ratio")
+              "mean_admission_batch", "interleave_ratio", "cache_hits",
+              "cache_misses", "cache_evictions", "cached_prefix_tokens",
+              "forks")
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -51,7 +51,9 @@ COUNTERS = ("segments", "emitted_tokens", "prefills", "admission_batches",
             "spec_rewind_dispatches", "preemptions", "resumes", "cancelled",
             "deadline_evictions", "shed", "quarantined", "retries", "failed",
             "checkpoints", "finite_checks", "degrade_transitions",
-            "spec_disables", "degrade_events")
+            "spec_disables", "degrade_events", "cache_hits",
+            "cache_misses", "cache_evictions", "cached_prefix_tokens",
+            "forks")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -238,7 +240,7 @@ class TestSubmitValidation:
             dict(prompt=[1, 2], max_new_tokens=200),
             dict(prompt=[1, 2], max_new_tokens=4,
                  arrival=5.0, deadline_s=5.0),
-            dict(prompt=[1, 2], max_new_tokens=4, fork=2),
+            dict(prompt=[1, 2], max_new_tokens=4, fork=0),
         ]
         for kw in bad:
             with pytest.raises(ValueError):
@@ -247,12 +249,6 @@ class TestSubmitValidation:
             before
         eng.submit(np.array([4, 5], np.int32), 3)
         assert [c.status for c in eng.run()] == ["ok", "ok"]
-
-    def test_fork_names_the_prefix_cache(self):
-        cfg, params = _model()
-        with pytest.raises(ValueError, match="A.6"):
-            _engine(params, cfg).submit(np.array([1, 2], np.int32), 4,
-                                        fork=3)
 
 
 class TestPreemptResume:

@@ -213,3 +213,83 @@ def test_train_driver_sigterm_saves_and_stops(tmp_path):
         assert ttrain.build(_cli(tmp_path / "s")).step == 3
     finally:
         signal.signal(signal.SIGTERM, signal.SIG_DFL)
+
+
+# ---------------------------------------------------------------------------
+# the decode step builder and the runtime's exports
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("backend", ["linear", "softmax"])
+def test_decode_step_matches_jax(backend):
+    """``make_decode_step`` against JAX's on converted qwen3-0.6b smoke
+    weights in fp32, from each package's prefill of one prompt: the
+    logits within 1e-5 and the state's leaves within 1e-5 over three
+    greedy steps; ``DecodeBackend.decode_step`` gives the same bits."""
+    import dataclasses
+
+    from repro.configs import get_smoke_config as jax_smoke_config
+    from repro.models import lm as jlm
+    from repro.runtime import make_decode_step as jax_make_decode_step
+    from repro.sharding import Rules
+    from repro_torch import convert
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import lm
+    from repro_torch.runtime import make_decode_step
+    from repro_torch.serving import backend_for_config
+
+    jcfg = dataclasses.replace(
+        jax_smoke_config("qwen3-0.6b").with_backend(backend), dtype="float32")
+    tcfg = dataclasses.replace(
+        get_smoke_config("qwen3-0.6b").with_backend(backend), dtype="float32")
+    pj = jlm.init_params(jax.random.PRNGKey(0), jcfg)
+    pt = convert.params_from_jax(jax.tree.map(np.asarray, pj), tcfg)
+    prompt = np.random.default_rng(0).integers(0, jcfg.vocab_size, (2, 8))
+    _, js = jlm.prefill(pj, jnp.asarray(prompt, jnp.int32), jcfg,
+                        Rules.null())
+    js = jlm.pad_decode_state(js, jcfg, max_len=16)
+    be = backend_for_config(tcfg)
+    _, ts = lm.prefill(pt, torch.from_numpy(prompt), tcfg)
+    ts = be.pad_decode_state(ts, max_len=16)
+    ts2 = lm.snapshot_state(ts, 0), lm.snapshot_state(ts, 1)
+    jstep = jax.jit(jax_make_decode_step(jcfg, Rules.null()))
+    tstep = make_decode_step(tcfg)
+    tok = np.asarray([3, 5])
+    for pos in range(8, 11):
+        jl, js = jstep(pj, js, jnp.asarray(tok, jnp.int32), jnp.int32(pos))
+        tl, ts = tstep(pt, ts, torch.from_numpy(tok), pos)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=1e-5,
+                                   rtol=1e-5)
+        for j, t in zip(jax.tree.leaves(js), leaves(ts)):
+            np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=1e-5,
+                                       rtol=1e-5)
+        tok = np.asarray(jl).argmax(-1)
+    # the backend's surface is the same call, bit for bit
+    bs = lm.init_decode_state(tcfg, 2, max_len=16)
+    for slot, snap in enumerate(ts2):
+        lm.restore_state(bs, snap, slot)
+    tok = torch.tensor([3, 5])
+    a, _ = be.decode_step(pt, bs, tok, 8)
+    b, _ = tstep(pt, be.pad_decode_state(
+        lm.prefill(pt, torch.from_numpy(prompt), tcfg)[1], max_len=16),
+        tok, 8)
+    assert torch.equal(a, b)
+
+
+def test_runtime_exports_match_jax():
+    """The runtime's names are JAX's but ``plan_mesh_shape`` (elastic
+    re-meshing, a multi-device item) and the port's own
+    ``InjectedFailure``."""
+    import repro.runtime as jr
+    import repro_torch.runtime as tr
+    from repro_torch.runtime import StragglerDetector
+    names = lambda m: {n for n in dir(m) if not n.startswith("_")
+                       and n[0].isalpha() and callable(getattr(m, n))
+                       and not isinstance(getattr(m, n), type(os))}
+    assert names(jr) - names(tr) == {"plan_mesh_shape"}
+    # the exported detector is JAX's: the same step times, the same flags
+    times = [1.0, 1.1, 0.9, 5.0, 1.0, 6.0, 7.0]
+    flags = []
+    for det in (jr.StragglerDetector(warmup_steps=1, patience=2),
+                StragglerDetector(warmup_steps=1, patience=2)):
+        flags.append([det.observe(i, t) for i, t in enumerate(times)])
+    assert flags[0] == flags[1] and any(flags[1])

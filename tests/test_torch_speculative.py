@@ -66,7 +66,9 @@ COUNTERS = ("segments", "emitted_tokens", "prefills", "admission_batches",
             "resumes", "cancelled", "deadline_evictions", "shed",
             "quarantined", "retries", "failed", "checkpoints",
             "finite_checks", "degrade_transitions", "spec_disables",
-            "acceptance_rate", "tokens_per_round")
+            "acceptance_rate", "tokens_per_round", "cache_hits",
+            "cache_misses", "cache_evictions", "cached_prefix_tokens",
+            "forks")
 
 
 @pytest.fixture(autouse=True, scope="module")
