@@ -148,7 +148,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    layers x (waves + 1-token prefills) times, per-step ingest and gated
    cache rows in plain PyTorch.
 16. The stream main path: ``repro_torch.launch.serve --mode stream`` on
-   the full 28-layer qwen3-0.6b in bf16 (random weights from seed 0),
+   qwen3-0.6b cut to 8 of its 28 layers (``SERVE_TIME_LAYERS``, for the
+   run's time) in bf16 (random weights from seed 0),
    linear, gated and softmax: 8 slots, segments of 8, 32 requests of 512
    prompt tokens (7 continuation chunks of 64 each; softmax admits each
    prompt whole, ``--prefill-chunk 512``, through B10) and 8 or 64
@@ -333,25 +334,26 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    after every step, completions and stats identical, every token plain
    greedy's; the slots not speculating bit for bit through every round,
    the speculative ones through every segment; launches exact.
-42. The spec main path: ``serve --mode spec`` on the full 28-layer
-   qwen3-0.6b in fp32, 8 slots, 16 requests of 128 prompt tokens, 64
-   tokens each, K = 6: the ``ngram`` draft under all three backends,
+42. The spec main path: ``serve --mode spec`` on qwen3-0.6b cut to 8
+   of its 28 layers (``SERVE_TIME_LAYERS``) in fp32, 8 slots, 16
+   requests of 128 prompt tokens, 64 tokens each, K = 6: the ``ngram``
+   draft under all three backends,
    ``replay`` (the plain run's tokens) and ``model`` (a second
    qwen3-0.6b from seed 1) under linear; spec tokens equal plain greedy
    for every request, launches exactly layers x (segment steps + ingest
    chunks + verify rounds + rewind passes) plus the model draft's own;
    acceptance, rounds, rewinds, tokens per round, spec against plain
    tokens/s.
-43. The lifecycle main path: the engine on the full 28-layer qwen3-0.6b
-   in fp32, linear and softmax, 8 slots, 32 requests (JAX's mix, 128
+43. The lifecycle main path: the engine on qwen3-0.6b cut to 8 of 28
+   layers in fp32, linear and softmax, 8 slots, 32 requests (JAX's mix, 128
    prompt tokens): an explicit preempt and resume, a NaN poisoned into
    a busy slot (found by the finite probe, the slot quarantined, the
    request retried from its checkpoint), a sabotaged speculative round
    (rewinds, no token moves), cancels, a deadline, both shed policies
    and a degradation flip: every request's tokens the clean run's, the
    counts exact, launches exactly ``stream_launches`` a run.
-44. The prefix cache main path: the engine on the full 28-layer
-   qwen3-0.6b in fp32, linear and softmax, 8 slots, segments of 8,
+44. The prefix cache main path: the engine on qwen3-0.6b cut to 8 of
+   28 layers in fp32, linear and softmax, 8 slots, segments of 8,
    chunks of 64, 16 requests at step 0 of one seeded 192-token prefix
    and a 64-token suffix each, 16 tokens each: off (no cache), cold (an
    empty 1 GiB cache), warm (``reset``: the cache survives) and, under
@@ -367,10 +369,36 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    --slots 8 --n-requests 8 --prompt-len 256 --gen-len 16``: 24
    completions off 8 prefills and 16 forks, each member's tokens its
    primary's.
+45. Engine durability: the engine on the full 28-layer qwen3-0.6b in
+   fp32, linear and softmax, 8 slots, segments of 8, chunks of 64, 32
+   requests of JAX's mix (128 prompt tokens, 32 or 4 generated), a
+   write-ahead journal and checkpoints every 4 events under ``build/``
+   (removed at the end): uncrashed; killed at events 5 and 7 and
+   ``DecodeEngine.recover``-ed from the journal and the newest
+   checkpoint; killed at event 5 and recovered from the journal alone:
+   every uid's tokens the uncrashed run's (else the top-2 margin), one
+   ack per uid in each journal file, the decode state exactly 8 slots of
+   the predicted bytes, each drive's launches exactly ``stream_launches``
+   (a recovery's less what its checkpoint restored); the checkpoint and
+   journal bytes, save, restore, replay and append times. Then ``serve
+   --mode stream --journal --checkpoint-dir --crash-at-event 5`` (exit
+   code 3) and ``--recover`` (each of 32 requests acked once).
+46. The fleet and the lookup engine's durability: a ``FleetEngine`` of
+   qwen3-0.6b whole in fp32 under linear, gated_linear and softmax, 2
+   replicas of 4 slots a group, 24 requests; replica 0 of linear
+   crashes, fails over, and every uid completes once with its group's
+   single-engine tokens; a fleet checkpoint and ``FleetEngine.recover``
+   reach them too; launches exactly ``fleet_launches``. ``serve --mode
+   stream --backends mamba2,rwkv6 --replicas 2`` at the demo configs
+   (B8). A ``LookupEngine`` at k = 100 over 1,024 documents of 750
+   tokens: its checkpoint restores the store bitwise and 16,384 queries
+   in waves of 256 answer bitwise alike; ``HedgedLookup`` over 2
+   replicas, unkilled and with one killed (8,192 hedges), the same
+   answers; B4 once a wave.
 
 Each main path (phases 4, 6, 8, 10, 12, 14, 16, 18, 19, 21, 22's
 ``launch/train.py`` run, 24, 26, 27, 29, 31, 32, 34, 35, 37, 38, 40, 42,
-43 and 44) is driven with
+43, 44, 45 and 46) is driven with
 every kernel's launch count set to 0 just before it and read just after.
 
 The last line is {"ok": true, "device": {...}}; the line before it the
@@ -2871,8 +2899,9 @@ def profile_segments(engine, n=2, steps=2) -> dict:
 def stream_main_path(backend, dev, phase, arch="qwen3-0.6b",
                      n_layers=None) -> int:
     """Phases 16, 27 and 32: ``serve --mode stream --backend <backend>``
-    on the full ``arch`` (28-layer qwen3-0.6b; phase 27 the 48-layer
-    musicgen-large; phase 32 rwkv6-1.6b, ``backend`` None: no attention
+    on ``arch`` (qwen3-0.6b, cut to ``SERVE_TIME_LAYERS`` of its 28
+    layers in phase 16; phase 27 musicgen-large; phase 32 rwkv6-1.6b,
+    ``backend`` None: no attention
     layer) in bf16, 8 slots, segments of 8, 32 requests of 512 prompt
     tokens and 8 or 64 generated tokens at 0.25 arrivals per decode
     step, with every kernel's launch count set to 0 just before and read
@@ -3477,6 +3506,10 @@ DENSE_HEADROOM = 8 * 2**30
 DENSE_CUTS = {"yi-34b": 4, "phi3-mini-3.8b": 8, "musicgen-large": 12}
 # phase 27's depth: musicgen-large's stream at 12 of its 48 layers
 DENSE_STREAM_LAYERS = 12
+# qwen3-0.6b's stream, spec, lifecycle and prefix-cache paths (phases 16,
+# 42, 43, 44) cut to 8 of its 28 layers for the run's time (phases 45-46
+# run it whole)
+SERVE_TIME_LAYERS = 8
 
 
 def dense_kernel_checks(gen, dev) -> None:
@@ -5554,14 +5587,14 @@ def spec_slice(backend, dev, phase) -> None:
 
 
 def spec_main_path(backend, draft, dev, phase) -> dict:
-    """Phase 42: ``serve --mode spec`` on the full 28-layer qwen3-0.6b in
-    fp32 (random weights from seed 0; a model draft: a second qwen3-0.6b
-    from generator seed 1), 8 slots, 16 requests of 128 random prompt
-    tokens (JAX's draw, seed 0), 64 tokens each, K = 6 (softmax admits
-    each prompt whole, ``--prefill-chunk 128``), every kernel's launch
-    count set to 0 just before and read just after. The mode itself
-    asserts the speculative tokens equal plain greedy's for every
-    request; here the launches in each timed run equal
+    """Phase 42: ``serve --mode spec`` on qwen3-0.6b cut to
+    ``SERVE_TIME_LAYERS`` layers in fp32 (random weights from seed 0; a
+    model draft: a second qwen3-0.6b from generator seed 1), 8 slots, 16
+    requests of 128 random prompt tokens (JAX's draw, seed 0), 64 tokens
+    each, K = 6 (softmax admits each prompt whole, ``--prefill-chunk
+    128``), every kernel's launch count set to 0 just before and read just
+    after. The mode itself asserts the speculative tokens equal plain
+    greedy's for every request; here the launches in each timed run equal
     ``stream_launches`` (plus ``draft_launches``) and the whole run's
     theirs and the two short warm-ups', no other kernel launched, one
     rewind pass a rewinding round. Returns the backend kernel's launches
@@ -5573,7 +5606,8 @@ def spec_main_path(backend, draft, dev, phase) -> dict:
         ["--mode", "spec", "--arch", "qwen3-0.6b", "--backend", backend,
          "--slots", "8", "--segment-len", "8", "--n-requests", "16",
          "--prompt-len", "128", "--gen-len", "64", "--speculate-k",
-         str(SPEC_K), "--draft", draft, "--seed", "0"]
+         str(SPEC_K), "--draft", draft, "--seed", "0", "--n-layers",
+         str(SERVE_TIME_LAYERS)]
         + (["--prefill-chunk", "128"] if backend == "softmax" else []))
     t0 = time.perf_counter()
     reset_launches()
@@ -5624,21 +5658,21 @@ def spec_main_path(backend, draft, dev, phase) -> dict:
 
 
 def lifecycle_main_path(backend, dev, phase) -> dict:
-    """Phase 43: the engine's lifecycle on the full 28-layer qwen3-0.6b
-    in fp32 (random weights from seed 0), 8 slots, segments of 8, 32
-    requests of 128 prompt tokens and 32 or 4 generated (JAX's
-    ``make_request_mix``, seed 0, all at step 0; softmax admits each
-    prompt whole). Runs: clean; an explicit preempt and resume; a NaN
-    poisoned into slot 0 after the second segment, mid-request (the probe
-    finds it, the slot is quarantined, the request retried from its
-    activation checkpoint on another slot); speculation (an n-gram draft, K = 6, every other
-    request) with the second round sabotaged (every continuing slot
-    rewinds); a queue of 12 shedding the rest (``reject_new``) with a
-    cancel of a queued and of an active request, a deadline inside a
-    request's run and degradation at 0.5 waiting requests a slot; a
-    queue of 4 under ``evict_lowest``. Every request's tokens equal the
-    clean run's (cut short where cancelled or past its deadline), the
-    counters exact, and each run's launches ``stream_launches``; every
+    """Phase 43: the engine's lifecycle on qwen3-0.6b cut to
+    ``SERVE_TIME_LAYERS`` layers in fp32 (random weights from seed 0), 8
+    slots, segments of 8, 32 requests of 128 prompt tokens and 32 or 4
+    generated (JAX's ``make_request_mix``, seed 0, all at step 0; softmax
+    admits each prompt whole). Runs: clean; an explicit preempt and resume;
+    a NaN poisoned into slot 0 after the second segment, mid-request (the
+    probe finds it, the slot is quarantined, the request retried from its
+    activation checkpoint on another slot); speculation (an n-gram draft, K
+    = 6, every other request) with the second round sabotaged (every
+    continuing slot rewinds); a queue of 12 shedding the rest
+    (``reject_new``) with a cancel of a queued and of an active request, a
+    deadline inside a request's run and degradation at 0.5 waiting requests
+    a slot; a queue of 4 under ``evict_lowest``. Every request's tokens
+    equal the clean run's (cut short where cancelled or past its deadline),
+    the counters exact, and each run's launches ``stream_launches``; every
     kernel's count set to 0 before each run and read after. Returns the
     backend kernel's launches over the runs and the counters."""
     import numpy as np
@@ -5647,7 +5681,7 @@ def lifecycle_main_path(backend, dev, phase) -> dict:
     from repro_torch.models import lm
     from repro_torch.serving import DecodeEngine, FaultInjector, NgramDraft
     name = serve.STREAM_KERNELS[backend][0]
-    cfg = full_width("qwen3-0.6b", backend, 28)
+    cfg = full_width("qwen3-0.6b", backend, SERVE_TIME_LAYERS)
     params = lm.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
     mix = serve.make_request_mix(np.random.default_rng(0), 32, 128, 32,
                                  cfg.vocab_size, 0.0)
@@ -5785,7 +5819,8 @@ def lifecycle_main_path(backend, dev, phase) -> dict:
                              f"{st}")
     same("evict_lowest", [c for c in comps if c.status == "ok"], clean,
          allow_short=tuple(kept))
-    print(f"phase {phase}: qwen3-0.6b {backend} lifecycle, 28 layers fp32, "
+    print(f"phase {phase}: qwen3-0.6b {backend} lifecycle, "
+          f"{cfg.n_layers} layers fp32, "
           f"8 slots, 32 requests: preempt/resume, NaN quarantine and retry "
           f"(request {retried[0]}), a sabotaged round, cancels, a deadline, "
           f"both shed policies and degradation all equal the clean run's "
@@ -5816,10 +5851,11 @@ PREFIX_EXPECT = {
 }
 PREFIX_COW = {"cold": 24, "warm": 48}
 # the cache's bytes for the shared prefix at qwen3-0.6b's full widths,
-# fp32: one linear entry (28 layers of 16 heads' 128 x 128 s and 128 z),
-# one softmax block (28 layers of 64 rows of K and V, 8 kv heads of 128)
-PREFIX_LINEAR_BYTES = 28 * 16 * (128 * 128 + 128) * 4
-PREFIX_BLOCK_BYTES = 28 * 2 * 64 * 8 * 128 * 4
+# fp32 and ``SERVE_TIME_LAYERS`` layers: one linear entry (16 heads'
+# 128 x 128 s and 128 z a layer), one softmax block (64 rows of K and V,
+# 8 kv heads of 128, a layer)
+PREFIX_LINEAR_BYTES = SERVE_TIME_LAYERS * 16 * (128 * 128 + 128) * 4
+PREFIX_BLOCK_BYTES = SERVE_TIME_LAYERS * 2 * 64 * 8 * 128 * 4
 
 
 def prefix_cache_prompts(vocab, seed=0):
@@ -5922,24 +5958,25 @@ def prefix_cache_runs(cfg, params, dev, save_dir=None) -> dict:
 
 
 def prefix_cache_main_path(backend, dev, phase) -> dict:
-    """Phase 44: the engine's prefix cache on the full 28-layer qwen3-0.6b
-    in fp32 (random weights from seed 0), 8 slots, segments of 8, chunks
-    of 64, 16 requests at step 0 of one seeded 192-token prefix and a
-    64-token suffix each, 16 tokens each: ``prefix_cache_runs`` (off,
-    cold, warm and, under linear, reloaded through a directory under
-    ``build/``, removed at the end). Every request's tokens equal across
-    the runs (else the top-2 margin where they part), the counts exactly
-    ``PREFIX_EXPECT``'s, the launches ``stream_launches`` a run and no
-    B10 launch or varlen prefill in a warm run; the cache's bytes for
-    the shared prefix flat under linear and growing with it under
-    softmax. Every kernel's count set to 0 before each run and read
-    after. Returns the backend kernel's launches and the numbers."""
+    """Phase 44: the engine's prefix cache on qwen3-0.6b cut to
+    ``SERVE_TIME_LAYERS`` layers in fp32 (random weights from seed 0), 8
+    slots, segments of 8, chunks of 64, 16 requests at step 0 of one seeded
+    192-token prefix and a 64-token suffix each, 16 tokens each:
+    ``prefix_cache_runs`` (off, cold, warm and, under linear, reloaded
+    through a directory under ``build/``, removed at the end). Every
+    request's tokens equal across the runs (else the top-2 margin where
+    they part), the counts exactly ``PREFIX_EXPECT``'s, the launches
+    ``stream_launches`` a run and no B10 launch or varlen prefill in a warm
+    run; the cache's bytes for the shared prefix flat under linear and
+    growing with it under softmax. Every kernel's count set to 0 before
+    each run and read after. Returns the backend kernel's launches and the
+    numbers."""
     import shutil
     import torch
     from repro_torch.launch import serve
     from repro_torch.models import lm
     name = serve.STREAM_KERNELS[backend][0]
-    cfg = full_width("qwen3-0.6b", backend, 28)
+    cfg = full_width("qwen3-0.6b", backend, SERVE_TIME_LAYERS)
     params = lm.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
     save_dir = ROOT / "build" / "chip_smoke_prefix_cache"
     shutil.rmtree(save_dir, ignore_errors=True)
@@ -6004,7 +6041,8 @@ def prefix_cache_main_path(backend, dev, phase) -> dict:
         raise AssertionError(f"phase {phase}: {backend} prefix_nbytes {nb}")
     rec["prefix_nbytes"] = nb
     rec["entries"] = out["entries"]
-    print(f"phase {phase}: qwen3-0.6b {backend} prefix cache, 28 layers "
+    print(f"phase {phase}: qwen3-0.6b {backend} prefix cache, "
+          f"{cfg.n_layers} layers "
           f"fp32, 8 slots, 16 requests of 192 shared + 64 own tokens: "
           f"{', '.join(labels)} give every request the same tokens; counts "
           f"as the CPU dry run's; {name} {total} launches, each run's "
@@ -6051,6 +6089,592 @@ def prefix_fork_cli(dev, phase) -> dict:
     torch.cuda.empty_cache()
     return {"name": "decode_linear", "launches": launches["decode_linear"],
             "rec": rec}
+
+
+@contextlib.contextmanager
+def method_clock(*targets):
+    """The seconds of every call of each ``(class, method name)`` while the
+    block runs, by method name; the methods are put back after it."""
+    times = {name: [] for _, name in targets}
+    saved = [(cls, name, getattr(cls, name)) for cls, name in targets]
+    for cls, name, orig in saved:
+        def timed(self, *args, _orig=orig, _name=name, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return _orig(self, *args, **kwargs)
+            finally:
+                times[_name].append(time.perf_counter() - t0)
+        setattr(cls, name, timed)
+    try:
+        yield times
+    finally:
+        for cls, name, orig in saved:
+            setattr(cls, name, orig)
+
+
+# phase 45: JAX's mix of 32 requests (128 prompt tokens, 32 or 4 generated)
+# at step 0, 8 slots, segments of 8, chunks of 64 (softmax 128). The CPU
+# dry run of ``durability_runs`` at smoke widths gives 9 events a run, so
+# checkpoints land after events 4 and 8 and the crashes at events 5 and 7
+# restore the one after event 4
+DURABLE_REQUESTS, DURABLE_PROMPT, DURABLE_GEN = 32, 128, 32
+DURABLE_MAX_LEN = DURABLE_PROMPT + DURABLE_GEN + 8
+DURABLE_EVERY = 4
+DURABLE_CRASHES = (5, 7)
+# one slot's decode state at qwen3-0.6b's full widths in fp32: linear s and
+# z of 16 heads a layer; softmax K and V of 168 rows of 8 kv heads a layer
+DURABLE_SLOT_BYTES = {"linear": 28 * 16 * (128 * 128 + 128) * 4,
+                      "softmax": 28 * 2 * DURABLE_MAX_LEN * 8 * 128 * 4}
+
+
+def durability_runs(cfg, params, dev, workdir) -> dict:
+    """Phase 45's engine runs on one config, each in a directory of its
+    own under ``workdir``: ``clean`` (uncrashed, journal and checkpoints
+    every ``DURABLE_EVERY`` events); ``crash5`` and ``crash7`` (killed at
+    that event, then ``DecodeEngine.recover`` from the journal and the
+    newest checkpoint); ``journal5`` (killed at event 5 with no
+    checkpoint directory, then recovered from the journal alone). Every
+    drive has every kernel's count set to 0 before it and read after.
+    Returns each drive's completions, stats before and after, launches
+    and seconds, each recovery's seconds, the acks in each journal file,
+    and the clean run's checkpoint and journal bytes and the seconds of
+    every save, restore, replay and journal append."""
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    from repro_torch.serving import (DecodeEngine, FaultInjector,
+                                     InjectedCrash, Journal)
+    from repro_torch.serving.journal import read_journal
+    mix = serve.make_request_mix(np.random.default_rng(0), DURABLE_REQUESTS,
+                                 DURABLE_PROMPT, DURABLE_GEN, cfg.vocab_size,
+                                 0.0)
+    # softmax admits each prompt whole (phase 43's choice): a chunk of 64
+    # would step the second half of every prompt one token at a time
+    kw = dict(n_slots=8, segment_len=8, max_len=DURABLE_MAX_LEN,
+              prefill_chunk=128 if cfg.attention_backend == "softmax"
+              else 64)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    out = {"prompts": [p for p, _, _ in mix]}
+
+    def drive(eng):
+        stats0 = eng.stats.to_dict()
+        reset_launches()
+        t0 = time.perf_counter()
+        crashed = None
+        try:
+            eng.run()
+        except InjectedCrash as e:
+            crashed = e.event_idx
+        sync()
+        return {"completions": eng.completions(), "crashed": crashed,
+                "launches": read_launches(),
+                "seconds": time.perf_counter() - t0, "stats0": stats0,
+                "stats": eng.stats.to_dict()}
+
+    def fresh(label, **engine_kw):
+        d = Path(workdir) / label
+        shutil.rmtree(d, ignore_errors=True)
+        jp = str(d / "wal.journal")
+        eng = DecodeEngine(params, cfg, journal=jp, **kw, **engine_kw)
+        for p, g, _ in mix:
+            eng.submit(p, g)
+        return eng, jp
+
+    def acks(jp):
+        return sorted(r["uid"] for r in read_journal(jp)[0]
+                      if r["t"] == "ack")
+
+    with method_clock((DecodeEngine, "save_checkpoint"),
+                      (DecodeEngine, "restore_checkpoint"),
+                      (DecodeEngine, "_replay_journal"),
+                      (Journal, "append")) as clock:
+        cd = str(Path(workdir) / "clean" / "ck")
+        eng, jp = fresh("clean", checkpoint_dir=cd,
+                        checkpoint_every=DURABLE_EVERY)
+        out["clean"] = drive(eng)
+        eng.journal.close()
+        out["clean"]["acks"] = acks(jp)
+        out["state_bytes"] = lm.state_bytes(eng.state)
+        out["checkpoint_bytes"] = {int(d.name[5:]): dir_bytes(d)
+                                   for d in Path(cd).glob("step_*")}
+        out["journal_bytes"] = Path(jp).stat().st_size
+        out["journal_records"] = len(read_journal(jp)[0])
+        out["save_s"] = list(clock["save_checkpoint"])
+        out["events"] = eng._events
+        out["append_s"] = list(clock["append"])
+        del eng
+        for label, crash, ckpt in [(f"crash{e}", e, True)
+                                   for e in DURABLE_CRASHES] + [
+                                       ("journal5", 5, False)]:
+            cd = str(Path(workdir) / label / "ck") if ckpt else None
+            eng, jp = fresh(label, checkpoint_dir=cd,
+                            checkpoint_every=DURABLE_EVERY if ckpt else 0,
+                            injector=FaultInjector(crash=(crash,)))
+            run = {"crash": drive(eng)}
+            eng.journal.close()
+            del eng
+            n_restore = len(clock["restore_checkpoint"])
+            n_replay = len(clock["_replay_journal"])
+            t0 = time.perf_counter()
+            rec = DecodeEngine.recover(params, cfg, journal=Journal(jp),
+                                       checkpoint_dir=cd, **kw)
+            run["recover_s"] = time.perf_counter() - t0
+            run["restore_s"] = clock["restore_checkpoint"][n_restore:]
+            run["replay_s"] = clock["_replay_journal"][n_replay:]
+            run["recover"] = drive(rec)
+            rec.journal.close()
+            run["acks"] = acks(jp)
+            run["expected_crash"] = crash
+            out[label] = run
+            del rec
+    return out
+
+
+def durability_main_path(backend, dev, phase) -> dict:
+    """Phase 45: engine durability on the full 28-layer qwen3-0.6b in fp32
+    (random weights from seed 0): ``durability_runs`` under ``build/``
+    (removed at the end). The decode state exactly 8 slots x
+    ``DURABLE_SLOT_BYTES``; every crash where it was set; every uid's
+    tokens after each recovery the clean run's (else the top-2 margin
+    where they part); each journal file with one ack per uid; each drive's
+    launches exactly ``stream_launches`` of its stats (a recovery's less
+    those its checkpoint restored) and no other kernel's. Prints the
+    checkpoint and journal bytes, the save, restore, replay and append
+    times. Returns the backend kernel's launches and the numbers."""
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    name = serve.STREAM_KERNELS[backend][0]
+    cfg = full_width("qwen3-0.6b", backend, 28)
+    params = lm.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    workdir = ROOT / "build" / "chip_smoke_durability"
+    shutil.rmtree(workdir, ignore_errors=True)
+    try:
+        out = durability_runs(cfg, params, dev, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    if out["state_bytes"] != 8 * DURABLE_SLOT_BYTES[backend]:
+        raise AssertionError(f"phase {phase}: {backend} state "
+                             f"{out['state_bytes']} B")
+    total = 0
+
+    def check_launches(label, r):
+        nonlocal total
+        want = (serve.stream_launches(cfg, r["stats"], "recurrent",
+                                      "batched")
+                - serve.stream_launches(cfg, r["stats0"], "recurrent",
+                                        "batched"))
+        launches = r["launches"]
+        others = {k: n for k, n in launches.items() if k != name and n}
+        if launches[name] != want or others:
+            raise AssertionError(f"phase {phase}: {backend} {label}: {name} "
+                                 f"launched {launches[name]} times, want "
+                                 f"{want}; others {others}")
+        total += launches[name]
+
+    ref = {c.uid: c.tokens.tolist() for c in out["clean"]["completions"]}
+    uids = list(range(DURABLE_REQUESTS))
+    if sorted(ref) != uids or out["clean"]["acks"] != uids or any(
+            c.status != "ok" for c in out["clean"]["completions"]):
+        raise AssertionError(f"phase {phase}: {backend} clean run: "
+                             f"{sorted(ref)}, acks {out['clean']['acks']}")
+    check_launches("clean", out["clean"])
+    rec = {"state_bytes": out["state_bytes"],
+           "checkpoint_bytes": out["checkpoint_bytes"],
+           "save_s": [round(t, 4) for t in out["save_s"]],
+           "journal_bytes": out["journal_bytes"],
+           "journal_records": out["journal_records"],
+           "append_us": round(float(np.mean(out["append_s"])) * 1e6, 1),
+           "append_us_max": round(max(out["append_s"]) * 1e6, 1),
+           "clean_s": round(out["clean"]["seconds"], 3)}
+    for label in [f"crash{e}" for e in DURABLE_CRASHES] + ["journal5"]:
+        r = out[label]
+        if r["crash"]["crashed"] != r["expected_crash"]:
+            raise AssertionError(f"phase {phase}: {backend} {label}: crashed "
+                                 f"at {r['crash']['crashed']}")
+        check_launches(f"{label} until the crash", r["crash"])
+        check_launches(f"{label} recovered", r["recover"])
+        for c in r["recover"]["completions"]:
+            got, want = c.tokens.tolist(), ref[c.uid]
+            if got != want:
+                i = next((j for j, (a, b) in enumerate(zip(got, want))
+                          if a != b), min(len(got), len(want)))
+                margin = serve._top2_margin(params, cfg,
+                                            out["prompts"][c.uid],
+                                            np.asarray(want), i)
+                raise AssertionError(
+                    f"phase {phase}: {backend} {label}: request {c.uid} "
+                    f"parts from the clean run at token {i} (top-2 margin "
+                    f"{margin:.3g}): {got} against {want}")
+        got_uids = [c.uid for c in r["recover"]["completions"]]
+        if got_uids != uids or r["acks"] != uids:
+            raise AssertionError(f"phase {phase}: {backend} {label}: "
+                                 f"completions {got_uids}, acks {r['acks']}")
+        rec[label] = {"recover_s": round(r["recover_s"], 4),
+                      "restore_s": [round(t, 4) for t in r["restore_s"]],
+                      "replay_s": [round(t, 5) for t in r["replay_s"]],
+                      "restored_events": r["recover"]["stats0"]["segments"],
+                      "run_s": round(r["recover"]["seconds"], 3)}
+    if not total:
+        raise AssertionError(f"phase {phase}: {backend}: no {name} launch")
+    print(f"phase {phase}: qwen3-0.6b {backend} durability, 28 layers fp32, "
+          f"8 slots, 32 requests: crashed at events {DURABLE_CRASHES} "
+          f"(recovered from the journal and a checkpoint) and at 5 (the "
+          f"journal alone), every uid's tokens the uncrashed run's, one ack "
+          f"each; state {out['state_bytes']} B = 8 x "
+          f"{DURABLE_SLOT_BYTES[backend]}; {name} {total} launches, each "
+          f"drive's exactly stream_launches; {json.dumps(rec)}")
+    del out, params
+    torch.cuda.empty_cache()
+    return {"name": name, "launches": total, "rec": rec}
+
+
+def durability_cli(dev, phase) -> dict:
+    """Phase 45's CLI run: ``serve --mode stream --slots 8 --n-requests 32
+    --prompt-len 128 --gen-len 32`` (qwen3-0.6b linear, bf16) with
+    ``--journal`` and ``--checkpoint-dir`` under ``build/`` (removed at the
+    end): ``--crash-at-event 5`` returns exit code 3, then ``--recover``
+    completes the stream with each request acked once in the journal;
+    both runs' B1 launches exactly ``stream_launches`` (the recovery's
+    less what its checkpoint restored)."""
+    import shutil
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.serving.journal import read_journal
+    d = ROOT / "build" / "chip_smoke_durability_cli"
+    shutil.rmtree(d, ignore_errors=True)
+    argv = ["--mode", "stream", "--slots", "8", "--segment-len", "8",
+            "--n-requests", "32", "--prompt-len", "128", "--gen-len", "32",
+            "--journal", str(d / "wal.journal"), "--checkpoint-dir",
+            str(d / "ck")]
+    try:
+        reset_launches()
+        res = serve.stream(serve.parse_args(argv + ["--crash-at-event",
+                                                    "5"]))
+        torch.cuda.synchronize()
+        crash_launches = read_launches()
+        eng = res["engine"]
+        want_crash = serve.stream_launches(eng.cfg, eng.stats.to_dict(),
+                                           eng.ingest, eng.admission)
+        eng.journal.close()
+        acked_at_crash = len(eng.journal.acked())
+        del eng, res
+        if crash_launches["decode_linear"] != want_crash:
+            raise AssertionError(f"phase {phase}: the crashed CLI run "
+                                 f"launched {crash_launches['decode_linear']}"
+                                 f", want {want_crash}")
+        reset_launches()
+        res = serve.stream(serve.parse_args(argv + ["--recover"]))
+        torch.cuda.synchronize()
+        launches = read_launches()
+        res["engine"].journal.close()
+        acks = sorted(r["uid"] for r in read_journal(
+            str(d / "wal.journal"))[0] if r["t"] == "ack")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    if res["exit_code"] != 0 or acks != list(range(32)) or \
+            res["acks"] != 32 or not crash_launches["decode_linear"] or \
+            launches["decode_linear"] != res["want_launches"]:
+        raise AssertionError(f"phase {phase}: CLI recover: exit "
+                             f"{res['exit_code']}, acks {acks}, launches "
+                             f"{launches['decode_linear']} (want "
+                             f"{res['want_launches']})")
+    rec = {"acked_at_crash": acked_at_crash,
+           "crash_launches": crash_launches["decode_linear"],
+           "recover_launches": launches["decode_linear"],
+           "recover_s": round(res["seconds"], 3)}
+    print(f"phase {phase}: serve --mode stream --journal --checkpoint-dir "
+          f"--crash-at-event 5 exits 3; --recover then acks each of the 32 "
+          f"requests once; {json.dumps(rec)}")
+    del res
+    torch.cuda.empty_cache()
+    return {"name": "decode_linear",
+            "launches": rec["crash_launches"] + rec["recover_launches"],
+            "rec": rec}
+
+
+# phase 46: the fleet's groups, 24 requests of JAX's mix (128 prompt
+# tokens, 32 or 4 generated) in turn, 2 replicas of 4 slots a group
+FLEET_GROUPS = ("linear", "gated_linear", "softmax")
+FLEET_REQUESTS = 24
+
+
+def fleet_main_path(dev, phase) -> dict:
+    """Phase 46, the fleet: qwen3-0.6b whole (28 layers, fp32, random
+    weights from one seed a group) under linear, gated_linear and
+    softmax, 2 replicas of 4 slots a group, segments of 8, chunks of 64.
+    Replica 0 of the linear group crashes at its event 1: every original
+    uid completes once, with the tokens of its group's single engine, one
+    failover, no uid unrecovered. Then a fleet with per-replica journals
+    and checkpoints is stepped twice, checkpointed, and
+    ``FleetEngine.recover`` reaches the same completions. Every kernel's
+    launches exactly ``serve.fleet_launches`` of the replicas' stats (the
+    recovery's less what its checkpoints restored). Returns the launches
+    by kernel and the numbers."""
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    from repro_torch.serving import DecodeEngine, FaultInjector, FleetEngine
+    groups = {}
+    for i, b in enumerate(FLEET_GROUPS):
+        cfg = full_width("qwen3-0.6b", b, 28)
+        groups[b] = (lm.init_params(torch.Generator(device=dev).manual_seed(
+            i), cfg), cfg)
+    mix = serve.make_request_mix(np.random.default_rng(0), FLEET_REQUESTS,
+                                 128, 32, groups["linear"][1].vocab_size, 0.0)
+    route = [FLEET_GROUPS[i % len(FLEET_GROUPS)] for i in range(len(mix))]
+    kw = dict(n_slots=4, segment_len=8, prefill_chunk=64, max_len=168)
+    # softmax admits each prompt whole, as in phase 45
+    per_group = {"softmax": {"prefill_chunk": 128}}
+    ref = {}
+    for b, (params, cfg) in groups.items():
+        eng = DecodeEngine(params, cfg, **dict(kw, **per_group.get(b, {})))
+        for i, (p, g, _) in enumerate(mix):
+            if route[i] == b:
+                eng.submit(p, g, uid=i)
+        ref.update({c.uid: c.tokens.tolist() for c in eng.run()})
+        del eng
+    total = {}
+
+    def drive(fleet, label):
+        want0 = serve.fleet_launches(fleet)
+        reset_launches()
+        t0 = time.perf_counter()
+        comps = fleet.run()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = read_launches()
+        want = serve.fleet_launches(fleet)
+        for k in want:
+            want[k] -= want0.get(k, 0)
+        others = {k: n for k, n in launches.items() if k not in want and n}
+        if any(launches[k] != n for k, n in want.items()) or others:
+            raise AssertionError(f"phase {phase}: fleet {label}: launches "
+                                 f"{launches}, want {want}")
+        for k, n in want.items():
+            total[k] = total.get(k, 0) + n
+        got = {c.uid: c.tokens.tolist() for c in comps}
+        if got != ref:
+            bad = [u for u in ref if got.get(u) != ref[u]]
+            raise AssertionError(f"phase {phase}: fleet {label}: uids {bad} "
+                                 f"differ from their group's single engine")
+        return dt
+
+    # replica 0 of linear holds requests 0 and 12, of 32 tokens each:
+    # both run past its event 1
+    fleet = FleetEngine(groups, replicas=2, per_group=per_group,
+                        replica_injectors={
+                            ("linear", 0): FaultInjector(crash=(1,))}, **kw)
+    for i, (p, g, _) in enumerate(mix):
+        fleet.submit(p, g, backend=route[i])
+    failover_s = drive(fleet, "failover")
+    st = fleet.stats()
+    if st["failovers"] != 1 or not st["readmitted"] or st["unrecovered"] \
+            or not st["replicas"]["linear"][0]["dead"]:
+        raise AssertionError(f"phase {phase}: fleet failover: {st}")
+    rec = {"failover_s": round(failover_s, 3),
+           "readmitted": st["readmitted"]}
+    del fleet
+    d = ROOT / "build" / "chip_smoke_fleet"
+    shutil.rmtree(d, ignore_errors=True)
+    try:
+        durable = dict(replicas=2, journal_dir=str(d / "wal"),
+                       checkpoint_dir=str(d / "ck"), per_group=per_group,
+                       **kw)
+        fleet = FleetEngine(groups, **durable)
+        for i, (p, g, _) in enumerate(mix):
+            fleet.submit(p, g, backend=route[i])
+        for _ in range(2):
+            fleet.step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fleet.save_checkpoint()
+        rec["save_s"] = round(time.perf_counter() - t0, 3)
+        rec["checkpoint_bytes"] = dir_bytes(d / "ck")
+        for reps in fleet._replicas.values():
+            for rs in reps:
+                rs.engine.journal.close()
+        del fleet
+        t0 = time.perf_counter()
+        fleet = FleetEngine.recover(groups, **durable)
+        rec["recover_s"] = round(time.perf_counter() - t0, 3)
+        rec["recovered_run_s"] = round(drive(fleet, "recover"), 3)
+        for reps in fleet._replicas.values():
+            for rs in reps:
+                rs.engine.journal.close()
+        del fleet
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    rec["launches"] = dict(total)
+    if sorted(k for k, n in total.items() if n) != sorted(
+            serve.STREAM_KERNELS[b][0] for b in FLEET_GROUPS):
+        raise AssertionError(f"phase {phase}: fleet launches {total}")
+    print(f"phase {phase}: a fleet of qwen3-0.6b (28 layers fp32) under "
+          f"{', '.join(FLEET_GROUPS)}, 2 replicas of 4 slots a group, "
+          f"{FLEET_REQUESTS} requests: replica 0 of linear crashed, "
+          f"failed over, every uid once with its group's single-engine "
+          f"tokens; a fleet checkpoint and FleetEngine.recover reach them "
+          f"too; launches exactly fleet_launches; {json.dumps(rec)}")
+    del groups
+    torch.cuda.empty_cache()
+    return {"launches": total, "rec": rec}
+
+
+def fleet_cli(dev, phase) -> dict:
+    """Phase 46's CLI run: ``serve --mode stream --backends mamba2,rwkv6
+    --replicas 2 --slots 4 --n-requests 16 --prompt-len 64 --gen-len 32``
+    at ``fleet_demo_config``'s configs: 16 completions, B8 (the Mamba-2
+    blocks' and RWKV-6's prefill) launched exactly ``fleet_launches``
+    times and no other kernel."""
+    import torch
+    from repro_torch.launch import serve
+    reset_launches()
+    res = serve.stream(serve.parse_args(
+        ["--mode", "stream", "--backends", "mamba2,rwkv6", "--replicas", "2",
+         "--slots", "4", "--n-requests", "16", "--prompt-len", "64",
+         "--gen-len", "32"]))
+    torch.cuda.synchronize()
+    launches = read_launches()
+    name = "gated_linear_attention_fwd"
+    others = {k: n for k, n in launches.items() if k != name and n}
+    if len(res["completions"]) != 16 or res["want_launches"] != {
+            name: launches[name]} or others:
+        raise AssertionError(f"phase {phase}: fleet CLI: "
+                             f"{len(res['completions'])} completions, "
+                             f"launches {launches}, want "
+                             f"{res['want_launches']}")
+    rec = {"launches": launches[name], "seconds": round(res["seconds"], 3),
+           "tok_s": round(res["tokens_per_s"], 1)}
+    if not launches[name]:
+        raise AssertionError(f"phase {phase}: fleet CLI: no {name} launch")
+    print(f"phase {phase}: serve --mode stream --backends mamba2,rwkv6 "
+          f"--replicas 2: 16 completions; {json.dumps(rec)}")
+    del res
+    return {"name": name, "launches": launches[name], "rec": rec}
+
+
+# phase 46's lookup: the paper's k = 100 over 1,024 documents of 750 tokens
+LOOKUP_K, LOOKUP_DOCS, LOOKUP_LEN = 100, 1024, 750
+LOOKUP_QUERIES, LOOKUP_WAVE = 16384, 256
+
+
+def lookup_durability_main_path(dev, phase) -> dict:
+    """Phase 46's lookup: a ``LookupEngine`` of the paper's k = 100 (an
+    fp32 GRU encoder of 32-wide embeddings over a 1,000-token vocabulary,
+    random from a seed) ingests 1,024 documents of 750 tokens (a 41 MB
+    store), checkpoints under ``build/`` (removed at the end) and answers
+    16,384 single-query requests in waves of 256; ``LookupEngine.recover``
+    from the checkpoint holds the store bitwise and answers the same
+    requests bitwise alike. ``HedgedLookup`` over 2 replicas restored from
+    the checkpoint, ``hedge_after`` 64 ticks: unkilled (no hedge) and
+    with replica 0 killed (its 8,192 requests hedged to replica 1, each
+    a hedge win, none delivered twice), the answers bitwise the single
+    engine's. B4 launched once a wave in every run."""
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch.qa.gru import gru_params
+    from repro_torch.serving import HedgedLookup, LookupEngine
+    gens = [torch.Generator(device=dev).manual_seed(i) for i in range(3)]
+    enc = {"embed": torch.randn((1000, 32), generator=gens[0], device=dev)
+           * 0.1, "gru": gru_params(gens[1], 32, LOOKUP_K)}
+    kw = dict(wave_size=LOOKUP_WAVE, capacity=LOOKUP_DOCS, device=dev)
+    eng = LookupEngine(enc, **kw)
+    rng = np.random.default_rng(0)
+    for i in range(LOOKUP_DOCS):
+        eng.ingest(f"doc{i}", rng.integers(0, 1000, size=LOOKUP_LEN))
+    t0 = time.perf_counter()
+    eng.flush()
+    torch.cuda.synchronize()
+    rec = {"ingest_s": round(time.perf_counter() - t0, 3)}
+    docs = list(eng.rows())
+    queries = torch.randn((LOOKUP_QUERIES, LOOKUP_K), generator=gens[2],
+                          device=dev).cpu().numpy()
+    total = 0
+
+    def serve_all(target, label, kill=None):
+        nonlocal total
+        uids = [target.submit(docs[(i * 7) % len(docs)], queries[i])
+                for i in range(LOOKUP_QUERIES)]
+        if kill is not None:
+            target.kill(kill)
+        reset_launches()
+        t0 = time.perf_counter()
+        res = {r.uid: r for r in target.run()}
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = read_launches()
+        engines = getattr(target, "engines", [target])
+        waves = sum(e.stats.waves for e in engines) - sum(
+            w0.get(id(e), 0) for e in engines)
+        others = {k: n for k, n in launches.items()
+                  if k != "mass_lookup_indexed" and n}
+        if launches["mass_lookup_indexed"] != waves or others or \
+                len(res) != LOOKUP_QUERIES:
+            raise AssertionError(f"phase {phase}: lookup {label}: launches "
+                                 f"{launches}, {waves} waves, "
+                                 f"{len(res)} results")
+        total += waves
+        rec[f"{label}_s"] = round(dt, 4)
+        return np.stack([res[u].answers for u in uids])
+
+    w0 = {}
+    d = ROOT / "build" / "chip_smoke_lookup_ckpt"
+    shutil.rmtree(d, ignore_errors=True)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.save_checkpoint(str(d))
+        rec["save_s"] = round(time.perf_counter() - t0, 3)
+        rec["checkpoint_bytes"] = dir_bytes(d)
+        rec["store_bytes"] = sum(t.numel() * t.element_size()
+                                 for t in eng.store.values())
+        w0 = {id(eng): eng.stats.waves}
+        ref = serve_all(eng, "serve")
+        t0 = time.perf_counter()
+        back = LookupEngine.recover(enc, directory=str(d), **kw)
+        torch.cuda.synchronize()
+        rec["restore_s"] = round(time.perf_counter() - t0, 3)
+        if any(not torch.equal(back.store[k], eng.store[k])
+               for k in eng.store):
+            raise AssertionError(f"phase {phase}: the restored store differs")
+        w0 = {id(back): back.stats.waves}
+        if not np.array_equal(serve_all(back, "restored"), ref):
+            raise AssertionError(f"phase {phase}: the restored engine's "
+                                 f"answers differ")
+        del back
+        for label, kill in (("hedged", None), ("hedged_killed", 0)):
+            h = HedgedLookup(enc, replicas=2, hedge_after=64, **kw)
+            for e in h.engines:
+                e.restore_checkpoint(str(d))
+            w0 = {id(e): e.stats.waves for e in h.engines}
+            got = serve_all(h, label, kill)
+            if not np.array_equal(got, ref):
+                raise AssertionError(f"phase {phase}: {label} answers differ "
+                                     f"from the single engine's")
+            rec[label] = {"hedged": h.hedged, "hedge_wins": h.hedge_wins,
+                          "losers_cancelled": h.losers_cancelled}
+            want = (0, 0) if kill is None else (LOOKUP_QUERIES // 2,) * 2
+            if (h.hedged, h.hedge_wins) != want:
+                raise AssertionError(f"phase {phase}: {label}: {rec[label]}")
+            del h
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    rec["launches"] = total
+    print(f"phase {phase}: LookupEngine k={LOOKUP_K}, {LOOKUP_DOCS} documents "
+          f"of {LOOKUP_LEN} tokens: the checkpoint restores the store "
+          f"bitwise and {LOOKUP_QUERIES} queries in waves of {LOOKUP_WAVE} "
+          f"answer bitwise alike; HedgedLookup with a replica killed gives "
+          f"the same answers; {json.dumps(rec)}")
+    del eng
+    torch.cuda.empty_cache()
+    return {"name": "mass_lookup_indexed", "launches": total, "rec": rec}
 
 
 def main() -> int:
@@ -6377,6 +7001,7 @@ def main() -> int:
             "source": "src/repro_torch/kernels/lookup/csrc/lookup.cu",
             "replaces": f"src/repro/kernels/lookup/kernel.py:{line}",
             "launches": main6["launches"][name],
+            "launches_by_path": {"lookup": main6["launches"][name]},
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"]})
@@ -6441,8 +7066,9 @@ def main() -> int:
     # -- 16. the stream main path ------------------------------------------
     t0 = time.perf_counter()
     from repro_torch.launch import serve
-    stream = {serve.STREAM_KERNELS[b][0]: stream_main_path(b, dev, 16)
-              for b in ("linear", "gated_linear", "softmax")}
+    stream = {serve.STREAM_KERNELS[b][0]: stream_main_path(
+        b, dev, 16, n_layers=SERVE_TIME_LAYERS)
+        for b in ("linear", "gated_linear", "softmax")}
     done(16, t0)
 
     # -- 17. the softmax training slice, B10 vs plain, fp32 and bf16 -------
@@ -6660,6 +7286,23 @@ def main() -> int:
     prefix_runs.append(prefix_fork_cli(dev, 44))
     done(44, t0)
 
+    # -- 45. engine durability at full depth, fp32; the crash/recover CLI ---
+    t0 = time.perf_counter()
+    durable_runs = [durability_main_path(backend, dev, 45)
+                    for backend in ("linear", "softmax")]
+    durable_runs.append(durability_cli(dev, 45))
+    done(45, t0)
+
+    # -- 46. the fleet with failover, the fleet CLI, lookup checkpoints and
+    # HedgedLookup -------------------------------------------------------
+    t0 = time.perf_counter()
+    fleet_run = fleet_main_path(dev, 46)
+    fleet_runs = [{"name": k, "launches": n}
+                  for k, n in fleet_run["launches"].items()]
+    fleet_runs.append(fleet_cli(dev, 46))
+    lookup_ckpt = lookup_durability_main_path(dev, 46)
+    done(46, t0)
+
     for r in records:
         r["max_abs_err"] = errs[r["name"]]
         if r["name"] in stream:   # B1/B7: generate, stream; B10: and train
@@ -6722,6 +7365,12 @@ def main() -> int:
     for run in prefix_runs:
         path = more.setdefault(run["name"], {})
         path["prefix_cache"] = path.get("prefix_cache", 0) + run["launches"]
+    # phases 45 and 46
+    for label, runs in (("durability", durable_runs), ("fleet", fleet_runs),
+                        ("lookup_durability", [lookup_ckpt])):
+        for run in runs:
+            path = more.setdefault(run["name"], {})
+            path[label] = path.get(label, 0) + run["launches"]
     dense_times["gated_linear_attention_fwd"].append(rwkv_fwd_shape)
     for r in records:
         if r["name"] in more:

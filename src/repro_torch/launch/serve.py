@@ -54,6 +54,17 @@ keeps one fixed-size state a prefix, softmax refcounted KV blocks);
 rwkv6-1.6b, zamba2-7b). ``--fork N`` submits each prompt for N
 continuations encoded once (N completions a request).
 
+Durability in ``--mode stream`` (JAX's flags): ``--journal PATH``
+writes every submit, cancel and ack to a write-ahead journal before it
+takes effect, ``--checkpoint-dir DIR`` checkpoints the engine every
+``--checkpoint-every`` events, ``--crash-at-event N`` kills the engine at
+event N (exit code 3) and ``--recover`` restores the newest checkpoint,
+replays the journal past it and finishes the stranded requests, each
+acked once. SIGINT or SIGTERM drains: the segment under way finishes and
+the engine checkpoints. ``--backends A,B`` serves a fleet of
+``fleet_demo_config``'s smoke configs behind one queue, ``--replicas N``
+engines a group with failover (``--journal-dir`` for their journals).
+
 ``--mode spec``: speculative decoding against plain continuous
 batching on one workload, in fp32 (JAX's ``spec``): every request
 drafts ``--speculate-k`` tokens a round (``--draft ngram``, ``model`` or
@@ -124,6 +135,14 @@ passes of ``--n-queries`` single-query requests in waves of
   PYTHONPATH=src python -m repro_torch.launch.serve --mode stream \\
       --smoke --device cpu --prefix-cache on --fork 3 --slots 4 \\
       --n-requests 4 --prompt-len 40 --gen-len 8 --prefill-chunk 16
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode stream \\
+      --smoke --device cpu --journal build/wal.journal \\
+      --checkpoint-dir build/ck --crash-at-event 3    # exit code 3
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode stream \\
+      --smoke --device cpu --journal build/wal.journal \\
+      --checkpoint-dir build/ck --recover
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode stream \\
+      --backends mamba2,rwkv6 --replicas 2 --slots 4 --n-requests 16
   PYTHONPATH=src python -m repro_torch.launch.serve --mode spec \\
       --arch qwen3-0.6b --slots 8 --n-requests 16 --prompt-len 128 \\
       --gen-len 64 --speculate-k 6 --draft ngram
@@ -146,6 +165,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import signal
 import time
 from typing import Any, Dict, Optional, Sequence
 
@@ -387,6 +407,134 @@ def ssd_stream_launches(cfg: ModelConfig, stats: Dict[str, Any]) -> int:
     return layer_counts(cfg)["mamba"] * stats["prefills"]
 
 
+class _Drainer:
+    """SIGINT/SIGTERM → finish the segment under way, drain, exit 0.
+
+    The handler only sets a flag, which the serving loop reads between
+    scheduler events, so a signal never tears a segment (or a checkpoint
+    write) in half. A second signal falls to the handler that was there
+    before (the way out if draining itself hangs), and leaving the block
+    puts every previous handler back."""
+
+    def __init__(self):
+        self.requested = False
+        self._prev = {}
+
+    def __enter__(self):
+        for sig in (signal.SIGINT, signal.SIGTERM):
+            try:
+                self._prev[sig] = signal.signal(sig, self._on_signal)
+            except ValueError:          # not the main thread
+                pass
+        return self
+
+    def __exit__(self, *exc):
+        for sig, prev in self._prev.items():
+            signal.signal(sig, prev)
+
+    def _on_signal(self, sig, frame):
+        self.requested = True
+        signal.signal(sig, self._prev.get(sig, signal.SIG_DFL))
+
+
+def fleet_launches(fleet) -> Dict[str, int]:
+    """Kernel launches that a fleet run with its replicas' stats makes,
+    by kernel: each attention group's ``stream_launches``, the Mamba-2
+    blocks' and RWKV-6's B8 launches (one per layer and prefill)."""
+    want: Dict[str, int] = {}
+    for reps in fleet._replicas.values():
+        for rs in reps:
+            eng = rs.engine
+            cfg, st = eng.cfg, eng.stats.to_dict()
+            counts = layer_counts(cfg)
+            if is_rwkv(cfg) or counts["mamba"]:
+                n = (counts["rwkv"] + counts["mamba"]) * st["prefills"]
+                want["gated_linear_attention_fwd"] = want.get(
+                    "gated_linear_attention_fwd", 0) + n
+            if counts["attn"]:
+                name = STREAM_KERNELS[cfg.attention_backend][0]
+                want[name] = want.get(name, 0) + stream_launches(
+                    cfg, st, eng.ingest, eng.admission)
+    return want
+
+
+def stream_fleet(args) -> Dict[str, Any]:
+    """A fleet under the stream workload (JAX's ``stream_fleet``): the
+    Poisson mix round-robins over the backend groups of ``--backends``
+    (``fleet_demo_config``'s smoke-scale configs, which share the
+    vocabulary) behind one admission queue, each group ``--replicas``
+    engines with heartbeat and breaker failover. Prints JAX's lines (but
+    its compiled-program count: the port compiles none) and each
+    kernel's launches against ``fleet_launches``; returns the
+    completions, the fleet's stats, the launches and the fleet."""
+    from repro_torch.serving import FleetEngine, fleet_demo_config
+
+    device = resolve_device(args.device)
+    names = [b.strip() for b in args.backends.split(",") if b.strip()]
+    groups = {}
+    for i, name in enumerate(names):
+        cfg = fleet_demo_config(name)
+        gen = torch.Generator(device=device).manual_seed(args.seed * 4 + i)
+        groups[name] = (lm.init_params(gen, cfg), cfg)
+    max_len = args.prompt_len + args.gen_len + args.segment_len
+    fleet = FleetEngine(
+        groups, n_slots=args.slots, segment_len=args.segment_len,
+        max_len=max_len, temperature=args.temperature, seed=args.seed,
+        max_queue=args.max_queue, shed_policy=args.shed_policy,
+        replicas=args.replicas, journal_dir=args.journal_dir,
+        checkpoint_dir=args.checkpoint_dir,
+        prefix_cache=PREFIX_CACHE[args.prefix_cache],
+        cache_bytes=args.cache_bytes)
+    vocab = min(cfg.vocab_size for _, cfg in groups.values())
+    rng = np.random.default_rng(args.seed)
+    requests = make_request_mix(rng, args.n_requests, args.prompt_len,
+                                args.gen_len, vocab, args.arrival_rate)
+    routed = {}
+    for i, (prompt, g, arrival) in enumerate(requests):
+        uid = fleet.submit(prompt, g, backend=names[i % len(names)],
+                           arrival=arrival)
+        routed[uid] = names[i % len(names)]
+
+    counters = dict(STREAM_KERNELS.values())
+    before = {k: fn.launches for k, fn in counters.items()}
+    t0 = time.perf_counter()
+    completions = fleet.run("continuous")
+    _sync(device)
+    dt = time.perf_counter() - t0
+    launches = {k: fn.launches - before[k] for k, fn in counters.items()}
+    want = fleet_launches(fleet)
+
+    total = sum(len(c.tokens) for c in completions)
+    print(f"fleet backends={','.join(names)} slots={args.slots}/group "
+          f"segment={args.segment_len}")
+    print(f"stream: {len(completions)} requests, {total} tokens in "
+          f"{dt:.2f} s ({total / dt:.0f} tok/s)")
+    stats = fleet.stats()
+    for name in names:
+        g = stats["groups"][name]
+        toks = sum(len(c.tokens) for c in completions
+                   if routed.get(c.uid) == name)
+        print(f"  {name}: {toks} toks, backend={g['backend']} "
+              f"fixed_state={g['fixed_size_state']} "
+              f"state/slot={g['state_bytes_per_slot'] / 1024:.1f} KiB, "
+              f"slot util {g['stats']['slot_utilization']:.2f}")
+    if args.replicas > 1:
+        print(f"replicas={args.replicas}/group "
+              f"failovers={stats['failovers']} "
+              f"readmitted={stats['readmitted']}")
+    on_cpu = ("" if device.type == "cuda" else
+              " (CPU tensors run the plain versions: no launch)")
+    for name, n in sorted(want.items()):
+        print(f"{name}: {launches[name]} launches; the replicas' stats "
+              f"give {n}{on_cpu}")
+    if len(completions) != args.n_requests:
+        raise RuntimeError(f"{len(completions)} completions for "
+                           f"{args.n_requests} requests")
+    return {"exit_code": 0, "completions": completions, "stats": stats,
+            "launches": launches, "want_launches": want, "seconds": dt,
+            "tokens_per_s": total / dt, "fleet": fleet}
+
+
 PREFIX_CACHE = {"off": None, "auto": "auto", "on": True}
 STREAM_KERNELS = {"linear": ("decode_linear", FR.decode_linear),
                   "gated_linear": ("decode_gated", FR.decode_gated),
@@ -403,9 +551,27 @@ def stream(args) -> Dict[str, Any]:
     backend's recurrent kernel in the timed run (``decode_launches``;
     ``warmup_stats`` are the untimed warm-up's), and with Mamba-2 blocks
     their B8 launches (``ssd_launches``, against ``ssd_stream_launches``
-    as ``want_ssd_launches``)."""
-    from repro_torch.serving import DecodeEngine, backend_for_config
+    as ``want_ssd_launches``); ``exit_code`` 0.
 
+    Durability (JAX's flags): ``--journal`` journals every submit,
+    cancel and ack; ``--checkpoint-dir`` checkpoints the engine every
+    ``--checkpoint-every`` events; ``--crash-at-event N`` kills the
+    engine at event N (``exit_code`` 3, the journal and checkpoints left
+    as they are) and ``--recover`` restores the newest checkpoint,
+    replays the journal and finishes the stranded requests instead of
+    submitting new ones. SIGINT or SIGTERM drains: the segment under way
+    finishes, the engine checkpoints (with ``--checkpoint-dir``) and the
+    call returns ``drained`` with ``exit_code`` 0. A durable run has no
+    warm-up, which its journal and event counts would record.
+    ``--backends`` (or ``--replicas`` > 1) serves a fleet:
+    :func:`stream_fleet`."""
+    from repro_torch.serving import (DecodeEngine, FaultInjector,
+                                     InjectedCrash, backend_for_config)
+
+    if args.replicas > 1 and not args.backends:
+        args.backends = args.backend or "linear"
+    if args.backends:
+        return stream_fleet(args)
     device = resolve_device(args.device)
     cfg = serving_config(args)
     backend = backend_for_config(cfg)
@@ -425,38 +591,104 @@ def stream(args) -> Dict[str, Any]:
         shed_policy=args.shed_policy,
         degrade_threshold=args.degrade_threshold,
         prefix_cache=PREFIX_CACHE[args.prefix_cache],
-        cache_bytes=args.cache_bytes)
+        cache_bytes=args.cache_bytes, journal=args.journal,
+        checkpoint_dir=args.checkpoint_dir,
+        checkpoint_every=args.checkpoint_every,
+        injector=(None if args.crash_at_event is None else
+                  FaultInjector(crash=(args.crash_at_event,))))
     rng = np.random.default_rng(args.seed)
     requests = make_request_mix(rng, args.n_requests, args.prompt_len,
                                 args.gen_len, cfg.vocab_size,
                                 args.arrival_rate)
 
-    # warm-up, untimed: the first prompt through admission, ingest and
-    # one segment, so the kernels are loaded and the library has picked
-    # its matmul kernels before the clock starts
-    engine.submit(requests[0][0], min(2, requests[0][1]))
-    engine.run()
-    _sync(device)
-    warmup_stats = engine.stats.to_dict()
-    warmup_ones = int(len(requests[0][0]) == 1)
-    if engine.cache is not None:
-        # the warm-up's entries would make the timed run's first
-        # admission a hit: the timed run starts cold, as JAX's does
-        engine.cache.clear()
-    engine.reset()
+    durable = bool(args.journal or args.checkpoint_dir or args.recover
+                   or args.crash_at_event is not None)
+    warmup_stats, warmup_ones = None, 0
+    if not durable:
+        # warm-up, untimed: the first prompt through admission, ingest
+        # and one segment, so the kernels are loaded and the library has
+        # picked its matmul kernels before the clock starts
+        engine.submit(requests[0][0], min(2, requests[0][1]))
+        engine.run()
+        _sync(device)
+        warmup_stats = engine.stats.to_dict()
+        warmup_ones = int(len(requests[0][0]) == 1)
+        if engine.cache is not None:
+            # the warm-up's entries would make the timed run's first
+            # admission a hit: the timed run starts cold, as JAX's does
+            engine.cache.clear()
+        engine.reset()
 
-    for prompt, g, arrival in requests:
-        engine.submit(prompt, g, arrival=arrival, fork=args.fork)
+    ones = 0
+    if args.recover:
+        if engine.journal is None and engine._ckpt_mgr is None:
+            raise SystemExit(
+                "--recover needs --journal and/or --checkpoint-dir")
+        n_journaled = (len(engine.journal.unacked_submits())
+                       if engine.journal is not None else 0)
+        engine.recover_in_place()
+        print(f"recover: {n_journaled} unacked request(s) replayed "
+              f"from the journal")
+    else:
+        for prompt, g, arrival in requests:
+            engine.submit(prompt, g, arrival=arrival, fork=args.fork)
+        ones = sum(len(p) == 1 for p, _, _ in requests)
+    # a recovered engine's counters start from its checkpoint's
+    stats0 = engine.stats.to_dict()
     launches0, ssd0 = kernel.launches, GL.fwd.launches
     t0 = time.perf_counter()
-    while engine.has_work():
-        engine.step("continuous")
+    with _Drainer() as drain:
+        try:
+            while engine.has_work() and not drain.requested:
+                engine.step("continuous")
+        except InjectedCrash as e:
+            # a simulated hard kill: no drain, no last checkpoint; the
+            # journal and the last periodic checkpoint are what recovery
+            # gets
+            print(f"crash: injected at event {e.event_idx} "
+                  f"(journal/checkpoint left as-is; restart with "
+                  f"--recover)")
+            return {"exit_code": 3, "crashed_at": e.event_idx,
+                    "engine": engine,
+                    "decode_launches": kernel.launches - launches0,
+                    "ssd_launches": GL.fwd.launches - ssd0}
     _sync(device)
     dt = time.perf_counter() - t0
     launches = kernel.launches - launches0
     ssd_launches = GL.fwd.launches - ssd0
     completions = engine.completions()
-    if len(completions) != args.n_requests * args.fork:
+
+    if drain.requested:
+        in_flight = (sum(1 for r in engine._slot_req if r is not None)
+                     + sum(1 for r in engine._ingest_req if r is not None)
+                     + len(engine._queue) + len(engine._suspended))
+        if engine._ckpt_mgr is not None:
+            engine.save_checkpoint()
+        print(f"graceful shutdown: segment finished, {in_flight} "
+              f"in-flight request(s) "
+              + ("journaled + checkpointed for --recover"
+                 if engine.journal is not None
+                 or engine._ckpt_mgr is not None else "dropped"))
+        if args.stats_json:
+            with open(args.stats_json, "w") as f:
+                f.write(engine.stats.to_json())
+            print(f"stats written to {args.stats_json}")
+        return {"exit_code": 0, "drained": True, "in_flight": in_flight,
+                "engine": engine, "completions": completions,
+                "decode_launches": launches}
+
+    acks = None
+    if engine.journal is not None:
+        acks = engine.journal.acked()
+        uids = {c.uid for c in completions}
+        lost = sorted(uids - set(acks))
+        zero_loss = not lost and len(acks) == len(uids)
+        print(f"durability: acks={len(acks)} completions={len(uids)} "
+              f"lost={len(lost)} "
+              f"zero_loss={'PASS' if zero_loss else 'FAIL'}")
+    # every submitted request resolves to a completion, fork=N ones to N;
+    # a recovered run's count comes from the journal
+    if not args.recover and len(completions) != args.n_requests * args.fork:
         raise RuntimeError(f"{len(completions)} completions for "
                            f"{args.n_requests} requests x fork {args.fork}")
 
@@ -467,9 +699,9 @@ def stream(args) -> Dict[str, Any]:
     statuses: Dict[str, int] = {}
     for c in completions:
         statuses[c.status] = statuses.get(c.status, 0) + 1
-    ones = sum(len(p) == 1 for p, _, _ in requests)
-    want = stream_launches(cfg, st.to_dict(), engine.ingest,
-                           engine.admission, ones)
+    want = (stream_launches(cfg, st.to_dict(), engine.ingest,
+                            engine.admission, ones)
+            - stream_launches(cfg, stats0, engine.ingest, engine.admission))
     state_mib = lm.state_bytes(engine.state) / 2**20
     linear_mib = (backend_for_config(cfg.with_backend("linear"))
                   .state_bytes_per_slot(max_len) * args.slots / 2**20)
@@ -528,7 +760,8 @@ def stream(args) -> Dict[str, Any]:
         formula = "attention " + formula
     print(f"{name}: {launches} launches in the timed run; {formula} = "
           f"{want}{on_cpu}")
-    want_ssd = ssd_stream_launches(cfg, st.to_dict())
+    want_ssd = (ssd_stream_launches(cfg, st.to_dict())
+                - ssd_stream_launches(cfg, stats0))
     if mamba:
         print(f"gated_linear_attention_fwd: {ssd_launches} launches in the "
               f"timed run; mamba layers x prefills = {want_ssd}{on_cpu}")
@@ -541,7 +774,7 @@ def stream(args) -> Dict[str, Any]:
         with open(args.stats_json, "w") as f:
             f.write(st.to_json())
         print(f"stats written to {args.stats_json}")
-    return {"tokens_per_s": total / dt, "seconds": dt,
+    return {"exit_code": 0, "tokens_per_s": total / dt, "seconds": dt,
             "ms_per_segment": dt / max(st.segments, 1) * 1e3,
             "slot_utilization": st.slot_utilization,
             "mean_latency_steps": float(np.mean(lat)) if lat else 0.0,
@@ -549,11 +782,15 @@ def stream(args) -> Dict[str, Any]:
             "tokens": total, "stats": st.to_dict(),
             "warmup_stats": warmup_stats, "decode_launches": launches,
             "want_launches": want,
-            "warmup_launches": stream_launches(
-                cfg, warmup_stats, engine.ingest, engine.admission,
-                warmup_ones),
+            "warmup_launches": (0 if warmup_stats is None else
+                                stream_launches(cfg, warmup_stats,
+                                                engine.ingest,
+                                                engine.admission,
+                                                warmup_ones)),
             "ssd_launches": ssd_launches, "want_ssd_launches": want_ssd,
-            "warmup_ssd_launches": ssd_stream_launches(cfg, warmup_stats),
+            "warmup_ssd_launches": (0 if warmup_stats is None else
+                                    ssd_stream_launches(cfg, warmup_stats)),
+            "acks": None if acks is None else len(acks),
             "state_mib": state_mib, "linear_state_mib": linear_mib,
             "completions": completions, "engine": engine}
 
@@ -915,6 +1152,35 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                     help="stream mode: waiting requests per slot beyond "
                          "which the engine degrades (speculation off, "
                          "half ingest chunks); None disables")
+    # durability (stream mode)
+    ap.add_argument("--journal", default=None, metavar="PATH",
+                    help="write-ahead request journal: every submit, "
+                         "cancel and ack is fsync'd to PATH before it takes"
+                         " effect; a restarted engine replays it")
+    ap.add_argument("--journal-dir", default=None, metavar="DIR",
+                    help="fleet mode: per-replica journals under DIR")
+    ap.add_argument("--checkpoint-dir", default=None, metavar="DIR",
+                    help="engine checkpoints (slot states + scheduler)"
+                         " under DIR; atomic, keep-N retention")
+    ap.add_argument("--checkpoint-every", type=int, default=4,
+                    metavar="N", help="checkpoint every N scheduler"
+                    " events (0 = only on graceful shutdown)")
+    ap.add_argument("--recover", action="store_true",
+                    help="restore the newest checkpoint, replay the"
+                         " journal past it, and finish the stranded"
+                         " work instead of submitting new requests")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="fleet mode: replicas per backend group"
+                         " (heartbeat + circuit-breaker failover)")
+    ap.add_argument("--backends", default=None, metavar="A,B,...",
+                    help="serve a fleet (stream mode): comma-separated "
+                         "backend groups of fleet_demo_config (linear, "
+                         "gated_linear, softmax, mamba2, rwkv6), one slot "
+                         "group each behind a single admission queue")
+    ap.add_argument("--crash-at-event", type=int, default=None,
+                    metavar="N", help="chaos: hard-kill the engine at"
+                    " scheduler event N (exit 3; restart with"
+                    " --recover)")
     # spec mode (speculative decoding)
     ap.add_argument("--speculate-k", type=int, default=6,
                     help="draft tokens per verify round")
@@ -957,7 +1223,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     if args.mode == "lookup":
         lookup(args)
     elif args.mode == "stream":
-        stream(args)
+        return stream(args)["exit_code"]
     elif args.mode == "spec":
         spec(args)
     elif args.mode == "retrieve":

@@ -2,8 +2,10 @@
 over fixed decode-state slots with its request lifecycle, speculative
 rounds, prefix cache and fork (``engine.py``, ``lifecycle.py``,
 ``speculative.py``, ``prefix_cache.py``, through the backends of
-``backends/``), and ``LookupEngine``, the paper's
-encode-once / look-up-many memory serving (``lookup_engine.py``)."""
+``backends/``), its write-ahead ``Journal`` (``journal.py``) and the
+``FleetEngine`` of replicated slot groups with failover (``fleet.py``),
+and ``LookupEngine``, the paper's encode-once / look-up-many memory
+serving, with ``HedgedLookup`` over its replicas (``lookup_engine.py``)."""
 
 from repro_torch.serving.backends import (  # noqa: F401
     DecodeBackend,
@@ -22,6 +24,15 @@ from repro_torch.serving.engine import (  # noqa: F401
     EngineStats,
     Request,
 )
+from repro_torch.serving.fleet import (  # noqa: F401
+    FleetEngine,
+    ReplicaState,
+    fleet_demo_config,
+)
+from repro_torch.serving.journal import (  # noqa: F401
+    Journal,
+    read_journal,
+)
 from repro_torch.serving.lifecycle import (  # noqa: F401
     SHED_POLICIES,
     STATUS_CANCELLED,
@@ -35,6 +46,7 @@ from repro_torch.serving.lifecycle import (  # noqa: F401
     SuspendedRequest,
 )
 from repro_torch.serving.lookup_engine import (  # noqa: F401
+    HedgedLookup,
     LinearLookupBackend,
     LookupBackend,
     LookupEngine,

@@ -119,14 +119,28 @@ Policies: ``continuous`` admits into any freed slot between segments
 (and preempts for priority); ``static`` admits only when every slot is
 free (the batch-synchronous baseline).
 
-Not ported here (they come with ROADMAP A.6's durability slice): the
-write-ahead journal, engine checkpoints and ``recover``
-(``InjectedCrash`` propagates to the caller; the places the journal
-writes its records are marked).
+* **Durability** (``journal``, ``checkpoint_dir`` on the engine). A
+  :class:`~repro_torch.serving.journal.Journal` records every submit and
+  cancel before it takes effect and every completion's ack before it is
+  observable. ``save_checkpoint`` writes the whole engine through the
+  atomic checkpoint writer in JAX's layout: the slot batch, the RNG key
+  leaf and every suspended and last-good snapshot as the device tree,
+  the scheduler's host state in ``extra`` (``checkpoint_every`` > 0
+  saves every that many events). ``recover`` (or ``recover_in_place``)
+  restores the newest checkpoint and replays the journal past it:
+  acked uids are served their journaled completion and never acked
+  again, unacked submits re-enter the queue under their own uids, so a
+  greedy run completes every request with the tokens of an uncrashed
+  run, each acked once. Sampling draws from a ``torch.Generator``, not
+  JAX's key: the checkpoint keeps JAX's ``uint32[2]`` key leaf (so
+  either package restores the other's greedy checkpoint) and the
+  generator's state in ``extra["torch_generator"]``, which JAX does not
+  read; a checkpoint without it reseeds the generator from ``seed``.
 """
 
 from __future__ import annotations
 
+import base64
 import bisect
 import dataclasses
 import json
@@ -137,7 +151,18 @@ import torch
 
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.attention import AttnState
 from repro_torch.serving.backends import DecodeBackend, backend_for_config
+from repro_torch.serving.journal import (
+    REC_ACK,
+    REC_CANCEL,
+    REC_SUBMIT,
+    Journal,
+    ack_record,
+    cancel_record,
+    completion_from_ack,
+    submit_record,
+)
 from repro_torch.serving.lifecycle import (
     SHED_POLICIES,
     STATUS_CANCELLED,
@@ -321,6 +346,13 @@ class DecodeEngine:
     :class:`~repro_torch.serving.prefix_cache.PrefixCache` to use as it
     is (its chunk a multiple of ``prefill_chunk``); ``cache_bytes`` the
     byte budget of a cache the engine builds.
+
+    Durability: ``journal`` a path (a file-backed
+    :class:`~repro_torch.serving.journal.Journal`) or a ``Journal``
+    (in memory with ``path=None``); ``checkpoint_dir`` the directory of
+    engine checkpoints (``save_checkpoint``, ``recover``), keeping the
+    newest ``checkpoint_keep``; ``checkpoint_every`` > 0 saves one every
+    that many events.
     """
 
     def __init__(
@@ -346,6 +378,10 @@ class DecodeEngine:
         max_retries: int = 1,
         checkpoint_interval: int = 0,
         injector: Optional[FaultInjector] = None,
+        journal: Optional[Any] = None,
+        checkpoint_dir: Optional[str] = None,
+        checkpoint_every: int = 0,
+        checkpoint_keep: int = 2,
         prefix_cache: Any = None,
         cache_bytes: int = 64 << 20,
     ):
@@ -357,6 +393,9 @@ class DecodeEngine:
         if max_retries < 0 or checkpoint_interval < 0:
             raise ValueError("max_retries and checkpoint_interval must be "
                              ">= 0")
+        if checkpoint_every < 0 or checkpoint_keep < 1:
+            raise ValueError("checkpoint_every must be >= 0 and "
+                             "checkpoint_keep >= 1")
         self.params = params
         self.cfg = cfg
         self.backend = (backend if backend is not None
@@ -376,8 +415,13 @@ class DecodeEngine:
         self.max_retries = max_retries
         self.checkpoint_interval = checkpoint_interval
         self.injector = injector
-        # the write-ahead journal and engine checkpoints come with ROADMAP
-        # A.6's durability slice
+        # a path is the CLI's form; fleets and tests pass a Journal
+        self.journal: Optional[Journal] = (
+            Journal(journal) if isinstance(journal, str) else journal)
+        self.checkpoint_every = checkpoint_every
+        self._ckpt_mgr: Optional[CheckpointManager] = (
+            CheckpointManager(checkpoint_dir, keep=checkpoint_keep)
+            if checkpoint_dir is not None else None)
         self.admission, self.ingest = self.backend.resolve_modes(
             admission, ingest)
         # a power-of-two chunk, so every bucket width is one too
@@ -447,6 +491,11 @@ class DecodeEngine:
         self._next_uid = 0
         self._gen = torch.Generator(device=self.device).manual_seed(
             self._seed)
+        # JAX's PRNGKey(seed), kept only as the checkpoint's "key" leaf:
+        # the port samples from _gen
+        self._key = torch.tensor(
+            [(self._seed >> 32) & 0xFFFFFFFF, self._seed & 0xFFFFFFFF],
+            dtype=torch.int64).to(torch.uint32)
         # lifecycle & fault-tolerance bookkeeping
         self._suspended: List[SuspendedRequest] = []
         self._quarantined = np.zeros((s,), bool)
@@ -457,6 +506,11 @@ class DecodeEngine:
         self._degraded = False
         self._events = 0          # segment/round boundaries elapsed
         self._admit_passes = 0    # admission passes attempted
+        # durability: uids whose ack is already in the journal (delivered
+        # by an earlier incarnation, never acked again), and the flag that
+        # keeps replay from journaling journaled submits and cancels anew
+        self._journal_acked: Dict[int, Completion] = {}
+        self._replaying = False
         # the cache entries (paged blocks) each slot was admitted from,
         # pinned until the slot is torn down; stats report the cache's
         # counters as deltas since this reset
@@ -522,7 +576,12 @@ class DecodeEngine:
         # ---- validation complete; engine state changes start here -----
         if uid is None:
             uid = self._next_uid
-        # the journal's write-ahead submit record goes here (ROADMAP A.6)
+        # write-ahead: the request is durable before any engine state
+        # changes (replay re-applies journaled submits without a record)
+        if self.journal is not None and not self._replaying:
+            self.journal.append(submit_record(
+                uid, prompt, max_new_tokens, arrival, speculate_k,
+                priority, deadline_s, fork=fork))
         self._next_uid = uid + fork
         req = Request(uid=uid, prompt=prompt, max_new_tokens=max_new_tokens,
                       arrival=arrival, speculate_k=speculate_k,
@@ -559,7 +618,10 @@ class DecodeEngine:
         once ``status="cancelled"`` (a suspended one with its partial
         tokens); an active or ingesting one is evicted at the next
         scheduling boundary. False if the uid is unknown or complete."""
-        # the journal's write-ahead cancel record goes here (ROADMAP A.6)
+        # write-ahead: the intent is durable before it takes effect (a
+        # replayed cancel of a finished request is still a no-op)
+        if self.journal is not None and not self._replaying:
+            self.journal.append(cancel_record(uid))
         for i, r in enumerate(self._queue):
             if r.uid == uid:
                 self._queue.pop(i)
@@ -590,6 +652,18 @@ class DecodeEngine:
         """Requests waiting in the admission queue."""
         return len(self._queue)
 
+    def shed_queued(self, uid: int) -> bool:
+        """Shed a queued request by uid (``status="shed"``): a fleet's
+        cross-group eviction, whose fleet-wide bounded queue may pick a
+        victim in another group than the arrival's. False if the uid is
+        not queued."""
+        for i, r in enumerate(self._queue):
+            if r.uid == uid:
+                self._queue.pop(i)
+                self._shed(r)
+                return True
+        return False
+
     def completions(self) -> List[Completion]:
         """Completions recorded so far, in uid order."""
         return [self._completions[u] for u in sorted(self._completions)]
@@ -605,6 +679,8 @@ class DecodeEngine:
         # cancel, a budget of one, an instant EOS) never spawned its
         # members: they complete here with its outcome, as independent
         # submits would. After activation the primary carries fork=1.
+        # Each member passes the journal-acked check itself, so replay
+        # stays exactly-once per uid.
         if req.fork > 1:
             for i in range(1, req.fork):
                 self._complete(dataclasses.replace(req, uid=req.uid + i,
@@ -612,19 +688,30 @@ class DecodeEngine:
                                list(tokens), admitted_step, status=status,
                                retries=retries)
             req = dataclasses.replace(req, fork=1)
+        prior = self._journal_acked.get(req.uid)
+        if prior is not None:
+            # delivered by an earlier incarnation: its journaled ack is
+            # the result (exactly once), never acked twice
+            self._completions[req.uid] = prior
+            return
         last = tokens[-1] if tokens else None
         if status == STATUS_OK:
             reason = ("eos" if self.eos_id is not None
                       and last == self.eos_id else "length")
         else:
             reason = status
-        # the journal's ack record goes here, before the completion is
-        # observable (ROADMAP A.6)
-        self._completions[req.uid] = Completion(
+        completion = Completion(
             uid=req.uid, prompt_len=len(req.prompt),
             tokens=np.asarray(tokens, np.int32), finish_reason=reason,
             admitted_step=admitted_step, finished_step=self._clock,
             status=status, retries=retries)
+        if self.journal is not None:
+            # ack-ahead: the delivery record is on stable storage before
+            # the completion is observable; a crash between the two
+            # serves the journaled ack on recovery
+            self.journal.append(ack_record(completion))
+            self._journal_acked[req.uid] = completion
+        self._completions[req.uid] = completion
 
     def _release_hold(self, slot: int) -> None:
         """Drop the cache pins (paged-KV refcounts) the slot's request
@@ -1267,8 +1354,9 @@ class DecodeEngine:
                         and self._events - self._last_ckpt_event[slot]
                         >= self.checkpoint_interval):
                     self._checkpoint_slot(slot)
-        # the durability slice's periodic engine checkpoint goes here
-        # (ROADMAP A.6)
+        if (self._ckpt_mgr is not None and self.checkpoint_every > 0
+                and self._events % self.checkpoint_every == 0):
+            self.save_checkpoint()
 
     def _fail_all_pending(self) -> None:
         """Every slot is quarantined: nothing can run again, so fail the
@@ -1282,6 +1370,284 @@ class DecodeEngine:
             self.stats.failed += 1
             self._complete(r, [], admitted_step=-1, status=STATUS_FAILED)
         self._queue = []
+
+    # ------------------------------------------------------------------
+    # durability: engine checkpoints and journal replay
+    # ------------------------------------------------------------------
+
+    @staticmethod
+    def _req_to_dict(req: Request) -> Dict:
+        return {"uid": int(req.uid),
+                "prompt": np.asarray(req.prompt, np.int32).tolist(),
+                "max_new_tokens": int(req.max_new_tokens),
+                "arrival": float(req.arrival),
+                "speculate_k": int(req.speculate_k),
+                "priority": int(req.priority),
+                "deadline_s": (None if req.deadline_s is None
+                               else float(req.deadline_s)),
+                "fork": int(req.fork)}
+
+    @staticmethod
+    def _req_from_dict(d: Dict) -> Request:
+        return Request(uid=d["uid"],
+                       prompt=np.asarray(d["prompt"], np.int32),
+                       max_new_tokens=d["max_new_tokens"],
+                       arrival=d["arrival"], speculate_k=d["speculate_k"],
+                       priority=d["priority"], deadline_s=d["deadline_s"],
+                       fork=d.get("fork", 1))
+
+    @staticmethod
+    def _snapshot_kv_rows(snap) -> int:
+        """The KV rows of a (possibly row-ranged) snapshot, -1 when it
+        holds no KV cache (the fixed-size states): written beside the
+        checkpoint so that restore rebuilds each snapshot's template."""
+        for part in sorted(snap):
+            for st in snap[part]:
+                if isinstance(st, AttnState) and st.k_cache is not None:
+                    return int(st.k_cache.shape[st.k_cache.ndim - 3])
+        return -1
+
+    def _snapshot_template(self, rows: int):
+        """The tree of a ``rows``-row slot snapshot, as views of the
+        engine's state (nothing copied); ``rows`` < 0 means whole."""
+        w = self.max_len if rows is None or rows < 0 else int(rows)
+        return self.backend.state_rows_view(
+            self.state, 0, max(1, min(w, self.max_len)))
+
+    def _generator_state(self) -> Dict[str, str]:
+        return {"device": self.device.type,
+                "state": base64.b64encode(bytes(
+                    self._gen.get_state().numpy())).decode("ascii")}
+
+    def _set_generator_state(self, saved: Optional[Dict[str, str]]) -> None:
+        """The sampling generator as saved, or seeded from ``seed`` when
+        the checkpoint has none (a JAX checkpoint) or another device's."""
+        self._gen = torch.Generator(device=self.device)
+        if saved is None or saved.get("device") != self.device.type:
+            self._gen.manual_seed(self._seed)
+            return
+        raw = np.frombuffer(base64.b64decode(saved["state"]), np.uint8)
+        self._gen.set_state(torch.from_numpy(raw.copy()))
+
+    def save_checkpoint(self, step: Optional[int] = None) -> int:
+        """Write a whole-engine checkpoint through the atomic writer, in
+        JAX's layout. The tree holds the slot batch, the ``key`` leaf and
+        every suspended and last-good snapshot: O(S·k²) floats per layer
+        for the paper's fixed-size backends whatever the contexts (the
+        softmax baseline writes its KV caches). The host state (queues,
+        per-slot scalars, completions, stats, the logical clock and the
+        generator's state) rides in ``extra``; ``journal_seq`` is the
+        journal position the checkpoint holds, so recovery replays only
+        later records. Needs ``checkpoint_dir``; returns the step (the
+        event counter unless given)."""
+        if self._ckpt_mgr is None:
+            raise ValueError("engine has no checkpoint_dir configured")
+        step = self._events if step is None else int(step)
+        tree = {
+            "key": self._key,
+            "slot_ckpt": {str(s): c.state
+                          for s, c in sorted(self._ckpt.items())},
+            "state": self.state,
+            "suspended": tuple(s.state for s in self._suspended),
+        }
+        extra = {
+            "journal_seq": (self.journal.seq
+                            if self.journal is not None else 0),
+            "clock": int(self._clock),
+            "events": int(self._events),
+            "admit_passes": int(self._admit_passes),
+            "next_uid": int(self._next_uid),
+            "tok": self._tok.tolist(), "pos": self._pos.tolist(),
+            "active": [bool(a) for a in self._active],
+            "remaining": self._remaining.tolist(),
+            "spec_k": self._spec_k.tolist(),
+            "slot_req": [None if r is None else self._req_to_dict(r)
+                         for r in self._slot_req],
+            "slot_toks": [list(t) for t in self._slot_toks],
+            "slot_admitted": [int(a) for a in self._slot_admitted],
+            "ingest_req": [None if r is None else self._req_to_dict(r)
+                           for r in self._ingest_req],
+            "ingest_cursor": self._ingest_cursor.tolist(),
+            "queue": [self._req_to_dict(r) for r in self._queue],
+            "suspended": [
+                {"req": self._req_to_dict(s.req), "tok": int(s.tok),
+                 "pos": int(s.pos), "remaining": int(s.remaining),
+                 "toks": list(s.toks),
+                 "admitted_step": int(s.admitted_step),
+                 "retries": int(s.retries)}
+                for s in self._suspended],
+            "slot_ckpt": {
+                str(s): {"tok": int(c.tok), "pos": int(c.pos),
+                         "remaining": int(c.remaining),
+                         "toks": list(c.toks)}
+                for s, c in sorted(self._ckpt.items())},
+            # row-ranged snapshot widths (KV rows; -1 for fixed-size
+            # states): restore rebuilds the templates from them, so a
+            # ranged snapshot round-trips
+            "suspended_rows": [self._snapshot_kv_rows(s.state)
+                               for s in self._suspended],
+            "slot_ckpt_rows": {
+                str(s): self._snapshot_kv_rows(c.state)
+                for s, c in sorted(self._ckpt.items())},
+            "completions": [ack_record(c)
+                            for _, c in sorted(self._completions.items())],
+            "quarantined": [bool(q) for q in self._quarantined],
+            "retry_count": {str(u): int(n)
+                            for u, n in self._retry_count.items()},
+            "last_ckpt_event": self._last_ckpt_event.tolist(),
+            "cancel_uids": sorted(int(u) for u in self._cancel_uids),
+            "degraded": bool(self._degraded),
+            "stats": dataclasses.asdict(self.stats),
+            "seen_shapes": sorted(list(k) for k in self._seen_shapes),
+            # the port's own: JAX reads no such key
+            "torch_generator": self._generator_state(),
+        }
+        self._ckpt_mgr.save(step, tree, extra, blocking=True)
+        return step
+
+    def restore_checkpoint(self, step: Optional[int] = None) -> int:
+        """Restore this engine from its checkpoint directory (the newest
+        retained step by default, past corrupt ones), written by either
+        package. The engine must be built with the (params, cfg,
+        n_slots, max_len) the checkpoint was written under: the tree's
+        structure follows the config. Returns the journal position the
+        checkpoint holds (where replay starts)."""
+        if self._ckpt_mgr is None:
+            raise ValueError("engine has no checkpoint_dir configured")
+
+        def like_fn(extra):
+            susp_rows = extra.get("suspended_rows",
+                                  [-1] * len(extra["suspended"]))
+            ck_rows = extra.get("slot_ckpt_rows", {})
+            return {"key": torch.zeros(2, dtype=torch.uint32),
+                    "slot_ckpt": {k: self._snapshot_template(
+                        ck_rows.get(k, -1)) for k in sorted(
+                            extra["slot_ckpt"])},
+                    "state": self.state,
+                    "suspended": tuple(self._snapshot_template(w)
+                                       for w in susp_rows)}
+
+        tree, extra, _ = self._ckpt_mgr.restore_with(like_fn, step)
+        for slot in range(self.n_slots):
+            self._release_hold(slot)
+        self.state = tree["state"]
+        self._key = tree["key"]
+        self._clock = extra["clock"]
+        self._events = extra["events"]
+        self._admit_passes = extra["admit_passes"]
+        self._next_uid = extra["next_uid"]
+        self._tok = np.asarray(extra["tok"], np.int64)
+        self._pos = np.asarray(extra["pos"], np.int32)
+        self._active = np.asarray(extra["active"], bool)
+        self._remaining = np.asarray(extra["remaining"], np.int32)
+        self._spec_k = np.asarray(extra["spec_k"], np.int32)
+        self._slot_req = [None if d is None else self._req_from_dict(d)
+                          for d in extra["slot_req"]]
+        self._slot_toks = [list(t) for t in extra["slot_toks"]]
+        self._slot_admitted = list(extra["slot_admitted"])
+        self._ingest_req = [None if d is None else self._req_from_dict(d)
+                            for d in extra["ingest_req"]]
+        self._ingest_cursor = np.asarray(extra["ingest_cursor"], np.int64)
+        self._queue = [self._req_from_dict(d) for d in extra["queue"]]
+        self._suspended = [
+            SuspendedRequest(
+                req=self._req_from_dict(d["req"]),
+                state=tree["suspended"][i], tok=d["tok"], pos=d["pos"],
+                remaining=d["remaining"], toks=list(d["toks"]),
+                admitted_step=d["admitted_step"], retries=d["retries"])
+            for i, d in enumerate(extra["suspended"])]
+        self._ckpt = {
+            int(k): Checkpoint(state=tree["slot_ckpt"][k], tok=d["tok"],
+                               pos=d["pos"], remaining=d["remaining"],
+                               toks=list(d["toks"]))
+            for k, d in extra["slot_ckpt"].items()}
+        self._completions = {rec["uid"]: completion_from_ack(rec)
+                             for rec in extra["completions"]}
+        self._quarantined = np.asarray(extra["quarantined"], bool)
+        self._retry_count = {int(u): n
+                             for u, n in extra["retry_count"].items()}
+        self._last_ckpt_event = np.asarray(extra["last_ckpt_event"],
+                                           np.int64)
+        self._cancel_uids = set(extra["cancel_uids"])
+        self._degraded = extra["degraded"]
+        self.stats = EngineStats(**extra["stats"])
+        self._seen_shapes = {tuple(k) for k in extra["seen_shapes"]}
+        self._set_generator_state(extra.get("torch_generator"))
+        # a draft provider's per-slot state follows from prompt + emitted
+        # tokens: re-admit rather than serialise (ModelDraft re-prefills)
+        if self.draft is not None:
+            self.draft.reset()
+            for slot in range(self.n_slots):
+                if self._active[slot] and self._spec_k[slot] > 0:
+                    req = self._slot_req[slot]
+                    self.draft.admit(slot, np.concatenate(
+                        [req.prompt, self._slot_toks[slot]]
+                    ).astype(np.int32))
+        return extra.get("journal_seq", 0)
+
+    def _replay_journal(self, from_seq: int = 0) -> None:
+        """Re-apply the journal's records past ``from_seq`` (the position
+        the restored checkpoint holds; 0 without one). Journaled acks are
+        the delivery record: their uids are served the recorded
+        completion, from before the checkpoint too, and their submits do
+        not run again. Unacked submits re-enter the queue under their own
+        uids (journal order is uid order, so uids stay monotone), and
+        greedy decoding reproduces their tokens. A cancel journaled while
+        its request ran replays against the requeued request."""
+        if self.journal is None:
+            raise ValueError("engine has no journal to replay")
+        records = self.journal.records()
+        for rec in records:
+            if rec["t"] == REC_ACK:
+                self._journal_acked[rec["uid"]] = completion_from_ack(rec)
+        self._completions.update(self._journal_acked)
+        self._replaying = True
+        try:
+            for rec in records[from_seq:]:
+                if rec["t"] == REC_SUBMIT:
+                    fork = rec.get("fork", 1)
+                    # a forked submit owns uid..uid+fork-1: it runs again
+                    # unless every member was delivered
+                    if all(rec["uid"] + i in self._journal_acked
+                           for i in range(fork)):
+                        continue
+                    self.submit(np.asarray(rec["prompt"], np.int32),
+                                rec["max_new_tokens"],
+                                arrival=rec["arrival"],
+                                speculate_k=rec["speculate_k"],
+                                priority=rec["priority"],
+                                deadline_s=rec["deadline_s"],
+                                uid=rec["uid"], fork=fork)
+                elif rec["t"] == REC_CANCEL:
+                    if rec["uid"] in self._journal_acked:
+                        continue        # resolved before the crash
+                    self.cancel(rec["uid"])
+        finally:
+            self._replaying = False
+
+    def recover_in_place(self) -> None:
+        """Restore the newest checkpoint (if any) and replay the journal
+        past it: the engine is then where the dead incarnation was at its
+        last boundary, and running it yields every outstanding ack
+        (greedy: bit for bit), none lost or repeated."""
+        from_seq = 0
+        if self._ckpt_mgr is not None and self._ckpt_mgr.has_checkpoint():
+            from_seq = self.restore_checkpoint()
+        if self.journal is not None:
+            self._replay_journal(from_seq)
+
+    @classmethod
+    def recover(cls, params: Any, cfg: ModelConfig, *,
+                journal: Optional[Any] = None,
+                checkpoint_dir: Optional[str] = None,
+                **kwargs) -> "DecodeEngine":
+        """Build an engine and bring it to the journal and checkpoint's
+        state: the restart after a crash. Pass the engine arguments the
+        dead incarnation had (the checkpoint's tree follows them)."""
+        eng = cls(params, cfg, journal=journal,
+                  checkpoint_dir=checkpoint_dir, **kwargs)
+        eng.recover_in_place()
+        return eng
 
     # ------------------------------------------------------------------
     # speculative rounds

@@ -23,8 +23,9 @@ module holds the host-side descriptors that ride on that:
   clock after an event, or crash the engine at an event.
 
 ``InjectedCrash`` is raised by the engine when the injector schedules a
-crash; only the durability layer (the journal and engine checkpoints,
-ROADMAP A.6) catches it.
+crash; ``serve --mode stream`` catches it (exit code 3, the journal and
+checkpoints left for ``--recover``) and ``FleetEngine.step`` counts it as
+a replica's breaker failure.
 
 Request lifecycle::
 

@@ -26,9 +26,14 @@ same scheduler: it keeps every document's full ``(n, k)`` hidden states
 resident and rescans them per query.
 
 Where the JAX engine returns a new store from a jitted program, this one
-writes the store's rows in place (``index_copy_``). Checkpointing
-(``save_checkpoint`` / ``restore_checkpoint`` / ``recover``) and
-``HedgedLookup`` are not ported yet.
+writes the store's rows in place (``index_copy_``).
+
+Durability: ``save_checkpoint`` / ``restore_checkpoint`` / ``recover``
+write and read the whole engine (the store as the ``{"store": ...}``
+tree, the rest in ``extra``) in JAX's format, so either package restores
+the other's; :class:`HedgedLookup` runs replicas of the engine behind
+one queue and duplicates a request still unanswered ``hedge_after``
+ticks later to a second replica, the first answer winning.
 """
 
 from __future__ import annotations
@@ -42,6 +47,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.checkpoint import CheckpointManager
 from repro_torch.core.linear_attention import safe_denom
 from repro_torch.core.state import DocumentState, gram
 from repro_torch.device import resolve_device
@@ -683,3 +689,232 @@ class LookupEngine:
         """Logical bytes of every resident memory: O(N·k²) for the linear
         backend, O(Σ nᵢ·k) for softmax."""
         return self.stats.resident_state_bytes
+
+    # -- durability ----------------------------------------------------
+
+    def save_checkpoint(self, directory: str, step: int = 0,
+                        keep: int = 2) -> None:
+        """Write the whole engine through the atomic writer, in JAX's
+        format: the resident store (for the linear backend N·k² floats
+        however long the documents were), the row and length maps,
+        pending ingests, queued requests, served results and the stats.
+        A restored engine answers bit for bit: the store's arrays come
+        back bitwise and a lookup is a function of (store, rows, q)."""
+        extra = {
+            "capacity": self._capacity, "n_cap": self._n_cap,
+            "row_of": dict(self._row_of),
+            "len_of": dict(self._len_of),
+            "pending": [[d, np.asarray(t, np.int32).tolist()]
+                        for d, t in self._pending],
+            "queue": [{"uid": r.uid, "doc_id": r.doc_id,
+                       "queries": np.asarray(r.queries).tolist(),
+                       "priority": r.priority}
+                      for p in sorted(self._queue, reverse=True)
+                      for r in self._queue[p]],
+            "results": [
+                {"uid": r.uid, "doc_id": r.doc_id,
+                 "answers": (None if r.answers is None
+                             else np.asarray(r.answers).tolist()),
+                 "status": r.status, "wave": r.wave}
+                for _, r in sorted(self._results.items())],
+            "next_uid": self._next_uid,
+            "stats": dataclasses.asdict(self.stats),
+            "seen_shapes": sorted(list(k) for k in self._seen_shapes),
+        }
+        CheckpointManager(directory, keep=keep).save(
+            step, {"store": self.store}, extra, blocking=True)
+
+    def restore_checkpoint(self, directory: str,
+                           step: Optional[int] = None) -> None:
+        """Restore from :meth:`save_checkpoint`'s output, by either
+        package (the newest retained step by default, past corrupt
+        ones)."""
+        tree, extra, _ = CheckpointManager(directory).restore(
+            {"store": self.store}, step)
+        self._capacity = extra["capacity"]
+        self._n_cap = extra["n_cap"]
+        self.store = dict(tree["store"])
+        self._row_of = dict(extra["row_of"])
+        self._len_of = {d: int(n) for d, n in extra["len_of"].items()}
+        self._pending = [(d, np.asarray(t, np.int32))
+                         for d, t in extra["pending"]]
+        self._queue = {}
+        for d in sorted(extra["queue"], key=lambda d: d["uid"]):
+            self._queue.setdefault(d["priority"], collections.deque()
+                                   ).append(LookupRequest(
+                uid=d["uid"], doc_id=d["doc_id"],
+                queries=np.asarray(d["queries"], self._np_dtype),
+                priority=d["priority"]))
+        self._n_queued = len(extra["queue"])
+        self._results = {
+            d["uid"]: LookupResult(
+                uid=d["uid"], doc_id=d["doc_id"],
+                answers=(None if d["answers"] is None
+                         else np.asarray(d["answers"], self._np_dtype)),
+                status=d["status"], wave=d["wave"])
+            for d in extra["results"]}
+        self._next_uid = extra["next_uid"]
+        self.stats = LookupStats(**extra["stats"])
+        self._seen_shapes = {tuple(k) for k in extra["seen_shapes"]}
+
+    @classmethod
+    def recover(cls, encoder: Optional[Dict[str, Any]] = None, *,
+                directory: str, **kwargs) -> "LookupEngine":
+        """Build a lookup engine and restore it from ``directory``: the
+        restart. Pass the arguments the dead incarnation had."""
+        eng = cls(encoder, **kwargs)
+        eng.restore_checkpoint(directory)
+        return eng
+
+
+# ---------------------------------------------------------------------------
+# hedged lookups: tail latency and failover across lookup replicas
+# ---------------------------------------------------------------------------
+
+class HedgedLookup:
+    """N :class:`LookupEngine` replicas behind one submit/results API,
+    with request hedging: nearly free here, since a replica of a memory
+    is an O(k²) copy.
+
+    Every ingest or pin lands on every replica (each holds the whole
+    store); a request goes to one replica, round-robin. A request still
+    unanswered ``hedge_after`` ticks later (its replica slow, backlogged
+    or dead) is duplicated to a second replica; the first answer wins
+    and the loser is cancelled out of its queue
+    (:meth:`LookupEngine.cancel`), or its late answer dropped: no uid is
+    delivered twice. Both replicas hold the same store, so where every
+    request of a wave has the same query count the answer is bitwise the
+    same whichever replica served it.
+
+    ``kill(r)`` stops a replica's stepping and routing (the chaos hook):
+    its queued work is recovered by hedging alone.
+    """
+
+    def __init__(self, encoder: Optional[Dict[str, Any]] = None, *,
+                 replicas: int = 2, hedge_after: int = 1,
+                 **engine_kwargs):
+        if replicas < 2:
+            raise ValueError("hedging needs at least two replicas")
+        if hedge_after < 1:
+            raise ValueError(f"hedge_after must be >= 1, got {hedge_after}")
+        self.engines = [LookupEngine(encoder, **engine_kwargs)
+                        for _ in range(replicas)]
+        self.hedge_after = hedge_after
+        self._alive = [True] * replicas
+        self._next_uid = 0
+        self._tick = 0
+        # uid → (replica, the replica's uid); hedges kept apart
+        self._primary: Dict[int, Tuple[int, int]] = {}
+        self._hedge: Dict[int, Tuple[int, int]] = {}
+        self._born: Dict[int, int] = {}          # uid → submit tick
+        # uid → (doc_id, queries, priority): a hedge's payload never
+        # reads a dead replica's internals
+        self._reqs: Dict[int, Tuple[str, np.ndarray, int]] = {}
+        self._results: Dict[int, LookupResult] = {}
+        self._rr = 0
+        self.hedged = 0          # duplicates issued
+        self.hedge_wins = 0      # answers served by the hedge copy
+        self.losers_cancelled = 0
+
+    # -- the store: every replica holds all of it ----------------------
+
+    def ingest(self, doc_id: str, tokens) -> None:
+        for eng in self.engines:
+            eng.ingest(doc_id, tokens)
+
+    def ingest_hidden(self, doc_id: str, h) -> None:
+        for eng in self.engines:
+            eng.ingest_hidden(doc_id, h)
+
+    def pin(self, doc_id: str, state: DocumentState) -> None:
+        for eng in self.engines:
+            eng.pin(doc_id, state)
+
+    def kill(self, replica: int) -> None:
+        """Drop a replica (the chaos hook): no more routing or stepping;
+        its pending work is recovered by hedging alone."""
+        self._alive[replica] = False
+
+    def _pick(self, exclude: Optional[int] = None) -> int:
+        alive = [r for r in range(len(self.engines))
+                 if self._alive[r] and r != exclude]
+        if not alive:
+            raise RuntimeError("no live lookup replica")
+        r = alive[self._rr % len(alive)]
+        self._rr += 1
+        return r
+
+    def submit(self, doc_id: str, queries, priority: int = 0) -> int:
+        uid = self._next_uid
+        self._next_uid += 1
+        r = self._pick()
+        sub = self.engines[r].submit(doc_id, queries, priority=priority)
+        self._primary[uid] = (r, sub)
+        self._born[uid] = self._tick
+        self._reqs[uid] = (doc_id, np.asarray(queries), priority)
+        return uid
+
+    # -- scheduling ----------------------------------------------------
+
+    def _collect(self, uid: int) -> None:
+        """The first answer wins; the losing duplicate is cancelled (or
+        its late answer discarded), never delivered."""
+        for tag, route in (("primary", self._primary.get(uid)),
+                           ("hedge", self._hedge.get(uid))):
+            if route is None:
+                continue
+            r, sub = route
+            res = self.engines[r]._results.get(sub)
+            if res is None or res.status == STATUS_CANCELLED:
+                continue
+            self._results[uid] = dataclasses.replace(res, uid=uid)
+            if tag == "hedge":
+                self.hedge_wins += 1
+            other = (self._hedge if tag == "primary"
+                     else self._primary).get(uid)
+            if other is not None:
+                ro, so = other
+                if self.engines[ro].cancel(so):
+                    self.losers_cancelled += 1
+            self._primary.pop(uid, None)
+            self._hedge.pop(uid, None)
+            self._born.pop(uid, None)
+            self._reqs.pop(uid, None)
+            return
+
+    def step(self) -> bool:
+        """One tick: step the live replicas, harvest answers, hedge every
+        request unanswered for ``hedge_after`` ticks."""
+        self._tick += 1
+        for r, eng in enumerate(self.engines):
+            if self._alive[r]:
+                eng.step()
+        for uid in list(self._born):
+            self._collect(uid)
+        for uid, born in list(self._born.items()):
+            if uid in self._hedge or uid in self._results:
+                continue
+            if self._tick - born < self.hedge_after:
+                continue
+            rp, _ = self._primary[uid]
+            try:
+                rh = self._pick(exclude=rp)
+            except RuntimeError:
+                continue
+            doc_id, queries, priority = self._reqs[uid]
+            sub = self.engines[rh].submit(doc_id, queries,
+                                          priority=priority)
+            self._hedge[uid] = (rh, sub)
+            self.hedged += 1
+        return self.has_work()
+
+    def has_work(self) -> bool:
+        return bool(self._born)
+
+    def run(self) -> List[LookupResult]:
+        while self.step():
+            pass
+        return self.results()
+
+    def results(self) -> List[LookupResult]:
+        return [self._results[u] for u in sorted(self._results)]

@@ -64,7 +64,8 @@ def test_port_imports_no_jax_and_nothing_of_repro():
                    "models/layers.py", "models/rwkv6.py",
                    "configs/rwkv6_1_6b.py", "serving/backends/rwkv6.py",
                    "models/mamba2.py", "configs/zamba2_7b.py",
-                   "serving/backends/mamba2.py"):
+                   "serving/backends/mamba2.py", "serving/journal.py",
+                   "serving/fleet.py"):
         assert port / module in files, module
     bad = [(str(f.relative_to(ROOT)), m) for f in files
            for m in _imported_roots(f) if m in FORBIDDEN]
@@ -88,11 +89,43 @@ def test_importing_the_serving_entry_point_loads_no_jax():
             "repro_torch.configs.paper_qa, repro_torch.core.gated, "
             "repro_torch.kernels.flash_attention.ops, "
             "repro_torch.models.xla_attention, repro_torch.models.mamba2, "
-            "repro_torch.serving.backends.mamba2; "
+            "repro_torch.serving.backends.mamba2, "
+            "repro_torch.serving.journal, repro_torch.serving.fleet; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); assert not bad")
     subprocess.run([sys.executable, "-c", code], env=_env(), check=True,
                    timeout=120)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--journal", "{tmp}/wal.journal", "--checkpoint-dir", "{tmp}/ck",
+     "--checkpoint-every", "1"],
+    ["--backends", "mamba2,rwkv6", "--replicas", "2", "--journal-dir",
+     "{tmp}/wal"]], ids=["journal", "fleet"])
+def test_durable_stream_cli_on_cpu_loads_no_jax(tmp_path, flags):
+    """``serve --mode stream`` with the durability flags (a journal and
+    checkpoints; a replicated fleet with per-replica journals) runs on
+    the CPU and loads no JAX."""
+    argv = ["--mode", "stream", "--smoke", "--device", "cpu", "--slots",
+            "2", "--n-requests", "4", "--prompt-len", "8", "--gen-len",
+            "8"] + [f.format(tmp=tmp_path) for f in flags]
+    code = ("import sys; from repro_torch.launch import serve; "
+            f"rc = serve.main({argv!r}); "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')]; print(bad); "
+            "assert rc == 0 and not bad")
+    out = subprocess.run([sys.executable, "-c", code], env=_env(),
+                         capture_output=True, text=True, timeout=300,
+                         cwd=ROOT)
+    assert out.returncode == 0, out.stderr
+    if "--journal" in flags:
+        assert "acks=4 completions=4 lost=0 zero_loss=PASS" in out.stdout
+        assert os.listdir(tmp_path / "ck")
+    else:
+        assert "replicas=2/group failovers=0" in out.stdout
+        assert sorted(os.listdir(tmp_path / "wal")) == [
+            f"{g}.r{r}.journal" for g in ("mamba2", "rwkv6")
+            for r in (0, 1)]
 
 
 def test_importing_the_training_entry_point_loads_no_jax():
