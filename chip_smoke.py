@@ -396,9 +396,29 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    replicas, unkilled and with one killed (8,192 hedges), the same
    answers; B4 once a wave.
 
+47. The sharded paths, two ranks on the one card, each a process this
+   phase spawns, in a gloo group with CUDA tensors (NCCL refuses two
+   ranks on one device; gloo's point-to-point goes through host memory):
+   first each collective the checks reach (``dist.all_reduce`` and the
+   functional all-gather, reduce-scatter, all-reduce and all-to-all
+   DTensor redistributes through) is tried on a CUDA tensor by a pair of
+   ranks of its own, since a gap in gloo's CUDA path can crash a process;
+   a check that reaches one that gloo cannot run runs at world size 1
+   over NCCL instead, which the phase prints. Then: a train step (``lm_loss`` and
+   every gradient leaf) of qwen3-0.6b at full width, 2 layers, linear,
+   bf16, on meshes (1, 2) and (2, 1) against one rank at phase 9's bf16
+   limits, B2/B3 launches per rank equal to one rank's; prefill + 16
+   greedy steps under linear and softmax on (1, 2) in fp32, the tokens
+   identical to one rank's and B1 / B10 launches per rank equal to one
+   rank's; deepseek-moe-16b's MoE layer through ``moe_apply_shard_map``
+   (32 experts a rank) against the einsum path within 1e-5, the routing
+   identical; GPipe, 2 stages of 2 layers, against the plain loss and
+   gradients; parameters saved on (1, 2) and restored on (2, 1) bit for
+   bit.
+
 Each main path (phases 4, 6, 8, 10, 12, 14, 16, 18, 19, 21, 22's
 ``launch/train.py`` run, 24, 26, 27, 29, 31, 32, 34, 35, 37, 38, 40, 42,
-43, 44, 45 and 46) is driven with
+43, 44, 45, 46 and 47, in each rank) is driven with
 every kernel's launch count set to 0 just before it and read just after.
 
 The last line is {"ok": true, "device": {...}}; the line before it the
@@ -6677,6 +6697,490 @@ def lookup_durability_main_path(dev, phase) -> dict:
     return {"name": "mass_lookup_indexed", "launches": total, "rec": rec}
 
 
+# ---------------------------------------------------------------------------
+# phase 47: the sharded paths, two ranks on the one card
+# ---------------------------------------------------------------------------
+#
+# Each rank is a process that this phase spawns, on cuda:0, in a gloo group
+# with CUDA tensors (NCCL refuses two ranks on one device). gloo's CUDA
+# coverage is partial, and a gap can crash the process rather than raise:
+# each collective the checks reach is first tried by a pair of ranks of its
+# own. A check whose collective gloo cannot run on CUDA runs at world size 1
+# over NCCL instead, and the phase says which. Point-to-point sends
+# (GPipe's) go through host memory under gloo (``pipeline/gpipe.py``).
+
+MULTI_RANKS = 2
+MULTI_LAYERS = 2           # the train and decode slices (qwen3-0.6b)
+MULTI_PIPE_LAYERS = 4      # GPipe: 2 layers a stage on 2 ranks
+MULTI_DECODE_STEPS = 16
+MULTI_PROMPT = 64
+# the collectives each check reaches: DTensor redistributes through the
+# functional collectives (all-gather to replicate a shard, reduce-scatter
+# and all-reduce to settle a partial sum, all-to-all to move a shard),
+# the MoE all-to-all is one, and the softmax decode step and the pipeline
+# loss sum with ``dist.all_reduce``
+MULTI_COLLECTIVES = ("all_reduce", "fc_all_gather", "fc_reduce_scatter",
+                     "fc_all_reduce", "fc_all_to_all")
+MULTI_NEEDS = {
+    "train": ("fc_all_gather", "fc_reduce_scatter", "fc_all_reduce",
+              "fc_all_to_all"),
+    "decode": ("all_reduce", "fc_all_gather", "fc_reduce_scatter",
+               "fc_all_reduce", "fc_all_to_all"),
+    "moe": ("fc_all_gather", "fc_reduce_scatter", "fc_all_reduce",
+            "fc_all_to_all"),
+    "gpipe": ("all_reduce", "fc_all_gather", "fc_reduce_scatter",
+              "fc_all_reduce"),
+    "checkpoint": ("fc_all_gather",),
+}
+
+
+def probe_rank(rank, world, init, name, out_path):
+    """One rank of a probe pair: one collective on a CUDA tensor under
+    gloo; rank 0 writes "ok" or the error it raised."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed import _functional_collectives as fc
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    dist.init_process_group("gloo", init_method=init, rank=rank,
+                            world_size=world)
+    g = dist.group.WORLD
+    x = torch.arange(4 * world, dtype=torch.float32, device=dev) + rank
+    try:
+        if name == "all_reduce":
+            dist.all_reduce(x.clone())
+        else:
+            fn = {"fc_all_gather": lambda: fc.all_gather_tensor(x, 0, g),
+                  "fc_reduce_scatter": lambda: fc.reduce_scatter_tensor(
+                      x, "sum", 0, g),
+                  "fc_all_reduce": lambda: fc.all_reduce(x, "sum", g),
+                  "fc_all_to_all": lambda: fc.all_to_all_single(
+                      x, None, None, g)}[name]
+            y = fn()
+            if hasattr(y, "wait"):
+                y = y.wait()
+        torch.cuda.synchronize()
+        res = "ok"
+    except (RuntimeError, NotImplementedError, ValueError) as e:
+        res = f"raises {type(e).__name__}: {str(e).splitlines()[0][:120]}"
+    if rank == 0:
+        Path(out_path).write_text(res)
+    dist.destroy_process_group()
+
+
+def probe_gloo_cuda() -> dict:
+    """Which collectives two gloo ranks run on CUDA tensors, each tried by
+    a pair of ranks of its own, all pairs at once: "ok", the error it
+    raised, or the signal that ended a rank (a gap in gloo's CUDA path
+    can crash the process)."""
+    import shutil
+    import torch.multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    work = ROOT / "build" / "phase47_probe"
+    shutil.rmtree(work, ignore_errors=True)
+    procs = {}
+    for name in MULTI_COLLECTIVES:
+        d = work / name
+        d.mkdir(parents=True)
+        procs[name] = [ctx.Process(target=probe_rank, args=(
+            r, MULTI_RANKS, f"file://{d}/rendezvous", name, str(d / "out")))
+            for r in range(MULTI_RANKS)]
+        for pr in procs[name]:
+            pr.start()
+    out = {}
+    for name, prs in procs.items():
+        for pr in prs:
+            pr.join(timeout=180)
+            if pr.is_alive():
+                pr.kill()
+                pr.join()
+        codes = [pr.exitcode for pr in prs]
+        res = work / name / "out"
+        out[name] = (res.read_text() if res.exists() and not any(codes)
+                     else f"crashes (exit codes {codes})")
+    shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
+def multi_train(dev, meshes) -> dict:
+    """qwen3-0.6b at full width, MULTI_LAYERS layers, linear, bf16 compute,
+    batch 2 x 256: ``lm_loss`` and every gradient leaf on each mesh
+    against the one-rank run (phase 9's bf16 limits); B2/B3 launches per
+    rank equal the one-rank run's."""
+    import torch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import lm
+    from repro_torch.optim import GradAccumulator
+    from repro_torch.sharding import Rules, distribute_tree, full
+    from repro_torch.tree import leaves
+    cfg, params0, batch = slice_model("linear", "bfloat16", dev,
+                                      n_layers=MULTI_LAYERS)
+    reset_launches()
+    loss1, _, g1 = GradAccumulator(1).run(
+        lambda p, b: lm.lm_loss(p, b, cfg), params0, batch)
+    torch.cuda.synchronize()
+    want = {k: n for k, n in read_launches().items() if n}
+    out = {"want": want, "meshes": {}}
+    for shape in meshes:
+        rules = Rules.for_mesh(make_mesh(shape, ("data", "model"), device=dev.type))
+        dp = distribute_tree(params0, lm.param_specs(cfg), rules)
+        reset_launches()
+        t0 = time.perf_counter()
+        loss2, _, g2 = GradAccumulator(1).run(
+            lambda p, b: lm.lm_loss(p, b, cfg, rules=rules), dp, batch)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        got = {k: n for k, n in read_launches().items() if n}
+        loss2 = full(loss2)
+        torch.testing.assert_close(loss2.float(), loss1.float(),
+                                   rtol=BF16_SLICE_TOL["loss"], atol=0.0)
+        errs = [leaf_err(full(a), b)
+                for a, b in zip(leaves(g2), leaves(g1))]
+        if max(errs) > BF16_SLICE_TOL["leaf"]:
+            raise AssertionError(f"phase 47: mesh {shape} gradient leaf "
+                                 f"normwise {max(errs):.3e}")
+        if got != want:
+            raise AssertionError(f"phase 47: mesh {shape} launches {got} per "
+                                 f"rank, want {want}")
+        shards = sum(x.to_local().nbytes for x in leaves(dp))
+        out["meshes"][str(shape)] = {
+            "loss": loss2.item(), "loss_one_rank": loss1.item(),
+            "max_leaf_err": max(errs), "launches": got, "seconds": sec,
+            "param_bytes_per_rank": shards,
+            "param_bytes": sum(x.nbytes for x in leaves(params0))}
+    return out
+
+
+def multi_decode(dev, backend, shape) -> dict:
+    """qwen3-0.6b at full width, MULTI_LAYERS layers, fp32, batch 4:
+    prefill of MULTI_PROMPT tokens and MULTI_DECODE_STEPS greedy steps on
+    the mesh and on one rank; the tokens identical, B1 (linear) and B10
+    (softmax prefill) launches per rank equal the one-rank run's."""
+    import torch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import lm
+    from repro_torch.sharding import Rules, distribute_tree, full
+    cfg, params, _ = slice_model(backend, "float32", dev,
+                                 n_layers=MULTI_LAYERS)
+    prompt = torch.randint(0, cfg.vocab_size, (4, MULTI_PROMPT), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(5))
+    max_len = MULTI_PROMPT + MULTI_DECODE_STEPS
+
+    def run(p, rules):
+        with torch.no_grad():
+            logits, st = lm.prefill(p, prompt, cfg, rules=rules)
+            st = lm.pad_decode_state(st, cfg, max_len)
+            tok, toks = full(logits).argmax(-1), []
+            for i in range(MULTI_DECODE_STEPS):
+                pos = torch.tensor(MULTI_PROMPT + i, dtype=torch.int32,
+                                   device=dev)
+                logits, st = lm.decode_step(p, st, tok, pos, cfg,
+                                            rules=rules)
+                tok = full(logits).argmax(-1)
+                toks.append(tok)
+            torch.cuda.synchronize()
+            return torch.stack(toks, 1)
+
+    reset_launches()
+    ref = run(params, Rules.null())
+    want = {k: n for k, n in read_launches().items() if n}
+    rules = Rules.for_mesh(make_mesh(shape, ("data", "model"), device=dev.type))
+    dp = distribute_tree(params, lm.param_specs(cfg), rules)
+    reset_launches()
+    t0 = time.perf_counter()
+    got_toks = run(dp, rules)
+    sec = time.perf_counter() - t0
+    got = {k: n for k, n in read_launches().items() if n}
+    if not torch.equal(got_toks, ref):
+        raise AssertionError(f"phase 47: {backend} decode on {shape}: tokens "
+                             f"differ from one rank's")
+    if got != want or not got:
+        raise AssertionError(f"phase 47: {backend} decode launches {got} per "
+                             f"rank, want {want}")
+    return {"launches": got, "seconds": sec, "tokens": ref.shape[1]}
+
+
+def multi_moe(dev, shape) -> dict:
+    """deepseek-moe-16b's MoE layer at full width (64 experts, top 6),
+    fp32, 4 x 256 tokens, capacity factor 8 (nothing drops): the output
+    and aux of ``moe_apply_shard_map`` on the mesh (the experts split
+    over the model axis) against the einsum path within 1e-5, and each
+    rank's routing (experts chosen for its tokens) equal to the einsum
+    path's for the same tokens."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import moe as MOE
+    from repro_torch.sharding import (Rules, distribute, distribute_tree,
+                                      full)
+    cfg = get_config("deepseek-moe-16b")
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=8.0))
+    p = MOE.moe_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    x = torch.randn(4, 256, cfg.d_model, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(1))
+    ecfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, dispatch="einsum"))
+    with torch.no_grad():
+        o1, aux1 = MOE.moe_apply(p, x, ecfg)
+        rules = Rules.for_mesh(make_mesh(shape, ("data", "model"), device=dev.type))
+        pd = distribute_tree(p, MOE.moe_param_specs(cfg), rules)
+        xd = distribute(x, rules, "batch", "seq_sp", None)
+        t0 = time.perf_counter()
+        # JAX's selection takes this path when the model axis (> 1)
+        # divides the experts; called directly, it runs on any mesh
+        o2, aux2 = MOE.moe_apply_shard_map(pd, xd, cfg, rules)
+        o2, aux2 = full(o2), full(aux2)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        _, e_full, _ = MOE.route(p["router"], x.reshape(-1, cfg.d_model),
+                                 cfg.moe.top_k)
+        local = xd.to_local()
+        _, e_loc, _ = MOE.route(p["router"], local.reshape(-1, cfg.d_model),
+                                cfg.moe.top_k)
+    err = leaf_err(o2, o1)
+    if err > 1e-5 or abs(aux2.item() - aux1.item()) > 1e-5 * abs(aux1.item()):
+        raise AssertionError(f"phase 47: MoE shard_map vs einsum normwise "
+                             f"{err:.3e}, aux {aux2.item()} vs {aux1.item()}")
+    # this rank's tokens: its block of (batch, seq) under the placements
+    rows = torch.arange(x.shape[0] * x.shape[1], device=dev).reshape(
+        x.shape[:2])
+    mine = distribute(rows, rules, "batch", "seq_sp").to_local().reshape(-1)
+    if not torch.equal(e_loc, e_full[mine]):
+        raise AssertionError("phase 47: MoE routing differs on the mesh")
+    return {"normwise": err, "aux": aux2.item(), "seconds": sec,
+            "experts_per_rank": cfg.moe.n_experts // rules.model_size}
+
+
+def multi_gpipe(dev) -> dict:
+    """GPipe over (stage = the ranks, data 1, model 1): qwen3-0.6b at full
+    width, MULTI_PIPE_LAYERS layers, linear, fp32, batch 4 x 128 in 2
+    microbatches; the loss and every gradient leaf against the plain
+    ``lm_loss`` (loss 1e-5 relative, leaves normwise 1e-4)."""
+    import torch
+    from repro_torch.models import lm
+    from repro_torch.pipeline import (
+        gpipe_loss_fn, make_pipeline_mesh, place_pipeline_params)
+    from repro_torch.sharding import Rules, full
+    from repro_torch.tree import leaves
+    cfg, params0, _ = slice_model("linear", "float32", dev,
+                                  n_layers=MULTI_PIPE_LAYERS)
+    toks = torch.randint(0, cfg.vocab_size, (4, 129), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(2))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    flat0 = leaves(params0)
+    for x in flat0:
+        x.requires_grad_(True)
+    loss1 = lm.lm_loss(params0, batch, cfg)[0]
+    g1 = torch.autograd.grad(loss1, flat0)
+    for x in flat0:
+        x.requires_grad_(False)
+    import torch.distributed as dist
+    stages = dist.get_world_size()
+    mesh = make_pipeline_mesh(stages=stages, data=1, model=1,
+                              device=dev.type)
+    rules = Rules.for_mesh(mesh)
+    pp = place_pipeline_params(params0, cfg, rules)
+    flat = leaves(pp)
+    for x in flat:
+        x.requires_grad_(True)
+    reset_launches()
+    t0 = time.perf_counter()
+    loss2 = gpipe_loss_fn(cfg, rules, mesh, n_micro=2)(pp, batch)
+    g2 = torch.autograd.grad(loss2, flat)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    got = {k: n for k, n in read_launches().items() if n}
+    torch.testing.assert_close(loss2.detach(), loss1.detach(), rtol=1e-5,
+                               atol=0.0)
+    errs = [leaf_err(full(a), b) for a, b in zip(g2, g1)]
+    if max(errs) > 1e-4:
+        raise AssertionError(f"phase 47: GPipe gradient leaf normwise "
+                             f"{max(errs):.3e}")
+    # each stage runs its 2 layers on each of 2 microbatches: the forward
+    # kernel twice (forward, the tick's remat recompute), B3 once
+    per = MULTI_PIPE_LAYERS // stages * 2
+    want = {"linear_attention_fwd": 2 * per,
+            "linear_attention_bwd_dq": per, "linear_attention_bwd_dkv": per}
+    if got != want:
+        raise AssertionError(f"phase 47: GPipe launches {got} per rank, "
+                             f"want {want}")
+    return {"loss": loss2.item(), "loss_plain": loss1.item(),
+            "max_leaf_err": max(errs), "launches": got, "seconds": sec,
+            "stages": stages}
+
+
+def multi_checkpoint(dev, workdir) -> dict:
+    """qwen3-0.6b's MULTI_LAYERS-layer parameters placed on (1, 2), saved
+    by ``CheckpointManager`` (the whole arrays, from rank 0) and restored
+    by ``restore_on_mesh`` on (2, 1): every leaf bit for bit."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.checkpoint import CheckpointManager, restore_on_mesh
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import lm
+    from repro_torch.sharding import Rules, distribute_tree, full
+    from repro_torch.tree import leaves
+    cfg, params0, _ = slice_model("linear", "float32", dev,
+                                  n_layers=MULTI_LAYERS)
+    specs = lm.param_specs(cfg)
+    world = dist.get_world_size()
+    a = distribute_tree(params0, specs, Rules.for_mesh(
+        make_mesh((1, world), ("data", "model"), device=dev.type)))
+    t0 = time.perf_counter()
+    CheckpointManager(workdir).save(1, a, blocking=True)
+    dist.barrier()
+    mesh_b = make_mesh((world, 1), ("data", "model"), device=dev.type)
+    b, _ = restore_on_mesh(f"{workdir}/step_1", params0, specs, mesh_b)
+    same = all(torch.equal(full(x), y)
+               for x, y in zip(leaves(b), leaves(params0)))
+    sec = time.perf_counter() - t0
+    if not same:
+        raise AssertionError("phase 47: checkpoint restored on (2, 1) "
+                             "differs from the arrays saved on (1, 2)")
+    return {"leaves": len(leaves(b)), "seconds": sec,
+            "bytes": sum(x.nbytes for x in leaves(params0))}
+
+
+def multidevice_worker(rank, world, init, backend, checks, out_path,
+                       workdir):
+    """One rank of phase 47: joins the group, runs ``checks`` on meshes
+    of ``world`` ranks and, on rank 0, writes the results. A rank that
+    crashes prints its Python stack (``faulthandler``)."""
+    import faulthandler
+    import torch
+    import torch.distributed as dist
+    faulthandler.enable()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    dist.init_process_group(backend, init_method=init, rank=rank,
+                            world_size=world)
+    try:
+        out = {}
+        for check in checks:
+            t0 = time.perf_counter()
+            if rank == 0:
+                print(f"  phase 47: {world} rank(s), {backend}: {check}",
+                      flush=True)
+            if check == "train":
+                out[check] = multi_train(
+                    dev, [(1, world), (world, 1)] if world > 1 else [(1, 1)])
+            elif check == "decode":
+                out[check] = {b: multi_decode(dev, b, (1, world))
+                              for b in ("linear", "softmax")}
+            elif check == "moe":
+                out[check] = multi_moe(dev, (1, world))
+            elif check == "gpipe":
+                out[check] = multi_gpipe(dev)
+            elif check == "checkpoint":
+                out[check] = multi_checkpoint(dev, workdir)
+            out[check]["world"] = world
+            out[check]["backend"] = backend
+            out[check + "_seconds"] = time.perf_counter() - t0
+            torch.cuda.empty_cache()
+        if rank == 0:
+            Path(out_path).write_text(json.dumps(out))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def run_ranks(world, backend, checks, tag) -> dict:
+    """Spawn ``world`` ranks on the card for ``checks`` and return rank
+    0's results. A rank that fails fails the phase."""
+    import shutil
+    import torch.multiprocessing as mp
+    work = ROOT / "build" / f"phase47_{tag}"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    out_path = work / "out.json"
+    mp.start_processes(
+        multidevice_worker,
+        args=(world, f"file://{work}/rendezvous", backend, checks,
+              str(out_path), str(work / "ckpt")),
+        nprocs=world, start_method="spawn")
+    out = json.loads(out_path.read_text())
+    shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
+def multidevice_main_path(phase, checks=tuple(MULTI_NEEDS)) -> dict:
+    """Phase 47: the sharded paths with MULTI_RANKS ranks on the one card
+    (gloo, CUDA tensors); a check that reaches a collective gloo cannot
+    run on CUDA runs at world size 1 over NCCL. Returns the records and
+    each kernel's launches per rank."""
+    t0 = time.perf_counter()
+    probe = probe_gloo_cuda()
+    print(f"phase {phase}: gloo on CUDA tensors, {MULTI_RANKS} ranks on "
+          f"cuda:0, each collective by a pair of its own: "
+          f"{json.dumps(probe)}")
+    on_gloo, on_nccl = [], []
+    for check in checks:
+        lack = [c for c in MULTI_NEEDS[check] if probe[c] != "ok"]
+        (on_nccl if lack else on_gloo).append(check)
+        if lack:
+            print(f"phase {phase}: {check} reaches {', '.join(lack)}, which "
+                  f"gloo cannot run on CUDA tensors: it runs at world size 1 "
+                  f"over NCCL")
+    out = {}
+    if on_gloo:
+        out.update(run_ranks(MULTI_RANKS, "gloo", on_gloo, "gloo"))
+    if on_nccl:
+        out.update(run_ranks(1, "nccl", on_nccl, "nccl"))
+    launches = {}
+    tr = out.get("train")
+    if tr:
+        for shape, rec in tr["meshes"].items():
+            print(f"phase {phase}: train step on mesh {shape} ({tr['world']} "
+                  f"rank(s), {tr['backend']}): loss {rec['loss']:.6f} vs one "
+                  f"rank {rec['loss_one_rank']:.6f}, every gradient leaf "
+                  f"normwise <= {rec['max_leaf_err']:.3e}; launches per rank "
+                  f"{rec['launches']} (one rank's); parameters "
+                  f"{rec['param_bytes_per_rank']:,} B per rank of "
+                  f"{rec['param_bytes']:,} B; {rec['seconds']:.2f} s")
+            for k, n in rec["launches"].items():
+                launches[k] = launches.get(k, 0) + n
+    dec = out.get("decode")
+    if dec:
+        for backend in ("linear", "softmax"):
+            rec = dec[backend]
+            print(f"phase {phase}: {backend} prefill + {rec['tokens']} greedy "
+                  f"steps on (1, {dec['world']}) ({dec['backend']}): tokens "
+                  f"identical to one rank's; launches per rank "
+                  f"{rec['launches']}; {rec['seconds']:.2f} s")
+            for k, n in rec["launches"].items():
+                launches[k] = launches.get(k, 0) + n
+    rec = out.get("moe")
+    if rec:
+        print(f"phase {phase}: deepseek-moe-16b MoE layer through "
+              f"moe_apply_shard_map ({rec['world']} rank(s), "
+              f"{rec['backend']}), {rec['experts_per_rank']} experts a rank: "
+              f"normwise {rec['normwise']:.3e} against the einsum path, "
+              f"routing identical; {rec['seconds']:.2f} s")
+    rec = out.get("gpipe")
+    if rec:
+        print(f"phase {phase}: GPipe, {rec['stages']} stage(s) over "
+              f"{MULTI_PIPE_LAYERS} layers ({rec['backend']}): loss "
+              f"{rec['loss']:.6f} vs plain {rec['loss_plain']:.6f}, leaves "
+              f"normwise <= {rec['max_leaf_err']:.3e}; launches per rank "
+              f"{rec['launches']}; {rec['seconds']:.2f} s")
+        for k, n in rec["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+    rec = out.get("checkpoint")
+    if rec:
+        print(f"phase {phase}: checkpoint of {rec['leaves']} leaves "
+              f"({rec['bytes']:,} B) saved on (1, {rec['world']}), restored "
+              f"on ({rec['world']}, 1) bit for bit ({rec['backend']}); "
+              f"{rec['seconds']:.2f} s")
+    print(f"phase {phase}: seconds by check "
+          f"{json.dumps({c: round(out[c + '_seconds'], 1) for c in checks})}"
+          f", {time.perf_counter() - t0:.1f} s with the probe and the ranks' "
+          f"start")
+    return {"launches": launches, "out": out, "probe": probe}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -7303,6 +7807,11 @@ def main() -> int:
     lookup_ckpt = lookup_durability_main_path(dev, 46)
     done(46, t0)
 
+    # -- 47. the sharded paths: two ranks on the card (gloo, CUDA tensors) --
+    t0 = time.perf_counter()
+    multi = multidevice_main_path(47)
+    done(47, t0)
+
     for r in records:
         r["max_abs_err"] = errs[r["name"]]
         if r["name"] in stream:   # B1/B7: generate, stream; B10: and train
@@ -7365,6 +7874,9 @@ def main() -> int:
     for run in prefix_runs:
         path = more.setdefault(run["name"], {})
         path["prefix_cache"] = path.get("prefix_cache", 0) + run["launches"]
+    # phase 47: rank 0's launches (each rank launches the same)
+    for name, n in multi["launches"].items():
+        more.setdefault(name, {})["multidevice_per_rank"] = n
     # phases 45 and 46
     for label, runs in (("durability", durable_runs), ("fleet", fleet_runs),
                         ("lookup_durability", [lookup_ckpt])):

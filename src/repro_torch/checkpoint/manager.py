@@ -20,6 +20,9 @@ other's checkpoints:
   CPU tensor's ``.cpu()`` or ``.numpy()`` would share the storage that
   the next step overwrites. ``wait()`` joins the writer.
 * **retention**: the newest ``keep`` steps stay.
+* **meshes**: a tree of DTensors is saved as its logical (whole)
+  arrays, gathered on every rank and written by rank 0 alone, so
+  ``restore_on_mesh`` lays it out on any mesh.
 
 ``load_pytree`` and ``restore`` place each leaf on the template leaf's
 device and dtype.
@@ -37,7 +40,8 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.tree import leaves_with_paths, tree_map
+from repro_torch.sharding import full, is_dtensor
+from repro_torch.tree import leaves, leaves_with_paths, tree_map
 
 
 def _host_copy(x: torch.Tensor) -> torch.Tensor:
@@ -190,7 +194,11 @@ class CheckpointManager:
         self.wait()
         # an owned host copy, taken now: the writer thread must not read
         # tensors that the next step updates in place
-        host_tree = tree_map(_host_copy, tree)
+        host_tree = tree_map(lambda x: _host_copy(full(x)), tree)
+        if any(is_dtensor(x) for x in leaves(tree)):
+            import torch.distributed as dist
+            if dist.get_rank() != 0:     # rank 0 writes the whole arrays
+                return
 
         def work():
             try:

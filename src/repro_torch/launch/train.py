@@ -7,7 +7,8 @@ fault-tolerant training loop: with ``--ckpt-dir`` it resumes from the
 newest checkpoint there, saves asynchronously every ``--ckpt-every``
 steps and blocking at the last, and SIGTERM makes it save at the next
 step and stop. The flags are the JAX driver's, with ``--device`` and
-``--n-layers`` on top and no ``--mesh`` (one device). It trains
+``--n-layers`` on top (and ``--mesh smoke`` as a name for JAX's
+``auto``). It trains
 ``--backend linear``, whose
 attention core runs the B2 forward and B3 backward kernels on the card,
 ``--backend gated_linear`` (the paper's §4 decay form), whose core runs
@@ -16,6 +17,22 @@ baseline), whose attention runs B10 forward with its log-sum-exp and
 JAX's blockwise flash backward in plain PyTorch. The checkpoints are in
 the JAX package's format (``checkpoint/manager.py``): either driver
 resumes the other's.
+
+``--mesh`` (JAX's flag) trains on a device mesh under a process group
+that ``torchrun`` started: ``smoke`` (or ``auto``) is (data = world /
+model, model = 1) over every rank, ``single`` and ``multi`` the
+production meshes of 256 and 512 ranks. The parameters and AdamW moments
+are DTensors placed by ``train_state_specs`` under the logical rules,
+the batch is split on ``batch``, and each rank runs the kernels on its
+own block. A checkpoint holds the whole arrays, written by rank 0, so
+any mesh restores it. The group is gloo on the CPU, NCCL on CUDA with a
+card per rank, and gloo with CUDA tensors when ranks share a card (NCCL
+refuses two ranks on one device). ``--mesh none`` (the default) runs on
+one device as before.
+
+  python -m torch.distributed.run --nproc-per-node 4 \
+      -m repro_torch.launch.train --smoke --device cpu --mesh smoke \
+      --steps 5
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \\
       --backend linear --batch 8 --seq-len 1024 --steps 8
@@ -86,6 +103,8 @@ from repro_torch.device import resolve_device
 from repro_torch.models import lm
 from repro_torch.optim import adamw, cosine_warmup
 from repro_torch.runtime import TrainLoop, TrainLoopConfig, make_train_step
+from repro_torch.runtime.steps import train_state_specs
+from repro_torch.sharding import Rules, distribute, distribute_tree
 
 
 def base_config(args) -> ModelConfig:
@@ -101,24 +120,56 @@ def config(args) -> ModelConfig:
     return cfg.with_backend(args.backend) if args.backend else cfg
 
 
+def _mesh(args, device: torch.device):
+    """The device mesh ``--mesh`` asks for over the process group
+    (started here from torchrun's environment when it is not yet), and
+    this rank's device."""
+    import os
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_production_mesh, make_smoke_mesh
+    if device.type == "cuda":
+        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0))
+                              % torch.cuda.device_count())
+        torch.cuda.set_device(device)
+    if not dist.is_initialized():
+        world = int(os.environ.get("WORLD_SIZE", 1))
+        shared = device.type == "cuda" and world > torch.cuda.device_count()
+        dist.init_process_group(
+            "nccl" if device.type == "cuda" and not shared else "gloo")
+    if args.mesh in ("single", "multi"):
+        mesh = make_production_mesh(multi_pod=args.mesh == "multi",
+                                    device=device.type)
+    else:
+        mesh = make_smoke_mesh(device=device.type)
+    return mesh, device
+
+
 def build(args) -> TrainLoop:
     device = resolve_device(args.device)
     cfg = config(args)
+    rules = Rules.null()
+    if args.mesh != "none":
+        mesh, device = _mesh(args, device)
+        rules = Rules.for_mesh(mesh)
     optimizer = adamw(
         cosine_warmup(args.lr, warmup=args.warmup, total=args.steps),
         weight_decay=0.1)
     step = make_train_step(cfg, optimizer, n_micro=args.accum,
-                           grad_compress=args.grad_compress)
+                           grad_compress=args.grad_compress, rules=rules)
 
     params = lm.init_params(
         torch.Generator(device=device).manual_seed(args.seed), cfg)
-    opt_state = optimizer.init(params)
+    pspecs, _, bspecs = train_state_specs(cfg, rules)
+    params = distribute_tree(params, pspecs, rules)
+    opt_state = optimizer.init(params)     # moments placed as the params
     dataset = SyntheticLMDataset(
         vocab_size=cfg.vocab_size, seq_len=args.seq_len,
         global_batch=args.batch, seed=args.seed)
 
     def put(batch):
-        return {k: torch.from_numpy(v).to(device, non_blocking=True)
+        return {k: distribute(torch.from_numpy(v).to(device,
+                                                     non_blocking=True),
+                              rules, *bspecs[k])
                 for k, v in batch.items()}
 
     loop = TrainLoop(
@@ -128,6 +179,7 @@ def build(args) -> TrainLoop:
                         fail_at_step=args.fail_at_step,
                         log_every=args.log_every),
         put_batch=put)
+    loop.rules = rules
     signal.signal(signal.SIGTERM, lambda *_: loop.request_preemption())
     return loop
 
@@ -144,6 +196,10 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                     choices=[None, "softmax", "linear", "gated_linear"])
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
+    ap.add_argument("--mesh", default="none",
+                    choices=["none", "auto", "smoke", "single", "multi"],
+                    help="device mesh over the torchrun ranks (auto = "
+                         "smoke: (data = world, model = 1))")
     ap.add_argument("--steps", type=int, default=200)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq-len", type=int, default=128)
@@ -163,9 +219,16 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(message)s")
     args = parse_args(argv)
+    loop = build(args)
+    if args.mesh != "none":
+        import torch.distributed as dist
+        if dist.get_rank():                  # rank 0 reports
+            loop.run()
+            return 0
+        print(f"mesh {dict(loop.rules.mesh_shape)} over "
+              f"{dist.get_world_size()} ranks ({dist.get_backend()})")
     if args.n_layers:
         print(f"depth cut: {depth_cut(base_config(args), config(args))}")
-    loop = build(args)
     if loop.step:
         print(f"resumed from step {loop.step} ({args.ckpt_dir})")
     out = loop.run()

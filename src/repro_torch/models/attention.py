@@ -29,8 +29,25 @@ the gated rows as they take any others.
 Heads are laid out as in the JAX package: q projects to (G, Hkv, Dh)
 with G = H / Hkv groups, the flat head index is g·Hkv + kv_head, and
 k / v are broadcast over the G groups in that order, so states carried
-over from JAX line up head for head. Sharding has no counterpart here;
-with null rules head padding is the identity.
+over from JAX line up head for head.
+
+Under ``rules`` on a mesh the tensors are DTensors, placed by the spec
+trees, and each kernel call site runs under ``sharding.local_call``
+(DTensor's ``local_map``): every rank runs the kernel, or its plain
+version on the CPU, on its own heads. As in JAX, the linear family's
+flat heads are zero-padded to a multiple of the model axis
+(``padded_head_count``; its decode state is padded the same way by
+``init_attn_state``) so that they always split evenly, and the pad
+heads are sliced off before the output projection; with null rules the
+padding is the identity. Softmax attention in training and prefill
+splits the q heads and gives every rank the kv heads whole (their
+gradients are partial sums over the model axis), or, where the split
+does not fall on whole groups, broadcasts K/V to the flat heads and
+pads them as the linear family does. A softmax decode step keeps its KV
+cache where ``attn_state_specs`` puts it: split on the kv heads, or,
+when they do not divide the model axis, on the head dim, where the
+scores are a contraction over the head dim and are summed over the
+model axis before the softmax (the value columns stay independent).
 
 The decode functions update the state tensors in place and return them
 (a softmax step writes its one cache row per sequence).
@@ -58,9 +75,20 @@ from repro_torch.kernels.fused_recurrent import ops as FR
 from repro_torch.kernels.fused_recurrent import ref as FRref
 from repro_torch.models import layers as L
 from repro_torch.models import xla_attention as XA
+from repro_torch.sharding import (
+    Rules, constrain, dense_grad, local_call, replicated_like, split_last,
+    whole_dims)
 
 Tensor = torch.Tensor
 Params = Dict[str, Tensor]
+NULL = Rules.null()
+# the logical names of a per-head kernel operand (B, H, T, D) and of
+# a per-row one (B,)
+HEADS = ("batch", "heads_state", None, None)
+ROWS = ("batch",)
+# a KV cache (B, S, Hkv, Dh): the head dim takes the model axis where the
+# kv heads do not divide it
+KV_NAMES = ("batch", None, "kv_heads_state", "head_dim_state")
 
 
 # ---------------------------------------------------------------------------
@@ -115,6 +143,36 @@ def attention_params(gen: torch.Generator, cfg: ModelConfig, *,
     return p
 
 
+def attention_param_specs(cfg: ModelConfig) -> Dict[str, tuple]:
+    """Logical sharding names, the tree of ``attention_params``: the flat
+    projection dims shard over the model axis (the head count need not
+    divide it)."""
+    p = {
+        "wq": ("fsdp", "heads"),
+        "wk": ("fsdp", "kv_heads_flat"),
+        "wv": ("fsdp", "kv_heads_flat"),
+        "wo": ("heads", "fsdp"),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = (None,)
+        p["k_norm"] = (None,)
+    if cfg.attention_backend == "gated_linear":
+        p["w_gate"] = ("fsdp", "heads")
+        p["b_gate"] = ("heads",)
+        p["gn_scale"] = ("heads", None)
+        p["gn_bias"] = ("heads", None)
+    if cfg.attention_backend in ("linear", "gated_linear") and \
+            cfg.feature_gate:
+        p["w_fgate"] = ("fsdp", "kv_heads_flat")
+        p["b_fgate"] = ("kv_heads_flat",)
+    return p
+
+
+def cross_attention_param_specs(cfg: ModelConfig) -> Dict[str, tuple]:
+    return {"wq": ("fsdp", "heads"), "wk": ("fsdp", "kv_heads_flat"),
+            "wv": ("fsdp", "kv_heads_flat"), "wo": ("heads", "fsdp")}
+
+
 # ---------------------------------------------------------------------------
 # decode state
 # ---------------------------------------------------------------------------
@@ -138,10 +196,14 @@ class AttnState(NamedTuple):
 
 def init_attn_state(cfg: ModelConfig, batch: int, *,
                     max_len: Optional[int] = None,
-                    lead: Tuple[int, ...] = (), device=None) -> AttnState:
+                    lead: Tuple[int, ...] = (), device=None,
+                    rules: Optional[Rules] = None) -> AttnState:
     """Zero decode state. ``max_len`` (the KV cache's length) is required
-    under softmax and ignored by the linear family."""
-    h, dh = cfg.n_heads, cfg.head_dim
+    under softmax and ignored by the linear family, whose state heads
+    are padded to a multiple of the model axis under ``rules``."""
+    dh = cfg.head_dim
+    h = cfg.n_heads if rules is None else padded_head_count(rules,
+                                                            cfg.n_heads)
     if cfg.attention_backend == "softmax":
         if max_len is None:
             raise ValueError(f"{cfg.name}: the softmax KV cache needs "
@@ -161,6 +223,38 @@ def init_attn_state(cfg: ModelConfig, batch: int, *,
                       device=device), z=z)
 
 
+def attn_state_specs(cfg: ModelConfig) -> AttnState:
+    """Logical sharding names of the decode state (same structure)."""
+    if cfg.attention_backend == "softmax":
+        return AttnState(k_cache=KV_NAMES, v_cache=KV_NAMES, s=None, z=None)
+    z = (("batch", "heads_state", None)
+         if cfg.attention_backend == "linear" and cfg.linear_normalize
+         else None)
+    return AttnState(k_cache=None, v_cache=None,
+                     s=("batch", "heads_state", None, None), z=z)
+
+
+def padded_head_count(rules: Rules, h: int) -> int:
+    """The flat head count rounded up to a multiple of the model axis
+    (JAX ``padded_head_count``): zero pad heads keep one even split."""
+    m = rules.model_size
+    return -(-h // m) * m if m > 1 else h
+
+
+def _first_heads(x: Tensor, h: int) -> Tensor:
+    """The first ``h`` heads of (B, H_pad, ...): the pad heads dropped
+    (nothing to drop without padding)."""
+    return x if x.shape[1] == h else x[:, :h]
+
+
+def _pad_head_dim(x: Tensor, h_pad: int, axis: int = 1) -> Tensor:
+    pad = h_pad - x.shape[axis]
+    if pad <= 0:
+        return x
+    widths = [0, 0] * (x.ndim - axis - 1) + [0, pad]
+    return F.pad(x, widths)
+
+
 # ---------------------------------------------------------------------------
 # projection plumbing
 # ---------------------------------------------------------------------------
@@ -177,9 +271,9 @@ def _project_qkv(p: Params, x: Tensor, cfg: ModelConfig
     b, t, _ = x.shape
     h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     g = h // hkv
-    q = (x @ p["wq"].to(x.dtype)).reshape(b, t, g, hkv, dh)
-    k = (x @ p["wk"].to(x.dtype)).reshape(b, t, hkv, dh)
-    v = (x @ p["wv"].to(x.dtype)).reshape(b, t, hkv, dh)
+    q = split_last(x @ p["wq"].to(x.dtype), g, hkv, dh)
+    k = split_last(x @ p["wk"].to(x.dtype), hkv, dh)
+    v = split_last(x @ p["wv"].to(x.dtype), hkv, dh)
     q = q.permute(0, 2, 3, 1, 4)               # (B, G, Hkv, T, Dh)
     k = k.permute(0, 2, 1, 3)                  # (B, Hkv, T, Dh)
     v = v.permute(0, 2, 1, 3)
@@ -192,7 +286,8 @@ def _project_qkv(p: Params, x: Tensor, cfg: ModelConfig
 def _merge_heads(p: Params, o: Tensor, x_dtype) -> Tensor:
     """o: (B, G, Hkv, T, Dh) → (B, T, D) through wo."""
     b, g, hkv, t, dh = o.shape
-    o = o.permute(0, 3, 1, 2, 4).reshape(b, t, g * hkv * dh)
+    o = whole_dims(o, 2, 4).permute(0, 3, 1, 2, 4).reshape(
+        b, t, g * hkv * dh)
     return o.to(x_dtype) @ p["wo"].to(x_dtype)
 
 
@@ -207,7 +302,8 @@ def _rope(q: Tensor, k: Tensor, positions: Tensor, cfg: ModelConfig
           ) -> Tuple[Tensor, Tensor]:
     """positions: (T,) shared, (B,) single-token decode, or (B, T)
     per-sequence windows; q (B,G,Hkv,T,D), k (B,Hkv,T,D)."""
-    cos, sin = L.rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+    cos, sin = (replicated_like(t, q) for t in
+                L.rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta))
     if positions.ndim == 2:                              # (B, T) window
         c, s = cos[:, None, None], sin[:, None, None]    # (B,1,1,T,D/2)
     elif positions.ndim == 1 and q.shape[3] == positions.shape[0]:
@@ -229,7 +325,7 @@ def _gate_kv(p: Params, x: Tensor, k: Tensor, v: Tensor, cfg: ModelConfig
     b, t, _ = x.shape
     gate = torch.sigmoid(x @ p["w_fgate"].to(x.dtype)
                          + p["b_fgate"].to(x.dtype))
-    gate = gate.reshape(b, t, cfg.n_kv_heads, cfg.head_dim).transpose(1, 2)
+    gate = split_last(gate, cfg.n_kv_heads, cfg.head_dim).transpose(1, 2)
     return k * gate, v * gate
 
 
@@ -246,9 +342,11 @@ def _heads(p: Params, x: Tensor, q: Tensor, k: Tensor, v: Tensor,
     kf = feature_map(k, cfg.feature_map)
     if cfg.feature_gate:
         kf, v = _gate_kv(p, x, kf, v, cfg)
-    qh = qf.reshape(b, h, t, dh)
-    kh = kf[:, None].expand(b, g, hkv, t, dh).reshape(b, h, t, dh)
-    vh = v[:, None].expand(b, g, hkv, t, dh).reshape(b, h, t, dh)
+    qh = whole_dims(qf, 2).reshape(b, h, t, dh)
+    kh = whole_dims(kf, 1)[:, None].expand(b, g, hkv, t, dh).reshape(
+        b, h, t, dh)
+    vh = whole_dims(v, 1)[:, None].expand(b, g, hkv, t, dh).reshape(
+        b, h, t, dh)
     return qh, kh, vh
 
 
@@ -265,7 +363,7 @@ def _decay(p: Params, x: Tensor, cfg: ModelConfig) -> Tensor:
     b, t, _ = x.shape
     gd = cfg.head_dim if cfg.decay_mode == "vector" else 1
     raw = x @ p["w_gate"].to(x.dtype) + p["b_gate"].to(x.dtype)
-    raw = raw.reshape(b, t, cfg.n_heads, gd).permute(0, 2, 1, 3)
+    raw = dense_grad(split_last(raw, cfg.n_heads, gd)).permute(0, 2, 1, 3)
     # log α = −softplus(−raw)/decay_temp: raw → +∞ remembers, −∞ forgets
     return -F.softplus(-raw.float()) * (1.0 / cfg.decay_temp)
 
@@ -274,6 +372,44 @@ def _groupnorm(p: Params, o: Tensor) -> Tensor:
     """Per-head groupnorm of head outputs o: (B, H, T, Dh)."""
     return L.groupnorm_heads(o.transpose(1, 2), p["gn_scale"].float(),
                              p["gn_bias"].float()).transpose(1, 2)
+
+
+# ---------------------------------------------------------------------------
+# kernel call sites on a mesh
+# ---------------------------------------------------------------------------
+
+def _kernel(fn, rules: Rules, args, names, out_names, **kw):
+    """``fn(*args)``; on a mesh on each rank's own blocks
+    (``sharding.local_call``)."""
+    if not rules.on_mesh:
+        return fn(*args)
+    return local_call(fn, rules, args, names, out_names, **kw)
+
+
+def _flash(qh: Tensor, k: Tensor, v: Tensor, cfg: ModelConfig,
+           rules: Rules, kernel: bool) -> Tensor:
+    """Causal attention over the flat q heads qh (B, H, T, Dh) with
+    K/V of Hkv heads (B10 on CUDA tensors). On a mesh each rank takes
+    its q heads: with whole groups of Hkv heads each, every rank reads
+    K/V whole; otherwise K/V are broadcast to the flat heads and all
+    three padded to the model axis."""
+    def fn(q_, k_, v_):
+        return XA.flash_attention(q_, k_, v_, None, 0,
+                                  block=cfg.attn_block_q, kernel=kernel)
+    if not rules.on_mesh:
+        return fn(qh, k, v)
+    b, h, t, dh = qh.shape
+    hkv, m = k.shape[1], rules.model_size
+    if h % m == 0 and (h // m) % hkv == 0:
+        whole = ("batch", None, None, None)
+        return local_call(fn, rules, (qh, k, v), (HEADS, whole, whole),
+                          (HEADS,), grad_partial=(1, 2))
+    hp = padded_head_count(rules, h)
+    kb, vb = (_pad_head_dim(whole_dims(x, 1)[:, None].expand(
+        b, h // hkv, hkv, t, dh).reshape(b, h, t, dh), hp) for x in (k, v))
+    return _first_heads(local_call(fn, rules, (_pad_head_dim(qh, hp), kb,
+                                               vb), (HEADS,) * 3, (HEADS,)),
+                        h)
 
 
 # ---------------------------------------------------------------------------
@@ -288,6 +424,7 @@ def attention_apply(
     want_state: bool = False,
     attention_kernel: bool = True,
     varlen: Optional[Tensor] = None,
+    rules: Rules = NULL,
 ) -> Tuple[Tensor, Optional[AttnState]]:
     """Full-sequence attention. x: (B, T, D) → (B, T, D).
 
@@ -313,7 +450,9 @@ def attention_apply(
     recompute backward; the gated backend runs ``gated_linear_attention``:
     B8 forward and B9's recompute backward. All take the kernels on
     CUDA tensors and their plain versions on CPU tensors or under
-    ``attention_kernel=False``.
+    ``attention_kernel=False``. ``rules``: on a mesh each of these calls
+    runs on the rank's own heads; a state comes back placed by
+    ``attn_state_specs``, the linear family's with its heads padded.
     """
     b, t, _ = x.shape
     h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -322,43 +461,54 @@ def attention_apply(
         q, k = _rope(q, k, torch.arange(t, device=x.device), cfg)
     vmask = None if varlen is None else _valid_mask(varlen, t, x.device)
     if cfg.attention_backend == "softmax":
-        o_h = XA.flash_attention(q.reshape(b, h, t, dh), k, v, None, 0,
-                                 block=cfg.attn_block_q,
-                                 kernel=attention_kernel)
+        o_h = _flash(q.reshape(b, h, t, dh), k, v, cfg, rules,
+                     attention_kernel)
         y = _merge_heads(p, o_h.reshape(b, h // hkv, hkv, t, dh), x.dtype)
         if not want_state:
             return y, None
-        return y, AttnState(k_cache=k.transpose(1, 2).contiguous(),
-                            v_cache=v.transpose(1, 2).contiguous())
-    qh, kh, vh = _heads(p, x, q, k, v, cfg)
+        return y, AttnState(
+            k_cache=constrain(k.transpose(1, 2).contiguous(), rules,
+                              *KV_NAMES),
+            v_cache=constrain(v.transpose(1, 2).contiguous(), rules,
+                              *KV_NAMES))
+    hp = padded_head_count(rules, h)
+    qh, kh, vh = (_pad_head_dim(a, hp) for a in _heads(p, x, q, k, v, cfg))
     if vmask is not None:        # pad positions inert in the state sums
         kh = torch.where(vmask, kh, 0).to(kh.dtype)
         vh = torch.where(vmask, vh, 0).to(vh.dtype)
+    qkv, chunk = (qh, kh, vh), cfg.linear_chunk
     if cfg.attention_backend == "linear" and want_state:
-        o_h, s_f = causal_linear_attention_chunked(
-            qh, kh, vh, chunk_size=cfg.linear_chunk,
-            normalize=cfg.linear_normalize)
-        zf = kh.float().sum(dim=2) if cfg.linear_normalize else None
+        o_h, s_f = _kernel(
+            lambda *a: causal_linear_attention_chunked(
+                *a, chunk_size=chunk, normalize=cfg.linear_normalize),
+            rules, qkv, (HEADS,) * 3, (HEADS, HEADS))
+        zf = (constrain(kh.float().sum(dim=2), rules, "batch", "heads_state",
+                        None) if cfg.linear_normalize else None)
     elif cfg.attention_backend == "linear":   # training: §3.3 backward
-        o_h = causal_linear_attention(
-            qh, kh, vh, chunk_size=cfg.linear_chunk,
-            normalize=cfg.linear_normalize, kernel=attention_kernel)
+        o_h = _kernel(
+            lambda *a: causal_linear_attention(
+                *a, chunk_size=chunk, normalize=cfg.linear_normalize,
+                kernel=attention_kernel),
+            rules, qkv, (HEADS,) * 3, (HEADS,))
         s_f = zf = None
     elif want_state:   # gated_linear prefill: chunked_gla clamps g
-        g = _decay(p, x, cfg)
+        g = _pad_head_dim(_decay(p, x, cfg), hp)
         if vmask is not None:    # pad positions must not decay the state
             g = torch.where(vmask, g, 0.0)
-        o_h, s_f = chunked_gla(qh, kh, vh, g, chunk_size=cfg.linear_chunk)
-        o_h = _groupnorm(p, o_h)
+        o_h, s_f = _kernel(lambda *a: chunked_gla(*a, chunk_size=chunk),
+                           rules, qkv + (g,), (HEADS,) * 4, (HEADS, HEADS))
+        o_h = _groupnorm(p, _first_heads(o_h, h))
         zf = None
     else:   # gated_linear training: B8 / B9's recompute backward
-        o_h = gated_linear_attention(qh, kh, vh, _decay(p, x, cfg),
-                                     chunk_size=cfg.linear_chunk,
-                                     kernel=attention_kernel)
-        o_h = _groupnorm(p, o_h)
+        o_h = _kernel(
+            lambda *a: gated_linear_attention(*a, chunk_size=chunk,
+                                              kernel=attention_kernel),
+            rules, qkv + (_pad_head_dim(_decay(p, x, cfg), hp),),
+            (HEADS,) * 4, (HEADS,))
+        o_h = _groupnorm(p, _first_heads(o_h, h))
         s_f = zf = None
     state = AttnState(s=s_f, z=zf) if want_state else None
-    o = o_h.reshape(b, h // hkv, hkv, t, dh)
+    o = _first_heads(o_h, h).reshape(b, h // hkv, hkv, t, dh)
     return _merge_heads(p, o, x.dtype), state
 
 
@@ -398,29 +548,51 @@ def _recurrent_gated(s, q, k, v, g, cfg: ModelConfig, lens=None):
 
 
 def _recurrent(p: Params, x: Tensor, state: AttnState, qh, kh, vh,
-               cfg: ModelConfig, lens=None) -> Tuple[Tensor, AttnState]:
+               cfg: ModelConfig, lens=None, rules: Rules = NULL
+               ) -> Tuple[Tensor, AttnState]:
     """The backend's W-step recurrence over head rows (B, H, W, Dh), from
     the block input x: (B, W, D). Returns head outputs (B, H, W, Dh) and
     the state, updated in place. The gated decay is broadcast to Dk
     before the kernel (scalar mode), so the kernel always sees
-    (B, H, W, Dk); the groupnorm runs on its output."""
+    (B, H, W, Dk); the groupnorm runs on its output. The state may have
+    more (zero pad) heads than the model (``init_attn_state`` under
+    rules): the head rows are padded to match and the pad heads' outputs
+    dropped. On a mesh each rank updates its own heads of the state in
+    place."""
+    h, hp = qh.shape[1], state.s.shape[1]
+    qh, kh, vh = (_pad_head_dim(a, hp) for a in (qh, kh, vh))
     if cfg.attention_backend == "linear":
-        o_w, s_new, z_new = _recurrent_linear(state.s, qh, kh, vh, state.z,
-                                              cfg, lens=lens)
-        return o_w, AttnState(s=s_new, z=z_new)
-    g = _decay(p, x, cfg).expand(qh.shape)
-    o_w, s_new = _recurrent_gated(state.s, qh, kh, vh, g, cfg, lens=lens)
-    return _groupnorm(p, o_w), AttnState(s=s_new, z=None)
+        z_names = None if state.z is None else ("batch", "heads_state", None)
+        o_w, s_new, z_new = _kernel(
+            lambda s, q, k, v, z, n: _recurrent_linear(s, q, k, v, z, cfg,
+                                                       lens=n),
+            rules, (state.s, qh, kh, vh, state.z, lens),
+            (HEADS,) * 4 + (z_names, ROWS), (HEADS, HEADS, z_names),
+            inplace=(0, 4))
+        # on a mesh each rank updated its block of the state in place
+        new = state if rules.on_mesh else AttnState(s=s_new, z=z_new)
+        return _first_heads(o_w, h), new
+    g = _pad_head_dim(_decay(p, x, cfg), hp).expand(qh.shape)
+    o_w, s_new = _kernel(
+        lambda s, q, k, v, g_, n: _recurrent_gated(s, q, k, v, g_, cfg,
+                                                   lens=n),
+        rules, (state.s, qh, kh, vh, g, lens), (HEADS,) * 5 + (ROWS,),
+        (HEADS, HEADS), inplace=(0,))
+    new = state if rules.on_mesh else AttnState(s=s_new, z=None)
+    return _groupnorm(p, _first_heads(o_w, h)), new
 
 
 def _softmax_step(state: AttnState, q: Tensor, k: Tensor, v: Tensor,
-                  pos: Tensor, active: Optional[Tensor]) -> Tensor:
+                  pos: Tensor, active: Optional[Tensor], *,
+                  scale: Optional[float] = None, partial_sum=None) -> Tensor:
     """One softmax decode step over the KV cache, in place. q: (B, G,
     Hkv, Dh); k, v: (B, Hkv, Dh); pos: (B,) the row each sequence writes
     (clamped to the cache, as JAX's dynamic update clamps it); active:
     (B,) bool or None. Writes k and v into row pos of each sequence (an
     inactive sequence gets its current row back, bit for bit), then
-    attends over rows ≤ pos. Returns o (B, G, Hkv, Dh)."""
+    attends over rows ≤ pos. Returns o (B, G, Hkv, Dh). ``scale`` and
+    ``partial_sum`` go to ``decode_attention`` (a rank's block of the
+    head dim)."""
     b = q.shape[0]
     rows = torch.arange(b, device=q.device)
     cols = pos.long().clamp(0, state.k_cache.shape[1] - 1)
@@ -433,7 +605,37 @@ def _softmax_step(state: AttnState, q: Tensor, k: Tensor, v: Tensor,
     state.k_cache[rows, cols] = k_new
     state.v_cache[rows, cols] = v_new
     return XA.decode_attention(q, state.k_cache.transpose(1, 2),
-                               state.v_cache.transpose(1, 2), pos + 1)
+                               state.v_cache.transpose(1, 2), pos + 1,
+                               scale=scale, partial_sum=partial_sum)
+
+
+def _softmax_step_on(rules: Rules, state: AttnState, q: Tensor, k: Tensor,
+                     v: Tensor, pos: Tensor, active: Optional[Tensor]
+                     ) -> Tensor:
+    """``_softmax_step`` on each rank's block of the KV cache, which
+    stays where ``attn_state_specs`` put it. Split on the kv heads, the
+    step is local; split on the head dim, the scores are partial sums
+    over the rank's columns, summed over the model axis before the
+    softmax, and each rank's output keeps its value columns."""
+    if not rules.on_mesh:
+        return _softmax_step(state, q, k, v, pos, active)
+    import torch.distributed as dist
+    dh = q.shape[-1]
+    group = (rules.mesh.get_group("model") if rules.model_size > 1
+             else None)
+
+    def fn(kc, vc, q_, k_, v_, pos_, act_):
+        split = q_.shape[-1] < dh
+        return _softmax_step(
+            AttnState(k_cache=kc, v_cache=vc), q_, k_, v_, pos_, act_,
+            scale=dh ** -0.5,
+            partial_sum=(lambda sc: dist.all_reduce(sc, group=group))
+            if split else None)
+    row = ("batch", "kv_heads_state", "head_dim_state")
+    return local_call(fn, rules, (state.k_cache, state.v_cache, q, k, v,
+                                  pos, active),
+                      (KV_NAMES,) * 3 + (row, row, ROWS, ROWS), (KV_NAMES,),
+                      out_shapes=(q.shape,), inplace=(0, 1))
 
 
 def _softmax_window(p: Params, x: Tensor, state: AttnState, pos0,
@@ -467,9 +669,11 @@ def attention_decode(
     cfg: ModelConfig,
     *,
     active: Optional[Tensor] = None,
+    rules: Rules = NULL,
 ) -> Tuple[Tensor, AttnState]:
     """One decode step. x: (B, D); pos: () shared position or (B,)
-    per-sequence positions. The state is updated in place.
+    per-sequence positions. The state is updated in place; on a mesh
+    (``rules``) each rank updates its own block of it.
 
     softmax: writes the step's k and v into cache row ``pos`` of each
     sequence, then attends over rows < pos + 1 (``decode_attention``,
@@ -490,14 +694,14 @@ def attention_decode(
     if cfg.rope:
         q, k = _rope(q, k, pos.expand(b), cfg)
     if cfg.attention_backend == "softmax":
-        o = _softmax_step(state, q[:, :, :, 0], k[:, :, 0], v[:, :, 0],
-                          pos.expand(b), active)
+        o = _softmax_step_on(rules, state, q[:, :, :, 0], k[:, :, 0],
+                             v[:, :, 0], pos.expand(b), active)
         return _merge_heads(p, o[:, :, :, None], x.dtype)[:, 0], state
     qh, kh, vh = _heads(p, x[:, None, :], q, k, v, cfg)   # (B, H, 1, Dh)
     lens = (None if active is None else
             torch.as_tensor(active, device=x.device).to(torch.int32))
     o_w, new_state = _recurrent(p, x[:, None, :], state, qh, kh, vh, cfg,
-                                lens=lens)
+                                lens=lens, rules=rules)
     o = o_w.reshape(b, cfg.n_heads // cfg.n_kv_heads, cfg.n_kv_heads, 1,
                     cfg.head_dim)
     return _merge_heads(p, o, x.dtype)[:, 0], new_state
@@ -669,7 +873,7 @@ def cross_attention_apply(p: Params, x: Tensor, mem: CrossMemory,
     ``linear_normalize``, in fp32."""
     b, t, _ = x.shape
     h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = (x @ p["wq"].to(x.dtype)).reshape(b, t, h // hkv, hkv, dh)
+    q = split_last(x @ p["wq"].to(x.dtype), h // hkv, hkv, dh)
     q = q.permute(0, 2, 3, 1, 4)                        # (B, G, Hkv, T, Dh)
     if cfg.attention_backend == "softmax":
         scores = torch.einsum("bghtd,bhnd->bghtn", q.float() * dh ** -0.5,

@@ -35,11 +35,13 @@ from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M
 from repro_torch.models import moe as MOE
 from repro_torch.models import rwkv6 as R
+from repro_torch.sharding import Rules, constrain
 
 Tensor = torch.Tensor
 Params = Dict[str, Any]
 # A.AttnState, A.CrossMemory, M.MambaState or R.RWKVState
 State = Any
+NULL = Rules.null()
 
 
 def _uses_moe(kind: str, cfg: ModelConfig) -> bool:
@@ -74,9 +76,62 @@ def block_params(kind: str, gen: torch.Generator, cfg: ModelConfig, *,
     return p
 
 
+def block_param_specs(kind: str, cfg: ModelConfig) -> Params:
+    """Logical sharding names, the tree of ``block_params``."""
+    norm_spec = ({"scale": (None,)} if cfg.norm == "rmsnorm"
+                 else {"scale": (None,), "bias": (None,)})
+    if kind == "mamba":
+        return {"norm1": norm_spec, "mamba": M.mamba2_param_specs(cfg)}
+    if kind == "rwkv":
+        return R.rwkv6_param_specs(cfg)
+    p = {"norm1": dict(norm_spec), "norm2": dict(norm_spec)}
+    if kind == "cross":
+        p["cross"] = A.cross_attention_param_specs(cfg)
+        p["xgate"] = (None,)
+    else:
+        p["attn"] = A.attention_param_specs(cfg)
+    if _uses_moe(kind, cfg):
+        p["moe"] = MOE.moe_param_specs(cfg)
+    else:
+        mlp = {"w_up": ("fsdp", "ffn"), "w_down": ("ffn", "fsdp")}
+        if cfg.act == "swiglu":
+            mlp["w_gate"] = ("fsdp", "ffn")
+        p["mlp"] = mlp
+    return p
+
+
+def block_state_specs(kind: str, cfg: ModelConfig) -> Any:
+    """Logical sharding names, the tree of ``block_state_init``."""
+    if kind == "mamba":
+        return M.mamba_state_specs(cfg)
+    if kind == "rwkv":
+        return R.rwkv_state_specs(cfg)
+    if kind == "cross":
+        if cfg.attention_backend == "softmax":
+            return A.CrossMemory(
+                k=("batch", "kv_heads_state", None, "head_dim_state"),
+                v=("batch", "kv_heads_state", None, "head_dim_state"),
+                c=None, z=None)
+        return A.CrossMemory(k=None, v=None,
+                             c=("batch", "kv_heads_state", None, None),
+                             z=("batch", "kv_heads_state", None))
+    return A.attn_state_specs(cfg)
+
+
+def _no_model_axis(kind: str, cfg: ModelConfig, rules: Rules) -> None:
+    if rules.model_size > 1:
+        raise NotImplementedError(
+            f"{cfg.name}: a {kind} block under a model axis of "
+            f"{rules.model_size} waits for the next multi-device slice "
+            f"(ROADMAP A.7)")
+
+
 def block_state_init(kind: str, cfg: ModelConfig, batch: int, *,
                      max_len: Optional[int] = None,
-                     lead: Tuple[int, ...] = (), device=None) -> State:
+                     lead: Tuple[int, ...] = (), device=None,
+                     rules: Optional[Rules] = None) -> State:
+    """A block's zero decode state; under ``rules`` an attention
+    block's linear state has its heads padded to the model axis."""
     if kind == "mamba":
         return M.init_mamba_state(cfg, batch, lead=lead, device=device)
     if kind == "rwkv":
@@ -84,19 +139,30 @@ def block_state_init(kind: str, cfg: ModelConfig, batch: int, *,
     if kind == "cross":
         return A.init_cross_memory(cfg, batch, lead=lead, device=device)
     return A.init_attn_state(cfg, batch, max_len=max_len, lead=lead,
-                             device=device)
+                             device=device, rules=rules)
 
 
-def _ffn(p: Params, x: Tensor, kind: str, cfg: ModelConfig
+def _ffn(p: Params, x: Tensor, kind: str, cfg: ModelConfig,
+         rules: Rules = NULL, *logical: Optional[str]
          ) -> Tuple[Tensor, Optional[Tensor]]:
-    """The second residual: x + MLP or MoE of norm2(x). Returns (x, the
-    router's aux loss, None without MoE: JAX's zero, with no tensor made
-    for it on every block and step)."""
+    """The second residual: x + MLP or MoE of norm2(x), the FFN's output
+    constrained to ``logical`` on a mesh. Returns (x, the router's aux
+    loss, None without MoE: JAX's zero, with no tensor made for it on
+    every block and step)."""
     h2 = L.apply_norm(cfg.norm, p["norm2"], x)
     if _uses_moe(kind, cfg):
-        ff, aux = MOE.moe_apply(p["moe"], h2, cfg)
-        return x + ff, aux
-    return x + L.mlp(p["mlp"], h2, cfg.act), None
+        ff, aux = MOE.moe_apply(p["moe"], h2, cfg, rules=rules)
+        return x + constrain(ff, rules, *logical), aux
+    h2 = _gather_seq(h2, rules)
+    return x + constrain(L.mlp(p["mlp"], h2, cfg.act), rules, *logical), None
+
+
+def _gather_seq(h: Tensor, rules: Rules) -> Tensor:
+    """A block's normed input (B, T, D) whole along the sequence before
+    its projections, on a mesh (Megatron's sequence parallelism: gather
+    the sequence, project, split it again at the block's output)."""
+    return constrain(h, rules, "batch", None, "embed") if h.ndim == 3 \
+        else h
 
 
 def _cross(p: Params, h1: Tensor, mem: A.CrossMemory, cfg: ModelConfig
@@ -109,7 +175,7 @@ def block_apply(kind: str, p: Params, x: Tensor, cfg: ModelConfig, *,
                 shared: Optional[Params] = None,
                 memory: Optional[Tensor] = None, want_state: bool = False,
                 attention_kernel: bool = True,
-                varlen: Optional[Tensor] = None
+                varlen: Optional[Tensor] = None, rules: Rules = NULL
                 ) -> Tuple[Tensor, Optional[State], Optional[Tensor]]:
     """x: (B, T, D) → (x, state_or_None, aux: the router's load-balance
     loss, None for a block without MoE). ``shared``: the shared attention
@@ -119,9 +185,14 @@ def block_apply(kind: str, p: Params, x: Tensor, cfg: ModelConfig, *,
     END-padded batch (attention blocks; the MoE routes every position,
     pads included, as JAX does). A mamba block prefills through B8's
     inclusive route and trains through B8/B9, an rwkv block prefills
-    through B8's exclusive route (``attention_kernel``)."""
+    through B8's exclusive route (``attention_kernel``). ``rules``: the
+    attention and FFN outputs are constrained to (batch, seq_sp, embed)
+    on a mesh, as JAX does; a mamba or rwkv block refuses a model axis
+    larger than 1."""
     if kind == "shared_attn":
         p = shared
+    if kind in ("mamba", "rwkv"):
+        _no_model_axis(kind, cfg, rules)
     if kind == "mamba":
         if varlen is not None:
             raise ValueError(f"{cfg.name}: varlen prefill of a mamba block")
@@ -136,7 +207,7 @@ def block_apply(kind: str, p: Params, x: Tensor, cfg: ModelConfig, *,
         x, st = R.rwkv6_apply(p, x, cfg, want_state=want_state,
                               attention_kernel=attention_kernel)
         return x, st, None
-    h1 = L.apply_norm(cfg.norm, p["norm1"], x)
+    h1 = _gather_seq(L.apply_norm(cfg.norm, p["norm1"], x), rules)
     if kind == "cross":
         if varlen is not None:
             raise ValueError(f"{cfg.name}: varlen prefill of a cross block")
@@ -149,20 +220,25 @@ def block_apply(kind: str, p: Params, x: Tensor, cfg: ModelConfig, *,
         att, st = A.attention_apply(p["attn"], h1, cfg,
                                     want_state=want_state,
                                     attention_kernel=attention_kernel,
-                                    varlen=varlen)
-    x, aux = _ffn(p, x + att, kind, cfg)
+                                    varlen=varlen, rules=rules)
+    sp = ("batch", "seq_sp", "embed")
+    x, aux = _ffn(p, x + constrain(att, rules, *sp), kind, cfg, rules, *sp)
     return x, st, aux
 
 
 def block_decode(kind: str, p: Params, x: Tensor, state: State,
                  pos: Tensor, cfg: ModelConfig, *,
                  shared: Optional[Params] = None,
-                 active: Optional[Tensor] = None) -> Tuple[Tensor, State]:
+                 active: Optional[Tensor] = None,
+                 rules: Rules = NULL) -> Tuple[Tensor, State]:
     """x: (B, D) one token per sequence; pos: () or (B,); ``active``:
     (B,) bool slot mask, inactive rows keep their state bit for bit. The
-    state is updated in place (a cross block's memory is static)."""
+    state is updated in place (a cross block's memory is static).
+    ``rules``: as in ``block_apply``."""
     if kind == "shared_attn":
         p = shared
+    if kind in ("mamba", "rwkv"):
+        _no_model_axis(kind, cfg, rules)
     if kind == "mamba":
         h, st = M.mamba2_decode(p["mamba"],
                                 L.apply_norm(cfg.norm, p["norm1"], x),
@@ -175,8 +251,8 @@ def block_decode(kind: str, p: Params, x: Tensor, state: State,
         att, st = _cross(p, h1[:, None], state, cfg)[:, 0], state
     else:
         att, st = A.attention_decode(p["attn"], h1, state, pos, cfg,
-                                     active=active)
-    return _ffn(p, x + att, kind, cfg)[0], st
+                                     active=active, rules=rules)
+    return _ffn(p, x + att, kind, cfg, rules, "batch", "embed")[0], st
 
 
 def block_decode_window(kind: str, p: Params, x: Tensor, state: State,

@@ -36,6 +36,7 @@ attention's (JAX's blockwise ``_flash_bwd``) keeps (q, k, v, o, lse).
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -48,6 +49,9 @@ from repro_torch.models import layers as L
 from repro_torch.models.attention import AttnState, CrossMemory
 from repro_torch.models.mamba2 import MambaState
 from repro_torch.models.rwkv6 import RWKVState
+from repro_torch.sharding import (
+    Rules, constrain, distribute, distribute_tree, is_dtensor,
+    is_logical_spec, map_local, replicate_mixed, replicated_like)
 from repro_torch.tree import leaves
 
 Tensor = torch.Tensor
@@ -56,6 +60,7 @@ Params = Dict[str, Any]
 # MambaState for mamba, RWKVState for rwkv
 State = Dict[str, Tuple[Any, ...]]
 _STATES = (AttnState, CrossMemory, MambaState, RWKVState)
+NULL = Rules.null()
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -106,6 +111,50 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> Params:
     return params
 
 
+def _stacked(tree):
+    """Prepend the stacked-layers axis to every leaf spec."""
+    if is_logical_spec(tree):
+        return ("layers",) + tree
+    if isinstance(tree, dict):
+        return {k: _stacked(v) for k, v in tree.items()}
+    if tree is None:
+        return None
+    return type(tree)(*(_stacked(v) for v in tree))
+
+
+def param_specs(cfg: ModelConfig) -> Params:
+    """Logical sharding names, the tree of ``init_params`` (JAX
+    ``param_specs``)."""
+    pattern, _, tail = cfg.pattern_and_repeats
+    specs: Params = {
+        "embed": ("vocab", "embed"),
+        "final_norm": ({"scale": (None,)} if cfg.norm == "rmsnorm"
+                       else {"scale": (None,), "bias": (None,)}),
+    }
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = ("embed", "vocab")
+    specs["stack"] = tuple(
+        {} if kind == "shared_attn"
+        else _stacked(B.block_param_specs(kind, cfg)) for kind in pattern)
+    specs["tail"] = tuple(
+        {} if kind == "shared_attn" else B.block_param_specs(kind, cfg)
+        for kind in tail)
+    if "shared_attn" in pattern + tail:
+        specs["shared"] = B.block_param_specs("attn", cfg)
+    return specs
+
+
+def decode_state_specs(cfg: ModelConfig) -> Any:
+    """Logical sharding names, the tree of ``init_decode_state`` (JAX
+    ``decode_state_specs``)."""
+    pattern, _, tail = cfg.pattern_and_repeats
+    return {
+        "stack": tuple(_stacked(B.block_state_specs(k, cfg))
+                       for k in pattern),
+        "tail": tuple(B.block_state_specs(k, cfg) for k in tail),
+    }
+
+
 def cast_params(params: Params, dtype: torch.dtype) -> Params:
     """Cast float matrices (ndim ≥ 2) to the compute dtype; norm scales
     and other vectors stay fp32. Tensors already in ``dtype`` are reused,
@@ -122,20 +171,29 @@ def cast_params(params: Params, dtype: torch.dtype) -> Params:
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, *,
-                      max_len: Optional[int] = None, device=None) -> State:
+                      max_len: Optional[int] = None, device=None,
+                      rules: Optional[Rules] = None) -> State:
     """Zero decode state for the whole stack. softmax: per-layer KV
     caches of ``max_len`` rows (required), O(max_len) memory. Linear
     family: fixed-size (Dk×Dv per head) matrices, O(1) in context length
     (``max_len`` ignored). A cross block: its zero memory (K and V of
-    ``n_img_tokens`` rows, or C and z)."""
+    ``n_img_tokens`` rows, or C and z). Under ``rules`` the linear
+    family's state heads are padded to a multiple of the model axis (JAX
+    ``padded_head_count``), and on a mesh every leaf is placed by
+    ``decode_state_specs``."""
     pattern, reps, tail = cfg.pattern_and_repeats
-    return {
+    state = {
         "stack": tuple(B.block_state_init(k, cfg, batch, max_len=max_len,
-                                          lead=(reps,), device=device)
+                                          lead=(reps,), device=device,
+                                          rules=rules)
                        for k in pattern),
         "tail": tuple(B.block_state_init(k, cfg, batch, max_len=max_len,
-                                         device=device) for k in tail),
+                                         device=device, rules=rules)
+                      for k in tail),
     }
+    if rules is None or not rules.on_mesh:
+        return state
+    return distribute_tree(state, decode_state_specs(cfg), rules)
 
 
 def pad_decode_state(states: State, cfg: ModelConfig, max_len: int) -> State:
@@ -147,12 +205,17 @@ def pad_decode_state(states: State, cfg: ModelConfig, max_len: int) -> State:
     def fix(st):
         if not isinstance(st, AttnState) or st.k_cache is None:
             return st
-        pad = max_len - st.k_cache.shape[st.k_cache.ndim - 3]
+        axis = st.k_cache.ndim - 3
+        pad = max_len - st.k_cache.shape[axis]
         if pad <= 0:
             return st
         grow = (0, 0, 0, 0, 0, pad)              # (Dh, Hkv, S) from the end
-        return st._replace(k_cache=F.pad(st.k_cache, grow),
-                           v_cache=F.pad(st.v_cache, grow))
+        shape = list(st.k_cache.shape)
+        shape[axis] = max_len
+        # on a mesh each rank grows its block (the rows are not split)
+        return st._replace(
+            k_cache=map_local(lambda c: F.pad(c, grow), st.k_cache, shape),
+            v_cache=map_local(lambda c: F.pad(c, grow), st.v_cache, shape))
     return {part: tuple(fix(st) for st in group)
             for part, group in states.items()}
 
@@ -170,11 +233,45 @@ def state_bytes(states: State) -> int:
 # forward (training and prefill)
 # ---------------------------------------------------------------------------
 
-def _head(params: Params, x: Tensor, cfg: ModelConfig) -> Tensor:
+def _head(params: Params, x: Tensor, cfg: ModelConfig,
+          rules: Rules = NULL, *logical: Optional[str]) -> Tensor:
+    """Final norm and the (tied) head; the logits constrained to
+    ``logical`` on a mesh."""
     adt = dtype_of(cfg.dtype)
     x = L.apply_norm(cfg.norm, params["final_norm"], x)
+    if x.ndim == 3:     # on a mesh: the sequence whole before the product
+        x = constrain(x, rules, "batch", None, "embed")
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return x.to(adt) @ head.to(adt)
+    return constrain(x.to(adt) @ head.to(adt), rules, *logical)
+
+
+def _embed(params: Params, tokens: Tensor, rules: Rules) -> Tensor:
+    """Rows of the embedding; on a mesh the vocab-sharded lookup of
+    DTensor's ``embedding`` (each rank looks up its rows, a sum over
+    the model axis completes them)."""
+    if rules.on_mesh:
+        return F.embedding(tokens, params["embed"])
+    return params["embed"][tokens]
+
+
+def _on_mesh(fn):
+    """Run a model entry point with plain tensors (positions, masks)
+    counting as replicated when its rules place tensors on a mesh."""
+    @functools.wraps(fn)
+    def wrapped(*args, rules: Rules = NULL, **kw):
+        if not rules.on_mesh:
+            return fn(*args, rules=rules, **kw)
+        with replicate_mixed():
+            return fn(*args, rules=rules, **kw)
+    return wrapped
+
+
+def _batch(x: Optional[Tensor], rules: Rules, *logical: Optional[str]):
+    """A batch input placed by its logical names on a mesh (a DTensor
+    as it comes)."""
+    if x is None or not rules.on_mesh or is_dtensor(x):
+        return x
+    return distribute(x, rules, *logical)
 
 
 def _add(aux: Optional[Tensor], a: Optional[Tensor]) -> Optional[Tensor]:
@@ -183,25 +280,29 @@ def _add(aux: Optional[Tensor], a: Optional[Tensor]) -> Optional[Tensor]:
 
 def _trunk(params: Params, tokens: Tensor, cfg: ModelConfig,
            want_state: bool, attention_kernel: bool = True,
-           varlen: Optional[Tensor] = None, memory: Optional[Tensor] = None
-           ) -> Tuple[Tensor, Tensor, Optional[State]]:
+           varlen: Optional[Tensor] = None, memory: Optional[Tensor] = None,
+           rules: Rules = NULL) -> Tuple[Tensor, Tensor, Optional[State]]:
     """Embed + every block. Returns (hidden (B, T, D), aux (), states|None)
     with aux the sum of the MoE blocks' router losses (0 without MoE).
     Without states and with autograd on, ``cfg.remat == "unit"``
     checkpoints each repeat of the pattern, its aux an output of the
     region. ``varlen``: (B,) per-row valid lengths of an END-padded
     batch. ``memory``: (B, N, D) for cross blocks, in the compute
-    type."""
+    type. On a mesh the residual stream is constrained to (batch,
+    seq_sp, embed) after the embedding and after every block, as JAX
+    does."""
     pattern, reps, tail = cfg.pattern_and_repeats
-    x = params["embed"][tokens]
+    x = constrain(_embed(params, tokens, rules), rules,
+                  "batch", "seq_sp", "embed")
     kw = dict(shared=params.get("shared"), memory=memory,
               want_state=want_state, attention_kernel=attention_kernel,
-              varlen=varlen)
+              varlen=varlen, rules=rules)
 
     def unit(x, unit_params):
         states, aux = [], None
         for kind, p in zip(pattern, unit_params):
             x, st, a = B.block_apply(kind, p, x, cfg, **kw)
+            x = constrain(x, rules, "batch", "seq_sp", "embed")
             states.append(st)
             aux = _add(aux, a)
         return x, aux, states
@@ -225,6 +326,7 @@ def _trunk(params: Params, tokens: Tensor, cfg: ModelConfig,
     tail_states = []
     for i, kind in enumerate(tail):
         x, st, a = B.block_apply(kind, params["tail"][i], x, cfg, **kw)
+        x = constrain(x, rules, "batch", "seq_sp", "embed")
         aux = _add(aux, a)
         tail_states.append(st)
     if aux is None:
@@ -239,10 +341,11 @@ def _memory(memory: Optional[Tensor], cfg: ModelConfig) -> Optional[Tensor]:
     return None if memory is None else memory.to(dtype_of(cfg.dtype))
 
 
+@_on_mesh
 def forward(params: Params, tokens: Tensor, cfg: ModelConfig, *,
             memory: Optional[Tensor] = None, want_state: bool = False,
-            attention_kernel: bool = True, varlen: Optional[Tensor] = None
-            ) -> Tuple[Tensor, Optional[State]]:
+            attention_kernel: bool = True, varlen: Optional[Tensor] = None,
+            rules: Rules = NULL) -> Tuple[Tensor, Optional[State]]:
     """tokens: (B, T) int → (logits (B, T, V), states|None); ``lm_loss``
     reads the router aux loss JAX's ``forward`` also returns. Float
     matrices are cast to ``cfg.dtype`` once, outside the blocks, and
@@ -251,11 +354,13 @@ def forward(params: Params, tokens: Tensor, cfg: ModelConfig, *,
     ``attention_kernel=False`` runs the linear attention's plain versions
     on CUDA tensors (the training slice's reference route). ``varlen``:
     (B,) per-row valid lengths of an END-padded batch; logits at pad
-    positions are garbage."""
+    positions are garbage. ``rules``: as in ``lm_loss``."""
     params = cast_params(params, dtype_of(cfg.dtype))
-    x, _, states = _trunk(params, tokens, cfg, want_state, attention_kernel,
-                          varlen, _memory(memory, cfg))
-    return _head(params, x, cfg), states
+    x, _, states = _trunk(params, _batch(tokens, rules, "batch", None), cfg,
+                          want_state, attention_kernel, varlen,
+                          _memory(_batch(memory, rules, "batch", None,
+                                         "embed"), cfg), rules)
+    return _head(params, x, cfg, rules, "batch", "seq_sp", None), states
 
 
 # ---------------------------------------------------------------------------
@@ -266,48 +371,68 @@ def cross_entropy(logits: Tensor, labels: Tensor, z_loss: float = 0.0
                   ) -> Tensor:
     """Mean token cross-entropy, in fp32, the max taken out of the graph
     (JAX ``cross_entropy``); the label's logit is gathered, which gives
-    the same value as JAX's masked sum without a (B, T, V) mask."""
+    the same value as JAX's masked sum without a (B, T, V) mask. On a
+    mesh (DTensor logits) the label's logit is JAX's masked sum, which
+    reduces over a sharded vocab as a sum does."""
     lf = logits.float()
     m = lf.max(dim=-1, keepdim=True).values.detach()
     sum_exp = torch.exp(lf - m).sum(dim=-1)
     lse = torch.log(sum_exp) + m[..., 0]
-    label_logit = lf.gather(-1, labels[..., None].long())[..., 0]
+    if is_dtensor(lf):
+        col = replicated_like(torch.arange(lf.shape[-1], device=lf.device),
+                              lf)
+        label_logit = torch.where(col == labels[..., None], lf, 0.0).sum(-1)
+    else:
+        label_logit = lf.gather(-1, labels[..., None].long())[..., 0]
     nll = lse - label_logit
     if z_loss:
         nll = nll + z_loss * torch.square(torch.log(sum_exp) + m[..., 0])
     return nll.mean()
 
 
+@_on_mesh
 def lm_loss(params: Params, batch: Dict[str, Tensor], cfg: ModelConfig, *,
-            attention_kernel: bool = True
+            attention_kernel: bool = True, rules: Rules = NULL
             ) -> Tuple[Tensor, Dict[str, Tensor]]:
     """batch: {"tokens": (B, T), "labels": (B, T) [, "memory": (B, N, D)]}
     → (loss, {"xent", "aux"}): the token cross-entropy plus
     ``router_aux_weight`` times the MoE blocks' summed load-balance loss
-    (aux 0 without MoE)."""
+    (aux 0 without MoE).
+
+    ``rules`` (JAX's ``rules``; default null): on a mesh the parameters
+    are DTensors placed by ``param_specs``, the batch is sharded on
+    ``batch`` (plain tensors are placed here), and the loss is a
+    replicated DTensor."""
     params = cast_params(params, dtype_of(cfg.dtype))
-    x, aux, _ = _trunk(params, batch["tokens"], cfg, False, attention_kernel,
-                       memory=_memory(batch.get("memory"), cfg))
-    xent = cross_entropy(_head(params, x, cfg), batch["labels"])
+    tokens = _batch(batch["tokens"], rules, "batch", None)
+    labels = _batch(batch["labels"], rules, "batch", None)
+    memory = _batch(batch.get("memory"), rules, "batch", None, "embed")
+    x, aux, _ = _trunk(params, tokens, cfg, False, attention_kernel,
+                       memory=_memory(memory, cfg), rules=rules)
+    xent = cross_entropy(_head(params, x, cfg, rules, "batch", "seq_sp",
+                               None), labels)
     aux_w = cfg.moe.router_aux_weight if cfg.moe is not None else 0.0
     return xent + aux_w * aux, {"xent": xent, "aux": aux}
 
 
+@_on_mesh
 def prefill(params: Params, tokens: Tensor, cfg: ModelConfig, *,
-            memory: Optional[Tensor] = None, attention_kernel: bool = True
-            ) -> Tuple[Tensor, State]:
+            memory: Optional[Tensor] = None, attention_kernel: bool = True,
+            rules: Rules = NULL) -> Tuple[Tensor, State]:
     """Encode a prompt into the per-layer decode states: the fixed-size
     states of the linear family, or the softmax KV caches of the prompt's
     length (``pad_decode_state`` grows them); a cross block's state is
     ``memory`` (B, N, D) encoded once. Returns (last-position logits
     (B, V), decode states); the head runs on the last position only.
     ``attention_kernel=False`` runs softmax prefill through B10's plain
-    version on CUDA tensors (the reference route)."""
+    version on CUDA tensors (the reference route). ``rules``: as in
+    ``lm_loss``; the states come back as DTensors."""
     params = cast_params(params, dtype_of(cfg.dtype))
-    x, _, states = _trunk(params, tokens, cfg, want_state=True,
-                          attention_kernel=attention_kernel,
-                          memory=_memory(memory, cfg))
-    return _head(params, x[:, -1], cfg), states
+    x, _, states = _trunk(params, _batch(tokens, rules, "batch", None), cfg,
+                          want_state=True, attention_kernel=attention_kernel,
+                          memory=_memory(_batch(memory, rules, "batch", None,
+                                                "embed"), cfg), rules=rules)
+    return _head(params, x[:, -1], cfg, rules, "batch", "vocab"), states
 
 
 def supports_varlen_prefill(cfg: ModelConfig) -> bool:
@@ -361,20 +486,35 @@ def _decode_blocks(params: Params, state: State, x: Tensor, pos: Tensor,
     return x
 
 
+@_on_mesh
 def decode_step(params: Params, state: State, token: Tensor, pos,
-                cfg: ModelConfig, *, active: Optional[Tensor] = None
-                ) -> Tuple[Tensor, State]:
+                cfg: ModelConfig, *, active: Optional[Tensor] = None,
+                rules: Rules = NULL) -> Tuple[Tensor, State]:
     """One autoregressive step. token: (B,) int; pos: () shared position
     or (B,) per-sequence positions. Returns (logits (B, V), state) with
     the state updated in place. O(k²) per layer for the linear family,
     independent of pos; O(pos) for the softmax KV cache. ``active``: (B,)
     bool slot mask; inactive rows keep their state bit for bit (their
-    logits are garbage)."""
-    params = cast_params(params, dtype_of(cfg.dtype))
-    x = params["embed"][token].to(dtype_of(cfg.dtype))
+    logits are garbage).
+
+    ``rules``: on a mesh the parameters and the state (``init_decode_state``
+    with the same rules) are DTensors; the token is one-hot against the
+    vocab-sharded embedding when the model axis is larger than 1 (JAX's
+    choice: a local (B, V/m) product and a small sum instead of a gather
+    of the table), and each kernel runs on the rank's own heads."""
+    adt = dtype_of(cfg.dtype)
+    params = cast_params(params, adt)
+    if rules.model_size > 1:
+        onehot = F.one_hot(token.long(), cfg.vocab_size).to(adt)
+        onehot = constrain(_batch(onehot, rules, "batch", "vocab"), rules,
+                           "batch", "vocab")
+        x = onehot @ params["embed"].to(adt)
+    else:
+        x = _embed(params, _batch(token, rules, "batch"), rules).to(adt)
+    x = constrain(x, rules, "batch", "embed")
     x = _decode_blocks(params, state, x, pos, cfg, B.block_decode,
-                       active=active)
-    return _head(params, x, cfg), state
+                       active=active, rules=rules)
+    return _head(params, x, cfg, rules, "batch", "vocab"), state
 
 
 def sample_token(logits: Tensor, temperature: float,

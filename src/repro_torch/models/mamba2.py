@@ -90,6 +90,19 @@ def mamba2_params(gen: torch.Generator, cfg: ModelConfig, *,
     }
 
 
+def mamba2_param_specs(cfg: ModelConfig) -> Dict[str, tuple]:
+    """Logical sharding names, the tree of ``mamba2_params``."""
+    return {
+        "in_proj": ("fsdp", "d_inner"),   # uneven tail (B,C,dt) replicated
+        "conv_w": (None, "conv_dim"),
+        "dt_bias": (None,),
+        "a_log": (None,),
+        "d_skip": (None,),
+        "norm_scale": ("d_inner",),
+        "out_proj": ("d_inner", "fsdp"),
+    }
+
+
 class MambaState(NamedTuple):
     """Decode state: the conv window and the paper's fixed-size SSD
     state, O(1) in context length."""
@@ -106,6 +119,13 @@ def init_mamba_state(cfg: ModelConfig, batch: int, *,
                          dtype=getattr(torch, cfg.dtype), device=device),
         ssd=torch.zeros((*lead, batch, n_heads, s.d_state, s.head_dim),
                         dtype=torch.float32, device=device))
+
+
+def mamba_state_specs(cfg: ModelConfig) -> "MambaState":
+    """Logical sharding names of the decode state (the divisibility-checked
+    ``heads``, not the uneven one: a state's layout must divide)."""
+    return MambaState(conv=("batch", None, "conv_dim"),
+                      ssd=("batch", "heads", None, None))
 
 
 def _split_proj(proj: Tensor, cfg: ModelConfig

@@ -99,6 +99,31 @@ def rwkv6_params(gen: torch.Generator, cfg: ModelConfig, *,
     return p
 
 
+def rwkv6_param_specs(cfg: ModelConfig) -> Dict[str, tuple]:
+    """Logical sharding names, the tree of ``rwkv6_params``."""
+    vec = (None,)
+    return {
+        "mu_r": vec, "mu_k": vec, "mu_v": vec, "mu_w": vec, "mu_g": vec,
+        "w_r": ("fsdp", "heads"),
+        "w_k": ("fsdp", "heads"),
+        "w_v": ("fsdp", "heads"),
+        "w_g": ("fsdp", "heads"),
+        "w_o": ("heads", "fsdp"),
+        "w_decay0": vec,
+        "w_decay1": ("fsdp", None),
+        "w_decay2": (None, "heads"),
+        "u_bonus": ("heads_lin", None),
+        "gn_scale": ("heads_lin", None),
+        "gn_bias": ("heads_lin", None),
+        "mu_ck": vec, "mu_cr": vec,
+        "w_ck": ("fsdp", "ffn"),
+        "w_cv": ("ffn", "fsdp"),
+        "w_cr": ("fsdp", "heads"),
+        "ln1": {"scale": vec, "bias": vec},
+        "ln2": {"scale": vec, "bias": vec},
+    }
+
+
 class RWKVState(NamedTuple):
     """Decode state: two one-token shift registers and the paper's k×k
     (head_dim × head_dim per head) wkv matrix."""
@@ -118,6 +143,12 @@ def init_rwkv_state(cfg: ModelConfig, batch: int, *,
         shift_ffn=torch.zeros((*lead, batch, d), dtype=dtype, device=device),
         wkv=torch.zeros((*lead, batch, h, n, n), dtype=torch.float32,
                         device=device))
+
+
+def rwkv_state_specs(cfg: ModelConfig) -> "RWKVState":
+    """Logical sharding names of the decode state."""
+    return RWKVState(shift_att=("batch", None), shift_ffn=("batch", None),
+                     wkv=("batch", "heads", None, None))
 
 
 def _token_shift(x: Tensor, last: Optional[Tensor] = None) -> Tensor:

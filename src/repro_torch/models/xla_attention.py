@@ -208,17 +208,22 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor,
 
 def decode_attention(q: Tensor, k_cache: Tensor, v_cache: Tensor,
                      cache_len: Union[int, Tensor], *,
-                     scale: Optional[float] = None) -> Tensor:
+                     scale: Optional[float] = None,
+                     partial_sum=None) -> Tensor:
     """Single-token decode against a KV cache. q: (B, G, Hkv, D);
     k_cache, v_cache: (B, Hkv, S, D); cache_len: () number of valid cache
     entries, or (B,) per-sequence lengths. Scores, softmax and the
-    product in fp32; returns (B, G, Hkv, D) in v_cache's type."""
+    product in fp32; returns (B, G, Hkv, D) in v_cache's type.
+    ``partial_sum``: completes the scores in place when q and the cache
+    hold one block of the head dim (a sum over the blocks)."""
     b, d = q.shape[0], q.shape[-1]
     s = k_cache.shape[2]
     if scale is None:
         scale = d ** -0.5
     scores = torch.einsum("bghd,bhsd->bghs", q.float() * scale,
                           k_cache.float())
+    if partial_sum is not None:
+        partial_sum(scores)
     cl = torch.as_tensor(cache_len, device=q.device).expand(b)
     valid = torch.arange(s, device=q.device)[None, :] < cl[:, None]
     scores = torch.where(valid[:, None, None, :], scores, NEG_INF)

@@ -4,7 +4,7 @@ error feedback."""
 
 from repro_torch.optim.adamw import (  # noqa: F401
     AdamState, Optimizer, adam, adamw, apply_updates, clip_by_global_norm,
-    global_norm,
+    global_norm, opt_state_specs,
 )
 from repro_torch.optim.schedule import (  # noqa: F401
     constant, cosine_warmup, linear_warmup,

@@ -5,7 +5,9 @@ norm inside ``update``, 1-based bias correction, weight decay added to
 the update (decoupled), fp32 moments. The PyTorch idiom differs in one
 way: ``update`` writes the new parameters and moments in place, under
 ``torch.no_grad()``, and returns the same tensors, where JAX returns new
-arrays. The gradients are not modified.
+arrays. The gradients are not modified. On a mesh the parameters,
+gradients and moments are DTensors, each moment placed as its parameter
+(JAX's ``opt_state_specs``: ZeRO-1), and the update runs rank by rank.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch.sharding import mixed_for
 from repro_torch.tree import leaves, tree_map
 
 Tensor = torch.Tensor
@@ -50,14 +53,17 @@ def adamw(
 
     def init(params) -> AdamState:
         device = leaves(params)[0].device
-        zeros = lambda p: torch.zeros(p.shape, dtype=moment_dtype,  # noqa
-                                      device=p.device)
+        zeros = lambda p: torch.zeros_like(p, dtype=moment_dtype)  # noqa
         return AdamState(
             step=torch.zeros((), dtype=torch.int32, device=device),
             mu=tree_map(zeros, params), nu=tree_map(zeros, params))
 
     @torch.no_grad()
     def update(grads, state: AdamState, params):
+        with mixed_for(params):
+            return _update(grads, state, params)
+
+    def _update(grads, state: AdamState, params):
         step = state.step + 1
         scale = (_clip_scale(global_norm(grads), clip_norm)
                  if clip_norm is not None else None)
@@ -103,6 +109,12 @@ def global_norm(tree) -> Tensor:
 
 def _clip_scale(norm: Tensor, max_norm: float) -> Tensor:
     return torch.clamp(max_norm / (norm + 1e-9), max=1.0)
+
+
+def opt_state_specs(param_spec_tree) -> AdamState:
+    """Logical sharding names of the AdamState: the moments shard
+    exactly like their parameters (ZeRO-1), the step is a scalar."""
+    return AdamState(step=(), mu=param_spec_tree, nu=param_spec_tree)
 
 
 def clip_by_global_norm(tree, max_norm: float):

@@ -1,8 +1,10 @@
 """Train, eval, prefill and decode step builders (port of
 ``repro/runtime/steps.py``).
 
-PyTorch runs eagerly, so a step is a plain function: no jit and no
-sharding trees. The train step differentiates ``lm.lm_loss`` through the
+PyTorch runs eagerly, so a step is a plain function: no jit. On a mesh
+(``rules``) the parameters, moments and batch are DTensors placed by
+``train_state_specs``, and the metrics come back as whole tensors. The
+train step differentiates ``lm.lm_loss`` through the
 gradient accumulator and updates the parameters in place. Training
 covers every attention backend of the port: ``"linear"``, whose core
 runs B2 forward and B3 backward on the card; ``"gated_linear"``, B8
@@ -19,8 +21,12 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import lm
-from repro_torch.optim import GradAccumulator, Optimizer, global_norm
+from repro_torch.optim import (
+    GradAccumulator, Optimizer, global_norm, opt_state_specs)
+from repro_torch.sharding import Rules, full, mixed_for
 from repro_torch.tree import tree_map
+
+NULL = Rules.null()
 
 
 def make_train_step(
@@ -30,6 +36,7 @@ def make_train_step(
     n_micro: int = 1,
     grad_compress: bool = False,
     attention_kernel: bool = True,
+    rules: Rules = NULL,
 ) -> Callable:
     """(params, opt_state, batch) → (params, opt_state, metrics), with
     the parameters and moments updated in place. Metrics: loss, xent,
@@ -44,10 +51,11 @@ def make_train_step(
 
     def loss_fn(params, batch):
         return lm.lm_loss(params, batch, cfg,
-                          attention_kernel=attention_kernel)
+                          attention_kernel=attention_kernel, rules=rules)
 
     def step(params, opt_state, batch):
-        loss, metrics, grads = accum.run(loss_fn, params, batch)
+        with mixed_for(params):      # the backward meets plain tensors too
+            loss, metrics, grads = accum.run(loss_fn, params, batch)
         if grad_compress:
             grads = tree_map(
                 lambda g: g.to(torch.bfloat16).to(torch.float32), grads)
@@ -56,7 +64,7 @@ def make_train_step(
         metrics = dict(metrics)
         metrics["loss"] = loss
         metrics["grad_norm"] = gnorm
-        return params, opt_state, metrics
+        return params, opt_state, {k: full(v) for k, v in metrics.items()}
 
     return step
 
@@ -84,6 +92,16 @@ def make_eval_step(cfg: ModelConfig, *,
         metrics["loss"] = loss
         return metrics
     return step
+
+
+def train_state_specs(cfg: ModelConfig, rules: Rules = NULL):
+    """(param specs, opt-state specs, batch specs) as logical names
+    (JAX ``train_state_specs``)."""
+    pspecs = lm.param_specs(cfg)
+    bspecs = {"tokens": ("batch", None), "labels": ("batch", None)}
+    if cfg.n_img_tokens:
+        bspecs["memory"] = ("batch", None, "embed")
+    return pspecs, opt_state_specs(pspecs), bspecs
 
 
 def make_decode_step(cfg: ModelConfig) -> Callable:

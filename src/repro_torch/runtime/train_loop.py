@@ -31,6 +31,7 @@ import torch
 
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.runtime.straggler import StragglerDetector
+from repro_torch.sharding import mixed_for
 from repro_torch.tree import leaves
 
 log = logging.getLogger(__name__)
@@ -79,7 +80,8 @@ class TrainLoop:
             if self.ckpt.has_checkpoint():
                 state = self._state()
                 restored, extra, step = self.ckpt.restore(state)
-                with torch.no_grad():
+                # on a mesh each rank keeps its block of the whole array
+                with torch.no_grad(), mixed_for(state):
                     for live, new in zip(leaves(state), leaves(restored)):
                         live.copy_(new)
                 self.step = int(extra.get("step", step))

@@ -276,8 +276,8 @@ def test_decode_step_matches_jax(backend):
 
 
 def test_runtime_exports_match_jax():
-    """The runtime's names are JAX's but ``plan_mesh_shape`` (elastic
-    re-meshing, a multi-device item) and the port's own
+    """The runtime exports every name JAX's does (``plan_mesh_shape``,
+    elastic re-meshing, included), beside the port's own
     ``InjectedFailure``."""
     import repro.runtime as jr
     import repro_torch.runtime as tr
@@ -285,7 +285,7 @@ def test_runtime_exports_match_jax():
     names = lambda m: {n for n in dir(m) if not n.startswith("_")
                        and n[0].isalpha() and callable(getattr(m, n))
                        and not isinstance(getattr(m, n), type(os))}
-    assert names(jr) - names(tr) == {"plan_mesh_shape"}
+    assert names(jr) - names(tr) == set()
     # the exported detector is JAX's: the same step times, the same flags
     times = [1.0, 1.1, 0.9, 5.0, 1.0, 6.0, 7.0]
     flags = []
