@@ -439,11 +439,11 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, fp32 non-tensor flop/s,
-# bf16 dense tensor-core flop/s
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_FP32_FLOPS = 67e12
-PEAK_BF16_TC_FLOPS = 989e12
+# H100 SXM peaks (NVIDIA data sheet) and the least time of a launch:
+# one reckoning with the dry run's roofline (launch/roofline.py)
+from repro_torch.launch.roofline import (  # noqa: E402
+    HBM_BW as PEAK_BYTES_PER_S, PEAK_FLOPS_BF16 as PEAK_BF16_TC_FLOPS,
+    PEAK_FLOPS_FP32 as PEAK_FP32_FLOPS, bound)
 # the lookup kernels' outputs against their plain versions: fp32 sums in
 # another order (the JAX kernel tests' tolerance)
 LOOKUP_TOL = 1e-4
@@ -663,18 +663,6 @@ def check_decode_gated(n, d, w, dtype, varlen, decay, gen, dev,
     return err
 
 
-def bound(n_bytes: float, flops: float, peak: float = PEAK_FP32_FLOPS
-          ) -> dict:
-    """The least time the card could take: bytes over the memory rate or
-    the operations over ``peak`` (the fp32 rate outside the tensor cores
-    unless given), whichever is larger."""
-    bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
-    flops_ms = flops / peak * 1e3
-    return dict(bound_ms=max(bytes_ms, flops_ms),
-                bound_by="bytes" if bytes_ms >= flops_ms else "operations",
-                bytes=n_bytes, flops=flops)
-
-
 def nonsymmetric(gen, dev, *shape):
     """Random states with C != Cᵀ, so that a transposed read shows."""
     import torch
@@ -825,15 +813,9 @@ def time_decode_linear(n, d, gen, dev) -> dict:
 
     ms = graph_ms(kernel, 2 * n_bufs)
     plain_ms = graph_ms(plain, 2 * n_bufs)
-    in_bytes = sum(t.nbytes for t in (x["s"], x["z"], x["q"], x["k"],
-                                      x["v"]))
-    out_bytes = x["s"].nbytes + x["z"].nbytes + x["v"].nbytes    # s, z, o
-    flops = n * w * (4 * d * d + 4 * d)
-    bytes_ms = (in_bytes + out_bytes) / PEAK_BYTES_PER_S * 1e3
-    flops_ms = flops / PEAK_FP32_FLOPS * 1e3
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=max(bytes_ms, flops_ms),
-                bound_by="bytes" if bytes_ms >= flops_ms else "operations",
-                bytes=in_bytes + out_bytes)
+    flops, n_bytes = ops.decode_linear_work(x["s"], x["q"], x["k"], x["v"],
+                                            z=x["z"], normalize=True)
+    return dict(ms=ms, plain_ms=plain_ms, **bound(n_bytes, flops))
 
 
 def time_decode_gated(n, d, gen, dev) -> dict:
@@ -857,12 +839,9 @@ def time_decode_gated(n, d, gen, dev) -> dict:
 
     ms = graph_ms(kernel, 2 * n_bufs)
     plain_ms = graph_ms(plain, 2 * n_bufs)
-    in_bytes = sum(t.nbytes for t in (x["s"], x["q"], x["k"], x["v"], g))
-    out_bytes = x["s"].nbytes + x["v"].nbytes                    # s, o
-    # per element: a·S, k·v, their sum, and o's multiply-add; exp per row
-    flops = n * w * (5 * d * d + d)
-    return dict(ms=ms, plain_ms=plain_ms, **bound(in_bytes + out_bytes,
-                                                  flops))
+    flops, n_bytes = ops.decode_gated_work(x["s"], x["q"], x["k"], x["v"],
+                                           g)
+    return dict(ms=ms, plain_ms=plain_ms, **bound(n_bytes, flops))
 
 
 def time_lookup_kernels(store, n_live, gen, dev) -> dict:
@@ -889,10 +868,12 @@ def time_lookup_kernels(store, n_live, gen, dev) -> dict:
     def b4(store, rows, q, shape, n_stores=1):
         """B4 and its yardsticks over the row sets ``rows`` (and stores)."""
         stores = store if isinstance(store, list) else [store]
-        k = stores[0].shape[-1]
         rows_long = [r.long() for r in rows]
         n = len(rows)
-        distinct = sum(torch.unique(r).numel() for r in rows) / n
+        # the mean over the row sets of each wave's work
+        works = [LU.mass_lookup_indexed_work(stores[0], r, q) for r in rows]
+        flops = sum(f for f, _ in works) / n
+        n_bytes = sum(b_ for _, b_ in works) / n
         return dict(
             ms=graph_ms(lambda i: LU.mass_lookup_indexed(
                 stores[i % len(stores)], rows[i % n], q,
@@ -903,8 +884,7 @@ def time_lookup_kernels(store, n_live, gen, dev) -> dict:
                 q, stores[i % len(stores)].index_select(
                     0, rows_long[i % n]).mT), 2 * n_bufs),
             library_ms=None, shape=shape,
-            **bound(distinct * k * k * 4 + b * 4 + 2 * q.nbytes,
-                    2 * b * q.shape[1] * k * k))
+            **bound(n_bytes, flops))
 
     rows = [torch.randint(0, n_live, (b,), generator=gen, device=dev,
                           dtype=torch.int32) for _ in range(n_bufs)]
@@ -935,7 +915,7 @@ def time_lookup_kernels(store, n_live, gen, dev) -> dict:
         library_ms=graph_ms(lambda i: torch.bmm(q, cs[i % n_bufs].mT),
                             2 * n_bufs),
         shape=f"N={n} M={m} K={kp}",
-        **bound(cs[0].nbytes + 2 * q.nbytes, 2 * n * m * kp * kp))
+        **bound(*LU.mass_lookup_work(cs[0], q)[::-1]))
     del cs
 
     def b6(n, d, dtype):
@@ -959,7 +939,7 @@ def time_lookup_kernels(store, n_live, gen, dev) -> dict:
                                                       kd_, vd), 2 * n_bufs),
             baddbmm_bmm_ms=graph_ms(library, 2 * n_bufs), library_ms=None,
             shape=f"N={n} Dk={d} Dv={d} {str(dtype).split('.')[-1]}",
-            **bound(2 * ss[0].nbytes + 4 * qd.nbytes, 4 * n * d * d))
+            **bound(*LU.fused_decode_work(ss[0], qd, kd_, vd)[::-1]))
 
     out["fused_decode"] = b6(n, kp, torch.float32)        # paper width
     out["fused_decode LM shape"] = b6(128, 128, torch.bfloat16)
@@ -1363,37 +1343,34 @@ def time_linear_attention(bh, t, d, chunk, gen, dev) -> dict:
     import torch
     from repro_torch.kernels.linear_attention import ops as LA, ref as LR
     q, k, v, do = la_rows(bh, t, d, torch.bfloat16, gen, dev)
-    x_bytes = q.nbytes
-    state_bytes = bh * d * d * 4
-    per_product = bh * t * 2 * d * d
     out = {}
-    for name, kern, plain, n_bytes, n_products in (
+    for name, kern, plain, (ops, n_bytes) in (
             ("linear_attention_fwd",
              lambda i: LA.fwd(q, k, v, chunk=chunk),
              lambda i: LR.chunked_fwd_ref(q, k, v, chunk=chunk),
-             4 * x_bytes + state_bytes, 2),
+             LA.fwd_work(q, k, v)),
             ("linear_attention_bwd_dq",
              lambda i: LA.bwd_dq(k, v, do, chunk=chunk),
              lambda i: LR.chunked_bwd_dq_ref(k, v, do, chunk=chunk),
-             4 * x_bytes, 2),
+             LA.bwd_dq_work(k, v, do)),
             ("linear_attention_bwd_dkv",
              lambda i: LA.bwd_dkv(q, k, v, do, chunk=chunk),
              lambda i: LR.chunked_bwd_dkv_ref(q, k, v, do, chunk=chunk),
-             6 * x_bytes, 3),
+             LA.bwd_dkv_work(q, k, v, do)),
             ("bwd",
              lambda i: LA.bwd(q, k, v, do, chunk=chunk),
              lambda i: LR.chunked_bwd_ref(q, k, v, do, chunk=chunk),
-             7 * x_bytes, 5)):
+             LA.bwd_work(q, k, v, do))):
         out[name] = dict(ms=graph_ms(kern, 4, replays=5),
                          plain_ms=graph_ms(plain, 2, replays=3),
-                         library_ms=None, fp32_bound_ms=bound(
-                             n_bytes, n_products * per_product)["bound_ms"],
-                         **bound(n_bytes, n_products * per_product,
-                                 PEAK_BF16_TC_FLOPS))
+                         library_ms=None,
+                         fp32_bound_ms=bound(n_bytes, ops)["bound_ms"],
+                         **bound(n_bytes, ops, PEAK_BF16_TC_FLOPS))
     # two sweeps (a forward one for dq, a reverse one for dk and dv) each
     # read their inputs and write their outputs: 4 + 6 tensors
-    out["bwd"]["two_sweep_bytes"] = 10 * x_bytes
-    out["bwd"]["two_sweep_ms"] = bound(10 * x_bytes, 0.0)["bound_ms"]
+    two = LA.bwd_dq_work(k, v, do)[1] + LA.bwd_dkv_work(q, k, v, do)[1]
+    out["bwd"]["two_sweep_bytes"] = two
+    out["bwd"]["two_sweep_ms"] = bound(two, 0.0)["bound_ms"]
     return out
 
 
@@ -1595,29 +1572,24 @@ def time_gated_linear_attention(bh, t, d, chunk, gen, dev) -> dict:
     from repro_torch.kernels.gated_linear_attention import ref as GR
     q, k, v, do, g = gla_rows(bh, t, d, torch.bfloat16, "model", gen, dev)
     _, qdq = GL.bwd_dq(q, k, v, g, do, chunk=chunk)
-    x_bytes, f_bytes = q.nbytes, g.nbytes
-    state_bytes = bh * d * d * 4
-    per_product = bh * t * 2 * d * d
-    n_exp = bh * t * d
     out = {}
-    for name, kern, plain, n_bytes, n_products in (
+    for name, kern, plain, (ops, n_bytes) in (
             ("gated_linear_attention_fwd",
              lambda i: GL.fwd(q, k, v, g, chunk=chunk),
              lambda i: GR.chunked_fwd_ref(q, k, v, g, chunk=chunk),
-             4 * x_bytes + f_bytes + state_bytes, 2),
+             GL.fwd_work(q, k, v, g)),
             ("gated_linear_attention_bwd_dq",
              lambda i: GL.bwd_dq(q, k, v, g, do, chunk=chunk),
              lambda i: GR.bwd_dq_ref(q, k, v, g, do, chunk=chunk),
-             5 * x_bytes + 2 * f_bytes, 2),
+             GL.bwd_dq_work(q, k, v, g, do)),
             ("gated_linear_attention_bwd_dkv",
              lambda i: GL.bwd_dkv(q, k, v, g, do, qdq, chunk=chunk),
              lambda i: GR.bwd_dkv_dg_ref(q, k, v, g, do, qdq, chunk=chunk),
-             6 * x_bytes + 3 * f_bytes, 3),
+             GL.bwd_dkv_work(q, k, v, g, do)),
             ("bwd",
              lambda i: GL.bwd(q, k, v, g, do, chunk=chunk),
              lambda i: GR.chunked_bwd_ref(q, k, v, g, do, chunk=chunk),
-             7 * x_bytes + 2 * f_bytes, 5)):
-        ops = n_products * per_product + n_exp
+             GL.bwd_work(q, k, v, g, do))):
         out[name] = dict(ms=graph_ms(kern, 4, replays=5),
                          plain_ms=graph_ms(plain, 2, replays=3),
                          library_ms=None,
@@ -1766,9 +1738,9 @@ def time_flash_attention(b, h, hkv, t, d, gen, dev, n_bufs=4) -> dict:
                                          is_causal=True, enable_gqa=True)
     lib = lib.reshape(b, hkv, g, t, d).transpose(1, 2).reshape(b * h, t, d)
     lib_err = (o.float() - lib.float()).abs().max()
-    flops = b * h * (t * (t + 1) // 2) * 4 * d
-    n_bytes = 2 * sets[0][0].nbytes + 2 * sets[0][1].nbytes   # q, o, k, v
-    lse_bytes = b * h * t * 4                     # the fp32 lse written too
+    flops, n_bytes = FA.fwd_work(*rows[0], t_off=0, s_real=t)
+    lse_bytes = FA.fwd_work(*rows[0], t_off=0, s_real=t,
+                            want_lse=True)[1] - n_bytes
     out = dict(
         ms=graph_ms(lambda i: FA.fwd(*rows[i % n_bufs], kv_heads=hkv),
                     2 * n_bufs, replays=5),
@@ -4183,8 +4155,9 @@ def time_rwkv6_prefill(b, h, t, d, gen, dev) -> dict:
     import torch
     from repro_torch.kernels.gated_linear_attention import ops as GL
     q, k, v, g, u = rwkv_rows(b, h, t, d, torch.bfloat16, gen, dev)
-    n_bytes = 4 * q.nbytes + g.nbytes + b * h * d * d * 4 + u.nbytes
-    ops = 2 * (b * h * t * 2 * d * d) + 3 * b * h * t * d
+    ops, n_bytes = GL.fwd_work(*(x.reshape(b * h, t, d) for x in (q, k, v)),
+                               g.expand(q.shape).reshape(b * h, t, d),
+                               u=u, exclusive=True)
     return dict(ms=graph_ms(lambda i: GL.rwkv6_attention(q, k, v, g, u,
                                                          chunk=64), 4,
                             replays=5),
@@ -4415,8 +4388,7 @@ def time_ssd_prefill(b, h, t, n, gen, dev) -> dict:
     from repro_torch.kernels.gated_linear_attention import ref as GR
     import torch
     q, k, v, g = ssd_rows(b, h, t, n, torch.bfloat16, gen, dev)
-    n_bytes = 4 * q.nbytes + g.nbytes + b * h * n * n * 4
-    ops = 2 * (b * h * t * 2 * n * n) + b * h * t * n
+    ops, n_bytes = GL.fwd_work(q, k, v, g)
     return dict(ms=graph_ms(lambda i: GL.fwd(q, k, v, g, chunk=64), 4,
                             replays=5),
                 plain_ms=graph_ms(lambda i: GR.chunked_fwd_ref(
@@ -4846,27 +4818,23 @@ def time_exclusive_backward(b, h, t, d, gen, dev) -> dict:
     q, k, v, g, do = (x.reshape(b * h, t, d).contiguous()
                       for x in (q, k, v, g, do))
     _, qdq, _ = GL.bwd_exclusive_dq(q, k, v, g, do, u, chunk=64)
-    x_bytes, f_bytes, u_bytes = q.nbytes, g.nbytes, u.nbytes
-    per_product = b * h * t * 2 * d * d
-    n_exp = b * h * t * d
     out = {}
-    for name, kern, plain, n_bytes, n_products in (
+    for name, kern, plain, (ops, n_bytes) in (
             ("gated_linear_attention_bwd_exclusive_dq",
              lambda i: GL.bwd_exclusive_dq(q, k, v, g, do, u, chunk=64),
              lambda i: GR.bwd_exclusive_dq_ref(q, k, v, g, do, u, chunk=64),
-             5 * x_bytes + 2 * f_bytes + u_bytes + b * h * d * 4, 2),
+             GL.bwd_exclusive_dq_work(q, k, v, g, do, u)),
             ("gated_linear_attention_bwd_exclusive_dkv",
              lambda i: GL.bwd_exclusive_dkv(q, k, v, g, do, u, qdq,
                                             chunk=64),
              lambda i: GR.bwd_exclusive_dkv_ref(q, k, v, g, do, u, qdq,
                                                 chunk=64),
-             6 * x_bytes + 3 * f_bytes + u_bytes, 3),
+             GL.bwd_exclusive_dkv_work(q, k, v, g, do, u)),
             ("bwd_exclusive",
              lambda i: GL.bwd_exclusive(q, k, v, g, do, u, chunk=64),
              lambda i: GR.chunked_bwd_exclusive_ref(q, k, v, g, do, u,
                                                     chunk=64),
-             7 * x_bytes + 2 * f_bytes + 2 * u_bytes, 5)):
-        ops = n_products * per_product + n_exp
+             GL.bwd_exclusive_work(q, k, v, g, do, u))):
         out[name] = dict(ms=graph_ms(kern, 4, replays=5),
                          plain_ms=graph_ms(plain, 2, replays=3),
                          library_ms=None,
@@ -7181,6 +7149,254 @@ def multidevice_main_path(phase, checks=tuple(MULTI_NEEDS)) -> dict:
     return {"launches": launches, "out": out, "probe": probe}
 
 
+# -- phase 48: introspection on the card ------------------------------------
+
+# the dry run's cells, full configs, in this order. The list went on
+# with yi-34b:train_4k:single, qwen3-0.6b:train_4k:multi and
+# qwen3-0.6b:train_4k:pipeline (70, 37 and 67 s of tracing on the card's
+# host, each ok): cut from the end, so that phase 48 stays within 120 s
+# (PERF.md §4)
+DRYRUN_CELLS = ("qwen3-0.6b:train_4k:single", "qwen3-0.6b:prefill_32k:single",
+                "qwen3-0.6b:decode_32k:single",
+                "qwen3-0.6b:long_500k:single:linear",
+                "zamba2-7b:decode_32k:single")
+# FakeTensorMode starts the device's context by making (and freeing) a
+# 4-byte CUDA tensor (torch's ``init_gpu_context``), a 512-byte block of
+# the allocator; the dry run itself holds nothing on the card
+CONTEXT_TOUCH_BYTES = 1024
+PEAK_TOL = 0.10          # predicted against measured peak memory
+
+
+def dryrun_on_card(phase) -> dict:
+    """Phase 48 (a): ``python -m repro_torch.launch.dryrun`` in a
+    subprocess on the ``DRYRUN_CELLS`` (fake CUDA tensors, a fake process
+    group of 256 or 512 ranks): each cell ``ok``, and the subprocess's
+    peak of device bytes allocated 0. Returns the cells' figures from
+    their artifacts."""
+    import os
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun"]
+    for cell in DRYRUN_CELLS:
+        cmd += ["--cell", cell]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=900)
+    seconds = time.perf_counter() - t0
+    lines = [line for line in res.stdout.splitlines()
+             if line.startswith("[")]
+    for line in lines:
+        print(f"  {line}")
+    peak = re.search(r"device bytes allocated: peak (\d+)", res.stdout)
+    if res.returncode or len(lines) != len(DRYRUN_CELLS) or \
+            any(not line.startswith("[ok") for line in lines):
+        raise AssertionError(f"phase {phase}: the dry run failed (exit "
+                             f"{res.returncode}):\n{res.stdout[-3000:]}\n"
+                             f"{res.stderr[-3000:]}")
+    if peak is None or int(peak.group(1)) > CONTEXT_TOUCH_BYTES:
+        raise AssertionError(f"phase {phase}: the dry run allocated on the "
+                             f"card: {peak and peak.group(0)}")
+    cells = []
+    for cell in DRYRUN_CELLS:
+        arch, shape, mesh, *backend = cell.split(":")
+        suffix = f"__{backend[0]}" if backend else ""
+        art = json.loads((ROOT / "build" / "artifacts" /
+                          f"{arch}__{shape}__{mesh}{suffix}.json").read_text())
+        rl = art["roofline"]
+        cells.append(dict(
+            cell=cell, trace_s=art["t_trace_s"],
+            flops_per_device=art["flops_per_device"],
+            hbm_bytes_per_device=art["hbm_bytes_per_device"],
+            wire_bytes=art["collectives"]["wire_bytes"],
+            collectives=art["collectives"]["count"],
+            peak_bytes_per_device=art["memory"]["peak_bytes_per_device"],
+            t_bound_s=rl["t_bound_s"], bottleneck=rl["bottleneck"],
+            kernels=art["kernels"]))
+    print(f"phase {phase}: the dry run, {len(cells)} cells ok in "
+          f"{seconds:.1f} s; device bytes allocated 0 after every cell, "
+          f"peak {peak.group(1)} (FakeTensorMode's context touch)")
+    return dict(seconds=seconds, cells=cells)
+
+
+def profiled_device_ms(fn, *args) -> tuple:
+    """(device ms from torch.profiler, or None when it reports none; the
+    step's time between CUDA events) of one call of ``fn``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
+                 ) as prof:
+        start.record()
+        fn(*args)
+        end.record()
+        torch.cuda.synchronize()
+    rows, _ = profile_rows(prof)
+    total = sum(t for t, _, _ in rows) / 1e3
+    return (total or None), start.elapsed_time(end)
+
+
+def predicted_against_card(name, fn, args, base, phase) -> dict:
+    """Phase 48 (b) for one step: ``fn(*args)`` traced on fake copies of
+    its arguments, then run for real inside ``analyze_step``. The fake
+    trace's dot FLOPs, kernel FLOPs, major bytes and kernel calls must
+    equal the real run's (the same program); its predicted peak
+    (argument + temp + output − alias) must lie within ``PEAK_TOL`` of
+    ``torch.cuda.max_memory_allocated()`` over the step less ``base``
+    (what the card held before the case built its arguments); then the
+    step is profiled (``profiled_device_ms``) against the roofline's
+    ``t_bound``."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.launch.hlo import analyze_step
+    from repro_torch.launch.roofline import RooflineTerms
+    from repro_torch.tree import tree_map
+    t0 = time.perf_counter()
+    with FakeTensorMode() as mode:
+        fake = tree_map(mode.from_tensor, tuple(args))
+        _, pred = analyze_step(fn, *fake)
+    t_fake = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _, real = analyze_step(fn, *args)
+    torch.cuda.synchronize()
+    measured = torch.cuda.max_memory_allocated() - base
+    same = dict(
+        dot_flops=(pred.dot_flops, real.dot_flops),
+        kernel_flops=(pred.kernel_flops, real.kernel_flops),
+        major_bytes=(pred.hbm_bytes, real.hbm_bytes),
+        kernel_bytes=(pred.kernel_bytes, real.kernel_bytes),
+        kernels=(pred.kernel_counts(), real.kernel_counts()))
+    bad = {k: v for k, v in same.items() if v[0] != v[1]}
+    if bad:
+        raise AssertionError(f"phase {phase}: {name}: the fake trace and "
+                             f"the run differ: {bad}")
+    if {k.route for k in real.kernels} - {"kernel"} or \
+            {k.route for k in pred.kernels} - {"fake"}:
+        raise AssertionError(f"phase {phase}: {name}: routes "
+                             f"{[k.route for k in real.kernels][:4]}")
+    rel = abs(pred.peak_bytes - measured) / measured
+    terms = RooflineTerms(flops_per_device=pred.flops,
+                          hbm_bytes_per_device=pred.bytes,
+                          wire_bytes_per_device=0.0, n_devices=1)
+    device_ms, event_ms = profiled_device_ms(fn, *args)
+    t_bound_ms = terms.t_bound * 1e3
+    share = (lambda ms: None if not ms else t_bound_ms / ms)
+    print(f"  {name}: {pred.dot_flops / 1e9:.3f} GFLOP dot + "
+          f"{pred.kernel_flops / 1e9:.3f} GFLOP in {len(pred.kernels)} "
+          f"kernel calls ({json.dumps(pred.kernel_counts())}), "
+          f"{pred.hbm_bytes / 1e9:.3f} + {pred.kernel_bytes / 1e9:.3f} GB: "
+          f"fake trace = run (traced in {t_fake:.1f} s)")
+    print(f"  {name}: peak predicted {pred.peak_bytes / 2**30:.3f} GiB "
+          f"(arguments {pred.argument_bytes / 2**30:.3f}, temp "
+          f"{pred.temp_bytes / 2**30:.3f}, outputs "
+          f"{pred.output_bytes / 2**30:.3f}, aliased "
+          f"{pred.alias_bytes / 2**30:.3f}), measured "
+          f"{measured / 2**30:.3f} GiB ({100 * rel:.2f}% apart)")
+    print(f"  {name}: t_bound {t_bound_ms:.4f} ms ({terms.bottleneck}); "
+          f"device time {'not measured' if device_ms is None else f'{device_ms:.4f} ms'}"
+          f" (profiler), {event_ms:.4f} ms between CUDA events; share of "
+          f"t_bound {'not measured' if device_ms is None else f'{100 * share(device_ms):.1f}%'}"
+          f" of device time, {100 * share(event_ms):.1f}% of event time")
+    if rel > PEAK_TOL:
+        raise AssertionError(f"phase {phase}: {name}: predicted peak "
+                             f"{pred.peak_bytes} B is {100 * rel:.1f}% from "
+                             f"the measured {measured} B")
+    return dict(step=name, dot_flops=pred.dot_flops,
+                kernel_flops=pred.kernel_flops, major_bytes=pred.hbm_bytes,
+                kernel_bytes=pred.kernel_bytes,
+                kernels=pred.kernel_counts(),
+                predicted_peak=pred.peak_bytes, measured_peak=measured,
+                peak_rel=rel, t_bound_ms=t_bound_ms,
+                bottleneck=terms.bottleneck, device_ms=device_ms,
+                event_ms=event_ms, trace_s=t_fake)
+
+
+def introspection_main_path(dev, phase) -> dict:
+    """Phase 48 (b): qwen3-0.6b at full width and depth, world size 1,
+    bf16 compute: the linear train step at phase 10's 8 × 1,024 (B2,
+    B3), the softmax prefill at 8 × 512 (B10), the linear and gated
+    decode steps at batch 8 after a 512-token prompt (B1, B7); and
+    rwkv6-1.6b's prefill at 8 × 512 (B8's exclusive route). Each traced
+    on fake tensors and run for real (``predicted_against_card``); every
+    kernel's launch count set to 0 before and read after."""
+    import gc
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.steps import make_train_step
+
+    def settle() -> int:
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        return torch.cuda.memory_allocated()
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    steps = []
+    reset_launches()
+    # the linear train step (phase 10's shape)
+    base = settle()
+    cfg = get_config("qwen3-0.6b").with_backend("linear")
+    params = lm.init_params(gen, cfg)
+    opt = adamw(3e-4)
+    state = opt.init(params)
+    batch = {k: torch.randint(0, cfg.vocab_size, (8, 1024), generator=gen,
+                              device=dev) for k in ("tokens", "labels")}
+    steps.append(predicted_against_card(
+        "train linear 8x1024", make_train_step(cfg, opt),
+        (params, state, batch), base, phase))
+    del params, state, batch, opt
+    # the serving steps: bf16 parameters, as serve builds them
+    for backend, kind in (("softmax", "prefill"), ("linear", "decode"),
+                          ("gated_linear", "decode")):
+        base = settle()
+        cfg = get_config("qwen3-0.6b").with_backend(backend)
+        params = lm.cast_params(lm.init_params(gen, cfg), torch.bfloat16)
+        prompt = torch.randint(0, cfg.vocab_size, (8, 512), generator=gen,
+                               device=dev)
+
+        @torch.no_grad()
+        def prefill(params, tokens, cfg=cfg):
+            return lm.prefill(params, tokens, cfg)
+        if kind == "prefill":
+            steps.append(predicted_against_card(
+                f"prefill {backend} 8x512", prefill, (params, prompt), base,
+                phase))
+        else:
+            st = prefill(params, prompt)[1]
+            tok = torch.randint(0, cfg.vocab_size, (8,), generator=gen,
+                                device=dev)
+            pos = torch.tensor(512, dtype=torch.int32, device=dev)
+
+            @torch.no_grad()
+            def decode(params, state, token, pos, cfg=cfg):
+                return lm.decode_step(params, state, token, pos, cfg)
+            steps.append(predicted_against_card(
+                f"decode {backend} batch 8 at 512", decode,
+                (params, st, tok, pos), base, phase))
+            del st
+        del params, prompt
+    # rwkv6-1.6b's prefill (B8's exclusive route)
+    base = settle()
+    cfg = get_config("rwkv6-1.6b")
+    params = lm.cast_params(lm.init_params(gen, cfg), torch.bfloat16)
+    prompt = torch.randint(0, cfg.vocab_size, (8, 512), generator=gen,
+                           device=dev)
+
+    @torch.no_grad()
+    def rwkv_prefill(params, tokens):
+        return lm.prefill(params, tokens, cfg)
+    steps.append(predicted_against_card(
+        "prefill rwkv6-1.6b 8x512", rwkv_prefill, (params, prompt), base,
+        phase))
+    del params, prompt
+    launches = {k: n for k, n in read_launches().items() if n}
+    settle()
+    print(f"phase {phase}: five steps, each fake trace equal to its run; "
+          f"launches {json.dumps(launches)}")
+    return dict(steps=steps, launches=launches)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -7812,6 +8028,14 @@ def main() -> int:
     multi = multidevice_main_path(47)
     done(47, t0)
 
+    # -- 48. introspection: the dry run, and its prediction held against
+    # the card ------------------------------------------------------------
+    t0 = time.perf_counter()
+    dry = dryrun_on_card(48)
+    intro = introspection_main_path(dev, 48)
+    done(48, t0)
+    print(f"phase 48: {json.dumps({'dryrun': dry, 'steps': intro['steps']})}")
+
     for r in records:
         r["max_abs_err"] = errs[r["name"]]
         if r["name"] in stream:   # B1/B7: generate, stream; B10: and train
@@ -7877,6 +8101,9 @@ def main() -> int:
     # phase 47: rank 0's launches (each rank launches the same)
     for name, n in multi["launches"].items():
         more.setdefault(name, {})["multidevice_per_rank"] = n
+    # phase 48: the five steps' real runs and their profiles
+    for name, n in intro["launches"].items():
+        more.setdefault(name, {})["introspection"] = n
     # phases 45 and 46
     for label, runs in (("durability", durable_runs), ("fleet", fleet_runs),
                         ("lookup_durability", [lookup_ckpt])):

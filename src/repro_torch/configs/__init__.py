@@ -3,8 +3,8 @@ every architecture it serves; ``get_config("<id>")`` / ``--arch <id>``
 selects one."""
 
 from repro_torch.configs.base import (  # noqa: F401
-    ModelConfig, MoEConfig, RWKVConfig, SSMConfig, get_config,
-    get_smoke_config,
+    ModelConfig, MoEConfig, RWKVConfig, SSMConfig, ShapeConfig, SHAPES,
+    get_config, get_smoke_config, list_architectures,
 )
 
 # one module per architecture (registration side effects)
@@ -18,3 +18,4 @@ from repro_torch.configs import internlm2_20b        # noqa: F401
 from repro_torch.configs import phi3_mini_3_8b       # noqa: F401
 from repro_torch.configs import rwkv6_1_6b           # noqa: F401
 from repro_torch.configs import zamba2_7b            # noqa: F401
+from repro_torch.configs import paper_qa             # noqa: F401

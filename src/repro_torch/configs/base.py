@@ -129,6 +129,12 @@ class ModelConfig:
         return self.layer_pattern, reps, self.tail
 
     @property
+    def uses_attention(self) -> bool:
+        pattern, _, tail = self.pattern_and_repeats
+        kinds = set(pattern) | set(tail)
+        return bool(kinds & {"attn", "shared_attn", "cross"})
+
+    @property
     def fixed_state_decode(self) -> bool:
         """True if decode state is O(1) in context length (the paper's
         fixed-size-representation property)."""
@@ -137,6 +143,24 @@ class ModelConfig:
         if not kinds & {"attn", "shared_attn", "cross"}:
             return True
         return self.attention_backend in ("linear", "gated_linear")
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One (sequence length, global batch, step kind) cell of the dry
+    run (JAX ``ShapeConfig``)."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+SHAPES: Dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
 
 
 def with_depth(cfg: ModelConfig, n_layers: int) -> ModelConfig:
@@ -192,3 +216,7 @@ def get_smoke_config(name: str) -> ModelConfig:
     import repro_torch.configs  # noqa: F401
     return _SMOKE_REGISTRY[name]()
 
+
+def list_architectures():
+    import repro_torch.configs  # noqa: F401
+    return sorted(_REGISTRY)

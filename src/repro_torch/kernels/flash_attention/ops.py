@@ -24,6 +24,14 @@ pointer and runs as it always did.
 tile padding of the JAX wrapper, with k, v of H or Hkv heads, and slices
 the lse back from the padded rows. Forward only, as in JAX: the Pallas
 kernel has no backward.
+
+``fwd_work`` gives a launch's work, (operations, bytes): q·k and p·v,
+4·D operations, for each (query, key) pair a query can see; q, k, v read
+and o (and the lse) written once. Every call reports it to
+``launch/hlo.py``; on a fake tensor (``FakeTensorMode``) ``fwd`` checks
+what the kernel checks (alignment aside: a fake tensor has no address),
+records its work and returns outputs of the kernel's shapes without a
+launch or a count.
 """
 
 from __future__ import annotations
@@ -37,6 +45,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention.ref import flash_attention_fwd_ref
+from repro_torch.launch.hlo import is_fake, record_kernel
 
 Tensor = torch.Tensor
 
@@ -99,12 +108,28 @@ def _check(q: Tensor, k: Tensor, v: Tensor) -> None:
         if x.device != q.device:
             raise ValueError(f"flash_attention_fwd: {name} is on {x.device}"
                              f", not {q.device}")
-        if not x.is_contiguous() or x.data_ptr() % 16:
+        if not x.is_contiguous() or (not is_fake(x) and x.data_ptr() % 16):
             raise ValueError(f"flash_attention_fwd: {name} must be "
                              f"contiguous and 16-byte aligned")
 
 
+def fwd_work(q: Tensor, k: Tensor, v: Tensor, *, t_off: int, s_real: int,
+             want_lse: bool = False) -> Tuple[int, int]:
+    """B10's work: 4·D operations for each visible pair (key j ≤ i +
+    t_off and j < s_real for query i, in every q row); q, k, v read, o
+    (and the fp32 lse) written."""
+    bh, t, d = q.shape
+    # Σ_i min(i + t_off + 1, s_real): the rows up to the clamp, then s_real
+    n_open = max(0, min(t, s_real - t_off))
+    pairs = n_open * (t_off + 1) + n_open * (n_open - 1) // 2 \
+        + (t - n_open) * s_real
+    n_bytes = sum(x.numel() * x.element_size() for x in (q, k, v, q))
+    return bh * pairs * 4 * d, n_bytes + (bh * t * 4 if want_lse else 0)
+
+
 def _on_cpu(x: Tensor) -> bool:
+    if is_fake(x):          # shapes only: the kernel's route, no launch
+        return False
     if x.device.type == "cpu":
         return True
     if x.device.type != "cuda":
@@ -144,7 +169,9 @@ def fwd(q: Tensor, k: Tensor, v: Tensor, *, scale: Optional[float] = None,
                          f"1 <= s_real <= S={s}, got t_off={t_off}, "
                          f"s_real={s_real}")
     heads, kv = _heads(q, k, kv_heads)
+    work = fwd_work(q, k, v, t_off=t_off, s_real=s_real, want_lse=want_lse)
     if not kernel or _on_cpu(q):
+        record_kernel("flash_attention_fwd", work, "plain")
         return flash_attention_fwd_ref(q, k, v, scale=scale, t_off=t_off,
                                        s_real=s_real, kv_heads=kv_heads,
                                        want_lse=want_lse)
@@ -153,6 +180,9 @@ def fwd(q: Tensor, k: Tensor, v: Tensor, *, scale: Optional[float] = None,
     lse = (torch.empty((bh, t), dtype=torch.float32, device=q.device)
            if want_lse else None)
     out = (o, lse) if want_lse else o
+    if is_fake(q):
+        record_kernel("flash_attention_fwd", work, "fake")
+        return out
     if bh == 0 or t == 0:
         return out
     lib = load()
@@ -166,6 +196,7 @@ def fwd(q: Tensor, k: Tensor, v: Tensor, *, scale: Optional[float] = None,
         raise RuntimeError(f"flash_attention_fwd: kernel launch failed with "
                            f"CUDA error {err}")
     fwd.launches += 1
+    record_kernel("flash_attention_fwd", work, "kernel")
     return out
 
 

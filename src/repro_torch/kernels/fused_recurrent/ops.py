@@ -11,6 +11,13 @@ updated in place and returned.
 ``fused_recurrent_linear`` and ``fused_recurrent_gated`` add the
 (B, H, …) ↔ (B·H, …) reshapes and broadcast a per-batch ``lens`` over
 heads, as the JAX wrappers do.
+
+``decode_linear_work`` and ``decode_gated_work`` give a launch's work,
+(operations, bytes): each input read and each output written once, the
+state and z both ways. Every call reports it to ``launch/hlo.py``; on a
+fake tensor (``FakeTensorMode``: shapes, no storage) a wrapper checks
+what the kernel checks, records its work and returns outputs of the
+kernel's shapes, the state as given, without a launch or a count.
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.launch.hlo import is_fake, record_kernel
 from repro_torch.kernels.fused_recurrent.ref import (
     fused_recurrent_gated_ref, fused_recurrent_linear_ref)
 
@@ -94,6 +102,35 @@ def _check_rows(kernel, s, q, k, v, lens, extra) -> None:
             raise ValueError(f"{kernel}: {name} must be contiguous")
 
 
+def _nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+def decode_linear_work(s: Tensor, q: Tensor, k: Tensor, v: Tensor, *,
+                       z: Optional[Tensor] = None, normalize: bool = False,
+                       lens: Optional[Tensor] = None) -> Tuple[int, int]:
+    """B1's work on flat rows: per row and step S += k vᵀ, o = Sᵀq (and
+    z's update and the q·z denominator): 4·Dk·Dv + 4·Dk operations;
+    s (and z) read and written, q, k, v (and lens) read, o written."""
+    n, dk, dv = s.shape
+    w = q.shape[1]
+    zz = z if normalize else None
+    return (n * w * (4 * dk * dv + 4 * dk),
+            2 * _nbytes(s, zz) + _nbytes(q, k, v, lens) + _nbytes(v))
+
+
+def decode_gated_work(s: Tensor, q: Tensor, k: Tensor, v: Tensor,
+                      g: Tensor, *, lens: Optional[Tensor] = None
+                      ) -> Tuple[int, int]:
+    """B7's work on flat rows: per row and step e^g ⊙ S, k vᵀ, their sum
+    and o = Sᵀq (5·Dk·Dv) and one exp a decay element (Dk); s read and
+    written, q, k, v, g (and lens) read, o written."""
+    n, dk, dv = s.shape
+    w = q.shape[1]
+    return (n * w * (5 * dk * dv + dk),
+            2 * _nbytes(s) + _nbytes(q, k, v, g, lens) + _nbytes(v))
+
+
 def _check(s, q, k, v, z, normalize, lens) -> None:
     n, dk, _ = s.shape
     _check_rows("decode_linear", s, q, k, v, lens,
@@ -126,7 +163,15 @@ def decode_linear(
     """
     if normalize and z is None:
         raise ValueError("normalize=True needs the key-sum normaliser z")
+    work = decode_linear_work(s, q, k, v, z=z, normalize=normalize,
+                              lens=lens)
+    if is_fake(s):
+        _check(s, q, k, v, z, normalize, lens)
+        record_kernel("decode_linear", work, "fake")
+        return (torch.empty(v.shape, dtype=v.dtype, device=v.device), s,
+                z if normalize else None)
     if s.device.type == "cpu":
+        record_kernel("decode_linear", work, "plain")
         o, s_new, z_new = fused_recurrent_linear_ref(
             s[:, None], q[:, None], k[:, None], v[:, None],
             z=None if z is None else z[:, None], normalize=normalize,
@@ -155,6 +200,7 @@ def decode_linear(
         raise RuntimeError(f"decode_linear: kernel launch failed with CUDA "
                            f"error {err}")
     decode_linear.launches += 1
+    record_kernel("decode_linear", work, "kernel")
     return o, s, z if normalize else None
 
 
@@ -218,7 +264,13 @@ def decode_gated(
     (masked steps neither decay nor update). Returns (o: (N, W, Dv) in
     v's type, s) with s updated in place.
     """
+    work = decode_gated_work(s, q, k, v, g, lens=lens)
+    if is_fake(s):
+        _check_gated(s, q, k, v, g, lens)
+        record_kernel("decode_gated", work, "fake")
+        return torch.empty(v.shape, dtype=v.dtype, device=v.device), s
     if s.device.type == "cpu":
+        record_kernel("decode_gated", work, "plain")
         o, s_new = fused_recurrent_gated_ref(
             s[:, None], q[:, None], k[:, None], v[:, None], g[:, None],
             lens=lens)
@@ -244,6 +296,7 @@ def decode_gated(
         raise RuntimeError(f"decode_gated: kernel launch failed with CUDA "
                            f"error {err}")
     decode_gated.launches += 1
+    record_kernel("decode_gated", work, "kernel")
     return o, s
 
 

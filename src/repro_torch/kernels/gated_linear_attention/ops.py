@@ -37,6 +37,17 @@ design with the strict mask, q scaled by e^{b_{t-1}}, the bonus terms,
 the exclusive dg and du; no Pallas original, JAX differentiates
 ``chunked_gla`` by autodiff). ``ssd_attention`` is the forward-only
 inclusive form with its final state (the Mamba-2 SSD prefill).
+
+The ``*_work`` functions give the work, (operations, bytes), of each
+launch and of each backward as a function: each input read and each
+output written once (g, q⊙dq and dg in fp32, u and du beside); 2·T·D² a
+row for each product with the D × D state (two forward and for dq,
+three for dk/dv, five for a backward) plus one exp a decay element
+(three with the exclusive forward's bonus). Every call reports its
+launches' work to ``launch/hlo.py``; on a fake tensor
+(``FakeTensorMode``) a wrapper checks what the kernel checks, records
+its work and returns outputs of the kernel's shapes without a launch or
+a count.
 """
 
 from __future__ import annotations
@@ -48,6 +59,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.launch.hlo import is_fake, record_kernel
 from repro_torch.kernels.gated_linear_attention import ref
 from repro_torch.kernels.gated_linear_attention.ref import (
     MIN_LOG_DECAY, chunked_bwd_exclusive_ref, chunked_bwd_ref,
@@ -78,6 +90,65 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "gated_linear_attention.cu"
 #   1e-5 of gla_scan (PERF.md §6). −1.5 leaves a margin of about 2 for
 #   inputs of larger κ.
 DECAY_LIMIT = {torch.bfloat16: -1.25, torch.float32: -1.5}
+
+
+def _nbytes(*ts: Optional[Tensor]) -> int:
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+def _ops(q: Tensor, products: int, exps: int = 1) -> int:
+    """``products`` passes of 2·T·D² a row against the D × D state, and
+    ``exps`` operations a decay element."""
+    bh, t, d = q.shape
+    return products * bh * t * 2 * d * d + exps * bh * t * d
+
+
+def fwd_work(q: Tensor, k: Tensor, v: Tensor, g: Tensor, *,
+             u: Optional[Tensor] = None, exclusive: bool = False
+             ) -> Tuple[int, int]:
+    """B8: q, k, v, g (and u) read, o and the fp32 state written."""
+    bh, _, d = q.shape
+    return (_ops(q, 2, 3 if exclusive else 1),
+            _nbytes(q, k, v, v, g, u if exclusive else None) + bh * d * d * 4)
+
+
+def bwd_dq_work(q: Tensor, k: Tensor, v: Tensor, g: Tensor, do: Tensor
+                ) -> Tuple[int, int]:
+    """B9's dq launch: q, k, v, g, do read, dq and q⊙dq (fp32) written."""
+    return _ops(q, 2), _nbytes(q, k, v, do, q, g, g)
+
+
+def bwd_dkv_work(q: Tensor, k: Tensor, v: Tensor, g: Tensor, do: Tensor
+                 ) -> Tuple[int, int]:
+    """B9's dk/dv launch: q, k, v, g, do, q⊙dq read, dk, dv, dg written."""
+    return _ops(q, 3), _nbytes(q, k, v, do, k, v, g, g, g)
+
+
+def bwd_work(q: Tensor, k: Tensor, v: Tensor, g: Tensor, do: Tensor
+             ) -> Tuple[int, int]:
+    """B9 as a function: q, k, v, g, do read once, dq, dk, dv, dg
+    written."""
+    return _ops(q, 5), _nbytes(q, k, v, do, q, k, v, g, g)
+
+
+def bwd_exclusive_dq_work(q: Tensor, k: Tensor, v: Tensor, g: Tensor,
+                          do: Tensor, u: Tensor) -> Tuple[int, int]:
+    """The exclusive backward's dq launch: B9's, with u read and du per
+    row (fp32 (BH, D)) written."""
+    bh, _, d = q.shape
+    return _ops(q, 2), _nbytes(q, k, v, do, q, g, g, u) + bh * d * 4
+
+
+def bwd_exclusive_dkv_work(q: Tensor, k: Tensor, v: Tensor, g: Tensor,
+                           do: Tensor, u: Tensor) -> Tuple[int, int]:
+    """The exclusive backward's dk/dv launch: B9's, with u read."""
+    return _ops(q, 3), _nbytes(q, k, v, do, k, v, g, g, g, u)
+
+
+def bwd_exclusive_work(q: Tensor, k: Tensor, v: Tensor, g: Tensor,
+                       do: Tensor, u: Tensor) -> Tuple[int, int]:
+    """The exclusive backward as a function: B9's, u read, du written."""
+    return _ops(q, 5), _nbytes(q, k, v, do, q, k, v, g, g, u, u)
 
 
 def load() -> ctypes.CDLL:
@@ -159,7 +230,9 @@ def fwd(q: Tensor, k: Tensor, v: Tensor, g: Tensor, *,
     BH (row r reads u[r % H]: rows batch-major, heads minor, as
     ``_rows`` flattens (B, H)), fp32, or None. Returns (o: (BH, T, Dv) in
     v's type, s: (BH, Dk, Dv) fp32 final state)."""
+    work = fwd_work(q, k, v, g, u=u, exclusive=exclusive)
     if not kernel or _on_cpu(q):
+        record_kernel("gated_linear_attention_fwd", work, "plain")
         return chunked_fwd_ref(q, k, v, g, u=u, chunk=chunk,
                                exclusive=exclusive,
                                min_log_decay=min_log_decay)
@@ -173,6 +246,9 @@ def fwd(q: Tensor, k: Tensor, v: Tensor, g: Tensor, *,
         u_heads = _u_heads("gated_linear_attention_fwd", u, bh, d, q.device)
     o = torch.empty_like(v)
     s = torch.empty((bh, d, d), dtype=torch.float32, device=q.device)
+    if is_fake(q):
+        record_kernel("gated_linear_attention_fwd", work, "fake")
+        return o, s
     if bh == 0 or t == 0:
         return o, s.zero_()
     lib = load()
@@ -184,6 +260,7 @@ def fwd(q: Tensor, k: Tensor, v: Tensor, g: Tensor, *,
             min_log_decay, _stream(q))
     _raise_on("gated_linear_attention_fwd", err)
     fwd.launches += 1
+    record_kernel("gated_linear_attention_fwd", work, "kernel")
     return o, s
 
 
@@ -205,6 +282,10 @@ def bwd_dq(q: Tensor, k: Tensor, v: Tensor, g: Tensor, do: Tensor, *,
     dq = torch.empty_like(q)
     qdq = torch.empty((bh, t, d), dtype=torch.float32, device=q.device) \
         if bf16 else None
+    work = bwd_dq_work(q, k, v, g, do)
+    if is_fake(q):
+        record_kernel("gated_linear_attention_bwd_dq", work, "fake")
+        return dq, qdq if bf16 else torch.empty_like(g)
     if bh == 0 or t == 0:
         return dq, qdq if bf16 else q * dq
     lib = load()
@@ -215,6 +296,7 @@ def bwd_dq(q: Tensor, k: Tensor, v: Tensor, g: Tensor, do: Tensor, *,
             bh, t, d, _DTYPES[q.dtype], min_log_decay, _stream(q))
     _raise_on("gated_linear_attention_bwd_dq", err)
     bwd_dq.launches += 1
+    record_kernel("gated_linear_attention_bwd_dq", work, "kernel")
     return dq, qdq if bf16 else q * dq
 
 
@@ -237,6 +319,10 @@ def bwd_dkv(q: Tensor, k: Tensor, v: Tensor, g: Tensor, do: Tensor,
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     dg = torch.empty_like(g)
+    work = bwd_dkv_work(q, k, v, g, do)
+    if is_fake(q):
+        record_kernel("gated_linear_attention_bwd_dkv", work, "fake")
+        return dk, dv, dg
     if bh == 0 or t == 0:
         return dk, dv, dg
     lib = load()
@@ -248,6 +334,7 @@ def bwd_dkv(q: Tensor, k: Tensor, v: Tensor, g: Tensor, do: Tensor,
             min_log_decay, _stream(q))
     _raise_on("gated_linear_attention_bwd_dkv", err)
     bwd_dkv.launches += 1
+    record_kernel("gated_linear_attention_bwd_dkv", work, "kernel")
     if not bf16:
         dg = ref.dg_from_qdq(qdq, k, g, dk, min_log_decay=min_log_decay)
     return dk, dv, dg
@@ -264,6 +351,10 @@ def bwd(q: Tensor, k: Tensor, v: Tensor, g: Tensor, do: Tensor, *,
     dq launch, then the dk/dv launch, which also forms dg from the first's
     q⊙dq (JAX runs that epilogue outside the pallas_call)."""
     if not kernel or _on_cpu(q):
+        record_kernel("gated_linear_attention_bwd_dq",
+                      bwd_dq_work(q, k, v, g, do), "plain")
+        record_kernel("gated_linear_attention_bwd_dkv",
+                      bwd_dkv_work(q, k, v, g, do), "plain")
         return chunked_bwd_ref(q, k, v, g, do, chunk=chunk,
                                min_log_decay=min_log_decay)
     dq, qdq = bwd_dq(q, k, v, g, do, chunk=chunk,
@@ -291,6 +382,11 @@ def bwd_exclusive_dq(q: Tensor, k: Tensor, v: Tensor, g: Tensor,
     dq = torch.empty_like(q)
     qdq = torch.empty((bh, t, d), dtype=torch.float32, device=q.device)
     du_rows = torch.zeros((bh, d), dtype=torch.float32, device=q.device)
+    work = bwd_exclusive_dq_work(q, k, v, g, do, u)
+    if is_fake(q):
+        record_kernel("gated_linear_attention_bwd_exclusive_dq", work,
+                      "fake")
+        return dq, qdq, du_rows
     if bh == 0 or t == 0:
         return dq, qdq, du_rows
     lib = load()
@@ -303,6 +399,7 @@ def bwd_exclusive_dq(q: Tensor, k: Tensor, v: Tensor, g: Tensor,
             _DTYPES[q.dtype], u_heads, min_log_decay, _stream(q))
     _raise_on("gated_linear_attention_bwd_exclusive_dq", err)
     bwd_exclusive_dq.launches += 1
+    record_kernel("gated_linear_attention_bwd_exclusive_dq", work, "kernel")
     if not bf16:
         dov = (do * v).sum(-1, keepdim=True)
         qdq = q * dq - dov * q * ref._u_rows(u, bh) * k
@@ -332,6 +429,11 @@ def bwd_exclusive_dkv(q: Tensor, k: Tensor, v: Tensor, g: Tensor,
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     dg = torch.empty_like(g)
+    work = bwd_exclusive_dkv_work(q, k, v, g, do, u)
+    if is_fake(q):
+        record_kernel("gated_linear_attention_bwd_exclusive_dkv", work,
+                      "fake")
+        return dk, dv, dg
     if bh == 0 or t == 0:
         return dk, dv, dg
     lib = load()
@@ -343,6 +445,8 @@ def bwd_exclusive_dkv(q: Tensor, k: Tensor, v: Tensor, g: Tensor,
             _DTYPES[q.dtype], u_heads, min_log_decay, _stream(q))
     _raise_on("gated_linear_attention_bwd_exclusive_dkv", err)
     bwd_exclusive_dkv.launches += 1
+    record_kernel("gated_linear_attention_bwd_exclusive_dkv", work,
+                  "kernel")
     if not bf16:
         dov = (do * v).sum(-1, keepdim=True)
         kdk = k * dk - dov * q * ref._u_rows(u, bh) * k
@@ -363,6 +467,10 @@ def bwd_exclusive(q: Tensor, k: Tensor, v: Tensor, g: Tensor, do: Tensor,
     CUDA the dq launch (with du per row, summed here over each head's
     rows), then the dk/dv launch, which forms dg."""
     if not kernel or _on_cpu(q):
+        record_kernel("gated_linear_attention_bwd_exclusive_dq",
+                      bwd_exclusive_dq_work(q, k, v, g, do, u), "plain")
+        record_kernel("gated_linear_attention_bwd_exclusive_dkv",
+                      bwd_exclusive_dkv_work(q, k, v, g, do, u), "plain")
         return chunked_bwd_exclusive_ref(q, k, v, g, do, u, chunk=chunk,
                                          min_log_decay=min_log_decay)
     dq, qdq, du_rows = bwd_exclusive_dq(q, k, v, g, do, u, chunk=chunk,

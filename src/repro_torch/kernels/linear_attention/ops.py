@@ -16,6 +16,15 @@ that stands in for its custom VJP: forward B2, backward B3, and only
 (q, k, v) saved — no state, the paper's §3.3 memory argument.
 ``linear_attention_with_state`` is the forward-only variant that also
 returns the final state.
+
+``fwd_work``, ``bwd_dq_work``, ``bwd_dkv_work`` and ``bwd_work`` give
+the work, (operations, bytes), of each launch and of the backward as a
+function: each input read and each output written once; 2·T·D² a row
+for each product with the D × D state, two for B2 and dq, three for
+dk/dv, five for the backward. Every call reports its launches' work to
+``launch/hlo.py``; on a fake tensor (``FakeTensorMode``) a wrapper checks
+what the kernel checks, records its work and returns outputs of the
+kernel's shapes without a launch or a count.
 """
 
 from __future__ import annotations
@@ -27,6 +36,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.launch.hlo import is_fake, record_kernel
 from repro_torch.kernels.linear_attention.ref import (
     chunked_bwd_ref, chunked_fwd_ref)
 
@@ -81,7 +91,45 @@ def _check(kernel: str, chunk: int, **tensors: Tensor) -> None:
             raise ValueError(f"{kernel}: {name} must be contiguous")
 
 
+def _nbytes(*ts: Tensor) -> int:
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+def _products(x: Tensor, n: int) -> int:
+    """n products of T rank-one updates or reads of each row's D × D
+    state: 2·T·D² operations each."""
+    bh, t, d = x.shape
+    return n * bh * t * 2 * d * d
+
+
+def fwd_work(q: Tensor, k: Tensor, v: Tensor) -> Tuple[int, int]:
+    """B2: S += k vᵀ and q S a token; q, k, v read, o and the fp32 state
+    written."""
+    bh, _, d = q.shape
+    return _products(q, 2), _nbytes(q, k, v, v) + bh * d * d * 4
+
+
+def bwd_dq_work(k: Tensor, v: Tensor, do: Tensor) -> Tuple[int, int]:
+    """B3's dq launch: k, v, do read, dq written."""
+    return _products(k, 2), _nbytes(k, v, do, k)
+
+
+def bwd_dkv_work(q: Tensor, k: Tensor, v: Tensor, do: Tensor
+                 ) -> Tuple[int, int]:
+    """B3's dk/dv launch (R += q doᵀ, v R, k R): q, k, v, do read, dk and
+    dv written."""
+    return _products(q, 3), _nbytes(q, k, v, do, k, v)
+
+
+def bwd_work(q: Tensor, k: Tensor, v: Tensor, do: Tensor
+             ) -> Tuple[int, int]:
+    """B3 as a function: q, k, v, do read once, dq, dk, dv written."""
+    return _products(q, 5), _nbytes(q, k, v, do, q, k, v)
+
+
 def _on_cpu(x: Tensor) -> bool:
+    if is_fake(x):          # shapes only: the kernel's route, no launch
+        return False
     if x.device.type == "cpu":
         return True
     if x.device.type != "cuda":
@@ -104,11 +152,15 @@ def fwd(q: Tensor, k: Tensor, v: Tensor, *, chunk: int = 128,
     """B2. q, k, v: (BH, T, D), T % chunk == 0. Returns (o: (BH, T, D)
     in v's type, s: (BH, D, D) fp32 final state)."""
     if not kernel or _on_cpu(q):
+        record_kernel("linear_attention_fwd", fwd_work(q, k, v), "plain")
         return chunked_fwd_ref(q, k, v, chunk=chunk)
     _check("linear_attention_fwd", chunk, q=q, k=k, v=v)
     bh, t, d = q.shape
     o = torch.empty_like(v)
     s = torch.empty((bh, d, d), dtype=torch.float32, device=q.device)
+    if is_fake(q):
+        record_kernel("linear_attention_fwd", fwd_work(q, k, v), "fake")
+        return o, s
     if bh == 0 or t == 0:
         return o, s.zero_()
     lib = load()
@@ -118,6 +170,7 @@ def fwd(q: Tensor, k: Tensor, v: Tensor, *, chunk: int = 128,
             s.data_ptr(), bh, t, d, _DTYPES[q.dtype], _stream(q))
     _raise_on("linear_attention_fwd", err)
     fwd.launches += 1
+    record_kernel("linear_attention_fwd", fwd_work(q, k, v), "kernel")
     return o, s
 
 
@@ -129,6 +182,10 @@ def bwd_dq(k: Tensor, v: Tensor, do: Tensor, *, chunk: int = 128) -> Tensor:
     _check("linear_attention_bwd_dq", chunk, k=k, v=v, do=do)
     bh, t, d = k.shape
     dq = torch.empty_like(k)
+    if is_fake(k):
+        record_kernel("linear_attention_bwd_dq", bwd_dq_work(k, v, do),
+                      "fake")
+        return dq
     if bh == 0 or t == 0:
         return dq
     lib = load()
@@ -138,6 +195,8 @@ def bwd_dq(k: Tensor, v: Tensor, do: Tensor, *, chunk: int = 128) -> Tensor:
             d, _DTYPES[k.dtype], _stream(k))
     _raise_on("linear_attention_bwd_dq", err)
     bwd_dq.launches += 1
+    record_kernel("linear_attention_bwd_dq", bwd_dq_work(k, v, do),
+                  "kernel")
     return dq
 
 
@@ -151,6 +210,10 @@ def bwd_dkv(q: Tensor, k: Tensor, v: Tensor, do: Tensor, *,
     _check("linear_attention_bwd_dkv", chunk, q=q, k=k, v=v, do=do)
     bh, t, d = q.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
+    if is_fake(q):
+        record_kernel("linear_attention_bwd_dkv", bwd_dkv_work(q, k, v, do),
+                      "fake")
+        return dk, dv
     if bh == 0 or t == 0:
         return dk, dv
     lib = load()
@@ -161,6 +224,8 @@ def bwd_dkv(q: Tensor, k: Tensor, v: Tensor, do: Tensor, *,
             _stream(q))
     _raise_on("linear_attention_bwd_dkv", err)
     bwd_dkv.launches += 1
+    record_kernel("linear_attention_bwd_dkv", bwd_dkv_work(q, k, v, do),
+                  "kernel")
     return dk, dv
 
 
@@ -172,6 +237,10 @@ def bwd(q: Tensor, k: Tensor, v: Tensor, do: Tensor, *, chunk: int = 128,
     """B3, the §3.3 recompute backward: (dq, dk, dv) from q, k, v and do
     alone, (BH, T, D) each, in q's, k's and v's types."""
     if not kernel or _on_cpu(q):
+        record_kernel("linear_attention_bwd_dq", bwd_dq_work(k, v, do),
+                      "plain")
+        record_kernel("linear_attention_bwd_dkv", bwd_dkv_work(q, k, v, do),
+                      "plain")
         return chunked_bwd_ref(q, k, v, do, chunk=chunk)
     dq = bwd_dq(k, v, do, chunk=chunk)
     dk, dv = bwd_dkv(q, k, v, do, chunk=chunk)

@@ -15,6 +15,16 @@ the direct-load route. B6 takes two kernels, by shape (``decode_route``):
 a state of Dk·Dv % 4 == 0 and at most ``DECODE_RESIDENT`` floats the bulk
 route (the state copied into shared memory and back by bulk asynchronous
 copies, which need it 16-byte aligned), any other the direct route.
+
+``mass_lookup_work``, ``mass_lookup_indexed_work`` and
+``fused_decode_work`` give a launch's work, (operations, bytes): each
+input read and each output written once (B4 reads the states of the
+distinct rows of its wave); 2·K² operations a query against a K × K
+state, 4·Dk·Dv for B6's update and read. Every call reports it to
+``launch/hlo.py``; on a fake tensor (``FakeTensorMode``) a wrapper checks
+what the kernel checks (alignment aside: a fake tensor has no address),
+records its work and returns outputs of the kernel's shapes without a
+launch or a count.
 """
 
 from __future__ import annotations
@@ -27,6 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import build
+from repro_torch.launch.hlo import is_fake, record_kernel
 from repro_torch.kernels.lookup.ref import (
     decode_ref, mass_lookup_indexed_ref, mass_lookup_ref,
 )
@@ -60,6 +71,35 @@ def _check_tensors(name: str, **tensors: Tensor) -> None:
             raise ValueError(f"{name}: {arg} is on {t.device}, not {dev}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {arg} must be contiguous")
+
+
+def _nbytes(*ts: Optional[Tensor]) -> int:
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+def mass_lookup_work(c: Tensor, q: Tensor) -> Tuple[int, int]:
+    """B5: every state and query read, the answers (q's shape) written."""
+    n, m, k = q.shape
+    return 2 * n * m * k * k, _nbytes(c, q, q)
+
+
+def mass_lookup_indexed_work(store: Tensor, rows: Tensor, q: Tensor
+                             ) -> Tuple[int, int]:
+    """B4: the states of the wave's distinct rows (all B of them on a
+    fake tensor, which holds no data), the rows and queries read, the
+    answers written."""
+    b, m, k = q.shape
+    distinct = (rows.numel() if is_fake(rows)
+                else int(torch.unique(rows).numel()))
+    state = k * k * store.element_size()
+    return 2 * b * m * k * k, distinct * state + _nbytes(rows, q, q)
+
+
+def fused_decode_work(s: Tensor, q: Tensor, k: Tensor, v: Tensor
+                      ) -> Tuple[int, int]:
+    """B6: the state read and written, q, k, v read, o written."""
+    n, dk, dv = s.shape
+    return 4 * n * dk * dv, 2 * _nbytes(s) + _nbytes(q, k, v, v)
 
 
 def _check_lookup(name: str, c: Tensor, q: Tensor,
@@ -172,7 +212,13 @@ def _launch_lookup(lib, c: Tensor, rows: Optional[Tensor], q: Tensor
 def mass_lookup(c: Tensor, q: Tensor) -> Tensor:
     """Answer q: (N, M, K) against document states c: (N, K, K):
     o[n] = q[n] c[n]ᵀ, one launch."""
+    work = mass_lookup_work(c, q)
+    if is_fake(c):
+        _check_lookup("mass_lookup", c, q)
+        record_kernel("mass_lookup", work, "fake")
+        return torch.empty_like(q)
     if c.device.type == "cpu":
+        record_kernel("mass_lookup", work, "plain")
         return mass_lookup_ref(c, q)
     _need_cuda("mass_lookup", c)
     _check_lookup("mass_lookup", c, q)
@@ -181,6 +227,7 @@ def mass_lookup(c: Tensor, q: Tensor) -> Tensor:
         return torch.empty_like(q)
     o = _launch_lookup(load(), c, None, q)
     mass_lookup.launches += 1
+    record_kernel("mass_lookup", work, "kernel")
     return o
 
 
@@ -199,7 +246,15 @@ def mass_lookup_indexed(store: Tensor, rows: Tensor, q: Tensor, *,
     m = q.shape[1]
     if block_m is not None and m % block_m:
         q = F.pad(q, (0, 0, 0, -m % block_m))
+    def work():
+        return mass_lookup_indexed_work(store, rows, q)
+    if is_fake(store):
+        _check_lookup("mass_lookup_indexed", store, q, rows)
+        record_kernel("mass_lookup_indexed", work, "fake")
+        o = torch.empty_like(q)
+        return o if o.shape[1] == m else o[:, :m]
     if store.device.type == "cpu":
+        record_kernel("mass_lookup_indexed", work, "plain")
         return mass_lookup_indexed_ref(store, rows, q)[:, :m]
     _need_cuda("mass_lookup_indexed", store)
     _check_lookup("mass_lookup_indexed", store, q, rows)
@@ -208,6 +263,7 @@ def mass_lookup_indexed(store: Tensor, rows: Tensor, q: Tensor, *,
         return torch.empty_like(q)[:, :m]
     o = _launch_lookup(load(), store, rows, q)
     mass_lookup_indexed.launches += 1
+    record_kernel("mass_lookup_indexed", work, "kernel")
     return o[:, :m]
 
 
@@ -223,7 +279,13 @@ def fused_decode(s: Tensor, q: Tensor, k: Tensor, v: Tensor
     aliases its input state to its output. On the card, a state of
     Dk·Dv % 4 == 0 (the bulk route, ``decode_route``) must start on a
     16-byte boundary: a view at another offset raises ValueError."""
+    work = fused_decode_work(s, q, k, v)
+    if is_fake(s):
+        _check_decode(s, q, k, v)
+        record_kernel("fused_decode", work, "fake")
+        return torch.empty_like(v), s
     if s.device.type == "cpu":
+        record_kernel("fused_decode", work, "plain")
         o, s_new = decode_ref(s, q, k, v)
         s.copy_(s_new)
         return o, s
@@ -241,6 +303,7 @@ def fused_decode(s: Tensor, q: Tensor, k: Tensor, v: Tensor
             s.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
             o.data_ptr(), n, dk, dv, _DECODE_DTYPES[q.dtype], stream))
     fused_decode.launches += 1
+    record_kernel("fused_decode", work, "kernel")
     return o, s
 
 

@@ -76,8 +76,8 @@ from repro_torch.kernels.fused_recurrent import ref as FRref
 from repro_torch.models import layers as L
 from repro_torch.models import xla_attention as XA
 from repro_torch.sharding import (
-    Rules, constrain, dense_grad, local_call, replicated_like, split_last,
-    whole_dims)
+    Rules, constrain, dense_grad, grad_as_forward, kernel_site, local_call,
+    map_local, replicated_like, split_last, whole_dims, whole_if_uneven)
 
 Tensor = torch.Tensor
 Params = Dict[str, Tensor]
@@ -252,7 +252,11 @@ def _pad_head_dim(x: Tensor, h_pad: int, axis: int = 1) -> Tensor:
     if pad <= 0:
         return x
     widths = [0, 0] * (x.ndim - axis - 1) + [0, pad]
-    return F.pad(x, widths)
+    shape = list(x.shape)
+    shape[axis] = h_pad
+    # on a mesh each rank pads its block with the padded dim whole: torch
+    # 2.11's DTensor fails to plan F.pad's redistribution
+    return map_local(lambda t: F.pad(t, widths), whole_dims(x, axis), shape)
 
 
 # ---------------------------------------------------------------------------
@@ -286,8 +290,19 @@ def _project_qkv(p: Params, x: Tensor, cfg: ModelConfig
 def _merge_heads(p: Params, o: Tensor, x_dtype) -> Tensor:
     """o: (B, G, Hkv, T, Dh) → (B, T, D) through wo."""
     b, g, hkv, t, dh = o.shape
-    o = whole_dims(o, 2, 4).permute(0, 3, 1, 2, 4).reshape(
-        b, t, g * hkv * dh)
+    o = grad_as_forward(whole_dims(o, 2, 4).permute(0, 3, 1, 2, 4).reshape(
+        b, t, g * hkv * dh))
+    return o.to(x_dtype) @ p["wo"].to(x_dtype)
+
+
+def _merge_flat_heads(p: Params, o: Tensor, x_dtype) -> Tensor:
+    """o: (B, H, T, Dh) in the flat head order g·Hkv + j → (B, T, D)
+    through wo, the same product as ``_merge_heads``; on a mesh the
+    heads' split need not fall on whole groups of Hkv (16 heads over a
+    model axis of 16)."""
+    b, h, t, dh = o.shape
+    o = grad_as_forward(whole_if_uneven(o, 1).transpose(1, 2).reshape(
+        b, t, h * dh))
     return o.to(x_dtype) @ p["wo"].to(x_dtype)
 
 
@@ -378,14 +393,6 @@ def _groupnorm(p: Params, o: Tensor) -> Tensor:
 # kernel call sites on a mesh
 # ---------------------------------------------------------------------------
 
-def _kernel(fn, rules: Rules, args, names, out_names, **kw):
-    """``fn(*args)``; on a mesh on each rank's own blocks
-    (``sharding.local_call``)."""
-    if not rules.on_mesh:
-        return fn(*args)
-    return local_call(fn, rules, args, names, out_names, **kw)
-
-
 def _flash(qh: Tensor, k: Tensor, v: Tensor, cfg: ModelConfig,
            rules: Rules, kernel: bool) -> Tensor:
     """Causal attention over the flat q heads qh (B, H, T, Dh) with
@@ -463,7 +470,7 @@ def attention_apply(
     if cfg.attention_backend == "softmax":
         o_h = _flash(q.reshape(b, h, t, dh), k, v, cfg, rules,
                      attention_kernel)
-        y = _merge_heads(p, o_h.reshape(b, h // hkv, hkv, t, dh), x.dtype)
+        y = _merge_flat_heads(p, o_h, x.dtype)
         if not want_state:
             return y, None
         return y, AttnState(
@@ -478,14 +485,14 @@ def attention_apply(
         vh = torch.where(vmask, vh, 0).to(vh.dtype)
     qkv, chunk = (qh, kh, vh), cfg.linear_chunk
     if cfg.attention_backend == "linear" and want_state:
-        o_h, s_f = _kernel(
+        o_h, s_f = kernel_site(
             lambda *a: causal_linear_attention_chunked(
                 *a, chunk_size=chunk, normalize=cfg.linear_normalize),
             rules, qkv, (HEADS,) * 3, (HEADS, HEADS))
         zf = (constrain(kh.float().sum(dim=2), rules, "batch", "heads_state",
                         None) if cfg.linear_normalize else None)
     elif cfg.attention_backend == "linear":   # training: §3.3 backward
-        o_h = _kernel(
+        o_h = kernel_site(
             lambda *a: causal_linear_attention(
                 *a, chunk_size=chunk, normalize=cfg.linear_normalize,
                 kernel=attention_kernel),
@@ -495,12 +502,12 @@ def attention_apply(
         g = _pad_head_dim(_decay(p, x, cfg), hp)
         if vmask is not None:    # pad positions must not decay the state
             g = torch.where(vmask, g, 0.0)
-        o_h, s_f = _kernel(lambda *a: chunked_gla(*a, chunk_size=chunk),
+        o_h, s_f = kernel_site(lambda *a: chunked_gla(*a, chunk_size=chunk),
                            rules, qkv + (g,), (HEADS,) * 4, (HEADS, HEADS))
         o_h = _groupnorm(p, _first_heads(o_h, h))
         zf = None
     else:   # gated_linear training: B8 / B9's recompute backward
-        o_h = _kernel(
+        o_h = kernel_site(
             lambda *a: gated_linear_attention(*a, chunk_size=chunk,
                                               kernel=attention_kernel),
             rules, qkv + (_pad_head_dim(_decay(p, x, cfg), hp),),
@@ -508,8 +515,7 @@ def attention_apply(
         o_h = _groupnorm(p, _first_heads(o_h, h))
         s_f = zf = None
     state = AttnState(s=s_f, z=zf) if want_state else None
-    o = _first_heads(o_h, h).reshape(b, h // hkv, hkv, t, dh)
-    return _merge_heads(p, o, x.dtype), state
+    return _merge_flat_heads(p, _first_heads(o_h, h), x.dtype), state
 
 
 # ---------------------------------------------------------------------------
@@ -563,7 +569,7 @@ def _recurrent(p: Params, x: Tensor, state: AttnState, qh, kh, vh,
     qh, kh, vh = (_pad_head_dim(a, hp) for a in (qh, kh, vh))
     if cfg.attention_backend == "linear":
         z_names = None if state.z is None else ("batch", "heads_state", None)
-        o_w, s_new, z_new = _kernel(
+        o_w, s_new, z_new = kernel_site(
             lambda s, q, k, v, z, n: _recurrent_linear(s, q, k, v, z, cfg,
                                                        lens=n),
             rules, (state.s, qh, kh, vh, state.z, lens),
@@ -573,7 +579,7 @@ def _recurrent(p: Params, x: Tensor, state: AttnState, qh, kh, vh,
         new = state if rules.on_mesh else AttnState(s=s_new, z=z_new)
         return _first_heads(o_w, h), new
     g = _pad_head_dim(_decay(p, x, cfg), hp).expand(qh.shape)
-    o_w, s_new = _kernel(
+    o_w, s_new = kernel_site(
         lambda s, q, k, v, g_, n: _recurrent_gated(s, q, k, v, g_, cfg,
                                                    lens=n),
         rules, (state.s, qh, kh, vh, g, lens), (HEADS,) * 5 + (ROWS,),
@@ -702,9 +708,7 @@ def attention_decode(
             torch.as_tensor(active, device=x.device).to(torch.int32))
     o_w, new_state = _recurrent(p, x[:, None, :], state, qh, kh, vh, cfg,
                                 lens=lens, rules=rules)
-    o = o_w.reshape(b, cfg.n_heads // cfg.n_kv_heads, cfg.n_kv_heads, 1,
-                    cfg.head_dim)
-    return _merge_heads(p, o, x.dtype)[:, 0], new_state
+    return _merge_flat_heads(p, o_w, x.dtype)[:, 0], new_state
 
 
 def attention_decode_window(
@@ -855,8 +859,8 @@ def encode_cross_memory(p: Params, memory: Tensor, cfg: ModelConfig
     family; K and V as they are for softmax."""
     b, n, _ = memory.shape
     hkv, dh = cfg.n_kv_heads, cfg.head_dim
-    k = (memory @ p["wk"].to(memory.dtype)).reshape(b, n, hkv, dh)
-    v = (memory @ p["wv"].to(memory.dtype)).reshape(b, n, hkv, dh)
+    k = split_last(memory @ p["wk"].to(memory.dtype), hkv, dh)
+    v = split_last(memory @ p["wv"].to(memory.dtype), hkv, dh)
     k, v = k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)    # (B, Hkv, N, Dh)
     if cfg.attention_backend == "softmax":
         return CrossMemory(k=k, v=v)

@@ -118,14 +118,6 @@ def block_state_specs(kind: str, cfg: ModelConfig) -> Any:
     return A.attn_state_specs(cfg)
 
 
-def _no_model_axis(kind: str, cfg: ModelConfig, rules: Rules) -> None:
-    if rules.model_size > 1:
-        raise NotImplementedError(
-            f"{cfg.name}: a {kind} block under a model axis of "
-            f"{rules.model_size} waits for the next multi-device slice "
-            f"(ROADMAP A.7)")
-
-
 def block_state_init(kind: str, cfg: ModelConfig, batch: int, *,
                      max_len: Optional[int] = None,
                      lead: Tuple[int, ...] = (), device=None,
@@ -187,25 +179,26 @@ def block_apply(kind: str, p: Params, x: Tensor, cfg: ModelConfig, *,
     inclusive route and trains through B8/B9, an rwkv block prefills
     through B8's exclusive route (``attention_kernel``). ``rules``: the
     attention and FFN outputs are constrained to (batch, seq_sp, embed)
-    on a mesh, as JAX does; a mamba or rwkv block refuses a model axis
-    larger than 1."""
+    on a mesh, as JAX does; a mamba or rwkv block runs its kernel on each
+    rank's heads."""
     if kind == "shared_attn":
         p = shared
-    if kind in ("mamba", "rwkv"):
-        _no_model_axis(kind, cfg, rules)
     if kind == "mamba":
         if varlen is not None:
             raise ValueError(f"{cfg.name}: varlen prefill of a mamba block")
-        h, st = M.mamba2_apply(p["mamba"],
-                               L.apply_norm(cfg.norm, p["norm1"], x), cfg,
+        h, st = M.mamba2_apply(p["mamba"], _gather_seq(
+                                   L.apply_norm(cfg.norm, p["norm1"], x),
+                                   rules), cfg,
                                want_state=want_state,
-                               kernel=attention_kernel)
-        return x + h, st, None
+                               kernel=attention_kernel, rules=rules)
+        return x + constrain(h, rules, "batch", "seq_sp", "embed"), st, None
     if kind == "rwkv":
         if varlen is not None:
             raise ValueError(f"{cfg.name}: varlen prefill of an rwkv block")
-        x, st = R.rwkv6_apply(p, x, cfg, want_state=want_state,
-                              attention_kernel=attention_kernel)
+        x, st = R.rwkv6_apply(p, _gather_seq(x, rules), cfg,
+                              want_state=want_state,
+                              attention_kernel=attention_kernel,
+                              rules=rules)
         return x, st, None
     h1 = _gather_seq(L.apply_norm(cfg.norm, p["norm1"], x), rules)
     if kind == "cross":
@@ -237,15 +230,13 @@ def block_decode(kind: str, p: Params, x: Tensor, state: State,
     ``rules``: as in ``block_apply``."""
     if kind == "shared_attn":
         p = shared
-    if kind in ("mamba", "rwkv"):
-        _no_model_axis(kind, cfg, rules)
     if kind == "mamba":
         h, st = M.mamba2_decode(p["mamba"],
                                 L.apply_norm(cfg.norm, p["norm1"], x),
-                                state, cfg, active=active)
+                                state, cfg, active=active, rules=rules)
         return x + h, st
     if kind == "rwkv":
-        return R.rwkv6_decode(p, x, state, cfg, active=active)
+        return R.rwkv6_decode(p, x, state, cfg, active=active, rules=rules)
     h1 = L.apply_norm(cfg.norm, p["norm1"], x)
     if kind == "cross":
         att, st = _cross(p, h1[:, None], state, cfg)[:, 0], state

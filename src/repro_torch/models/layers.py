@@ -16,6 +16,8 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.sharding import replicated_like
+
 Tensor = torch.Tensor
 Params = Dict[str, Tensor]
 
@@ -29,8 +31,11 @@ def normal_matrices(gen: torch.Generator, shape: Tuple[int, ...],
     """Normal weights times ``scale``, in ``dtype``, drawn one (rows, cols)
     matrix at a time: an fp32 draw of a whole stacked tensor (an MoE
     layer's experts, yi-34b's 60 × 7,168 × 20,480 w_up) would need twice
-    its bf16 size again as transient memory."""
+    its bf16 size again as transient memory. Under ``FakeTensorMode``
+    (the dry run's shapes, no values) one empty tensor stands for them."""
     out = torch.empty(shape, dtype=dtype, device=gen.device)
+    if torch._C._get_dispatch_mode(torch._C._TorchDispatchModeKey.FAKE):
+        return out
     for w in out.view(-1, *shape[-2:]):
         w.copy_(torch.randn(shape[-2:], generator=gen, device=gen.device)
                 * scale)
@@ -164,9 +169,10 @@ def causal_conv1d(x: Tensor, w: Tensor, cache: Optional[Tensor] = None
     with y_t = Σ_j w[j] ⊙ xx[t + j] over xx = [cache | x], and new_cache
     the last K−1 inputs of xx, (B, K−1, C)."""
     k = w.shape[0]
-    if cache is None:
-        cache = torch.zeros((x.shape[0], k - 1, x.shape[-1]), dtype=x.dtype,
-                            device=x.device)
+    if cache is None:      # on a mesh a replicated DTensor, as x is one
+        cache = replicated_like(torch.zeros(
+            (x.shape[0], k - 1, x.shape[-1]), dtype=x.dtype,
+            device=x.device), x)
     xx = torch.cat([cache.to(x.dtype), x], dim=1)
     new_cache = xx[:, -(k - 1):] if k > 1 else cache
     t = x.shape[1]

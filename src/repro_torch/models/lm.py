@@ -367,26 +367,52 @@ def forward(params: Params, tokens: Tensor, cfg: ModelConfig, *,
 # loss
 # ---------------------------------------------------------------------------
 
+def _nll(lf: Tensor, labels: Tensor, z_loss: float) -> Tensor:
+    """Per-position token cross-entropy of fp32 logits with a whole
+    vocab, the max taken out of the graph; the label's logit gathered."""
+    m = lf.max(dim=-1, keepdim=True).values.detach()
+    lse = torch.log(torch.exp(lf - m).sum(dim=-1)) + m[..., 0]
+    nll = lse - lf.gather(-1, labels[..., None].long())[..., 0]
+    if z_loss:
+        nll = nll + z_loss * torch.square(lse)
+    return nll
+
+
 def cross_entropy(logits: Tensor, labels: Tensor, z_loss: float = 0.0
                   ) -> Tensor:
     """Mean token cross-entropy, in fp32, the max taken out of the graph
     (JAX ``cross_entropy``); the label's logit is gathered, which gives
-    the same value as JAX's masked sum without a (B, T, V) mask. On a
-    mesh (DTensor logits) the label's logit is JAX's masked sum, which
-    reduces over a sharded vocab as a sum does."""
+    the same value as JAX's masked sum without a (B, T, V) mask.
+
+    On a mesh (DTensor logits) whose vocab is whole on every rank (the
+    loss's (batch, seq_sp, None) logits) each rank sums its own rows'
+    losses (``local_map``; the labels split as the logits' rows) and
+    the sum is a partial one over the mesh: no rank holds another's
+    logits or their gradient. Logits split on the vocab take JAX's
+    masked sum, which reduces over a sharded vocab as a sum does."""
     lf = logits.float()
+    if not is_dtensor(lf):
+        return _nll(lf, labels, z_loss).mean()
+    mesh, last = lf.device_mesh, lf.ndim - 1
+    if is_dtensor(labels) and not any(p.is_shard(last) or p.is_partial()
+                                      for p in lf.placements):
+        from torch.distributed.tensor import Partial
+        from torch.distributed.tensor.experimental import local_map
+        labels = labels.redistribute(mesh, lf.placements)
+        total = local_map(
+            lambda a, b: _nll(a, b, z_loss).sum(),
+            out_placements=[Partial()] * mesh.ndim,
+            in_placements=(tuple(lf.placements), tuple(labels.placements)),
+            device_mesh=mesh)(lf, labels)
+        return total / labels.numel()
     m = lf.max(dim=-1, keepdim=True).values.detach()
     sum_exp = torch.exp(lf - m).sum(dim=-1)
     lse = torch.log(sum_exp) + m[..., 0]
-    if is_dtensor(lf):
-        col = replicated_like(torch.arange(lf.shape[-1], device=lf.device),
-                              lf)
-        label_logit = torch.where(col == labels[..., None], lf, 0.0).sum(-1)
-    else:
-        label_logit = lf.gather(-1, labels[..., None].long())[..., 0]
+    col = replicated_like(torch.arange(lf.shape[-1], device=lf.device), lf)
+    label_logit = torch.where(col == labels[..., None], lf, 0.0).sum(-1)
     nll = lse - label_logit
     if z_loss:
-        nll = nll + z_loss * torch.square(torch.log(sum_exp) + m[..., 0])
+        nll = nll + z_loss * torch.square(lse)
     return nll.mean()
 
 

@@ -35,6 +35,14 @@ decode, with g unclamped (JAX's asymmetry, kept). The decode state
 (``MambaState``: the conv window of the last K−1 inputs and the
 (H, d_state, head_dim) SSD matrices) is updated in place, inactive slots
 bit for bit.
+
+Under ``rules`` on a mesh (JAX ``mamba2.py:131-149``) the conv input is
+constrained to ``conv_dim`` and q, k, v to ``heads_lin``; the SSD call
+(B8 with or without its state, or B8/B9) runs on each rank's heads under
+``sharding.kernel_site``, and the heads are gathered again before the
+gated RMSNorm over d_inner. The decode state is split as
+``mamba_state_specs`` says: the conv window on ``conv_dim``, the SSD
+matrices on their heads.
 """
 
 from __future__ import annotations
@@ -48,11 +56,16 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.gated import gated_decode_step, gated_linear_attention
 from repro_torch.kernels.gated_linear_attention.ops import ssd_attention
 from repro_torch.models import layers as L
+from repro_torch.sharding import Rules, constrain, kernel_site, whole_dims
 
 Tensor = torch.Tensor
 Params = Dict[str, Tensor]
 
 PREFILL_CHUNK = 64
+NULL = Rules.null()
+# the logical names of a per-head SSD operand (B, H, T, D) on a mesh: the
+# divisibility-checked heads, since each rank's block must be whole
+SSD = ("batch", "heads", None, None)
 
 
 def _dims(cfg: ModelConfig) -> Tuple[int, int, int]:
@@ -158,21 +171,28 @@ def _gated_out(p: Params, y: Tensor, xh: Tensor, z: Tensor) -> Tensor:
     y, xh: (B, H, T, head_dim); z: (B, T, d_inner)."""
     b, h, t, n = y.shape
     y = y + p["d_skip"][None, :, None, None].to(y.dtype) * xh
-    y = y.transpose(1, 2).reshape(b, t, h * n)
+    y = whole_dims(y, 1).transpose(1, 2).reshape(b, t, h * n)
     y = L.rmsnorm({"scale": p["norm_scale"]}, y) * F.silu(z)
     return y @ p["out_proj"].to(y.dtype)
 
 
 def mamba2_apply(p: Params, x: Tensor, cfg: ModelConfig, *,
-                 want_state: bool = False, kernel: bool = True
+                 want_state: bool = False, kernel: bool = True,
+                 rules: Rules = NULL
                  ) -> Tuple[Tensor, Optional[MambaState]]:
     """Full-sequence Mamba-2, x: (B, T, D) → (B, T, D), and with
     ``want_state`` the decode state after the last position.
-    ``kernel=False`` runs the plain versions on a CUDA tensor."""
+    ``kernel=False`` runs the plain versions on a CUDA tensor.
+    ``rules``: on a mesh the SSD runs on each rank's heads and the state
+    comes back placed by ``mamba_state_specs``."""
     proj = x @ p["in_proj"].to(x.dtype)
     z, xbc, dt_raw = _split_proj(proj, cfg)
+    xbc = constrain(xbc, rules, "batch", None, "conv_dim")
     xbc_conv, conv_cache = L.causal_conv1d(xbc, p["conv_w"])
     q, k, v, g, xh = _ssd_inputs(F.silu(xbc_conv), dt_raw, p, cfg)
+    q, k, v = (constrain(a, rules, "batch", "heads_lin", None, None)
+               for a in (q, k, v))
+    chunk = min(cfg.linear_chunk, PREFILL_CHUNK)
     if want_state:
         if kernel and x.is_cuda and torch.is_grad_enabled() and any(
                 a.requires_grad for a in (q, k, v, g)):
@@ -180,35 +200,45 @@ def mamba2_apply(p: Params, x: Tensor, cfg: ModelConfig, *,
                 f"{cfg.name}: the Mamba-2 prefill (B8's inclusive route "
                 f"with its state) is forward-only; train through "
                 f"lm_loss, whose SSD runs B8/B9")
-        y, s_f = ssd_attention(q, k, v, g,
-                               chunk=min(cfg.linear_chunk, PREFILL_CHUNK),
-                               kernel=kernel)
+        y, s_f = kernel_site(
+            lambda *a: ssd_attention(*a, chunk=chunk, kernel=kernel),
+            rules, (q, k, v, g), (SSD,) * 4, (SSD, SSD))
     else:
-        y = gated_linear_attention(
-            q, k, v, g, chunk_size=min(cfg.linear_chunk, PREFILL_CHUNK),
-            kernel=kernel)
+        y = kernel_site(
+            lambda *a: gated_linear_attention(*a, chunk_size=chunk,
+                                              kernel=kernel),
+            rules, (q, k, v, g), (SSD,) * 4, (SSD,))
     out = _gated_out(p, y, xh, z)
     if not want_state:
         return out, None
-    return out, MambaState(conv=conv_cache.contiguous(), ssd=s_f)
+    return out, MambaState(
+        conv=constrain(conv_cache.contiguous(), rules, "batch", None,
+                       "conv_dim"), ssd=s_f)
 
 
 def mamba2_decode(p: Params, x: Tensor, state: MambaState, cfg: ModelConfig,
-                  *, active: Optional[Tensor] = None
+                  *, active: Optional[Tensor] = None, rules: Rules = NULL
                   ) -> Tuple[Tensor, MambaState]:
     """One decode step, x (B, D): O(d_state·head_dim) a head, no conv or
     attention over the history. The state is updated in place; with
     ``active`` (B,) bool only the active rows (JAX's per-row select), the
-    others bit for bit."""
+    others bit for bit. ``rules``: on a mesh the state is placed by
+    ``mamba_state_specs`` and each rank updates its own block."""
     proj = x[:, None, :] @ p["in_proj"].to(x.dtype)
     z, xbc, dt_raw = _split_proj(proj, cfg)
+    xbc = constrain(xbc, rules, "batch", None, "conv_dim")
     xx = torch.cat([state.conv.to(x.dtype), xbc], dim=1)     # (B, K, conv)
     y_conv = torch.einsum("bkc,kc->bc", xx, p["conv_w"].to(x.dtype))
     q, k, v, g, xh = _ssd_inputs(F.silu(y_conv)[:, None], dt_raw, p, cfg)
-    o, ssd = gated_decode_step(state.ssd, q[:, :, 0], k[:, :, 0], v[:, :, 0],
-                               g[:, :, 0])
+    # on a mesh each rank steps its own heads (the SSD state's split)
+    o, ssd = kernel_site(gated_decode_step, rules,
+                         (state.ssd, q[:, :, 0], k[:, :, 0], v[:, :, 0],
+                          g[:, :, 0]), (SSD,) + (SSD[:3],) * 4,
+                         (SSD[:3], SSD))
     out = _gated_out(p, o[:, :, None], xh, z)[:, 0]
-    for dst, src in zip(state, (xx[:, 1:], ssd)):
+    for dst, src, names in zip(state, (xx[:, 1:], ssd),
+                               mamba_state_specs(cfg)):
+        src = constrain(src, rules, *names)
         if active is not None:
             src = torch.where(active.reshape(-1, *[1] * (src.ndim - 1)),
                               src.to(dst.dtype), dst)

@@ -45,7 +45,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
-from repro_torch.sharding import Rules, local_call, whole_dims
+from repro_torch.sharding import Rules, constrain, local_call, whole_dims
 from repro_torch.tree import leaves, tree_map
 
 Tensor = torch.Tensor
@@ -327,7 +327,8 @@ def moe_apply_shard_map(p: Params, x: Tensor, cfg: ModelConfig,
          ("experts", "fsdp", None), ("experts", None, "fsdp")),
         (x_names, ()), out_shapes=(x.shape, ()), grad_partial=(1,))
     if m.n_shared > 0:    # the dense shared experts on the whole sequence
-        out = out + L.mlp(p["shared"], whole_dims(x, 1), "swiglu")
+        out = out + constrain(L.mlp(p["shared"], whole_dims(x, 1), "swiglu"),
+                              rules, *x_names)
     return out, aux
 
 

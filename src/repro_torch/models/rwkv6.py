@@ -35,6 +35,13 @@ decode state (``RWKVState``: two token-shift rows and the N×N wkv matrix
 per head) is updated in place, inactive slots bit for bit.
 
 Channel-mix: out = σ(W_r x_r) ⊙ W_v relu(W_k x_k)² (squared-ReLU FFN).
+
+Under ``rules`` on a mesh (JAX ``rwkv6.py:154-186``) r, k and v are
+constrained to ``heads_lin``, and the prefill (B8's exclusive route, or
+its backward under autograd) runs on each rank's heads with their u
+under ``sharding.kernel_site``; the heads are gathered again before the
+output gate. The decode state is split as ``rwkv_state_specs`` says: the
+wkv matrices on their heads.
 """
 
 from __future__ import annotations
@@ -48,11 +55,16 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.gated import MIN_LOG_DECAY, gated_decode_step
 from repro_torch.kernels.gated_linear_attention.ops import rwkv6_attention
 from repro_torch.models import layers as L
+from repro_torch.sharding import (
+    Rules, constrain, grad_as_forward, kernel_site, split_last, whole_dims)
 
 Tensor = torch.Tensor
 Params = Dict[str, Tensor]
 
 PREFILL_CHUNK = 64
+NULL = Rules.null()
+# the logical names of a per-head operand (B, H, T, N) at the kernel site
+HEADS = ("batch", "heads", None, None)
 
 
 def _dims(cfg: ModelConfig) -> Tuple[int, int]:
@@ -164,14 +176,15 @@ def _mix(x: Tensor, prev: Tensor, mu: Tensor) -> Tensor:
 
 def _decay_log(p: Params, xw: Tensor) -> Tensor:
     """log w_t = −exp(w̃_t) ≤ 0, w̃ = w0 + tanh(x W1) W2, fp32 (B, T, D)."""
-    lora = torch.tanh(xw @ p["w_decay1"].to(xw.dtype)) \
-        @ p["w_decay2"].to(xw.dtype)
+    lora = grad_as_forward(torch.tanh(xw @ p["w_decay1"].to(xw.dtype))
+                           @ p["w_decay2"].to(xw.dtype))
     return -torch.exp(p["w_decay0"] + lora.float())
 
 
 def _time_mix(p: Params, x: Tensor, cfg: ModelConfig,
               shift: Optional[Tensor], wkv: Optional[Tensor], single: bool,
-              kernel: bool = True) -> Tuple[Tensor, Tensor]:
+              kernel: bool = True, rules: Rules = NULL
+              ) -> Tuple[Tensor, Tensor]:
     """Full sequence (``single`` False: x (B, T, D), the prefill through
     ``rwkv6_attention``) or one decode step (x (B, D), from ``shift`` and
     ``wkv``). Returns (out, the new wkv state fp32); nothing is written
@@ -186,26 +199,33 @@ def _time_mix(p: Params, x: Tensor, cfg: ModelConfig,
     t = xs.shape[1]
 
     def heads(a):                           # (B, T, D) → (B, H, T, N)
-        return a.reshape(b, t, h, n).transpose(1, 2)
-    r = heads(xr @ p["w_r"].to(x.dtype))
-    k = heads(xk @ p["w_k"].to(x.dtype))
-    v = heads(xv @ p["w_v"].to(x.dtype))
+        return split_last(a, h, n).transpose(1, 2)
+    r, k, v = (constrain(heads(a @ p[f"w_{c}"].to(x.dtype)), rules,
+                         "batch", "heads_lin", None, None)
+               for a, c in ((xr, "r"), (xk, "k"), (xv, "v")))
     g = F.silu(xg @ p["w_g"].to(x.dtype))
     lw = heads(_decay_log(p, xw))
 
-    if single:
-        o, wkv_new = gated_decode_step(wkv, r[:, :, 0], k[:, :, 0],
-                                       v[:, :, 0], lw[:, :, 0],
-                                       exclusive=True, u=p["u_bonus"])
+    if single:     # on a mesh each rank steps its own heads
+        o, wkv_new = kernel_site(
+            lambda *a: gated_decode_step(*a[:5], exclusive=True, u=a[5]),
+            rules, (wkv, r[:, :, 0], k[:, :, 0], v[:, :, 0], lw[:, :, 0],
+                    p["u_bonus"]),
+            (HEADS,) + (HEADS[:3],) * 4 + (("heads", None),),
+            (HEADS[:3], HEADS))
         o = o[:, None]                              # (B, 1, H, N)
     else:
-        o, wkv_new = rwkv6_attention(
-            r, k, v, lw, p["u_bonus"],
-            chunk=min(cfg.linear_chunk, PREFILL_CHUNK),
-            min_log_decay=MIN_LOG_DECAY, kernel=kernel)
+        chunk = min(cfg.linear_chunk, PREFILL_CHUNK)
+        o, wkv_new = kernel_site(
+            lambda *a: rwkv6_attention(*a, chunk=chunk,
+                                       min_log_decay=MIN_LOG_DECAY,
+                                       kernel=kernel),
+            rules, (r, k, v, lw, p["u_bonus"]),
+            (HEADS,) * 4 + (("heads", None),), (HEADS, HEADS),
+            grad_partial=(4,))     # u: each rank's du covers its rows
         o = o.transpose(1, 2)                       # (B, T, H, N)
     o = L.groupnorm_heads(o, p["gn_scale"].float(), p["gn_bias"].float())
-    o = (o.reshape(b, t, d) * g).to(x.dtype)
+    o = (whole_dims(o, 2).reshape(b, t, d) * g).to(x.dtype)
     out = o @ p["w_o"].to(x.dtype)
     return (out[:, 0] if single else out), wkv_new
 
@@ -225,17 +245,22 @@ def _channel_mix(p: Params, x: Tensor, shift: Optional[Tensor],
 
 
 def rwkv6_apply(p: Params, x: Tensor, cfg: ModelConfig, *,
-                want_state: bool = False, attention_kernel: bool = True
+                want_state: bool = False, attention_kernel: bool = True,
+                rules: Rules = NULL
                 ) -> Tuple[Tensor, Optional[RWKVState]]:
     """Full RWKV-6 block (time-mix + channel-mix, layernorm residuals) on
     x (B, T, D). ``attention_kernel=False`` runs the prefill's plain
-    version on a CUDA tensor."""
+    version on a CUDA tensor. ``rules``: on a mesh the prefill runs on
+    each rank's heads and the wkv state comes back placed by
+    ``rwkv_state_specs``."""
+    whole = ("batch", None, "embed")     # on a mesh: the sequence whole
     h1 = L.layernorm(p["ln1"], x)
     att, wkv = _time_mix(p, h1, cfg, None, None, single=False,
-                         kernel=attention_kernel)
-    x = x + att
+                         kernel=attention_kernel, rules=rules)
+    x = x + constrain(att, rules, *whole)
     h2 = L.layernorm(p["ln2"], x)
-    x = x + _channel_mix(p, h2, None, single=False)
+    x = x + constrain(_channel_mix(p, h2, None, single=False), rules,
+                      *whole)
     state = None
     if want_state:
         state = RWKVState(shift_att=h1[:, -1].clone(),
@@ -244,18 +269,21 @@ def rwkv6_apply(p: Params, x: Tensor, cfg: ModelConfig, *,
 
 
 def rwkv6_decode(p: Params, x: Tensor, state: RWKVState, cfg: ModelConfig,
-                 *, active: Optional[Tensor] = None) -> Tuple[Tensor,
-                                                              RWKVState]:
+                 *, active: Optional[Tensor] = None, rules: Rules = NULL
+                 ) -> Tuple[Tensor, RWKVState]:
     """One decode step, x (B, D): O(head_dim²) per head, O(1) in context
     length. The state is updated in place; with ``active`` (B,) bool only
-    the active rows (JAX's per-row select), the others bit for bit."""
+    the active rows (JAX's per-row select), the others bit for bit.
+    ``rules``: on a mesh the state is placed by ``rwkv_state_specs`` and
+    each rank updates its own block."""
     h1 = L.layernorm(p["ln1"], x)
     att, wkv = _time_mix(p, h1, cfg, state.shift_att, state.wkv,
-                         single=True)
+                         single=True, rules=rules)
     x = x + att
     h2 = L.layernorm(p["ln2"], x)
     x = x + _channel_mix(p, h2, state.shift_ffn, single=True)
-    for dst, src in zip(state, (h1, h2, wkv)):
+    for dst, src, names in zip(state, (h1, h2, wkv), rwkv_state_specs(cfg)):
+        src = constrain(src, rules, *names)
         if active is not None:
             src = torch.where(active.reshape(-1, *[1] * (src.ndim - 1)),
                               src.to(dst.dtype), dst)

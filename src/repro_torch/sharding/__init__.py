@@ -302,6 +302,32 @@ class _DenseGrad(torch.autograd.Function):
         return g.clone(memory_format=torch.contiguous_format)
 
 
+class _GradAsForward(torch.autograd.Function):
+    """Identity whose backward gives the gradient the placements of the
+    forward value: DTensor runs the backward of a reshape on the
+    gradient's placements, which may split a dim the reshape cannot."""
+
+    @staticmethod
+    def forward(ctx, x):
+        from torch.distributed.tensor import Replicate
+        # a partial sum's gradient is the same on every rank
+        ctx.placements = tuple(Replicate() if p.is_partial() else p
+                               for p in x.placements)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if tuple(g.placements) == ctx.placements:
+            return g
+        return g.redistribute(g.device_mesh, ctx.placements)
+
+
+def grad_as_forward(x):
+    """Put after a reshape whose gradient may come back split unevenly,
+    on a DTensor."""
+    return _GradAsForward.apply(x) if is_dtensor(x) else x
+
+
 def dense_grad(x):
     """Put after a reshape that a permute follows, on a DTensor."""
     return _DenseGrad.apply(x) if is_dtensor(x) else x
@@ -337,6 +363,19 @@ def whole_dims(x, *dims: int):
           for p in x.placements]
     return x if pl == list(x.placements) else x.redistribute(
         x.device_mesh, pl)
+
+
+def whole_if_uneven(x, dim: int):
+    """``x`` with ``dim`` gathered where the mesh dims that split it do
+    not divide its size (56 heads over 16 ranks): DTensor cannot reshape
+    an uneven split, nor the gradient that flows back through it."""
+    if not is_dtensor(x):
+        return x
+    n = 1
+    for i, p in enumerate(x.placements):
+        if p.is_shard(dim % x.ndim):
+            n *= x.device_mesh.size(i)
+    return x if x.shape[dim] % n == 0 else whole_dims(x, dim % x.ndim)
 
 
 def map_local(fn: Callable, x, shape: Sequence[int]):
@@ -452,3 +491,12 @@ def local_call(fn: Callable, rules: Rules, args: Sequence[Any],
                        in_grad_placements=tuple(grad_pl), device_mesh=mesh,
                        redistribute_inputs=True)
     return mapped(*wrapped)
+
+
+def kernel_site(fn: Callable, rules: Rules, args: Sequence[Any],
+                names: Sequence[Names], out_names: Sequence[Names], **kw):
+    """``fn(*args)``; on a mesh, :func:`local_call` on each rank's own
+    blocks."""
+    if not rules.on_mesh:
+        return fn(*args)
+    return local_call(fn, rules, args, names, out_names, **kw)

@@ -23,7 +23,11 @@ parametrised tests below then assert each result:
 - GPipe over (stage 2, data 1, model 2) against the plain loss and
   gradients;
 - ``launch/train.py --mesh smoke`` against ``--mesh none`` (losses), and
-  its checkpoint (whole arrays, written by rank 0) resumed on the mesh.
+  its checkpoint (whole arrays, written by rank 0) resumed on the mesh;
+- zamba2-7b (one unit of its smoke config: Mamba-2 blocks and the shared
+  attention) and rwkv6-1.6b smoke under a model axis: ``decode_step``
+  logits on (2, 2) and (1, 4), and ``lm_loss`` with its gradients on
+  (2, 2), against null rules and JAX's ``decode_step`` / ``lm_loss``.
 
 Tolerances: fp32 within 1e-5 relative for losses and normwise 1e-4
 (max|Δ| over max|reference|) for gradients, parameters and logits;
@@ -59,6 +63,8 @@ DECODE = [("linear", (2, 2), {}), ("gated_linear", (2, 2), {}),
 DECODE_IDS = [f"{b}-{m[0]}x{m[1]}" + ("-6heads" if kw else "")
               for b, m, kw in DECODE]
 RESTORE_MESHES = [(2, 2), (4, 1), (1, 4)]
+SSM = ["zamba2-7b", "rwkv6-1.6b"]
+SSM_MESHES = [(2, 2), (1, 4)]
 
 _RANKS = r'''
 import dataclasses, os, sys
@@ -246,6 +252,37 @@ def checks(rank, tmp):
             leaves(again.params), leaves(meshed["params"]))),
         mesh_shape=dict(loop.rules.mesh_shape))
     mark("train_cli")
+
+    # -- Mamba-2 and RWKV-6 under a model axis ----------------------------
+    out["ssm"] = []
+    for case in inp["ssm"]:
+        scfg, sp, res = case["cfg"], case["params"], {}
+        for shape in inp["ssm_meshes"]:
+            srules = rules if shape == (2, 2) else Rules.for_mesh(
+                make_mesh(shape, ("data", "model"), device="cpu"))
+            dp = distribute_tree(clone(sp), lm.param_specs(scfg), srules)
+            nb = case["tokens"][0].shape[0]
+            st0 = lm.init_decode_state(scfg, nb, max_len=8)
+            st1 = lm.init_decode_state(scfg, nb, max_len=8, rules=srules)
+            ref, got = [], []
+            with torch.no_grad():
+                for i, tok in enumerate(case["tokens"]):
+                    pos = torch.tensor(i, dtype=torch.int32)
+                    a, st0 = lm.decode_step(sp, st0, tok, pos, scfg)
+                    b, st1 = lm.decode_step(dp, st1, tok, pos, scfg,
+                                            rules=srules)
+                    ref.append(a)
+                    got.append(full(b))
+            res[shape] = dict(ref=ref, got=got)
+        loss1, g1 = grads_of(lambda p: lm.lm_loss(p, case["batch"], scfg)[0],
+                             clone(sp))
+        loss2, g2 = grads_of(
+            lambda p: lm.lm_loss(p, case["batch"], scfg, rules=rules)[0],
+            distribute_tree(clone(sp), lm.param_specs(scfg), rules))
+        res["train"] = dict(loss1=loss1, loss2=full(loss2), g1=list(g1),
+                            g2=[full(g) for g in g2])
+        out["ssm"].append(res)
+    mark("ssm")
     return out
 
 
@@ -344,6 +381,25 @@ def run(tmp_path_factory):
     inputs.update(ckpt=str(tmp / "jax_ck"),
                   ckpt_like={k: torch.from_numpy(v) for k, v in ck.items()},
                   ckpt_specs={"w": ("fsdp", "ffn"), "emb": ("vocab", None)})
+    # zamba2-7b's smoke config cut to one unit (its tail dropped) and
+    # rwkv6-1.6b's, for the Mamba-2 / RWKV-6 blocks under a model axis
+    inputs.update(ssm=[], ssm_meshes=SSM_MESHES)
+    jssm = []
+    for i, arch in enumerate(SSM):
+        jc = dataclasses.replace(jax_smoke_config(arch), dtype="float32")
+        tc = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+        if arch == "zamba2-7b":
+            jc = dataclasses.replace(jc, n_layers=3, n_repeats=1, tail=())
+            tc = dataclasses.replace(tc, n_layers=3, n_repeats=1, tail=())
+        p = _np(jlm.init_params(jax.random.PRNGKey(20 + i), jc))
+        toks = rng.integers(0, jc.vocab_size, (2, B)).astype(np.int32)
+        st = rng.integers(0, jc.vocab_size, (2, B, T)).astype(np.int32)
+        inputs["ssm"].append(dict(
+            cfg=tc, params=convert.params_from_jax(p, tc, device="cpu"),
+            tokens=[torch.from_numpy(t).long() for t in toks],
+            batch={"tokens": torch.from_numpy(st[0]).long(),
+                   "labels": torch.from_numpy(st[1]).long()}))
+        jssm.append((jc, p, toks, st))
     torch.save(inputs, tmp / "inputs.tmp")
     os.replace(tmp / "inputs.tmp", tmp / "inputs.pt")
 
@@ -370,6 +426,24 @@ def run(tmp_path_factory):
     mo, maux = jax.jit(lambda p, x: jmoe.moe_apply(p, x, me, JRules.null()))(
         jax.tree.map(jnp.asarray, mpj), jnp.asarray(mx))
     refs["moe"] = (np.asarray(mo), float(maux))
+
+    refs["ssm"] = []
+    for jc, p, toks, st in jssm:
+        jp_ = jax.tree.map(jnp.asarray, p)
+        state = jlm.init_decode_state(jc, B, 8)
+        step = jax.jit(lambda p_, s, t, i, jc=jc: jlm.decode_step(
+            p_, s, t, i, jc, JRules.null()))
+        logits = []
+        for i, t in enumerate(toks):
+            lg, state = step(jp_, state, jnp.asarray(t), jnp.int32(i))
+            logits.append(np.asarray(lg))
+        sb = {"tokens": jnp.asarray(st[0]), "labels": jnp.asarray(st[1])}
+        sl, sg = jax.jit(jax.value_and_grad(
+            lambda p_, jc=jc, sb=sb: jlm.lm_loss(p_, sb, jc,
+                                                 JRules.null())[0]))(jp_)
+        refs["ssm"].append(dict(
+            decode=logits, loss=float(sl),
+            grads=[np.asarray(g) for g in jax.tree.leaves(sg)]))
 
     log, _ = proc.communicate(timeout=600)
     assert proc.returncode == 0, log[-4000:]
@@ -478,5 +552,34 @@ def test_ranks_ran_every_check(run):
     first sharding propagation of each op dominates) go to the log."""
     out, _ = run
     assert list(out["seconds"]) == ["train", "decode", "moe", "restore",
-                                    "gpipe", "train_cli"]
+                                    "gpipe", "train_cli", "ssm"]
     print({k: round(v, 1) for k, v in out["seconds"].items()})
+
+
+# -- Mamba-2 and RWKV-6 under a model axis ------------------------------------
+
+@pytest.mark.parametrize("mesh", SSM_MESHES,
+                         ids=[f"{a}x{b}" for a, b in SSM_MESHES])
+@pytest.mark.parametrize("case", range(len(SSM)), ids=SSM)
+def test_ssm_decode_under_model_axis_matches_null_rules_and_jax(run, case,
+                                                               mesh):
+    out, refs = run
+    dec = out["ssm"][case][mesh]
+    for got, ref, want in zip(dec["got"], dec["ref"],
+                              refs["ssm"][case]["decode"]):
+        assert _close(got, ref, 1e-5)
+        assert _close(ref, want)
+
+
+@pytest.mark.parametrize("case", range(len(SSM)), ids=SSM)
+def test_ssm_loss_and_grads_under_model_axis_match_null_rules_and_jax(run,
+                                                                     case):
+    out, refs = run
+    tr, want = out["ssm"][case]["train"], refs["ssm"][case]
+    assert abs(float(tr["loss2"]) - float(tr["loss1"])) <= \
+        1e-5 * abs(float(tr["loss1"]))
+    assert abs(float(tr["loss1"]) - want["loss"]) <= 1e-5 * abs(want["loss"])
+    assert len(tr["g1"]) == len(want["grads"])
+    for a, b, c in zip(tr["g2"], tr["g1"], want["grads"]):
+        assert _close(a, b)
+        assert _close(b, c)

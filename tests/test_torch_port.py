@@ -68,11 +68,42 @@ def test_port_imports_no_jax_and_nothing_of_repro():
                    "serving/fleet.py", "sharding/__init__.py",
                    "launch/mesh.py", "runtime/elastic.py",
                    "checkpoint/elastic.py", "pipeline/__init__.py",
-                   "pipeline/gpipe.py"):
+                   "pipeline/gpipe.py", "launch/specs.py",
+                   "launch/roofline.py", "launch/hlo.py",
+                   "launch/dryrun.py"):
         assert port / module in files, module
     bad = [(str(f.relative_to(ROOT)), m) for f in files
            for m in _imported_roots(f) if m in FORBIDDEN]
     assert not bad, bad
+
+
+def _jax_exports(init: Path):
+    """The public names a JAX package ``__init__`` defines or imports
+    from the package (not the third-party modules it imports)."""
+    names = set()
+    for node in ast.parse(init.read_text()).body:
+        if isinstance(node, ast.ImportFrom) and node.level == 0 and \
+                node.module.split(".")[0] == "repro":
+            names |= {a.asname or a.name for a in node.names}
+        elif isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, ast.Assign):
+            names |= {t.id for t in node.targets if isinstance(t, ast.Name)}
+    return {n for n in names if not n.startswith("_")}
+
+
+JAX_INITS = sorted((ROOT / "src" / "repro").rglob("__init__.py"))
+
+
+@pytest.mark.parametrize(
+    "init", JAX_INITS,
+    ids=[str(p.parent.relative_to(ROOT / "src")) for p in JAX_INITS])
+def test_port_package_exports_every_name_jax_exports(init):
+    import importlib
+    rel = init.parent.relative_to(ROOT / "src" / "repro").parts
+    port = importlib.import_module(".".join(("repro_torch",) + rel))
+    missing = sorted(n for n in _jax_exports(init) if not hasattr(port, n))
+    assert not missing, f"{port.__name__} lacks {missing}"
 
 
 def _env():
